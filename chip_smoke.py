@@ -5,18 +5,30 @@
 1. builds every kernel of koboldcpp_tpu_torch/csrc/ (one nvcc per source,
    all at once) and prints the build time and the card's name and power
    limit;
-2. holds each kernel against its plain PyTorch version on the card at the
-   TinyLlama-1.1B shapes, with the max error against its stated tolerance
-   and the times of the kernel, the plain version, one PyTorch library call
-   computing the same function, and the least time the card could take;
+2. holds each kernel (K1, K2, K7, K3, K5, K8) against its plain PyTorch
+   version on the card at the TinyLlama-1.1B shapes (and the fixture's
+   widths), with the max error against its stated tolerance and the times
+   of the kernel, the plain version, one PyTorch library call computing the
+   same function (where there is one), and the least time the card could
+   take; K7's rows equal K1 on each row alone, and K8 over a shuffled page
+   table equals K5 on the same history laid out contiguously, bit for bit;
 3. serves a synthetic TinyLlama-1.1B q4_k model through Engine: a ~300
    token prompt (prefill through K3), 128 greedy tokens (K1 and K5), the
    same prompt again (fast-forward) and a prompt that forces a context
    shift, and checks that K1, K3 and K5 ran;
-4. serves tests/fixtures/refgguf/tiny-q4_k_m.gguf over HTTP in-process and
-   checks that K2 ran, and that the fixture's logits on the card agree with
-   the reference runtime's goldens;
-5. prints one {"kernels": [...]} line, then the {"ok": true, ...} line.
+4. serves the same model through BatchedEngine (8 slots, context 2048),
+   on the slot cache and on the paged pool (P=64): 8 concurrent greedy
+   requests of 100-300 prompt tokens and 128 new tokens each, which must
+   get the single-stream Engine's tokens (a step where the two parts must
+   be a near-tie of the single-stream logits, and is printed) and the same
+   tokens paged as on the slot cache; then 7 greedy + 1 stochastic
+   request; prints the aggregate tokens/s and the device idle share of 32
+   batched steps, and checks that K7, K8, K5 and K3 ran;
+5. serves tests/fixtures/refgguf/tiny-q4_k_m.gguf over HTTP in-process,
+   single-stream (checks that K2 ran, and that the fixture's logits on the
+   card agree with the reference runtime's goldens) and with multiuser=4
+   (4 concurrent requests, each getting the reply it gets alone);
+6. prints one {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 Any failed check raises, so the script exits nonzero. It exits nonzero,
 printing no result, when no GPU is present.
@@ -40,6 +52,7 @@ if not torch.cuda.is_available():
 
 from koboldcpp_tpu_torch.device import card_info  # noqa: E402
 from koboldcpp_tpu_torch.engine import Engine, GenParams  # noqa: E402
+from koboldcpp_tpu_torch.engine import batch_engine  # noqa: E402
 from koboldcpp_tpu_torch.models import llama  # noqa: E402
 from koboldcpp_tpu_torch.models.loader import load_model  # noqa: E402
 from koboldcpp_tpu_torch.models.synthetic import (  # noqa: E402
@@ -65,7 +78,12 @@ KERNELS = {
            "koboldcpp_tpu/ops/quant_matmul.py:1631"),
     "K5": ("flash_decode", "koboldcpp_tpu_torch/csrc/flash_decode.cu",
            "koboldcpp_tpu/ops/flash_decode.py:248"),
+    "K7": ("q4k_matvec_t", "koboldcpp_tpu_torch/csrc/q4k_matvec.cu",
+           "koboldcpp_tpu/ops/quant_matmul.py:1349"),
+    "K8": ("flash_decode_paged", "koboldcpp_tpu_torch/csrc/flash_decode.cu",
+           "koboldcpp_tpu/ops/flash_decode.py:718"),
 }
+NEAR_TIE = 2 ** -6  # logits this close may pick either token (bf16 steps)
 CASES: dict[str, list[dict]] = {k: [] for k in KERNELS}
 
 _flush = None
@@ -105,17 +123,20 @@ def _check(ok: bool, what) -> None:
 
 def _record(kid: str, what: str, err: float, tol: float, kernel, plain,
             library, nbytes: int, flops: int = 0) -> None:
+    """library: one PyTorch call computing the same function, or None
+    where there is none."""
     _check(err <= tol, f"{kid} {what}: max error {err} > {tol}")
     bound, by = _bound_ms(nbytes, flops)
     case = {"case": what, "max_abs_err": err, "tol": tol,
             "ms": _time_ms(kernel), "plain_ms": _time_ms(plain, 5),
-            "library_ms": _time_ms(library), "bound_ms": bound,
-            "bound_by": by}
+            "library_ms": None if library is None else _time_ms(library),
+            "bound_ms": bound, "bound_by": by}
     CASES[kid].append(case)
+    lib = ("none" if library is None
+           else f"{case['library_ms']:.4f} ms")
     print(f"{kid} {what}: max_abs_err {err:.3g} (tol {tol:.3g}) "
           f"kernel {case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, "
-          f"library {case['library_ms']:.4f} ms, bound {bound:.4f} ms "
-          f"({by})", flush=True)
+          f"library {lib}, bound {bound:.4f} ms ({by})", flush=True)
 
 
 def _nbytes(*ts) -> int:
@@ -160,6 +181,42 @@ def phase_matvec(rng) -> None:
                     lambda: torch.matmul(xr, w.t()),
                     _nbytes(*qt.data.values(), x) + out_f * 2)
             del w
+
+
+K7_CASES = [(name, shape, T) for name, shape in (
+    ("wqkv", (2560, 2048)), ("w_gateup", (11264, 2048)), ("wo", (2048, 2048)),
+    ("w_down", (2048, 5632)), ("output", (32000, 2048))) for T in (2, 4, 8)]
+K7_CASES += [(name, shape, T) for name, shape in (
+    ("fixture wqkv", (512, 256)), ("fixture wo", (256, 256))) for T in (2, 4)]
+
+
+def phase_batched_matvec(rng) -> None:
+    """K7 at the 1.1B shapes at T = 2, 4, 8 (int8 variant) and at the
+    fixture's in_f 256 at T = 2, 4 (bf16 variant); each row must equal K1
+    on that row alone, bit for bit."""
+    for name, (out_f, in_f), T in K7_CASES:
+        qt = rand_q4k(rng, out_f, in_f, DEV)
+        x = torch.from_numpy(rng.standard_normal((T, in_f)).astype(
+            np.float32)).to(DEV).bfloat16()
+        i8 = in_f >= 512
+        y = qm.q4k_matvec_t(x, qt, i8)
+        ref = qm.q4k_matvec_t_plain(x, qt, i8)
+        alone = [qm.q4k_matvec(x[t], qt, i8) for t in range(T)]
+        torch.cuda.synchronize()
+        for t in range(T):
+            _check(torch.equal(y[t:t + 1], alone[t]),
+                   f"K7 {name} T={T}: row {t} differs from K1 on it alone")
+        # K1's tolerance: exact int8 group dots (bf16 variant: f32 dots of
+        # the same values), f32 sums in another order, bf16 output
+        err = (y.float() - ref.float()).abs().max().item()
+        tol = 2 ** -7 * ref.float().abs().max().item()
+        w = dequant(qt)
+        _record("K7", f"{name} {out_f}x{in_f} T={T}", err, tol,
+                lambda: qm.q4k_matvec_t(x, qt, i8),
+                lambda: qm.q4k_matvec_t_plain(x, qt, i8),
+                lambda: torch.matmul(x, w.t()),
+                _nbytes(*qt.data.values(), x) + T * out_f * 2)
+        del w
 
 
 def phase_kq_matmul(rng) -> None:
@@ -215,7 +272,10 @@ def _peak(rng, q, kc, positions, G: int) -> None:
     q.copy_((D ** 0.5 * u).repeat_interleave(G, 1) + q.float())
     kv = kc.view(B, S, Hkv, D)
     for b, p in enumerate(positions):
-        n_hist = p if p >= 0 else S
+        n_hist = min(p, S) if p >= 0 else S
+        if n_hist == 0:  # nothing is read: only the stale rows below
+            kv[b, :2] = 11.0 * u[b]
+            continue
         last = (n_hist - 1) // 256 * 256
         read = sorted({r for j in {256, 512, last} if 0 < j < n_hist
                        for r in (j - 1, j)} | {n_hist - 1})
@@ -304,6 +364,99 @@ def _flash_decode_case(rng, B, S, H, Hkv, D, positions, peaked) -> None:
             + 2 * n_written * KD * 2)
 
 
+def phase_paged_flash_decode(rng) -> None:
+    """K8 at the 1.1B's batched decode shape: B=8, H=32, Hkv=4, D=64, pages
+    of P=64 rows, MP=32 pages (S=2048) per sequence, handed out in a
+    shuffled order; flat scores, then peaked ones (see _peak)."""
+    positions = (0, 1, 63, 64, 700, 2047, -1, 256)
+    for peaked in (False, True):
+        _paged_case(rng, 8, 32, 4, 64, 64, 32, positions, peaked)
+
+
+def _paged_case(rng, B, H, Hkv, D, P, MP, positions, peaked) -> None:
+    S, KD, NP = MP * P, Hkv * D, B * MP
+    scale = D ** -0.5
+
+    def t(shape, s=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * s).astype(
+            np.float32)).to(DEV).bfloat16()
+
+    # each sequence's history, contiguous (for K5), then scattered into the
+    # pool through a shuffled page table (for K8)
+    kc0, vc0 = t((B, S, KD), 0.5), t((B, S, KD), 0.5)
+    q, kn, vn = t((B, H, D)), t((B, Hkv, D)), t((B, Hkv, D))
+    if peaked:
+        _peak(rng, q, kc0, positions, H // Hkv)
+    table = torch.from_numpy(rng.permutation(NP).reshape(B, MP).astype(
+        np.int32)).to(DEV)
+    rows = flash_decode._page_rows(table, P, NP)  # (B, S) pool rows
+    kp0 = torch.zeros((NP * P, KD), dtype=torch.bfloat16, device=DEV)
+    vp0 = torch.zeros_like(kp0)
+    kp0[rows.reshape(-1)] = kc0.reshape(-1, KD)
+    vp0[rows.reshape(-1)] = vc0.reshape(-1, KD)
+    pos = torch.tensor(positions, dtype=torch.int32, device=DEV)
+    kp, vp = kp0.clone(), vp0.clone()
+    out, _, _ = flash_decode.decode_attention_paged(
+        q, kn, vn, kp, vp, table, pos, H, Hkv, P, scale)
+    kr, vr = kp0.clone(), vp0.clone()
+    ref = flash_decode.decode_attention_paged_plain(
+        q, kn, vn, kr, vr, table, pos, H, Hkv, P, scale)
+    w = flash_decode.decode_attention_paged_plain(
+        q, kn, vn.abs(), kp0.clone(), vp0.abs(), table, pos, H, Hkv, P, scale)
+    kc, vc = kc0.clone(), vc0.clone()
+    out5, _, _ = flash_decode.decode_attention_batched(
+        q, kn, vn, kc, vc, pos, H, Hkv, scale)
+    torch.cuda.synchronize()
+    what = (f"B={B} H={H} Hkv={Hkv} D={D} P={P} MP={MP} pos={positions}"
+            + (" peaked" if peaked else ""))
+    # the pool changed at the row each live position maps to, only
+    want_k, want_v = kp0.clone(), vp0.clone()
+    for b, p in enumerate(positions):
+        if 0 <= p < S:
+            want_k[rows[b, p]] = kn[b].reshape(KD)
+            want_v[rows[b, p]] = vn[b].reshape(KD)
+    _check(torch.equal(kp, want_k) and torch.equal(vp, want_v),
+           f"K8 {what}: the pool is not the old one plus the rows at pos")
+    _check(torch.equal(kp, kr) and torch.equal(vp, vr),
+           f"K8 {what}: kernel and plain pools differ")
+    live = [b for b, p in enumerate(positions) if p >= 0]
+    _check(torch.equal(out[live], out5[live]),
+           f"K8 {what}: differs from K5 on the same history")
+    # K5's per-element bound (see _flash_decode_case)
+    tol_el = 2 ** -7 * 1.05 * w
+    diff = (out - ref).abs()
+    worst = (diff / tol_el.clamp_min(1e-30)).max().item()
+    _check(worst <= 1.0, f"K8 {what}: max |err| / elementwise tol {worst}")
+    err = diff.max().item()
+    tol = tol_el.flatten()[diff.argmax()].item()
+    k5_ms = _time_ms(lambda: flash_decode.decode_attention_batched(
+        q, kn, vn, kc, vc, pos, H, Hkv, scale))
+    print(f"K8 {what}: worst |err| / (2^-7 * 1.05 * W) {worst:.3g}; live "
+          f"slots equal K5 bit for bit; K5 on the same history laid out "
+          f"contiguously {k5_ms:.4f} ms", flush=True)
+    hist_rows = sum(min(p, S) if p >= 0 else S for p in positions)
+    n_written = sum(0 <= p < S for p in positions)
+    # library: SDPA over the same history laid out contiguously (the updated
+    # cache plus this step's row), masked as in _flash_decode_case
+    ql = q.view(B, H, 1, D)
+    kq = torch.cat([kc, kn.reshape(B, 1, KD)], 1).view(
+        B, S + 1, Hkv, D).transpose(1, 2)
+    vq = torch.cat([vc, vn.reshape(B, 1, KD)], 1).view(
+        B, S + 1, Hkv, D).transpose(1, 2)
+    cols = torch.arange(S + 1, device=DEV)
+    mask = torch.stack([cols <= p if p >= 0 else cols >= 0
+                        for p in positions])[:, None, None, :]
+    _record("K8", what, err, tol,
+            lambda: flash_decode.decode_attention_paged(
+                q, kn, vn, kp, vp, table, pos, H, Hkv, P, scale),
+            lambda: flash_decode.decode_attention_paged_plain(
+                q, kn, vn, kr, vr, table, pos, H, Hkv, P, scale),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                ql, kq, vq, attn_mask=mask, scale=scale, enable_gqa=True),
+            2 * hist_rows * KD * 2 + _nbytes(q, kn, vn, pos, table)
+            + B * H * D * 4 + 2 * n_written * KD * 2)
+
+
 # ---------------------------------------------------------------------------
 # 3. end to end: synthetic TinyLlama-1.1B q4_k served through Engine
 # ---------------------------------------------------------------------------
@@ -363,17 +516,23 @@ def phase_end_to_end(card: str) -> dict:
 
 
 def _decode_idle_share(eng: Engine, prompt: list[int], sampler) -> str:
+    """Device busy time against the wall time of a fast-forwarded request
+    that decodes 64 greedy tokens."""
+    eng.generate(prompt, GenParams(max_length=8, sampler=sampler))
+    return _idle_share(lambda: eng.generate(prompt, GenParams(
+        max_length=64, bypass_eos=True, sampler=sampler)))
+
+
+def _idle_share(run) -> str:
     """Device busy time (sum of kernel times, one stream) against the wall
-    time of a fast-forwarded request that decodes 64 greedy tokens."""
+    time of run(), under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    eng.generate(prompt, GenParams(max_length=8, sampler=sampler))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.generate(prompt, GenParams(max_length=64, bypass_eos=True,
-                                       sampler=sampler))
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side rows only: an op's row repeats its kernels' time
@@ -389,7 +548,118 @@ def _decode_idle_share(eng: Engine, prompt: list[int], sampler) -> str:
 
 
 # ---------------------------------------------------------------------------
-# 4. the Q4_K_M fixture served over HTTP, and its logits against goldens
+# 4. continuous batching: the synthetic 1.1B through BatchedEngine
+# ---------------------------------------------------------------------------
+
+def _serve_together(eng, prompts, params) -> tuple[list, float]:
+    """Submit one request per prompt so that the worker admits them all in
+    one tick (the slot and paged runs then prefill in the same waves), and
+    wait for them. Returns (results, wall seconds)."""
+    t0 = time.perf_counter()
+    with eng._admit_lock:  # the worker admits none until all are queued
+        reqs = [eng.submit(p, gp) for p, gp in zip(prompts, params)]
+    for r in reqs:
+        _check(r.done.wait(600), "a batched request did not finish")
+    secs = time.perf_counter() - t0
+    for r in reqs:
+        _check(not r.result.stop_reason.startswith("error"),
+               f"batched request failed: {r.result.stop_reason}")
+    return [r.result for r in reqs], secs
+
+
+def _same_or_near_tie(single: Engine, prompt, got, want, what) -> None:
+    """got == want, or equal up to a step where the single-stream logits of
+    the two picks lie within NEAR_TIE (printed)."""
+    if got == want:
+        return
+    i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    _check(i is not None, f"{what}: one reply stopped early: {got} {want}")
+    single.reset_context()
+    lg = single.eval_tokens(list(prompt) + got[:i], 0).float()
+    a, b = lg[got[i]].item(), lg[want[i]].item()
+    _check(abs(a - b) <= NEAR_TIE,
+           f"{what}: tokens part at step {i} ({got[i]} vs {want[i]}), "
+           f"single-stream logits {a} vs {b}")
+    print(f"near-tie: {what}, step {i}: batched {got[i]} / single-stream "
+          f"{want[i]}, single-stream logits {a:.6f} / {b:.6f}", flush=True)
+
+
+def phase_batched_serving(card: str) -> dict:
+    model = synthetic_model(TINYLLAMA_1_1B, "q4_k", seed=0, device=DEV)
+    rng = np.random.default_rng(2)
+    prompts = [[1] + rng.integers(3, 32000, size=int(n) - 1).tolist()
+               for n in rng.integers(100, 301, size=8)]
+    greedy = GenParams(max_length=128, bypass_eos=True,
+                       sampler=SamplerParams(temperature=0.0, rep_pen=1.0))
+    stoch = GenParams(max_length=128, bypass_eos=True, sampler=SamplerParams(
+        temperature=0.8, top_p=0.9, top_k=60, rep_pen=1.05))
+    single = Engine(model, max_context=2048, device=DEV)
+    want = []
+    for p in prompts:
+        single.reset_context()
+        want.append(single.generate(p, greedy).tokens)
+    counts: dict = {}
+    got = {}
+    for paged in (False, True):
+        kind = "paged P=64" if paged else "slot cache"
+        eng = batch_engine.BatchedEngine(model, max_context=2048, n_slots=8,
+                                         paged=paged, page_size=64,
+                                         device=DEV)
+        try:
+            eng.generate([1, 2, 3, 4], GenParams(max_length=4,
+                                                 sampler=greedy.sampler))
+            eng.reset_context()
+            _build.launches.clear()
+            res, secs = _serve_together(eng, prompts, [greedy] * 8)
+            for k, v in _build.launches.items():
+                counts[k] = counts.get(k, 0) + v
+            got[paged] = [r.tokens for r in res]
+            for i, (p, r) in enumerate(zip(prompts, res)):
+                _check(len(r.tokens) == 128, f"{kind} request {i}: {r}")
+                _same_or_near_tie(single, p, r.tokens, want[i],
+                                  f"{kind} request {i}")
+            n = sum(len(r.tokens) for r in res)
+            print(f"batched 1.1B ({kind}, {card}): 8 greedy requests, "
+                  f"{n} tokens in {secs * 1e3:.1f} ms = {n / secs:.1f} "
+                  f"tok/s aggregate (prefill of {sum(map(len, prompts))} "
+                  f"prompt tokens included); launches "
+                  f"{dict(_build.launches)}", flush=True)
+            eng.reset_context()
+            _build.launches.clear()
+            res, secs = _serve_together(eng, prompts, [greedy] * 7 + [stoch])
+            for k, v in _build.launches.items():
+                counts[k] = counts.get(k, 0) + v
+            _check([r.tokens for r in res[:7]] == got[paged][:7],
+                   f"{kind}: greedy slots changed beside a stochastic one")
+            _check(len(res[7].tokens) == 128
+                   and all(0 <= t < 32000 for t in res[7].tokens),
+                   f"{kind}: bad stochastic reply {res[7].tokens}")
+            n = sum(len(r.tokens) for r in res)
+            print(f"batched 1.1B ({kind}, {card}): 7 greedy + 1 stochastic "
+                  f"request, {n} tokens in {secs * 1e3:.1f} ms = "
+                  f"{n / secs:.1f} tok/s aggregate", flush=True)
+            if not paged:
+                # fast-forwarded prompts: one 16-row wave, then 32 steps
+                idle = _idle_share(lambda: _serve_together(
+                    eng, prompts, [GenParams(max_length=32, bypass_eos=True,
+                                             sampler=greedy.sampler)] * 8))
+                print(f"batched 1.1B (slot cache), 32 batched steps of 8 "
+                      f"greedy requests under torch.profiler: {idle}",
+                      flush=True)
+        finally:
+            eng.shutdown()
+    _check(got[True] == got[False], "paged tokens differ from slot tokens")
+    for k in ("K7", "K8", "K5", "K3"):
+        _check(counts.get(k, 0) > 0, f"{k} did not run in batched serving")
+    print(f"batched serving: paged tokens equal slot tokens; launches "
+          f"{counts}", flush=True)
+    del single, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# 5. the Q4_K_M fixture served over HTTP, and its logits against goldens
 # ---------------------------------------------------------------------------
 
 def _post(port: int, path: str, body: dict) -> dict:
@@ -400,37 +670,54 @@ def _post(port: int, path: str, body: dict) -> dict:
         return json.loads(r.read())
 
 
-def phase_served_fixture() -> dict:
-    from aiohttp import web
+class _Server:
+    """The in-process HTTP server around an engine, on a free local port."""
 
-    from koboldcpp_tpu_torch.server.app import ServerSettings, make_app
+    def __init__(self, engine, settings):
+        from aiohttp import web
+
+        from koboldcpp_tpu_torch.server.app import make_app
+
+        self.loop = asyncio.new_event_loop()
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            self.port = s.getsockname()[1]
+        self.runner = web.AppRunner(make_app(engine, settings))
+        self.loop.run_until_complete(self.runner.setup())
+        self.loop.run_until_complete(
+            web.TCPSite(self.runner, "127.0.0.1", self.port).start())
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def post(self, path: str, body: dict) -> dict:
+        return _post(self.port, path, body)
+
+    def close(self):
+        asyncio.run_coroutine_threadsafe(self.runner.cleanup(),
+                                         self.loop).result(30)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(30)
+        self.loop.close()
+
+
+def phase_served_fixture() -> dict:
+    from koboldcpp_tpu_torch.server.app import ServerSettings
 
     model = load_model(os.path.join(FIX, "tiny-q4_k_m.gguf"), device=DEV)
     eng = Engine(model, max_context=512, device=DEV)
-    loop = asyncio.new_event_loop()
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    runner = web.AppRunner(make_app(eng, ServerSettings(model_name="tiny")))
-    loop.run_until_complete(runner.setup())
-    loop.run_until_complete(web.TCPSite(runner, "127.0.0.1", port).start())
-    thread = threading.Thread(target=loop.run_forever, daemon=True)
-    thread.start()
+    srv = _Server(eng, ServerSettings(model_name="tiny"))
     try:
         body = {"prompt": "The gradient of a function, e.g. f(x), points",
                 "max_length": 24, "temperature": 0, "rep_pen": 1.0}
         _build.launches.clear()
-        a = _post(port, "/api/v1/generate", body)["results"][0]["text"]
-        b = _post(port, "/api/v1/generate", body)["results"][0]["text"]
-        c = _post(port, "/v1/completions", {"prompt": "Once upon",
-                                            "max_tokens": 8,
-                                            "temperature": 0})
+        a = srv.post("/api/v1/generate", body)["results"][0]["text"]
+        b = srv.post("/api/v1/generate", body)["results"][0]["text"]
+        c = srv.post("/v1/completions", {"prompt": "Once upon",
+                                         "max_tokens": 8, "temperature": 0})
         counts = dict(_build.launches)
     finally:
-        asyncio.run_coroutine_threadsafe(runner.cleanup(), loop).result(30)
-        loop.call_soon_threadsafe(loop.stop)
-        thread.join(30)
-        loop.close()
+        srv.close()
     _check(a == b and a != "", f"temperature-0 replies differ: {a!r} {b!r}")
     _check(c["object"] == "text_completion" and c["choices"][0]["text"] != "",
            f"bad /v1/completions reply {c}")
@@ -438,6 +725,52 @@ def phase_served_fixture() -> dict:
     print(f"served fixture: /api/v1/generate x2 identical ({a!r}); "
           f"/v1/completions {c['choices'][0]['text']!r}; launches {counts}",
           flush=True)
+
+    # multiuser: 4 concurrent requests on the batched engine, each getting
+    # the reply it gets alone
+    beng = batch_engine.BatchedEngine(model, max_context=512, n_slots=4,
+                                      device=DEV)
+    reasons = []  # every request's stop reason: an error fails the phase
+    finish = beng._finish
+    beng._finish = lambda slot, why: (reasons.append(why), finish(slot, why))
+    srv = _Server(beng, ServerSettings(model_name="tiny", multiuser=4))
+    try:
+        bodies = [{"prompt": p, "max_length": 16, "temperature": 0,
+                   "rep_pen": 1.0}
+                  for p in ("The gradient of a function, e.g. f(x), points",
+                            "Once upon a time", "hello world, this is",
+                            "A B C D")]
+        _build.launches.clear()
+        together: list = [None] * 4
+
+        def one(i):
+            together[i] = srv.post("/api/v1/generate",
+                                   bodies[i])["results"][0]["text"]
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(180)
+        multi = dict(_build.launches)
+        alone = []
+        for bd in bodies:
+            beng.reset_context()
+            alone.append(srv.post("/api/v1/generate",
+                                  bd)["results"][0]["text"])
+    finally:
+        srv.close()
+        beng.shutdown()
+    _check(not any(r.startswith("error") for r in reasons),
+           f"multiuser requests failed: {reasons}")
+    _check(together == alone and all(together),
+           f"multiuser replies differ from the replies alone: {together} "
+           f"{alone}")
+    _check(multi.get("K7", 0) > 0, "K7 did not run on the multiuser server")
+    print(f"served fixture, multiuser=4: 4 concurrent /api/v1/generate "
+          f"replies equal the replies alone; launches {multi}", flush=True)
+    for k, v in multi.items():
+        counts[k] = counts.get(k, 0) + v
 
     # the fixture's logits on the card against the reference runtime's
     manifest = json.load(open(os.path.join(FIX, "manifest.json")))
@@ -471,23 +804,27 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     phase_matvec(rng)
+    phase_batched_matvec(rng)
     phase_kq_matmul(rng)
     phase_flash_decode(rng)
+    phase_paged_flash_decode(rng)
     torch.cuda.synchronize()
     global _flush
     _flush = None
     torch.cuda.empty_cache()
 
-    e2e = phase_end_to_end(card)
-    served = phase_served_fixture()
+    # the main paths, each with the launch counts zeroed before it
+    runs = [phase_end_to_end(card), phase_batched_serving(card),
+            phase_served_fixture()]
 
     kernels = []
     for kid, (name, source, replaces) in KERNELS.items():
         cases = CASES[kid]
+        libs = [c["library_ms"] for c in cases]
         kernels.append({
             "name": f"{kid} {name}", "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": e2e.get(kid, 0) + served.get(kid, 0),
+            "launches": sum(r.get(kid, 0) for r in runs),
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             # times summed over the phase's cases, one call of each
             "ms": sum(c["ms"] for c in cases),
@@ -495,7 +832,7 @@ def main() -> int:
             "bound_ms": sum(c["bound_ms"] for c in cases),
             "bound_by": ("operations" if any(c["bound_by"] == "operations"
                                              for c in cases) else "bytes"),
-            "library_ms": sum(c["library_ms"] for c in cases)})
+            "library_ms": None if None in libs else sum(libs)})
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

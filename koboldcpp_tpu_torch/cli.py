@@ -1,11 +1,12 @@
 """CLI launcher: `python -m koboldcpp_tpu_torch model.gguf`.
 
-Port of koboldcpp_tpu/cli.py for the flags this slice serves: the model
+Port of koboldcpp_tpu/cli.py for the flags the port serves: the model
 (positional or --model), --port, --host, --contextsize, --password,
---prompt / --promptlimit (one-shot mode) and --device. Any other flag,
-such as the JAX launcher's --quantkv or --multiuser, exits with
-argparse's error naming it. Runs on the GPU unless --device cpu is
-given.
+--prompt / --promptlimit (one-shot mode), --multiuser [N] (continuous
+batching over N KV slots; bare = 5), --paged / --pagesize (the paged KV
+pool for it) and --device. Any other flag, such as the JAX launcher's
+--quantkv, exits with argparse's error naming it. Runs on the GPU unless
+--device cpu is given.
 """
 from __future__ import annotations
 
@@ -27,6 +28,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=5001)
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--password", default="", help="API key (Bearer auth)")
+    p.add_argument("--multiuser", type=int, nargs="?", const=5, default=1,
+                   help="max concurrent requests; > 1 serves them by "
+                        "continuous batching over that many KV slots")
+    p.add_argument("--paged", action="store_true",
+                   help="paged KV pool for the continuous-batching engine")
+    p.add_argument("--pagesize", type=int, default=64)
     p.add_argument("--contextsize", type=int, default=2048)
     p.add_argument("--prompt", default="", help="one-shot prompt mode")
     p.add_argument("--promptlimit", type=int, default=100)
@@ -46,6 +53,7 @@ def main(argv=None):
         args.port = int(args.port_param)
 
     from .engine import Engine, GenParams
+    from .engine.batch_engine import BatchedEngine, batch_capable
     from .models.loader import load_model
 
     print(f"Loading model: {model_path}")
@@ -54,17 +62,33 @@ def main(argv=None):
     print(f"Load took {time.time() - t0:.1f}s ({model.cfg.arch}, "
           f"{model.cfg.n_layers} layers, vocab {model.cfg.vocab_size}) "
           f"on {model.device}")
-    engine = Engine(model, max_context=args.contextsize, device=model.device)
+    batched = args.multiuser > 1 and batch_capable(model.cfg)
+    if args.multiuser > 1 and not batched:
+        print(f"Note: --multiuser continuous batching is unavailable for "
+              f"this configuration (arch {model.cfg.arch}); serving with "
+              f"the single-sequence engine + FIFO queue")
+    if batched:
+        engine = BatchedEngine(model, max_context=args.contextsize,
+                               n_slots=args.multiuser, paged=args.paged,
+                               page_size=args.pagesize, device=model.device)
+        print(f"Continuous batching enabled: {args.multiuser} KV slots"
+              + (" (paged)" if args.paged else ""))
+    else:
+        engine = Engine(model, max_context=args.contextsize,
+                        device=model.device)
 
     if args.prompt:
         r = engine.generate(args.prompt, GenParams(max_length=args.promptlimit))
         print(r.text)
+        if isinstance(engine, BatchedEngine):
+            engine.shutdown()
         return 0
 
     from .server.app import ServerSettings, run_server
 
     settings = ServerSettings(password=args.password,
-                              model_name=os.path.basename(model_path))
+                              model_name=os.path.basename(model_path),
+                              multiuser=args.multiuser)
     print(f"Starting server on {args.host}:{args.port}")
     run_server(engine, host=args.host, port=args.port, settings=settings)
     return 0

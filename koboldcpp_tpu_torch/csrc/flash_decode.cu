@@ -1,13 +1,16 @@
 // K5: batched flash decode over the fused (B, S, Hkv*D) bf16 slot cache,
-// writing this step's K/V row in place.
+// and K8: the same over a paged (NP*P, Hkv*D) bf16 pool addressed through a
+// (B, MP) page table; both write this step's K/V row in place.
 //
-// Replaces koboldcpp_tpu/ops/flash_decode.py `decode_attention_batched`
-// (body `_bkernel`). Per sequence b: online softmax over the history rows
-// < pos only (no row at or past pos is read; pos < 0 attends every row, as
-// the TPU kernel's dead-row remap does; pos >= S attends all S rows),
-// scores bf16 q . bf16 k in f32 times `scale`, optional softcap, p cast to
-// bf16 before p . V; this step's self term folds in f32 from k_new/v_new;
-// output f32 (B, H, D). The new K/V row lands at pos when 0 <= pos < S.
+// K5 replaces koboldcpp_tpu/ops/flash_decode.py `decode_attention_batched`
+// (body `_bkernel`), K8 replaces `decode_attention_paged` (body `_pkernel`).
+// Per sequence b: online softmax over the history rows < pos only (no row
+// at or past pos is read; pos < 0 attends every row, as the TPU kernels'
+// dead-row remap does; pos >= S attends all S rows), scores bf16 q . bf16 k
+// in f32 times `scale`, optional softcap, p cast to bf16 before p . V; this
+// step's self term folds in f32 from k_new/v_new; output f32 (B, H, D). The
+// new K/V row lands at pos when 0 <= pos < S. For K8, S = MP * P and row r
+// of sequence b lives at pool row tab[b, r / P] * P + r % P.
 //
 // Bound on the H100: bytes (2 * B * n_hist * Hkv * D * 2 B of history
 // plus the row write). Design: flash-decoding split over the sequence —
@@ -15,13 +18,27 @@
 // one kv head over a slice of the rows, 4 warps x 32-row chunks, a lane
 // scoring one row for all G heads, then owning D/32 output columns for
 // p . V. A second small kernel merges the slices' (max, sum, acc), folds in
-// the self term, writes the output and the cache row.
-// Launch counter: ops/_build.launches["K5"] (one per call).
+// the self term, writes the output and the cache row. The TPU kernel walks
+// a sequence's pages one after another (grid (B, MP)); K8 keeps K5's split
+// boundaries and arithmetic and only computes each row's address through
+// the page table, so over a page table it gives bit for bit K5's output on
+// the same history laid out contiguously.
+// Launch counters: ops/_build.launches["K5"] and ["K8"] (one per call).
 #include "common.cuh"
 
 constexpr int NW = 4;        // warps per block
 constexpr int MAXG = 16;     // query heads per kv head
 constexpr int MAXGD = 1024;  // G * D
+
+// cache row of history row `row` of sequence b: contiguous (B, S, KD), or
+// through the (B, MP) page table of a paged pool (entries clamped to the pool)
+__device__ __forceinline__ size_t cache_row(const int* __restrict__ tab,
+                                            int b, int row, int S, int MP,
+                                            int P, int NP) {
+    if (tab == nullptr) return (size_t)b * S + row;
+    const int page = min(max(tab[(size_t)b * MP + row / P], 0), NP - 1);
+    return (size_t)page * P + row % P;
+}
 
 template <int D>
 __global__ void __launch_bounds__(NW * 32)
@@ -29,6 +46,8 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ kc,
                           const __nv_bfloat16* __restrict__ vc,
                           const int* __restrict__ positions,
+                          const int* __restrict__ tab,  // (B, MP) or null
+                          int MP, int P, int NP,
                           float* __restrict__ part_acc,  // (B*Hkv, NS, G, D)
                           float* __restrict__ part_ml,   // (B*Hkv, NS, G, 2)
                           int S, int Hkv, int G, int rows_per_split,
@@ -60,8 +79,8 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
     }
-    const __nv_bfloat16* kbase = kc + (size_t)b * S * KD + (size_t)kvh * D;
-    const __nv_bfloat16* vbase = vc + (size_t)b * S * KD + (size_t)kvh * D;
+    const __nv_bfloat16* kbase = kc + (size_t)kvh * D;
+    const __nv_bfloat16* vbase = vc + (size_t)kvh * D;
 
     for (int r0 = r_begin + warp * 32; r0 < r_end; r0 += NW * 32) {
         const int row = r0 + lane;
@@ -72,7 +91,7 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
         for (int g = 0; g < MAXG; ++g) sc[g] = 0.f;
         if (valid) {
             const uint4* kr = reinterpret_cast<const uint4*>(
-                kbase + (size_t)row * KD);
+                kbase + cache_row(tab, b, row, S, MP, P, NP) * KD);
 #pragma unroll
             for (int d8 = 0; d8 < D / 8; ++d8) {
                 const uint4 kv = kr[d8];
@@ -118,10 +137,11 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
                 for (int i = 0; i < DPL; ++i) acc[g][i] *= alpha[g];
         for (int rr = 0; rr < nrows; ++rr) {
+            const __nv_bfloat16* vr =
+                vbase + cache_row(tab, b, r0 + rr, S, MP, P, NP) * KD;
             float v[DPL];
 #pragma unroll
-            for (int i = 0; i < DPL; ++i)
-                v[i] = bf2f(vbase[(size_t)(r0 + rr) * KD + lane + 32 * i]);
+            for (int i = 0; i < DPL; ++i) v[i] = bf2f(vr[lane + 32 * i]);
 #pragma unroll
             for (int g = 0; g < MAXG; ++g)
                 if (g < G) {
@@ -168,7 +188,8 @@ __global__ void flash_decode_merge_kernel(
         const __nv_bfloat16* __restrict__ knew,
         const __nv_bfloat16* __restrict__ vnew,
         __nv_bfloat16* __restrict__ kc, __nv_bfloat16* __restrict__ vc,
-        const int* __restrict__ positions,
+        const int* __restrict__ positions, const int* __restrict__ tab,
+        int MP, int P, int NP,
         const float* __restrict__ part_acc, const float* __restrict__ part_ml,
         float* __restrict__ out, int S, int Hkv, int G, int D, int NS,
         float scale, float softcap) {
@@ -210,14 +231,45 @@ __global__ void flash_decode_merge_kernel(
     }
     const int pos = positions[b];
     if (pos >= 0 && pos < S) {
+        const size_t r = cache_row(tab, b, pos, S, MP, P, NP);
         for (int d = threadIdx.x; d < D; d += blockDim.x) {
-            kc[((size_t)b * S + pos) * KD + (size_t)kvh * D + d] = kn[d];
-            vc[((size_t)b * S + pos) * KD + (size_t)kvh * D + d] = vn[d];
+            kc[r * KD + (size_t)kvh * D + d] = kn[d];
+            vc[r * KD + (size_t)kvh * D + d] = vn[d];
         }
     }
 }
 
-// q (B, H, D), knew/vnew (B, Hkv, D), kc/vc (B, S, Hkv*D) all bf16;
+static cudaError_t launch_flash_decode(
+        const void* q, const void* knew, const void* vnew, void* kc, void* vc,
+        const void* positions, const int* tab, int MP, int P, int NP,
+        void* out, void* part_acc, void* part_ml, int B, int S, int H,
+        int Hkv, int D, int nsplit, int rows_per_split, float scale,
+        float softcap, cudaStream_t st) {
+    const int G = H / Hkv;
+    if (G > MAXG || G * D > MAXGD || (D != 64 && D != 128))
+        return cudaErrorInvalidValue;
+    dim3 grid(B * Hkv, nsplit);
+#define FD_ARGS (const __nv_bfloat16*)q, (const __nv_bfloat16*)kc, \
+        (const __nv_bfloat16*)vc, (const int*)positions, tab, MP, P, NP, \
+        (float*)part_acc, (float*)part_ml, S, Hkv, G, rows_per_split, scale, \
+        softcap
+    if (D == 64)
+        flash_decode_split_kernel<64><<<grid, NW * 32, 0, st>>>(FD_ARGS);
+    else
+        flash_decode_split_kernel<128><<<grid, NW * 32, 0, st>>>(FD_ARGS);
+#undef FD_ARGS
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    flash_decode_merge_kernel<<<B * Hkv, 128, 0, st>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)knew,
+        (const __nv_bfloat16*)vnew, (__nv_bfloat16*)kc, (__nv_bfloat16*)vc,
+        (const int*)positions, tab, MP, P, NP, (const float*)part_acc,
+        (const float*)part_ml, (float*)out, S, Hkv, G, D, nsplit, scale,
+        softcap);
+    return cudaGetLastError();
+}
+
+// K5. q (B, H, D), knew/vnew (B, Hkv, D), kc/vc (B, S, Hkv*D) all bf16;
 // positions (B,) int32; out (B, H, D) f32; part_acc (B*Hkv, nsplit, G*D),
 // part_ml (B*Hkv, nsplit, G, 2) f32 scratch.
 KCPP_API int k5_flash_decode(const void* q, const void* knew, const void* vnew,
@@ -226,25 +278,25 @@ KCPP_API int k5_flash_decode(const void* q, const void* knew, const void* vnew,
                              int S, int H, int Hkv, int D, int nsplit,
                              int rows_per_split, float scale, float softcap,
                              void* stream) {
-    const int G = H / Hkv;
-    if (G > MAXG || G * D > MAXGD || (D != 64 && D != 128))
-        return (int)cudaErrorInvalidValue;
-    cudaStream_t st = (cudaStream_t)stream;
-    dim3 grid(B * Hkv, nsplit);
-#define K5_ARGS (const __nv_bfloat16*)q, (const __nv_bfloat16*)kc, \
-        (const __nv_bfloat16*)vc, (const int*)positions, (float*)part_acc, \
-        (float*)part_ml, S, Hkv, G, rows_per_split, scale, softcap
-    if (D == 64)
-        flash_decode_split_kernel<64><<<grid, NW * 32, 0, st>>>(K5_ARGS);
-    else
-        flash_decode_split_kernel<128><<<grid, NW * 32, 0, st>>>(K5_ARGS);
-#undef K5_ARGS
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    flash_decode_merge_kernel<<<B * Hkv, 128, 0, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)knew,
-        (const __nv_bfloat16*)vnew, (__nv_bfloat16*)kc, (__nv_bfloat16*)vc,
-        (const int*)positions, (const float*)part_acc, (const float*)part_ml,
-        (float*)out, S, Hkv, G, D, nsplit, scale, softcap);
-    return (int)cudaGetLastError();
+    return (int)launch_flash_decode(q, knew, vnew, kc, vc, positions, nullptr,
+                                    0, 1, 1, out, part_acc, part_ml, B, S, H,
+                                    Hkv, D, nsplit, rows_per_split, scale,
+                                    softcap, (cudaStream_t)stream);
+}
+
+// K8. As K5, with kc/vc the (NP*P, Hkv*D) pools and tab the (B, MP) int32
+// page table; S = MP * P.
+KCPP_API int k8_flash_decode_paged(const void* q, const void* knew,
+                                   const void* vnew, void* kc, void* vc,
+                                   const void* tab, const void* positions,
+                                   void* out, void* part_acc, void* part_ml,
+                                   int B, int MP, int P, int NP, int H,
+                                   int Hkv, int D, int nsplit,
+                                   int rows_per_split, float scale,
+                                   float softcap, void* stream) {
+    return (int)launch_flash_decode(q, knew, vnew, kc, vc, positions,
+                                    (const int*)tab, MP, P, NP, out, part_acc,
+                                    part_ml, B, MP * P, H, Hkv, D, nsplit,
+                                    rows_per_split, scale, softcap,
+                                    (cudaStream_t)stream);
 }

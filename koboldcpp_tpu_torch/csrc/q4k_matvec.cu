@@ -1,37 +1,46 @@
-// K1: q4_k T=1 matvec, y (1, out_f) bf16 = x (1, in_f) . W^T.
+// K1: q4_k T=1 matvec and K7: q4_k 2<=T<=8 batched matvec,
+// y (T, out_f) bf16 = x (T, in_f) . W^T.
 //
-// Replaces koboldcpp_tpu/ops/quant_matmul.py `_packed_matvec_q4k` at T=1:
+// K1 replaces koboldcpp_tpu/ops/quant_matmul.py `_packed_matvec_q4k` at T=1:
 // body `_q4k_decode_kernel_i8` (in_f >= 512) and `_q4k_decode_kernel`
-// (bf16 activations, in_f < 512).
+// (bf16 activations, in_f < 512). K7 replaces the same function at
+// 2 <= T <= 8: body `_q4k_decode_kernel_i8_t` (with `_i8_prep_t`) and the
+// bf16 `_q4k_decode_kernel` over per-token stacks (T <= 4).
 //
-// i8 variant: x is quantized per 32-column group to int8 (act_prep_kernel,
-// the port of `_i8_prep`); the int8 x nibble dot of each group is an exact
-// int32 sum taken with __dp4a; y_r = sum_g sx_g * s_rg * P_rg
-// - sum_g m_rg * xsum_g (`_i8_combine`), with the group sums kept in bf16.
-// bf16 variant: P_rg is the exact f32 dot of bf16 x with the nibbles.
+// i8 variant: x is quantized per token and per 32-column group to int8
+// (act_prep_kernel over the T rows, the port of `_i8_prep(_t)`); the int8 x
+// nibble dot of each group is an exact int32 sum taken with __dp4a;
+// y_r = sum_g sx_g * s_rg * P_rg - sum_g m_rg * xsum_g (`_i8_combine`), with
+// the group sums kept in bf16. bf16 variant: P_rg is the f32 dot of bf16 x
+// with the nibbles.
 //
-// Bound on the H100: bytes. Each weight byte is read once (0.5 B/weight
-// plus 4 B of bf16 scale and min per 32 weights); x, its codes and sums
-// stay in L1/L2. Design: one warp per output row, each lane loads 16 bytes
-// of packed nibbles per step (half of one 32-column group in each nibble
-// plane), so a warp reads 512 contiguous bytes per step; the two lanes of a
-// group combine their int32 partials with one shuffle before the scale
-// products, as the TPU kernel applies scales to whole-group partials.
-// Launch counter: ops/_build.launches["K1"] (one per matvec).
+// Bound on the H100: bytes. Each weight byte is read once, whatever T is
+// (0.5 B/weight plus 4 B of bf16 scale and min per 32 weights); x, its codes
+// and sums stay in L1/L2. Design: one warp per output row, each lane loads
+// 16 bytes of packed nibbles per step (half of one 32-column group in each
+// nibble plane), so a warp reads 512 contiguous bytes per step, and keeps T
+// accumulators, one per token; the two lanes of a group combine their
+// partials with one shuffle before the scale products, as the TPU kernel
+// applies scales to whole-group partials. Every product-and-add is an
+// explicit __fmaf_rn / __fmul_rn, so the arithmetic of token t is the same
+// instruction sequence at every T: row t of K7 equals K1 on x[t] bit for
+// bit, and a request served in a batch gets the tokens it gets alone.
+// Launch counters: ops/_build.launches["K1"] and ["K7"] (one per matvec).
 #include "common.cuh"
 
 constexpr int ROWS_PER_BLOCK = 8;  // one warp per row
 
-template <bool I8>
+template <bool I8, int T>
 __global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
 q4k_matvec_kernel(const uint8_t* __restrict__ qs2,
                   const __nv_bfloat16* __restrict__ scale,
                   const __nv_bfloat16* __restrict__ mn,
-                  const __nv_bfloat16* __restrict__ x,
-                  const int8_t* __restrict__ xq,
-                  const float* __restrict__ sx,
-                  const __nv_bfloat16* __restrict__ xsum,
-                  __nv_bfloat16* __restrict__ y, int out_f, int in_f) {
+                  const __nv_bfloat16* __restrict__ x,     // (T, in_f)
+                  const int8_t* __restrict__ xq,           // (T, in_f)
+                  const float* __restrict__ sx,            // (T, in_f/32)
+                  const __nv_bfloat16* __restrict__ xsum,  // (T, in_f/32)
+                  __nv_bfloat16* __restrict__ y,           // (T, out_f)
+                  int out_f, int in_f) {
     const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
     const int lane = threadIdx.x & 31;
     if (row >= out_f) return;  // whole warps exit together
@@ -41,7 +50,9 @@ q4k_matvec_kernel(const uint8_t* __restrict__ qs2,
     const __nv_bfloat16* srow = scale + (size_t)row * ng;
     const __nv_bfloat16* mrow = mn + (size_t)row * ng;
 
-    float acc = 0.f;
+    float acc[T];
+#pragma unroll
+    for (int t = 0; t < T; ++t) acc[t] = 0.f;
     for (int base = 0; base < nchunk; base += 32) {
         const int c = base + lane;
         const bool valid = c < nchunk;  // chunk pairs are valid together
@@ -49,75 +60,114 @@ q4k_matvec_kernel(const uint8_t* __restrict__ qs2,
         const int b = (c & 7) * 16;      // byte offset inside the superblock
         const int col_lo = sb * 256 + b;         // logical col of low nibble
         const int col_hi = col_lo + 128;         // ... and of high nibble
-        float plo = 0.f, phi = 0.f;
+        const int g_lo = sb * 8 + (c & 7) / 2;   // logical 32-col group
+        const int g_hi = g_lo + 4;
+        uint32_t ws[4] = {0u, 0u, 0u, 0u};
         if (valid) {
             const uint4 w = *reinterpret_cast<const uint4*>(wrow + sb * 128 + b);
-            const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
-            if (I8) {
-                const uint4 xl = *reinterpret_cast<const uint4*>(xq + col_lo);
-                const uint4 xh = *reinterpret_cast<const uint4*>(xq + col_hi);
-                const uint32_t xls[4] = {xl.x, xl.y, xl.z, xl.w};
-                const uint32_t xhs[4] = {xh.x, xh.y, xh.z, xh.w};
-                int il = 0, ih = 0;
+            ws[0] = w.x; ws[1] = w.y; ws[2] = w.z; ws[3] = w.w;
+        }
+        const float s_lo = valid ? bf2f(srow[g_lo]) : 0.f;
+        const float s_hi = valid ? bf2f(srow[g_hi]) : 0.f;
 #pragma unroll
-                for (int k = 0; k < 4; ++k) {
-                    il = __dp4a((int)(ws[k] & 0x0F0F0F0Fu), (int)xls[k], il);
-                    ih = __dp4a((int)((ws[k] >> 4) & 0x0F0F0F0Fu), (int)xhs[k], ih);
-                }
-                plo = (float)il;  // exact: |P| <= 16 * 15 * 127
-                phi = (float)ih;
-            } else {
+        for (int t = 0; t < T; ++t) {
+            float plo = 0.f, phi = 0.f;
+            if (valid) {
+                if (I8) {
+                    const int8_t* xt = xq + (size_t)t * in_f;
+                    const uint4 xl = *reinterpret_cast<const uint4*>(xt + col_lo);
+                    const uint4 xh = *reinterpret_cast<const uint4*>(xt + col_hi);
+                    const uint32_t xls[4] = {xl.x, xl.y, xl.z, xl.w};
+                    const uint32_t xhs[4] = {xh.x, xh.y, xh.z, xh.w};
+                    int il = 0, ih = 0;
 #pragma unroll
-                for (int k = 0; k < 16; ++k) {
-                    const uint32_t byte = (ws[k >> 2] >> (8 * (k & 3))) & 0xFFu;
-                    plo += (float)(byte & 0xF) * bf2f(x[col_lo + k]);
-                    phi += (float)(byte >> 4) * bf2f(x[col_hi + k]);
+                    for (int k = 0; k < 4; ++k) {
+                        il = __dp4a((int)(ws[k] & 0x0F0F0F0Fu), (int)xls[k], il);
+                        ih = __dp4a((int)((ws[k] >> 4) & 0x0F0F0F0Fu),
+                                    (int)xhs[k], ih);
+                    }
+                    plo = (float)il;  // exact: |P| <= 16 * 15 * 127
+                    phi = (float)ih;
+                } else {
+                    const __nv_bfloat16* xt = x + (size_t)t * in_f;
+#pragma unroll
+                    for (int k = 0; k < 16; ++k) {
+                        const uint32_t byte = (ws[k >> 2] >> (8 * (k & 3))) & 0xFFu;
+                        plo = __fmaf_rn((float)(byte & 0xF), bf2f(xt[col_lo + k]),
+                                        plo);
+                        phi = __fmaf_rn((float)(byte >> 4), bf2f(xt[col_hi + k]),
+                                        phi);
+                    }
                 }
             }
-        }
-        // the two lanes of one 32-column group (c, c^1) combine partials
-        plo += __shfl_xor_sync(0xffffffffu, plo, 1);
-        phi += __shfl_xor_sync(0xffffffffu, phi, 1);
-        if (valid && (lane & 1) == 0) {
-            const int g_lo = sb * 8 + (c & 7) / 2;  // logical 32-col group
-            const int g_hi = g_lo + 4;
-            if (I8) {
-                acc += plo * sx[g_lo] * bf2f(srow[g_lo]);
-                acc += phi * sx[g_hi] * bf2f(srow[g_hi]);
-            } else {
-                acc += bf2f(srow[g_lo]) * plo;
-                acc += bf2f(srow[g_hi]) * phi;
+            // the two lanes of one 32-column group (c, c^1) combine partials
+            plo += __shfl_xor_sync(0xffffffffu, plo, 1);
+            phi += __shfl_xor_sync(0xffffffffu, phi, 1);
+            if (valid && (lane & 1) == 0) {
+                if (I8) {
+                    const float* st = sx + (size_t)t * ng;
+                    acc[t] = __fmaf_rn(__fmul_rn(plo, st[g_lo]), s_lo, acc[t]);
+                    acc[t] = __fmaf_rn(__fmul_rn(phi, st[g_hi]), s_hi, acc[t]);
+                } else {
+                    acc[t] = __fmaf_rn(s_lo, plo, acc[t]);
+                    acc[t] = __fmaf_rn(s_hi, phi, acc[t]);
+                }
             }
         }
     }
-    float accm = 0.f;  // min term: sum_g m_g * xsum_g
-    for (int g = lane; g < ng; g += 32) accm += bf2f(mrow[g]) * bf2f(xsum[g]);
-    const float t = warp_sum(acc) - warp_sum(accm);
-    if (lane == 0) y[row] = f2bf(t);
+#pragma unroll
+    for (int t = 0; t < T; ++t) {
+        const __nv_bfloat16* xs = xsum + (size_t)t * ng;
+        float accm = 0.f;  // min term: sum_g m_g * xsum_g
+        for (int g = lane; g < ng; g += 32)
+            accm = __fmaf_rn(bf2f(mrow[g]), bf2f(xs[g]), accm);
+        const float r = warp_sum(acc[t]) - warp_sum(accm);
+        if (lane == 0) y[(size_t)t * out_f + row] = f2bf(r);
+    }
 }
 
-// x (in_f) bf16 -> xq (in_f) int8, sx (in_f/32) f32, xsum (in_f/32) bf16
-KCPP_API int k1_q4k_prep(const void* x, void* xq, void* sx, void* xsum,
-                         int in_f, int quant, void* stream) {
-    return (int)launch_act_prep<32>(x, xq, sx, xsum, in_f, quant,
-                                    (cudaStream_t)stream);
-}
-
-KCPP_API int k1_q4k_matvec(const void* qs2, const void* scale, const void* mn,
-                           const void* x, const void* xq, const void* sx,
-                           const void* xsum, void* y, int out_f, int in_f,
-                           int i8, void* stream) {
+template <bool I8>
+static cudaError_t launch_matvec(int T, const void* qs2, const void* scale,
+                                 const void* mn, const void* x, const void* xq,
+                                 const void* sx, const void* xsum, void* y,
+                                 int out_f, int in_f, cudaStream_t st) {
     dim3 grid((out_f + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK);
     dim3 block(ROWS_PER_BLOCK * 32);
-    cudaStream_t st = (cudaStream_t)stream;
-#define K1_ARGS (const uint8_t*)qs2, (const __nv_bfloat16*)scale, \
+#define KQ_ARGS (const uint8_t*)qs2, (const __nv_bfloat16*)scale, \
         (const __nv_bfloat16*)mn, (const __nv_bfloat16*)x, (const int8_t*)xq, \
         (const float*)sx, (const __nv_bfloat16*)xsum, (__nv_bfloat16*)y, \
         out_f, in_f
-    if (i8)
-        q4k_matvec_kernel<true><<<grid, block, 0, st>>>(K1_ARGS);
-    else
-        q4k_matvec_kernel<false><<<grid, block, 0, st>>>(K1_ARGS);
-#undef K1_ARGS
-    return (int)cudaGetLastError();
+    switch (T) {
+        case 1: q4k_matvec_kernel<I8, 1><<<grid, block, 0, st>>>(KQ_ARGS); break;
+        case 2: q4k_matvec_kernel<I8, 2><<<grid, block, 0, st>>>(KQ_ARGS); break;
+        case 3: q4k_matvec_kernel<I8, 3><<<grid, block, 0, st>>>(KQ_ARGS); break;
+        case 4: q4k_matvec_kernel<I8, 4><<<grid, block, 0, st>>>(KQ_ARGS); break;
+        case 5: q4k_matvec_kernel<I8, 5><<<grid, block, 0, st>>>(KQ_ARGS); break;
+        case 6: q4k_matvec_kernel<I8, 6><<<grid, block, 0, st>>>(KQ_ARGS); break;
+        case 7: q4k_matvec_kernel<I8, 7><<<grid, block, 0, st>>>(KQ_ARGS); break;
+        case 8: q4k_matvec_kernel<I8, 8><<<grid, block, 0, st>>>(KQ_ARGS); break;
+        default: return cudaErrorInvalidValue;
+    }
+#undef KQ_ARGS
+    return cudaGetLastError();
+}
+
+// x (n = T * in_f) bf16 -> xq (n) int8, sx (n/32) f32, xsum (n/32) bf16; the
+// groups never straddle two tokens (in_f is a multiple of 256)
+KCPP_API int k1_q4k_prep(const void* x, void* xq, void* sx, void* xsum,
+                         int n, int quant, void* stream) {
+    return (int)launch_act_prep<32>(x, xq, sx, xsum, n, quant,
+                                    (cudaStream_t)stream);
+}
+
+// K1 (T == 1) and K7 (2 <= T <= 8): the same kernel template
+KCPP_API int k7_q4k_matvec_t(const void* qs2, const void* scale, const void* mn,
+                             const void* x, const void* xq, const void* sx,
+                             const void* xsum, void* y, int T, int out_f,
+                             int in_f, int i8, void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    return (int)(i8 ? launch_matvec<true>(T, qs2, scale, mn, x, xq, sx, xsum,
+                                          y, out_f, in_f, st)
+                    : launch_matvec<false>(T, qs2, scale, mn, x, xq, sx, xsum,
+                                           y, out_f, in_f, st));
 }

@@ -3,13 +3,14 @@ decoder-only transformers: GQA, optional q/k/v and output biases, fused
 wqkv / w_gateup projections, silu-gated FFN, attention and final-logit
 softcaps).
 
-Port of koboldcpp_tpu/models/llama.py `forward` for the branches a llama /
-mistral / qwen2 Q4_K_M model takes. Single-token decode runs attention
-through the flash-decode kernel (K5), which also writes the new K/V row;
-longer chunks write the cache and run the plain `attention` below, which is
-what the JAX engine runs on the CPU and for every chunk past position 0.
-Every other branch of the JAX forward raises NotImplementedError when the
-config or params ask for it.
+Port of koboldcpp_tpu/models/llama.py `forward` and `forward_paged` for the
+branches a llama / mistral / qwen2 Q4_K_M model takes. Single-token decode
+runs attention through a flash-decode kernel that also writes the new K/V
+row: K5 over the slot cache, K8 over the paged pool. Longer chunks write
+the cache and run the plain `attention` below (over the gathered pages when
+paged), which is what the JAX engine runs on the CPU and for every chunk
+past position 0. Every other branch of the JAX forward raises
+NotImplementedError when the config or params ask for it.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Any
 
 import torch
 
+from ..kv import paged
 from ..kv.cache import KVCache, read as kv_read, write as kv_write
 from ..ops import flash_decode, linear
 from ..ops.norms import layer_norm, rms_norm
@@ -151,8 +153,68 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     if input_embeds is not None or embed_mask is not None:
         raise NotImplementedError("the multimodal embedding splice is not "
                                   "ported yet")
+    T = tokens.shape[1]
+    if T == 1 and flash_decode.supported_batched(1, cfg.n_kv_heads,
+                                                 cfg.head_dim):
+        def attend(li, q, k, v, scale):
+            # single-token decode: K5 reads the history rows below each
+            # position and writes this step's K/V row into the cache
+            out, _, _ = flash_decode.decode_attention_batched(
+                q[:, 0], k[:, 0], v[:, 0], cache.k[li], cache.v[li],
+                positions[:, 0], cfg.n_heads, cfg.n_kv_heads, scale,
+                cfg.attn_logit_softcap)
+            return out[:, None]
+    else:
+        mask = _causal_mask(positions, cache.max_seq)
+
+        def attend(li, q, k, v, scale):
+            kv_write(cache, li, positions, k, v)
+            ck, cv = kv_read(cache, li)
+            return attention(q, ck, cv, mask, scale, cfg.attn_logit_softcap)
+    return _run(params, cfg, tokens, positions, attend, last_only,
+                last_index), cache
+
+
+def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  positions: torch.Tensor, pcache: paged.PagedKVCache,
+                  page_table: torch.Tensor, last_only: bool = False
+                  ) -> tuple[torch.Tensor, paged.PagedKVCache]:
+    """forward() over a paged bf16 pool (kv/paged.py), updated in place:
+    virtual slot index == absolute position, row r of sequence b at pool
+    row page_table[b, r // P] * P + r % P. tokens/positions: (B, T);
+    page_table: (B, MP) int. T=1 goes through K8; longer chunks write
+    through the table, gather the pages and run `attention`."""
+    T = tokens.shape[1]
+    P = pcache.page_size
+    if T == 1 and flash_decode.supported_batched(1, cfg.n_kv_heads,
+                                                 cfg.head_dim):
+        def attend(li, q, k, v, scale):
+            out, _, _ = flash_decode.decode_attention_paged(
+                q[:, 0], k[:, 0], v[:, 0], pcache.k[li], pcache.v[li],
+                page_table, positions[:, 0], cfg.n_heads, cfg.n_kv_heads, P,
+                scale, cfg.attn_logit_softcap)
+            return out[:, None]
+    else:
+        mask = _causal_mask(positions, page_table.shape[1] * P)
+
+        def attend(li, q, k, v, scale):
+            paged.write(pcache, li, page_table, positions, k, v)
+            ck, cv = paged.gather(pcache, li, page_table)
+            return attention(q, ck, cv, mask, scale, cfg.attn_logit_softcap)
+    return _run(params, cfg, tokens, positions, attend, last_only), pcache
+
+
+def _causal_mask(positions: torch.Tensor, S: int) -> torch.Tensor:
+    slot_ids = torch.arange(S, device=positions.device)
+    return slot_ids[None, None, :] <= positions[:, :, None]  # (B, T, S)
+
+
+def _run(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+         positions: torch.Tensor, attend, last_only: bool = False,
+         last_index: torch.Tensor | None = None) -> torch.Tensor:
+    """The layer stack around `attend(li, q, k, v, scale)`, which writes
+    this chunk's K/V and returns the attention output (B, T, H, D)."""
     B, T = tokens.shape
-    S = cache.max_seq
     dev = tokens.device
     freqs = _freqs(cfg, dev)
     scale = (cfg.attn_scale if cfg.attn_scale > 0
@@ -165,12 +227,6 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
     qdim = cfg.n_heads * cfg.head_dim
     kvdim = cfg.n_kv_heads * cfg.head_dim
-    use_flash_dec = T == 1 and flash_decode.supported_batched(
-        1, cfg.n_kv_heads, cfg.head_dim)
-    mask = None
-    if not use_flash_dec:
-        slot_ids = torch.arange(S, device=dev)
-        mask = slot_ids[None, None, :] <= positions[:, :, None]  # (B, T, S)
     res_s = cfg.residual_scale or 1.0
     for li, layer in enumerate(params["layers"]):
         h = _norm(x, layer, "attn_norm", cfg)
@@ -195,20 +251,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         q = apply_rope(q, positions, freqs, cfg.rope_type, cfg.rope_dim)
         k = apply_rope(k, positions, freqs, cfg.rope_type, cfg.rope_dim)
 
-        if use_flash_dec:
-            # single-token decode: K5 reads the history rows below each
-            # position and writes this step's K/V row into the cache
-            out, _, _ = flash_decode.decode_attention_batched(
-                q[:, 0], k[:, 0], v[:, 0], cache.k[li], cache.v[li],
-                positions[:, 0], cfg.n_heads, cfg.n_kv_heads, scale,
-                cfg.attn_logit_softcap)
-            attn_out = out[:, None].to(x.dtype)
-        else:
-            kv_write(cache, li, positions, k, v)
-            ck, cv = kv_read(cache, li)
-            attn_out = attention(q, ck, cv, mask, scale,
-                                 cfg.attn_logit_softcap)
-        attn_out = attn_out.reshape(B, T, qdim)
+        attn_out = attend(li, q, k, v, scale).to(x.dtype).reshape(B, T, qdim)
         attn_out = linear.matmul(attn_out, layer["wo"])
         if "bo" in layer:
             attn_out = attn_out + layer["bo"].to(attn_out.dtype)
@@ -232,5 +275,4 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         logits = logits + params["output_bias"]
     if cfg.logit_scale:
         logits = logits * cfg.logit_scale
-    logits = _softcap(logits, cfg.final_logit_softcap)
-    return logits, cache
+    return _softcap(logits, cfg.final_logit_softcap)

@@ -7,8 +7,9 @@ C interface — `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 header is compiled, so a cold build takes seconds. Nothing here runs at
 import time: the tests import every module on machines without nvcc.
 
-`launches` counts kernel launches by kernel id ("K1", "K2", "K3", "K5");
-each wrapper adds one where it launches its kernel, and nowhere else.
+`launches` counts kernel launches by kernel id ("K1", "K2", "K3", "K5",
+"K7", "K8"); each wrapper adds one where it launches its kernel, and
+nowhere else.
 """
 from __future__ import annotations
 
@@ -96,16 +97,19 @@ def build_all() -> dict[str, str]:
 
 def load(source: str, signatures: dict[str, list]) -> ctypes.CDLL:
     """The library built from csrc/<source>.cu, with argtypes set for the
-    given entry points (each returns a cudaError_t as int)."""
+    given entry points (each returns a cudaError_t as int). Wrappers of one
+    source may each name only their own entry points."""
     lib = _libs.get(source)
     if lib is None:
         lib = ctypes.CDLL(build_all()[source])
         lib.kcpp_error_string.argtypes = [I]
         lib.kcpp_error_string.restype = ctypes.c_char_p
-        for fn, argtypes in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = I
         _libs[source] = lib
+    for fn, argtypes in signatures.items():
+        f = getattr(lib, fn)
+        if f.argtypes is None:
+            f.argtypes = argtypes
+            f.restype = I
     return lib
 
 

@@ -1,12 +1,14 @@
 """Fused dequant+matmul for packed q4_k / q6_k QTensors.
 
-Three hand-written CUDA kernels (csrc/), each with its plain PyTorch version
+Four hand-written CUDA kernels (csrc/), each with its plain PyTorch version
 beside it. A wrapper takes the plain version only for a CPU tensor; for a
 CUDA tensor it launches the kernel or raises.
 
-  K1  q4k_matvec  T=1 q4_k  (csrc/q4k_matvec.cu; JAX `_packed_matvec_q4k`)
-  K2  q6k_matvec  T=1 q6_k  (csrc/q6k_matvec.cu; JAX `_packed_matvec`)
-  K3  kq_matmul   T>8       (csrc/kq_matmul.cu; JAX `_packed_matmul_2d`)
+  K1  q4k_matvec    T=1 q4_k     (csrc/q4k_matvec.cu; JAX `_packed_matvec_q4k`)
+  K7  q4k_matvec_t  2<=T<=8 q4_k (csrc/q4k_matvec.cu; the same JAX function,
+                                  `_i8_t` bodies: batched decode)
+  K2  q6k_matvec    T=1 q6_k     (csrc/q6k_matvec.cu; JAX `_packed_matvec`)
+  K3  kq_matmul     T>8          (csrc/kq_matmul.cu; JAX `_packed_matmul_2d`)
 
 `matmul_packed(x, qt)` returns None when the JAX dispatch would decline the
 shape (out_f or in_f not a multiple of 256, or an in_f too wide for any
@@ -22,6 +24,7 @@ from .linear import QTensor, q4k_values, q6k_values
 VMEM_BUDGET = 13 * 1024 * 1024  # the JAX 2-D kernel's tile budget (see below)
 
 _SIG_MATVEC = [_build.P] * 8 + [_build.I] * 3 + [_build.P]
+_SIG_MATVEC_T = [_build.P] * 8 + [_build.I] * 4 + [_build.P]
 _SIG_PREP = [_build.P] * 4 + [_build.I] * 2 + [_build.P]
 _FIELD_DTYPES = {"qs2": torch.uint8, "ql": torch.uint8, "qh": torch.uint8,
                  "scale": torch.bfloat16, "min": torch.bfloat16}
@@ -60,51 +63,79 @@ def act_prep_plain(x: torch.Tensor, group: int, quant: bool):
 
 
 # ---------------------------------------------------------------------------
-# K1: q4_k T=1 matvec
+# K1: q4_k T=1 matvec; K7: q4_k 2<=T<=8 batched matvec (one kernel template)
 # ---------------------------------------------------------------------------
 
-def q4k_matvec_plain(x: torch.Tensor, qt: QTensor, i8: bool) -> torch.Tensor:
-    """x (in_f,) bf16 -> (1, out_f) bf16. i8: int8 activations per 32-col
-    group (`_q4k_decode_kernel_i8`); else the exact f32 dot with bf16 x."""
+def q4k_matvec_t_plain(x: torch.Tensor, qt: QTensor, i8: bool) -> torch.Tensor:
+    """x (T, in_f) bf16 -> (T, out_f) bf16, row by row. i8: int8 activations
+    per token and 32-col group (`_q4k_decode_kernel_i8(_t)`); else the exact
+    f32 dot with bf16 x. Each row is computed alone, so row t equals the
+    T=1 result for x[t]."""
     out_f, in_f = qt.shape
     ng = in_f // 32
     q = q4k_values(qt.data["qs2"]).reshape(out_f, ng, 32)
     s = qt.data["scale"].float()
     m = qt.data["min"].float()
-    xq, sx, xsum = act_prep_plain(x, 32, i8)
-    if i8:
-        p = (q.int() * xq.int().reshape(ng, 32)).sum(dim=2)  # exact int32
-        t = (p.float() * sx * s).sum(dim=1)
-    else:
-        p = (q.float() * x.float().reshape(ng, 32)).sum(dim=2)
-        t = (s * p).sum(dim=1)
-    t = t - (m * xsum.float()).sum(dim=1)
-    return t.to(torch.bfloat16).reshape(1, out_f)
+    rows = []
+    for xt in x.reshape(-1, in_f):
+        xq, sx, xsum = act_prep_plain(xt, 32, i8)
+        if i8:
+            p = (q.int() * xq.int().reshape(ng, 32)).sum(dim=2)  # exact int32
+            t = (p.float() * sx * s).sum(dim=1)
+        else:
+            p = (q.float() * xt.float().reshape(ng, 32)).sum(dim=2)
+            t = (s * p).sum(dim=1)
+        rows.append(t - (m * xsum.float()).sum(dim=1))
+    return torch.stack(rows).to(torch.bfloat16)
+
+
+def q4k_matvec_plain(x: torch.Tensor, qt: QTensor, i8: bool) -> torch.Tensor:
+    """x (in_f,) bf16 -> (1, out_f) bf16 (see q4k_matvec_t_plain)."""
+    return q4k_matvec_t_plain(x[None], qt, i8)
+
+
+def _q4k_launch(x2: torch.Tensor, qt: QTensor, i8: bool, what: str):
+    """Prep (per token) and matvec launch for x2 (T, in_f) on the card."""
+    T, in_f = x2.shape
+    out_f = qt.shape[0]
+    _check_operands(x2, qt, what)
+    lib = _build.load("q4k_matvec", {"k1_q4k_prep": _SIG_PREP,
+                                     "k7_q4k_matvec_t": _SIG_MATVEC_T})
+    dev = x2.device
+    xq = torch.empty(T * in_f, dtype=torch.int8, device=dev)
+    sx = torch.empty(T * in_f // 32, dtype=torch.float32, device=dev)
+    xsum = torch.empty(T * in_f // 32, dtype=torch.bfloat16, device=dev)
+    y = torch.empty((T, out_f), dtype=torch.bfloat16, device=dev)
+    st = _build.stream_ptr()
+    _build.check(lib, lib.k1_q4k_prep(x2.data_ptr(), xq.data_ptr(),
+                                      sx.data_ptr(), xsum.data_ptr(),
+                                      T * in_f, int(i8), st), f"{what} prep")
+    d = qt.data
+    _build.check(lib, lib.k7_q4k_matvec_t(
+        d["qs2"].data_ptr(), d["scale"].data_ptr(), d["min"].data_ptr(),
+        x2.data_ptr(), xq.data_ptr(), sx.data_ptr(), xsum.data_ptr(),
+        y.data_ptr(), T, out_f, in_f, int(i8), st), what)
+    return y
 
 
 def q4k_matvec(x: torch.Tensor, qt: QTensor, i8: bool) -> torch.Tensor:
     """K1 wrapper. x (in_f,) bf16 contiguous -> (1, out_f) bf16."""
     if not x.is_cuda:
         return q4k_matvec_plain(x, qt, i8)
-    out_f, in_f = qt.shape
-    _check_operands(x[None], qt, "K1")
-    lib = _build.load("q4k_matvec", {"k1_q4k_prep": _SIG_PREP,
-                                     "k1_q4k_matvec": _SIG_MATVEC})
-    dev = x.device
-    xq = torch.empty(in_f, dtype=torch.int8, device=dev)
-    sx = torch.empty(in_f // 32, dtype=torch.float32, device=dev)
-    xsum = torch.empty(in_f // 32, dtype=torch.bfloat16, device=dev)
-    y = torch.empty((1, out_f), dtype=torch.bfloat16, device=dev)
-    st = _build.stream_ptr()
-    _build.check(lib, lib.k1_q4k_prep(x.data_ptr(), xq.data_ptr(),
-                                      sx.data_ptr(), xsum.data_ptr(),
-                                      in_f, int(i8), st), "K1 prep")
-    d = qt.data
-    _build.check(lib, lib.k1_q4k_matvec(
-        d["qs2"].data_ptr(), d["scale"].data_ptr(), d["min"].data_ptr(),
-        x.data_ptr(), xq.data_ptr(), sx.data_ptr(), xsum.data_ptr(),
-        y.data_ptr(), out_f, in_f, int(i8), st), "K1")
+    y = _q4k_launch(x[None], qt, i8, "K1")
     _build.launches["K1"] += 1
+    return y
+
+
+def q4k_matvec_t(x: torch.Tensor, qt: QTensor, i8: bool) -> torch.Tensor:
+    """K7 wrapper. x (T, in_f) bf16 contiguous, 2 <= T <= 8 -> (T, out_f)
+    bf16; row t equals K1 on x[t] bit for bit."""
+    if not x.is_cuda:
+        return q4k_matvec_t_plain(x, qt, i8)
+    if x.dim() != 2 or not 2 <= x.shape[0] <= 8:
+        raise ValueError("K7 takes x of shape (T, in_f) with 2 <= T <= 8")
+    y = _q4k_launch(x, qt, i8, "K7")
+    _build.launches["K7"] += 1
     return y
 
 
@@ -228,8 +259,9 @@ def kq_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
 def matmul_packed(x: torch.Tensor, qt: QTensor) -> torch.Tensor | None:
     """Route x (..., in_f) through the kernel the JAX package would pick, or
     return None where it declines. The variants follow JAX: int8
-    activations for in_f >= 512 and bf16 below (K1/K2); the 2-D kernel (K3)
-    for T > 8, and for q6_k at any T > 1. The TPU-only VMEM row-tile
+    activations for in_f >= 512 and bf16 below (K1/K2/K7); q4_k at
+    2 <= T <= 8 (int8, while T * (in_f/64) * (in_f/2) <= 4 Mi) or T <= 4
+    (bf16) takes K7; the 2-D kernel (K3) the rest, and q6_k at any T > 1. The TPU-only VMEM row-tile
     checks that can also send a T=1 call to the 2-D kernel are not mirrored."""
     out_f, in_f = qt.shape
     if out_f % 256 or in_f % 256:
@@ -243,9 +275,7 @@ def matmul_packed(x: torch.Tensor, qt: QTensor) -> torch.Tensor | None:
     if qt.kind == "q4_k":
         i8 = T * (in_f // 64) * (in_f // 2) <= 4 * 1024 * 1024 and in_f >= 512
         if T <= (8 if i8 else 4):
-            raise NotImplementedError(
-                f"q4_k matvec at T={T} is kernel K7 (batched decode), "
-                "which is not ported yet")
+            return q4k_matvec_t(x2, qt, i8).reshape(*lead, out_f)
     # ultra-wide in_f: even the JAX package's smallest 2-D tile does not fit
     # its VMEM budget, and it takes the dequant path instead
     if 12 * 128 * (in_f // 2) + 4 * 64 * (in_f // 2) > VMEM_BUDGET + 1024 * 1024:

@@ -6,10 +6,11 @@ Port of koboldcpp_tpu/server/app.py for text generation: KoboldAI
 CORS, genkey-based polling/abort. The image, audio and
 embeddings endpoints are not ported yet.
 
-asyncio (aiohttp) frontend; generation runs in a worker thread around the
-blocking engine, one generation at a time: a request that arrives while
-another runs gets 503 (single user; the JAX launcher's --multiuser batching
-is not ported yet).
+asyncio (aiohttp) frontend. With the continuous-batching engine
+(`BatchedEngine`, `--multiuser N`), requests are submitted to it and
+multiplex across its KV slots. The single-sequence `Engine` runs one
+generation at a time in a worker thread behind a busy lock, with a FIFO
+queue of `multiuser - 1` waiters; a request beyond that gets 503.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ API_VERSION = "1.2.2"
 class ServerSettings:
     password: str = ""
     model_name: str = "koboldcpp-tpu-torch/model"
+    multiuser: int = 1  # max requests served or queued (1 = single user)
 
 
 @dataclass
@@ -49,6 +51,7 @@ class ServerState:
         self.engine = engine
         self.settings = settings
         self.busy = asyncio.Lock()
+        self.requests_in_queue = 0
         self.active: dict[str, ActiveGen] = {}
         self.pending_abort_keys: set[str] = set()
         self.total_gens = 0
@@ -92,15 +95,31 @@ async def _read_json(request: web.Request) -> dict:
 # generation plumbing
 # ---------------------------------------------------------------------------
 
+def _batched(state: ServerState) -> bool:
+    return hasattr(state.engine, "submit")
+
+
 async def _run_generation(state: ServerState, genparams: dict,
                           api_format: int) -> dict:
-    """Run one generation under the busy lock; 503 while another runs."""
-    if state.busy.locked():
-        raise web.HTTPServiceUnavailable(
-            text=json.dumps({"detail": {"msg": "Server is busy; please try again later.",
-                                        "type": "service_unavailable"}}),
-            content_type="application/json")
-    await state.busy.acquire()
+    """Run one generation. With the continuous-batching engine, requests
+    multiplex across KV slots; with the single engine they serialize behind
+    the busy lock (+ FIFO queue for --multiuser, 503 on overflow)."""
+    batched = _batched(state)
+    if not batched:
+        if state.busy.locked():
+            if state.requests_in_queue >= max(0, state.settings.multiuser - 1):
+                raise web.HTTPServiceUnavailable(
+                    text=json.dumps({"detail": {
+                        "msg": "Server is busy; please try again later.",
+                        "type": "service_unavailable"}}),
+                    content_type="application/json")
+            state.requests_in_queue += 1
+            try:
+                await state.busy.acquire()
+            finally:
+                state.requests_in_queue -= 1
+        else:
+            await state.busy.acquire()
 
     genkey = str(genparams.get("genkey") or f"KCPP{uuid.uuid4().hex[:8]}")
     gen = ActiveGen(genkey=genkey, engine=state.engine)
@@ -121,8 +140,15 @@ async def _run_generation(state: ServerState, genparams: dict,
             gen.text_so_far += piece
             gen.pieces.put(piece)
 
-        result = await loop.run_in_executor(
-            None, lambda: state.engine.generate(full_prompt, params, on_token))
+        if batched:
+            req = state.engine.submit(full_prompt, params, on_token,
+                                      genkey=genkey)
+            await loop.run_in_executor(None, req.done.wait)
+            result = req.result
+        else:
+            result = await loop.run_in_executor(
+                None, lambda: state.engine.generate(full_prompt, params,
+                                                    on_token))
         gen.done = True
         gen.pieces.put(None)  # sentinel
         state.total_gens += 1
@@ -131,7 +157,17 @@ async def _run_generation(state: ServerState, genparams: dict,
     finally:
         gen.done = True
         state.active.pop(genkey, None)
-        state.busy.release()
+        if not batched:
+            state.busy.release()
+
+
+def _abort(state: ServerState, genkey: str) -> None:
+    """Abort one request by genkey on the batched engine (all of them when
+    genkey is empty); the single engine has one generation to abort."""
+    if _batched(state):
+        state.engine.abort(genkey)
+    else:
+        state.engine.abort()
 
 
 def _wrap_response(result: dict, api_format: int, model_name: str) -> dict:
@@ -230,7 +266,7 @@ async def _sse_stream(state: ServerState, request: web.Request, genparams: dict,
             await resp.write(b"data: [DONE]\n\n")
     except (ConnectionResetError, asyncio.CancelledError):
         # the client went away: stop the generation, then let the error out
-        state.engine.abort()
+        _abort(state, gen.genkey if gen is not None else genkey)
         if not task.done():
             await task
         raise
@@ -274,8 +310,8 @@ def make_app(engine: Engine, settings: ServerSettings | None = None) -> web.Appl
             "last_token_count": t.gen_tokens, "last_seed": -1,
             "total_gens": state.total_gens,
             "stop_reason": -1,
-            "queue": 0,
-            "idle": 0 if state.busy.locked() else 1,
+            "queue": state.requests_in_queue,
+            "idle": 0 if state.busy.locked() or state.active else 1,
             "hordeexitcounter": 0,
             "uptime": time.time() - state.last_req_time,
         })
@@ -329,7 +365,7 @@ def make_app(engine: Engine, settings: ServerSettings | None = None) -> web.Appl
         body = await _read_json(request)
         genkey = str(body.get("genkey", ""))
         if not genkey or genkey in state.active:
-            state.engine.abort()
+            _abort(state, genkey)
             return _json({"success": True, "done": True})
         state.pending_abort_keys.add(genkey)
         return _json({"success": True, "done": False})

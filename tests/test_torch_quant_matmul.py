@@ -1,6 +1,7 @@
-"""Plain versions of K1 (q4_k matvec), K2 (q6_k matvec) and K3 (q4_k/q6_k
-tiled matmul) against the JAX package's `matmul_packed` (Pallas kernels in
-interpret mode), on the same GGUF bytes and the same bf16 activations."""
+"""Plain versions of K1 (q4_k matvec), K7 (q4_k batched matvec), K2 (q6_k
+matvec) and K3 (q4_k/q6_k tiled matmul) against the JAX package's
+`matmul_packed` (Pallas kernels in interpret mode), on the same GGUF bytes
+and the same bf16 activations."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -80,10 +81,47 @@ def test_tiled_matmul_plain_matches_jax(t, T):
     assert np.abs(got - want).max() <= 1e-2 * scale
 
 
-def test_small_batch_raises_naming_k7():
+@pytest.mark.parametrize("in_f,T", [(512, 2), (512, 4), (512, 8),
+                                    (1024, 2), (1024, 4), (1024, 8),
+                                    (256, 2), (256, 4)])
+def test_batched_matvec_plain_matches_jax(in_f, T):
+    """2 <= T <= 8 q4_k (K7): JAX's `_q4k_decode_kernel_i8_t` for in_f >=
+    512, the bf16 `_q4k_decode_kernel` over per-token stacks below, with
+    the tolerances of test_matvec_plain_matches_jax."""
+    jq, tq = _pair(GGMLType.Q4_K, 512, in_f)
+    x = _x(T, in_f, seed=T)
+    _build.launches.clear()
+    got, want = _run_both(jq, tq, x)
+    assert got.shape == (T, 512)
+    tol = 1e-2 if in_f >= 512 else 2e-2
+    assert np.abs(got - want).max() <= tol * np.abs(want).max()
+    assert sum(_build.launches.values()) == 0  # plain version, no launch
+
+
+@pytest.mark.parametrize("i8", [True, False])
+def test_batched_matvec_rows_equal_single_token(i8):
+    """Row t of K7 is K1 on x[t] alone, bit for bit: a request served in a
+    batch gets the logits it gets alone."""
     _, tq = _pair(GGMLType.Q4_K, 256, 512)
-    with pytest.raises(NotImplementedError, match="K7"):
-        tqm.matmul_packed(_x(4, 512), tq)
+    x = _x(8 if i8 else 4, 512, seed=3)
+    y = tqm.q4k_matvec_t_plain(x, tq, i8)
+    for t in range(x.shape[0]):
+        assert torch.equal(y[t:t + 1], tqm.q4k_matvec_plain(x[t], tq, i8))
+
+
+def test_batched_matvec_dispatch():
+    """matmul_packed sends q4_k 2 <= T <= 8 to K7 with JAX's variant choice
+    (int8 for in_f >= 512, bf16 at T <= 4 below), and beyond to K3."""
+    _, tq = _pair(GGMLType.Q4_K, 256, 512)
+    x = _x(8, 512)
+    assert torch.equal(tqm.matmul_packed(x, tq),
+                       tqm.q4k_matvec_t_plain(x, tq, True))
+    _, tq256 = _pair(GGMLType.Q4_K, 256, 256)
+    x = _x(4, 256)
+    assert torch.equal(tqm.matmul_packed(x, tq256),
+                       tqm.q4k_matvec_t_plain(x, tq256, False))
+    x = _x(5, 256)
+    assert torch.equal(tqm.matmul_packed(x, tq256), tqm.kq_matmul_plain(x, tq256))
 
 
 def test_plain_versions_do_not_count_launches():
