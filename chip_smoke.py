@@ -5,17 +5,23 @@
 1. builds every kernel of koboldcpp_tpu_torch/csrc/ (one nvcc per source,
    all at once) and prints the build time and the card's name and power
    limit;
-2. holds each kernel (K1, K2, K7, K3, K5, K8) against its plain PyTorch
-   version on the card at the TinyLlama-1.1B shapes (and the fixture's
-   widths), with the max error against its stated tolerance and the times
-   of the kernel, the plain version, one PyTorch library call computing the
-   same function (where there is one), and the least time the card could
-   take; K7's rows equal K1 on each row alone, and K8 over a shuffled page
-   table equals K5 on the same history laid out contiguously, bit for bit;
+2. holds each kernel (K1, K2, K7, K3, K4, K5, K8, K6, K9, K10) against its
+   plain PyTorch version on the card at the TinyLlama-1.1B shapes (and the
+   fixture's widths; K4 also at head_dim 128 and 256), with the max error
+   against its stated tolerance and the times of the kernel, the plain
+   version, one PyTorch library call computing the same function (where
+   there is one), and the least time the card could take; K7's rows equal
+   K1 on each row alone, and K8 over a shuffled page table equals K5 on the
+   same history laid out contiguously, bit for bit; the quantized decode
+   kernels (K6, K9, K10) write the same codes and scales as their plain
+   versions, bit for bit;
 3. serves a synthetic TinyLlama-1.1B q4_k model through Engine: a ~300
-   token prompt (prefill through K3), 128 greedy tokens (K1 and K5), the
-   same prompt again (fast-forward) and a prompt that forces a context
-   shift, and checks that K1, K3 and K5 ran;
+   token prompt (prefill through K3 and K4, 22 K4 launches for the one
+   chunk from position 0), 128 greedy tokens (K1 and K5), the same prompt
+   again (fast-forward) and a prompt that forces a context shift, checks
+   that K1, K3, K4 and K5 ran, and that the same engine with flash prefill
+   off gives the same tokens (near-ties allowed) and its prefill time; then
+   the same with `quantkv=1` (the Q8 cache, K6 in place of K5);
 4. serves the same model through BatchedEngine (8 slots, context 2048),
    on the slot cache and on the paged pool (P=64): 8 concurrent greedy
    requests of 100-300 prompt tokens and 128 new tokens each, which must
@@ -23,11 +29,15 @@
    be a near-tie of the single-stream logits, and is printed) and the same
    tokens paged as on the slot cache; then 7 greedy + 1 stochastic
    request; prints the aggregate tokens/s and the device idle share of 32
-   batched steps, and checks that K7, K8, K5 and K3 ran;
+   batched steps, and checks that K7, K8, K5 and K3 ran; then over the Q8
+   pool (`quantkv=1`, K9) and the Q4 pool (`quantkv=2`, K10): 8 concurrent
+   greedy requests of 64 new tokens, each getting the tokens it gets alone
+   through the same engine;
 5. serves tests/fixtures/refgguf/tiny-q4_k_m.gguf over HTTP in-process,
    single-stream (checks that K2 ran, and that the fixture's logits on the
    card agree with the reference runtime's goldens) and with multiuser=4
-   (4 concurrent requests, each getting the reply it gets alone);
+   (4 concurrent requests, each getting the reply it gets alone), each
+   also with `--quantkv 1` (K6 single-stream, K9 multiuser);
 6. prints one {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 Any failed check raises, so the script exits nonzero. It exits nonzero,
@@ -57,8 +67,10 @@ from koboldcpp_tpu_torch.models import llama  # noqa: E402
 from koboldcpp_tpu_torch.models.loader import load_model  # noqa: E402
 from koboldcpp_tpu_torch.models.synthetic import (  # noqa: E402
     TINYLLAMA_1_1B, rand_q4k, rand_q6k, synthetic_model)
-from koboldcpp_tpu_torch.kv.cache import init_cache  # noqa: E402
+from koboldcpp_tpu_torch.kv import paged  # noqa: E402
+from koboldcpp_tpu_torch.kv.cache import _dequant, _q8, init_cache  # noqa: E402
 from koboldcpp_tpu_torch.ops import _build, flash_decode  # noqa: E402
+from koboldcpp_tpu_torch.ops import flash_prefill  # noqa: E402
 from koboldcpp_tpu_torch.ops import quant_matmul as qm  # noqa: E402
 from koboldcpp_tpu_torch.ops.linear import dequant  # noqa: E402
 from koboldcpp_tpu_torch.sampling import SamplerParams  # noqa: E402
@@ -76,12 +88,21 @@ KERNELS = {
            "koboldcpp_tpu/ops/quant_matmul.py:1489"),
     "K3": ("kq_matmul", "koboldcpp_tpu_torch/csrc/kq_matmul.cu",
            "koboldcpp_tpu/ops/quant_matmul.py:1631"),
+    "K4": ("flash_prefill", "koboldcpp_tpu_torch/csrc/flash_prefill.cu",
+           "koboldcpp_tpu/models/llama.py:52"),
     "K5": ("flash_decode", "koboldcpp_tpu_torch/csrc/flash_decode.cu",
            "koboldcpp_tpu/ops/flash_decode.py:248"),
+    "K6": ("flash_decode_q8", "koboldcpp_tpu_torch/csrc/flash_decode.cu",
+           "koboldcpp_tpu/ops/flash_decode.py:531"),
     "K7": ("q4k_matvec_t", "koboldcpp_tpu_torch/csrc/q4k_matvec.cu",
            "koboldcpp_tpu/ops/quant_matmul.py:1349"),
     "K8": ("flash_decode_paged", "koboldcpp_tpu_torch/csrc/flash_decode.cu",
            "koboldcpp_tpu/ops/flash_decode.py:718"),
+    "K9": ("flash_decode_paged_q8", "koboldcpp_tpu_torch/csrc/flash_decode.cu",
+           "koboldcpp_tpu/ops/flash_decode.py:920"),
+    "K10": ("flash_decode_paged_q4",
+            "koboldcpp_tpu_torch/csrc/flash_decode.cu",
+            "koboldcpp_tpu/ops/flash_decode.py:1611"),
 }
 NEAR_TIE = 2 ** -6  # logits this close may pick either token (bf16 steps)
 CASES: dict[str, list[dict]] = {k: [] for k in KERNELS}
@@ -457,13 +478,186 @@ def _paged_case(rng, B, H, Hkv, D, P, MP, positions, peaked) -> None:
             + B * H * D * 4 + 2 * n_written * KD * 2)
 
 
+def _bf16(rng, shape, s=1.0):
+    return torch.from_numpy((rng.standard_normal(shape) * s).astype(
+        np.float32)).to(DEV).bfloat16()
+
+
+def phase_flash_prefill(rng) -> None:
+    """K4 at the 1.1B's prefill shapes (one sequence, end-padded chunks of
+    the engine's buckets T=128/256/512 with 100/200/300 real rows, H=32,
+    Hkv=4, D=64), then head_dim 128 (8B-class GQA: H=32, Hkv=8) and 256
+    (H=8, Hkv=4)."""
+    for T, n, H, Hkv, D in ((128, 100, 32, 4, 64), (256, 200, 32, 4, 64),
+                            (512, 300, 32, 4, 64), (256, 230, 32, 8, 128),
+                            (256, 230, 8, 4, 256)):
+        q, k, v = (_bf16(rng, (1, T, h, D)) for h in (H, Hkv, Hkv))
+        pos = torch.tensor([list(range(n)) + [-1] * (T - n)],
+                           dtype=torch.int32, device=DEV)
+        scale = D ** -0.5
+        out = flash_prefill.flash_prefill_attention(q, k, v, pos, scale)
+        ref = flash_prefill.flash_prefill_plain(q, k, v, pos, scale)
+        # W = sum_j p_j |v_j| / l per output element: the softmax over |V|
+        w = flash_prefill.flash_prefill_plain(q, k, v.abs(), pos,
+                                              scale).float()
+        torch.cuda.synchronize()
+        what = f"B=1 T={T} real={n} H={H} Hkv={Hkv} D={D}"
+        # each p is rounded to bf16 (2^-8 relative) against another running
+        # max on each side: 2^-7 * W_d, 5% more for f32 sums and exp in
+        # another order; plus the two bf16 roundings of the output (2^-8
+        # |ref|). Checked element by element.
+        tol_el = 2 ** -7 * 1.05 * w + 2 ** -8 * ref.float().abs()
+        diff = (out.float() - ref.float()).abs()
+        worst = (diff / tol_el.clamp_min(1e-30)).max().item()
+        _check(worst <= 1.0, f"K4 {what}: max |err| / elementwise tol {worst}")
+        err = diff.max().item()
+        tol = tol_el.flatten()[diff.argmax()].item()
+        print(f"K4 {what}: worst |err| / (2^-7 * 1.05 * W + 2^-8 |ref|) "
+              f"{worst:.3g}", flush=True)
+        # library: causal SDPA (GQA) over the real rows only
+        qs, ks, vs = (t[:, :n].transpose(1, 2) for t in (q, k, v))
+        m = T - n
+        pairs = n * (n + 1) // 2 + m * (m + 1) // 2  # visible (i, j) pairs
+        _record("K4", what, err, tol,
+                lambda: flash_prefill.flash_prefill_attention(
+                    q, k, v, pos, scale),
+                lambda: flash_prefill.flash_prefill_plain(q, k, v, pos, scale),
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=True, scale=scale, enable_gqa=True),
+                _nbytes(q, k, v, pos) + _nbytes(q), 4 * H * D * pairs)
+
+
+QUANT_POSITIONS = (0, 1, 63, 64, 700, 2047, -1, 256)
+
+
+def _quantize_history(kc0, Hkv: int, bits: int):
+    """(B, S, Hkv*D) bf16 -> codes (B, S, Hkv*D or /2), scales (B, S, Hkv)
+    and the bf16 values they dequantize to (B, S, Hkv*D)."""
+    B, S, KD = kc0.shape
+    x = kc0.view(B, S, Hkv, KD // Hkv)
+    if bits == 4:
+        codes, sc = paged._quantize_q4(x)
+        deq = paged._dequantize_q4(codes, sc)
+    else:
+        codes, sc = _q8(x)
+        deq = _dequant(codes, sc)
+    return codes.reshape(B, S, -1), sc, deq.reshape(B, S, KD)
+
+
+def phase_quant_decode(rng) -> None:
+    """K6 over the Q8 slot cache (B=8, S=2048) and K9 / K10 over the Q8 /
+    Q4 pools (B=8, P=64, MP=32 pages handed out in a shuffled order), the
+    1.1B's batched decode shape (H=32, Hkv=4, D=64), at positions
+    QUANT_POSITIONS (pos 0, page boundaries, the last row, a dead slot),
+    flat scores, then peaked ones (see _peak)."""
+    for kid in ("K6", "K9", "K10"):
+        for peaked in (False, True):
+            _quant_case(rng, kid, 8, 32, 4, 64, 64, 32, QUANT_POSITIONS,
+                        peaked)
+
+
+def _quant_case(rng, kid, B, H, Hkv, D, P, MP, positions, peaked) -> None:
+    S, KD, NP = MP * P, Hkv * D, B * MP
+    scale = D ** -0.5
+    bits = 4 if kid == "K10" else 8
+    kc0, vc0 = _bf16(rng, (B, S, KD), 0.5), _bf16(rng, (B, S, KD), 0.5)
+    q, kn, vn = _bf16(rng, (B, H, D)), _bf16(rng, (B, Hkv, D)), \
+        _bf16(rng, (B, Hkv, D))
+    if peaked:
+        _peak(rng, q, kc0, positions, H // Hkv)
+    kq, ks, kd = _quantize_history(kc0, Hkv, bits)
+    vq, vs, vd = _quantize_history(vc0, Hkv, bits)
+    pos = torch.tensor(positions, dtype=torch.int32, device=DEV)
+    if kid == "K6":
+        cache0 = (kq, vq, ks, vs)
+        fn, plain = (flash_decode.decode_attention_batched_q8,
+                     flash_decode.decode_attention_batched_q8_plain)
+        extra, pargs = (pos,), ()
+        rows = torch.arange(B * S, device=DEV).view(B, S)
+    else:
+        # scatter each sequence's history into the pool through a shuffled
+        # page table
+        table = torch.from_numpy(rng.permutation(NP).reshape(B, MP).astype(
+            np.int32)).to(DEV)
+        rows = flash_decode._page_rows(table, P, NP)  # (B, S) pool rows
+        cache0 = []
+        for t in (kq, vq, ks, vs):
+            pool = torch.zeros((NP * P, t.shape[-1]), dtype=t.dtype,
+                               device=DEV)
+            pool[rows.reshape(-1)] = t.reshape(B * S, -1)
+            cache0.append(pool)
+        fn = (flash_decode.decode_attention_paged_q4 if bits == 4
+              else flash_decode.decode_attention_paged_q8)
+        plain = flash_decode.decode_attention_paged_quant_plain
+        extra, pargs = (table, pos), (bits,)
+    flat = [c.reshape(-1, c.shape[-1]) for c in cache0]
+    args = (H, Hkv) + ((P,) if kid != "K6" else ()) + (scale,)
+    ck = [c.clone() for c in cache0]
+    out = fn(q, kn, vn, *ck, *extra, *args)[0]
+    cr = [c.clone() for c in cache0]
+    ref = plain(q, kn, vn, *cr, *extra, *args, 0.0, *pargs)
+    # W = sum_s p_s |v_s| / l over the dequantized history and new row (the
+    # softmax over |V|, in K6's value-side arithmetic)
+    _, _, kdq = flash_decode._quantize_row(kn, bits)
+    _, _, vdq = flash_decode._quantize_row(vn, bits)
+    hist = torch.tensor([min(p, S) if p >= 0 else S for p in positions],
+                        device=DEV)
+    w = flash_decode._attend_plain(q, kdq, vdq.abs(), kd, vd.abs(), hist, H,
+                                   Hkv, scale, 0.0)
+    torch.cuda.synchronize()
+    what = (f"B={B} H={H} Hkv={Hkv} D={D}"
+            + (f" S={S}" if kid == "K6" else f" P={P} MP={MP}")
+            + f" pos={positions}" + (" peaked" if peaked else ""))
+    _check(all(torch.equal(a, b) for a, b in zip(ck, cr)),
+           f"{kid} {what}: kernel and plain caches differ")
+    # only the rows at pos changed
+    changed = torch.zeros(flat[0].shape[0], dtype=torch.bool, device=DEV)
+    for a, b in zip(ck, flat):
+        changed |= (a.reshape(b.shape) != b).any(dim=1)
+    want = {int(rows[b, p]) for b, p in enumerate(positions) if 0 <= p < S}
+    _check(set(changed.nonzero().flatten().tolist()) <= want,
+           f"{kid} {what}: rows other than those at pos changed")
+    # K5's per-element bound (see _flash_decode_case)
+    tol_el = 2 ** -7 * 1.05 * w
+    live = [b for b, p in enumerate(positions) if p >= 0]
+    diff = (out - ref).abs()[live]
+    worst = (diff / tol_el[live].clamp_min(1e-30)).max().item()
+    _check(worst <= 1.0, f"{kid} {what}: max |err| / elementwise tol {worst}")
+    err = diff.max().item()
+    tol = tol_el[live].flatten()[diff.argmax()].item()
+    print(f"{kid} {what}: worst |err| / (2^-7 * 1.05 * W) {worst:.3g}; "
+          f"codes and scales equal the plain version's", flush=True)
+    # library: SDPA over the dequantized history laid out contiguously plus
+    # this step's dequantized row, masked to the live prefix (dead: all)
+    ql = q.view(B, H, 1, D)
+    kl = torch.cat([kd, kdq.reshape(B, 1, KD)], 1).view(
+        B, S + 1, Hkv, D).transpose(1, 2)
+    vl = torch.cat([vd, vdq.reshape(B, 1, KD)], 1).view(
+        B, S + 1, Hkv, D).transpose(1, 2)
+    cols = torch.arange(S + 1, device=DEV)
+    mask = torch.stack([(cols < p) | (cols == S) if p >= 0 else cols >= 0
+                        for p in positions])[:, None, None, :]
+    hist_rows = sum(min(p, S) if p >= 0 else S for p in positions)
+    n_written = sum(0 <= p < S for p in positions)
+    row_bytes = sum(c.shape[-1] * c.element_size() for c in flat)  # k+v+sc
+    _record(kid, what, err, tol,
+            lambda: fn(q, kn, vn, *ck, *extra, *args),
+            lambda: plain(q, kn, vn, *cr, *extra, *args, 0.0, *pargs),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=mask, scale=scale, enable_gqa=True),
+            hist_rows * row_bytes + _nbytes(q, kn, vn, *extra)
+            + B * H * D * 4 + n_written * row_bytes)
+
+
 # ---------------------------------------------------------------------------
 # 3. end to end: synthetic TinyLlama-1.1B q4_k served through Engine
 # ---------------------------------------------------------------------------
 
-def phase_end_to_end(card: str) -> dict:
+def phase_end_to_end(card: str) -> tuple[dict, float]:
+    """Returns (launch counts, decode tokens/s of the first request)."""
     model = synthetic_model(TINYLLAMA_1_1B, "q4_k", seed=0, device=DEV)
     eng = Engine(model, max_context=2048, device=DEV)
+    _check(eng.use_flash_prefill, "flash prefill (K4) is off on the card")
     gp = GenParams(max_length=128, bypass_eos=True,
                    sampler=SamplerParams(temperature=0.0, rep_pen=1.0))
     rng = np.random.default_rng(1)
@@ -493,12 +687,26 @@ def phase_end_to_end(card: str) -> dict:
     _check(t1.prompt_tokens == 300 and t2.prompt_tokens == 1, (t1, t2))
     _check(t3.prompt_tokens <= 9 and len(r3.tokens) == 16,
            f"context shift did not reuse the cache: {t3}")
-    for k in ("K1", "K3", "K5"):
+    for k in ("K1", "K3", "K4", "K5"):
         _check(counts.get(k, 0) > 0, f"{k} did not run on the main path")
+    # one chunk from position 0 (the 300-token prompt): one K4 per layer
+    _check(counts["K4"] == TINYLLAMA_1_1B.n_layers,
+           f"K4 ran {counts['K4']} times for one chunk from position 0")
     with torch.inference_mode():
         logits = eng._eval_chunk([5], len(eng.context_tokens))
     _check(logits.shape == (32000,) and bool(torch.isfinite(logits).all()),
            "logits are not finite (32000,)")
+    # the same prompt with flash prefill off (the plain attention over the
+    # whole cache) and on again, in turns: the same tokens, near-ties apart
+    pre = {True: [t1.prompt_time], False: []}
+    for flash in (False, True, False):
+        eng.use_flash_prefill = flash
+        eng.reset_context()
+        r = eng.generate(prompt, gp)
+        pre[flash].append(eng.last_timings.prompt_time)
+        _same_or_near_tie(eng, prompt, r.tokens, r1.tokens,
+                          f"flash prefill {'on' if flash else 'off'}")
+    eng.use_flash_prefill = True
     idle = _decode_idle_share(eng, prompt, gp.sampler)
     print(f"end to end (synthetic TinyLlama-1.1B q4_k, {card}): prefill "
           f"{t1.prompt_tokens} tokens {t1.prompt_tps:.1f} tok/s "
@@ -508,8 +716,49 @@ def phase_end_to_end(card: str) -> dict:
           f"({t2.prompt_time * 1e3:.2f} ms), decode {t2.gen_tps:.1f} tok/s; "
           f"context shift re-evaluated {t3.prompt_tokens} tokens; "
           f"launches {counts}", flush=True)
+    print("prefill of the 300-token prompt, ms, in turns: flash prefill "
+          f"(K4) {[round(t * 1e3, 3) for t in pre[True]]}, plain attention "
+          f"{[round(t * 1e3, 3) for t in pre[False]]}; the same tokens",
+          flush=True)
     print(f"greedy decode, 64 tokens under torch.profiler: {idle}",
           flush=True)
+    del eng, model
+    torch.cuda.empty_cache()
+    return counts, t1.gen_tps
+
+
+def phase_quant_single(card: str, bf16_tps: float) -> dict:
+    """The synthetic 1.1B single-stream with `quantkv=1`: the 300-token
+    prompt (K4 writes the Q8 cache) and 128 greedy tokens through K6."""
+    model = synthetic_model(TINYLLAMA_1_1B, "q4_k", seed=0, device=DEV)
+    eng = Engine(model, max_context=2048, device=DEV, quantkv=1)
+    gp = GenParams(max_length=128, bypass_eos=True,
+                   sampler=SamplerParams(temperature=0.0, rep_pen=1.0))
+    prompt = [1] + np.random.default_rng(1).integers(
+        3, 32000, size=299).tolist()
+    eng.generate(prompt[:40], GenParams(max_length=40, bypass_eos=True,
+                                        sampler=gp.sampler))
+    eng.reset_context()
+    _build.launches.clear()
+    r1 = eng.generate(prompt, gp)
+    t1 = eng.last_timings
+    r2 = eng.generate(prompt, gp)
+    counts = dict(_build.launches)
+    _check(len(r1.tokens) == 128 and r2.tokens == r1.tokens
+           and all(0 <= t < 32000 for t in r1.tokens),
+           "Q8 greedy decode is not repeatable")
+    _check(eng.last_timings.prompt_tokens == 1, "Q8: no fast-forward")
+    _check(counts.get("K6", 0) > 0 and counts.get("K5", 0) == 0,
+           f"K6 did not take K5's place under quantkv=1: {counts}")
+    _check(counts.get("K4", 0) == TINYLLAMA_1_1B.n_layers,
+           f"K4 did not prefill the Q8 cache: {counts}")
+    with torch.inference_mode():
+        logits = eng._eval_chunk([5], len(eng.context_tokens))
+    _check(bool(torch.isfinite(logits).all()), "Q8 logits are not finite")
+    print(f"end to end, --quantkv 1 ({card}): prefill {t1.prompt_tokens} "
+          f"tokens {t1.prompt_time * 1e3:.1f} ms, decode {t1.gen_tokens} "
+          f"tokens {t1.gen_tps:.1f} tok/s (bf16 cache in this run: "
+          f"{bf16_tps:.1f} tok/s); launches {counts}", flush=True)
     del eng, model
     torch.cuda.empty_cache()
     return counts
@@ -653,7 +902,44 @@ def phase_batched_serving(card: str) -> dict:
         _check(counts.get(k, 0) > 0, f"{k} did not run in batched serving")
     print(f"batched serving: paged tokens equal slot tokens; launches "
           f"{counts}", flush=True)
-    del single, model
+    del single
+    # the quantized pools (--multiuser 8 --quantkv 1, --quantkv 2 --paged):
+    # 8 concurrent requests, each getting the tokens it gets alone
+    short = GenParams(max_length=64, bypass_eos=True, sampler=greedy.sampler)
+    for quantkv, kid in ((1, "K9"), (2, "K10")):
+        kind = f"paged P=64, quantkv={quantkv}"
+        eng = batch_engine.BatchedEngine(model, max_context=2048, n_slots=8,
+                                         paged=True, page_size=64,
+                                         device=DEV, quantkv=quantkv)
+        try:
+            eng.generate([1, 2, 3, 4], GenParams(max_length=4,
+                                                 sampler=greedy.sampler))
+            eng.reset_context()
+            _build.launches.clear()
+            res, secs = _serve_together(eng, prompts, [short] * 8)
+            q_counts = dict(_build.launches)
+            alone = []
+            for p in prompts:
+                eng.reset_context()
+                alone.append(eng.generate(p, short).tokens)
+        finally:
+            eng.shutdown()
+        ref = Engine(model, max_context=2048, device=DEV, quantkv=quantkv)
+        for i, (p, r) in enumerate(zip(prompts, res)):
+            _check(len(r.tokens) == 64, f"{kind} request {i}: {r}")
+            _same_or_near_tie(ref, p, r.tokens, alone[i],
+                              f"{kind} request {i} (together vs alone)")
+        del ref
+        _check(q_counts.get(kid, 0) > 0,
+               f"{kid} did not run under {kind}: {q_counts}")
+        n = sum(len(r.tokens) for r in res)
+        print(f"batched 1.1B ({kind}, {card}): 8 greedy requests, {n} "
+              f"tokens in {secs * 1e3:.1f} ms = {n / secs:.1f} tok/s "
+              f"aggregate (prefill included); each equals its reply alone; "
+              f"launches {q_counts}", flush=True)
+        for k, v in q_counts.items():
+            counts[k] = counts.get(k, 0) + v
+    del model
     torch.cuda.empty_cache()
     return counts
 
@@ -701,35 +987,14 @@ class _Server:
         self.loop.close()
 
 
-def phase_served_fixture() -> dict:
+def _multiuser_fixture(model, engine_kw: dict) -> dict:
+    """4 concurrent /api/v1/generate requests on a multiuser=4 server over
+    BatchedEngine(**engine_kw): each reply must equal the one the request
+    gets alone. Returns the launch counts of the concurrent requests."""
     from koboldcpp_tpu_torch.server.app import ServerSettings
 
-    model = load_model(os.path.join(FIX, "tiny-q4_k_m.gguf"), device=DEV)
-    eng = Engine(model, max_context=512, device=DEV)
-    srv = _Server(eng, ServerSettings(model_name="tiny"))
-    try:
-        body = {"prompt": "The gradient of a function, e.g. f(x), points",
-                "max_length": 24, "temperature": 0, "rep_pen": 1.0}
-        _build.launches.clear()
-        a = srv.post("/api/v1/generate", body)["results"][0]["text"]
-        b = srv.post("/api/v1/generate", body)["results"][0]["text"]
-        c = srv.post("/v1/completions", {"prompt": "Once upon",
-                                         "max_tokens": 8, "temperature": 0})
-        counts = dict(_build.launches)
-    finally:
-        srv.close()
-    _check(a == b and a != "", f"temperature-0 replies differ: {a!r} {b!r}")
-    _check(c["object"] == "text_completion" and c["choices"][0]["text"] != "",
-           f"bad /v1/completions reply {c}")
-    _check(counts.get("K2", 0) > 0, "K2 did not run on the served fixture")
-    print(f"served fixture: /api/v1/generate x2 identical ({a!r}); "
-          f"/v1/completions {c['choices'][0]['text']!r}; launches {counts}",
-          flush=True)
-
-    # multiuser: 4 concurrent requests on the batched engine, each getting
-    # the reply it gets alone
     beng = batch_engine.BatchedEngine(model, max_context=512, n_slots=4,
-                                      device=DEV)
+                                      device=DEV, **engine_kw)
     reasons = []  # every request's stop reason: an error fails the phase
     finish = beng._finish
     beng._finish = lambda slot, why: (reasons.append(why), finish(slot, why))
@@ -764,13 +1029,66 @@ def phase_served_fixture() -> dict:
     _check(not any(r.startswith("error") for r in reasons),
            f"multiuser requests failed: {reasons}")
     _check(together == alone and all(together),
-           f"multiuser replies differ from the replies alone: {together} "
-           f"{alone}")
-    _check(multi.get("K7", 0) > 0, "K7 did not run on the multiuser server")
-    print(f"served fixture, multiuser=4: 4 concurrent /api/v1/generate "
-          f"replies equal the replies alone; launches {multi}", flush=True)
-    for k, v in multi.items():
+           f"multiuser replies {engine_kw} differ from the replies alone: "
+           f"{together} {alone}")
+    print(f"served fixture, multiuser=4 {engine_kw}: 4 concurrent "
+          f"/api/v1/generate replies equal the replies alone; launches "
+          f"{multi}", flush=True)
+    return multi
+
+
+def phase_served_fixture() -> dict:
+    from koboldcpp_tpu_torch.server.app import ServerSettings
+
+    model = load_model(os.path.join(FIX, "tiny-q4_k_m.gguf"), device=DEV)
+    eng = Engine(model, max_context=512, device=DEV)
+    srv = _Server(eng, ServerSettings(model_name="tiny"))
+    try:
+        body = {"prompt": "The gradient of a function, e.g. f(x), points",
+                "max_length": 24, "temperature": 0, "rep_pen": 1.0}
+        _build.launches.clear()
+        a = srv.post("/api/v1/generate", body)["results"][0]["text"]
+        b = srv.post("/api/v1/generate", body)["results"][0]["text"]
+        c = srv.post("/v1/completions", {"prompt": "Once upon",
+                                         "max_tokens": 8, "temperature": 0})
+        counts = dict(_build.launches)
+    finally:
+        srv.close()
+    _check(a == b and a != "", f"temperature-0 replies differ: {a!r} {b!r}")
+    _check(c["object"] == "text_completion" and c["choices"][0]["text"] != "",
+           f"bad /v1/completions reply {c}")
+    _check(counts.get("K2", 0) > 0, "K2 did not run on the served fixture")
+    print(f"served fixture: /api/v1/generate x2 identical ({a!r}); "
+          f"/v1/completions {c['choices'][0]['text']!r}; launches {counts}",
+          flush=True)
+
+    # --quantkv 1 single-stream: the Q8 cache (K6)
+    qeng = Engine(model, max_context=512, device=DEV, quantkv=1)
+    srv = _Server(qeng, ServerSettings(model_name="tiny"))
+    try:
+        _build.launches.clear()
+        qa, qb = (srv.post("/api/v1/generate", body)["results"][0]["text"]
+                  for _ in range(2))
+        q_counts = dict(_build.launches)
+    finally:
+        srv.close()
+    _check(qa == qb and qa != "",
+           f"--quantkv 1 temperature-0 replies differ: {qa!r} {qb!r}")
+    _check(q_counts.get("K6", 0) > 0, "K6 did not run on the served fixture")
+    print(f"served fixture, --quantkv 1: /api/v1/generate x2 identical "
+          f"({qa!r}); launches {q_counts}", flush=True)
+    for k, v in q_counts.items():
         counts[k] = counts.get(k, 0) + v
+
+    # multiuser: 4 concurrent requests on the batched engine, each getting
+    # the reply it gets alone; bf16 slot cache, then --quantkv 1 (the Q8
+    # pool it forces)
+    for kid, kw in (("K7", {}), ("K9", {"paged": True, "quantkv": 1})):
+        multi = _multiuser_fixture(model, kw)
+        _check(multi.get(kid, 0) > 0,
+               f"{kid} did not run on the multiuser server {kw}: {multi}")
+        for k, v in multi.items():
+            counts[k] = counts.get(k, 0) + v
 
     # the fixture's logits on the card against the reference runtime's
     manifest = json.load(open(os.path.join(FIX, "manifest.json")))
@@ -806,16 +1124,19 @@ def main() -> int:
     phase_matvec(rng)
     phase_batched_matvec(rng)
     phase_kq_matmul(rng)
+    phase_flash_prefill(rng)
     phase_flash_decode(rng)
     phase_paged_flash_decode(rng)
+    phase_quant_decode(rng)
     torch.cuda.synchronize()
     global _flush
     _flush = None
     torch.cuda.empty_cache()
 
     # the main paths, each with the launch counts zeroed before it
-    runs = [phase_end_to_end(card), phase_batched_serving(card),
-            phase_served_fixture()]
+    single, bf16_tps = phase_end_to_end(card)
+    runs = [single, phase_quant_single(card, bf16_tps),
+            phase_batched_serving(card), phase_served_fixture()]
 
     kernels = []
     for kid, (name, source, replaces) in KERNELS.items():

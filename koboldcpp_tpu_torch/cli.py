@@ -4,9 +4,10 @@ Port of koboldcpp_tpu/cli.py for the flags the port serves: the model
 (positional or --model), --port, --host, --contextsize, --password,
 --prompt / --promptlimit (one-shot mode), --multiuser [N] (continuous
 batching over N KV slots; bare = 5), --paged / --pagesize (the paged KV
-pool for it) and --device. Any other flag, such as the JAX launcher's
---quantkv, exits with argparse's error naming it. Runs on the GPU unless
---device cpu is given.
+pool for it), --quantkv 0|1|2 (bf16 / Q8 / Q4 KV cache, routed as the JAX
+launcher routes it), --flashattention (accepted, a no-op) and --device. Any
+other flag, such as the JAX launcher's --mesh, exits with argparse's error
+naming it. Runs on the GPU unless --device cpu is given.
 """
 from __future__ import annotations
 
@@ -37,6 +38,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--contextsize", type=int, default=2048)
     p.add_argument("--prompt", default="", help="one-shot prompt mode")
     p.add_argument("--promptlimit", type=int, default=100)
+    p.add_argument("--quantkv", type=int, default=0, choices=(0, 1, 2),
+                   help="KV cache quantization: 0=bf16 1=q8 2=q4")
+    p.add_argument("--flashattention", action="store_true",
+                   help="accepted for compatibility; prefill from position "
+                        "0 always runs flash attention on the GPU")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch versions of the kernels)")
@@ -67,15 +73,25 @@ def main(argv=None):
         print(f"Note: --multiuser continuous batching is unavailable for "
               f"this configuration (arch {model.cfg.arch}); serving with "
               f"the single-sequence engine + FIFO queue")
+    if args.paged and args.quantkv == 2:
+        print("Paged KV pool: Q4 (plane-split nibbles, half the Q8 memory)")
     if batched:
+        # --quantkv 1 takes the paged Q8 pool (the JAX launcher's routing,
+        # cli.py:432-446)
+        paged = args.paged or args.quantkv == 1
         engine = BatchedEngine(model, max_context=args.contextsize,
-                               n_slots=args.multiuser, paged=args.paged,
-                               page_size=args.pagesize, device=model.device)
+                               n_slots=args.multiuser, paged=paged,
+                               page_size=args.pagesize, device=model.device,
+                               quantkv=args.quantkv)
         print(f"Continuous batching enabled: {args.multiuser} KV slots"
-              + (" (paged)" if args.paged else ""))
+              + (" (paged)" if paged else ""))
     else:
         engine = Engine(model, max_context=args.contextsize,
-                        device=model.device)
+                        device=model.device, quantkv=args.quantkv)
+        if args.quantkv == 1:
+            print("Q8-quantized KV cache enabled")
+        elif args.quantkv == 2:
+            print("Q4_0-quantized KV cache enabled (plain attention path)")
 
     if args.prompt:
         r = engine.generate(args.prompt, GenParams(max_length=args.promptlimit))

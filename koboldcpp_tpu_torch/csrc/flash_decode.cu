@@ -1,34 +1,56 @@
-// K5: batched flash decode over the fused (B, S, Hkv*D) bf16 slot cache,
-// and K8: the same over a paged (NP*P, Hkv*D) bf16 pool addressed through a
-// (B, MP) page table; both write this step's K/V row in place.
+// Batched flash decode that also writes this step's K/V row in place, over
+// four cache kinds:
+//   K5: the fused (B, S, Hkv*D) bf16 slot cache;
+//   K6: the same as int8 with (B, S, Hkv) bf16 scales (Q8, --quantkv 1);
+//   K8: a paged (NP*P, Hkv*D) bf16 pool addressed through a (B, MP) table;
+//   K9: the paged pool as int8 rows with (NP*P, Hkv) bf16 scales;
+//   K10: the paged pool as plane-split nibbles (NP*P, Hkv*D/2) uint8 (byte
+//        i of a head's D/2 bytes holds element i in the low nibble and
+//        element i+D/2 in the high one, as value + 8) with the same scales.
 //
-// K5 replaces koboldcpp_tpu/ops/flash_decode.py `decode_attention_batched`
-// (body `_bkernel`), K8 replaces `decode_attention_paged` (body `_pkernel`).
+// Replace koboldcpp_tpu/ops/flash_decode.py `decode_attention_batched`
+// (body `_bkernel`), `decode_attention_batched_q8` (`_bqkernel`),
+// `decode_attention_paged` (`_pkernel`), `decode_attention_paged_q8`
+// (`_pq8kernel`) and `decode_attention_paged_q4` (`_pq4kernel`).
 // Per sequence b: online softmax over the history rows < pos only (no row
 // at or past pos is read; pos < 0 attends every row, as the TPU kernels'
-// dead-row remap does; pos >= S attends all S rows), scores bf16 q . bf16 k
-// in f32 times `scale`, optional softcap, p cast to bf16 before p . V; this
-// step's self term folds in f32 from k_new/v_new; output f32 (B, H, D). The
-// new K/V row lands at pos when 0 <= pos < S. For K8, S = MP * P and row r
-// of sequence b lives at pool row tab[b, r / P] * P + r % P.
+// dead-row remap does; pos >= S attends all S rows), scores q . k in f32
+// times `scale`, optional softcap, p cast to bf16 before p . V; this step's
+// self term folds in f32 from the new row as the cache will hold it; output
+// f32 (B, H, D). The new row lands at pos when 0 <= pos < S. For the paged
+// kinds S = MP * P and row r of sequence b lives at pool row
+// tab[b, r / P] * P + r % P. The quantized kinds round as their TPU kernels
+// do: K6 dequantizes each history element to bf16(int8 * scale) before the
+// dot; K9/K10 dot q with the integer values and apply the scales on the
+// score side, score = (q . k_int) * k_scale * scale and weight =
+// bf16(p * v_scale) before weight . v_int. Each quantizes the new row as
+// kv/cache.py `_q8` / kv/paged.py `_quantize_q4` do (amax/127 or amax/7 per
+// head, round half to even, scale rounded to bf16), uses its dequantized
+// bf16 values for the self term, and writes the codes and the scale.
 //
-// Bound on the H100: bytes (2 * B * n_hist * Hkv * D * 2 B of history
-// plus the row write). Design: flash-decoding split over the sequence —
-// grid (B * Hkv, NSPLIT); each block serves the G = H / Hkv query heads of
-// one kv head over a slice of the rows, 4 warps x 32-row chunks, a lane
-// scoring one row for all G heads, then owning D/32 output columns for
-// p . V. A second small kernel merges the slices' (max, sum, acc), folds in
-// the self term, writes the output and the cache row. The TPU kernel walks
-// a sequence's pages one after another (grid (B, MP)); K8 keeps K5's split
-// boundaries and arithmetic and only computes each row's address through
-// the page table, so over a page table it gives bit for bit K5's output on
-// the same history laid out contiguously.
-// Launch counters: ops/_build.launches["K5"] and ["K8"] (one per call).
+// Bound on the H100: bytes (the live history rows' K and V values plus
+// their scales, and the row write). Design: flash-decoding split over the
+// sequence — grid (B * Hkv, NSPLIT); each block serves the G = H / Hkv
+// query heads of one kv head over a slice of the rows, 4 warps x 32-row
+// chunks, a lane scoring one row for all G heads, then owning D/32 output
+// columns for p . V. A second small kernel quantizes the new row, merges the
+// slices' (max, sum, acc), folds in the self term, writes the output and
+// the cache row. The TPU kernels walk a sequence's pages one after another
+// (grid (B, MP)); the paged kinds keep the slot kinds' split boundaries and
+// arithmetic and only compute each row's address through the page table,
+// so K8 over a page table gives bit for bit K5's output on the same history
+// laid out contiguously.
+// Launch counters: ops/_build.launches["K5"], ["K6"], ["K8"], ["K9"],
+// ["K10"] (one per call).
 #include "common.cuh"
 
 constexpr int NW = 4;        // warps per block
 constexpr int MAXG = 16;     // query heads per kv head
 constexpr int MAXGD = 1024;  // G * D
+constexpr int MAXD = 128;
+
+// cache kinds: the element type of the rows and where the scales apply
+enum Kind { BF16_ROWS = 0, Q8_VALUE = 1, Q8_SCORE = 2, Q4_SCORE = 3 };
 
 // cache row of history row `row` of sequence b: contiguous (B, S, KD), or
 // through the (B, MP) page table of a paged pool (entries clamped to the pool)
@@ -40,11 +62,70 @@ __device__ __forceinline__ size_t cache_row(const int* __restrict__ tab,
     return (size_t)page * P + row % P;
 }
 
-template <int D>
+// bytes of one head's D elements in a cache row of kind KIND
+template <int KIND, int D>
+struct Row {
+    static constexpr int BYTES = KIND == BF16_ROWS ? 2 * D
+                                 : KIND == Q4_SCORE ? D / 2 : D;
+};
+
+// elements [8c, 8c + 8) of one head's row, as the score dot takes them:
+// bf16 values, bf16(int8 * scale) (K6), or the integer values (K9, K10)
+template <int KIND, int D>
+__device__ __forceinline__ void load8(const uint8_t* __restrict__ head,
+                                      int c, float s, float kf[8]) {
+    if (KIND == BF16_ROWS) {
+        const uint4 kv = reinterpret_cast<const uint4*>(head)[c];
+        const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&kv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const float2 f = __bfloat1622float2(k2[e]);
+            kf[2 * e] = f.x;
+            kf[2 * e + 1] = f.y;
+        }
+    } else if (KIND == Q4_SCORE) {
+        // elements 8c.. are the low nibbles of bytes 8c.. below D/2, the
+        // high nibbles of bytes 8c - D/2.. above
+        const int hi = 8 * c >= D / 2;
+        const uint2 w = reinterpret_cast<const uint2*>(head)[c - hi * (D / 16)];
+        const uint32_t ws[2] = {w.x, w.y};
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+            const uint32_t byte = (ws[e >> 2] >> (8 * (e & 3))) & 0xFFu;
+            kf[e] = (float)((int)(hi ? byte >> 4 : byte & 0xFu) - 8);
+        }
+    } else {
+        const uint2 w = reinterpret_cast<const uint2*>(head)[c];
+        const uint32_t ws[2] = {w.x, w.y};
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+            const float v = (float)(int8_t)((ws[e >> 2] >> (8 * (e & 3))) & 0xFFu);
+            kf[e] = KIND == Q8_VALUE ? bf2f(f2bf(v * s)) : v;
+        }
+    }
+}
+
+// element d of one head's row as p . V takes it (see load8)
+template <int KIND, int D>
+__device__ __forceinline__ float load1(const uint8_t* __restrict__ head,
+                                       int d, float s) {
+    if (KIND == BF16_ROWS)
+        return bf2f(reinterpret_cast<const __nv_bfloat16*>(head)[d]);
+    if (KIND == Q4_SCORE) {
+        const uint32_t byte = head[d % (D / 2)];
+        return (float)((int)(d < D / 2 ? byte & 0xFu : byte >> 4) - 8);
+    }
+    const float v = (float)reinterpret_cast<const int8_t*>(head)[d];
+    return KIND == Q8_VALUE ? bf2f(f2bf(v * s)) : v;
+}
+
+template <int KIND, int D>
 __global__ void __launch_bounds__(NW * 32)
 flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ kc,
-                          const __nv_bfloat16* __restrict__ vc,
+                          const uint8_t* __restrict__ kc,
+                          const uint8_t* __restrict__ vc,
+                          const __nv_bfloat16* __restrict__ ksc,  // or null
+                          const __nv_bfloat16* __restrict__ vsc,
                           const int* __restrict__ positions,
                           const int* __restrict__ tab,  // (B, MP) or null
                           int MP, int P, int NP,
@@ -53,6 +134,9 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
                           int S, int Hkv, int G, int rows_per_split,
                           float scale, float softcap) {
     constexpr int DPL = D / 32;  // output columns per lane
+    constexpr int HB = Row<KIND, D>::BYTES;
+    constexpr bool SCALED = KIND != BF16_ROWS;
+    constexpr bool SCORE_SIDE = KIND == Q8_SCORE || KIND == Q4_SCORE;
     __shared__ float q_s[MAXGD];
     __shared__ float p_s[NW][32][MAXG];
     __shared__ float acc_s[NW][MAXGD];
@@ -61,7 +145,7 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
     const int bk = blockIdx.x, split = blockIdx.y, NS = gridDim.y;
     const int b = bk / Hkv, kvh = bk % Hkv;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int KD = Hkv * D;
+    const size_t row_bytes = (size_t)Hkv * HB;
     const int pos = positions[b];
     const int n_hist = pos < 0 ? S : min(pos, S);
     const int r_begin = split * rows_per_split;
@@ -79,8 +163,8 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
     }
-    const __nv_bfloat16* kbase = kc + (size_t)kvh * D;
-    const __nv_bfloat16* vbase = vc + (size_t)kvh * D;
+    const uint8_t* kbase = kc + (size_t)kvh * HB;
+    const uint8_t* vbase = vc + (size_t)kvh * HB;
 
     for (int r0 = r_begin + warp * 32; r0 < r_end; r0 += NW * 32) {
         const int row = r0 + lane;
@@ -89,27 +173,24 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
         float sc[MAXG];
 #pragma unroll
         for (int g = 0; g < MAXG; ++g) sc[g] = 0.f;
+        float ks = 1.f, vs = 0.f;
         if (valid) {
-            const uint4* kr = reinterpret_cast<const uint4*>(
-                kbase + cache_row(tab, b, row, S, MP, P, NP) * KD);
+            const size_t cr = cache_row(tab, b, row, S, MP, P, NP);
+            if (SCALED) {
+                ks = bf2f(ksc[cr * Hkv + kvh]);
+                vs = bf2f(vsc[cr * Hkv + kvh]);
+            }
+            const uint8_t* kr = kbase + cr * row_bytes;
 #pragma unroll
-            for (int d8 = 0; d8 < D / 8; ++d8) {
-                const uint4 kv = kr[d8];
-                const __nv_bfloat162* k2 =
-                    reinterpret_cast<const __nv_bfloat162*>(&kv);
+            for (int c = 0; c < D / 8; ++c) {
                 float kf[8];
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const float2 f = __bfloat1622float2(k2[e]);
-                    kf[2 * e] = f.x;
-                    kf[2 * e + 1] = f.y;
-                }
+                load8<KIND, D>(kr, c, ks, kf);
 #pragma unroll
                 for (int g = 0; g < MAXG; ++g) {
                     if (g < G) {
 #pragma unroll
                         for (int e = 0; e < 8; ++e)
-                            sc[g] += q_s[g * D + d8 * 8 + e] * kf[e];
+                            sc[g] += q_s[g * D + c * 8 + e] * kf[e];
                     }
                 }
             }
@@ -118,7 +199,7 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int g = 0; g < MAXG; ++g) {
             if (g < G) {
-                float s = sc[g] * scale;
+                float s = SCORE_SIDE ? (sc[g] * ks) * scale : sc[g] * scale;
                 if (softcap > 0.f) s = softcap * tanhf(s / softcap);
                 s = valid ? s : -1e30f;
                 const float m_new = fmaxf(m[g], warp_max(s));
@@ -126,7 +207,8 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
                 const float p = expf(s - m_new);
                 l[g] = l[g] * alpha[g] + warp_sum(p);
                 m[g] = m_new;
-                p_s[warp][lane][g] = bf2f(f2bf(p));  // p . V takes bf16 p
+                // p . V takes bf16 p (score-side kinds: bf16(p * v_scale))
+                p_s[warp][lane][g] = bf2f(f2bf(SCORE_SIDE ? p * vs : p));
             }
         }
         __syncwarp();
@@ -137,11 +219,13 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
                 for (int i = 0; i < DPL; ++i) acc[g][i] *= alpha[g];
         for (int rr = 0; rr < nrows; ++rr) {
-            const __nv_bfloat16* vr =
-                vbase + cache_row(tab, b, r0 + rr, S, MP, P, NP) * KD;
+            const size_t cr = cache_row(tab, b, r0 + rr, S, MP, P, NP);
+            const float rvs = KIND == Q8_VALUE ? bf2f(vsc[cr * Hkv + kvh]) : 1.f;
+            const uint8_t* vr = vbase + cr * row_bytes;
             float v[DPL];
 #pragma unroll
-            for (int i = 0; i < DPL; ++i) v[i] = bf2f(vr[lane + 32 * i]);
+            for (int i = 0; i < DPL; ++i)
+                v[i] = load1<KIND, D>(vr, lane + 32 * i, rvs);
 #pragma unroll
             for (int g = 0; g < MAXG; ++g)
                 if (g < G) {
@@ -182,28 +266,58 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
     }
 }
 
-// merge the NSPLIT slices, fold in the self term, write out and the cache
+// quantize this step's row (quantized kinds), merge the NSPLIT slices, fold
+// in the self term, write out and the cache row
+template <int KIND>
 __global__ void flash_decode_merge_kernel(
         const __nv_bfloat16* __restrict__ q,
         const __nv_bfloat16* __restrict__ knew,
         const __nv_bfloat16* __restrict__ vnew,
-        __nv_bfloat16* __restrict__ kc, __nv_bfloat16* __restrict__ vc,
+        uint8_t* __restrict__ kc, uint8_t* __restrict__ vc,
+        __nv_bfloat16* __restrict__ ksc, __nv_bfloat16* __restrict__ vsc,
         const int* __restrict__ positions, const int* __restrict__ tab,
         int MP, int P, int NP,
         const float* __restrict__ part_acc, const float* __restrict__ part_ml,
         float* __restrict__ out, int S, int Hkv, int G, int D, int NS,
         float scale, float softcap) {
+    constexpr float QMAX = KIND == Q4_SCORE ? 7.f : 127.f;
     __shared__ float s_self[MAXG];
+    __shared__ float new_s[2][MAXD];  // k, v: the row as the cache holds it
+    __shared__ int code_s[2][MAXD];   // their integer codes (quantized kinds)
+    __shared__ float amax_s[2];
     const int bk = blockIdx.x, b = bk / Hkv, kvh = bk % Hkv;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int nwarps = blockDim.x >> 5;
-    const int KD = Hkv * D;
     const __nv_bfloat16* kn = knew + ((size_t)b * Hkv + kvh) * D;
     const __nv_bfloat16* vn = vnew + ((size_t)b * Hkv + kvh) * D;
     const __nv_bfloat16* qh = q + ((size_t)b * Hkv * G + (size_t)kvh * G) * D;
+    for (int d = threadIdx.x; d < D; d += blockDim.x) {
+        new_s[0][d] = bf2f(kn[d]);
+        new_s[1][d] = bf2f(vn[d]);
+    }
+    __syncthreads();
+    if (KIND != BF16_ROWS) {
+        if (warp < 2) {  // warp 0: k's amax, warp 1: v's
+            float a = 0.f;
+            for (int d = lane; d < D; d += 32) a = fmaxf(a, fabsf(new_s[warp][d]));
+            a = warp_max(a);
+            if (lane == 0) amax_s[warp] = a;
+        }
+        __syncthreads();
+        for (int i = threadIdx.x; i < 2 * D; i += blockDim.x) {
+            const int w = i / D, d = i % D;
+            const float sc = amax_s[w] / QMAX;
+            const float inv = sc > 0.f ? 1.f / sc : 0.f;
+            float c = rintf(__fmul_rn(new_s[w][d], inv));
+            if (KIND == Q4_SCORE) c = fminf(fmaxf(c, -8.f), 7.f);
+            code_s[w][d] = (int)c;
+            new_s[w][d] = bf2f(f2bf(__fmul_rn(c, bf2f(f2bf(sc)))));
+        }
+        __syncthreads();
+    }
     for (int g = warp; g < G; g += nwarps) {  // self scores, one warp per head
         float s = 0.f;
-        for (int d = lane; d < D; d += 32) s += bf2f(qh[g * D + d]) * bf2f(kn[d]);
+        for (int d = lane; d < D; d += 32) s += bf2f(qh[g * D + d]) * new_s[0][d];
         s = warp_sum(s) * scale;
         if (softcap > 0.f) s = softcap * tanhf(s / softcap);
         if (lane == 0) s_self[g] = s;
@@ -226,47 +340,91 @@ __global__ void flash_decode_merge_kernel(
         const float alpha = expf(mm - m_new);
         const float p_self = expf(ss - m_new);
         const float l_tot = ll * alpha + p_self;
-        const float o = (a * alpha + p_self * bf2f(vn[d])) / l_tot;
+        const float o = (a * alpha + p_self * new_s[1][d]) / l_tot;
         out[((size_t)b * Hkv * G + (size_t)kvh * G + g) * D + d] = o;
     }
     const int pos = positions[b];
-    if (pos >= 0 && pos < S) {
-        const size_t r = cache_row(tab, b, pos, S, MP, P, NP);
+    if (pos < 0 || pos >= S) return;
+    const size_t r = cache_row(tab, b, pos, S, MP, P, NP);
+    if (KIND == BF16_ROWS) {
+        __nv_bfloat16* kr = reinterpret_cast<__nv_bfloat16*>(kc) + r * Hkv * D;
+        __nv_bfloat16* vr = reinterpret_cast<__nv_bfloat16*>(vc) + r * Hkv * D;
         for (int d = threadIdx.x; d < D; d += blockDim.x) {
-            kc[r * KD + (size_t)kvh * D + d] = kn[d];
-            vc[r * KD + (size_t)kvh * D + d] = vn[d];
+            kr[(size_t)kvh * D + d] = kn[d];
+            vr[(size_t)kvh * D + d] = vn[d];
+        }
+        return;
+    }
+    if (KIND == Q4_SCORE) {  // plane-split: byte i = code i | code i+D/2 << 4
+        const int D2 = D / 2;
+        for (int i = threadIdx.x; i < 2 * D2; i += blockDim.x) {
+            const int w = i / D2, j = i % D2;
+            uint8_t* dst = (w == 0 ? kc : vc) + r * Hkv * D2 + (size_t)kvh * D2;
+            dst[j] = (uint8_t)((code_s[w][j] + 8) | ((code_s[w][j + D2] + 8) << 4));
+        }
+    } else {
+        for (int i = threadIdx.x; i < 2 * D; i += blockDim.x) {
+            const int w = i / D, d = i % D;
+            int8_t* dst = reinterpret_cast<int8_t*>(w == 0 ? kc : vc)
+                          + r * Hkv * D + (size_t)kvh * D;
+            dst[d] = (int8_t)code_s[w][d];
         }
     }
+    if (threadIdx.x < 2)
+        (threadIdx.x == 0 ? ksc : vsc)[r * Hkv + kvh] =
+            f2bf(amax_s[threadIdx.x] / QMAX);
 }
 
-static cudaError_t launch_flash_decode(
+template <int KIND>
+static cudaError_t launch_kind(
         const void* q, const void* knew, const void* vnew, void* kc, void* vc,
-        const void* positions, const int* tab, int MP, int P, int NP,
-        void* out, void* part_acc, void* part_ml, int B, int S, int H,
-        int Hkv, int D, int nsplit, int rows_per_split, float scale,
+        void* ksc, void* vsc, const void* positions, const int* tab, int MP,
+        int P, int NP, void* out, void* part_acc, void* part_ml, int B, int S,
+        int H, int Hkv, int D, int nsplit, int rows_per_split, float scale,
         float softcap, cudaStream_t st) {
     const int G = H / Hkv;
-    if (G > MAXG || G * D > MAXGD || (D != 64 && D != 128))
-        return cudaErrorInvalidValue;
     dim3 grid(B * Hkv, nsplit);
-#define FD_ARGS (const __nv_bfloat16*)q, (const __nv_bfloat16*)kc, \
-        (const __nv_bfloat16*)vc, (const int*)positions, tab, MP, P, NP, \
+#define FD_ARGS (const __nv_bfloat16*)q, (const uint8_t*)kc, \
+        (const uint8_t*)vc, (const __nv_bfloat16*)ksc, \
+        (const __nv_bfloat16*)vsc, (const int*)positions, tab, MP, P, NP, \
         (float*)part_acc, (float*)part_ml, S, Hkv, G, rows_per_split, scale, \
         softcap
     if (D == 64)
-        flash_decode_split_kernel<64><<<grid, NW * 32, 0, st>>>(FD_ARGS);
+        flash_decode_split_kernel<KIND, 64><<<grid, NW * 32, 0, st>>>(FD_ARGS);
     else
-        flash_decode_split_kernel<128><<<grid, NW * 32, 0, st>>>(FD_ARGS);
+        flash_decode_split_kernel<KIND, 128><<<grid, NW * 32, 0, st>>>(FD_ARGS);
 #undef FD_ARGS
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    flash_decode_merge_kernel<<<B * Hkv, 128, 0, st>>>(
+    flash_decode_merge_kernel<KIND><<<B * Hkv, 128, 0, st>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)knew,
-        (const __nv_bfloat16*)vnew, (__nv_bfloat16*)kc, (__nv_bfloat16*)vc,
-        (const int*)positions, tab, MP, P, NP, (const float*)part_acc,
-        (const float*)part_ml, (float*)out, S, Hkv, G, D, nsplit, scale,
-        softcap);
+        (const __nv_bfloat16*)vnew, (uint8_t*)kc, (uint8_t*)vc,
+        (__nv_bfloat16*)ksc, (__nv_bfloat16*)vsc, (const int*)positions, tab,
+        MP, P, NP, (const float*)part_acc, (const float*)part_ml,
+        (float*)out, S, Hkv, G, D, nsplit, scale, softcap);
     return cudaGetLastError();
+}
+
+static cudaError_t launch_flash_decode(
+        int kind, const void* q, const void* knew, const void* vnew, void* kc,
+        void* vc, void* ksc, void* vsc, const void* positions, const int* tab,
+        int MP, int P, int NP, void* out, void* part_acc, void* part_ml,
+        int B, int S, int H, int Hkv, int D, int nsplit, int rows_per_split,
+        float scale, float softcap, cudaStream_t st) {
+    const int G = H / Hkv;
+    if (G > MAXG || G * D > MAXGD || (D != 64 && D != 128))
+        return cudaErrorInvalidValue;
+#define FD_CALL(K) launch_kind<K>(q, knew, vnew, kc, vc, ksc, vsc, positions, \
+        tab, MP, P, NP, out, part_acc, part_ml, B, S, H, Hkv, D, nsplit, \
+        rows_per_split, scale, softcap, st)
+    switch (kind) {
+        case BF16_ROWS: return FD_CALL(BF16_ROWS);
+        case Q8_VALUE: return FD_CALL(Q8_VALUE);
+        case Q8_SCORE: return FD_CALL(Q8_SCORE);
+        case Q4_SCORE: return FD_CALL(Q4_SCORE);
+    }
+#undef FD_CALL
+    return cudaErrorInvalidValue;
 }
 
 // K5. q (B, H, D), knew/vnew (B, Hkv, D), kc/vc (B, S, Hkv*D) all bf16;
@@ -278,25 +436,42 @@ KCPP_API int k5_flash_decode(const void* q, const void* knew, const void* vnew,
                              int S, int H, int Hkv, int D, int nsplit,
                              int rows_per_split, float scale, float softcap,
                              void* stream) {
-    return (int)launch_flash_decode(q, knew, vnew, kc, vc, positions, nullptr,
-                                    0, 1, 1, out, part_acc, part_ml, B, S, H,
-                                    Hkv, D, nsplit, rows_per_split, scale,
-                                    softcap, (cudaStream_t)stream);
+    return (int)launch_flash_decode(
+        BF16_ROWS, q, knew, vnew, kc, vc, nullptr, nullptr, positions, nullptr, 0,
+        1, 1, out, part_acc, part_ml, B, S, H, Hkv, D, nsplit,
+        rows_per_split, scale, softcap, (cudaStream_t)stream);
 }
 
-// K8. As K5, with kc/vc the (NP*P, Hkv*D) pools and tab the (B, MP) int32
-// page table; S = MP * P.
-KCPP_API int k8_flash_decode_paged(const void* q, const void* knew,
+// K6. As K5, with kc/vc (B, S, Hkv*D) int8 and ksc/vsc (B, S, Hkv) bf16.
+KCPP_API int k6_flash_decode_q8(const void* q, const void* knew,
+                                const void* vnew, void* kc, void* vc,
+                                void* ksc, void* vsc, const void* positions,
+                                void* out, void* part_acc, void* part_ml,
+                                int B, int S, int H, int Hkv, int D,
+                                int nsplit, int rows_per_split, float scale,
+                                float softcap, void* stream) {
+    return (int)launch_flash_decode(
+        Q8_VALUE, q, knew, vnew, kc, vc, ksc, vsc, positions, nullptr, 0, 1,
+        1, out, part_acc, part_ml, B, S, H, Hkv, D, nsplit, rows_per_split,
+        scale, softcap, (cudaStream_t)stream);
+}
+
+// K8 (kind 0), K9 (kind 2), K10 (kind 3). As K5, with kc/vc the
+// (NP*P, Hkv*D) bf16 | int8 or (NP*P, Hkv*D/2) uint8 pools, ksc/vsc the
+// (NP*P, Hkv) bf16 scales (null for K8) and tab the (B, MP) int32 page
+// table; S = MP * P.
+KCPP_API int k8_flash_decode_paged(int kind, const void* q, const void* knew,
                                    const void* vnew, void* kc, void* vc,
-                                   const void* tab, const void* positions,
-                                   void* out, void* part_acc, void* part_ml,
-                                   int B, int MP, int P, int NP, int H,
-                                   int Hkv, int D, int nsplit,
-                                   int rows_per_split, float scale,
-                                   float softcap, void* stream) {
-    return (int)launch_flash_decode(q, knew, vnew, kc, vc, positions,
-                                    (const int*)tab, MP, P, NP, out, part_acc,
-                                    part_ml, B, MP * P, H, Hkv, D, nsplit,
-                                    rows_per_split, scale, softcap,
-                                    (cudaStream_t)stream);
+                                   void* ksc, void* vsc, const void* tab,
+                                   const void* positions, void* out,
+                                   void* part_acc, void* part_ml, int B,
+                                   int MP, int P, int NP, int H, int Hkv,
+                                   int D, int nsplit, int rows_per_split,
+                                   float scale, float softcap, void* stream) {
+    if (kind != BF16_ROWS && kind != Q8_SCORE && kind != Q4_SCORE)
+        return (int)cudaErrorInvalidValue;
+    return (int)launch_flash_decode(
+        kind, q, knew, vnew, kc, vc, ksc, vsc, positions, (const int*)tab, MP,
+        P, NP, out, part_acc, part_ml, B, MP * P, H, Hkv, D, nsplit,
+        rows_per_split, scale, softcap, (cudaStream_t)stream);
 }

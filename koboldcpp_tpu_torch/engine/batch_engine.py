@@ -22,7 +22,9 @@ per tick.
 
 A decode step is one forward at (n_slots, 1): q4_k projections go to K7
 (2 <= n_slots <= 8), attention to K5 over the slot cache (B, S, H_kv*D) or
-K8 over the paged pool (kv/paged.py, `paged=True`). Tokens a burst computes
+K8 over the paged pool (kv/paged.py, `paged=True`); with `quantkv=1` to K6
+over the Q8 slot cache or K9 over the Q8 pool, with `quantkv=2` to the plain
+path over the Q4 slot cache or K10 over the Q4 pool. Tokens a burst computes
 past a slot's stop are discarded; their cache rows lie past len(context) and
 stay invisible. The worker thread owns the cache and runs every forward
 under `torch.inference_mode`, on the engine's device and that thread's
@@ -45,7 +47,7 @@ import torch
 
 from ..device import resolve_device
 from ..grammar.gbnf import TokenFilter
-from ..kv.cache import KVCache, init_cache
+from ..kv.cache import init_cache, rows as cache_rows
 from ..kv.paged import PageAllocator, init_paged_cache
 from ..models import llama as model_llama
 from ..models.loader import Model
@@ -56,7 +58,8 @@ from ..sampling.samplers import (KCPP_SAMPLER_TEMP, KCPP_SAMPLER_TOP_K,
                                  KCPP_SAMPLER_TOP_P)
 from . import device_sampler
 from .engine import (GenParams, GenerationResult, Timings, _find_stop,
-                     _longest_common_run, _shift_rows, antislop_check)
+                     _kv_quant, _longest_common_run, _shift_rows,
+                     antislop_check)
 
 PREFILL_BUCKETS = (16, 32, 64, 128)
 PREFILL_CHUNK = 128  # interleave granularity: decode ticks between chunks
@@ -162,10 +165,12 @@ def batch_capable(cfg) -> bool:
 class BatchedEngine:
     """Drop-in Engine replacement with cross-request continuous batching on
     one device (default cuda; raises without a GPU unless device="cpu").
-    The model's params must already live on that device."""
+    The model's params must already live on that device. quantkv: 0 bf16
+    KV, 1 Q8, 2 Q4 (slot cache, or pool when paged)."""
 
     def __init__(self, model: Model, max_context: int = 2048, n_slots: int = 4,
-                 paged: bool = False, page_size: int = 64, device=None):
+                 paged: bool = False, page_size: int = 64, device=None,
+                 quantkv: int = 0):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model params live on {model.device}, the "
@@ -182,9 +187,11 @@ class BatchedEngine:
         self.max_context = max_context
         self.n_slots = n_slots
         self.paged = paged
+        self.quantkv = quantkv
         # context shift needs in-place row surgery on the slot cache; the
-        # paged pool reuses a prefix only (fast-forward), as in JAX
-        self.use_contextshift = not paged
+        # paged pool reuses a prefix only (fast-forward), and a quantized
+        # cache has none, as upstream (koboldcpp.py:840) and in JAX
+        self.use_contextshift = not paged and not quantkv
         if paged:
             max_pages = -(-max_context // page_size)
             self.page_size = page_size
@@ -221,9 +228,12 @@ class BatchedEngine:
         if self.paged:
             return init_paged_cache(cfg.n_layers, self.allocator.n_pages,
                                     self.page_size, cfg.n_kv_heads,
-                                    cfg.head_dim, device=self.device)
+                                    cfg.head_dim,
+                                    quantized=_kv_quant(self.quantkv),
+                                    device=self.device)
         return init_cache(cfg.n_layers, self.n_slots, self.max_context,
-                          cfg.n_kv_heads, cfg.head_dim, device=self.device)
+                          cfg.n_kv_heads, cfg.head_dim, device=self.device,
+                          quantized=_kv_quant(self.quantkv))
 
     # -- public API --------------------------------------------------------
     def generate(self, prompt, params: GenParams,
@@ -498,10 +508,7 @@ class BatchedEngine:
                                self._table([slot.idx]))
         else:
             # the slot's rows as a one-sequence cache: views, written in place
-            i = slot.idx
-            sub = KVCache(k=[kl[i:i + 1] for kl in self.cache.k],
-                          v=[vl[i:i + 1] for vl in self.cache.v],
-                          heads=self.cache.heads)
+            sub = cache_rows(self.cache, slot.idx)
             lg = self._forward(self._to_dev(tok), self._to_dev(ppos),
                                cache=sub)
         slot.context.extend(chunk)

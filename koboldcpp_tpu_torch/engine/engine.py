@@ -1,12 +1,14 @@
 """Generation engine: the serving hot loop (single sequence).
 
 Port of koboldcpp_tpu/engine/engine.py, standard llama-family path:
-prefill in left-padded shape buckets -> sample -> stream -> stop checks,
-with kobold's KV-reuse tricks:
+prefill in left-padded shape buckets (on the card, a chunk of >= 128 rows
+from position 0 is padded at its end and runs flash prefill, K4) -> sample
+-> stream -> stop checks, with kobold's KV-reuse tricks:
   - context fast-forward (longest common prefix with the cached context)
   - context shift (drop a scrolled-out gap from the cache and re-rotate the
-    keys that slide down)
+    keys that slide down; off under a quantized KV cache, as upstream)
   - anti-slop rewind (banned phrases)
+The KV cache is bf16, or Q8 / Q4 with `quantkv=1|2` (`--quantkv`).
 
 Greedy requests without host-side logit modifiers decode FAST_DECODE_K
 tokens per device chunk: argmax feeds the next step on the device and the
@@ -30,6 +32,7 @@ from ..grammar.gbnf import TokenFilter
 from ..kv.cache import init_cache
 from ..models import llama as model_llama
 from ..models.loader import Model
+from ..ops import flash_prefill
 from ..ops.rope import rope_frequencies, rotate
 from ..sampling import (SamplerParams, build_dry_sequences, make_state,
                         sample_logits)
@@ -89,12 +92,20 @@ def _bucket(n: int) -> int:
     return PREFILL_BUCKETS[-1]
 
 
+def _kv_quant(quantkv: int) -> int:
+    """--quantkv level (0 bf16, 1 Q8, 2 Q4_0-equivalent nibbles: the
+    reference's F16/Q8_0/Q4_0 ladder, gpttype_adapter.cpp:1958-1959) ->
+    init_cache's `quantized` (0, 1, 4)."""
+    return 4 if quantkv == 2 else quantkv
+
+
 class Engine:
     """Single-sequence serving engine on one device (default cuda; raises
     without a GPU unless device="cpu"). The model's params must already
-    live on that device."""
+    live on that device. quantkv: 0 bf16 KV cache, 1 Q8, 2 Q4."""
 
-    def __init__(self, model: Model, max_context: int = 2048, device=None):
+    def __init__(self, model: Model, max_context: int = 2048, device=None,
+                 quantkv: int = 0):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model params live on {model.device}, the "
@@ -109,9 +120,19 @@ class Engine:
         self.cfg = cfg
         self.tokenizer = model.tokenizer
         self.max_context = max_context
-        self.use_flash_prefill = False  # K4 comes with the next slice
+        self.quantkv = quantkv
+        # a quantized cache has no context shift: upstream turns it off
+        # (koboldcpp.py:840), as the JAX BatchedEngine does
+        # (batch_engine.py:146-149)
+        self.use_contextshift = not quantkv
+        # flash prefill (K4) on the card, as the JAX engine enables it off
+        # the CPU (engine.py:311-313; ALiBi, which it also excludes, is
+        # refused by check_supported)
+        self.use_flash_prefill = (self.device.type == "cuda"
+                                  and flash_prefill.supported(cfg.head_dim))
         self.cache = init_cache(cfg.n_layers, 1, max_context, cfg.n_kv_heads,
-                                cfg.head_dim, device=self.device)
+                                cfg.head_dim, device=self.device,
+                                quantized=_kv_quant(quantkv))
         self.context_tokens: list[int] = []  # tokens currently in the cache
         self.abort_event = threading.Event()
         self.lock = threading.Lock()  # one generation at a time
@@ -122,10 +143,11 @@ class Engine:
         self.generation_finished = True
 
     # -- low-level steps ---------------------------------------------------
-    def _forward(self, tok: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    def _forward(self, tok: torch.Tensor, pos: torch.Tensor,
+                 **kw) -> torch.Tensor:
         with torch.inference_mode():
             logits, _ = model_llama.forward(self.model.params, self.cfg, tok,
-                                            pos, self.cache, last_only=True)
+                                            pos, self.cache, **kw)
         return logits
 
     def _eval_chunk(self, tokens: list[int], start_pos: int) -> torch.Tensor:
@@ -134,14 +156,26 @@ class Engine:
         last token's logits (1-D f32 tensor on the engine's device). A single
         token pads to 16 rows too, as in the JAX engine: a row's logits do
         not depend on the rows beside it, so a fast-forwarded request
-        re-evaluates its last prompt token bit-identically."""
+        re-evaluates its last prompt token bit-identically. A chunk of >= 128
+        rows from position 0 takes flash prefill when it is on: padded at
+        its END so that row index == position, logits gathered at the last
+        real row (engine.py:419-428)."""
         n = len(tokens)
-        pad = _bucket(n) - n
+        b = _bucket(n)
+        pad = b - n
+        if self.use_flash_prefill and start_pos == 0 and b >= 128:
+            tok = torch.tensor([list(tokens) + [0] * pad], dtype=torch.int64,
+                               device=self.device)
+            pos = torch.tensor([list(range(n)) + [-1] * pad],
+                               dtype=torch.int64, device=self.device)
+            last = torch.tensor([n - 1], dtype=torch.int64, device=self.device)
+            return self._forward(tok, pos, last_index=last,
+                                 flash_prefill=True)[0, -1]
         tok = torch.tensor([[0] * pad + list(tokens)], dtype=torch.int64,
                            device=self.device)
         pos = torch.tensor([[-1] * pad + list(range(start_pos, start_pos + n))],
                            dtype=torch.int64, device=self.device)
-        return self._forward(tok, pos)[0, -1]
+        return self._forward(tok, pos, last_only=True)[0, -1]
 
     def eval_tokens(self, tokens: list[int], start_pos: int) -> torch.Tensor:
         """Chunked prefill (n_batch equivalent); returns logits of the last
@@ -166,7 +200,7 @@ class Engine:
             toks[i] = nxt
             pos = torch.full((1, 1), start_pos + i, dtype=torch.int64,
                              device=self.device)
-            logits = self._forward(nxt.view(1, 1), pos)[0, -1]
+            logits = self._forward(nxt.view(1, 1), pos, last_only=True)[0, -1]
         return toks, logits
 
     # -- context reuse -----------------------------------------------------
@@ -271,7 +305,8 @@ class Engine:
             prompt_tokens = (prompt_tokens[:keep_first]
                              + prompt_tokens[keep_first + overflow:])
 
-        self._context_shift(prompt_tokens)
+        if self.use_contextshift:
+            self._context_shift(prompt_tokens)
         n_past = self._fast_forward(prompt_tokens)
         self.context_tokens = self.context_tokens[:n_past]
         todo = prompt_tokens[n_past:]

@@ -6,11 +6,14 @@ softcaps).
 Port of koboldcpp_tpu/models/llama.py `forward` and `forward_paged` for the
 branches a llama / mistral / qwen2 Q4_K_M model takes. Single-token decode
 runs attention through a flash-decode kernel that also writes the new K/V
-row: K5 over the slot cache, K8 over the paged pool. Longer chunks write
-the cache and run the plain `attention` below (over the gathered pages when
-paged), which is what the JAX engine runs on the CPU and for every chunk
-past position 0. Every other branch of the JAX forward raises
-NotImplementedError when the config or params ask for it.
+row: K5 over the bf16 slot cache, K6 over the Q8 one, K8 / K9 / K10 over
+the bf16 / Q8 / Q4 paged pool. A prefill chunk from position 0 with
+`flash_prefill` set writes the cache and runs K4 over the chunk's own rows.
+Other chunks write the cache and run the plain `attention` below over the
+whole (dequantized, or gathered) cache, which is what the JAX engine runs on
+the CPU, past position 0, and over the Q4 slot cache, which has no kernel.
+Every other branch of the JAX forward raises NotImplementedError when the
+config or params ask for it.
 """
 from __future__ import annotations
 
@@ -19,8 +22,9 @@ from typing import Any
 import torch
 
 from ..kv import paged
-from ..kv.cache import KVCache, read as kv_read, write as kv_write
+from ..kv.cache import QuantKVCache, read as kv_read, write as kv_write
 from ..ops import flash_decode, linear
+from ..ops.flash_prefill import flash_prefill_attention
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.rope import apply_rope, rope_frequencies, yarn_attn_scale
 from .config import ModelConfig
@@ -65,7 +69,9 @@ _UNSUPPORTED_LAYER_KEYS = {
 def check_supported(params: Params, cfg: ModelConfig, device=None) -> None:
     """Raise NotImplementedError for configs/params that need a branch of the
     JAX forward this slice has not ported, or (on a CUDA `device`) a head
-    shape that K5, the T=1 attention kernel, is not built for."""
+    shape that the T=1 attention kernels (K5, K6, K8-K10) are not built
+    for. K4 is built for head_dim 64, 128 and 256, the shapes the JAX engine
+    turns flash prefill on for; the engine leaves it off for any other."""
     if (torch.device(device or "cpu").type == "cuda"
             and flash_decode.supported_batched(1, cfg.n_kv_heads,
                                                cfg.head_dim)):
@@ -141,28 +147,45 @@ def _ffn(x: torch.Tensor, layer: Params) -> torch.Tensor:
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            positions: torch.Tensor, cache: KVCache,
+            positions: torch.Tensor, cache,
             last_only: bool = False,
             last_index: torch.Tensor | None = None,
             input_embeds: torch.Tensor | None = None,
-            embed_mask: torch.Tensor | None = None
-            ) -> tuple[torch.Tensor, KVCache]:
-    """tokens, positions: (B, T) int. Returns (logits f32, cache); the cache
-    is updated in place. Slot s is visible to the query at position p iff
-    s <= p (the slot == position invariant)."""
+            embed_mask: torch.Tensor | None = None,
+            flash_prefill: bool = False):
+    """tokens, positions: (B, T) int; cache: a KVCache or QuantKVCache
+    (kv/cache.py). Returns (logits f32, cache); the cache is updated in
+    place. Slot s is visible to the query at position p iff s <= p (the slot
+    == position invariant). flash_prefill: the chunk is the whole context
+    so far (prefill from position 0, padding rows at the end with position
+    -1), so attention runs over its own rows through K4."""
     if input_embeds is not None or embed_mask is not None:
         raise NotImplementedError("the multimodal embedding splice is not "
                                   "ported yet")
     T = tokens.shape[1]
-    if T == 1 and flash_decode.supported_batched(1, cfg.n_kv_heads,
-                                                 cfg.head_dim):
+    quant = isinstance(cache, QuantKVCache)
+    softcap = cfg.attn_logit_softcap
+    if flash_prefill and not softcap:
         def attend(li, q, k, v, scale):
-            # single-token decode: K5 reads the history rows below each
-            # position and writes this step's K/V row into the cache
-            out, _, _ = flash_decode.decode_attention_batched(
-                q[:, 0], k[:, 0], v[:, 0], cache.k[li], cache.v[li],
-                positions[:, 0], cfg.n_heads, cfg.n_kv_heads, scale,
-                cfg.attn_logit_softcap)
+            # prefill from position 0: the chunk is the entire context
+            kv_write(cache, li, positions, k, v)
+            return flash_prefill_attention(q, k, v, positions, scale)
+    elif (T == 1 and not (quant and cache.bits == 4)
+          and flash_decode.supported_batched(1, cfg.n_kv_heads, cfg.head_dim)):
+        def attend(li, q, k, v, scale):
+            # single-token decode: K5 (K6 over the Q8 cache) reads the
+            # history rows below each position and writes this step's K/V
+            # row into the cache
+            if quant:
+                out = flash_decode.decode_attention_batched_q8(
+                    q[:, 0], k[:, 0], v[:, 0], cache.k[li], cache.v[li],
+                    cache.k_scale[li], cache.v_scale[li], positions[:, 0],
+                    cfg.n_heads, cfg.n_kv_heads, scale, softcap)[0]
+            else:
+                out = flash_decode.decode_attention_batched(
+                    q[:, 0], k[:, 0], v[:, 0], cache.k[li], cache.v[li],
+                    positions[:, 0], cfg.n_heads, cfg.n_kv_heads, scale,
+                    softcap)[0]
             return out[:, None]
     else:
         mask = _causal_mask(positions, cache.max_seq)
@@ -170,7 +193,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         def attend(li, q, k, v, scale):
             kv_write(cache, li, positions, k, v)
             ck, cv = kv_read(cache, li)
-            return attention(q, ck, cv, mask, scale, cfg.attn_logit_softcap)
+            return attention(q, ck, cv, mask, scale, softcap)
     return _run(params, cfg, tokens, positions, attend, last_only,
                 last_index), cache
 
@@ -179,20 +202,31 @@ def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   positions: torch.Tensor, pcache: paged.PagedKVCache,
                   page_table: torch.Tensor, last_only: bool = False
                   ) -> tuple[torch.Tensor, paged.PagedKVCache]:
-    """forward() over a paged bf16 pool (kv/paged.py), updated in place:
-    virtual slot index == absolute position, row r of sequence b at pool
-    row page_table[b, r // P] * P + r % P. tokens/positions: (B, T);
-    page_table: (B, MP) int. T=1 goes through K8; longer chunks write
-    through the table, gather the pages and run `attention`."""
+    """forward() over a paged pool (kv/paged.py: bf16, Q8 or Q4), updated
+    in place: virtual slot index == absolute position, row r of sequence b
+    at pool row page_table[b, r // P] * P + r % P. tokens/positions: (B, T);
+    page_table: (B, MP) int. T=1 goes through K8 (K9 over a Q8 pool, K10
+    over a Q4 one); longer chunks write through the table, gather the pages
+    and run `attention`."""
     T = tokens.shape[1]
     P = pcache.page_size
+    softcap = cfg.attn_logit_softcap
     if T == 1 and flash_decode.supported_batched(1, cfg.n_kv_heads,
                                                  cfg.head_dim):
         def attend(li, q, k, v, scale):
-            out, _, _ = flash_decode.decode_attention_paged(
-                q[:, 0], k[:, 0], v[:, 0], pcache.k[li], pcache.v[li],
-                page_table, positions[:, 0], cfg.n_heads, cfg.n_kv_heads, P,
-                scale, cfg.attn_logit_softcap)
+            args = (cfg.n_heads, cfg.n_kv_heads, P, scale, softcap)
+            if not pcache.quantized:
+                out = flash_decode.decode_attention_paged(
+                    q[:, 0], k[:, 0], v[:, 0], pcache.k[li], pcache.v[li],
+                    page_table, positions[:, 0], *args)[0]
+            else:
+                kern = (flash_decode.decode_attention_paged_q4
+                        if pcache.bits == 4
+                        else flash_decode.decode_attention_paged_q8)
+                out = kern(q[:, 0], k[:, 0], v[:, 0], pcache.k[li],
+                           pcache.v[li], pcache.k_scale[li],
+                           pcache.v_scale[li], page_table, positions[:, 0],
+                           *args)[0]
             return out[:, None]
     else:
         mask = _causal_mask(positions, page_table.shape[1] * P)
@@ -200,7 +234,7 @@ def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         def attend(li, q, k, v, scale):
             paged.write(pcache, li, page_table, positions, k, v)
             ck, cv = paged.gather(pcache, li, page_table)
-            return attention(q, ck, cv, mask, scale, cfg.attn_logit_softcap)
+            return attention(q, ck, cv, mask, scale, softcap)
     return _run(params, cfg, tokens, positions, attend, last_only), pcache
 
 

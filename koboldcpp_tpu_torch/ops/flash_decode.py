@@ -1,18 +1,26 @@
-"""Batched flash decode over the fused (B, S, Hkv*D) slot cache (K5) and
-over a paged (NP*P, Hkv*D) pool through a (B, MP) page table (K8).
+"""Batched flash decode with the in-place K/V row write, over the slot
+cache (K5 bf16, K6 Q8) and over a paged pool through a (B, MP) page table
+(K8 bf16, K9 Q8, K10 Q4).
 
-`decode_attention_batched` and `decode_attention_paged` are the ports of the
-JAX package's functions of the same names (ops/flash_decode.py, bodies
-`_bkernel` and `_pkernel`). For a CUDA tensor each launches
+`decode_attention_batched`, `decode_attention_batched_q8`,
+`decode_attention_paged`, `decode_attention_paged_q8` and
+`decode_attention_paged_q4` are the ports of the JAX package's functions of
+the same names (ops/flash_decode.py, bodies `_bkernel`, `_bqkernel`,
+`_pkernel`, `_pq8kernel`, `_pq4kernel`). For a CUDA tensor each launches
 csrc/flash_decode.cu; for a CPU tensor it runs the plain PyTorch version
 beside it. Either way this step's K/V row is written into the cache IN
-PLACE at each sequence's position (nothing is written where pos < 0 or
-pos >= S, S = MP * P when paged), and the same cache tensors are returned.
+PLACE at each sequence's position (quantized first for a quantized cache;
+nothing is written where pos < 0 or pos >= S, S = MP * P when paged), and
+the same cache tensors are returned. The quantized plain versions round as
+their JAX kernels do: K6 dequantizes the history to bf16 before the dot,
+K9/K10 apply the scales on the score side.
 """
 from __future__ import annotations
 
 import torch
 
+from ..kv.cache import _dequant, _q8
+from ..kv.paged import _q4_planes, _quantize_q4
 from . import _build
 
 ROWS_PER_SPLIT = 256  # history rows per block of the sequence-split kernel
@@ -91,28 +99,16 @@ def decode_attention_batched(q, k_new, v_new, k_layer, v_layer, positions,
         return out, k_layer, v_layer
     B, S, KD = k_layer.shape
     D = KD // n_kv_heads
-    G = n_heads // n_kv_heads
     check_kernel_shape(n_heads, n_kv_heads, D)
-    if (k_layer.dtype != torch.bfloat16 or v_layer.dtype != torch.bfloat16
-            or not (k_layer.is_contiguous() and v_layer.is_contiguous())):
-        raise ValueError("K5 takes contiguous bf16 caches")
-    if any(t.device != q.device
-           for t in (k_new, v_new, k_layer, v_layer, positions)):
-        raise ValueError(f"K5 takes every operand on {q.device}")
+    _checked("K5", q, (k_layer, v_layer), (torch.bfloat16,) * 2,
+             (k_new, v_new, positions))
     lib = _build.load("flash_decode", {
         "k5_flash_decode": [_build.P] * 9 + [_build.I] * 7
         + [_build.F, _build.F, _build.P]})
-    dev = q.device
-    qb = q.to(torch.bfloat16).contiguous()
-    kn = k_new.to(torch.bfloat16).contiguous()
-    vn = v_new.to(torch.bfloat16).contiguous()
+    nsplit, out, part_acc, part_ml = _scratch(B, n_heads, n_kv_heads, D, S,
+                                              q.device)
+    qb, kn, vn = (t.to(torch.bfloat16).contiguous() for t in (q, k_new, v_new))
     pos = positions.to(torch.int32).contiguous()
-    nsplit = max(1, -(-S // ROWS_PER_SPLIT))
-    out = torch.empty((B, n_heads, D), dtype=torch.float32, device=dev)
-    part_acc = torch.empty((B * n_kv_heads, nsplit, G * D),
-                           dtype=torch.float32, device=dev)
-    part_ml = torch.empty((B * n_kv_heads, nsplit, G, 2),
-                          dtype=torch.float32, device=dev)
     _build.check(lib, lib.k5_flash_decode(
         qb.data_ptr(), kn.data_ptr(), vn.data_ptr(), k_layer.data_ptr(),
         v_layer.data_ptr(), pos.data_ptr(), out.data_ptr(),
@@ -156,6 +152,64 @@ def decode_attention_paged_plain(q, k_new, v_new, k_pool, v_pool, page_table,
     return out
 
 
+def _checked(kid: str, q, caches, dtypes, others) -> None:
+    """Raise unless every cache tensor is contiguous and of its dtype and
+    every operand lies on q's device."""
+    if any(t.dtype != dt or not t.is_contiguous()
+           for t, dt in zip(caches, dtypes)):
+        raise ValueError(f"{kid} takes contiguous caches of dtypes "
+                         f"{sorted({str(d) for d in dtypes})}")
+    if any(t.device != q.device for t in (*caches, *others)):
+        raise ValueError(f"{kid} takes every operand on {q.device}")
+
+
+def _scratch(B: int, n_heads: int, n_kv_heads: int, D: int, S: int, dev):
+    """out (B, H, D) f32 and the split kernel's (acc, max/sum) scratch."""
+    G = n_heads // n_kv_heads
+    nsplit = max(1, -(-S // ROWS_PER_SPLIT))
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (nsplit, torch.empty((B, n_heads, D), **f32),
+            torch.empty((B * n_kv_heads, nsplit, G * D), **f32),
+            torch.empty((B * n_kv_heads, nsplit, G, 2), **f32))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+# kinds of csrc/flash_decode.cu's paged entry point
+_PAGED_KIND = {"K8": 0, "K9": 2, "K10": 3}
+
+
+def _launch_paged(kid, q, k_new, v_new, k_pool, v_pool, ks_pool, vs_pool,
+                  page_table, positions, n_heads, n_kv_heads, page_size,
+                  scale, softcap, D):
+    """Launch K8 (bf16 pools), K9 (int8) or K10 (uint8 nibbles) and return
+    out (B, H, D) f32; the pools are updated in place."""
+    B, MP = page_table.shape
+    NPP = k_pool.shape[0]
+    check_kernel_shape(n_heads, n_kv_heads, D, kid)
+    if NPP % page_size:
+        raise ValueError(f"{kid} takes pools of whole pages")
+    lib = _build.load("flash_decode", {
+        "k8_flash_decode_paged": [_build.I] + [_build.P] * 12
+        + [_build.I] * 9 + [_build.F, _build.F, _build.P]})
+    nsplit, out, part_acc, part_ml = _scratch(B, n_heads, n_kv_heads, D,
+                                              MP * page_size, q.device)
+    qb, kn, vn = (t.to(torch.bfloat16).contiguous() for t in (q, k_new, v_new))
+    tab = page_table.to(torch.int32).contiguous()
+    pos = positions.to(torch.int32).contiguous()
+    _build.check(lib, lib.k8_flash_decode_paged(
+        _PAGED_KIND[kid], qb.data_ptr(), kn.data_ptr(), vn.data_ptr(),
+        k_pool.data_ptr(), v_pool.data_ptr(), _ptr(ks_pool), _ptr(vs_pool),
+        tab.data_ptr(), pos.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
+        part_ml.data_ptr(), B, MP, page_size, NPP // page_size, n_heads,
+        n_kv_heads, D, nsplit, ROWS_PER_SPLIT, float(scale), float(softcap),
+        _build.stream_ptr()), kid)
+    _build.launches[kid] += 1
+    return out
+
+
 def decode_attention_paged(q, k_new, v_new, k_pool, v_pool, page_table,
                            positions, n_heads: int, n_kv_heads: int,
                            page_size: int, scale: float, softcap: float = 0.0):
@@ -169,41 +223,197 @@ def decode_attention_paged(q, k_new, v_new, k_pool, v_pool, page_table,
                                            n_kv_heads, page_size, scale,
                                            softcap)
         return out, k_pool, v_pool
-    B, MP = page_table.shape
-    NPP, KD = k_pool.shape
-    D = KD // n_kv_heads
-    G = n_heads // n_kv_heads
-    check_kernel_shape(n_heads, n_kv_heads, D, "K8")
-    if (k_pool.dtype != torch.bfloat16 or v_pool.dtype != torch.bfloat16
-            or not (k_pool.is_contiguous() and v_pool.is_contiguous())
-            or NPP % page_size):
-        raise ValueError("K8 takes contiguous bf16 pools of whole pages")
-    if any(t.device != q.device for t in (k_new, v_new, k_pool, v_pool,
-                                          page_table, positions)):
-        raise ValueError(f"K8 takes every operand on {q.device}")
-    lib = _build.load("flash_decode", {
-        "k8_flash_decode_paged": [_build.P] * 10 + [_build.I] * 9
-        + [_build.F, _build.F, _build.P]})
-    dev = q.device
-    qb = q.to(torch.bfloat16).contiguous()
-    kn = k_new.to(torch.bfloat16).contiguous()
-    vn = v_new.to(torch.bfloat16).contiguous()
-    tab = page_table.to(torch.int32).contiguous()
-    pos = positions.to(torch.int32).contiguous()
-    nsplit = max(1, -(-(MP * page_size) // ROWS_PER_SPLIT))
-    out = torch.empty((B, n_heads, D), dtype=torch.float32, device=dev)
-    part_acc = torch.empty((B * n_kv_heads, nsplit, G * D),
-                           dtype=torch.float32, device=dev)
-    part_ml = torch.empty((B * n_kv_heads, nsplit, G, 2),
-                          dtype=torch.float32, device=dev)
-    _build.check(lib, lib.k8_flash_decode_paged(
-        qb.data_ptr(), kn.data_ptr(), vn.data_ptr(), k_pool.data_ptr(),
-        v_pool.data_ptr(), tab.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(), B, MP, page_size,
-        NPP // page_size, n_heads, n_kv_heads, D, nsplit, ROWS_PER_SPLIT,
-        float(scale), float(softcap), _build.stream_ptr()), "K8")
-    _build.launches["K8"] += 1
+    _checked("K8", q, (k_pool, v_pool), (torch.bfloat16,) * 2,
+             (k_new, v_new, page_table, positions))
+    out = _launch_paged("K8", q, k_new, v_new, k_pool, v_pool, None, None,
+                        page_table, positions, n_heads, n_kv_heads, page_size,
+                        scale, softcap, k_pool.shape[1] // n_kv_heads)
     return out, k_pool, v_pool
+
+
+# ---------------------------------------------------------------------------
+# quantized caches (--quantkv): K6 over the Q8 slot cache, K9 / K10 over the
+# Q8 / Q4 paged pools
+# ---------------------------------------------------------------------------
+
+def _quantize_row(x: torch.Tensor, bits: int):
+    """This step's (B, Hkv, D) row as the cache stores it: codes (B, Hkv,
+    D or D/2), bf16 scales (B, Hkv), and the bf16 values they dequantize to
+    (the self term's operand), as the JAX kernels' wrappers compute them."""
+    x = x.to(torch.bfloat16)
+    if bits == 4:
+        packed, s = _quantize_q4(x)
+        return packed, s, _dequant(_q4_planes(packed), s)
+    q, s = _q8(x)
+    return q, s, _dequant(q, s)
+
+
+def _write_quant_rows(vals, scales, codes, sc, rows, b_idx) -> None:
+    """Codes (B, Hkv, w) and scales (B, Hkv) of the sequences b_idx into the
+    flat (N, Hkv*w) / (N, Hkv) cache rows `rows`, in place."""
+    B = codes.shape[0]
+    vals[rows] = codes.reshape(B, -1)[b_idx]
+    scales[rows] = sc[b_idx]
+
+
+def decode_attention_batched_q8_plain(q, k_new, v_new, k_layer, v_layer,
+                                      ks_layer, vs_layer, positions,
+                                      n_heads: int, n_kv_heads: int,
+                                      scale: float,
+                                      softcap: float = 0.0) -> torch.Tensor:
+    """Plain version of K6: K5's function over the Q8 slot cache, each
+    history element dequantized to bf16(int8 * scale) before the dot, the
+    self term from this step's row quantized as `_q8` does and dequantized.
+    Returns out (B, H, D) f32 and writes the codes and scales at pos."""
+    B, S, KD = k_layer.shape
+    Hkv = n_kv_heads
+    pos = positions.to(torch.int64).reshape(-1)
+    n_hist = torch.where(pos < 0, S, torch.clamp(pos, max=S))
+    kq, ksn, kdq = _quantize_row(k_new, 8)
+    vq, vsn, vdq = _quantize_row(v_new, 8)
+    kd = _dequant(k_layer.view(B, S, Hkv, -1), ks_layer).reshape(B, S, KD)
+    vd = _dequant(v_layer.view(B, S, Hkv, -1), vs_layer).reshape(B, S, KD)
+    out = _attend_plain(q, kdq, vdq, kd, vd, n_hist, n_heads, Hkv, scale,
+                        softcap)
+    b_idx = torch.nonzero((pos >= 0) & (pos < S)).flatten()
+    flat = b_idx * S + pos[b_idx]
+    _write_quant_rows(k_layer.view(B * S, KD), ks_layer.view(B * S, Hkv), kq,
+                      ksn, flat, b_idx)
+    _write_quant_rows(v_layer.view(B * S, KD), vs_layer.view(B * S, Hkv), vq,
+                      vsn, flat, b_idx)
+    return out
+
+
+def decode_attention_batched_q8(q, k_new, v_new, k_layer, v_layer, ks_layer,
+                                vs_layer, positions, n_heads: int,
+                                n_kv_heads: int, scale: float,
+                                softcap: float = 0.0):
+    """q: (B, H, D) post-rope; k_new/v_new: (B, Hkv, D) unquantized;
+    k_layer/v_layer: (B, S, Hkv*D) int8; ks_layer/vs_layer: (B, S, Hkv) bf16
+    scales; positions: (B,) int. Returns (out (B, H, D) f32, k_layer,
+    v_layer, ks_layer, vs_layer), all four updated in place."""
+    res = (k_layer, v_layer, ks_layer, vs_layer)
+    if not q.is_cuda:
+        out = decode_attention_batched_q8_plain(
+            q, k_new, v_new, k_layer, v_layer, ks_layer, vs_layer, positions,
+            n_heads, n_kv_heads, scale, softcap)
+        return (out, *res)
+    B, S, KD = k_layer.shape
+    D = KD // n_kv_heads
+    check_kernel_shape(n_heads, n_kv_heads, D, "K6")
+    _checked("K6", q, res, (torch.int8,) * 2 + (torch.bfloat16,) * 2,
+             (k_new, v_new, positions))
+    lib = _build.load("flash_decode", {
+        "k6_flash_decode_q8": [_build.P] * 11 + [_build.I] * 7
+        + [_build.F, _build.F, _build.P]})
+    nsplit, out, part_acc, part_ml = _scratch(B, n_heads, n_kv_heads, D, S,
+                                              q.device)
+    qb, kn, vn = (t.to(torch.bfloat16).contiguous() for t in (q, k_new, v_new))
+    pos = positions.to(torch.int32).contiguous()
+    _build.check(lib, lib.k6_flash_decode_q8(
+        qb.data_ptr(), kn.data_ptr(), vn.data_ptr(), *(t.data_ptr()
+                                                       for t in res),
+        pos.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
+        part_ml.data_ptr(), B, S, n_heads, n_kv_heads, D, nsplit,
+        ROWS_PER_SPLIT, float(scale), float(softcap), _build.stream_ptr()),
+        "K6")
+    _build.launches["K6"] += 1
+    return (out, *res)
+
+
+def decode_attention_paged_quant_plain(q, k_new, v_new, k_pool, v_pool,
+                                       ks_pool, vs_pool, page_table, positions,
+                                       n_heads: int, n_kv_heads: int,
+                                       page_size: int, scale: float,
+                                       softcap: float = 0.0,
+                                       bits: int = 8) -> torch.Tensor:
+    """Plain version of K9 (bits 8, int8 pools) and K10 (bits 4, plane-split
+    nibble pools): K8's function with the scales on the score side, as the
+    JAX kernels apply them: score = (bf16 q . k_int) * k_scale * scale,
+    weight = bf16(p * v_scale) before weight . v_int; the self term from
+    this step's row quantized and dequantized. A dead slot (pos < 0) reads
+    every page and writes nothing. Returns out (B, H, D) f32 and writes the
+    codes and scales at pos."""
+    B, MP = page_table.shape
+    Hkv = n_kv_heads
+    G = n_heads // Hkv
+    S = MP * page_size
+    rows = _page_rows(page_table, page_size, k_pool.shape[0] // page_size)
+    pos = positions.to(torch.int64).reshape(-1)
+    n_hist = torch.clamp(torch.where(pos >= 0, pos, S), max=S)
+    kq, ksn, kdq = _quantize_row(k_new, bits)
+    vq, vsn, vdq = _quantize_row(v_new, bits)
+
+    def ints(pool):  # (B, S, Hkv, D) f32 integer values
+        x = pool[rows].view(B, S, Hkv, -1)
+        return (_q4_planes(x) if bits == 4 else x).float()
+
+    D = kdq.shape[-1]
+    qf = q.to(torch.bfloat16).float().reshape(B, Hkv, G, D)
+    ks = ks_pool[rows].float().permute(0, 2, 1)[:, :, None, :]  # (B,Hkv,1,S)
+    vs = vs_pool[rows].float().permute(0, 2, 1)[:, :, None, :]
+    scores = torch.einsum("bhgd,bshd->bhgs", qf, ints(k_pool)) * ks * scale
+    scores = _softcap(scores, softcap)
+    hist = torch.arange(S, device=q.device)[None, :] < n_hist[:, None]
+    scores = torch.where(hist[:, None, None, :], scores,
+                         torch.full_like(scores, -1e30))
+    s_self = _softcap(torch.einsum("bhgd,bhd->bhg", qf, kdq.float()) * scale,
+                      softcap)
+    m = torch.maximum(scores.amax(dim=-1), s_self)
+    p = torch.exp(scores - m[..., None])
+    p_self = torch.exp(s_self - m)
+    l = p.sum(dim=-1) + p_self
+    w = (p * vs).to(torch.bfloat16).float()
+    acc = torch.einsum("bhgs,bshd->bhgd", w, ints(v_pool))
+    acc = acc + p_self[..., None] * vdq.float()[:, :, None, :]
+    out = (acc / l[..., None]).reshape(B, n_heads, D)
+    b_idx = torch.nonzero((pos >= 0) & (pos < S)).flatten()
+    r = rows[b_idx, pos[b_idx]]
+    _write_quant_rows(k_pool, ks_pool, kq, ksn, r, b_idx)
+    _write_quant_rows(v_pool, vs_pool, vq, vsn, r, b_idx)
+    return out
+
+
+def _paged_quant(kid: str, bits: int, q, k_new, v_new, k_pool, v_pool,
+                 ks_pool, vs_pool, page_table, positions, n_heads, n_kv_heads,
+                 page_size, scale, softcap):
+    res = (k_pool, v_pool, ks_pool, vs_pool)
+    if not q.is_cuda:
+        out = decode_attention_paged_quant_plain(
+            q, k_new, v_new, *res, page_table, positions, n_heads, n_kv_heads,
+            page_size, scale, softcap, bits)
+        return (out, *res)
+    vdt = torch.uint8 if bits == 4 else torch.int8
+    _checked(kid, q, res, (vdt,) * 2 + (torch.bfloat16,) * 2,
+             (k_new, v_new, page_table, positions))
+    D = k_pool.shape[1] * (2 if bits == 4 else 1) // n_kv_heads
+    out = _launch_paged(kid, q, k_new, v_new, *res, page_table, positions,
+                        n_heads, n_kv_heads, page_size, scale, softcap, D)
+    return (out, *res)
+
+
+def decode_attention_paged_q8(q, k_new, v_new, k_pool, v_pool, ks_pool,
+                              vs_pool, page_table, positions, n_heads: int,
+                              n_kv_heads: int, page_size: int, scale: float,
+                              softcap: float = 0.0):
+    """q: (B, H, D); k_new/v_new: (B, Hkv, D) unquantized; k_pool/v_pool:
+    (NP*P, Hkv*D) int8 row pools; ks_pool/vs_pool: (NP*P, Hkv) bf16 scales;
+    page_table: (B, MP) int; positions: (B,). Returns (out (B, H, D) f32,
+    k_pool, v_pool, ks_pool, vs_pool), all four updated in place."""
+    return _paged_quant("K9", 8, q, k_new, v_new, k_pool, v_pool, ks_pool,
+                        vs_pool, page_table, positions, n_heads, n_kv_heads,
+                        page_size, scale, softcap)
+
+
+def decode_attention_paged_q4(q, k_new, v_new, k_pool, v_pool, ks_pool,
+                              vs_pool, page_table, positions, n_heads: int,
+                              n_kv_heads: int, page_size: int, scale: float,
+                              softcap: float = 0.0):
+    """As decode_attention_paged_q8 over (NP*P, Hkv*D/2) uint8 plane-split
+    nibble pools (kv/paged.py `_quantize_q4`)."""
+    return _paged_quant("K10", 4, q, k_new, v_new, k_pool, v_pool, ks_pool,
+                        vs_pool, page_table, positions, n_heads, n_kv_heads,
+                        page_size, scale, softcap)
 
 
 def supported_batched(T: int, Hkv: int, D: int) -> bool:
@@ -213,7 +423,7 @@ def supported_batched(T: int, Hkv: int, D: int) -> bool:
 def check_kernel_shape(n_heads: int, n_kv_heads: int, head_dim: int,
                        kernel: str = "K5") -> None:
     """Raise NotImplementedError for the head shapes csrc/flash_decode.cu
-    (K5, K8) is not built for: head_dim 64 or 128, at most 16 query heads
+    (K5, K6, K8, K9, K10) is not built for: head_dim 64 or 128, at most 16 query heads
     per kv head and G * head_dim <= 1024."""
     G = n_heads // n_kv_heads
     if head_dim not in (64, 128) or G > 16 or G * head_dim > 1024:

@@ -1,6 +1,7 @@
 """The port's paged bf16 KV pool (kv/paged.py) and `forward_paged` against
 the JAX package's: `write`/`gather` bit for bit, the page allocator, and the
-fixture's logits through a paged prefill and K8 decode steps."""
+fixture's logits through a paged prefill and K8 decode steps. The quantized
+pools are held in tests/test_torch_kv_quant.py."""
 import os
 
 import jax.numpy as jnp
@@ -51,11 +52,6 @@ def test_write_gather_bit_exact_against_jax():
                                   np.asarray(jk.astype(jnp.float32)))
     np.testing.assert_array_equal(tv.float().numpy(),
                                   np.asarray(jv.astype(jnp.float32)))
-
-
-def test_quantized_pool_raises_naming_its_kernels():
-    with pytest.raises(NotImplementedError, match="K9"):
-        tpaged.init_paged_cache(1, 4, 4, 1, 4, quantized=True)
 
 
 def test_allocator():
