@@ -5,26 +5,28 @@
 1. builds every kernel of koboldcpp_tpu_torch/csrc/ (one nvcc per source,
    all at once) and prints the build time and the card's name and power
    limit;
-2. holds each kernel (K1, K2, K7, K3, K4, K5, K8, K6, K9, K10) against its
-   plain PyTorch version on the card at the TinyLlama-1.1B shapes (and the
-   fixture's widths; K4 also at head_dim 128 and 256), with the max error
+2. holds each kernel (K1, K2, K7, K3, K4, K5, K8, K6, K9, K10, and the
+   q5_k / q8_0 bodies K1.q5_k, K7.q5_k, K2.q8_0, K3.q5_k, K3.q8_0) against
+   its plain PyTorch version on the card at the TinyLlama-1.1B shapes (and
+   the fixtures' widths; K4 also at head_dim 128 and 256), with the max error
    against its stated tolerance and the times of the kernel, the plain
    version, one PyTorch library call computing the same function (where
    there is one), and the least time the card could take; K7's rows equal
-   K1 on each row alone, and K8 over a shuffled page table equals K5 on the
+   K1 on each row alone (K7.q5_k K1.q5_k), K2.q8_0 equals its plain version,
+   and K8 over a shuffled page table equals K5 on the
    same history laid out contiguously, bit for bit; the quantized decode
    kernels (K6, K9, K10) write the same codes and scales as their plain
    versions, bit for bit;
 3. serves a synthetic TinyLlama-1.1B q4_k model through Engine: a ~300
    token prompt (prefill through K3 and K4, 22 K4 launches for the one
-   chunk from position 0), 128 greedy tokens (K1 and K5), the same prompt
+   chunk from position 0), 64 greedy tokens (K1 and K5), the same prompt
    again (fast-forward) and a prompt that forces a context shift, checks
    that K1, K3, K4 and K5 ran, and that the same engine with flash prefill
    off gives the same tokens (near-ties allowed) and its prefill time; then
    the same with `quantkv=1` (the Q8 cache, K6 in place of K5);
 4. serves the same model through BatchedEngine (8 slots, context 2048),
    on the slot cache and on the paged pool (P=64): 8 concurrent greedy
-   requests of 100-300 prompt tokens and 128 new tokens each, which must
+   requests of 100-300 prompt tokens and 64 new tokens each, which must
    get the single-stream Engine's tokens (a step where the two parts must
    be a near-tie of the single-stream logits, and is printed) and the same
    tokens paged as on the slot cache; then 7 greedy + 1 stochastic
@@ -34,11 +36,20 @@
    greedy requests of 64 new tokens, each getting the tokens it gets alone
    through the same engine;
 5. serves tests/fixtures/refgguf/tiny-q4_k_m.gguf over HTTP in-process,
-   single-stream (checks that K2 ran, and that the fixture's logits on the
-   card agree with the reference runtime's goldens) and with multiuser=4
-   (4 concurrent requests, each getting the reply it gets alone), each
-   also with `--quantkv 1` (K6 single-stream, K9 multiuser);
-6. prints one {"kernels": [...]} line, then the {"ok": true, ...} line.
+   single-stream (checks that K2 ran) and with multiuser=4 (4 concurrent
+   requests, each getting the reply it gets alone), each also with
+   `--quantkv 1` (K6 single-stream, K9 multiuser);
+6. serves the synthetic 1.1B with q5_k and then q8_0 weights: single-stream
+   (300-token prompt, 64 greedy tokens, fast-forward to the same tokens,
+   near-ties apart; K1.q5_k and K3.q5_k, K2.q8_0 and K3.q8_0) and batched (8 slots, 8 concurrent requests of 32
+   new tokens: K7.q5_k, K3.q8_0), each batched request getting its
+   single-stream tokens (q5_k) or the tokens it gets alone through the
+   batched engine (q8_0);
+7. serves tiny-q8_0, -q5_1, -q4_0, -iq4_nl and -tq2_0 over HTTP, two
+   identical replies each through their kind's body (K2.q8_0, K1.q5_k, K1),
+   tiny-q8_0 and tiny-q5_1 also with multiuser=4; then holds all eight
+   fixtures' logits on the card against the reference runtime's goldens;
+8. prints one {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 Any failed check raises, so the script exits nonzero. It exits nonzero,
 printing no result, when no GPU is present.
@@ -66,7 +77,7 @@ from koboldcpp_tpu_torch.engine import batch_engine  # noqa: E402
 from koboldcpp_tpu_torch.models import llama  # noqa: E402
 from koboldcpp_tpu_torch.models.loader import load_model  # noqa: E402
 from koboldcpp_tpu_torch.models.synthetic import (  # noqa: E402
-    TINYLLAMA_1_1B, rand_q4k, rand_q6k, synthetic_model)
+    TINYLLAMA_1_1B, rand_q4k, rand_q5k, rand_q6k, rand_q8_0, synthetic_model)
 from koboldcpp_tpu_torch.kv import paged  # noqa: E402
 from koboldcpp_tpu_torch.kv.cache import _dequant, _q8, init_cache  # noqa: E402
 from koboldcpp_tpu_torch.ops import _build, flash_decode  # noqa: E402
@@ -103,8 +114,24 @@ KERNELS = {
     "K10": ("flash_decode_paged_q4",
             "koboldcpp_tpu_torch/csrc/flash_decode.cu",
             "koboldcpp_tpu/ops/flash_decode.py:1611"),
+    # the q5_k and q8_0 bodies of K1, K7, K2 and K3, each with its own row
+    # and launch counter (the rows above count q4_k / q6_k only)
+    "K1.q5_k": ("q4k_matvec q5_k", "koboldcpp_tpu_torch/csrc/q4k_matvec.cu",
+                "koboldcpp_tpu/ops/quant_matmul.py:599"),
+    "K7.q5_k": ("q4k_matvec_t q5_k",
+                "koboldcpp_tpu_torch/csrc/q4k_matvec.cu",
+                "koboldcpp_tpu/ops/quant_matmul.py:408"),
+    "K2.q8_0": ("q8_0_matvec", "koboldcpp_tpu_torch/csrc/q8_0_matvec.cu",
+                "koboldcpp_tpu/ops/quant_matmul.py:705"),
+    "K3.q5_k": ("kq_matmul q5_k", "koboldcpp_tpu_torch/csrc/kq_matmul.cu",
+                "koboldcpp_tpu/ops/quant_matmul.py:638"),
+    "K3.q8_0": ("kq_matmul q8_0", "koboldcpp_tpu_torch/csrc/kq_matmul.cu",
+                "koboldcpp_tpu/ops/quant_matmul.py:1277"),
 }
 NEAR_TIE = 2 ** -6  # logits this close may pick either token (bf16 steps)
+# greedy tokens per request in phases 3-4 (the q4_k main path); 64, not
+# 128, to keep the whole script within its time budget
+DEPTH = 64
 CASES: dict[str, list[dict]] = {k: [] for k in KERNELS}
 
 _flush = None
@@ -168,85 +195,112 @@ def _nbytes(*ts) -> int:
 # 2. kernels against their plain versions at the 1.1B shapes
 # ---------------------------------------------------------------------------
 
+def _i8(x) -> bool:
+    """The dispatch's activation variant: int8 from in_f 512 up."""
+    return x.shape[-1] >= 512
+
+
 def phase_matvec(rng) -> None:
     C, F, V = 2048, 5632, 32000
     shapes = {"wqkv": (2560, C), "w_gateup": (2 * F, C), "wo": (C, C),
               "w_down": (C, F), "output": (V, C),
-              # the served Q4_K_M fixture's shapes (bf16 variant below 512)
+              # the served fixtures' shapes (bf16 variant below 512)
               "fixture wqkv": (512, 256), "fixture wo": (256, 256),
               "fixture ffn_down": (256, 512), "fixture output": (512, 256)}
+    big = ("wqkv", "w_gateup", "w_down", "output")
     for kid, maker, wrapper, plain, names in (
-            ("K1", rand_q4k, qm.q4k_matvec, qm.q4k_matvec_plain,
+            ("K1", rand_q4k, lambda x, qt: qm.q4k_matvec(x, qt, _i8(x)),
+             lambda x, qt: qm.q4k_matvec_plain(x, qt, _i8(x)),
              ("wqkv", "w_gateup", "wo", "w_down", "output", "fixture wqkv",
               "fixture wo")),
-            ("K2", rand_q6k, qm.q6k_matvec, qm.q6k_matvec_plain,
-             ("output", "w_down", "fixture output", "fixture ffn_down"))):
+            ("K2", rand_q6k, lambda x, qt: qm.q6k_matvec(x, qt, _i8(x)),
+             lambda x, qt: qm.q6k_matvec_plain(x, qt, _i8(x)),
+             ("output", "w_down", "fixture output", "fixture ffn_down")),
+            ("K1.q5_k", rand_q5k, lambda x, qt: qm.q4k_matvec(x, qt, _i8(x)),
+             lambda x, qt: qm.q4k_matvec_plain(x, qt, _i8(x)),
+             big + ("fixture wqkv", "fixture ffn_down")),
+            ("K2.q8_0", rand_q8_0, qm.q8_0_matvec, qm.q8_0_matvec_plain,
+             big + ("fixture wqkv", "fixture ffn_down"))):
         for name in names:
             out_f, in_f = shapes[name]
             qt = maker(rng, out_f, in_f, DEV)
             x = torch.from_numpy(rng.standard_normal(in_f).astype(
                 np.float32)).to(DEV).bfloat16()
-            i8 = in_f >= 512
-            y = wrapper(x, qt, i8)
-            ref = plain(x, qt, i8)
+            y = wrapper(x, qt)
+            ref = plain(x, qt)
             torch.cuda.synchronize()
-            # int8 group dots are exact on both sides (bf16 variant: f32
-            # dots of the same values); f32 sums in another order, bf16
-            # output: one bf16 rounding step of the largest |y|
             err = (y.float() - ref.float()).abs().max().item()
-            tol = 2 ** -7 * ref.float().abs().max().item()
+            if kid == "K2.q8_0":
+                # the same int8 codes, exact int32 group dots, and the
+                # kernel's summation order repeated: bit for bit
+                tol = 0.0
+            else:
+                # int8 group dots are exact on both sides (bf16 variant: f32
+                # dots of the same values); f32 sums in another order, bf16
+                # output: one bf16 rounding step of the largest |y|
+                tol = 2 ** -7 * ref.float().abs().max().item()
             w = dequant(qt)
             xr = x.view(1, in_f)
             _record(kid, f"{name} {out_f}x{in_f} T=1", err, tol,
-                    lambda: wrapper(x, qt, i8), lambda: plain(x, qt, i8),
+                    lambda: wrapper(x, qt), lambda: plain(x, qt),
                     lambda: torch.matmul(xr, w.t()),
                     _nbytes(*qt.data.values(), x) + out_f * 2)
             del w
 
 
-K7_CASES = [(name, shape, T) for name, shape in (
-    ("wqkv", (2560, 2048)), ("w_gateup", (11264, 2048)), ("wo", (2048, 2048)),
-    ("w_down", (2048, 5632)), ("output", (32000, 2048))) for T in (2, 4, 8)]
+K7_SHAPES = (("wqkv", (2560, 2048)), ("w_gateup", (11264, 2048)),
+             ("wo", (2048, 2048)), ("w_down", (2048, 5632)),
+             ("output", (32000, 2048)))
+K7_CASES = [(name, shape, T) for name, shape in K7_SHAPES for T in (2, 4, 8)]
 K7_CASES += [(name, shape, T) for name, shape in (
     ("fixture wqkv", (512, 256)), ("fixture wo", (256, 256))) for T in (2, 4)]
 
 
 def phase_batched_matvec(rng) -> None:
-    """K7 at the 1.1B shapes at T = 2, 4, 8 (int8 variant) and at the
-    fixture's in_f 256 at T = 2, 4 (bf16 variant); each row must equal K1
-    on that row alone, bit for bit."""
-    for name, (out_f, in_f), T in K7_CASES:
-        qt = rand_q4k(rng, out_f, in_f, DEV)
-        x = torch.from_numpy(rng.standard_normal((T, in_f)).astype(
-            np.float32)).to(DEV).bfloat16()
-        i8 = in_f >= 512
-        y = qm.q4k_matvec_t(x, qt, i8)
-        ref = qm.q4k_matvec_t_plain(x, qt, i8)
-        alone = [qm.q4k_matvec(x[t], qt, i8) for t in range(T)]
-        torch.cuda.synchronize()
-        for t in range(T):
-            _check(torch.equal(y[t:t + 1], alone[t]),
-                   f"K7 {name} T={T}: row {t} differs from K1 on it alone")
-        # K1's tolerance: exact int8 group dots (bf16 variant: f32 dots of
-        # the same values), f32 sums in another order, bf16 output
-        err = (y.float() - ref.float()).abs().max().item()
-        tol = 2 ** -7 * ref.float().abs().max().item()
-        w = dequant(qt)
-        _record("K7", f"{name} {out_f}x{in_f} T={T}", err, tol,
-                lambda: qm.q4k_matvec_t(x, qt, i8),
-                lambda: qm.q4k_matvec_t_plain(x, qt, i8),
-                lambda: torch.matmul(x, w.t()),
-                _nbytes(*qt.data.values(), x) + T * out_f * 2)
-        del w
+    """K7 and K7.q5_k at the 1.1B shapes at T = 2, 4, 8 (int8 variant) and
+    at the fixtures' in_f 256 at T = 2, 4 (bf16 variant); each row must
+    equal K1 (K1.q5_k) on that row alone, bit for bit."""
+    for kid, maker in (("K7", rand_q4k), ("K7.q5_k", rand_q5k)):
+        for name, (out_f, in_f), T in K7_CASES:
+            qt = maker(rng, out_f, in_f, DEV)
+            x = torch.from_numpy(rng.standard_normal((T, in_f)).astype(
+                np.float32)).to(DEV).bfloat16()
+            i8 = in_f >= 512
+            y = qm.q4k_matvec_t(x, qt, i8)
+            ref = qm.q4k_matvec_t_plain(x, qt, i8)
+            alone = [qm.q4k_matvec(x[t], qt, i8) for t in range(T)]
+            torch.cuda.synchronize()
+            for t in range(T):
+                _check(torch.equal(y[t:t + 1], alone[t]),
+                       f"{kid} {name} T={T}: row {t} differs from K1 on it "
+                       "alone")
+            # K1's tolerance: exact int8 group dots (bf16 variant: f32 dots
+            # of the same values), f32 sums in another order, bf16 output
+            err = (y.float() - ref.float()).abs().max().item()
+            tol = 2 ** -7 * ref.float().abs().max().item()
+            w = dequant(qt)
+            _record(kid, f"{name} {out_f}x{in_f} T={T}", err, tol,
+                    lambda: qm.q4k_matvec_t(x, qt, i8),
+                    lambda: qm.q4k_matvec_t_plain(x, qt, i8),
+                    lambda: torch.matmul(x, w.t()),
+                    _nbytes(*qt.data.values(), x) + T * out_f * 2)
+            del w
 
 
 def phase_kq_matmul(rng) -> None:
+    """K3 (q4_k, q6_k at T = 16, 512) and K3.q5_k / K3.q8_0 (T = 8, 128,
+    512) at the 1.1B's gate+up and down shapes."""
     for name, (out_f, in_f) in (("w_gateup", (11264, 2048)),
                                 ("w_down", (2048, 5632))):
-        for kind, maker in (("q4_k", rand_q4k), ("q6_k", rand_q6k)):
+        for kid, kind, maker, Ts in (("K3", "q4_k", rand_q4k, (16, 512)),
+                                     ("K3", "q6_k", rand_q6k, (16, 512)),
+                                     ("K3.q5_k", "q5_k", rand_q5k,
+                                      (8, 128, 512)),
+                                     ("K3.q8_0", "q8_0", rand_q8_0,
+                                      (8, 128, 512))):
             qt = maker(rng, out_f, in_f, DEV)
             w = dequant(qt)
-            for T in (16, 512):
+            for T in Ts:
                 x = torch.from_numpy((rng.standard_normal((T, in_f)) * 0.5)
                                      .astype(np.float32)).to(DEV).bfloat16()
                 y = qm.kq_matmul(x, qt)
@@ -256,7 +310,7 @@ def phase_kq_matmul(rng) -> None:
                 # another order, bf16 output: one rounding step of max |y|
                 err = (y.float() - ref.float()).abs().max().item()
                 tol = 2 ** -7 * ref.float().abs().max().item()
-                _record("K3", f"{kind} {name} {out_f}x{in_f} T={T}", err, tol,
+                _record(kid, f"{kind} {name} {out_f}x{in_f} T={T}", err, tol,
                         lambda: qm.kq_matmul(x, qt),
                         lambda: qm.kq_matmul_plain(x, qt),
                         lambda: torch.matmul(x, w.t()),
@@ -658,7 +712,7 @@ def phase_end_to_end(card: str) -> tuple[dict, float]:
     model = synthetic_model(TINYLLAMA_1_1B, "q4_k", seed=0, device=DEV)
     eng = Engine(model, max_context=2048, device=DEV)
     _check(eng.use_flash_prefill, "flash prefill (K4) is off on the card")
-    gp = GenParams(max_length=128, bypass_eos=True,
+    gp = GenParams(max_length=DEPTH, bypass_eos=True,
                    sampler=SamplerParams(temperature=0.0, rep_pen=1.0))
     rng = np.random.default_rng(1)
     prompt = [1] + rng.integers(3, 32000, size=299).tolist()
@@ -681,7 +735,7 @@ def phase_end_to_end(card: str) -> tuple[dict, float]:
     t3 = eng.last_timings
     counts = dict(_build.launches)
 
-    _check(len(r1.tokens) == 128 and r2.tokens == r1.tokens,
+    _check(len(r1.tokens) == DEPTH and r2.tokens == r1.tokens,
            "greedy decode is not repeatable")
     # fast-forward: the repeat re-evaluates only the last prompt token
     _check(t1.prompt_tokens == 300 and t2.prompt_tokens == 1, (t1, t2))
@@ -708,6 +762,10 @@ def phase_end_to_end(card: str) -> tuple[dict, float]:
                           f"flash prefill {'on' if flash else 'off'}")
     eng.use_flash_prefill = True
     idle = _decode_idle_share(eng, prompt, gp.sampler)
+    # the same fast-forwarded request once more, after the profiled run
+    # (every later phase runs after one)
+    eng.generate(prompt, gp)
+    after_tps = eng.last_timings.gen_tps
     print(f"end to end (synthetic TinyLlama-1.1B q4_k, {card}): prefill "
           f"{t1.prompt_tokens} tokens {t1.prompt_tps:.1f} tok/s "
           f"({t1.prompt_time * 1e3:.1f} ms), decode {t1.gen_tokens} tokens "
@@ -720,8 +778,9 @@ def phase_end_to_end(card: str) -> tuple[dict, float]:
           f"(K4) {[round(t * 1e3, 3) for t in pre[True]]}, plain attention "
           f"{[round(t * 1e3, 3) for t in pre[False]]}; the same tokens",
           flush=True)
-    print(f"greedy decode, 64 tokens under torch.profiler: {idle}",
-          flush=True)
+    print(f"greedy decode, 64 tokens under torch.profiler: {idle}; the "
+          f"fast-forwarded request after it: decode {after_tps:.1f} tok/s "
+          f"(before it: {t2.gen_tps:.1f})", flush=True)
     del eng, model
     torch.cuda.empty_cache()
     return counts, t1.gen_tps
@@ -729,10 +788,10 @@ def phase_end_to_end(card: str) -> tuple[dict, float]:
 
 def phase_quant_single(card: str, bf16_tps: float) -> dict:
     """The synthetic 1.1B single-stream with `quantkv=1`: the 300-token
-    prompt (K4 writes the Q8 cache) and 128 greedy tokens through K6."""
+    prompt (K4 writes the Q8 cache) and DEPTH greedy tokens through K6."""
     model = synthetic_model(TINYLLAMA_1_1B, "q4_k", seed=0, device=DEV)
     eng = Engine(model, max_context=2048, device=DEV, quantkv=1)
-    gp = GenParams(max_length=128, bypass_eos=True,
+    gp = GenParams(max_length=DEPTH, bypass_eos=True,
                    sampler=SamplerParams(temperature=0.0, rep_pen=1.0))
     prompt = [1] + np.random.default_rng(1).integers(
         3, 32000, size=299).tolist()
@@ -744,7 +803,7 @@ def phase_quant_single(card: str, bf16_tps: float) -> dict:
     t1 = eng.last_timings
     r2 = eng.generate(prompt, gp)
     counts = dict(_build.launches)
-    _check(len(r1.tokens) == 128 and r2.tokens == r1.tokens
+    _check(len(r1.tokens) == DEPTH and r2.tokens == r1.tokens
            and all(0 <= t < 32000 for t in r1.tokens),
            "Q8 greedy decode is not repeatable")
     _check(eng.last_timings.prompt_tokens == 1, "Q8: no fast-forward")
@@ -829,8 +888,8 @@ def _same_or_near_tie(single: Engine, prompt, got, want, what) -> None:
     _check(abs(a - b) <= NEAR_TIE,
            f"{what}: tokens part at step {i} ({got[i]} vs {want[i]}), "
            f"single-stream logits {a} vs {b}")
-    print(f"near-tie: {what}, step {i}: batched {got[i]} / single-stream "
-          f"{want[i]}, single-stream logits {a:.6f} / {b:.6f}", flush=True)
+    print(f"near-tie: {what}, step {i}: tokens {got[i]} / {want[i]}, "
+          f"single-stream logits {a:.6f} / {b:.6f}", flush=True)
 
 
 def phase_batched_serving(card: str) -> dict:
@@ -838,9 +897,9 @@ def phase_batched_serving(card: str) -> dict:
     rng = np.random.default_rng(2)
     prompts = [[1] + rng.integers(3, 32000, size=int(n) - 1).tolist()
                for n in rng.integers(100, 301, size=8)]
-    greedy = GenParams(max_length=128, bypass_eos=True,
+    greedy = GenParams(max_length=DEPTH, bypass_eos=True,
                        sampler=SamplerParams(temperature=0.0, rep_pen=1.0))
-    stoch = GenParams(max_length=128, bypass_eos=True, sampler=SamplerParams(
+    stoch = GenParams(max_length=DEPTH, bypass_eos=True, sampler=SamplerParams(
         temperature=0.8, top_p=0.9, top_k=60, rep_pen=1.05))
     single = Engine(model, max_context=2048, device=DEV)
     want = []
@@ -864,7 +923,7 @@ def phase_batched_serving(card: str) -> dict:
                 counts[k] = counts.get(k, 0) + v
             got[paged] = [r.tokens for r in res]
             for i, (p, r) in enumerate(zip(prompts, res)):
-                _check(len(r.tokens) == 128, f"{kind} request {i}: {r}")
+                _check(len(r.tokens) == DEPTH, f"{kind} request {i}: {r}")
                 _same_or_near_tie(single, p, r.tokens, want[i],
                                   f"{kind} request {i}")
             n = sum(len(r.tokens) for r in res)
@@ -880,7 +939,7 @@ def phase_batched_serving(card: str) -> dict:
                 counts[k] = counts.get(k, 0) + v
             _check([r.tokens for r in res[:7]] == got[paged][:7],
                    f"{kind}: greedy slots changed beside a stochastic one")
-            _check(len(res[7].tokens) == 128
+            _check(len(res[7].tokens) == DEPTH
                    and all(0 <= t < 32000 for t in res[7].tokens),
                    f"{kind}: bad stochastic reply {res[7].tokens}")
             n = sum(len(r.tokens) for r in res)
@@ -944,8 +1003,112 @@ def phase_batched_serving(card: str) -> dict:
     return counts
 
 
+def phase_new_kinds(card: str) -> dict:
+    """The synthetic 1.1B with q5_k and then q8_0 weights: single-stream
+    through Engine on the bf16 cache (a 300-token prompt, 64 greedy tokens,
+    the same prompt again: fast-forward, the same tokens near-ties apart),
+    then 8 concurrent greedy requests
+    of 100-300 prompt tokens and 32 new tokens through BatchedEngine (8
+    slots, slot cache). q5_k requests must get their single-stream tokens;
+    q8_0 requests the tokens each gets alone through the same batched
+    engine (its T=1 and T>=2 paths differ in arithmetic, int8 activations
+    against a bf16 product, as the JAX dispatch is built). Near-ties
+    allowed, as in phase 4."""
+    rng = np.random.default_rng(1)
+    prompt = [1] + rng.integers(3, 32000, size=299).tolist()
+    rng = np.random.default_rng(2)
+    prompts = [[1] + rng.integers(3, 32000, size=int(n) - 1).tolist()
+               for n in rng.integers(100, 301, size=8)]
+    sampler = SamplerParams(temperature=0.0, rep_pen=1.0)
+    g64 = GenParams(max_length=64, bypass_eos=True, sampler=sampler)
+    g32 = GenParams(max_length=32, bypass_eos=True, sampler=sampler)
+    counts: dict = {}
+    for kind, need_single, need_batched in (
+            ("q5_k", ("K1.q5_k", "K3.q5_k"), ("K7.q5_k",)),
+            ("q8_0", ("K2.q8_0", "K3.q8_0"), ("K3.q8_0",))):
+        t0 = time.perf_counter()
+        model = synthetic_model(TINYLLAMA_1_1B, kind, seed=0, device=DEV)
+        build_s = time.perf_counter() - t0
+        single = Engine(model, max_context=2048, device=DEV)
+        single.generate(prompt[:40], GenParams(max_length=40, bypass_eos=True,
+                                               sampler=sampler))
+        single.reset_context()
+        _build.launches.clear()
+        r1 = single.generate(prompt, g64)
+        t1 = single.last_timings
+        r2 = single.generate(prompt, g64)
+        c1 = dict(_build.launches)
+        _check(len(r1.tokens) == 64 and all(0 <= t < 32000 for t in r1.tokens),
+               f"{kind}: bad reply {r1.tokens}")
+        _check(t1.prompt_tokens == 300
+               and single.last_timings.prompt_tokens == 1,
+               f"{kind}: no fast-forward ({t1}, {single.last_timings})")
+        for k in need_single:
+            _check(c1.get(k, 0) > 0,
+                   f"{k} did not run single-stream on {kind}: {c1}")
+        with torch.inference_mode():
+            logits = single._eval_chunk([5], len(single.context_tokens))
+        _check(logits.shape == (32000,) and bool(torch.isfinite(logits).all()),
+               f"{kind}: logits are not finite (32000,)")
+        # the repeat re-evaluates the last prompt token through the plain
+        # attention (the first request's prefill ran K4): the same tokens,
+        # near-ties apart
+        _same_or_near_tie(single, prompt, r2.tokens, r1.tokens,
+                          f"{kind} fast-forward repeat")
+        print(f"end to end, synthetic TinyLlama-1.1B {kind} ({card}; weights "
+              f"built in {build_s:.1f} s): prefill {t1.prompt_tokens} tokens "
+              f"{t1.prompt_time * 1e3:.1f} ms, decode {t1.gen_tokens} tokens "
+              f"{t1.gen_tps:.1f} tok/s; fast-forward repeat 1 prompt token; "
+              f"launches {c1}", flush=True)
+
+        eng = batch_engine.BatchedEngine(model, max_context=2048, n_slots=8,
+                                         device=DEV)
+        try:
+            eng.generate([1, 2, 3, 4], GenParams(max_length=4,
+                                                 sampler=sampler))
+            eng.reset_context()
+            _build.launches.clear()
+            res, secs = _serve_together(eng, prompts, [g32] * 8)
+            c2 = dict(_build.launches)
+            if kind == "q8_0":
+                want = []
+                for p in prompts:
+                    eng.reset_context()
+                    want.append(eng.generate(p, g32).tokens)
+        finally:
+            eng.shutdown()
+        if kind == "q5_k":
+            want = []
+            for p in prompts:
+                single.reset_context()
+                want.append(single.generate(p, g32).tokens)
+        for i, (p, r) in enumerate(zip(prompts, res)):
+            _check(len(r.tokens) == 32, f"{kind} batched request {i}: {r}")
+            _same_or_near_tie(single, p, r.tokens, want[i],
+                              f"{kind} batched request {i} ("
+                              + ("single-stream" if kind == "q5_k"
+                                 else "alone through the batched engine")
+                              + ")")
+        for k in need_batched:
+            _check(c2.get(k, 0) > 0,
+                   f"{k} did not run in batched serving on {kind}: {c2}")
+        n = sum(len(r.tokens) for r in res)
+        print(f"batched 1.1B {kind} (slot cache, {card}): 8 greedy requests, "
+              f"{n} tokens in {secs * 1e3:.1f} ms = {n / secs:.1f} tok/s "
+              f"aggregate (prefill of {sum(map(len, prompts))} prompt tokens "
+              f"included); each equals its reply "
+              + ("single-stream" if kind == "q5_k" else "alone")
+              + f"; launches {c2}", flush=True)
+        for c in (c1, c2):
+            for k, v in c.items():
+                counts[k] = counts.get(k, 0) + v
+        del single, model
+        torch.cuda.empty_cache()
+    return counts
+
+
 # ---------------------------------------------------------------------------
-# 5. the Q4_K_M fixture served over HTTP, and its logits against goldens
+# 5. the reference fixtures served over HTTP, and their logits against goldens
 # ---------------------------------------------------------------------------
 
 def _post(port: int, path: str, body: dict) -> dict:
@@ -987,7 +1150,8 @@ class _Server:
         self.loop.close()
 
 
-def _multiuser_fixture(model, engine_kw: dict) -> dict:
+def _multiuser_fixture(model, engine_kw: dict,
+                       name: str = "tiny-q4_k_m") -> dict:
     """4 concurrent /api/v1/generate requests on a multiuser=4 server over
     BatchedEngine(**engine_kw): each reply must equal the one the request
     gets alone. Returns the launch counts of the concurrent requests."""
@@ -998,7 +1162,7 @@ def _multiuser_fixture(model, engine_kw: dict) -> dict:
     reasons = []  # every request's stop reason: an error fails the phase
     finish = beng._finish
     beng._finish = lambda slot, why: (reasons.append(why), finish(slot, why))
-    srv = _Server(beng, ServerSettings(model_name="tiny", multiuser=4))
+    srv = _Server(beng, ServerSettings(model_name=name, multiuser=4))
     try:
         bodies = [{"prompt": p, "max_length": 16, "temperature": 0,
                    "rep_pen": 1.0}
@@ -1029,9 +1193,9 @@ def _multiuser_fixture(model, engine_kw: dict) -> dict:
     _check(not any(r.startswith("error") for r in reasons),
            f"multiuser requests failed: {reasons}")
     _check(together == alone and all(together),
-           f"multiuser replies {engine_kw} differ from the replies alone: "
-           f"{together} {alone}")
-    print(f"served fixture, multiuser=4 {engine_kw}: 4 concurrent "
+           f"{name} multiuser replies {engine_kw} differ from the replies "
+           f"alone: {together} {alone}")
+    print(f"served {name}, multiuser=4 {engine_kw}: 4 concurrent "
           f"/api/v1/generate replies equal the replies alone; launches "
           f"{multi}", flush=True)
     return multi
@@ -1090,24 +1254,81 @@ def phase_served_fixture() -> dict:
         for k, v in multi.items():
             counts[k] = counts.get(k, 0) + v
 
-    # the fixture's logits on the card against the reference runtime's
+    return counts
+
+
+# GGUF type of each served fixture -> the kernel body its packed kind runs
+SERVED_KINDS = (("q8_0", "K2.q8_0", "K3.q8_0"), ("q5_1", "K1.q5_k", "K7.q5_k"),
+                ("q4_0", "K1", None), ("iq4_nl", "K2.q8_0", None),
+                ("tq2_0", "K2.q8_0", None))
+
+
+def phase_served_kinds() -> dict:
+    """The fixtures whose weights pack as q8_0 (Q8_0, IQ4_NL, TQ2_0), q5_k
+    (Q5_1) and q4_k (Q4_0), served over HTTP single-stream at temperature
+    0: two identical replies each, through the body of the fixture's kind;
+    tiny-q8_0 and tiny-q5_1 also with multiuser=4 (each request getting
+    the reply it gets alone; K3.q8_0 / K7.q5_k)."""
+    from koboldcpp_tpu_torch.server.app import ServerSettings
+
+    body = {"prompt": "The gradient of a function, e.g. f(x), points",
+            "max_length": 24, "temperature": 0, "rep_pen": 1.0}
+    counts: dict = {}
+    for fmt, kid, multi_kid in SERVED_KINDS:
+        model = load_model(os.path.join(FIX, f"tiny-{fmt}.gguf"), device=DEV)
+        srv = _Server(Engine(model, max_context=512, device=DEV),
+                      ServerSettings(model_name=f"tiny-{fmt}"))
+        try:
+            _build.launches.clear()
+            a, b = (srv.post("/api/v1/generate", body)["results"][0]["text"]
+                    for _ in range(2))
+            c = dict(_build.launches)
+        finally:
+            srv.close()
+        _check(a == b and a != "",
+               f"tiny-{fmt}: temperature-0 replies differ: {a!r} {b!r}")
+        _check(c.get(kid, 0) > 0, f"{kid} did not run on tiny-{fmt}: {c}")
+        print(f"served tiny-{fmt}: /api/v1/generate x2 identical ({a!r}); "
+              f"launches {c}", flush=True)
+        if multi_kid:
+            m = _multiuser_fixture(model, {}, f"tiny-{fmt}")
+            _check(m.get(multi_kid, 0) > 0,
+                   f"{multi_kid} did not run on the multiuser tiny-{fmt}: {m}")
+            for k, v in m.items():
+                c[k] = c.get(k, 0) + v
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    return counts
+
+
+def check_fixture_goldens() -> None:
+    """Each reference fixture's logits on the card, loaded packed in f32 (as
+    tests/test_torch_forward.py does on the CPU), against the reference
+    runtime's goldens at tests/test_ref_gguf_fixtures.py's tolerances."""
     manifest = json.load(open(os.path.join(FIX, "manifest.json")))
     toks = torch.tensor([manifest["tokens"]], device=DEV)
-    m32 = load_model(os.path.join(FIX, "tiny-q4_k_m.gguf"),
-                     dtype=torch.float32, device=DEV)
-    cache = init_cache(m32.cfg.n_layers, 1, 64, m32.cfg.n_kv_heads,
-                       m32.cfg.head_dim, dtype=torch.float32, device=DEV)
-    with torch.inference_mode():
-        logits, _ = llama.forward(m32.params, m32.cfg, toks,
-                                  torch.arange(toks.shape[1], device=DEV)[None],
-                                  cache)
-    golden = np.load(os.path.join(FIX, "logits-q4_k_m.npy"))
-    err = float(np.abs(logits[0].float().cpu().numpy() - golden).max())
-    # tests/test_ref_gguf_fixtures.py's q4_k_m tolerance
-    _check(err <= 4e-2, f"fixture logits off the goldens by {err}")
-    print(f"fixture logits vs reference goldens: max abs err {err:.4g} "
-          f"(tol 4e-2)", flush=True)
-    return counts
+    for fmt, name in manifest["files"].items():
+        m32 = load_model(os.path.join(FIX, name), dtype=torch.float32,
+                         device=DEV)
+        cache = init_cache(m32.cfg.n_layers, 1, 64, m32.cfg.n_kv_heads,
+                           m32.cfg.head_dim, dtype=torch.float32, device=DEV)
+        with torch.inference_mode():
+            logits, _ = llama.forward(
+                m32.params, m32.cfg, toks,
+                torch.arange(toks.shape[1], device=DEV)[None], cache)
+        golden = np.load(os.path.join(FIX, f"logits-{fmt}.npy"))
+        err = float(np.abs(logits[0].float().cpu().numpy() - golden).max())
+        tol = 2e-3 if fmt == "f16" else 4e-2
+        _check(err <= tol, f"tiny-{fmt} logits off the goldens by {err}")
+        print(f"tiny-{fmt} logits vs reference goldens: max abs err "
+              f"{err:.4g} (tol {tol:g})", flush=True)
+
+
+def _timed(phase, *args):
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"[{phase.__name__}: {time.perf_counter() - t0:.1f} s]", flush=True)
+    return out
 
 
 def main() -> int:
@@ -1121,22 +1342,21 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     rng = np.random.default_rng(0)
-    phase_matvec(rng)
-    phase_batched_matvec(rng)
-    phase_kq_matmul(rng)
-    phase_flash_prefill(rng)
-    phase_flash_decode(rng)
-    phase_paged_flash_decode(rng)
-    phase_quant_decode(rng)
+    for phase in (phase_matvec, phase_batched_matvec, phase_kq_matmul,
+                  phase_flash_prefill, phase_flash_decode,
+                  phase_paged_flash_decode, phase_quant_decode):
+        _timed(phase, rng)
     torch.cuda.synchronize()
     global _flush
     _flush = None
     torch.cuda.empty_cache()
 
     # the main paths, each with the launch counts zeroed before it
-    single, bf16_tps = phase_end_to_end(card)
-    runs = [single, phase_quant_single(card, bf16_tps),
-            phase_batched_serving(card), phase_served_fixture()]
+    single, bf16_tps = _timed(phase_end_to_end, card)
+    runs = [single, _timed(phase_quant_single, card, bf16_tps),
+            _timed(phase_batched_serving, card), _timed(phase_served_fixture),
+            _timed(phase_new_kinds, card), _timed(phase_served_kinds)]
+    _timed(check_fixture_goldens)
 
     kernels = []
     for kid, (name, source, replaces) in KERNELS.items():

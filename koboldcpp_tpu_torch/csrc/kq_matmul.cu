@@ -1,16 +1,17 @@
-// K3: q4_k / q6_k tiled matmul for prefill, y (T, out_f) bf16 =
-// x (T, in_f) bf16 . W^T with f32 accumulation.
+// K3: q4_k / q5_k / q6_k / q8_0 tiled matmul for prefill, y (T, out_f)
+// bf16 = x (T, in_f) bf16 . W^T with f32 accumulation.
 //
 // Replaces koboldcpp_tpu/ops/quant_matmul.py `_packed_matmul_2d`: bodies
-// `_q4k_kernel` (the default KCPP_Q4K_2D=sexp) and `_q6k_kernel`.
-// As there, the weight fed to the product is bf16(q * scale) (q4_k: the
-// nibble 0..15; q6_k: the 6-bit value 0..63), and the affine part is a
-// second, small product over per-group sums of x: q4_k subtracts
-// xsum_bf16 . min (groups of 32), q6_k subtracts 32 * xsum_bf16 . scale
-// (groups of 16). Both terms run through the same tensor-core loop: the K
-// loop first walks in_f with B = the dequantized weight tile, then walks the
-// groups with A = the group sums and B = -min (q4_k) or -32*scale (q6_k),
-// both exact in bf16.
+// `_q4k_kernel` (the default KCPP_Q4K_2D=sexp), `_q5k_kernel`, `_q6k_kernel`
+// and `_q8_0_kernel`. As there, the weight fed to the product is
+// bf16(q * scale) (q4_k: the nibble 0..15; q5_k: the nibble with its 5th
+// bit, 0..31; q6_k: the 6-bit value 0..63; q8_0: the int8 code), and the
+// affine part is a second, small product over per-group sums of x: q4_k and
+// q5_k subtract xsum_bf16 . min (groups of 32), q6_k subtracts
+// 32 * xsum_bf16 . scale (groups of 16), q8_0 has none. Both terms run
+// through the same tensor-core loop: the K loop first walks in_f with B =
+// the dequantized weight tile, then walks the groups with A = the group
+// sums and B = -min (q4_k, q5_k) or -32*scale (q6_k), both exact in bf16.
 //
 // Bound on the H100: operations at T=512 (2*T*in*out bf16 FLOPs over
 // 989 TFLOP/s), bytes at small T. Design: a 64x64 output tile per block of
@@ -18,7 +19,8 @@
 // shared memory as bf16 and runs WMMA 16x16x16 bf16 products with f32
 // accumulators (mma.sync underneath). No TMA / wgmma / multi-stage
 // pipeline yet.
-// Launch counter: ops/_build.launches["K3"] (one per matmul).
+// Launch counters: ops/_build.launches["K3"] (q4_k, q6_k), ["K3.q5_k"] and
+// ["K3.q8_0"], one per matmul.
 #include <mma.h>
 
 #include "common.cuh"
@@ -27,14 +29,14 @@ using namespace nvcuda;
 
 constexpr int BM = 64, BN = 64, BK = 32, LDS = BK + 8, LDC = BN + 4;
 
-template <int KIND>  // 0 = q4_k, 1 = q6_k
+template <int KIND>  // 0 = q4_k, 1 = q6_k, 2 = q5_k, 3 = q8_0
 __global__ void __launch_bounds__(128)
 kq_matmul_kernel(const __nv_bfloat16* __restrict__ x,
                  const __nv_bfloat16* __restrict__ xs,
-                 const uint8_t* __restrict__ w0,   // q4_k qs2 | q6_k ql
-                 const uint8_t* __restrict__ w1,   // q6_k qh (unused q4_k)
+                 const uint8_t* __restrict__ w0,   // qs2 | ql | qs2 | q
+                 const uint8_t* __restrict__ w1,   // - | qh | qh bits | -
                  const __nv_bfloat16* __restrict__ scale,
-                 const __nv_bfloat16* __restrict__ mn,  // q4_k min
+                 const __nv_bfloat16* __restrict__ mn,  // q4_k/q5_k min
                  __nv_bfloat16* __restrict__ y, int T, int out_f, int in_f) {
     __shared__ __align__(32) __nv_bfloat16 As[BM][LDS];
     __shared__ __align__(32) __nv_bfloat16 Bs[BN][LDS];
@@ -43,7 +45,8 @@ kq_matmul_kernel(const __nv_bfloat16* __restrict__ x,
     const int tid = threadIdx.x, warp = tid >> 5;
     const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
     const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-    const int G = KIND == 0 ? in_f / 32 : in_f / 16;  // affine-term groups
+    // affine-term groups (none for q8_0)
+    const int G = KIND == 1 ? in_f / 16 : KIND == 3 ? 0 : in_f / 32;
     const int nk1 = in_f / BK, nk2 = (G + BK - 1) / BK;
 
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
@@ -72,17 +75,33 @@ kq_matmul_kernel(const __nv_bfloat16* __restrict__ x,
             }
             // B: 16 dequantized weights bf16(q * s)
             const int sb = k0 / 256, within = k0 % 256;
-            if (KIND == 0) {
+            if (KIND == 0 || KIND == 2) {
                 const int plane = within / 128;           // lo / hi nibble
                 const uint4 wv = *reinterpret_cast<const uint4*>(
                     w0 + (size_t)orow * (in_f / 2) + sb * 128
                     + (within % 128) + c16);
                 const uint32_t ws[4] = {wv.x, wv.y, wv.z, wv.w};
+                // q5_k: the 5th bits of logical cols k0+c16 .. +15
+                const uint32_t hb = KIND == 2
+                    ? *reinterpret_cast<const uint16_t*>(
+                          w1 + (size_t)orow * (in_f / 8) + (k0 + c16) / 8)
+                    : 0u;
                 const float s = bf2f(scale[(size_t)orow * (in_f / 32) + k0 / 32]);
 #pragma unroll
                 for (int e = 0; e < 16; ++e) {
                     const uint32_t byte = (ws[e >> 2] >> (8 * (e & 3))) & 0xFFu;
-                    const uint32_t q = plane ? (byte >> 4) : (byte & 0xF);
+                    const uint32_t q = (plane ? (byte >> 4) : (byte & 0xF))
+                                       | (((hb >> e) & 1u) << 4);
+                    Bs[r][c16 + e] = f2bf((float)q * s);
+                }
+            } else if (KIND == 3) {
+                const uint4 wv = *reinterpret_cast<const uint4*>(
+                    w0 + (size_t)orow * in_f + k0 + c16);
+                const uint32_t ws[4] = {wv.x, wv.y, wv.z, wv.w};
+                const float s = bf2f(scale[(size_t)orow * (in_f / 32) + k0 / 32]);
+#pragma unroll
+                for (int e = 0; e < 16; ++e) {
+                    const int8_t q = (int8_t)((ws[e >> 2] >> (8 * (e & 3))) & 0xFFu);
                     Bs[r][c16 + e] = f2bf((float)q * s);
                 }
             } else {
@@ -107,6 +126,7 @@ kq_matmul_kernel(const __nv_bfloat16* __restrict__ x,
             }
         } else {
             // affine term: A = group sums of x, B = -min | -32 * scale
+            // (never reached for q8_0: G = 0)
             const int g0 = (kt - nk1) * BK + c16;
 #pragma unroll
             for (int e = 0; e < 16; ++e) {
@@ -116,8 +136,8 @@ kq_matmul_kernel(const __nv_bfloat16* __restrict__ x,
                                                : f2bf(0.f);
                 float b = 0.f;
                 if (ok) {
-                    b = KIND == 0 ? -bf2f(mn[(size_t)orow * G + g])
-                                  : -32.f * bf2f(scale[(size_t)orow * G + g]);
+                    b = KIND == 1 ? -32.f * bf2f(scale[(size_t)orow * G + g])
+                                  : -bf2f(mn[(size_t)orow * G + g]);
                 }
                 Bs[r][c16 + e] = f2bf(b);
             }
@@ -158,7 +178,8 @@ kq_matmul_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 // x (T, in_f) bf16, xs (T, G) bf16 group sums; q4_k: w0=qs2, mn=min;
-// q6_k: w0=ql, w1=qh. y (T, out_f) bf16. out_f % 64 == 0, in_f % 256 == 0.
+// q6_k: w0=ql, w1=qh; q5_k: w0=qs2, w1=qh (bit plane), mn=min; q8_0: w0=q,
+// no xs. y (T, out_f) bf16. out_f % 64 == 0, in_f % 256 == 0.
 KCPP_API int k3_kq_matmul(int kind, const void* x, const void* xs,
                           const void* w0, const void* w1, const void* scale,
                           const void* mn, void* y, int T, int out_f, int in_f,
@@ -169,10 +190,13 @@ KCPP_API int k3_kq_matmul(int kind, const void* x, const void* xs,
         (const uint8_t*)w0, (const uint8_t*)w1, \
         (const __nv_bfloat16*)scale, (const __nv_bfloat16*)mn, \
         (__nv_bfloat16*)y, T, out_f, in_f
-    if (kind == 0)
-        kq_matmul_kernel<0><<<grid, 128, 0, st>>>(K3_ARGS);
-    else
-        kq_matmul_kernel<1><<<grid, 128, 0, st>>>(K3_ARGS);
+    switch (kind) {
+        case 0: kq_matmul_kernel<0><<<grid, 128, 0, st>>>(K3_ARGS); break;
+        case 1: kq_matmul_kernel<1><<<grid, 128, 0, st>>>(K3_ARGS); break;
+        case 2: kq_matmul_kernel<2><<<grid, 128, 0, st>>>(K3_ARGS); break;
+        case 3: kq_matmul_kernel<3><<<grid, 128, 0, st>>>(K3_ARGS); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
 #undef K3_ARGS
     return (int)cudaGetLastError();
 }

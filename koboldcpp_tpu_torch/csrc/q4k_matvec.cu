@@ -1,38 +1,51 @@
-// K1: q4_k T=1 matvec and K7: q4_k 2<=T<=8 batched matvec,
+// K1: q4_k / q5_k T=1 matvec and K7: q4_k / q5_k 2<=T<=8 batched matvec,
 // y (T, out_f) bf16 = x (T, in_f) . W^T.
 //
 // K1 replaces koboldcpp_tpu/ops/quant_matmul.py `_packed_matvec_q4k` at T=1:
-// body `_q4k_decode_kernel_i8` (in_f >= 512) and `_q4k_decode_kernel`
-// (bf16 activations, in_f < 512). K7 replaces the same function at
-// 2 <= T <= 8: body `_q4k_decode_kernel_i8_t` (with `_i8_prep_t`) and the
-// bf16 `_q4k_decode_kernel` over per-token stacks (T <= 4).
+// bodies `_q4k_decode_kernel_i8` / `_q5k_decode_kernel_i8` (in_f >= 512)
+// and `_q4k_decode_kernel` / `_q5k_decode_kernel` (bf16 activations, in_f <
+// 512). K7 replaces the same function at 2 <= T <= 8: bodies
+// `_q4k_decode_kernel_i8_t` / `_q5k_decode_kernel_i8_t` (with
+// `_i8_prep_t`) and the bf16 decode kernels over per-token stacks (T <= 4).
 //
+// The code of a weight is its nibble (q4_k, 0..15) or its nibble ORed with
+// its 5th bit from the qh bit plane (q5_k, 0..31); w = code * s - m.
 // i8 variant: x is quantized per token and per 32-column group to int8
 // (act_prep_kernel over the T rows, the port of `_i8_prep(_t)`); the int8 x
-// nibble dot of each group is an exact int32 sum taken with __dp4a;
+// code dot of each group is an exact int32 sum taken with __dp4a (codes
+// are below 128, so the signed form multiplies them exactly);
 // y_r = sum_g sx_g * s_rg * P_rg - sum_g m_rg * xsum_g (`_i8_combine`), with
 // the group sums kept in bf16. bf16 variant: P_rg is the f32 dot of bf16 x
-// with the nibbles.
+// with the codes.
 //
 // Bound on the H100: bytes. Each weight byte is read once, whatever T is
-// (0.5 B/weight plus 4 B of bf16 scale and min per 32 weights); x, its codes
-// and sums stay in L1/L2. Design: one warp per output row, each lane loads
-// 16 bytes of packed nibbles per step (half of one 32-column group in each
-// nibble plane), so a warp reads 512 contiguous bytes per step, and keeps T
-// accumulators, one per token; the two lanes of a group combine their
-// partials with one shuffle before the scale products, as the TPU kernel
-// applies scales to whole-group partials. Every product-and-add is an
-// explicit __fmaf_rn / __fmul_rn, so the arithmetic of token t is the same
-// instruction sequence at every T: row t of K7 equals K1 on x[t] bit for
-// bit, and a request served in a batch gets the tokens it gets alone.
-// Launch counters: ops/_build.launches["K1"] and ["K7"] (one per matvec).
+// (q4_k 0.5 B/weight, q5_k 0.5 + 0.125 B/weight, plus 4 B of bf16 scale and
+// min per 32 weights); x, its codes and sums stay in L1/L2. Design: one warp
+// per output row, each lane loads 16 bytes of packed nibbles per step (half
+// of one 32-column group in each nibble plane) and, for q5_k, the 2 + 2
+// bytes of those 32 columns' 5th bits, so a warp reads 512 contiguous bytes
+// of nibbles per step, and keeps T accumulators, one per token; the two
+// lanes of a group combine their partials with one shuffle before the scale
+// products, as the TPU kernel applies scales to whole-group partials. Every
+// product-and-add is an explicit __fmaf_rn / __fmul_rn, so token t goes
+// through the same operations in the same order at every T: row t of K7
+// equals K1 on x[t] bit for bit, and a request served in a batch gets the
+// tokens it gets alone.
+// Launch counters: ops/_build.launches["K1"] and ["K7"] (q4_k),
+// ["K1.q5_k"] and ["K7.q5_k"] (q5_k), one per matvec.
 #include "common.cuh"
 
 constexpr int ROWS_PER_BLOCK = 8;  // one warp per row
 
-template <bool I8, int T>
+// bits 0..3 of b -> bit 0 of bytes 0..3
+__device__ __forceinline__ uint32_t spread4(uint32_t b) {
+    return ((b & 0xFu) * 0x00204081u) & 0x01010101u;
+}
+
+template <bool I8, int T, bool Q5>
 __global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
 q4k_matvec_kernel(const uint8_t* __restrict__ qs2,
+                  const uint8_t* __restrict__ qh,          // q5_k (out, in/8)
                   const __nv_bfloat16* __restrict__ scale,
                   const __nv_bfloat16* __restrict__ mn,
                   const __nv_bfloat16* __restrict__ x,     // (T, in_f)
@@ -63,9 +76,15 @@ q4k_matvec_kernel(const uint8_t* __restrict__ qs2,
         const int g_lo = sb * 8 + (c & 7) / 2;   // logical 32-col group
         const int g_hi = g_lo + 4;
         uint32_t ws[4] = {0u, 0u, 0u, 0u};
+        uint32_t hlo = 0u, hhi = 0u;  // 5th bits of the 16 cols in each plane
         if (valid) {
             const uint4 w = *reinterpret_cast<const uint4*>(wrow + sb * 128 + b);
             ws[0] = w.x; ws[1] = w.y; ws[2] = w.z; ws[3] = w.w;
+            if (Q5) {
+                const uint8_t* hrow = qh + (size_t)row * (in_f / 8);
+                hlo = *reinterpret_cast<const uint16_t*>(hrow + col_lo / 8);
+                hhi = *reinterpret_cast<const uint16_t*>(hrow + col_hi / 8);
+            }
         }
         const float s_lo = valid ? bf2f(srow[g_lo]) : 0.f;
         const float s_hi = valid ? bf2f(srow[g_hi]) : 0.f;
@@ -82,21 +101,29 @@ q4k_matvec_kernel(const uint8_t* __restrict__ qs2,
                     int il = 0, ih = 0;
 #pragma unroll
                     for (int k = 0; k < 4; ++k) {
-                        il = __dp4a((int)(ws[k] & 0x0F0F0F0Fu), (int)xls[k], il);
-                        ih = __dp4a((int)((ws[k] >> 4) & 0x0F0F0F0Fu),
-                                    (int)xhs[k], ih);
+                        uint32_t lo = ws[k] & 0x0F0F0F0Fu;
+                        uint32_t hi = (ws[k] >> 4) & 0x0F0F0F0Fu;
+                        if (Q5) {
+                            lo |= spread4(hlo >> (4 * k)) << 4;
+                            hi |= spread4(hhi >> (4 * k)) << 4;
+                        }
+                        il = __dp4a((int)lo, (int)xls[k], il);
+                        ih = __dp4a((int)hi, (int)xhs[k], ih);
                     }
-                    plo = (float)il;  // exact: |P| <= 16 * 15 * 127
+                    plo = (float)il;  // exact: |P| <= 16 * 31 * 127
                     phi = (float)ih;
                 } else {
                     const __nv_bfloat16* xt = x + (size_t)t * in_f;
 #pragma unroll
                     for (int k = 0; k < 16; ++k) {
                         const uint32_t byte = (ws[k >> 2] >> (8 * (k & 3))) & 0xFFu;
-                        plo = __fmaf_rn((float)(byte & 0xF), bf2f(xt[col_lo + k]),
-                                        plo);
-                        phi = __fmaf_rn((float)(byte >> 4), bf2f(xt[col_hi + k]),
-                                        phi);
+                        uint32_t clo = byte & 0xF, chi = byte >> 4;
+                        if (Q5) {
+                            clo |= ((hlo >> k) & 1u) << 4;
+                            chi |= ((hhi >> k) & 1u) << 4;
+                        }
+                        plo = __fmaf_rn((float)clo, bf2f(xt[col_lo + k]), plo);
+                        phi = __fmaf_rn((float)chi, bf2f(xt[col_hi + k]), phi);
                     }
                 }
             }
@@ -126,26 +153,28 @@ q4k_matvec_kernel(const uint8_t* __restrict__ qs2,
     }
 }
 
-template <bool I8>
-static cudaError_t launch_matvec(int T, const void* qs2, const void* scale,
+template <bool I8, bool Q5>
+static cudaError_t launch_matvec(int T, const void* qs2, const void* qh,
+                                 const void* scale,
                                  const void* mn, const void* x, const void* xq,
                                  const void* sx, const void* xsum, void* y,
                                  int out_f, int in_f, cudaStream_t st) {
     dim3 grid((out_f + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK);
     dim3 block(ROWS_PER_BLOCK * 32);
-#define KQ_ARGS (const uint8_t*)qs2, (const __nv_bfloat16*)scale, \
+#define KQ_ARGS (const uint8_t*)qs2, (const uint8_t*)qh, \
+        (const __nv_bfloat16*)scale, \
         (const __nv_bfloat16*)mn, (const __nv_bfloat16*)x, (const int8_t*)xq, \
         (const float*)sx, (const __nv_bfloat16*)xsum, (__nv_bfloat16*)y, \
         out_f, in_f
     switch (T) {
-        case 1: q4k_matvec_kernel<I8, 1><<<grid, block, 0, st>>>(KQ_ARGS); break;
-        case 2: q4k_matvec_kernel<I8, 2><<<grid, block, 0, st>>>(KQ_ARGS); break;
-        case 3: q4k_matvec_kernel<I8, 3><<<grid, block, 0, st>>>(KQ_ARGS); break;
-        case 4: q4k_matvec_kernel<I8, 4><<<grid, block, 0, st>>>(KQ_ARGS); break;
-        case 5: q4k_matvec_kernel<I8, 5><<<grid, block, 0, st>>>(KQ_ARGS); break;
-        case 6: q4k_matvec_kernel<I8, 6><<<grid, block, 0, st>>>(KQ_ARGS); break;
-        case 7: q4k_matvec_kernel<I8, 7><<<grid, block, 0, st>>>(KQ_ARGS); break;
-        case 8: q4k_matvec_kernel<I8, 8><<<grid, block, 0, st>>>(KQ_ARGS); break;
+        case 1: q4k_matvec_kernel<I8, 1, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
+        case 2: q4k_matvec_kernel<I8, 2, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
+        case 3: q4k_matvec_kernel<I8, 3, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
+        case 4: q4k_matvec_kernel<I8, 4, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
+        case 5: q4k_matvec_kernel<I8, 5, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
+        case 6: q4k_matvec_kernel<I8, 6, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
+        case 7: q4k_matvec_kernel<I8, 7, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
+        case 8: q4k_matvec_kernel<I8, 8, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
         default: return cudaErrorInvalidValue;
     }
 #undef KQ_ARGS
@@ -160,14 +189,22 @@ KCPP_API int k1_q4k_prep(const void* x, void* xq, void* sx, void* xsum,
                                     (cudaStream_t)stream);
 }
 
-// K1 (T == 1) and K7 (2 <= T <= 8): the same kernel template
-KCPP_API int k7_q4k_matvec_t(const void* qs2, const void* scale, const void* mn,
+// K1 (T == 1) and K7 (2 <= T <= 8): the same kernel template; qh is the
+// q5_k bit plane, or null for q4_k
+KCPP_API int k7_q4k_matvec_t(const void* qs2, const void* qh,
+                             const void* scale, const void* mn,
                              const void* x, const void* xq, const void* sx,
                              const void* xsum, void* y, int T, int out_f,
                              int in_f, int i8, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    return (int)(i8 ? launch_matvec<true>(T, qs2, scale, mn, x, xq, sx, xsum,
-                                          y, out_f, in_f, st)
-                    : launch_matvec<false>(T, qs2, scale, mn, x, xq, sx, xsum,
-                                           y, out_f, in_f, st));
+#define MV_ARGS T, qs2, qh, scale, mn, x, xq, sx, xsum, y, out_f, in_f, st
+    cudaError_t err;
+    if (qh)
+        err = i8 ? launch_matvec<true, true>(MV_ARGS)
+                 : launch_matvec<false, true>(MV_ARGS);
+    else
+        err = i8 ? launch_matvec<true, false>(MV_ARGS)
+                 : launch_matvec<false, false>(MV_ARGS);
+#undef MV_ARGS
+    return (int)err;
 }

@@ -5,8 +5,10 @@ The JAX params arrive as the same nested dict/list structure with every
 array already converted to numpy (e.g. `jax.tree_util.tree_map(np.asarray,
 params)`); a packed weight is any object with `kind`, `shape` and `data`
 attributes (the JAX QTensor after that tree_map). Only the logical fields
-are kept: q4_k's plane-ordered `scale_lo`/`scale_hi` interleave back into
-the logical `scale`; every TPU sidecar field is dropped.
+are kept: q4_k's and q5_k's plane-ordered `scale_lo`/`scale_hi` interleave
+back into the logical `scale`, q5_k's `hb` (bit 0: the 5th bit of col
+256s+b, bit 1: of col 256s+128+b, for byte b of superblock s) becomes the
+port's `qh` bit plane; every TPU sidecar field is dropped.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import torch
 
 from ..ops.linear import QTensor
 
-_KEEP = {"dense": ("w",), "q4_k": ("qs2", "min"), "q6_k": ("ql", "qh", "scale")}
+_KEEP = {"dense": ("w",), "q4_k": ("qs2", "min"), "q5_k": ("qs2", "min"),
+         "q6_k": ("ql", "qh", "scale"), "q8_0": ("q", "scale")}
 
 
 def _tensor(a: Any, device) -> torch.Tensor:
@@ -33,11 +36,16 @@ def _qtensor(v: Any, device) -> QTensor:
     if kind not in _KEEP:
         raise NotImplementedError(f"QTensor kind {kind} is not ported yet")
     data = {n: _tensor(v.data[n], device) for n in _KEEP[kind]}
-    if kind == "q4_k":
+    if kind in ("q4_k", "q5_k"):
         rows = v.shape[0]
         slo = _tensor(v.data["scale_lo"], device).reshape(rows, -1, 4)
         shi = _tensor(v.data["scale_hi"], device).reshape(rows, -1, 4)
         data["scale"] = torch.cat([slo, shi], dim=2).reshape(rows, -1)
+    if kind == "q5_k":
+        hb = np.asarray(v.data["hb"]).reshape(v.shape[0], -1, 128)
+        bits = np.concatenate([hb & 1, (hb >> 1) & 1], axis=2)
+        data["qh"] = torch.from_numpy(np.packbits(
+            bits.reshape(v.shape[0], -1), axis=1, bitorder="little")).to(device)
     return QTensor(kind=kind, shape=tuple(v.shape), data=data)
 
 

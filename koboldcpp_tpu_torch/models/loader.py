@@ -2,7 +2,8 @@
 
 Port of koboldcpp_tpu/models/loader.py for llama-family GGUF files: maps
 llama.cpp tensor names into the params dict consumed by models/llama.py,
-keeping 2-D q4_k/q6_k weights packed (QTensor) for the kernels and
+keeping 2-D weights packed (QTensor: q4_k, q5_k, q6_k or q8_0, the kinds
+`ops/linear.from_gguf` maps the GGUF types onto) for the kernels and
 row-fusing same-type q/k/v and gate/up projections into `wqkv` / `w_gateup`
 (one kernel launch per group). LoRA merging and legacy GGML containers come
 in a later slice.

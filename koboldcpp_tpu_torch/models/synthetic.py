@@ -2,9 +2,10 @@
 
 Port of koboldcpp_tpu/models/synthetic.py: packed QTensors are built
 directly from seeded random bytes + small scales, drawing the same field
-values from the same numpy seed as the JAX builders, minus the TPU-only
-sidecar fields. Byte-layout-identical to GGUF-loaded weights, so kernels
-see the real memory traffic.
+values from the same numpy seed as the JAX package's makers (q8_0: scales
+/ 8, see rand_q8_0), minus the TPU-only sidecar fields; q5_k, which the JAX
+package has no maker for, packs random GGUF blocks. Byte-layout-identical
+to GGUF-loaded weights, so kernels see the real memory traffic.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch
 
 from ..device import resolve_device
 from ..gguf.constants import QK_K
-from ..ops.linear import QTensor, _bf16, _u8, dense
+from ..ops.linear import QTensor, _bf16, _u8, dense, pack_q5_k
 from .config import ModelConfig
 
 TINYLLAMA_1_1B = ModelConfig(
@@ -61,14 +62,44 @@ def rand_q6k(rng, out_f: int, in_f: int, device="cpu") -> QTensor:
     })
 
 
-_MAKERS = {"q4_k": rand_q4k, "q6_k": rand_q6k}
+def rand_q8_0(rng, out_f: int, in_f: int, device="cpu") -> QTensor:
+    """The JAX `_rand_q8_0` draws (the same numpy calls in the same order),
+    with the scales divided by 8 (exact). The JAX maker's weights have
+    std ~0.085, a gain near 4 per projection at hidden 2048: a 22-layer
+    model of them turns any rounding difference (flash against plain
+    attention for a re-evaluated token) into other greedy tokens. /8 gives
+    std ~0.011, the spread of the q4_k maker's weights."""
+    scale = (rng.random((out_f, in_f // 32), dtype=np.float32) * 0.002
+             ).astype(np.float32) / 8
+    q = rng.integers(-127, 128, size=(out_f, in_f), dtype=np.int8)
+    return QTensor(kind="q8_0", shape=(out_f, in_f), data={
+        "q": torch.from_numpy(q).to(device),
+        "scale": _bf16(scale, device),
+    })
+
+
+def rand_q5k(rng, out_f: int, in_f: int, device="cpu") -> QTensor:
+    """Seeded random GGUF Q5_K superblocks (176 bytes per 256 weights:
+    finite fp16 d and dmin, random 6-bit scales, 5th bits and nibbles),
+    packed through `pack_q5_k`. The JAX package has no q5_k maker."""
+    nsb = in_f // QK_K
+    raw = rng.integers(0, 256, size=(out_f, nsb, 176), dtype=np.uint8)
+    d = (rng.random((out_f, nsb, 2), dtype=np.float32) * 3.2e-5)
+    raw[:, :, 0:4] = d.astype(np.float16).view(np.uint8).reshape(
+        out_f, nsb, 4)
+    return pack_q5_k(raw, (out_f, in_f), device)
+
+
+_MAKERS = {"q4_k": rand_q4k, "q5_k": rand_q5k, "q6_k": rand_q6k,
+           "q8_0": rand_q8_0}
 
 
 def synthetic_params(cfg: ModelConfig, kind: str = "q4_k", seed: int = 0,
                      device=None) -> dict:
     """A full llama params dict with synthetic weights on `device` (default
-    cuda). kind: "dense" | "q4_k" | "q6_k" for the big matmul weights
-    (embeddings and norms stay dense, as the GGUF loader keeps them)."""
+    cuda). kind: "dense" | "q4_k" | "q5_k" | "q6_k" | "q8_0" for the big
+    matmul weights (embeddings and norms stay dense, as the GGUF loader
+    keeps them)."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     C, F = cfg.hidden_size, cfg.intermediate_size

@@ -10,15 +10,24 @@ TPU-specific transposed or plane-major sidecars):
   q4_k: qs2 (out, in/2) u8 — byte b of 256-col superblock s holds col 256s+b
         in the low nibble and col 256s+128+b in the high nibble; scale / min
         (out, in/32) bf16 in logical group order; w = q*scale - min.
+  q5_k: q4_k's qs2 / scale / min for the low 4 bits, plus qh (out, in/8) u8,
+        one bit per weight: bit b of byte j is the 5th bit of logical col
+        8j+b; w = q5*scale - min with q5 = nibble | bit << 4.
   q6_k: ql (out, in/2) u8 and qh (out, in/4) u8 in ggml's block order (element
         256s+128h+32j+l: low nibble of ql[128s+64h+32(j&1)+l] (high nibble
         for j>=2), bits 2j..2j+1 of qh[64s+32h+l]); scale (out, in/16) bf16;
         w = (q6-32)*scale.
-The bf16 scale products are bit-identical to the JAX packers'.
+  q8_0: q (out, in) int8 and scale (out, in/32) bf16; w = q*scale.
+GGUF types map onto these kinds as the JAX package's `from_gguf` maps them:
+Q4_0/Q4_1 onto q4_k, Q5_0/Q5_1 onto q5_k, and IQ4_NL/IQ4_XS/TQ1_0/TQ2_0
+(and block-32 types of widths that are not a multiple of 256) onto q8_0 by
+exact dequant and int8 requantization per 32 columns. The bf16 scale
+products are bit-identical to the JAX packers'.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Any
 
 import numpy as np
@@ -30,7 +39,7 @@ from ..gguf.constants import GGMLType, QK_K
 
 @dataclass
 class QTensor:
-    kind: str  # "dense" | "q4_k" | "q6_k"
+    kind: str  # "dense" | "q4_k" | "q5_k" | "q6_k" | "q8_0"
     shape: tuple[int, ...]  # logical (out, in)
     data: dict[str, Any] = field(default_factory=dict)
 
@@ -59,25 +68,68 @@ def dense(w, dtype=torch.bfloat16, device="cpu") -> QTensor:
 # packed layouts (built on host from GGUF raw bytes, no dequant round-trip)
 # ---------------------------------------------------------------------------
 
+def _f16(blocks: np.ndarray, at: int) -> np.ndarray:
+    """The fp16 field at byte `at` of each block, as f32."""
+    return blocks[..., at:at + 2].copy().view(np.float16).astype(np.float32)[
+        ..., 0]
+
+
+def _k_scales(blocks: np.ndarray, rows: int, nsb: int):
+    """Q4_K/Q5_K superblocks -> per-32-col (scale, min) f32, logical order."""
+    d, dmin = _f16(blocks, 0), _f16(blocks, 2)
+    sc, mn = nq._unpack_scale_min_k4(blocks[:, :, 4:16].reshape(-1, 12))
+    return ((d.reshape(-1, 1) * sc).reshape(rows, nsb * 8),
+            (dmin.reshape(-1, 1) * mn).reshape(rows, nsb * 8))
+
+
+def _q45_fields(q: np.ndarray, scales: np.ndarray, mins: np.ndarray,
+                shape, device, hi_bits: np.ndarray | None = None) -> QTensor:
+    """Logical-order codes (R, C) (low 4 bits; the 5th in hi_bits, 0/1) and
+    per-32-col scales / mins (w = q*scale - min) -> a q4_k or q5_k QTensor
+    (the port of the JAX `_fields_4bit_planes`)."""
+    rows, cols = shape
+    qs = q.reshape(rows, cols // QK_K, QK_K)
+    qs2 = ((qs[:, :, :128] & 0xF) | ((qs[:, :, 128:] & 0xF) << 4))
+    data = {"qs2": _u8(qs2.reshape(rows, cols // 2), device),
+            "scale": _bf16(scales.reshape(rows, cols // 32), device),
+            "min": _bf16(mins.reshape(rows, cols // 32), device)}
+    if hi_bits is None:
+        return QTensor(kind="q4_k", shape=tuple(shape), data=data)
+    data["qh"] = _u8(np.packbits(hi_bits.reshape(rows, cols).astype(np.uint8),
+                                 axis=1, bitorder="little"), device)
+    return QTensor(kind="q5_k", shape=tuple(shape), data=data)
+
+
+def _kquant_nibbles(qs: np.ndarray, rows: int, nsb: int) -> np.ndarray:
+    """Q4_K/Q5_K qs (R, nsb, 128) -> logical-order nibbles (R, nsb*256):
+    ggml byte l of 64-group k holds cols 64k+l | 64k+32+l."""
+    qs = qs.reshape(rows, nsb, 4, 32)
+    return np.stack([qs & 0xF, qs >> 4], axis=3).reshape(rows, nsb * QK_K)
+
+
 def pack_q4_k(raw: np.ndarray, shape: tuple[int, int],
               device="cpu") -> QTensor:
     rows, cols = shape
     nsb = cols // QK_K
     blocks = np.ascontiguousarray(raw).reshape(rows, nsb, 144)
-    d = blocks[:, :, 0:2].copy().view(np.float16).astype(np.float32)[..., 0]
-    dmin = blocks[:, :, 2:4].copy().view(np.float16).astype(np.float32)[..., 0]
-    sc, mn = nq._unpack_scale_min_k4(blocks[:, :, 4:16].reshape(-1, 12))
-    scales = (d.reshape(-1, 1) * sc).reshape(rows, nsb * 8)
-    mins = (dmin.reshape(-1, 1) * mn).reshape(rows, nsb * 8)
-    qs = blocks[:, :, 16:].reshape(rows, nsb, 4, 32)
-    # logical col order: ggml byte j of 64-group g holds cols 64g+j | 64g+32+j
-    q = np.stack([qs & 0xF, qs >> 4], axis=3).reshape(rows, nsb, QK_K)
-    qs2 = (q[:, :, :128] | (q[:, :, 128:] << 4)).reshape(rows, cols // 2)
-    return QTensor(kind="q4_k", shape=tuple(shape), data={
-        "qs2": _u8(qs2, device),
-        "scale": _bf16(scales, device),
-        "min": _bf16(mins, device),
-    })
+    scales, mins = _k_scales(blocks, rows, nsb)
+    return _q45_fields(_kquant_nibbles(blocks[:, :, 16:], rows, nsb), scales,
+                       mins, shape, device)
+
+
+def pack_q5_k(raw: np.ndarray, shape: tuple[int, int],
+              device="cpu") -> QTensor:
+    """Q5_K (176-byte superblocks: d, dmin, 12 scale bytes, qh[32],
+    qs[128]); qh byte l bit b is the 5th bit of col 32b+l of the superblock
+    (dequantize_row_q5_K, ggml/src/ggml-quants.c)."""
+    rows, cols = shape
+    nsb = cols // QK_K
+    blocks = np.ascontiguousarray(raw).reshape(rows, nsb, 176)
+    scales, mins = _k_scales(blocks, rows, nsb)
+    qh = blocks[:, :, 16:48].reshape(rows, nsb, 1, 32)
+    bits = (qh >> np.arange(8, dtype=np.uint8)[None, None, :, None]) & 1
+    return _q45_fields(_kquant_nibbles(blocks[:, :, 48:], rows, nsb), scales,
+                       mins, shape, device, hi_bits=bits)
 
 
 def pack_q6_k(raw: np.ndarray, shape: tuple[int, int],
@@ -88,7 +140,7 @@ def pack_q6_k(raw: np.ndarray, shape: tuple[int, int],
     ql = blocks[:, :, :128].reshape(rows, nsb * 128)
     qh = blocks[:, :, 128:192].reshape(rows, nsb * 64)
     sc8 = blocks[:, :, 192:208].view(np.int8).astype(np.float32)
-    d = blocks[:, :, 208:210].copy().view(np.float16).astype(np.float32)[..., 0]
+    d = _f16(blocks, 208)
     scales = (d[..., None] * sc8).reshape(rows, nsb * 16)  # per 16-col group
     return QTensor(kind="q6_k", shape=tuple(shape), data={
         "ql": _u8(ql, device),
@@ -97,18 +149,101 @@ def pack_q6_k(raw: np.ndarray, shape: tuple[int, int],
     })
 
 
-_PACKERS = {GGMLType.Q4_K: pack_q4_k, GGMLType.Q6_K: pack_q6_k}
+def pack_q8_0(raw: np.ndarray, shape: tuple[int, int],
+              device="cpu") -> QTensor:
+    """Q8_0 (34-byte blocks: fp16 d, 32 int8): int8 codes, d rounded to
+    bf16 as the JAX `pack_q8_0` rounds it."""
+    rows, cols = shape
+    blocks = np.ascontiguousarray(raw).reshape(rows, cols // 32, 34)
+    q = blocks[:, :, 2:].copy().view(np.int8).reshape(rows, cols)
+    return QTensor(kind="q8_0", shape=tuple(shape), data={
+        "q": torch.from_numpy(q).to(device),
+        "scale": _bf16(_f16(blocks, 0), device),
+    })
 
-# Types the JAX package keeps packed but this port does not serve yet, with
-# the kernels that would serve them. Loading one raises instead of silently
-# dequantizing it to a dense weight.
-_UNPORTED = {GGMLType.Q5_K: "K1/K3 (q5_k bodies)", GGMLType.Q8_0: "K12/K13"}
-for _t in (GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q4_0, GGMLType.Q4_1,
-           GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.IQ4_NL, GGMLType.IQ4_XS,
-           GGMLType.IQ3_XXS, GGMLType.IQ3_S, GGMLType.IQ2_XXS,
-           GGMLType.IQ2_XS, GGMLType.IQ2_S, GGMLType.IQ1_S, GGMLType.IQ1_M,
-           GGMLType.TQ1_0, GGMLType.TQ2_0):
-    _UNPORTED[_t] = "K12/K13"
+
+def _block32(raw: np.ndarray, shape, nbytes: int, nhead: int):
+    """Legacy 32-col blocks -> (blocks, logical-order low nibbles (R, C)):
+    qs byte j holds elem j in the low nibble and elem j+16 in the high."""
+    rows, cols = shape
+    blocks = np.ascontiguousarray(raw).reshape(rows, cols // 32, nbytes)
+    qs = blocks[:, :, nhead:]
+    return blocks, np.concatenate([qs & 0xF, qs >> 4], axis=2).reshape(
+        rows, cols)
+
+
+def _block32_hi_bits(blocks: np.ndarray, at: int, shape) -> np.ndarray:
+    """The u32 qh at byte `at` of each Q5_0/Q5_1 block: bit j is the 5th
+    bit of elem j -> (R, C) 0/1 in logical order."""
+    qh = blocks[:, :, at:at + 4].copy().view(np.uint32)[..., 0]
+    return ((qh[..., None] >> np.arange(32, dtype=np.uint32)) & 1).reshape(
+        shape)
+
+
+def pack_q4_0(raw: np.ndarray, shape: tuple[int, int],
+              device="cpu") -> QTensor:
+    """Q4_0 (w = (q-8)d, ggml-common.h:144) as q4_k: scale d, min 8d."""
+    blocks, q = _block32(raw, shape, 18, 2)
+    d = _f16(blocks, 0)
+    return _q45_fields(q, d, 8.0 * d, shape, device)
+
+
+def pack_q4_1(raw: np.ndarray, shape: tuple[int, int],
+              device="cpu") -> QTensor:
+    """Q4_1 (w = q*d + m) as q4_k: scale d, min -m."""
+    blocks, q = _block32(raw, shape, 20, 4)
+    return _q45_fields(q, _f16(blocks, 0), -_f16(blocks, 2), shape, device)
+
+
+def pack_q5_0(raw: np.ndarray, shape: tuple[int, int],
+              device="cpu") -> QTensor:
+    """Q5_0 (w = (q5-16)d) as q5_k: scale d, min 16d."""
+    blocks, q = _block32(raw, shape, 22, 6)
+    d = _f16(blocks, 0)
+    return _q45_fields(q, d, 16.0 * d, shape, device,
+                       hi_bits=_block32_hi_bits(blocks, 2, shape))
+
+
+def pack_q5_1(raw: np.ndarray, shape: tuple[int, int],
+              device="cpu") -> QTensor:
+    """Q5_1 (w = q5*d + m) as q5_k: scale d, min -m."""
+    blocks, q = _block32(raw, shape, 24, 8)
+    return _q45_fields(q, _f16(blocks, 0), -_f16(blocks, 2), shape, device,
+                       hi_bits=_block32_hi_bits(blocks, 4, shape))
+
+
+def pack_q8_expand(raw: np.ndarray, shape: tuple[int, int], device="cpu",
+                   ggml_type: GGMLType = GGMLType.IQ4_NL) -> QTensor:
+    """Exact dequant (gguf/quants.py), then int8 requantization per 32
+    columns with scale amax/127: the q8_0 kind serves IQ4_NL, IQ4_XS, TQ1_0,
+    TQ2_0 and the legacy block-32 types at widths that are not a multiple
+    of 256 (the JAX `pack_q8_expand`, in the same f32 numpy arithmetic)."""
+    rows, cols = shape
+    w = nq.dequantize(raw.reshape(rows, -1), ggml_type).reshape(rows, cols)
+    g = w.reshape(rows, cols // 32, 32).astype(np.float32)
+    scale = np.abs(g).max(axis=2) / 127.0
+    inv = np.where(scale > 0, 1.0 / np.maximum(scale, 1e-30), 0.0)
+    q = np.clip(np.round(g * inv[..., None]), -127, 127).astype(np.int8)
+    return QTensor(kind="q8_0", shape=tuple(shape), data={
+        "q": torch.from_numpy(q.reshape(rows, cols)).to(device),
+        "scale": _bf16(scale, device),
+    })
+
+
+_PACKERS = {GGMLType.Q8_0: pack_q8_0, GGMLType.Q4_K: pack_q4_k,
+            GGMLType.Q5_K: pack_q5_k, GGMLType.Q6_K: pack_q6_k,
+            GGMLType.Q4_0: pack_q4_0, GGMLType.Q4_1: pack_q4_1,
+            GGMLType.Q5_0: pack_q5_0, GGMLType.Q5_1: pack_q5_1}
+for _t in (GGMLType.IQ4_NL, GGMLType.IQ4_XS, GGMLType.TQ1_0, GGMLType.TQ2_0):
+    _PACKERS[_t] = partial(pack_q8_expand, ggml_type=_t)
+
+# Types the JAX package keeps packed in kinds this port does not serve yet
+# (q2_k, q3_k and the native IQ1-3 kinds), with the kernels that would
+# serve them. Loading one raises instead of silently dequantizing it.
+_UNPORTED = {_t: "K12/K13" for _t in (
+    GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.IQ3_XXS, GGMLType.IQ3_S,
+    GGMLType.IQ2_XXS, GGMLType.IQ2_XS, GGMLType.IQ2_S, GGMLType.IQ1_S,
+    GGMLType.IQ1_M)}
 _32COL_TYPES = (GGMLType.Q8_0, GGMLType.IQ4_NL, GGMLType.IQ4_XS,
                 GGMLType.IQ3_XXS, GGMLType.IQ3_S, GGMLType.IQ2_XXS,
                 GGMLType.IQ2_XS, GGMLType.IQ2_S, GGMLType.IQ1_S,
@@ -119,20 +254,23 @@ _BLOCK32_TYPES = (GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1)
 def from_gguf(raw: np.ndarray, ggml_type: GGMLType, shape: tuple[int, ...],
               packed: bool = True, dtype=torch.bfloat16,
               device="cpu") -> QTensor:
-    """Build a QTensor from GGUF raw bytes. 2-D q4_k/q6_k weights keep their
-    packed layout; the types the JAX package also dequantizes (f32/f16/bf16,
-    1-D tensors, packed=False) become dense; the other packed types raise."""
+    """Build a QTensor from GGUF raw bytes, as the JAX `from_gguf` does:
+    2-D weights of a packed type keep a packed layout (block-32 types of
+    widths that are not a multiple of 256 through `pack_q8_expand`); f32 /
+    f16 / bf16, 1-D tensors and packed=False become dense; the kinds not
+    ported yet raise."""
     if packed and len(shape) == 2:
         cols = shape[1]
         need = 32 if ggml_type in _32COL_TYPES else QK_K
-        if ggml_type in _PACKERS and cols % QK_K == 0:
-            return _PACKERS[ggml_type](raw, shape, device)
-        if ggml_type in _UNPORTED and (
-                cols % need == 0
-                or (ggml_type in _BLOCK32_TYPES and cols % 32 == 0)):
-            raise NotImplementedError(
-                f"{ggml_type.name} weights are served packed by kernel "
-                f"{_UNPORTED[ggml_type]}, which is not ported yet")
+        if cols % need == 0:
+            if ggml_type in _UNPORTED:
+                raise NotImplementedError(
+                    f"{ggml_type.name} weights are served packed by kernel "
+                    f"{_UNPORTED[ggml_type]}, which is not ported yet")
+            if ggml_type in _PACKERS:
+                return _PACKERS[ggml_type](raw, shape, device)
+        elif ggml_type in _BLOCK32_TYPES and cols % 32 == 0:
+            return pack_q8_expand(raw, shape, device, ggml_type)
     x = nq.dequantize(raw.reshape(-1, raw.shape[-1]), ggml_type).reshape(shape)
     return dense(x, dtype=dtype, device=device)
 
@@ -145,6 +283,13 @@ def q4k_values(qs2: torch.Tensor) -> torch.Tensor:
     """(R, in/2) plane-split bytes -> (R, in) logical-order nibbles (u8)."""
     qs = qs2.reshape(qs2.shape[0], -1, 128)
     return torch.cat([qs & 0xF, qs >> 4], dim=2).reshape(qs2.shape[0], -1)
+
+
+def q5k_values(qs2: torch.Tensor, qh: torch.Tensor) -> torch.Tensor:
+    """q5_k fields -> (R, in) logical-order 5-bit values 0..31 (u8)."""
+    bits = (qh[:, :, None] >> torch.arange(8, dtype=torch.uint8,
+                                           device=qh.device)) & 1
+    return q4k_values(qs2) | (bits.reshape(qh.shape[0], -1) << 4)
 
 
 def q6k_values(ql: torch.Tensor, qh: torch.Tensor) -> torch.Tensor:
@@ -166,8 +311,10 @@ def dequant(qt: QTensor, dtype=torch.bfloat16) -> torch.Tensor:
     rows, cols = qt.shape
     if qt.kind == "dense":
         return qt.data["w"].to(dtype)
-    if qt.kind == "q4_k":
-        q = q4k_values(qt.data["qs2"]).float().reshape(rows, -1, 32)
+    if qt.kind in ("q4_k", "q5_k"):
+        q = (q4k_values(qt.data["qs2"]) if qt.kind == "q4_k"
+             else q5k_values(qt.data["qs2"], qt.data["qh"]))
+        q = q.float().reshape(rows, -1, 32)
         s = qt.data["scale"].float()[..., None]
         m = qt.data["min"].float()[..., None]
         return (q * s - m).reshape(rows, cols).to(dtype)
@@ -175,6 +322,10 @@ def dequant(qt: QTensor, dtype=torch.bfloat16) -> torch.Tensor:
         q = (q6k_values(qt.data["ql"], qt.data["qh"]) - 32).float()
         s = qt.data["scale"].float()[..., None]
         return (q.reshape(rows, -1, 16) * s).reshape(rows, cols).to(dtype)
+    if qt.kind == "q8_0":
+        q = qt.data["q"].float().reshape(rows, -1, 32)
+        s = qt.data["scale"].float()[..., None]
+        return (q * s).reshape(rows, cols).to(dtype)
     raise ValueError(f"unknown QTensor kind {qt.kind}")
 
 

@@ -1,14 +1,23 @@
-"""Fused dequant+matmul for packed q4_k / q6_k QTensors.
+"""Fused dequant+matmul for packed q4_k / q5_k / q6_k / q8_0 QTensors.
 
-Four hand-written CUDA kernels (csrc/), each with its plain PyTorch version
+Hand-written CUDA kernels (csrc/), each with its plain PyTorch version
 beside it. A wrapper takes the plain version only for a CPU tensor; for a
 CUDA tensor it launches the kernel or raises.
 
-  K1  q4k_matvec    T=1 q4_k     (csrc/q4k_matvec.cu; JAX `_packed_matvec_q4k`)
-  K7  q4k_matvec_t  2<=T<=8 q4_k (csrc/q4k_matvec.cu; the same JAX function,
-                                  `_i8_t` bodies: batched decode)
-  K2  q6k_matvec    T=1 q6_k     (csrc/q6k_matvec.cu; JAX `_packed_matvec`)
-  K3  kq_matmul     T>8          (csrc/kq_matmul.cu; JAX `_packed_matmul_2d`)
+  K1  q4k_matvec    T=1 q4_k/q5_k     (csrc/q4k_matvec.cu; JAX
+                                       `_packed_matvec_q4k`)
+  K7  q4k_matvec_t  2<=T<=8 q4_k/q5_k (csrc/q4k_matvec.cu; the same JAX
+                                       function, `_i8_t` bodies: batched
+                                       decode)
+  K2  q6k_matvec    T=1 q6_k          (csrc/q6k_matvec.cu; JAX
+      q8_0_matvec   T=1 q8_0           `_packed_matvec`; csrc/q8_0_matvec.cu)
+  K3  kq_matmul     the other T       (csrc/kq_matmul.cu; JAX
+                                       `_packed_matmul_2d`)
+
+Launch counters (ops/_build.launches): "K1", "K7", "K2" and "K3" count the
+q4_k / q6_k bodies they have counted since they were ported; every other
+kind's body has a counter of its own, "<id>.<kind>" ("K1.q5_k", "K7.q5_k",
+"K2.q8_0", "K3.q5_k", "K3.q8_0").
 
 `matmul_packed(x, qt)` returns None when the JAX dispatch would decline the
 shape (out_f or in_f not a multiple of 256, or an in_f too wide for any
@@ -19,15 +28,31 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .linear import QTensor, q4k_values, q6k_values
+from .linear import QTensor, q4k_values, q5k_values, q6k_values
 
 VMEM_BUDGET = 13 * 1024 * 1024  # the JAX 2-D kernel's tile budget (see below)
 
 _SIG_MATVEC = [_build.P] * 8 + [_build.I] * 3 + [_build.P]
-_SIG_MATVEC_T = [_build.P] * 8 + [_build.I] * 4 + [_build.P]
+_SIG_MATVEC_T = [_build.P] * 9 + [_build.I] * 4 + [_build.P]
 _SIG_PREP = [_build.P] * 4 + [_build.I] * 2 + [_build.P]
 _FIELD_DTYPES = {"qs2": torch.uint8, "ql": torch.uint8, "qh": torch.uint8,
-                 "scale": torch.bfloat16, "min": torch.bfloat16}
+                 "q": torch.int8, "scale": torch.bfloat16,
+                 "min": torch.bfloat16}
+# kind -> (kq_matmul.cu KIND, the packed weight field, the affine term's
+# group width; 0: no affine term)
+_K3_KINDS = {"q4_k": (0, "qs2", 32), "q6_k": (1, "ql", 16),
+             "q5_k": (2, "qs2", 32), "q8_0": (3, "q", 0)}
+
+
+def _ptr(t: torch.Tensor | None):
+    return t.data_ptr() if t is not None else None
+
+
+def _count(kid: str, qt: QTensor) -> None:
+    """One launch of kernel `kid`'s body for qt's kind (see the module
+    docstring for the counter names)."""
+    _build.launches[kid if qt.kind in ("q4_k", "q6_k")
+                    else f"{kid}.{qt.kind}"] += 1
 
 
 def _check_operands(x: torch.Tensor, qt: QTensor, what: str) -> None:
@@ -58,22 +83,29 @@ def act_prep_plain(x: torch.Tensor, group: int, quant: bool):
     if not quant:
         return None, None, xsum
     a = xf.abs().amax(dim=1).clamp_min(1e-20)
-    xq = torch.round(xf * (127.0 / a)[:, None]).to(torch.int8).reshape(-1)
-    return xq, a / 127.0, xsum
+    # divided by a tensor: IEEE division, as the kernels' prep divides (a
+    # Python number would divide as a product with its reciprocal)
+    c127 = a.new_tensor(127.0)
+    xq = torch.round(xf * (c127 / a)[:, None]).to(torch.int8).reshape(-1)
+    return xq, a / c127, xsum
 
 
 # ---------------------------------------------------------------------------
-# K1: q4_k T=1 matvec; K7: q4_k 2<=T<=8 batched matvec (one kernel template)
+# K1: q4_k/q5_k T=1 matvec; K7: q4_k/q5_k 2<=T<=8 batched matvec (one kernel
+# template)
 # ---------------------------------------------------------------------------
 
 def q4k_matvec_t_plain(x: torch.Tensor, qt: QTensor, i8: bool) -> torch.Tensor:
-    """x (T, in_f) bf16 -> (T, out_f) bf16, row by row. i8: int8 activations
-    per token and 32-col group (`_q4k_decode_kernel_i8(_t)`); else the exact
-    f32 dot with bf16 x. Each row is computed alone, so row t equals the
+    """x (T, in_f) bf16 -> (T, out_f) bf16, row by row, for a q4_k or q5_k
+    QTensor (codes 0..15 or 0..31). i8: int8 activations per token and
+    32-col group (`_q4k_decode_kernel_i8(_t)`, `_q5k_decode_kernel_i8(_t)`);
+    else the exact f32 dot with bf16 x (`_q4k_decode_kernel`,
+    `_q5k_decode_kernel`). Each row is computed alone, so row t equals the
     T=1 result for x[t]."""
     out_f, in_f = qt.shape
     ng = in_f // 32
-    q = q4k_values(qt.data["qs2"]).reshape(out_f, ng, 32)
+    q = (q4k_values(qt.data["qs2"]) if qt.kind == "q4_k"
+         else q5k_values(qt.data["qs2"], qt.data["qh"])).reshape(out_f, ng, 32)
     s = qt.data["scale"].float()
     m = qt.data["min"].float()
     rows = []
@@ -112,30 +144,32 @@ def _q4k_launch(x2: torch.Tensor, qt: QTensor, i8: bool, what: str):
                                       T * in_f, int(i8), st), f"{what} prep")
     d = qt.data
     _build.check(lib, lib.k7_q4k_matvec_t(
-        d["qs2"].data_ptr(), d["scale"].data_ptr(), d["min"].data_ptr(),
+        d["qs2"].data_ptr(), _ptr(d.get("qh")),  # qh: the q5_k bit plane
+        d["scale"].data_ptr(), d["min"].data_ptr(),
         x2.data_ptr(), xq.data_ptr(), sx.data_ptr(), xsum.data_ptr(),
         y.data_ptr(), T, out_f, in_f, int(i8), st), what)
     return y
 
 
 def q4k_matvec(x: torch.Tensor, qt: QTensor, i8: bool) -> torch.Tensor:
-    """K1 wrapper. x (in_f,) bf16 contiguous -> (1, out_f) bf16."""
+    """K1 wrapper (q4_k or q5_k). x (in_f,) bf16 contiguous -> (1, out_f)
+    bf16."""
     if not x.is_cuda:
         return q4k_matvec_plain(x, qt, i8)
     y = _q4k_launch(x[None], qt, i8, "K1")
-    _build.launches["K1"] += 1
+    _count("K1", qt)
     return y
 
 
 def q4k_matvec_t(x: torch.Tensor, qt: QTensor, i8: bool) -> torch.Tensor:
-    """K7 wrapper. x (T, in_f) bf16 contiguous, 2 <= T <= 8 -> (T, out_f)
-    bf16; row t equals K1 on x[t] bit for bit."""
+    """K7 wrapper (q4_k or q5_k). x (T, in_f) bf16 contiguous, 2 <= T <= 8
+    -> (T, out_f) bf16; row t equals K1 on x[t] bit for bit."""
     if not x.is_cuda:
         return q4k_matvec_t_plain(x, qt, i8)
     if x.dim() != 2 or not 2 <= x.shape[0] <= 8:
         raise ValueError("K7 takes x of shape (T, in_f) with 2 <= T <= 8")
     y = _q4k_launch(x, qt, i8, "K7")
-    _build.launches["K7"] += 1
+    _count("K7", qt)
     return y
 
 
@@ -189,7 +223,65 @@ def q6k_matvec(x: torch.Tensor, qt: QTensor, i8: bool) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# K3: q4_k / q6_k tiled matmul (prefill)
+# K2.q8_0: q8_0 T=1 matvec
+# ---------------------------------------------------------------------------
+
+def _lane_order_sum(v: torch.Tensor) -> torch.Tensor:
+    """(R, G) f32 -> (R,) f32 summed in K2.q8_0's order: lane l adds groups
+    l, l+32, ... in turn from 0, then the 32 lane sums pairwise over
+    offsets 16, 8, 4, 2, 1 (csrc/q8_0_matvec.cu)."""
+    R, G = v.shape
+    v = torch.nn.functional.pad(v, (0, -G % 32)).reshape(R, -1, 32)
+    acc = torch.zeros((R, 32), dtype=v.dtype, device=v.device)
+    for i in range(v.shape[1]):
+        acc = acc + v[:, i]
+    while acc.shape[1] > 1:
+        h = acc.shape[1] // 2
+        acc = acc[:, :h] + acc[:, h:]
+    return acc[:, 0]
+
+
+def q8_0_matvec_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """x (in_f,) bf16 -> (1, out_f) bf16: int8 activations per 32-col group
+    (`_q8_0_row_kernel_i8`), exact int32 group dots P, and y = sum_g
+    (P_g * sx_g) * s_g in the kernel's fixed order, so K2.q8_0 matches this
+    bit for bit."""
+    out_f, in_f = qt.shape
+    ng = in_f // 32
+    xq, sx, _ = act_prep_plain(x, 32, True)
+    p = (qt.data["q"].int().reshape(out_f, ng, 32)
+         * xq.int().reshape(ng, 32)).sum(dim=2)  # exact int32
+    v = p.float() * sx * qt.data["scale"].float()
+    return _lane_order_sum(v).to(torch.bfloat16).reshape(1, out_f)
+
+
+def q8_0_matvec(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """K2.q8_0 wrapper. x (in_f,) bf16 contiguous -> (1, out_f) bf16."""
+    if not x.is_cuda:
+        return q8_0_matvec_plain(x, qt)
+    out_f, in_f = qt.shape
+    _check_operands(x[None], qt, "K2.q8_0")
+    lib = _build.load("q8_0_matvec", {
+        "k2_q8_0_prep": [_build.P] * 4 + [_build.I, _build.P],
+        "k2_q8_0_matvec": [_build.P] * 5 + [_build.I] * 2 + [_build.P]})
+    dev = x.device
+    xq = torch.empty(in_f, dtype=torch.int8, device=dev)
+    sx = torch.empty(in_f // 32, dtype=torch.float32, device=dev)
+    xsum = torch.empty(in_f // 32, dtype=torch.bfloat16, device=dev)
+    y = torch.empty((1, out_f), dtype=torch.bfloat16, device=dev)
+    st = _build.stream_ptr()
+    _build.check(lib, lib.k2_q8_0_prep(x.data_ptr(), xq.data_ptr(),
+                                       sx.data_ptr(), xsum.data_ptr(), in_f,
+                                       st), "K2.q8_0 prep")
+    _build.check(lib, lib.k2_q8_0_matvec(
+        qt.data["q"].data_ptr(), qt.data["scale"].data_ptr(), xq.data_ptr(),
+        sx.data_ptr(), y.data_ptr(), out_f, in_f, st), "K2.q8_0")
+    _count("K2", qt)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# K3: q4_k / q5_k / q6_k / q8_0 tiled matmul (prefill)
 # ---------------------------------------------------------------------------
 
 def _group_sums(x: torch.Tensor, group: int) -> torch.Tensor:
@@ -200,13 +292,16 @@ def _group_sums(x: torch.Tensor, group: int) -> torch.Tensor:
 
 def kq_dequant_bf16(qt: QTensor) -> torch.Tensor:
     """The weight K3 feeds its product: bf16(q * scale), q the raw code
-    (q4_k nibble 0..15, q6_k value 0..63), as `_q4k_kernel`/`_q6k_kernel`."""
+    (q4_k nibble 0..15, q5_k value 0..31, q6_k value 0..63, q8_0 int8), as
+    `_q4k_kernel` / `_q5k_kernel` / `_q6k_kernel` / `_q8_0_kernel`."""
     out_f, in_f = qt.shape
-    if qt.kind == "q4_k":
-        q = q4k_values(qt.data["qs2"]).float().reshape(out_f, -1, 32)
+    d = qt.data
+    if qt.kind == "q6_k":
+        q = q6k_values(d["ql"], d["qh"]).float().reshape(out_f, -1, 16)
     else:
-        q = q6k_values(qt.data["ql"], qt.data["qh"]).float().reshape(
-            out_f, -1, 16)
+        q = (q4k_values(d["qs2"]) if qt.kind == "q4_k"
+             else q5k_values(d["qs2"], d["qh"]) if qt.kind == "q5_k"
+             else d["q"]).float().reshape(out_f, -1, 32)
     w = q * qt.data["scale"].float()[..., None]
     return w.reshape(out_f, in_f).to(torch.bfloat16)
 
@@ -215,10 +310,10 @@ def kq_matmul_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """x (T, in_f) bf16 -> (T, out_f) bf16; f32 accumulation."""
     w = kq_dequant_bf16(qt).float()
     acc = torch.matmul(x.float(), w.t())
-    if qt.kind == "q4_k":
+    if qt.kind in ("q4_k", "q5_k"):
         acc = acc - torch.matmul(_group_sums(x, 32).float(),
                                  qt.data["min"].float().t())
-    else:
+    elif qt.kind == "q6_k":
         acc = acc - 32.0 * torch.matmul(_group_sums(x, 16).float(),
                                         qt.data["scale"].float().t())
     return acc.to(torch.bfloat16)
@@ -235,44 +330,53 @@ def kq_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
         "k3_kq_matmul": [_build.I] + [_build.P] * 7 + [_build.I] * 3
         + [_build.P]})
     d = qt.data
-    if qt.kind == "q4_k":
-        kind, w0, w1, mn = 0, d["qs2"], None, d["min"]
-        xs = _group_sums(x, 32)
-    else:
-        kind, w0, w1, mn = 1, d["ql"], d["qh"], None
-        xs = _group_sums(x, 16)
+    kind, w0, group = _K3_KINDS[qt.kind]
+    xs = _group_sums(x, group) if group else None
     y = torch.empty((T, out_f), dtype=torch.bfloat16, device=x.device)
     _build.check(lib, lib.k3_kq_matmul(
-        kind, x.data_ptr(), xs.data_ptr(), w0.data_ptr(),
-        w1.data_ptr() if w1 is not None else None, d["scale"].data_ptr(),
-        mn.data_ptr() if mn is not None else None, y.data_ptr(),
-        T, out_f, in_f, _build.stream_ptr()), "K3")
-    _build.launches["K3"] += 1
+        kind, x.data_ptr(), _ptr(xs), d[w0].data_ptr(), _ptr(d.get("qh")),
+        d["scale"].data_ptr(), _ptr(d.get("min")), y.data_ptr(), T, out_f,
+        in_f, _build.stream_ptr()), "K3")
+    _count("K3", qt)
     return y
 
 
 # ---------------------------------------------------------------------------
 # dispatch (mirrors quant_matmul.py:2041-2177 of the JAX package for
-# q4_k/q6_k at its default settings)
+# q4_k/q5_k/q6_k/q8_0 at its default settings)
 # ---------------------------------------------------------------------------
 
 def matmul_packed(x: torch.Tensor, qt: QTensor) -> torch.Tensor | None:
     """Route x (..., in_f) through the kernel the JAX package would pick, or
-    return None where it declines. The variants follow JAX: int8
-    activations for in_f >= 512 and bf16 below (K1/K2/K7); q4_k at
-    2 <= T <= 8 (int8, while T * (in_f/64) * (in_f/2) <= 4 Mi) or T <= 4
-    (bf16) takes K7; the 2-D kernel (K3) the rest, and q6_k at any T > 1. The TPU-only VMEM row-tile
-    checks that can also send a T=1 call to the 2-D kernel are not mirrored."""
+    return None where it declines (out_f or in_f not a multiple of 256, or
+    an in_f too wide for any 2-D tile).
+
+    T=1: q4_k/q5_k take K1 (int8 activations for in_f >= 512:
+    `_q4k/_q5k_decode_kernel_i8`; bf16 below: `_q4k/_q5k_decode_kernel`),
+    q6_k takes K2 (`_q6k_row_kernel_i8` / `_q6k_row_kernel`, the same
+    in_f rule), q8_0 takes K2.q8_0 (`_q8_0_row_kernel_i8`, every in_f).
+    q4_k/q5_k at 2 <= T <= 8 take K7 (int8, while T * (in_f/64) * (in_f/2)
+    <= 4 Mi and in_f >= 512: `_q4k/_q5k_decode_kernel_i8_t`) or at T <= 4
+    the bf16 variant. Every other shape goes to K3 (`_q4k_kernel`,
+    `_q5k_kernel`, `_q6k_kernel`, `_q8_0_kernel`); q6_k and q8_0 thus take
+    K3 at every T > 1, the batched decode step included. The TPU-only VMEM
+    row-tile checks that can also send a T=1 call to the 2-D kernel are not
+    mirrored."""
     out_f, in_f = qt.shape
     if out_f % 256 or in_f % 256:
         return None
     lead = x.shape[:-1]
     x2 = x.reshape(-1, in_f).to(torch.bfloat16).contiguous()
     T = x2.shape[0]
+    q45 = qt.kind in ("q4_k", "q5_k")
     if T == 1:
-        fn = q4k_matvec if qt.kind == "q4_k" else q6k_matvec
-        return fn(x2[0], qt, i8=in_f >= 512).reshape(*lead, out_f)
-    if qt.kind == "q4_k":
+        if qt.kind == "q8_0":
+            y = q8_0_matvec(x2[0], qt)
+        else:
+            fn = q4k_matvec if q45 else q6k_matvec
+            y = fn(x2[0], qt, i8=in_f >= 512)
+        return y.reshape(*lead, out_f)
+    if q45:
         i8 = T * (in_f // 64) * (in_f // 2) <= 4 * 1024 * 1024 and in_f >= 512
         if T <= (8 if i8 else 4):
             return q4k_matvec_t(x2, qt, i8).reshape(*lead, out_f)

@@ -34,7 +34,8 @@ FIX = os.path.join(os.path.dirname(__file__), "fixtures", "refgguf")
 MANIFEST = json.load(open(os.path.join(FIX, "manifest.json")))
 TOKENS = np.asarray([MANIFEST["tokens"]], dtype=np.int64)
 # the reference-runtime tolerances of tests/test_ref_gguf_fixtures.py
-TOL = {"f16": 2e-3, "q4_k_m": 4e-2}
+TOL = {"f16": 2e-3, "q4_0": 4e-2, "q5_1": 4e-2, "q8_0": 4e-2,
+       "q4_k_m": 4e-2, "q6_k": 4e-2, "iq4_nl": 4e-2, "tq2_0": 4e-2}
 
 SMALL = ModelConfig(arch="llama", name="small", vocab_size=512,
                     hidden_size=512, n_layers=2, n_heads=8, n_kv_heads=2,
@@ -107,10 +108,11 @@ def test_synthetic_forward_matches_jax():
         assert np.abs(g - w).max() <= 1e-2 * np.abs(w).max()
 
 
-@pytest.mark.parametrize("fmt", ["f16", "q4_k_m"])
+@pytest.mark.parametrize("fmt", list(MANIFEST["files"]))
 def test_fixture_logits_match_goldens_and_jax(fmt):
-    """f16 loads dense in f32 (as the reference-runtime test does); q4_k_m
-    loads packed, the port's serving layout, through K3/K2 plain versions
+    """f16 loads dense in f32 (as the reference-runtime test does); the
+    quantized files load packed, the port's serving layout (q4_k, q5_k,
+    q6_k, q8_0 as the JAX loader packs them), through the K3 plain versions
     and the dequant path."""
     path = os.path.join(FIX, MANIFEST["files"][fmt])
     packed = fmt != "f16"
@@ -132,11 +134,47 @@ def test_fixture_logits_match_goldens_and_jax(fmt):
     want, _ = jfwd(jm.params, jnp.asarray(TOKENS, jnp.int32),
                    jnp.asarray(pos.numpy(), jnp.int32), jc)
     want = np.asarray(want)[0]
-    # f16: f32 throughout, only summation order differs; q4_k_m: bf16
+    # f16: f32 throughout, only summation order differs; quantized: bf16
     # matmul outputs on both sides, one rounding step apart at most per
     # projection
     tol = 1e-4 if fmt == "f16" else 1e-2
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+def test_synthetic_q8_0_forward_matches_jax():
+    """JAX synthetic q8_0 params through params_from_jax: the 16-token
+    prefill through K3.q8_0, the 3 decode steps through K2.q8_0 (T=1).
+    Every projection agrees with JAX's to a bf16 step (tests/
+    test_torch_quant_matmul.py), but this model amplifies such steps: the
+    JAX maker's q8_0 weights have std 0.002 * 127 / 3 ~ 0.085 (6x its q4_k
+    maker's), a gain near 2 per projection at hidden 512. The test
+    asserts that premise (the jitted JAX forward itself moves by more than
+    1e-2 of its largest logit when 1% of its bf16 embedding entries move by
+    one step) and holds the port at 4e-2, the reference fixtures'
+    tolerance."""
+    jcfg = _jax_cfg(SMALL)
+    jparams = j_synth(jcfg, kind="q8_0", seed=6)
+    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
+    assert tparams["layers"][0]["wqkv"].kind == "q8_0"
+
+    def jax_steps(params):
+        return _run_steps(_jax_fwd(params, jcfg), lambda: j_init_cache(
+            2, 1, 64, 2, 64, dtype=jnp.bfloat16), 16, 3, seed=10)
+
+    want = jax_steps(jparams)
+    got = _run_steps(_torch_fwd(tparams, SMALL), lambda: t_init_cache(
+        2, 1, 64, 2, 64), 16, 3, seed=10)
+    for g, w in zip(got, want):
+        assert np.isfinite(g).all()
+        assert np.abs(g - w).max() <= 4e-2 * np.abs(w).max()
+    emb = jparams["tok_embd"]
+    bits = np.asarray(emb.data["w"]).view(np.uint16).copy()
+    bits[np.random.default_rng(0).random(bits.shape) < 0.01] += 1
+    moved = dict(jparams, tok_embd=dataclasses.replace(
+        emb, data={"w": jnp.asarray(bits.view(jnp.bfloat16))}))
+    spread = max(np.abs(m - w).max() / np.abs(w).max()
+                 for m, w in zip(jax_steps(moved), want))
+    assert spread > 1e-2
 
 
 def test_norms_match_jax():

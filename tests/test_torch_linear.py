@@ -1,5 +1,6 @@
-"""The port's q4_k / q6_k packing and dequant against the JAX package's:
-the same GGUF bytes must dequantize to the same bits."""
+"""The port's packing and dequant (q4_k, q5_k, q6_k, q8_0 and the GGUF
+types mapped onto them) against the JAX package's: the same GGUF bytes must
+pack into the same kind and dequantize to the same bits."""
 import json
 import os
 
@@ -19,6 +20,7 @@ from koboldcpp_tpu_torch.ops import linear as tlinear
 torch.set_num_threads(1)
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures", "refgguf")
+MANIFEST = json.load(open(os.path.join(FIX, "manifest.json")))
 
 
 def _both(raw, t, shape):
@@ -55,7 +57,30 @@ def test_dequant_matches_jax_on_fixture(name, raw, t, shape):
     _assert_same_dequant(*_both(raw, t, shape))
 
 
-@pytest.mark.parametrize("t", [GGMLType.Q4_K, GGMLType.Q6_K],
+@pytest.mark.parametrize("fmt", list(MANIFEST["files"]))
+def test_dequant_matches_jax_on_every_fixture(fmt):
+    """Every 2-D tensor of each reference fixture packs into the JAX kind
+    (Q4_0 -> q4_k, Q5_1 -> q5_k, Q8_0 / IQ4_NL / TQ2_0 -> q8_0, ...) and
+    dequantizes to the same bits."""
+    kinds = set()
+    with GGUFReader(os.path.join(FIX, MANIFEST["files"][fmt])) as r:
+        for n, i in r.tensors.items():
+            if len(i.shape) == 2:
+                jq, tq = _both(r.tensor_raw(n), i.ggml_type, tuple(i.shape))
+                _assert_same_dequant(jq, tq)
+                kinds.add(tq.kind)
+    assert kinds == {"f16": {"dense"}, "q4_0": {"q4_k", "q6_k"},
+                     "q5_1": {"q5_k", "q6_k"}, "q8_0": {"q8_0"},
+                     "q4_k_m": {"q4_k", "q6_k"}, "q6_k": {"q6_k"},
+                     "iq4_nl": {"q8_0", "q6_k"},
+                     "tq2_0": {"q8_0", "q4_k", "q6_k"}}[fmt]
+
+
+@pytest.mark.parametrize("t", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q5_K,
+                               GGMLType.Q8_0, GGMLType.Q4_0, GGMLType.Q4_1,
+                               GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.IQ4_NL,
+                               GGMLType.IQ4_XS, GGMLType.TQ1_0,
+                               GGMLType.TQ2_0],
                          ids=lambda t: t.name)
 @pytest.mark.parametrize("in_f", [256, 512, 1024])
 def test_dequant_matches_jax_on_quantized(t, in_f):
@@ -75,12 +100,69 @@ def test_dequant_matches_jax_on_quantized(t, in_f):
             np.asarray(jq.data["scale_hi"].astype(jnp.float32)))
 
 
+@pytest.mark.parametrize("t", [GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0,
+                               GGMLType.Q5_1], ids=lambda t: t.name)
+def test_odd_width_block32_packs_as_q8_0(t):
+    """A block-32 tensor whose width is a multiple of 32 but not of 256 is
+    served as q8_0 through the int8 expansion, as in JAX, bit for bit."""
+    rng = np.random.default_rng(7)
+    w = (rng.standard_normal((64, 288)) * 0.1).astype(np.float32)
+    jq, tq = _both(quants.quantize(w, t), t, (64, 288))
+    assert tq.kind == "q8_0"
+    _assert_same_dequant(jq, tq)
+    np.testing.assert_array_equal(tq.data["q"].numpy(), np.asarray(jq.data["q"]))
+
+
+def test_q5k_bit_plane_order():
+    """qh bit b of byte j is the 5th bit of logical col 8j+b: flipping one
+    5th bit in the GGUF bytes (qh byte l bit b of superblock s: col
+    256s+32b+l) moves exactly that weight's code by 16."""
+    rng = np.random.default_rng(8)
+    w = (rng.standard_normal((256, 512)) * 0.1).astype(np.float32)
+    raw = quants.quantize(w, GGMLType.Q5_K)
+    row, sb, l, b = 3, 1, 5, 6
+    flip = raw.copy()
+    flip[row, sb * 176 + 16 + l] ^= 1 << b
+
+    def codes(r):
+        qt = tlinear.from_gguf(r, GGMLType.Q5_K, (256, 512))
+        return tlinear.q5k_values(qt.data["qs2"], qt.data["qh"]).int()
+
+    diff = codes(flip) - codes(raw)
+    col = sb * 256 + 32 * b + l
+    assert diff.nonzero().tolist() == [[row, col]]
+    assert abs(int(diff[row, col])) == 16
+
+
+@pytest.mark.parametrize("t", [GGMLType.Q5_K, GGMLType.Q8_0],
+                         ids=lambda t: t.name)
+def test_params_from_jax_converts_q5k_and_q8_0(t):
+    """A JAX-packed q5_k / q8_0 QTensor handed over as numpy (scale_lo /
+    scale_hi and the hb sidecar for q5_k) becomes the port's logical
+    fields, equal to the port's own packing of the same bytes."""
+    from koboldcpp_tpu_torch.models.convert import params_from_jax
+
+    rng = np.random.default_rng(9)
+    w = (rng.standard_normal((256, 512)) * 0.1).astype(np.float32)
+    jq, tq = _both(quants.quantize(w, t), t, (256, 512))
+    got = params_from_jax(jax.tree_util.tree_map(np.asarray, jq))
+    assert got.kind == tq.kind and set(got.data) == set(tq.data)
+    for name, v in tq.data.items():
+        assert torch.equal(got.data[name], v), name
+
+
 def test_unported_packed_kinds_raise():
+    """Only the kinds of K12/K13 (q2_k, q3_k, the native IQ1-3 kinds) still
+    raise; Q5_K and Q8_0 pack (test_dequant_matches_jax_on_quantized)."""
     rng = np.random.default_rng(0)
     w = (rng.standard_normal((256, 256)) * 0.1).astype(np.float32)
-    for t, kernel in ((GGMLType.Q8_0, "K12/K13"), (GGMLType.Q5_K, "q5_k")):
-        with pytest.raises(NotImplementedError, match=kernel):
+    for t in (GGMLType.Q2_K, GGMLType.Q3_K):
+        with pytest.raises(NotImplementedError, match="K12/K13"):
             tlinear.from_gguf(quants.quantize(w, t), t, (256, 256))
+    # 66 bytes per IQ2_XXS superblock: the packer refuses before reading them
+    with pytest.raises(NotImplementedError, match="IQ2_XXS.*K12/K13"):
+        tlinear.from_gguf(np.zeros((256, 66), np.uint8), GGMLType.IQ2_XXS,
+                          (256, 256))
     # a type the JAX package also dequantizes stays dense
     f16 = tlinear.from_gguf(w.astype(np.float16).view(np.uint8), GGMLType.F16,
                             (256, 256))
