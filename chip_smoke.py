@@ -5,8 +5,9 @@
 1. builds every kernel of koboldcpp_tpu_torch/csrc/ (one nvcc per source,
    all at once) and prints the build time and the card's name and power
    limit;
-2. holds each kernel (K1, K2, K7, K3, K4, K5, K8, K6, K9, K10, and the
-   q5_k / q8_0 bodies K1.q5_k, K7.q5_k, K2.q8_0, K3.q5_k, K3.q8_0) against
+2. holds each kernel (K1, K2, K7, K3, K4, K5, K8, K6, K9, K10, the q5_k /
+   q8_0 bodies K1.q5_k, K7.q5_k, K2.q8_0, K3.q5_k, K3.q8_0, and the q2_k /
+   q3_k bodies K12.q2_k, K12.q3_k, K13.q2_k, K13.q3_k) against
    its plain PyTorch version on the card at the TinyLlama-1.1B shapes (and
    the fixtures' widths; K4 also at head_dim 128 and 256), with the max error
    against its stated tolerance and the times of the kernel, the plain
@@ -30,8 +31,8 @@
    get the single-stream Engine's tokens (a step where the two parts must
    be a near-tie of the single-stream logits, and is printed) and the same
    tokens paged as on the slot cache; then 7 greedy + 1 stochastic
-   request; prints the aggregate tokens/s and the device idle share of 32
-   batched steps, and checks that K7, K8, K5 and K3 ran; then over the Q8
+   request; prints the aggregate tokens/s, and checks that K7, K8, K5 and
+   K3 ran; then over the Q8
    pool (`quantkv=1`, K9) and the Q4 pool (`quantkv=2`, K10): 8 concurrent
    greedy requests of 64 new tokens, each getting the tokens it gets alone
    through the same engine;
@@ -39,17 +40,25 @@
    single-stream (checks that K2 ran) and with multiuser=4 (4 concurrent
    requests, each getting the reply it gets alone), each also with
    `--quantkv 1` (K6 single-stream, K9 multiuser);
-6. serves the synthetic 1.1B with q5_k and then q8_0 weights: single-stream
-   (300-token prompt, 64 greedy tokens, fast-forward to the same tokens,
-   near-ties apart; K1.q5_k and K3.q5_k, K2.q8_0 and K3.q8_0) and batched (8 slots, 8 concurrent requests of 32
-   new tokens: K7.q5_k, K3.q8_0), each batched request getting its
-   single-stream tokens (q5_k) or the tokens it gets alone through the
-   batched engine (q8_0);
-7. serves tiny-q8_0, -q5_1, -q4_0, -iq4_nl and -tq2_0 over HTTP, two
-   identical replies each through their kind's body (K2.q8_0, K1.q5_k, K1),
-   tiny-q8_0 and tiny-q5_1 also with multiuser=4; then holds all eight
-   fixtures' logits on the card against the reference runtime's goldens;
-8. prints one {"kernels": [...]} line, then the {"ok": true, ...} line.
+6. serves the synthetic 1.1B with q5_k, q8_0, q2_k and then q3_k weights:
+   single-stream (300-token prompt, 64 greedy tokens, 32 for q2_k / q3_k,
+   fast-forward to the same tokens, near-ties apart; K1.q5_k and K3.q5_k,
+   K2.q8_0 and K3.q8_0, K12 and K13) and batched (8 slots, 8 concurrent
+   requests of 32 new tokens, 16 for q2_k / q3_k: K7.q5_k, K3.q8_0, K13),
+   each batched request getting its single-stream tokens (q5_k) or the
+   tokens it gets alone through the batched engine (the other kinds);
+7. serves tiny-q8_0, -q5_1, -q4_0, -iq4_nl and -tq2_0, and
+   tests/fixtures/portgguf's tiny-q2_k and -q3_k_m, over HTTP, two
+   identical replies each through their kinds' bodies (K2.q8_0, K1.q5_k,
+   K1, K12, K13), tiny-q8_0, tiny-q5_1 and tiny-q2_k also with
+   multiuser=4; then holds the eight reference fixtures' logits on the card
+   against the reference runtime's goldens, and tiny-q2_k's and
+   tiny-q3_k_m's against the JAX package's committed logits;
+8. last, since a profiler session slows every later decode of the
+   process: the device idle share under torch.profiler of the synthetic
+   1.1B q4_k, 64 fast-forwarded single-stream tokens (with that request's
+   tok/s before and after the session) and 32 batched steps of 8 requests;
+9. prints one {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 Any failed check raises, so the script exits nonzero. It exits nonzero,
 printing no result, when no GPU is present.
@@ -77,7 +86,8 @@ from koboldcpp_tpu_torch.engine import batch_engine  # noqa: E402
 from koboldcpp_tpu_torch.models import llama  # noqa: E402
 from koboldcpp_tpu_torch.models.loader import load_model  # noqa: E402
 from koboldcpp_tpu_torch.models.synthetic import (  # noqa: E402
-    TINYLLAMA_1_1B, rand_q4k, rand_q5k, rand_q6k, rand_q8_0, synthetic_model)
+    TINYLLAMA_1_1B, rand_q2k, rand_q3k, rand_q4k, rand_q5k, rand_q6k,
+    rand_q8_0, synthetic_model)
 from koboldcpp_tpu_torch.kv import paged  # noqa: E402
 from koboldcpp_tpu_torch.kv.cache import _dequant, _q8, init_cache  # noqa: E402
 from koboldcpp_tpu_torch.ops import _build, flash_decode  # noqa: E402
@@ -91,6 +101,7 @@ DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
 FIX = os.path.join(ROOT, "tests", "fixtures", "refgguf")
+PORT_FIX = os.path.join(ROOT, "tests", "fixtures", "portgguf")
 
 KERNELS = {
     "K1": ("q4k_matvec", "koboldcpp_tpu_torch/csrc/q4k_matvec.cu",
@@ -127,6 +138,18 @@ KERNELS = {
                 "koboldcpp_tpu/ops/quant_matmul.py:638"),
     "K3.q8_0": ("kq_matmul q8_0", "koboldcpp_tpu_torch/csrc/kq_matmul.cu",
                 "koboldcpp_tpu/ops/quant_matmul.py:1277"),
+    # K12 and K13: the q2_k and q3_k bodies of the same two JAX functions
+    # (`_packed_matvec` at T=1, `_packed_matmul_2d`)
+    "K12.q2_k": ("q23k_matvec q2_k",
+                 "koboldcpp_tpu_torch/csrc/q23k_matvec.cu",
+                 "koboldcpp_tpu/ops/quant_matmul.py:780"),
+    "K12.q3_k": ("q23k_matvec q3_k",
+                 "koboldcpp_tpu_torch/csrc/q23k_matvec.cu",
+                 "koboldcpp_tpu/ops/quant_matmul.py:808"),
+    "K13.q2_k": ("kq_matmul q2_k", "koboldcpp_tpu_torch/csrc/kq_matmul.cu",
+                 "koboldcpp_tpu/ops/quant_matmul.py:1176"),
+    "K13.q3_k": ("kq_matmul q3_k", "koboldcpp_tpu_torch/csrc/kq_matmul.cu",
+                 "koboldcpp_tpu/ops/quant_matmul.py:1196"),
 }
 NEAR_TIE = 2 ** -6  # logits this close may pick either token (bf16 steps)
 # greedy tokens per request in phases 3-4 (the q4_k main path); 64, not
@@ -220,7 +243,14 @@ def phase_matvec(rng) -> None:
              lambda x, qt: qm.q4k_matvec_plain(x, qt, _i8(x)),
              big + ("fixture wqkv", "fixture ffn_down")),
             ("K2.q8_0", rand_q8_0, qm.q8_0_matvec, qm.q8_0_matvec_plain,
-             big + ("fixture wqkv", "fixture ffn_down"))):
+             big + ("fixture wqkv", "fixture ffn_down")),
+            ("K12.q2_k", rand_q2k, lambda x, qt: qm.q23k_matvec(x, qt, _i8(x)),
+             lambda x, qt: qm.q23k_matvec_plain(x, qt, _i8(x)),
+             big + ("wo", "fixture wqkv", "fixture wo", "fixture ffn_down")),
+            ("K12.q3_k", rand_q3k, lambda x, qt: qm.q23k_matvec(x, qt, _i8(x)),
+             lambda x, qt: qm.q23k_matvec_plain(x, qt, _i8(x)),
+             big + ("wo", "fixture wqkv", "fixture wo",
+                    "fixture ffn_down"))):
         for name in names:
             out_f, in_f = shapes[name]
             qt = maker(rng, out_f, in_f, DEV)
@@ -288,8 +318,8 @@ def phase_batched_matvec(rng) -> None:
 
 
 def phase_kq_matmul(rng) -> None:
-    """K3 (q4_k, q6_k at T = 16, 512) and K3.q5_k / K3.q8_0 (T = 8, 128,
-    512) at the 1.1B's gate+up and down shapes."""
+    """K3 (q4_k, q6_k at T = 16, 512) and K3.q5_k / K3.q8_0 / K13.q2_k /
+    K13.q3_k (T = 8, 128, 512) at the 1.1B's gate+up and down shapes."""
     for name, (out_f, in_f) in (("w_gateup", (11264, 2048)),
                                 ("w_down", (2048, 5632))):
         for kid, kind, maker, Ts in (("K3", "q4_k", rand_q4k, (16, 512)),
@@ -297,6 +327,10 @@ def phase_kq_matmul(rng) -> None:
                                      ("K3.q5_k", "q5_k", rand_q5k,
                                       (8, 128, 512)),
                                      ("K3.q8_0", "q8_0", rand_q8_0,
+                                      (8, 128, 512)),
+                                     ("K13.q2_k", "q2_k", rand_q2k,
+                                      (8, 128, 512)),
+                                     ("K13.q3_k", "q3_k", rand_q3k,
                                       (8, 128, 512))):
             qt = maker(rng, out_f, in_f, DEV)
             w = dequant(qt)
@@ -761,11 +795,6 @@ def phase_end_to_end(card: str) -> tuple[dict, float]:
         _same_or_near_tie(eng, prompt, r.tokens, r1.tokens,
                           f"flash prefill {'on' if flash else 'off'}")
     eng.use_flash_prefill = True
-    idle = _decode_idle_share(eng, prompt, gp.sampler)
-    # the same fast-forwarded request once more, after the profiled run
-    # (every later phase runs after one)
-    eng.generate(prompt, gp)
-    after_tps = eng.last_timings.gen_tps
     print(f"end to end (synthetic TinyLlama-1.1B q4_k, {card}): prefill "
           f"{t1.prompt_tokens} tokens {t1.prompt_tps:.1f} tok/s "
           f"({t1.prompt_time * 1e3:.1f} ms), decode {t1.gen_tokens} tokens "
@@ -778,9 +807,6 @@ def phase_end_to_end(card: str) -> tuple[dict, float]:
           f"(K4) {[round(t * 1e3, 3) for t in pre[True]]}, plain attention "
           f"{[round(t * 1e3, 3) for t in pre[False]]}; the same tokens",
           flush=True)
-    print(f"greedy decode, 64 tokens under torch.profiler: {idle}; the "
-          f"fast-forwarded request after it: decode {after_tps:.1f} tok/s "
-          f"(before it: {t2.gen_tps:.1f})", flush=True)
     del eng, model
     torch.cuda.empty_cache()
     return counts, t1.gen_tps
@@ -853,6 +879,47 @@ def _idle_share(run) -> str:
                     for t, k in sorted(rows, reverse=True)[:6])
     return (f"wall {wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} "
             f"ms, idle share {1 - busy_us / wall_us:.3f}; top: {top}")
+
+
+def phase_profiled(card: str) -> None:
+    """The device idle share, under torch.profiler, of the synthetic 1.1B
+    q4_k: a fast-forwarded single-stream request decoding 64 greedy tokens,
+    then 32 batched steps of 8 fast-forwarded greedy requests (8 slots). A
+    profiler session slows every later decode of the process, so this runs
+    after every timed phase; the fast-forwarded single-stream request is
+    timed just before its session and once more after it."""
+    model = synthetic_model(TINYLLAMA_1_1B, "q4_k", seed=0, device=DEV)
+    sampler = SamplerParams(temperature=0.0, rep_pen=1.0)
+    gp = GenParams(max_length=DEPTH, bypass_eos=True, sampler=sampler)
+    prompt = [1] + np.random.default_rng(1).integers(
+        3, 32000, size=299).tolist()
+    eng = Engine(model, max_context=2048, device=DEV)
+    eng.generate(prompt, gp)
+    eng.generate(prompt, gp)
+    before_tps = eng.last_timings.gen_tps
+    idle = _decode_idle_share(eng, prompt, sampler)
+    eng.generate(prompt, gp)
+    after_tps = eng.last_timings.gen_tps
+    print(f"greedy decode, 64 tokens under torch.profiler ({card}): {idle}; "
+          f"the fast-forwarded request after it: decode {after_tps:.1f} "
+          f"tok/s (before it: {before_tps:.1f})", flush=True)
+    del eng
+    rng = np.random.default_rng(2)
+    prompts = [[1] + rng.integers(3, 32000, size=int(n) - 1).tolist()
+               for n in rng.integers(100, 301, size=8)]
+    g32 = [GenParams(max_length=32, bypass_eos=True, sampler=sampler)] * 8
+    beng = batch_engine.BatchedEngine(model, max_context=2048, n_slots=8,
+                                      device=DEV)
+    try:
+        _serve_together(beng, prompts, g32)
+        # fast-forwarded prompts: one 16-row wave, then 32 steps
+        idle = _idle_share(lambda: _serve_together(beng, prompts, g32))
+    finally:
+        beng.shutdown()
+    print(f"batched 1.1B (slot cache), 32 batched steps of 8 greedy "
+          f"requests under torch.profiler: {idle}", flush=True)
+    del model
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -946,14 +1013,6 @@ def phase_batched_serving(card: str) -> dict:
             print(f"batched 1.1B ({kind}, {card}): 7 greedy + 1 stochastic "
                   f"request, {n} tokens in {secs * 1e3:.1f} ms = "
                   f"{n / secs:.1f} tok/s aggregate", flush=True)
-            if not paged:
-                # fast-forwarded prompts: one 16-row wave, then 32 steps
-                idle = _idle_share(lambda: _serve_together(
-                    eng, prompts, [GenParams(max_length=32, bypass_eos=True,
-                                             sampler=greedy.sampler)] * 8))
-                print(f"batched 1.1B (slot cache), 32 batched steps of 8 "
-                      f"greedy requests under torch.profiler: {idle}",
-                      flush=True)
         finally:
             eng.shutdown()
     _check(got[True] == got[False], "paged tokens differ from slot tokens")
@@ -1003,29 +1062,40 @@ def phase_batched_serving(card: str) -> dict:
     return counts
 
 
+# kind of the synthetic 1.1B -> (greedy tokens single-stream, per batched
+# request; the bodies that must run single-stream, batched; whether a
+# batched request is held to its single-stream tokens (q5_k: T=1 and T>=2
+# share their arithmetic) or to the tokens it gets alone through the
+# batched engine (q8_0, q2_k, q3_k: int8 activations at T=1 against the
+# tiled bf16 product at T>=2, as the JAX dispatch is built)). The q2_k and
+# q3_k phases run at half the depth of the earlier ones, to keep the script
+# within its time budget.
+NEW_KINDS = (
+    ("q5_k", 64, 32, ("K1.q5_k", "K3.q5_k"), ("K7.q5_k",), True),
+    ("q8_0", 64, 32, ("K2.q8_0", "K3.q8_0"), ("K3.q8_0",), False),
+    ("q2_k", 32, 16, ("K12.q2_k", "K13.q2_k"), ("K13.q2_k",), False),
+    ("q3_k", 32, 16, ("K12.q3_k", "K13.q3_k"), ("K13.q3_k",), False))
+
+
 def phase_new_kinds(card: str) -> dict:
-    """The synthetic 1.1B with q5_k and then q8_0 weights: single-stream
-    through Engine on the bf16 cache (a 300-token prompt, 64 greedy tokens,
-    the same prompt again: fast-forward, the same tokens near-ties apart),
-    then 8 concurrent greedy requests
-    of 100-300 prompt tokens and 32 new tokens through BatchedEngine (8
-    slots, slot cache). q5_k requests must get their single-stream tokens;
-    q8_0 requests the tokens each gets alone through the same batched
-    engine (its T=1 and T>=2 paths differ in arithmetic, int8 activations
-    against a bf16 product, as the JAX dispatch is built). Near-ties
-    allowed, as in phase 4."""
+    """The synthetic 1.1B with q5_k, q8_0, q2_k and q3_k weights (NEW_KINDS):
+    single-stream through Engine on the bf16 cache (a 300-token prompt,
+    greedy tokens, the same prompt again: fast-forward, the same tokens
+    near-ties apart), then 8 concurrent greedy requests of 100-300 prompt
+    tokens through BatchedEngine (8 slots, slot cache), each getting its
+    single-stream tokens (q5_k) or the tokens it gets alone through the
+    same batched engine (the other kinds). Near-ties allowed, as in
+    phase 4."""
     rng = np.random.default_rng(1)
     prompt = [1] + rng.integers(3, 32000, size=299).tolist()
     rng = np.random.default_rng(2)
     prompts = [[1] + rng.integers(3, 32000, size=int(n) - 1).tolist()
                for n in rng.integers(100, 301, size=8)]
     sampler = SamplerParams(temperature=0.0, rep_pen=1.0)
-    g64 = GenParams(max_length=64, bypass_eos=True, sampler=sampler)
-    g32 = GenParams(max_length=32, bypass_eos=True, sampler=sampler)
     counts: dict = {}
-    for kind, need_single, need_batched in (
-            ("q5_k", ("K1.q5_k", "K3.q5_k"), ("K7.q5_k",)),
-            ("q8_0", ("K2.q8_0", "K3.q8_0"), ("K3.q8_0",))):
+    for kind, n1, n8, need_single, need_batched, vs_single in NEW_KINDS:
+        g1 = GenParams(max_length=n1, bypass_eos=True, sampler=sampler)
+        g8 = GenParams(max_length=n8, bypass_eos=True, sampler=sampler)
         t0 = time.perf_counter()
         model = synthetic_model(TINYLLAMA_1_1B, kind, seed=0, device=DEV)
         build_s = time.perf_counter() - t0
@@ -1034,11 +1104,11 @@ def phase_new_kinds(card: str) -> dict:
                                                sampler=sampler))
         single.reset_context()
         _build.launches.clear()
-        r1 = single.generate(prompt, g64)
+        r1 = single.generate(prompt, g1)
         t1 = single.last_timings
-        r2 = single.generate(prompt, g64)
+        r2 = single.generate(prompt, g1)
         c1 = dict(_build.launches)
-        _check(len(r1.tokens) == 64 and all(0 <= t < 32000 for t in r1.tokens),
+        _check(len(r1.tokens) == n1 and all(0 <= t < 32000 for t in r1.tokens),
                f"{kind}: bad reply {r1.tokens}")
         _check(t1.prompt_tokens == 300
                and single.last_timings.prompt_tokens == 1,
@@ -1068,25 +1138,26 @@ def phase_new_kinds(card: str) -> dict:
                                                  sampler=sampler))
             eng.reset_context()
             _build.launches.clear()
-            res, secs = _serve_together(eng, prompts, [g32] * 8)
+            res, secs = _serve_together(eng, prompts, [g8] * 8)
             c2 = dict(_build.launches)
-            if kind == "q8_0":
+            if not vs_single:
                 want = []
                 for p in prompts:
                     eng.reset_context()
-                    want.append(eng.generate(p, g32).tokens)
+                    want.append(eng.generate(p, g8).tokens)
         finally:
             eng.shutdown()
-        if kind == "q5_k":
+        if vs_single:
             want = []
             for p in prompts:
                 single.reset_context()
-                want.append(single.generate(p, g32).tokens)
+                want.append(single.generate(p, g8).tokens)
+        ref = "single-stream" if vs_single else "alone"
         for i, (p, r) in enumerate(zip(prompts, res)):
-            _check(len(r.tokens) == 32, f"{kind} batched request {i}: {r}")
+            _check(len(r.tokens) == n8, f"{kind} batched request {i}: {r}")
             _same_or_near_tie(single, p, r.tokens, want[i],
                               f"{kind} batched request {i} ("
-                              + ("single-stream" if kind == "q5_k"
+                              + ("single-stream" if vs_single
                                  else "alone through the batched engine")
                               + ")")
         for k in need_batched:
@@ -1096,9 +1167,8 @@ def phase_new_kinds(card: str) -> dict:
         print(f"batched 1.1B {kind} (slot cache, {card}): 8 greedy requests, "
               f"{n} tokens in {secs * 1e3:.1f} ms = {n / secs:.1f} tok/s "
               f"aggregate (prefill of {sum(map(len, prompts))} prompt tokens "
-              f"included); each equals its reply "
-              + ("single-stream" if kind == "q5_k" else "alone")
-              + f"; launches {c2}", flush=True)
+              f"included); each equals its reply {ref}; launches {c2}",
+              flush=True)
         for c in (c1, c2):
             for k, v in c.items():
                 counts[k] = counts.get(k, 0) + v
@@ -1257,25 +1327,35 @@ def phase_served_fixture() -> dict:
     return counts
 
 
-# GGUF type of each served fixture -> the kernel body its packed kind runs
-SERVED_KINDS = (("q8_0", "K2.q8_0", "K3.q8_0"), ("q5_1", "K1.q5_k", "K7.q5_k"),
-                ("q4_0", "K1", None), ("iq4_nl", "K2.q8_0", None),
-                ("tq2_0", "K2.q8_0", None))
+# each served fixture (directory, format) -> the kernel bodies its packed
+# kinds run single-stream, and the body of a multiuser=4 run (None: no
+# multiuser run). tiny-q2_k holds q2_k and q3_k tensors (Q3_K attn_v,
+# attn_output, ffn_down), tiny-q3_k_m q3_k only; Q6_K output everywhere.
+SERVED_KINDS = ((FIX, "q8_0", ("K2.q8_0",), "K3.q8_0"),
+                (FIX, "q5_1", ("K1.q5_k",), "K7.q5_k"),
+                (FIX, "q4_0", ("K1",), None),
+                (FIX, "iq4_nl", ("K2.q8_0",), None),
+                (FIX, "tq2_0", ("K2.q8_0",), None),
+                (PORT_FIX, "q2_k", ("K12.q2_k", "K12.q3_k", "K13.q2_k"),
+                 "K13.q2_k"),
+                (PORT_FIX, "q3_k_m", ("K12.q3_k", "K13.q3_k"), None))
 
 
 def phase_served_kinds() -> dict:
     """The fixtures whose weights pack as q8_0 (Q8_0, IQ4_NL, TQ2_0), q5_k
-    (Q5_1) and q4_k (Q4_0), served over HTTP single-stream at temperature
-    0: two identical replies each, through the body of the fixture's kind;
-    tiny-q8_0 and tiny-q5_1 also with multiuser=4 (each request getting
-    the reply it gets alone; K3.q8_0 / K7.q5_k)."""
+    (Q5_1), q4_k (Q4_0), q2_k (Q2_K) and q3_k (Q3_K_M, and the Q2_K file's
+    Q3_K tensors), served over HTTP single-stream at temperature 0: two
+    identical replies each, through the bodies of the fixture's kinds;
+    tiny-q8_0, tiny-q5_1 and tiny-q2_k also with multiuser=4 (each request
+    getting the reply it gets alone; K3.q8_0 / K7.q5_k / K13.q2_k)."""
     from koboldcpp_tpu_torch.server.app import ServerSettings
 
     body = {"prompt": "The gradient of a function, e.g. f(x), points",
             "max_length": 24, "temperature": 0, "rep_pen": 1.0}
     counts: dict = {}
-    for fmt, kid, multi_kid in SERVED_KINDS:
-        model = load_model(os.path.join(FIX, f"tiny-{fmt}.gguf"), device=DEV)
+    for fix_dir, fmt, kids, multi_kid in SERVED_KINDS:
+        model = load_model(os.path.join(fix_dir, f"tiny-{fmt}.gguf"),
+                           device=DEV)
         srv = _Server(Engine(model, max_context=512, device=DEV),
                       ServerSettings(model_name=f"tiny-{fmt}"))
         try:
@@ -1287,7 +1367,8 @@ def phase_served_kinds() -> dict:
             srv.close()
         _check(a == b and a != "",
                f"tiny-{fmt}: temperature-0 replies differ: {a!r} {b!r}")
-        _check(c.get(kid, 0) > 0, f"{kid} did not run on tiny-{fmt}: {c}")
+        for kid in kids:
+            _check(c.get(kid, 0) > 0, f"{kid} did not run on tiny-{fmt}: {c}")
         print(f"served tiny-{fmt}: /api/v1/generate x2 identical ({a!r}); "
               f"launches {c}", flush=True)
         if multi_kid:
@@ -1301,27 +1382,48 @@ def phase_served_kinds() -> dict:
     return counts
 
 
+def _fixture_logits(path: str, tokens: list[int]) -> np.ndarray:
+    """A fixture's logits on the card, loaded packed in f32 (as
+    tests/test_torch_forward.py does on the CPU), tokens at positions 0.."""
+    m32 = load_model(path, dtype=torch.float32, device=DEV)
+    cache = init_cache(m32.cfg.n_layers, 1, 64, m32.cfg.n_kv_heads,
+                       m32.cfg.head_dim, dtype=torch.float32, device=DEV)
+    toks = torch.tensor([tokens], device=DEV)
+    with torch.inference_mode():
+        logits, _ = llama.forward(
+            m32.params, m32.cfg, toks,
+            torch.arange(toks.shape[1], device=DEV)[None], cache)
+    return logits[0].float().cpu().numpy()
+
+
 def check_fixture_goldens() -> None:
-    """Each reference fixture's logits on the card, loaded packed in f32 (as
-    tests/test_torch_forward.py does on the CPU), against the reference
-    runtime's goldens at tests/test_ref_gguf_fixtures.py's tolerances."""
+    """Each reference fixture's logits on the card against the reference
+    runtime's goldens at tests/test_ref_gguf_fixtures.py's tolerances; then
+    the Q2_K and Q3_K_M fixtures' against the JAX package's committed logits
+    (tests/fixtures/portgguf, no reference-runtime goldens exist for them)
+    at tests/test_torch_lowbit.py's 1e-2 (|err| <= 1e-2 + 1e-2 |want|)."""
     manifest = json.load(open(os.path.join(FIX, "manifest.json")))
-    toks = torch.tensor([manifest["tokens"]], device=DEV)
     for fmt, name in manifest["files"].items():
-        m32 = load_model(os.path.join(FIX, name), dtype=torch.float32,
-                         device=DEV)
-        cache = init_cache(m32.cfg.n_layers, 1, 64, m32.cfg.n_kv_heads,
-                           m32.cfg.head_dim, dtype=torch.float32, device=DEV)
-        with torch.inference_mode():
-            logits, _ = llama.forward(
-                m32.params, m32.cfg, toks,
-                torch.arange(toks.shape[1], device=DEV)[None], cache)
+        logits = _fixture_logits(os.path.join(FIX, name), manifest["tokens"])
         golden = np.load(os.path.join(FIX, f"logits-{fmt}.npy"))
-        err = float(np.abs(logits[0].float().cpu().numpy() - golden).max())
+        err = float(np.abs(logits - golden).max())
         tol = 2e-3 if fmt == "f16" else 4e-2
         _check(err <= tol, f"tiny-{fmt} logits off the goldens by {err}")
         print(f"tiny-{fmt} logits vs reference goldens: max abs err "
               f"{err:.4g} (tol {tol:g})", flush=True)
+    manifest = json.load(open(os.path.join(PORT_FIX, "manifest.json")))
+    for fmt, name in manifest["files"].items():
+        logits = _fixture_logits(os.path.join(PORT_FIX, name),
+                                 manifest["tokens"])
+        want = np.load(os.path.join(PORT_FIX, f"logits-jax-{fmt}.npy"))
+        diff = np.abs(logits - want)
+        worst = float((diff / (1e-2 + 1e-2 * np.abs(want))).max())
+        _check(worst <= 1.0,
+               f"tiny-{fmt} logits off the JAX logits: |err| / (1e-2 + "
+               f"1e-2 |want|) {worst}")
+        print(f"tiny-{fmt} logits vs the JAX package's: max abs err "
+              f"{float(diff.max()):.4g}, worst |err| / (1e-2 + 1e-2 |want|) "
+              f"{worst:.3g}", flush=True)
 
 
 def _timed(phase, *args):
@@ -1357,6 +1459,8 @@ def main() -> int:
             _timed(phase_batched_serving, card), _timed(phase_served_fixture),
             _timed(phase_new_kinds, card), _timed(phase_served_kinds)]
     _timed(check_fixture_goldens)
+    # the profiled windows last: a profiler session slows later decodes
+    _timed(phase_profiled, card)
 
     kernels = []
     for kid, (name, source, replaces) in KERNELS.items():

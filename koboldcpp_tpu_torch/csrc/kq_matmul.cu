@@ -1,17 +1,21 @@
 // K3: q4_k / q5_k / q6_k / q8_0 tiled matmul for prefill, y (T, out_f)
-// bf16 = x (T, in_f) bf16 . W^T with f32 accumulation.
+// bf16 = x (T, in_f) bf16 . W^T with f32 accumulation; K13: its q2_k /
+// q3_k bodies.
 //
 // Replaces koboldcpp_tpu/ops/quant_matmul.py `_packed_matmul_2d`: bodies
 // `_q4k_kernel` (the default KCPP_Q4K_2D=sexp), `_q5k_kernel`, `_q6k_kernel`
-// and `_q8_0_kernel`. As there, the weight fed to the product is
-// bf16(q * scale) (q4_k: the nibble 0..15; q5_k: the nibble with its 5th
-// bit, 0..31; q6_k: the 6-bit value 0..63; q8_0: the int8 code), and the
-// affine part is a second, small product over per-group sums of x: q4_k and
-// q5_k subtract xsum_bf16 . min (groups of 32), q6_k subtracts
-// 32 * xsum_bf16 . scale (groups of 16), q8_0 has none. Both terms run
+// and `_q8_0_kernel` (K3), `_q2k_kernel` and `_q3k_kernel` (K13). As there,
+// the weight fed to the product is bf16(q * scale) (q4_k: the nibble 0..15;
+// q5_k: the nibble with its 5th bit, 0..31; q6_k: the 6-bit value 0..63;
+// q8_0: the int8 code; q2_k: the 2-bit code 0..3; q3_k: the 2-bit code with
+// its hmask bit, 0..7), and the affine part is a second, small product over
+// per-group sums of x: q4_k and q5_k subtract xsum_bf16 . min (groups of
+// 32), q2_k xsum_bf16 . min (groups of 16), q6_k 32 * xsum_bf16 . scale and
+// q3_k 4 * xsum_bf16 . scale (groups of 16), q8_0 has none. Both terms run
 // through the same tensor-core loop: the K loop first walks in_f with B =
 // the dequantized weight tile, then walks the groups with A = the group
-// sums and B = -min (q4_k, q5_k) or -32*scale (q6_k), both exact in bf16.
+// sums and B = -min (q4_k, q5_k, q2_k), -32*scale (q6_k) or -4*scale
+// (q3_k), all exact in bf16.
 //
 // Bound on the H100: operations at T=512 (2*T*in*out bf16 FLOPs over
 // 989 TFLOP/s), bytes at small T. Design: a 64x64 output tile per block of
@@ -19,8 +23,8 @@
 // shared memory as bf16 and runs WMMA 16x16x16 bf16 products with f32
 // accumulators (mma.sync underneath). No TMA / wgmma / multi-stage
 // pipeline yet.
-// Launch counters: ops/_build.launches["K3"] (q4_k, q6_k), ["K3.q5_k"] and
-// ["K3.q8_0"], one per matmul.
+// Launch counters: ops/_build.launches["K3"] (q4_k, q6_k), ["K3.q5_k"],
+// ["K3.q8_0"], ["K13.q2_k"] and ["K13.q3_k"], one per matmul.
 #include <mma.h>
 
 #include "common.cuh"
@@ -29,14 +33,17 @@ using namespace nvcuda;
 
 constexpr int BM = 64, BN = 64, BK = 32, LDS = BK + 8, LDC = BN + 4;
 
-template <int KIND>  // 0 = q4_k, 1 = q6_k, 2 = q5_k, 3 = q8_0
+// 0 = q4_k, 1 = q6_k, 2 = q5_k, 3 = q8_0, 4 = q2_k, 5 = q3_k
+template <int KIND>
 __global__ void __launch_bounds__(128)
 kq_matmul_kernel(const __nv_bfloat16* __restrict__ x,
                  const __nv_bfloat16* __restrict__ xs,
-                 const uint8_t* __restrict__ w0,   // qs2 | ql | qs2 | q
-                 const uint8_t* __restrict__ w1,   // - | qh | qh bits | -
+                 // qs2 | ql | qs2 | q | qs | qs
+                 const uint8_t* __restrict__ w0,
+                 // - | qh | qh bits | - | - | hmask
+                 const uint8_t* __restrict__ w1,
                  const __nv_bfloat16* __restrict__ scale,
-                 const __nv_bfloat16* __restrict__ mn,  // q4_k/q5_k min
+                 const __nv_bfloat16* __restrict__ mn,  // q4_k/q5_k/q2_k min
                  __nv_bfloat16* __restrict__ y, int T, int out_f, int in_f) {
     __shared__ __align__(32) __nv_bfloat16 As[BM][LDS];
     __shared__ __align__(32) __nv_bfloat16 Bs[BN][LDS];
@@ -46,7 +53,8 @@ kq_matmul_kernel(const __nv_bfloat16* __restrict__ x,
     const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
     const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
     // affine-term groups (none for q8_0)
-    const int G = KIND == 1 ? in_f / 16 : KIND == 3 ? 0 : in_f / 32;
+    constexpr bool G16 = KIND == 1 || KIND == 4 || KIND == 5;
+    const int G = G16 ? in_f / 16 : KIND == 3 ? 0 : in_f / 32;
     const int nk1 = in_f / BK, nk2 = (G + BK - 1) / BK;
 
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
@@ -104,6 +112,28 @@ kq_matmul_kernel(const __nv_bfloat16* __restrict__ x,
                     const int8_t q = (int8_t)((ws[e >> 2] >> (8 * (e & 3))) & 0xFFu);
                     Bs[r][c16 + e] = f2bf((float)q * s);
                 }
+            } else if (KIND == 4 || KIND == 5) {
+                // cols k0+c16 .. +15 are l = c16 .. c16+15 of plane j, half h
+                const int h = within / 128, j = (within % 128) / 32;
+                const uint4 qv = *reinterpret_cast<const uint4*>(
+                    w0 + (size_t)orow * (in_f / 4) + sb * 64 + h * 32 + c16);
+                const uint32_t qw[4] = {qv.x, qv.y, qv.z, qv.w};
+                uint32_t hw[4] = {0u, 0u, 0u, 0u};
+                if (KIND == 5) {
+                    const uint4 hv = *reinterpret_cast<const uint4*>(
+                        w1 + (size_t)orow * (in_f / 8) + sb * 32 + c16);
+                    hw[0] = hv.x; hw[1] = hv.y; hw[2] = hv.z; hw[3] = hv.w;
+                }
+                const float s = bf2f(scale[(size_t)orow * (in_f / 16)
+                                           + k0 / 16 + (c16 >> 4)]);
+#pragma unroll
+                for (int e = 0; e < 16; ++e) {
+                    const int sh = 8 * (e & 3);
+                    uint32_t q = (qw[e >> 2] >> (sh + 2 * j)) & 3u;
+                    if (KIND == 5)
+                        q |= ((hw[e >> 2] >> (sh + 4 * h + j)) & 1u) << 2;
+                    Bs[r][c16 + e] = f2bf((float)q * s);
+                }
             } else {
                 const int h = within / 128, j = (within % 128) / 32;
                 const uint4 lv = *reinterpret_cast<const uint4*>(
@@ -125,8 +155,8 @@ kq_matmul_kernel(const __nv_bfloat16* __restrict__ x,
                 }
             }
         } else {
-            // affine term: A = group sums of x, B = -min | -32 * scale
-            // (never reached for q8_0: G = 0)
+            // affine term: A = group sums of x, B = -min | -32 * scale |
+            // -4 * scale (never reached for q8_0: G = 0)
             const int g0 = (kt - nk1) * BK + c16;
 #pragma unroll
             for (int e = 0; e < 16; ++e) {
@@ -137,6 +167,7 @@ kq_matmul_kernel(const __nv_bfloat16* __restrict__ x,
                 float b = 0.f;
                 if (ok) {
                     b = KIND == 1 ? -32.f * bf2f(scale[(size_t)orow * G + g])
+                      : KIND == 5 ? -4.f * bf2f(scale[(size_t)orow * G + g])
                                   : -bf2f(mn[(size_t)orow * G + g]);
                 }
                 Bs[r][c16 + e] = f2bf(b);
@@ -179,7 +210,8 @@ kq_matmul_kernel(const __nv_bfloat16* __restrict__ x,
 
 // x (T, in_f) bf16, xs (T, G) bf16 group sums; q4_k: w0=qs2, mn=min;
 // q6_k: w0=ql, w1=qh; q5_k: w0=qs2, w1=qh (bit plane), mn=min; q8_0: w0=q,
-// no xs. y (T, out_f) bf16. out_f % 64 == 0, in_f % 256 == 0.
+// no xs; q2_k: w0=qs, mn=min; q3_k: w0=qs, w1=hmask. y (T, out_f) bf16.
+// out_f % 64 == 0, in_f % 256 == 0.
 KCPP_API int k3_kq_matmul(int kind, const void* x, const void* xs,
                           const void* w0, const void* w1, const void* scale,
                           const void* mn, void* y, int T, int out_f, int in_f,
@@ -195,6 +227,8 @@ KCPP_API int k3_kq_matmul(int kind, const void* x, const void* xs,
         case 1: kq_matmul_kernel<1><<<grid, 128, 0, st>>>(K3_ARGS); break;
         case 2: kq_matmul_kernel<2><<<grid, 128, 0, st>>>(K3_ARGS); break;
         case 3: kq_matmul_kernel<3><<<grid, 128, 0, st>>>(K3_ARGS); break;
+        case 4: kq_matmul_kernel<4><<<grid, 128, 0, st>>>(K3_ARGS); break;
+        case 5: kq_matmul_kernel<5><<<grid, 128, 0, st>>>(K3_ARGS); break;
         default: return (int)cudaErrorInvalidValue;
     }
 #undef K3_ARGS

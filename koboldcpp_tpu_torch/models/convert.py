@@ -8,7 +8,11 @@ attributes (the JAX QTensor after that tree_map). Only the logical fields
 are kept: q4_k's and q5_k's plane-ordered `scale_lo`/`scale_hi` interleave
 back into the logical `scale`, q5_k's `hb` (bit 0: the 5th bit of col
 256s+b, bit 1: of col 256s+128+b, for byte b of superblock s) becomes the
-port's `qh` bit plane; every TPU sidecar field is dropped.
+port's `qh` bit plane; q2_k's and q3_k's raw 2-bit stream `qs2` becomes
+`qs`, their plane-major `scale_p` / `min_p` go back to logical group order,
+and q3_k's `hm2` (bit j of byte (2s+h, l): the 3rd bit of col
+256s+128h+32j+l) becomes ggml's `hmask` (bit 4h+j of byte 32s+l); every TPU
+sidecar field is dropped.
 """
 from __future__ import annotations
 
@@ -18,9 +22,11 @@ import numpy as np
 import torch
 
 from ..ops.linear import QTensor
+from .synthetic import plane_major_to_logical
 
 _KEEP = {"dense": ("w",), "q4_k": ("qs2", "min"), "q5_k": ("qs2", "min"),
-         "q6_k": ("ql", "qh", "scale"), "q8_0": ("q", "scale")}
+         "q6_k": ("ql", "qh", "scale"), "q8_0": ("q", "scale"),
+         "q2_k": (), "q3_k": ()}
 
 
 def _tensor(a: Any, device) -> torch.Tensor:
@@ -41,6 +47,17 @@ def _qtensor(v: Any, device) -> QTensor:
         slo = _tensor(v.data["scale_lo"], device).reshape(rows, -1, 4)
         shi = _tensor(v.data["scale_hi"], device).reshape(rows, -1, 4)
         data["scale"] = torch.cat([slo, shi], dim=2).reshape(rows, -1)
+    if kind in ("q2_k", "q3_k"):
+        data["qs"] = _tensor(v.data["qs2"], device)
+        for name, src in (("scale", "scale_p"), ("min", "min_p")):
+            if src in v.data:
+                data[name] = _tensor(plane_major_to_logical(
+                    np.asarray(v.data[src])), device)
+        if kind == "q3_k":
+            hm2 = np.asarray(v.data["hm2"]).reshape(v.shape[0], -1, 2, 32)
+            data["hmask"] = torch.from_numpy(np.ascontiguousarray(
+                hm2[:, :, 0] | (hm2[:, :, 1] << 4)).reshape(
+                    v.shape[0], -1)).to(device)
     if kind == "q5_k":
         hb = np.asarray(v.data["hb"]).reshape(v.shape[0], -1, 128)
         bits = np.concatenate([hb & 1, (hb >> 1) & 1], axis=2)

@@ -3,8 +3,9 @@
 Port of koboldcpp_tpu/models/synthetic.py: packed QTensors are built
 directly from seeded random bytes + small scales, drawing the same field
 values from the same numpy seed as the JAX package's makers (q8_0: scales
-/ 8, see rand_q8_0), minus the TPU-only sidecar fields; q5_k, which the JAX
-package has no maker for, packs random GGUF blocks. Byte-layout-identical
+/ 8, see rand_q8_0; q3_k: scales / 2, see rand_q3k), minus the TPU-only sidecar fields and in the port's
+logical layouts; q5_k, which the JAX package has no maker for, packs random
+GGUF blocks. Byte-layout-identical
 to GGUF-loaded weights, so kernels see the real memory traffic.
 """
 from __future__ import annotations
@@ -90,14 +91,63 @@ def rand_q5k(rng, out_f: int, in_f: int, device="cpu") -> QTensor:
     return pack_q5_k(raw, (out_f, in_f), device)
 
 
-_MAKERS = {"q4_k": rand_q4k, "q5_k": rand_q5k, "q6_k": rand_q6k,
-           "q8_0": rand_q8_0}
+def plane_major_to_logical(plane_major: np.ndarray) -> np.ndarray:
+    """(R, nsb*16) per-16 values indexed [j | S, h, t] (the JAX makers'
+    plane-major order) -> logical group order 16S + 8h + 2j + t."""
+    rows = plane_major.shape[0]
+    return plane_major.reshape(rows, 4, -1, 2, 2).transpose(
+        0, 2, 3, 1, 4).reshape(rows, -1)
+
+
+def rand_q2k(rng, out_f: int, in_f: int, device="cpu") -> QTensor:
+    """The JAX `_rand_q2k` draws (the same numpy calls in the same order):
+    scales and mins uniform in [0, 0.02) per 16 columns, random 2-bit
+    codes; weights of rms ~0.017 and mean ~+0.005."""
+    nsb = in_f // QK_K
+    scale_p = (rng.random((out_f, nsb * 16), dtype=np.float32) * 0.02
+               ).astype(np.float32)
+    min_p = (rng.random((out_f, nsb * 16), dtype=np.float32) * 0.02
+             ).astype(np.float32)
+    qs = rng.integers(0, 256, size=(out_f, in_f // 4), dtype=np.uint8)
+    return QTensor(kind="q2_k", shape=(out_f, in_f), data={
+        "qs": _u8(qs, device),
+        "scale": _bf16(plane_major_to_logical(scale_p), device),
+        "min": _bf16(plane_major_to_logical(min_p), device),
+    })
+
+
+def rand_q3k(rng, out_f: int, in_f: int, device="cpu") -> QTensor:
+    """The JAX `_rand_q3k` draws (the same numpy calls in the same order):
+    signed scales per 16 columns, random 2-bit codes and 3rd bits (the JAX
+    `hm2` nibbles, here ggml's hmask bytes), with the scales divided by 2
+    (exact): uniform in [-0.01, 0.01). The JAX maker's weights have std
+    ~0.027, a gain near 1.2 per projection at hidden 2048: on the 22-layer
+    model the flash-against-plain attention difference of a fast-forwarded
+    token turned into other greedy tokens two bf16 steps apart. /2 gives
+    std ~0.013, near the q4_k maker's spread."""
+    nsb = in_f // QK_K
+    scale_p = ((rng.random((out_f, nsb * 16), dtype=np.float32) - 0.5)
+               * 0.04).astype(np.float32) / 2
+    qs = rng.integers(0, 256, size=(out_f, in_f // 4), dtype=np.uint8)
+    hm2 = rng.integers(0, 16, size=(out_f, in_f // 4), dtype=np.uint8
+                       ).reshape(out_f, nsb, 2, 32)
+    return QTensor(kind="q3_k", shape=(out_f, in_f), data={
+        "qs": _u8(qs, device),
+        "hmask": _u8((hm2[:, :, 0] | (hm2[:, :, 1] << 4)).reshape(
+            out_f, nsb * 32), device),
+        "scale": _bf16(plane_major_to_logical(scale_p), device),
+    })
+
+
+_MAKERS = {"q2_k": rand_q2k, "q3_k": rand_q3k, "q4_k": rand_q4k,
+           "q5_k": rand_q5k, "q6_k": rand_q6k, "q8_0": rand_q8_0}
 
 
 def synthetic_params(cfg: ModelConfig, kind: str = "q4_k", seed: int = 0,
                      device=None) -> dict:
     """A full llama params dict with synthetic weights on `device` (default
-    cuda). kind: "dense" | "q4_k" | "q5_k" | "q6_k" | "q8_0" for the big
+    cuda). kind: "dense" | "q2_k" | "q3_k" | "q4_k" | "q5_k" | "q6_k" |
+    "q8_0" for the big
     matmul weights (embeddings and norms stay dense, as the GGUF loader
     keeps them)."""
     dev = resolve_device(device)

@@ -18,8 +18,15 @@ TPU-specific transposed or plane-major sidecars):
         for j>=2), bits 2j..2j+1 of qh[64s+32h+l]); scale (out, in/16) bf16;
         w = (q6-32)*scale.
   q8_0: q (out, in) int8 and scale (out, in/32) bf16; w = q*scale.
+  q2_k: qs (out, in/4) u8, ggml's raw 2-bit stream (element 256s+128h+32j+l
+        is bits 2j..2j+1 of qs[64s+32h+l]); scale / min (out, in/16) bf16 in
+        logical group order; w = q2*scale - min.
+  q3_k: q2_k's qs for the low 2 bits, plus hmask (out, in/8) u8, ggml's raw
+        high-bit mask (bit 4h+j of hmask[32s+l] is the 3rd bit of element
+        256s+128h+32j+l); scale (out, in/16) bf16, the signed 6-bit
+        sub-scale times d; w = (q3-4)*scale with q3 = q2 | bit << 2.
 GGUF types map onto these kinds as the JAX package's `from_gguf` maps them:
-Q4_0/Q4_1 onto q4_k, Q5_0/Q5_1 onto q5_k, and IQ4_NL/IQ4_XS/TQ1_0/TQ2_0
+Q2_K onto q2_k, Q3_K onto q3_k, Q4_0/Q4_1 onto q4_k, Q5_0/Q5_1 onto q5_k, and IQ4_NL/IQ4_XS/TQ1_0/TQ2_0
 (and block-32 types of widths that are not a multiple of 256) onto q8_0 by
 exact dequant and int8 requantization per 32 columns. The bf16 scale
 products are bit-identical to the JAX packers'.
@@ -39,7 +46,7 @@ from ..gguf.constants import GGMLType, QK_K
 
 @dataclass
 class QTensor:
-    kind: str  # "dense" | "q4_k" | "q5_k" | "q6_k" | "q8_0"
+    kind: str  # "dense" | "q2_k" | "q3_k" | "q4_k" | "q5_k" | "q6_k" | "q8_0"
     shape: tuple[int, ...]  # logical (out, in)
     data: dict[str, Any] = field(default_factory=dict)
 
@@ -149,6 +156,45 @@ def pack_q6_k(raw: np.ndarray, shape: tuple[int, int],
     })
 
 
+def pack_q2_k(raw: np.ndarray, shape: tuple[int, int],
+              device="cpu") -> QTensor:
+    """Q2_K (84-byte superblocks: scales[16], qs[64], fp16 d, fp16 dmin);
+    sub-scale byte g of a superblock holds group g's scale (low nibble) and
+    min (high nibble), each times d or dmin in f32, then rounded to bf16 as
+    the JAX `pack_q2_k` rounds them (dequantize_row_q2_K,
+    ggml/src/ggml-quants.c)."""
+    rows, cols = shape
+    nsb = cols // QK_K
+    blocks = np.ascontiguousarray(raw).reshape(rows, nsb, 84)
+    sc = blocks[:, :, :16]
+    d, dmin = _f16(blocks, 80), _f16(blocks, 82)
+    return QTensor(kind="q2_k", shape=tuple(shape), data={
+        "qs": _u8(blocks[:, :, 16:80].reshape(rows, nsb * 64), device),
+        "scale": _bf16((d[..., None] * (sc & 0xF)).reshape(rows, nsb * 16),
+                       device),
+        "min": _bf16((dmin[..., None] * (sc >> 4)).reshape(rows, nsb * 16),
+                     device),
+    })
+
+
+def pack_q3_k(raw: np.ndarray, shape: tuple[int, int],
+              device="cpu") -> QTensor:
+    """Q3_K (110-byte superblocks: hmask[32], qs[64], 12 bytes of 6-bit
+    sub-scales, fp16 d); the scale is d * (sc - 32) in f32, rounded to bf16
+    as the JAX `pack_q3_k` rounds it (dequantize_row_q3_K)."""
+    rows, cols = shape
+    nsb = cols // QK_K
+    blocks = np.ascontiguousarray(raw).reshape(rows, nsb, 110)
+    sc = nq._unpack_q3_scales(blocks[:, :, 96:108].reshape(-1, 12)).astype(
+        np.float32).reshape(rows, nsb, 16) - 32.0
+    return QTensor(kind="q3_k", shape=tuple(shape), data={
+        "qs": _u8(blocks[:, :, 32:96].reshape(rows, nsb * 64), device),
+        "hmask": _u8(blocks[:, :, :32].reshape(rows, nsb * 32), device),
+        "scale": _bf16((_f16(blocks, 108)[..., None] * sc).reshape(
+            rows, nsb * 16), device),
+    })
+
+
 def pack_q8_0(raw: np.ndarray, shape: tuple[int, int],
               device="cpu") -> QTensor:
     """Q8_0 (34-byte blocks: fp16 d, 32 int8): int8 codes, d rounded to
@@ -230,7 +276,8 @@ def pack_q8_expand(raw: np.ndarray, shape: tuple[int, int], device="cpu",
     })
 
 
-_PACKERS = {GGMLType.Q8_0: pack_q8_0, GGMLType.Q4_K: pack_q4_k,
+_PACKERS = {GGMLType.Q8_0: pack_q8_0, GGMLType.Q2_K: pack_q2_k,
+            GGMLType.Q3_K: pack_q3_k, GGMLType.Q4_K: pack_q4_k,
             GGMLType.Q5_K: pack_q5_k, GGMLType.Q6_K: pack_q6_k,
             GGMLType.Q4_0: pack_q4_0, GGMLType.Q4_1: pack_q4_1,
             GGMLType.Q5_0: pack_q5_0, GGMLType.Q5_1: pack_q5_1}
@@ -238,12 +285,11 @@ for _t in (GGMLType.IQ4_NL, GGMLType.IQ4_XS, GGMLType.TQ1_0, GGMLType.TQ2_0):
     _PACKERS[_t] = partial(pack_q8_expand, ggml_type=_t)
 
 # Types the JAX package keeps packed in kinds this port does not serve yet
-# (q2_k, q3_k and the native IQ1-3 kinds), with the kernels that would
-# serve them. Loading one raises instead of silently dequantizing it.
+# (the native IQ1-3 kinds), with the kernels that would serve them. Loading
+# one raises instead of silently dequantizing it.
 _UNPORTED = {_t: "K12/K13" for _t in (
-    GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.IQ3_XXS, GGMLType.IQ3_S,
-    GGMLType.IQ2_XXS, GGMLType.IQ2_XS, GGMLType.IQ2_S, GGMLType.IQ1_S,
-    GGMLType.IQ1_M)}
+    GGMLType.IQ3_XXS, GGMLType.IQ3_S, GGMLType.IQ2_XXS, GGMLType.IQ2_XS,
+    GGMLType.IQ2_S, GGMLType.IQ1_S, GGMLType.IQ1_M)}
 _32COL_TYPES = (GGMLType.Q8_0, GGMLType.IQ4_NL, GGMLType.IQ4_XS,
                 GGMLType.IQ3_XXS, GGMLType.IQ3_S, GGMLType.IQ2_XXS,
                 GGMLType.IQ2_XS, GGMLType.IQ2_S, GGMLType.IQ1_S,
@@ -306,6 +352,26 @@ def q6k_values(ql: torch.Tensor, qh: torch.Tensor) -> torch.Tensor:
     return planes.reshape(rows, -1)
 
 
+def q2k_values(qs: torch.Tensor) -> torch.Tensor:
+    """(R, in/4) ggml 2-bit stream -> (R, in) logical-order values 0..3
+    (u8): byte 32h+l of a 64-byte superblock holds elements 128h+32j+l."""
+    b = qs.reshape(qs.shape[0], -1, 1, 32)                # (R, nsb*2, ., l)
+    shifts = torch.arange(0, 8, 2, dtype=torch.uint8,
+                          device=qs.device)[None, None, :, None]
+    return ((b >> shifts) & 3).reshape(qs.shape[0], -1)  # (., 4 planes, l)
+
+
+def q3k_values(qs: torch.Tensor, hmask: torch.Tensor) -> torch.Tensor:
+    """q3_k fields -> (R, in) logical-order 3-bit values 0..7 (u8): the
+    3rd bit of element 256s+128h+32j+l is bit 4h+j of hmask[32s+l]."""
+    rows = hmask.shape[0]
+    hm = hmask.reshape(rows, -1, 1, 1, 32)               # (R, nsb, h, j, l)
+    bit = torch.arange(8, dtype=torch.uint8, device=hmask.device).reshape(
+        1, 1, 2, 4, 1)
+    hb = ((hm >> bit) & 1).reshape(rows, -1)
+    return q2k_values(qs) | (hb << 2)
+
+
 def dequant(qt: QTensor, dtype=torch.bfloat16) -> torch.Tensor:
     """Unpack a QTensor to a dense (out, in) tensor (f32 math)."""
     rows, cols = qt.shape
@@ -326,6 +392,15 @@ def dequant(qt: QTensor, dtype=torch.bfloat16) -> torch.Tensor:
         q = qt.data["q"].float().reshape(rows, -1, 32)
         s = qt.data["scale"].float()[..., None]
         return (q * s).reshape(rows, cols).to(dtype)
+    if qt.kind == "q2_k":
+        q = q2k_values(qt.data["qs"]).float().reshape(rows, -1, 16)
+        out = q * qt.data["scale"].float()[..., None] \
+            - qt.data["min"].float()[..., None]
+        return out.reshape(rows, cols).to(dtype)
+    if qt.kind == "q3_k":
+        q = q3k_values(qt.data["qs"], qt.data["hmask"]).float() - 4.0
+        s = qt.data["scale"].float()[..., None]
+        return (q.reshape(rows, -1, 16) * s).reshape(rows, cols).to(dtype)
     raise ValueError(f"unknown QTensor kind {qt.kind}")
 
 

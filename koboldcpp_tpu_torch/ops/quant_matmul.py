@@ -1,4 +1,5 @@
-"""Fused dequant+matmul for packed q4_k / q5_k / q6_k / q8_0 QTensors.
+"""Fused dequant+matmul for packed q2_k / q3_k / q4_k / q5_k / q6_k / q8_0
+QTensors.
 
 Hand-written CUDA kernels (csrc/), each with its plain PyTorch version
 beside it. A wrapper takes the plain version only for a CPU tensor; for a
@@ -11,13 +12,17 @@ CUDA tensor it launches the kernel or raises.
                                        decode)
   K2  q6k_matvec    T=1 q6_k          (csrc/q6k_matvec.cu; JAX
       q8_0_matvec   T=1 q8_0           `_packed_matvec`; csrc/q8_0_matvec.cu)
+  K12 q23k_matvec   T=1 q2_k/q3_k     (csrc/q23k_matvec.cu; the same JAX
+                                       function, `_q2k/_q3k_row_kernel(_i8)`)
   K3  kq_matmul     the other T       (csrc/kq_matmul.cu; JAX
-                                       `_packed_matmul_2d`)
+  K13                                  `_packed_matmul_2d`; K13 names its
+                                       q2_k/q3_k bodies)
 
 Launch counters (ops/_build.launches): "K1", "K7", "K2" and "K3" count the
 q4_k / q6_k bodies they have counted since they were ported; every other
 kind's body has a counter of its own, "<id>.<kind>" ("K1.q5_k", "K7.q5_k",
-"K2.q8_0", "K3.q5_k", "K3.q8_0").
+"K2.q8_0", "K3.q5_k", "K3.q8_0", "K12.q2_k", "K12.q3_k", "K13.q2_k",
+"K13.q3_k").
 
 `matmul_packed(x, qt)` returns None when the JAX dispatch would decline the
 shape (out_f or in_f not a multiple of 256, or an in_f too wide for any
@@ -28,7 +33,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .linear import QTensor, q4k_values, q5k_values, q6k_values
+from .linear import (QTensor, q2k_values, q3k_values, q4k_values, q5k_values,
+                     q6k_values)
 
 VMEM_BUDGET = 13 * 1024 * 1024  # the JAX 2-D kernel's tile budget (see below)
 
@@ -36,12 +42,15 @@ _SIG_MATVEC = [_build.P] * 8 + [_build.I] * 3 + [_build.P]
 _SIG_MATVEC_T = [_build.P] * 9 + [_build.I] * 4 + [_build.P]
 _SIG_PREP = [_build.P] * 4 + [_build.I] * 2 + [_build.P]
 _FIELD_DTYPES = {"qs2": torch.uint8, "ql": torch.uint8, "qh": torch.uint8,
+                 "qs": torch.uint8, "hmask": torch.uint8,
                  "q": torch.int8, "scale": torch.bfloat16,
                  "min": torch.bfloat16}
-# kind -> (kq_matmul.cu KIND, the packed weight field, the affine term's
-# group width; 0: no affine term)
-_K3_KINDS = {"q4_k": (0, "qs2", 32), "q6_k": (1, "ql", 16),
-             "q5_k": (2, "qs2", 32), "q8_0": (3, "q", 0)}
+# kind -> (kq_matmul.cu KIND, the packed weight fields w0 and w1 (None: not
+# read), the affine term's group width (0: no affine term))
+_K3_KINDS = {"q4_k": (0, "qs2", None, 32), "q6_k": (1, "ql", "qh", 16),
+             "q5_k": (2, "qs2", "qh", 32), "q8_0": (3, "q", None, 0),
+             "q2_k": (4, "qs", None, 16), "q3_k": (5, "qs", "hmask", 16)}
+_LOWBIT = ("q2_k", "q3_k")  # the kinds of K12 / K13
 
 
 def _ptr(t: torch.Tensor | None):
@@ -281,7 +290,76 @@ def q8_0_matvec(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# K3: q4_k / q5_k / q6_k / q8_0 tiled matmul (prefill)
+# K12: q2_k / q3_k T=1 matvec
+# ---------------------------------------------------------------------------
+
+def q23k_matvec_plain(x: torch.Tensor, qt: QTensor, i8: bool) -> torch.Tensor:
+    """x (in_f,) bf16 -> (1, out_f) bf16 for a q2_k or q3_k QTensor, per
+    16-col group g with scale s_g (and q2_k's min m_g) and bf16 group sum
+    xs_g. i8 (`_q2k_row_kernel_i8`, `_q3k_row_kernel_i8`): int8 activations
+    per group, exact int32 dots P_g with the codes (q2 0..3, q3 0..7), y =
+    sum_g P_g sx_g s_g - sum_g xs_g m_g (q2_k) or - 4 sum_g xs_g s_g
+    (q3_k). bf16 (`_q2k_row_kernel`, `_q3k_row_kernel`): the exact f32 dot
+    with the magic-number value over its power of two (q2 + 4, q3 + 8), so
+    the constant lands on the rounded group sum as in JAX: y = sum_g s_g
+    P_g - 4 sum_g xs_g s_g - sum_g xs_g m_g (q2_k) or - 12 sum_g xs_g s_g
+    (q3_k)."""
+    out_f, in_f = qt.shape
+    ng = in_f // 16
+    d = qt.data
+    v = (q2k_values(d["qs"]) if qt.kind == "q2_k"
+         else q3k_values(d["qs"], d["hmask"])).int().reshape(out_f, ng, 16)
+    s = d["scale"].float()
+    xq, sx, xsum = act_prep_plain(x, 16, i8)
+    xs = (xsum.float() * s).sum(dim=1)
+    if i8:
+        p = (v * xq.int().reshape(ng, 16)).sum(dim=2)  # exact int32
+        t = (p.float() * sx * s).sum(dim=1)
+        t = t - 4.0 * xs if qt.kind == "q3_k" else t
+    else:
+        off = 4 if qt.kind == "q2_k" else 8
+        p = ((v + off).float() * x.float().reshape(ng, 16)).sum(dim=2)
+        t = (s * p).sum(dim=1) - (4.0 if qt.kind == "q2_k" else 12.0) * xs
+    if qt.kind == "q2_k":
+        t = t - (xsum.float() * d["min"].float()).sum(dim=1)
+    return t.to(torch.bfloat16).reshape(1, out_f)
+
+
+def q23k_matvec(x: torch.Tensor, qt: QTensor, i8: bool) -> torch.Tensor:
+    """K12 wrapper (q2_k or q3_k). x (in_f,) bf16 contiguous -> (1, out_f)
+    bf16."""
+    if not x.is_cuda:
+        return q23k_matvec_plain(x, qt, i8)
+    out_f, in_f = qt.shape
+    if qt.kind not in _LOWBIT:
+        raise ValueError(f"K12 serves q2_k and q3_k, not {qt.kind}")
+    _check_operands(x[None], qt, "K12")
+    lib = _build.load("q23k_matvec", {
+        "k12_q23k_prep": _SIG_PREP,
+        "k12_q23k_matvec": [_build.I] + [_build.P] * 9 + [_build.I] * 3
+        + [_build.P]})
+    dev = x.device
+    xq = torch.empty(in_f, dtype=torch.int8, device=dev)
+    sx = torch.empty(in_f // 16, dtype=torch.float32, device=dev)
+    xsum = torch.empty(in_f // 16, dtype=torch.bfloat16, device=dev)
+    y = torch.empty((1, out_f), dtype=torch.bfloat16, device=dev)
+    st = _build.stream_ptr()
+    _build.check(lib, lib.k12_q23k_prep(x.data_ptr(), xq.data_ptr(),
+                                        sx.data_ptr(), xsum.data_ptr(),
+                                        in_f, int(i8), st), "K12 prep")
+    d = qt.data
+    _build.check(lib, lib.k12_q23k_matvec(
+        int(qt.kind == "q3_k"), d["qs"].data_ptr(), _ptr(d.get("hmask")),
+        d["scale"].data_ptr(), _ptr(d.get("min")), x.data_ptr(),
+        xq.data_ptr(), sx.data_ptr(), xsum.data_ptr(), y.data_ptr(), out_f,
+        in_f, int(i8), st), "K12")
+    _count("K12", qt)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# K3: q4_k / q5_k / q6_k / q8_0 tiled matmul (prefill); K13: its q2_k /
+# q3_k bodies
 # ---------------------------------------------------------------------------
 
 def _group_sums(x: torch.Tensor, group: int) -> torch.Tensor:
@@ -291,13 +369,18 @@ def _group_sums(x: torch.Tensor, group: int) -> torch.Tensor:
 
 
 def kq_dequant_bf16(qt: QTensor) -> torch.Tensor:
-    """The weight K3 feeds its product: bf16(q * scale), q the raw code
-    (q4_k nibble 0..15, q5_k value 0..31, q6_k value 0..63, q8_0 int8), as
-    `_q4k_kernel` / `_q5k_kernel` / `_q6k_kernel` / `_q8_0_kernel`."""
+    """The weight K3 / K13 feeds its product: bf16(q * scale), q the raw
+    code (q4_k nibble 0..15, q5_k value 0..31, q6_k value 0..63, q8_0 int8,
+    q2_k 0..3, q3_k 0..7), as `_q4k_kernel` / `_q5k_kernel` / `_q6k_kernel`
+    / `_q8_0_kernel` / `_q2k_kernel` / `_q3k_kernel`."""
     out_f, in_f = qt.shape
     d = qt.data
     if qt.kind == "q6_k":
         q = q6k_values(d["ql"], d["qh"]).float().reshape(out_f, -1, 16)
+    elif qt.kind in _LOWBIT:
+        q = (q2k_values(d["qs"]) if qt.kind == "q2_k"
+             else q3k_values(d["qs"], d["hmask"])).float().reshape(
+                 out_f, -1, 16)
     else:
         q = (q4k_values(d["qs2"]) if qt.kind == "q4_k"
              else q5k_values(d["qs2"], d["qh"]) if qt.kind == "q5_k"
@@ -307,43 +390,48 @@ def kq_dequant_bf16(qt: QTensor) -> torch.Tensor:
 
 
 def kq_matmul_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """x (T, in_f) bf16 -> (T, out_f) bf16; f32 accumulation."""
+    """x (T, in_f) bf16 -> (T, out_f) bf16; f32 accumulation. The affine
+    term over bf16 group sums: - min (q4_k, q5_k per 32 cols; q2_k per 16),
+    - 32 * scale (q6_k), - 4 * scale (q3_k)."""
     w = kq_dequant_bf16(qt).float()
     acc = torch.matmul(x.float(), w.t())
-    if qt.kind in ("q4_k", "q5_k"):
-        acc = acc - torch.matmul(_group_sums(x, 32).float(),
+    group = _K3_KINDS[qt.kind][3]
+    if "min" in qt.data:
+        acc = acc - torch.matmul(_group_sums(x, group).float(),
                                  qt.data["min"].float().t())
-    elif qt.kind == "q6_k":
-        acc = acc - 32.0 * torch.matmul(_group_sums(x, 16).float(),
-                                        qt.data["scale"].float().t())
+    elif group:
+        acc = acc - (32.0 if qt.kind == "q6_k" else 4.0) * torch.matmul(
+            _group_sums(x, group).float(), qt.data["scale"].float().t())
     return acc.to(torch.bfloat16)
 
 
 def kq_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """K3 wrapper. x (T, in_f) bf16 contiguous -> (T, out_f) bf16."""
+    """K3 / K13 wrapper. x (T, in_f) bf16 contiguous -> (T, out_f) bf16."""
     if not x.is_cuda:
         return kq_matmul_plain(x, qt)
     out_f, in_f = qt.shape
     T = x.shape[0]
-    _check_operands(x, qt, "K3")
+    what = "K13" if qt.kind in _LOWBIT else "K3"
+    _check_operands(x, qt, what)
     lib = _build.load("kq_matmul", {
         "k3_kq_matmul": [_build.I] + [_build.P] * 7 + [_build.I] * 3
         + [_build.P]})
     d = qt.data
-    kind, w0, group = _K3_KINDS[qt.kind]
+    kind, w0, w1, group = _K3_KINDS[qt.kind]
     xs = _group_sums(x, group) if group else None
     y = torch.empty((T, out_f), dtype=torch.bfloat16, device=x.device)
     _build.check(lib, lib.k3_kq_matmul(
-        kind, x.data_ptr(), _ptr(xs), d[w0].data_ptr(), _ptr(d.get("qh")),
-        d["scale"].data_ptr(), _ptr(d.get("min")), y.data_ptr(), T, out_f,
-        in_f, _build.stream_ptr()), "K3")
-    _count("K3", qt)
+        kind, x.data_ptr(), _ptr(xs), d[w0].data_ptr(),
+        _ptr(d[w1] if w1 else None), d["scale"].data_ptr(),
+        _ptr(d.get("min")), y.data_ptr(), T, out_f, in_f,
+        _build.stream_ptr()), what)
+    _count(what, qt)
     return y
 
 
 # ---------------------------------------------------------------------------
 # dispatch (mirrors quant_matmul.py:2041-2177 of the JAX package for
-# q4_k/q5_k/q6_k/q8_0 at its default settings)
+# q2_k/q3_k/q4_k/q5_k/q6_k/q8_0 at its default settings)
 # ---------------------------------------------------------------------------
 
 def matmul_packed(x: torch.Tensor, qt: QTensor) -> torch.Tensor | None:
@@ -354,12 +442,15 @@ def matmul_packed(x: torch.Tensor, qt: QTensor) -> torch.Tensor | None:
     T=1: q4_k/q5_k take K1 (int8 activations for in_f >= 512:
     `_q4k/_q5k_decode_kernel_i8`; bf16 below: `_q4k/_q5k_decode_kernel`),
     q6_k takes K2 (`_q6k_row_kernel_i8` / `_q6k_row_kernel`, the same
-    in_f rule), q8_0 takes K2.q8_0 (`_q8_0_row_kernel_i8`, every in_f).
+    in_f rule), q2_k/q3_k take K12 (`_q2k/_q3k_row_kernel_i8` /
+    `_q2k/_q3k_row_kernel`, the same rule), q8_0 takes K2.q8_0
+    (`_q8_0_row_kernel_i8`, every in_f).
     q4_k/q5_k at 2 <= T <= 8 take K7 (int8, while T * (in_f/64) * (in_f/2)
     <= 4 Mi and in_f >= 512: `_q4k/_q5k_decode_kernel_i8_t`) or at T <= 4
     the bf16 variant. Every other shape goes to K3 (`_q4k_kernel`,
-    `_q5k_kernel`, `_q6k_kernel`, `_q8_0_kernel`); q6_k and q8_0 thus take
-    K3 at every T > 1, the batched decode step included. The TPU-only VMEM
+    `_q5k_kernel`, `_q6k_kernel`, `_q8_0_kernel`; K13: `_q2k_kernel`,
+    `_q3k_kernel`); q6_k, q8_0, q2_k and q3_k thus take K3 / K13 at every
+    T > 1, the batched decode step included. The TPU-only VMEM
     row-tile checks that can also send a T=1 call to the 2-D kernel are not
     mirrored."""
     out_f, in_f = qt.shape
@@ -373,7 +464,8 @@ def matmul_packed(x: torch.Tensor, qt: QTensor) -> torch.Tensor | None:
         if qt.kind == "q8_0":
             y = q8_0_matvec(x2[0], qt)
         else:
-            fn = q4k_matvec if q45 else q6k_matvec
+            fn = (q4k_matvec if q45 else q23k_matvec if qt.kind in _LOWBIT
+                  else q6k_matvec)
             y = fn(x2[0], qt, i8=in_f >= 512)
         return y.reshape(*lead, out_f)
     if q45:

@@ -1,4 +1,4 @@
-"""The port's packing and dequant (q4_k, q5_k, q6_k, q8_0 and the GGUF
+"""The port's packing and dequant (q2_k, q3_k, q4_k, q5_k, q6_k, q8_0 and the GGUF
 types mapped onto them) against the JAX package's: the same GGUF bytes must
 pack into the same kind and dequantize to the same bits."""
 import json
@@ -80,7 +80,7 @@ def test_dequant_matches_jax_on_every_fixture(fmt):
                                GGMLType.Q8_0, GGMLType.Q4_0, GGMLType.Q4_1,
                                GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.IQ4_NL,
                                GGMLType.IQ4_XS, GGMLType.TQ1_0,
-                               GGMLType.TQ2_0],
+                               GGMLType.TQ2_0, GGMLType.Q2_K, GGMLType.Q3_K],
                          ids=lambda t: t.name)
 @pytest.mark.parametrize("in_f", [256, 512, 1024])
 def test_dequant_matches_jax_on_quantized(t, in_f):
@@ -152,17 +152,22 @@ def test_params_from_jax_converts_q5k_and_q8_0(t):
 
 
 def test_unported_packed_kinds_raise():
-    """Only the kinds of K12/K13 (q2_k, q3_k, the native IQ1-3 kinds) still
-    raise; Q5_K and Q8_0 pack (test_dequant_matches_jax_on_quantized)."""
+    """Only the native IQ1-3 kinds of K12/K13 still raise; Q2_K and Q3_K
+    pack to q2_k / q3_k (test_dequant_matches_jax_on_quantized holds their
+    dequant to JAX's), as Q5_K and Q8_0 do."""
     rng = np.random.default_rng(0)
     w = (rng.standard_normal((256, 256)) * 0.1).astype(np.float32)
-    for t in (GGMLType.Q2_K, GGMLType.Q3_K):
-        with pytest.raises(NotImplementedError, match="K12/K13"):
-            tlinear.from_gguf(quants.quantize(w, t), t, (256, 256))
+    for t, kind in ((GGMLType.Q2_K, "q2_k"), (GGMLType.Q3_K, "q3_k")):
+        assert tlinear.from_gguf(quants.quantize(w, t), t,
+                                 (256, 256)).kind == kind
     # 66 bytes per IQ2_XXS superblock: the packer refuses before reading them
     with pytest.raises(NotImplementedError, match="IQ2_XXS.*K12/K13"):
         tlinear.from_gguf(np.zeros((256, 66), np.uint8), GGMLType.IQ2_XXS,
                           (256, 256))
+    for t in (GGMLType.IQ3_XXS, GGMLType.IQ3_S, GGMLType.IQ2_XS,
+              GGMLType.IQ2_S, GGMLType.IQ1_S, GGMLType.IQ1_M):
+        with pytest.raises(NotImplementedError, match=f"{t.name}.*K12/K13"):
+            tlinear.from_gguf(np.zeros((256, 1), np.uint8), t, (256, 256))
     # a type the JAX package also dequantizes stays dense
     f16 = tlinear.from_gguf(w.astype(np.float16).view(np.uint8), GGMLType.F16,
                             (256, 256))

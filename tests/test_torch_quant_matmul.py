@@ -1,5 +1,6 @@
 """Plain versions of K1 (q4_k/q5_k matvec), K7 (q4_k/q5_k batched matvec),
-K2 (q6_k and q8_0 matvec) and K3 (q4_k/q5_k/q6_k/q8_0 tiled matmul) against
+K2 (q6_k and q8_0 matvec), K12 (q2_k/q3_k matvec), K3 (q4_k/q5_k/q6_k/q8_0
+tiled matmul) and K13 (its q2_k/q3_k bodies) against
 the JAX package's `matmul_packed` (Pallas kernels in interpret mode), on the
 same GGUF bytes and the same bf16 activations."""
 import jax.numpy as jnp
@@ -40,7 +41,8 @@ def _run_both(jq, tq, x):
 
 
 @pytest.mark.parametrize("t", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q5_K,
-                               GGMLType.Q8_0], ids=lambda t: t.name)
+                               GGMLType.Q8_0, GGMLType.Q2_K, GGMLType.Q3_K],
+                         ids=lambda t: t.name)
 @pytest.mark.parametrize("in_f", [256, 512, 1024])
 def test_matvec_plain_matches_jax(t, in_f):
     """T=1: bf16-activation variant below in_f 512, int8 above, as in JAX
@@ -69,7 +71,8 @@ def test_matvec_variant_follows_in_f():
 
 
 @pytest.mark.parametrize("t", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q5_K,
-                               GGMLType.Q8_0], ids=lambda t: t.name)
+                               GGMLType.Q8_0, GGMLType.Q2_K, GGMLType.Q3_K],
+                         ids=lambda t: t.name)
 @pytest.mark.parametrize("T", [16, 48])
 def test_tiled_matmul_plain_matches_jax(t, T):
     """T >= 16: both feed bf16(q * scale) weights and bf16 group sums to an
