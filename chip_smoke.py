@@ -6,9 +6,12 @@
    all at once) and prints the build time and the card's name and power
    limit;
 2. holds each kernel (K1, K2, K7, K3, K4, K5, K8, K6, K9, K10, the q5_k /
-   q8_0 bodies K1.q5_k, K7.q5_k, K2.q8_0, K3.q5_k, K3.q8_0, and the q2_k /
-   q3_k bodies K12.q2_k, K12.q3_k, K13.q2_k, K13.q3_k) against
-   its plain PyTorch version on the card at the TinyLlama-1.1B shapes (and
+   q8_0 bodies K1.q5_k, K7.q5_k, K2.q8_0, K3.q5_k, K3.q8_0, the q2_k /
+   q3_k bodies K12.q2_k, K12.q3_k, K13.q2_k, K13.q3_k, and the native IQ
+   bodies K12.iq2p, K12.iq3px, K12.iq3ps, K12.iq1p, K13.iq2p, K13.iq3px,
+   K13.iq3ps, K13.iq1p at scale groups G = 32, 16 (iq2p) and 8 (iq1p))
+   against its plain PyTorch version on the card at the TinyLlama-1.1B
+   shapes (and
    the fixtures' widths; K4 also at head_dim 128 and 256), with the max error
    against its stated tolerance and the times of the kernel, the plain
    version, one PyTorch library call computing the same function (where
@@ -40,20 +43,23 @@
    single-stream (checks that K2 ran) and with multiuser=4 (4 concurrent
    requests, each getting the reply it gets alone), each also with
    `--quantkv 1` (K6 single-stream, K9 multiuser);
-6. serves the synthetic 1.1B with q5_k, q8_0, q2_k and then q3_k weights:
-   single-stream (300-token prompt, 64 greedy tokens, 32 for q2_k / q3_k,
-   fast-forward to the same tokens, near-ties apart; K1.q5_k and K3.q5_k,
-   K2.q8_0 and K3.q8_0, K12 and K13) and batched (8 slots, 8 concurrent
-   requests of 32 new tokens, 16 for q2_k / q3_k: K7.q5_k, K3.q8_0, K13),
-   each batched request getting its single-stream tokens (q5_k) or the
-   tokens it gets alone through the batched engine (the other kinds);
+6. serves the synthetic 1.1B with q5_k, q8_0, q2_k, q3_k, iq2p, iq3px,
+   iq3ps and then iq1p weights (the IQ kinds at G = 32): single-stream
+   (300-token prompt, 64 greedy tokens, 32 for q2_k / q3_k / iq3px / iq3ps
+   / iq1p, fast-forward to the same tokens, near-ties apart; K1.q5_k and
+   K3.q5_k, K2.q8_0 and K3.q8_0, K12 and K13) and batched (8 slots, 8
+   concurrent requests of 32 new tokens, 16 for the half-depth kinds:
+   K7.q5_k, K3.q8_0, K13), each batched request getting its single-stream
+   tokens (q5_k) or the tokens it gets alone through the batched engine
+   (the other kinds);
 7. serves tiny-q8_0, -q5_1, -q4_0, -iq4_nl and -tq2_0, and
-   tests/fixtures/portgguf's tiny-q2_k and -q3_k_m, over HTTP, two
-   identical replies each through their kinds' bodies (K2.q8_0, K1.q5_k,
-   K1, K12, K13), tiny-q8_0, tiny-q5_1 and tiny-q2_k also with
-   multiuser=4; then holds the eight reference fixtures' logits on the card
-   against the reference runtime's goldens, and tiny-q2_k's and
-   tiny-q3_k_m's against the JAX package's committed logits;
+   tests/fixtures/portgguf's tiny-q2_k, -q3_k_m, -iq2_xs, -iq3_xxs and
+   -iq1_m, over HTTP, two identical replies each through their kinds'
+   bodies (K2.q8_0, K1.q5_k, K1, K12, K13), tiny-q8_0, tiny-q5_1, tiny-q2_k
+   and tiny-iq1_m also with multiuser=4; then holds the eight reference
+   fixtures' logits on the card against the reference runtime's goldens,
+   and the five portgguf fixtures' against the JAX package's committed
+   logits;
 8. last, since a profiler session slows every later decode of the
    process: the device idle share under torch.profiler of the synthetic
    1.1B q4_k, 64 fast-forwarded single-stream tokens (with that request's
@@ -86,8 +92,8 @@ from koboldcpp_tpu_torch.engine import batch_engine  # noqa: E402
 from koboldcpp_tpu_torch.models import llama  # noqa: E402
 from koboldcpp_tpu_torch.models.loader import load_model  # noqa: E402
 from koboldcpp_tpu_torch.models.synthetic import (  # noqa: E402
-    TINYLLAMA_1_1B, rand_q2k, rand_q3k, rand_q4k, rand_q5k, rand_q6k,
-    rand_q8_0, synthetic_model)
+    TINYLLAMA_1_1B, rand_iq, rand_q2k, rand_q3k, rand_q4k, rand_q5k,
+    rand_q6k, rand_q8_0, synthetic_model)
 from koboldcpp_tpu_torch.kv import paged  # noqa: E402
 from koboldcpp_tpu_torch.kv.cache import _dequant, _q8, init_cache  # noqa: E402
 from koboldcpp_tpu_torch.ops import _build, flash_decode  # noqa: E402
@@ -150,6 +156,23 @@ KERNELS = {
                  "koboldcpp_tpu/ops/quant_matmul.py:1176"),
     "K13.q3_k": ("kq_matmul q3_k", "koboldcpp_tpu_torch/csrc/kq_matmul.cu",
                  "koboldcpp_tpu/ops/quant_matmul.py:1196"),
+    # the native IQ bodies of the same two JAX functions
+    "K12.iq2p": ("iq_matvec iq2p", "koboldcpp_tpu_torch/csrc/iq_matvec.cu",
+                 "koboldcpp_tpu/ops/quant_matmul.py:942"),
+    "K12.iq3px": ("iq_matvec iq3px", "koboldcpp_tpu_torch/csrc/iq_matvec.cu",
+                  "koboldcpp_tpu/ops/quant_matmul.py:984"),
+    "K12.iq3ps": ("iq_matvec iq3ps", "koboldcpp_tpu_torch/csrc/iq_matvec.cu",
+                  "koboldcpp_tpu/ops/quant_matmul.py:984"),
+    "K12.iq1p": ("iq_matvec iq1p", "koboldcpp_tpu_torch/csrc/iq_matvec.cu",
+                 "koboldcpp_tpu/ops/quant_matmul.py:1010"),
+    "K13.iq2p": ("kq_matmul iq2p", "koboldcpp_tpu_torch/csrc/kq_matmul.cu",
+                 "koboldcpp_tpu/ops/quant_matmul.py:1038"),
+    "K13.iq3px": ("kq_matmul iq3px", "koboldcpp_tpu_torch/csrc/kq_matmul.cu",
+                  "koboldcpp_tpu/ops/quant_matmul.py:1062"),
+    "K13.iq3ps": ("kq_matmul iq3ps", "koboldcpp_tpu_torch/csrc/kq_matmul.cu",
+                  "koboldcpp_tpu/ops/quant_matmul.py:1062"),
+    "K13.iq1p": ("kq_matmul iq1p", "koboldcpp_tpu_torch/csrc/kq_matmul.cu",
+                 "koboldcpp_tpu/ops/quant_matmul.py:1079"),
 }
 NEAR_TIE = 2 ** -6  # logits this close may pick either token (bf16 steps)
 # greedy tokens per request in phases 3-4 (the q4_k main path); 64, not
@@ -350,6 +373,72 @@ def phase_kq_matmul(rng) -> None:
                         lambda: torch.matmul(x, w.t()),
                         _nbytes(*qt.data.values(), x) + T * out_f * 2,
                         2 * T * in_f * out_f)
+            del w
+
+
+# (kind, scale group G) -> the K12.iq cases (name, (out_f, in_f)) and the
+# K13.iq cases (name, (out_f, in_f), T); G = 32 is IQ2_XXS, IQ3_XXS/S and
+# IQ1_S, G = 16 IQ2_XS/S, G = 8 IQ1_M. T=1 goes to K12.iq from in_f 32 G
+# up; the narrow fixture shapes below that run K13.iq at T=1.
+_IQ_K12 = (("wo", (2048, 2048)), ("wk", (256, 2048)),
+           ("w_gateup", (11264, 2048)), ("w_down", (2048, 5632)),
+           ("output", (32000, 2048)))
+_IQ_K13 = tuple((name, shape, T) for name, shape in (
+    ("w_gateup", (11264, 2048)), ("w_down", (2048, 5632)))
+    for T in (8, 128, 512))
+IQ_CASES = (
+    ("iq2p", 32, _IQ_K12, _IQ_K13 + (("fixture wo", (256, 256), 1),)),
+    ("iq3px", 32, _IQ_K12, _IQ_K13 + (("fixture w_gateup", (1024, 256), 1),)),
+    ("iq3ps", 32, _IQ_K12, _IQ_K13),
+    ("iq1p", 32, _IQ_K12, _IQ_K13),
+    ("iq2p", 16, _IQ_K12[2:4] + (("fixture ffn_down", (256, 512)),),
+     _IQ_K13[:3]),
+    ("iq1p", 8, _IQ_K12[2:4] + (("fixture w_gateup", (1024, 256)),),
+     _IQ_K13[:3]))
+
+
+def phase_iq_kernels(rng) -> None:
+    """K12.iq and K13.iq for each IQ kind (IQ_CASES) at the 1.1B shapes, T
+    = 1 (K12.iq; K13.iq at the narrow fixture shapes) and T = 8 / 128 / 512
+    (K13.iq), with G = 16 (iq2p) and G = 8 (iq1p) beside G = 32."""
+    for kind, G, k12_cases, k13_cases in IQ_CASES:
+        for name, (out_f, in_f) in k12_cases:
+            qt = rand_iq(rng, out_f, in_f, DEV, kind, G)
+            x = torch.from_numpy(rng.standard_normal(in_f).astype(
+                np.float32)).to(DEV).bfloat16()
+            y = qm.iq_matvec(x, qt)
+            ref = qm.iq_matvec_plain(x, qt)
+            torch.cuda.synchronize()
+            # exact int32 group dots on both sides; f32 sums in another
+            # order, bf16 output: one bf16 rounding step of the largest |y|
+            err = (y.float() - ref.float()).abs().max().item()
+            tol = 2 ** -7 * ref.float().abs().max().item()
+            w = dequant(qt)
+            xr = x.view(1, in_f)
+            _record(f"K12.{kind}", f"G={G} {name} {out_f}x{in_f} T=1", err,
+                    tol, lambda: qm.iq_matvec(x, qt),
+                    lambda: qm.iq_matvec_plain(x, qt),
+                    lambda: torch.matmul(xr, w.t()),
+                    _nbytes(*qt.data.values(), x) + out_f * 2)
+            del w
+        for name, (out_f, in_f), T in k13_cases:
+            qt = rand_iq(rng, out_f, in_f, DEV, kind, G)
+            x = torch.from_numpy((rng.standard_normal((T, in_f)) * 0.5)
+                                 .astype(np.float32)).to(DEV).bfloat16()
+            y = qm.kq_matmul(x, qt)
+            ref = qm.kq_matmul_plain(x, qt)
+            torch.cuda.synchronize()
+            # the same bf16(v * s) weights and group sums, f32 accumulation
+            # in another order, bf16 output: one rounding step of max |y|
+            err = (y.float() - ref.float()).abs().max().item()
+            tol = 2 ** -7 * ref.float().abs().max().item()
+            w = dequant(qt)
+            _record(f"K13.{kind}", f"G={G} {name} {out_f}x{in_f} T={T}", err,
+                    tol, lambda: qm.kq_matmul(x, qt),
+                    lambda: qm.kq_matmul_plain(x, qt),
+                    lambda: torch.matmul(x, w.t()),
+                    _nbytes(*qt.data.values(), x) + T * out_f * 2,
+                    2 * T * in_f * out_f)
             del w
 
 
@@ -1074,11 +1163,16 @@ NEW_KINDS = (
     ("q5_k", 64, 32, ("K1.q5_k", "K3.q5_k"), ("K7.q5_k",), True),
     ("q8_0", 64, 32, ("K2.q8_0", "K3.q8_0"), ("K3.q8_0",), False),
     ("q2_k", 32, 16, ("K12.q2_k", "K13.q2_k"), ("K13.q2_k",), False),
-    ("q3_k", 32, 16, ("K12.q3_k", "K13.q3_k"), ("K13.q3_k",), False))
+    ("q3_k", 32, 16, ("K12.q3_k", "K13.q3_k"), ("K13.q3_k",), False),
+    ("iq2p", 64, 32, ("K12.iq2p", "K13.iq2p"), ("K13.iq2p",), False),
+    ("iq3px", 32, 16, ("K12.iq3px", "K13.iq3px"), ("K13.iq3px",), False),
+    ("iq3ps", 32, 16, ("K12.iq3ps", "K13.iq3ps"), ("K13.iq3ps",), False),
+    ("iq1p", 32, 16, ("K12.iq1p", "K13.iq1p"), ("K13.iq1p",), False))
 
 
 def phase_new_kinds(card: str) -> dict:
-    """The synthetic 1.1B with q5_k, q8_0, q2_k and q3_k weights (NEW_KINDS):
+    """The synthetic 1.1B with q5_k, q8_0, q2_k, q3_k and the IQ kinds'
+    weights (NEW_KINDS):
     single-stream through Engine on the bf16 cache (a 300-token prompt,
     greedy tokens, the same prompt again: fast-forward, the same tokens
     near-ties apart), then 8 concurrent greedy requests of 100-300 prompt
@@ -1330,7 +1424,12 @@ def phase_served_fixture() -> dict:
 # each served fixture (directory, format) -> the kernel bodies its packed
 # kinds run single-stream, and the body of a multiuser=4 run (None: no
 # multiuser run). tiny-q2_k holds q2_k and q3_k tensors (Q3_K attn_v,
-# attn_output, ffn_down), tiny-q3_k_m q3_k only; Q6_K output everywhere.
+# attn_output, ffn_down), tiny-q3_k_m q3_k only; Q6_K output in those.
+# tiny-iq2_xs: IQ2_XS (G = 16: K12.iq2p for the 512-wide ffn_down, K13.iq2p
+# at T=1 for the 256-wide rest); tiny-iq3_xxs: IQ3_XXS gate/up, IQ3_S
+# attn_v / attn_output, IQ2_S attn_q / attn_k (all K13 at in_f 256);
+# tiny-iq1_m: IQ1_M (G = 8: K12.iq1p from in_f 256), IQ2_XXS attn_output
+# (K13.iq2p); Q5_K output in the three.
 SERVED_KINDS = ((FIX, "q8_0", ("K2.q8_0",), "K3.q8_0"),
                 (FIX, "q5_1", ("K1.q5_k",), "K7.q5_k"),
                 (FIX, "q4_0", ("K1",), None),
@@ -1338,16 +1437,22 @@ SERVED_KINDS = ((FIX, "q8_0", ("K2.q8_0",), "K3.q8_0"),
                 (FIX, "tq2_0", ("K2.q8_0",), None),
                 (PORT_FIX, "q2_k", ("K12.q2_k", "K12.q3_k", "K13.q2_k"),
                  "K13.q2_k"),
-                (PORT_FIX, "q3_k_m", ("K12.q3_k", "K13.q3_k"), None))
+                (PORT_FIX, "q3_k_m", ("K12.q3_k", "K13.q3_k"), None),
+                (PORT_FIX, "iq2_xs", ("K12.iq2p", "K13.iq2p"), None),
+                (PORT_FIX, "iq3_xxs", ("K13.iq2p", "K13.iq3px", "K13.iq3ps"),
+                 None),
+                (PORT_FIX, "iq1_m", ("K12.iq1p", "K13.iq1p", "K13.iq2p"),
+                 "K13.iq1p"))
 
 
 def phase_served_kinds() -> dict:
     """The fixtures whose weights pack as q8_0 (Q8_0, IQ4_NL, TQ2_0), q5_k
-    (Q5_1), q4_k (Q4_0), q2_k (Q2_K) and q3_k (Q3_K_M, and the Q2_K file's
-    Q3_K tensors), served over HTTP single-stream at temperature 0: two
-    identical replies each, through the bodies of the fixture's kinds;
-    tiny-q8_0, tiny-q5_1 and tiny-q2_k also with multiuser=4 (each request
-    getting the reply it gets alone; K3.q8_0 / K7.q5_k / K13.q2_k)."""
+    (Q5_1), q4_k (Q4_0), q2_k (Q2_K), q3_k (Q3_K_M, and the Q2_K file's
+    Q3_K tensors) and the IQ kinds (IQ2_XS, IQ3_XXS, IQ1_M), served over
+    HTTP single-stream at temperature 0: two identical replies each,
+    through the bodies of the fixture's kinds; tiny-q8_0, tiny-q5_1,
+    tiny-q2_k and tiny-iq1_m also with multiuser=4 (each request getting
+    the reply it gets alone; K3.q8_0 / K7.q5_k / K13.q2_k / K13.iq1p)."""
     from koboldcpp_tpu_torch.server.app import ServerSettings
 
     body = {"prompt": "The gradient of a function, e.g. f(x), points",
@@ -1399,7 +1504,8 @@ def _fixture_logits(path: str, tokens: list[int]) -> np.ndarray:
 def check_fixture_goldens() -> None:
     """Each reference fixture's logits on the card against the reference
     runtime's goldens at tests/test_ref_gguf_fixtures.py's tolerances; then
-    the Q2_K and Q3_K_M fixtures' against the JAX package's committed logits
+    the Q2_K, Q3_K_M, IQ2_XS, IQ3_XXS and IQ1_M fixtures' against the JAX
+    package's committed logits
     (tests/fixtures/portgguf, no reference-runtime goldens exist for them)
     at tests/test_torch_lowbit.py's 1e-2 (|err| <= 1e-2 + 1e-2 |want|)."""
     manifest = json.load(open(os.path.join(FIX, "manifest.json")))
@@ -1445,7 +1551,7 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     for phase in (phase_matvec, phase_batched_matvec, phase_kq_matmul,
-                  phase_flash_prefill, phase_flash_decode,
+                  phase_iq_kernels, phase_flash_prefill, phase_flash_decode,
                   phase_paged_flash_decode, phase_quant_decode):
         _timed(phase, rng)
     torch.cuda.synchronize()

@@ -1,21 +1,24 @@
 // K3: q4_k / q5_k / q6_k / q8_0 tiled matmul for prefill, y (T, out_f)
 // bf16 = x (T, in_f) bf16 . W^T with f32 accumulation; K13: its q2_k /
-// q3_k bodies.
+// q3_k and native IQ (iq2p / iq3px / iq3ps / iq1p) bodies.
 //
 // Replaces koboldcpp_tpu/ops/quant_matmul.py `_packed_matmul_2d`: bodies
 // `_q4k_kernel` (the default KCPP_Q4K_2D=sexp), `_q5k_kernel`, `_q6k_kernel`
-// and `_q8_0_kernel` (K3), `_q2k_kernel` and `_q3k_kernel` (K13). As there,
-// the weight fed to the product is bf16(q * scale) (q4_k: the nibble 0..15;
+// and `_q8_0_kernel` (K3), `_q2k_kernel`, `_q3k_kernel`, `_iq2p_kernel`,
+// `_iq3p_kernel` (iq3px and iq3ps) and `_iq1p_kernel` (K13). As there, the
+// weight fed to the product is bf16(q * scale) (q4_k: the nibble 0..15;
 // q5_k: the nibble with its 5th bit, 0..31; q6_k: the 6-bit value 0..63;
 // q8_0: the int8 code; q2_k: the 2-bit code 0..3; q3_k: the 2-bit code with
-// its hmask bit, 0..7), and the affine part is a second, small product over
-// per-group sums of x: q4_k and q5_k subtract xsum_bf16 . min (groups of
-// 32), q2_k xsum_bf16 . min (groups of 16), q6_k 32 * xsum_bf16 . scale and
-// q3_k 4 * xsum_bf16 . scale (groups of 16), q8_0 has none. Both terms run
-// through the same tensor-core loop: the K loop first walks in_f with B =
-// the dequantized weight tile, then walks the groups with A = the group
-// sums and B = -min (q4_k, q5_k, q2_k), -32*scale (q6_k) or -4*scale
-// (q3_k), all exact in bf16.
+// its hmask bit, 0..7; the IQ kinds: the signed alphabet value, |v| <= 62,
+// with the scale of its group of G = 8, 16 or 32), and the affine part is
+// a second, small product over per-group sums of x: q4_k and q5_k subtract
+// xsum_bf16 . min (groups of 32), q2_k xsum_bf16 . min (groups of 16),
+// iq1p xsum_bf16 . min (groups of G), q6_k 32 * xsum_bf16 . scale and q3_k
+// 4 * xsum_bf16 . scale (groups of 16), q8_0 and iq2p / iq3px / iq3ps
+// have none. Both terms run through the same tensor-core loop: the K loop
+// first walks in_f with B = the dequantized weight tile, then walks the
+// groups with A = the group sums and B = -min (q4_k, q5_k, q2_k, iq1p),
+// -32*scale (q6_k) or -4*scale (q3_k), all exact in bf16.
 //
 // Bound on the H100: operations at T=512 (2*T*in*out bf16 FLOPs over
 // 989 TFLOP/s), bytes at small T. Design: a 64x64 output tile per block of
@@ -24,7 +27,8 @@
 // accumulators (mma.sync underneath). No TMA / wgmma / multi-stage
 // pipeline yet.
 // Launch counters: ops/_build.launches["K3"] (q4_k, q6_k), ["K3.q5_k"],
-// ["K3.q8_0"], ["K13.q2_k"] and ["K13.q3_k"], one per matmul.
+// ["K3.q8_0"], ["K13.q2_k"], ["K13.q3_k"], ["K13.iq2p"], ["K13.iq3px"],
+// ["K13.iq3ps"] and ["K13.iq1p"], one per matmul.
 #include <mma.h>
 
 #include "common.cuh"
@@ -33,18 +37,23 @@ using namespace nvcuda;
 
 constexpr int BM = 64, BN = 64, BK = 32, LDS = BK + 8, LDC = BN + 4;
 
-// 0 = q4_k, 1 = q6_k, 2 = q5_k, 3 = q8_0, 4 = q2_k, 5 = q3_k
+// 0 = q4_k, 1 = q6_k, 2 = q5_k, 3 = q8_0, 4 = q2_k, 5 = q3_k, 6 = iq2p,
+// 7 = iq3px, 8 = iq3ps, 9 = iq1p
 template <int KIND>
 __global__ void __launch_bounds__(128)
 kq_matmul_kernel(const __nv_bfloat16* __restrict__ x,
                  const __nv_bfloat16* __restrict__ xs,
-                 // qs2 | ql | qs2 | q | qs | qs
+                 // qs2 | ql | qs2 | q | qs | qs | qs (IQ kinds)
                  const uint8_t* __restrict__ w0,
-                 // - | qh | qh bits | - | - | hmask
+                 // - | qh | qh bits | - | - | hmask | iq3px/iq3ps hmask
                  const uint8_t* __restrict__ w1,
+                 // iq2p / iq3px / iq3ps sg
+                 const uint8_t* __restrict__ w2,
                  const __nv_bfloat16* __restrict__ scale,
-                 const __nv_bfloat16* __restrict__ mn,  // q4_k/q5_k/q2_k min
-                 __nv_bfloat16* __restrict__ y, int T, int out_f, int in_f) {
+                 // q4_k / q5_k / q2_k / iq1p min
+                 const __nv_bfloat16* __restrict__ mn,
+                 __nv_bfloat16* __restrict__ y, int T, int out_f, int in_f,
+                 int grp) {  // the IQ kinds' scale group G (8, 16, 32)
     __shared__ __align__(32) __nv_bfloat16 As[BM][LDS];
     __shared__ __align__(32) __nv_bfloat16 Bs[BN][LDS];
     __shared__ __align__(32) float Cs[BM][LDC];
@@ -52,9 +61,11 @@ kq_matmul_kernel(const __nv_bfloat16* __restrict__ x,
     const int tid = threadIdx.x, warp = tid >> 5;
     const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
     const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-    // affine-term groups (none for q8_0)
+    // affine-term groups (none for q8_0, iq2p, iq3px, iq3ps)
     constexpr bool G16 = KIND == 1 || KIND == 4 || KIND == 5;
-    const int G = G16 ? in_f / 16 : KIND == 3 ? 0 : in_f / 32;
+    constexpr bool IQ = KIND >= 6;
+    const int G = G16 ? in_f / 16 : KIND == 9 ? in_f / grp
+                : (KIND == 3 || IQ) ? 0 : in_f / 32;
     const int nk1 = in_f / BK, nk2 = (G + BK - 1) / BK;
 
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
@@ -112,6 +123,39 @@ kq_matmul_kernel(const __nv_bfloat16* __restrict__ x,
                     const int8_t q = (int8_t)((ws[e >> 2] >> (8 * (e & 3))) & 0xFFu);
                     Bs[r][c16 + e] = f2bf((float)q * s);
                 }
+            } else if (IQ) {
+                // cols k0+c16 .. +15 are l = c16 .. c16+15 of plane j, half
+                // h; the first 8 lie in group (k0+c16)/grp, the last 8 in
+                // (k0+c16+8)/grp (the same group unless grp == 8)
+                const int h = within / 128, j = (within % 128) / 32;
+                const uint4 qv = *reinterpret_cast<const uint4*>(
+                    w0 + (size_t)orow * (in_f / 4) + sb * 64 + h * 32 + c16);
+                const uint32_t qw[4] = {qv.x, qv.y, qv.z, qv.w};
+                const size_t off8 = (size_t)orow * (in_f / 8) + sb * 32 + c16;
+                uint32_t hw[4] = {0u, 0u, 0u, 0u}, sw[4] = {0u, 0u, 0u, 0u};
+                if (KIND == 7 || KIND == 8) {
+                    const uint4 hv = *reinterpret_cast<const uint4*>(w1 + off8);
+                    hw[0] = hv.x; hw[1] = hv.y; hw[2] = hv.z; hw[3] = hv.w;
+                }
+                if (KIND != 9) {
+                    const uint4 sv = *reinterpret_cast<const uint4*>(w2 + off8);
+                    sw[0] = sv.x; sw[1] = sv.y; sw[2] = sv.z; sw[3] = sv.w;
+                }
+                const __nv_bfloat16* srow = scale + (size_t)orow * (in_f / grp);
+                const float s_lo = bf2f(srow[(k0 + c16) / grp]);
+                const float s_hi = bf2f(srow[(k0 + c16 + 8) / grp]);
+#pragma unroll
+                for (int e = 0; e < 16; ++e) {
+                    const int sh = 8 * (e & 3), bit = sh + 4 * h + j;
+                    int q = (int)((qw[e >> 2] >> (sh + 2 * j)) & 3u);
+                    if (KIND == 7 || KIND == 8)
+                        q |= (int)((hw[e >> 2] >> bit) & 1u) << 2;
+                    int v = KIND == 6 ? 8 + 17 * q + (q >> 1)
+                          : KIND == 7 ? (q == 7 ? 62 : 4 + 8 * q)
+                          : KIND == 8 ? 2 * q + 1 : q - 1;
+                    if (KIND != 9 && ((sw[e >> 2] >> bit) & 1u)) v = -v;
+                    Bs[r][c16 + e] = f2bf((float)v * (e < 8 ? s_lo : s_hi));
+                }
             } else if (KIND == 4 || KIND == 5) {
                 // cols k0+c16 .. +15 are l = c16 .. c16+15 of plane j, half h
                 const int h = within / 128, j = (within % 128) / 32;
@@ -156,7 +200,7 @@ kq_matmul_kernel(const __nv_bfloat16* __restrict__ x,
             }
         } else {
             // affine term: A = group sums of x, B = -min | -32 * scale |
-            // -4 * scale (never reached for q8_0: G = 0)
+            // -4 * scale (never reached for q8_0, iq2p, iq3px, iq3ps: G = 0)
             const int g0 = (kt - nk1) * BK + c16;
 #pragma unroll
             for (int e = 0; e < 16; ++e) {
@@ -210,18 +254,23 @@ kq_matmul_kernel(const __nv_bfloat16* __restrict__ x,
 
 // x (T, in_f) bf16, xs (T, G) bf16 group sums; q4_k: w0=qs2, mn=min;
 // q6_k: w0=ql, w1=qh; q5_k: w0=qs2, w1=qh (bit plane), mn=min; q8_0: w0=q,
-// no xs; q2_k: w0=qs, mn=min; q3_k: w0=qs, w1=hmask. y (T, out_f) bf16.
-// out_f % 64 == 0, in_f % 256 == 0.
+// no xs; q2_k: w0=qs, mn=min; q3_k: w0=qs, w1=hmask; iq2p: w0=qs, w2=sg,
+// no xs; iq3px / iq3ps: w0=qs, w1=hmask, w2=sg, no xs; iq1p: w0=qs,
+// mn=min, xs per group of grp. grp: the IQ kinds' scale group (8, 16 or
+// 32; ignored by the other kinds). y (T, out_f) bf16. out_f % 64 == 0,
+// in_f % 256 == 0.
 KCPP_API int k3_kq_matmul(int kind, const void* x, const void* xs,
-                          const void* w0, const void* w1, const void* scale,
-                          const void* mn, void* y, int T, int out_f, int in_f,
-                          void* stream) {
+                          const void* w0, const void* w1, const void* w2,
+                          const void* scale, const void* mn, void* y, int T,
+                          int out_f, int in_f, int grp, void* stream) {
+    if (kind >= 6 && grp != 8 && grp != 16 && grp != 32)
+        return (int)cudaErrorInvalidValue;
     dim3 grid(out_f / BN, (T + BM - 1) / BM);
     cudaStream_t st = (cudaStream_t)stream;
 #define K3_ARGS (const __nv_bfloat16*)x, (const __nv_bfloat16*)xs, \
-        (const uint8_t*)w0, (const uint8_t*)w1, \
+        (const uint8_t*)w0, (const uint8_t*)w1, (const uint8_t*)w2, \
         (const __nv_bfloat16*)scale, (const __nv_bfloat16*)mn, \
-        (__nv_bfloat16*)y, T, out_f, in_f
+        (__nv_bfloat16*)y, T, out_f, in_f, grp
     switch (kind) {
         case 0: kq_matmul_kernel<0><<<grid, 128, 0, st>>>(K3_ARGS); break;
         case 1: kq_matmul_kernel<1><<<grid, 128, 0, st>>>(K3_ARGS); break;
@@ -229,6 +278,10 @@ KCPP_API int k3_kq_matmul(int kind, const void* x, const void* xs,
         case 3: kq_matmul_kernel<3><<<grid, 128, 0, st>>>(K3_ARGS); break;
         case 4: kq_matmul_kernel<4><<<grid, 128, 0, st>>>(K3_ARGS); break;
         case 5: kq_matmul_kernel<5><<<grid, 128, 0, st>>>(K3_ARGS); break;
+        case 6: kq_matmul_kernel<6><<<grid, 128, 0, st>>>(K3_ARGS); break;
+        case 7: kq_matmul_kernel<7><<<grid, 128, 0, st>>>(K3_ARGS); break;
+        case 8: kq_matmul_kernel<8><<<grid, 128, 0, st>>>(K3_ARGS); break;
+        case 9: kq_matmul_kernel<9><<<grid, 128, 0, st>>>(K3_ARGS); break;
         default: return (int)cudaErrorInvalidValue;
     }
 #undef K3_ARGS

@@ -11,8 +11,13 @@ back into the logical `scale`, q5_k's `hb` (bit 0: the 5th bit of col
 port's `qh` bit plane; q2_k's and q3_k's raw 2-bit stream `qs2` becomes
 `qs`, their plane-major `scale_p` / `min_p` go back to logical group order,
 and q3_k's `hm2` (bit j of byte (2s+h, l): the 3rd bit of col
-256s+128h+32j+l) becomes ggml's `hmask` (bit 4h+j of byte 32s+l); every TPU
-sidecar field is dropped.
+256s+128h+32j+l) becomes ggml's `hmask` (bit 4h+j of byte 32s+l); the IQ
+kinds' `qs2` (already q2_k's stream order) becomes `qs`, iq2p's half-split
+sign sidecar `sg` and iq3's per-byte `hs` (bits 0-3: the code's 3rd bit of
+plane j, bits 4-7: its sign) become the port's hmask-ordered `sg` and
+`hmask`, and their plane-major `scale_p` / `min_p` go back to logical group
+order (the inverse of `pack_iq_native`'s `lg` map); every TPU sidecar field
+is dropped.
 """
 from __future__ import annotations
 
@@ -21,12 +26,12 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..ops.linear import QTensor
+from ..ops.linear import IQ_KINDS, QTensor, _hmask_stream
 from .synthetic import plane_major_to_logical
 
 _KEEP = {"dense": ("w",), "q4_k": ("qs2", "min"), "q5_k": ("qs2", "min"),
          "q6_k": ("ql", "qh", "scale"), "q8_0": ("q", "scale"),
-         "q2_k": (), "q3_k": ()}
+         "q2_k": (), "q3_k": (), **{k: () for k in IQ_KINDS}}
 
 
 def _tensor(a: Any, device) -> torch.Tensor:
@@ -37,11 +42,44 @@ def _tensor(a: Any, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True, order="C")).to(device)
 
 
+def _iq_fields(v: Any, device) -> dict:
+    """The port's fields of a JAX iq2p / iq3px / iq3ps / iq1p QTensor."""
+    rows, cols = v.shape
+    nblk = cols // 128
+    data = {"qs": _tensor(v.data["qs2"], device)}
+    if v.kind == "iq2p":
+        # bit j of sg byte e: plane j position e, bit 4+j: position e + C/8;
+        # plane j position 32 blk + l is logical col 128 blk + 32 j + l
+        sg = np.asarray(v.data["sg"])
+        sign = np.stack([np.concatenate([(sg >> j) & 1, (sg >> (4 + j)) & 1],
+                                        axis=1).reshape(rows, nblk, 32)
+                         for j in range(4)], axis=2)
+        data["sg"] = torch.from_numpy(_hmask_stream(sign.reshape(
+            rows, cols))).to(device)
+    elif v.kind != "iq1p":
+        hs = np.asarray(v.data["hs"]).reshape(rows, nblk, 1, 32)
+        j = np.arange(4, dtype=np.uint8)[None, None, :, None]
+        for name, shift in (("hmask", 0), ("sg", 4)):
+            data[name] = torch.from_numpy(_hmask_stream(
+                ((hs >> (j + shift)) & 1).reshape(rows, cols))).to(device)
+    n_g = np.asarray(v.data["scale_p"]).shape[1]
+    m, n_p = 32 // (cols // n_g), n_g // 4
+    k_idx = np.tile(np.arange(n_p), 4)
+    lg = 4 * m * (k_idx // m) + m * np.repeat(np.arange(4), n_p) + k_idx % m
+    inv = np.argsort(lg)
+    for name, src in (("scale", "scale_p"), ("min", "min_p")):
+        if src in v.data:
+            data[name] = _tensor(np.asarray(v.data[src])[:, inv], device)
+    return data
+
+
 def _qtensor(v: Any, device) -> QTensor:
     kind = v.kind
     if kind not in _KEEP:
         raise NotImplementedError(f"QTensor kind {kind} is not ported yet")
     data = {n: _tensor(v.data[n], device) for n in _KEEP[kind]}
+    if kind in IQ_KINDS:
+        data = _iq_fields(v, device)
     if kind in ("q4_k", "q5_k"):
         rows = v.shape[0]
         slo = _tensor(v.data["scale_lo"], device).reshape(rows, -1, 4)

@@ -5,10 +5,14 @@ directly from seeded random bytes + small scales, drawing the same field
 values from the same numpy seed as the JAX package's makers (q8_0: scales
 / 8, see rand_q8_0; q3_k: scales / 2, see rand_q3k), minus the TPU-only sidecar fields and in the port's
 logical layouts; q5_k, which the JAX package has no maker for, packs random
-GGUF blocks. Byte-layout-identical
+GGUF blocks, and the IQ kinds (iq2p, iq3px, iq3ps, iq1p; no JAX maker
+either) draw codes, signs and scales straight into the port's layout (see
+rand_iq). Byte-layout-identical
 to GGUF-loaded weights, so kernels see the real memory traffic.
 """
 from __future__ import annotations
+
+from functools import partial
 
 import numpy as np
 import torch
@@ -139,15 +143,66 @@ def rand_q3k(rng, out_f: int, in_f: int, device="cpu") -> QTensor:
     })
 
 
+# the largest per-group scale of each IQ kind's maker: weights of rms ~0.006
+# with scales uniform in [0, max) (see rand_iq)
+_IQ_SCALE_MAX = {"iq2p": 3.75e-4, "iq3px": 2.8e-4, "iq3ps": 1.125e-3,
+                 "iq1p": 0.0145}
+# byte -> the same byte with each 2-bit code 3 (outside the iq2p / iq1p
+# alphabets) replaced by 1
+_NO_CODE3 = np.array([sum((1 if (b >> s) & 3 == 3 else (b >> s) & 3) << s
+                          for s in (0, 2, 4, 6)) for b in range(256)],
+                     np.uint8)
+
+
+def rand_iq(rng, out_f: int, in_f: int, device="cpu", kind: str = "iq2p",
+            group: int = 32) -> QTensor:
+    """A synthetic IQ QTensor (iq2p / iq3px / iq3ps / iq1p, scale group G =
+    group: 32 as IQ2_XXS, IQ3_XXS/S and IQ1_S; 16 as IQ2_XS/S; 8 as IQ1_M),
+    drawn straight into the port's layout: random code bytes (iq2p and iq1p
+    codes 3 -> 1, so codes 0/1/2 come 1/4, 1/2, 1/4), random 3rd-bit and
+    sign bytes, bf16 scales uniform in [0, _IQ_SCALE_MAX[kind]) and, for
+    iq1p, a delta of +-0.125 per group (min = -(scale * delta)). The
+    spread: value rms ~28.1 (iq2p), ~37.3 (iq3px), ~9.2 (iq3ps), ~0.72
+    (iq1p, with its delta) times the scale rms max/sqrt(3) gives weights
+    of rms ~0.006, half the q4_k maker's rms: at rms ~0.012 the
+    22-layer 1.1B in iq2p turned the flash-against-plain
+    attention difference of a fast-forwarded token into other greedy
+    tokens three bf16 steps apart (logits 2.33 / 2.38, step 23 of 64), as
+    the JAX q8_0 and q3_k draws did before rand_q8_0 and rand_q3k cut
+    their scales.
+    The JAX package has no IQ maker; running `iq_decompose` over ~1 B
+    weights would take minutes."""
+    ng = in_f // group
+    scale = (rng.random((out_f, ng), dtype=np.float32)
+             * np.float32(_IQ_SCALE_MAX[kind]))
+    qs = rng.integers(0, 256, size=(out_f, in_f // 4), dtype=np.uint8)
+    data = {"qs": _u8(_NO_CODE3[qs] if kind in ("iq2p", "iq1p") else qs,
+                      device),
+            "scale": _bf16(scale, device)}
+    if kind in ("iq3px", "iq3ps"):
+        data["hmask"] = _u8(rng.integers(0, 256, size=(out_f, in_f // 8),
+                                         dtype=np.uint8), device)
+    if kind == "iq1p":
+        delta = np.where(rng.random((out_f, ng)) < 0.5, np.float32(-0.125),
+                         np.float32(0.125))
+        data["min"] = _bf16(-(scale * delta), device)
+    else:
+        data["sg"] = _u8(rng.integers(0, 256, size=(out_f, in_f // 8),
+                                      dtype=np.uint8), device)
+    return QTensor(kind=kind, shape=(out_f, in_f), data=data)
+
+
 _MAKERS = {"q2_k": rand_q2k, "q3_k": rand_q3k, "q4_k": rand_q4k,
-           "q5_k": rand_q5k, "q6_k": rand_q6k, "q8_0": rand_q8_0}
+           "q5_k": rand_q5k, "q6_k": rand_q6k, "q8_0": rand_q8_0,
+           **{k: partial(rand_iq, kind=k)
+              for k in ("iq2p", "iq3px", "iq3ps", "iq1p")}}
 
 
 def synthetic_params(cfg: ModelConfig, kind: str = "q4_k", seed: int = 0,
                      device=None) -> dict:
     """A full llama params dict with synthetic weights on `device` (default
     cuda). kind: "dense" | "q2_k" | "q3_k" | "q4_k" | "q5_k" | "q6_k" |
-    "q8_0" for the big
+    "q8_0" | "iq2p" | "iq3px" | "iq3ps" | "iq1p" (G = 32) for the big
     matmul weights (embeddings and norms stay dense, as the GGUF loader
     keeps them)."""
     dev = resolve_device(device)

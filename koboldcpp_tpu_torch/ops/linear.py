@@ -25,11 +25,23 @@ TPU-specific transposed or plane-major sidecars):
         high-bit mask (bit 4h+j of hmask[32s+l] is the 3rd bit of element
         256s+128h+32j+l); scale (out, in/16) bf16, the signed 6-bit
         sub-scale times d; w = (q3-4)*scale with q3 = q2 | bit << 2.
+  iq2p / iq3px / iq3ps / iq1p (the native IQ1-3 kinds): per-element codes
+        decoded by arithmetic, no grid lookup. qs (out, in/4) u8 holds 2-bit
+        codes in q2_k's stream order; iq3px / iq3ps add the code's 3rd bit
+        in hmask (out, in/8) u8, q3_k's hmask order; iq2p / iq3px / iq3ps
+        keep the sign bit in sg (out, in/8) u8, the same order. The value of
+        code c is 8 + 17c + (c >> 1) in {8, 25, 43} (iq2p), 4 + 8c with 62
+        at c = 7 (iq3px), 2c + 1 (iq3ps), c - 1 in {-1, 0, 1} (iq1p, no
+        sign); scale (out, in/G) bf16 per group of G = 8, 16 or 32 columns
+        in logical group order, and iq1p's min (out, in/G) bf16 = -(scale *
+        delta); w = v * scale (- min).
 GGUF types map onto these kinds as the JAX package's `from_gguf` maps them:
-Q2_K onto q2_k, Q3_K onto q3_k, Q4_0/Q4_1 onto q4_k, Q5_0/Q5_1 onto q5_k, and IQ4_NL/IQ4_XS/TQ1_0/TQ2_0
-(and block-32 types of widths that are not a multiple of 256) onto q8_0 by
-exact dequant and int8 requantization per 32 columns. The bf16 scale
-products are bit-identical to the JAX packers'.
+Q2_K onto q2_k, Q3_K onto q3_k, Q4_0/Q4_1 onto q4_k, Q5_0/Q5_1 onto q5_k,
+IQ2_XXS/IQ2_XS/IQ2_S onto iq2p, IQ3_XXS onto iq3px, IQ3_S onto iq3ps and
+IQ1_S/IQ1_M onto iq1p (widths that are a multiple of 256), and
+IQ4_NL/IQ4_XS/TQ1_0/TQ2_0 (and the IQ1-3 and block-32 types at other widths)
+onto q8_0 by exact dequant and int8 requantization per 32 columns. The bf16
+scale products are bit-identical to the JAX packers'.
 """
 from __future__ import annotations
 
@@ -46,7 +58,7 @@ from ..gguf.constants import GGMLType, QK_K
 
 @dataclass
 class QTensor:
-    kind: str  # "dense" | "q2_k" | "q3_k" | "q4_k" | "q5_k" | "q6_k" | "q8_0"
+    kind: str  # "dense" | "q2_k" ... "q8_0" | "iq2p" | "iq3px" | "iq3ps" | "iq1p"
     shape: tuple[int, ...]  # logical (out, in)
     data: dict[str, Any] = field(default_factory=dict)
 
@@ -276,6 +288,68 @@ def pack_q8_expand(raw: np.ndarray, shape: tuple[int, int], device="cpu",
     })
 
 
+IQ_KINDS = ("iq2p", "iq3px", "iq3ps", "iq1p")
+_IQ_NATIVE_KINDS = {
+    GGMLType.IQ2_XXS: "iq2p", GGMLType.IQ2_XS: "iq2p", GGMLType.IQ2_S: "iq2p",
+    GGMLType.IQ3_XXS: "iq3px", GGMLType.IQ3_S: "iq3ps",
+    GGMLType.IQ1_S: "iq1p", GGMLType.IQ1_M: "iq1p",
+}
+# |grid value| -> the code its kind decodes by arithmetic (the JAX package's
+# maps: a magnitude outside the alphabet, which no grid holds, maps to 0)
+_IQ2_CODE = np.zeros(64, np.uint8)
+_IQ2_CODE[[8, 25, 43]] = [0, 1, 2]
+_IQ3X_CODE = np.zeros(64, np.uint8)
+_IQ3X_CODE[[4, 12, 20, 28, 36, 44, 52, 62]] = np.arange(8)
+_IQ3S_CODE = np.zeros(16, np.uint8)
+_IQ3S_CODE[[1, 3, 5, 7, 9, 11, 13, 15]] = np.arange(8)
+
+
+def _qs_stream(code: np.ndarray) -> np.ndarray:
+    """(R, C) 2-bit codes -> (R, C/4) bytes in q2_k's stream order (element
+    256s+128h+32j+l in bits 2j..2j+1 of byte 64s+32h+l)."""
+    rows = code.shape[0]
+    c = code.reshape(rows, -1, 4, 32).astype(np.uint8)  # (R, 2s+h, j, l)
+    return (c[:, :, 0] | (c[:, :, 1] << 2) | (c[:, :, 2] << 4)
+            | (c[:, :, 3] << 6)).reshape(rows, -1)
+
+
+def _hmask_stream(bits: np.ndarray) -> np.ndarray:
+    """(R, C) 0/1 -> (R, C/8) bytes in q3_k's hmask order (the bit of
+    element 256s+128h+32j+l is bit 4h+j of byte 32s+l)."""
+    rows = bits.shape[0]
+    b = bits.reshape(rows, -1, 8, 32).astype(np.uint8)  # (R, s, 4h+j, l)
+    return (b << np.arange(8, dtype=np.uint8)[None, None, :, None]).sum(
+        axis=2, dtype=np.uint8).reshape(rows, -1)
+
+
+def pack_iq(raw: np.ndarray, shape: tuple[int, int], device="cpu",
+            ggml_type: GGMLType = GGMLType.IQ2_XXS) -> QTensor:
+    """IQ2_XXS/XS/S, IQ3_XXS/S, IQ1_S/M -> iq2p / iq3px / iq3ps / iq1p (the
+    JAX `pack_iq_native` values, in the port's layout, see the module
+    docstring): `iq_decompose` gives the signed grid values, f32 per-G
+    scales and IQ1's delta; the scales round to bf16 as JAX rounds them,
+    and iq1p's min is bf16(-(scale * delta)) of the f32 product."""
+    rows, cols = shape
+    v, scales, delta, G = nq.iq_decompose(raw.reshape(rows, -1), ggml_type)
+    v = v.reshape(rows, cols).astype(np.int16)
+    scales = scales.reshape(rows, cols // G)
+    kind = _IQ_NATIVE_KINDS[ggml_type]
+    mag = np.abs(v)
+    code = (v + 1 if kind == "iq1p"
+            else {"iq2p": _IQ2_CODE, "iq3px": _IQ3X_CODE,
+                  "iq3ps": _IQ3S_CODE}[kind][mag]).astype(np.uint8)
+    data = {"qs": _u8(_qs_stream(code & 3), device),
+            "scale": _bf16(scales, device)}
+    if kind in ("iq3px", "iq3ps"):
+        data["hmask"] = _u8(_hmask_stream(code >> 2), device)
+    if kind == "iq1p":
+        data["min"] = _bf16(-(scales * delta.reshape(rows, cols // G)),
+                            device)
+    else:
+        data["sg"] = _u8(_hmask_stream(v < 0), device)
+    return QTensor(kind=kind, shape=tuple(shape), data=data)
+
+
 _PACKERS = {GGMLType.Q8_0: pack_q8_0, GGMLType.Q2_K: pack_q2_k,
             GGMLType.Q3_K: pack_q3_k, GGMLType.Q4_K: pack_q4_k,
             GGMLType.Q5_K: pack_q5_k, GGMLType.Q6_K: pack_q6_k,
@@ -283,13 +357,8 @@ _PACKERS = {GGMLType.Q8_0: pack_q8_0, GGMLType.Q2_K: pack_q2_k,
             GGMLType.Q5_0: pack_q5_0, GGMLType.Q5_1: pack_q5_1}
 for _t in (GGMLType.IQ4_NL, GGMLType.IQ4_XS, GGMLType.TQ1_0, GGMLType.TQ2_0):
     _PACKERS[_t] = partial(pack_q8_expand, ggml_type=_t)
-
-# Types the JAX package keeps packed in kinds this port does not serve yet
-# (the native IQ1-3 kinds), with the kernels that would serve them. Loading
-# one raises instead of silently dequantizing it.
-_UNPORTED = {_t: "K12/K13" for _t in (
-    GGMLType.IQ3_XXS, GGMLType.IQ3_S, GGMLType.IQ2_XXS, GGMLType.IQ2_XS,
-    GGMLType.IQ2_S, GGMLType.IQ1_S, GGMLType.IQ1_M)}
+for _t in _IQ_NATIVE_KINDS:
+    _PACKERS[_t] = partial(pack_iq, ggml_type=_t)
 _32COL_TYPES = (GGMLType.Q8_0, GGMLType.IQ4_NL, GGMLType.IQ4_XS,
                 GGMLType.IQ3_XXS, GGMLType.IQ3_S, GGMLType.IQ2_XXS,
                 GGMLType.IQ2_XS, GGMLType.IQ2_S, GGMLType.IQ1_S,
@@ -300,19 +369,17 @@ _BLOCK32_TYPES = (GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1)
 def from_gguf(raw: np.ndarray, ggml_type: GGMLType, shape: tuple[int, ...],
               packed: bool = True, dtype=torch.bfloat16,
               device="cpu") -> QTensor:
-    """Build a QTensor from GGUF raw bytes, as the JAX `from_gguf` does:
-    2-D weights of a packed type keep a packed layout (block-32 types of
-    widths that are not a multiple of 256 through `pack_q8_expand`); f32 /
-    f16 / bf16, 1-D tensors and packed=False become dense; the kinds not
-    ported yet raise."""
+    """Build a QTensor from GGUF raw bytes, as the JAX `from_gguf` does at
+    its default settings: 2-D weights of a packed type keep a packed layout
+    (the IQ1-3 types natively at widths that are a multiple of 256, and
+    they and the block-32 types at other widths through `pack_q8_expand`);
+    f32 / f16 / bf16, 1-D tensors and packed=False become dense."""
     if packed and len(shape) == 2:
         cols = shape[1]
         need = 32 if ggml_type in _32COL_TYPES else QK_K
         if cols % need == 0:
-            if ggml_type in _UNPORTED:
-                raise NotImplementedError(
-                    f"{ggml_type.name} weights are served packed by kernel "
-                    f"{_UNPORTED[ggml_type]}, which is not ported yet")
+            if ggml_type in _IQ_NATIVE_KINDS and cols % QK_K:
+                return pack_q8_expand(raw, shape, device, ggml_type)
             if ggml_type in _PACKERS:
                 return _PACKERS[ggml_type](raw, shape, device)
         elif ggml_type in _BLOCK32_TYPES and cols % 32 == 0:
@@ -361,15 +428,39 @@ def q2k_values(qs: torch.Tensor) -> torch.Tensor:
     return ((b >> shifts) & 3).reshape(qs.shape[0], -1)  # (., 4 planes, l)
 
 
-def q3k_values(qs: torch.Tensor, hmask: torch.Tensor) -> torch.Tensor:
-    """q3_k fields -> (R, in) logical-order 3-bit values 0..7 (u8): the
-    3rd bit of element 256s+128h+32j+l is bit 4h+j of hmask[32s+l]."""
+def hmask_bits(hmask: torch.Tensor) -> torch.Tensor:
+    """(R, in/8) bytes in q3_k's hmask order -> (R, in) logical-order bits
+    (u8): the bit of element 256s+128h+32j+l is bit 4h+j of hmask[32s+l]."""
     rows = hmask.shape[0]
     hm = hmask.reshape(rows, -1, 1, 1, 32)               # (R, nsb, h, j, l)
     bit = torch.arange(8, dtype=torch.uint8, device=hmask.device).reshape(
         1, 1, 2, 4, 1)
-    hb = ((hm >> bit) & 1).reshape(rows, -1)
-    return q2k_values(qs) | (hb << 2)
+    return ((hm >> bit) & 1).reshape(rows, -1)
+
+
+def q3k_values(qs: torch.Tensor, hmask: torch.Tensor) -> torch.Tensor:
+    """q3_k fields -> (R, in) logical-order 3-bit values 0..7 (u8)."""
+    return q2k_values(qs) | (hmask_bits(hmask) << 2)
+
+
+def iq_values(qt: QTensor) -> torch.Tensor:
+    """An iq2p / iq3px / iq3ps / iq1p QTensor -> (R, in) logical-order
+    signed values (int32): the kind's alphabet value of each code, negated
+    where its sign bit is set."""
+    d = qt.data
+    c = (q3k_values(d["qs"], d["hmask"]) if "hmask" in d
+         else q2k_values(d["qs"])).int()
+    if qt.kind == "iq1p":
+        return c - 1
+    v = (8 + 17 * c + (c >> 1) if qt.kind == "iq2p"
+         else torch.where(c == 7, 62, 4 + 8 * c) if qt.kind == "iq3px"
+         else 2 * c + 1)
+    return v * (1 - 2 * hmask_bits(d["sg"]).int())
+
+
+def iq_group(qt: QTensor) -> int:
+    """The scale group G (8, 16 or 32 columns) of an IQ QTensor."""
+    return qt.shape[1] // qt.data["scale"].shape[1]
 
 
 def dequant(qt: QTensor, dtype=torch.bfloat16) -> torch.Tensor:
@@ -401,6 +492,12 @@ def dequant(qt: QTensor, dtype=torch.bfloat16) -> torch.Tensor:
         q = q3k_values(qt.data["qs"], qt.data["hmask"]).float() - 4.0
         s = qt.data["scale"].float()[..., None]
         return (q.reshape(rows, -1, 16) * s).reshape(rows, cols).to(dtype)
+    if qt.kind in IQ_KINDS:
+        out = iq_values(qt).float().reshape(rows, -1, iq_group(qt)) \
+            * qt.data["scale"].float()[..., None]
+        if "min" in qt.data:
+            out = out - qt.data["min"].float()[..., None]
+        return out.reshape(rows, cols).to(dtype)
     raise ValueError(f"unknown QTensor kind {qt.kind}")
 
 

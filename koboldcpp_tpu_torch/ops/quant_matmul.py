@@ -1,5 +1,5 @@
 """Fused dequant+matmul for packed q2_k / q3_k / q4_k / q5_k / q6_k / q8_0
-QTensors.
+and native IQ (iq2p / iq3px / iq3ps / iq1p) QTensors.
 
 Hand-written CUDA kernels (csrc/), each with its plain PyTorch version
 beside it. A wrapper takes the plain version only for a CPU tensor; for a
@@ -14,15 +14,18 @@ CUDA tensor it launches the kernel or raises.
       q8_0_matvec   T=1 q8_0           `_packed_matvec`; csrc/q8_0_matvec.cu)
   K12 q23k_matvec   T=1 q2_k/q3_k     (csrc/q23k_matvec.cu; the same JAX
                                        function, `_q2k/_q3k_row_kernel(_i8)`)
+      iq_matvec     T=1 IQ kinds      (csrc/iq_matvec.cu; the same JAX
+                                       function, `_iq2p/_iq3p/_iq1p_row_
+                                       kernel_i8`)
   K3  kq_matmul     the other T       (csrc/kq_matmul.cu; JAX
   K13                                  `_packed_matmul_2d`; K13 names its
-                                       q2_k/q3_k bodies)
+                                       q2_k/q3_k and IQ bodies)
 
 Launch counters (ops/_build.launches): "K1", "K7", "K2" and "K3" count the
 q4_k / q6_k bodies they have counted since they were ported; every other
 kind's body has a counter of its own, "<id>.<kind>" ("K1.q5_k", "K7.q5_k",
 "K2.q8_0", "K3.q5_k", "K3.q8_0", "K12.q2_k", "K12.q3_k", "K13.q2_k",
-"K13.q3_k").
+"K13.q3_k", and "K12.<kind>" / "K13.<kind>" for the four IQ kinds).
 
 `matmul_packed(x, qt)` returns None when the JAX dispatch would decline the
 shape (out_f or in_f not a multiple of 256, or an in_f too wide for any
@@ -33,8 +36,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .linear import (QTensor, q2k_values, q3k_values, q4k_values, q5k_values,
-                     q6k_values)
+from .linear import (IQ_KINDS, QTensor, iq_group, iq_values, q2k_values,
+                     q3k_values, q4k_values, q5k_values, q6k_values)
 
 VMEM_BUDGET = 13 * 1024 * 1024  # the JAX 2-D kernel's tile budget (see below)
 
@@ -42,15 +45,22 @@ _SIG_MATVEC = [_build.P] * 8 + [_build.I] * 3 + [_build.P]
 _SIG_MATVEC_T = [_build.P] * 9 + [_build.I] * 4 + [_build.P]
 _SIG_PREP = [_build.P] * 4 + [_build.I] * 2 + [_build.P]
 _FIELD_DTYPES = {"qs2": torch.uint8, "ql": torch.uint8, "qh": torch.uint8,
-                 "qs": torch.uint8, "hmask": torch.uint8,
+                 "qs": torch.uint8, "hmask": torch.uint8, "sg": torch.uint8,
                  "q": torch.int8, "scale": torch.bfloat16,
                  "min": torch.bfloat16}
-# kind -> (kq_matmul.cu KIND, the packed weight fields w0 and w1 (None: not
-# read), the affine term's group width (0: no affine term))
-_K3_KINDS = {"q4_k": (0, "qs2", None, 32), "q6_k": (1, "ql", "qh", 16),
-             "q5_k": (2, "qs2", "qh", 32), "q8_0": (3, "q", None, 0),
-             "q2_k": (4, "qs", None, 16), "q3_k": (5, "qs", "hmask", 16)}
-_LOWBIT = ("q2_k", "q3_k")  # the kinds of K12 / K13
+# kind -> (kq_matmul.cu KIND, the packed weight fields w0, w1 and w2 (None:
+# not read), the affine term's group width (0: no affine term; None: the
+# IQ kind's scale group G))
+_K3_KINDS = {"q4_k": (0, "qs2", None, None, 32),
+             "q6_k": (1, "ql", "qh", None, 16),
+             "q5_k": (2, "qs2", "qh", None, 32), "q8_0": (3, "q", None, None, 0),
+             "q2_k": (4, "qs", None, None, 16),
+             "q3_k": (5, "qs", "hmask", None, 16),
+             "iq2p": (6, "qs", None, "sg", 0),
+             "iq3px": (7, "qs", "hmask", "sg", 0),
+             "iq3ps": (8, "qs", "hmask", "sg", 0),
+             "iq1p": (9, "qs", None, None, None)}
+_LOWBIT = ("q2_k", "q3_k")  # the kinds of K12 / K13 besides the IQ kinds
 
 
 def _ptr(t: torch.Tensor | None):
@@ -358,8 +368,62 @@ def q23k_matvec(x: torch.Tensor, qt: QTensor, i8: bool) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# K12.iq: the IQ kinds' T=1 matvec
+# ---------------------------------------------------------------------------
+
+def iq_matvec_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """x (in_f,) bf16 -> (1, out_f) bf16 for an IQ QTensor of scale group G
+    (`_iq2p_row_kernel_i8`, `_iq3p_row_kernel_i8`, `_iq1p_row_kernel_i8`):
+    int8 activations per group of G columns, exact int32 dots P_g with the
+    signed values, y = sum_g P_g sx_g s_g, and for iq1p - sum_g xs_g m_g
+    over the bf16 group sums xs."""
+    out_f, in_f = qt.shape
+    G = iq_group(qt)
+    ng = in_f // G
+    v = iq_values(qt).reshape(out_f, ng, G)
+    xq, sx, xsum = act_prep_plain(x, G, True)
+    p = (v * xq.int().reshape(ng, G)).sum(dim=2)  # exact int32
+    t = (p.float() * sx * qt.data["scale"].float()).sum(dim=1)
+    if qt.kind == "iq1p":
+        t = t - (xsum.float() * qt.data["min"].float()).sum(dim=1)
+    return t.to(torch.bfloat16).reshape(1, out_f)
+
+
+def iq_matvec(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """K12.iq wrapper. x (in_f,) bf16 contiguous -> (1, out_f) bf16."""
+    if not x.is_cuda:
+        return iq_matvec_plain(x, qt)
+    out_f, in_f = qt.shape
+    if qt.kind not in IQ_KINDS:
+        raise ValueError(f"K12.iq serves the IQ kinds, not {qt.kind}")
+    G = iq_group(qt)
+    _check_operands(x[None], qt, "K12")
+    lib = _build.load("iq_matvec", {
+        "k12_iq_prep": [_build.P] * 4 + [_build.I] * 2 + [_build.P],
+        "k12_iq_matvec": [_build.I] + [_build.P] * 9 + [_build.I] * 3
+        + [_build.P]})
+    dev = x.device
+    xq = torch.empty(in_f, dtype=torch.int8, device=dev)
+    sx = torch.empty(in_f // G, dtype=torch.float32, device=dev)
+    xsum = torch.empty(in_f // G, dtype=torch.bfloat16, device=dev)
+    y = torch.empty((1, out_f), dtype=torch.bfloat16, device=dev)
+    st = _build.stream_ptr()
+    _build.check(lib, lib.k12_iq_prep(x.data_ptr(), xq.data_ptr(),
+                                      sx.data_ptr(), xsum.data_ptr(), in_f, G,
+                                      st), "K12 prep")
+    d = qt.data
+    _build.check(lib, lib.k12_iq_matvec(
+        IQ_KINDS.index(qt.kind), d["qs"].data_ptr(), _ptr(d.get("hmask")),
+        _ptr(d.get("sg")), d["scale"].data_ptr(), _ptr(d.get("min")),
+        xq.data_ptr(), sx.data_ptr(), xsum.data_ptr(), y.data_ptr(), out_f,
+        in_f, G, st), "K12")
+    _count("K12", qt)
+    return y
+
+
+# ---------------------------------------------------------------------------
 # K3: q4_k / q5_k / q6_k / q8_0 tiled matmul (prefill); K13: its q2_k /
-# q3_k bodies
+# q3_k and IQ bodies
 # ---------------------------------------------------------------------------
 
 def _group_sums(x: torch.Tensor, group: int) -> torch.Tensor:
@@ -371,11 +435,16 @@ def _group_sums(x: torch.Tensor, group: int) -> torch.Tensor:
 def kq_dequant_bf16(qt: QTensor) -> torch.Tensor:
     """The weight K3 / K13 feeds its product: bf16(q * scale), q the raw
     code (q4_k nibble 0..15, q5_k value 0..31, q6_k value 0..63, q8_0 int8,
-    q2_k 0..3, q3_k 0..7), as `_q4k_kernel` / `_q5k_kernel` / `_q6k_kernel`
-    / `_q8_0_kernel` / `_q2k_kernel` / `_q3k_kernel`."""
+    q2_k 0..3, q3_k 0..7) or an IQ kind's signed value, as `_q4k_kernel` /
+    `_q5k_kernel` / `_q6k_kernel` / `_q8_0_kernel` / `_q2k_kernel` /
+    `_q3k_kernel` / `_iq2p_kernel` / `_iq3p_kernel` / `_iq1p_kernel` (JAX
+    multiplies the bf16 value by the bf16 expanded scale, so for |v| up to
+    62 the product rounds)."""
     out_f, in_f = qt.shape
     d = qt.data
-    if qt.kind == "q6_k":
+    if qt.kind in IQ_KINDS:
+        q = iq_values(qt).float().reshape(out_f, -1, iq_group(qt))
+    elif qt.kind == "q6_k":
         q = q6k_values(d["ql"], d["qh"]).float().reshape(out_f, -1, 16)
     elif qt.kind in _LOWBIT:
         q = (q2k_values(d["qs"]) if qt.kind == "q2_k"
@@ -391,11 +460,11 @@ def kq_dequant_bf16(qt: QTensor) -> torch.Tensor:
 
 def kq_matmul_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """x (T, in_f) bf16 -> (T, out_f) bf16; f32 accumulation. The affine
-    term over bf16 group sums: - min (q4_k, q5_k per 32 cols; q2_k per 16),
-    - 32 * scale (q6_k), - 4 * scale (q3_k)."""
+    term over bf16 group sums: - min (q4_k, q5_k per 32 cols; q2_k per 16;
+    iq1p per G), - 32 * scale (q6_k), - 4 * scale (q3_k)."""
     w = kq_dequant_bf16(qt).float()
     acc = torch.matmul(x.float(), w.t())
-    group = _K3_KINDS[qt.kind][3]
+    group = _affine_group(qt)
     if "min" in qt.data:
         acc = acc - torch.matmul(_group_sums(x, group).float(),
                                  qt.data["min"].float().t())
@@ -405,25 +474,33 @@ def kq_matmul_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     return acc.to(torch.bfloat16)
 
 
+def _affine_group(qt: QTensor) -> int:
+    """The group width of kq_matmul's affine term (0: none)."""
+    group = _K3_KINDS[qt.kind][4]
+    return iq_group(qt) if group is None else group
+
+
 def kq_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """K3 / K13 wrapper. x (T, in_f) bf16 contiguous -> (T, out_f) bf16."""
     if not x.is_cuda:
         return kq_matmul_plain(x, qt)
     out_f, in_f = qt.shape
     T = x.shape[0]
-    what = "K13" if qt.kind in _LOWBIT else "K3"
+    what = "K13" if qt.kind in _LOWBIT + IQ_KINDS else "K3"
     _check_operands(x, qt, what)
     lib = _build.load("kq_matmul", {
-        "k3_kq_matmul": [_build.I] + [_build.P] * 7 + [_build.I] * 3
+        "k3_kq_matmul": [_build.I] + [_build.P] * 8 + [_build.I] * 4
         + [_build.P]})
     d = qt.data
-    kind, w0, w1, group = _K3_KINDS[qt.kind]
+    kind, w0, w1, w2, _ = _K3_KINDS[qt.kind]
+    group = _affine_group(qt)
     xs = _group_sums(x, group) if group else None
     y = torch.empty((T, out_f), dtype=torch.bfloat16, device=x.device)
     _build.check(lib, lib.k3_kq_matmul(
         kind, x.data_ptr(), _ptr(xs), d[w0].data_ptr(),
-        _ptr(d[w1] if w1 else None), d["scale"].data_ptr(),
-        _ptr(d.get("min")), y.data_ptr(), T, out_f, in_f,
+        _ptr(d[w1] if w1 else None), _ptr(d[w2] if w2 else None),
+        d["scale"].data_ptr(), _ptr(d.get("min")), y.data_ptr(), T, out_f,
+        in_f, iq_group(qt) if qt.kind in IQ_KINDS else 0,
         _build.stream_ptr()), what)
     _count(what, qt)
     return y
@@ -431,7 +508,7 @@ def kq_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # dispatch (mirrors quant_matmul.py:2041-2177 of the JAX package for
-# q2_k/q3_k/q4_k/q5_k/q6_k/q8_0 at its default settings)
+# q2_k/q3_k/q4_k/q5_k/q6_k/q8_0 and the IQ kinds at its default settings)
 # ---------------------------------------------------------------------------
 
 def matmul_packed(x: torch.Tensor, qt: QTensor) -> torch.Tensor | None:
@@ -444,13 +521,17 @@ def matmul_packed(x: torch.Tensor, qt: QTensor) -> torch.Tensor | None:
     q6_k takes K2 (`_q6k_row_kernel_i8` / `_q6k_row_kernel`, the same
     in_f rule), q2_k/q3_k take K12 (`_q2k/_q3k_row_kernel_i8` /
     `_q2k/_q3k_row_kernel`, the same rule), q8_0 takes K2.q8_0
-    (`_q8_0_row_kernel_i8`, every in_f).
+    (`_q8_0_row_kernel_i8`, every in_f), the IQ kinds take K12.iq
+    (`_iq2p/_iq3p/_iq1p_row_kernel_i8`) where in_f >= 32 G for their scale
+    group G and K13 below that (JAX's row kernels need 8 scratch sublanes;
+    there is no bf16 K12.iq).
     q4_k/q5_k at 2 <= T <= 8 take K7 (int8, while T * (in_f/64) * (in_f/2)
     <= 4 Mi and in_f >= 512: `_q4k/_q5k_decode_kernel_i8_t`) or at T <= 4
     the bf16 variant. Every other shape goes to K3 (`_q4k_kernel`,
     `_q5k_kernel`, `_q6k_kernel`, `_q8_0_kernel`; K13: `_q2k_kernel`,
-    `_q3k_kernel`); q6_k, q8_0, q2_k and q3_k thus take K3 / K13 at every
-    T > 1, the batched decode step included. The TPU-only VMEM
+    `_q3k_kernel`, `_iq2p_kernel`, `_iq3p_kernel`, `_iq1p_kernel`); q6_k,
+    q8_0, q2_k, q3_k and the IQ kinds thus take K3 / K13 at every T > 1, the
+    batched decode step included. The TPU-only VMEM
     row-tile checks that can also send a T=1 call to the 2-D kernel are not
     mirrored."""
     out_f, in_f = qt.shape
@@ -460,7 +541,10 @@ def matmul_packed(x: torch.Tensor, qt: QTensor) -> torch.Tensor | None:
     x2 = x.reshape(-1, in_f).to(torch.bfloat16).contiguous()
     T = x2.shape[0]
     q45 = qt.kind in ("q4_k", "q5_k")
-    if T == 1:
+    if T == 1 and qt.kind in IQ_KINDS:
+        if in_f >= 32 * iq_group(qt):
+            return iq_matvec(x2[0], qt).reshape(*lead, out_f)
+    elif T == 1:
         if qt.kind == "q8_0":
             y = q8_0_matvec(x2[0], qt)
         else:

@@ -1,13 +1,18 @@
-"""Generate tests/fixtures/portgguf/: the Q2_K and Q3_K_M tiny fixtures of
-the PyTorch port's tests and the JAX package's logits on them.
+"""Generate tests/fixtures/portgguf/: the Q2_K, Q3_K_M, IQ2_XS, IQ3_XXS and
+IQ1_M tiny fixtures of the PyTorch port's tests and the JAX package's
+logits on them.
 
-Both GGUF files are re-quantizations of tests/fixtures/refgguf/tiny-f16.gguf
-by the in-repo quantizer (byte-identical from run to run):
+Every GGUF file is a re-quantization of tests/fixtures/refgguf/tiny-f16.gguf
+by the in-repo quantizer (no importance matrix; byte-identical from run to
+run), e.g.
 
     python tools/quantize.py tests/fixtures/refgguf/tiny-f16.gguf \
         tests/fixtures/portgguf/tiny-q2_k.gguf q2_k
-    python tools/quantize.py tests/fixtures/refgguf/tiny-f16.gguf \
-        tests/fixtures/portgguf/tiny-q3_k_m.gguf q3_k_m
+
+(FILES lists the formats). The IQ files mix types as the quantizer's
+recipes do: tiny-iq2_xs holds IQ2_XS and Q2_K tensors, tiny-iq3_xxs
+IQ3_XXS, IQ3_S (token_embd too), IQ2_S and Q3_K, tiny-iq1_m IQ1_M, IQ2_XXS
+and Q2_K; every output is Q5_K.
 
 The logits are the JAX package's `forward` (packed weights, f32 cache and
 activations, on the CPU) over the refgguf manifest's 12 tokens. They are
@@ -29,7 +34,9 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF = os.path.join(ROOT, "tests", "fixtures", "refgguf")
 OUT = os.path.join(ROOT, "tests", "fixtures", "portgguf")
-FILES = {"q2_k": "tiny-q2_k.gguf", "q3_k_m": "tiny-q3_k_m.gguf"}
+FILES = {"q2_k": "tiny-q2_k.gguf", "q3_k_m": "tiny-q3_k_m.gguf",
+         "iq2_xs": "tiny-iq2_xs.gguf", "iq3_xxs": "tiny-iq3_xxs.gguf",
+         "iq1_m": "tiny-iq1_m.gguf"}
 
 
 def jax_logits(path: str, tokens: list[int]) -> np.ndarray:

@@ -152,22 +152,24 @@ def test_params_from_jax_converts_q5k_and_q8_0(t):
 
 
 def test_unported_packed_kinds_raise():
-    """Only the native IQ1-3 kinds of K12/K13 still raise; Q2_K and Q3_K
-    pack to q2_k / q3_k (test_dequant_matches_jax_on_quantized holds their
-    dequant to JAX's), as Q5_K and Q8_0 do."""
+    """No packed kind raises any more: Q2_K and Q3_K pack to q2_k / q3_k
+    (test_dequant_matches_jax_on_quantized holds their dequant to JAX's),
+    as Q5_K and Q8_0 do, and the native IQ1-3 types to iq2p / iq3px /
+    iq3ps / iq1p (tests/test_torch_iq.py holds their dequant to JAX's)."""
     rng = np.random.default_rng(0)
     w = (rng.standard_normal((256, 256)) * 0.1).astype(np.float32)
     for t, kind in ((GGMLType.Q2_K, "q2_k"), (GGMLType.Q3_K, "q3_k")):
         assert tlinear.from_gguf(quants.quantize(w, t), t,
                                  (256, 256)).kind == kind
-    # 66 bytes per IQ2_XXS superblock: the packer refuses before reading them
-    with pytest.raises(NotImplementedError, match="IQ2_XXS.*K12/K13"):
-        tlinear.from_gguf(np.zeros((256, 66), np.uint8), GGMLType.IQ2_XXS,
-                          (256, 256))
-    for t in (GGMLType.IQ3_XXS, GGMLType.IQ3_S, GGMLType.IQ2_XS,
-              GGMLType.IQ2_S, GGMLType.IQ1_S, GGMLType.IQ1_M):
-        with pytest.raises(NotImplementedError, match=f"{t.name}.*K12/K13"):
-            tlinear.from_gguf(np.zeros((256, 1), np.uint8), t, (256, 256))
+    for t, kind, nbytes in ((GGMLType.IQ2_XXS, "iq2p", 66),
+                            (GGMLType.IQ2_XS, "iq2p", 74),
+                            (GGMLType.IQ2_S, "iq2p", 82),
+                            (GGMLType.IQ3_XXS, "iq3px", 98),
+                            (GGMLType.IQ3_S, "iq3ps", 110),
+                            (GGMLType.IQ1_S, "iq1p", 50),
+                            (GGMLType.IQ1_M, "iq1p", 56)):
+        assert tlinear.from_gguf(np.zeros((256, nbytes), np.uint8), t,
+                                 (256, 256)).kind == kind
     # a type the JAX package also dequantizes stays dense
     f16 = tlinear.from_gguf(w.astype(np.float16).view(np.uint8), GGMLType.F16,
                             (256, 256))

@@ -52,6 +52,7 @@ FIX = os.path.join(os.path.dirname(__file__), "fixtures", "portgguf")
 MANIFEST = json.load(open(os.path.join(FIX, "manifest.json")))
 TOKENS = np.asarray([MANIFEST["tokens"]], dtype=np.int64)
 LOWBIT = (GGMLType.Q2_K, GGMLType.Q3_K)
+LOWBIT_FMTS = ("q2_k", "q3_k_m")  # the IQ fixtures: tests/test_torch_iq.py
 PROMPTS = ["The gradient of a function, e.g. f(x), points uphill.",
            "Once upon a time", "hello world, this is a test of", "A B C D"]
 
@@ -100,7 +101,7 @@ def _assert_same_dequant(jq, tq):
         np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("fmt", list(MANIFEST["files"]))
+@pytest.mark.parametrize("fmt", LOWBIT_FMTS)
 def test_fixture_packs_and_dequantizes_as_jax(fmt):
     """Every Q2_K / Q3_K tensor of both fixtures packs into q2_k / q3_k (no
     NotImplementedError) and dequantizes to JAX `dequant_xla`'s bits."""
@@ -248,7 +249,7 @@ def test_synthetic_forward_matches_jax(kind, tol):
         assert spread > 1e-2
 
 
-@pytest.mark.parametrize("fmt", list(MANIFEST["files"]))
+@pytest.mark.parametrize("fmt", LOWBIT_FMTS)
 def test_fixture_logits_match_jax(fmt):
     """Both fixtures loaded packed in f32: the port's logits within 1e-2 of
     the JAX forward's, computed now and as committed (logits-jax-*.npy)."""
@@ -272,7 +273,7 @@ def test_fixture_logits_match_jax(fmt):
     np.testing.assert_allclose(got, want, rtol=1e-2, atol=1e-2)
 
 
-@pytest.mark.parametrize("fmt", list(MANIFEST["files"]))
+@pytest.mark.parametrize("fmt", LOWBIT_FMTS)
 async def test_served_text_matches_jax_server(fmt, aiohttp_client):
     """/api/v1/generate at temperature 0 on both servers (single-stream
     engines, bf16 caches): the same text twice over on the port, and the
