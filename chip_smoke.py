@@ -9,9 +9,11 @@
    q8_0 bodies K1.q5_k, K7.q5_k, K2.q8_0, K3.q5_k, K3.q8_0, the q2_k /
    q3_k bodies K12.q2_k, K12.q3_k, K13.q2_k, K13.q3_k, and the native IQ
    bodies K12.iq2p, K12.iq3px, K12.iq3ps, K12.iq1p, K13.iq2p, K13.iq3px,
-   K13.iq3ps, K13.iq1p at scale groups G = 32, 16 (iq2p) and 8 (iq1p))
-   against its plain PyTorch version on the card at the TinyLlama-1.1B
-   shapes (and
+   K13.iq3ps, K13.iq1p at scale groups G = 32, 16 (iq2p) and 8 (iq1p),
+   the superblock batched matvec K14 / K14.q5_k at T = 2, 8, 16 and the
+   FFN megakernel K15b (T=1) / K15a (T = 2, 8); K9 / K10 also at page size
+   128) against its plain PyTorch version on the card at the
+   TinyLlama-1.1B shapes (and
    the fixtures' widths; K4 also at head_dim 128 and 256), with the max error
    against its stated tolerance and the times of the kernel, the plain
    version, one PyTorch library call computing the same function (where
@@ -39,6 +41,14 @@
    pool (`quantkv=1`, K9) and the Q4 pool (`quantkv=2`, K10): 8 concurrent
    greedy requests of 64 new tokens, each getting the tokens it gets alone
    through the same engine;
+   then, under KCPP_FFN_FUSED=1, single-stream (300-token prompt, 32
+   greedy tokens: every decode step 22 K15b and 45 K1, against the default
+   path's 89 K1; a fast-forwarded repeat; the last prompt token's logits
+   within 2e-2 of max |logit| of the unfused forward's) and 8 slots (every
+   decode step 22 K15a and 45 K7), and 16 slots under KCPP_SBQ=1 (every
+   decode step 89 K14, no K7 or K3): 8 / 16 concurrent greedy requests of
+   16 new tokens, each getting the tokens it gets alone through the same
+   engine; per-step launches read by wrapping models.llama.forward;
 5. serves tests/fixtures/refgguf/tiny-q4_k_m.gguf over HTTP in-process,
    single-stream (checks that K2 ran) and with multiuser=4 (4 concurrent
    requests, each getting the reply it gets alone), each also with
@@ -51,7 +61,8 @@
    concurrent requests of 32 new tokens, 16 for the half-depth kinds:
    K7.q5_k, K3.q8_0, K13), each batched request getting its single-stream
    tokens (q5_k) or the tokens it gets alone through the batched engine
-   (the other kinds);
+   (the other kinds); q5_k also under KCPP_SBQ=1 (8 new tokens, every
+   decode step 89 K14.q5_k);
 7. serves tiny-q8_0, -q5_1, -q4_0, -iq4_nl and -tq2_0, and
    tests/fixtures/portgguf's tiny-q2_k, -q3_k_m, -iq2_xs, -iq3_xxs and
    -iq1_m, over HTTP, two identical replies each through their kinds'
@@ -63,7 +74,8 @@
 8. last, since a profiler session slows every later decode of the
    process: the device idle share under torch.profiler of the synthetic
    1.1B q4_k, 64 fast-forwarded single-stream tokens (with that request's
-   tok/s before and after the session) and 32 batched steps of 8 requests;
+   tok/s before and after the session, then under KCPP_FFN_FUSED=1) and
+   32 batched steps of 8 requests (and of 16 under KCPP_SBQ=1);
 9. prints one {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 Any failed check raises, so the script exits nonzero. It exits nonzero,
@@ -79,6 +91,7 @@ import sys
 import threading
 import time
 import urllib.request
+from unittest import mock
 
 import numpy as np
 import torch
@@ -97,7 +110,7 @@ from koboldcpp_tpu_torch.models.synthetic import (  # noqa: E402
 from koboldcpp_tpu_torch.kv import paged  # noqa: E402
 from koboldcpp_tpu_torch.kv.cache import _dequant, _q8, init_cache  # noqa: E402
 from koboldcpp_tpu_torch.ops import _build, flash_decode  # noqa: E402
-from koboldcpp_tpu_torch.ops import flash_prefill  # noqa: E402
+from koboldcpp_tpu_torch.ops import ffn_fused, flash_prefill  # noqa: E402
 from koboldcpp_tpu_torch.ops import quant_matmul as qm  # noqa: E402
 from koboldcpp_tpu_torch.ops.linear import dequant  # noqa: E402
 from koboldcpp_tpu_torch.sampling import SamplerParams  # noqa: E402
@@ -106,6 +119,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
+INT8_OPS = 1979e12         # H100 SXM dense int8 tensor-core peak
 FIX = os.path.join(ROOT, "tests", "fixtures", "refgguf")
 PORT_FIX = os.path.join(ROOT, "tests", "fixtures", "portgguf")
 
@@ -173,6 +187,16 @@ KERNELS = {
                   "koboldcpp_tpu/ops/quant_matmul.py:1062"),
     "K13.iq1p": ("kq_matmul iq1p", "koboldcpp_tpu_torch/csrc/kq_matmul.cu",
                  "koboldcpp_tpu/ops/quant_matmul.py:1079"),
+    # the opt-in decode kernels: the superblock batched matvec (KCPP_SBQ=1)
+    # and the FFN megakernel (KCPP_FFN_FUSED=1)
+    "K14": ("q4k_matvec_sbq", "koboldcpp_tpu_torch/csrc/q4k_sbq.cu",
+            "koboldcpp_tpu/ops/quant_matmul.py:1436"),
+    "K14.q5_k": ("q4k_matvec_sbq q5_k", "koboldcpp_tpu_torch/csrc/q4k_sbq.cu",
+                 "koboldcpp_tpu/ops/quant_matmul.py:558"),
+    "K15a": ("ffn_fused 2<=T<=8", "koboldcpp_tpu_torch/csrc/ffn_fused.cu",
+             "koboldcpp_tpu/ops/ffn_fused.py:159"),
+    "K15b": ("ffn_fused T=1", "koboldcpp_tpu_torch/csrc/ffn_fused.cu",
+             "koboldcpp_tpu/ops/ffn_fused.py:211"),
 }
 NEAR_TIE = 2 ** -6  # logits this close may pick either token (bf16 steps)
 # greedy tokens per request in phases 3-4 (the q4_k main path); 64, not
@@ -204,9 +228,10 @@ def _time_ms(fn, reps: int = 20) -> float:
     return float(np.median(times))
 
 
-def _bound_ms(nbytes: int, flops: int = 0) -> tuple[float, str]:
+def _bound_ms(nbytes: int, flops: int = 0,
+              peak: float = BF16_FLOPS) -> tuple[float, str]:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    tf = flops / BF16_FLOPS * 1e3
+    tf = flops / peak * 1e3
     return (tf, "operations") if tf > tb else (tb, "bytes")
 
 
@@ -216,11 +241,12 @@ def _check(ok: bool, what) -> None:
 
 
 def _record(kid: str, what: str, err: float, tol: float, kernel, plain,
-            library, nbytes: int, flops: int = 0) -> None:
+            library, nbytes: int, flops: int = 0,
+            peak: float = BF16_FLOPS) -> None:
     """library: one PyTorch call computing the same function, or None
     where there is none."""
     _check(err <= tol, f"{kid} {what}: max error {err} > {tol}")
-    bound, by = _bound_ms(nbytes, flops)
+    bound, by = _bound_ms(nbytes, flops, peak)
     case = {"case": what, "max_abs_err": err, "tol": tol,
             "ms": _time_ms(kernel), "plain_ms": _time_ms(plain, 5),
             "library_ms": None if library is None else _time_ms(library),
@@ -235,6 +261,18 @@ def _record(kid: str, what: str, err: float, tol: float, kernel, plain,
 
 def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+# the fields only K14 reads (the superblock factors of a K-quant file), and
+# the one it does not (the bf16 scale they round to)
+_SBQ_FIELDS = ("sc", "d")
+
+
+def _wbytes(qt, sbq: bool = False) -> int:
+    """The bytes of the packed fields a kernel reads: K14 (sbq) the codes,
+    sc, d and min; every other kernel the codes, scale and min."""
+    return _nbytes(*(t for n, t in qt.data.items()
+                     if (n != "scale" if sbq else n not in _SBQ_FIELDS)))
 
 
 # ---------------------------------------------------------------------------
@@ -297,7 +335,7 @@ def phase_matvec(rng) -> None:
             _record(kid, f"{name} {out_f}x{in_f} T=1", err, tol,
                     lambda: wrapper(x, qt), lambda: plain(x, qt),
                     lambda: torch.matmul(xr, w.t()),
-                    _nbytes(*qt.data.values(), x) + out_f * 2)
+                    _wbytes(qt) + _nbytes(x) + out_f * 2)
             del w
 
 
@@ -336,8 +374,72 @@ def phase_batched_matvec(rng) -> None:
                     lambda: qm.q4k_matvec_t(x, qt, i8),
                     lambda: qm.q4k_matvec_t_plain(x, qt, i8),
                     lambda: torch.matmul(x, w.t()),
-                    _nbytes(*qt.data.values(), x) + T * out_f * 2)
+                    _wbytes(qt) + _nbytes(x) + T * out_f * 2)
             del w
+
+
+def phase_sbq(rng) -> None:
+    """K14 and K14.q5_k at the 1.1B's five projection shapes (every in_f is
+    2048 or 5632), T = 2, 8, 16 (the 16-slot decode step), against the
+    plain version on the same inputs."""
+    for kid, maker in (("K14", rand_q4k), ("K14.q5_k", rand_q5k)):
+        for name, (out_f, in_f) in K7_SHAPES:
+            qt = maker(rng, out_f, in_f, DEV)
+            w = dequant(qt)
+            for T in (2, 8, 16):
+                x = torch.from_numpy(rng.standard_normal((T, in_f)).astype(
+                    np.float32)).to(DEV).bfloat16()
+                y = qm.q4k_matvec_sbq(x, qt)
+                ref = qm.q4k_matvec_sbq_plain(x, qt)
+                torch.cuda.synchronize()
+                # the same int8 codes and exact integer segment dots on both
+                # sides; f32 combines in another order, bf16 output: one
+                # bf16 rounding step of the largest |y|
+                err = (y.float() - ref.float()).abs().max().item()
+                tol = 2 ** -7 * ref.float().abs().max().item()
+                _record(kid, f"{name} {out_f}x{in_f} T={T}", err, tol,
+                        lambda: qm.q4k_matvec_sbq(x, qt),
+                        lambda: qm.q4k_matvec_sbq_plain(x, qt),
+                        lambda: torch.matmul(x, w.t()),
+                        _wbytes(qt, sbq=True) + _nbytes(x) + T * out_f * 2,
+                        2 * T * in_f * out_f, INT8_OPS)
+            del w
+
+
+def phase_ffn_fused(rng) -> None:
+    """K15b at T=1 and K15a at T = 2, 8 over the 1.1B's q4_k FFN (w_gateup
+    (11264, 2048), w_down (2048, 5632)), against the plain version; the
+    library op is cuBLAS over the pre-dequantized weights with silu * mul
+    between."""
+    C, F = 2048, 5632
+    gu = rand_q4k(rng, 2 * F, C, DEV)
+    dn = rand_q4k(rng, C, F, DEV)
+    wg, wd = dequant(gu), dequant(dn)
+
+    def library(x):
+        h = torch.matmul(x, wg.t())
+        return torch.matmul(torch.nn.functional.silu(h[:, :F]) * h[:, F:],
+                            wd.t())
+
+    for T in (1, 2, 8):
+        kid = "K15b" if T == 1 else "K15a"
+        x = torch.from_numpy(rng.standard_normal((T, C)).astype(
+            np.float32)).to(DEV).bfloat16()
+        y = ffn_fused.ffn_fused_call(x, gu, dn)
+        ref = ffn_fused.ffn_fused_plain(x, gu, dn)
+        torch.cuda.synchronize()
+        # f32 gate/up and sums in another order: a bf16(a) or a group sum
+        # may round the other way, then the bf16 output: one bf16 step of
+        # the largest |y|
+        err = (y.float() - ref.float()).abs().max().item()
+        tol = 2 ** -7 * ref.float().abs().max().item()
+        _record(kid, f"w_gateup {2 * F}x{C} + w_down {C}x{F} T={T}", err,
+                tol, lambda: ffn_fused.ffn_fused_call(x, gu, dn),
+                lambda: ffn_fused.ffn_fused_plain(x, gu, dn),
+                lambda: library(x),
+                _wbytes(gu) + _wbytes(dn) + _nbytes(x) + T * C * 2,
+                2 * T * 3 * C * F)
+    del wg, wd
 
 
 def phase_kq_matmul(rng) -> None:
@@ -371,7 +473,7 @@ def phase_kq_matmul(rng) -> None:
                         lambda: qm.kq_matmul(x, qt),
                         lambda: qm.kq_matmul_plain(x, qt),
                         lambda: torch.matmul(x, w.t()),
-                        _nbytes(*qt.data.values(), x) + T * out_f * 2,
+                        _wbytes(qt) + _nbytes(x) + T * out_f * 2,
                         2 * T * in_f * out_f)
             del w
 
@@ -419,7 +521,7 @@ def phase_iq_kernels(rng) -> None:
                     tol, lambda: qm.iq_matvec(x, qt),
                     lambda: qm.iq_matvec_plain(x, qt),
                     lambda: torch.matmul(xr, w.t()),
-                    _nbytes(*qt.data.values(), x) + out_f * 2)
+                    _wbytes(qt) + _nbytes(x) + out_f * 2)
             del w
         for name, (out_f, in_f), T in k13_cases:
             qt = rand_iq(rng, out_f, in_f, DEV, kind, G)
@@ -437,7 +539,7 @@ def phase_iq_kernels(rng) -> None:
                     tol, lambda: qm.kq_matmul(x, qt),
                     lambda: qm.kq_matmul_plain(x, qt),
                     lambda: torch.matmul(x, w.t()),
-                    _nbytes(*qt.data.values(), x) + T * out_f * 2,
+                    _wbytes(qt) + _nbytes(x) + T * out_f * 2,
                     2 * T * in_f * out_f)
             del w
 
@@ -726,11 +828,15 @@ def phase_quant_decode(rng) -> None:
     Q4 pools (B=8, P=64, MP=32 pages handed out in a shuffled order), the
     1.1B's batched decode shape (H=32, Hkv=4, D=64), at positions
     QUANT_POSITIONS (pos 0, page boundaries, the last row, a dead slot),
-    flat scores, then peaked ones (see _peak)."""
+    flat scores, then peaked ones (see _peak); then K9 / K10 at P=128
+    (MP=16), the page size where the JAX package runs K11 over column
+    pools."""
     for kid in ("K6", "K9", "K10"):
         for peaked in (False, True):
             _quant_case(rng, kid, 8, 32, 4, 64, 64, 32, QUANT_POSITIONS,
                         peaked)
+    for kid in ("K9", "K10"):
+        _quant_case(rng, kid, 8, 32, 4, 64, 128, 16, QUANT_POSITIONS, True)
 
 
 def _quant_case(rng, kid, B, H, Hkv, D, P, MP, positions, peaked) -> None:
@@ -973,7 +1079,9 @@ def _idle_share(run) -> str:
 def phase_profiled(card: str) -> None:
     """The device idle share, under torch.profiler, of the synthetic 1.1B
     q4_k: a fast-forwarded single-stream request decoding 64 greedy tokens,
-    then 32 batched steps of 8 fast-forwarded greedy requests (8 slots). A
+    the same under KCPP_FFN_FUSED=1, then 32 batched steps of 8
+    fast-forwarded greedy requests (8 slots) and of 16 (16 slots under
+    KCPP_SBQ=1). A
     profiler session slows every later decode of the process, so this runs
     after every timed phase; the fast-forwarded single-stream request is
     timed just before its session and once more after it."""
@@ -992,21 +1100,30 @@ def phase_profiled(card: str) -> None:
     print(f"greedy decode, 64 tokens under torch.profiler ({card}): {idle}; "
           f"the fast-forwarded request after it: decode {after_tps:.1f} "
           f"tok/s (before it: {before_tps:.1f})", flush=True)
+    with _env(KCPP_FFN_FUSED="1", KCPP_SBQ="0"):
+        eng.generate(prompt, gp)
+        idle = _decode_idle_share(eng, prompt, sampler)
+    print(f"greedy decode under KCPP_FFN_FUSED=1, 64 tokens under "
+          f"torch.profiler ({card}): {idle}", flush=True)
     del eng
     rng = np.random.default_rng(2)
     prompts = [[1] + rng.integers(3, 32000, size=int(n) - 1).tolist()
-               for n in rng.integers(100, 301, size=8)]
-    g32 = [GenParams(max_length=32, bypass_eos=True, sampler=sampler)] * 8
-    beng = batch_engine.BatchedEngine(model, max_context=2048, n_slots=8,
-                                      device=DEV)
-    try:
-        _serve_together(beng, prompts, g32)
-        # fast-forwarded prompts: one 16-row wave, then 32 steps
-        idle = _idle_share(lambda: _serve_together(beng, prompts, g32))
-    finally:
-        beng.shutdown()
-    print(f"batched 1.1B (slot cache), 32 batched steps of 8 greedy "
-          f"requests under torch.profiler: {idle}", flush=True)
+               for n in rng.integers(100, 301, size=16)]
+    g32 = [GenParams(max_length=32, bypass_eos=True, sampler=sampler)] * 16
+    for n_slots, env in ((8, {}), (16, {"KCPP_SBQ": "1"})):
+        beng = batch_engine.BatchedEngine(model, max_context=2048,
+                                          n_slots=n_slots, device=DEV)
+        try:
+            with _env(**env):
+                ps, gs = prompts[:n_slots], g32[:n_slots]
+                _serve_together(beng, ps, gs)
+                # fast-forwarded prompts: one 16-row wave, then 32 steps
+                idle = _idle_share(lambda: _serve_together(beng, ps, gs))
+        finally:
+            beng.shutdown()
+        print(f"batched 1.1B (slot cache{', KCPP_SBQ=1' if env else ''}), "
+              f"32 batched steps of {n_slots} greedy requests under "
+              f"torch.profiler: {idle}", flush=True)
     del model
     torch.cuda.empty_cache()
 
@@ -1151,6 +1268,224 @@ def phase_batched_serving(card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the opt-in decode kernels: KCPP_FFN_FUSED=1 (K15) and KCPP_SBQ=1 (K14)
+# ---------------------------------------------------------------------------
+
+def _env(**kv):
+    """The environment with kv set for a block, restored after it; the
+    JAX package and the port read "0" as off."""
+    return mock.patch.dict(os.environ, kv)
+
+
+class _StepLaunches:
+    """The launches of each forward of a run, by the forward's token shape
+    (B, T): wraps models.llama.forward / forward_paged, which both engines
+    call through the module, and takes the launch counters' difference
+    over each call (the wrappers count on the calling thread)."""
+
+    def __enter__(self):
+        self.by_shape: dict = {}
+        self.orig = (llama.forward, llama.forward_paged)
+
+        def wrap(fn):
+            def forward(params, cfg, tokens, *a, **k):
+                before = dict(_build.launches)
+                out = fn(params, cfg, tokens, *a, **k)
+                delta = {n: c - before.get(n, 0)
+                         for n, c in _build.launches.items()
+                         if c != before.get(n, 0)}
+                self.by_shape.setdefault(tuple(tokens.shape), []).append(
+                    delta)
+                return out
+            return forward
+
+        llama.forward, llama.forward_paged = map(wrap, self.orig)
+        return self
+
+    def __exit__(self, *exc):
+        llama.forward, llama.forward_paged = self.orig
+
+    def steps(self, B: int) -> list[dict]:
+        """The launches of each decode step of B sequences."""
+        return self.by_shape.get((B, 1), [])
+
+
+def _check_steps(rec: _StepLaunches, B: int, want: dict, what: str) -> int:
+    """Every decode step of B sequences launched exactly `want` (ids with
+    0: none). Returns the number of steps."""
+    steps = rec.steps(B)
+    _check(len(steps) > 0, f"{what}: no decode step of {B} sequences")
+    for d in steps:
+        _check(all(d.get(k, 0) == n for k, n in want.items()),
+               f"{what}: a decode step launched {d}, want {want}")
+    return len(steps)
+
+
+FUSED_DEPTH = 32  # greedy tokens of the fused single-stream phase
+OPT_IN_DEPTH = 16  # greedy tokens per request of the opt-in batched phases
+
+
+def phase_fused_single(card: str, model, bf16_tps: float) -> dict:
+    """The synthetic 1.1B q4_k single-stream under KCPP_FFN_FUSED=1: the
+    300-token prompt and FUSED_DEPTH greedy tokens, every decode step with
+    22 K15b (one per layer's FFN) and 45 K1 (wqkv and wo per layer, the
+    output), against the unfused phase's 89 K1; a fast-forwarded repeat
+    gives the same tokens (near-ties apart); the logits of the prompt's
+    last token, evaluated as a decode step, against the unfused forward's
+    on the same cache."""
+    gp = GenParams(max_length=FUSED_DEPTH, bypass_eos=True,
+                   sampler=SamplerParams(temperature=0.0, rep_pen=1.0))
+    prompt = [1] + np.random.default_rng(1).integers(
+        3, 32000, size=299).tolist()
+    with _env(KCPP_FFN_FUSED="1", KCPP_SBQ="0"):
+        eng = Engine(model, max_context=2048, device=DEV)
+        eng.generate(prompt[:40], GenParams(max_length=8, bypass_eos=True,
+                                            sampler=gp.sampler))
+        eng.reset_context()
+        _build.launches.clear()
+        with _StepLaunches() as rec:
+            r1 = eng.generate(prompt, gp)
+            t1 = eng.last_timings
+            r2 = eng.generate(prompt, gp)
+        counts = dict(_build.launches)
+        L = TINYLLAMA_1_1B.n_layers
+        n = _check_steps(rec, 1, {"K15b": L, "K1": 2 * L + 1, "K7": 0,
+                                  "K3": 0}, "fused single-stream")
+        _check(len(r1.tokens) == FUSED_DEPTH
+               and all(0 <= t < 32000 for t in r1.tokens),
+               f"fused: bad reply {r1.tokens}")
+        _check(eng.last_timings.prompt_tokens == 1, "fused: no fast-forward")
+        _same_or_near_tie(eng, prompt, r2.tokens, r1.tokens,
+                          "fused single-stream repeat")
+        # the prompt's last token as a decode step (T=1: K15b), then the
+        # same step unfused, over the same cache rows
+        eng.reset_context()
+        tok = torch.tensor([[prompt[-1]]], dtype=torch.int64, device=DEV)
+        pos = torch.tensor([[299]], dtype=torch.int64, device=DEV)
+        with torch.inference_mode():
+            eng.eval_tokens(prompt[:-1], 0)
+            fused = eng._forward(tok, pos, last_only=True)[0, -1].float()
+            with _env(KCPP_FFN_FUSED="0"):
+                plain = eng._forward(tok, pos, last_only=True)[0, -1].float()
+        eng.reset_context()
+        eng.generate(prompt, gp)
+        # fast-forwarded requests decoding FUSED_DEPTH tokens, unfused and
+        # fused in turns on the same engine
+        turns: dict = {"0": [], "1": []}
+        for on in ("0", "1", "1", "0"):
+            with _env(KCPP_FFN_FUSED=on):
+                eng.generate(prompt, gp)
+            turns[on].append(round(eng.last_timings.gen_tps, 1))
+    _check(fused.shape == (32000,) and bool(torch.isfinite(fused).all()),
+           "fused logits are not finite (32000,)")
+    # the fused FFN takes bf16 x and f32 gate/up where the unfused one
+    # takes int8 activations per 32 columns (K1) and bf16 gate/up: over 22
+    # layers the logits part by that rounding, 0.45% of max |logit| on the
+    # H100, not by a bug (a wrong row or phase moves them by O(max |logit|))
+    err = (fused - plain).abs().max().item()
+    tol = 2e-2 * plain.abs().max().item()
+    _check(err <= tol, f"fused logits {err} from the unfused ones > {tol}")
+    print(f"end to end, KCPP_FFN_FUSED=1 ({card}): prefill "
+          f"{t1.prompt_tokens} tokens {t1.prompt_time * 1e3:.1f} ms, decode "
+          f"{t1.gen_tokens} tokens {t1.gen_tps:.1f} tok/s (unfused in this "
+          f"run: {bf16_tps:.1f} tok/s); {n} decode steps of {L} K15b + "
+          f"{2 * L + 1} K1 (unfused: {4 * L + 1} K1); last-token logits vs "
+          f"unfused: max abs err "
+          f"{err:.4g} (tol {tol:.4g}, max |logit| "
+          f"{plain.abs().max().item():.4g}); launches {counts}", flush=True)
+    print(f"decode tok/s of fast-forwarded requests in turns: unfused "
+          f"{turns['0']}, KCPP_FFN_FUSED=1 {turns['1']}", flush=True)
+    del eng
+    return counts
+
+
+def _serve_alone_and_together(model, n_slots: int, prompts, gp, want: dict,
+                              kind: str, card: str,
+                              turns_env: str | None = None) -> dict:
+    """len(prompts) concurrent greedy requests through BatchedEngine
+    (n_slots, slot cache): every decode step launches `want`, and each
+    request gets the tokens it gets alone through the same engine
+    (near-ties apart, read on a single-stream Engine under the same
+    environment). turns_env: then time the same requests, fast-forwarded,
+    with that variable off and on in turns. Returns the launch counts of
+    the concurrent run."""
+    eng = batch_engine.BatchedEngine(model, max_context=2048,
+                                     n_slots=n_slots, device=DEV)
+    try:
+        eng.generate([1, 2, 3, 4], GenParams(max_length=4,
+                                             sampler=gp.sampler))
+        eng.reset_context()
+        _build.launches.clear()
+        with _StepLaunches() as rec:
+            res, secs = _serve_together(eng, prompts, [gp] * len(prompts))
+        counts = dict(_build.launches)
+        n = _check_steps(rec, n_slots, want, kind)
+        alone = []
+        for p in prompts:
+            eng.reset_context()
+            alone.append(eng.generate(p, gp).tokens)
+        turns: dict = {"0": [], "1": []}
+        if turns_env:
+            _serve_together(eng, prompts, [gp] * len(prompts))
+            for on in ("0", "1", "1", "0"):
+                with _env(**{turns_env: on}):
+                    out, t = _serve_together(eng, prompts,
+                                             [gp] * len(prompts))
+                turns[on].append(round(sum(len(r.tokens) for r in out)
+                                       / t, 1))
+    finally:
+        eng.shutdown()
+    ref = Engine(model, max_context=2048, device=DEV)
+    for i, (p, r) in enumerate(zip(prompts, res)):
+        _check(len(r.tokens) == gp.max_length, f"{kind} request {i}: {r}")
+        _same_or_near_tie(ref, p, r.tokens, alone[i],
+                          f"{kind} request {i} (together vs alone)")
+    del ref
+    tokens = sum(len(r.tokens) for r in res)
+    print(f"batched 1.1B ({kind}, {card}): {len(prompts)} greedy requests, "
+          f"{tokens} tokens in {secs * 1e3:.1f} ms = {tokens / secs:.1f} "
+          f"tok/s aggregate (prefill of {sum(map(len, prompts))} prompt "
+          f"tokens included); {n} decode steps of {want}; each equals its "
+          f"reply alone; launches {counts}", flush=True)
+    if turns_env:
+        print(f"aggregate tok/s of the same requests fast-forwarded, in "
+              f"turns: {turns_env}=0 {turns['0']}, {turns_env}=1 "
+              f"{turns['1']}", flush=True)
+    return counts
+
+
+def phase_opt_in_batched(card: str, model) -> dict:
+    """The synthetic 1.1B q4_k batched: 8 slots under KCPP_FFN_FUSED=1
+    (every decode step 22 K15a and 45 K7), then 16 slots under KCPP_SBQ=1
+    (every decode step 89 K14: each projection, no K7, no K3, the FFN
+    declining K15 at 16 tokens), 8 and 16 concurrent greedy requests of
+    100-300 prompt tokens and OPT_IN_DEPTH new tokens each; each set then
+    timed with its variable off and on in turns (off: K7 and the composed
+    FFN at 8 slots, K3 at 16)."""
+    rng = np.random.default_rng(3)
+    prompts = [[1] + rng.integers(3, 32000, size=int(n) - 1).tolist()
+               for n in rng.integers(100, 301, size=16)]
+    gp = GenParams(max_length=OPT_IN_DEPTH, bypass_eos=True,
+                   sampler=SamplerParams(temperature=0.0, rep_pen=1.0))
+    counts: dict = {}
+    L = TINYLLAMA_1_1B.n_layers
+    with _env(KCPP_FFN_FUSED="1", KCPP_SBQ="0"):
+        c = _serve_alone_and_together(
+            model, 8, prompts[:8], gp,
+            {"K15a": L, "K7": 2 * L + 1, "K3": 0, "K14": 0},
+            "8 slots, KCPP_FFN_FUSED=1", card, "KCPP_FFN_FUSED")
+    for k, v in c.items():
+        counts[k] = counts.get(k, 0) + v
+    with _env(KCPP_SBQ="1", KCPP_FFN_FUSED="0"):
+        c = _serve_alone_and_together(
+            model, 16, prompts, gp, {"K14": 4 * L + 1, "K7": 0, "K3": 0},
+            "16 slots, KCPP_SBQ=1", card, "KCPP_SBQ")
+    for k, v in c.items():
+        counts[k] = counts.get(k, 0) + v
+    return counts
+
+
 # kind of the synthetic 1.1B -> (greedy tokens single-stream, per batched
 # request; the bodies that must run single-stream, batched; whether a
 # batched request is held to its single-stream tokens (q5_k: T=1 and T>=2
@@ -1263,6 +1598,18 @@ def phase_new_kinds(card: str) -> dict:
               f"aggregate (prefill of {sum(map(len, prompts))} prompt tokens "
               f"included); each equals its reply {ref}; launches {c2}",
               flush=True)
+        if kind == "q5_k":
+            # K14's q5_k body on the main path: the same 8 requests (8 new
+            # tokens each) under KCPP_SBQ=1, 89 K14.q5_k per decode step
+            with _env(KCPP_SBQ="1", KCPP_FFN_FUSED="0"):
+                c3 = _serve_alone_and_together(
+                    model, 8, prompts,
+                    GenParams(max_length=8, bypass_eos=True, sampler=sampler),
+                    {"K14.q5_k": 4 * TINYLLAMA_1_1B.n_layers + 1,
+                     "K7.q5_k": 0, "K3.q5_k": 0},
+                    "q5_k 8 slots, KCPP_SBQ=1", card)
+            for k, v in c3.items():
+                counts[k] = counts.get(k, 0) + v
         for c in (c1, c2):
             for k, v in c.items():
                 counts[k] = counts.get(k, 0) + v
@@ -1550,7 +1897,8 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     rng = np.random.default_rng(0)
-    for phase in (phase_matvec, phase_batched_matvec, phase_kq_matmul,
+    for phase in (phase_matvec, phase_batched_matvec, phase_sbq,
+                  phase_ffn_fused, phase_kq_matmul,
                   phase_iq_kernels, phase_flash_prefill, phase_flash_decode,
                   phase_paged_flash_decode, phase_quant_decode):
         _timed(phase, rng)
@@ -1562,8 +1910,14 @@ def main() -> int:
     # the main paths, each with the launch counts zeroed before it
     single, bf16_tps = _timed(phase_end_to_end, card)
     runs = [single, _timed(phase_quant_single, card, bf16_tps),
-            _timed(phase_batched_serving, card), _timed(phase_served_fixture),
-            _timed(phase_new_kinds, card), _timed(phase_served_kinds)]
+            _timed(phase_batched_serving, card)]
+    model = synthetic_model(TINYLLAMA_1_1B, "q4_k", seed=0, device=DEV)
+    runs += [_timed(phase_fused_single, card, model, bf16_tps),
+             _timed(phase_opt_in_batched, card, model)]
+    del model
+    torch.cuda.empty_cache()
+    runs += [_timed(phase_served_fixture), _timed(phase_new_kinds, card),
+             _timed(phase_served_kinds)]
     _timed(check_fixture_goldens)
     # the profiled windows last: a profiler session slows later decodes
     _timed(phase_profiled, card)

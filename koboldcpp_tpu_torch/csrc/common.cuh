@@ -33,6 +33,12 @@ __device__ __forceinline__ float group_max(float v, int width) {
 }
 
 __device__ __forceinline__ float warp_sum(float v) { return group_sum(v, 32); }
+
+// bits 0..3 of b -> bit 0 of bytes 0..3 (a q5_k 5th-bit nibble to a byte
+// mask)
+__device__ __forceinline__ uint32_t spread4(uint32_t b) {
+    return ((b & 0xFu) * 0x00204081u) & 0x01010101u;
+}
 __device__ __forceinline__ float warp_max(float v) { return group_max(v, 32); }
 
 // Activation prep for the T=1 matvecs (the port of `_i8_prep` and

@@ -37,11 +37,6 @@
 
 constexpr int ROWS_PER_BLOCK = 8;  // one warp per row
 
-// bits 0..3 of b -> bit 0 of bytes 0..3
-__device__ __forceinline__ uint32_t spread4(uint32_t b) {
-    return ((b & 0xFu) * 0x00204081u) & 0x01010101u;
-}
-
 template <bool I8, int T, bool Q5>
 __global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
 q4k_matvec_kernel(const uint8_t* __restrict__ qs2,

@@ -21,7 +21,10 @@ per tick.
     once; BURST_DEPTH bursts are in flight, so a pull overlaps newer bursts.
 
 A decode step is one forward at (n_slots, 1): q4_k / q5_k projections go
-to K7 (2 <= n_slots <= 8), q6_k / q8_0 ones to K3, attention to K5 over the slot cache (B, S, H_kv*D) or
+to K7 (2 <= n_slots <= 8) or K3 (n_slots > 8), under KCPP_SBQ=1 to K14
+(2 <= n_slots <= 16, in_f >= 2048, a K-quant file's weights), and under
+KCPP_FFN_FUSED=1 a q4_k FFN of n_slots <= 8 tokens to K15a (one launch);
+q6_k / q8_0 ones to K3, attention to K5 over the slot cache (B, S, H_kv*D) or
 K8 over the paged pool (kv/paged.py, `paged=True`); with `quantkv=1` to K6
 over the Q8 slot cache or K9 over the Q8 pool, with `quantkv=2` to the plain
 path over the Q4 slot cache or K10 over the Q4 pool. Tokens a burst computes

@@ -6,7 +6,8 @@ array already converted to numpy (e.g. `jax.tree_util.tree_map(np.asarray,
 params)`); a packed weight is any object with `kind`, `shape` and `data`
 attributes (the JAX QTensor after that tree_map). Only the logical fields
 are kept: q4_k's and q5_k's plane-ordered `scale_lo`/`scale_hi` interleave
-back into the logical `scale`, q5_k's `hb` (bit 0: the 5th bit of col
+back into the logical `scale`, their `scp_lo`/`scp_hi`/`d_sbt` (where
+present) into K14's logical `sc` and `d`, q5_k's `hb` (bit 0: the 5th bit of col
 256s+b, bit 1: of col 256s+128+b, for byte b of superblock s) becomes the
 port's `qh` bit plane; q2_k's and q3_k's raw 2-bit stream `qs2` becomes
 `qs`, their plane-major `scale_p` / `min_p` go back to logical group order,
@@ -85,6 +86,15 @@ def _qtensor(v: Any, device) -> QTensor:
         slo = _tensor(v.data["scale_lo"], device).reshape(rows, -1, 4)
         shi = _tensor(v.data["scale_hi"], device).reshape(rows, -1, 4)
         data["scale"] = torch.cat([slo, shi], dim=2).reshape(rows, -1)
+        if "scp_lo" in v.data and "d_sbt" in v.data:
+            # K14's raw factors: sc = 8 (sp >> 4) + (sp & 15) of the
+            # plane-ordered packed sub-scales, d from (nsb, rows)
+            sp = np.stack([np.asarray(v.data["scp_lo"]).reshape(rows, -1, 4),
+                           np.asarray(v.data["scp_hi"]).reshape(rows, -1, 4)],
+                          axis=2).astype(np.int32).reshape(rows, -1)
+            data["sc"] = torch.from_numpy(
+                (8 * (sp >> 4) + (sp & 15)).astype(np.uint8)).to(device)
+            data["d"] = _tensor(np.asarray(v.data["d_sbt"]).T, device)
     if kind in ("q2_k", "q3_k"):
         data["qs"] = _tensor(v.data["qs2"], device)
         for name, src in (("scale", "scale_p"), ("min", "min_p")):

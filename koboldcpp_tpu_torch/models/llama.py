@@ -1,7 +1,8 @@
 """Llama-family forward pass in PyTorch (llama / mistral / qwen2-style
 decoder-only transformers: GQA, optional q/k/v and output biases, fused
 wqkv / w_gateup projections, silu-gated FFN, attention and final-logit
-softcaps).
+softcaps). Under KCPP_FFN_FUSED=1 a q4_k FFN of at most 8 tokens runs as
+one launch (K15, ops/ffn_fused.py), as in the JAX `_ffn`.
 
 Port of koboldcpp_tpu/models/llama.py `forward` and `forward_paged` for the
 branches a llama / mistral / qwen2 Q4_K_M model takes. Single-token decode
@@ -24,6 +25,7 @@ import torch
 from ..kv import paged
 from ..kv.cache import QuantKVCache, read as kv_read, write as kv_write
 from ..ops import flash_decode, linear
+from ..ops.ffn_fused import ffn_fused
 from ..ops.flash_prefill import flash_prefill_attention
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.rope import apply_rope, rope_frequencies, yarn_attn_scale
@@ -109,6 +111,12 @@ def check_supported(params: Params, cfg: ModelConfig, device=None) -> None:
                                   "forward yet")
 
 
+# layer keys under which the JAX `_ffn` keeps the composed FFN (the silu
+# activation is the only one this forward serves)
+_FFN_UNFUSED_KEYS = ("b_gate", "b_up", "b_down", "ffn_sub_norm",
+                     "ffn_down_scale")
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: torch.Tensor, scale: float,
               softcap: float = 0.0) -> torch.Tensor:
@@ -131,6 +139,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _ffn(x: torch.Tensor, layer: Params) -> torch.Tensor:
     if "w_gateup" in layer:  # fused gate+up (one kernel launch)
+        if not any(k in layer for k in _FFN_UNFUSED_KEYS):
+            # KCPP_FFN_FUSED=1, T <= 8: the whole FFN as one launch (K15)
+            y = ffn_fused(x, layer["w_gateup"], layer["w_down"])
+            if y is not None:
+                return y
         gu = linear.matmul(x, layer["w_gateup"])
         F = gu.shape[-1] // 2
         gate, up = gu[..., :F], gu[..., F:]

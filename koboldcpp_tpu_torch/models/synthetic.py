@@ -38,7 +38,9 @@ def _rand_dense(rng, shape, device, scale=0.02,
 
 def rand_q4k(rng, out_f: int, in_f: int, device="cpu") -> QTensor:
     """Synthetic Q4_K with the real scale structure (d per superblock x
-    6-bit integer sub-scales)."""
+    6-bit integer sub-scales), kept as the raw sc / d fields K14 reads
+    beside the bf16 scale (the JAX `_rand_q4k` draws, in the same
+    order)."""
     nsb = in_f // QK_K
     qs2 = rng.integers(0, 256, size=(out_f, in_f // 2), dtype=np.uint8)
     d = (rng.random((out_f, nsb), dtype=np.float32) * 6.3e-5)
@@ -51,6 +53,8 @@ def rand_q4k(rng, out_f: int, in_f: int, device="cpu") -> QTensor:
         "qs2": _u8(qs2, device),
         "scale": _bf16(scale, device),
         "min": _bf16(mn, device),
+        "sc": _u8(sc.reshape(out_f, nsb * 8), device),
+        "d": torch.from_numpy(d).to(device),
     })
 
 

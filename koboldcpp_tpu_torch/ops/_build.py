@@ -11,7 +11,9 @@ import time: the tests import every module on machines without nvcc.
 "K1.q5_k", "K7.q5_k", "K2.q8_0", "K3.q5_k", "K3.q8_0" for the bodies of the
 q5_k and q8_0 kinds, "K12.q2_k", "K12.q3_k", "K13.q2_k", "K13.q3_k" for the
 q2_k and q3_k ones, "K12.<kind>" and "K13.<kind>" for the IQ kinds iq2p,
-iq3px, iq3ps and iq1p; "K1", "K2", "K3" and "K7" count q4_k / q6_k only);
+iq3px, iq3ps and iq1p; "K14" and "K14.q5_k" for the superblock batched
+matvec, "K15b" (T = 1) and "K15a" (2 <= T <= 8) for the FFN megakernel;
+"K1", "K2", "K3", "K7" and "K14" count q4_k / q6_k only);
 each wrapper adds one where it launches its kernel, and nowhere else.
 """
 from __future__ import annotations
@@ -29,7 +31,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 SOURCES = ("q4k_matvec", "q6k_matvec", "q8_0_matvec", "q23k_matvec",
-           "iq_matvec", "kq_matmul", "flash_decode", "flash_prefill")
+           "iq_matvec", "kq_matmul", "flash_decode", "flash_prefill",
+           "q4k_sbq", "ffn_fused")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -10,9 +10,12 @@ TPU-specific transposed or plane-major sidecars):
   q4_k: qs2 (out, in/2) u8 — byte b of 256-col superblock s holds col 256s+b
         in the low nibble and col 256s+128+b in the high nibble; scale / min
         (out, in/32) bf16 in logical group order; w = q*scale - min.
-  q5_k: q4_k's qs2 / scale / min for the low 4 bits, plus qh (out, in/8) u8,
-        one bit per weight: bit b of byte j is the 5th bit of logical col
-        8j+b; w = q5*scale - min with q5 = nibble | bit << 4.
+        From a Q4_K file also sc (out, in/32) u8, the 6-bit sub-scales, and
+        d (out, in/256) f32, the superblock scale: scale = bf16(d * sc)
+        (K14 reads sc and d).
+  q5_k: q4_k's qs2 / scale / min (and sc / d) for the low 4 bits, plus qh
+        (out, in/8) u8, one bit per weight: bit b of byte j is the 5th bit
+        of logical col 8j+b; w = q5*scale - min with q5 = nibble | bit << 4.
   q6_k: ql (out, in/2) u8 and qh (out, in/4) u8 in ggml's block order (element
         256s+128h+32j+l: low nibble of ql[128s+64h+32(j&1)+l] (high nibble
         for j>=2), bits 2j..2j+1 of qh[64s+32h+l]); scale (out, in/16) bf16;
@@ -94,24 +97,35 @@ def _f16(blocks: np.ndarray, at: int) -> np.ndarray:
 
 
 def _k_scales(blocks: np.ndarray, rows: int, nsb: int):
-    """Q4_K/Q5_K superblocks -> per-32-col (scale, min) f32, logical order."""
+    """Q4_K/Q5_K superblocks -> per-32-col (scale, min) f32, logical order,
+    and the raw factors of the scale: the 6-bit sub-scales sc (R, nsb*8)
+    and the superblock d (R, nsb) f32, scale = d * sc."""
     d, dmin = _f16(blocks, 0), _f16(blocks, 2)
     sc, mn = nq._unpack_scale_min_k4(blocks[:, :, 4:16].reshape(-1, 12))
     return ((d.reshape(-1, 1) * sc).reshape(rows, nsb * 8),
-            (dmin.reshape(-1, 1) * mn).reshape(rows, nsb * 8))
+            (dmin.reshape(-1, 1) * mn).reshape(rows, nsb * 8),
+            sc.reshape(rows, nsb * 8), d)
 
 
 def _q45_fields(q: np.ndarray, scales: np.ndarray, mins: np.ndarray,
-                shape, device, hi_bits: np.ndarray | None = None) -> QTensor:
+                shape, device, hi_bits: np.ndarray | None = None,
+                sc: np.ndarray | None = None,
+                d: np.ndarray | None = None) -> QTensor:
     """Logical-order codes (R, C) (low 4 bits; the 5th in hi_bits, 0/1) and
     per-32-col scales / mins (w = q*scale - min) -> a q4_k or q5_k QTensor
-    (the port of the JAX `_fields_4bit_planes`)."""
+    (the port of the JAX `_fields_4bit_planes`). A K-quant file also gives
+    the scale's factors (sc, d), which K14 reads (the JAX `scp_lo` /
+    `scp_hi` / `d_sbt`); the legacy block types have none."""
     rows, cols = shape
     qs = q.reshape(rows, cols // QK_K, QK_K)
     qs2 = ((qs[:, :, :128] & 0xF) | ((qs[:, :, 128:] & 0xF) << 4))
     data = {"qs2": _u8(qs2.reshape(rows, cols // 2), device),
             "scale": _bf16(scales.reshape(rows, cols // 32), device),
             "min": _bf16(mins.reshape(rows, cols // 32), device)}
+    if sc is not None:
+        data["sc"] = _u8(sc.reshape(rows, cols // 32), device)
+        data["d"] = torch.from_numpy(np.array(
+            d.reshape(rows, cols // QK_K), np.float32, order="C")).to(device)
     if hi_bits is None:
         return QTensor(kind="q4_k", shape=tuple(shape), data=data)
     data["qh"] = _u8(np.packbits(hi_bits.reshape(rows, cols).astype(np.uint8),
@@ -131,9 +145,9 @@ def pack_q4_k(raw: np.ndarray, shape: tuple[int, int],
     rows, cols = shape
     nsb = cols // QK_K
     blocks = np.ascontiguousarray(raw).reshape(rows, nsb, 144)
-    scales, mins = _k_scales(blocks, rows, nsb)
+    scales, mins, sc, d = _k_scales(blocks, rows, nsb)
     return _q45_fields(_kquant_nibbles(blocks[:, :, 16:], rows, nsb), scales,
-                       mins, shape, device)
+                       mins, shape, device, sc=sc, d=d)
 
 
 def pack_q5_k(raw: np.ndarray, shape: tuple[int, int],
@@ -144,11 +158,11 @@ def pack_q5_k(raw: np.ndarray, shape: tuple[int, int],
     rows, cols = shape
     nsb = cols // QK_K
     blocks = np.ascontiguousarray(raw).reshape(rows, nsb, 176)
-    scales, mins = _k_scales(blocks, rows, nsb)
+    scales, mins, sc, d = _k_scales(blocks, rows, nsb)
     qh = blocks[:, :, 16:48].reshape(rows, nsb, 1, 32)
     bits = (qh >> np.arange(8, dtype=np.uint8)[None, None, :, None]) & 1
     return _q45_fields(_kquant_nibbles(blocks[:, :, 48:], rows, nsb), scales,
-                       mins, shape, device, hi_bits=bits)
+                       mins, shape, device, hi_bits=bits, sc=sc, d=d)
 
 
 def pack_q6_k(raw: np.ndarray, shape: tuple[int, int],

@@ -10,6 +10,10 @@ CUDA tensor it launches the kernel or raises.
   K7  q4k_matvec_t  2<=T<=8 q4_k/q5_k (csrc/q4k_matvec.cu; the same JAX
                                        function, `_i8_t` bodies: batched
                                        decode)
+  K14 q4k_matvec_sbq 2<=T<=16 q4_k/   (csrc/q4k_sbq.cu; JAX
+                     q5_k, KCPP_SBQ=1  `_packed_matvec_q4k_sbq`: int8
+                                       activations per 128 columns, the
+                                       integer sub-scales in int32 dots)
   K2  q6k_matvec    T=1 q6_k          (csrc/q6k_matvec.cu; JAX
       q8_0_matvec   T=1 q8_0           `_packed_matvec`; csrc/q8_0_matvec.cu)
   K12 q23k_matvec   T=1 q2_k/q3_k     (csrc/q23k_matvec.cu; the same JAX
@@ -25,13 +29,16 @@ Launch counters (ops/_build.launches): "K1", "K7", "K2" and "K3" count the
 q4_k / q6_k bodies they have counted since they were ported; every other
 kind's body has a counter of its own, "<id>.<kind>" ("K1.q5_k", "K7.q5_k",
 "K2.q8_0", "K3.q5_k", "K3.q8_0", "K12.q2_k", "K12.q3_k", "K13.q2_k",
-"K13.q3_k", and "K12.<kind>" / "K13.<kind>" for the four IQ kinds).
+"K13.q3_k", and "K12.<kind>" / "K13.<kind>" for the four IQ kinds); K14
+counts q4_k as "K14" and q5_k as "K14.q5_k".
 
 `matmul_packed(x, qt)` returns None when the JAX dispatch would decline the
 shape (out_f or in_f not a multiple of 256, or an in_f too wide for any
 2-D tile); callers then take the dequant path in ops/linear.py.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -47,7 +54,8 @@ _SIG_PREP = [_build.P] * 4 + [_build.I] * 2 + [_build.P]
 _FIELD_DTYPES = {"qs2": torch.uint8, "ql": torch.uint8, "qh": torch.uint8,
                  "qs": torch.uint8, "hmask": torch.uint8, "sg": torch.uint8,
                  "q": torch.int8, "scale": torch.bfloat16,
-                 "min": torch.bfloat16}
+                 "min": torch.bfloat16, "sc": torch.uint8,
+                 "d": torch.float32}
 # kind -> (kq_matmul.cu KIND, the packed weight fields w0, w1 and w2 (None:
 # not read), the affine term's group width (0: no affine term; None: the
 # IQ kind's scale group G))
@@ -190,6 +198,99 @@ def q4k_matvec_t(x: torch.Tensor, qt: QTensor, i8: bool) -> torch.Tensor:
     y = _q4k_launch(x, qt, i8, "K7")
     _count("K7", qt)
     return y
+
+
+# ---------------------------------------------------------------------------
+# K14: q4_k/q5_k 2<=T<=16 batched matvec over the superblock factors
+# (KCPP_SBQ=1)
+# ---------------------------------------------------------------------------
+
+SBQ_SEG = 128  # columns per int8 activation scale (one superblock half)
+
+
+def sbq_prep_plain(x: torch.Tensor):
+    """x (T, in_f) bf16 -> (xq int8 (T, in_f), sx f32 (T, in_f/128), xsum
+    bf16 (T, in_f/32)) as `_sbq_prep`: codes rint(x * (127 / amax)) per
+    128-column segment (logical cols 128k..128k+127, one plane of one
+    superblock) with amax clamped at 1e-20, scale amax / 127, and the
+    bf16-rounded f32 sums of x per 32 columns."""
+    T, in_f = x.shape
+    xf = x.float().reshape(T, in_f // SBQ_SEG, SBQ_SEG)
+    a = xf.abs().amax(dim=2).clamp_min(1e-20)
+    c127 = a.new_tensor(127.0)  # IEEE division, as in act_prep_plain
+    xq = torch.round(xf * (c127 / a)[..., None]).to(torch.int8)
+    return xq.reshape(T, in_f), a / c127, _group_sums(x, 32)
+
+
+def q4k_matvec_sbq_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """x (T, in_f) bf16 -> (T, out_f) bf16 for a q4_k or q5_k QTensor with
+    sc / d (`_q4k_decode_kernel_sbq`, `_q5k_decode_kernel_sbq`): per token
+    t and 128-column segment k, the exact integer dot P_tk = sum_c sc_g(c)
+    q_c xq_tc (the sub-scale folded into the int32 product), then y_t =
+    sum_s d_s (P_t,2s sx_t,2s + P_t,2s+1 sx_t,2s+1) - sum_g m_g xs_tg over
+    superblocks s and 32-column groups g. The products are exact in float64
+    (|P| < 2^25), so this matmul repeats the integer sums."""
+    out_f, in_f = qt.shape
+    T = x.shape[0]
+    nseg = in_f // SBQ_SEG
+    d = qt.data
+    q = (q4k_values(d["qs2"]) if qt.kind == "q4_k"
+         else q5k_values(d["qs2"], d["qh"])).reshape(out_f, -1, 32)
+    w = (q.double() * d["sc"].double()[..., None]).reshape(
+        out_f, nseg, SBQ_SEG).transpose(0, 1)              # (nseg, R, 128)
+    xq, sx, xsum = sbq_prep_plain(x)
+    xs = xq.double().reshape(T, nseg, SBQ_SEG).permute(1, 2, 0)  # (nseg,128,T)
+    p = torch.bmm(w, xs).float()                           # (nseg, R, T)
+    va = (p.permute(2, 1, 0) * sx[:, None, :]).reshape(T, out_f, -1, 2)
+    t = (va.sum(dim=3) * d["d"][None]).sum(dim=2)          # (T, R)
+    t = t - torch.matmul(xsum.float(), d["min"].float().t())
+    return t.to(torch.bfloat16)
+
+
+def q4k_matvec_sbq(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """K14 wrapper (q4_k or q5_k with sc / d). x (T, in_f) bf16 contiguous,
+    2 <= T <= 16 -> (T, out_f) bf16; each row depends on its token alone."""
+    if not x.is_cuda:
+        return q4k_matvec_sbq_plain(x, qt)
+    T, in_f = x.shape
+    out_f = qt.shape[0]
+    if x.dim() != 2 or not 2 <= T <= 16 or qt.kind not in ("q4_k", "q5_k") \
+            or "sc" not in qt.data or "d" not in qt.data:
+        raise ValueError("K14 takes x (T, in_f) with 2 <= T <= 16 and a "
+                         "q4_k / q5_k weight with sc and d")
+    _check_operands(x, qt, "K14")
+    lib = _build.load("q4k_sbq", {
+        "k14_sbq_prep": [_build.P] * 4 + [_build.I] * 2 + [_build.P],
+        "k14_sbq_matvec": [_build.P] * 9 + [_build.I] * 3 + [_build.P]})
+    dev = x.device
+    xq = torch.empty(T * in_f, dtype=torch.int8, device=dev)
+    sx = torch.empty(T * in_f // SBQ_SEG, dtype=torch.float32, device=dev)
+    xsum = torch.empty(T * in_f // 32, dtype=torch.bfloat16, device=dev)
+    y = torch.empty((T, out_f), dtype=torch.bfloat16, device=dev)
+    st = _build.stream_ptr()
+    _build.check(lib, lib.k14_sbq_prep(x.data_ptr(), xq.data_ptr(),
+                                       sx.data_ptr(), xsum.data_ptr(), T,
+                                       in_f, st), "K14 prep")
+    d = qt.data
+    _build.check(lib, lib.k14_sbq_matvec(
+        d["qs2"].data_ptr(), _ptr(d.get("qh")), d["sc"].data_ptr(),
+        d["d"].data_ptr(), d["min"].data_ptr(), xq.data_ptr(),
+        sx.data_ptr(), xsum.data_ptr(), y.data_ptr(), T, out_f, in_f, st),
+        "K14")
+    _count("K14", qt)
+    return y
+
+
+def _sbq(qt: QTensor, T: int) -> bool:
+    """The JAX dispatch's K14 rule (`matmul_packed`, quant_matmul.py:2102-
+    2113): KCPP_SBQ=1, q4_k / q5_k with its superblock factors, 2 <= T <=
+    16, in_f a multiple of 256 and at least 2048. Read at every call, as
+    JAX reads it."""
+    in_f = qt.shape[1]
+    return (os.environ.get("KCPP_SBQ", "0") == "1"
+            and qt.kind in ("q4_k", "q5_k") and 2 <= T <= 16
+            and in_f % 256 == 0 and in_f >= 2048
+            and "sc" in qt.data and "d" in qt.data)
 
 
 # ---------------------------------------------------------------------------
@@ -525,6 +626,8 @@ def matmul_packed(x: torch.Tensor, qt: QTensor) -> torch.Tensor | None:
     (`_iq2p/_iq3p/_iq1p_row_kernel_i8`) where in_f >= 32 G for their scale
     group G and K13 below that (JAX's row kernels need 8 scratch sublanes;
     there is no bf16 K12.iq).
+    Under KCPP_SBQ=1, q4_k/q5_k at 2 <= T <= 16 with in_f >= 2048 take K14
+    (`_q4k/_q5k_decode_kernel_sbq`; `_sbq`) ahead of every other branch.
     q4_k/q5_k at 2 <= T <= 8 take K7 (int8, while T * (in_f/64) * (in_f/2)
     <= 4 Mi and in_f >= 512: `_q4k/_q5k_decode_kernel_i8_t`) or at T <= 4
     the bf16 variant. Every other shape goes to K3 (`_q4k_kernel`,
@@ -541,6 +644,8 @@ def matmul_packed(x: torch.Tensor, qt: QTensor) -> torch.Tensor | None:
     x2 = x.reshape(-1, in_f).to(torch.bfloat16).contiguous()
     T = x2.shape[0]
     q45 = qt.kind in ("q4_k", "q5_k")
+    if _sbq(qt, T):
+        return q4k_matvec_sbq(x2, qt).reshape(*lead, out_f)
     if T == 1 and qt.kind in IQ_KINDS:
         if in_f >= 32 * iq_group(qt):
             return iq_matvec(x2[0], qt).reshape(*lead, out_f)

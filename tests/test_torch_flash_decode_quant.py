@@ -3,7 +3,9 @@ Q8 paged pool) and K10 (over a Q4 paged pool) against the JAX package's
 `decode_attention_batched_q8`, `decode_attention_paged_q8` and
 `decode_attention_paged_q4` (Pallas, interpret mode), on the patterns of
 tests/test_flash_decode.py: non-contiguous page tables, pos 0 (self term
-only), page boundaries and a dead slot."""
+only), page boundaries and a dead slot; and K9 / K10 at page size 128
+against K11 (`decode_attention_paged_q8c` / `_q4c`), which JAX runs over
+its column pools there."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -137,6 +139,57 @@ def test_paged_quant_plain_matches_jax(positions, softcap, bits):
                                rtol=0, atol=_tol(vn, tv.float()))
     # after the step both pools hold the same values (the rows at pos are
     # the quantized new rows), and no other pool row changed
+    jc = jc.with_layer(0, *upd)
+    for got, want in zip(tpaged.gather(tc, 0, torch.from_numpy(table)),
+                         jpaged.gather(jc, 0, jnp.asarray(table))):
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_k9_k10_serve_the_column_pools_of_k11(bits):
+    """At page size 128 the JAX pool is a column pool (kv/paged.py:116-118:
+    P % 128 == 0 and a stored KV width under 1 KiB), and its decode runs
+    K11 (`decode_attention_paged_q8c` / `_q4c`). The port keeps row pools
+    at every P, so K9 / K10 serve P=128: their plain versions over the
+    port's row pool against K11 over the JAX column pool, the same history
+    written by both pools' `write`, with test_paged_quant_plain_matches_jax's
+    tolerance; afterwards both pools hold the same values."""
+    P128, NP128, MP128 = 128, 10, 2
+    positions = (0, 130, 255, -1)
+    rng = np.random.default_rng(11 + bits)
+    level = "q4" if bits == 4 else "q8"
+    jc = jpaged.init_paged_cache(1, NP128, P128, HKV, D, quantized=level)
+    assert jc.kd > 0  # the column layout, where JAX runs K11
+    tc = tpaged.init_paged_cache(1, NP128, P128, HKV, D, quantized=level)
+    table = rng.permutation(NP128)[:B * MP128].reshape(B, MP128).astype(
+        np.int32)
+    for b, p in enumerate(positions):
+        if p <= 0:
+            continue
+        ks, vs = rng.standard_normal((2, 1, p, HKV, D)).astype(np.float32)
+        jc = jpaged.write(jc, 0, jnp.asarray(table[b:b + 1]),
+                          jnp.arange(p)[None], _j(ks), _j(vs))
+        tpaged.write(tc, 0, torch.from_numpy(table[b:b + 1]),
+                     torch.arange(p)[None], _bf(ks), _bf(vs))
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    kn, vn = _new_rows(rng, bits)
+    pos = np.asarray(positions, np.int32)
+    jfn = (jfd.decode_attention_paged_q4c if bits == 4
+           else jfd.decode_attention_paged_q8c)
+    tfn = (tfd.decode_attention_paged_q4 if bits == 4
+           else tfd.decode_attention_paged_q8)
+    out_j, *upd = jfn(_j(q), _j(kn), _j(vn), jc.k[0], jc.v[0],
+                      jc.k_scale[0], jc.v_scale[0], jnp.asarray(table),
+                      jnp.asarray(pos), H, HKV, P128, SCALE, 0.0,
+                      interpret=True)
+    out_t, *_ = tfn(_bf(q), _bf(kn), _bf(vn), tc.k[0], tc.v[0],
+                    tc.k_scale[0], tc.v_scale[0], torch.from_numpy(table),
+                    torch.from_numpy(pos), H, HKV, P128, SCALE, 0.0)
+    live = [b for b, p in enumerate(positions) if p >= 0]
+    _, tv = tpaged.gather(tc, 0, torch.from_numpy(table))
+    np.testing.assert_allclose(out_t.numpy()[live], np.asarray(out_j)[live],
+                               rtol=0, atol=_tol(vn, tv.float()))
     jc = jc.with_layer(0, *upd)
     for got, want in zip(tpaged.gather(tc, 0, torch.from_numpy(table)),
                          jpaged.gather(jc, 0, jnp.asarray(table))):
