@@ -10,15 +10,20 @@
    q3_k bodies K12.q2_k, K12.q3_k, K13.q2_k, K13.q3_k, and the native IQ
    bodies K12.iq2p, K12.iq3px, K12.iq3ps, K12.iq1p, K13.iq2p, K13.iq3px,
    K13.iq3ps, K13.iq1p at scale groups G = 32, 16 (iq2p) and 8 (iq1p),
-   the superblock batched matvec K14 / K14.q5_k at T = 2, 8, 16 and the
-   FFN megakernel K15b (T=1) / K15a (T = 2, 8); K9 / K10 also at page size
+   the superblock batched matvec K14 / K14.q5_k at T = 2, 8, 16, the
+   FFN megakernel K15b (T=1) / K15a (T = 2, 8), the opt-in bodies
+   K12.q6_k_i8f, K12.q3_k_n4, K12.q2_k_n4 (KCPP_KQ_LAYOUT=expanded),
+   K13.q4_k_i8 at T = 1, 8, 512 (KCPP_Q4K_LAYOUT=i8) and K2.q8_0_bf16, with
+   the bf16 bodies of K2 / K12.q2_k / K12.q3_k at the 1.1B widths
+   (KCPP_MM_I8=0); K9 / K10 also at page size
    128) against its plain PyTorch version on the card at the
    TinyLlama-1.1B shapes (and
    the fixtures' widths; K4 also at head_dim 128 and 256), with the max error
    against its stated tolerance and the times of the kernel, the plain
    version, one PyTorch library call computing the same function (where
    there is one), and the least time the card could take; K7's rows equal
-   K1 on each row alone (K7.q5_k K1.q5_k), K2.q8_0 equals its plain version,
+   K1 on each row alone (K7.q5_k K1.q5_k), K2.q8_0 and K2.q8_0_bf16 equal
+   their plain versions,
    and K8 over a shuffled page table equals K5 on the
    same history laid out contiguously, bit for bit; the quantized decode
    kernels (K6, K9, K10) write the same codes and scales as their plain
@@ -62,15 +67,31 @@
    K7.q5_k, K3.q8_0, K13), each batched request getting its single-stream
    tokens (q5_k) or the tokens it gets alone through the batched engine
    (the other kinds); q5_k also under KCPP_SBQ=1 (8 new tokens, every
-   decode step 89 K14.q5_k);
+   decode step 89 K14.q5_k); then the synthetic 1.1B in each opt-in
+   layout, single-stream under its variable (300-token prompt, 16 greedy
+   tokens, a fast-forwarded repeat): q6_k / q3_k / q2_k under
+   KCPP_KQ_LAYOUT=expanded (every decode step 89 K12.q6_k_i8f / q3_k_n4 /
+   q2_k_n4, none of K2 / K12.q3_k / K12.q2_k), q4_k under
+   KCPP_Q4K_LAYOUT=i8 (89 K13.q4_k_i8, no K1; prefill chunks through
+   K13.q4_k_i8) and q8_0 under KCPP_MM_I8=0 (89 K2.q8_0_bf16, no K2.q8_0),
+   the last prompt token's logits within 2e-2 (4e-2 for q6_k_i8f and
+   where the model amplifies rounding) of max |logit| of the default
+   layout's, and the default layout's decode tok/s
+   in the same run; q4_k_i8 also with 8 slots (8 requests of 8 tokens,
+   each getting its reply alone);
 7. serves tiny-q8_0, -q5_1, -q4_0, -iq4_nl and -tq2_0, and
    tests/fixtures/portgguf's tiny-q2_k, -q3_k_m, -iq2_xs, -iq3_xxs and
    -iq1_m, over HTTP, two identical replies each through their kinds'
    bodies (K2.q8_0, K1.q5_k, K1, K12, K13), tiny-q8_0, tiny-q5_1, tiny-q2_k
-   and tiny-iq1_m also with multiuser=4; then holds the eight reference
+   and tiny-iq1_m also with multiuser=4; tiny-q6_k and tiny-q3_k_m under
+   KCPP_KQ_LAYOUT=expanded, tiny-q4_k_m under KCPP_Q4K_LAYOUT=i8 and
+   tiny-q8_0 under KCPP_MM_I8=0, two identical replies each through the
+   opt-in bodies; then holds the eight reference
    fixtures' logits on the card against the reference runtime's goldens,
-   and the five portgguf fixtures' against the JAX package's committed
-   logits;
+   the five portgguf fixtures' against the JAX package's committed
+   logits, and those of tests/fixtures/portgguf/optin.json (five fixtures
+   under their variables, a prefill of 11 tokens and one decode step)
+   against the JAX package's under the same variables;
 8. last, since a profiler session slows every later decode of the
    process: the device idle share under torch.profiler of the synthetic
    1.1B q4_k, 64 fast-forwarded single-stream tokens (with that request's
@@ -103,16 +124,17 @@ from koboldcpp_tpu_torch.device import card_info  # noqa: E402
 from koboldcpp_tpu_torch.engine import Engine, GenParams  # noqa: E402
 from koboldcpp_tpu_torch.engine import batch_engine  # noqa: E402
 from koboldcpp_tpu_torch.models import llama  # noqa: E402
-from koboldcpp_tpu_torch.models.loader import load_model  # noqa: E402
+from koboldcpp_tpu_torch.models.loader import Model, load_model  # noqa: E402
 from koboldcpp_tpu_torch.models.synthetic import (  # noqa: E402
-    TINYLLAMA_1_1B, rand_iq, rand_q2k, rand_q3k, rand_q4k, rand_q5k,
-    rand_q6k, rand_q8_0, synthetic_model)
+    _MAKERS, TINYLLAMA_1_1B, rand_iq, rand_q2k, rand_q3k, rand_q4k,
+    rand_q5k, rand_q6k, rand_q8_0, synthetic_model)
 from koboldcpp_tpu_torch.kv import paged  # noqa: E402
 from koboldcpp_tpu_torch.kv.cache import _dequant, _q8, init_cache  # noqa: E402
 from koboldcpp_tpu_torch.ops import _build, flash_decode  # noqa: E402
 from koboldcpp_tpu_torch.ops import ffn_fused, flash_prefill  # noqa: E402
 from koboldcpp_tpu_torch.ops import quant_matmul as qm  # noqa: E402
-from koboldcpp_tpu_torch.ops.linear import dequant  # noqa: E402
+from koboldcpp_tpu_torch.ops.linear import (  # noqa: E402
+    EXPANDED, QTensor, dequant, to_expanded, to_q4_k_i8)
 from koboldcpp_tpu_torch.sampling import SamplerParams  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -197,6 +219,24 @@ KERNELS = {
              "koboldcpp_tpu/ops/ffn_fused.py:159"),
     "K15b": ("ffn_fused T=1", "koboldcpp_tpu_torch/csrc/ffn_fused.cu",
              "koboldcpp_tpu/ops/ffn_fused.py:211"),
+    # the opt-in bodies: the expanded layouts' T=1 matvec
+    # (KCPP_KQ_LAYOUT=expanded), the int8 q4_k layout's 2-D kernel
+    # (KCPP_Q4K_LAYOUT=i8, every T) and q8_0's bf16-activation matvec
+    # (KCPP_MM_I8=0)
+    "K12.q6_k_i8f": ("kq_expanded_matvec q6_k_i8f",
+                     "koboldcpp_tpu_torch/csrc/kq_expanded_matvec.cu",
+                     "koboldcpp_tpu/ops/quant_matmul.py:837"),
+    "K12.q3_k_n4": ("kq_expanded_matvec q3_k_n4",
+                    "koboldcpp_tpu_torch/csrc/kq_expanded_matvec.cu",
+                    "koboldcpp_tpu/ops/quant_matmul.py:891"),
+    "K12.q2_k_n4": ("kq_expanded_matvec q2_k_n4",
+                    "koboldcpp_tpu_torch/csrc/kq_expanded_matvec.cu",
+                    "koboldcpp_tpu/ops/quant_matmul.py:907"),
+    "K13.q4_k_i8": ("kq_matmul q4_k_i8", "koboldcpp_tpu_torch/csrc/kq_matmul.cu",
+                    "koboldcpp_tpu/ops/quant_matmul.py:1285"),
+    "K2.q8_0_bf16": ("q8_0_matvec bf16 x",
+                     "koboldcpp_tpu_torch/csrc/q8_0_matvec.cu",
+                     "koboldcpp_tpu/ops/quant_matmul.py:1094"),
 }
 NEAR_TIE = 2 ** -6  # logits this close may pick either token (bf16 steps)
 # greedy tokens per request in phases 3-4 (the q4_k main path); 64, not
@@ -270,7 +310,11 @@ _SBQ_FIELDS = ("sc", "d")
 
 def _wbytes(qt, sbq: bool = False) -> int:
     """The bytes of the packed fields a kernel reads: K14 (sbq) the codes,
-    sc, d and min; every other kernel the codes, scale and min."""
+    sc, d and min; K12 expanded its expanded plane, scale and min; every
+    other kernel the codes, scale and min."""
+    if qt.kind in EXPANDED:
+        return _nbytes(*(qt.data[n] for n in ("q", "n4", "scale", "min")
+                         if n in qt.data))
     return _nbytes(*(t for n, t in qt.data.items()
                      if (n != "scale" if sbq else n not in _SBQ_FIELDS)))
 
@@ -285,6 +329,11 @@ def _i8(x) -> bool:
 
 
 def phase_matvec(rng) -> None:
+    """The T=1 bodies at the 1.1B shapes (and some fixture shapes): K1, K2,
+    K1.q5_k, K2.q8_0, K12.q2_k, K12.q3_k with the dispatch's activation
+    variant; K2 / K12.q2_k / K12.q3_k also with bf16 activations at the
+    1.1B widths (KCPP_MM_I8=0), K2.q8_0_bf16 (KCPP_MM_I8=0) and K12
+    expanded (KCPP_KQ_LAYOUT=expanded)."""
     C, F, V = 2048, 5632, 32000
     shapes = {"wqkv": (2560, C), "w_gateup": (2 * F, C), "wo": (C, C),
               "w_down": (C, F), "output": (V, C),
@@ -292,26 +341,41 @@ def phase_matvec(rng) -> None:
               "fixture wqkv": (512, 256), "fixture wo": (256, 256),
               "fixture ffn_down": (256, 512), "fixture output": (512, 256)}
     big = ("wqkv", "w_gateup", "w_down", "output")
-    for kid, maker, wrapper, plain, names in (
+    five = ("wqkv", "w_gateup", "wo", "w_down", "output")
+    bf16 = " bf16 x"  # the KCPP_MM_I8=0 variant of an int8-default body
+    for kid, maker, wrapper, plain, names, tag in (
             ("K1", rand_q4k, lambda x, qt: qm.q4k_matvec(x, qt, _i8(x)),
              lambda x, qt: qm.q4k_matvec_plain(x, qt, _i8(x)),
              ("wqkv", "w_gateup", "wo", "w_down", "output", "fixture wqkv",
-              "fixture wo")),
+              "fixture wo"), ""),
             ("K2", rand_q6k, lambda x, qt: qm.q6k_matvec(x, qt, _i8(x)),
              lambda x, qt: qm.q6k_matvec_plain(x, qt, _i8(x)),
-             ("output", "w_down", "fixture output", "fixture ffn_down")),
+             ("output", "w_down", "fixture output", "fixture ffn_down"), ""),
             ("K1.q5_k", rand_q5k, lambda x, qt: qm.q4k_matvec(x, qt, _i8(x)),
              lambda x, qt: qm.q4k_matvec_plain(x, qt, _i8(x)),
-             big + ("fixture wqkv", "fixture ffn_down")),
+             big + ("fixture wqkv", "fixture ffn_down"), ""),
             ("K2.q8_0", rand_q8_0, qm.q8_0_matvec, qm.q8_0_matvec_plain,
-             big + ("fixture wqkv", "fixture ffn_down")),
+             big + ("fixture wqkv", "fixture ffn_down"), ""),
             ("K12.q2_k", rand_q2k, lambda x, qt: qm.q23k_matvec(x, qt, _i8(x)),
              lambda x, qt: qm.q23k_matvec_plain(x, qt, _i8(x)),
-             big + ("wo", "fixture wqkv", "fixture wo", "fixture ffn_down")),
+             big + ("wo", "fixture wqkv", "fixture wo", "fixture ffn_down"),
+             ""),
             ("K12.q3_k", rand_q3k, lambda x, qt: qm.q23k_matvec(x, qt, _i8(x)),
              lambda x, qt: qm.q23k_matvec_plain(x, qt, _i8(x)),
              big + ("wo", "fixture wqkv", "fixture wo",
-                    "fixture ffn_down"))):
+                    "fixture ffn_down"), ""),
+            ("K2", rand_q6k, lambda x, qt: qm.q6k_matvec(x, qt, False),
+             lambda x, qt: qm.q6k_matvec_plain(x, qt, False), five, bf16),
+            ("K12.q2_k", rand_q2k, lambda x, qt: qm.q23k_matvec(x, qt, False),
+             lambda x, qt: qm.q23k_matvec_plain(x, qt, False), five, bf16),
+            ("K12.q3_k", rand_q3k, lambda x, qt: qm.q23k_matvec(x, qt, False),
+             lambda x, qt: qm.q23k_matvec_plain(x, qt, False), five, bf16),
+            ("K2.q8_0_bf16", rand_q8_0,
+             lambda x, qt: qm.q8_0_matvec(x, qt, False),
+             lambda x, qt: qm.q8_0_matvec_plain(x, qt, False), five, ""),
+            *((f"K12.{kind}", _MAKERS[kind], qm.kq_expanded_matvec,
+               qm.kq_expanded_matvec_plain, five, "")
+              for kind in ("q6_k_i8f", "q3_k_n4", "q2_k_n4"))):
         for name in names:
             out_f, in_f = shapes[name]
             qt = maker(rng, out_f, in_f, DEV)
@@ -321,9 +385,10 @@ def phase_matvec(rng) -> None:
             ref = plain(x, qt)
             torch.cuda.synchronize()
             err = (y.float() - ref.float()).abs().max().item()
-            if kid == "K2.q8_0":
-                # the same int8 codes, exact int32 group dots, and the
-                # kernel's summation order repeated: bit for bit
+            if kid in ("K2.q8_0", "K2.q8_0_bf16"):
+                # the same int8 codes and exact int32 group dots (bf16 x:
+                # exact f32 products), and the kernel's summation order
+                # repeated: bit for bit
                 tol = 0.0
             else:
                 # int8 group dots are exact on both sides (bf16 variant: f32
@@ -332,7 +397,7 @@ def phase_matvec(rng) -> None:
                 tol = 2 ** -7 * ref.float().abs().max().item()
             w = dequant(qt)
             xr = x.view(1, in_f)
-            _record(kid, f"{name} {out_f}x{in_f} T=1", err, tol,
+            _record(kid, f"{name} {out_f}x{in_f} T=1{tag}", err, tol,
                     lambda: wrapper(x, qt), lambda: plain(x, qt),
                     lambda: torch.matmul(xr, w.t()),
                     _wbytes(qt) + _nbytes(x) + out_f * 2)
@@ -444,38 +509,41 @@ def phase_ffn_fused(rng) -> None:
 
 def phase_kq_matmul(rng) -> None:
     """K3 (q4_k, q6_k at T = 16, 512) and K3.q5_k / K3.q8_0 / K13.q2_k /
-    K13.q3_k (T = 8, 128, 512) at the 1.1B's gate+up and down shapes."""
-    for name, (out_f, in_f) in (("w_gateup", (11264, 2048)),
-                                ("w_down", (2048, 5632))):
-        for kid, kind, maker, Ts in (("K3", "q4_k", rand_q4k, (16, 512)),
-                                     ("K3", "q6_k", rand_q6k, (16, 512)),
-                                     ("K3.q5_k", "q5_k", rand_q5k,
-                                      (8, 128, 512)),
-                                     ("K3.q8_0", "q8_0", rand_q8_0,
-                                      (8, 128, 512)),
-                                     ("K13.q2_k", "q2_k", rand_q2k,
-                                      (8, 128, 512)),
-                                     ("K13.q3_k", "q3_k", rand_q3k,
-                                      (8, 128, 512))):
-            qt = maker(rng, out_f, in_f, DEV)
-            w = dequant(qt)
-            for T in Ts:
-                x = torch.from_numpy((rng.standard_normal((T, in_f)) * 0.5)
-                                     .astype(np.float32)).to(DEV).bfloat16()
-                y = qm.kq_matmul(x, qt)
-                ref = qm.kq_matmul_plain(x, qt)
-                torch.cuda.synchronize()
-                # same bf16 weights and group sums, f32 accumulation in
-                # another order, bf16 output: one rounding step of max |y|
-                err = (y.float() - ref.float()).abs().max().item()
-                tol = 2 ** -7 * ref.float().abs().max().item()
-                _record(kid, f"{kind} {name} {out_f}x{in_f} T={T}", err, tol,
-                        lambda: qm.kq_matmul(x, qt),
-                        lambda: qm.kq_matmul_plain(x, qt),
-                        lambda: torch.matmul(x, w.t()),
-                        _wbytes(qt) + _nbytes(x) + T * out_f * 2,
-                        2 * T * in_f * out_f)
-            del w
+    K13.q3_k (T = 8, 128, 512) at the 1.1B's gate+up and down shapes;
+    K13.q4_k_i8 (KCPP_Q4K_LAYOUT=i8: decode, batched decode and prefill)
+    at T = 1, 8, 512 at all five 1.1B shapes."""
+    cases = [(name, shape, kid, kind, maker, Ts)
+             for name, shape in (("w_gateup", (11264, 2048)),
+                                 ("w_down", (2048, 5632)))
+             for kid, kind, maker, Ts in (
+                 ("K3", "q4_k", rand_q4k, (16, 512)),
+                 ("K3", "q6_k", rand_q6k, (16, 512)),
+                 ("K3.q5_k", "q5_k", rand_q5k, (8, 128, 512)),
+                 ("K3.q8_0", "q8_0", rand_q8_0, (8, 128, 512)),
+                 ("K13.q2_k", "q2_k", rand_q2k, (8, 128, 512)),
+                 ("K13.q3_k", "q3_k", rand_q3k, (8, 128, 512)))]
+    cases += [(name, shape, "K13.q4_k_i8", "q4_k_i8", _MAKERS["q4_k_i8"],
+               (1, 8, 512)) for name, shape in K7_SHAPES]
+    for name, (out_f, in_f), kid, kind, maker, Ts in cases:
+        qt = maker(rng, out_f, in_f, DEV)
+        w = dequant(qt)
+        for T in Ts:
+            x = torch.from_numpy((rng.standard_normal((T, in_f)) * 0.5)
+                                 .astype(np.float32)).to(DEV).bfloat16()
+            y = qm.kq_matmul(x, qt)
+            ref = qm.kq_matmul_plain(x, qt)
+            torch.cuda.synchronize()
+            # same bf16 weights and group sums, f32 accumulation in
+            # another order, bf16 output: one rounding step of max |y|
+            err = (y.float() - ref.float()).abs().max().item()
+            tol = 2 ** -7 * ref.float().abs().max().item()
+            _record(kid, f"{kind} {name} {out_f}x{in_f} T={T}", err, tol,
+                    lambda: qm.kq_matmul(x, qt),
+                    lambda: qm.kq_matmul_plain(x, qt),
+                    lambda: torch.matmul(x, w.t()),
+                    _wbytes(qt) + _nbytes(x) + T * out_f * 2,
+                    2 * T * in_f * out_f)
+        del w
 
 
 # (kind, scale group G) -> the K12.iq cases (name, (out_f, in_f)) and the
@@ -1619,6 +1687,193 @@ def phase_new_kinds(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the opt-in layouts on the synthetic 1.1B: KCPP_KQ_LAYOUT=expanded,
+# KCPP_Q4K_LAYOUT=i8, KCPP_MM_I8=0
+# ---------------------------------------------------------------------------
+
+# (label, the default kind, its relayout (None: the same weights), the
+# variables of the run, the new T=1 body, the body it replaces there)
+OPT_IN_LAYOUTS = (
+    ("q6_k_i8f", "q6_k", to_expanded, {"KCPP_KQ_LAYOUT": "expanded"},
+     "K12.q6_k_i8f", "K2"),
+    ("q3_k_n4", "q3_k", to_expanded, {"KCPP_KQ_LAYOUT": "expanded"},
+     "K12.q3_k_n4", "K12.q3_k"),
+    ("q2_k_n4", "q2_k", to_expanded, {"KCPP_KQ_LAYOUT": "expanded"},
+     "K12.q2_k_n4", "K12.q2_k"),
+    ("q4_k_i8", "q4_k", to_q4_k_i8, {"KCPP_Q4K_LAYOUT": "i8"},
+     "K13.q4_k_i8", "K1"),
+    ("q8_0, bf16 x", "q8_0", None, {"KCPP_MM_I8": "0"}, "K2.q8_0_bf16",
+     "K2.q8_0"))
+OPT_IN_LAYOUT_DEPTH = 16  # greedy tokens of each single-stream run
+# the last prompt token's logits against the default layout's, as a share
+# of max |logit|: 2e-2 (PR 7's bound for the fused FFN); 4e-2
+# (tests/test_torch_lowbit.py's bound for a model that amplifies rounding)
+# for q6_k_i8f, whose T=1 function is not the default's in the JAX package
+# either (q6_k folds -32 s bf16(sum x) where q6_k_i8f dots q6 - 32: 1.1%
+# rms apart per projection at in_f 2048, in both packages alike,
+# tests/test_torch_opt_in_layouts.py::test_expanded_layout_gap_is_jax_own;
+# 2.29% of max |logit| after 22 layers on the H100), and for any layout
+# whose model is shown to amplify rounding: the default layout's logits
+# move by more than 1e-2 of max |logit| when 1% of the token's bf16
+# embedding entries move one step (the premise test_torch_lowbit.py
+# asserts for its 4e-2; q3_k_n4 and q3_k run the same arithmetic up to
+# the f32 summation order, yet their logits part by 2.97% on the H100)
+OPT_IN_LOGIT_TOL = {"q6_k_i8f": 4e-2}
+AMPLIFIED_LOGIT_TOL = 4e-2
+
+
+def _embedding_nudged(params, tok: int):
+    """params with 1% of token tok's bf16 embedding entries one step up
+    (a fixed draw)."""
+    emb = params["tok_embd"]
+    w = emb.data["w"].clone()
+    cols = torch.randperm(w.shape[1], generator=torch.Generator().manual_seed(
+        0))[:w.shape[1] // 100].to(w.device)
+    w.view(torch.int16)[tok, cols] += 1
+    return dict(params, tok_embd=QTensor(emb.kind, emb.shape, {"w": w}))
+# the variables at their defaults, for the runs of the default layout
+_DEFAULTS = {"KCPP_KQ_LAYOUT": "dense", "KCPP_Q4K_LAYOUT": "packed",
+             "KCPP_MM_I8": "1"}
+
+
+def _relayout(model, kind: str, fn):
+    """model with every packed weight of `kind` through fn (the opt-in
+    layout of the same values; the tensors the two share are not
+    copied)."""
+    def conv(v):
+        return fn(v) if isinstance(v, QTensor) and v.kind == kind else v
+    params = dict(model.params, output=conv(model.params["output"]),
+                  layers=[{k: conv(v) for k, v in layer.items()}
+                          for layer in model.params["layers"]])
+    return Model(model.cfg, params, model.tokenizer, model.device)
+
+
+def phase_opt_in_layouts(card: str, q4k_model) -> dict:
+    """The synthetic 1.1B (full width, 22 layers) in each opt-in layout of
+    OPT_IN_LAYOUTS, single-stream under its variables: the 300-token prompt
+    and OPT_IN_LAYOUT_DEPTH greedy tokens, every decode step 89 launches of
+    the new T=1 body and none of the body it replaces (q4_k_i8: 89
+    K13.q4_k_i8, no K1, and every prefill chunk through K13.q4_k_i8, no
+    K3); a fast-forwarded repeat gives the same tokens (near-ties apart);
+    the logits of the prompt's last token, evaluated as a decode step,
+    within 2e-2 of max |logit| (4e-2 for q6_k_i8f and where the model
+    amplifies rounding: OPT_IN_LOGIT_TOL) of the same weights in the
+    default layout (the default variables) over the same cache; the
+    default layout's
+    decode tok/s in the same run. Then q4_k_i8, the one layout whose T>1
+    path is new, with 8 slots: 8 concurrent requests of 8 tokens, each
+    getting the tokens it gets alone."""
+    gp = GenParams(max_length=OPT_IN_LAYOUT_DEPTH, bypass_eos=True,
+                   sampler=SamplerParams(temperature=0.0, rep_pen=1.0))
+    warm = GenParams(max_length=8, bypass_eos=True, sampler=gp.sampler)
+    prompt = [1] + np.random.default_rng(1).integers(
+        3, 32000, size=299).tolist()
+    tok = torch.tensor([[prompt[-1]]], dtype=torch.int64, device=DEV)
+    pos = torch.tensor([[299]], dtype=torch.int64, device=DEV)
+    L = TINYLLAMA_1_1B.n_layers
+    counts: dict = {}
+    far: list = []
+    for label, kind, fn, env, new_kid, old_kid in OPT_IN_LAYOUTS:
+        t0 = time.perf_counter()
+        base = (q4k_model if kind == "q4_k" else
+                synthetic_model(TINYLLAMA_1_1B, kind, seed=0, device=DEV))
+        model = _relayout(base, kind, fn) if fn else base
+        build_s = time.perf_counter() - t0
+        with _env(**env):
+            eng = Engine(model, max_context=2048, device=DEV)
+            eng.generate(prompt[:40], warm)
+            eng.reset_context()
+            _build.launches.clear()
+            with _StepLaunches() as rec:
+                r1 = eng.generate(prompt, gp)
+                t1 = eng.last_timings
+                r2 = eng.generate(prompt, gp)
+            c = dict(_build.launches)
+            n = _check_steps(rec, 1, {new_kid: 4 * L + 1, old_kid: 0},
+                             f"{label} single-stream")
+            if kind == "q4_k":
+                chunks = [d for (B, T), ds in rec.by_shape.items() if T > 1
+                          for d in ds]
+                _check(chunks and all(d.get("K13.q4_k_i8", 0) > 0
+                                      and not d.get("K3") and not d.get("K1")
+                                      for d in chunks),
+                       f"q4_k_i8 prefill chunks launched {chunks}")
+            _check(len(r1.tokens) == OPT_IN_LAYOUT_DEPTH
+                   and all(0 <= t < 32000 for t in r1.tokens),
+                   f"{label}: bad reply {r1.tokens}")
+            _check(eng.last_timings.prompt_tokens == 1,
+                   f"{label}: no fast-forward")
+            _same_or_near_tie(eng, prompt, r2.tokens, r1.tokens,
+                              f"{label} fast-forward repeat")
+            eng.reset_context()
+            with torch.inference_mode():
+                eng.eval_tokens(prompt[:-1], 0)
+                got = eng._forward(tok, pos, last_only=True)[0, -1].float()
+                with _env(**{k: _DEFAULTS[k] for k in env}):
+                    want = llama.forward(base.params, TINYLLAMA_1_1B, tok,
+                                         pos, eng.cache, last_only=True)[0]
+                    moved = llama.forward(
+                        _embedding_nudged(base.params, prompt[-1]),
+                        TINYLLAMA_1_1B, tok, pos, eng.cache,
+                        last_only=True)[0]
+                want = want[0, -1].float()
+                moved = moved[0, -1].float()
+        del eng
+        _check(got.shape == (32000,) and bool(torch.isfinite(got).all()),
+               f"{label}: logits are not finite (32000,)")
+        # the opt-in bodies round otherwise (bf16(q*s) tiles and bf16 x
+        # where K1 reads int8 x per 32, bf16 x where K2.q8_0 reads int8,
+        # q6 - 32 where K2 folds the offset; see OPT_IN_LOGIT_TOL): over
+        # 22 layers the logits part by that rounding, as the fused FFN's
+        # did (PR 7)
+        err = (got - want).abs().max().item()
+        top = want.abs().max().item()
+        spread = (moved - want).abs().max().item() / top
+        tol = (AMPLIFIED_LOGIT_TOL if spread > 1e-2
+               else OPT_IN_LOGIT_TOL.get(label, 2e-2)) * top
+        if err > tol:  # checked after every layout has run
+            far.append(f"{label} logits {err} from the default layout's "
+                       f"> {tol}")
+        with _env(**{k: _DEFAULTS[k] for k in env}):
+            ref = Engine(base, max_context=2048, device=DEV)
+            ref.generate(prompt[:40], warm)
+            ref.reset_context()
+            ref.generate(prompt, gp)
+            default_tps = ref.last_timings.gen_tps
+        del ref
+        print(f"end to end, synthetic TinyLlama-1.1B {label} under {env} "
+              f"({card}; weights built in {build_s:.1f} s): prefill "
+              f"{t1.prompt_tokens} tokens {t1.prompt_time * 1e3:.1f} ms, "
+              f"decode {t1.gen_tokens} tokens {t1.gen_tps:.1f} tok/s "
+              f"(default layout in this run: {default_tps:.1f} tok/s); "
+              f"{n} decode steps of {4 * L + 1} {new_kid}, no {old_kid}; "
+              f"last-token logits vs the default layout: max abs err "
+              f"{err:.4g} (tol {tol:.4g}, max |logit| {top:.4g}; the "
+              f"default layout moved by {spread:.4g} of it with 1% of the "
+              f"token's embedding one bf16 step off); launches {c}",
+              flush=True)
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        if kind == "q4_k":
+            rng = np.random.default_rng(2)
+            prompts = [[1] + rng.integers(3, 32000, size=int(m) - 1).tolist()
+                       for m in rng.integers(100, 301, size=8)]
+            with _env(**env):
+                c = _serve_alone_and_together(
+                    model, 8, prompts,
+                    GenParams(max_length=8, bypass_eos=True,
+                              sampler=gp.sampler),
+                    {"K13.q4_k_i8": 4 * L + 1, "K7": 0, "K3": 0},
+                    "q4_k_i8 8 slots, KCPP_Q4K_LAYOUT=i8", card)
+            for k, v in c.items():
+                counts[k] = counts.get(k, 0) + v
+        del model, base
+        torch.cuda.empty_cache()
+    _check(not far, "; ".join(far))
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # 5. the reference fixtures served over HTTP, and their logits against goldens
 # ---------------------------------------------------------------------------
 
@@ -1879,6 +2134,107 @@ def check_fixture_goldens() -> None:
               f"{worst:.3g}", flush=True)
 
 
+# fixture -> the variables it is served under, and the bodies that must
+# run (tiny-q3_k_m's Q6_K output runs K12.q6_k_i8f too)
+SERVED_OPT_IN = (
+    ("refgguf/tiny-q6_k.gguf", {"KCPP_KQ_LAYOUT": "expanded"},
+     ("K12.q6_k_i8f",)),
+    ("portgguf/tiny-q3_k_m.gguf", {"KCPP_KQ_LAYOUT": "expanded"},
+     ("K12.q3_k_n4", "K12.q6_k_i8f")),
+    ("refgguf/tiny-q4_k_m.gguf", {"KCPP_Q4K_LAYOUT": "i8"},
+     ("K13.q4_k_i8",)),
+    ("refgguf/tiny-q8_0.gguf", {"KCPP_MM_I8": "0"}, ("K2.q8_0_bf16",)))
+
+
+def phase_served_opt_in() -> dict:
+    """The fixtures of SERVED_OPT_IN served over HTTP single-stream under
+    their variables at temperature 0: two identical replies each, through
+    the opt-in bodies."""
+    from koboldcpp_tpu_torch.server.app import ServerSettings
+
+    body = {"prompt": "The gradient of a function, e.g. f(x), points",
+            "max_length": 24, "temperature": 0, "rep_pen": 1.0}
+    counts: dict = {}
+    for fixture, env, kids in SERVED_OPT_IN:
+        with _env(**env):
+            model = load_model(os.path.join(ROOT, "tests", "fixtures",
+                                            fixture), device=DEV)
+            srv = _Server(Engine(model, max_context=512, device=DEV),
+                          ServerSettings(model_name=fixture))
+            try:
+                _build.launches.clear()
+                a, b = (srv.post("/api/v1/generate",
+                                 body)["results"][0]["text"]
+                        for _ in range(2))
+                c = dict(_build.launches)
+            finally:
+                srv.close()
+        _check(a == b and a != "",
+               f"{fixture} {env}: temperature-0 replies differ: {a!r} {b!r}")
+        for kid in kids:
+            _check(c.get(kid, 0) > 0, f"{kid} did not run on {fixture}: {c}")
+        print(f"served {fixture} under {env}: /api/v1/generate x2 identical "
+              f"({a!r}); launches {c}", flush=True)
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    return counts
+
+
+def check_opt_in_logits() -> None:
+    """The runs of tests/fixtures/portgguf/optin.json on the card: each
+    fixture loaded packed in f32 under its variable, the tokens as a
+    prefill of 11 and one decode step, against the JAX package's logits
+    under the same variable (tests/make_torch_optin_logits.py) at
+    tests/test_torch_opt_in_layouts.py's tolerances: |err| <= 1e-2 +
+    1e-2 |want| for the prefill rows, 2e-2 + 2e-2 |want| for the decode
+    row (its bf16-activation output projection, see that test). The f32
+    cache is kept throughout, as in the JAX run and the CPU test; K5 reads
+    bf16 caches only, so the decode step attends through K5's plain
+    version (`decode_attention_plain`, the function the CPU test runs),
+    its projections through the opt-in bodies under test."""
+
+    def k5_plain(q, k_new, v_new, k_layer, v_layer, *args):
+        out = flash_decode.decode_attention_plain(q, k_new, v_new, k_layer,
+                                                  v_layer, *args)
+        return out, k_layer, v_layer
+
+    manifest = json.load(open(os.path.join(PORT_FIX, "optin.json")))
+    for run, spec in manifest["runs"].items():
+        with _env(**spec["env"]):
+            m32 = load_model(os.path.join(ROOT, "tests", "fixtures",
+                                          spec["fixture"]),
+                             dtype=torch.float32, device=DEV)
+            cache = init_cache(m32.cfg.n_layers, 1, 64, m32.cfg.n_kv_heads,
+                               m32.cfg.head_dim, dtype=torch.float32,
+                               device=DEV)
+            toks = torch.tensor([manifest["tokens"]], device=DEV)
+            n = toks.shape[1] - 1
+            _build.launches.clear()
+            with torch.inference_mode():
+                pre, cache = llama.forward(
+                    m32.params, m32.cfg, toks[:, :n],
+                    torch.arange(n, device=DEV)[None], cache)
+                with mock.patch.object(llama.flash_decode,
+                                       "decode_attention_batched",
+                                       k5_plain):
+                    last, _ = llama.forward(
+                        m32.params, m32.cfg, toks[:, n:],
+                        torch.tensor([[n]], device=DEV), cache)
+            c = dict(_build.launches)
+        logits = torch.cat([pre[0], last[0]]).float().cpu().numpy()
+        want = np.load(os.path.join(PORT_FIX, spec["logits"]))
+        diff = np.abs(logits - want)
+        worst = max(float((diff[:n] / (1e-2 + 1e-2 * np.abs(want[:n])))
+                          .max()),
+                    float((diff[n:] / (2e-2 + 2e-2 * np.abs(want[n:])))
+                          .max()))
+        _check(worst <= 1.0, f"{run} logits off the JAX logits: worst "
+               f"|err| / tol {worst}")
+        print(f"{run} logits vs the JAX package's under {spec['env']}: max "
+              f"abs err {float(diff.max()):.4g}, worst |err| / tol "
+              f"{worst:.3g}; launches {c}", flush=True)
+
+
 def _timed(phase, *args):
     t0 = time.perf_counter()
     out = phase(*args)
@@ -1913,12 +2269,14 @@ def main() -> int:
             _timed(phase_batched_serving, card)]
     model = synthetic_model(TINYLLAMA_1_1B, "q4_k", seed=0, device=DEV)
     runs += [_timed(phase_fused_single, card, model, bf16_tps),
-             _timed(phase_opt_in_batched, card, model)]
+             _timed(phase_opt_in_batched, card, model),
+             _timed(phase_opt_in_layouts, card, model)]
     del model
     torch.cuda.empty_cache()
     runs += [_timed(phase_served_fixture), _timed(phase_new_kinds, card),
-             _timed(phase_served_kinds)]
+             _timed(phase_served_kinds), _timed(phase_served_opt_in)]
     _timed(check_fixture_goldens)
+    _timed(check_opt_in_logits)
     # the profiled windows last: a profiler session slows later decodes
     _timed(phase_profiled, card)
 

@@ -1,24 +1,26 @@
 // K3: q4_k / q5_k / q6_k / q8_0 tiled matmul for prefill, y (T, out_f)
 // bf16 = x (T, in_f) bf16 . W^T with f32 accumulation; K13: its q2_k /
-// q3_k and native IQ (iq2p / iq3px / iq3ps / iq1p) bodies.
+// q3_k, native IQ (iq2p / iq3px / iq3ps / iq1p) and q4_k_i8 bodies.
 //
 // Replaces koboldcpp_tpu/ops/quant_matmul.py `_packed_matmul_2d`: bodies
 // `_q4k_kernel` (the default KCPP_Q4K_2D=sexp), `_q5k_kernel`, `_q6k_kernel`
 // and `_q8_0_kernel` (K3), `_q2k_kernel`, `_q3k_kernel`, `_iq2p_kernel`,
-// `_iq3p_kernel` (iq3px and iq3ps) and `_iq1p_kernel` (K13). As there, the
+// `_iq3p_kernel` (iq3px and iq3ps), `_iq1p_kernel` and `_q4k_i8_kernel`
+// (K13; the last under KCPP_Q4K_LAYOUT=i8, at every T). As there, the
 // weight fed to the product is bf16(q * scale) (q4_k: the nibble 0..15;
 // q5_k: the nibble with its 5th bit, 0..31; q6_k: the 6-bit value 0..63;
 // q8_0: the int8 code; q2_k: the 2-bit code 0..3; q3_k: the 2-bit code with
 // its hmask bit, 0..7; the IQ kinds: the signed alphabet value, |v| <= 62,
-// with the scale of its group of G = 8, 16 or 32), and the affine part is
-// a second, small product over per-group sums of x: q4_k and q5_k subtract
-// xsum_bf16 . min (groups of 32), q2_k xsum_bf16 . min (groups of 16),
-// iq1p xsum_bf16 . min (groups of G), q6_k 32 * xsum_bf16 . scale and q3_k
-// 4 * xsum_bf16 . scale (groups of 16), q8_0 and iq2p / iq3px / iq3ps
-// have none. Both terms run through the same tensor-core loop: the K loop
-// first walks in_f with B = the dequantized weight tile, then walks the
-// groups with A = the group sums and B = -min (q4_k, q5_k, q2_k, iq1p),
-// -32*scale (q6_k) or -4*scale (q3_k), all exact in bf16.
+// with the scale of its group of G = 8, 16 or 32; q4_k_i8: the int8 code
+// 0..15), and the affine part is a second, small product over per-group
+// sums of x: q4_k, q5_k and q4_k_i8 subtract xsum_bf16 . min (groups of
+// 32), q2_k xsum_bf16 . min (groups of 16), iq1p xsum_bf16 . min (groups
+// of G), q6_k 32 * xsum_bf16 . scale and q3_k 4 * xsum_bf16 . scale
+// (groups of 16), q8_0 and iq2p / iq3px / iq3ps have none. Both terms run
+// through the same tensor-core loop: the K loop first walks in_f with B =
+// the dequantized weight tile, then walks the groups with A = the group
+// sums and B = -min (q4_k, q5_k, q2_k, iq1p, q4_k_i8), -32*scale (q6_k) or
+// -4*scale (q3_k), all exact in bf16.
 //
 // Bound on the H100: operations at T=512 (2*T*in*out bf16 FLOPs over
 // 989 TFLOP/s), bytes at small T. Design: a 64x64 output tile per block of
@@ -28,7 +30,7 @@
 // pipeline yet.
 // Launch counters: ops/_build.launches["K3"] (q4_k, q6_k), ["K3.q5_k"],
 // ["K3.q8_0"], ["K13.q2_k"], ["K13.q3_k"], ["K13.iq2p"], ["K13.iq3px"],
-// ["K13.iq3ps"] and ["K13.iq1p"], one per matmul.
+// ["K13.iq3ps"], ["K13.iq1p"] and ["K13.q4_k_i8"], one per matmul.
 #include <mma.h>
 
 #include "common.cuh"
@@ -38,19 +40,19 @@ using namespace nvcuda;
 constexpr int BM = 64, BN = 64, BK = 32, LDS = BK + 8, LDC = BN + 4;
 
 // 0 = q4_k, 1 = q6_k, 2 = q5_k, 3 = q8_0, 4 = q2_k, 5 = q3_k, 6 = iq2p,
-// 7 = iq3px, 8 = iq3ps, 9 = iq1p
+// 7 = iq3px, 8 = iq3ps, 9 = iq1p, 10 = q4_k_i8
 template <int KIND>
 __global__ void __launch_bounds__(128)
 kq_matmul_kernel(const __nv_bfloat16* __restrict__ x,
                  const __nv_bfloat16* __restrict__ xs,
-                 // qs2 | ql | qs2 | q | qs | qs | qs (IQ kinds)
+                 // qs2 | ql | qs2 | q | qs | qs | qs (IQ kinds) | q
                  const uint8_t* __restrict__ w0,
                  // - | qh | qh bits | - | - | hmask | iq3px/iq3ps hmask
                  const uint8_t* __restrict__ w1,
                  // iq2p / iq3px / iq3ps sg
                  const uint8_t* __restrict__ w2,
                  const __nv_bfloat16* __restrict__ scale,
-                 // q4_k / q5_k / q2_k / iq1p min
+                 // q4_k / q5_k / q2_k / iq1p / q4_k_i8 min
                  const __nv_bfloat16* __restrict__ mn,
                  __nv_bfloat16* __restrict__ y, int T, int out_f, int in_f,
                  int grp) {  // the IQ kinds' scale group G (8, 16, 32)
@@ -63,7 +65,7 @@ kq_matmul_kernel(const __nv_bfloat16* __restrict__ x,
     const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
     // affine-term groups (none for q8_0, iq2p, iq3px, iq3ps)
     constexpr bool G16 = KIND == 1 || KIND == 4 || KIND == 5;
-    constexpr bool IQ = KIND >= 6;
+    constexpr bool IQ = KIND >= 6 && KIND <= 9;
     const int G = G16 ? in_f / 16 : KIND == 9 ? in_f / grp
                 : (KIND == 3 || IQ) ? 0 : in_f / 32;
     const int nk1 = in_f / BK, nk2 = (G + BK - 1) / BK;
@@ -113,7 +115,7 @@ kq_matmul_kernel(const __nv_bfloat16* __restrict__ x,
                                        | (((hb >> e) & 1u) << 4);
                     Bs[r][c16 + e] = f2bf((float)q * s);
                 }
-            } else if (KIND == 3) {
+            } else if (KIND == 3 || KIND == 10) {  // int8 codes
                 const uint4 wv = *reinterpret_cast<const uint4*>(
                     w0 + (size_t)orow * in_f + k0 + c16);
                 const uint32_t ws[4] = {wv.x, wv.y, wv.z, wv.w};
@@ -257,13 +259,14 @@ kq_matmul_kernel(const __nv_bfloat16* __restrict__ x,
 // no xs; q2_k: w0=qs, mn=min; q3_k: w0=qs, w1=hmask; iq2p: w0=qs, w2=sg,
 // no xs; iq3px / iq3ps: w0=qs, w1=hmask, w2=sg, no xs; iq1p: w0=qs,
 // mn=min, xs per group of grp. grp: the IQ kinds' scale group (8, 16 or
-// 32; ignored by the other kinds). y (T, out_f) bf16. out_f % 64 == 0,
+// 32; ignored by the other kinds); q4_k_i8: w0=q (int8 codes), mn=min.
+// y (T, out_f) bf16. out_f % 64 == 0,
 // in_f % 256 == 0.
 KCPP_API int k3_kq_matmul(int kind, const void* x, const void* xs,
                           const void* w0, const void* w1, const void* w2,
                           const void* scale, const void* mn, void* y, int T,
                           int out_f, int in_f, int grp, void* stream) {
-    if (kind >= 6 && grp != 8 && grp != 16 && grp != 32)
+    if (kind >= 6 && kind <= 9 && grp != 8 && grp != 16 && grp != 32)
         return (int)cudaErrorInvalidValue;
     dim3 grid(out_f / BN, (T + BM - 1) / BM);
     cudaStream_t st = (cudaStream_t)stream;
@@ -282,6 +285,7 @@ KCPP_API int k3_kq_matmul(int kind, const void* x, const void* xs,
         case 7: kq_matmul_kernel<7><<<grid, 128, 0, st>>>(K3_ARGS); break;
         case 8: kq_matmul_kernel<8><<<grid, 128, 0, st>>>(K3_ARGS); break;
         case 9: kq_matmul_kernel<9><<<grid, 128, 0, st>>>(K3_ARGS); break;
+        case 10: kq_matmul_kernel<10><<<grid, 128, 0, st>>>(K3_ARGS); break;
         default: return (int)cudaErrorInvalidValue;
     }
 #undef K3_ARGS

@@ -17,8 +17,12 @@ kinds' `qs2` (already q2_k's stream order) becomes `qs`, iq2p's half-split
 sign sidecar `sg` and iq3's per-byte `hs` (bits 0-3: the code's 3rd bit of
 plane j, bits 4-7: its sign) become the port's hmask-ordered `sg` and
 `hmask`, and their plane-major `scale_p` / `min_p` go back to logical group
-order (the inverse of `pack_iq_native`'s `lg` map); every TPU sidecar field
-is dropped.
+order (the inverse of `pack_iq_native`'s `lg` map). The opt-in kinds:
+q4_k_i8 keeps q / scale / min; q6_k_i8f its int8 q and scale, and q6_k's
+ql / qh where the JAX pack carries them; q3_k_n4 / q2_k_n4 re-pair their
+row-half nibbles `q` into the port's `n4` and keep scale (and min), with
+q3_k's / q2_k's fields converted as above where the JAX pack carries them
+(`qs2`). Every TPU sidecar field is dropped.
 """
 from __future__ import annotations
 
@@ -27,12 +31,14 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..ops.linear import IQ_KINDS, QTensor, _hmask_stream
+from ..ops.linear import IQ_KINDS, QTensor, _hmask_stream, n4_pack
 from .synthetic import plane_major_to_logical
 
 _KEEP = {"dense": ("w",), "q4_k": ("qs2", "min"), "q5_k": ("qs2", "min"),
          "q6_k": ("ql", "qh", "scale"), "q8_0": ("q", "scale"),
-         "q2_k": (), "q3_k": (), **{k: () for k in IQ_KINDS}}
+         "q2_k": (), "q3_k": (), **{k: () for k in IQ_KINDS},
+         "q4_k_i8": ("q", "scale", "min"), "q6_k_i8f": ("q", "scale"),
+         "q3_k_n4": ("scale",), "q2_k_n4": ("scale", "min")}
 
 
 def _tensor(a: Any, device) -> torch.Tensor:
@@ -79,6 +85,14 @@ def _qtensor(v: Any, device) -> QTensor:
     if kind not in _KEEP:
         raise NotImplementedError(f"QTensor kind {kind} is not ported yet")
     data = {n: _tensor(v.data[n], device) for n in _KEEP[kind]}
+    if kind == "q6_k_i8f" and "ql" in v.data:
+        data.update(ql=_tensor(v.data["ql"], device),
+                    qh=_tensor(v.data["qh"], device))
+    if kind in ("q3_k_n4", "q2_k_n4"):
+        # JAX byte c holds cols c and c + in/2 of the row
+        q = np.asarray(v.data["q"])
+        data["n4"] = n4_pack(torch.from_numpy(np.concatenate(
+            [q & 0xF, q >> 4], axis=1))).to(device)
     if kind in IQ_KINDS:
         data = _iq_fields(v, device)
     if kind in ("q4_k", "q5_k"):
@@ -95,13 +109,14 @@ def _qtensor(v: Any, device) -> QTensor:
             data["sc"] = torch.from_numpy(
                 (8 * (sp >> 4) + (sp & 15)).astype(np.uint8)).to(device)
             data["d"] = _tensor(np.asarray(v.data["d_sbt"]).T, device)
-    if kind in ("q2_k", "q3_k"):
+    if kind in ("q2_k", "q3_k") or (kind in ("q3_k_n4", "q2_k_n4")
+                                    and "qs2" in v.data):
         data["qs"] = _tensor(v.data["qs2"], device)
         for name, src in (("scale", "scale_p"), ("min", "min_p")):
             if src in v.data:
                 data[name] = _tensor(plane_major_to_logical(
                     np.asarray(v.data[src])), device)
-        if kind == "q3_k":
+        if kind.startswith("q3_k"):
             hm2 = np.asarray(v.data["hm2"]).reshape(v.shape[0], -1, 2, 32)
             data["hmask"] = torch.from_numpy(np.ascontiguousarray(
                 hm2[:, :, 0] | (hm2[:, :, 1] << 4)).reshape(

@@ -7,7 +7,11 @@ values from the same numpy seed as the JAX package's makers (q8_0: scales
 logical layouts; q5_k, which the JAX package has no maker for, packs random
 GGUF blocks, and the IQ kinds (iq2p, iq3px, iq3ps, iq1p; no JAX maker
 either) draw codes, signs and scales straight into the port's layout (see
-rand_iq). Byte-layout-identical
+rand_iq). The opt-in kinds (q4_k_i8, q6_k_i8f, q3_k_n4, q2_k_n4) are the
+relayouts of the q4_k / q6_k / q3_k / q2_k draws (ops/linear.py
+`to_q4_k_i8`, `to_expanded`), as a GGUF file loads under
+KCPP_Q4K_LAYOUT=i8 or KCPP_KQ_LAYOUT=expanded: the expanded kinds keep
+the dense fields. Byte-layout-identical
 to GGUF-loaded weights, so kernels see the real memory traffic.
 """
 from __future__ import annotations
@@ -19,7 +23,8 @@ import torch
 
 from ..device import resolve_device
 from ..gguf.constants import QK_K
-from ..ops.linear import QTensor, _bf16, _u8, dense, pack_q5_k
+from ..ops.linear import (QTensor, _bf16, _u8, dense, pack_q5_k,
+                          to_expanded, to_q4_k_i8)
 from .config import ModelConfig
 
 TINYLLAMA_1_1B = ModelConfig(
@@ -199,14 +204,19 @@ def rand_iq(rng, out_f: int, in_f: int, device="cpu", kind: str = "iq2p",
 _MAKERS = {"q2_k": rand_q2k, "q3_k": rand_q3k, "q4_k": rand_q4k,
            "q5_k": rand_q5k, "q6_k": rand_q6k, "q8_0": rand_q8_0,
            **{k: partial(rand_iq, kind=k)
-              for k in ("iq2p", "iq3px", "iq3ps", "iq1p")}}
+              for k in ("iq2p", "iq3px", "iq3ps", "iq1p")},
+           "q4_k_i8": lambda *a: to_q4_k_i8(rand_q4k(*a)),
+           "q6_k_i8f": lambda *a: to_expanded(rand_q6k(*a)),
+           "q3_k_n4": lambda *a: to_expanded(rand_q3k(*a)),
+           "q2_k_n4": lambda *a: to_expanded(rand_q2k(*a))}
 
 
 def synthetic_params(cfg: ModelConfig, kind: str = "q4_k", seed: int = 0,
                      device=None) -> dict:
     """A full llama params dict with synthetic weights on `device` (default
     cuda). kind: "dense" | "q2_k" | "q3_k" | "q4_k" | "q5_k" | "q6_k" |
-    "q8_0" | "iq2p" | "iq3px" | "iq3ps" | "iq1p" (G = 32) for the big
+    "q8_0" | "iq2p" | "iq3px" | "iq3ps" | "iq1p" (G = 32) | "q4_k_i8" |
+    "q6_k_i8f" | "q3_k_n4" | "q2_k_n4" for the big
     matmul weights (embeddings and norms stay dense, as the GGUF loader
     keeps them)."""
     dev = resolve_device(device)

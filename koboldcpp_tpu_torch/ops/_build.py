@@ -13,6 +13,8 @@ q5_k and q8_0 kinds, "K12.q2_k", "K12.q3_k", "K13.q2_k", "K13.q3_k" for the
 q2_k and q3_k ones, "K12.<kind>" and "K13.<kind>" for the IQ kinds iq2p,
 iq3px, iq3ps and iq1p; "K14" and "K14.q5_k" for the superblock batched
 matvec, "K15b" (T = 1) and "K15a" (2 <= T <= 8) for the FFN megakernel;
+"K12.q6_k_i8f", "K12.q3_k_n4", "K12.q2_k_n4", "K13.q4_k_i8" and
+"K2.q8_0_bf16" for the bodies of the opt-in layouts and KCPP_MM_I8=0;
 "K1", "K2", "K3", "K7" and "K14" count q4_k / q6_k only);
 each wrapper adds one where it launches its kernel, and nowhere else.
 """
@@ -32,7 +34,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 SOURCES = ("q4k_matvec", "q6k_matvec", "q8_0_matvec", "q23k_matvec",
            "iq_matvec", "kq_matmul", "flash_decode", "flash_prefill",
-           "q4k_sbq", "ffn_fused")
+           "q4k_sbq", "ffn_fused", "kq_expanded_matvec")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

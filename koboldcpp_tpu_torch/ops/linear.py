@@ -38,6 +38,21 @@ TPU-specific transposed or plane-major sidecars):
         sign); scale (out, in/G) bf16 per group of G = 8, 16 or 32 columns
         in logical group order, and iq1p's min (out, in/G) bf16 = -(scale *
         delta); w = v * scale (- min).
+Opt-in layouts, chosen at load as the JAX package chooses them (the
+environment is read by `from_gguf`):
+  q4_k_i8 (KCPP_Q4K_LAYOUT=i8, GGUF Q4_K): q (out, in) int8, the codes
+        0..15 in logical order, and q4_k's scale / min; w = q*scale - min.
+  q6_k_i8f (KCPP_KQ_LAYOUT=expanded, GGUF Q6_K): q6_k's fields plus q
+        (out, in) int8, the signed values q6-32 in logical order;
+        w = q*scale.
+  q3_k_n4 / q2_k_n4 (KCPP_KQ_LAYOUT=expanded, GGUF Q3_K / Q2_K): q3_k's or
+        q2_k's fields plus n4 (out, in/2) u8, the codes (q3 0..7, q2 0..3)
+        as nibbles paired within each 32-column block: byte 16b+k holds col
+        32b+k in the low nibble and col 32b+16+k in the high nibble (the
+        JAX layout pairs cols c and c+in/2 of the whole row; the values are
+        the same); w = (q3-4)*scale or q2*scale - min.
+  The expanded kinds keep the dense kind's fields, as the JAX packs do:
+  their T=1 matvec reads the expanded plane, every other T the dense one.
 GGUF types map onto these kinds as the JAX package's `from_gguf` maps them:
 Q2_K onto q2_k, Q3_K onto q3_k, Q4_0/Q4_1 onto q4_k, Q5_0/Q5_1 onto q5_k,
 IQ2_XXS/IQ2_XS/IQ2_S onto iq2p, IQ3_XXS onto iq3px, IQ3_S onto iq3ps and
@@ -48,6 +63,7 @@ scale products are bit-identical to the JAX packers'.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from functools import partial
 from typing import Any
@@ -61,7 +77,7 @@ from ..gguf.constants import GGMLType, QK_K
 
 @dataclass
 class QTensor:
-    kind: str  # "dense" | "q2_k" ... "q8_0" | "iq2p" | "iq3px" | "iq3ps" | "iq1p"
+    kind: str  # "dense" | "q2_k" ... "q8_0" | the IQ kinds | the opt-in kinds
     shape: tuple[int, ...]  # logical (out, in)
     data: dict[str, Any] = field(default_factory=dict)
 
@@ -364,9 +380,71 @@ def pack_iq(raw: np.ndarray, shape: tuple[int, int], device="cpu",
     return QTensor(kind=kind, shape=tuple(shape), data=data)
 
 
-_PACKERS = {GGMLType.Q8_0: pack_q8_0, GGMLType.Q2_K: pack_q2_k,
-            GGMLType.Q3_K: pack_q3_k, GGMLType.Q4_K: pack_q4_k,
-            GGMLType.Q5_K: pack_q5_k, GGMLType.Q6_K: pack_q6_k,
+# ---------------------------------------------------------------------------
+# the opt-in layouts (KCPP_Q4K_LAYOUT=i8, KCPP_KQ_LAYOUT=expanded): each a
+# relayout of the dense kind's QTensor, so a GGUF tensor and a synthetic one
+# take the same path (the JAX `pack_q4_k_i8`, `pack_q6_k_i8f`,
+# `pack_q3_k_n4`, `pack_q2_k_n4`)
+# ---------------------------------------------------------------------------
+
+EXPANDED = {"q6_k_i8f": "q6_k", "q3_k_n4": "q3_k", "q2_k_n4": "q2_k"}
+
+
+def n4_pack(v: torch.Tensor) -> torch.Tensor:
+    """(R, C) codes 0..15 -> (R, C/2) u8: byte 16b+k holds col 32b+k in the
+    low nibble and col 32b+16+k in the high one."""
+    p = v.to(torch.uint8).reshape(v.shape[0], -1, 2, 16)
+    return (p[:, :, 0] | (p[:, :, 1] << 4)).reshape(v.shape[0], -1)
+
+
+def n4_values(n4: torch.Tensor) -> torch.Tensor:
+    """The inverse of n4_pack: (R, C/2) u8 -> (R, C) logical-order codes."""
+    p = n4.reshape(n4.shape[0], -1, 16)
+    return torch.cat([p & 0xF, p >> 4], dim=2).reshape(n4.shape[0], -1)
+
+
+def to_q4_k_i8(qt: QTensor) -> QTensor:
+    """q4_k -> q4_k_i8: the same codes as int8, the same scale and min."""
+    d = qt.data
+    return QTensor(kind="q4_k_i8", shape=qt.shape, data={
+        "q": q4k_values(d["qs2"]).to(torch.int8),
+        "scale": d["scale"], "min": d["min"]})
+
+
+def to_expanded(qt: QTensor) -> QTensor:
+    """q6_k -> q6_k_i8f, q3_k -> q3_k_n4, q2_k -> q2_k_n4: the dense fields
+    plus the expanded plane of the same values."""
+    d = dict(qt.data)
+    if qt.kind == "q6_k":
+        d["q"] = (q6k_values(d["ql"], d["qh"]) - 32).to(torch.int8)
+        return QTensor(kind="q6_k_i8f", shape=qt.shape, data=d)
+    d["n4"] = n4_pack(q3k_values(d["qs"], d["hmask"]) if qt.kind == "q3_k"
+                      else q2k_values(d["qs"]))
+    return QTensor(kind=f"{qt.kind}_n4", shape=qt.shape, data=d)
+
+
+def _q4k_packer(raw, shape, device="cpu") -> QTensor:
+    """GGUF Q4_K: q4_k, or q4_k_i8 under KCPP_Q4K_LAYOUT=i8."""
+    qt = pack_q4_k(raw, shape, device)
+    if os.environ.get("KCPP_Q4K_LAYOUT", "packed") == "i8":
+        return to_q4_k_i8(qt)
+    return qt
+
+
+def _kq_packer(dense_fn):
+    """GGUF Q6_K / Q3_K / Q2_K: the dense kind, or its expanded kind under
+    KCPP_KQ_LAYOUT=expanded."""
+    def pick(raw, shape, device="cpu") -> QTensor:
+        qt = dense_fn(raw, shape, device)
+        if os.environ.get("KCPP_KQ_LAYOUT", "dense") == "expanded":
+            return to_expanded(qt)
+        return qt
+    return pick
+
+
+_PACKERS = {GGMLType.Q8_0: pack_q8_0, GGMLType.Q2_K: _kq_packer(pack_q2_k),
+            GGMLType.Q3_K: _kq_packer(pack_q3_k), GGMLType.Q4_K: _q4k_packer,
+            GGMLType.Q5_K: pack_q5_k, GGMLType.Q6_K: _kq_packer(pack_q6_k),
             GGMLType.Q4_0: pack_q4_0, GGMLType.Q4_1: pack_q4_1,
             GGMLType.Q5_0: pack_q5_0, GGMLType.Q5_1: pack_q5_1}
 for _t in (GGMLType.IQ4_NL, GGMLType.IQ4_XS, GGMLType.TQ1_0, GGMLType.TQ2_0):
@@ -383,11 +461,13 @@ _BLOCK32_TYPES = (GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1)
 def from_gguf(raw: np.ndarray, ggml_type: GGMLType, shape: tuple[int, ...],
               packed: bool = True, dtype=torch.bfloat16,
               device="cpu") -> QTensor:
-    """Build a QTensor from GGUF raw bytes, as the JAX `from_gguf` does at
-    its default settings: 2-D weights of a packed type keep a packed layout
-    (the IQ1-3 types natively at widths that are a multiple of 256, and
-    they and the block-32 types at other widths through `pack_q8_expand`);
-    f32 / f16 / bf16, 1-D tensors and packed=False become dense."""
+    """Build a QTensor from GGUF raw bytes, as the JAX `from_gguf` does: 2-D
+    weights of a packed type keep a packed layout (the IQ1-3 types natively
+    at widths that are a multiple of 256, and they and the block-32 types
+    at other widths through `pack_q8_expand`; Q4_K as q4_k_i8 under
+    KCPP_Q4K_LAYOUT=i8, Q6_K / Q3_K / Q2_K as their expanded kinds under
+    KCPP_KQ_LAYOUT=expanded); f32 / f16 / bf16, 1-D tensors and
+    packed=False become dense."""
     if packed and len(shape) == 2:
         cols = shape[1]
         need = 32 if ggml_type in _32COL_TYPES else QK_K
@@ -506,6 +586,23 @@ def dequant(qt: QTensor, dtype=torch.bfloat16) -> torch.Tensor:
         q = q3k_values(qt.data["qs"], qt.data["hmask"]).float() - 4.0
         s = qt.data["scale"].float()[..., None]
         return (q.reshape(rows, -1, 16) * s).reshape(rows, cols).to(dtype)
+    if qt.kind == "q4_k_i8":
+        q = qt.data["q"].float().reshape(rows, -1, 32)
+        s = qt.data["scale"].float()[..., None]
+        m = qt.data["min"].float()[..., None]
+        return (q * s - m).reshape(rows, cols).to(dtype)
+    if qt.kind == "q6_k_i8f":
+        q = qt.data["q"].float().reshape(rows, -1, 16)
+        s = qt.data["scale"].float()[..., None]
+        return (q * s).reshape(rows, cols).to(dtype)
+    if qt.kind in ("q3_k_n4", "q2_k_n4"):
+        q = n4_values(qt.data["n4"]).float()
+        if qt.kind == "q3_k_n4":
+            q = q - 4.0
+        out = q.reshape(rows, -1, 16) * qt.data["scale"].float()[..., None]
+        if "min" in qt.data:
+            out = out - qt.data["min"].float()[..., None]
+        return out.reshape(rows, cols).to(dtype)
     if qt.kind in IQ_KINDS:
         out = iq_values(qt).float().reshape(rows, -1, iq_group(qt)) \
             * qt.data["scale"].float()[..., None]

@@ -1,5 +1,6 @@
-"""Fused dequant+matmul for packed q2_k / q3_k / q4_k / q5_k / q6_k / q8_0
-and native IQ (iq2p / iq3px / iq3ps / iq1p) QTensors.
+"""Fused dequant+matmul for packed q2_k / q3_k / q4_k / q5_k / q6_k / q8_0,
+native IQ (iq2p / iq3px / iq3ps / iq1p) and the opt-in q4_k_i8 / q6_k_i8f /
+q3_k_n4 / q2_k_n4 QTensors.
 
 Hand-written CUDA kernels (csrc/), each with its plain PyTorch version
 beside it. A wrapper takes the plain version only for a CPU tensor; for a
@@ -15,26 +16,37 @@ CUDA tensor it launches the kernel or raises.
                                        activations per 128 columns, the
                                        integer sub-scales in int32 dots)
   K2  q6k_matvec    T=1 q6_k          (csrc/q6k_matvec.cu; JAX
-      q8_0_matvec   T=1 q8_0           `_packed_matvec`; csrc/q8_0_matvec.cu)
+      q8_0_matvec   T=1 q8_0           `_packed_matvec`; csrc/q8_0_matvec.cu:
+                                       int8 activations, or bf16 ones under
+                                       KCPP_MM_I8=0)
   K12 q23k_matvec   T=1 q2_k/q3_k     (csrc/q23k_matvec.cu; the same JAX
                                        function, `_q2k/_q3k_row_kernel(_i8)`)
       iq_matvec     T=1 IQ kinds      (csrc/iq_matvec.cu; the same JAX
                                        function, `_iq2p/_iq3p/_iq1p_row_
                                        kernel_i8`)
+      kq_expanded_matvec T=1 q6_k_i8f / (csrc/kq_expanded_matvec.cu; the
+                     q3_k_n4 / q2_k_n4 same JAX function, `_q6k_i8f_row_
+                                       kernel`, `_q3k/_q2k_n4_row_kernel`)
   K3  kq_matmul     the other T       (csrc/kq_matmul.cu; JAX
   K13                                  `_packed_matmul_2d`; K13 names its
-                                       q2_k/q3_k and IQ bodies)
+                                       q2_k/q3_k, IQ and q4_k_i8 bodies;
+                                       q4_k_i8 takes it at every T)
 
 Launch counters (ops/_build.launches): "K1", "K7", "K2" and "K3" count the
 q4_k / q6_k bodies they have counted since they were ported; every other
 kind's body has a counter of its own, "<id>.<kind>" ("K1.q5_k", "K7.q5_k",
 "K2.q8_0", "K3.q5_k", "K3.q8_0", "K12.q2_k", "K12.q3_k", "K13.q2_k",
 "K13.q3_k", and "K12.<kind>" / "K13.<kind>" for the four IQ kinds); K14
-counts q4_k as "K14" and q5_k as "K14.q5_k".
+counts q4_k as "K14" and q5_k as "K14.q5_k"; the opt-in bodies count as
+"K12.q6_k_i8f", "K12.q3_k_n4", "K12.q2_k_n4", "K13.q4_k_i8" and
+"K2.q8_0_bf16".
 
 `matmul_packed(x, qt)` returns None when the JAX dispatch would decline the
-shape (out_f or in_f not a multiple of 256, or an in_f too wide for any
-2-D tile); callers then take the dequant path in ops/linear.py.
+shape (out_f or in_f not a multiple of 256, an in_f too wide for any 2-D
+tile or for an expanded kind's T=1 scratch, or an expanded kind without its
+dense fields at T > 1); callers then take the dequant path in
+ops/linear.py. It reads KCPP_SBQ, KCPP_MM_I8 and KCPP_Q4K_I8 at every call,
+as the JAX dispatch reads them.
 """
 from __future__ import annotations
 
@@ -43,8 +55,9 @@ import os
 import torch
 
 from . import _build
-from .linear import (IQ_KINDS, QTensor, iq_group, iq_values, q2k_values,
-                     q3k_values, q4k_values, q5k_values, q6k_values)
+from .linear import (EXPANDED, IQ_KINDS, QTensor, iq_group, iq_values,
+                     n4_values, q2k_values, q3k_values, q4k_values,
+                     q5k_values, q6k_values)
 
 VMEM_BUDGET = 13 * 1024 * 1024  # the JAX 2-D kernel's tile budget (see below)
 
@@ -53,6 +66,7 @@ _SIG_MATVEC_T = [_build.P] * 9 + [_build.I] * 4 + [_build.P]
 _SIG_PREP = [_build.P] * 4 + [_build.I] * 2 + [_build.P]
 _FIELD_DTYPES = {"qs2": torch.uint8, "ql": torch.uint8, "qh": torch.uint8,
                  "qs": torch.uint8, "hmask": torch.uint8, "sg": torch.uint8,
+                 "n4": torch.uint8,
                  "q": torch.int8, "scale": torch.bfloat16,
                  "min": torch.bfloat16, "sc": torch.uint8,
                  "d": torch.float32}
@@ -67,8 +81,10 @@ _K3_KINDS = {"q4_k": (0, "qs2", None, None, 32),
              "iq2p": (6, "qs", None, "sg", 0),
              "iq3px": (7, "qs", "hmask", "sg", 0),
              "iq3ps": (8, "qs", "hmask", "sg", 0),
-             "iq1p": (9, "qs", None, None, None)}
+             "iq1p": (9, "qs", None, None, None),
+             "q4_k_i8": (10, "q", None, None, 32)}
 _LOWBIT = ("q2_k", "q3_k")  # the kinds of K12 / K13 besides the IQ kinds
+_K13_KINDS = _LOWBIT + IQ_KINDS + ("q4_k_i8",)
 
 
 def _ptr(t: torch.Tensor | None):
@@ -361,42 +377,59 @@ def _lane_order_sum(v: torch.Tensor) -> torch.Tensor:
     return acc[:, 0]
 
 
-def q8_0_matvec_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """x (in_f,) bf16 -> (1, out_f) bf16: int8 activations per 32-col group
-    (`_q8_0_row_kernel_i8`), exact int32 group dots P, and y = sum_g
-    (P_g * sx_g) * s_g in the kernel's fixed order, so K2.q8_0 matches this
-    bit for bit."""
+def q8_0_matvec_plain(x: torch.Tensor, qt: QTensor,
+                      i8: bool = True) -> torch.Tensor:
+    """x (in_f,) bf16 -> (1, out_f) bf16 per 32-col group g with scale s_g,
+    y = sum_g P_g * s_g in the kernel's fixed order, so K2.q8_0 matches
+    this bit for bit. i8 (`_q8_0_row_kernel_i8`): int8 activations, P_g =
+    (exact int32 dot) * sx_g. bf16 (`_q8_0_row_kernel`, KCPP_MM_I8=0): P_g
+    = the f32 sum of the exact products x_c * q_c, added in column order
+    from 0, as the kernel adds them."""
     out_f, in_f = qt.shape
     ng = in_f // 32
-    xq, sx, _ = act_prep_plain(x, 32, True)
-    p = (qt.data["q"].int().reshape(out_f, ng, 32)
-         * xq.int().reshape(ng, 32)).sum(dim=2)  # exact int32
-    v = p.float() * sx * qt.data["scale"].float()
+    q = qt.data["q"].reshape(out_f, ng, 32)
+    if i8:
+        xq, sx, _ = act_prep_plain(x, 32, True)
+        p = (q.int() * xq.int().reshape(ng, 32)).sum(dim=2)  # exact int32
+        v = p.float() * sx * qt.data["scale"].float()
+    else:
+        xf, qf = x.float().reshape(ng, 32), q.float()
+        p = torch.zeros((out_f, ng), dtype=torch.float32, device=x.device)
+        for c in range(32):
+            p = p + qf[:, :, c] * xf[:, c]  # each product exact in f32
+        v = p * qt.data["scale"].float()
     return _lane_order_sum(v).to(torch.bfloat16).reshape(1, out_f)
 
 
-def q8_0_matvec(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """K2.q8_0 wrapper. x (in_f,) bf16 contiguous -> (1, out_f) bf16."""
+def q8_0_matvec(x: torch.Tensor, qt: QTensor, i8: bool = True) -> torch.Tensor:
+    """K2.q8_0 wrapper (i8; K2.q8_0_bf16 for bf16 activations). x (in_f,)
+    bf16 contiguous -> (1, out_f) bf16."""
     if not x.is_cuda:
-        return q8_0_matvec_plain(x, qt)
+        return q8_0_matvec_plain(x, qt, i8)
     out_f, in_f = qt.shape
     _check_operands(x[None], qt, "K2.q8_0")
     lib = _build.load("q8_0_matvec", {
         "k2_q8_0_prep": [_build.P] * 4 + [_build.I, _build.P],
-        "k2_q8_0_matvec": [_build.P] * 5 + [_build.I] * 2 + [_build.P]})
+        "k2_q8_0_matvec": [_build.P] * 6 + [_build.I] * 3 + [_build.P]})
     dev = x.device
-    xq = torch.empty(in_f, dtype=torch.int8, device=dev)
-    sx = torch.empty(in_f // 32, dtype=torch.float32, device=dev)
-    xsum = torch.empty(in_f // 32, dtype=torch.bfloat16, device=dev)
     y = torch.empty((1, out_f), dtype=torch.bfloat16, device=dev)
     st = _build.stream_ptr()
-    _build.check(lib, lib.k2_q8_0_prep(x.data_ptr(), xq.data_ptr(),
-                                       sx.data_ptr(), xsum.data_ptr(), in_f,
-                                       st), "K2.q8_0 prep")
+    xq = sx = None
+    if i8:
+        xq = torch.empty(in_f, dtype=torch.int8, device=dev)
+        sx = torch.empty(in_f // 32, dtype=torch.float32, device=dev)
+        xsum = torch.empty(in_f // 32, dtype=torch.bfloat16, device=dev)
+        _build.check(lib, lib.k2_q8_0_prep(x.data_ptr(), xq.data_ptr(),
+                                           sx.data_ptr(), xsum.data_ptr(),
+                                           in_f, st), "K2.q8_0 prep")
     _build.check(lib, lib.k2_q8_0_matvec(
-        qt.data["q"].data_ptr(), qt.data["scale"].data_ptr(), xq.data_ptr(),
-        sx.data_ptr(), y.data_ptr(), out_f, in_f, st), "K2.q8_0")
-    _count("K2", qt)
+        qt.data["q"].data_ptr(), qt.data["scale"].data_ptr(), x.data_ptr(),
+        _ptr(xq), _ptr(sx), y.data_ptr(), out_f, in_f, int(i8), st),
+        "K2.q8_0")
+    if i8:
+        _count("K2", qt)
+    else:
+        _build.launches["K2.q8_0_bf16"] += 1
     return y
 
 
@@ -523,8 +556,77 @@ def iq_matvec(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# K12 expanded: the T=1 matvec of q6_k_i8f / q3_k_n4 / q2_k_n4
+# (KCPP_KQ_LAYOUT=expanded)
+# ---------------------------------------------------------------------------
+
+def expanded_codes(qt: QTensor) -> torch.Tensor:
+    """(out_f, in_f) int32 logical-order codes of an expanded QTensor:
+    q6_k_i8f's signed values q6-32, the n4 kinds' codes (q3 0..7, q2
+    0..3)."""
+    return (qt.data["q"] if qt.kind == "q6_k_i8f"
+            else n4_values(qt.data["n4"])).int()
+
+
+def kq_expanded_matvec_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """x (in_f,) bf16 -> (1, out_f) bf16 for q6_k_i8f / q3_k_n4 / q2_k_n4
+    (`_q6k_i8f_row_kernel`, `_q3k_n4_row_kernel`, `_q2k_n4_row_kernel`):
+    int8 activations per 16-col group g (codes rint(x * (127 / a_g)), sx_g
+    = a_g / 127), exact int32 dots P_g with the codes, y = sum_g P_g sx_g
+    s_g, minus 4 sum_g xs_g s_g (q3_k_n4) or sum_g xs_g m_g (q2_k_n4) in
+    f32 over the bf16-rounded group sums xs. The JAX n4 bodies quantize
+    the two halves of x apart; their groups are the same 16 columns."""
+    out_f, in_f = qt.shape
+    ng = in_f // 16
+    v = expanded_codes(qt).reshape(out_f, ng, 16)
+    s = qt.data["scale"].float()
+    xq, sx, xsum = act_prep_plain(x, 16, True)
+    p = (v * xq.int().reshape(ng, 16)).sum(dim=2)  # exact int32
+    t = (p.float() * sx * s).sum(dim=1)
+    if qt.kind == "q3_k_n4":
+        t = t - 4.0 * (xsum.float() * s).sum(dim=1)
+    elif qt.kind == "q2_k_n4":
+        t = t - (xsum.float() * qt.data["min"].float()).sum(dim=1)
+    return t.to(torch.bfloat16).reshape(1, out_f)
+
+
+def kq_expanded_matvec(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """K12 expanded wrapper. x (in_f,) bf16 contiguous -> (1, out_f)
+    bf16."""
+    if not x.is_cuda:
+        return kq_expanded_matvec_plain(x, qt)
+    out_f, in_f = qt.shape
+    if qt.kind not in EXPANDED:
+        raise ValueError(f"K12 expanded serves {tuple(EXPANDED)}, not "
+                         f"{qt.kind}")
+    _check_operands(x[None], qt, "K12")
+    lib = _build.load("kq_expanded_matvec", {
+        "k12_expanded_prep": _SIG_PREP,
+        "k12_expanded_matvec": [_build.I] + [_build.P] * 7 + [_build.I] * 2
+        + [_build.P]})
+    dev = x.device
+    xq = torch.empty(in_f, dtype=torch.int8, device=dev)
+    sx = torch.empty(in_f // 16, dtype=torch.float32, device=dev)
+    xsum = torch.empty(in_f // 16, dtype=torch.bfloat16, device=dev)
+    y = torch.empty((1, out_f), dtype=torch.bfloat16, device=dev)
+    st = _build.stream_ptr()
+    _build.check(lib, lib.k12_expanded_prep(x.data_ptr(), xq.data_ptr(),
+                                            sx.data_ptr(), xsum.data_ptr(),
+                                            in_f, 1, st), "K12 prep")
+    d = qt.data
+    _build.check(lib, lib.k12_expanded_matvec(
+        tuple(EXPANDED).index(qt.kind),
+        (d["q"] if qt.kind == "q6_k_i8f" else d["n4"]).data_ptr(),
+        d["scale"].data_ptr(), _ptr(d.get("min")), xq.data_ptr(),
+        sx.data_ptr(), xsum.data_ptr(), y.data_ptr(), out_f, in_f, st),
+        "K12")
+    _count("K12", qt)
+    return y
+
+
+# ---------------------------------------------------------------------------
 # K3: q4_k / q5_k / q6_k / q8_0 tiled matmul (prefill); K13: its q2_k /
-# q3_k and IQ bodies
+# q3_k, IQ and q4_k_i8 bodies
 # ---------------------------------------------------------------------------
 
 def _group_sums(x: torch.Tensor, group: int) -> torch.Tensor:
@@ -536,9 +638,10 @@ def _group_sums(x: torch.Tensor, group: int) -> torch.Tensor:
 def kq_dequant_bf16(qt: QTensor) -> torch.Tensor:
     """The weight K3 / K13 feeds its product: bf16(q * scale), q the raw
     code (q4_k nibble 0..15, q5_k value 0..31, q6_k value 0..63, q8_0 int8,
-    q2_k 0..3, q3_k 0..7) or an IQ kind's signed value, as `_q4k_kernel` /
-    `_q5k_kernel` / `_q6k_kernel` / `_q8_0_kernel` / `_q2k_kernel` /
-    `_q3k_kernel` / `_iq2p_kernel` / `_iq3p_kernel` / `_iq1p_kernel` (JAX
+    q2_k 0..3, q3_k 0..7, q4_k_i8 the int8 code 0..15) or an IQ kind's
+    signed value, as `_q4k_kernel` / `_q5k_kernel` / `_q6k_kernel` /
+    `_q8_0_kernel` / `_q2k_kernel` / `_q3k_kernel` / `_iq2p_kernel` /
+    `_iq3p_kernel` / `_iq1p_kernel` / `_q4k_i8_kernel` (JAX
     multiplies the bf16 value by the bf16 expanded scale, so for |v| up to
     62 the product rounds)."""
     out_f, in_f = qt.shape
@@ -561,8 +664,8 @@ def kq_dequant_bf16(qt: QTensor) -> torch.Tensor:
 
 def kq_matmul_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """x (T, in_f) bf16 -> (T, out_f) bf16; f32 accumulation. The affine
-    term over bf16 group sums: - min (q4_k, q5_k per 32 cols; q2_k per 16;
-    iq1p per G), - 32 * scale (q6_k), - 4 * scale (q3_k)."""
+    term over bf16 group sums: - min (q4_k, q5_k, q4_k_i8 per 32 cols; q2_k
+    per 16; iq1p per G), - 32 * scale (q6_k), - 4 * scale (q3_k)."""
     w = kq_dequant_bf16(qt).float()
     acc = torch.matmul(x.float(), w.t())
     group = _affine_group(qt)
@@ -587,7 +690,7 @@ def kq_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
         return kq_matmul_plain(x, qt)
     out_f, in_f = qt.shape
     T = x.shape[0]
-    what = "K13" if qt.kind in _LOWBIT + IQ_KINDS else "K3"
+    what = "K13" if qt.kind in _K13_KINDS else "K3"
     _check_operands(x, qt, what)
     lib = _build.load("kq_matmul", {
         "k3_kq_matmul": [_build.I] + [_build.P] * 8 + [_build.I] * 4
@@ -609,56 +712,111 @@ def kq_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # dispatch (mirrors quant_matmul.py:2041-2177 of the JAX package for
-# q2_k/q3_k/q4_k/q5_k/q6_k/q8_0 and the IQ kinds at its default settings)
+# q2_k/q3_k/q4_k/q5_k/q6_k/q8_0, the IQ kinds and the opt-in kinds, with
+# KCPP_SBQ, KCPP_MM_I8 and KCPP_Q4K_I8 read as it reads them)
 # ---------------------------------------------------------------------------
+
+# the fields without which the JAX dispatch declines a kind (`_FIELD_LISTS`
+# in the port's names)
+_OPT_IN_FIELDS = {"q4_k_i8": ("q", "scale", "min"),
+                  "q6_k_i8f": ("q", "scale"), "q3_k_n4": ("n4", "scale"),
+                  "q2_k_n4": ("n4", "scale", "min")}
+# the fields of the dense kind an expanded kind re-dispatches to at T > 1
+_DENSE_FIELDS = {"q6_k": ("ql", "qh", "scale"),
+                 "q3_k": ("qs", "hmask", "scale"),
+                 "q2_k": ("qs", "scale", "min")}
+
+
+def _mm_i8(kind: str, in_f: int) -> bool:
+    """The JAX `_mm_i8`: int8 activations for the q8_0 / q6_k / q2_k / q3_k
+    T=1 bodies unless KCPP_MM_I8=0; q6_k / q2_k / q3_k from in_f 512 up."""
+    if kind in ("q6_k", "q2_k", "q3_k") and in_f < 512:
+        return False
+    return os.environ.get("KCPP_MM_I8", "1") == "1"
+
+
+def _q45_i8(in_f: int, T: int) -> bool:
+    """The JAX `i8_q45`: int8 activations for q4_k / q5_k (K1 / K7) from
+    in_f 512 up, while T * (in_f/64) * (in_f/2) <= 4 Mi, unless
+    KCPP_Q4K_I8=0."""
+    return (in_f >= 512 and os.environ.get("KCPP_Q4K_I8", "1") == "1"
+            and (T == 1 or T * (in_f // 64) * (in_f // 2) <= 4 * 1024 * 1024))
+
+
+def _expanded_fits(kind: str, in_f: int) -> bool:
+    """The JAX T=1 scratch bound of the expanded bodies: (in_f/16, in_f)
+    int8 for q6_k_i8f, 2 x (in_f/32, in_f/2) for the n4 kinds, at least 8
+    rows."""
+    if kind == "q6_k_i8f":
+        return (in_f // 16) * in_f <= 6 * 1024 * 1024 and in_f // 16 >= 8
+    return (in_f // 32) * (in_f // 2) <= 3 * 1024 * 1024 and in_f // 32 >= 8
+
 
 def matmul_packed(x: torch.Tensor, qt: QTensor) -> torch.Tensor | None:
     """Route x (..., in_f) through the kernel the JAX package would pick, or
-    return None where it declines (out_f or in_f not a multiple of 256, or
-    an in_f too wide for any 2-D tile).
+    return None where it declines (see the module docstring).
 
-    T=1: q4_k/q5_k take K1 (int8 activations for in_f >= 512:
-    `_q4k/_q5k_decode_kernel_i8`; bf16 below: `_q4k/_q5k_decode_kernel`),
-    q6_k takes K2 (`_q6k_row_kernel_i8` / `_q6k_row_kernel`, the same
-    in_f rule), q2_k/q3_k take K12 (`_q2k/_q3k_row_kernel_i8` /
-    `_q2k/_q3k_row_kernel`, the same rule), q8_0 takes K2.q8_0
-    (`_q8_0_row_kernel_i8`, every in_f), the IQ kinds take K12.iq
-    (`_iq2p/_iq3p/_iq1p_row_kernel_i8`) where in_f >= 32 G for their scale
-    group G and K13 below that (JAX's row kernels need 8 scratch sublanes;
-    there is no bf16 K12.iq).
+    T=1: q4_k/q5_k take K1 (int8 activations for in_f >= 512 unless
+    KCPP_Q4K_I8=0: `_q4k/_q5k_decode_kernel_i8`; bf16 otherwise:
+    `_q4k/_q5k_decode_kernel`), q6_k takes K2 (`_q6k_row_kernel_i8` from
+    in_f 512 up unless KCPP_MM_I8=0, else `_q6k_row_kernel`), q2_k/q3_k
+    take K12 (`_q2k/_q3k_row_kernel_i8` / `_q2k/_q3k_row_kernel`, the same
+    rule), q8_0 takes K2.q8_0 (`_q8_0_row_kernel_i8`, every in_f) or
+    K2.q8_0_bf16 under KCPP_MM_I8=0 (`_q8_0_row_kernel`), the IQ kinds
+    take K12.iq (`_iq2p/_iq3p/_iq1p_row_kernel_i8`) where in_f >= 32 G for
+    their scale group G and K13 below that (JAX's row kernels need 8
+    scratch sublanes; there is no bf16 K12.iq), the expanded kinds take
+    K12 expanded (`_q6k_i8f_row_kernel`, `_q3k/_q2k_n4_row_kernel`) where
+    their scratch fits (`_expanded_fits`) and decline otherwise.
+    At T > 1 the expanded kinds run as their dense kind when they carry
+    its fields and decline otherwise; q4_k_i8 takes K13 at every T
+    (`_q4k_i8_kernel`: JAX has no q4_k_i8 matvec, and K14 / K15 decline
+    it).
     Under KCPP_SBQ=1, q4_k/q5_k at 2 <= T <= 16 with in_f >= 2048 take K14
     (`_q4k/_q5k_decode_kernel_sbq`; `_sbq`) ahead of every other branch.
-    q4_k/q5_k at 2 <= T <= 8 take K7 (int8, while T * (in_f/64) * (in_f/2)
-    <= 4 Mi and in_f >= 512: `_q4k/_q5k_decode_kernel_i8_t`) or at T <= 4
-    the bf16 variant. Every other shape goes to K3 (`_q4k_kernel`,
-    `_q5k_kernel`, `_q6k_kernel`, `_q8_0_kernel`; K13: `_q2k_kernel`,
-    `_q3k_kernel`, `_iq2p_kernel`, `_iq3p_kernel`, `_iq1p_kernel`); q6_k,
-    q8_0, q2_k, q3_k and the IQ kinds thus take K3 / K13 at every T > 1, the
-    batched decode step included. The TPU-only VMEM
-    row-tile checks that can also send a T=1 call to the 2-D kernel are not
-    mirrored."""
+    q4_k/q5_k at 2 <= T <= 8 take K7 (int8, under `_q45_i8`:
+    `_q4k/_q5k_decode_kernel_i8_t`) or at T <= 4 the bf16 variant. Every
+    other shape goes to K3 (`_q4k_kernel`, `_q5k_kernel`, `_q6k_kernel`,
+    `_q8_0_kernel`; K13: `_q2k_kernel`, `_q3k_kernel`, `_iq2p_kernel`,
+    `_iq3p_kernel`, `_iq1p_kernel`, `_q4k_i8_kernel`); q6_k, q8_0, q2_k,
+    q3_k and the IQ kinds thus take K3 / K13 at every T > 1, the batched
+    decode step included. The TPU-only VMEM row-tile checks that can also
+    send a T=1 call to the 2-D kernel are not mirrored."""
     out_f, in_f = qt.shape
     if out_f % 256 or in_f % 256:
+        return None
+    if any(n not in qt.data for n in _OPT_IN_FIELDS.get(qt.kind, ())):
         return None
     lead = x.shape[:-1]
     x2 = x.reshape(-1, in_f).to(torch.bfloat16).contiguous()
     T = x2.shape[0]
     q45 = qt.kind in ("q4_k", "q5_k")
+    if qt.kind in EXPANDED:
+        if T == 1:
+            if not _expanded_fits(qt.kind, in_f):
+                return None
+            return kq_expanded_matvec(x2[0], qt).reshape(*lead, out_f)
+        dense_kind = EXPANDED[qt.kind]
+        if any(n not in qt.data for n in _DENSE_FIELDS[dense_kind]):
+            return None
+        return matmul_packed(x, QTensor(kind=dense_kind, shape=qt.shape,
+                                        data=qt.data))
     if _sbq(qt, T):
         return q4k_matvec_sbq(x2, qt).reshape(*lead, out_f)
     if T == 1 and qt.kind in IQ_KINDS:
         if in_f >= 32 * iq_group(qt):
             return iq_matvec(x2[0], qt).reshape(*lead, out_f)
-    elif T == 1:
+    elif T == 1 and qt.kind != "q4_k_i8":
         if qt.kind == "q8_0":
-            y = q8_0_matvec(x2[0], qt)
+            y = q8_0_matvec(x2[0], qt, i8=_mm_i8(qt.kind, in_f))
+        elif q45:
+            y = q4k_matvec(x2[0], qt, i8=_q45_i8(in_f, 1))
         else:
-            fn = (q4k_matvec if q45 else q23k_matvec if qt.kind in _LOWBIT
-                  else q6k_matvec)
-            y = fn(x2[0], qt, i8=in_f >= 512)
+            fn = q23k_matvec if qt.kind in _LOWBIT else q6k_matvec
+            y = fn(x2[0], qt, i8=_mm_i8(qt.kind, in_f))
         return y.reshape(*lead, out_f)
     if q45:
-        i8 = T * (in_f // 64) * (in_f // 2) <= 4 * 1024 * 1024 and in_f >= 512
+        i8 = _q45_i8(in_f, T)
         if T <= (8 if i8 else 4):
             return q4k_matvec_t(x2, qt, i8).reshape(*lead, out_f)
     # ultra-wide in_f: even the JAX package's smallest 2-D tile does not fit
