@@ -23,11 +23,21 @@
    version, one PyTorch library call computing the same function (where
    there is one), and the least time the card could take; K7's rows equal
    K1 on each row alone (K7.q5_k K1.q5_k), K2.q8_0 and K2.q8_0_bf16 equal
-   their plain versions,
+   their plain versions (the opt-in fixtures' decode step runs K5 over
+   their f32 cache),
    and K8 over a shuffled page table equals K5 on the
    same history laid out contiguously, bit for bit; the quantized decode
    kernels (K6, K9, K10) write the same codes and scales as their plain
-   versions, bit for bit;
+   versions, bit for bit; then the scan decode path's kernels: every body
+   of the layer-stacked matvecs K17a (q4_k int8 and bf16, q5_k) and K17b
+   (q6_k int8 and bf16, q8_0 int8 and bf16, q2_k, q3_k and the four IQ
+   kinds) on 4 stacked layers at the 1.1B's layer shapes (and the output
+   head's for q4_k and q8_0), bit for bit the per-layer K1 / K2 / K12 on
+   layers 0 and 3; the pooled-row flash decode K17c over a 22-layer pool
+   (B = 1 and 8, head_dim 64 and 128, one dead slot, a bf16 and an f32
+   pool), bit for bit K5 on the window's views at layers 0 and 21 with
+   every other row unchanged; K5 over an f32 cache; K16 (S = 256 and 2048,
+   pos 0, 37, S-1, and a softcap case) against its plain version;
 3. serves a synthetic TinyLlama-1.1B q4_k model through Engine: a ~300
    token prompt (prefill through K3 and K4, 22 K4 launches for the one
    chunk from position 0), 64 greedy tokens (K1 and K5), the same prompt
@@ -60,10 +70,9 @@
    `--quantkv 1` (K6 single-stream, K9 multiuser);
 6. serves the synthetic 1.1B with q5_k, q8_0, q2_k, q3_k, iq2p, iq3px,
    iq3ps and then iq1p weights (the IQ kinds at G = 32): single-stream
-   (300-token prompt, 64 greedy tokens, 32 for q2_k / q3_k / iq3px / iq3ps
-   / iq1p, fast-forward to the same tokens, near-ties apart; K1.q5_k and
-   K3.q5_k, K2.q8_0 and K3.q8_0, K12 and K13) and batched (8 slots, 8
-   concurrent requests of 32 new tokens, 16 for the half-depth kinds:
+   (300-token prompt, 32 greedy tokens, fast-forward to the same tokens,
+   near-ties apart; K1.q5_k and K3.q5_k, K2.q8_0 and K3.q8_0, K12 and
+   K13) and batched (8 slots, 8 concurrent requests of 16 new tokens:
    K7.q5_k, K3.q8_0, K13), each batched request getting its single-stream
    tokens (q5_k) or the tokens it gets alone through the batched engine
    (the other kinds); q5_k also under KCPP_SBQ=1 (8 new tokens, every
@@ -78,7 +87,13 @@
    where the model amplifies rounding) of max |logit| of the default
    layout's, and the default layout's decode tok/s
    in the same run; q4_k_i8 also with 8 slots (8 requests of 8 tokens,
-   each getting its reply alone);
+   each getting its reply alone); then the scan decode path: the q4_k
+   model stacked at full depth (22 layers) over a pooled cache, the
+   300-token prompt as one prefill chunk through forward_stacked (K3, no
+   K4) and 64 greedy tokens, equal to the unrolled forward's over the slot
+   cache (near-ties apart), every decode step 88 K17a + 22 K17c + the
+   head's K1 and no K5; the same for a synthetic 1.1B q8_0 at 16 tokens
+   (88 K17b.q8_0 a step); the decode tok/s of both paths in turns;
 7. serves tiny-q8_0, -q5_1, -q4_0, -iq4_nl and -tq2_0, and
    tests/fixtures/portgguf's tiny-q2_k, -q3_k_m, -iq2_xs, -iq3_xxs and
    -iq1_m, over HTTP, two identical replies each through their kinds'
@@ -96,7 +111,9 @@
    process: the device idle share under torch.profiler of the synthetic
    1.1B q4_k, 64 fast-forwarded single-stream tokens (with that request's
    tok/s before and after the session, then under KCPP_FFN_FUSED=1) and
-   32 batched steps of 8 requests (and of 16 under KCPP_SBQ=1);
+   32 batched steps of 8 requests (and of 16 under KCPP_SBQ=1), and
+   tools/profile_scan.py's scan mode (64 tokens: idle share, top five ops
+   per step);
 9. prints one {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 Any failed check raises, so the script exits nonzero. It exits nonzero,
@@ -129,13 +146,15 @@ from koboldcpp_tpu_torch.models.synthetic import (  # noqa: E402
     _MAKERS, TINYLLAMA_1_1B, rand_iq, rand_q2k, rand_q3k, rand_q4k,
     rand_q5k, rand_q6k, rand_q8_0, synthetic_model)
 from koboldcpp_tpu_torch.kv import paged  # noqa: E402
-from koboldcpp_tpu_torch.kv.cache import _dequant, _q8, init_cache  # noqa: E402
+from koboldcpp_tpu_torch.kv.cache import (  # noqa: E402
+    _dequant, _q8, init_cache, init_pool_cache)
 from koboldcpp_tpu_torch.ops import _build, flash_decode  # noqa: E402
 from koboldcpp_tpu_torch.ops import ffn_fused, flash_prefill  # noqa: E402
 from koboldcpp_tpu_torch.ops import quant_matmul as qm  # noqa: E402
 from koboldcpp_tpu_torch.ops.linear import (  # noqa: E402
     EXPANDED, QTensor, dequant, to_expanded, to_q4_k_i8)
 from koboldcpp_tpu_torch.sampling import SamplerParams  # noqa: E402
+from koboldcpp_tpu_torch.tools import profile_scan  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEV = torch.device("cuda", 0)
@@ -237,6 +256,36 @@ KERNELS = {
     "K2.q8_0_bf16": ("q8_0_matvec bf16 x",
                      "koboldcpp_tpu_torch/csrc/q8_0_matvec.cu",
                      "koboldcpp_tpu/ops/quant_matmul.py:1094"),
+    # the scan decode path: the layer-stacked matvecs (K1's, K2's and
+    # K12's bodies on layer li of stacked fields), the pooled-row flash
+    # decode; and the read-only single-sequence decode K16 (no path)
+    "K17a": ("q4k_matvec_stacked", "koboldcpp_tpu_torch/csrc/q4k_matvec.cu",
+             "koboldcpp_tpu/ops/quant_matmul.py:1826"),
+    "K17a.q5_k": ("q4k_matvec_stacked q5_k",
+                  "koboldcpp_tpu_torch/csrc/q4k_matvec.cu",
+                  "koboldcpp_tpu/ops/quant_matmul.py:1826"),
+    "K17b": ("matvec_stacked q6_k", "koboldcpp_tpu_torch/csrc/q6k_matvec.cu",
+             "koboldcpp_tpu/ops/quant_matmul.py:1883"),
+    "K17b.q8_0": ("matvec_stacked q8_0",
+                  "koboldcpp_tpu_torch/csrc/q8_0_matvec.cu",
+                  "koboldcpp_tpu/ops/quant_matmul.py:1883"),
+    "K17b.q8_0_bf16": ("matvec_stacked q8_0 bf16 x",
+                       "koboldcpp_tpu_torch/csrc/q8_0_matvec.cu",
+                       "koboldcpp_tpu/ops/quant_matmul.py:1883"),
+    "K17b.q2_k": ("matvec_stacked q2_k",
+                  "koboldcpp_tpu_torch/csrc/q23k_matvec.cu",
+                  "koboldcpp_tpu/ops/quant_matmul.py:1883"),
+    "K17b.q3_k": ("matvec_stacked q3_k",
+                  "koboldcpp_tpu_torch/csrc/q23k_matvec.cu",
+                  "koboldcpp_tpu/ops/quant_matmul.py:1883"),
+    **{f"K17b.{k}": (f"matvec_stacked {k}",
+                     "koboldcpp_tpu_torch/csrc/iq_matvec.cu",
+                     "koboldcpp_tpu/ops/quant_matmul.py:1883")
+       for k in ("iq2p", "iq3px", "iq3ps", "iq1p")},
+    "K17c": ("flash_decode_rows", "koboldcpp_tpu_torch/csrc/flash_decode.cu",
+             "koboldcpp_tpu/ops/flash_decode.py:332"),
+    "K16": ("flash_decode_single", "koboldcpp_tpu_torch/csrc/flash_decode.cu",
+            "koboldcpp_tpu/ops/flash_decode.py:86"),
 }
 NEAR_TIE = 2 ** -6  # logits this close may pick either token (bf16 steps)
 # greedy tokens per request in phases 3-4 (the q4_k main path); 64, not
@@ -655,15 +704,19 @@ def _peak(rng, q, kc, positions, G: int) -> None:
                 kv[b, r] = 11.0 * u[b]
 
 
-def _flash_decode_case(rng, B, S, H, Hkv, D, positions, peaked) -> None:
+def _flash_decode_case(rng, B, S, H, Hkv, D, positions, peaked,
+                       cache_dtype=torch.bfloat16) -> None:
+    """K5 on one case; cache_dtype float32: the f32 cache kind (values
+    drawn in f32, this step's row widened from bf16)."""
     KD = Hkv * D
     scale = D ** -0.5
 
-    def t(shape, s=1.0):
+    def t(shape, s=1.0, dtype=torch.bfloat16):
         return torch.from_numpy((rng.standard_normal(shape) * s).astype(
-            np.float32)).to(DEV).bfloat16()
+            np.float32)).to(DEV).to(dtype)
 
-    kc0, vc0 = t((B, S, KD), 0.5), t((B, S, KD), 0.5)
+    kc0 = t((B, S, KD), 0.5, cache_dtype)
+    vc0 = t((B, S, KD), 0.5, cache_dtype)
     q, kn, vn = t((B, H, D)), t((B, Hkv, D)), t((B, Hkv, D))
     if peaked:
         _peak(rng, q, kc0, positions, H // Hkv)
@@ -672,14 +725,15 @@ def _flash_decode_case(rng, B, S, H, Hkv, D, positions, peaked) -> None:
     out, _, _ = flash_decode.decode_attention_batched(
         q, kn, vn, kc, vc, pos, H, Hkv, scale)
     kr, vr = kc0.clone(), vc0.clone()
-    ref = flash_decode.decode_attention_plain(q, kn, vn, kr, vr, pos, H, Hkv,
-                                              scale)
+    ref = flash_decode.decode_attention_batched_plain(q, kn, vn, kr, vr, pos,
+                                                      H, Hkv, scale)
     # W = sum_s p_s |v_s| / l per output element: the same softmax over |V|
-    w = flash_decode.decode_attention_plain(q, kn, vn.abs(), kc0.clone(),
-                                            vc0.abs(), pos, H, Hkv, scale)
+    w = flash_decode.decode_attention_batched_plain(
+        q, kn, vn.abs(), kc0.clone(), vc0.abs(), pos, H, Hkv, scale)
     torch.cuda.synchronize()
     what = (f"B={B} S={S} H={H} Hkv={Hkv} D={D} pos={positions}"
-            + (" peaked" if peaked else ""))
+            + (" peaked" if peaked else "")
+            + (" f32 cache" if cache_dtype == torch.float32 else ""))
     # the cache row at pos is this step's K/V, every other row unchanged
     want_k, want_v = kc0.clone(), vc0.clone()
     for b, p in enumerate(positions):
@@ -705,31 +759,32 @@ def _flash_decode_case(rng, B, S, H, Hkv, D, positions, peaked) -> None:
     # library: SDPA over the rows each query attends: the live prefix of the
     # updated cache (history + this row), or for a dead sequence (pos < 0)
     # every cache row plus this step's row
-    ql = q.view(B, H, 1, D)
+    ql = q.view(B, H, 1, D).to(cache_dtype)
     if B == 1 and positions[0] >= 0:
         n = positions[0] + 1
         kq = want_k[:, :n].view(B, n, Hkv, D).transpose(1, 2)
         vq = want_v[:, :n].view(B, n, Hkv, D).transpose(1, 2)
         mask = None
     else:
-        kq = torch.cat([want_k, kn.reshape(B, 1, KD)], 1).view(
-            B, S + 1, Hkv, D).transpose(1, 2)
-        vq = torch.cat([want_v, vn.reshape(B, 1, KD)], 1).view(
-            B, S + 1, Hkv, D).transpose(1, 2)
+        kq = torch.cat([want_k, kn.reshape(B, 1, KD).to(cache_dtype)],
+                       1).view(B, S + 1, Hkv, D).transpose(1, 2)
+        vq = torch.cat([want_v, vn.reshape(B, 1, KD).to(cache_dtype)],
+                       1).view(B, S + 1, Hkv, D).transpose(1, 2)
         cols = torch.arange(S + 1, device=DEV)
         mask = torch.stack([cols <= p if p >= 0 else cols >= 0
                             for p in positions])[:, None, None, :]
     hist_rows = sum(min(p, S) if p >= 0 else S for p in positions)
     n_written = sum(0 <= p < S for p in positions)
+    el = kc0.element_size()
     _record("K5", what, err, tol,
             lambda: flash_decode.decode_attention_batched(
                 q, kn, vn, kc, vc, pos, H, Hkv, scale),
-            lambda: flash_decode.decode_attention_plain(
+            lambda: flash_decode.decode_attention_batched_plain(
                 q, kn, vn, kr, vr, pos, H, Hkv, scale),
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 ql, kq, vq, attn_mask=mask, scale=scale, enable_gqa=True),
-            2 * hist_rows * KD * 2 + _nbytes(q, kn, vn, pos) + B * H * D * 4
-            + 2 * n_written * KD * 2)
+            2 * hist_rows * KD * el + _nbytes(q, kn, vn, pos) + B * H * D * 4
+            + 2 * n_written * KD * el)
 
 
 def phase_paged_flash_decode(rng) -> None:
@@ -1001,6 +1056,245 @@ def _quant_case(rng, kid, B, H, Hkv, D, P, MP, positions, peaked) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 2b. the scan decode path's kernels: K17a / K17b (layer-stacked matvecs),
+# K17c (pooled-row flash decode), K16, and K5 over an f32 cache
+# ---------------------------------------------------------------------------
+
+STACKED_L = 4  # layers of the stacked matvec cases (li 0 and L-1 held)
+STACKED_SHAPES = (("wqkv", (2560, 2048)), ("wo", (2048, 2048)),
+                  ("w_gateup", (11264, 2048)), ("w_down", (2048, 5632)))
+
+
+def _stack_rows(qt, n_layers: int):
+    """A QTensor of n_layers * out_f rows as a layer-stacked one: each
+    field (n_layers * out_f, ...) viewed as (n_layers, out_f, ...)."""
+    out_f = qt.shape[0] // n_layers
+    return QTensor(kind=qt.kind, shape=(out_f, qt.shape[1]),
+                   data={n: a.view(n_layers, out_f, *a.shape[1:])
+                         for n, a in qt.data.items()})
+
+
+def _per_layer_kernel(kind: str):
+    """The per-layer T=1 kernel whose body K17a / K17b runs for `kind`."""
+    if kind in ("q4_k", "q5_k"):
+        return qm.q4k_matvec
+    if kind == "q6_k":
+        return qm.q6k_matvec
+    if kind == "q8_0":
+        return qm.q8_0_matvec
+    if kind in ("q2_k", "q3_k"):
+        return qm.q23k_matvec
+    return lambda x, qt, i8: qm.iq_matvec(x, qt)
+
+
+# (counter, kind, int8 activations, name suffix, with the output head)
+STACKED_BODIES = (
+    ("K17a", "q4_k", True, "", True), ("K17a", "q4_k", False, " bf16 x",
+                                        False),
+    ("K17a.q5_k", "q5_k", True, "", False),
+    ("K17b", "q6_k", True, "", False), ("K17b", "q6_k", False, " bf16 x",
+                                         False),
+    ("K17b.q8_0", "q8_0", True, "", True),
+    ("K17b.q8_0_bf16", "q8_0", False, "", False),
+    ("K17b.q2_k", "q2_k", True, "", False),
+    ("K17b.q3_k", "q3_k", True, "", False),
+    *((f"K17b.{k}", k, True, "", False)
+      for k in ("iq2p", "iq3px", "iq3ps", "iq1p")))
+
+
+def phase_stacked(rng) -> None:
+    """K17a / K17b: every body on L=4 stacked layers at the 1.1B's four
+    layer shapes (and the output head's for the two kinds the scan path
+    serves, q4_k and q8_0): at li = 0 and li = 3, bit for bit the
+    per-layer kernel (K1, K2, K12) on that layer (the same body, so any
+    difference is a stride or offset fault), and at li = 3 within the
+    per-layer kernel's tolerance of its plain version, timed beside cuBLAS
+    over the layer's dequantized bf16 weight. Then K17c, K5 over an f32
+    cache and K16 (see their cases)."""
+    ids = torch.arange(STACKED_L, dtype=torch.int32, device=DEV)
+    for kid, kind, i8, tag, head in STACKED_BODIES:
+        shapes = STACKED_SHAPES + ((("output", (32000, 2048)),) if head
+                                   else ())
+        stacked_fn = (qm.q4k_matvec_stacked if kind in ("q4_k", "q5_k")
+                      else qm.matvec_stacked)
+        plain_fn = (qm.q4k_matvec_stacked_plain if kind in ("q4_k", "q5_k")
+                    else qm.matvec_stacked_plain)
+        layer_fn = _per_layer_kernel(kind)
+        for name, (out_f, in_f) in shapes:
+            st = _stack_rows(_MAKERS[kind](rng, STACKED_L * out_f, in_f,
+                                           DEV), STACKED_L)
+            x = torch.from_numpy(rng.standard_normal(in_f).astype(
+                np.float32)).to(DEV).bfloat16()
+            for li in (0, STACKED_L - 1):
+                y = stacked_fn(x, st, ids[li:li + 1], i8)
+                want = layer_fn(x, qm.layer_of(st, li), i8)
+                torch.cuda.synchronize()
+                _check(torch.equal(y, want),
+                       f"{kid} {name}{tag} li={li}: differs from the "
+                       "per-layer kernel on that layer")
+            li = STACKED_L - 1
+            idx = ids[li:li + 1]
+            ref = plain_fn(x, st, li, i8)
+            err = (y.float() - ref.float()).abs().max().item()
+            # the per-layer kernel's tolerance (phase_matvec): q8_0 repeats
+            # its plain version bit for bit, the others one bf16 step
+            tol = (0.0 if kind == "q8_0"
+                   else 2 ** -7 * ref.float().abs().max().item())
+            layer = qm.layer_of(st, li)
+            w = dequant(layer)
+            xr = x.view(1, in_f)
+            _record(kid, f"{name} {out_f}x{in_f} L={STACKED_L} li={li}{tag}",
+                    err, tol, lambda: stacked_fn(x, st, idx, i8),
+                    lambda: plain_fn(x, st, li, i8),
+                    lambda: torch.matmul(xr, w.t()),
+                    _wbytes(layer) + _nbytes(x) + out_f * 2)
+            del w, st
+    torch.cuda.empty_cache()
+    # K17c: TinyLlama's heads and an 8B-class head_dim 128, one and eight
+    # sequences over a 22-layer pool; positions mixed, one dead slot
+    for B, H, Hkv, D, positions, dt in (
+            (1, 32, 4, 64, (700,), torch.bfloat16),
+            (8, 32, 4, 64, (0, 1, 63, 256, 700, 1500, 2047, -1),
+             torch.bfloat16),
+            (8, 32, 4, 64, (0, 1, 63, 256, 700, 1500, 2047, -1),
+             torch.float32),
+            (8, 32, 8, 128, (5, 300, 1024, 2047, -1, 64, 900, 1999),
+             torch.bfloat16)):
+        _rows_case(rng, B, H, Hkv, D, positions, dt)
+        torch.cuda.empty_cache()
+    # K5 over the f32 cache kind (the repair that K17c shares)
+    _flash_decode_case(rng, 1, 2048, 32, 4, 64, (700,), True, torch.float32)
+    _flash_decode_case(rng, 2, 4096, 32, 8, 128, (3000, -1), True,
+                       torch.float32)
+    for S, pos, softcap in ((256, 0, 0.0), (256, 37, 0.0), (256, 255, 0.0),
+                            (2048, 0, 0.0), (2048, 37, 0.0),
+                            (2048, 2047, 0.0), (2048, 700, 30.0)):
+        _k16_case(rng, S, 32, 4, 64, pos, softcap)
+
+
+POOL_LAYERS = 22  # the 1.1B's depth: K17c's pool holds every layer
+POOL_S = 2048  # rows per sequence of K17c's pool (the served context)
+
+
+def _rows_case(rng, B, H, Hkv, D, positions, dtype) -> None:
+    """K17c over a (22 B, 2048, Hkv D) pool at li = 0 and 21: bit for bit
+    K5 on the window's views (output and written rows), every other row of
+    the pool unchanged; at li = 21 within K5's tolerance of its plain
+    version (2^-7 * 1.05 * W element by element)."""
+    S, L, KD = POOL_S, POOL_LAYERS, Hkv * D
+    scale = D ** -0.5
+
+    def t(shape, s=1.0, dt=torch.bfloat16):
+        return torch.from_numpy((rng.standard_normal(shape) * s).astype(
+            np.float32)).to(DEV).to(dt)
+
+    kp0, vp0 = t((L * B, S, KD), 0.5, dtype), t((L * B, S, KD), 0.5, dtype)
+    q, kn, vn = t((B, H, D)), t((B, Hkv, D)), t((B, Hkv, D))
+    pos = torch.tensor(positions, dtype=torch.int32, device=DEV)
+    ids = torch.arange(L, dtype=torch.int32, device=DEV)
+    what = (f"B={B} S={S} H={H} Hkv={Hkv} D={D} L={L} pos={positions}"
+            + (" f32 pool" if dtype == torch.float32 else ""))
+    for li in (0, L - 1):
+        win = slice(li * B, li * B + B)
+        kp, vp = kp0.clone(), vp0.clone()
+        out, _, _ = flash_decode.decode_attention_rows(
+            q, kn, vn, kp, vp, pos, ids[li:li + 1], H, Hkv, scale)
+        kr, vr = kp0.clone(), vp0.clone()
+        ref, _, _ = flash_decode.decode_attention_batched(
+            q, kn, vn, kr[win], vr[win], pos, H, Hkv, scale)
+        torch.cuda.synchronize()
+        _check(torch.equal(out, ref),
+               f"K17c {what} li={li}: output differs from K5 on the window")
+        _check(torch.equal(kp, kr) and torch.equal(vp, vr),
+               f"K17c {what} li={li}: the pool differs from K5's writes on "
+               "the window views (a row outside the window moved)")
+        rest = torch.ones(L * B, dtype=torch.bool, device=DEV)
+        rest[win] = False
+        _check(torch.equal(kp[rest], kp0[rest])
+               and torch.equal(vp[rest], vp0[rest]),
+               f"K17c {what} li={li}: another layer's rows changed")
+    pl_k, pl_v = kp0.clone(), vp0.clone()
+    want = flash_decode.decode_attention_rows_plain(
+        q, kn, vn, pl_k, pl_v, pos, li, H, Hkv, scale)
+    w = flash_decode.decode_attention_rows_plain(
+        q, kn, vn.abs(), kp0.clone(), vp0.abs(), pos, li, H, Hkv, scale)
+    torch.cuda.synchronize()
+    _check(torch.equal(kp, pl_k) and torch.equal(vp, pl_v),
+           f"K17c {what}: kernel and plain pools differ")
+    live = torch.tensor([p >= 0 for p in positions], device=DEV)
+    diff = (out - want).abs()[live]
+    tol_el = (2 ** -7 * 1.05 * w)[live]
+    worst = (diff / tol_el.clamp_min(1e-30)).max().item()
+    _check(worst <= 1.0, f"K17c {what}: max |err| / elementwise tol {worst}")
+    print(f"K17c {what}: bit-equal to K5 on the window at li 0 and {L - 1}; "
+          f"worst |err| / (2^-7 * 1.05 * W) {worst:.3g}", flush=True)
+    # library: SDPA over each live sequence's prefix (history + this row)
+    base = (L - 1) * B
+    n = [min(p, S) + 1 if p >= 0 else 0 for p in positions]
+    cols = torch.arange(S, device=DEV)
+    mask = torch.stack([cols < m for m in n])[:, None, None, :]
+    kq = kp[base:base + B].view(B, S, Hkv, D).transpose(1, 2)
+    vq = vp[base:base + B].view(B, S, Hkv, D).transpose(1, 2)
+    ql = q.view(B, H, 1, D).to(dtype)
+    idx = ids[L - 1:L]
+    el = kp0.element_size()
+    hist_rows = sum(min(p, S) if p >= 0 else S for p in positions)
+    n_written = sum(0 <= p < S for p in positions)
+    _record("K17c", what, diff.max().item(),
+            tol_el.flatten()[diff.argmax()].item(),
+            lambda: flash_decode.decode_attention_rows(
+                q, kn, vn, kp, vp, pos, idx, H, Hkv, scale),
+            lambda: flash_decode.decode_attention_rows_plain(
+                q, kn, vn, pl_k, pl_v, pos, L - 1, H, Hkv, scale),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                ql, kq, vq, attn_mask=mask, scale=scale, enable_gqa=True),
+            2 * hist_rows * KD * el + _nbytes(q, kn, vn, pos) + B * H * D * 4
+            + 2 * n_written * KD * el)
+
+
+def _k16_case(rng, S, H, Hkv, D, pos, softcap) -> None:
+    """K16 against its plain version: rows <= pos of one sequence's bf16
+    cache, q in f32, within 2^-7 * 1.05 * W element by element (K5's
+    bound: p rounded to bf16 against another running max on each side)."""
+    scale = D ** -0.5
+
+    def t(shape, s=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * s).astype(
+            np.float32)).to(DEV)
+
+    q = t((H, D), 3.0 if softcap else 1.0)
+    k, v = t((S, Hkv, D), 0.5).bfloat16(), t((S, Hkv, D), 0.5).bfloat16()
+    p = torch.tensor([pos], dtype=torch.int32, device=DEV)
+    out = flash_decode.decode_attention(q, k, v, p, H, scale, softcap)
+    ref = flash_decode.decode_attention_plain(q, k, v, p, H, scale, softcap)
+    w = flash_decode.decode_attention_plain(q, k, v.abs(), p, H, scale,
+                                            softcap)
+    torch.cuda.synchronize()
+    _check(out.shape == (H, D) and out.dtype == torch.float32,
+           f"K16: out {out.shape} {out.dtype}")
+    diff = (out - ref).abs()
+    tol_el = 2 ** -7 * 1.05 * w
+    worst = (diff / tol_el.clamp_min(1e-30)).max().item()
+    what = (f"S={S} H={H} Hkv={Hkv} D={D} pos={pos}"
+            + (f" softcap={softcap}" if softcap else ""))
+    _check(worst <= 1.0, f"K16 {what}: max |err| / elementwise tol {worst}")
+    n = min(pos, S - 1) + 1
+    ql = q.bfloat16().view(1, H, 1, D)
+    kq = k[:n].view(1, n, Hkv, D).transpose(1, 2)
+    vq = v[:n].view(1, n, Hkv, D).transpose(1, 2)
+    # SDPA has no softcap: a yardstick of the same reads, not of the cap
+    _record("K16", what, diff.max().item(),
+            tol_el.flatten()[diff.argmax()].item(),
+            lambda: flash_decode.decode_attention(q, k, v, p, H, scale,
+                                                  softcap),
+            lambda: flash_decode.decode_attention_plain(q, k, v, p, H, scale,
+                                                        softcap),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                ql, kq, vq, scale=scale, enable_gqa=True),
+            2 * n * Hkv * D * 2 + _nbytes(q, p) + H * D * 4)
+
+
+# ---------------------------------------------------------------------------
 # 3. end to end: synthetic TinyLlama-1.1B q4_k served through Engine
 # ---------------------------------------------------------------------------
 
@@ -1192,6 +1486,19 @@ def phase_profiled(card: str) -> None:
         print(f"batched 1.1B (slot cache{', KCPP_SBQ=1' if env else ''}), "
               f"32 batched steps of {n_slots} greedy requests under "
               f"torch.profiler: {idle}", flush=True)
+    # the scan decode path's entry point: 64 greedy tokens from position
+    # 64 over a pooled cache, as `python -m koboldcpp_tpu_torch.tools.
+    # profile_scan scan` runs them
+    res = profile_scan.profile("scan", TINYLLAMA_1_1B, 64, DEV,
+                               params=model.params)
+    _check(res["idle_share"] is not None,
+           "profile_scan: the profiler saw no device kernels")
+    top = ", ".join(f"{k[:40]} {us:.1f} us x{n:.2f}"
+                    for k, us, n in res["ops"][:5])
+    print(f"tools/profile_scan.py scan, 64 tokens under torch.profiler "
+          f"({card}): wall {res['wall_ms']:.1f} ms, device busy "
+          f"{res['busy_ms']:.1f} ms, idle share {res['idle_share']:.3f}; "
+          f"top five ops per step: {top}", flush=True)
     del model
     torch.cuda.empty_cache()
 
@@ -1348,13 +1655,15 @@ def _env(**kv):
 
 class _StepLaunches:
     """The launches of each forward of a run, by the forward's token shape
-    (B, T): wraps models.llama.forward / forward_paged, which both engines
-    call through the module, and takes the launch counters' difference
-    over each call (the wrappers count on the calling thread)."""
+    (B, T): wraps models.llama.forward / forward_paged / forward_stacked,
+    which the engines and the scan phase call through the module, and
+    takes the launch counters' difference over each call (the wrappers
+    count on the calling thread)."""
 
     def __enter__(self):
         self.by_shape: dict = {}
-        self.orig = (llama.forward, llama.forward_paged)
+        self.orig = (llama.forward, llama.forward_paged,
+                     llama.forward_stacked)
 
         def wrap(fn):
             def forward(params, cfg, tokens, *a, **k):
@@ -1368,11 +1677,12 @@ class _StepLaunches:
                 return out
             return forward
 
-        llama.forward, llama.forward_paged = map(wrap, self.orig)
+        (llama.forward, llama.forward_paged,
+         llama.forward_stacked) = map(wrap, self.orig)
         return self
 
     def __exit__(self, *exc):
-        llama.forward, llama.forward_paged = self.orig
+        llama.forward, llama.forward_paged, llama.forward_stacked = self.orig
 
     def steps(self, B: int) -> list[dict]:
         """The launches of each decode step of B sequences."""
@@ -1559,15 +1869,16 @@ def phase_opt_in_batched(card: str, model) -> dict:
 # batched request is held to its single-stream tokens (q5_k: T=1 and T>=2
 # share their arithmetic) or to the tokens it gets alone through the
 # batched engine (q8_0, q2_k, q3_k: int8 activations at T=1 against the
-# tiled bf16 product at T>=2, as the JAX dispatch is built)). The q2_k and
-# q3_k phases run at half the depth of the earlier ones, to keep the script
-# within its time budget.
+# tiled bf16 product at T>=2, as the JAX dispatch is built)). Every kind
+# runs at 32 greedy tokens single-stream and 16 per batched request (half
+# the depth of the q4_k phases), to keep the script within its time
+# budget.
 NEW_KINDS = (
-    ("q5_k", 64, 32, ("K1.q5_k", "K3.q5_k"), ("K7.q5_k",), True),
-    ("q8_0", 64, 32, ("K2.q8_0", "K3.q8_0"), ("K3.q8_0",), False),
+    ("q5_k", 32, 16, ("K1.q5_k", "K3.q5_k"), ("K7.q5_k",), True),
+    ("q8_0", 32, 16, ("K2.q8_0", "K3.q8_0"), ("K3.q8_0",), False),
     ("q2_k", 32, 16, ("K12.q2_k", "K13.q2_k"), ("K13.q2_k",), False),
     ("q3_k", 32, 16, ("K12.q3_k", "K13.q3_k"), ("K13.q3_k",), False),
-    ("iq2p", 64, 32, ("K12.iq2p", "K13.iq2p"), ("K13.iq2p",), False),
+    ("iq2p", 32, 16, ("K12.iq2p", "K13.iq2p"), ("K13.iq2p",), False),
     ("iq3px", 32, 16, ("K12.iq3px", "K13.iq3px"), ("K13.iq3px",), False),
     ("iq3ps", 32, 16, ("K12.iq3ps", "K13.iq3ps"), ("K13.iq3ps",), False),
     ("iq1p", 32, 16, ("K12.iq1p", "K13.iq1p"), ("K13.iq1p",), False))
@@ -1871,6 +2182,118 @@ def phase_opt_in_layouts(card: str, q4k_model) -> dict:
         torch.cuda.empty_cache()
     _check(not far, "; ".join(far))
     return counts
+
+
+# ---------------------------------------------------------------------------
+# the scan decode path: layer-stacked weights over a pooled cache
+# ---------------------------------------------------------------------------
+
+SCAN_DEPTH = 64  # greedy tokens of the q4_k scan phase
+SCAN_Q8_DEPTH = 16  # ... and of the q8_0 one
+
+
+def _greedy_run(fwd, params, cache, prompt: list[int], n: int):
+    """The prompt as one prefill chunk, then n greedy single-token steps
+    (the argmax stays on the card). Returns (tokens, the logits each token
+    was picked from (n, V) f32, decode seconds)."""
+    cfg = TINYLLAMA_1_1B
+    with torch.inference_mode():
+        lg, cache = fwd(params, cfg, torch.tensor([prompt], device=DEV),
+                        torch.arange(len(prompt), device=DEV)[None], cache,
+                        last_only=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, rows = [], []
+        for i in range(n):
+            rows.append(lg[0, -1].float())
+            nxt = lg[:, -1].argmax(dim=-1, keepdim=True)
+            toks.append(nxt)
+            if i + 1 < n:
+                lg, cache = fwd(params, cfg, nxt, torch.full(
+                    (1, 1), len(prompt) + i, device=DEV), cache,
+                    last_only=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return torch.cat(toks, 1)[0].tolist(), torch.stack(rows), secs
+
+
+def _scan_vs_unrolled(card: str, params, kind: str, n: int, want: dict,
+                      prefill_kid: str) -> dict:
+    """`forward_stacked` over a pooled cache against `forward` over the
+    slot cache on the same weights: the prompt of phase 3 as one prefill
+    chunk (through prefill_kid, not K4), n greedy tokens that must agree
+    (a step where they part must be a near-tie of the scan's logits,
+    printed), every scan decode step launching exactly `want`; then the
+    decode tok/s of both in turns. Returns the scan runs' launches."""
+    cfg, L = TINYLLAMA_1_1B, TINYLLAMA_1_1B.n_layers
+    prompt = [1] + np.random.default_rng(1).integers(
+        3, 32000, size=299).tolist()
+    shape = (L, 1, 2048, cfg.n_kv_heads, cfg.head_dim)
+    sparams = llama.stack_layers(params)
+    _check("layers_stacked" in sparams, f"{kind}: the layers did not stack")
+
+    def scan(n_tok):
+        return _greedy_run(llama.forward_stacked, sparams,
+                           init_pool_cache(*shape, device=DEV), prompt,
+                           n_tok)
+
+    def unrolled(n_tok):
+        return _greedy_run(llama.forward, params,
+                           init_cache(*shape, device=DEV), prompt, n_tok)
+
+    scan(2)
+    want_toks, _, _ = unrolled(n)
+    _build.launches.clear()
+    with _StepLaunches() as rec:
+        got, rows, _ = scan(n)
+    counts = dict(_build.launches)
+    steps = _check_steps(rec, 1, want, f"scan decode ({kind})")
+    pre = rec.by_shape.get((1, len(prompt)), [])
+    _check(len(pre) == 1 and pre[0].get(prefill_kid, 0) > 0
+           and pre[0].get("K4", 0) == 0,
+           f"scan prefill ({kind}) did not run {prefill_kid} without K4: "
+           f"{pre}")
+    if got != want_toks:
+        i = next(j for j, (a, b) in enumerate(zip(got, want_toks)) if a != b)
+        a, b = rows[i, got[i]].item(), rows[i, want_toks[i]].item()
+        _check(abs(a - b) <= NEAR_TIE,
+               f"scan decode ({kind}): tokens part from the unrolled ones "
+               f"at step {i} ({got[i]} vs {want_toks[i]}), logits {a} / {b}")
+        print(f"near-tie: scan decode ({kind}), step {i}: tokens {got[i]} / "
+              f"{want_toks[i]}, scan logits {a:.6f} / {b:.6f}", flush=True)
+    _check(bool(torch.isfinite(rows).all()) and rows.shape == (n, 32000),
+           f"scan decode ({kind}): logits not finite (n, 32000)")
+    tps: dict = {"scan": [], "unroll": []}
+    for mode in ("unroll", "scan", "scan", "unroll"):
+        _, _, secs = (scan if mode == "scan" else unrolled)(n)
+        tps[mode].append(round(n / secs, 1))
+    print(f"scan decode ({kind}, {L} layers stacked, pooled cache, {card}): "
+          f"{n} greedy tokens equal to the unrolled forward's, {steps} decode "
+          f"steps of {want}; prefill {pre[0]}; decode tok/s in turns: scan "
+          f"{tps['scan']}, unrolled {tps['unroll']}", flush=True)
+    del sparams
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_scan_decode(card: str, q4k_model) -> dict:
+    """The scan decode path of the synthetic 1.1B at full depth and width:
+    q4_k (every decode step 88 K17a and 22 K17c, the output head's K1,
+    no K5 and no layer K1; prefill through K3), then q8_0 (88 K17b.q8_0,
+    22 K17c, the head's K2.q8_0; prefill through K3.q8_0)."""
+    L = TINYLLAMA_1_1B.n_layers
+    counts = _scan_vs_unrolled(
+        card, q4k_model.params, "q4_k", SCAN_DEPTH,
+        {"K17a": 4 * L, "K17c": L, "K1": 1, "K5": 0, "K7": 0, "K3": 0},
+        "K3")
+    model = synthetic_model(TINYLLAMA_1_1B, "q8_0", seed=0, device=DEV)
+    c8 = _scan_vs_unrolled(
+        card, model.params, "q8_0", SCAN_Q8_DEPTH,
+        {"K17b.q8_0": 4 * L, "K17c": L, "K2.q8_0": 1, "K5": 0, "K3.q8_0": 0},
+        "K3.q8_0")
+    del model
+    torch.cuda.empty_cache()
+    return {k: counts.get(k, 0) + c8.get(k, 0) for k in {*counts, *c8}}
 
 
 # ---------------------------------------------------------------------------
@@ -2188,16 +2611,9 @@ def check_opt_in_logits() -> None:
     tests/test_torch_opt_in_layouts.py's tolerances: |err| <= 1e-2 +
     1e-2 |want| for the prefill rows, 2e-2 + 2e-2 |want| for the decode
     row (its bf16-activation output projection, see that test). The f32
-    cache is kept throughout, as in the JAX run and the CPU test; K5 reads
-    bf16 caches only, so the decode step attends through K5's plain
-    version (`decode_attention_plain`, the function the CPU test runs),
-    its projections through the opt-in bodies under test."""
-
-    def k5_plain(q, k_new, v_new, k_layer, v_layer, *args):
-        out = flash_decode.decode_attention_plain(q, k_new, v_new, k_layer,
-                                                  v_layer, *args)
-        return out, k_layer, v_layer
-
+    cache is kept throughout, as in the JAX run and the CPU test: the
+    decode step attends through K5's f32 kind, its projections through the
+    opt-in bodies under test."""
     manifest = json.load(open(os.path.join(PORT_FIX, "optin.json")))
     for run, spec in manifest["runs"].items():
         with _env(**spec["env"]):
@@ -2214,13 +2630,13 @@ def check_opt_in_logits() -> None:
                 pre, cache = llama.forward(
                     m32.params, m32.cfg, toks[:, :n],
                     torch.arange(n, device=DEV)[None], cache)
-                with mock.patch.object(llama.flash_decode,
-                                       "decode_attention_batched",
-                                       k5_plain):
-                    last, _ = llama.forward(
-                        m32.params, m32.cfg, toks[:, n:],
-                        torch.tensor([[n]], device=DEV), cache)
+                last, _ = llama.forward(
+                    m32.params, m32.cfg, toks[:, n:],
+                    torch.tensor([[n]], device=DEV), cache)
             c = dict(_build.launches)
+        _check(c.get("K5", 0) == m32.cfg.n_layers,
+               f"{run}: the decode step over the f32 cache did not run K5 "
+               f"once per layer: {c}")
         logits = torch.cat([pre[0], last[0]]).float().cpu().numpy()
         want = np.load(os.path.join(PORT_FIX, spec["logits"]))
         diff = np.abs(logits - want)
@@ -2256,7 +2672,8 @@ def main() -> int:
     for phase in (phase_matvec, phase_batched_matvec, phase_sbq,
                   phase_ffn_fused, phase_kq_matmul,
                   phase_iq_kernels, phase_flash_prefill, phase_flash_decode,
-                  phase_paged_flash_decode, phase_quant_decode):
+                  phase_paged_flash_decode, phase_quant_decode,
+                  phase_stacked):
         _timed(phase, rng)
     torch.cuda.synchronize()
     global _flush
@@ -2270,7 +2687,8 @@ def main() -> int:
     model = synthetic_model(TINYLLAMA_1_1B, "q4_k", seed=0, device=DEV)
     runs += [_timed(phase_fused_single, card, model, bf16_tps),
              _timed(phase_opt_in_batched, card, model),
-             _timed(phase_opt_in_layouts, card, model)]
+             _timed(phase_opt_in_layouts, card, model),
+             _timed(phase_scan_decode, card, model)]
     del model
     torch.cuda.empty_cache()
     runs += [_timed(phase_served_fixture), _timed(phase_new_kinds, card),

@@ -76,6 +76,26 @@ static cudaError_t launch_act_prep(const void* x, void* xq, void* sx,
     return cudaGetLastError();
 }
 
+// K17a / K17b, the layer-stacked matvecs of the scan decode path: the
+// weight fields of a stacked QTensor carry a leading layer axis; every block
+// reads the layer index li[0] from device memory (as the TPU kernel takes
+// it by scalar prefetch, so a captured launch can point at a device
+// counter) and offsets weight field i by li[0] * n[i] elements. li null:
+// the fields are one layer's (K1, K2, K12).
+struct Stacked {
+    const int* li;
+    long long n[5];
+    template <typename T>
+    __device__ __forceinline__ const T* at(const T* p, int i) const {
+        return li != nullptr && p != nullptr
+                   ? p + (size_t)li[0] * (size_t)n[i] : p;
+    }
+};
+
+#define STACKED_PARAMS const void *li, long long n0, long long n1, \
+        long long n2, long long n3, long long n4
+#define STACKED_ARG Stacked{(const int*)li, {n0, n1, n2, n3, n4}}
+
 KCPP_API const char* kcpp_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);
 }

@@ -1,15 +1,21 @@
 // Batched flash decode that also writes this step's K/V row in place, over
-// four cache kinds:
-//   K5: the fused (B, S, Hkv*D) bf16 slot cache;
+// five cache kinds, and the read-only single-sequence decode K16:
+//   K5: the fused (B, S, Hkv*D) bf16 slot cache, or the same in f32;
+//   K17c: K5 over the row window [li * B, li * B + B) of a pooled
+//         (L * B, S, Hkv*D) bf16 or f32 cache, li read from device memory;
 //   K6: the same as int8 with (B, S, Hkv) bf16 scales (Q8, --quantkv 1);
 //   K8: a paged (NP*P, Hkv*D) bf16 pool addressed through a (B, MP) table;
 //   K9: the paged pool as int8 rows with (NP*P, Hkv) bf16 scales;
 //   K10: the paged pool as plane-split nibbles (NP*P, Hkv*D/2) uint8 (byte
 //        i of a head's D/2 bytes holds element i in the low nibble and
-//        element i+D/2 in the high one, as value + 8) with the same scales.
+//        element i+D/2 in the high one, as value + 8) with the same scales;
+//   K16: one sequence, no new row: softmax over the rows <= pos of an
+//        (S, Hkv*D) bf16 cache, nothing written.
 //
 // Replace koboldcpp_tpu/ops/flash_decode.py `decode_attention_batched`
-// (body `_bkernel`), `decode_attention_batched_q8` (`_bqkernel`),
+// (body `_bkernel`), `decode_attention_rows` (`_bkernel` with pos_off=1:
+// K17c), `decode_attention` (`_kernel`: K16), `decode_attention_batched_q8`
+// (`_bqkernel`),
 // `decode_attention_paged` (`_pkernel`), `decode_attention_paged_q8`
 // (`_pq8kernel`) and `decode_attention_paged_q4` (`_pq4kernel`).
 // Per sequence b: online softmax over the history rows < pos only (no row
@@ -17,7 +23,12 @@
 // dead-row remap does; pos >= S attends all S rows), scores q . k in f32
 // times `scale`, optional softcap, p cast to bf16 before p . V; this step's
 // self term folds in f32 from the new row as the cache will hold it; output
-// f32 (B, H, D). The new row lands at pos when 0 <= pos < S. For the paged
+// f32 (B, H, D). The new row lands at pos when 0 <= pos < S (an f32 cache
+// takes it rounded to bf16, as the TPU kernel's bf16 k_new / v_new operands
+// are; scores and p . V then read the f32 rows). K16 attends the rows
+// < pos + 1 and has no self term and no write. K17c's sequence b reads and
+// writes pool row li * B + b only, so the other layers' rows stay as they
+// were; it is otherwise K5, bit for bit. For the paged
 // kinds S = MP * P and row r of sequence b lives at pool row
 // tab[b, r / P] * P + r % P. The quantized kinds round as their TPU kernels
 // do: K6 dequantizes each history element to bf16(int8 * scale) before the
@@ -39,9 +50,11 @@
 // (grid (B, MP)); the paged kinds keep the slot kinds' split boundaries and
 // arithmetic and only compute each row's address through the page table,
 // so K8 over a page table gives bit for bit K5's output on the same history
-// laid out contiguously.
+// laid out contiguously. K17c reads its layer index from device memory in
+// both launches, as the TPU kernel takes its row base by scalar prefetch,
+// so a captured decode step can point it at a device counter.
 // Launch counters: ops/_build.launches["K5"], ["K6"], ["K8"], ["K9"],
-// ["K10"] (one per call).
+// ["K10"], ["K16"], ["K17c"] (one per call).
 #include "common.cuh"
 
 constexpr int NW = 4;        // warps per block
@@ -50,14 +63,19 @@ constexpr int MAXGD = 1024;  // G * D
 constexpr int MAXD = 128;
 
 // cache kinds: the element type of the rows and where the scales apply
-enum Kind { BF16_ROWS = 0, Q8_VALUE = 1, Q8_SCORE = 2, Q4_SCORE = 3 };
+enum Kind { BF16_ROWS = 0, Q8_VALUE = 1, Q8_SCORE = 2, Q4_SCORE = 3,
+            F32_ROWS = 4 };
 
-// cache row of history row `row` of sequence b: contiguous (B, S, KD), or
-// through the (B, MP) page table of a paged pool (entries clamped to the pool)
+// the kinds whose rows are integer codes with per-head scales
+#define QUANT_KIND(K) ((K) == Q8_VALUE || (K) == Q8_SCORE || (K) == Q4_SCORE)
+
+// cache row of history row `row` of sequence b: contiguous (N, S, KD) at
+// sequence row cb (b, or li * B + b in a pool), or through the (B, MP) page
+// table of a paged pool (entries clamped to the pool)
 __device__ __forceinline__ size_t cache_row(const int* __restrict__ tab,
-                                            int b, int row, int S, int MP,
-                                            int P, int NP) {
-    if (tab == nullptr) return (size_t)b * S + row;
+                                            int b, int cb, int row, int S,
+                                            int MP, int P, int NP) {
+    if (tab == nullptr) return (size_t)cb * S + row;
     const int page = min(max(tab[(size_t)b * MP + row / P], 0), NP - 1);
     return (size_t)page * P + row % P;
 }
@@ -65,16 +83,23 @@ __device__ __forceinline__ size_t cache_row(const int* __restrict__ tab,
 // bytes of one head's D elements in a cache row of kind KIND
 template <int KIND, int D>
 struct Row {
-    static constexpr int BYTES = KIND == BF16_ROWS ? 2 * D
+    static constexpr int BYTES = KIND == F32_ROWS ? 4 * D
+                                 : KIND == BF16_ROWS ? 2 * D
                                  : KIND == Q4_SCORE ? D / 2 : D;
 };
 
 // elements [8c, 8c + 8) of one head's row, as the score dot takes them:
-// bf16 values, bf16(int8 * scale) (K6), or the integer values (K9, K10)
+// bf16 or f32 values, bf16(int8 * scale) (K6), or the integer values (K9,
+// K10)
 template <int KIND, int D>
 __device__ __forceinline__ void load8(const uint8_t* __restrict__ head,
                                       int c, float s, float kf[8]) {
-    if (KIND == BF16_ROWS) {
+    if (KIND == F32_ROWS) {
+        const float4* h4 = reinterpret_cast<const float4*>(head);
+        const float4 a = h4[2 * c], b = h4[2 * c + 1];
+        kf[0] = a.x; kf[1] = a.y; kf[2] = a.z; kf[3] = a.w;
+        kf[4] = b.x; kf[5] = b.y; kf[6] = b.z; kf[7] = b.w;
+    } else if (KIND == BF16_ROWS) {
         const uint4 kv = reinterpret_cast<const uint4*>(head)[c];
         const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&kv);
 #pragma unroll
@@ -109,6 +134,7 @@ __device__ __forceinline__ void load8(const uint8_t* __restrict__ head,
 template <int KIND, int D>
 __device__ __forceinline__ float load1(const uint8_t* __restrict__ head,
                                        int d, float s) {
+    if (KIND == F32_ROWS) return reinterpret_cast<const float*>(head)[d];
     if (KIND == BF16_ROWS)
         return bf2f(reinterpret_cast<const __nv_bfloat16*>(head)[d]);
     if (KIND == Q4_SCORE) {
@@ -128,14 +154,15 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ vsc,
                           const int* __restrict__ positions,
                           const int* __restrict__ tab,  // (B, MP) or null
+                          const int* __restrict__ li,   // K17c's layer or null
                           int MP, int P, int NP,
                           float* __restrict__ part_acc,  // (B*Hkv, NS, G, D)
                           float* __restrict__ part_ml,   // (B*Hkv, NS, G, 2)
                           int S, int Hkv, int G, int rows_per_split,
-                          float scale, float softcap) {
+                          int inclusive, float scale, float softcap) {
     constexpr int DPL = D / 32;  // output columns per lane
     constexpr int HB = Row<KIND, D>::BYTES;
-    constexpr bool SCALED = KIND != BF16_ROWS;
+    constexpr bool SCALED = QUANT_KIND(KIND);
     constexpr bool SCORE_SIDE = KIND == Q8_SCORE || KIND == Q4_SCORE;
     __shared__ float q_s[MAXGD];
     __shared__ float p_s[NW][32][MAXG];
@@ -144,10 +171,12 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
 
     const int bk = blockIdx.x, split = blockIdx.y, NS = gridDim.y;
     const int b = bk / Hkv, kvh = bk % Hkv;
+    const int cb = (li ? li[0] * (int)(gridDim.x / Hkv) : 0) + b;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const size_t row_bytes = (size_t)Hkv * HB;
     const int pos = positions[b];
-    const int n_hist = pos < 0 ? S : min(pos, S);
+    // history rows < pos (K16: <= pos); pos < 0 reads every row
+    const int n_hist = pos < 0 ? S : min(pos + inclusive, S);
     const int r_begin = split * rows_per_split;
     const int r_end = min(r_begin + rows_per_split, n_hist);
 
@@ -175,7 +204,7 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
         for (int g = 0; g < MAXG; ++g) sc[g] = 0.f;
         float ks = 1.f, vs = 0.f;
         if (valid) {
-            const size_t cr = cache_row(tab, b, row, S, MP, P, NP);
+            const size_t cr = cache_row(tab, b, cb, row, S, MP, P, NP);
             if (SCALED) {
                 ks = bf2f(ksc[cr * Hkv + kvh]);
                 vs = bf2f(vsc[cr * Hkv + kvh]);
@@ -219,7 +248,7 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
                 for (int i = 0; i < DPL; ++i) acc[g][i] *= alpha[g];
         for (int rr = 0; rr < nrows; ++rr) {
-            const size_t cr = cache_row(tab, b, r0 + rr, S, MP, P, NP);
+            const size_t cr = cache_row(tab, b, cb, r0 + rr, S, MP, P, NP);
             const float rvs = KIND == Q8_VALUE ? bf2f(vsc[cr * Hkv + kvh]) : 1.f;
             const uint8_t* vr = vbase + cr * row_bytes;
             float v[DPL];
@@ -267,7 +296,8 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // quantize this step's row (quantized kinds), merge the NSPLIT slices, fold
-// in the self term, write out and the cache row
+// in the self term, write out and the cache row; K16 (knew null) merges
+// the slices alone and writes no row
 template <int KIND>
 __global__ void flash_decode_merge_kernel(
         const __nv_bfloat16* __restrict__ q,
@@ -276,7 +306,7 @@ __global__ void flash_decode_merge_kernel(
         uint8_t* __restrict__ kc, uint8_t* __restrict__ vc,
         __nv_bfloat16* __restrict__ ksc, __nv_bfloat16* __restrict__ vsc,
         const int* __restrict__ positions, const int* __restrict__ tab,
-        int MP, int P, int NP,
+        const int* __restrict__ li, int MP, int P, int NP,
         const float* __restrict__ part_acc, const float* __restrict__ part_ml,
         float* __restrict__ out, int S, int Hkv, int G, int D, int NS,
         float scale, float softcap) {
@@ -288,6 +318,24 @@ __global__ void flash_decode_merge_kernel(
     const int bk = blockIdx.x, b = bk / Hkv, kvh = bk % Hkv;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int nwarps = blockDim.x >> 5;
+    const bool self = knew != nullptr;
+    if (!self) {  // K16: the slices' merge is the output
+        for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
+            const int g = i / D;
+            float mm = -1e30f;
+            for (int sp = 0; sp < NS; ++sp)
+                mm = fmaxf(mm, part_ml[(((size_t)bk * NS + sp) * G + g) * 2]);
+            float ll = 0.f, a = 0.f;
+            for (int sp = 0; sp < NS; ++sp) {
+                const size_t part = (size_t)bk * NS + sp;
+                const float f = expf(part_ml[(part * G + g) * 2] - mm);
+                ll += part_ml[(part * G + g) * 2 + 1] * f;
+                a += part_acc[part * G * D + i] * f;
+            }
+            out[((size_t)b * Hkv * G + (size_t)kvh * G) * D + i] = a / ll;
+        }
+        return;
+    }
     const __nv_bfloat16* kn = knew + ((size_t)b * Hkv + kvh) * D;
     const __nv_bfloat16* vn = vnew + ((size_t)b * Hkv + kvh) * D;
     const __nv_bfloat16* qh = q + ((size_t)b * Hkv * G + (size_t)kvh * G) * D;
@@ -296,7 +344,7 @@ __global__ void flash_decode_merge_kernel(
         new_s[1][d] = bf2f(vn[d]);
     }
     __syncthreads();
-    if (KIND != BF16_ROWS) {
+    if (QUANT_KIND(KIND)) {
         if (warp < 2) {  // warp 0: k's amax, warp 1: v's
             float a = 0.f;
             for (int d = lane; d < D; d += 32) a = fmaxf(a, fabsf(new_s[warp][d]));
@@ -345,7 +393,17 @@ __global__ void flash_decode_merge_kernel(
     }
     const int pos = positions[b];
     if (pos < 0 || pos >= S) return;
-    const size_t r = cache_row(tab, b, pos, S, MP, P, NP);
+    const int cb = (li ? li[0] * (int)(gridDim.x / Hkv) : 0) + b;
+    const size_t r = cache_row(tab, b, cb, pos, S, MP, P, NP);
+    if (KIND == F32_ROWS) {  // the bf16 row, widened
+        float* kr = reinterpret_cast<float*>(kc) + r * Hkv * D;
+        float* vr = reinterpret_cast<float*>(vc) + r * Hkv * D;
+        for (int d = threadIdx.x; d < D; d += blockDim.x) {
+            kr[(size_t)kvh * D + d] = bf2f(kn[d]);
+            vr[(size_t)kvh * D + d] = bf2f(vn[d]);
+        }
+        return;
+    }
     if (KIND == BF16_ROWS) {
         __nv_bfloat16* kr = reinterpret_cast<__nv_bfloat16*>(kc) + r * Hkv * D;
         __nv_bfloat16* vr = reinterpret_cast<__nv_bfloat16*>(vc) + r * Hkv * D;
@@ -378,17 +436,18 @@ __global__ void flash_decode_merge_kernel(
 template <int KIND>
 static cudaError_t launch_kind(
         const void* q, const void* knew, const void* vnew, void* kc, void* vc,
-        void* ksc, void* vsc, const void* positions, const int* tab, int MP,
-        int P, int NP, void* out, void* part_acc, void* part_ml, int B, int S,
-        int H, int Hkv, int D, int nsplit, int rows_per_split, float scale,
-        float softcap, cudaStream_t st) {
+        void* ksc, void* vsc, const void* positions, const int* tab,
+        const int* li, int MP, int P, int NP, void* out, void* part_acc,
+        void* part_ml, int B, int S, int H, int Hkv, int D, int nsplit,
+        int rows_per_split, float scale, float softcap, cudaStream_t st) {
     const int G = H / Hkv;
+    const int inclusive = knew == nullptr;  // K16 attends row pos itself
     dim3 grid(B * Hkv, nsplit);
 #define FD_ARGS (const __nv_bfloat16*)q, (const uint8_t*)kc, \
         (const uint8_t*)vc, (const __nv_bfloat16*)ksc, \
-        (const __nv_bfloat16*)vsc, (const int*)positions, tab, MP, P, NP, \
-        (float*)part_acc, (float*)part_ml, S, Hkv, G, rows_per_split, scale, \
-        softcap
+        (const __nv_bfloat16*)vsc, (const int*)positions, tab, li, MP, P, \
+        NP, (float*)part_acc, (float*)part_ml, S, Hkv, G, rows_per_split, \
+        inclusive, scale, softcap
     if (D == 64)
         flash_decode_split_kernel<KIND, 64><<<grid, NW * 32, 0, st>>>(FD_ARGS);
     else
@@ -400,7 +459,7 @@ static cudaError_t launch_kind(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)knew,
         (const __nv_bfloat16*)vnew, (uint8_t*)kc, (uint8_t*)vc,
         (__nv_bfloat16*)ksc, (__nv_bfloat16*)vsc, (const int*)positions, tab,
-        MP, P, NP, (const float*)part_acc, (const float*)part_ml,
+        li, MP, P, NP, (const float*)part_acc, (const float*)part_ml,
         (float*)out, S, Hkv, G, D, nsplit, scale, softcap);
     return cudaGetLastError();
 }
@@ -408,38 +467,58 @@ static cudaError_t launch_kind(
 static cudaError_t launch_flash_decode(
         int kind, const void* q, const void* knew, const void* vnew, void* kc,
         void* vc, void* ksc, void* vsc, const void* positions, const int* tab,
-        int MP, int P, int NP, void* out, void* part_acc, void* part_ml,
-        int B, int S, int H, int Hkv, int D, int nsplit, int rows_per_split,
-        float scale, float softcap, cudaStream_t st) {
+        const int* li, int MP, int P, int NP, void* out, void* part_acc,
+        void* part_ml, int B, int S, int H, int Hkv, int D, int nsplit,
+        int rows_per_split, float scale, float softcap, cudaStream_t st) {
     const int G = H / Hkv;
     if (G > MAXG || G * D > MAXGD || (D != 64 && D != 128))
         return cudaErrorInvalidValue;
 #define FD_CALL(K) launch_kind<K>(q, knew, vnew, kc, vc, ksc, vsc, positions, \
-        tab, MP, P, NP, out, part_acc, part_ml, B, S, H, Hkv, D, nsplit, \
+        tab, li, MP, P, NP, out, part_acc, part_ml, B, S, H, Hkv, D, nsplit, \
         rows_per_split, scale, softcap, st)
     switch (kind) {
         case BF16_ROWS: return FD_CALL(BF16_ROWS);
         case Q8_VALUE: return FD_CALL(Q8_VALUE);
         case Q8_SCORE: return FD_CALL(Q8_SCORE);
         case Q4_SCORE: return FD_CALL(Q4_SCORE);
+        case F32_ROWS: return FD_CALL(F32_ROWS);
     }
 #undef FD_CALL
     return cudaErrorInvalidValue;
 }
 
-// K5. q (B, H, D), knew/vnew (B, Hkv, D), kc/vc (B, S, Hkv*D) all bf16;
-// positions (B,) int32; out (B, H, D) f32; part_acc (B*Hkv, nsplit, G*D),
-// part_ml (B*Hkv, nsplit, G, 2) f32 scratch.
-KCPP_API int k5_flash_decode(const void* q, const void* knew, const void* vnew,
-                             void* kc, void* vc, const void* positions,
+// K5 (li null) and K17c. q (B, H, D), knew/vnew (B, Hkv, D) bf16; kc/vc
+// (N, S, Hkv*D) bf16 (kind 0) or f32 (kind 4), N = B, or L * B for K17c,
+// whose sequence b is row li[0] * B + b; positions (B,) int32; out (B, H,
+// D) f32; part_acc (B*Hkv, nsplit, G*D), part_ml (B*Hkv, nsplit, G, 2) f32
+// scratch.
+KCPP_API int k5_flash_decode(int kind, const void* q, const void* knew,
+                             const void* vnew, void* kc, void* vc,
+                             const void* positions, const void* li,
                              void* out, void* part_acc, void* part_ml, int B,
                              int S, int H, int Hkv, int D, int nsplit,
                              int rows_per_split, float scale, float softcap,
                              void* stream) {
+    if (kind != BF16_ROWS && kind != F32_ROWS)
+        return (int)cudaErrorInvalidValue;
     return (int)launch_flash_decode(
-        BF16_ROWS, q, knew, vnew, kc, vc, nullptr, nullptr, positions, nullptr, 0,
-        1, 1, out, part_acc, part_ml, B, S, H, Hkv, D, nsplit,
-        rows_per_split, scale, softcap, (cudaStream_t)stream);
+        kind, q, knew, vnew, kc, vc, nullptr, nullptr, positions, nullptr,
+        (const int*)li, 0, 1, 1, out, part_acc, part_ml, B, S, H, Hkv, D,
+        nsplit, rows_per_split, scale, softcap, (cudaStream_t)stream);
+}
+
+// K16. q (H, D) bf16, kc/vc (S, Hkv*D) bf16, pos (1,) int32; out (H, D)
+// f32 over the rows <= pos (all S when pos >= S); nothing is written.
+KCPP_API int k16_flash_decode(const void* q, const void* kc, const void* vc,
+                              const void* pos, void* out, void* part_acc,
+                              void* part_ml, int S, int H, int Hkv, int D,
+                              int nsplit, int rows_per_split, float scale,
+                              float softcap, void* stream) {
+    return (int)launch_flash_decode(
+        BF16_ROWS, q, nullptr, nullptr, (void*)kc, (void*)vc, nullptr,
+        nullptr, pos, nullptr, nullptr, 0, 1, 1, out, part_acc, part_ml, 1,
+        S, H, Hkv, D, nsplit, rows_per_split, scale, softcap,
+        (cudaStream_t)stream);
 }
 
 // K6. As K5, with kc/vc (B, S, Hkv*D) int8 and ksc/vsc (B, S, Hkv) bf16.
@@ -451,9 +530,9 @@ KCPP_API int k6_flash_decode_q8(const void* q, const void* knew,
                                 int nsplit, int rows_per_split, float scale,
                                 float softcap, void* stream) {
     return (int)launch_flash_decode(
-        Q8_VALUE, q, knew, vnew, kc, vc, ksc, vsc, positions, nullptr, 0, 1,
-        1, out, part_acc, part_ml, B, S, H, Hkv, D, nsplit, rows_per_split,
-        scale, softcap, (cudaStream_t)stream);
+        Q8_VALUE, q, knew, vnew, kc, vc, ksc, vsc, positions, nullptr,
+        nullptr, 0, 1, 1, out, part_acc, part_ml, B, S, H, Hkv, D, nsplit,
+        rows_per_split, scale, softcap, (cudaStream_t)stream);
 }
 
 // K8 (kind 0), K9 (kind 2), K10 (kind 3). As K5, with kc/vc the
@@ -471,7 +550,7 @@ KCPP_API int k8_flash_decode_paged(int kind, const void* q, const void* knew,
     if (kind != BF16_ROWS && kind != Q8_SCORE && kind != Q4_SCORE)
         return (int)cudaErrorInvalidValue;
     return (int)launch_flash_decode(
-        kind, q, knew, vnew, kc, vc, ksc, vsc, positions, (const int*)tab, MP,
-        P, NP, out, part_acc, part_ml, B, MP * P, H, Hkv, D, nsplit,
-        rows_per_split, scale, softcap, (cudaStream_t)stream);
+        kind, q, knew, vnew, kc, vc, ksc, vsc, positions, (const int*)tab,
+        nullptr, MP, P, NP, out, part_acc, part_ml, B, MP * P, H, Hkv, D,
+        nsplit, rows_per_split, scale, softcap, (cudaStream_t)stream);
 }

@@ -27,7 +27,11 @@
 // planes, reading 16 bytes of qs (and 16 of hmask / sg); each 16-column run
 // lies in one group (G = 16, 32) or two (G = 8). The iq1p min term is a
 // separate lane-strided sum over the groups.
-// Launch counters: ops/_build.launches["K12.iq2p"], ["K12.iq3px"],
+// K17b.<kind> (li set: layer li of layer-stacked fields, the scan decode
+// path) replaces `_packed_matvec_stacked` for the IQ kinds: the same
+// bodies with the weight pointers moved to layer li (Stacked, common.cuh).
+// Launch counters: ops/_build.launches["K17b.<kind>"] (stacked),
+// ["K12.iq2p"], ["K12.iq3px"],
 // ["K12.iq3ps"], ["K12.iq1p"].
 #include "common.cuh"
 
@@ -44,7 +48,13 @@ iq_matvec_kernel(const uint8_t* __restrict__ qs,
                  const int8_t* __restrict__ xq,
                  const float* __restrict__ sx,
                  const __nv_bfloat16* __restrict__ xsum,
-                 __nv_bfloat16* __restrict__ y, int out_f, int in_f) {
+                 __nv_bfloat16* __restrict__ y, int out_f, int in_f,
+                 Stacked stk) {
+    qs = stk.at(qs, 0);
+    hmask = stk.at(hmask, 1);
+    sg = stk.at(sg, 2);
+    scale = stk.at(scale, 3);
+    mn = stk.at(mn, 4);
     constexpr bool HI = KIND == 1 || KIND == 2, SIGN = KIND != 3;
     const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
     const int lane = threadIdx.x & 31;
@@ -145,8 +155,9 @@ static void launch_kind(dim3 grid, dim3 block, cudaStream_t st, int group,
                         const uint8_t* sg, const __nv_bfloat16* scale,
                         const __nv_bfloat16* mn, const int8_t* xq,
                         const float* sx, const __nv_bfloat16* xsum,
-                        __nv_bfloat16* y, int out_f, int in_f) {
-#define K12IQ_ARGS qs, hmask, sg, scale, mn, xq, sx, xsum, y, out_f, in_f
+                        __nv_bfloat16* y, int out_f, int in_f,
+                        Stacked stk) {
+#define K12IQ_ARGS qs, hmask, sg, scale, mn, xq, sx, xsum, y, out_f, in_f, stk
     if (group == 8)
         iq_matvec_kernel<KIND, 8><<<grid, block, 0, st>>>(K12IQ_ARGS);
     else if (group == 16)
@@ -158,12 +169,13 @@ static void launch_kind(dim3 grid, dim3 block, cudaStream_t st, int group,
 
 // kind 0 = iq2p (qs, sg), 1 = iq3px and 2 = iq3ps (qs, hmask, sg), 3 = iq1p
 // (qs, min); unused pointers may be null. group G in {8, 16, 32}; in_f %
-// 256 == 0.
+// 256 == 0. li set (K17b.<kind>): layer li[0] of stacked fields, n0..n4
+// the per-layer element counts of qs, hmask, sg, scale and min.
 KCPP_API int k12_iq_matvec(int kind, const void* qs, const void* hmask,
                            const void* sg, const void* scale, const void* mn,
                            const void* xq, const void* sx, const void* xsum,
                            void* y, int out_f, int in_f, int group,
-                           void* stream) {
+                           STACKED_PARAMS, void* stream) {
     if (kind < 0 || kind > 3 || (group != 8 && group != 16 && group != 32)
         || in_f % 256)
         return (int)cudaErrorInvalidValue;
@@ -174,7 +186,7 @@ KCPP_API int k12_iq_matvec(int kind, const void* qs, const void* hmask,
         (const uint8_t*)qs, (const uint8_t*)hmask, (const uint8_t*)sg, \
         (const __nv_bfloat16*)scale, (const __nv_bfloat16*)mn, \
         (const int8_t*)xq, (const float*)sx, (const __nv_bfloat16*)xsum, \
-        (__nv_bfloat16*)y, out_f, in_f)
+        (__nv_bfloat16*)y, out_f, in_f, STACKED_ARG)
     switch (kind) {
         case 0: K12IQ_CALL(0); break;
         case 1: K12IQ_CALL(1); break;

@@ -28,7 +28,11 @@
 // i.e. one whole 16-column group in each of the four bit planes, reading 16
 // bytes of qs (and 16 of hmask), so no cross-lane combine precedes the
 // scale products.
-// Launch counters: ops/_build.launches["K12.q2_k"], ["K12.q3_k"].
+// K17b.q2_k / .q3_k (li set: layer li of layer-stacked fields, the scan
+// decode path) replace `_packed_matvec_stacked` for these kinds: the same
+// bodies with the weight pointers moved to layer li (Stacked, common.cuh).
+// Launch counters: ops/_build.launches["K12.q2_k"], ["K12.q3_k"],
+// ["K17b.q2_k"], ["K17b.q3_k"].
 #include "common.cuh"
 
 constexpr int ROWS_PER_BLOCK = 8;  // one warp per row
@@ -43,7 +47,12 @@ q23k_matvec_kernel(const uint8_t* __restrict__ qs,
                    const int8_t* __restrict__ xq,
                    const float* __restrict__ sx,
                    const __nv_bfloat16* __restrict__ xsum,
-                   __nv_bfloat16* __restrict__ y, int out_f, int in_f) {
+                   __nv_bfloat16* __restrict__ y, int out_f, int in_f,
+                   Stacked stk) {
+    qs = stk.at(qs, 0);
+    hmask = stk.at(hmask, 1);
+    scale = stk.at(scale, 2);
+    mn = stk.at(mn, 3);
     const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
     const int lane = threadIdx.x & 31;
     if (row >= out_f) return;
@@ -114,19 +123,22 @@ KCPP_API int k12_q23k_prep(const void* x, void* xq, void* sx, void* xsum,
 }
 
 // q3 = 0: q2_k (qs, scale, min; hmask unused); q3 = 1: q3_k (qs, hmask,
-// scale; min unused). in_f % 256 == 0.
+// scale; min unused). in_f % 256 == 0. li set (K17b.q2_k / .q3_k): layer
+// li[0] of stacked fields, n0..n3 the per-layer element counts of qs,
+// hmask, scale and min.
 KCPP_API int k12_q23k_matvec(int q3, const void* qs, const void* hmask,
                              const void* scale, const void* mn,
                              const void* x, const void* xq, const void* sx,
                              const void* xsum, void* y, int out_f, int in_f,
-                             int i8, void* stream) {
+                             int i8, STACKED_PARAMS, void* stream) {
     dim3 grid((out_f + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK);
     dim3 block(ROWS_PER_BLOCK * 32);
     cudaStream_t st = (cudaStream_t)stream;
 #define K12_ARGS (const uint8_t*)qs, (const uint8_t*)hmask, \
         (const __nv_bfloat16*)scale, (const __nv_bfloat16*)mn, \
         (const __nv_bfloat16*)x, (const int8_t*)xq, (const float*)sx, \
-        (const __nv_bfloat16*)xsum, (__nv_bfloat16*)y, out_f, in_f
+        (const __nv_bfloat16*)xsum, (__nv_bfloat16*)y, out_f, in_f, \
+        STACKED_ARG
     if (q3) {
         if (i8)
             q23k_matvec_kernel<true, true><<<grid, block, 0, st>>>(K12_ARGS);

@@ -31,8 +31,14 @@
 // through the same operations in the same order at every T: row t of K7
 // equals K1 on x[t] bit for bit, and a request served in a batch gets the
 // tokens it gets alone.
+// K17a (T=1 over layer li of layer-stacked fields, the scan decode path)
+// replaces `_packed_matvec_q4k_stacked`, which runs the same bodies through
+// `_stacked_kernel` / `_SqView`: it is K1 with every weight pointer moved
+// to layer li, read by each block from device memory (Stacked,
+// common.cuh), so it gives K1's result on that layer bit for bit.
 // Launch counters: ops/_build.launches["K1"] and ["K7"] (q4_k),
-// ["K1.q5_k"] and ["K7.q5_k"] (q5_k), one per matvec.
+// ["K1.q5_k"] and ["K7.q5_k"] (q5_k), ["K17a"] and ["K17a.q5_k"]
+// (stacked), one per matvec.
 #include "common.cuh"
 
 constexpr int ROWS_PER_BLOCK = 8;  // one warp per row
@@ -48,7 +54,11 @@ q4k_matvec_kernel(const uint8_t* __restrict__ qs2,
                   const float* __restrict__ sx,            // (T, in_f/32)
                   const __nv_bfloat16* __restrict__ xsum,  // (T, in_f/32)
                   __nv_bfloat16* __restrict__ y,           // (T, out_f)
-                  int out_f, int in_f) {
+                  int out_f, int in_f, Stacked stk) {
+    qs2 = stk.at(qs2, 0);
+    qh = stk.at(qh, 1);
+    scale = stk.at(scale, 2);
+    mn = stk.at(mn, 3);
     const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
     const int lane = threadIdx.x & 31;
     if (row >= out_f) return;  // whole warps exit together
@@ -153,14 +163,15 @@ static cudaError_t launch_matvec(int T, const void* qs2, const void* qh,
                                  const void* scale,
                                  const void* mn, const void* x, const void* xq,
                                  const void* sx, const void* xsum, void* y,
-                                 int out_f, int in_f, cudaStream_t st) {
+                                 int out_f, int in_f, Stacked stk,
+                                 cudaStream_t st) {
     dim3 grid((out_f + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK);
     dim3 block(ROWS_PER_BLOCK * 32);
 #define KQ_ARGS (const uint8_t*)qs2, (const uint8_t*)qh, \
         (const __nv_bfloat16*)scale, \
         (const __nv_bfloat16*)mn, (const __nv_bfloat16*)x, (const int8_t*)xq, \
         (const float*)sx, (const __nv_bfloat16*)xsum, (__nv_bfloat16*)y, \
-        out_f, in_f
+        out_f, in_f, stk
     switch (T) {
         case 1: q4k_matvec_kernel<I8, 1, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
         case 2: q4k_matvec_kernel<I8, 2, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
@@ -184,15 +195,18 @@ KCPP_API int k1_q4k_prep(const void* x, void* xq, void* sx, void* xsum,
                                     (cudaStream_t)stream);
 }
 
-// K1 (T == 1) and K7 (2 <= T <= 8): the same kernel template; qh is the
-// q5_k bit plane, or null for q4_k
+// K1 (T == 1), K7 (2 <= T <= 8) and K17a (T == 1, li set: layer li[0] of
+// stacked fields, n0..n3 the per-layer element counts of qs2, qh, scale
+// and min): the same kernel template; qh is the q5_k bit plane, or null
+// for q4_k
 KCPP_API int k7_q4k_matvec_t(const void* qs2, const void* qh,
                              const void* scale, const void* mn,
                              const void* x, const void* xq, const void* sx,
                              const void* xsum, void* y, int T, int out_f,
-                             int in_f, int i8, void* stream) {
+                             int in_f, int i8, STACKED_PARAMS, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-#define MV_ARGS T, qs2, qh, scale, mn, x, xq, sx, xsum, y, out_f, in_f, st
+    const Stacked stk = STACKED_ARG;
+#define MV_ARGS T, qs2, qh, scale, mn, x, xq, sx, xsum, y, out_f, in_f, stk, st
     cudaError_t err;
     if (qh)
         err = i8 ? launch_matvec<true, true>(MV_ARGS)

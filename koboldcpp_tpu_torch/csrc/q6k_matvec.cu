@@ -16,7 +16,11 @@
 // of l in one half of a superblock, i.e. one whole 16-column group in each
 // of the four bit planes, reading 16 bytes of each ql plane pair and 16
 // bytes of qh, so no cross-lane combine precedes the scale products.
-// Launch counter: ops/_build.launches["K2"] (one per matvec).
+// K17b (li set: layer li of layer-stacked fields, the scan decode path)
+// replaces `_packed_matvec_stacked` for q6_k: the same body with the
+// weight pointers moved to layer li (Stacked, common.cuh).
+// Launch counters: ops/_build.launches["K2"], ["K17b"] (stacked), one per
+// matvec.
 #include "common.cuh"
 
 constexpr int ROWS_PER_BLOCK = 8;  // one warp per row
@@ -30,7 +34,11 @@ q6k_matvec_kernel(const uint8_t* __restrict__ ql,
                   const int8_t* __restrict__ xq,
                   const float* __restrict__ sx,
                   const __nv_bfloat16* __restrict__ xsum,
-                  __nv_bfloat16* __restrict__ y, int out_f, int in_f) {
+                  __nv_bfloat16* __restrict__ y, int out_f, int in_f,
+                  Stacked stk) {
+    ql = stk.at(ql, 0);
+    qh = stk.at(qh, 1);
+    scale = stk.at(scale, 2);
     const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
     const int lane = threadIdx.x & 31;
     if (row >= out_f) return;
@@ -98,17 +106,19 @@ KCPP_API int k2_q6k_prep(const void* x, void* xq, void* sx, void* xsum,
                                     (cudaStream_t)stream);
 }
 
+// K2, and K17b (li set: layer li[0] of stacked fields, n0..n2 the
+// per-layer element counts of ql, qh and scale)
 KCPP_API int k2_q6k_matvec(const void* ql, const void* qh, const void* scale,
                            const void* x, const void* xq, const void* sx,
                            const void* xsum, void* y, int out_f, int in_f,
-                           int i8, void* stream) {
+                           int i8, STACKED_PARAMS, void* stream) {
     dim3 grid((out_f + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK);
     dim3 block(ROWS_PER_BLOCK * 32);
     cudaStream_t st = (cudaStream_t)stream;
 #define K2_ARGS (const uint8_t*)ql, (const uint8_t*)qh, \
         (const __nv_bfloat16*)scale, (const __nv_bfloat16*)x, \
         (const int8_t*)xq, (const float*)sx, (const __nv_bfloat16*)xsum, \
-        (__nv_bfloat16*)y, out_f, in_f
+        (__nv_bfloat16*)y, out_f, in_f, STACKED_ARG
     if (i8)
         q6k_matvec_kernel<true><<<grid, block, 0, st>>>(K2_ARGS);
     else

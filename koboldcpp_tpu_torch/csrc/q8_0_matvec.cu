@@ -24,8 +24,12 @@
 // reads its 32 weight bytes as two 16-byte loads (the bf16 body also its 64
 // bytes of x as four), so a warp streams 1 KiB of the row per step and no
 // cross-lane combine precedes the scale products.
+// K17b.q8_0 (li set: layer li of layer-stacked fields, the scan decode
+// path) replaces `_packed_matvec_stacked` for q8_0: the same bodies with
+// the weight pointers moved to layer li (Stacked, common.cuh).
 // Launch counters: ops/_build.launches["K2.q8_0"] (int8),
-// ["K2.q8_0_bf16"] (bf16), one per matvec.
+// ["K2.q8_0_bf16"] (bf16), ["K17b.q8_0"] / ["K17b.q8_0_bf16"] (stacked),
+// one per matvec.
 #include "common.cuh"
 
 constexpr int ROWS_PER_BLOCK = 8;  // one warp per row
@@ -44,7 +48,10 @@ q8_0_matvec_kernel(const int8_t* __restrict__ q,
                    const __nv_bfloat16* __restrict__ x,
                    const int8_t* __restrict__ xq,
                    const float* __restrict__ sx,
-                   __nv_bfloat16* __restrict__ y, int out_f, int in_f) {
+                   __nv_bfloat16* __restrict__ y, int out_f, int in_f,
+                   Stacked stk) {
+    q = stk.at(q, 0);
+    scale = stk.at(scale, 1);
     const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
     const int lane = threadIdx.x & 31;
     if (row >= out_f) return;  // whole warps exit together
@@ -96,16 +103,18 @@ KCPP_API int k2_q8_0_prep(const void* x, void* xq, void* sx, void* xsum,
 }
 
 // i8 = 1: xq / sx from k2_q8_0_prep (x unused); i8 = 0: bf16 x (xq / sx
-// unused). in_f % 32 == 0.
+// unused). in_f % 32 == 0. li set (K17b.q8_0): layer li[0] of stacked
+// fields, n0 / n1 the per-layer element counts of q and scale.
 KCPP_API int k2_q8_0_matvec(const void* q, const void* scale, const void* x,
                             const void* xq, const void* sx, void* y,
-                            int out_f, int in_f, int i8, void* stream) {
+                            int out_f, int in_f, int i8, STACKED_PARAMS,
+                            void* stream) {
     dim3 grid((out_f + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK);
     dim3 block(ROWS_PER_BLOCK * 32);
     cudaStream_t st = (cudaStream_t)stream;
 #define K2_ARGS (const int8_t*)q, (const __nv_bfloat16*)scale, \
         (const __nv_bfloat16*)x, (const int8_t*)xq, (const float*)sx, \
-        (__nv_bfloat16*)y, out_f, in_f
+        (__nv_bfloat16*)y, out_f, in_f, STACKED_ARG
     if (i8)
         q8_0_matvec_kernel<true><<<grid, block, 0, st>>>(K2_ARGS);
     else

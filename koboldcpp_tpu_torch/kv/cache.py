@@ -5,7 +5,11 @@ JAX package's KVCache / QuantKVCache with `heads` set, which the
 flash-decode kernels read and write directly: bf16 (K5), or quantized
 (`--quantkv`): Q8 int8 values with one bf16 scale per (slot, head) (K6), or
 Q4 packed nibbles with the same scales (no kernel: `read` dequantizes, as
-the JAX XLA path does). Unlike the JAX caches, these are updated IN PLACE:
+the JAX XLA path does). The scan decode path's pooled layout
+(`init_pool_cache`) holds every layer in one (L*B, S, H_kv*D) tensor per
+side, row l*B + b for layer l and sequence b, which K17c reads and writes
+a layer's window of; `unpool_cache` gives the per-layer layout as views of
+it. Unlike the JAX caches, these are updated IN PLACE:
 `write` scatters into the existing tensors and returns the same cache
 object. Quantized bytes and scales equal the JAX functions' bit for bit.
 """
@@ -18,12 +22,16 @@ import torch
 
 @dataclass
 class KVCache:
-    k: list  # L x (B, S, H_kv*D)
-    v: list
+    # L x (B, S, H_kv*D); or pooled, one (L*B, S, H_kv*D) tensor; or
+    # stacked (`stack_cache`), one (L, B, S, H_kv, D) tensor
+    k: list | torch.Tensor
+    v: list | torch.Tensor
     heads: int  # n_kv_heads
 
     @property
     def max_seq(self) -> int:
+        if isinstance(self.k, torch.Tensor):  # pooled (3-D) or stacked (5-D)
+            return self.k.shape[1 if self.k.dim() == 3 else 2]
         return self.k[0].shape[1]
 
 
@@ -68,6 +76,62 @@ def init_cache(n_layers: int, batch: int, max_seq: int, n_kv_heads: int,
     shape = (batch, max_seq, kd)
     return KVCache(k=zeros(shape, dtype), v=zeros(shape, dtype),
                    heads=n_kv_heads)
+
+
+def init_pool_cache(n_layers: int, batch: int, max_seq: int, n_kv_heads: int,
+                    head_dim: int, dtype=torch.bfloat16,
+                    device="cpu") -> KVCache:
+    """The scan decode path's pooled layout: every layer's cache in one
+    (L*B, S, H_kv*D) tensor per side, row l*B + b for layer l and sequence
+    b (the JAX `init_pool_cache`)."""
+    shape = (n_layers * batch, max_seq, n_kv_heads * head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   heads=n_kv_heads)
+
+
+def is_pooled(cache) -> bool:
+    return (isinstance(cache, KVCache) and isinstance(cache.k, torch.Tensor)
+            and cache.k.dim() == 3)
+
+
+def stack_cache(cache: KVCache) -> KVCache:
+    """Per-layer cache -> stacked (L, B, S, H, D) tensors (a copy); a
+    stacked or pooled cache is returned as it is."""
+    if isinstance(cache.k, torch.Tensor):
+        return cache
+    def st(ts):
+        return torch.stack([t.view(*t.shape[:2], cache.heads, -1)
+                            for t in ts])
+    return KVCache(k=st(cache.k), v=st(cache.v), heads=cache.heads)
+
+
+def unstack_cache(cache: KVCache) -> KVCache:
+    """Stacked (L, B, S, H, D) cache -> per-layer fused (B, S, H*D) views."""
+    if not isinstance(cache.k, torch.Tensor) or is_pooled(cache):
+        return cache
+    return KVCache(k=[t.flatten(2) for t in cache.k],
+                   v=[t.flatten(2) for t in cache.v], heads=cache.heads)
+
+
+def pool_cache(cache: KVCache) -> KVCache:
+    """Per-layer (or stacked) cache -> the pooled layout (one copy)."""
+    if is_pooled(cache):
+        return cache
+    st = stack_cache(cache)
+    L, B, S, H, D = st.k.shape
+    return KVCache(k=st.k.reshape(L * B, S, H * D),
+                   v=st.v.reshape(L * B, S, H * D), heads=H)
+
+
+def unpool_cache(cache: KVCache, n_layers: int) -> KVCache:
+    """Pooled layout -> per-layer fused (B, S, H*D) caches that are views of
+    the pool's rows [l*B, (l+1)*B): writes through them land in the pool,
+    and each view is contiguous, as the T=1 kernels require."""
+    B = cache.k.shape[0] // n_layers
+    return KVCache(k=[cache.k[l * B:(l + 1) * B] for l in range(n_layers)],
+                   v=[cache.v[l * B:(l + 1) * B] for l in range(n_layers)],
+                   heads=cache.heads)
 
 
 def rows(cache, i: int):

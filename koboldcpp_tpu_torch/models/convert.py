@@ -22,10 +22,14 @@ q4_k_i8 keeps q / scale / min; q6_k_i8f its int8 q and scale, and q6_k's
 ql / qh where the JAX pack carries them; q3_k_n4 / q2_k_n4 re-pair their
 row-half nibbles `q` into the port's `n4` and keep scale (and min), with
 q3_k's / q2_k's fields converted as above where the JAX pack carries them
-(`qs2`). Every TPU sidecar field is dropped.
+(`qs2`). Every TPU sidecar field is dropped. A JAX `stack_layers` tree's
+"layers_stacked" (each field with a leading layer axis) converts layer by
+layer under the same rules and stacks back field by field, so it equals
+the port's `stack_layers` of the converted per-layer tree.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Any
 
 import numpy as np
@@ -129,12 +133,27 @@ def _qtensor(v: Any, device) -> QTensor:
     return QTensor(kind=kind, shape=tuple(v.shape), data=data)
 
 
+def _stacked_qtensor(v: Any, device) -> QTensor:
+    """A layer-stacked JAX QTensor, converted layer by layer and stacked."""
+    n_layers = len(next(iter(v.data.values())))
+    layers = [_qtensor(SimpleNamespace(
+        kind=v.kind, shape=v.shape,
+        data={n: np.asarray(a)[li] for n, a in v.data.items()}), device)
+        for li in range(n_layers)]
+    return QTensor(kind=v.kind, shape=tuple(v.shape),
+                   data={n: torch.stack([q.data[n] for q in layers])
+                         for n in layers[0].data})
+
+
 def params_from_jax(np_params: Any, device="cpu") -> Any:
     """Convert a (numpy-leaved) JAX params tree to the port's params."""
     if hasattr(np_params, "kind") and hasattr(np_params, "data"):
         return _qtensor(np_params, device)
     if isinstance(np_params, dict):
-        return {k: params_from_jax(v, device) for k, v in np_params.items()}
+        return {k: ({n: (_stacked_qtensor(a, device) if hasattr(a, "kind")
+                         else _tensor(a, device)) for n, a in v.items()}
+                    if k == "layers_stacked" else params_from_jax(v, device))
+                for k, v in np_params.items()}
     if isinstance(np_params, (list, tuple)):
         return [params_from_jax(v, device) for v in np_params]
     return _tensor(np_params, device)

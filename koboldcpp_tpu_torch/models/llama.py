@@ -4,7 +4,8 @@ wqkv / w_gateup projections, silu-gated FFN, attention and final-logit
 softcaps). Under KCPP_FFN_FUSED=1 a q4_k FFN of at most 8 tokens runs as
 one launch (K15, ops/ffn_fused.py), as in the JAX `_ffn`.
 
-Port of koboldcpp_tpu/models/llama.py `forward` and `forward_paged` for the
+Port of koboldcpp_tpu/models/llama.py `forward`, `forward_paged` and the
+layer-stacked scan decode path (`stack_layers`, `forward_stacked`) for the
 branches a llama / mistral / qwen2 Q4_K_M model takes. Single-token decode
 runs attention through a flash-decode kernel that also writes the new K/V
 row: K5 over the bf16 slot cache, K6 over the Q8 one, K8 / K9 / K10 over
@@ -13,8 +14,16 @@ the bf16 / Q8 / Q4 paged pool. A prefill chunk from position 0 with
 Other chunks write the cache and run the plain `attention` below over the
 whole (dequantized, or gathered) cache, which is what the JAX engine runs on
 the CPU, past position 0, and over the Q4 slot cache, which has no kernel.
-Every other branch of the JAX forward raises NotImplementedError when the
-config or params ask for it.
+`forward_stacked` runs the same layers over `stack_layers` params (each
+weight field with a leading layer axis). A single-token step over a pooled
+cache (kv/cache.py `init_pool_cache`) takes each layer's packed weights as
+`LayerRef`s through the stacked matvecs K17a (q4_k / q5_k) and K17b (q6_k,
+q8_0, q2_k, q3_k, IQ) and its attention through K17c, the pooled-row flash
+decode; every other step takes each layer's weights as views through the
+regular kernels and the plain `attention`. K16 (`flash_decode.decode_
+attention`, the read-only single-sequence decode) lies on no path of the
+JAX package, and of the port neither. Every other branch of the JAX forward
+raises NotImplementedError when the config or params ask for it.
 """
 from __future__ import annotations
 
@@ -23,7 +32,8 @@ from typing import Any
 import torch
 
 from ..kv import paged
-from ..kv.cache import QuantKVCache, read as kv_read, write as kv_write
+from ..kv.cache import (QuantKVCache, is_pooled, read as kv_read,
+                        unpool_cache, write as kv_write)
 from ..ops import flash_decode, linear
 from ..ops.ffn_fused import ffn_fused
 from ..ops.flash_prefill import flash_prefill_attention
@@ -100,7 +110,7 @@ def check_supported(params: Params, cfg: ModelConfig, device=None) -> None:
     elif not cfg.use_rope:
         why = "rope-less attention"
     else:
-        for layer in params["layers"]:
+        for layer in params.get("layers") or [params["layers_stacked"]]:
             hit = next((v for k, v in _UNSUPPORTED_LAYER_KEYS.items()
                         if k in layer), None)
             if hit:
@@ -258,9 +268,11 @@ def _causal_mask(positions: torch.Tensor, S: int) -> torch.Tensor:
 
 def _run(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
          positions: torch.Tensor, attend, last_only: bool = False,
-         last_index: torch.Tensor | None = None) -> torch.Tensor:
+         last_index: torch.Tensor | None = None,
+         layers=None) -> torch.Tensor:
     """The layer stack around `attend(li, q, k, v, scale)`, which writes
-    this chunk's K/V and returns the attention output (B, T, H, D)."""
+    this chunk's K/V and returns the attention output (B, T, H, D).
+    layers: the per-layer params (default params["layers"])."""
     B, T = tokens.shape
     dev = tokens.device
     freqs = _freqs(cfg, dev)
@@ -275,7 +287,8 @@ def _run(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     qdim = cfg.n_heads * cfg.head_dim
     kvdim = cfg.n_kv_heads * cfg.head_dim
     res_s = cfg.residual_scale or 1.0
-    for li, layer in enumerate(params["layers"]):
+    for li, layer in enumerate(params["layers"] if layers is None
+                               else layers):
         h = _norm(x, layer, "attn_norm", cfg)
         if "wqkv" in layer:  # fused projection (one kernel launch)
             qkv = linear.matmul(h, layer["wqkv"])
@@ -323,3 +336,158 @@ def _run(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     if cfg.logit_scale:
         logits = logits * cfg.logit_scale
     return _softcap(logits, cfg.final_logit_softcap)
+
+
+# ---------------------------------------------------------------------------
+# the layer-stacked scan decode path
+# ---------------------------------------------------------------------------
+
+def stack_layers(params: Params) -> Params:
+    """Stack homogeneous per-layer params field by field into leading-axis
+    tensors (the JAX `stack_layers`): the result has "layers_stacked" and
+    no "layers". Returns the input unchanged when the layers differ in
+    keys, in a QTensor's kind or shape, or in any field's shape (a Q4_K_M
+    file, whose layers mix q4_k and q6_k, does not stack)."""
+    layers = params["layers"]
+    if not layers:
+        return params
+    keys = set(layers[0])
+    if any(set(layer) != keys for layer in layers):
+        return params
+
+    def stack_field(k):
+        vals = [layer[k] for layer in layers]
+        if isinstance(vals[0], linear.QTensor):
+            if len({(v.kind, tuple(v.shape)) for v in vals}) != 1 or any(
+                    set(v.data) != set(vals[0].data) for v in vals):
+                return None
+            data = {}
+            for name in vals[0].data:
+                arrs = [v.data[name] for v in vals]
+                if len({a.shape for a in arrs}) != 1:
+                    return None
+                data[name] = torch.stack(arrs)
+            return linear.QTensor(kind=vals[0].kind, shape=vals[0].shape,
+                                  data=data)
+        if len({v.shape for v in vals}) != 1:
+            return None
+        return torch.stack(vals)
+
+    stacked = {}
+    for k in keys:
+        s = stack_field(k)
+        if s is None:
+            return params
+        stacked[k] = s
+    out = dict(params)
+    out.pop("layers")
+    out["layers_stacked"] = stacked
+    return out
+
+
+def _take_layer(stacked: Params, li: int) -> Params:
+    """Layer li of stacked params, as views (no copy)."""
+    return {k: (linear.QTensor(kind=v.kind, shape=v.shape,
+                               data={n: a[li] for n, a in v.data.items()})
+                if isinstance(v, linear.QTensor) else v[li])
+            for k, v in stacked.items()}
+
+
+def _layer_view(stacked: Params, li: int, index: torch.Tensor) -> Params:
+    """Layer li for the pooled decode step: packed QTensors become
+    LayerRefs (the stacked kernels K17a / K17b read layer `index`, a
+    one-element int32 tensor on the card, from the whole stacked fields);
+    dense weights, norms and biases are views."""
+    out = _take_layer(stacked, li)
+    for k, v in stacked.items():
+        if isinstance(v, linear.QTensor) and v.kind != "dense":
+            out[k] = linear.LayerRef(v, li, index)
+    return out
+
+
+_LAYER_IDS: dict = {}  # (n_layers, device) -> arange(n_layers) int32
+
+
+def _layer_ids(n_layers: int, device) -> torch.Tensor:
+    """The layer indices 0..L-1 as an int32 tensor on `device`, built once:
+    the stacked kernels take layer li as its one-element view [li:li+1],
+    read on the card (so a captured step could point at a device
+    counter), never as a host number."""
+    key = (n_layers, str(device))
+    ids = _LAYER_IDS.get(key)
+    if ids is None:
+        ids = _LAYER_IDS[key] = torch.arange(n_layers, dtype=torch.int32,
+                                             device=device)
+    return ids
+
+
+def check_stacked_supported(params: Params, cfg: ModelConfig, cache,
+                            device=None) -> None:
+    """`check_supported`, and NotImplementedError where the JAX
+    `forward_stacked` would compute another function than `forward`: it
+    has no fused-qkv or output bias, no residual scale and RMS norms only,
+    and its pooled path takes a bf16 KVCache, not a quantized one."""
+    check_supported(params, cfg, device)
+    stacked = params["layers_stacked"]
+    why = None
+    if isinstance(cache, QuantKVCache):
+        why = "a quantized KV cache"
+    elif "bqkv" in stacked or "bo" in stacked:
+        why = "a qkv / output projection bias (bqkv / bo)"
+    elif cfg.residual_scale and cfg.residual_scale != 1.0:
+        why = "residual_scale"
+    elif cfg.norm_type == "layer":
+        why = "layer norm"
+    if why:
+        raise NotImplementedError(f"forward_stacked does not take {why} "
+                                  "(the JAX forward_stacked drops it)")
+
+
+def forward_stacked(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                    positions: torch.Tensor, cache,
+                    last_only: bool = False):
+    """forward() over stack_layers() params (the JAX `forward_stacked`).
+    tokens, positions: (B, T) int; cache: a per-layer KVCache or a pooled
+    one (`init_pool_cache`), updated in place and returned.
+
+    A pooled cache at T == 1 (no sliding window, no ALiBi, a fused KV width
+    the flash decode takes) runs each layer on `_layer_view` weights: the
+    packed projections through K17a / K17b, attention through K17c at row
+    base li*B, which also writes the step's K/V row. Every other call runs
+    each layer on `_take_layer` views through the regular kernels (K3 / K13
+    at T > 1, K1 / K2 / K12 at T == 1), writes the cache (a pooled one
+    through `unpool_cache` views) and attends with the plain `attention`
+    over it, never K4 or K5, as the JAX scan body does. KCPP_SCAN_UNROLL,
+    the JAX scan's unroll factor, schedules XLA and does not change the
+    function; the port loops over the layers and does not read it."""
+    check_stacked_supported(params, cfg, cache, tokens.device)
+    B, T = tokens.shape
+    stacked = params["layers_stacked"]
+    L = stacked["attn_norm"].shape[0]
+    softcap = cfg.attn_logit_softcap
+    if (is_pooled(cache) and T == 1 and not cfg.sliding_window
+            and not cfg.use_alibi
+            and flash_decode.supported_batched(1, cfg.n_kv_heads,
+                                               cfg.head_dim)):
+        ids = _layer_ids(L, tokens.device)
+
+        def attend(li, q, k, v, scale):
+            out = flash_decode.decode_attention_rows(
+                q[:, 0], k[:, 0], v[:, 0], cache.k, cache.v, positions[:, 0],
+                ids[li:li + 1], cfg.n_heads, cfg.n_kv_heads, scale,
+                softcap)[0]
+            return out[:, None]
+
+        layers = (_layer_view(stacked, li, ids[li:li + 1]) for li in range(L))
+    else:
+        per_layer = unpool_cache(cache, L) if is_pooled(cache) else cache
+        mask = _causal_mask(positions, cache.max_seq)
+
+        def attend(li, q, k, v, scale):
+            kv_write(per_layer, li, positions, k, v)
+            ck, cv = kv_read(per_layer, li)
+            return attention(q, ck, cv, mask, scale, softcap)
+
+        layers = (_take_layer(stacked, li) for li in range(L))
+    return _run(params, cfg, tokens, positions, attend, last_only,
+                layers=layers), cache

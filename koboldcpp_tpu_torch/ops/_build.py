@@ -15,7 +15,11 @@ iq3px, iq3ps and iq1p; "K14" and "K14.q5_k" for the superblock batched
 matvec, "K15b" (T = 1) and "K15a" (2 <= T <= 8) for the FFN megakernel;
 "K12.q6_k_i8f", "K12.q3_k_n4", "K12.q2_k_n4", "K13.q4_k_i8" and
 "K2.q8_0_bf16" for the bodies of the opt-in layouts and KCPP_MM_I8=0;
-"K1", "K2", "K3", "K7" and "K14" count q4_k / q6_k only);
+"K16" for the read-only single-sequence decode, "K17a" / "K17a.q5_k" and
+"K17b" / "K17b.<kind>" for the layer-stacked matvecs and "K17c" for the
+pooled-row flash decode of the scan decode path;
+"K1", "K2", "K3", "K7", "K14", "K17a" and "K17b" count q4_k / q6_k
+only);
 each wrapper adds one where it launches its kernel, and nowhere else.
 """
 from __future__ import annotations
@@ -47,6 +51,7 @@ _paths: dict[str, str] | None = None
 
 P = ctypes.c_void_p  # device pointers and the stream
 I = ctypes.c_int
+LL = ctypes.c_longlong
 F = ctypes.c_float
 
 

@@ -1,19 +1,24 @@
 """Batched flash decode with the in-place K/V row write, over the slot
-cache (K5 bf16, K6 Q8) and over a paged pool through a (B, MP) page table
-(K8 bf16, K9 Q8, K10 Q4).
+cache (K5 bf16 or f32, K6 Q8), over a row window of the scan decode path's
+pooled cache (K17c), and over a paged pool through a (B, MP) page table
+(K8 bf16, K9 Q8, K10 Q4); and the read-only single-sequence decode K16.
 
-`decode_attention_batched`, `decode_attention_batched_q8`,
-`decode_attention_paged`, `decode_attention_paged_q8` and
-`decode_attention_paged_q4` are the ports of the JAX package's functions of
-the same names (ops/flash_decode.py, bodies `_bkernel`, `_bqkernel`,
-`_pkernel`, `_pq8kernel`, `_pq4kernel`). For a CUDA tensor each launches
-csrc/flash_decode.cu; for a CPU tensor it runs the plain PyTorch version
-beside it. Either way this step's K/V row is written into the cache IN
-PLACE at each sequence's position (quantized first for a quantized cache;
-nothing is written where pos < 0 or pos >= S, S = MP * P when paged), and
-the same cache tensors are returned. The quantized plain versions round as
-their JAX kernels do: K6 dequantizes the history to bf16 before the dot,
-K9/K10 apply the scales on the score side.
+`decode_attention_batched`, `decode_attention_rows`,
+`decode_attention_batched_q8`, `decode_attention_paged`,
+`decode_attention_paged_q8`, `decode_attention_paged_q4` and
+`decode_attention` are the ports of the JAX package's functions of the same
+names (ops/flash_decode.py, bodies `_bkernel`, `_bkernel` with pos_off=1,
+`_bqkernel`, `_pkernel`, `_pq8kernel`, `_pq4kernel`, `_kernel`). For a
+CUDA tensor each launches csrc/flash_decode.cu; for a CPU tensor it runs
+the plain PyTorch version beside it. Every one but K16 writes this step's
+K/V row into the cache IN PLACE at each sequence's position (quantized
+first for a quantized cache, rounded to bf16 for an f32 one; nothing is
+written where pos < 0 or pos >= S, S = MP * P when paged), and returns the
+same cache tensors. The quantized plain versions round as their JAX
+kernels do: K6 dequantizes the history to bf16 before the dot, K9/K10
+apply the scales on the score side. Over an f32 cache q and p are rounded
+to bf16 and the scores and p . V read the f32 rows, as the JAX kernel's
+bf16-by-f32 dots do.
 """
 from __future__ import annotations
 
@@ -33,34 +38,40 @@ def _softcap(s: torch.Tensor, cap: float) -> torch.Tensor:
 def _attend_plain(q, k_new, v_new, k, v, n_hist, n_heads: int,
                   n_kv_heads: int, scale: float, softcap: float):
     """Softmax over the history rows < n_hist of k/v (B, S, Hkv*D) plus the
-    self term from k_new/v_new; scores bf16 q . bf16 k in f32, p cast to
-    bf16 before p . V. Returns out (B, H, D) f32."""
+    self term from k_new/v_new (none when k_new is None); scores bf16 q . k
+    in f32, p cast to bf16 before p . V. Returns out (B, H, D) f32."""
     B, S, KD = k.shape
     Hkv = n_kv_heads
     D = KD // Hkv
     G = n_heads // Hkv
     qf = q.to(torch.bfloat16).float().reshape(B, Hkv, G, D)
-    kn = k_new.to(torch.bfloat16).float().reshape(B, Hkv, D)
-    vn = v_new.to(torch.bfloat16).float().reshape(B, Hkv, D)
     kf = k.float().reshape(B, S, Hkv, D)
     vf = v.float().reshape(B, S, Hkv, D)
     scores = _softcap(torch.einsum("bhgd,bshd->bhgs", qf, kf) * scale, softcap)
     hist = torch.arange(S, device=k.device)[None, :] < n_hist[:, None]
     scores = torch.where(hist[:, None, None, :], scores,
                          torch.full_like(scores, -1e30))
-    s_self = _softcap(torch.einsum("bhgd,bhd->bhg", qf, kn) * scale, softcap)
-    m = torch.maximum(scores.amax(dim=-1), s_self)
+    m = scores.amax(dim=-1)
+    if k_new is not None:
+        kn = k_new.to(torch.bfloat16).float().reshape(B, Hkv, D)
+        s_self = _softcap(torch.einsum("bhgd,bhd->bhg", qf, kn) * scale,
+                          softcap)
+        m = torch.maximum(m, s_self)
     p = torch.exp(scores - m[..., None])
-    p_self = torch.exp(s_self - m)
-    l = p.sum(dim=-1) + p_self
+    l = p.sum(dim=-1)
     acc = torch.einsum("bhgs,bshd->bhgd", p.to(torch.bfloat16).float(), vf)
-    acc = acc + p_self[..., None] * vn[:, :, None, :]
+    if k_new is not None:
+        vn = v_new.to(torch.bfloat16).float().reshape(B, Hkv, D)
+        p_self = torch.exp(s_self - m)
+        l = l + p_self
+        acc = acc + p_self[..., None] * vn[:, :, None, :]
     return (acc / l[..., None]).reshape(B, n_heads, D)
 
 
-def decode_attention_plain(q, k_new, v_new, k_layer, v_layer, positions,
-                           n_heads: int, n_kv_heads: int, scale: float,
-                           softcap: float = 0.0) -> torch.Tensor:
+def decode_attention_batched_plain(q, k_new, v_new, k_layer, v_layer,
+                                   positions, n_heads: int, n_kv_heads: int,
+                                   scale: float,
+                                   softcap: float = 0.0) -> torch.Tensor:
     """Plain version of K5: softmax over the history rows < pos (every row
     when pos < 0, all S when pos >= S) plus the self term. Returns out
     (B, H, D) f32 and writes the cache rows."""
@@ -75,13 +86,15 @@ def decode_attention_plain(q, k_new, v_new, k_layer, v_layer, positions,
 
 def _write_rows(k_layer, v_layer, k_new, v_new, pos) -> None:
     """In-place row write at pos per sequence, dropping pos outside [0, S)
-    without a host sync (each sequence writes one distinct row)."""
+    without a host sync (each sequence writes one distinct row). The row is
+    rounded to bf16 first (an f32 cache holds the bf16 values, as the JAX
+    kernel writes its bf16 k_new / v_new operands)."""
     B, S, KD = k_layer.shape
     valid = (pos >= 0) & (pos < S)
     idx = torch.where(valid, pos, torch.zeros_like(pos))
     b = torch.arange(B, device=pos.device)
     for cache, new in ((k_layer, k_new), (v_layer, v_new)):
-        new = new.reshape(B, KD).to(cache.dtype)
+        new = new.reshape(B, KD).to(torch.bfloat16).to(cache.dtype)
         cache[b, idx] = torch.where(valid[:, None], new, cache[b, idx])
 
 
@@ -89,34 +102,140 @@ def decode_attention_batched(q, k_new, v_new, k_layer, v_layer, positions,
                              n_heads: int, n_kv_heads: int, scale: float,
                              softcap: float = 0.0):
     """q: (B, H, D) post-rope; k_new/v_new: (B, Hkv, D) this step's post-rope
-    K/V (not yet in the cache); k_layer/v_layer: (B, S, Hkv*D) bf16 fused
-    cache buffers; positions: (B,) int. Returns (out (B, H, D) f32,
+    K/V (not yet in the cache); k_layer/v_layer: (B, S, Hkv*D) bf16 or f32
+    fused cache buffers; positions: (B,) int. Returns (out (B, H, D) f32,
     k_layer, v_layer) with the caches updated in place."""
     if not q.is_cuda:
-        out = decode_attention_plain(q, k_new, v_new, k_layer, v_layer,
-                                     positions, n_heads, n_kv_heads, scale,
-                                     softcap)
+        out = decode_attention_batched_plain(q, k_new, v_new, k_layer,
+                                             v_layer, positions, n_heads,
+                                             n_kv_heads, scale, softcap)
         return out, k_layer, v_layer
-    B, S, KD = k_layer.shape
+    out = _launch_rows("K5", q, k_new, v_new, k_layer, v_layer, positions,
+                       None, n_heads, n_kv_heads, scale, softcap)
+    return out, k_layer, v_layer
+
+
+# csrc/flash_decode.cu's kinds of K5 / K17c, by the cache's dtype
+_ROWS_KIND = {torch.bfloat16: 0, torch.float32: 4}
+
+
+def _launch_rows(kid, q, k_new, v_new, k_cache, v_cache, positions, li,
+                 n_heads, n_kv_heads, scale, softcap):
+    """Launch K5 (li None: k_cache/v_cache are (B, S, KD)) or K17c (li a
+    one-element int32 tensor on the card: rows [li B, li B + B) of (N, S,
+    KD) pools) over bf16 or f32 caches; returns out (B, H, D) f32."""
+    B = q.shape[0]
+    N, S, KD = k_cache.shape
     D = KD // n_kv_heads
-    check_kernel_shape(n_heads, n_kv_heads, D)
-    _checked("K5", q, (k_layer, v_layer), (torch.bfloat16,) * 2,
-             (k_new, v_new, positions))
+    check_kernel_shape(n_heads, n_kv_heads, D, kid)
+    dt = k_cache.dtype
+    if dt not in _ROWS_KIND:
+        raise ValueError(f"{kid} takes bf16 or f32 caches, not {dt}")
+    others = (k_new, v_new, positions) + (() if li is None else (li,))
+    _checked(kid, q, (k_cache, v_cache), (dt, dt), others)
+    if li is None and N != B:
+        raise ValueError(f"{kid} takes caches of B = {B} sequences")
+    if li is not None and (N % B or li.dtype != torch.int32
+                           or li.numel() != 1):
+        raise ValueError(f"{kid} takes pools of whole layers of B = {B} "
+                         "rows and a one-element int32 layer index")
     lib = _build.load("flash_decode", {
-        "k5_flash_decode": [_build.P] * 9 + [_build.I] * 7
+        "k5_flash_decode": [_build.I] + [_build.P] * 10 + [_build.I] * 7
         + [_build.F, _build.F, _build.P]})
     nsplit, out, part_acc, part_ml = _scratch(B, n_heads, n_kv_heads, D, S,
                                               q.device)
     qb, kn, vn = (t.to(torch.bfloat16).contiguous() for t in (q, k_new, v_new))
     pos = positions.to(torch.int32).contiguous()
     _build.check(lib, lib.k5_flash_decode(
-        qb.data_ptr(), kn.data_ptr(), vn.data_ptr(), k_layer.data_ptr(),
-        v_layer.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(), B, S, n_heads, n_kv_heads,
-        D, nsplit, ROWS_PER_SPLIT, float(scale), float(softcap),
-        _build.stream_ptr()), "K5")
-    _build.launches["K5"] += 1
-    return out, k_layer, v_layer
+        _ROWS_KIND[dt], qb.data_ptr(), kn.data_ptr(), vn.data_ptr(),
+        k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(), _ptr(li),
+        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), B, S,
+        n_heads, n_kv_heads, D, nsplit, ROWS_PER_SPLIT, float(scale),
+        float(softcap), _build.stream_ptr()), kid)
+    _build.launches[kid] += 1
+    return out
+
+
+def decode_attention_rows_plain(q, k_new, v_new, k_pool, v_pool, positions,
+                                li, n_heads: int, n_kv_heads: int,
+                                scale: float,
+                                softcap: float = 0.0) -> torch.Tensor:
+    """Plain version of K17c: K5's plain version on the views
+    k_pool[li B:(li + 1) B] (li an int or a one-element tensor). Returns
+    out (B, H, D) f32 and writes the window's rows."""
+    B = q.shape[0]
+    base = int(li) * B
+    return decode_attention_batched_plain(
+        q, k_new, v_new, k_pool[base:base + B], v_pool[base:base + B],
+        positions, n_heads, n_kv_heads, scale, softcap)
+
+
+def decode_attention_rows(q, k_new, v_new, k_pool, v_pool, positions, li,
+                          n_heads: int, n_kv_heads: int, scale: float,
+                          softcap: float = 0.0):
+    """K5 over a row window of a pooled cache (the JAX `decode_attention_
+    rows`). k_pool/v_pool: (L*B, S, Hkv*D) bf16 or f32 buffers holding
+    every layer's cache, row l*B + b for layer l and sequence b; li: the
+    layer as a one-element int32 tensor on the pool's device, which the
+    kernel reads (the JAX function takes the row base li*B as a traced
+    scalar). Sequence b reads and writes row li*B + b only; a dead row (pos
+    < 0) attends every row of its cache and writes nothing. Returns (out
+    (B, H, D) f32, k_pool, v_pool), the pools updated in place."""
+    if not q.is_cuda:
+        out = decode_attention_rows_plain(q, k_new, v_new, k_pool, v_pool,
+                                          positions, li, n_heads, n_kv_heads,
+                                          scale, softcap)
+        return out, k_pool, v_pool
+    out = _launch_rows("K17c", q, k_new, v_new, k_pool, v_pool, positions,
+                       li, n_heads, n_kv_heads, scale, softcap)
+    return out, k_pool, v_pool
+
+
+def decode_attention_plain(q, k_layer, v_layer, pos, n_heads: int,
+                           scale: float, softcap: float = 0.0
+                           ) -> torch.Tensor:
+    """Plain version of K16: softmax over the rows <= pos of one sequence's
+    cache (all S when pos >= S, every row when pos < 0), no self term, no
+    write. q (H, D) is rounded to bf16. Returns out (H, D) f32."""
+    S, Hkv, D = k_layer.shape
+    p = int(pos)
+    n_hist = torch.tensor([S if p < 0 else min(p + 1, S)],
+                          device=k_layer.device)
+    return _attend_plain(q[None], None, None, k_layer.reshape(1, S, -1),
+                         v_layer.reshape(1, S, -1), n_hist, n_heads, Hkv,
+                         scale, softcap)[0]
+
+
+def decode_attention(q, k_layer, v_layer, pos, n_heads: int, scale: float,
+                     softcap: float = 0.0) -> torch.Tensor:
+    """K16, the JAX `decode_attention`: q (H, D) post-rope (f32 or bf16,
+    rounded to bf16); k_layer/v_layer: (S, Hkv, D) bf16 cache views already
+    holding this step's row at pos; pos: the position as a one-element
+    int32 tensor (read by the kernel). Returns (H, D) f32 over the rows <=
+    pos (all S when pos >= S). B=1 decode; nothing is written. For pos < 0
+    the JAX kernel masks every row and returns the plain mean of V; the
+    port attends every row then, as K5 does; no caller passes one."""
+    if not q.is_cuda:
+        return decode_attention_plain(q, k_layer, v_layer, pos, n_heads,
+                                      scale, softcap)
+    S, Hkv, D = k_layer.shape
+    check_kernel_shape(n_heads, Hkv, D, "K16")
+    _checked("K16", q, (k_layer, v_layer), (torch.bfloat16,) * 2, (pos,))
+    if pos.dtype != torch.int32 or pos.numel() != 1:
+        raise ValueError("K16 takes pos as a one-element int32 tensor")
+    lib = _build.load("flash_decode", {
+        "k16_flash_decode": [_build.P] * 7 + [_build.I] * 6
+        + [_build.F, _build.F, _build.P]})
+    nsplit, out, part_acc, part_ml = _scratch(1, n_heads, Hkv, D, S,
+                                              q.device)
+    qb = q.to(torch.bfloat16).contiguous()
+    _build.check(lib, lib.k16_flash_decode(
+        qb.data_ptr(), k_layer.data_ptr(), v_layer.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), S, n_heads,
+        Hkv, D, nsplit, ROWS_PER_SPLIT, float(scale), float(softcap),
+        _build.stream_ptr()), "K16")
+    _build.launches["K16"] += 1
+    return out[0]
 
 
 def _page_rows(page_table: torch.Tensor, page_size: int,
@@ -416,6 +535,12 @@ def decode_attention_paged_q4(q, k_new, v_new, k_pool, v_pool, ks_pool,
                         page_size, scale, softcap)
 
 
+def supported(B: int, T: int, Hkv: int, D: int) -> bool:
+    """K16 applies to single-token single-sequence decode with a
+    lane-aligned fused KV width (the JAX `supported`)."""
+    return B == 1 and T == 1 and (Hkv * D) % 128 == 0
+
+
 def supported_batched(T: int, Hkv: int, D: int) -> bool:
     return T == 1 and (Hkv * D) % 128 == 0
 
@@ -423,7 +548,7 @@ def supported_batched(T: int, Hkv: int, D: int) -> bool:
 def check_kernel_shape(n_heads: int, n_kv_heads: int, head_dim: int,
                        kernel: str = "K5") -> None:
     """Raise NotImplementedError for the head shapes csrc/flash_decode.cu
-    (K5, K6, K8, K9, K10) is not built for: head_dim 64 or 128, at most 16 query heads
+    (K5, K6, K8, K9, K10, K16, K17c) is not built for: head_dim 64 or 128, at most 16 query heads
     per kv head and G * head_dim <= 1024."""
     G = n_heads // n_kv_heads
     if head_dim not in (64, 128) or G > 16 or G * head_dim > 1024:

@@ -554,7 +554,7 @@ def iq_values(qt: QTensor) -> torch.Tensor:
 
 def iq_group(qt: QTensor) -> int:
     """The scale group G (8, 16 or 32 columns) of an IQ QTensor."""
-    return qt.shape[1] // qt.data["scale"].shape[1]
+    return qt.shape[1] // qt.data["scale"].shape[-1]  # stacked fields too
 
 
 def dequant(qt: QTensor, dtype=torch.bfloat16) -> torch.Tensor:
@@ -643,10 +643,48 @@ class ActivationCollector:
         return {n: s / max(self.counts[n], 1) for n, s in self.sums.items()}
 
 
-def matmul(x: torch.Tensor, qt: QTensor, out_dtype=None) -> torch.Tensor:
-    """y = x @ W^T for any QTensor. x: (..., in) -> (..., out). Packed
-    weights go to the kernels; shapes no kernel covers dequantize and
-    multiply with f32 accumulation, as the JAX package's XLA path does."""
+class LayerRef:
+    """A (layer-stacked QTensor, layer index) pair: the scan decode path's
+    weight (models/llama.py `_layer_view`). The stacked QTensor's fields
+    carry a leading layer axis; its shape is the per-layer (out, in).
+    `index` is the layer as a one-element int32 tensor on the weights'
+    device, which the stacked kernels (K17a / K17b) read from device
+    memory; `li` is the same layer as a host int, for `take()`."""
+    __slots__ = ("qt", "li", "index")
+
+    def __init__(self, qt: QTensor, li: int, index: torch.Tensor):
+        self.qt = qt
+        self.li = li
+        self.index = index
+
+    @property
+    def kind(self):
+        return self.qt.kind
+
+    @property
+    def shape(self):
+        return self.qt.shape
+
+    def take(self) -> QTensor:
+        """This layer's QTensor, as views of the stacked fields (no
+        copy)."""
+        return QTensor(kind=self.qt.kind, shape=self.qt.shape,
+                       data={n: a[self.li] for n, a in self.qt.data.items()})
+
+
+def matmul(x: torch.Tensor, qt, out_dtype=None) -> torch.Tensor:
+    """y = x @ W^T for any QTensor or LayerRef. x: (..., in) -> (..., out).
+    Packed weights go to the kernels; shapes no kernel covers dequantize
+    and multiply with f32 accumulation, as the JAX package's XLA path does.
+    A LayerRef goes to the stacked kernels first (returning before the
+    collector records it, as in JAX) and otherwise takes its layer."""
+    if isinstance(qt, LayerRef):
+        from . import quant_matmul
+
+        y = quant_matmul.matmul_packed_stacked(x, qt.qt, qt.index)
+        if y is not None:
+            return y.to(out_dtype or x.dtype)
+        qt = qt.take()
     if _COLLECTOR is not None:
         _COLLECTOR.record(qt, x)
     out_dtype = out_dtype or x.dtype

@@ -31,9 +31,16 @@ CUDA tensor it launches the kernel or raises.
   K13                                  `_packed_matmul_2d`; K13 names its
                                        q2_k/q3_k, IQ and q4_k_i8 bodies;
                                        q4_k_i8 takes it at every T)
+  K17a q4k_matvec_stacked T=1 q4_k/    (csrc/q4k_matvec.cu with a layer
+                     q5_k, layer li    index; JAX `_packed_matvec_q4k_
+                     of stacked fields stacked`: K1's bodies)
+  K17b matvec_stacked T=1 q6_k/q8_0/   (K2's and K12's sources with a layer
+                     q2_k/q3_k/IQ,     index; JAX `_packed_matvec_stacked`)
+                     layer li
 
 Launch counters (ops/_build.launches): "K1", "K7", "K2" and "K3" count the
-q4_k / q6_k bodies they have counted since they were ported; every other
+q4_k / q6_k bodies they have counted since they were ported, and so do
+"K17a" and "K17b"; every other
 kind's body has a counter of its own, "<id>.<kind>" ("K1.q5_k", "K7.q5_k",
 "K2.q8_0", "K3.q5_k", "K3.q8_0", "K12.q2_k", "K12.q3_k", "K13.q2_k",
 "K13.q3_k", and "K12.<kind>" / "K13.<kind>" for the four IQ kinds); K14
@@ -46,7 +53,9 @@ shape (out_f or in_f not a multiple of 256, an in_f too wide for any 2-D
 tile or for an expanded kind's T=1 scratch, or an expanded kind without its
 dense fields at T > 1); callers then take the dequant path in
 ops/linear.py. It reads KCPP_SBQ, KCPP_MM_I8 and KCPP_Q4K_I8 at every call,
-as the JAX dispatch reads them.
+as the JAX dispatch reads them. `matmul_packed_stacked(x, qt, li)` is its
+counterpart for a layer-stacked QTensor (the scan decode path's
+`LayerRef`): K17a / K17b, or None where JAX's declines.
 """
 from __future__ import annotations
 
@@ -61,8 +70,11 @@ from .linear import (EXPANDED, IQ_KINDS, QTensor, iq_group, iq_values,
 
 VMEM_BUDGET = 13 * 1024 * 1024  # the JAX 2-D kernel's tile budget (see below)
 
-_SIG_MATVEC = [_build.P] * 8 + [_build.I] * 3 + [_build.P]
-_SIG_MATVEC_T = [_build.P] * 9 + [_build.I] * 4 + [_build.P]
+# the layer index and the five per-layer element counts of the stacked
+# entry points (STACKED_PARAMS, csrc/common.cuh)
+_SIG_STACK = [_build.P] + [_build.LL] * 5
+_SIG_MATVEC = [_build.P] * 8 + [_build.I] * 3 + _SIG_STACK + [_build.P]
+_SIG_MATVEC_T = [_build.P] * 9 + [_build.I] * 4 + _SIG_STACK + [_build.P]
 _SIG_PREP = [_build.P] * 4 + [_build.I] * 2 + [_build.P]
 _FIELD_DTYPES = {"qs2": torch.uint8, "ql": torch.uint8, "qh": torch.uint8,
                  "qs": torch.uint8, "hmask": torch.uint8, "sg": torch.uint8,
@@ -96,6 +108,34 @@ def _count(kid: str, qt: QTensor) -> None:
     docstring for the counter names)."""
     _build.launches[kid if qt.kind in ("q4_k", "q6_k")
                     else f"{kid}.{qt.kind}"] += 1
+
+
+def _stack_args(qt: QTensor, names, li: torch.Tensor | None) -> list:
+    """The stacked entry points' layer arguments: li's device pointer and
+    the per-layer element count of each weight field in `names` (0 where
+    absent), or a null pointer and zeros for one layer's fields."""
+    if li is None:
+        return [None] + [0] * 5
+    counts = [qt.data[n][0].numel() if n in qt.data else 0 for n in names]
+    return [li.data_ptr()] + counts + [0] * (5 - len(counts))
+
+
+def _check_stacked(x: torch.Tensor, qt: QTensor, li: torch.Tensor,
+                   what: str) -> None:
+    """A stacked kernel takes a one-element int32 layer index on x's device
+    and fields that all carry the same leading layer axis."""
+    if li.dtype != torch.int32 or li.numel() != 1 or li.device != x.device:
+        raise ValueError(f"{what} takes the layer index as a one-element "
+                         f"int32 tensor on {x.device}")
+    if len({t.shape[0] for t in qt.data.values()}) != 1 \
+            or any(t.dim() < 2 for t in qt.data.values()):
+        raise ValueError(f"{what} takes fields with one leading layer axis")
+
+
+def layer_of(qt: QTensor, li: int) -> QTensor:
+    """Layer li of a layer-stacked QTensor, as views (no copy)."""
+    return QTensor(kind=qt.kind, shape=qt.shape,
+                   data={n: a[li] for n, a in qt.data.items()})
 
 
 def _check_operands(x: torch.Tensor, qt: QTensor, what: str) -> None:
@@ -169,8 +209,10 @@ def q4k_matvec_plain(x: torch.Tensor, qt: QTensor, i8: bool) -> torch.Tensor:
     return q4k_matvec_t_plain(x[None], qt, i8)
 
 
-def _q4k_launch(x2: torch.Tensor, qt: QTensor, i8: bool, what: str):
-    """Prep (per token) and matvec launch for x2 (T, in_f) on the card."""
+def _q4k_launch(x2: torch.Tensor, qt: QTensor, i8: bool, what: str,
+                li: torch.Tensor | None = None):
+    """Prep (per token) and matvec launch for x2 (T, in_f) on the card;
+    li: layer li of stacked fields (K17a)."""
     T, in_f = x2.shape
     out_f = qt.shape[0]
     _check_operands(x2, qt, what)
@@ -190,7 +232,8 @@ def _q4k_launch(x2: torch.Tensor, qt: QTensor, i8: bool, what: str):
         d["qs2"].data_ptr(), _ptr(d.get("qh")),  # qh: the q5_k bit plane
         d["scale"].data_ptr(), d["min"].data_ptr(),
         x2.data_ptr(), xq.data_ptr(), sx.data_ptr(), xsum.data_ptr(),
-        y.data_ptr(), T, out_f, in_f, int(i8), st), what)
+        y.data_ptr(), T, out_f, in_f, int(i8),
+        *_stack_args(qt, ("qs2", "qh", "scale", "min"), li), st), what)
     return y
 
 
@@ -336,8 +379,15 @@ def q6k_matvec(x: torch.Tensor, qt: QTensor, i8: bool) -> torch.Tensor:
     """K2 wrapper. x (in_f,) bf16 contiguous -> (1, out_f) bf16."""
     if not x.is_cuda:
         return q6k_matvec_plain(x, qt, i8)
+    y = _q6k_launch(x, qt, i8, "K2")
+    _build.launches["K2"] += 1
+    return y
+
+
+def _q6k_launch(x: torch.Tensor, qt: QTensor, i8: bool, what: str,
+                li: torch.Tensor | None = None) -> torch.Tensor:
     out_f, in_f = qt.shape
-    _check_operands(x[None], qt, "K2")
+    _check_operands(x[None], qt, what)
     lib = _build.load("q6k_matvec", {"k2_q6k_prep": _SIG_PREP,
                                      "k2_q6k_matvec": _SIG_MATVEC})
     dev = x.device
@@ -348,13 +398,13 @@ def q6k_matvec(x: torch.Tensor, qt: QTensor, i8: bool) -> torch.Tensor:
     st = _build.stream_ptr()
     _build.check(lib, lib.k2_q6k_prep(x.data_ptr(), xq.data_ptr(),
                                       sx.data_ptr(), xsum.data_ptr(),
-                                      in_f, int(i8), st), "K2 prep")
+                                      in_f, int(i8), st), f"{what} prep")
     d = qt.data
     _build.check(lib, lib.k2_q6k_matvec(
         d["ql"].data_ptr(), d["qh"].data_ptr(), d["scale"].data_ptr(),
         x.data_ptr(), xq.data_ptr(), sx.data_ptr(), xsum.data_ptr(),
-        y.data_ptr(), out_f, in_f, int(i8), st), "K2")
-    _build.launches["K2"] += 1
+        y.data_ptr(), out_f, in_f, int(i8),
+        *_stack_args(qt, ("ql", "qh", "scale"), li), st), what)
     return y
 
 
@@ -406,11 +456,22 @@ def q8_0_matvec(x: torch.Tensor, qt: QTensor, i8: bool = True) -> torch.Tensor:
     bf16 contiguous -> (1, out_f) bf16."""
     if not x.is_cuda:
         return q8_0_matvec_plain(x, qt, i8)
+    y = _q8_0_launch(x, qt, i8, "K2.q8_0")
+    if i8:
+        _count("K2", qt)
+    else:
+        _build.launches["K2.q8_0_bf16"] += 1
+    return y
+
+
+def _q8_0_launch(x: torch.Tensor, qt: QTensor, i8: bool, what: str,
+                 li: torch.Tensor | None = None) -> torch.Tensor:
     out_f, in_f = qt.shape
-    _check_operands(x[None], qt, "K2.q8_0")
+    _check_operands(x[None], qt, what)
     lib = _build.load("q8_0_matvec", {
         "k2_q8_0_prep": [_build.P] * 4 + [_build.I, _build.P],
-        "k2_q8_0_matvec": [_build.P] * 6 + [_build.I] * 3 + [_build.P]})
+        "k2_q8_0_matvec": [_build.P] * 6 + [_build.I] * 3 + _SIG_STACK
+        + [_build.P]})
     dev = x.device
     y = torch.empty((1, out_f), dtype=torch.bfloat16, device=dev)
     st = _build.stream_ptr()
@@ -421,15 +482,11 @@ def q8_0_matvec(x: torch.Tensor, qt: QTensor, i8: bool = True) -> torch.Tensor:
         xsum = torch.empty(in_f // 32, dtype=torch.bfloat16, device=dev)
         _build.check(lib, lib.k2_q8_0_prep(x.data_ptr(), xq.data_ptr(),
                                            sx.data_ptr(), xsum.data_ptr(),
-                                           in_f, st), "K2.q8_0 prep")
+                                           in_f, st), f"{what} prep")
     _build.check(lib, lib.k2_q8_0_matvec(
         qt.data["q"].data_ptr(), qt.data["scale"].data_ptr(), x.data_ptr(),
-        _ptr(xq), _ptr(sx), y.data_ptr(), out_f, in_f, int(i8), st),
-        "K2.q8_0")
-    if i8:
-        _count("K2", qt)
-    else:
-        _build.launches["K2.q8_0_bf16"] += 1
+        _ptr(xq), _ptr(sx), y.data_ptr(), out_f, in_f, int(i8),
+        *_stack_args(qt, ("q", "scale"), li), st), what)
     return y
 
 
@@ -474,14 +531,21 @@ def q23k_matvec(x: torch.Tensor, qt: QTensor, i8: bool) -> torch.Tensor:
     bf16."""
     if not x.is_cuda:
         return q23k_matvec_plain(x, qt, i8)
-    out_f, in_f = qt.shape
     if qt.kind not in _LOWBIT:
         raise ValueError(f"K12 serves q2_k and q3_k, not {qt.kind}")
-    _check_operands(x[None], qt, "K12")
+    y = _q23k_launch(x, qt, i8, "K12")
+    _count("K12", qt)
+    return y
+
+
+def _q23k_launch(x: torch.Tensor, qt: QTensor, i8: bool, what: str,
+                 li: torch.Tensor | None = None) -> torch.Tensor:
+    out_f, in_f = qt.shape
+    _check_operands(x[None], qt, what)
     lib = _build.load("q23k_matvec", {
         "k12_q23k_prep": _SIG_PREP,
         "k12_q23k_matvec": [_build.I] + [_build.P] * 9 + [_build.I] * 3
-        + [_build.P]})
+        + _SIG_STACK + [_build.P]})
     dev = x.device
     xq = torch.empty(in_f, dtype=torch.int8, device=dev)
     sx = torch.empty(in_f // 16, dtype=torch.float32, device=dev)
@@ -490,14 +554,14 @@ def q23k_matvec(x: torch.Tensor, qt: QTensor, i8: bool) -> torch.Tensor:
     st = _build.stream_ptr()
     _build.check(lib, lib.k12_q23k_prep(x.data_ptr(), xq.data_ptr(),
                                         sx.data_ptr(), xsum.data_ptr(),
-                                        in_f, int(i8), st), "K12 prep")
+                                        in_f, int(i8), st), f"{what} prep")
     d = qt.data
     _build.check(lib, lib.k12_q23k_matvec(
         int(qt.kind == "q3_k"), d["qs"].data_ptr(), _ptr(d.get("hmask")),
         d["scale"].data_ptr(), _ptr(d.get("min")), x.data_ptr(),
         xq.data_ptr(), sx.data_ptr(), xsum.data_ptr(), y.data_ptr(), out_f,
-        in_f, int(i8), st), "K12")
-    _count("K12", qt)
+        in_f, int(i8), *_stack_args(qt, ("qs", "hmask", "scale", "min"), li),
+        st), what)
     return y
 
 
@@ -527,15 +591,22 @@ def iq_matvec(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """K12.iq wrapper. x (in_f,) bf16 contiguous -> (1, out_f) bf16."""
     if not x.is_cuda:
         return iq_matvec_plain(x, qt)
-    out_f, in_f = qt.shape
     if qt.kind not in IQ_KINDS:
         raise ValueError(f"K12.iq serves the IQ kinds, not {qt.kind}")
+    y = _iq_launch(x, qt, "K12")
+    _count("K12", qt)
+    return y
+
+
+def _iq_launch(x: torch.Tensor, qt: QTensor, what: str,
+               li: torch.Tensor | None = None) -> torch.Tensor:
+    out_f, in_f = qt.shape
     G = iq_group(qt)
-    _check_operands(x[None], qt, "K12")
+    _check_operands(x[None], qt, what)
     lib = _build.load("iq_matvec", {
         "k12_iq_prep": [_build.P] * 4 + [_build.I] * 2 + [_build.P],
         "k12_iq_matvec": [_build.I] + [_build.P] * 9 + [_build.I] * 3
-        + [_build.P]})
+        + _SIG_STACK + [_build.P]})
     dev = x.device
     xq = torch.empty(in_f, dtype=torch.int8, device=dev)
     sx = torch.empty(in_f // G, dtype=torch.float32, device=dev)
@@ -544,14 +615,14 @@ def iq_matvec(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     st = _build.stream_ptr()
     _build.check(lib, lib.k12_iq_prep(x.data_ptr(), xq.data_ptr(),
                                       sx.data_ptr(), xsum.data_ptr(), in_f, G,
-                                      st), "K12 prep")
+                                      st), f"{what} prep")
     d = qt.data
     _build.check(lib, lib.k12_iq_matvec(
         IQ_KINDS.index(qt.kind), d["qs"].data_ptr(), _ptr(d.get("hmask")),
         _ptr(d.get("sg")), d["scale"].data_ptr(), _ptr(d.get("min")),
         xq.data_ptr(), sx.data_ptr(), xsum.data_ptr(), y.data_ptr(), out_f,
-        in_f, G, st), "K12")
-    _count("K12", qt)
+        in_f, G, *_stack_args(qt, ("qs", "hmask", "sg", "scale", "min"), li),
+        st), what)
     return y
 
 
@@ -824,3 +895,111 @@ def matmul_packed(x: torch.Tensor, qt: QTensor) -> torch.Tensor | None:
     if 12 * 128 * (in_f // 2) + 4 * 64 * (in_f // 2) > VMEM_BUDGET + 1024 * 1024:
         return None
     return kq_matmul(x2, qt).reshape(*lead, out_f)
+
+
+# ---------------------------------------------------------------------------
+# K17a / K17b: the T=1 matvecs over layer li of a layer-stacked QTensor (the
+# scan decode path's `LayerRef`)
+# ---------------------------------------------------------------------------
+
+# the kinds of K17b: K2's and K12's bodies
+_K17B_KINDS = ("q6_k", "q8_0") + _LOWBIT + IQ_KINDS
+
+
+def q4k_matvec_stacked_plain(x: torch.Tensor, qt: QTensor, li,
+                             i8: bool) -> torch.Tensor:
+    """K1's plain version on layer li (an int or a one-element tensor) of
+    the stacked fields."""
+    return q4k_matvec_plain(x, layer_of(qt, int(li)), i8)
+
+
+def q4k_matvec_stacked(x: torch.Tensor, qt: QTensor, li: torch.Tensor,
+                       i8: bool) -> torch.Tensor:
+    """K17a wrapper (q4_k or q5_k). x (in_f,) bf16 contiguous; qt's fields
+    carry a leading layer axis; li the layer as a one-element int32 tensor
+    on x's device (read by the kernel, never by the host) -> (1, out_f)
+    bf16, equal to K1 on layer li bit for bit."""
+    if not x.is_cuda:
+        return q4k_matvec_stacked_plain(x, qt, li, i8)
+    _check_stacked(x, qt, li, "K17a")
+    y = _q4k_launch(x[None], qt, i8, "K17a", li)
+    _count("K17a", qt)
+    return y
+
+
+def matvec_stacked_plain(x: torch.Tensor, qt: QTensor, li,
+                         i8: bool) -> torch.Tensor:
+    """The per-layer plain version (K2, K2.q8_0, K12, K12.iq) on layer li
+    (an int or a one-element tensor) of the stacked fields."""
+    layer = layer_of(qt, int(li))
+    if qt.kind == "q6_k":
+        return q6k_matvec_plain(x, layer, i8)
+    if qt.kind == "q8_0":
+        return q8_0_matvec_plain(x, layer, i8)
+    if qt.kind in _LOWBIT:
+        return q23k_matvec_plain(x, layer, i8)
+    return iq_matvec_plain(x, layer)
+
+
+def matvec_stacked(x: torch.Tensor, qt: QTensor, li: torch.Tensor,
+                   i8: bool) -> torch.Tensor:
+    """K17b wrapper (q6_k, q8_0, q2_k, q3_k and the IQ kinds; i8 is ignored
+    for the IQ kinds, whose bodies take int8 activations only). As
+    q4k_matvec_stacked, for K2's and K12's bodies."""
+    if qt.kind not in _K17B_KINDS:
+        raise ValueError(f"K17b serves {_K17B_KINDS}, not {qt.kind}")
+    if not x.is_cuda:
+        return matvec_stacked_plain(x, qt, li, i8)
+    _check_stacked(x, qt, li, "K17b")
+    if qt.kind == "q6_k":
+        y = _q6k_launch(x, qt, i8, "K17b", li)
+    elif qt.kind == "q8_0":
+        y = _q8_0_launch(x, qt, i8, "K17b", li)
+    elif qt.kind in _LOWBIT:
+        y = _q23k_launch(x, qt, i8, "K17b", li)
+    else:
+        y = _iq_launch(x, qt, "K17b", li)
+    if qt.kind == "q8_0" and not i8:
+        _build.launches["K17b.q8_0_bf16"] += 1
+    else:
+        _count("K17b", qt)
+    return y
+
+
+def matmul_packed_stacked(x: torch.Tensor, qt: QTensor,
+                          li: torch.Tensor) -> torch.Tensor | None:
+    """Route x (..., in_f) through the stacked kernel the JAX
+    `matmul_packed_stacked` would pick for layer li of the layer-stacked qt
+    (fields with a leading layer axis, shape the per-layer (out, in)), or
+    return None where it declines; `LayerRef.take()` then serves the layer
+    through `matmul_packed`.
+
+    Declines: out_f or in_f not a multiple of 256, more than one token,
+    q4_k / q5_k with in_f < 512, q5_k under KCPP_Q4K_I8=0, an IQ kind with
+    in_f < 32 G, and the kinds no stacked kernel serves: dense, q4_k_i8 and
+    the expanded kinds (the JAX function raises ValueError on an expanded
+    kind, which reaches `_packed_matvec_stacked` without a branch; the port
+    declines it, as the JAX docstring promises). q4_k / q5_k take K17a
+    (int8 activations unless KCPP_Q4K_I8=0, then q4_k's bf16 body); q6_k,
+    q8_0, q2_k, q3_k and the IQ kinds take K17b with `_mm_i8`'s variant.
+    KCPP_Q4K_DECODE is not read here, as nowhere in the port; nor is the TPU
+    kernel's VMEM row-tile rule, which can decline an ultra-wide q4_k
+    in_f: K17a serves every width, with K1's result on the layer."""
+    out_f, in_f = qt.shape
+    if out_f % 256 or in_f % 256:
+        return None
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, in_f)
+    if x2.shape[0] != 1:
+        return None
+    x1 = x2[0].to(torch.bfloat16).contiguous()
+    if qt.kind in ("q4_k", "q5_k"):
+        i8 = os.environ.get("KCPP_Q4K_I8", "1") == "1"
+        if in_f < 512 or (not i8 and qt.kind == "q5_k"):
+            return None
+        return q4k_matvec_stacked(x1, qt, li, i8).reshape(*lead, out_f)
+    if qt.kind in _K17B_KINDS and (qt.kind not in IQ_KINDS
+                                   or in_f >= 32 * iq_group(qt)):
+        return matvec_stacked(x1, qt, li, _mm_i8(qt.kind, in_f)).reshape(
+            *lead, out_f)
+    return None
