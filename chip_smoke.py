@@ -21,7 +21,12 @@
    the fixtures' widths; K4 also at head_dim 128 and 256), with the max error
    against its stated tolerance and the times of the kernel, the plain
    version, one PyTorch library call computing the same function (where
-   there is one), and the least time the card could take; K7's rows equal
+   there is one), and the least time the card could take; every K3 / K13
+   body also at T = 16, 128 and a ragged 300 (q4_k and q8_0 at the narrow
+   `wo` 256x256 too), twice with the same bits and row for row equal
+   across T within the variant `kq_plan` picks (printed per case, with the
+   device time alone from CUDA-graph replays, and per T class <= 16 /
+   >= 128 after the kernel phases); K7's rows equal
    K1 on each row alone (K7.q5_k K1.q5_k), K2.q8_0 and K2.q8_0_bf16 equal
    their plain versions (the opt-in fixtures' decode step runs K5 over
    their f32 cache),
@@ -110,7 +115,8 @@
 8. last, since a profiler session slows every later decode of the
    process: the device idle share under torch.profiler of the synthetic
    1.1B q4_k, 64 fast-forwarded single-stream tokens (with that request's
-   tok/s before and after the session, then under KCPP_FFN_FUSED=1) and
+   tok/s before and after the session, then under KCPP_FFN_FUSED=1), the
+   300-token prefill as one chunk, and
    32 batched steps of 8 requests (and of 16 under KCPP_SBQ=1), and
    tools/profile_scan.py's scan mode (64 tokens: idle share, top five ops
    per step);
@@ -296,12 +302,18 @@ CASES: dict[str, list[dict]] = {k: [] for k in KERNELS}
 _flush = None
 
 
-def _time_ms(fn, reps: int = 20) -> float:
-    """Median device time of one call, L2 flushed before each call (the
-    decode loop streams every weight from HBM once per token)."""
+def _flush_buffer() -> torch.Tensor:
+    """256 MiB, zeroed before a timed call to push the 50 MB L2 out."""
     global _flush
     if _flush is None:
         _flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=DEV)
+    return _flush
+
+
+def _time_ms(fn, reps: int = 20) -> float:
+    """Median device time of one call, L2 flushed before each call (the
+    decode loop streams every weight from HBM once per token)."""
+    _flush_buffer()
     for _ in range(3):
         fn()
     times = []
@@ -556,43 +568,124 @@ def phase_ffn_fused(rng) -> None:
     del wg, wd
 
 
+def _dev_ms(fn, reps: int = 10) -> float:
+    """Device time of one call, L2 flushed before it: CUDA-graph replays of
+    (flush, fn) less those of the flush alone, so the host's launch time
+    (the wrapper's Python) is not counted."""
+    flush = _flush_buffer()
+    fn()
+    graphs = [torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()]
+    with torch.cuda.graph(graphs[0]):
+        flush.zero_()
+    with torch.cuda.graph(graphs[1]):
+        flush.zero_()
+        fn()
+    ms = []
+    for g in graphs:
+        g.replay()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            g.replay()
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b) / reps)
+    del graphs
+    return ms[1] - ms[0]
+
+
+# K3 / K13 per T class (<= 16, >= 128): (kernel, library) ms as `_record`
+# times them and the same on the device alone (`_dev_ms`), summed
+KQ_CLASSES: dict = {}
+
+
+def _kq_cases(kid: str, label: str, qt, Ts, rng, xmax=None) -> None:
+    """kq_matmul of qt at each T of Ts against its plain version, on the
+    prefixes of one x: twice with the same bits, and row for row equal to
+    the call at every other T of the same variant (`kq_plan`)."""
+    out_f, in_f = qt.shape
+    G = qm.iq_group(qt) if qt.kind in qm.IQ_KINDS else 0
+    if xmax is None:
+        xmax = torch.from_numpy((rng.standard_normal((max(Ts), in_f)) * 0.5)
+                                .astype(np.float32)).to(DEV).bfloat16()
+    w = dequant(qt)
+    ys: dict[int, torch.Tensor] = {}
+    for T in Ts:
+        x = xmax[:T].contiguous()
+        plan = qm.kq_plan(qt.kind, T, out_f, in_f, G)
+        y = qm.kq_matmul(x, qt)
+        y2 = qm.kq_matmul(x, qt)
+        ref = qm.kq_matmul_plain(x, qt)
+        torch.cuda.synchronize()
+        _check(torch.equal(y, y2), f"{kid} {label} T={T}: two calls differ")
+        for t0, y0 in ys.items():
+            if qm.kq_plan(qt.kind, t0, out_f, in_f, G).variant == plan.variant:
+                lo, hi = (y0, y) if t0 < T else (y, y0)
+                _check(torch.equal(lo, hi[:lo.shape[0]]),
+                       f"{kid} {label}: rows of T={min(t0, T)} differ inside "
+                       f"T={max(t0, T)} ({plan.variant})")
+        ys[T] = y
+        # the same bf16 weights and group sums, f32 accumulation in another
+        # order, bf16 output: one rounding step of max |y|
+        err = (y.float() - ref.float()).abs().max().item()
+        tol = 2 ** -7 * ref.float().abs().max().item()
+        _record(kid, f"{label} {out_f}x{in_f} T={T} [{plan.variant} "
+                f"{plan.rows}x{plan.tokens} split {plan.split}]", err, tol,
+                lambda: qm.kq_matmul(x, qt),
+                lambda: qm.kq_matmul_plain(x, qt),
+                lambda: torch.matmul(x, w.t()),
+                _wbytes(qt) + _nbytes(x) + T * out_f * 2,
+                2 * T * in_f * out_f)
+        case = CASES[kid][-1]
+        case["dev_ms"] = _dev_ms(lambda: qm.kq_matmul(x, qt))
+        case["dev_library_ms"] = _dev_ms(lambda: torch.matmul(x, w.t()))
+        print(f"  device alone: kernel {case['dev_ms']:.4f} ms, library "
+              f"{case['dev_library_ms']:.4f} ms", flush=True)
+        if T <= 16 or T >= 128:
+            sums = KQ_CLASSES.setdefault((kid, "<=16" if T <= 16 else ">=128"),
+                                         [0.0, 0.0, 0.0, 0.0, 0])
+            for i, k in enumerate(("ms", "library_ms", "dev_ms",
+                                   "dev_library_ms")):
+                sums[i] += case[k]
+            sums[4] += 1
+    del w
+
+
+def print_kq_classes() -> None:
+    """The K3 / K13 sums per T class, with kernel / library ratios."""
+    for (kid, cls), (k, lib, dk, dl, n) in sorted(KQ_CLASSES.items()):
+        print(f"{kid} T{cls} ({n} cases): kernel / library {k:.4f} / "
+              f"{lib:.4f} ms = {k / lib:.2f}x; device alone {dk:.4f} / "
+              f"{dl:.4f} ms = {dk / dl:.2f}x", flush=True)
+
+
 def phase_kq_matmul(rng) -> None:
-    """K3 (q4_k, q6_k at T = 16, 512) and K3.q5_k / K3.q8_0 / K13.q2_k /
-    K13.q3_k (T = 8, 128, 512) at the 1.1B's gate+up and down shapes;
-    K13.q4_k_i8 (KCPP_Q4K_LAYOUT=i8: decode, batched decode and prefill)
-    at T = 1, 8, 512 at all five 1.1B shapes."""
-    cases = [(name, shape, kid, kind, maker, Ts)
-             for name, shape in (("w_gateup", (11264, 2048)),
-                                 ("w_down", (2048, 5632)))
-             for kid, kind, maker, Ts in (
-                 ("K3", "q4_k", rand_q4k, (16, 512)),
-                 ("K3", "q6_k", rand_q6k, (16, 512)),
-                 ("K3.q5_k", "q5_k", rand_q5k, (8, 128, 512)),
-                 ("K3.q8_0", "q8_0", rand_q8_0, (8, 128, 512)),
-                 ("K13.q2_k", "q2_k", rand_q2k, (8, 128, 512)),
-                 ("K13.q3_k", "q3_k", rand_q3k, (8, 128, 512)))]
-    cases += [(name, shape, "K13.q4_k_i8", "q4_k_i8", _MAKERS["q4_k_i8"],
-               (1, 8, 512)) for name, shape in K7_SHAPES]
-    for name, (out_f, in_f), kid, kind, maker, Ts in cases:
-        qt = maker(rng, out_f, in_f, DEV)
-        w = dequant(qt)
-        for T in Ts:
-            x = torch.from_numpy((rng.standard_normal((T, in_f)) * 0.5)
-                                 .astype(np.float32)).to(DEV).bfloat16()
-            y = qm.kq_matmul(x, qt)
-            ref = qm.kq_matmul_plain(x, qt)
-            torch.cuda.synchronize()
-            # same bf16 weights and group sums, f32 accumulation in
-            # another order, bf16 output: one rounding step of max |y|
-            err = (y.float() - ref.float()).abs().max().item()
-            tol = 2 ** -7 * ref.float().abs().max().item()
-            _record(kid, f"{kind} {name} {out_f}x{in_f} T={T}", err, tol,
-                    lambda: qm.kq_matmul(x, qt),
-                    lambda: qm.kq_matmul_plain(x, qt),
-                    lambda: torch.matmul(x, w.t()),
-                    _wbytes(qt) + _nbytes(x) + T * out_f * 2,
-                    2 * T * in_f * out_f)
-        del w
+    """K3 (q4_k, q6_k) and K3.q5_k / K3.q8_0 / K13.q2_k / K13.q3_k at the
+    1.1B's gate+up and down shapes, T = 8, 16, 128, 300 (the scan path's
+    unpadded prefill chunk) and 512; K13.q4_k_i8 (KCPP_Q4K_LAYOUT=i8:
+    decode, batched decode and prefill) at T = 1, 8, 512 at all five 1.1B
+    shapes and T = 16, 128, 300 at the two; q4_k and q8_0 at the narrow
+    fixture `wo` 256x256, T = 16. Each against its plain version, twice
+    with the same bits, row for row equal across T within a variant."""
+    for name, shape in (("w_gateup", (11264, 2048)), ("w_down", (2048, 5632))):
+        for kid, kind, maker, Ts in (
+                ("K3", "q4_k", rand_q4k, (16, 128, 300, 512)),
+                ("K3", "q6_k", rand_q6k, (16, 128, 300, 512)),
+                ("K3.q5_k", "q5_k", rand_q5k, (8, 16, 128, 300, 512)),
+                ("K3.q8_0", "q8_0", rand_q8_0, (8, 16, 128, 300, 512)),
+                ("K13.q2_k", "q2_k", rand_q2k, (8, 16, 128, 300, 512)),
+                ("K13.q3_k", "q3_k", rand_q3k, (8, 16, 128, 300, 512))):
+            _kq_cases(kid, f"{kind} {name}", maker(rng, *shape, DEV), Ts, rng)
+    for name, shape in K7_SHAPES:
+        Ts = ((1, 8, 16, 128, 300, 512) if name in ("w_gateup", "w_down")
+              else (1, 8, 512))
+        _kq_cases("K13.q4_k_i8", f"q4_k_i8 {name}",
+                  _MAKERS["q4_k_i8"](rng, *shape, DEV), Ts, rng)
+    for kid, kind, maker in (("K3", "q4_k", rand_q4k),
+                             ("K3.q8_0", "q8_0", rand_q8_0)):
+        _kq_cases(kid, f"{kind} fixture wo", maker(rng, 256, 256, DEV), (16,),
+                  rng)
 
 
 # (kind, scale group G) -> the K12.iq cases (name, (out_f, in_f)) and the
@@ -602,24 +695,24 @@ def phase_kq_matmul(rng) -> None:
 _IQ_K12 = (("wo", (2048, 2048)), ("wk", (256, 2048)),
            ("w_gateup", (11264, 2048)), ("w_down", (2048, 5632)),
            ("output", (32000, 2048)))
-_IQ_K13 = tuple((name, shape, T) for name, shape in (
-    ("w_gateup", (11264, 2048)), ("w_down", (2048, 5632)))
-    for T in (8, 128, 512))
+_IQ_K13 = tuple((name, shape, (8, 16, 128, 300, 512)) for name, shape in (
+    ("w_gateup", (11264, 2048)), ("w_down", (2048, 5632))))
 IQ_CASES = (
-    ("iq2p", 32, _IQ_K12, _IQ_K13 + (("fixture wo", (256, 256), 1),)),
-    ("iq3px", 32, _IQ_K12, _IQ_K13 + (("fixture w_gateup", (1024, 256), 1),)),
+    ("iq2p", 32, _IQ_K12, _IQ_K13 + (("fixture wo", (256, 256), (1,)),)),
+    ("iq3px", 32, _IQ_K12, _IQ_K13 + (("fixture w_gateup", (1024, 256), (1,)),)),
     ("iq3ps", 32, _IQ_K12, _IQ_K13),
     ("iq1p", 32, _IQ_K12, _IQ_K13),
     ("iq2p", 16, _IQ_K12[2:4] + (("fixture ffn_down", (256, 512)),),
-     _IQ_K13[:3]),
+     (("w_gateup", (11264, 2048), (8, 16, 128, 300, 512)),)),
     ("iq1p", 8, _IQ_K12[2:4] + (("fixture w_gateup", (1024, 256)),),
-     _IQ_K13[:3]))
+     (("w_gateup", (11264, 2048), (8, 16, 128, 300, 512)),)))
 
 
 def phase_iq_kernels(rng) -> None:
     """K12.iq and K13.iq for each IQ kind (IQ_CASES) at the 1.1B shapes, T
-    = 1 (K12.iq; K13.iq at the narrow fixture shapes) and T = 8 / 128 / 512
-    (K13.iq), with G = 16 (iq2p) and G = 8 (iq1p) beside G = 32."""
+    = 1 (K12.iq; K13.iq at the narrow fixture shapes) and T = 8 / 16 / 128
+    / 300 / 512 (K13.iq, as `_kq_cases` holds them), with G = 16 (iq2p) and
+    G = 8 (iq1p) beside G = 32."""
     for kind, G, k12_cases, k13_cases in IQ_CASES:
         for name, (out_f, in_f) in k12_cases:
             qt = rand_iq(rng, out_f, in_f, DEV, kind, G)
@@ -640,25 +733,9 @@ def phase_iq_kernels(rng) -> None:
                     lambda: torch.matmul(xr, w.t()),
                     _wbytes(qt) + _nbytes(x) + out_f * 2)
             del w
-        for name, (out_f, in_f), T in k13_cases:
-            qt = rand_iq(rng, out_f, in_f, DEV, kind, G)
-            x = torch.from_numpy((rng.standard_normal((T, in_f)) * 0.5)
-                                 .astype(np.float32)).to(DEV).bfloat16()
-            y = qm.kq_matmul(x, qt)
-            ref = qm.kq_matmul_plain(x, qt)
-            torch.cuda.synchronize()
-            # the same bf16(v * s) weights and group sums, f32 accumulation
-            # in another order, bf16 output: one rounding step of max |y|
-            err = (y.float() - ref.float()).abs().max().item()
-            tol = 2 ** -7 * ref.float().abs().max().item()
-            w = dequant(qt)
-            _record(f"K13.{kind}", f"G={G} {name} {out_f}x{in_f} T={T}", err,
-                    tol, lambda: qm.kq_matmul(x, qt),
-                    lambda: qm.kq_matmul_plain(x, qt),
-                    lambda: torch.matmul(x, w.t()),
-                    _wbytes(qt) + _nbytes(x) + T * out_f * 2,
-                    2 * T * in_f * out_f)
-            del w
+        for name, shape, Ts in k13_cases:
+            _kq_cases(f"K13.{kind}", f"{kind} G={G} {name}",
+                      rand_iq(rng, *shape, DEV, kind, G), Ts, rng)
 
 
 def phase_flash_decode(rng) -> None:
@@ -1441,7 +1518,8 @@ def _idle_share(run) -> str:
 def phase_profiled(card: str) -> None:
     """The device idle share, under torch.profiler, of the synthetic 1.1B
     q4_k: a fast-forwarded single-stream request decoding 64 greedy tokens,
-    the same under KCPP_FFN_FUSED=1, then 32 batched steps of 8
+    the same under KCPP_FFN_FUSED=1, the 300-token prefill as one chunk,
+    then 32 batched steps of 8
     fast-forwarded greedy requests (8 slots) and of 16 (16 slots under
     KCPP_SBQ=1). A
     profiler session slows every later decode of the process, so this runs
@@ -1466,6 +1544,17 @@ def phase_profiled(card: str) -> None:
         eng.generate(prompt, gp)
         idle = _decode_idle_share(eng, prompt, sampler)
     print(f"greedy decode under KCPP_FFN_FUSED=1, 64 tokens under "
+          f"torch.profiler ({card}): {idle}", flush=True)
+
+    def prefill():  # the 300-token prompt as one chunk from position 0
+        eng.reset_context()
+        with torch.inference_mode():
+            eng._eval_chunk(prompt, 0)
+        torch.cuda.synchronize()
+
+    prefill()
+    idle = _idle_share(prefill)
+    print(f"prefill of the 300-token prompt (88 K3 at T=512, 22 K4) under "
           f"torch.profiler ({card}): {idle}", flush=True)
     del eng
     rng = np.random.default_rng(2)
@@ -2675,6 +2764,7 @@ def main() -> int:
                   phase_paged_flash_decode, phase_quant_decode,
                   phase_stacked):
         _timed(phase, rng)
+    print_kq_classes()
     torch.cuda.synchronize()
     global _flush
     _flush = None

@@ -476,15 +476,20 @@ class BatchedEngine:
 
     def _forward(self, tok: torch.Tensor, pos: torch.Tensor,
                  table: torch.Tensor | None = None, cache=None) -> torch.Tensor:
-        """Last-token logits (B, V) f32 of one batched forward."""
+        """Last-token logits (B, V) f32 of one batched forward. The output
+        projection always runs over n_slots rows (a one-slot prefill chunk
+        padded), as in every decode step and admission wave: a request's
+        first token is then the same whether it prefills alone or beside
+        others."""
         cache = self.cache if cache is None else cache
         if self.paged:
             lg, _ = model_llama.forward_paged(
                 self.model.params, self.cfg, tok, pos, cache, table,
-                last_only=True)
+                last_only=True, head_rows=self.n_slots)
         else:
             lg, _ = model_llama.forward(self.model.params, self.cfg, tok,
-                                        pos, cache, last_only=True)
+                                        pos, cache, last_only=True,
+                                        head_rows=self.n_slots)
         return lg[:, -1]
 
     # -- prefill -------------------------------------------------------------

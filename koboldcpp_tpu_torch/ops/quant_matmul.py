@@ -30,7 +30,9 @@ CUDA tensor it launches the kernel or raises.
   K3  kq_matmul     the other T       (csrc/kq_matmul.cu; JAX
   K13                                  `_packed_matmul_2d`; K13 names its
                                        q2_k/q3_k, IQ and q4_k_i8 bodies;
-                                       q4_k_i8 takes it at every T)
+                                       q4_k_i8 takes it at every T; two
+                                       variants, the tiling from
+                                       `kq_plan`)
   K17a q4k_matvec_stacked T=1 q4_k/    (csrc/q4k_matvec.cu with a layer
                      q5_k, layer li    index; JAX `_packed_matvec_q4k_
                      of stacked fields stacked`: K1's bodies)
@@ -59,7 +61,9 @@ counterpart for a layer-stacked QTensor (the scan decode path's
 """
 from __future__ import annotations
 
+import functools
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -755,28 +759,127 @@ def _affine_group(qt: QTensor) -> int:
     return iq_group(qt) if group is None else group
 
 
+class KqPlan(NamedTuple):
+    """How `kq_matmul` tiles one call (csrc/kq_matmul.cu): the variant
+    ("swap": mma.sync with the tokens as N, T <= 8; "wgmma": warpgroup
+    MMA, T > 8), the output tile (rows: weight rows per block; tokens:
+    tokens per block), the K split (parts of a block that each take every
+    split-th superblock, added in a fixed order at the end) and the grid
+    (out_f / rows, ceil(T / tokens))."""
+    variant: str
+    rows: int
+    tokens: int
+    split: int
+    grid: tuple[int, int]
+
+
+# the kernel's K step: one 256-column superblock, which every packed field
+# covers in whole 16-byte pieces
+KQ_K_STEP = 256
+KQ_SWAP_MAX_T = 8  # the swapped-operand variant's tokens (mma.sync N)
+_SMS = 132  # the H100's SMs: the plan's grid-fill target
+_KQ_VARIANTS = ("swap", "wgmma")
+
+
+# the kinds whose per-superblock shared memory (a 192- or 256-byte code
+# image per row, or iq1p's 8-column scales and mins) leaves room for no
+# second 64-row group in a K-split block
+_KQ_WIDE_KINDS = ("q6_k", "q8_0", "q4_k_i8", "iq1p")
+
+
+def kq_split(out_f: int, in_f: int) -> int:
+    """The wgmma variant's K split: 1 where out_f / 64 row tiles fill the
+    card, else 2 warpgroup parts per tile where the superblock count is
+    even (a split of 4 lost more at T = 512 on the 1.1B's 2048- and
+    2560-row weights than it gained at T <= 128). A function of the
+    weight's shape alone, so a row's sums run in the same order at every
+    T."""
+    return 1 if out_f // 64 >= _SMS or (in_f // KQ_K_STEP) % 2 else 2
+
+
+@functools.lru_cache(maxsize=4096)
+def kq_plan(kind: str, T: int, out_f: int, in_f: int, grp: int = 0) -> KqPlan:
+    """The tiling of K3 / K13 for x (T, in_f) and an (out_f, in_f) weight of
+    `kind` (grp: an IQ kind's scale group). Raises ValueError for a shape
+    the kernel does not take.
+
+    T <= 8 takes the swapped-operand variant: 16 weight rows per block, the
+    K split across 4 warps. Larger T takes the wgmma variant with
+    `kq_split`'s split. Split: 64 x 64 tiles up to T = 128, then 64 x 128
+    (`_KQ_WIDE_KINDS`) or 128 rows of 64 / 128 tokens (128 while the
+    blocks still fill half the card). Unsplit: 64-token tiles up to T = 64
+    or while out_f / 64 tiles of 128 tokens would leave SMs idle, 128
+    otherwise; 128 weight rows where that still fills the card, 64
+    otherwise (the shapes measured fastest on the H100; PERF.md).
+    The splits do not depend on T, and the tile shapes only regroup
+    independent rows and columns, so within a variant row t of y is the
+    same whatever T is."""
+    if kind not in _K3_KINDS:
+        raise ValueError(f"kq_matmul serves {tuple(_K3_KINDS)}, not {kind}")
+    if T < 1 or in_f <= 0 or in_f % KQ_K_STEP or out_f <= 0 or out_f % 64:
+        raise ValueError(f"kq_matmul takes T >= 1, in_f % 256 == 0 and "
+                         f"out_f % 64 == 0, not T={T} ({out_f}, {in_f})")
+    if kind in IQ_KINDS and grp not in (8, 16, 32):
+        raise ValueError(f"{kind}: scale group {grp} is not 8, 16 or 32")
+    if T <= KQ_SWAP_MAX_T:
+        return KqPlan("swap", 16, KQ_SWAP_MAX_T, 4, (out_f // 16, 1))
+    split = kq_split(out_f, in_f)
+    if split > 1:
+        # small T: the most blocks; large T: a wider tile, less x re-read
+        # (two 64-row groups where the kind's superblock slots leave room)
+        rows, tokens = 64, 64
+        if T > 128:
+            if kind in _KQ_WIDE_KINDS:
+                tokens = 128
+            else:
+                rows = 128
+                tokens = 128 if (out_f // 128) * -(-T // 128) > _SMS // 2 \
+                    else 64
+    else:
+        tokens = 128 if T > 64 and (out_f // 64) * -(-T // 128) >= _SMS \
+            else 64
+        rows = 128 if (out_f % 128 == 0
+                       and (out_f // 128) * -(-T // tokens) >= _SMS) else 64
+    n_tiles = -(-T // tokens)
+    if n_tiles > 65535:
+        raise ValueError(f"kq_matmul: T={T} needs more than 65535 tiles")
+    return KqPlan("wgmma", rows, tokens, split, (out_f // rows, n_tiles))
+
+
 def kq_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """K3 / K13 wrapper. x (T, in_f) bf16 contiguous -> (T, out_f) bf16."""
+    """K3 / K13 wrapper. x (T, in_f) bf16 contiguous -> (T, out_f) bf16.
+    Two launches, counted once: the prep kernel (x with its columns
+    permuted per superblock, the affine term's group sums) and the matmul
+    `kq_plan` picks."""
     if not x.is_cuda:
         return kq_matmul_plain(x, qt)
     out_f, in_f = qt.shape
     T = x.shape[0]
     what = "K13" if qt.kind in _K13_KINDS else "K3"
     _check_operands(x, qt, what)
+    G = iq_group(qt) if qt.kind in IQ_KINDS else 0
+    plan = kq_plan(qt.kind, T, out_f, in_f, G)
+    if any(t.data_ptr() % 16 for t in (x, *qt.data.values())):
+        raise ValueError(f"{what} takes 16-byte aligned x and fields")
     lib = _build.load("kq_matmul", {
-        "k3_kq_matmul": [_build.I] + [_build.P] * 8 + [_build.I] * 4
+        "k3_kq_matmul": [_build.I] + [_build.P] * 9 + [_build.I] * 10
         + [_build.P]})
     d = qt.data
     kind, w0, w1, w2, _ = _K3_KINDS[qt.kind]
     group = _affine_group(qt)
-    xs = _group_sums(x, group) if group else None
+    xp = torch.empty_like(x)
+    xs = None
+    if group:
+        na = 2 if qt.kind == "iq1p" else 1  # affine k16 steps per superblock
+        xs = torch.empty(((in_f // KQ_K_STEP) * na * -(-T // 8) * 128,),
+                         dtype=torch.bfloat16, device=x.device)
     y = torch.empty((T, out_f), dtype=torch.bfloat16, device=x.device)
     _build.check(lib, lib.k3_kq_matmul(
-        kind, x.data_ptr(), _ptr(xs), d[w0].data_ptr(),
+        kind, x.data_ptr(), xp.data_ptr(), _ptr(xs), d[w0].data_ptr(),
         _ptr(d[w1] if w1 else None), _ptr(d[w2] if w2 else None),
         d["scale"].data_ptr(), _ptr(d.get("min")), y.data_ptr(), T, out_f,
-        in_f, iq_group(qt) if qt.kind in IQ_KINDS else 0,
-        _build.stream_ptr()), what)
+        in_f, G, _KQ_VARIANTS.index(plan.variant), plan.rows, plan.tokens,
+        plan.split, *plan.grid, _build.stream_ptr()), what)
     _count(what, qt)
     return y
 
