@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 1. builds every kernel of koboldcpp_tpu_torch/csrc/ (one nvcc per source,
-   all at once) and prints the build time and the card's name and power
-   limit;
+   all at once) and prints the build time (each source's too) and the
+   card's name and power limit;
 2. holds each kernel (K1, K2, K7, K3, K4, K5, K8, K6, K9, K10, the q5_k /
    q8_0 bodies K1.q5_k, K7.q5_k, K2.q8_0, K3.q5_k, K3.q8_0, the q2_k /
    q3_k bodies K12.q2_k, K12.q3_k, K13.q2_k, K13.q3_k, and the native IQ
@@ -18,7 +18,9 @@
    (KCPP_MM_I8=0); K9 / K10 also at page size
    128) against its plain PyTorch version on the card at the
    TinyLlama-1.1B shapes (and
-   the fixtures' widths; K4 also at head_dim 128 and 256), with the max error
+   the fixtures' widths; K4 also at head_dim 128 and 256; K5, K6, K8, K9
+   and K10 also at head_dim 80, 96 and 256 and at 128 query heads over 8
+   kv heads, `HEAD_SHAPES`), with the max error
    against its stated tolerance and the times of the kernel, the plain
    version, one PyTorch library call computing the same function (where
    there is one), and the least time the card could take; every K3 / K13
@@ -26,7 +28,9 @@
    `wo` 256x256 too), twice with the same bits and row for row equal
    across T within the variant `kq_plan` picks (printed per case, with the
    device time alone from CUDA-graph replays, and per T class <= 16 /
-   >= 128 after the kernel phases); K7's rows equal
+   >= 128 after the kernel phases; K4 and every flash-decode case also
+   with its device time alone, summed per kernel against SDPA); K7's rows
+   equal
    K1 on each row alone (K7.q5_k K1.q5_k), K2.q8_0 and K2.q8_0_bf16 equal
    their plain versions (the opt-in fixtures' decode step runs K5 over
    their f32 cache),
@@ -49,7 +53,10 @@
    again (fast-forward) and a prompt that forces a context shift, checks
    that K1, K3, K4 and K5 ran, and that the same engine with flash prefill
    off gives the same tokens (near-ties allowed) and its prefill time; then
-   the same with `quantkv=1` (the Q8 cache, K6 in place of K5);
+   the same with `quantkv=1` (the Q8 cache, K6 in place of K5); then a
+   synthetic q4_k model at Phi-3-mini's widths (head_dim 96, 32 kv heads,
+   8 layers): a ~300-token prompt and 16 greedy tokens, every decode step
+   through K5, the same tokens with K5's plain version in its place;
 4. serves the same model through BatchedEngine (8 slots, context 2048),
    on the slot cache and on the paged pool (P=64): 8 concurrent greedy
    requests of 100-300 prompt tokens and 64 new tokens each, which must
@@ -128,6 +135,7 @@ printing no result, when no GPU is present.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import json
 import os
 import socket
@@ -343,9 +351,10 @@ def _check(ok: bool, what) -> None:
 
 def _record(kid: str, what: str, err: float, tol: float, kernel, plain,
             library, nbytes: int, flops: int = 0,
-            peak: float = BF16_FLOPS) -> None:
+            peak: float = BF16_FLOPS, dev: bool = False) -> None:
     """library: one PyTorch call computing the same function, or None
-    where there is none."""
+    where there is none. dev: also time the kernel and the library call
+    on the device alone (`_dev_ms`)."""
     _check(err <= tol, f"{kid} {what}: max error {err} > {tol}")
     bound, by = _bound_ms(nbytes, flops, peak)
     case = {"case": what, "max_abs_err": err, "tol": tol,
@@ -358,6 +367,11 @@ def _record(kid: str, what: str, err: float, tol: float, kernel, plain,
     print(f"{kid} {what}: max_abs_err {err:.3g} (tol {tol:.3g}) "
           f"kernel {case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, "
           f"library {lib}, bound {bound:.4f} ms ({by})", flush=True)
+    if dev:
+        case["dev_ms"] = _dev_ms(kernel)
+        case["dev_library_ms"] = _dev_ms(library)
+        print(f"  device alone: kernel {case['dev_ms']:.4f} ms, library "
+              f"{case['dev_library_ms']:.4f} ms", flush=True)
 
 
 def _nbytes(*ts) -> int:
@@ -595,6 +609,25 @@ def _dev_ms(fn, reps: int = 10) -> float:
     return ms[1] - ms[0]
 
 
+# the attention kernels whose cases carry device-alone times
+ATTENTION = ("K4", "K5", "K6", "K8", "K9", "K10", "K16", "K17c")
+
+
+def print_attention_sums() -> None:
+    """Per attention kernel: kernel / library summed over its cases, as
+    `_record` times them (host included) and on the device alone."""
+    for kid in ATTENTION:
+        cases = CASES[kid]
+        k, lib = (sum(c[n] for c in cases) for n in ("ms", "library_ms"))
+        dk, dl = (sum(c[n] for c in cases) for n in ("dev_ms",
+                                                     "dev_library_ms"))
+        bound = sum(c["bound_ms"] for c in cases)
+        print(f"{kid} ({len(cases)} cases): kernel / library {k:.4f} / "
+              f"{lib:.4f} ms = {k / max(lib, 1e-9):.2f}x; device alone "
+              f"{dk:.4f} / {dl:.4f} ms = {dk / max(dl, 1e-9):.2f}x; bound "
+              f"{bound:.4f} ms", flush=True)
+
+
 # K3 / K13 per T class (<= 16, >= 128): (kernel, library) ms as `_record`
 # times them and the same on the device alone (`_dev_ms`), summed
 KQ_CLASSES: dict = {}
@@ -636,12 +669,8 @@ def _kq_cases(kid: str, label: str, qt, Ts, rng, xmax=None) -> None:
                 lambda: qm.kq_matmul_plain(x, qt),
                 lambda: torch.matmul(x, w.t()),
                 _wbytes(qt) + _nbytes(x) + T * out_f * 2,
-                2 * T * in_f * out_f)
+                2 * T * in_f * out_f, dev=True)
         case = CASES[kid][-1]
-        case["dev_ms"] = _dev_ms(lambda: qm.kq_matmul(x, qt))
-        case["dev_library_ms"] = _dev_ms(lambda: torch.matmul(x, w.t()))
-        print(f"  device alone: kernel {case['dev_ms']:.4f} ms, library "
-              f"{case['dev_library_ms']:.4f} ms", flush=True)
         if T <= 16 or T >= 128:
             sums = KQ_CLASSES.setdefault((kid, "<=16" if T <= 16 else ">=128"),
                                          [0.0, 0.0, 0.0, 0.0, 0])
@@ -738,14 +767,28 @@ def phase_iq_kernels(rng) -> None:
                       rand_iq(rng, *shape, DEV, kind, G), Ts, rng)
 
 
+# head shapes the port serves beyond the 1.1B's 32/4/64 (H, Hkv, head_dim):
+# D = 80 (32/8), Phi-3-mini's 32/32/96, gemma-2-9b's 16/8/256, and
+# Llama-3.1-405B's 128/8/128 (G = 16, G * D = 2048)
+HEAD_SHAPES = ((32, 8, 80), (32, 32, 96), (16, 8, 256), (128, 8, 128))
+# positions of the 8-sequence cases: pos 0, page boundaries, the last row,
+# a dead slot
+BATCH_POSITIONS = (0, 1, 63, 64, 700, 2047, -1, 256)
+
+
 def phase_flash_decode(rng) -> None:
     # the 1.1B shape at four positions with nearly flat scores; then peaked
     # scores (see _peak) at two of them, and B=2 at head_dim 128 (an 8B-class
-    # GQA shape) with one live and one dead (pos < 0) sequence
+    # GQA shape) with one live and one dead (pos < 0) sequence; then each of
+    # HEAD_SHAPES, one sequence peaked at pos 700 and eight at mixed
+    # positions
     for B, S, H, Hkv, D, positions, peaked in (
             [(1, 2048, 32, 4, 64, (p,), False) for p in (0, 1, 700, 2047)]
             + [(1, 2048, 32, 4, 64, (p,), True) for p in (700, 2047)]
-            + [(2, 4096, 32, 8, 128, (3000, -1), True)]):
+            + [(2, 4096, 32, 8, 128, (3000, -1), True)]
+            + [c for H, Hkv, D in HEAD_SHAPES
+               for c in ((1, 2048, H, Hkv, D, (700,), True),
+                         (8, 2048, H, Hkv, D, BATCH_POSITIONS, True))]):
         _flash_decode_case(rng, B, S, H, Hkv, D, positions, peaked)
 
 
@@ -753,13 +796,15 @@ def _peak(rng, q, kc, positions, G: int) -> None:
     """Make a few rows dominate the softmax, so that a row read or missed
     by mistake moves the output by far more than rounding can. Each kv
     group's query heads share a direction u (score of a row c*u ~ c); the
-    rows around the first two and the last 256-row split boundaries below
-    the history end, and the last history row, get c in [8, 9]; the global
-    maximum (c = 9.5) sits in the last split; the row at pos (stale before
-    this step's write) and the one after it get c = 11 and must not be
-    read. The other rows score ~N(0, 0.7^2)."""
+    rows around the first two and the last split boundaries of the
+    kernel's plan (`flash_decode.decode_plan`) below the history end, and
+    the last history row, get c in [8, 9]; the global maximum (c = 9.5)
+    sits in the last split; the row at pos (stale before this step's
+    write) and the one after it get c = 11 and must not be read. The other
+    rows score ~N(0, 0.7^2)."""
     B, H, D = q.shape
     S, Hkv = kc.shape[1], H // G
+    rps, _ = flash_decode.decode_plan(B, Hkv, S)
     u = torch.nn.functional.normalize(
         torch.from_numpy(rng.standard_normal((B, Hkv, D)).astype(np.float32)),
         dim=-1).to(q.device)
@@ -770,8 +815,8 @@ def _peak(rng, q, kc, positions, G: int) -> None:
         if n_hist == 0:  # nothing is read: only the stale rows below
             kv[b, :2] = 11.0 * u[b]
             continue
-        last = (n_hist - 1) // 256 * 256
-        read = sorted({r for j in {256, 512, last} if 0 < j < n_hist
+        last = (n_hist - 1) // rps * rps
+        read = sorted({r for j in {rps, 2 * rps, last} if 0 < j < n_hist
                        for r in (j - 1, j)} | {n_hist - 1})
         for r, c in zip(read, np.linspace(8.0, 9.0, len(read))):
             kv[b, r] = c * u[b]
@@ -861,16 +906,18 @@ def _flash_decode_case(rng, B, S, H, Hkv, D, positions, peaked,
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 ql, kq, vq, attn_mask=mask, scale=scale, enable_gqa=True),
             2 * hist_rows * KD * el + _nbytes(q, kn, vn, pos) + B * H * D * 4
-            + 2 * n_written * KD * el)
+            + 2 * n_written * KD * el, dev=True)
 
 
 def phase_paged_flash_decode(rng) -> None:
     """K8 at the 1.1B's batched decode shape: B=8, H=32, Hkv=4, D=64, pages
     of P=64 rows, MP=32 pages (S=2048) per sequence, handed out in a
-    shuffled order; flat scores, then peaked ones (see _peak)."""
-    positions = (0, 1, 63, 64, 700, 2047, -1, 256)
+    shuffled order; flat scores, then peaked ones (see _peak); then peaked
+    at each of HEAD_SHAPES."""
     for peaked in (False, True):
-        _paged_case(rng, 8, 32, 4, 64, 64, 32, positions, peaked)
+        _paged_case(rng, 8, 32, 4, 64, 64, 32, BATCH_POSITIONS, peaked)
+    for H, Hkv, D in HEAD_SHAPES:
+        _paged_case(rng, 8, H, Hkv, D, 64, 32, BATCH_POSITIONS, True)
 
 
 def _paged_case(rng, B, H, Hkv, D, P, MP, positions, peaked) -> None:
@@ -954,7 +1001,7 @@ def _paged_case(rng, B, H, Hkv, D, P, MP, positions, peaked) -> None:
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 ql, kq, vq, attn_mask=mask, scale=scale, enable_gqa=True),
             2 * hist_rows * KD * 2 + _nbytes(q, kn, vn, pos, table)
-            + B * H * D * 4 + 2 * n_written * KD * 2)
+            + B * H * D * 4 + 2 * n_written * KD * 2, dev=True)
 
 
 def _bf16(rng, shape, s=1.0):
@@ -1003,7 +1050,8 @@ def phase_flash_prefill(rng) -> None:
                 lambda: flash_prefill.flash_prefill_plain(q, k, v, pos, scale),
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     qs, ks, vs, is_causal=True, scale=scale, enable_gqa=True),
-                _nbytes(q, k, v, pos) + _nbytes(q), 4 * H * D * pairs)
+                _nbytes(q, k, v, pos) + _nbytes(q), 4 * H * D * pairs,
+                dev=True)
 
 
 QUANT_POSITIONS = (0, 1, 63, 64, 700, 2047, -1, 256)
@@ -1030,13 +1078,17 @@ def phase_quant_decode(rng) -> None:
     QUANT_POSITIONS (pos 0, page boundaries, the last row, a dead slot),
     flat scores, then peaked ones (see _peak); then K9 / K10 at P=128
     (MP=16), the page size where the JAX package runs K11 over column
-    pools."""
+    pools; then each of the three peaked at each of HEAD_SHAPES."""
     for kid in ("K6", "K9", "K10"):
         for peaked in (False, True):
             _quant_case(rng, kid, 8, 32, 4, 64, 64, 32, QUANT_POSITIONS,
                         peaked)
     for kid in ("K9", "K10"):
         _quant_case(rng, kid, 8, 32, 4, 64, 128, 16, QUANT_POSITIONS, True)
+    for kid in ("K6", "K9", "K10"):
+        for H, Hkv, D in HEAD_SHAPES:
+            _quant_case(rng, kid, 8, H, Hkv, D, 64, 32, QUANT_POSITIONS, True)
+            torch.cuda.empty_cache()
 
 
 def _quant_case(rng, kid, B, H, Hkv, D, P, MP, positions, peaked) -> None:
@@ -1129,7 +1181,7 @@ def _quant_case(rng, kid, B, H, Hkv, D, P, MP, positions, peaked) -> None:
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 ql, kl, vl, attn_mask=mask, scale=scale, enable_gqa=True),
             hist_rows * row_bytes + _nbytes(q, kn, vn, *extra)
-            + B * H * D * 4 + n_written * row_bytes)
+            + B * H * D * 4 + n_written * row_bytes, dev=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1326,7 +1378,7 @@ def _rows_case(rng, B, H, Hkv, D, positions, dtype) -> None:
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 ql, kq, vq, attn_mask=mask, scale=scale, enable_gqa=True),
             2 * hist_rows * KD * el + _nbytes(q, kn, vn, pos) + B * H * D * 4
-            + 2 * n_written * KD * el)
+            + 2 * n_written * KD * el, dev=True)
 
 
 def _k16_case(rng, S, H, Hkv, D, pos, softcap) -> None:
@@ -1368,7 +1420,7 @@ def _k16_case(rng, S, H, Hkv, D, pos, softcap) -> None:
                                                         softcap),
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 ql, kq, vq, scale=scale, enable_gqa=True),
-            2 * n * Hkv * D * 2 + _nbytes(q, p) + H * D * 4)
+            2 * n * Hkv * D * 2 + _nbytes(q, p) + H * D * 4, dev=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1478,6 +1530,70 @@ def phase_quant_single(card: str, bf16_tps: float) -> dict:
           f"tokens {t1.prompt_time * 1e3:.1f} ms, decode {t1.gen_tokens} "
           f"tokens {t1.gen_tps:.1f} tok/s (bf16 cache in this run: "
           f"{bf16_tps:.1f} tok/s); launches {counts}", flush=True)
+    del eng, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+# Phi-3-mini's published widths (microsoft/Phi-3-mini-4k-instruct,
+# config.json: hidden 3072, 32 attention heads of 96 over 32 kv heads, ffn
+# 8192, vocab 32064), depth cut from 32 layers to PHI3_LAYERS to keep the
+# script within its time; synthetic q4_k weights from a seed
+PHI3_LAYERS = 8
+PHI3_MINI = dataclasses.replace(
+    TINYLLAMA_1_1B, name="phi-3-mini-shaped-synthetic", vocab_size=32064,
+    hidden_size=3072, n_layers=PHI3_LAYERS, n_heads=32, n_kv_heads=32,
+    head_dim=96, intermediate_size=8192, max_position_embeddings=4096,
+    rope_dim=96)
+PHI3_DEPTH = 16  # greedy tokens
+
+
+def phase_phi3_decode(card: str) -> dict:
+    """A head_dim-96 model on the card: the synthetic Phi-3-mini-shaped q4_k
+    model, a 300-token prompt (prefill through the plain attention: K4 is
+    not built for head_dim 96, and the JAX engine leaves flash prefill off
+    there too), then PHI3_DEPTH greedy tokens, every decode step through K5
+    (one per layer); the same tokens with K5's plain version in its place
+    (near-ties apart)."""
+    model = synthetic_model(PHI3_MINI, "q4_k", seed=0, device=DEV)
+    eng = Engine(model, max_context=2048, device=DEV)
+    _check(not eng.use_flash_prefill, "flash prefill on at head_dim 96")
+    gp = GenParams(max_length=PHI3_DEPTH, bypass_eos=True,
+                   sampler=SamplerParams(temperature=0.0, rep_pen=1.0))
+    prompt = [1] + np.random.default_rng(3).integers(
+        3, PHI3_MINI.vocab_size, size=299).tolist()
+    eng.generate(prompt[:40], GenParams(max_length=8, bypass_eos=True,
+                                        sampler=gp.sampler))
+    eng.reset_context()
+    _build.launches.clear()
+    r1 = eng.generate(prompt, gp)
+    t1 = eng.last_timings
+    counts = dict(_build.launches)
+    _check(len(r1.tokens) == PHI3_DEPTH
+           and all(0 <= t < PHI3_MINI.vocab_size for t in r1.tokens),
+           f"Phi-3-mini shape: tokens {r1.tokens}")
+    steps = counts.get("K5", 0) // PHI3_MINI.n_layers
+    _check(counts.get("K5", 0) == PHI3_MINI.n_layers * steps
+           and steps >= PHI3_DEPTH - 1 and counts.get("K4", 0) == 0,
+           f"Phi-3-mini shape: K5 did not serve every decode step: {counts}")
+
+    def plain(q, kn, vn, kc, vc, pos, H, Hkv, scale, softcap=0.0):
+        return flash_decode.decode_attention_batched_plain(
+            q, kn, vn, kc, vc, pos, H, Hkv, scale, softcap), kc, vc
+
+    eng.reset_context()
+    with mock.patch.object(flash_decode, "decode_attention_batched", plain):
+        r2 = eng.generate(prompt, gp)
+    _same_or_near_tie(eng, prompt, r1.tokens, r2.tokens,
+                      "Phi-3-mini shape, K5 against its plain version")
+    c = PHI3_MINI
+    print(f"Phi-3-mini shape (hidden {c.hidden_size}, {c.n_heads}/"
+          f"{c.n_kv_heads} heads of {c.head_dim}, {c.n_layers} layers, q4_k, "
+          f"{card}): prefill {t1.prompt_tokens} tokens "
+          f"{t1.prompt_time * 1e3:.1f} ms, decode {t1.gen_tokens} tokens "
+          f"{t1.gen_tps:.1f} tok/s; {steps} decode steps (the engine's "
+          f"greedy chunks) through K5, {c.n_layers} a step; the same tokens "
+          f"with K5's plain version; launches {counts}", flush=True)
     del eng, model
     torch.cuda.empty_cache()
     return counts
@@ -2750,8 +2866,9 @@ def _timed(phase, *args):
 def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
-    print(f"build: {_build.build_seconds:.1f} s "
-          f"({', '.join(_build.SOURCES)})", flush=True)
+    print(f"build: {_build.build_seconds:.1f} s, all sources at once ("
+          + ", ".join(f"{s} {t:.1f} s" for s, t in
+                      _build.source_seconds.items()) + ")", flush=True)
     card = card_info()
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2765,6 +2882,7 @@ def main() -> int:
                   phase_stacked):
         _timed(phase, rng)
     print_kq_classes()
+    print_attention_sums()
     torch.cuda.synchronize()
     global _flush
     _flush = None
@@ -2773,6 +2891,7 @@ def main() -> int:
     # the main paths, each with the launch counts zeroed before it
     single, bf16_tps = _timed(phase_end_to_end, card)
     runs = [single, _timed(phase_quant_single, card, bf16_tps),
+            _timed(phase_phi3_decode, card),
             _timed(phase_batched_serving, card)]
     model = synthetic_model(TINYLLAMA_1_1B, "q4_k", seed=0, device=DEV)
     runs += [_timed(phase_fused_single, card, model, bf16_tps),

@@ -15,9 +15,9 @@
 // Replace koboldcpp_tpu/ops/flash_decode.py `decode_attention_batched`
 // (body `_bkernel`), `decode_attention_rows` (`_bkernel` with pos_off=1:
 // K17c), `decode_attention` (`_kernel`: K16), `decode_attention_batched_q8`
-// (`_bqkernel`),
-// `decode_attention_paged` (`_pkernel`), `decode_attention_paged_q8`
-// (`_pq8kernel`) and `decode_attention_paged_q4` (`_pq4kernel`).
+// (`_bqkernel`), `decode_attention_paged` (`_pkernel`),
+// `decode_attention_paged_q8` (`_pq8kernel`) and `decode_attention_paged_q4`
+// (`_pq4kernel`).
 // Per sequence b: online softmax over the history rows < pos only (no row
 // at or past pos is read; pos < 0 attends every row, as the TPU kernels'
 // dead-row remap does; pos >= S attends all S rows), scores q . k in f32
@@ -28,39 +28,76 @@
 // are; scores and p . V then read the f32 rows). K16 attends the rows
 // < pos + 1 and has no self term and no write. K17c's sequence b reads and
 // writes pool row li * B + b only, so the other layers' rows stay as they
-// were; it is otherwise K5, bit for bit. For the paged
-// kinds S = MP * P and row r of sequence b lives at pool row
-// tab[b, r / P] * P + r % P. The quantized kinds round as their TPU kernels
-// do: K6 dequantizes each history element to bf16(int8 * scale) before the
-// dot; K9/K10 dot q with the integer values and apply the scales on the
-// score side, score = (q . k_int) * k_scale * scale and weight =
-// bf16(p * v_scale) before weight . v_int. Each quantizes the new row as
-// kv/cache.py `_q8` / kv/paged.py `_quantize_q4` do (amax/127 or amax/7 per
-// head, round half to even, scale rounded to bf16), uses its dequantized
-// bf16 values for the self term, and writes the codes and the scale.
+// were; it is otherwise K5, bit for bit. For the paged kinds S = MP * P and
+// row r of sequence b lives at pool row tab[b, r / P] * P + r % P. The
+// quantized kinds round as their TPU kernels do: K6 dequantizes each
+// history element to bf16(int8 * scale) before the dot; K9/K10 dot q with
+// the integer values and apply the scales on the score side, score =
+// (q . k_int) * k_scale * scale and weight = bf16(p * v_scale) before
+// weight . v_int. Each quantizes the new row as kv/cache.py `_q8` /
+// kv/paged.py `_quantize_q4` do (amax/127 or amax/7 per head, round half to
+// even, scale rounded to bf16), uses its dequantized bf16 values for the
+// self term, and writes the codes and the scale. Head shapes: any head_dim
+// D with D % 16 == 0 up to 256 and any G = H / Hkv query heads per kv head.
 //
 // Bound on the H100: bytes (the live history rows' K and V values plus
-// their scales, and the row write). Design: flash-decoding split over the
-// sequence — grid (B * Hkv, NSPLIT); each block serves the G = H / Hkv
-// query heads of one kv head over a slice of the rows, 4 warps x 32-row
-// chunks, a lane scoring one row for all G heads, then owning D/32 output
-// columns for p . V. A second small kernel quantizes the new row, merges the
-// slices' (max, sum, acc), folds in the self term, writes the output and
-// the cache row. The TPU kernels walk a sequence's pages one after another
-// (grid (B, MP)); the paged kinds keep the slot kinds' split boundaries and
-// arithmetic and only compute each row's address through the page table,
-// so K8 over a page table gives bit for bit K5's output on the same history
-// laid out contiguously. K17c reads its layer index from device memory in
-// both launches, as the TPU kernel takes its row base by scalar prefetch,
-// so a captured decode step can point it at a device counter.
+// their scales, and the row write): a 1.1B step at pos 700 reads 0.7 MB, a
+// fifth of a microsecond at 3.35 TB/s, so a call is bound by its latency:
+// the launch, one round trip to HBM and the merge. The design (Hopper):
+// - one launch: grid (B * Hkv * ceil(G / 16), nsplit); a block serves 16
+//   query heads of one kv head (a head group: G > 16 takes several, G < 16
+//   pads the m16 tile with zero rows) over one split of the history. The
+//   split (rows_per_split, nsplit: ops/flash_decode.py `decode_plan`) is a
+//   function of (B, Hkv, S) alone, never of the positions, so no host read
+//   precedes a launch and the slot, paged and pooled kinds cut a history at
+//   the same rows (K8 = K5 and K17c = K5 bit for bit); it gives ~264 blocks
+//   to the 132 SMs (64-row splits at B = 1, Hkv = 4). Splits past a
+//   sequence's history return at once. Each live split writes its (max,
+//   sum, acc) partial; the last of them to finish (an atomic ticket per
+//   head group, reset by that block) merges the partials in split order,
+//   quantizes the new row, folds in the self term and writes the output
+//   and the cache row: the merge no longer costs a second launch. A lone
+//   live split (history within one split) merges from shared memory, with
+//   no partials and no ticket; the merge loads all splits' partials in one
+//   round (float4 a thread).
+// - Q, this step's k / v rows and the split's first tile are copied before
+//   the position is read (the tile's rows past the history are cleared
+//   once it is known), so the position's load and the copies overlap.
+// - 64-row tiles of K and V move into shared memory with cp.async (16-byte
+//   pieces, 8 for a nibble row whose D / 2 bytes are not a multiple of 16;
+//   neighbouring threads on neighbouring pieces of a head's row; rows past
+//   the history zero-filled), two stages when they fit in 96 KB, so the
+//   next tile's copy runs under this one's math; the paged kinds compute
+//   each row's address through the page table. A quantized kind's scales
+//   are loaded into registers a tile ahead and parked in shared memory.
+// - both products on the tensor cores, mma.sync m16n8k16 bf16 with f32
+//   accumulation, each warp on 16 rows of the tile: S (16 heads x 16 rows)
+//   = Q . K^T, the online softmax on the accumulator fragment (a head's
+//   max and sum reduce over the 4 lanes that hold its row), then P (the
+//   score fragment rounded to bf16, straight into the A operand) . V. The
+//   operands are exact in bf16: the bf16 rows (ldmatrix, .trans for V),
+//   bf16(int8 * scale) (K6), the integer codes of K9/K10 (|v| <= 127), bf16
+//   p and bf16(p * v_scale); only the order of the f32 sums changes. The f32
+//   rows kind splits each value into bf16 hi + lo (two products each; the
+//   residual is 2^-16 of the value), since bf16 alone would miss the f32
+//   rows' 2^-7 W tolerance on peaked scores.
+// - the four warps' states combine in shared memory in warp order, the
+//   partials in split order, so every result is deterministic.
+// Partials and the tickets live in a scratch the wrapper keeps across calls
+// (tickets zeroed once; every merge leaves its ticket at 0). A block may
+// read a row that another block of the same launch writes: the row at pos,
+// read ahead in a split's first tile (past the history: masked, V
+// cleared), or a live sequence's new row in a page that a dead sequence's
+// table also names (only the dead output, which no caller reads, sees it).
 // Launch counters: ops/_build.launches["K5"], ["K6"], ["K8"], ["K9"],
 // ["K10"], ["K16"], ["K17c"] (one per call).
 #include "common.cuh"
+#include "hopper.cuh"
 
 constexpr int NW = 4;        // warps per block
-constexpr int MAXG = 16;     // query heads per kv head
-constexpr int MAXGD = 1024;  // G * D
-constexpr int MAXD = 128;
+constexpr int TR = 16 * NW;  // history rows per tile: 16 per warp
+constexpr int GB = 16;       // query heads per block: one m16 tile
+constexpr int MAXNS = 256;   // splits per sequence (decode_plan's cap)
 
 // cache kinds: the element type of the rows and where the scales apply
 enum Kind { BF16_ROWS = 0, Q8_VALUE = 1, Q8_SCORE = 2, Q4_SCORE = 3,
@@ -69,441 +106,690 @@ enum Kind { BF16_ROWS = 0, Q8_VALUE = 1, Q8_SCORE = 2, Q4_SCORE = 3,
 // the kinds whose rows are integer codes with per-head scales
 #define QUANT_KIND(K) ((K) == Q8_VALUE || (K) == Q8_SCORE || (K) == Q4_SCORE)
 
+// bytes of one head's D elements in a cache row of kind `kind`
+__host__ __device__ constexpr int head_bytes(int kind, int D) {
+    return kind == F32_ROWS ? 4 * D : kind == BF16_ROWS ? 2 * D
+                                    : kind == Q4_SCORE ? D / 2 : D;
+}
+
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+
+// Shared memory of one block at head_dim D: the Q tile (16 rows of D bf16,
+// pitch qp) and this step's k and v rows (D bf16 each), then `nst` stages
+// of (K tile, V tile: TR rows of a head at pitch hp; k and v scales: TR f32
+// each); after the tile loop the same bytes hold the warps' states
+// (combine), a lone split's partial and the merge's tables.
+struct Plan {
+    int hp, qp, stage, nst, q_bytes, comb, total;
+    __host__ __device__ Plan(int kind, int D) {
+        hp = head_bytes(kind, D) + 16;  // 8 ldmatrix rows on distinct banks
+        qp = 2 * D + 16;
+        stage = 2 * TR * hp + 2 * TR * 4;
+        nst = 2 * stage <= 96 * 1024 ? 2 : 1;
+        q_bytes = GB * qp + 4 * D;
+        comb = NW * GB * D * 4 + NW * GB * 2 * 4 + GB * D * 4 + GB * 2 * 4;
+        const int merge = 2 * MAXNS * GB * 4 + GB * 2 * 4 + 2 * D * 8 + GB * 4 + 16;
+        total = q_bytes + imax(nst * stage, comb + merge);
+    }
+};
+
+struct Args {
+    const __nv_bfloat16* q;
+    const __nv_bfloat16* knew;  // null: K16 (no self term, no write)
+    const __nv_bfloat16* vnew;
+    uint8_t* kc;
+    uint8_t* vc;
+    __nv_bfloat16* ksc;  // (rows, Hkv) scales of the quantized kinds, or null
+    __nv_bfloat16* vsc;
+    const int* positions;
+    const int* tab;  // (B, MP) page table, or null
+    const int* li;   // K17c's layer, or null
+    float* part_acc;  // (units, nsplit, 16, D)
+    float* part_ml;   // (units, nsplit, 16, 2)
+    int* tickets;     // (units,), zero between calls
+    float* out;       // (B, H, D)
+    int MP, P, NP, B, S, Hkv, G, D, NG, rps, inclusive;
+    float scale, softcap;
+};
+
 // cache row of history row `row` of sequence b: contiguous (N, S, KD) at
 // sequence row cb (b, or li * B + b in a pool), or through the (B, MP) page
 // table of a paged pool (entries clamped to the pool)
-__device__ __forceinline__ size_t cache_row(const int* __restrict__ tab,
-                                            int b, int cb, int row, int S,
-                                            int MP, int P, int NP) {
-    if (tab == nullptr) return (size_t)cb * S + row;
-    const int page = min(max(tab[(size_t)b * MP + row / P], 0), NP - 1);
-    return (size_t)page * P + row % P;
+__device__ __forceinline__ size_t cache_row(const Args& a, int b, int cb,
+                                            int row) {
+    if (a.tab == nullptr) return (size_t)cb * a.S + row;
+    const int page = min(max(a.tab[(size_t)b * a.MP + row / a.P], 0), a.NP - 1);
+    return (size_t)page * a.P + row % a.P;
 }
 
-// bytes of one head's D elements in a cache row of kind KIND
-template <int KIND, int D>
-struct Row {
-    static constexpr int BYTES = KIND == F32_ROWS ? 4 * D
-                                 : KIND == BF16_ROWS ? 2 * D
-                                 : KIND == Q4_SCORE ? D / 2 : D;
-};
-
-// elements [8c, 8c + 8) of one head's row, as the score dot takes them:
-// bf16 or f32 values, bf16(int8 * scale) (K6), or the integer values (K9,
-// K10)
-template <int KIND, int D>
-__device__ __forceinline__ void load8(const uint8_t* __restrict__ head,
-                                      int c, float s, float kf[8]) {
-    if (KIND == F32_ROWS) {
-        const float4* h4 = reinterpret_cast<const float4*>(head);
-        const float4 a = h4[2 * c], b = h4[2 * c + 1];
-        kf[0] = a.x; kf[1] = a.y; kf[2] = a.z; kf[3] = a.w;
-        kf[4] = b.x; kf[5] = b.y; kf[6] = b.z; kf[7] = b.w;
-    } else if (KIND == BF16_ROWS) {
-        const uint4 kv = reinterpret_cast<const uint4*>(head)[c];
-        const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&kv);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            const float2 f = __bfloat1622float2(k2[e]);
-            kf[2 * e] = f.x;
-            kf[2 * e + 1] = f.y;
-        }
-    } else if (KIND == Q4_SCORE) {
-        // elements 8c.. are the low nibbles of bytes 8c.. below D/2, the
-        // high nibbles of bytes 8c - D/2.. above
-        const int hi = 8 * c >= D / 2;
-        const uint2 w = reinterpret_cast<const uint2*>(head)[c - hi * (D / 16)];
-        const uint32_t ws[2] = {w.x, w.y};
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-            const uint32_t byte = (ws[e >> 2] >> (8 * (e & 3))) & 0xFFu;
-            kf[e] = (float)((int)(hi ? byte >> 4 : byte & 0xFu) - 8);
-        }
+// elements k, k+1 of a head's row as the score product takes them: bf16(int8
+// * s) (K6) or the integer values (K9, K10); bf16 rows go through ldmatrix
+template <int KIND>
+__device__ __forceinline__ uint32_t k_pair(const uint8_t* row, int k, int D,
+                                           float s) {
+    int v0, v1;
+    if (KIND == Q4_SCORE) {  // low nibbles below D/2, high ones above
+        const int hi = k >= D / 2;
+        const uint32_t w = *reinterpret_cast<const uint16_t*>(row + k - hi * (D / 2));
+        const int sh = hi ? 4 : 0;
+        v0 = (int)((w >> sh) & 0xFu) - 8;
+        v1 = (int)((w >> (8 + sh)) & 0xFu) - 8;
     } else {
-        const uint2 w = reinterpret_cast<const uint2*>(head)[c];
-        const uint32_t ws[2] = {w.x, w.y};
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-            const float v = (float)(int8_t)((ws[e >> 2] >> (8 * (e & 3))) & 0xFFu);
-            kf[e] = KIND == Q8_VALUE ? bf2f(f2bf(v * s)) : v;
-        }
+        const uint32_t w = *reinterpret_cast<const uint16_t*>(row + k);
+        v0 = (int8_t)(w & 0xFFu);
+        v1 = (int8_t)(w >> 8);
     }
+    return KIND == Q8_VALUE ? pack_bf16((float)v0 * s, (float)v1 * s)
+                            : pack_bf16((float)v0, (float)v1);
 }
 
-// element d of one head's row as p . V takes it (see load8)
-template <int KIND, int D>
-__device__ __forceinline__ float load1(const uint8_t* __restrict__ head,
-                                       int d, float s) {
-    if (KIND == F32_ROWS) return reinterpret_cast<const float*>(head)[d];
-    if (KIND == BF16_ROWS)
-        return bf2f(reinterpret_cast<const __nv_bfloat16*>(head)[d]);
+// element d of a head's row as p . V takes it, before the bf16 rounding
+template <int KIND>
+__device__ __forceinline__ float v_elem(const uint8_t* row, int d, int D,
+                                        float s) {
+    if (KIND == F32_ROWS) return reinterpret_cast<const float*>(row)[d];
     if (KIND == Q4_SCORE) {
-        const uint32_t byte = head[d % (D / 2)];
+        const uint32_t byte = row[d % (D / 2)];
         return (float)((int)(d < D / 2 ? byte & 0xFu : byte >> 4) - 8);
     }
-    const float v = (float)reinterpret_cast<const int8_t*>(head)[d];
-    return KIND == Q8_VALUE ? bf2f(f2bf(v * s)) : v;
+    const float v = (float)reinterpret_cast<const int8_t*>(row)[d];
+    return KIND == Q8_VALUE ? v * s : v;
 }
 
-template <int KIND, int D>
+// an f32 pair as bf16 hi + lo (lo = the rounded residual)
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+    hi = pack_bf16(x0, x1);
+    lo = pack_bf16(x0 - __uint_as_float(hi << 16),
+                   x1 - __uint_as_float(hi & 0xFFFF0000u));
+}
+
+template <int KIND, int DMAX>
 __global__ void __launch_bounds__(NW * 32)
-flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
-                          const uint8_t* __restrict__ kc,
-                          const uint8_t* __restrict__ vc,
-                          const __nv_bfloat16* __restrict__ ksc,  // or null
-                          const __nv_bfloat16* __restrict__ vsc,
-                          const int* __restrict__ positions,
-                          const int* __restrict__ tab,  // (B, MP) or null
-                          const int* __restrict__ li,   // K17c's layer or null
-                          int MP, int P, int NP,
-                          float* __restrict__ part_acc,  // (B*Hkv, NS, G, D)
-                          float* __restrict__ part_ml,   // (B*Hkv, NS, G, 2)
-                          int S, int Hkv, int G, int rows_per_split,
-                          int inclusive, float scale, float softcap) {
-    constexpr int DPL = D / 32;  // output columns per lane
-    constexpr int HB = Row<KIND, D>::BYTES;
+flash_decode_kernel(const Args a) {
+    extern __shared__ __align__(16) uint8_t smem[];
     constexpr bool SCALED = QUANT_KIND(KIND);
     constexpr bool SCORE_SIDE = KIND == Q8_SCORE || KIND == Q4_SCORE;
-    __shared__ float q_s[MAXGD];
-    __shared__ float p_s[NW][32][MAXG];
-    __shared__ float acc_s[NW][MAXGD];
-    __shared__ float m_s[NW][MAXG], l_s[NW][MAXG];
+    const int D = a.D;
+    const Plan L(KIND, D);
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int unit = blockIdx.x, split = blockIdx.y;
+    const int hg = unit % a.NG, bk = unit / a.NG;
+    const int b = bk / a.Hkv, kvh = bk % a.Hkv;
+    const int g0 = hg * GB, Gb = min(GB, a.G - g0);
+    const bool self = a.knew != nullptr;
+    uint8_t* const qs = smem;
+    uint8_t* const nrow = smem + GB * L.qp;  // this step's k, v rows (bf16)
+    uint8_t* const body = smem + L.q_bytes;
 
-    const int bk = blockIdx.x, split = blockIdx.y, NS = gridDim.y;
-    const int b = bk / Hkv, kvh = bk % Hkv;
-    const int cb = (li ? li[0] * (int)(gridDim.x / Hkv) : 0) + b;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const size_t row_bytes = (size_t)Hkv * HB;
-    const int pos = positions[b];
-    // history rows < pos (K16: <= pos); pos < 0 reads every row
-    const int n_hist = pos < 0 ? S : min(pos + inclusive, S);
-    const int r_begin = split * rows_per_split;
-    const int r_end = min(r_begin + rows_per_split, n_hist);
-
-    for (int i = threadIdx.x; i < G * D; i += blockDim.x)
-        q_s[i] = bf2f(q[((size_t)b * Hkv * G + (size_t)kvh * G) * D + i]);
-    __syncthreads();
-
-    float m[MAXG], l[MAXG], acc[MAXG][DPL];
-#pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-        m[g] = -1e30f;
-        l[g] = 0.f;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
-    }
-    const uint8_t* kbase = kc + (size_t)kvh * HB;
-    const uint8_t* vbase = vc + (size_t)kvh * HB;
-
-    for (int r0 = r_begin + warp * 32; r0 < r_end; r0 += NW * 32) {
-        const int row = r0 + lane;
-        const bool valid = row < r_end;
-        // scores of this lane's row for all G heads
-        float sc[MAXG];
-#pragma unroll
-        for (int g = 0; g < MAXG; ++g) sc[g] = 0.f;
-        float ks = 1.f, vs = 0.f;
-        if (valid) {
-            const size_t cr = cache_row(tab, b, cb, row, S, MP, P, NP);
-            if (SCALED) {
-                ks = bf2f(ksc[cr * Hkv + kvh]);
-                vs = bf2f(vsc[cr * Hkv + kvh]);
+    // the head group's query rows (zero rows past G) and this step's k / v
+    // rows, in flight while the position is read
+    {
+        const __nv_bfloat16* qh = a.q + (((size_t)b * a.Hkv + kvh) * a.G + g0) * D;
+        const int ch = D / 8;
+        for (int i = tid; i < (GB + 2) * ch; i += blockDim.x) {
+            const int g = i / ch, c = i - g * ch;
+            if (g >= GB) {  // the new rows
+                if (self) {
+                    const __nv_bfloat16* src = (g == GB ? a.knew : a.vnew)
+                                               + ((size_t)b * a.Hkv + kvh) * D + 8 * c;
+                    cp_async16(nrow + (g - GB) * 2 * D + 16 * c, src);
+                }
+                continue;
             }
-            const uint8_t* kr = kbase + cr * row_bytes;
+            const bool ok = g < Gb;
+            cp_async16_zfill(qs + g * L.qp + 16 * c,
+                             ok ? (const void*)(qh + (size_t)g * D + 8 * c) : (const void*)a.q,
+                             ok ? 16 : 0);
+        }
+    }
+    const int cb = (a.li ? a.li[0] * a.B : 0) + b;
+    const int r_begin = split * a.rps;  // < S: nsplit = ceil(S / rps)
+    const int HB = head_bytes(KIND, D);
+    const size_t row_bytes = (size_t)a.Hkv * HB;
+    const uint8_t* kbase = a.kc + (size_t)kvh * HB;
+    const uint8_t* vbase = a.vc + (size_t)kvh * HB;
+    const int CW = HB % 16 == 0 ? 16 : 8;  // bytes per copy
+    const int CH = HB / CW;
+    auto stage_of = [&](int t) { return body + (t % L.nst) * L.stage; };
+    // tile t's K and V rows into its stage, rows from `lim` on zero-filled
+    auto issue = [&](int t, int lim) {
+        uint8_t* st = stage_of(t);
+        const int r0 = r_begin + t * TR;
+        for (int i = tid; i < 2 * TR * CH; i += blockDim.x) {
+            const int w = i / (TR * CH), rem = i - w * TR * CH;
+            const int rr = rem / CH, c = rem - rr * CH;
+            const int row = r0 + rr;
+            const bool ok = row < lim;
+            const uint8_t* src = a.kc;
+            if (ok) src = (w ? vbase : kbase) + cache_row(a, b, cb, row) * row_bytes + c * CW;
+            uint8_t* dst = st + (w * TR + rr) * L.hp + c * CW;
+            if (CW == 16) cp_async16_zfill(dst, src, ok ? 16 : 0);
+            else cp_async8_zfill(dst, src, ok ? 8 : 0);
+        }
+    };
+    // tile t's scales: thread tid < TR loads its row's, parks them later
+    auto scales_load = [&](int t, int lim, float& rk, float& rv) {
+        rk = rv = 0.f;
+        const int row = r_begin + t * TR + tid;
+        if (SCALED && tid < TR && row < lim) {
+            const size_t cr = cache_row(a, b, cb, row) * a.Hkv + kvh;
+            rk = bf2f(a.ksc[cr]);
+            rv = bf2f(a.vsc[cr]);
+        }
+    };
+    // tile 0 while the position is read: every row of the split's first
+    // tile inside the cache; rows past the history are cleared below
+    const int lim0 = min(r_begin + a.rps, a.S);
+    issue(0, lim0);
+    cp_async_commit();
+    float rk0, rv0;
+    scales_load(0, lim0, rk0, rv0);
+    const int pos = a.positions[b];
+    // history rows < pos (K16: <= pos); pos < 0 reads every row
+    const int n_hist = pos < 0 ? a.S : min(pos + a.inclusive, a.S);
+    const int n_live = max(1, (n_hist + a.rps - 1) / a.rps);
+    if (split >= n_live) {
+        cp_async_wait<0>();
+        return;
+    }
+    const int r_end = min(r_begin + a.rps, n_hist);
+    const int ntiles = r_end > r_begin ? (r_end - r_begin + TR - 1) / TR : 0;
+    auto scales_store = [&](int t, float rk, float rv) {
+        const int row = r_begin + t * TR + tid;
+        if (SCALED && tid < TR) {
+            float* sc = reinterpret_cast<float*>(stage_of(t) + 2 * TR * L.hp);
+            sc[tid] = row < r_end ? rk : 0.f;
+            sc[TR + tid] = row < r_end ? rv : 0.f;
+        }
+    };
+
+    // this warp's running state: lane holds heads lane/4 (h 0) and lane/4 +
+    // 8 (h 1); acc[nt] is the m16n8 fragment of output columns 8 nt..
+    float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+    float acc[DMAX / 8][4];
 #pragma unroll
-            for (int c = 0; c < D / 8; ++c) {
-                float kf[8];
-                load8<KIND, D>(kr, c, ks, kf);
+    for (int nt = 0; nt < DMAX / 8; ++nt)
 #pragma unroll
-                for (int g = 0; g < MAXG; ++g) {
-                    if (g < G) {
+        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+    const int wr = warp * 16;  // this warp's rows of a tile
+
+    auto compute = [&](int t) {
+        const uint8_t* kt = stage_of(t);
+        const uint8_t* vt = kt + TR * L.hp;
+        const float* ksm = reinterpret_cast<const float*>(kt + 2 * TR * L.hp);
+        const float* vsm = ksm + TR;
+        // S (16 heads x 16 rows) = Q . K^T
+        float s[2][4];
 #pragma unroll
-                        for (int e = 0; e < 8; ++e)
-                            sc[g] += q_s[g * D + c * 8 + e] * kf[e];
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < DMAX / 16; ++ks) {
+            if (ks >= D / 16) break;
+            uint32_t qa[4];
+            ldmatrix_x4(qa, qs + (((lane >> 3) & 1) * 8 + (lane & 7)) * L.qp
+                                + ks * 32 + (lane >> 4) * 16);
+            if (KIND == BF16_ROWS) {
+                uint32_t kb[4];
+                ldmatrix_x4(kb, kt + (wr + (lane >> 4) * 8 + (lane & 7)) * L.hp
+                                    + ks * 32 + ((lane >> 3) & 1) * 16);
+                const uint32_t b0[2] = {kb[0], kb[1]}, b1[2] = {kb[2], kb[3]};
+                mma16816(s[0], qa, b0);
+                mma16816(s[1], qa, b1);
+            } else {
+#pragma unroll
+                for (int j = 0; j < 2; ++j) {
+                    const int rr = wr + 8 * j + (lane >> 2);
+                    const uint8_t* row = kt + rr * L.hp;
+                    const int k = ks * 16 + (lane & 3) * 2;
+                    if (KIND == F32_ROWS) {
+                        const float2 x0 = *reinterpret_cast<const float2*>(row + 4 * k);
+                        const float2 x1 = *reinterpret_cast<const float2*>(row + 4 * k + 32);
+                        uint32_t hi[2], lo[2];
+                        split_bf16(x0.x, x0.y, hi[0], lo[0]);
+                        split_bf16(x1.x, x1.y, hi[1], lo[1]);
+                        mma16816(s[j], qa, hi);
+                        mma16816(s[j], qa, lo);
+                    } else {
+                        const float sk = KIND == Q8_VALUE ? ksm[rr] : 1.f;
+                        const uint32_t kb[2] = {k_pair<KIND>(row, k, D, sk),
+                                                k_pair<KIND>(row, k + 8, D, sk)};
+                        mma16816(s[j], qa, kb);
                     }
                 }
             }
         }
-        float alpha[MAXG];
+        // online softmax on the fragment: s[j][e] is head lane/4 + 8 (e / 2),
+        // row wr + 8 j + 2 (lane % 4) + e % 2
+        const int r0 = r_begin + t * TR;
+        float x[2][4];
+        bool ok[2][4];
 #pragma unroll
-        for (int g = 0; g < MAXG; ++g) {
-            if (g < G) {
-                float s = SCORE_SIDE ? (sc[g] * ks) * scale : sc[g] * scale;
-                if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-                s = valid ? s : -1e30f;
-                const float m_new = fmaxf(m[g], warp_max(s));
-                alpha[g] = expf(m[g] - m_new);
-                const float p = expf(s - m_new);
-                l[g] = l[g] * alpha[g] + warp_sum(p);
-                m[g] = m_new;
-                // p . V takes bf16 p (score-side kinds: bf16(p * v_scale))
-                p_s[warp][lane][g] = bf2f(f2bf(SCORE_SIDE ? p * vs : p));
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int rr = wr + 8 * j + (lane & 3) * 2 + (e & 1);
+                ok[j][e] = r0 + rr < r_end;
+                float v = SCORE_SIDE ? (s[j][e] * ksm[rr]) * a.scale : s[j][e] * a.scale;
+                if (a.softcap > 0.f) v = a.softcap * tanhf(v / a.softcap);
+                x[j][e] = v;
             }
-        }
-        __syncwarp();
-        const int nrows = min(32, r_end - r0);
+        float p[2][4];
 #pragma unroll
-        for (int g = 0; g < MAXG; ++g)
-            if (g < G)
+        for (int h = 0; h < 2; ++h) {
+            float mx = -1e30f;
 #pragma unroll
-                for (int i = 0; i < DPL; ++i) acc[g][i] *= alpha[g];
-        for (int rr = 0; rr < nrows; ++rr) {
-            const size_t cr = cache_row(tab, b, cb, r0 + rr, S, MP, P, NP);
-            const float rvs = KIND == Q8_VALUE ? bf2f(vsc[cr * Hkv + kvh]) : 1.f;
-            const uint8_t* vr = vbase + cr * row_bytes;
-            float v[DPL];
+            for (int j = 0; j < 2; ++j)
 #pragma unroll
-            for (int i = 0; i < DPL; ++i)
-                v[i] = load1<KIND, D>(vr, lane + 32 * i, rvs);
+                for (int e = 2 * h; e < 2 * h + 2; ++e)
+                    if (ok[j][e]) mx = fmaxf(mx, x[j][e]);
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+            const float m_new = fmaxf(m[h], mx);
+            const float alpha = expf(m[h] - m_new);
+            float ps = 0.f;
 #pragma unroll
-            for (int g = 0; g < MAXG; ++g)
-                if (g < G) {
-                    const float p = p_s[warp][rr][g];
+            for (int j = 0; j < 2; ++j)
 #pragma unroll
-                    for (int i = 0; i < DPL; ++i) acc[g][i] += p * v[i];
+                for (int e = 2 * h; e < 2 * h + 2; ++e) {
+                    p[j][e] = ok[j][e] ? expf(x[j][e] - m_new) : 0.f;
+                    ps += p[j][e];
                 }
-        }
-        __syncwarp();
-    }
-    // merge the NW warps of this block
+            ps += __shfl_xor_sync(0xffffffffu, ps, 1);
+            ps += __shfl_xor_sync(0xffffffffu, ps, 2);
+            l[h] = l[h] * alpha + ps;
+            m[h] = m_new;
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g)
-        if (g < G) {
-            if (lane == 0) {
-                m_s[warp][g] = m[g];
-                l_s[warp][g] = l[g];
+            for (int nt = 0; nt < DMAX / 8; ++nt) {
+                acc[nt][2 * h] *= alpha;
+                acc[nt][2 * h + 1] *= alpha;
             }
+        }
+        // P as the A operand (bf16 p; score-side kinds bf16(p * v_scale))
+        uint32_t pa[4];
 #pragma unroll
-            for (int i = 0; i < DPL; ++i)
-                acc_s[warp][g * D + lane + 32 * i] = acc[g][i];
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                float p0 = p[j][2 * h], p1 = p[j][2 * h + 1];
+                if (SCORE_SIDE) {
+                    const int rr = wr + 8 * j + (lane & 3) * 2;
+                    p0 *= vsm[rr];
+                    p1 *= vsm[rr + 1];
+                }
+                pa[2 * j + h] = pack_bf16(p0, p1);
+            }
+        // O (16 heads x D) += P . V
+#pragma unroll
+        for (int np = 0; np < DMAX / 16; ++np) {
+            if (np >= D / 16) break;
+            if (KIND == BF16_ROWS) {
+                uint32_t vb[4];
+                ldmatrix_x4_trans(vb, vt + (wr + ((lane >> 3) & 1) * 8 + (lane & 7)) * L.hp
+                                          + (np * 16 + (lane >> 4) * 8) * 2);
+                const uint32_t b0[2] = {vb[0], vb[1]}, b1[2] = {vb[2], vb[3]};
+                mma16816(acc[2 * np], pa, b0);
+                mma16816(acc[2 * np + 1], pa, b1);
+            } else {
+#pragma unroll
+                for (int h2 = 0; h2 < 2; ++h2) {
+                    const int nt = 2 * np + h2, d = nt * 8 + (lane >> 2);
+                    const int rr = wr + (lane & 3) * 2;
+                    float e4[4];
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) {
+                        const int r = rr + (i & 1) + 8 * (i >> 1);
+                        e4[i] = v_elem<KIND>(vt + r * L.hp, d, D,
+                                             KIND == Q8_VALUE ? vsm[r] : 1.f);
+                    }
+                    if (KIND == F32_ROWS) {
+                        uint32_t hi[2], lo[2];
+                        split_bf16(e4[0], e4[1], hi[0], lo[0]);
+                        split_bf16(e4[2], e4[3], hi[1], lo[1]);
+                        mma16816(acc[nt], pa, hi);
+                        mma16816(acc[nt], pa, lo);
+                    } else {
+                        const uint32_t vb[2] = {pack_bf16(e4[0], e4[1]),
+                                                pack_bf16(e4[2], e4[3])};
+                        mma16816(acc[nt], pa, vb);
+                    }
+                }
+            }
         }
-    __syncthreads();
-    const size_t part = (size_t)bk * NS + split;
-    for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
-        const int g = i / D;
-        float mm = -1e30f;
-        for (int w = 0; w < NW; ++w) mm = fmaxf(mm, m_s[w][g]);
-        float a = 0.f;
-        for (int w = 0; w < NW; ++w) a += acc_s[w][i] * expf(m_s[w][g] - mm);
-        part_acc[part * G * D + i] = a;
-        if (i % D == 0) {
-            float ll = 0.f;
-            for (int w = 0; w < NW; ++w) ll += l_s[w][g] * expf(m_s[w][g] - mm);
-            part_ml[(part * G + g) * 2] = mm;
-            part_ml[(part * G + g) * 2 + 1] = ll;
-        }
-    }
-}
+    };
 
-// quantize this step's row (quantized kinds), merge the NSPLIT slices, fold
-// in the self term, write out and the cache row; K16 (knew null) merges
-// the slices alone and writes no row
-template <int KIND>
-__global__ void flash_decode_merge_kernel(
-        const __nv_bfloat16* __restrict__ q,
-        const __nv_bfloat16* __restrict__ knew,
-        const __nv_bfloat16* __restrict__ vnew,
-        uint8_t* __restrict__ kc, uint8_t* __restrict__ vc,
-        __nv_bfloat16* __restrict__ ksc, __nv_bfloat16* __restrict__ vsc,
-        const int* __restrict__ positions, const int* __restrict__ tab,
-        const int* __restrict__ li, int MP, int P, int NP,
-        const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-        float* __restrict__ out, int S, int Hkv, int G, int D, int NS,
-        float scale, float softcap) {
-    constexpr float QMAX = KIND == Q4_SCORE ? 7.f : 127.f;
-    __shared__ float s_self[MAXG];
-    __shared__ float new_s[2][MAXD];  // k, v: the row as the cache holds it
-    __shared__ int code_s[2][MAXD];   // their integer codes (quantized kinds)
-    __shared__ float amax_s[2];
-    const int bk = blockIdx.x, b = bk / Hkv, kvh = bk % Hkv;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int nwarps = blockDim.x >> 5;
-    const bool self = knew != nullptr;
-    if (!self) {  // K16: the slices' merge is the output
-        for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
-            const int g = i / D;
-            float mm = -1e30f;
-            for (int sp = 0; sp < NS; ++sp)
-                mm = fmaxf(mm, part_ml[(((size_t)bk * NS + sp) * G + g) * 2]);
-            float ll = 0.f, a = 0.f;
-            for (int sp = 0; sp < NS; ++sp) {
-                const size_t part = (size_t)bk * NS + sp;
-                const float f = expf(part_ml[(part * G + g) * 2] - mm);
-                ll += part_ml[(part * G + g) * 2 + 1] * f;
-                a += part_acc[part * G * D + i] * f;
-            }
-            out[((size_t)b * Hkv * G + (size_t)kvh * G) * D + i] = a / ll;
-        }
-        return;
-    }
-    const __nv_bfloat16* kn = knew + ((size_t)b * Hkv + kvh) * D;
-    const __nv_bfloat16* vn = vnew + ((size_t)b * Hkv + kvh) * D;
-    const __nv_bfloat16* qh = q + ((size_t)b * Hkv * G + (size_t)kvh * G) * D;
-    for (int d = threadIdx.x; d < D; d += blockDim.x) {
-        new_s[0][d] = bf2f(kn[d]);
-        new_s[1][d] = bf2f(vn[d]);
-    }
-    __syncthreads();
-    if (QUANT_KIND(KIND)) {
-        if (warp < 2) {  // warp 0: k's amax, warp 1: v's
-            float a = 0.f;
-            for (int d = lane; d < D; d += 32) a = fmaxf(a, fabsf(new_s[warp][d]));
-            a = warp_max(a);
-            if (lane == 0) amax_s[warp] = a;
+    // the tile loop: with two stages tile t + 1 is copied during tile t
+    scales_store(0, rk0, rv0);
+    for (int t = 0; t < ntiles; ++t) {
+        const bool ahead = L.nst == 2 && t + 1 < ntiles;
+        float rk = 0.f, rv = 0.f;
+        if (ahead) {
+            issue(t + 1, r_end);
+            cp_async_commit();
+            scales_load(t + 1, r_end, rk, rv);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
         }
         __syncthreads();
-        for (int i = threadIdx.x; i < 2 * D; i += blockDim.x) {
-            const int w = i / D, d = i % D;
-            const float sc = amax_s[w] / QMAX;
-            const float inv = sc > 0.f ? 1.f / sc : 0.f;
-            float c = rintf(__fmul_rn(new_s[w][d], inv));
-            if (KIND == Q4_SCORE) c = fminf(fmaxf(c, -8.f), 7.f);
-            code_s[w][d] = (int)c;
-            new_s[w][d] = bf2f(f2bf(__fmul_rn(c, bf2f(f2bf(sc)))));
+        if (t == 0 && r_begin + TR > r_end) {  // V rows past the history: 0
+            uint8_t* vt = stage_of(0) + TR * L.hp;
+            const int n8 = L.hp / 8;  // hp is a multiple of 8
+            for (int i = (r_end - r_begin) * n8 + tid; i < TR * n8; i += blockDim.x)
+                *reinterpret_cast<uint2*>(vt + 8 * i) = make_uint2(0, 0);
+            __syncthreads();
         }
+        compute(t);
+        if (ahead) scales_store(t + 1, rk, rv);
         __syncthreads();
+        if (L.nst == 1 && t + 1 < ntiles) {
+            issue(t + 1, r_end);
+            cp_async_commit();
+            scales_load(t + 1, r_end, rk, rv);
+            scales_store(t + 1, rk, rv);
+        }
     }
-    for (int g = warp; g < G; g += nwarps) {  // self scores, one warp per head
-        float s = 0.f;
-        for (int d = lane; d < D; d += 32) s += bf2f(qh[g * D + d]) * new_s[0][d];
-        s = warp_sum(s) * scale;
-        if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-        if (lane == 0) s_self[g] = s;
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // this split's partial: the warps' (max, sum, acc) combined in warp
+    // order, into the scratch, or kept here when it is the only split
+    float* ow = reinterpret_cast<float*>(body);  // (NW, 16, D)
+    float* wml = ow + NW * GB * D;               // (NW, 16, 2)
+    float* lacc = wml + NW * GB * 2;             // (16, D): a lone split's
+    float* lml = lacc + GB * D;                  // (16, 2)
+    const bool lone = n_live == 1;
+    {
+        const int g = lane >> 2;
+        if ((lane & 3) == 0) {
+            wml[(warp * GB + g) * 2] = m[0];
+            wml[(warp * GB + g) * 2 + 1] = l[0];
+            wml[(warp * GB + g + 8) * 2] = m[1];
+            wml[(warp * GB + g + 8) * 2 + 1] = l[1];
+        }
+#pragma unroll
+        for (int nt = 0; nt < DMAX / 8; ++nt) {
+            if (nt >= D / 8) break;
+            const int d = nt * 8 + (lane & 3) * 2;
+            ow[(warp * GB + g) * D + d] = acc[nt][0];
+            ow[(warp * GB + g) * D + d + 1] = acc[nt][1];
+            ow[(warp * GB + g + 8) * D + d] = acc[nt][2];
+            ow[(warp * GB + g + 8) * D + d + 1] = acc[nt][3];
+        }
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
-        const int g = i / D, d = i % D;
+    const size_t pbase = (size_t)unit * gridDim.y;
+    float* const pacc = lone ? lacc : a.part_acc + pbase * GB * D;
+    float* const pml = lone ? lml : a.part_ml + pbase * GB * 2;
+    for (int i = tid; i < Gb * D; i += blockDim.x) {
+        const int g = i / D, d = i - g * D;
         float mm = -1e30f;
-        for (int sp = 0; sp < NS; ++sp)
-            mm = fmaxf(mm, part_ml[(((size_t)bk * NS + sp) * G + g) * 2]);
-        float ll = 0.f, a = 0.f;
-        for (int sp = 0; sp < NS; ++sp) {
-            const size_t part = (size_t)bk * NS + sp;
-            const float f = expf(part_ml[(part * G + g) * 2] - mm);
-            ll += part_ml[(part * G + g) * 2 + 1] * f;
-            a += part_acc[part * G * D + i] * f;
+        for (int w = 0; w < NW; ++w) mm = fmaxf(mm, wml[(w * GB + g) * 2]);
+        float sacc = 0.f;
+        for (int w = 0; w < NW; ++w)
+            sacc += ow[(w * GB + g) * D + d] * expf(wml[(w * GB + g) * 2] - mm);
+        const size_t part = (size_t)split * GB + g;
+        pacc[part * D + d] = sacc;
+        if (d == 0) {
+            float ll = 0.f;
+            for (int w = 0; w < NW; ++w)
+                ll += wml[(w * GB + g) * 2 + 1] * expf(wml[(w * GB + g) * 2] - mm);
+            pml[part * 2] = mm;
+            pml[part * 2 + 1] = ll;
         }
-        const float ss = s_self[g];
-        const float m_new = fmaxf(mm, ss);
-        const float alpha = expf(mm - m_new);
-        const float p_self = expf(ss - m_new);
-        const float l_tot = ll * alpha + p_self;
-        const float o = (a * alpha + p_self * new_s[1][d]) / l_tot;
-        out[((size_t)b * Hkv * G + (size_t)kvh * G + g) * D + d] = o;
     }
-    const int pos = positions[b];
-    if (pos < 0 || pos >= S) return;
-    const int cb = (li ? li[0] * (int)(gridDim.x / Hkv) : 0) + b;
-    const size_t r = cache_row(tab, b, cb, pos, S, MP, P, NP);
+    // the last live split of this head group to finish merges (a lone
+    // split at once, from shared memory)
+    __shared__ int last;
+    if (!lone) __threadfence();
+    __syncthreads();
+    if (tid == 0) last = lone || atomicAdd(&a.tickets[unit], 1) == n_live - 1;
+    __syncthreads();
+    if (!last) return;
+    if (!lone) {
+        __threadfence();
+        if (tid == 0) a.tickets[unit] = 0;
+    }
+    // partials: read from the scratch bypassing L1 (other blocks wrote
+    // them), or from here
+
+    float* fct = lml + GB * 2;                            // (MAXNS, 16)
+    float* fsum = fct + MAXNS * GB;                       // (MAXNS, 16)
+    float* mml = fsum + MAXNS * GB;                       // (16, 2)
+    float* newv = mml + GB * 2;                           // (2, D)
+    int* code = reinterpret_cast<int*>(newv + 2 * D);     // (2, D)
+    float* sself = reinterpret_cast<float*>(code + 2 * D);  // (16)
+    float* amax = sself + GB;                             // (2)
+    // every split's (max, sum) in one round of loads, then its factor
+    for (int i = tid; i < n_live * Gb; i += blockDim.x) {
+        const int sp = i / Gb, g = i - sp * Gb;
+        const float2* p = reinterpret_cast<const float2*>(&pml[((size_t)sp * GB + g) * 2]);
+        const float2 ml = lone ? *p : __ldcg(p);
+        fct[sp * GB + g] = ml.x;
+        fsum[sp * GB + g] = ml.y;
+    }
+    __syncthreads();
+    for (int g = warp; g < Gb; g += NW) {
+        float mm = -1e30f;
+        for (int sp = lane; sp < n_live; sp += 32) mm = fmaxf(mm, fct[sp * GB + g]);
+        mm = warp_max(mm);
+        float ll = 0.f;
+        for (int sp = lane; sp < n_live; sp += 32) {
+            const float f = expf(fct[sp * GB + g] - mm);
+            fct[sp * GB + g] = f;
+            ll += fsum[sp * GB + g] * f;
+        }
+        ll = warp_sum(ll);
+        if (lane == 0) {
+            mml[g * 2] = mm;
+            mml[g * 2 + 1] = ll;
+        }
+    }
+    const __nv_bfloat16* kn = reinterpret_cast<const __nv_bfloat16*>(nrow);
+    const __nv_bfloat16* vn = kn + D;
+    constexpr float QMAX = KIND == Q4_SCORE ? 7.f : 127.f;
+    if (self) {  // the new row as the cache will hold it, and its self scores
+        for (int d = tid; d < D; d += blockDim.x) {
+            newv[d] = bf2f(kn[d]);
+            newv[D + d] = bf2f(vn[d]);
+        }
+        __syncthreads();
+        if (SCALED) {
+            if (warp < 2) {  // warp 0: k's amax, warp 1: v's
+                float am = 0.f;
+                for (int d = lane; d < D; d += 32) am = fmaxf(am, fabsf(newv[warp * D + d]));
+                am = warp_max(am);
+                if (lane == 0) amax[warp] = am;
+            }
+            __syncthreads();
+            for (int i = tid; i < 2 * D; i += blockDim.x) {
+                const int w = i / D;
+                const float sc = amax[w] / QMAX;
+                const float inv = sc > 0.f ? 1.f / sc : 0.f;
+                float c = rintf(__fmul_rn(newv[i], inv));
+                if (KIND == Q4_SCORE) c = fminf(fmaxf(c, -8.f), 7.f);
+                code[i] = (int)c;
+                newv[i] = bf2f(f2bf(__fmul_rn(c, bf2f(f2bf(sc)))));
+            }
+            __syncthreads();
+        }
+        for (int g = warp; g < Gb; g += NW) {
+            const __nv_bfloat16* qg = reinterpret_cast<const __nv_bfloat16*>(qs + g * L.qp);
+            float sc = 0.f;
+            for (int d = lane; d < D; d += 32) sc += bf2f(qg[d]) * newv[d];
+            sc = warp_sum(sc) * a.scale;
+            if (a.softcap > 0.f) sc = a.softcap * tanhf(sc / a.softcap);
+            if (lane == 0) sself[g] = sc;
+        }
+    }
+    __syncthreads();
+    // four output columns a thread: the partials' float4 loads of all
+    // splits in flight together, summed in split order
+    const int D4 = D / 4;
+    for (int i = tid; i < Gb * D4; i += blockDim.x) {
+        const int g = i / D4, d = 4 * (i - g * D4);
+        float sacc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+        for (int sp = 0; sp < n_live; ++sp) {
+            const float4* p = reinterpret_cast<const float4*>(&pacc[((size_t)sp * GB + g) * D + d]);
+            const float4 v = lone ? *p : __ldcg(p);
+            const float f = fct[sp * GB + g];
+            sacc[0] += v.x * f;
+            sacc[1] += v.y * f;
+            sacc[2] += v.z * f;
+            sacc[3] += v.w * f;
+        }
+        const float mm = mml[g * 2], ll = mml[g * 2 + 1];
+        float o[4];
+        if (self) {
+            const float ss = sself[g];
+            const float m_new = fmaxf(mm, ss);
+            const float alpha = expf(mm - m_new);
+            const float p_self = expf(ss - m_new);
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+                o[c] = (sacc[c] * alpha + p_self * newv[D + d + c]) / (ll * alpha + p_self);
+        } else {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) o[c] = sacc[c] / ll;
+        }
+        *reinterpret_cast<float4*>(&a.out[(((size_t)b * a.Hkv + kvh) * a.G + g0 + g) * D + d]) =
+            make_float4(o[0], o[1], o[2], o[3]);
+    }
+    // the cache row, once per kv head (head group 0)
+    if (!self || hg != 0 || pos < 0 || pos >= a.S) return;
+    const size_t r = cache_row(a, b, cb, pos);
     if (KIND == F32_ROWS) {  // the bf16 row, widened
-        float* kr = reinterpret_cast<float*>(kc) + r * Hkv * D;
-        float* vr = reinterpret_cast<float*>(vc) + r * Hkv * D;
-        for (int d = threadIdx.x; d < D; d += blockDim.x) {
-            kr[(size_t)kvh * D + d] = bf2f(kn[d]);
-            vr[(size_t)kvh * D + d] = bf2f(vn[d]);
+        float* kr = reinterpret_cast<float*>(a.kc) + r * a.Hkv * D + (size_t)kvh * D;
+        float* vr = reinterpret_cast<float*>(a.vc) + r * a.Hkv * D + (size_t)kvh * D;
+        for (int d = tid; d < D; d += blockDim.x) {
+            kr[d] = bf2f(kn[d]);
+            vr[d] = bf2f(vn[d]);
         }
         return;
     }
     if (KIND == BF16_ROWS) {
-        __nv_bfloat16* kr = reinterpret_cast<__nv_bfloat16*>(kc) + r * Hkv * D;
-        __nv_bfloat16* vr = reinterpret_cast<__nv_bfloat16*>(vc) + r * Hkv * D;
-        for (int d = threadIdx.x; d < D; d += blockDim.x) {
-            kr[(size_t)kvh * D + d] = kn[d];
-            vr[(size_t)kvh * D + d] = vn[d];
+        __nv_bfloat16* kr = reinterpret_cast<__nv_bfloat16*>(a.kc) + r * a.Hkv * D + (size_t)kvh * D;
+        __nv_bfloat16* vr = reinterpret_cast<__nv_bfloat16*>(a.vc) + r * a.Hkv * D + (size_t)kvh * D;
+        for (int d = tid; d < D; d += blockDim.x) {
+            kr[d] = kn[d];
+            vr[d] = vn[d];
         }
         return;
     }
     if (KIND == Q4_SCORE) {  // plane-split: byte i = code i | code i+D/2 << 4
         const int D2 = D / 2;
-        for (int i = threadIdx.x; i < 2 * D2; i += blockDim.x) {
+        for (int i = tid; i < 2 * D2; i += blockDim.x) {
             const int w = i / D2, j = i % D2;
-            uint8_t* dst = (w == 0 ? kc : vc) + r * Hkv * D2 + (size_t)kvh * D2;
-            dst[j] = (uint8_t)((code_s[w][j] + 8) | ((code_s[w][j + D2] + 8) << 4));
+            uint8_t* dst = (w == 0 ? a.kc : a.vc) + r * a.Hkv * D2 + (size_t)kvh * D2;
+            dst[j] = (uint8_t)((code[w * D + j] + 8) | ((code[w * D + j + D2] + 8) << 4));
         }
     } else {
-        for (int i = threadIdx.x; i < 2 * D; i += blockDim.x) {
+        for (int i = tid; i < 2 * D; i += blockDim.x) {
             const int w = i / D, d = i % D;
-            int8_t* dst = reinterpret_cast<int8_t*>(w == 0 ? kc : vc)
-                          + r * Hkv * D + (size_t)kvh * D;
-            dst[d] = (int8_t)code_s[w][d];
+            int8_t* dst = reinterpret_cast<int8_t*>(w == 0 ? a.kc : a.vc)
+                          + r * a.Hkv * D + (size_t)kvh * D;
+            dst[d] = (int8_t)code[i];
         }
     }
-    if (threadIdx.x < 2)
-        (threadIdx.x == 0 ? ksc : vsc)[r * Hkv + kvh] =
-            f2bf(amax_s[threadIdx.x] / QMAX);
+    if (tid < 2) (tid == 0 ? a.ksc : a.vsc)[r * a.Hkv + kvh] = f2bf(amax[tid] / QMAX);
+}
+
+template <int KIND, int DMAX>
+static cudaError_t launch_dmax(const Args& a, int nsplit, cudaStream_t st) {
+    static int allowed = 48 * 1024;  // dynamic shared memory allowed so far
+    const int bytes = Plan(KIND, a.D).total;
+    if (bytes > allowed) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            flash_decode_kernel<KIND, DMAX>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        if (e != cudaSuccess) return e;
+        allowed = bytes;
+    }
+    dim3 grid(a.B * a.Hkv * a.NG, nsplit);
+    flash_decode_kernel<KIND, DMAX><<<grid, NW * 32, bytes, st>>>(a);
+    return cudaGetLastError();
 }
 
 template <int KIND>
-static cudaError_t launch_kind(
-        const void* q, const void* knew, const void* vnew, void* kc, void* vc,
-        void* ksc, void* vsc, const void* positions, const int* tab,
-        const int* li, int MP, int P, int NP, void* out, void* part_acc,
-        void* part_ml, int B, int S, int H, int Hkv, int D, int nsplit,
-        int rows_per_split, float scale, float softcap, cudaStream_t st) {
-    const int G = H / Hkv;
-    const int inclusive = knew == nullptr;  // K16 attends row pos itself
-    dim3 grid(B * Hkv, nsplit);
-#define FD_ARGS (const __nv_bfloat16*)q, (const uint8_t*)kc, \
-        (const uint8_t*)vc, (const __nv_bfloat16*)ksc, \
-        (const __nv_bfloat16*)vsc, (const int*)positions, tab, li, MP, P, \
-        NP, (float*)part_acc, (float*)part_ml, S, Hkv, G, rows_per_split, \
-        inclusive, scale, softcap
-    if (D == 64)
-        flash_decode_split_kernel<KIND, 64><<<grid, NW * 32, 0, st>>>(FD_ARGS);
-    else
-        flash_decode_split_kernel<KIND, 128><<<grid, NW * 32, 0, st>>>(FD_ARGS);
-#undef FD_ARGS
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    flash_decode_merge_kernel<KIND><<<B * Hkv, 128, 0, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)knew,
-        (const __nv_bfloat16*)vnew, (uint8_t*)kc, (uint8_t*)vc,
-        (__nv_bfloat16*)ksc, (__nv_bfloat16*)vsc, (const int*)positions, tab,
-        li, MP, P, NP, (const float*)part_acc, (const float*)part_ml,
-        (float*)out, S, Hkv, G, D, nsplit, scale, softcap);
-    return cudaGetLastError();
+static cudaError_t launch_kind(const Args& a, int nsplit, cudaStream_t st) {
+    if (a.D <= 64) return launch_dmax<KIND, 64>(a, nsplit, st);
+    if (a.D <= 128) return launch_dmax<KIND, 128>(a, nsplit, st);
+    return launch_dmax<KIND, 256>(a, nsplit, st);
 }
 
 static cudaError_t launch_flash_decode(
         int kind, const void* q, const void* knew, const void* vnew, void* kc,
-        void* vc, void* ksc, void* vsc, const void* positions, const int* tab,
-        const int* li, int MP, int P, int NP, void* out, void* part_acc,
-        void* part_ml, int B, int S, int H, int Hkv, int D, int nsplit,
-        int rows_per_split, float scale, float softcap, cudaStream_t st) {
-    const int G = H / Hkv;
-    if (G > MAXG || G * D > MAXGD || (D != 64 && D != 128))
+        void* vc, void* ksc, void* vsc, const void* positions, const void* tab,
+        const void* li, int MP, int P, int NP, void* out, void* part_acc,
+        void* part_ml, void* tickets, int B, int S, int H, int Hkv, int D,
+        int nsplit, int rows_per_split, float scale, float softcap,
+        cudaStream_t st) {
+    if (Hkv <= 0 || H % Hkv || D % 16 || D < 16 || D > 256 || nsplit < 1
+        || nsplit > MAXNS || rows_per_split % TR
+        || (long long)nsplit * rows_per_split < S)
         return cudaErrorInvalidValue;
-#define FD_CALL(K) launch_kind<K>(q, knew, vnew, kc, vc, ksc, vsc, positions, \
-        tab, li, MP, P, NP, out, part_acc, part_ml, B, S, H, Hkv, D, nsplit, \
-        rows_per_split, scale, softcap, st)
+    Args a;
+    a.q = (const __nv_bfloat16*)q;
+    a.knew = (const __nv_bfloat16*)knew;
+    a.vnew = (const __nv_bfloat16*)vnew;
+    a.kc = (uint8_t*)kc;
+    a.vc = (uint8_t*)vc;
+    a.ksc = (__nv_bfloat16*)ksc;
+    a.vsc = (__nv_bfloat16*)vsc;
+    a.positions = (const int*)positions;
+    a.tab = (const int*)tab;
+    a.li = (const int*)li;
+    a.part_acc = (float*)part_acc;
+    a.part_ml = (float*)part_ml;
+    a.tickets = (int*)tickets;
+    a.out = (float*)out;
+    a.MP = MP;
+    a.P = P;
+    a.NP = NP;
+    a.B = B;
+    a.S = S;
+    a.Hkv = Hkv;
+    a.G = H / Hkv;
+    a.D = D;
+    a.NG = (a.G + GB - 1) / GB;
+    a.rps = rows_per_split;
+    a.inclusive = knew == nullptr;  // K16 attends row pos itself
+    a.scale = scale;
+    a.softcap = softcap;
     switch (kind) {
-        case BF16_ROWS: return FD_CALL(BF16_ROWS);
-        case Q8_VALUE: return FD_CALL(Q8_VALUE);
-        case Q8_SCORE: return FD_CALL(Q8_SCORE);
-        case Q4_SCORE: return FD_CALL(Q4_SCORE);
-        case F32_ROWS: return FD_CALL(F32_ROWS);
+        case BF16_ROWS: return launch_kind<BF16_ROWS>(a, nsplit, st);
+        case Q8_VALUE: return launch_kind<Q8_VALUE>(a, nsplit, st);
+        case Q8_SCORE: return launch_kind<Q8_SCORE>(a, nsplit, st);
+        case Q4_SCORE: return launch_kind<Q4_SCORE>(a, nsplit, st);
+        case F32_ROWS: return launch_kind<F32_ROWS>(a, nsplit, st);
     }
-#undef FD_CALL
     return cudaErrorInvalidValue;
 }
+
+// Scratch of every entry point, for B sequences of Hkv kv heads with NG =
+// ceil(H / Hkv / 16) head groups (units = B * Hkv * NG): part_acc (units,
+// nsplit, 16, D) and part_ml (units, nsplit, 16, 2) f32, tickets (units,)
+// int32, zero before the first call (each call leaves them at zero).
 
 // K5 (li null) and K17c. q (B, H, D), knew/vnew (B, Hkv, D) bf16; kc/vc
 // (N, S, Hkv*D) bf16 (kind 0) or f32 (kind 4), N = B, or L * B for K17c,
 // whose sequence b is row li[0] * B + b; positions (B,) int32; out (B, H,
-// D) f32; part_acc (B*Hkv, nsplit, G*D), part_ml (B*Hkv, nsplit, G, 2) f32
-// scratch.
+// D) f32.
 KCPP_API int k5_flash_decode(int kind, const void* q, const void* knew,
                              const void* vnew, void* kc, void* vc,
                              const void* positions, const void* li,
-                             void* out, void* part_acc, void* part_ml, int B,
-                             int S, int H, int Hkv, int D, int nsplit,
-                             int rows_per_split, float scale, float softcap,
-                             void* stream) {
+                             void* out, void* part_acc, void* part_ml,
+                             void* tickets, int B, int S, int H, int Hkv,
+                             int D, int nsplit, int rows_per_split,
+                             float scale, float softcap, void* stream) {
     if (kind != BF16_ROWS && kind != F32_ROWS)
         return (int)cudaErrorInvalidValue;
     return (int)launch_flash_decode(
         kind, q, knew, vnew, kc, vc, nullptr, nullptr, positions, nullptr,
-        (const int*)li, 0, 1, 1, out, part_acc, part_ml, B, S, H, Hkv, D,
+        li, 0, 1, 1, out, part_acc, part_ml, tickets, B, S, H, Hkv, D,
         nsplit, rows_per_split, scale, softcap, (cudaStream_t)stream);
 }
 
@@ -511,13 +797,13 @@ KCPP_API int k5_flash_decode(int kind, const void* q, const void* knew,
 // f32 over the rows <= pos (all S when pos >= S); nothing is written.
 KCPP_API int k16_flash_decode(const void* q, const void* kc, const void* vc,
                               const void* pos, void* out, void* part_acc,
-                              void* part_ml, int S, int H, int Hkv, int D,
-                              int nsplit, int rows_per_split, float scale,
-                              float softcap, void* stream) {
+                              void* part_ml, void* tickets, int S, int H,
+                              int Hkv, int D, int nsplit, int rows_per_split,
+                              float scale, float softcap, void* stream) {
     return (int)launch_flash_decode(
         BF16_ROWS, q, nullptr, nullptr, (void*)kc, (void*)vc, nullptr,
-        nullptr, pos, nullptr, nullptr, 0, 1, 1, out, part_acc, part_ml, 1,
-        S, H, Hkv, D, nsplit, rows_per_split, scale, softcap,
+        nullptr, pos, nullptr, nullptr, 0, 1, 1, out, part_acc, part_ml,
+        tickets, 1, S, H, Hkv, D, nsplit, rows_per_split, scale, softcap,
         (cudaStream_t)stream);
 }
 
@@ -526,13 +812,13 @@ KCPP_API int k6_flash_decode_q8(const void* q, const void* knew,
                                 const void* vnew, void* kc, void* vc,
                                 void* ksc, void* vsc, const void* positions,
                                 void* out, void* part_acc, void* part_ml,
-                                int B, int S, int H, int Hkv, int D,
-                                int nsplit, int rows_per_split, float scale,
-                                float softcap, void* stream) {
+                                void* tickets, int B, int S, int H, int Hkv,
+                                int D, int nsplit, int rows_per_split,
+                                float scale, float softcap, void* stream) {
     return (int)launch_flash_decode(
         Q8_VALUE, q, knew, vnew, kc, vc, ksc, vsc, positions, nullptr,
-        nullptr, 0, 1, 1, out, part_acc, part_ml, B, S, H, Hkv, D, nsplit,
-        rows_per_split, scale, softcap, (cudaStream_t)stream);
+        nullptr, 0, 1, 1, out, part_acc, part_ml, tickets, B, S, H, Hkv, D,
+        nsplit, rows_per_split, scale, softcap, (cudaStream_t)stream);
 }
 
 // K8 (kind 0), K9 (kind 2), K10 (kind 3). As K5, with kc/vc the
@@ -543,14 +829,15 @@ KCPP_API int k8_flash_decode_paged(int kind, const void* q, const void* knew,
                                    const void* vnew, void* kc, void* vc,
                                    void* ksc, void* vsc, const void* tab,
                                    const void* positions, void* out,
-                                   void* part_acc, void* part_ml, int B,
-                                   int MP, int P, int NP, int H, int Hkv,
-                                   int D, int nsplit, int rows_per_split,
-                                   float scale, float softcap, void* stream) {
+                                   void* part_acc, void* part_ml,
+                                   void* tickets, int B, int MP, int P,
+                                   int NP, int H, int Hkv, int D, int nsplit,
+                                   int rows_per_split, float scale,
+                                   float softcap, void* stream) {
     if (kind != BF16_ROWS && kind != Q8_SCORE && kind != Q4_SCORE)
         return (int)cudaErrorInvalidValue;
     return (int)launch_flash_decode(
-        kind, q, knew, vnew, kc, vc, ksc, vsc, positions, (const int*)tab,
-        nullptr, MP, P, NP, out, part_acc, part_ml, B, MP * P, H, Hkv, D,
-        nsplit, rows_per_split, scale, softcap, (cudaStream_t)stream);
+        kind, q, knew, vnew, kc, vc, ksc, vsc, positions, tab, nullptr, MP,
+        P, NP, out, part_acc, part_ml, tickets, B, MP * P, H, Hkv, D, nsplit,
+        rows_per_split, scale, softcap, (cudaStream_t)stream);
 }

@@ -13,174 +13,260 @@
 //
 // Bound on the H100: at the 1.1B's 512-row chunk (H=32, Hkv=4, D=64) about
 // 1.1 GFLOP of causal products (~1.1 us at 989 TFLOP/s) against ~4.7 MB
-// moved (~1.4 us at 3.35 TB/s): both tiny; a simple kernel is bound by its
-// latency. Design: one block of 4 warps per (64-row query tile, head,
-// sequence); it walks the key tiles up to the diagonal, keeps Q, the current
-// K and V tiles, the scores and the f32 output accumulator in shared
-// memory, runs both products on the tensor cores (WMMA 16x16x16 bf16, f32
-// accumulate; each warp owns 16 query rows), and keeps the online softmax's
-// running max and sum per row. No TMA, wgmma or pipelining yet.
+// moved (~1.4 us at 3.35 TB/s): both small, so a call is bound by how fast
+// its blocks walk their key tiles (dependent loads, products and softmax).
+// The design (FlashAttention-2 on Hopper):
+// - one warpgroup (4 warps) per (64-row query tile, head, sequence); each
+//   warp owns 16 query rows. Grid (H, T / 64, B) with the query tile
+//   counted down the y axis, so the heaviest tiles of the causal diagonal
+//   (the most key tiles) are issued first and do not set the grid's tail.
+// - Q, and 64-row K / V tiles, in shared memory in the 128-byte swizzle
+//   (64-column sub-tiles of 64 rows x 128 B, 1024-aligned), copied with
+//   cp.async in two stages: the next K / V tile (and its positions) is in
+//   flight during this one's math.
+// - the S tile and the O accumulator stay in registers. At D = 64 and 128
+//   both products run as wgmma with A from registers: S (64 x 64) = Q .
+//   K^T (K-major B from the K tile) and O (64 x D) += P . V (B = the V tile
+//   read MN-major, `desc_mn_sw128`); Q's fragments are reloaded from shared
+//   memory for each key tile (kept in registers across tiles, they read
+//   back wrong on the card). At D = 256 a
+//   64 x 256 f32 accumulator per warpgroup plus S would not fit a
+//   thread's registers beside wgmma's, so both products run as mma.sync
+//   m16n8k16 (ldmatrix, .trans for V) on the same tiles.
+// - the online softmax works on the accumulator fragment: a row's max and
+//   sum reduce over the 4 lanes of a quad, the mask (causal and segment)
+//   from the key tile's positions, and P goes straight from the score
+//   fragment into the A operand of P . V, rounded to bf16.
 // Launch counter: ops/_build.launches["K4"] (one per call).
-#include <mma.h>
-
 #include "common.cuh"
+#include "hopper.cuh"
 
-using namespace nvcuda;
+constexpr int BQ = 64, BKV = 64;  // query / key rows per tile
+constexpr int SUB = BKV * 128;    // one 64-column sub-tile of 64 rows
 
-constexpr int BQ = 64, BKV = 64, NWARP = 4;
+// byte offset of (row, column c) in a tile of 64-column swizzled sub-tiles
+__device__ __forceinline__ int swz(int row, int c) {
+    return (c >> 6) * SUB + row * 128 + ((((c & 63) >> 3) ^ (row & 7)) << 4)
+           + (c & 7) * 2;
+}
 
 template <int D>
-struct Smem {
-    static constexpr int LD = D + 8;      // bf16 tiles (skewed rows)
-    static constexpr int LDO = D + 4;     // f32 output accumulator
-    static constexpr int LDS = BKV + 4;   // f32 scores
-    static constexpr int LDP = BKV + 8;   // bf16 probabilities
-    static constexpr size_t BYTES =
-        3 * (size_t)BQ * LD * 2 + (size_t)BQ * LDO * 4 + (size_t)BQ * LDS * 4
-        + (size_t)BQ * LDP * 2 + 2 * BQ * 4;
+struct PSmem {
+    static constexpr int TILE = D / 64 * SUB;  // Q, K or V tile
+    // Q, two stages of (K, V), two stages of key positions, + alignment
+    static constexpr size_t BYTES = 5 * (size_t)TILE + 2 * BKV * 4 + 1024;
 };
 
 template <int D>
-__global__ void __launch_bounds__(NWARP * 32)
+__global__ void __launch_bounds__(128)
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      const int* __restrict__ positions,  // (B, T)
                      __nv_bfloat16* __restrict__ out, int T, int H, int Hkv,
                      float scale) {
-    using L = Smem<D>;
-    extern __shared__ __align__(128) uint8_t smem[];
-    __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-    __nv_bfloat16* Ks = Qs + BQ * L::LD;
-    __nv_bfloat16* Vs = Ks + BKV * L::LD;
-    float* Os = reinterpret_cast<float*>(Vs + BKV * L::LD);
-    float* Ss = Os + BQ * L::LDO;
-    __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(Ss + BQ * L::LDS);
-    float* m_s = reinterpret_cast<float*>(Ps + BQ * L::LDP);
-    float* l_s = m_s + BQ;
+    constexpr bool WG = D <= 128;  // wgmma; mma.sync at D = 256
+    using L = PSmem<D>;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+    uint8_t* const Qs = smem;
+    uint8_t* const KV = smem + L::TILE;  // stage s: K at 2s, V at 2s + 1
+    int* const Ps = reinterpret_cast<int*>(smem + 5 * L::TILE);
 
-    const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+    const int h = blockIdx.x, b = blockIdx.z;
+    const int nq = T / BQ, qt = nq - 1 - blockIdx.y;  // heaviest first
     const int kvh = h / (H / Hkv);
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int q0 = qt * BQ;
     const int* pos = positions + (size_t)b * T;
     constexpr int C8 = D / 8;  // 16-byte chunks per row
 
-    // Q tile, zeroed accumulator, running max / sum
-    for (int i = tid; i < BQ * C8; i += blockDim.x) {
-        const int r = i / C8, c = i % C8;
-        *reinterpret_cast<uint4*>(&Qs[r * L::LD + c * 8]) =
-            *reinterpret_cast<const uint4*>(
-                q + (((size_t)b * T + q0 + r) * H + h) * D + c * 8);
-    }
-    for (int i = tid; i < BQ * D; i += blockDim.x)
-        Os[(i / D) * L::LDO + i % D] = 0.f;
-    for (int i = tid; i < BQ; i += blockDim.x) {
-        m_s[i] = -INFINITY;
-        l_s[i] = 0.f;
-    }
-
-    const int wr = warp * 16;  // this warp's 16 query rows
-    for (int kt = 0; kt <= qt; ++kt) {
-        const int k0 = kt * BKV;
-        __syncthreads();  // the previous tile's K/V/P are consumed
-        for (int i = tid; i < BKV * C8; i += blockDim.x) {
+    // a 64-row tile of x (rows r0.., head hx of Hx) into swizzled sub-tiles
+    auto load_tile = [&](uint8_t* dst, const __nv_bfloat16* x, int Hx, int hx,
+                         int r0) {
+        for (int i = tid; i < 64 * C8; i += 128) {
             const int r = i / C8, c = i % C8;
-            const size_t src = (((size_t)b * T + k0 + r) * Hkv + kvh) * D + c * 8;
-            *reinterpret_cast<uint4*>(&Ks[r * L::LD + c * 8]) =
-                *reinterpret_cast<const uint4*>(k + src);
-            *reinterpret_cast<uint4*>(&Vs[r * L::LD + c * 8]) =
-                *reinterpret_cast<const uint4*>(v + src);
+            cp_async16(dst + swz(r, 8 * c),
+                       x + (((size_t)b * T + r0 + r) * Hx + hx) * D + 8 * c);
         }
-        __syncthreads();
+    };
+    auto issue = [&](int kt) {
+        uint8_t* st = KV + (kt & 1) * 2 * L::TILE;
+        load_tile(st, k, Hkv, kvh, kt * BKV);
+        load_tile(st + L::TILE, v, Hkv, kvh, kt * BKV);
+        if (tid < BKV / 4)
+            cp_async16(Ps + (kt & 1) * BKV + 4 * tid, pos + kt * BKV + 4 * tid);
+    };
 
-        // S (16 x 64 per warp) = Q_w . K^T
-        {
-            wmma::fragment<wmma::accumulator, 16, 16, 16, float> sacc[BKV / 16];
+    load_tile(Qs, q, H, h, q0);
+    issue(0);
+    cp_async_commit();
+
+    // this thread's query rows i0 (h 0) and i0 + 8 (h 1) and their segments
+    const int i0 = q0 + warp * 16 + (lane >> 2);
+    const bool seg[2] = {pos[i0] < 0, pos[i0 + 8] < 0};
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float o[D / 2];  // O fragment: n8 tile j at o[4j..4j+3]
 #pragma unroll
-            for (int j = 0; j < BKV / 16; ++j) wmma::fill_fragment(sacc[j], 0.f);
+    for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+    // ldmatrix address of this lane in a 16 x 16 block at (row, col) of a
+    // swizzled tile: matrices (rows +0/+8) x (cols +0/+8) as A fragments
+    auto a_addr = [&](const uint8_t* t, int row, int col) {
+        return t + swz(row + ((lane >> 3) & 1) * 8 + (lane & 7), col + (lane >> 4) * 8);
+    };
+
+    for (int kt = 0; kt <= qt; ++kt) {  // up to the diagonal's tile
+        if (kt < qt) {
+            issue(kt + 1);
+            cp_async_commit();
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        fence_proxy_async();
+        __syncthreads();
+        const uint8_t* Kt = KV + (kt & 1) * 2 * L::TILE;
+        const uint8_t* Vt = Kt + L::TILE;
+        const int* pk = Ps + (kt & 1) * BKV;
+        // Q's A fragments, from shared memory for every key tile: held in
+        // registers across tiles they read back wrong on the card
+        uint32_t qa[WG ? D / 16 : 1][4];
+        if (WG) {
 #pragma unroll
-            for (int kk = 0; kk < D; kk += 16) {
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                               wmma::row_major> a;
-                wmma::load_matrix_sync(a, &Qs[wr * L::LD + kk], L::LD);
+            for (int ks = 0; ks < D / 16; ++ks) {
+                ldmatrix_x4(qa[WG ? ks : 0], a_addr(Qs, warp * 16, 16 * ks));
 #pragma unroll
-                for (int j = 0; j < BKV / 16; ++j) {
-                    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                                   wmma::col_major> bk;
-                    wmma::load_matrix_sync(bk, &Ks[(16 * j) * L::LD + kk], L::LD);
-                    wmma::mma_sync(sacc[j], a, bk, sacc[j]);
+                for (int r = 0; r < 4; ++r) pin(qa[WG ? ks : 0][r]);
+            }
+        }
+
+        // S (64 x 64): s[4j..4j+3] is the n8 tile of key columns 8j..
+        float s[BKV / 2];
+#pragma unroll
+        for (int j = 0; j < BKV / 2; ++j) s[j] = 0.f;
+        if constexpr (WG) {
+            const uint32_t kb = smem_u32(Kt);
+            // operands written before the fence (see `pin`)
+#pragma unroll
+            for (int j = 0; j < BKV / 2; ++j) pin(s[j]);
+            wgmma_fence();
+#pragma unroll
+            for (int ks = 0; ks < D / 16; ++ks)
+                wgmma_rs(s, qa[ks], desc_sw128(kb + (ks >> 2) * SUB + 32 * (ks & 3)));
+            wgmma_commit();
+            wgmma_wait<0>();
+#pragma unroll
+            for (int j = 0; j < BKV / 2; ++j) pin(s[j]);
+        } else {
+#pragma unroll
+            for (int ks = 0; ks < D / 16; ++ks) {
+                uint32_t a[4];
+                ldmatrix_x4(a, a_addr(Qs, warp * 16, 16 * ks));
+#pragma unroll
+                for (int np = 0; np < BKV / 16; ++np) {
+                    // keys 16 np.. (+8): matrices (keys +0/+8) x (d +0/+8)
+                    uint32_t kf[4];
+                    ldmatrix_x4(kf, Kt + swz(16 * np + (lane >> 4) * 8 + (lane & 7),
+                                             16 * ks + ((lane >> 3) & 1) * 8));
+                    mma16816(&s[8 * np], a, kf[0], kf[1]);
+                    mma16816(&s[8 * np + 4], a, kf[2], kf[3]);
                 }
             }
-#pragma unroll
-            for (int j = 0; j < BKV / 16; ++j)
-                wmma::store_matrix_sync(&Ss[wr * L::LDS + 16 * j], sacc[j],
-                                        L::LDS, wmma::mem_row_major);
         }
-        __syncwarp();
 
-        // online softmax over the warp's rows: a lane takes 2 of 64 columns
-        for (int rr = 0; rr < 16; ++rr) {
-            const int row = wr + rr, i = q0 + row;
-            const bool seg_i = pos[i] < 0;
-            float s[2];
-            bool keep[2];
+        // online softmax of the thread's two rows over this key tile
+        const int k0 = kt * BKV;
+        float alpha[2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+            const int i = i0 + 8 * hh;
             float mt = -INFINITY;
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-                const int c = lane + 32 * e, j = k0 + c;
-                keep[e] = j <= i && (pos[j] < 0) == seg_i;
-                s[e] = Ss[row * L::LDS + c] * scale;
-                if (keep[e]) mt = fmaxf(mt, s[e]);
-            }
-            mt = warp_max(mt);
-            const float m_old = m_s[row];
-            const float m_new = fmaxf(m_old, mt);
-            const float alpha = m_new == -INFINITY ? 1.f : expf(m_old - m_new);
-            float psum = 0.f;
+            for (int j = 0; j < BKV / 8; ++j)
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-                const float p = keep[e] ? expf(s[e] - m_new) : 0.f;
-                psum += p;
-                Ps[row * L::LDP + lane + 32 * e] = f2bf(p);
-            }
-            psum = warp_sum(psum);
-            // rescale the row's accumulator by alpha
-            for (int d = lane; d < D; d += 32) Os[row * L::LDO + d] *= alpha;
-            if (lane == 0) {
-                m_s[row] = m_new;
-                l_s[row] = l_s[row] * alpha + psum;
-            }
+                for (int e = 0; e < 2; ++e) {
+                    const int c = 8 * j + (lane & 3) * 2 + e;
+                    const bool keep = k0 + c <= i && (pk[c] < 0) == seg[hh];
+                    const float x = s[4 * j + 2 * hh + e] * scale;
+                    s[4 * j + 2 * hh + e] = keep ? x : -INFINITY;
+                    mt = fmaxf(mt, keep ? x : -INFINITY);
+                }
+            mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+            mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+            const float m_new = fmaxf(m[hh], mt);
+            alpha[hh] = m_new == -INFINITY ? 1.f : expf(m[hh] - m_new);
+            float ps = 0.f;
+#pragma unroll
+            for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    float& x = s[4 * j + 2 * hh + e];
+                    x = x == -INFINITY ? 0.f : expf(x - m_new);
+                    ps += x;
+                }
+            ps += __shfl_xor_sync(0xffffffffu, ps, 1);
+            ps += __shfl_xor_sync(0xffffffffu, ps, 2);
+            l[hh] = l[hh] * alpha[hh] + ps;
+            m[hh] = m_new;
         }
-        __syncwarp();
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+            o[4 * j] *= alpha[0];
+            o[4 * j + 1] *= alpha[0];
+            o[4 * j + 2] *= alpha[1];
+            o[4 * j + 3] *= alpha[1];
+        }
+        // P as A fragments, k16 step kk = key tiles 2 kk, 2 kk + 1
+        uint32_t pa[BKV / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BKV / 16; ++kk) {
+            pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+            pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+            pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+            pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+        }
 
-        // O_w (16 x D) += P_w (16 x 64) . V (64 x D)
+        // O (64 x D) += P . V
+        if constexpr (WG) {
+            const uint32_t vb = smem_u32(Vt);
 #pragma unroll
-        for (int n = 0; n < D; n += 16) {
-            wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc;
-            wmma::load_matrix_sync(oacc, &Os[wr * L::LDO + n], L::LDO,
-                                   wmma::mem_row_major);
+            for (int j = 0; j < D / 2; ++j) pin(o[j]);
 #pragma unroll
-            for (int kk = 0; kk < BKV; kk += 16) {
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                               wmma::row_major> pa;
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                               wmma::row_major> vb;
-                wmma::load_matrix_sync(pa, &Ps[wr * L::LDP + kk], L::LDP);
-                wmma::load_matrix_sync(vb, &Vs[kk * L::LD + n], L::LD);
-                wmma::mma_sync(oacc, pa, vb, oacc);
-            }
-            wmma::store_matrix_sync(&Os[wr * L::LDO + n], oacc, L::LDO,
-                                    wmma::mem_row_major);
+            for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+                for (int r = 0; r < 4; ++r) pin(pa[kk][r]);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < BKV / 16; ++kk)
+                wgmma_rs<1>(o, pa[kk], desc_mn_sw128(vb + kk * 16 * 128, SUB, 1024));
+            wgmma_commit();
+            wgmma_wait<0>();
+#pragma unroll
+            for (int j = 0; j < D / 2; ++j) pin(o[j]);
+        } else {
+#pragma unroll
+            for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+                for (int np = 0; np < D / 16; ++np) {
+                    // keys 16 kk.. (+8) x columns 16 np.. (+8), transposed
+                    uint32_t vf[4];
+                    ldmatrix_x4_trans(vf, a_addr(Vt, 16 * kk, 16 * np));
+                    mma16816(&o[8 * np], pa[kk], vf[0], vf[1]);
+                    mma16816(&o[8 * np + 4], pa[kk], vf[2], vf[3]);
+                }
         }
+        __syncthreads();  // this stage is read before tile kt + 2 lands in it
     }
-    __syncwarp();
+
     // out = O / l, bf16 (every row sees itself, so l > 0)
-    for (int rr = 0; rr < 16; ++rr) {
-        const int row = wr + rr;
-        const float inv = 1.f / l_s[row];
-        __nv_bfloat16* o = out + (((size_t)b * T + q0 + row) * H + h) * D;
-        for (int d = lane; d < D; d += 32) o[d] = f2bf(Os[row * L::LDO + d] * inv);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+        const float inv = 1.f / l[hh];
+        __nv_bfloat16* orow = out + (((size_t)b * T + i0 + 8 * hh) * H + h) * D;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+            *reinterpret_cast<uint32_t*>(orow + 8 * j + (lane & 3) * 2) =
+                pack_bf16(o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);
     }
 }
 
@@ -189,13 +275,17 @@ static cudaError_t launch_prefill(const void* q, const void* k, const void* v,
                                   const void* positions, void* out, int B,
                                   int T, int H, int Hkv, float scale,
                                   cudaStream_t st) {
-    const size_t bytes = Smem<D>::BYTES;
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_prefill_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (e != cudaSuccess) return e;
-    dim3 grid(T / BQ, H, B);
-    flash_prefill_kernel<D><<<grid, NWARP * 32, bytes, st>>>(
+    static bool allowed = false;
+    const size_t bytes = PSmem<D>::BYTES;
+    if (!allowed) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            flash_prefill_kernel<D>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        if (e != cudaSuccess) return e;
+        allowed = true;
+    }
+    dim3 grid(H, T / BQ, B);
+    flash_prefill_kernel<D><<<grid, 128, bytes, st>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
         (const __nv_bfloat16*)v, (const int*)positions, (__nv_bfloat16*)out,
         T, H, Hkv, scale);

@@ -1,8 +1,9 @@
-// Hand-written PTX for Hopper (sm_90a): 16-byte cp.async with commit /
-// wait groups, the async-proxy fence, shared-memory matrix
-// descriptors, warpgroup MMA (wgmma, A from registers) and mma.sync
-// m16n8k16, all bf16 -> f32. Kept in one small header so that the nvcc
-// build needs no CUTLASS / CuTe.
+// Hand-written PTX for Hopper (sm_90a): cp.async (16 bytes, and 16 / 8
+// with zero fill) with commit / wait groups, the async-proxy fence,
+// ldmatrix, shared-memory matrix descriptors, warpgroup MMA (wgmma, A from
+// registers, B K-major or MN-major) and mma.sync m16n8k16, all bf16 ->
+// f32. Kept in one small header so that the nvcc build needs no CUTLASS /
+// CuTe.
 #pragma once
 
 #include <stdint.h>
@@ -18,6 +19,44 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 
 __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// 16 (8) bytes of which the first src_bytes are copied and the rest
+// zero-filled: src_bytes 0 reads nothing and clears the destination
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 int src_bytes) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async8_zfill(void* dst, const void* src,
+                                                int src_bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// four 8x8 b16 matrices; lanes 8m..8m+7 give the row addresses of matrix
+// m, and thread t receives row t/4, columns 2(t%4), 2(t%4)+1 of each
+// (.trans: rows 2(t%4), 2(t%4)+1 of column t/4)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(p)) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(p)) : "memory");
+}
+
+// two floats as one bf16x2 register, each rounded to nearest even; lo in
+// the low half (the lower column of an mma fragment)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    uint32_t d;
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+    return d;
 }
 
 // wait until at most N of this thread's committed groups are pending
@@ -49,9 +88,15 @@ __device__ __forceinline__ void wgmma_wait() {
     asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
-// keeps the compiler from moving reads of an accumulator across a wait
+// keeps the compiler from moving reads of an accumulator across a wait,
+// or writes of a wgmma operand (accumulator or A fragment) past the fence
+// that must follow them
 __device__ __forceinline__ void pin(float& v) {
     asm volatile("" : "+f"(v) :: "memory");
+}
+
+__device__ __forceinline__ void pin(uint32_t& v) {
+    asm volatile("" : "+r"(v) :: "memory");
 }
 
 // Matrix descriptor of a K-major operand in the 128-byte swizzle: rows of
@@ -72,8 +117,21 @@ __device__ __forceinline__ uint64_t desc_plain(uint32_t saddr, uint32_t lbo,
            | ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32);
 }
 
+// Matrix descriptor of an MN-major operand in the 128-byte swizzle: atoms
+// of 64 MN-contiguous bf16 (128 B) by 8 K-rows (1024 B, 1024-aligned),
+// lbo the byte stride between atoms along MN, sbo between 8-row groups
+// along K; the start address moves by 16 rows per k16 step.
+__device__ __forceinline__ uint64_t desc_mn_sw128(uint32_t saddr, uint32_t lbo,
+                                                  uint32_t sbo) {
+    return (uint64_t)((saddr & 0x3FFFFu) >> 4)
+           | ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16)
+           | ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | ((uint64_t)1 << 62);
+}
+
 // D (64 x N, f32) += A (64 x 16 bf16, registers: the m16n8k16 A fragment of
-// each warp's 16 rows) . B (16 x N bf16, K-major in shared memory)
+// each warp's 16 rows) . B (16 x N bf16 in shared memory: K-major, or
+// MN-major with TB = 1)
+template <int TB = 0>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
                                          uint64_t desc) {
     asm volatile(
@@ -82,7 +140,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
         "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
         "%28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -90,9 +148,11 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+          "n"(TB));
 }
 
+template <int TB = 0>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
                                          uint64_t desc) {
     asm volatile(
@@ -103,7 +163,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
         "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
         "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -117,7 +177,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
           "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
           "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+          "n"(TB));
 }
 
 // D (16 x 8, f32) += A (16 x 16 bf16, row) . B (16 x 8 bf16, col)
@@ -129,6 +190,17 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
         "{%0, %1, %2, %3};\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// the same on four consecutive floats of a flat fragment array
+__device__ __forceinline__ void mma16816(float* d, const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // d = a * b + c on two bf16 lanes, rounded once

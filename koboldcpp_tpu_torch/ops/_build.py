@@ -44,6 +44,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 launches: collections.Counter = collections.Counter()
 build_seconds = 0.0  # wall time of the last build (0 when it was cached)
+source_seconds: dict[str, float] = {}  # each source's nvcc time in it
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -92,14 +93,24 @@ def build_all() -> dict[str, str]:
             tmp = f"{paths[s]}.{os.getpid()}.tmp"
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
                    os.path.join(CSRC, f"{s}.cu")]
-            procs.append((s, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+            log = open(f"{tmp}.log", "w+")
+            procs.append((s, tmp, log, subprocess.Popen(
+                cmd, stdout=log, stderr=subprocess.STDOUT)))
+        pending = {s: proc for s, _, _, proc in procs}
+        while pending:  # each source's own time, all running together
+            for s, proc in list(pending.items()):
+                if proc.poll() is not None:
+                    source_seconds[s] = time.perf_counter() - t0
+                    del pending[s]
+            time.sleep(0.05)
         errors = []
-        for s, tmp, proc in procs:
-            log, _ = proc.communicate()
+        for s, tmp, log, proc in procs:
+            log.seek(0)
+            text = log.read()
+            log.close()
+            os.remove(f"{tmp}.log")
             if proc.returncode != 0:
-                errors.append(f"{s}.cu:\n{log}")
+                errors.append(f"{s}.cu:\n{text}")
             else:
                 os.replace(tmp, paths[s])
         if errors:
@@ -127,6 +138,19 @@ def load(source: str, signatures: dict[str, list]) -> ctypes.CDLL:
     return lib
 
 
+_entries: dict[str, tuple] = {}
+
+
+def entry(source: str, name: str, argtypes: list) -> tuple:
+    """(library, entry point) of csrc/<source>.cu with its argtypes set,
+    cached: a wrapper on a hot path pays one dict lookup per call."""
+    found = _entries.get(name)
+    if found is None:
+        lib = load(source, {name: argtypes})
+        found = _entries[name] = (lib, getattr(lib, name))
+    return found
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise when a launch returned a CUDA error."""
     if err != 0:
@@ -137,4 +161,7 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 def stream_ptr() -> int:
     import torch
 
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:  # the same pointer without a Stream object
+        return raw(torch.cuda.current_device())
     return torch.cuda.current_stream().cuda_stream

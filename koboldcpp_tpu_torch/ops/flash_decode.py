@@ -19,6 +19,12 @@ kernels do: K6 dequantizes the history to bf16 before the dot, K9/K10
 apply the scales on the score side. Over an f32 cache q and p are rounded
 to bf16 and the scores and p . V read the f32 rows, as the JAX kernel's
 bf16-by-f32 dots do.
+
+The kernel takes any head_dim that is a multiple of 16 up to 256 and any
+number of query heads per kv head (`check_kernel_shape`). Its grid is cut
+by `decode_plan` from (B, Hkv, S) alone, so no launch reads a position on
+the host; its partials and merge tickets live in a scratch kept across
+calls of one shape (`_scratch`).
 """
 from __future__ import annotations
 
@@ -28,7 +34,23 @@ from ..kv.cache import _dequant, _q8
 from ..kv.paged import _q4_planes, _quantize_q4
 from . import _build
 
-ROWS_PER_SPLIT = 256  # history rows per block of the sequence-split kernel
+TILE_ROWS = 64  # history rows per tile of csrc/flash_decode.cu (16 a warp)
+MAX_SPLITS = 256  # splits of one sequence that the kernel's merge holds
+TARGET_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
+HEAD_GROUP = 16  # query heads per block (one m16 tile)
+
+
+def decode_plan(B: int, n_kv_heads: int, S: int) -> tuple[int, int]:
+    """(rows_per_split, nsplit) of csrc/flash_decode.cu's grid (B * Hkv *
+    head groups, nsplit): a function of the batch, the kv heads and the
+    cache length S alone, never of the positions, so a launch needs no
+    host read and the slot, paged (S = MP * P) and pooled caches cut a
+    history at the same rows. The split is the smallest multiple of
+    TILE_ROWS that gives at most TARGET_BLOCKS blocks for the B * Hkv
+    (sequence, kv head) pairs and at most MAX_SPLITS splits."""
+    want = max(-(-S * B * n_kv_heads // TARGET_BLOCKS), -(-S // MAX_SPLITS), 1)
+    rps = -(-want // TILE_ROWS) * TILE_ROWS
+    return rps, max(1, -(-S // rps))
 
 
 def _softcap(s: torch.Tensor, cap: float) -> torch.Tensor:
@@ -117,6 +139,12 @@ def decode_attention_batched(q, k_new, v_new, k_layer, v_layer, positions,
 
 # csrc/flash_decode.cu's kinds of K5 / K17c, by the cache's dtype
 _ROWS_KIND = {torch.bfloat16: 0, torch.float32: 4}
+# argtypes of its entry points (pointers, ints, scale and softcap, stream)
+_TAIL = [_build.F, _build.F, _build.P]
+_K5_ARGS = [_build.I] + [_build.P] * 11 + [_build.I] * 7 + _TAIL
+_K16_ARGS = [_build.P] * 8 + [_build.I] * 6 + _TAIL
+_K6_ARGS = [_build.P] * 12 + [_build.I] * 7 + _TAIL
+_K8_ARGS = [_build.I] + [_build.P] * 13 + [_build.I] * 9 + _TAIL
 
 
 def _launch_rows(kid, q, k_new, v_new, k_cache, v_cache, positions, li,
@@ -139,19 +167,16 @@ def _launch_rows(kid, q, k_new, v_new, k_cache, v_cache, positions, li,
                            or li.numel() != 1):
         raise ValueError(f"{kid} takes pools of whole layers of B = {B} "
                          "rows and a one-element int32 layer index")
-    lib = _build.load("flash_decode", {
-        "k5_flash_decode": [_build.I] + [_build.P] * 10 + [_build.I] * 7
-        + [_build.F, _build.F, _build.P]})
-    nsplit, out, part_acc, part_ml = _scratch(B, n_heads, n_kv_heads, D, S,
-                                              q.device)
-    qb, kn, vn = (t.to(torch.bfloat16).contiguous() for t in (q, k_new, v_new))
-    pos = positions.to(torch.int32).contiguous()
-    _build.check(lib, lib.k5_flash_decode(
+    lib, fn = _build.entry("flash_decode", "k5_flash_decode", _K5_ARGS)
+    rps, nsplit, out, scratch = _scratch(B, n_heads, n_kv_heads, D, S,
+                                         q.device)
+    qb, kn, vn = _bf16(q), _bf16(k_new), _bf16(v_new)
+    pos = _i32(positions)
+    _build.check(lib, fn(
         _ROWS_KIND[dt], qb.data_ptr(), kn.data_ptr(), vn.data_ptr(),
         k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(), _ptr(li),
-        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), B, S,
-        n_heads, n_kv_heads, D, nsplit, ROWS_PER_SPLIT, float(scale),
-        float(softcap), _build.stream_ptr()), kid)
+        out.data_ptr(), *scratch, B, S, n_heads, n_kv_heads, D, nsplit, rps,
+        float(scale), float(softcap), _build.stream_ptr()), kid)
     _build.launches[kid] += 1
     return out
 
@@ -223,17 +248,13 @@ def decode_attention(q, k_layer, v_layer, pos, n_heads: int, scale: float,
     _checked("K16", q, (k_layer, v_layer), (torch.bfloat16,) * 2, (pos,))
     if pos.dtype != torch.int32 or pos.numel() != 1:
         raise ValueError("K16 takes pos as a one-element int32 tensor")
-    lib = _build.load("flash_decode", {
-        "k16_flash_decode": [_build.P] * 7 + [_build.I] * 6
-        + [_build.F, _build.F, _build.P]})
-    nsplit, out, part_acc, part_ml = _scratch(1, n_heads, Hkv, D, S,
-                                              q.device)
-    qb = q.to(torch.bfloat16).contiguous()
-    _build.check(lib, lib.k16_flash_decode(
+    lib, fn = _build.entry("flash_decode", "k16_flash_decode", _K16_ARGS)
+    rps, nsplit, out, scratch = _scratch(1, n_heads, Hkv, D, S, q.device)
+    qb = _bf16(q)
+    _build.check(lib, fn(
         qb.data_ptr(), k_layer.data_ptr(), v_layer.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), S, n_heads,
-        Hkv, D, nsplit, ROWS_PER_SPLIT, float(scale), float(softcap),
-        _build.stream_ptr()), "K16")
+        out.data_ptr(), *scratch, S, n_heads, Hkv, D, nsplit, rps,
+        float(scale), float(softcap), _build.stream_ptr()), "K16")
     _build.launches["K16"] += 1
     return out[0]
 
@@ -274,22 +295,52 @@ def decode_attention_paged_plain(q, k_new, v_new, k_pool, v_pool, page_table,
 def _checked(kid: str, q, caches, dtypes, others) -> None:
     """Raise unless every cache tensor is contiguous and of its dtype and
     every operand lies on q's device."""
-    if any(t.dtype != dt or not t.is_contiguous()
-           for t, dt in zip(caches, dtypes)):
-        raise ValueError(f"{kid} takes contiguous caches of dtypes "
-                         f"{sorted({str(d) for d in dtypes})}")
-    if any(t.device != q.device for t in (*caches, *others)):
-        raise ValueError(f"{kid} takes every operand on {q.device}")
+    for t, dt in zip(caches, dtypes):
+        if t.dtype is not dt or not t.is_contiguous():
+            raise ValueError(f"{kid} takes contiguous caches of dtypes "
+                             f"{sorted({str(d) for d in dtypes})}")
+    dev = q.get_device()
+    for t in (*caches, *others):
+        if t.get_device() != dev:
+            raise ValueError(f"{kid} takes every operand on {q.device}")
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """t as a contiguous bf16 tensor (itself when it is one already)."""
+    if t.dtype is torch.bfloat16 and t.is_contiguous():
+        return t
+    return t.to(torch.bfloat16).contiguous()
+
+
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype is torch.int32 and t.is_contiguous():
+        return t
+    return t.to(torch.int32).contiguous()
+
+
+# the kernel's scratch by (device, units, nsplit, D): kept across calls, so
+# a decode step allocates only its output
+_SCRATCH: dict = {}
 
 
 def _scratch(B: int, n_heads: int, n_kv_heads: int, D: int, S: int, dev):
-    """out (B, H, D) f32 and the split kernel's (acc, max/sum) scratch."""
-    G = n_heads // n_kv_heads
-    nsplit = max(1, -(-S // ROWS_PER_SPLIT))
-    f32 = dict(dtype=torch.float32, device=dev)
-    return (nsplit, torch.empty((B, n_heads, D), **f32),
-            torch.empty((B * n_kv_heads, nsplit, G * D), **f32),
-            torch.empty((B * n_kv_heads, nsplit, G, 2), **f32))
+    """(rows_per_split, nsplit, out (B, H, D) f32, the kernel's scratch
+    pointers): the splits' (acc, max/sum) partials and the merge tickets
+    (zero between calls; every call leaves them so) of the B * Hkv * head
+    groups units. Calls on one stream may share them."""
+    rps, nsplit = decode_plan(B, n_kv_heads, S)
+    units = B * n_kv_heads * -(-(n_heads // n_kv_heads) // HEAD_GROUP)
+    key = (dev, units, nsplit, D)
+    scratch = _SCRATCH.get(key)
+    if scratch is None:
+        f32 = dict(dtype=torch.float32, device=dev)
+        tensors = (torch.empty((units, nsplit, HEAD_GROUP, D), **f32),
+                   torch.empty((units, nsplit, HEAD_GROUP, 2), **f32),
+                   torch.zeros(units, dtype=torch.int32, device=dev))
+        scratch = _SCRATCH[key] = (tensors,
+                                   tuple(t.data_ptr() for t in tensors))
+    out = torch.empty((B, n_heads, D), dtype=torch.float32, device=dev)
+    return rps, nsplit, out, scratch[1]
 
 
 def _ptr(t):
@@ -310,21 +361,18 @@ def _launch_paged(kid, q, k_new, v_new, k_pool, v_pool, ks_pool, vs_pool,
     check_kernel_shape(n_heads, n_kv_heads, D, kid)
     if NPP % page_size:
         raise ValueError(f"{kid} takes pools of whole pages")
-    lib = _build.load("flash_decode", {
-        "k8_flash_decode_paged": [_build.I] + [_build.P] * 12
-        + [_build.I] * 9 + [_build.F, _build.F, _build.P]})
-    nsplit, out, part_acc, part_ml = _scratch(B, n_heads, n_kv_heads, D,
-                                              MP * page_size, q.device)
-    qb, kn, vn = (t.to(torch.bfloat16).contiguous() for t in (q, k_new, v_new))
-    tab = page_table.to(torch.int32).contiguous()
-    pos = positions.to(torch.int32).contiguous()
-    _build.check(lib, lib.k8_flash_decode_paged(
+    lib, fn = _build.entry("flash_decode", "k8_flash_decode_paged",
+                           _K8_ARGS)
+    rps, nsplit, out, scratch = _scratch(B, n_heads, n_kv_heads, D,
+                                         MP * page_size, q.device)
+    qb, kn, vn = _bf16(q), _bf16(k_new), _bf16(v_new)
+    tab, pos = _i32(page_table), _i32(positions)
+    _build.check(lib, fn(
         _PAGED_KIND[kid], qb.data_ptr(), kn.data_ptr(), vn.data_ptr(),
         k_pool.data_ptr(), v_pool.data_ptr(), _ptr(ks_pool), _ptr(vs_pool),
-        tab.data_ptr(), pos.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-        part_ml.data_ptr(), B, MP, page_size, NPP // page_size, n_heads,
-        n_kv_heads, D, nsplit, ROWS_PER_SPLIT, float(scale), float(softcap),
-        _build.stream_ptr()), kid)
+        tab.data_ptr(), pos.data_ptr(), out.data_ptr(), *scratch, B, MP,
+        page_size, NPP // page_size, n_heads, n_kv_heads, D, nsplit, rps,
+        float(scale), float(softcap), _build.stream_ptr()), kid)
     _build.launches[kid] += 1
     return out
 
@@ -417,27 +465,32 @@ def decode_attention_batched_q8(q, k_new, v_new, k_layer, v_layer, ks_layer,
             q, k_new, v_new, k_layer, v_layer, ks_layer, vs_layer, positions,
             n_heads, n_kv_heads, scale, softcap)
         return (out, *res)
-    B, S, KD = k_layer.shape
+    return (_launch_q8(q, k_new, v_new, res, positions, n_heads, n_kv_heads,
+                       scale, softcap), *res)
+
+
+def _launch_q8(q, k_new, v_new, res, positions, n_heads, n_kv_heads, scale,
+               softcap):
+    """Launch K6 over res = (k, v, k scales, v scales) of the Q8 slot cache
+    (updated in place); returns out (B, H, D) f32."""
+    B, S, KD = res[0].shape
     D = KD // n_kv_heads
     check_kernel_shape(n_heads, n_kv_heads, D, "K6")
     _checked("K6", q, res, (torch.int8,) * 2 + (torch.bfloat16,) * 2,
              (k_new, v_new, positions))
-    lib = _build.load("flash_decode", {
-        "k6_flash_decode_q8": [_build.P] * 11 + [_build.I] * 7
-        + [_build.F, _build.F, _build.P]})
-    nsplit, out, part_acc, part_ml = _scratch(B, n_heads, n_kv_heads, D, S,
-                                              q.device)
-    qb, kn, vn = (t.to(torch.bfloat16).contiguous() for t in (q, k_new, v_new))
-    pos = positions.to(torch.int32).contiguous()
-    _build.check(lib, lib.k6_flash_decode_q8(
+    lib, fn = _build.entry("flash_decode", "k6_flash_decode_q8", _K6_ARGS)
+    rps, nsplit, out, scratch = _scratch(B, n_heads, n_kv_heads, D, S,
+                                         q.device)
+    qb, kn, vn = _bf16(q), _bf16(k_new), _bf16(v_new)
+    pos = _i32(positions)
+    _build.check(lib, fn(
         qb.data_ptr(), kn.data_ptr(), vn.data_ptr(), *(t.data_ptr()
                                                        for t in res),
-        pos.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-        part_ml.data_ptr(), B, S, n_heads, n_kv_heads, D, nsplit,
-        ROWS_PER_SPLIT, float(scale), float(softcap), _build.stream_ptr()),
+        pos.data_ptr(), out.data_ptr(), *scratch, B, S, n_heads, n_kv_heads,
+        D, nsplit, rps, float(scale), float(softcap), _build.stream_ptr()),
         "K6")
     _build.launches["K6"] += 1
-    return (out, *res)
+    return out
 
 
 def decode_attention_paged_quant_plain(q, k_new, v_new, k_pool, v_pool,
@@ -548,11 +601,13 @@ def supported_batched(T: int, Hkv: int, D: int) -> bool:
 def check_kernel_shape(n_heads: int, n_kv_heads: int, head_dim: int,
                        kernel: str = "K5") -> None:
     """Raise NotImplementedError for the head shapes csrc/flash_decode.cu
-    (K5, K6, K8, K9, K10, K16, K17c) is not built for: head_dim 64 or 128, at most 16 query heads
-    per kv head and G * head_dim <= 1024."""
-    G = n_heads // n_kv_heads
-    if head_dim not in (64, 128) or G > 16 or G * head_dim > 1024:
+    (K5, K6, K8, K9, K10, K16, K17c) is not built for: it takes any
+    head_dim that is a multiple of 16 up to 256 and any number of query
+    heads per kv head (n_heads a multiple of n_kv_heads)."""
+    if (head_dim % 16 or not 16 <= head_dim <= 256
+            or n_kv_heads <= 0 or n_heads % n_kv_heads):
         raise NotImplementedError(
-            f"{kernel} (flash decode) is not ported for head_dim {head_dim} "
-            f"with {G} query heads per kv head (head_dim 64 or 128, at most "
-            "16 heads per kv head, G * head_dim <= 1024)")
+            f"{kernel} (flash decode) is not built for head_dim {head_dim} "
+            f"with {n_heads} query heads over {n_kv_heads} kv heads "
+            "(head_dim a multiple of 16 up to 256, n_heads a multiple of "
+            "n_kv_heads)")

@@ -247,12 +247,14 @@ def test_shift_rows_matches_jax(rope_type):
         torch.from_numpy(k[:, :5]).bfloat16().float().numpy())
 
 
-@pytest.mark.parametrize("head_dim,n_heads,n_kv_heads", [(96, 32, 4),
-                                                          (256, 8, 4)])
+@pytest.mark.parametrize("head_dim,n_heads,n_kv_heads", [(72, 32, 16),
+                                                          (512, 8, 4)])
 def test_k5_head_shape_refused_at_load_on_cuda(head_dim, n_heads, n_kv_heads):
-    """A head shape K5 is not built for fails when the model is checked on a
-    CUDA device, naming K5, not at the first decoded token; the CPU, which
-    runs K5's plain version, takes it."""
+    """A head shape K5 is not built for (a head_dim that is not a multiple
+    of 16, or above 256, where Hkv * head_dim % 128 == 0 sends it to the
+    kernel) fails when the model is checked on a CUDA device, naming K5,
+    not at the first decoded token; the CPU, which runs K5's plain version,
+    takes it."""
     cfg = dataclasses.replace(SMALL, n_heads=n_heads, n_kv_heads=n_kv_heads,
                               head_dim=head_dim, rope_dim=head_dim)
     params = {"layers": [{}]}
