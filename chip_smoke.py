@@ -29,7 +29,9 @@
    across T within the variant `kq_plan` picks (printed per case, with the
    device time alone from CUDA-graph replays, and per T class <= 16 /
    >= 128 after the kernel phases; K4 and every flash-decode case also
-   with its device time alone, summed per kernel against SDPA); K7's rows
+   with its device time alone, summed per kernel against SDPA; every K1 /
+   K1.q5_k / K7 / K7.q5_k / K17a case too, summed per T class against
+   cuBLAS and the bound, `print_q4k_classes`); K7's rows
    equal
    K1 on each row alone (K7.q5_k K1.q5_k), K2.q8_0 and K2.q8_0_bf16 equal
    their plain versions (the opt-in fixtures' decode step runs K5 over
@@ -122,7 +124,8 @@
 8. last, since a profiler session slows every later decode of the
    process: the device idle share under torch.profiler of the synthetic
    1.1B q4_k, 64 fast-forwarded single-stream tokens (with that request's
-   tok/s before and after the session, then under KCPP_FFN_FUSED=1), the
+   tok/s before and after the session, the q4_k matvec rows per token and
+   no separate activation-prep launch; then under KCPP_FFN_FUSED=1), the
    300-token prefill as one chunk, and
    32 batched steps of 8 requests (and of 16 under KCPP_SBQ=1), and
    tools/profile_scan.py's scan mode (64 tokens: idle share, top five ops
@@ -472,10 +475,13 @@ def phase_matvec(rng) -> None:
                 tol = 2 ** -7 * ref.float().abs().max().item()
             w = dequant(qt)
             xr = x.view(1, in_f)
+            q45 = kid in Q4K_KIDS
             _record(kid, f"{name} {out_f}x{in_f} T=1{tag}", err, tol,
                     lambda: wrapper(x, qt), lambda: plain(x, qt),
                     lambda: torch.matmul(xr, w.t()),
-                    _wbytes(qt) + _nbytes(x) + out_f * 2)
+                    _wbytes(qt) + _nbytes(x) + out_f * 2, dev=q45)
+            if q45:
+                _q4k_class(kid, name, 1, _i8(x))
             del w
 
 
@@ -514,7 +520,8 @@ def phase_batched_matvec(rng) -> None:
                     lambda: qm.q4k_matvec_t(x, qt, i8),
                     lambda: qm.q4k_matvec_t_plain(x, qt, i8),
                     lambda: torch.matmul(x, w.t()),
-                    _wbytes(qt) + _nbytes(x) + T * out_f * 2)
+                    _wbytes(qt) + _nbytes(x) + T * out_f * 2, dev=True)
+            _q4k_class(kid, name, T, i8)
             del w
 
 
@@ -687,6 +694,42 @@ def print_kq_classes() -> None:
         print(f"{kid} T{cls} ({n} cases): kernel / library {k:.4f} / "
               f"{lib:.4f} ms = {k / lib:.2f}x; device alone {dk:.4f} / "
               f"{dl:.4f} ms = {dk / dl:.2f}x", flush=True)
+
+
+# K1 / K1.q5_k / K7 / K7.q5_k (and K17a) per class: the int8 cases at
+# T = 1 and at T = 2-8, those at T = 8 alone, K1's four wide 1.1B shapes
+# (wqkv, w_gateup, w_down, output) and the bf16-x (fixture) cases; each
+# [ms, library ms, device-alone ms, device-alone library ms, bound ms, n]
+Q4K_KIDS = ("K1", "K1.q5_k", "K7", "K7.q5_k")
+Q4K_CLASSES: dict = {}
+_K1_WIDE = ("wqkv", "w_gateup", "w_down", "output")
+
+
+def _q4k_class(kid: str, name: str, T: int, i8: bool) -> None:
+    """Add the last case of `kid` to its classes (Q4K_CLASSES)."""
+    case = CASES[kid][-1]
+    if not i8:
+        classes = ["bf16 x"]
+    else:
+        classes = ["T=1" if T == 1 else "T=2-8"] + (["T=8"] if T == 8 else [])
+        if T == 1 and name in _K1_WIDE:
+            classes.append("T=1 wqkv+w_gateup+w_down+output")
+    for cls in classes:
+        sums = Q4K_CLASSES.setdefault((kid, cls), [0.0] * 5 + [0])
+        for i, k in enumerate(("ms", "library_ms", "dev_ms", "dev_library_ms",
+                               "bound_ms")):
+            sums[i] += case[k]
+        sums[5] += 1
+
+
+def print_q4k_classes() -> None:
+    """The K1 / K7 (and K17a) sums per class: kernel / library host
+    included and on the device alone, and kernel (device alone) / bound."""
+    for (kid, cls), (k, lib, dk, dl, b, n) in Q4K_CLASSES.items():
+        print(f"{kid} {cls} ({n} cases): kernel / library {k:.4f} / "
+              f"{lib:.4f} ms = {k / lib:.2f}x; device alone {dk:.4f} / "
+              f"{dl:.4f} ms = {dk / dl:.2f}x; bound {b:.4f} ms, device alone "
+              f"/ bound {dk / b:.2f}x", flush=True)
 
 
 def phase_kq_matmul(rng) -> None:
@@ -1276,7 +1319,10 @@ def phase_stacked(rng) -> None:
                     err, tol, lambda: stacked_fn(x, st, idx, i8),
                     lambda: plain_fn(x, st, li, i8),
                     lambda: torch.matmul(xr, w.t()),
-                    _wbytes(layer) + _nbytes(x) + out_f * 2)
+                    _wbytes(layer) + _nbytes(x) + out_f * 2,
+                    dev=kid.startswith("K17a"))
+            if kid.startswith("K17a"):
+                _q4k_class(kid, name, 1, i8)
             del w, st
     torch.cuda.empty_cache()
     # K17c: TinyLlama's heads and an 8B-class head_dim 128, one and eight
@@ -1599,17 +1645,19 @@ def phase_phi3_decode(card: str) -> dict:
     return counts
 
 
-def _decode_idle_share(eng: Engine, prompt: list[int], sampler) -> str:
+def _decode_idle_share(eng: Engine, prompt: list[int], sampler,
+                       rows: dict | None = None) -> str:
     """Device busy time against the wall time of a fast-forwarded request
     that decodes 64 greedy tokens."""
     eng.generate(prompt, GenParams(max_length=8, sampler=sampler))
     return _idle_share(lambda: eng.generate(prompt, GenParams(
-        max_length=64, bypass_eos=True, sampler=sampler)))
+        max_length=64, bypass_eos=True, sampler=sampler)), rows)
 
 
-def _idle_share(run) -> str:
+def _idle_share(run, rows_out: dict | None = None) -> str:
     """Device busy time (sum of kernel times, one stream) against the wall
-    time of run(), under torch.profiler."""
+    time of run(), under torch.profiler; rows_out, if given, receives each
+    device row's time in microseconds by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1623,6 +1671,9 @@ def _idle_share(run) -> str:
     rows = [(e.self_device_time_total, e.key) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy_us = sum(t for t, _ in rows)
+    if rows_out is not None:
+        for t, k in rows:
+            rows_out[k] = rows_out.get(k, 0.0) + t
     if busy_us <= 0:
         return "device time not measured (the profiler saw no kernels)"
     top = ", ".join(f"{k[:40]} {t / 1e3:.2f} ms"
@@ -1650,12 +1701,26 @@ def phase_profiled(card: str) -> None:
     eng.generate(prompt, gp)
     eng.generate(prompt, gp)
     before_tps = eng.last_timings.gen_tps
-    idle = _decode_idle_share(eng, prompt, sampler)
+    rows: dict = {}
+    idle = _decode_idle_share(eng, prompt, sampler, rows)
     eng.generate(prompt, gp)
     after_tps = eng.last_timings.gen_tps
     print(f"greedy decode, 64 tokens under torch.profiler ({card}): {idle}; "
           f"the fast-forwarded request after it: decode {after_tps:.1f} "
           f"tok/s (before it: {before_tps:.1f})", flush=True)
+    # K1's rows (89 a token: 88 layer projections and the head) and any
+    # separate activation-prep launch left on the path
+    mv = {k: t for k, t in rows.items() if "q4k_" in k and "sbq" not in k}
+    prep = {k: t for k, t in rows.items() if "act_prep" in k}
+    print(f"q4_k matvec rows of the 64 profiled tokens: "
+          f"{sum(mv.values()) / 1e3:.2f} ms, "
+          f"{sum(mv.values()) / 64 / 1e3:.4f} ms per token "
+          f"({', '.join(k[:48] for k in mv)}); act_prep_kernel rows: "
+          f"{', '.join(f'{k[:48]} {t / 1e3:.2f} ms' for k, t in prep.items()) or 'none'}",
+          flush=True)
+    _check(bool(mv), "the profile saw no q4_k matvec row")
+    _check(not prep, f"an activation-prep launch remains on the q4_k "
+           f"decode path: {list(prep)}")
     with _env(KCPP_FFN_FUSED="1", KCPP_SBQ="0"):
         eng.generate(prompt, gp)
         idle = _decode_idle_share(eng, prompt, sampler)
@@ -2882,6 +2947,7 @@ def main() -> int:
                   phase_stacked):
         _timed(phase, rng)
     print_kq_classes()
+    print_q4k_classes()
     print_attention_sums()
     torch.cuda.synchronize()
     global _flush

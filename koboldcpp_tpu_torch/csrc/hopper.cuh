@@ -1,9 +1,10 @@
 // Hand-written PTX for Hopper (sm_90a): cp.async (16 bytes, and 16 / 8
 // with zero fill) with commit / wait groups, the async-proxy fence,
 // ldmatrix, shared-memory matrix descriptors, warpgroup MMA (wgmma, A from
-// registers, B K-major or MN-major) and mma.sync m16n8k16, all bf16 ->
-// f32. Kept in one small header so that the nvcc build needs no CUTLASS /
-// CuTe.
+// registers, B K-major or MN-major) and mma.sync m16n8k16 / m16n8k8,
+// bf16 -> f32, mma.sync m16n8k32, s8 -> s32, and the cluster's
+// distributed shared memory. Kept in one small header so that the
+// nvcc build needs no CUTLASS / CuTe.
 #pragma once
 
 #include <stdint.h>
@@ -201,6 +202,69 @@ __device__ __forceinline__ void mma16816(float* d, const uint32_t (&a)[4],
         "{%0, %1, %2, %3};\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D (16 x 8, s32) = A (16 x 32 s8, row) . B (32 x 8 s8, col), exact; A
+// register i: row t/4 (+8 for i odd), k 4(t%4)..+3 (+16 for i >= 2); b0 / b1:
+// k 4(t%4)..+3 / 16+4(t%4)..+3 of column t/4; D as mma16816's
+__device__ __forceinline__ void mma16832_s8(int (&d)[4], const uint32_t (&a)[4],
+                                            uint32_t b0, uint32_t b1) {
+    d[0] = d[1] = d[2] = d[3] = 0;
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D (16 x 8, f32) += A (16 x 8 bf16, row) . B (8 x 8 bf16, col); A
+// registers: rows t/4 and t/4 + 8, k 2(t%4)..+1; b: k 2(t%4)..+1 of
+// column t/4; D as mma16816's
+__device__ __forceinline__ void mma1688(float (&d)[4], uint32_t a0,
+                                        uint32_t a1, uint32_t b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a0), "r"(a1), "r"(b));
+}
+
+// thread block clusters: this block's rank, a peer block's address of a
+// shared-memory location, stores there, and the cluster barrier halves
+__device__ __forceinline__ uint32_t cluster_rank() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+    return r;
+}
+
+__device__ __forceinline__ uint32_t peer_smem(const void* p, uint32_t rank) {
+    uint32_t r;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                 : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+    return r;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, uint32_t v) {
+    asm volatile("st.shared::cluster.u32 [%0], %1;\n" :: "r"(addr), "r"(v)
+                 : "memory");
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, uint16_t v) {
+    asm volatile("st.shared::cluster.u16 [%0], %1;\n" :: "r"(addr), "h"(v)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // d = a * b + c on two bf16 lanes, rounded once

@@ -7,54 +7,526 @@
 // 512). K7 replaces the same function at 2 <= T <= 8: bodies
 // `_q4k_decode_kernel_i8_t` / `_q5k_decode_kernel_i8_t` (with
 // `_i8_prep_t`) and the bf16 decode kernels over per-token stacks (T <= 4).
-//
-// The code of a weight is its nibble (q4_k, 0..15) or its nibble ORed with
-// its 5th bit from the qh bit plane (q5_k, 0..31); w = code * s - m.
-// i8 variant: x is quantized per token and per 32-column group to int8
-// (act_prep_kernel over the T rows, the port of `_i8_prep(_t)`); the int8 x
-// code dot of each group is an exact int32 sum taken with __dp4a (codes
-// are below 128, so the signed form multiplies them exactly);
-// y_r = sum_g sx_g * s_rg * P_rg - sum_g m_rg * xsum_g (`_i8_combine`), with
-// the group sums kept in bf16. bf16 variant: P_rg is the f32 dot of bf16 x
-// with the codes.
-//
-// Bound on the H100: bytes. Each weight byte is read once, whatever T is
-// (q4_k 0.5 B/weight, q5_k 0.5 + 0.125 B/weight, plus 4 B of bf16 scale and
-// min per 32 weights); x, its codes and sums stay in L1/L2. Design: one warp
-// per output row, each lane loads 16 bytes of packed nibbles per step (half
-// of one 32-column group in each nibble plane) and, for q5_k, the 2 + 2
-// bytes of those 32 columns' 5th bits, so a warp reads 512 contiguous bytes
-// of nibbles per step, and keeps T accumulators, one per token; the two
-// lanes of a group combine their partials with one shuffle before the scale
-// products, as the TPU kernel applies scales to whole-group partials. Every
-// product-and-add is an explicit __fmaf_rn / __fmul_rn, so token t goes
-// through the same operations in the same order at every T: row t of K7
-// equals K1 on x[t] bit for bit, and a request served in a batch gets the
-// tokens it gets alone.
 // K17a (T=1 over layer li of layer-stacked fields, the scan decode path)
 // replaces `_packed_matvec_q4k_stacked`, which runs the same bodies through
 // `_stacked_kernel` / `_SqView`: it is K1 with every weight pointer moved
 // to layer li, read by each block from device memory (Stacked,
 // common.cuh), so it gives K1's result on that layer bit for bit.
+//
+// The code of a weight is its nibble (q4_k, 0..15) or its nibble ORed with
+// its 5th bit from the qh bit plane (q5_k, 0..31); w = code * s - m. In the
+// packed `qs2` layout byte j of a 256-column superblock holds column j in
+// its low nibble and column j + 128 in its high one, so the 32-byte span k
+// (k = 0..3) holds 32-column group k in its low nibbles and group k + 4 in
+// its high ones.
+//
+// The int8-activation bodies (every main-path shape: in_f >= 512 and
+// T * (in_f/64) * (in_f/2) <= 4 Mi, `_q45_i8`): x is quantized per token
+// and 32-column group to int8 codes rint(x * (127 / amax)) (amax clamped
+// at 1e-20; scale sx = amax / 127; group sum xs = bf16 of the f32 sum), the
+// group dot P with the codes is an exact int32, and
+// y = sum_g P_g sx_g s_g - sum_g m_g xs_g (`_i8_combine`).
+//
+// Bound on the H100: bytes. Each weight byte is read once, whatever T is:
+// q4_k 0.5 B/weight, q5_k 0.625, plus 4 B of bf16 scale and min per 32
+// weights; the 1.1B's head (41 MB) takes 12.2 us and w_gateup (14.4 MB)
+// 4.3 us at 3.35 TB/s. The first design (a warp per row, 16 B per lane in
+// two dependent steps, a separate activation-prep launch, T-fold __dp4a
+// work in K7) ran 2.4-10x its bound. This one:
+//   * preps its own activations, in the same launch: every block of a
+//     persistent grid (`q4k_plan`: about two blocks per SM, so the
+//     redundant prep stays small against the weight bytes) holds x (T x
+//     in_f) quantized in shared memory, permuted so that one 16-byte load
+//     gives a thread its mma B fragments of two groups. At T >= 2 the two
+//     blocks of a cluster each quantize half the groups and store them in
+//     both blocks (distributed shared memory). The first x loads go out
+//     before the weight stream, so they do not queue behind it. The
+//     wrapper allocates only y;
+//   * streams 16-row tiles of the packed codes, scales, mins (and q5_k's
+//     bit plane) through a 4-stage cp.async ring, 8 superblocks of 16 rows
+//     (20-25 KB) per stage, three stages in flight while one is consumed,
+//     across tile boundaries (1-D bulk copies with mbarriers, one per
+//     row and field, were tried and ran slower);
+//   * takes the group dots on the tensor cores: mma.sync m16n8k32 s8 x s8 ->
+//     s32, A = 16 rows x 32 codes (one ldmatrix.x4 of a span gives both
+//     groups' A by one mask and one shift; q5_k ORs in its 5th bits), B =
+//     32 x codes x 8 tokens (zero columns past T), C = the exact P; the min
+//     term sum_g m xs on mma.sync m16n8k8 bf16 (exact products, f32 sums)
+//     once per superblock. Warp w of a block takes superblock w of each
+//     stage, so the 8 warps split K; a tile's partial sums meet in shared
+//     memory and are added in warp order;
+//   * at T = 1 fills every B column with token 0, so each lane's fragment
+//     holds useful P and a lane combines one row: a quarter of the general
+//     body's f32 work per group.
+// Every product and sum is an explicit __fmaf_rn / __fmul_rn / __fadd_rn
+// or an mma, in an order fixed by the superblock and group alone: a (row,
+// token) goes through the same operations whatever T is and whichever mma
+// column holds it, so row t of K7 equals K1 on x[t] bit for bit, and a
+// request served in a batch gets the tokens it gets alone.
+//
+// The bf16-activation bodies (in_f < 512, the fixtures; KCPP_Q4K_I8=0 at
+// T <= 4) keep the first design: a group-sum prep launch (act_prep_kernel,
+// no codes), then one warp per output row with the exact f32 dots of bf16
+// x and the codes.
 // Launch counters: ops/_build.launches["K1"] and ["K7"] (q4_k),
 // ["K1.q5_k"] and ["K7.q5_k"] (q5_k), ["K17a"] and ["K17a.q5_k"]
 // (stacked), one per matvec.
 #include "common.cuh"
+#include "hopper.cuh"
+
+// ---------------------------------------------------------------------------
+// int8-activation bodies
+// ---------------------------------------------------------------------------
+
+constexpr int I8_THREADS = 256;  // 8 warps
+constexpr int I8_KS = 8;         // superblocks per stage: one per warp
+constexpr int I8_RT = 16;        // rows per tile: one mma M
+constexpr int I8_STAGES = 4;
+constexpr int I8_TOKENS = 8;     // mma N
+constexpr int I8_SMEM_MAX = 232448;
+constexpr int I8_CLUSTER = 2;    // blocks that share one prep at T >= 2
+// a tile's partial sums per token: the 8 warps' values of its 16 rows and
+// 4 floats of padding, so that a warp's writes (8 rows x 4 token pairs)
+// fall on 32 banks
+constexpr int I8_PART_T = I8_KS * I8_RT + 4;
+
+// Byte offsets of the dynamic shared memory, as `q4k_plan` computes them
+// (ops/quant_matmul.py): the ring of stages (per stage: 16 rows of 8
+// superblocks of codes, 16-byte chunks swizzled by row; then per row the
+// 8 x 8 bf16 scales, the 8 x 8 mins and 16 B of padding; q5_k: per row the
+// 8 x 32 B bit plane and 16 B of padding), the x codes (per token in_f +
+// 64 bytes), the scales sx (per group and token pair a float2), the group
+// sums xs ([T][in_f/32] bf16), and the tile's partial sums ([2][8 tokens]
+// [8 warps][16 rows] f32, tokens 132 floats apart).
+struct I8Layout {
+    int qs_pitch, sc_pitch, qh_pitch, stage, xs_pitch, x_off, prep_off,
+        sum_off, part_off, total;
+};
+
+__host__ __device__ inline I8Layout i8_layout(bool q5, int T, int in_f) {
+    I8Layout L;
+    L.qs_pitch = I8_KS * 128;
+    L.sc_pitch = 2 * I8_KS * 16 + 16;
+    L.qh_pitch = q5 ? I8_KS * 32 + 16 : 0;
+    L.stage = I8_RT * (L.qs_pitch + L.sc_pitch + L.qh_pitch);
+    L.xs_pitch = in_f + 64;  // consecutive tokens 64 B apart mod 128
+    L.x_off = I8_STAGES * L.stage;
+    L.prep_off = L.x_off + T * L.xs_pitch;
+    L.sum_off = L.prep_off + (in_f / 32) * ((T + 1) / 2) * 8;
+    L.part_off = L.sum_off + T * (in_f / 32) * 2;
+    L.total = L.part_off + 2 * I8_TOKENS * I8_PART_T * 4;
+    return L;
+}
+
+// word i (0..3) of v
+__device__ __forceinline__ uint32_t u4_at(const uint4& v, int i) {
+    return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// element e (0..7) of eight packed bf16 as f32
+__device__ __forceinline__ float bf_at(const uint4& v, int e) {
+    const uint32_t w = e < 2 ? v.x : e < 4 ? v.y : e < 6 ? v.z : v.w;
+    return __uint_as_float(e & 1 ? (w & 0xFFFF0000u) : (w << 16));
+}
+
+// T1: the T = 1 body. Its B columns all hold token 0, so every lane's C
+// holds P of rows gid and gid + 8; lane tig then takes row gid + 8 (tig
+// & 1), and its chain of products is the one the general body runs for
+// (that row, token 0): the same operations in the same order.
+template <bool Q5, bool T1>
+__global__ void __launch_bounds__(I8_THREADS, 2)
+q4k_i8_kernel(const uint8_t* __restrict__ qs2,
+              const uint8_t* __restrict__ qh,          // q5_k (out, in/8)
+              const __nv_bfloat16* __restrict__ scale,
+              const __nv_bfloat16* __restrict__ mn,
+              const __nv_bfloat16* __restrict__ x,     // (T, in_f)
+              __nv_bfloat16* __restrict__ y,           // (T, out_f)
+              int T, int out_f, int in_f, Stacked stk) {
+    extern __shared__ __align__(16) uint8_t smem[];
+    qs2 = stk.at(qs2, 0);
+    qh = stk.at(qh, 1);
+    scale = stk.at(scale, 2);
+    mn = stk.at(mn, 3);
+    const I8Layout L = i8_layout(Q5, T, in_f);
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int gid = lane >> 2, tig = lane & 3;
+    const int nsb = in_f / 256, ng = in_f / 32, np = (T + 1) / 2;
+    const int ksteps = (nsb + I8_KS - 1) / I8_KS;
+    const int ntiles = out_f / I8_RT;
+    const int mine = (int)blockIdx.x < ntiles
+                         ? (ntiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+    const int total = mine * ksteps;  // (tile, K step) pairs of this block
+    const size_t qs_row = in_f / 2, sc_row = ng, qh_row = in_f / 8;
+
+    // activation prep, part 1: 4 lanes per (token, group), 8 columns (one
+    // 16-byte load) each; at T >= 2 the two blocks of a cluster take every
+    // other group and write the codes into both blocks' shared memory (T1
+    // runs without a cluster: its prep is small). The loads of the first
+    // 8 rounds go out before the weight stream so that they do not queue
+    // behind it.
+    constexpr int CL = T1 ? 1 : I8_CLUSTER;
+    const uint32_t rank = T1 ? 0u : cluster_rank();
+    const int ntask = T * ng * 4 / CL;  // this block's share
+    uint4 raw[8];
+    // (token, group) of this block's task li; li & 3 is its lane in the
+    // group. q / ng by a float reciprocal: exact, as q < 2^13 and q + 0.5
+    // lies at least 0.5 / ng from a multiple of ng
+    const float inv_ng = 1.0f / (float)ng;
+    auto task = [&](int li, int& t, int& g) {
+        const int q = (li >> 2) * CL + (int)rank;
+        t = (int)(((float)q + 0.5f) * inv_ng);
+        g = q - t * ng;
+    };
+    auto load_x = [&](int base) {
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+            const int li = base + u * I8_THREADS + tid;
+            int t, g;
+            task(li, t, g);
+            raw[u] = make_uint4(0u, 0u, 0u, 0u);
+            if (li < ntask)
+                raw[u] = *reinterpret_cast<const uint4*>(
+                    x + (size_t)t * in_f + g * 32 + 8 * (li & 3));
+        }
+    };
+    load_x(0);
+    if (!T1) cluster_arrive_relaxed();  // the peer writes here once started
+
+    // one stage: rows [tile*16, +16) x superblocks [kstep*8, +8) of every
+    // packed field, 16-byte cp.async chunks (superblocks past in_f skipped)
+    auto issue = [&](int it) {
+        const int row0 = (blockIdx.x + (it / ksteps) * gridDim.x) * I8_RT;
+        const int sb0 = (it % ksteps) * I8_KS;
+        uint8_t* st = smem + (it % I8_STAGES) * L.stage;
+        for (int c = tid; c < I8_RT * I8_KS * 8; c += I8_THREADS) {
+            const int r = c / (I8_KS * 8), s = (c / 8) % I8_KS, ch = c % 8;
+            if (sb0 + s < nsb)
+                cp_async16(st + r * L.qs_pitch + s * 128 + ((ch ^ (r & 7)) << 4),
+                           qs2 + (size_t)(row0 + r) * qs_row
+                               + (size_t)(sb0 + s) * 128 + ch * 16);
+        }
+        uint8_t* sc = st + I8_RT * L.qs_pitch;
+        for (int c = tid; c < I8_RT * 2 * I8_KS; c += I8_THREADS) {
+            const int r = c / (2 * I8_KS), f = (c / I8_KS) % 2, s = c % I8_KS;
+            if (sb0 + s < nsb)
+                cp_async16(sc + r * L.sc_pitch + f * I8_KS * 16 + s * 16,
+                           (f ? mn : scale) + (size_t)(row0 + r) * sc_row
+                               + (size_t)(sb0 + s) * 8);
+        }
+        if (Q5) {
+            uint8_t* hb = sc + I8_RT * L.sc_pitch;
+            for (int c = tid; c < I8_RT * I8_KS * 2; c += I8_THREADS) {
+                const int r = c / (I8_KS * 2), s = (c / 2) % I8_KS, h = c % 2;
+                if (sb0 + s < nsb)
+                    cp_async16(hb + r * L.qh_pitch + s * 32 + h * 16,
+                               qh + (size_t)(row0 + r) * qh_row
+                                   + (size_t)(sb0 + s) * 32 + h * 16);
+            }
+        }
+    };
+    for (int s = 0; s < I8_STAGES - 1; ++s) {
+        if (s < total) issue(s);
+        cp_async_commit();
+    }
+
+    // activation prep, part 2, while the first stages arrive: the codes in
+    // B-fragment order (span k, lane tig, then group k's columns 4tig..+3
+    // and 16+4tig..+3, then group k+4's; columns 8j..8j+3 are lane
+    // 2(j&1)'s, 8j+4.. the next lane's), the scale sx per group and token
+    // pair, the sum xs per token and group. A padding token (odd T) gets no
+    // entry: its B column is zero and its sums are never stored.
+    uint8_t* xi = smem + L.x_off;
+    float* prep = reinterpret_cast<float*>(smem + L.prep_off);
+    __nv_bfloat16* xsum = reinterpret_cast<__nv_bfloat16*>(smem + L.sum_off);
+    const uint32_t peer = rank ^ 1u;
+    if (!T1) cluster_wait();
+    for (int base = 0; base < ntask; base += 8 * I8_THREADS) {
+        if (base) load_x(base);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+            if (base + u * I8_THREADS >= ntask) break;  // the same for all
+            const int li = base + u * I8_THREADS + tid;
+            const int j = li & 3;
+            int t, g;
+            task(li, t, g);
+            const uint32_t w[4] = {raw[u].x, raw[u].y, raw[u].z, raw[u].w};
+            float v[8];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                v[2 * e] = __uint_as_float(w[e] << 16);
+                v[2 * e + 1] = __uint_as_float(w[e] & 0xFFFF0000u);
+            }
+            float sm = v[0], a = fabsf(v[0]);
+#pragma unroll
+            for (int e = 1; e < 8; ++e) {
+                sm = __fadd_rn(sm, v[e]);
+                a = fmaxf(a, fabsf(v[e]));
+            }
+            sm = group_sum(sm, 4);  // every lane of the warp takes part
+            a = fmaxf(group_max(a, 4), 1e-20f);
+            if (li < ntask) {
+                const float inv = 127.0f / a;
+                int c[8];  // rint(x * (127 / amax)), |c| <= 127
+#pragma unroll
+                for (int e = 0; e < 8; ++e) c[e] = __float2int_rn(__fmul_rn(v[e], inv));
+                const uint32_t q0 =
+                    __byte_perm(__byte_perm(c[0], c[1], 0x0040),
+                                __byte_perm(c[2], c[3], 0x0040), 0x5410);
+                const uint32_t q1 =
+                    __byte_perm(__byte_perm(c[4], c[5], 0x0040),
+                                __byte_perm(c[6], c[7], 0x0040), 0x5410);
+                const int gg = g & 7;
+                uint8_t* dst = xi + t * L.xs_pitch + (g >> 3) * 256
+                               + (gg & 3) * 64 + 2 * (j & 1) * 16
+                               + (gg >> 2) * 8 + (j >> 1) * 4;
+                *reinterpret_cast<uint32_t*>(dst) = q0;
+                *reinterpret_cast<uint32_t*>(dst + 16) = q1;
+                if (!T1) {
+                    st_cluster(peer_smem(dst, peer), q0);
+                    st_cluster(peer_smem(dst + 16, peer), q1);
+                }
+                if (j == 0) {
+                    float* ps = prep + ((size_t)g * np + (t >> 1)) * 2 + (t & 1);
+                    *ps = a / 127.0f;
+                    const __nv_bfloat16 xs = f2bf(sm);
+                    xsum[t * ng + g] = xs;
+                    if (!T1) {
+                        st_cluster(peer_smem(ps, peer), __float_as_uint(*ps));
+                        st_cluster(peer_smem(xsum + t * ng + g, peer),
+                                   __bfloat16_as_ushort(xs));
+                    }
+                }
+            }
+        }
+    }
+    // both blocks' codes, scales and sums in place before either reads them
+    if (!T1) {
+        cluster_arrive();
+        cluster_wait();
+    }
+
+    // general body: this thread's C rows gid, gid + 8 and tokens 2 tig,
+    // 2 tig + 1 (acc[2 * rowsel + token]); T1: acc[0] for row gid + 8 (tig
+    // & 1), token 0. accm: the min term's mma fragment, the same layout.
+    float acc[4] = {0.f, 0.f, 0.f, 0.f}, accm[4] = {0.f, 0.f, 0.f, 0.f};
+    const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;  // ldmatrix row
+    const int myrow = gid + 8 * (tig & 1);                // T1's row
+    uint4 s_r, s_r8;  // rows gid, gid+8 (T1: s_r of myrow): 8 groups
+    // acc += P sx s for group e (0..7) of the superblock
+    auto combine = [&](const int (&p)[4], const float2& q, int e) {
+        if (T1) {
+            const float pv = (float)(tig & 1 ? p[2] : p[0]);
+            acc[0] = __fmaf_rn(__fmul_rn(pv, q.x), bf_at(s_r, e), acc[0]);
+            return;
+        }
+        const float sr = bf_at(s_r, e), sr8 = bf_at(s_r8, e);
+        acc[0] = __fmaf_rn(__fmul_rn((float)p[0], q.x), sr, acc[0]);
+        acc[1] = __fmaf_rn(__fmul_rn((float)p[1], q.y), sr, acc[1]);
+        acc[2] = __fmaf_rn(__fmul_rn((float)p[2], q.x), sr8, acc[2]);
+        acc[3] = __fmaf_rn(__fmul_rn((float)p[3], q.y), sr8, acc[3]);
+    };
+    for (int it = 0; it < total; ++it) {
+        cp_async_wait<I8_STAGES - 2>();
+        __syncthreads();
+        if (it + I8_STAGES - 1 < total) issue(it + I8_STAGES - 1);
+        cp_async_commit();
+        const int ks = it % ksteps;
+        const int sb = ks * I8_KS + warp;
+        if (sb < nsb) {
+            const uint8_t* st = smem + (it % I8_STAGES) * L.stage;
+            const uint8_t* scb = st + I8_RT * L.qs_pitch;
+            if (T1) {
+                s_r = *reinterpret_cast<const uint4*>(
+                    scb + myrow * L.sc_pitch + warp * 16);
+            } else {
+                s_r = *reinterpret_cast<const uint4*>(
+                    scb + gid * L.sc_pitch + warp * 16);
+                s_r8 = *reinterpret_cast<const uint4*>(
+                    scb + (gid + 8) * L.sc_pitch + warp * 16);
+            }
+            {
+                // the min term of the superblock's 8 groups on the tensor
+                // cores: accm (16 rows x 8 tokens) += m (bf16) . xs (bf16),
+                // products exact in f32; T1: every column is token 0
+                const uint8_t* mb = scb + (I8_KS + warp) * 16 + 4 * tig;
+                const uint32_t m0 = *reinterpret_cast<const uint32_t*>(
+                    mb + gid * L.sc_pitch);
+                const uint32_t m1 = *reinterpret_cast<const uint32_t*>(
+                    mb + (gid + 8) * L.sc_pitch);
+                uint32_t xs2 = 0u;
+                if (T1 || gid < T)
+                    xs2 = *reinterpret_cast<const uint32_t*>(
+                        xsum + (T1 ? 0 : gid) * ng + sb * 8 + 2 * tig);
+                mma1688(accm, m0, m1, xs2);
+            }
+            uint4 h[4];  // q5_k: rows gid, gid+8, words 0-3 / 4-7
+            if (Q5) {
+                const uint8_t* hb = scb + I8_RT * L.sc_pitch + warp * 32;
+                h[0] = *reinterpret_cast<const uint4*>(hb + gid * L.qh_pitch);
+                h[1] = *reinterpret_cast<const uint4*>(hb + gid * L.qh_pitch + 16);
+                h[2] = *reinterpret_cast<const uint4*>(hb + (gid + 8) * L.qh_pitch);
+                h[3] = *reinterpret_cast<const uint4*>(
+                    hb + (gid + 8) * L.qh_pitch + 16);
+            }
+            const uint8_t* arow = st + lrow * L.qs_pitch + warp * 128;
+            // T1: every B column is token 0
+            const uint8_t* xrow = xi + (T1 ? 0 : gid) * L.xs_pitch + sb * 256
+                                  + tig * 16;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                uint32_t a[4], alo[4], ahi[4];
+                ldmatrix_x4(a, arow + (((2 * k + (lane >> 4)) ^ (lrow & 7)) << 4));
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    alo[e] = a[e] & 0x0F0F0F0Fu;
+                    ahi[e] = (a[e] >> 4) & 0x0F0F0F0Fu;
+                }
+                if (Q5) {
+                    // register e: row gid (e even) or gid+8, cols +16 for
+                    // e >= 2; word k of a row's plane holds group k's bits,
+                    // word 4+k group k+4's
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const int sh = (e & 2 ? 16 : 0) + 4 * tig;
+                        alo[e] |= spread4(u4_at(h[(e & 1) * 2], k) >> sh) << 4;
+                        ahi[e] |= spread4(u4_at(h[(e & 1) * 2 + 1], k) >> sh) << 4;
+                    }
+                }
+                uint4 xb = make_uint4(0u, 0u, 0u, 0u);
+                if (T1 || gid < T)
+                    xb = *reinterpret_cast<const uint4*>(xrow + k * 64);
+                int plo[4], phi[4];
+                mma16832_s8(plo, alo, xb.x, xb.y);
+                mma16832_s8(phi, ahi, xb.z, xb.w);
+                float2 pl = make_float2(0.f, 0.f), ph = pl;
+                if (T1 || tig < np) {
+                    const int pair = T1 ? 0 : tig;
+                    pl = *reinterpret_cast<const float2*>(
+                        prep + ((size_t)(sb * 8 + k) * np + pair) * 2);
+                    ph = *reinterpret_cast<const float2*>(
+                        prep + ((size_t)(sb * 8 + k + 4) * np + pair) * 2);
+                }
+                // group k, then group k + 4
+                combine(plo, pl, k);
+                combine(phi, ph, k + 4);
+            }
+        }
+        if (ks == ksteps - 1) {
+            // the tile's 8 K parts meet in shared memory; one thread per
+            // (row, token) adds them in warp order
+            float* part = reinterpret_cast<float*>(smem + L.part_off);
+            constexpr int PM = I8_TOKENS * I8_PART_T;  // the min half
+            auto at = [&](int t, int r) {
+                return part + t * I8_PART_T + warp * I8_RT + r;
+            };
+            if (T1) {
+                if (tig < 2) {
+                    at(0, myrow)[0] = acc[0];
+                    at(0, myrow)[PM] = tig & 1 ? accm[2] : accm[0];
+                }
+            } else {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    float* pa = at(2 * tig + (e & 1), gid + 8 * (e >> 1));
+                    pa[0] = acc[e];
+                    pa[PM] = accm[e];
+                }
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[e] = accm[e] = 0.f;
+            __syncthreads();
+            if (tid < I8_RT * T) {
+                const int t = tid / I8_RT, r = tid % I8_RT;
+                const float* pt = part + t * I8_PART_T + r;
+                float sa = pt[0], sm = pt[PM];
+#pragma unroll
+                for (int w = 1; w < I8_KS; ++w) {
+                    sa = __fadd_rn(sa, pt[w * I8_RT]);
+                    sm = __fadd_rn(sm, pt[PM + w * I8_RT]);
+                }
+                const int row0 = (blockIdx.x + (it / ksteps) * gridDim.x) * I8_RT;
+                y[(size_t)t * out_f + row0 + r] = f2bf(__fsub_rn(sa, sm));
+            }
+        }
+    }
+    cp_async_wait<0>();
+}
+
+template <bool Q5, bool T1>
+static cudaError_t launch_i8(const void* qs2, const void* qh,
+                             const void* scale, const void* mn, const void* x,
+                             void* y, int T, int out_f, int in_f, int grid,
+                             int smem, Stacked stk, cudaStream_t st) {
+    static bool ready = false;  // the opt-in above 48 KB, once per body
+    if (!ready) {
+        cudaError_t e = cudaFuncSetAttribute(
+            q4k_i8_kernel<Q5, T1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            I8_SMEM_MAX);
+        if (e != cudaSuccess) return e;
+        ready = true;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(I8_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = I8_CLUSTER;  // T >= 2: pairs share the prep
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = T1 ? 0 : 1;
+    cudaError_t e = cudaLaunchKernelEx(
+        &cfg, q4k_i8_kernel<Q5, T1>, (const uint8_t*)qs2, (const uint8_t*)qh,
+        (const __nv_bfloat16*)scale, (const __nv_bfloat16*)mn,
+        (const __nv_bfloat16*)x, (__nv_bfloat16*)y, T, out_f, in_f, stk);
+    return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// K1 (T == 1), K7 (2 <= T <= 8) and K17a (T == 1, li set: layer li[0] of
+// stacked fields, n0..n3 the per-layer element counts of qs2, qh, scale
+// and min), int8 activations; qh is the q5_k bit plane, or null for q4_k.
+// grid and smem come from `q4k_plan`; a plan whose shared memory differs
+// from this source's layout is refused.
+KCPP_API int k1_q4k_i8(const void* qs2, const void* qh, const void* scale,
+                       const void* mn, const void* x, void* y, int T,
+                       int out_f, int in_f, int grid, int smem,
+                       STACKED_PARAMS, void* stream) {
+    if (T < 1 || T > I8_TOKENS || in_f % 256 || out_f % I8_RT || grid < 1
+        || grid > out_f / I8_RT || grid % I8_CLUSTER || smem > I8_SMEM_MAX
+        || smem != i8_layout(qh != nullptr, T, in_f).total)
+        return (int)cudaErrorInvalidValue;
+    const Stacked stk = STACKED_ARG;
+    cudaStream_t st = (cudaStream_t)stream;
+#define I8_ARGS qs2, qh, scale, mn, x, y, T, out_f, in_f, grid, smem, stk, st
+    cudaError_t err;
+    if (qh)
+        err = T == 1 ? launch_i8<true, true>(I8_ARGS)
+                     : launch_i8<true, false>(I8_ARGS);
+    else
+        err = T == 1 ? launch_i8<false, true>(I8_ARGS)
+                     : launch_i8<false, false>(I8_ARGS);
+#undef I8_ARGS
+    return (int)err;
+}
+
+// ---------------------------------------------------------------------------
+// bf16-activation bodies (the first design, kept: not on the main path)
+// ---------------------------------------------------------------------------
 
 constexpr int ROWS_PER_BLOCK = 8;  // one warp per row
 
-template <bool I8, int T, bool Q5>
+template <int T, bool Q5>
 __global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
-q4k_matvec_kernel(const uint8_t* __restrict__ qs2,
-                  const uint8_t* __restrict__ qh,          // q5_k (out, in/8)
-                  const __nv_bfloat16* __restrict__ scale,
-                  const __nv_bfloat16* __restrict__ mn,
-                  const __nv_bfloat16* __restrict__ x,     // (T, in_f)
-                  const int8_t* __restrict__ xq,           // (T, in_f)
-                  const float* __restrict__ sx,            // (T, in_f/32)
-                  const __nv_bfloat16* __restrict__ xsum,  // (T, in_f/32)
-                  __nv_bfloat16* __restrict__ y,           // (T, out_f)
-                  int out_f, int in_f, Stacked stk) {
+q4k_bf16_kernel(const uint8_t* __restrict__ qs2,
+                const uint8_t* __restrict__ qh,          // q5_k (out, in/8)
+                const __nv_bfloat16* __restrict__ scale,
+                const __nv_bfloat16* __restrict__ mn,
+                const __nv_bfloat16* __restrict__ x,     // (T, in_f)
+                const __nv_bfloat16* __restrict__ xsum,  // (T, in_f/32)
+                __nv_bfloat16* __restrict__ y,           // (T, out_f)
+                int out_f, int in_f, Stacked stk) {
     qs2 = stk.at(qs2, 0);
     qh = stk.at(qh, 1);
     scale = stk.at(scale, 2);
@@ -97,53 +569,25 @@ q4k_matvec_kernel(const uint8_t* __restrict__ qs2,
         for (int t = 0; t < T; ++t) {
             float plo = 0.f, phi = 0.f;
             if (valid) {
-                if (I8) {
-                    const int8_t* xt = xq + (size_t)t * in_f;
-                    const uint4 xl = *reinterpret_cast<const uint4*>(xt + col_lo);
-                    const uint4 xh = *reinterpret_cast<const uint4*>(xt + col_hi);
-                    const uint32_t xls[4] = {xl.x, xl.y, xl.z, xl.w};
-                    const uint32_t xhs[4] = {xh.x, xh.y, xh.z, xh.w};
-                    int il = 0, ih = 0;
+                const __nv_bfloat16* xt = x + (size_t)t * in_f;
 #pragma unroll
-                    for (int k = 0; k < 4; ++k) {
-                        uint32_t lo = ws[k] & 0x0F0F0F0Fu;
-                        uint32_t hi = (ws[k] >> 4) & 0x0F0F0F0Fu;
-                        if (Q5) {
-                            lo |= spread4(hlo >> (4 * k)) << 4;
-                            hi |= spread4(hhi >> (4 * k)) << 4;
-                        }
-                        il = __dp4a((int)lo, (int)xls[k], il);
-                        ih = __dp4a((int)hi, (int)xhs[k], ih);
+                for (int k = 0; k < 16; ++k) {
+                    const uint32_t byte = (ws[k >> 2] >> (8 * (k & 3))) & 0xFFu;
+                    uint32_t clo = byte & 0xF, chi = byte >> 4;
+                    if (Q5) {
+                        clo |= ((hlo >> k) & 1u) << 4;
+                        chi |= ((hhi >> k) & 1u) << 4;
                     }
-                    plo = (float)il;  // exact: |P| <= 16 * 31 * 127
-                    phi = (float)ih;
-                } else {
-                    const __nv_bfloat16* xt = x + (size_t)t * in_f;
-#pragma unroll
-                    for (int k = 0; k < 16; ++k) {
-                        const uint32_t byte = (ws[k >> 2] >> (8 * (k & 3))) & 0xFFu;
-                        uint32_t clo = byte & 0xF, chi = byte >> 4;
-                        if (Q5) {
-                            clo |= ((hlo >> k) & 1u) << 4;
-                            chi |= ((hhi >> k) & 1u) << 4;
-                        }
-                        plo = __fmaf_rn((float)clo, bf2f(xt[col_lo + k]), plo);
-                        phi = __fmaf_rn((float)chi, bf2f(xt[col_hi + k]), phi);
-                    }
+                    plo = __fmaf_rn((float)clo, bf2f(xt[col_lo + k]), plo);
+                    phi = __fmaf_rn((float)chi, bf2f(xt[col_hi + k]), phi);
                 }
             }
             // the two lanes of one 32-column group (c, c^1) combine partials
             plo += __shfl_xor_sync(0xffffffffu, plo, 1);
             phi += __shfl_xor_sync(0xffffffffu, phi, 1);
             if (valid && (lane & 1) == 0) {
-                if (I8) {
-                    const float* st = sx + (size_t)t * ng;
-                    acc[t] = __fmaf_rn(__fmul_rn(plo, st[g_lo]), s_lo, acc[t]);
-                    acc[t] = __fmaf_rn(__fmul_rn(phi, st[g_hi]), s_hi, acc[t]);
-                } else {
-                    acc[t] = __fmaf_rn(s_lo, plo, acc[t]);
-                    acc[t] = __fmaf_rn(s_hi, phi, acc[t]);
-                }
+                acc[t] = __fmaf_rn(s_lo, plo, acc[t]);
+                acc[t] = __fmaf_rn(s_hi, phi, acc[t]);
             }
         }
     }
@@ -158,62 +602,50 @@ q4k_matvec_kernel(const uint8_t* __restrict__ qs2,
     }
 }
 
-template <bool I8, bool Q5>
-static cudaError_t launch_matvec(int T, const void* qs2, const void* qh,
-                                 const void* scale,
-                                 const void* mn, const void* x, const void* xq,
-                                 const void* sx, const void* xsum, void* y,
-                                 int out_f, int in_f, Stacked stk,
-                                 cudaStream_t st) {
+template <bool Q5>
+static cudaError_t launch_bf16(int T, const void* qs2, const void* qh,
+                               const void* scale, const void* mn,
+                               const void* x, const void* xsum, void* y,
+                               int out_f, int in_f, Stacked stk,
+                               cudaStream_t st) {
     dim3 grid((out_f + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK);
     dim3 block(ROWS_PER_BLOCK * 32);
 #define KQ_ARGS (const uint8_t*)qs2, (const uint8_t*)qh, \
-        (const __nv_bfloat16*)scale, \
-        (const __nv_bfloat16*)mn, (const __nv_bfloat16*)x, (const int8_t*)xq, \
-        (const float*)sx, (const __nv_bfloat16*)xsum, (__nv_bfloat16*)y, \
-        out_f, in_f, stk
+        (const __nv_bfloat16*)scale, (const __nv_bfloat16*)mn, \
+        (const __nv_bfloat16*)x, (const __nv_bfloat16*)xsum, \
+        (__nv_bfloat16*)y, out_f, in_f, stk
     switch (T) {
-        case 1: q4k_matvec_kernel<I8, 1, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
-        case 2: q4k_matvec_kernel<I8, 2, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
-        case 3: q4k_matvec_kernel<I8, 3, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
-        case 4: q4k_matvec_kernel<I8, 4, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
-        case 5: q4k_matvec_kernel<I8, 5, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
-        case 6: q4k_matvec_kernel<I8, 6, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
-        case 7: q4k_matvec_kernel<I8, 7, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
-        case 8: q4k_matvec_kernel<I8, 8, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
+        case 1: q4k_bf16_kernel<1, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
+        case 2: q4k_bf16_kernel<2, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
+        case 3: q4k_bf16_kernel<3, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
+        case 4: q4k_bf16_kernel<4, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
+        case 5: q4k_bf16_kernel<5, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
+        case 6: q4k_bf16_kernel<6, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
+        case 7: q4k_bf16_kernel<7, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
+        case 8: q4k_bf16_kernel<8, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
         default: return cudaErrorInvalidValue;
     }
 #undef KQ_ARGS
     return cudaGetLastError();
 }
 
-// x (n = T * in_f) bf16 -> xq (n) int8, sx (n/32) f32, xsum (n/32) bf16; the
-// groups never straddle two tokens (in_f is a multiple of 256)
-KCPP_API int k1_q4k_prep(const void* x, void* xq, void* sx, void* xsum,
-                         int n, int quant, void* stream) {
-    return (int)launch_act_prep<32>(x, xq, sx, xsum, n, quant,
+// x (n = T * in_f) bf16 -> xsum (n/32) bf16, the bf16-rounded f32 sum of
+// each 32-column group (the groups never straddle two tokens: in_f is a
+// multiple of 256)
+KCPP_API int k1_q4k_sums(const void* x, void* xsum, int n, void* stream) {
+    return (int)launch_act_prep<32>(x, nullptr, nullptr, xsum, n, 0,
                                     (cudaStream_t)stream);
 }
 
-// K1 (T == 1), K7 (2 <= T <= 8) and K17a (T == 1, li set: layer li[0] of
-// stacked fields, n0..n3 the per-layer element counts of qs2, qh, scale
-// and min): the same kernel template; qh is the q5_k bit plane, or null
-// for q4_k
-KCPP_API int k7_q4k_matvec_t(const void* qs2, const void* qh,
-                             const void* scale, const void* mn,
-                             const void* x, const void* xq, const void* sx,
-                             const void* xsum, void* y, int T, int out_f,
-                             int in_f, int i8, STACKED_PARAMS, void* stream) {
+// K1 / K7 / K17a with bf16 activations (xsum from k1_q4k_sums)
+KCPP_API int k7_q4k_bf16(const void* qs2, const void* qh, const void* scale,
+                         const void* mn, const void* x, const void* xsum,
+                         void* y, int T, int out_f, int in_f, STACKED_PARAMS,
+                         void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     const Stacked stk = STACKED_ARG;
-#define MV_ARGS T, qs2, qh, scale, mn, x, xq, sx, xsum, y, out_f, in_f, stk, st
-    cudaError_t err;
-    if (qh)
-        err = i8 ? launch_matvec<true, true>(MV_ARGS)
-                 : launch_matvec<false, true>(MV_ARGS);
-    else
-        err = i8 ? launch_matvec<true, false>(MV_ARGS)
-                 : launch_matvec<false, false>(MV_ARGS);
-#undef MV_ARGS
-    return (int)err;
+    return (int)(qh ? launch_bf16<true>(T, qs2, qh, scale, mn, x, xsum, y,
+                                        out_f, in_f, stk, st)
+                    : launch_bf16<false>(T, qs2, qh, scale, mn, x, xsum, y,
+                                         out_f, in_f, stk, st));
 }

@@ -477,19 +477,19 @@ class BatchedEngine:
     def _forward(self, tok: torch.Tensor, pos: torch.Tensor,
                  table: torch.Tensor | None = None, cache=None) -> torch.Tensor:
         """Last-token logits (B, V) f32 of one batched forward. The output
-        projection always runs over n_slots rows (a one-slot prefill chunk
-        padded), as in every decode step and admission wave: a request's
-        first token is then the same whether it prefills alone or beside
-        others."""
+        projection runs over the forward's B rows, as in the JAX
+        `BatchedEngine`: one for a lone prefill chunk, n_slots for an
+        admission wave or a decode step (so on a kind whose T=1 and T>1
+        kernels round otherwise, a request's first token may depend on
+        whether it prefilled alone, as there)."""
         cache = self.cache if cache is None else cache
         if self.paged:
             lg, _ = model_llama.forward_paged(
                 self.model.params, self.cfg, tok, pos, cache, table,
-                last_only=True, head_rows=self.n_slots)
+                last_only=True)
         else:
             lg, _ = model_llama.forward(self.model.params, self.cfg, tok,
-                                        pos, cache, last_only=True,
-                                        head_rows=self.n_slots)
+                                        pos, cache, last_only=True)
         return lg[:, -1]
 
     # -- prefill -------------------------------------------------------------

@@ -175,15 +175,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             last_index: torch.Tensor | None = None,
             input_embeds: torch.Tensor | None = None,
             embed_mask: torch.Tensor | None = None,
-            flash_prefill: bool = False, head_rows: int = 0):
+            flash_prefill: bool = False):
     """tokens, positions: (B, T) int; cache: a KVCache or QuantKVCache
     (kv/cache.py). Returns (logits f32, cache); the cache is updated in
     place. Slot s is visible to the query at position p iff s <= p (the slot
     == position invariant). flash_prefill: the chunk is the whole context
     so far (prefill from position 0, padding rows at the end with position
-    -1), so attention runs over its own rows through K4. head_rows: with
-    last_only, run the output projection over at least this many rows (see
-    `_run`)."""
+    -1), so attention runs over its own rows through K4."""
     if input_embeds is not None or embed_mask is not None:
         raise NotImplementedError("the multimodal embedding splice is not "
                                   "ported yet")
@@ -220,13 +218,12 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             ck, cv = kv_read(cache, li)
             return attention(q, ck, cv, mask, scale, softcap)
     return _run(params, cfg, tokens, positions, attend, last_only,
-                last_index, head_rows=head_rows), cache
+                last_index), cache
 
 
 def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   positions: torch.Tensor, pcache: paged.PagedKVCache,
-                  page_table: torch.Tensor, last_only: bool = False,
-                  head_rows: int = 0
+                  page_table: torch.Tensor, last_only: bool = False
                   ) -> tuple[torch.Tensor, paged.PagedKVCache]:
     """forward() over a paged pool (kv/paged.py: bf16, Q8 or Q4), updated
     in place: virtual slot index == absolute position, row r of sequence b
@@ -261,8 +258,7 @@ def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             paged.write(pcache, li, page_table, positions, k, v)
             ck, cv = paged.gather(pcache, li, page_table)
             return attention(q, ck, cv, mask, scale, softcap)
-    return _run(params, cfg, tokens, positions, attend, last_only,
-                head_rows=head_rows), pcache
+    return _run(params, cfg, tokens, positions, attend, last_only), pcache
 
 
 def _causal_mask(positions: torch.Tensor, S: int) -> torch.Tensor:
@@ -273,14 +269,10 @@ def _causal_mask(positions: torch.Tensor, S: int) -> torch.Tensor:
 def _run(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
          positions: torch.Tensor, attend, last_only: bool = False,
          last_index: torch.Tensor | None = None,
-         layers=None, head_rows: int = 0) -> torch.Tensor:
+         layers=None) -> torch.Tensor:
     """The layer stack around `attend(li, q, k, v, scale)`, which writes
     this chunk's K/V and returns the attention output (B, T, H, D).
-    layers: the per-layer params (default params["layers"]). head_rows:
-    the last-token rows go through the output projection padded with zero
-    rows to at least head_rows, so that the kernel the dispatch picks for
-    it (whose T=1 and T>1 bodies may round otherwise) does not depend on
-    B; the padding's logits are dropped."""
+    layers: the per-layer params (default params["layers"])."""
     B, T = tokens.shape
     dev = tokens.device
     freqs = _freqs(cfg, dev)
@@ -337,15 +329,13 @@ def _run(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         x = x[torch.arange(B, device=dev), last_index][:, None, :]
     elif last_only:
         x = x[:, -1:, :]
-        if head_rows > B:
-            x = torch.cat([x, x.new_zeros((head_rows - B, *x.shape[1:]))])
     x = _norm(x, params, "output_norm", cfg)
     logits = linear.matmul(x, params["output"], out_dtype=torch.float32)
     if "output_bias" in params:
         logits = logits + params["output_bias"]
     if cfg.logit_scale:
         logits = logits * cfg.logit_scale
-    return _softcap(logits[:B], cfg.final_logit_softcap)
+    return _softcap(logits, cfg.final_logit_softcap)
 
 
 # ---------------------------------------------------------------------------

@@ -7,10 +7,12 @@ beside it. A wrapper takes the plain version only for a CPU tensor; for a
 CUDA tensor it launches the kernel or raises.
 
   K1  q4k_matvec    T=1 q4_k/q5_k     (csrc/q4k_matvec.cu; JAX
-                                       `_packed_matvec_q4k`)
+                                       `_packed_matvec_q4k`; int8 x: one
+                                       launch that preps x itself, tiled
+                                       by `q4k_plan`)
   K7  q4k_matvec_t  2<=T<=8 q4_k/q5_k (csrc/q4k_matvec.cu; the same JAX
                                        function, `_i8_t` bodies: batched
-                                       decode)
+                                       decode; K1's int8 body)
   K14 q4k_matvec_sbq 2<=T<=16 q4_k/   (csrc/q4k_sbq.cu; JAX
                      q5_k, KCPP_SBQ=1  `_packed_matvec_q4k_sbq`: int8
                                        activations per 128 columns, the
@@ -78,7 +80,6 @@ VMEM_BUDGET = 13 * 1024 * 1024  # the JAX 2-D kernel's tile budget (see below)
 # entry points (STACKED_PARAMS, csrc/common.cuh)
 _SIG_STACK = [_build.P] + [_build.LL] * 5
 _SIG_MATVEC = [_build.P] * 8 + [_build.I] * 3 + _SIG_STACK + [_build.P]
-_SIG_MATVEC_T = [_build.P] * 9 + [_build.I] * 4 + _SIG_STACK + [_build.P]
 _SIG_PREP = [_build.P] * 4 + [_build.I] * 2 + [_build.P]
 _FIELD_DTYPES = {"qs2": torch.uint8, "ql": torch.uint8, "qh": torch.uint8,
                  "qs": torch.uint8, "hmask": torch.uint8, "sg": torch.uint8,
@@ -213,31 +214,115 @@ def q4k_matvec_plain(x: torch.Tensor, qt: QTensor, i8: bool) -> torch.Tensor:
     return q4k_matvec_t_plain(x[None], qt, i8)
 
 
+class Q4kPlan(NamedTuple):
+    """How the int8-activation K1 / K7 / K17a body tiles one call
+    (csrc/q4k_matvec.cu): 16-row tiles (`tiles` of them) walked by a
+    persistent grid of `grid` blocks of 8 warps; each K step is a stage of
+    8 superblocks, one per warp, `stages` of them in a cp.async ring;
+    `smem` bytes of dynamic shared memory (the ring, the x codes of T
+    tokens, their (sx, xs) pairs, the tile's partial sums)."""
+    rows: int
+    tiles: int
+    ksteps: int
+    stages: int
+    smem: int
+    grid: int
+
+
+Q4K_ROWS = 16        # rows per tile (the mma M)
+Q4K_KS = 8           # superblocks per K step: one per warp
+Q4K_STAGES = 4
+Q4K_MAX_T = 8        # tokens per call (the mma N)
+SMEM_MAX = 232448    # the H100's shared memory per block (227 KB)
+_SMEM_PER_SM = 233472  # per SM (228 KB), 1 KB of which each block reserves
+
+
+def q4k_layout(q5: bool, T: int, in_f: int) -> dict[str, int]:
+    """The int8 body's shared memory, byte offsets (`i8_layout` in the
+    source): 4 stages of 16 rows x 8 superblocks (per row the codes in
+    1024 B, the scales and mins in 272, q5_k's bit plane in 272), then the
+    x codes of T tokens in rows of in_f + 64 bytes, a float2 of scales sx
+    per 32-column group and token pair, the bf16 group sums xs (T x
+    in_f/32), and the partial sums (per token the 8 warps' values of 16
+    rows and 16 bytes of padding: 8.25 KB)."""
+    stage = Q4K_ROWS * (Q4K_KS * 128 + 2 * Q4K_KS * 16 + 16
+                        + (Q4K_KS * 32 + 16 if q5 else 0))
+    x = Q4K_STAGES * stage
+    prep = x + T * (in_f + 64)
+    sums = prep + (in_f // 32) * ((T + 1) // 2) * 8
+    part = sums + T * (in_f // 32) * 2
+    return {"stage": stage, "x": x, "prep": prep, "sums": sums, "part": part,
+            "total": part + 2 * Q4K_MAX_T * (Q4K_KS * Q4K_ROWS + 4) * 4}
+
+
+@functools.lru_cache(maxsize=4096)
+def q4k_plan(T: int, out_f: int, in_f: int, q5: bool = False) -> Q4kPlan:
+    """The tiling of the int8-activation K1 / K7 / K17a body for x (T,
+    in_f) and an (out_f, in_f) q4_k (q5: q5_k) weight. Raises ValueError
+    for a shape the kernel does not take (T outside 1..8, in_f not a
+    multiple of 256, out_f not a multiple of 64, or more shared memory than
+    a block has).
+
+    Every block needs all T tokens of x prepped (at T >= 2 the two blocks
+    of a cluster share the work), so the grid is persistent: as many
+    blocks as fit two to an SM (one where the shared memory allows one
+    only), never more than the tiles, an even number (out_f / 16 tiles are
+    a multiple of 4). The tile, the K step and the warp that takes each
+    superblock depend on in_f alone, never on T, so a (row, token) is
+    summed in the same order at every T."""
+    if not 1 <= T <= Q4K_MAX_T or in_f <= 0 or in_f % KQ_K_STEP \
+            or out_f <= 0 or out_f % 64:
+        raise ValueError(f"K1 / K7 take 1 <= T <= {Q4K_MAX_T}, in_f % 256 "
+                         f"== 0 and out_f % 64 == 0, not T={T} "
+                         f"({out_f}, {in_f})")
+    smem = q4k_layout(q5, T, in_f)["total"]
+    if smem > SMEM_MAX:
+        raise ValueError(f"K1 / K7: T={T} x in_f={in_f} needs {smem} bytes "
+                         f"of shared memory, more than {SMEM_MAX}")
+    per_sm = 2 if 2 * (smem + 1024) <= _SMEM_PER_SM else 1
+    tiles = out_f // Q4K_ROWS
+    ksteps = -(-(in_f // KQ_K_STEP) // Q4K_KS)
+    return Q4kPlan(Q4K_ROWS, tiles, ksteps, Q4K_STAGES, smem,
+                   min(tiles, per_sm * _SMS))
+
+
+_SIG_Q4K_I8 = [_build.P] * 6 + [_build.I] * 5 + _SIG_STACK + [_build.P]
+_SIG_Q4K_BF16 = [_build.P] * 7 + [_build.I] * 3 + _SIG_STACK + [_build.P]
+
+
 def _q4k_launch(x2: torch.Tensor, qt: QTensor, i8: bool, what: str,
                 li: torch.Tensor | None = None):
-    """Prep (per token) and matvec launch for x2 (T, in_f) on the card;
-    li: layer li of stacked fields (K17a)."""
+    """One launch for x2 (T, in_f) on the card, the int8 body prepping its
+    own activations (`q4k_plan`); the bf16 body takes a group-sum launch
+    first. li: layer li of stacked fields (K17a)."""
     T, in_f = x2.shape
     out_f = qt.shape[0]
     _check_operands(x2, qt, what)
-    lib = _build.load("q4k_matvec", {"k1_q4k_prep": _SIG_PREP,
-                                     "k7_q4k_matvec_t": _SIG_MATVEC_T})
-    dev = x2.device
-    xq = torch.empty(T * in_f, dtype=torch.int8, device=dev)
-    sx = torch.empty(T * in_f // 32, dtype=torch.float32, device=dev)
-    xsum = torch.empty(T * in_f // 32, dtype=torch.bfloat16, device=dev)
-    y = torch.empty((T, out_f), dtype=torch.bfloat16, device=dev)
-    st = _build.stream_ptr()
-    _build.check(lib, lib.k1_q4k_prep(x2.data_ptr(), xq.data_ptr(),
-                                      sx.data_ptr(), xsum.data_ptr(),
-                                      T * in_f, int(i8), st), f"{what} prep")
     d = qt.data
-    _build.check(lib, lib.k7_q4k_matvec_t(
-        d["qs2"].data_ptr(), _ptr(d.get("qh")),  # qh: the q5_k bit plane
-        d["scale"].data_ptr(), d["min"].data_ptr(),
-        x2.data_ptr(), xq.data_ptr(), sx.data_ptr(), xsum.data_ptr(),
-        y.data_ptr(), T, out_f, in_f, int(i8),
-        *_stack_args(qt, ("qs2", "qh", "scale", "min"), li), st), what)
+    y = torch.empty((T, out_f), dtype=torch.bfloat16, device=x2.device)
+    st = _build.stream_ptr()
+    stack = _stack_args(qt, ("qs2", "qh", "scale", "min"), li)
+    if i8:
+        plan = q4k_plan(T, out_f, in_f, qt.kind == "q5_k")
+        if any(t.data_ptr() % 16 for t in (x2, *d.values())):
+            raise ValueError(f"{what} takes 16-byte aligned x and fields")
+        lib, fn = _build.entry("q4k_matvec", "k1_q4k_i8", _SIG_Q4K_I8)
+        _build.check(lib, fn(
+            d["qs2"].data_ptr(), _ptr(d.get("qh")),  # qh: the q5_k bit plane
+            d["scale"].data_ptr(), d["min"].data_ptr(), x2.data_ptr(),
+            y.data_ptr(), T, out_f, in_f, plan.grid, plan.smem, *stack, st),
+            what)
+        return y
+    lib = _build.load("q4k_matvec", {
+        "k1_q4k_sums": [_build.P, _build.P, _build.I, _build.P],
+        "k7_q4k_bf16": _SIG_Q4K_BF16})
+    xsum = torch.empty(T * in_f // 32, dtype=torch.bfloat16, device=x2.device)
+    _build.check(lib, lib.k1_q4k_sums(x2.data_ptr(), xsum.data_ptr(),
+                                      T * in_f, st), f"{what} sums")
+    _build.check(lib, lib.k7_q4k_bf16(
+        d["qs2"].data_ptr(), _ptr(d.get("qh")), d["scale"].data_ptr(),
+        d["min"].data_ptr(), x2.data_ptr(), xsum.data_ptr(), y.data_ptr(), T,
+        out_f, in_f, *stack, st), what)
     return y
 
 

@@ -1,0 +1,184 @@
+"""Device-alone times of the q4_k / q5_k matvecs K1, K7 and K17a at the
+TinyLlama-1.1B's shapes, beside one PyTorch call computing the same
+function (cuBLAS over the dequantized bf16 weight) and the bytes bound.
+
+    python3 koboldcpp_tpu_torch/tools/bench_q4k.py [--root DIR]
+        [--label NAME] [--check]
+
+--root: the checkout whose `koboldcpp_tpu_torch` is timed (default: the
+one this file lies in), so that two commits can be compared on one card:
+run the script once per tree, alternating (parent, change, change,
+parent), in one run on the card. --check: also hold every case to its
+plain version (2^-7 of max |ref|), K7's rows to K1 on each row alone and
+K17a to K1 on the layer, bit for bit, and fail on a mismatch.
+
+A case's time is that of CUDA-graph replays of the call over enough
+copies of its weight (96 MB or more, at least two) that each call finds
+its weight out of the 50 MB L2, as the decode step does (it streams
+every weight from HBM once), divided by the calls: neither the host's
+launch time nor a flush's L2 write-backs are counted. Prints a JSON line
+per case, then the sums per kernel and T class (T = 1; 2-8; 8), each
+beside the library's and the bound's; the card's name and power limit
+first. The weights are drawn from one seed, the same in every tree.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+# the 1.1B's four layer projections and its output head
+SHAPES = (("wqkv", (2560, 2048)), ("w_gateup", (11264, 2048)),
+          ("wo", (2048, 2048)), ("w_down", (2048, 5632)),
+          ("output", (32000, 2048)))
+STACKED_L = 4
+
+
+def _card() -> str:
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return "nvidia-smi not available"
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)))
+    ap.add_argument("--label", default=None)
+    ap.add_argument("--check", action="store_true")
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("bench_q4k: no CUDA device available")
+    from koboldcpp_tpu_torch.models.synthetic import rand_q4k, rand_q5k
+    from koboldcpp_tpu_torch.ops import quant_matmul as qm
+    from koboldcpp_tpu_torch.ops.linear import QTensor, dequant
+
+    dev = torch.device("cuda", 0)
+    label = args.label or root
+    print(f"bench_q4k {label}: {_card()}; torch {torch.__version__}",
+          flush=True)
+
+    def rot_ms(calls, reps: int = 10) -> float:
+        """Device time of one call: graph replays of calls[0](),
+        calls[1](), ... (one per weight copy) over their number."""
+        for c in calls:
+            c()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for c in calls:
+                c()
+        g.replay()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            g.replay()
+        b.record()
+        b.synchronize()
+        del g
+        return a.elapsed_time(b) / (reps * len(calls))
+
+    def copies(nbytes_one: int) -> int:
+        return max(2, -(-96 * 2 ** 20 // nbytes_one))
+
+    def nbytes(*ts) -> int:
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise RuntimeError(f"bench_q4k check failed: {what}")
+
+    sums: dict = {}
+    rng = np.random.default_rng(0)
+    for kid, maker in (("K1", rand_q4k), ("K1.q5_k", rand_q5k),
+                       ("K7", rand_q4k), ("K7.q5_k", rand_q5k),
+                       ("K17a", rand_q4k)):
+        for name, (out_f, in_f) in SHAPES:
+            stacked = kid == "K17a"
+            qt = maker(rng, (STACKED_L if stacked else 1) * out_f, in_f, dev)
+            if stacked:
+                qt = QTensor(kind=qt.kind, shape=(out_f, in_f), data={
+                    n: a.view(STACKED_L, out_f, *a.shape[1:])
+                    for n, a in qt.data.items()})
+                ids = torch.arange(STACKED_L, dtype=torch.int32, device=dev)
+                li = STACKED_L - 1
+                layer = qm.layer_of(qt, li)
+            else:
+                layer = qt
+            w = dequant(layer)
+            wb = nbytes(*layer.data.values())
+            qts = [qt] + [QTensor(kind=qt.kind, shape=qt.shape, data={
+                n: a.clone() for n, a in qt.data.items()})
+                for _ in range(copies(wb) - 1)]  # the bytes a call reads
+            ws = [w] + [w.clone() for _ in range(copies(nbytes(w)) - 1)]
+            for T in ((2, 4, 8) if kid.startswith("K7") else (1,)):
+                x = torch.from_numpy(rng.standard_normal((T, in_f)).astype(
+                    np.float32)).to(dev).bfloat16()
+                if kid.startswith("K7"):
+                    calls = [lambda x=x, q=q: qm.q4k_matvec_t(x, q, True)
+                             for q in qts]
+                elif stacked:
+                    calls = [lambda x=x, q=q, idx=ids[li:li + 1]:
+                             qm.q4k_matvec_stacked(x[0], q, idx, True)
+                             for q in qts]
+                else:
+                    calls = [lambda x=x, q=q: qm.q4k_matvec(x[0], q, True)
+                             for q in qts]
+                if args.check:
+                    y = calls[0]()
+                    ref = qm.q4k_matvec_t_plain(x, layer, True)
+                    torch.cuda.synchronize()
+                    err = (y.float() - ref.float()).abs().max().item()
+                    tol = 2 ** -7 * ref.float().abs().max().item()
+                    check(err <= tol, f"{kid} {name} T={T}: error {err} > "
+                          f"{tol}")
+                    for t in range(T):
+                        alone = qm.q4k_matvec(x[t], layer, True)
+                        check(torch.equal(y[t:t + 1], alone),
+                              f"{kid} {name} T={T}: row {t} differs from K1 "
+                              "on it alone")
+                bound = (wb + nbytes(x) + T * out_f * 2) / HBM_BYTES_PER_S * 1e3
+                k_ms = rot_ms(calls)
+                lib_ms = rot_ms([lambda x=x, w=w_: torch.matmul(x, w.t())
+                                 for w_ in ws])
+                print(json.dumps({"tree": label, "kernel": kid,
+                                  "case": f"{name} {out_f}x{in_f}", "T": T,
+                                  "dev_ms": k_ms, "library_dev_ms": lib_ms,
+                                  "bound_ms": bound}), flush=True)
+                s = sums.setdefault((kid, "T=1" if T == 1 else "T=2-8"),
+                                    [0.0, 0.0, 0.0, 0])
+                s[0] += k_ms
+                s[1] += lib_ms
+                s[2] += bound
+                s[3] += 1
+                if T == 8:
+                    s8 = sums.setdefault((kid, "T=8"), [0.0, 0.0, 0.0, 0])
+                    for i, v in enumerate((k_ms, lib_ms, bound, 1)):
+                        s8[i] += v
+            del w, ws, qt, qts, layer
+            torch.cuda.empty_cache()
+    for (kid, cls), (k, lib, bound, n) in sums.items():
+        print(f"{label} {kid} {cls} ({n} cases), device alone: kernel "
+              f"{k:.4f} ms, library {lib:.4f} ms = {k / lib:.2f}x, bound "
+              f"{bound:.4f} ms = kernel / bound {k / bound:.2f}x", flush=True)
+    print(json.dumps({"tree": label, "sums": {
+        f"{kid} {cls}": {"dev_ms": k, "library_dev_ms": lib, "bound_ms": b,
+                         "cases": n}
+        for (kid, cls), (k, lib, b, n) in sums.items()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,159 @@
+"""Timeline of one int8 K1 / K7 launch (csrc/q4k_matvec.cu), block by block.
+
+    python3 koboldcpp_tpu_torch/tools/trace_q4k.py
+
+Builds a copy of the kernel source with `%globaltimer` stamps that thread 0
+of every block writes at the kernel's phase boundaries (start; the weight
+ring's first stages issued; the activation prep done; each iteration's
+stage ready and its products done; the end), into the git-ignored build
+directory, and launches it once per case on weights drawn from one seed
+(an L2-clean read of 256 MB first, as the decode step finds its weights
+out of the L2). Prints per case the span of the launch and the mean and
+largest time of each phase over the blocks. The stamps cost a store each;
+the times are those of the instrumented copy, not of the kernel itself.
+Needs the card and nvcc.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# (name, out_f, in_f, T): the 1.1B's projections and head at T = 1, the
+# head at T = 8
+CASES = (("wqkv", 2560, 2048, 1), ("w_gateup", 11264, 2048, 1),
+         ("wo", 2048, 2048, 1), ("w_down", 2048, 5632, 1),
+         ("output", 32000, 2048, 1), ("output", 32000, 2048, 8))
+SLOTS = 64  # stamps per block: 0 start, 1 SM, 2 ring issued, 3 prep done,
+# 4 + 2i stage i ready, 5 + 2i stage i's products done, 62 end
+
+_HEAD = r'''#include "common.cuh"
+__device__ unsigned long long* g_trace;
+#define TRACE(slot) if (threadIdx.x == 0 && (slot) < 63) { \
+  unsigned long long tt; \
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(tt) :: "memory"); \
+  g_trace[blockIdx.x * 64 + (slot)] = tt; }
+KCPP_API int q4k_set_trace(void* p) {
+  return (int)cudaMemcpyToSymbol(g_trace, &p, sizeof(p)); }
+'''
+# (anchor in the source, stamp inserted before (False) or after (True) it)
+_STAMPS = (
+    ("    extern __shared__ __align__(16) uint8_t smem[];\n", True,
+     "    TRACE(0); if (threadIdx.x == 0) { unsigned sm; "
+     "asm(\"mov.u32 %0, %%smid;\" : \"=r\"(sm)); "
+     "g_trace[blockIdx.x * 64 + 1] = sm; }\n"),
+    ("    // activation prep, part 2, while the first stages arrive", False,
+     "    TRACE(2);\n"),
+    ("    // general body: this thread's C rows gid", False, "    TRACE(3);\n"),
+    ("        cp_async_wait<I8_STAGES - 2>();\n        __syncthreads();\n",
+     True, "        TRACE(4 + 2 * it);\n"),
+    ("        if (ks == ksteps - 1) {", False, "        TRACE(5 + 2 * it);\n"),
+    ("    cp_async_wait<0>();\n}", False, "    TRACE(62);\n"),
+)
+
+
+def instrumented(src: str) -> str:
+    """The kernel source with the stamps; raises if an anchor moved."""
+    src = src.replace('#include "common.cuh"\n', _HEAD, 1)
+    for anchor, after, stamp in _STAMPS:
+        i = src.find(anchor)
+        if i < 0:
+            raise RuntimeError(f"trace_q4k: anchor not found: {anchor!r}")
+        i += len(anchor) if after else 0
+        src = src[:i] + stamp + src[i:]
+    return src
+
+
+def main() -> int:
+    sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("trace_q4k: no CUDA device available")
+    from koboldcpp_tpu_torch.models.synthetic import rand_q4k
+    from koboldcpp_tpu_torch.ops import _build
+    from koboldcpp_tpu_torch.ops import quant_matmul as qm
+
+    out = os.path.join(_build.BUILD_ROOT, "trace")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(_build.CSRC, "q4k_matvec.cu")) as f:
+        src = instrumented(f.read())
+    cu = os.path.join(out, "q4k_trace.cu")
+    with open(cu, "w") as f:
+        f.write(src)
+    so = os.path.join(out, "libq4k_trace.so")
+    subprocess.check_call([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                           _build.CSRC, "-o", so, cu])
+    lib = ctypes.CDLL(so)
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.k1_q4k_i8.argtypes = [P] * 6 + [I] * 5 + [P] + [LL] * 5 + [P]
+    lib.q4k_set_trace.argtypes = [P]
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+    clean = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    print(_build_card(), flush=True)
+    for name, out_f, in_f, T in CASES:
+        qt = rand_q4k(rng, out_f, in_f, dev)
+        x = torch.from_numpy(rng.standard_normal((T, in_f)).astype(
+            np.float32)).to(dev).bfloat16()
+        y = torch.empty((T, out_f), dtype=torch.bfloat16, device=dev)
+        plan = qm.q4k_plan(T, out_f, in_f, False)
+        buf = torch.zeros(plan.grid * SLOTS, dtype=torch.int64, device=dev)
+        if lib.q4k_set_trace(buf.data_ptr()) != 0:
+            raise RuntimeError("trace_q4k: cannot set the stamp buffer")
+        d = qt.data
+        for _ in range(3):
+            clean.sum()  # read-only: the L2 holds no weight, no dirty line
+            buf.zero_()
+            err = lib.k1_q4k_i8(
+                d["qs2"].data_ptr(), None, d["scale"].data_ptr(),
+                d["min"].data_ptr(), x.data_ptr(), y.data_ptr(), T, out_f,
+                in_f, plan.grid, plan.smem, None, 0, 0, 0, 0, 0,
+                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"trace_q4k: launch error {err}")
+            torch.cuda.synchronize()
+        b = buf.view(plan.grid, SLOTS).cpu().numpy().astype(np.int64)
+        t0 = b[:, 0].min()
+        ring, prep = b[:, 2] - b[:, 0], b[:, 3] - b[:, 2]
+        waits, prods = [], []
+        prev = b[:, 3]
+        for i in range(28):
+            ready, done = b[:, 4 + 2 * i], b[:, 5 + 2 * i]
+            ok = ready > 0
+            if not ok.any():
+                break
+            waits.append((ready - prev)[ok])
+            prods.append((done - ready)[ok])
+            prev = np.where(ok, done, prev)
+        tail = b[:, 62] - prev
+        w, p = np.concatenate(waits), np.concatenate(prods)
+        print(f"{name} {out_f}x{in_f} T={T}: grid {plan.grid}, "
+              f"{plan.tiles} tiles, {plan.ksteps} K steps; span "
+              f"{(b[:, 62].max() - t0) / 1e3:.2f} us; per block (mean / "
+              f"max us): ring issued {ring.mean() / 1e3:.2f} / "
+              f"{ring.max() / 1e3:.2f}, prep {prep.mean() / 1e3:.2f} / "
+              f"{prep.max() / 1e3:.2f}; per iteration ({len(p)}): stage "
+              f"wait and the last tile's sums {w.mean() / 1e3:.2f} / "
+              f"{w.max() / 1e3:.2f}, products {p.mean() / 1e3:.2f} / "
+              f"{p.max() / 1e3:.2f}; end {tail.mean() / 1e3:.2f}",
+              flush=True)
+    return 0
+
+
+def _build_card() -> str:
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return "nvidia-smi not available"
+
+
+if __name__ == "__main__":
+    sys.exit(main())
