@@ -31,7 +31,9 @@
    >= 128 after the kernel phases; K4 and every flash-decode case also
    with its device time alone, summed per kernel against SDPA; every K1 /
    K1.q5_k / K7 / K7.q5_k / K17a case too, summed per T class against
-   cuBLAS and the bound, `print_q4k_classes`); K7's rows
+   cuBLAS and the bound, `print_q4k_classes`, and every K2 / K12.q2_k /
+   K12.q3_k / K17b q6_k, q2_k, q3_k case, summed per class: the 1.1B's
+   shapes with int8 and with bf16 x, the fixtures'); K7's rows
    equal
    K1 on each row alone (K7.q5_k K1.q5_k), K2.q8_0 and K2.q8_0_bf16 equal
    their plain versions (the opt-in fixtures' decode step runs K5 over
@@ -41,7 +43,7 @@
    kernels (K6, K9, K10) write the same codes and scales as their plain
    versions, bit for bit; then the scan decode path's kernels: every body
    of the layer-stacked matvecs K17a (q4_k int8 and bf16, q5_k) and K17b
-   (q6_k int8 and bf16, q8_0 int8 and bf16, q2_k, q3_k and the four IQ
+   (q6_k, q8_0, q2_k and q3_k each int8 and bf16, and the four IQ
    kinds) on 4 stacked layers at the 1.1B's layer shapes (and the output
    head's for q4_k and q8_0), bit for bit the per-layer K1 / K2 / K12 on
    layers 0 and 3; the pooled-row flash decode K17c over a 22-layer pool
@@ -82,12 +84,15 @@
    single-stream (checks that K2 ran) and with multiuser=4 (4 concurrent
    requests, each getting the reply it gets alone), each also with
    `--quantkv 1` (K6 single-stream, K9 multiuser);
-6. serves the synthetic 1.1B with q5_k, q8_0, q2_k, q3_k, iq2p, iq3px,
-   iq3ps and then iq1p weights (the IQ kinds at G = 32): single-stream
-   (300-token prompt, 32 greedy tokens, fast-forward to the same tokens,
-   near-ties apart; K1.q5_k and K3.q5_k, K2.q8_0 and K3.q8_0, K12 and
-   K13) and batched (8 slots, 8 concurrent requests of 16 new tokens:
-   K7.q5_k, K3.q8_0, K13), each batched request getting its single-stream
+6. serves the synthetic 1.1B with q6_k, q5_k, q8_0, q2_k, q3_k, iq2p,
+   iq3px, iq3ps and then iq1p weights (the IQ kinds at G = 32):
+   single-stream (300-token prompt, 32 greedy tokens, q6_k 16,
+   fast-forward to the same tokens, near-ties apart; K2 and K3, every
+   q6_k decode step 89 K2; q6_k, q2_k and q3_k then 8 tokens under
+   KCPP_MM_I8=0, every decode step 89 of the bf16-x body; K1.q5_k and
+   K3.q5_k, K2.q8_0 and K3.q8_0, K12 and K13) and batched (8
+   slots, 8 concurrent requests of 16 new tokens: K3, K7.q5_k, K3.q8_0,
+   K13), each batched request getting its single-stream
    tokens (q5_k) or the tokens it gets alone through the batched engine
    (the other kinds); q5_k also under KCPP_SBQ=1 (8 new tokens, every
    decode step 89 K14.q5_k); then the synthetic 1.1B in each opt-in
@@ -428,7 +433,7 @@ def phase_matvec(rng) -> None:
               "fixture wo"), ""),
             ("K2", rand_q6k, lambda x, qt: qm.q6k_matvec(x, qt, _i8(x)),
              lambda x, qt: qm.q6k_matvec_plain(x, qt, _i8(x)),
-             ("output", "w_down", "fixture output", "fixture ffn_down"), ""),
+             five + ("fixture output", "fixture ffn_down"), ""),
             ("K1.q5_k", rand_q5k, lambda x, qt: qm.q4k_matvec(x, qt, _i8(x)),
              lambda x, qt: qm.q4k_matvec_plain(x, qt, _i8(x)),
              big + ("fixture wqkv", "fixture ffn_down"), ""),
@@ -475,13 +480,15 @@ def phase_matvec(rng) -> None:
                 tol = 2 ** -7 * ref.float().abs().max().item()
             w = dequant(qt)
             xr = x.view(1, in_f)
-            q45 = kid in Q4K_KIDS
+            q45, rowmv = kid in Q4K_KIDS, kid in ROWMV_KIDS
             _record(kid, f"{name} {out_f}x{in_f} T=1{tag}", err, tol,
                     lambda: wrapper(x, qt), lambda: plain(x, qt),
                     lambda: torch.matmul(xr, w.t()),
-                    _wbytes(qt) + _nbytes(x) + out_f * 2, dev=q45)
+                    _wbytes(qt) + _nbytes(x) + out_f * 2, dev=q45 or rowmv)
             if q45:
                 _q4k_class(kid, name, 1, _i8(x))
+            elif rowmv:
+                _rowmv_class(kid, name, _i8(x) and not tag)
             del w
 
 
@@ -707,13 +714,18 @@ _K1_WIDE = ("wqkv", "w_gateup", "w_down", "output")
 
 def _q4k_class(kid: str, name: str, T: int, i8: bool) -> None:
     """Add the last case of `kid` to its classes (Q4K_CLASSES)."""
-    case = CASES[kid][-1]
     if not i8:
         classes = ["bf16 x"]
     else:
         classes = ["T=1" if T == 1 else "T=2-8"] + (["T=8"] if T == 8 else [])
         if T == 1 and name in _K1_WIDE:
             classes.append("T=1 wqkv+w_gateup+w_down+output")
+    _add_to_classes(kid, classes)
+
+
+def _add_to_classes(kid: str, classes) -> None:
+    """Add the last case of `kid` to each class of `classes`."""
+    case = CASES[kid][-1]
     for cls in classes:
         sums = Q4K_CLASSES.setdefault((kid, cls), [0.0] * 5 + [0])
         for i, k in enumerate(("ms", "library_ms", "dev_ms", "dev_library_ms",
@@ -722,9 +734,23 @@ def _q4k_class(kid: str, name: str, T: int, i8: bool) -> None:
         sums[5] += 1
 
 
+# K2 / K12.q2_k / K12.q3_k and their K17b entries (csrc/rowmv.cuh) per
+# class: the int8 and the bf16-x cases at the 1.1B's shapes (five, or
+# K17b's four layer shapes), and the fixtures' (in_f 256-512), in
+# Q4K_CLASSES too
+ROWMV_KIDS = ("K2", "K12.q2_k", "K12.q3_k", "K17b", "K17b.q2_k", "K17b.q3_k")
+
+
+def _rowmv_class(kid: str, name: str, i8: bool) -> None:
+    """Add the last case of `kid` to its class (Q4K_CLASSES)."""
+    _add_to_classes(kid, ["fixtures" if name.startswith("fixture")
+                          else "1.1B int8" if i8 else "1.1B bf16 x"])
+
+
 def print_q4k_classes() -> None:
-    """The K1 / K7 (and K17a) sums per class: kernel / library host
-    included and on the device alone, and kernel (device alone) / bound."""
+    """The K1 / K7 (and K17a) and K2 / K12 (and K17b) sums per class:
+    kernel / library host included and on the device alone, and kernel
+    (device alone) / bound."""
     for (kid, cls), (k, lib, dk, dl, b, n) in Q4K_CLASSES.items():
         print(f"{kid} {cls} ({n} cases): kernel / library {k:.4f} / "
               f"{lib:.4f} ms = {k / lib:.2f}x; device alone {dk:.4f} / "
@@ -1269,7 +1295,9 @@ STACKED_BODIES = (
     ("K17b.q8_0", "q8_0", True, "", True),
     ("K17b.q8_0_bf16", "q8_0", False, "", False),
     ("K17b.q2_k", "q2_k", True, "", False),
+    ("K17b.q2_k", "q2_k", False, " bf16 x", False),
     ("K17b.q3_k", "q3_k", True, "", False),
+    ("K17b.q3_k", "q3_k", False, " bf16 x", False),
     *((f"K17b.{k}", k, True, "", False)
       for k in ("iq2p", "iq3px", "iq3ps", "iq1p")))
 
@@ -1320,9 +1348,11 @@ def phase_stacked(rng) -> None:
                     lambda: plain_fn(x, st, li, i8),
                     lambda: torch.matmul(xr, w.t()),
                     _wbytes(layer) + _nbytes(x) + out_f * 2,
-                    dev=kid.startswith("K17a"))
+                    dev=kid.startswith("K17a") or kid in ROWMV_KIDS)
             if kid.startswith("K17a"):
                 _q4k_class(kid, name, 1, i8)
+            elif kid in ROWMV_KIDS:
+                _rowmv_class(kid, name, i8)
             del w, st
     torch.cuda.empty_cache()
     # K17c: TinyLlama's heads and an 8B-class head_dim 128, one and eight
@@ -2138,12 +2168,13 @@ def phase_opt_in_batched(card: str, model) -> dict:
 # request; the bodies that must run single-stream, batched; whether a
 # batched request is held to its single-stream tokens (q5_k: T=1 and T>=2
 # share their arithmetic) or to the tokens it gets alone through the
-# batched engine (q8_0, q2_k, q3_k: int8 activations at T=1 against the
-# tiled bf16 product at T>=2, as the JAX dispatch is built)). Every kind
-# runs at 32 greedy tokens single-stream and 16 per batched request (half
-# the depth of the q4_k phases), to keep the script within its time
-# budget.
+# batched engine (q6_k, q8_0, q2_k, q3_k: int8 activations at T=1 against
+# the tiled bf16 product at T>=2, as the JAX dispatch is built)). Every kind
+# runs at 32 greedy tokens single-stream (q6_k, added last: 16) and 16 per
+# batched request (half the depth of the q4_k phases), to keep the script
+# within its time budget.
 NEW_KINDS = (
+    ("q6_k", 16, 16, ("K2", "K3"), ("K3",), False),
     ("q5_k", 32, 16, ("K1.q5_k", "K3.q5_k"), ("K7.q5_k",), True),
     ("q8_0", 32, 16, ("K2.q8_0", "K3.q8_0"), ("K3.q8_0",), False),
     ("q2_k", 32, 16, ("K12.q2_k", "K13.q2_k"), ("K13.q2_k",), False),
@@ -2155,11 +2186,13 @@ NEW_KINDS = (
 
 
 def phase_new_kinds(card: str) -> dict:
-    """The synthetic 1.1B with q5_k, q8_0, q2_k, q3_k and the IQ kinds'
-    weights (NEW_KINDS):
+    """The synthetic 1.1B with q6_k, q5_k, q8_0, q2_k, q3_k and the IQ
+    kinds' weights (NEW_KINDS):
     single-stream through Engine on the bf16 cache (a 300-token prompt,
     greedy tokens, the same prompt again: fast-forward, the same tokens
-    near-ties apart), then 8 concurrent greedy requests of 100-300 prompt
+    near-ties apart; q6_k: every decode step 89 K2; q6_k, q2_k, q3_k: 8
+    more tokens under KCPP_MM_I8=0, every decode step 89 of the T=1 body's
+    bf16-x variant), then 8 concurrent greedy requests of 100-300 prompt
     tokens through BatchedEngine (8 slots, slot cache), each getting its
     single-stream tokens (q5_k) or the tokens it gets alone through the
     same batched engine (the other kinds). Near-ties allowed, as in
@@ -2174,6 +2207,7 @@ def phase_new_kinds(card: str) -> dict:
     for kind, n1, n8, need_single, need_batched, vs_single in NEW_KINDS:
         g1 = GenParams(max_length=n1, bypass_eos=True, sampler=sampler)
         g8 = GenParams(max_length=n8, bypass_eos=True, sampler=sampler)
+        g0 = GenParams(max_length=8, bypass_eos=True, sampler=sampler)
         t0 = time.perf_counter()
         model = synthetic_model(TINYLLAMA_1_1B, kind, seed=0, device=DEV)
         build_s = time.perf_counter() - t0
@@ -2182,10 +2216,18 @@ def phase_new_kinds(card: str) -> dict:
                                                sampler=sampler))
         single.reset_context()
         _build.launches.clear()
-        r1 = single.generate(prompt, g1)
-        t1 = single.last_timings
-        r2 = single.generate(prompt, g1)
+        with _StepLaunches() as rec:
+            r1 = single.generate(prompt, g1)
+            t1 = single.last_timings
+            r2 = single.generate(prompt, g1)
         c1 = dict(_build.launches)
+        # the T=1 body's launches per decode step (89: 22 layers x 4 and
+        # the head, every weight of the kind); held for q6_k (K2)
+        t1_kid = need_single[0]
+        per_step = sorted({d.get(t1_kid, 0) for d in rec.steps(1)})
+        if kind == "q6_k":
+            _check_steps(rec, 1, {"K2": 4 * TINYLLAMA_1_1B.n_layers + 1},
+                         "q6_k single-stream")
         _check(len(r1.tokens) == n1 and all(0 <= t < 32000 for t in r1.tokens),
                f"{kind}: bad reply {r1.tokens}")
         _check(t1.prompt_tokens == 300
@@ -2207,7 +2249,25 @@ def phase_new_kinds(card: str) -> dict:
               f"built in {build_s:.1f} s): prefill {t1.prompt_tokens} tokens "
               f"{t1.prompt_time * 1e3:.1f} ms, decode {t1.gen_tokens} tokens "
               f"{t1.gen_tps:.1f} tok/s; fast-forward repeat 1 prompt token; "
-              f"launches {c1}", flush=True)
+              f"{t1_kid} per decode step {per_step}; launches {c1}",
+              flush=True)
+        c0: dict = {}
+        if kind in qm.ROWMV_KINDS:
+            # the bf16-x body on the main path: under KCPP_MM_I8=0 every
+            # decode step runs 89 of it (the same counter as the int8 one)
+            before = dict(_build.launches)
+            with _env(KCPP_MM_I8="0"), _StepLaunches() as rec0:
+                r0 = single.generate(prompt, g0)
+            c0 = {k: v - before.get(k, 0) for k, v in _build.launches.items()
+                  if v != before.get(k, 0)}
+            n0 = _check_steps(rec0, 1, {t1_kid: 4 * TINYLLAMA_1_1B.n_layers
+                                        + 1}, f"{kind} KCPP_MM_I8=0")
+            _check(len(r0.tokens) == g0.max_length
+                   and all(0 <= t < 32000 for t in r0.tokens),
+                   f"{kind} KCPP_MM_I8=0: bad reply {r0.tokens}")
+            print(f"{kind} single-stream under KCPP_MM_I8=0 ({card}): {n0} "
+                  f"decode steps of {4 * TINYLLAMA_1_1B.n_layers + 1} "
+                  f"{t1_kid} (the bf16-x body); launches {c0}", flush=True)
 
         eng = batch_engine.BatchedEngine(model, max_context=2048, n_slots=8,
                                          device=DEV)
@@ -2259,7 +2319,7 @@ def phase_new_kinds(card: str) -> dict:
                     "q5_k 8 slots, KCPP_SBQ=1", card)
             for k, v in c3.items():
                 counts[k] = counts.get(k, 0) + v
-        for c in (c1, c2):
+        for c in (c1, c0, c2):
             for k, v in c.items():
                 counts[k] = counts.get(k, 0) + v
         del single, model

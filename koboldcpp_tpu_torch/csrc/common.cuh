@@ -41,6 +41,17 @@ __device__ __forceinline__ uint32_t spread4(uint32_t b) {
 }
 __device__ __forceinline__ float warp_max(float v) { return group_max(v, 32); }
 
+// word i (0..3) of v
+__device__ __forceinline__ uint32_t u4_at(const uint4& v, int i) {
+    return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// element e (0..7) of eight packed bf16 as f32
+__device__ __forceinline__ float bf_at(const uint4& v, int e) {
+    const uint32_t w = e < 2 ? v.x : e < 4 ? v.y : e < 6 ? v.z : v.w;
+    return __uint_as_float(e & 1 ? (w & 0xFFFF0000u) : (w << 16));
+}
+
 // Activation prep for the T=1 matvecs (the port of `_i8_prep` and
 // `_group_sums`): per group of G consecutive columns of x, the bf16-rounded
 // f32 sum, and (quant != 0) the int8 codes rint(x * (127 / amax)) with

@@ -218,6 +218,28 @@ __device__ __forceinline__ void mma16832_s8(int (&d)[4], const uint32_t (&a)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// D (16 x 8, s32) = A (16 x 16 s8, row) . B (16 x 8 s8, col), exact; a0 /
+// a1: rows t/4 / t/4 + 8, k 4(t%4)..+3; b: k 4(t%4)..+3 of column t/4; D as
+// mma16816's
+__device__ __forceinline__ void mma16816_s8(int (&d)[4], uint32_t a0,
+                                            uint32_t a1, uint32_t b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %7, %7, %7};\n"
+        : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+        : "r"(a0), "r"(a1), "r"(b), "r"(0));
+}
+
+// cp_async_wait with a count known at run time only (0..3; more waits for 3)
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+    switch (n) {
+        case 0: cp_async_wait<0>(); break;
+        case 1: cp_async_wait<1>(); break;
+        case 2: cp_async_wait<2>(); break;
+        default: cp_async_wait<3>(); break;
+    }
+}
+
 // D (16 x 8, f32) += A (16 x 8 bf16, row) . B (8 x 8 bf16, col); A
 // registers: rows t/4 and t/4 + 8, k 2(t%4)..+1; b: k 2(t%4)..+1 of
 // column t/4; D as mma16816's

@@ -118,17 +118,6 @@ __host__ __device__ inline I8Layout i8_layout(bool q5, int T, int in_f) {
     return L;
 }
 
-// word i (0..3) of v
-__device__ __forceinline__ uint32_t u4_at(const uint4& v, int i) {
-    return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// element e (0..7) of eight packed bf16 as f32
-__device__ __forceinline__ float bf_at(const uint4& v, int e) {
-    const uint32_t w = e < 2 ? v.x : e < 4 ? v.y : e < 6 ? v.z : v.w;
-    return __uint_as_float(e & 1 ? (w & 0xFFFF0000u) : (w << 16));
-}
-
 // T1: the T = 1 body. Its B columns all hold token 0, so every lane's C
 // holds P of rows gid and gid + 8; lane tig then takes row gid + 8 (tig
 // & 1), and its chain of products is the one the general body runs for

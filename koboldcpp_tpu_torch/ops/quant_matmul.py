@@ -20,9 +20,12 @@ CUDA tensor it launches the kernel or raises.
   K2  q6k_matvec    T=1 q6_k          (csrc/q6k_matvec.cu; JAX
       q8_0_matvec   T=1 q8_0           `_packed_matvec`; csrc/q8_0_matvec.cu:
                                        int8 activations, or bf16 ones under
-                                       KCPP_MM_I8=0)
+                                       KCPP_MM_I8=0; q6_k: one launch that
+                                       preps x itself, tiled by
+                                       `rowmv_plan`, body csrc/rowmv.cuh)
   K12 q23k_matvec   T=1 q2_k/q3_k     (csrc/q23k_matvec.cu; the same JAX
-                                       function, `_q2k/_q3k_row_kernel(_i8)`)
+                                       function, `_q2k/_q3k_row_kernel(_i8)`;
+                                       K2's body and plan)
       iq_matvec     T=1 IQ kinds      (csrc/iq_matvec.cu; the same JAX
                                        function, `_iq2p/_iq3p/_iq1p_row_
                                        kernel_i8`)
@@ -79,7 +82,6 @@ VMEM_BUDGET = 13 * 1024 * 1024  # the JAX 2-D kernel's tile budget (see below)
 # the layer index and the five per-layer element counts of the stacked
 # entry points (STACKED_PARAMS, csrc/common.cuh)
 _SIG_STACK = [_build.P] + [_build.LL] * 5
-_SIG_MATVEC = [_build.P] * 8 + [_build.I] * 3 + _SIG_STACK + [_build.P]
 _SIG_PREP = [_build.P] * 4 + [_build.I] * 2 + [_build.P]
 _FIELD_DTYPES = {"qs2": torch.uint8, "ql": torch.uint8, "qh": torch.uint8,
                  "qs": torch.uint8, "hmask": torch.uint8, "sg": torch.uint8,
@@ -442,6 +444,95 @@ def _sbq(qt: QTensor, T: int) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# K2 / K12: the tiling of the T=1 row matvec body (csrc/rowmv.cuh)
+# ---------------------------------------------------------------------------
+
+class RowmvPlan(NamedTuple):
+    """How the K2 / K12 / K17b body (csrc/rowmv.cuh) tiles one call:
+    16-row tiles (`tiles` of them) walked by a persistent grid of `grid`
+    blocks of 8 warps; each K step is a stage of 8 superblocks, one per
+    warp, `stages` of them in a cp.async ring; `smem` bytes of dynamic
+    shared memory (the ring, x prepped, the tile's partial sums)."""
+    rows: int
+    tiles: int
+    ksteps: int
+    stages: int
+    smem: int
+    grid: int
+
+
+ROWMV_KINDS = ("q6_k", "q2_k", "q3_k")  # RK_Q6, RK_Q2, RK_Q3 in the source
+ROWMV_KS = 8             # superblocks per K step: one per warp
+ROWMV_STAGES = (4, 3)    # the ring's depths, the deepest that fits first
+# bytes per superblock row of the codes (ql / qs), the second code field
+# (qh / hmask), the scales and q2_k's mins
+_ROWMV_FIELDS = {"q6_k": (128, 64, 32, 0), "q2_k": (64, 0, 32, 32),
+                 "q3_k": (64, 32, 32, 0)}
+
+
+def rowmv_layout(kind: str, in_f: int, i8: bool,
+                 stages: int) -> dict[str, int]:
+    """The body's shared memory, byte offsets (`rm_layout` in the source):
+    `stages` stages of 16 rows x 8 superblocks of each field, every
+    field's row pitch 16 bytes past its 8 superblocks; then x prepped
+    (int8 codes: in_f bytes; bf16 x: 2 in_f), the f32 scales sx per
+    16-column group (int8 only), the bf16 group sums xs, and the tile's
+    partial sums ([3][8 warps][16 rows] f32)."""
+    stage = Q4K_ROWS * sum(ROWMV_KS * b + 16
+                           for b in _ROWMV_FIELDS[kind] if b)
+    x = stages * stage
+    sx = x + (in_f if i8 else 2 * in_f)
+    xs = sx + (in_f // 16 * 4 if i8 else 0)
+    part = xs + in_f // 16 * 2
+    return {"stage": stage, "x": x, "sx": sx, "xs": xs, "part": part,
+            "total": part + 3 * ROWMV_KS * Q4K_ROWS * 4}
+
+
+@functools.lru_cache(maxsize=4096)
+def rowmv_plan(kind: str, out_f: int, in_f: int, i8: bool) -> RowmvPlan:
+    """The tiling of the K2 / K12 / K17b body for x (in_f,) and an (out_f,
+    in_f) weight of `kind` (q6_k, q2_k or q3_k), with int8 (i8) or bf16
+    activations. Raises ValueError for a shape the kernel does not take
+    (in_f not a multiple of 256, out_f not a multiple of 64, or more
+    shared memory than a block has at the shallowest ring).
+
+    Every block preps all of x, so the grid is persistent: as many blocks
+    as fit two to an SM (one where the shared memory allows one only),
+    never more than the tiles. The ring takes the most stages (4, else 3)
+    that keep that count. The tile, the K step and the warp that takes
+    each superblock depend on in_f alone, so a row is summed in the same
+    order whatever the ring's depth and the grid."""
+    if kind not in ROWMV_KINDS:
+        raise ValueError(f"K2 / K12 serve {ROWMV_KINDS}, not {kind}")
+    if in_f <= 0 or in_f % 256 or out_f <= 0 or out_f % 64:
+        raise ValueError(f"K2 / K12 take in_f % 256 == 0 and out_f % 64 == "
+                         f"0, not ({out_f}, {in_f})")
+    fits = {s: rowmv_layout(kind, in_f, i8, s)["total"]
+            for s in ROWMV_STAGES}
+    for per_sm in (2, 1):
+        for stages in ROWMV_STAGES:
+            smem = fits[stages]
+            if smem <= SMEM_MAX and per_sm * (smem + 1024) <= _SMEM_PER_SM:
+                tiles = out_f // Q4K_ROWS
+                return RowmvPlan(Q4K_ROWS, tiles,
+                                 -(-(in_f // 256) // ROWMV_KS), stages, smem,
+                                 min(tiles, per_sm * _SMS))
+    raise ValueError(f"K2 / K12: in_f={in_f} needs {fits[3]} bytes of "
+                     f"shared memory, more than {SMEM_MAX}")
+
+
+def _rowmv_checked(x: torch.Tensor, qt: QTensor, i8: bool,
+                   what: str) -> RowmvPlan:
+    """The plan of a K2 / K12 / K17b launch, its operands checked."""
+    out_f, in_f = qt.shape
+    _check_operands(x[None], qt, what)
+    plan = rowmv_plan(qt.kind, out_f, in_f, i8)
+    if any(t.data_ptr() % 16 for t in (x, *qt.data.values())):
+        raise ValueError(f"{what} takes 16-byte aligned x and fields")
+    return plan
+
+
+# ---------------------------------------------------------------------------
 # K2: q6_k T=1 matvec
 # ---------------------------------------------------------------------------
 
@@ -473,27 +564,23 @@ def q6k_matvec(x: torch.Tensor, qt: QTensor, i8: bool) -> torch.Tensor:
     return y
 
 
+_SIG_K2 = [_build.P] * 5 + [_build.I] * 6 + _SIG_STACK + [_build.P]
+
+
 def _q6k_launch(x: torch.Tensor, qt: QTensor, i8: bool, what: str,
                 li: torch.Tensor | None = None) -> torch.Tensor:
+    """One launch for x (in_f,) on the card, the body prepping its own
+    activations (`rowmv_plan`). li: layer li of stacked fields (K17b)."""
     out_f, in_f = qt.shape
-    _check_operands(x[None], qt, what)
-    lib = _build.load("q6k_matvec", {"k2_q6k_prep": _SIG_PREP,
-                                     "k2_q6k_matvec": _SIG_MATVEC})
-    dev = x.device
-    xq = torch.empty(in_f, dtype=torch.int8, device=dev)
-    sx = torch.empty(in_f // 16, dtype=torch.float32, device=dev)
-    xsum = torch.empty(in_f // 16, dtype=torch.bfloat16, device=dev)
-    y = torch.empty((1, out_f), dtype=torch.bfloat16, device=dev)
-    st = _build.stream_ptr()
-    _build.check(lib, lib.k2_q6k_prep(x.data_ptr(), xq.data_ptr(),
-                                      sx.data_ptr(), xsum.data_ptr(),
-                                      in_f, int(i8), st), f"{what} prep")
+    plan = _rowmv_checked(x, qt, i8, what)
+    y = torch.empty((1, out_f), dtype=torch.bfloat16, device=x.device)
     d = qt.data
-    _build.check(lib, lib.k2_q6k_matvec(
+    lib, fn = _build.entry("q6k_matvec", "k2_q6k_matvec", _SIG_K2)
+    _build.check(lib, fn(
         d["ql"].data_ptr(), d["qh"].data_ptr(), d["scale"].data_ptr(),
-        x.data_ptr(), xq.data_ptr(), sx.data_ptr(), xsum.data_ptr(),
-        y.data_ptr(), out_f, in_f, int(i8),
-        *_stack_args(qt, ("ql", "qh", "scale"), li), st), what)
+        x.data_ptr(), y.data_ptr(), out_f, in_f, int(i8), plan.grid,
+        plan.stages, plan.smem, *_stack_args(qt, ("ql", "qh", "scale"), li),
+        _build.stream_ptr()), what)
     return y
 
 
@@ -627,30 +714,25 @@ def q23k_matvec(x: torch.Tensor, qt: QTensor, i8: bool) -> torch.Tensor:
     return y
 
 
+_SIG_K12 = [_build.I] + [_build.P] * 6 + [_build.I] * 6 + _SIG_STACK \
+    + [_build.P]
+
+
 def _q23k_launch(x: torch.Tensor, qt: QTensor, i8: bool, what: str,
                  li: torch.Tensor | None = None) -> torch.Tensor:
+    """As _q6k_launch, for q2_k (qs, scale, min) and q3_k (qs, hmask,
+    scale)."""
     out_f, in_f = qt.shape
-    _check_operands(x[None], qt, what)
-    lib = _build.load("q23k_matvec", {
-        "k12_q23k_prep": _SIG_PREP,
-        "k12_q23k_matvec": [_build.I] + [_build.P] * 9 + [_build.I] * 3
-        + _SIG_STACK + [_build.P]})
-    dev = x.device
-    xq = torch.empty(in_f, dtype=torch.int8, device=dev)
-    sx = torch.empty(in_f // 16, dtype=torch.float32, device=dev)
-    xsum = torch.empty(in_f // 16, dtype=torch.bfloat16, device=dev)
-    y = torch.empty((1, out_f), dtype=torch.bfloat16, device=dev)
-    st = _build.stream_ptr()
-    _build.check(lib, lib.k12_q23k_prep(x.data_ptr(), xq.data_ptr(),
-                                        sx.data_ptr(), xsum.data_ptr(),
-                                        in_f, int(i8), st), f"{what} prep")
+    plan = _rowmv_checked(x, qt, i8, what)
+    y = torch.empty((1, out_f), dtype=torch.bfloat16, device=x.device)
     d = qt.data
-    _build.check(lib, lib.k12_q23k_matvec(
+    lib, fn = _build.entry("q23k_matvec", "k12_q23k_matvec", _SIG_K12)
+    _build.check(lib, fn(
         int(qt.kind == "q3_k"), d["qs"].data_ptr(), _ptr(d.get("hmask")),
         d["scale"].data_ptr(), _ptr(d.get("min")), x.data_ptr(),
-        xq.data_ptr(), sx.data_ptr(), xsum.data_ptr(), y.data_ptr(), out_f,
-        in_f, int(i8), *_stack_args(qt, ("qs", "hmask", "scale", "min"), li),
-        st), what)
+        y.data_ptr(), out_f, in_f, int(i8), plan.grid, plan.stages,
+        plan.smem, *_stack_args(qt, ("qs", "hmask", "scale", "min"), li),
+        _build.stream_ptr()), what)
     return y
 
 

@@ -1,25 +1,30 @@
-"""Device-alone times of the q4_k / q5_k matvecs K1, K7 and K17a at the
-TinyLlama-1.1B's shapes, beside one PyTorch call computing the same
-function (cuBLAS over the dequantized bf16 weight) and the bytes bound.
+"""Device-alone times of the q4_k / q5_k matvecs K1, K7 and K17a and of
+the q6_k / q2_k / q3_k matvecs K2, K12.q2_k and K12.q3_k (int8 and bf16
+activations) at the TinyLlama-1.1B's shapes, beside one PyTorch call
+computing the same function (cuBLAS over the dequantized bf16 weight) and
+the bytes bound.
 
     python3 koboldcpp_tpu_torch/tools/bench_q4k.py [--root DIR]
-        [--label NAME] [--check]
+        [--label NAME] [--check] [--kernels K2,K12.q2_k,...]
 
 --root: the checkout whose `koboldcpp_tpu_torch` is timed (default: the
 one this file lies in), so that two commits can be compared on one card:
 run the script once per tree, alternating (parent, change, change,
 parent), in one run on the card. --check: also hold every case to its
 plain version (2^-7 of max |ref|), K7's rows to K1 on each row alone and
-K17a to K1 on the layer, bit for bit, and fail on a mismatch.
+K17a to K1 on the layer, bit for bit, and fail on a mismatch. --kernels:
+time only these (default: all; K1, K1.q5_k, K7, K7.q5_k, K17a, K2,
+K12.q2_k, K12.q3_k); each kernel's weights come from a seed of its own,
+so a subset times the same weights as a full run.
 
 A case's time is that of CUDA-graph replays of the call over enough
 copies of its weight (96 MB or more, at least two) that each call finds
 its weight out of the 50 MB L2, as the decode step does (it streams
 every weight from HBM once), divided by the calls: neither the host's
 launch time nor a flush's L2 write-backs are counted. Prints a JSON line
-per case, then the sums per kernel and T class (T = 1; 2-8; 8), each
-beside the library's and the bound's; the card's name and power limit
-first. The weights are drawn from one seed, the same in every tree.
+per case, then the sums per kernel and class (K1 / K7 / K17a: T = 1;
+2-8; 8; K2 / K12: T = 1 int8, T = 1 bf16 x), each beside the library's
+and the bound's; the card's name and power limit first.
 """
 from __future__ import annotations
 
@@ -36,6 +41,9 @@ SHAPES = (("wqkv", (2560, 2048)), ("w_gateup", (11264, 2048)),
           ("wo", (2048, 2048)), ("w_down", (2048, 5632)),
           ("output", (32000, 2048)))
 STACKED_L = 4
+Q4K_KERNELS = ("K1", "K1.q5_k", "K7", "K7.q5_k", "K17a")
+# the q6_k / q2_k / q3_k T=1 matvecs and their kinds
+ROWMV_KERNELS = (("K2", "q6_k"), ("K12.q2_k", "q2_k"), ("K12.q3_k", "q3_k"))
 
 
 def _card() -> str:
@@ -53,7 +61,10 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)))
     ap.add_argument("--label", default=None)
     ap.add_argument("--check", action="store_true")
+    ap.add_argument("--kernels", default=",".join(
+        Q4K_KERNELS + tuple(k for k, _ in ROWMV_KERNELS)))
     args = ap.parse_args()
+    want = set(args.kernels.split(","))
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import numpy as np
@@ -61,7 +72,8 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         sys.exit("bench_q4k: no CUDA device available")
-    from koboldcpp_tpu_torch.models.synthetic import rand_q4k, rand_q5k
+    from koboldcpp_tpu_torch.models.synthetic import (
+        rand_q2k, rand_q3k, rand_q4k, rand_q5k, rand_q6k)
     from koboldcpp_tpu_torch.ops import quant_matmul as qm
     from koboldcpp_tpu_torch.ops.linear import QTensor, dequant
 
@@ -105,6 +117,8 @@ def main() -> int:
     for kid, maker in (("K1", rand_q4k), ("K1.q5_k", rand_q5k),
                        ("K7", rand_q4k), ("K7.q5_k", rand_q5k),
                        ("K17a", rand_q4k)):
+        if kid not in want:
+            continue
         for name, (out_f, in_f) in SHAPES:
             stacked = kid == "K17a"
             qt = maker(rng, (STACKED_L if stacked else 1) * out_f, in_f, dev)
@@ -168,6 +182,49 @@ def main() -> int:
                     for i, v in enumerate((k_ms, lib_ms, bound, 1)):
                         s8[i] += v
             del w, ws, qt, qts, layer
+            torch.cuda.empty_cache()
+    makers = {"q6_k": rand_q6k, "q2_k": rand_q2k, "q3_k": rand_q3k}
+    for n, (kid, kind) in enumerate(ROWMV_KERNELS):
+        if kid not in want:
+            continue
+        rng = np.random.default_rng(1 + n)
+        fn, plain = ((qm.q6k_matvec, qm.q6k_matvec_plain) if kind == "q6_k"
+                     else (qm.q23k_matvec, qm.q23k_matvec_plain))
+        for name, (out_f, in_f) in SHAPES:
+            qt = makers[kind](rng, out_f, in_f, dev)
+            w = dequant(qt)
+            wb = nbytes(*qt.data.values())
+            qts = [qt] + [QTensor(kind=qt.kind, shape=qt.shape, data={
+                n_: a.clone() for n_, a in qt.data.items()})
+                for _ in range(copies(wb) - 1)]
+            ws = [w] + [w.clone() for _ in range(copies(nbytes(w)) - 1)]
+            x = torch.from_numpy(rng.standard_normal((1, in_f)).astype(
+                np.float32)).to(dev).bfloat16()
+            lib_ms = rot_ms([lambda w=w_: torch.matmul(x, w.t())
+                             for w_ in ws])
+            bound = (wb + nbytes(x) + out_f * 2) / HBM_BYTES_PER_S * 1e3
+            for i8 in (True, False):
+                variant = "int8" if i8 else "bf16 x"
+                calls = [lambda q=q, i8=i8: fn(x[0], q, i8) for q in qts]
+                if args.check:
+                    y = calls[0]()
+                    ref = plain(x[0], qt, i8)
+                    torch.cuda.synchronize()
+                    err = (y.float() - ref.float()).abs().max().item()
+                    tol = 2 ** -7 * ref.float().abs().max().item()
+                    check(err <= tol, f"{kid} {name} {variant}: error "
+                          f"{err} > {tol}")
+                k_ms = rot_ms(calls)
+                print(json.dumps({"tree": label, "kernel": kid,
+                                  "case": f"{name} {out_f}x{in_f}", "T": 1,
+                                  "variant": variant, "dev_ms": k_ms,
+                                  "library_dev_ms": lib_ms,
+                                  "bound_ms": bound}), flush=True)
+                s = sums.setdefault((kid, f"T=1 {variant}"),
+                                    [0.0, 0.0, 0.0, 0])
+                for i, v in enumerate((k_ms, lib_ms, bound, 1)):
+                    s[i] += v
+            del w, ws, qt, qts
             torch.cuda.empty_cache()
     for (kid, cls), (k, lib, bound, n) in sums.items():
         print(f"{label} {kid} {cls} ({n} cases), device alone: kernel "

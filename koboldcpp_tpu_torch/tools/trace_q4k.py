@@ -1,6 +1,8 @@
-"""Timeline of one int8 K1 / K7 launch (csrc/q4k_matvec.cu), block by block.
+"""Timeline of one int8 K1 / K7 launch (csrc/q4k_matvec.cu), or of one K2
+/ K12 launch (csrc/rowmv.cuh), block by block.
 
-    python3 koboldcpp_tpu_torch/tools/trace_q4k.py
+    python3 koboldcpp_tpu_torch/tools/trace_q4k.py [--kernel K1|K2|K12.q2_k|
+        K12.q3_k] [--bf16]
 
 Builds a copy of the kernel source with `%globaltimer` stamps that thread 0
 of every block writes at the kernel's phase boundaries (start; the weight
@@ -11,10 +13,13 @@ directory, and launches it once per case on weights drawn from one seed
 out of the L2). Prints per case the span of the launch and the mean and
 largest time of each phase over the blocks. The stamps cost a store each;
 the times are those of the instrumented copy, not of the kernel itself.
-Needs the card and nvcc.
+K1 (default): the 1.1B's five shapes at T = 1 and the head at T = 8; K2
+(q6_k) / K12.q2_k / K12.q3_k: the five at T = 1, int8 x, or bf16 x with
+--bf16. Needs the card and nvcc.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
 import subprocess
@@ -40,6 +45,7 @@ KCPP_API int q4k_set_trace(void* p) {
   return (int)cudaMemcpyToSymbol(g_trace, &p, sizeof(p)); }
 '''
 # (anchor in the source, stamp inserted before (False) or after (True) it)
+# for K1 (csrc/q4k_matvec.cu); K2 / K12 (csrc/rowmv.cuh) differ in two
 _STAMPS = (
     ("    extern __shared__ __align__(16) uint8_t smem[];\n", True,
      "    TRACE(0); if (threadIdx.x == 0) { unsigned sm; "
@@ -53,12 +59,23 @@ _STAMPS = (
     ("        if (ks == ksteps - 1) {", False, "        TRACE(5 + 2 * it);\n"),
     ("    cp_async_wait<0>();\n}", False, "    TRACE(62);\n"),
 )
+_ROWMV_STAMPS = (
+    _STAMPS[:2]
+    + (("    // lane (gid, tig) combines row myrow of the tile", False,
+        "    TRACE(3);\n"),
+       ("        cp_async_wait_n(stages - 2);\n        __syncthreads();\n",
+        True, "        TRACE(4 + 2 * it);\n"))
+    + _STAMPS[4:])
+# the K2 / K12 kernels: (kind, source, entry point)
+_ROWMV = {"K2": ("q6_k", "q6k_matvec", "k2_q6k_matvec"),
+          "K12.q2_k": ("q2_k", "q23k_matvec", "k12_q23k_matvec"),
+          "K12.q3_k": ("q3_k", "q23k_matvec", "k12_q23k_matvec")}
 
 
-def instrumented(src: str) -> str:
+def instrumented(src: str, stamps=_STAMPS) -> str:
     """The kernel source with the stamps; raises if an anchor moved."""
     src = src.replace('#include "common.cuh"\n', _HEAD, 1)
-    for anchor, after, stamp in _STAMPS:
+    for anchor, after, stamp in stamps:
         i = src.find(anchor)
         if i < 0:
             raise RuntimeError(f"trace_q4k: anchor not found: {anchor!r}")
@@ -68,52 +85,88 @@ def instrumented(src: str) -> str:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", default="K1", choices=("K1", *_ROWMV))
+    ap.add_argument("--bf16", action="store_true")
+    args = ap.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("trace_q4k: no CUDA device available")
-    from koboldcpp_tpu_torch.models.synthetic import rand_q4k
+    from koboldcpp_tpu_torch.models.synthetic import _MAKERS
     from koboldcpp_tpu_torch.ops import _build
     from koboldcpp_tpu_torch.ops import quant_matmul as qm
 
     out = os.path.join(_build.BUILD_ROOT, "trace")
     os.makedirs(out, exist_ok=True)
-    with open(os.path.join(_build.CSRC, "q4k_matvec.cu")) as f:
-        src = instrumented(f.read())
-    cu = os.path.join(out, "q4k_trace.cu")
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    stack = [None, 0, 0, 0, 0, 0]
+    if args.kernel == "K1":
+        kind, entry, cases = "q4_k", "k1_q4k_i8", CASES
+        with open(os.path.join(_build.CSRC, "q4k_matvec.cu")) as f:
+            src = instrumented(f.read())
+        cu = os.path.join(out, "q4k_trace.cu")
+        argtypes = [P] * 6 + [I] * 5 + [P] + [LL] * 5 + [P]
+    else:
+        kind, source, entry = _ROWMV[args.kernel]
+        cases = CASES[:5]
+        # the instrumented body beside a copy of the source that includes
+        # it, which the compiler finds before csrc/'s
+        with open(os.path.join(_build.CSRC, "rowmv.cuh")) as f:
+            body = instrumented(f.read(), _ROWMV_STAMPS)
+        with open(os.path.join(out, "rowmv.cuh"), "w") as f:
+            f.write(body)
+        with open(os.path.join(_build.CSRC, f"{source}.cu")) as f:
+            src = f.read()
+        cu = os.path.join(out, f"{source}_trace.cu")
+        argtypes = ([I] if kind != "q6_k" else []) + [P] * (
+            3 if kind == "q6_k" else 4) + [P] * 2 + [I] * 6 + [P] + [LL] * 5 \
+            + [P]
     with open(cu, "w") as f:
         f.write(src)
-    so = os.path.join(out, "libq4k_trace.so")
+    so = cu[:-3] + ".so"
     subprocess.check_call([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
                            _build.CSRC, "-o", so, cu])
     lib = ctypes.CDLL(so)
-    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.k1_q4k_i8.argtypes = [P] * 6 + [I] * 5 + [P] + [LL] * 5 + [P]
+    fn = getattr(lib, entry)
+    fn.argtypes = argtypes
     lib.q4k_set_trace.argtypes = [P]
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
     clean = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-    print(_build_card(), flush=True)
-    for name, out_f, in_f, T in CASES:
-        qt = rand_q4k(rng, out_f, in_f, dev)
+    print(_build_card(), f"{args.kernel}", "bf16 x" if args.bf16 else "",
+          flush=True)
+    for name, out_f, in_f, T in cases:
+        qt = _MAKERS[kind](rng, out_f, in_f, dev)
         x = torch.from_numpy(rng.standard_normal((T, in_f)).astype(
             np.float32)).to(dev).bfloat16()
         y = torch.empty((T, out_f), dtype=torch.bfloat16, device=dev)
-        plan = qm.q4k_plan(T, out_f, in_f, False)
+        d = qt.data
+        st = torch.cuda.current_stream().cuda_stream
+        if args.kernel == "K1":
+            plan = qm.q4k_plan(T, out_f, in_f, False)
+            call = [d["qs2"].data_ptr(), None, d["scale"].data_ptr(),
+                    d["min"].data_ptr(), x.data_ptr(), y.data_ptr(), T,
+                    out_f, in_f, plan.grid, plan.smem, *stack, st]
+        else:
+            plan = qm.rowmv_plan(kind, out_f, in_f, not args.bf16)
+            rest = [x.data_ptr(), y.data_ptr(), out_f, in_f,
+                    int(not args.bf16), plan.grid, plan.stages, plan.smem,
+                    *stack, st]
+            call = ([d["ql"].data_ptr(), d["qh"].data_ptr(),
+                     d["scale"].data_ptr()] if kind == "q6_k" else
+                    [int(kind == "q3_k"), d["qs"].data_ptr(),
+                     qm._ptr(d.get("hmask")), d["scale"].data_ptr(),
+                     qm._ptr(d.get("min"))]) + rest
         buf = torch.zeros(plan.grid * SLOTS, dtype=torch.int64, device=dev)
         if lib.q4k_set_trace(buf.data_ptr()) != 0:
             raise RuntimeError("trace_q4k: cannot set the stamp buffer")
-        d = qt.data
         for _ in range(3):
             clean.sum()  # read-only: the L2 holds no weight, no dirty line
             buf.zero_()
-            err = lib.k1_q4k_i8(
-                d["qs2"].data_ptr(), None, d["scale"].data_ptr(),
-                d["min"].data_ptr(), x.data_ptr(), y.data_ptr(), T, out_f,
-                in_f, plan.grid, plan.smem, None, 0, 0, 0, 0, 0,
-                torch.cuda.current_stream().cuda_stream)
+            err = fn(*call)
             if err:
                 raise RuntimeError(f"trace_q4k: launch error {err}")
             torch.cuda.synchronize()
