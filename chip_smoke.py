@@ -33,9 +33,12 @@
    K1.q5_k / K7 / K7.q5_k / K17a case too, summed per T class against
    cuBLAS and the bound, `print_q4k_classes`, and every K2 / K12.q2_k /
    K12.q3_k / K17b q6_k, q2_k, q3_k case, summed per class: the 1.1B's
-   shapes with int8 and with bf16 x, the fixtures'); K7's rows
-   equal
-   K1 on each row alone (K7.q5_k K1.q5_k), K2.q8_0 and K2.q8_0_bf16 equal
+   shapes with int8 and with bf16 x, the fixtures'; every K14, K15, K2.q8_0,
+   K12.iq, K12 expanded and K17b q8_0 / IQ case, summed per kernel,
+   `print_dev_sums`); K7's rows equal
+   K1 on each row alone (K7.q5_k K1.q5_k), K14's rows at T = 2 and 8 the
+   same tokens' rows at T = 16 and K15a's at T = 2 those at T = 8, bit for
+   bit, K2.q8_0 and K2.q8_0_bf16 equal
    their plain versions (the opt-in fixtures' decode step runs K5 over
    their f32 cache),
    and K8 over a shuffled page table equals K5 on the
@@ -484,7 +487,7 @@ def phase_matvec(rng) -> None:
             _record(kid, f"{name} {out_f}x{in_f} T=1{tag}", err, tol,
                     lambda: wrapper(x, qt), lambda: plain(x, qt),
                     lambda: torch.matmul(xr, w.t()),
-                    _wbytes(qt) + _nbytes(x) + out_f * 2, dev=q45 or rowmv)
+                    _wbytes(qt) + _nbytes(x) + out_f * 2, dev=True)
             if q45:
                 _q4k_class(kid, name, 1, _i8(x))
             elif rowmv:
@@ -534,16 +537,25 @@ def phase_batched_matvec(rng) -> None:
 
 def phase_sbq(rng) -> None:
     """K14 and K14.q5_k at the 1.1B's five projection shapes (every in_f is
-    2048 or 5632), T = 2, 8, 16 (the 16-slot decode step), against the
-    plain version on the same inputs."""
+    2048 or 5632), T = 2, 8, 16 (the 16-slot decode step) on the prefixes
+    of one x, against the plain version on the same inputs, each also timed
+    on the device alone; a token's row is the same bits at T = 2, 8 and 16
+    (`sbq_plan`: the sums' order depends on in_f alone). Both kinds also at
+    a Llama-2-7B w_down (4096, 11008) and a Llama-3-70B w_down (8192,
+    28672), where 16 tokens' codes of every column do not fit a block and x
+    goes in windows (`kwin` K steps; at the 70B's T = 8 too, and with more
+    than one tile a block there: each tile quantizes every window anew)."""
+    wide = (("7B w_down", (4096, 11008)), ("70B w_down", (8192, 28672)))
     for kid, maker in (("K14", rand_q4k), ("K14.q5_k", rand_q5k)):
-        for name, (out_f, in_f) in K7_SHAPES:
+        for name, (out_f, in_f) in K7_SHAPES + wide:
             qt = maker(rng, out_f, in_f, DEV)
             w = dequant(qt)
+            xmax = torch.from_numpy(rng.standard_normal((16, in_f)).astype(
+                np.float32)).to(DEV).bfloat16()
+            ys = {}
             for T in (2, 8, 16):
-                x = torch.from_numpy(rng.standard_normal((T, in_f)).astype(
-                    np.float32)).to(DEV).bfloat16()
-                y = qm.q4k_matvec_sbq(x, qt)
+                x = xmax[:T].contiguous()
+                y = ys[T] = qm.q4k_matvec_sbq(x, qt)
                 ref = qm.q4k_matvec_sbq_plain(x, qt)
                 torch.cuda.synchronize()
                 # the same int8 codes and exact integer segment dots on both
@@ -551,20 +563,28 @@ def phase_sbq(rng) -> None:
                 # bf16 rounding step of the largest |y|
                 err = (y.float() - ref.float()).abs().max().item()
                 tol = 2 ** -7 * ref.float().abs().max().item()
-                _record(kid, f"{name} {out_f}x{in_f} T={T}", err, tol,
+                plan = qm.sbq_plan(T, out_f, in_f, qt.kind == "q5_k")
+                win = (f" [x in windows of {plan.kwin} of {plan.ksteps} K "
+                       "steps]" if plan.kwin < plan.ksteps else "")
+                _record(kid, f"{name} {out_f}x{in_f} T={T}{win}", err, tol,
                         lambda: qm.q4k_matvec_sbq(x, qt),
                         lambda: qm.q4k_matvec_sbq_plain(x, qt),
                         lambda: torch.matmul(x, w.t()),
                         _wbytes(qt, sbq=True) + _nbytes(x) + T * out_f * 2,
-                        2 * T * in_f * out_f, INT8_OPS)
+                        2 * T * in_f * out_f, INT8_OPS, dev=True)
+            for T in (2, 8):
+                _check(torch.equal(ys[T], ys[16][:T]),
+                       f"{kid} {name}: rows at T={T} differ from the same "
+                       "tokens' rows at T=16")
             del w
 
 
 def phase_ffn_fused(rng) -> None:
     """K15b at T=1 and K15a at T = 2, 8 over the 1.1B's q4_k FFN (w_gateup
-    (11264, 2048), w_down (2048, 5632)), against the plain version; the
-    library op is cuBLAS over the pre-dequantized weights with silu * mul
-    between."""
+    (11264, 2048), w_down (2048, 5632)), on the prefixes of one x, against
+    the plain version, each also timed on the device alone; the library
+    op is cuBLAS over the pre-dequantized weights with silu * mul between.
+    K15a's rows at T = 2 are the same bits as those tokens' rows at T = 8."""
     C, F = 2048, 5632
     gu = rand_q4k(rng, 2 * F, C, DEV)
     dn = rand_q4k(rng, C, F, DEV)
@@ -575,11 +595,13 @@ def phase_ffn_fused(rng) -> None:
         return torch.matmul(torch.nn.functional.silu(h[:, :F]) * h[:, F:],
                             wd.t())
 
+    xmax = torch.from_numpy(rng.standard_normal((8, C)).astype(
+        np.float32)).to(DEV).bfloat16()
+    ys = {}
     for T in (1, 2, 8):
         kid = "K15b" if T == 1 else "K15a"
-        x = torch.from_numpy(rng.standard_normal((T, C)).astype(
-            np.float32)).to(DEV).bfloat16()
-        y = ffn_fused.ffn_fused_call(x, gu, dn)
+        x = xmax[:T].contiguous()
+        y = ys[T] = ffn_fused.ffn_fused_call(x, gu, dn)
         ref = ffn_fused.ffn_fused_plain(x, gu, dn)
         torch.cuda.synchronize()
         # f32 gate/up and sums in another order: a bf16(a) or a group sum
@@ -592,7 +614,9 @@ def phase_ffn_fused(rng) -> None:
                 lambda: ffn_fused.ffn_fused_plain(x, gu, dn),
                 lambda: library(x),
                 _wbytes(gu) + _wbytes(dn) + _nbytes(x) + T * C * 2,
-                2 * T * 3 * C * F)
+                2 * T * 3 * C * F, dev=True)
+    _check(torch.equal(ys[2], ys[8][:2]),
+           "K15a: rows at T=2 differ from the same tokens' rows at T=8")
     del wg, wd
 
 
@@ -747,6 +771,29 @@ def _rowmv_class(kid: str, name: str, i8: bool) -> None:
                           else "1.1B int8" if i8 else "1.1B bf16 x"])
 
 
+# K14 / K15 and the kernels not yet redesigned on the K1 / K2 design,
+# summed per kernel over their cases on the device alone, so that the next
+# redesign is ranked by device time
+DEV_SUM_KIDS = ("K14", "K14.q5_k", "K15a", "K15b", "K2.q8_0",
+                "K2.q8_0_bf16", "K12.iq2p", "K12.iq3px", "K12.iq3ps",
+                "K12.iq1p", "K12.q6_k_i8f", "K12.q3_k_n4", "K12.q2_k_n4",
+                "K17b.q8_0", "K17b.q8_0_bf16", "K17b.iq2p", "K17b.iq3px",
+                "K17b.iq3ps", "K17b.iq1p")
+
+
+def print_dev_sums() -> None:
+    """Per kernel of DEV_SUM_KIDS: kernel / library summed over its cases,
+    host included and on the device alone, and device alone / bound."""
+    for kid in DEV_SUM_KIDS:
+        cases = CASES[kid]
+        k, lib, dk, dl, b = (sum(c[n] for c in cases) for n in (
+            "ms", "library_ms", "dev_ms", "dev_library_ms", "bound_ms"))
+        print(f"{kid} ({len(cases)} cases): kernel / library {k:.4f} / "
+              f"{lib:.4f} ms = {k / lib:.2f}x; device alone {dk:.4f} / "
+              f"{dl:.4f} ms = {dk / dl:.2f}x; bound {b:.4f} ms, device alone "
+              f"/ bound {dk / b:.2f}x", flush=True)
+
+
 def print_q4k_classes() -> None:
     """The K1 / K7 (and K17a) and K2 / K12 (and K17b) sums per class:
     kernel / library host included and on the device alone, and kernel
@@ -829,7 +876,7 @@ def phase_iq_kernels(rng) -> None:
                     tol, lambda: qm.iq_matvec(x, qt),
                     lambda: qm.iq_matvec_plain(x, qt),
                     lambda: torch.matmul(xr, w.t()),
-                    _wbytes(qt) + _nbytes(x) + out_f * 2)
+                    _wbytes(qt) + _nbytes(x) + out_f * 2, dev=True)
             del w
         for name, shape, Ts in k13_cases:
             _kq_cases(f"K13.{kind}", f"{kind} G={G} {name}",
@@ -1347,8 +1394,7 @@ def phase_stacked(rng) -> None:
                     err, tol, lambda: stacked_fn(x, st, idx, i8),
                     lambda: plain_fn(x, st, li, i8),
                     lambda: torch.matmul(xr, w.t()),
-                    _wbytes(layer) + _nbytes(x) + out_f * 2,
-                    dev=kid.startswith("K17a") or kid in ROWMV_KIDS)
+                    _wbytes(layer) + _nbytes(x) + out_f * 2, dev=True)
             if kid.startswith("K17a"):
                 _q4k_class(kid, name, 1, i8)
             elif kid in ROWMV_KIDS:
@@ -3008,6 +3054,7 @@ def main() -> int:
         _timed(phase, rng)
     print_kq_classes()
     print_q4k_classes()
+    print_dev_sums()
     print_attention_sums()
     torch.cuda.synchronize()
     global _flush

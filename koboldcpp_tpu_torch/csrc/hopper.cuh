@@ -1,5 +1,5 @@
-// Hand-written PTX for Hopper (sm_90a): cp.async (16 bytes, and 16 / 8
-// with zero fill) with commit / wait groups, the async-proxy fence,
+// Hand-written PTX for Hopper (sm_90a): cp.async (16, 8 and 4 bytes, and
+// 16 / 8 with zero fill) with commit / wait groups, the async-proxy fence,
 // ldmatrix, shared-memory matrix descriptors, warpgroup MMA (wgmma, A from
 // registers, B K-major or MN-major) and mma.sync m16n8k16 / m16n8k8,
 // bf16 -> f32, mma.sync m16n8k32, s8 -> s32, and the cluster's
@@ -28,6 +28,18 @@ __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
                                                  int src_bytes) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// 8 and 4 bytes through the L1 (.ca): fields whose rows are not 16-byte
+// aligned
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
 }
 
 __device__ __forceinline__ void cp_async8_zfill(void* dst, const void* src,
@@ -287,6 +299,13 @@ __device__ __forceinline__ void cluster_arrive() {
 
 __device__ __forceinline__ void cluster_wait() {
     asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// d = a * b on two bf16 lanes, rounded once
+__device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+    return d;
 }
 
 // d = a * b + c on two bf16 lanes, rounded once

@@ -72,15 +72,15 @@
 // ["K1.q5_k"] and ["K7.q5_k"] (q5_k), ["K17a"] and ["K17a.q5_k"]
 // (stacked), one per matvec.
 #include "common.cuh"
-#include "hopper.cuh"
+#include "q4k_ring.cuh"
 
 // ---------------------------------------------------------------------------
 // int8-activation bodies
 // ---------------------------------------------------------------------------
 
-constexpr int I8_THREADS = 256;  // 8 warps
-constexpr int I8_KS = 8;         // superblocks per stage: one per warp
-constexpr int I8_RT = 16;        // rows per tile: one mma M
+constexpr int I8_THREADS = Q4R_THREADS;  // 8 warps
+constexpr int I8_KS = Q4R_KS;            // superblocks per stage: one per warp
+constexpr int I8_RT = Q4R_RT;            // rows per tile: one mma M
 constexpr int I8_STAGES = 4;
 constexpr int I8_TOKENS = 8;     // mma N
 constexpr int I8_SMEM_MAX = 232448;
@@ -105,9 +105,9 @@ struct I8Layout {
 
 __host__ __device__ inline I8Layout i8_layout(bool q5, int T, int in_f) {
     I8Layout L;
-    L.qs_pitch = I8_KS * 128;
-    L.sc_pitch = 2 * I8_KS * 16 + 16;
-    L.qh_pitch = q5 ? I8_KS * 32 + 16 : 0;
+    L.qs_pitch = Q4R_QS_PITCH;
+    L.sc_pitch = Q4R_SM_PITCH;
+    L.qh_pitch = q5 ? Q4R_QH_PITCH : 0;
     L.stage = I8_RT * (L.qs_pitch + L.sc_pitch + L.qh_pitch);
     L.xs_pitch = in_f + 64;  // consecutive tokens 64 B apart mod 128
     L.x_off = I8_STAGES * L.stage;
@@ -147,38 +147,15 @@ q4k_i8_kernel(const uint8_t* __restrict__ qs2,
     const int total = mine * ksteps;  // (tile, K step) pairs of this block
     const size_t qs_row = in_f / 2, sc_row = ng, qh_row = in_f / 8;
 
-    // activation prep, part 1: 4 lanes per (token, group), 8 columns (one
-    // 16-byte load) each; at T >= 2 the two blocks of a cluster take every
-    // other group and write the codes into both blocks' shared memory (T1
-    // runs without a cluster: its prep is small). The loads of the first
-    // 8 rounds go out before the weight stream so that they do not queue
-    // behind it.
+    // activation prep (Q4kPrep, q4k_ring.cuh), part 1: 4 lanes per (token,
+    // group), 8 columns each; at T >= 2 the two blocks of a cluster take
+    // every other group and write the codes into both blocks' shared memory
+    // (T1 runs without a cluster: its prep is small). The loads of the
+    // first 8 rounds go out before the weight stream so that they do not
+    // queue behind it.
     constexpr int CL = T1 ? 1 : I8_CLUSTER;
-    const uint32_t rank = T1 ? 0u : cluster_rank();
-    const int ntask = T * ng * 4 / CL;  // this block's share
-    uint4 raw[8];
-    // (token, group) of this block's task li; li & 3 is its lane in the
-    // group. q / ng by a float reciprocal: exact, as q < 2^13 and q + 0.5
-    // lies at least 0.5 / ng from a multiple of ng
-    const float inv_ng = 1.0f / (float)ng;
-    auto task = [&](int li, int& t, int& g) {
-        const int q = (li >> 2) * CL + (int)rank;
-        t = (int)(((float)q + 0.5f) * inv_ng);
-        g = q - t * ng;
-    };
-    auto load_x = [&](int base) {
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-            const int li = base + u * I8_THREADS + tid;
-            int t, g;
-            task(li, t, g);
-            raw[u] = make_uint4(0u, 0u, 0u, 0u);
-            if (li < ntask)
-                raw[u] = *reinterpret_cast<const uint4*>(
-                    x + (size_t)t * in_f + g * 32 + 8 * (li & 3));
-        }
-    };
-    load_x(0);
+    Q4kPrep<32, CL> px(x, T, in_f, T1 ? 0u : cluster_rank());
+    px.load(0, tid);
     if (!T1) cluster_arrive_relaxed();  // the peer writes here once started
 
     // one stage: rows [tile*16, +16) x superblocks [kstep*8, +8) of every
@@ -187,31 +164,12 @@ q4k_i8_kernel(const uint8_t* __restrict__ qs2,
         const int row0 = (blockIdx.x + (it / ksteps) * gridDim.x) * I8_RT;
         const int sb0 = (it % ksteps) * I8_KS;
         uint8_t* st = smem + (it % I8_STAGES) * L.stage;
-        for (int c = tid; c < I8_RT * I8_KS * 8; c += I8_THREADS) {
-            const int r = c / (I8_KS * 8), s = (c / 8) % I8_KS, ch = c % 8;
-            if (sb0 + s < nsb)
-                cp_async16(st + r * L.qs_pitch + s * 128 + ((ch ^ (r & 7)) << 4),
-                           qs2 + (size_t)(row0 + r) * qs_row
-                               + (size_t)(sb0 + s) * 128 + ch * 16);
-        }
+        q4k_copy_codes(st, qs2, qs_row, row0, sb0, nsb, tid);
         uint8_t* sc = st + I8_RT * L.qs_pitch;
-        for (int c = tid; c < I8_RT * 2 * I8_KS; c += I8_THREADS) {
-            const int r = c / (2 * I8_KS), f = (c / I8_KS) % 2, s = c % I8_KS;
-            if (sb0 + s < nsb)
-                cp_async16(sc + r * L.sc_pitch + f * I8_KS * 16 + s * 16,
-                           (f ? mn : scale) + (size_t)(row0 + r) * sc_row
-                               + (size_t)(sb0 + s) * 8);
-        }
-        if (Q5) {
-            uint8_t* hb = sc + I8_RT * L.sc_pitch;
-            for (int c = tid; c < I8_RT * I8_KS * 2; c += I8_THREADS) {
-                const int r = c / (I8_KS * 2), s = (c / 2) % I8_KS, h = c % 2;
-                if (sb0 + s < nsb)
-                    cp_async16(hb + r * L.qh_pitch + s * 32 + h * 16,
-                               qh + (size_t)(row0 + r) * qh_row
-                                   + (size_t)(sb0 + s) * 32 + h * 16);
-            }
-        }
+        q4k_copy_scale_min(sc, scale, mn, sc_row, row0, sb0, nsb, tid);
+        if (Q5)
+            q4k_copy_qh(sc + I8_RT * L.sc_pitch, qh, qh_row, row0, sb0, nsb,
+                        tid);
     };
     for (int s = 0; s < I8_STAGES - 1; ++s) {
         if (s < total) issue(s);
@@ -219,75 +177,13 @@ q4k_i8_kernel(const uint8_t* __restrict__ qs2,
     }
 
     // activation prep, part 2, while the first stages arrive: the codes in
-    // B-fragment order (span k, lane tig, then group k's columns 4tig..+3
-    // and 16+4tig..+3, then group k+4's; columns 8j..8j+3 are lane
-    // 2(j&1)'s, 8j+4.. the next lane's), the scale sx per group and token
-    // pair, the sum xs per token and group. A padding token (odd T) gets no
-    // entry: its B column is zero and its sums are never stored.
+    // B-fragment order, the scale sx per group and token pair, the sum xs
+    // per token and group
     uint8_t* xi = smem + L.x_off;
     float* prep = reinterpret_cast<float*>(smem + L.prep_off);
     __nv_bfloat16* xsum = reinterpret_cast<__nv_bfloat16*>(smem + L.sum_off);
-    const uint32_t peer = rank ^ 1u;
     if (!T1) cluster_wait();
-    for (int base = 0; base < ntask; base += 8 * I8_THREADS) {
-        if (base) load_x(base);
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-            if (base + u * I8_THREADS >= ntask) break;  // the same for all
-            const int li = base + u * I8_THREADS + tid;
-            const int j = li & 3;
-            int t, g;
-            task(li, t, g);
-            const uint32_t w[4] = {raw[u].x, raw[u].y, raw[u].z, raw[u].w};
-            float v[8];
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                v[2 * e] = __uint_as_float(w[e] << 16);
-                v[2 * e + 1] = __uint_as_float(w[e] & 0xFFFF0000u);
-            }
-            float sm = v[0], a = fabsf(v[0]);
-#pragma unroll
-            for (int e = 1; e < 8; ++e) {
-                sm = __fadd_rn(sm, v[e]);
-                a = fmaxf(a, fabsf(v[e]));
-            }
-            sm = group_sum(sm, 4);  // every lane of the warp takes part
-            a = fmaxf(group_max(a, 4), 1e-20f);
-            if (li < ntask) {
-                const float inv = 127.0f / a;
-                int c[8];  // rint(x * (127 / amax)), |c| <= 127
-#pragma unroll
-                for (int e = 0; e < 8; ++e) c[e] = __float2int_rn(__fmul_rn(v[e], inv));
-                const uint32_t q0 =
-                    __byte_perm(__byte_perm(c[0], c[1], 0x0040),
-                                __byte_perm(c[2], c[3], 0x0040), 0x5410);
-                const uint32_t q1 =
-                    __byte_perm(__byte_perm(c[4], c[5], 0x0040),
-                                __byte_perm(c[6], c[7], 0x0040), 0x5410);
-                const int gg = g & 7;
-                uint8_t* dst = xi + t * L.xs_pitch + (g >> 3) * 256
-                               + (gg & 3) * 64 + 2 * (j & 1) * 16
-                               + (gg >> 2) * 8 + (j >> 1) * 4;
-                *reinterpret_cast<uint32_t*>(dst) = q0;
-                *reinterpret_cast<uint32_t*>(dst + 16) = q1;
-                if (!T1) {
-                    st_cluster(peer_smem(dst, peer), q0);
-                    st_cluster(peer_smem(dst + 16, peer), q1);
-                }
-                if (j == 0) {
-                    float* ps = prep + ((size_t)g * np + (t >> 1)) * 2 + (t & 1);
-                    *ps = a / 127.0f;
-                    const __nv_bfloat16 xs = f2bf(sm);
-                    xsum[t * ng + g] = xs;
-                    if (!T1) {
-                        st_cluster(peer_smem(ps, peer), __float_as_uint(*ps));
-                        st_cluster(peer_smem(xsum + t * ng + g, peer),
-                                   __bfloat16_as_ushort(xs));
-                    }
-                }
-            }
-        }
-    }
+    px.run(xi, L.xs_pitch, prep, xsum, tid);
     // both blocks' codes, scales and sums in place before either reads them
     if (!T1) {
         cluster_arrive();
@@ -349,38 +245,15 @@ q4k_i8_kernel(const uint8_t* __restrict__ qs2,
                 mma1688(accm, m0, m1, xs2);
             }
             uint4 h[4];  // q5_k: rows gid, gid+8, words 0-3 / 4-7
-            if (Q5) {
-                const uint8_t* hb = scb + I8_RT * L.sc_pitch + warp * 32;
-                h[0] = *reinterpret_cast<const uint4*>(hb + gid * L.qh_pitch);
-                h[1] = *reinterpret_cast<const uint4*>(hb + gid * L.qh_pitch + 16);
-                h[2] = *reinterpret_cast<const uint4*>(hb + (gid + 8) * L.qh_pitch);
-                h[3] = *reinterpret_cast<const uint4*>(
-                    hb + (gid + 8) * L.qh_pitch + 16);
-            }
+            if (Q5) q4k_load_qh(h, scb + I8_RT * L.sc_pitch + warp * 32, gid);
             const uint8_t* arow = st + lrow * L.qs_pitch + warp * 128;
             // T1: every B column is token 0
             const uint8_t* xrow = xi + (T1 ? 0 : gid) * L.xs_pitch + sb * 256
                                   + tig * 16;
 #pragma unroll
             for (int k = 0; k < 4; ++k) {
-                uint32_t a[4], alo[4], ahi[4];
-                ldmatrix_x4(a, arow + (((2 * k + (lane >> 4)) ^ (lrow & 7)) << 4));
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    alo[e] = a[e] & 0x0F0F0F0Fu;
-                    ahi[e] = (a[e] >> 4) & 0x0F0F0F0Fu;
-                }
-                if (Q5) {
-                    // register e: row gid (e even) or gid+8, cols +16 for
-                    // e >= 2; word k of a row's plane holds group k's bits,
-                    // word 4+k group k+4's
-#pragma unroll
-                    for (int e = 0; e < 4; ++e) {
-                        const int sh = (e & 2 ? 16 : 0) + 4 * tig;
-                        alo[e] |= spread4(u4_at(h[(e & 1) * 2], k) >> sh) << 4;
-                        ahi[e] |= spread4(u4_at(h[(e & 1) * 2 + 1], k) >> sh) << 4;
-                    }
-                }
+                uint32_t alo[4], ahi[4];
+                q4k_codes<Q5>(arow, lane, lrow, tig, k, h, alo, ahi);
                 uint4 xb = make_uint4(0u, 0u, 0u, 0u);
                 if (T1 || gid < T)
                     xb = *reinterpret_cast<const uint4*>(xrow + k * 64);

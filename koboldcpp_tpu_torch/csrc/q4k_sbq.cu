@@ -15,202 +15,389 @@
 // - sum_g m_g xs_tg with the f32 superblock scale d and the bf16 group
 // sums xs of x per 32 columns.
 //
-// Bound on the H100: bytes. Each weight byte is read once for all T tokens
-// (0.5 B/weight of nibbles, q5_k 0.125 more of 5th bits, 1 B of sc and
-// 2 B of bf16 min per 32 weights, 4 B of d per 256); x's codes stay in
-// L1/L2. Design: K7's layout, one warp per output row, each lane loading 16
-// bytes of nibbles per step (16 columns of the low-plane segment and 16 of
-// the high-plane one of the same superblock), so 8 lanes hold one
-// superblock; per token, a lane's two int32 __dp4a partials are multiplied
-// by their groups' sc and summed over those 8 lanes by shuffles (exact
-// integers), then one lane applies sx and d in f32. The token loop keeps T
-// accumulators and every token's arithmetic is its own, so a row of y
-// depends on its token alone.
+// Bound on the H100: bytes. Each weight byte is read once for all T tokens:
+// 0.5 B/weight of nibbles (q5_k 0.125 more of 5th bits), 1 B of sc and 2 B
+// of bf16 min per 32 weights, 4 B of d per 256 (0.609 B/weight for q4_k).
+// The first design (a warp per row, a separate prep launch and three
+// scratch tensors, T-fold __dp4a and shuffle work per weight byte) ran
+// 12-13x its bound. This one is K7's (csrc/q4k_matvec.cu), through the
+// pieces they share (csrc/q4k_ring.cuh):
+//   * one launch: every block of a persistent grid (`sbq_plan`) quantizes
+//     x into shared memory itself, the two blocks of a cluster each half of
+//     the 128-column segments, written into both (distributed shared
+//     memory). Where T tokens' codes of every column do not fit a block
+//     (a 70B-class w_down), x goes in windows of `kwin` K steps: at each
+//     window's first K step the cluster quantizes that window's columns
+//     anew, so a block holds at most a window of codes at any width. The
+//     wrapper allocates only y;
+//   * the two blocks of a cluster take tiles 2p and 2p + 1 of each pair of
+//     tiles p their cluster walks, so both walk as many tiles (and windows);
+//   * 16-row tiles of 8 superblocks of the codes, sc, d, min (and q5_k's
+//     bit plane) stream through a cp.async ring of `stages` stages across
+//     tile boundaries; sc and d rows are not 16-byte aligned, so they go
+//     by 8- and 4-byte copies;
+//   * the group dots on mma.sync m16n8k32 s8 (A = 16 rows x 32 codes, the
+//     same ldmatrix fragments as K7's; B = 32 x codes of 8 tokens, a second
+//     N tile sharing the A fragment for tokens 8-15), then the sub-scale
+//     as an int32 multiply-add on the C fragment, C_seg += sc_g P_g,
+//     exact; the f32 combine runs once per segment pair (superblock), a
+//     quarter as often as K7's per-group one. The min term on mma.sync
+//     m16n8k8 bf16 (exact products, f32 sums) once per superblock.
+// Warp w of a block takes superblock w of each stage, so the 8 warps split
+// K; a tile's partial sums (each warp's less its min term) meet in shared
+// memory and are added in warp order. Every f32 product and sum is an
+// explicit __fmaf_rn / __fmul_rn / __fadd_rn / __fsub_rn or an mma, in an
+// order fixed by in_f alone (superblock, span, warp; x's windows do not
+// move it, a thread's sums stay in its registers across them), and an mma
+// column's sums do not depend on the other columns: a row of y depends on
+// its token alone, bit for bit, at every T.
 // Launch counters: ops/_build.launches["K14"] (q4_k), ["K14.q5_k"].
 #include "common.cuh"
+#include "q4k_ring.cuh"
 
-constexpr int SBQ_ROWS = 8;  // one warp per row
-constexpr int SBQ_SEG = 128;
+constexpr int SBQ_SEG = 128;     // columns per activation scale
+constexpr int SBQ_MAX_T = 16;    // two mma N tiles
+constexpr int SBQ_TOKENS = 8;    // mma N
+constexpr int SBQ_CLUSTER = 2;   // blocks that share one prep
+constexpr int SBQ_SMEM_MAX = 232448;
+// a tile's partial sums per token: the 8 warps' values of its 16 rows and
+// 4 floats of padding (a warp's writes, 8 rows x 4 token pairs, fall on
+// 32 banks)
+constexpr int SBQ_PART_T = Q4R_KS * Q4R_RT + 4;
+// a stage row of the factors: sc (8 B per superblock), d (4 B), min (16
+// B), 16 B of padding (60 words: 8 rows fall on 8 bank groups)
+constexpr int SBQ_SC = 0, SBQ_D = Q4R_KS * 8, SBQ_MIN = Q4R_KS * 12;
+constexpr int SBQ_SIDE_PITCH = Q4R_KS * 28 + 16;
 
-// One warp per (token, 128-column segment): lane l takes columns 4l..4l+3.
-__global__ void sbq_prep_kernel(const __nv_bfloat16* __restrict__ x,
-                                int8_t* __restrict__ xq,
-                                float* __restrict__ sx,
-                                __nv_bfloat16* __restrict__ xsum,
-                                int n_seg) {
-    const int seg = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-    const int lane = threadIdx.x & 31;
-    if (seg >= n_seg) return;  // whole warps exit together
-    const size_t base = (size_t)seg * SBQ_SEG + lane * 4;
-    float v[4];
-    float part = 0.f, amax = 0.f;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-        v[k] = bf2f(x[base + k]);
-        part += v[k];
-        amax = fmaxf(amax, fabsf(v[k]));
-    }
-    const float a = fmaxf(warp_max(amax), 1e-20f);
-    const float inv = 127.0f / a;
-    char4 q;
-    q.x = (int8_t)(int)rintf(v[0] * inv);
-    q.y = (int8_t)(int)rintf(v[1] * inv);
-    q.z = (int8_t)(int)rintf(v[2] * inv);
-    q.w = (int8_t)(int)rintf(v[3] * inv);
-    *reinterpret_cast<char4*>(xq + base) = q;
-    const float gs = group_sum(part, 8);  // 8 lanes = one 32-column group
-    if ((lane & 7) == 0) xsum[(size_t)seg * 4 + (lane >> 3)] = f2bf(gs);
-    if (lane == 0) sx[seg] = a / 127.0f;
+// Byte offsets of the dynamic shared memory, as `sbq_layout` computes them
+// (ops/quant_matmul.py): `stages` ring stages (per stage: 16 rows of 8
+// superblocks of codes, then per row the factors, then q5_k's bit plane),
+// the x codes of a window of `cols` columns (per token cols + 64 bytes),
+// the scales sx (per segment and token pair a float2), the group sums xs
+// ([T][cols/32] bf16), and the tile's partial sums ([8 or 16 tokens][8
+// warps][16 rows] f32).
+struct SbqLayout {
+    int qh_pitch, stage, xs_pitch, x_off, prep_off, sum_off, part_off, total;
+};
+
+__host__ __device__ inline SbqLayout sbq_layout(bool q5, int T, int cols,
+                                                int stages) {
+    SbqLayout L;
+    L.qh_pitch = q5 ? Q4R_QH_PITCH : 0;
+    L.stage = Q4R_RT * (Q4R_QS_PITCH + SBQ_SIDE_PITCH + L.qh_pitch);
+    L.xs_pitch = cols + 64;  // consecutive tokens 64 B apart mod 128
+    L.x_off = stages * L.stage;
+    L.prep_off = L.x_off + T * L.xs_pitch;
+    L.sum_off = L.prep_off + (cols / SBQ_SEG) * ((T + 1) / 2) * 8;
+    L.part_off = L.sum_off + T * (cols / 32) * 2;
+    L.total = L.part_off + (T > SBQ_TOKENS ? 2 : 1) * SBQ_TOKENS * SBQ_PART_T * 4;
+    return L;
 }
 
-template <int T, bool Q5>
-__global__ void __launch_bounds__(SBQ_ROWS * 32)
-sbq_matvec_kernel(const uint8_t* __restrict__ qs2,
-                  const uint8_t* __restrict__ qh,          // q5_k (out, in/8)
-                  const uint8_t* __restrict__ sc,          // (out, in/32)
-                  const float* __restrict__ dsb,           // (out, in/256)
-                  const __nv_bfloat16* __restrict__ mn,    // (out, in/32)
-                  const int8_t* __restrict__ xq,           // (T, in_f)
-                  const float* __restrict__ sx,            // (T, in_f/128)
-                  const __nv_bfloat16* __restrict__ xsum,  // (T, in_f/32)
-                  __nv_bfloat16* __restrict__ y,           // (T, out_f)
-                  int out_f, int in_f) {
-    const int row = blockIdx.x * SBQ_ROWS + (threadIdx.x >> 5);
-    const int lane = threadIdx.x & 31;
-    if (row >= out_f) return;  // whole warps exit together
-    const int ng = in_f / 32;
-    const int nseg = in_f / SBQ_SEG;
-    const int nsb = in_f / 256;
-    const int nchunk = in_f / 32;  // 16-byte chunks per row, 8 per superblock
-    const uint8_t* wrow = qs2 + (size_t)row * (in_f / 2);
-    const uint8_t* scrow = sc + (size_t)row * ng;
-    const float* drow = dsb + (size_t)row * nsb;
-    const __nv_bfloat16* mrow = mn + (size_t)row * ng;
+// NT: mma N tiles of 8 tokens (1: T <= 8, 2: 9 <= T <= 16), sharing each
+// A fragment; q5_k's two-tile body needs more registers than two blocks
+// an SM leave it. kwin: the K steps of x's window; WIN: kwin < the K
+// steps (x in windows). x whole keeps a body without the window code: the
+// one with it, run at kwin = K steps, took 5% more time at the 1.1B's
+// shapes (its registers; bench_q4k.py, H100 80GB HBM3, 700 W).
+template <bool Q5, int NT, bool WIN>
+__global__ void __launch_bounds__(Q4R_THREADS, Q5 && NT == 2 ? 1 : 2)
+sbq_kernel(const uint8_t* __restrict__ qs2,
+           const uint8_t* __restrict__ qh,          // q5_k (out, in/8)
+           const uint8_t* __restrict__ sc,          // (out, in/32)
+           const float* __restrict__ dsb,           // (out, in/256)
+           const __nv_bfloat16* __restrict__ mn,    // (out, in/32)
+           const __nv_bfloat16* __restrict__ x,     // (T, in_f)
+           __nv_bfloat16* __restrict__ y,           // (T, out_f)
+           int T, int out_f, int in_f, int stages, int kwin) {
+    extern __shared__ __align__(16) uint8_t smem[];
+    const uint32_t rank = cluster_rank();
+    const int nsb = in_f / 256, ng = in_f / 32, np = (T + 1) / 2;
+    const int ksteps = (nsb + Q4R_KS - 1) / Q4R_KS;
+    const int wcols = min(in_f, kwin * Q4R_KS * 256);  // x's window
+    const SbqLayout L = sbq_layout(Q5, T, wcols, stages);
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int gid = lane >> 2, tig = lane & 3;
+    // the cluster's walk: pairs of tiles pair, pair + pairs, ...; this
+    // block takes tile 2 * (pair of tiles) + rank of each
+    const int pair = (int)blockIdx.x / SBQ_CLUSTER;
+    const int pairs = (int)gridDim.x / SBQ_CLUSTER;
+    const int npair = out_f / (SBQ_CLUSTER * Q4R_RT);
+    const int mine = pair < npair ? (npair - 1 - pair) / pairs + 1 : 0;
+    const int total = mine * ksteps;  // (tile, K step) pairs of this block
+    auto tile_row0 = [&](int it) {
+        return (SBQ_CLUSTER * (pair + (it / ksteps) * pairs) + (int)rank) * Q4R_RT;
+    };
 
-    float acc[T];
-#pragma unroll
-    for (int t = 0; t < T; ++t) acc[t] = 0.f;
-    for (int base = 0; base < nchunk; base += 32) {
-        const int c = base + lane;
-        const bool valid = c < nchunk;  // a superblock's 8 lanes together
-        const int sb = c >> 3;
-        const int b = (c & 7) * 16;
-        const int col_lo = sb * 256 + b;
-        const int col_hi = col_lo + 128;
-        const int g_lo = sb * 8 + (c & 7) / 2;
-        uint32_t ws[4] = {0u, 0u, 0u, 0u};
-        uint32_t hlo = 0u, hhi = 0u;
-        int sc_lo = 0, sc_hi = 0;
-        float d = 0.f;
-        if (valid) {
-            const uint4 w = *reinterpret_cast<const uint4*>(wrow + sb * 128 + b);
-            ws[0] = w.x; ws[1] = w.y; ws[2] = w.z; ws[3] = w.w;
-            if (Q5) {
-                const uint8_t* hrow = qh + (size_t)row * (in_f / 8);
-                hlo = *reinterpret_cast<const uint16_t*>(hrow + col_lo / 8);
-                hhi = *reinterpret_cast<const uint16_t*>(hrow + col_hi / 8);
-            }
-            sc_lo = scrow[g_lo];
-            sc_hi = scrow[g_lo + 4];
-            d = drow[sb];
-        }
-        uint32_t lo[4], hi[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            lo[k] = ws[k] & 0x0F0F0F0Fu;
-            hi[k] = (ws[k] >> 4) & 0x0F0F0F0Fu;
-            if (Q5) {
-                lo[k] |= spread4(hlo >> (4 * k)) << 4;
-                hi[k] |= spread4(hhi >> (4 * k)) << 4;
+    // activation prep, part 1 (Q4kPrep, q4k_ring.cuh): 16 lanes per (token,
+    // segment) of the first window; its first loads go out before the
+    // weight stream
+    Q4kPrep<SBQ_SEG, SBQ_CLUSTER> px(x, T, in_f, rank);
+    px.window(x, wcols);
+    px.load(0, tid);
+    cluster_arrive_relaxed();  // the peer writes here once started
+
+    // one stage: rows [tile*16, +16) x superblocks [kstep*8, +8) of every
+    // field (superblocks past in_f skipped)
+    auto issue = [&](int it, int slot) {
+        const int row0 = tile_row0(it);
+        const int sb0 = (it % ksteps) * Q4R_KS;
+        uint8_t* st = smem + slot * L.stage;
+        q4k_copy_codes(st, qs2, in_f / 2, row0, sb0, nsb, tid);
+        uint8_t* side = st + Q4R_RT * Q4R_QS_PITCH;
+        {
+            // sc (threads 0-127) and d (128-255): one (row, superblock) each
+            const int c = tid & 127, r = c >> 3, s = c & 7;
+            if (sb0 + s < nsb) {
+                const size_t row = (size_t)(row0 + r);
+                if (tid < 128)
+                    cp_async8(side + r * SBQ_SIDE_PITCH + SBQ_SC + s * 8,
+                              sc + row * ng + (size_t)(sb0 + s) * 8);
+                else
+                    cp_async4(side + r * SBQ_SIDE_PITCH + SBQ_D + s * 4,
+                              dsb + row * nsb + sb0 + s);
             }
         }
+        if (tid < Q4R_RT * Q4R_KS) {  // min: 16 B per (row, superblock)
+            const int r = tid >> 3, s = tid & 7;
+            if (sb0 + s < nsb)
+                cp_async16(side + r * SBQ_SIDE_PITCH + SBQ_MIN + s * 16,
+                           mn + (size_t)(row0 + r) * ng + (size_t)(sb0 + s) * 8);
+        }
+        if (Q5)
+            q4k_copy_qh(side + Q4R_RT * SBQ_SIDE_PITCH, qh, in_f / 8, row0, sb0,
+                        nsb, tid);
+    };
+    for (int s = 0; s < stages - 1; ++s) {
+        if (s < total) issue(s, s);
+        cp_async_commit();
+    }
+
+    // activation prep, part 2, while the first stages arrive: the codes in
+    // B-fragment order, sx per segment and token pair, xs per token and
+    // group, in both blocks of the cluster
+    uint8_t* xi = smem + L.x_off;
+    float* prep = reinterpret_cast<float*>(smem + L.prep_off);
+    __nv_bfloat16* xsum = reinterpret_cast<__nv_bfloat16*>(smem + L.sum_off);
+    cluster_wait();
+    px.run(xi, L.xs_pitch, prep, xsum, tid);
+    cluster_arrive();  // both blocks' codes, scales and sums in place
+    cluster_wait();
+    int wsb0 = 0, wng = wcols / 32;  // the window's first superblock, groups
+
+    // body: this thread's C rows gid, gid + 8 and tokens 8n + 2 tig, 8n +
+    // 2 tig + 1 of N tile n (acc[n][2 * rowsel + token]); accm: the min
+    // term's mma fragment, the same layout
+    float acc[NT][4], accm[NT][4];
 #pragma unroll
-        for (int t = 0; t < T; ++t) {
-            int il = 0, ih = 0;
-            if (valid) {
-                const int8_t* xt = xq + (size_t)t * in_f;
-                const uint4 xl = *reinterpret_cast<const uint4*>(xt + col_lo);
-                const uint4 xh = *reinterpret_cast<const uint4*>(xt + col_hi);
-                const uint32_t xls[4] = {xl.x, xl.y, xl.z, xl.w};
-                const uint32_t xhs[4] = {xh.x, xh.y, xh.z, xh.w};
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-                for (int k = 0; k < 4; ++k) {
-                    il = __dp4a((int)lo[k], (int)xls[k], il);
-                    ih = __dp4a((int)hi[k], (int)xhs[k], ih);
+        for (int e = 0; e < 4; ++e) acc[n][e] = accm[n][e] = 0.f;
+    const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;  // ldmatrix row
+    int slot = 0;
+    for (int it = 0; it < total; ++it) {
+        const int ks = it % ksteps;
+        if (WIN && it > 0 && ks % kwin == 0) {
+            // the next window (at a new tile the first again): once both
+            // blocks are done with the last one, quantize it as above
+            wsb0 = ks * Q4R_KS;
+            const int cols = min(wcols, in_f - wsb0 * 256);
+            wng = cols / 32;
+            Q4kPrep<SBQ_SEG, SBQ_CLUSTER> pw(x, T, in_f, rank);
+            pw.window(x + wsb0 * 256, cols);
+            pw.load(0, tid);
+            cluster_arrive();
+            cluster_wait();
+            pw.run(xi, L.xs_pitch, prep, xsum, tid);
+            cluster_arrive();
+            cluster_wait();
+        }
+        cp_async_wait_n(stages - 2);
+        __syncthreads();
+        if (it + stages - 1 < total)
+            issue(it + stages - 1, slot == 0 ? stages - 1 : slot - 1);
+        cp_async_commit();
+        const int sb = ks * Q4R_KS + warp;
+        if (sb < nsb) {
+            const int sw = sb - wsb0;  // in the window
+            const uint8_t* st = smem + slot * L.stage;
+            const uint8_t* side = st + Q4R_RT * Q4R_QS_PITCH;
+            const uint8_t* f0 = side + gid * SBQ_SIDE_PITCH;        // row gid
+            const uint8_t* f8 = side + (gid + 8) * SBQ_SIDE_PITCH;  // gid + 8
+            // the 8 groups' sub-scales (group g in byte g % 4 of word g / 4)
+            const uint2 s0 = *reinterpret_cast<const uint2*>(f0 + SBQ_SC + warp * 8);
+            const uint2 s8 = *reinterpret_cast<const uint2*>(f8 + SBQ_SC + warp * 8);
+            {
+                // the min term of the superblock's 8 groups on the tensor
+                // cores: accm (16 rows x 8 tokens) += m (bf16) . xs (bf16),
+                // products exact in f32
+                const int mo = SBQ_MIN + warp * 16 + 4 * tig;
+                const uint32_t m0 = *reinterpret_cast<const uint32_t*>(f0 + mo);
+                const uint32_t m1 = *reinterpret_cast<const uint32_t*>(f8 + mo);
+#pragma unroll
+                for (int n = 0; n < NT; ++n) {
+                    const int tok = 8 * n + gid;
+                    uint32_t xs2 = 0u;
+                    if (tok < T)
+                        xs2 = *reinterpret_cast<const uint32_t*>(
+                            xsum + tok * wng + sw * 8 + 2 * tig);
+                    mma1688(accm[n], m0, m1, xs2);
                 }
-                il *= sc_lo;
-                ih *= sc_hi;
             }
-            // exact segment sums over the superblock's 8 lanes
+            uint4 h[4];  // q5_k: rows gid, gid+8, words 0-3 / 4-7
+            if (Q5) q4k_load_qh(h, side + Q4R_RT * SBQ_SIDE_PITCH + warp * 32, gid);
+            const uint8_t* arow = st + lrow * Q4R_QS_PITCH + warp * 128;
+            const uint8_t* xrow = xi + gid * L.xs_pitch + sw * 256 + tig * 16;
+            // the segments' exact sums: cl (low plane, groups 0-3) and chh
+            // (high plane, groups 4-7), C-fragment layout
+            int cl[NT][4], chh[NT][4];
 #pragma unroll
-            for (int o = 1; o < 8; o <<= 1) {
-                il += __shfl_xor_sync(0xffffffffu, il, o);
-                ih += __shfl_xor_sync(0xffffffffu, ih, o);
+            for (int n = 0; n < NT; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) cl[n][e] = chh[n][e] = 0;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                uint32_t alo[4], ahi[4];
+                q4k_codes<Q5>(arow, lane, lrow, tig, k, h, alo, ahi);
+                // group k's and group k + 4's sub-scales of rows gid, gid+8
+                const int sl0 = (s0.x >> (8 * k)) & 0xFF, sl8 = (s8.x >> (8 * k)) & 0xFF;
+                const int sh0 = (s0.y >> (8 * k)) & 0xFF, sh8 = (s8.y >> (8 * k)) & 0xFF;
+#pragma unroll
+                for (int n = 0; n < NT; ++n) {
+                    uint4 xb = make_uint4(0u, 0u, 0u, 0u);
+                    if (8 * n + gid < T)
+                        xb = *reinterpret_cast<const uint4*>(
+                            xrow + 8 * n * L.xs_pitch + k * 64);
+                    int plo[4], phi[4];
+                    mma16832_s8(plo, alo, xb.x, xb.y);
+                    mma16832_s8(phi, ahi, xb.z, xb.w);
+                    cl[n][0] += sl0 * plo[0];
+                    cl[n][1] += sl0 * plo[1];
+                    cl[n][2] += sl8 * plo[2];
+                    cl[n][3] += sl8 * plo[3];
+                    chh[n][0] += sh0 * phi[0];
+                    chh[n][1] += sh0 * phi[1];
+                    chh[n][2] += sh8 * phi[2];
+                    chh[n][3] += sh8 * phi[3];
+                }
             }
-            if (valid && (lane & 7) == 0) {
-                const float* st = sx + (size_t)t * nseg + 2 * sb;
-                const float va = __fadd_rn(__fmul_rn((float)il, st[0]),
-                                           __fmul_rn((float)ih, st[1]));
-                acc[t] = __fmaf_rn(va, d, acc[t]);
+            // the superblock's combine: acc += d (P_lo sx_lo + P_hi sx_hi)
+            const float d0 = *reinterpret_cast<const float*>(f0 + SBQ_D + warp * 4);
+            const float d8 = *reinterpret_cast<const float*>(f8 + SBQ_D + warp * 4);
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+                const int tp = 4 * n + tig;  // token pair
+                float2 ql = make_float2(0.f, 0.f), qh2 = ql;
+                if (tp < np) {
+                    ql = *reinterpret_cast<const float2*>(
+                        prep + ((size_t)(2 * sw) * np + tp) * 2);
+                    qh2 = *reinterpret_cast<const float2*>(
+                        prep + ((size_t)(2 * sw + 1) * np + tp) * 2);
+                }
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float sxl = e & 1 ? ql.y : ql.x;
+                    const float sxh = e & 1 ? qh2.y : qh2.x;
+                    const float va = __fadd_rn(__fmul_rn((float)cl[n][e], sxl),
+                                               __fmul_rn((float)chh[n][e], sxh));
+                    acc[n][e] = __fmaf_rn(va, e & 2 ? d8 : d0, acc[n][e]);
+                }
             }
         }
-    }
+        if (ks == ksteps - 1) {
+            // the tile's 8 K parts (each warp's sums less its min term) meet
+            // in shared memory; one thread per (row, token) adds them in
+            // warp order
+            float* part = reinterpret_cast<float*>(smem + L.part_off);
 #pragma unroll
-    for (int t = 0; t < T; ++t) {
-        const __nv_bfloat16* xs = xsum + (size_t)t * ng;
-        float accm = 0.f;  // min term: sum_g m_g * xs_g
-        for (int g = lane; g < ng; g += 32)
-            accm = __fmaf_rn(bf2f(mrow[g]), bf2f(xs[g]), accm);
-        const float r = warp_sum(acc[t]) - warp_sum(accm);
-        if (lane == 0) y[(size_t)t * out_f + row] = f2bf(r);
+            for (int n = 0; n < NT; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    part[(8 * n + 2 * tig + (e & 1)) * SBQ_PART_T
+                         + warp * Q4R_RT + gid + 8 * (e >> 1)] =
+                        __fsub_rn(acc[n][e], accm[n][e]);
+                    acc[n][e] = accm[n][e] = 0.f;
+                }
+            __syncthreads();
+            if (tid < Q4R_RT * T) {
+                const int t = tid / Q4R_RT, r = tid % Q4R_RT;
+                const float* pt = part + t * SBQ_PART_T + r;
+                float sa = pt[0];
+#pragma unroll
+                for (int w = 1; w < Q4R_KS; ++w) sa = __fadd_rn(sa, pt[w * Q4R_RT]);
+                y[(size_t)t * out_f + tile_row0(it) + r] = f2bf(sa);
+            }
+        }
+        slot = slot + 1 == stages ? 0 : slot + 1;
     }
+    cp_async_wait<0>();
 }
 
-template <bool Q5>
-static cudaError_t launch_sbq(int T, const void* qs2, const void* qh,
-                              const void* sc, const void* dsb, const void* mn,
-                              const void* xq, const void* sx,
-                              const void* xsum, void* y, int out_f, int in_f,
-                              cudaStream_t st) {
-    dim3 grid((out_f + SBQ_ROWS - 1) / SBQ_ROWS);
-    dim3 block(SBQ_ROWS * 32);
-#define SBQ_ARGS (const uint8_t*)qs2, (const uint8_t*)qh, (const uint8_t*)sc, \
-        (const float*)dsb, (const __nv_bfloat16*)mn, (const int8_t*)xq, \
-        (const float*)sx, (const __nv_bfloat16*)xsum, (__nv_bfloat16*)y, \
-        out_f, in_f
-#define SBQ_CASE(n) \
-    case n: sbq_matvec_kernel<n, Q5><<<grid, block, 0, st>>>(SBQ_ARGS); break;
-    switch (T) {
-        SBQ_CASE(2) SBQ_CASE(3) SBQ_CASE(4) SBQ_CASE(5) SBQ_CASE(6)
-        SBQ_CASE(7) SBQ_CASE(8) SBQ_CASE(9) SBQ_CASE(10) SBQ_CASE(11)
-        SBQ_CASE(12) SBQ_CASE(13) SBQ_CASE(14) SBQ_CASE(15) SBQ_CASE(16)
-        default: return cudaErrorInvalidValue;
+template <bool Q5, int NT, bool WIN>
+static cudaError_t launch_sbq(const void* qs2, const void* qh, const void* sc,
+                              const void* dsb, const void* mn, const void* x,
+                              void* y, int T, int out_f, int in_f, int grid,
+                              int stages, int kwin, int smem, cudaStream_t st) {
+    static bool ready = false;  // the opt-in above 48 KB, once per body
+    if (!ready) {
+        cudaError_t e = cudaFuncSetAttribute(
+            sbq_kernel<Q5, NT, WIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            SBQ_SMEM_MAX);
+        if (e != cudaSuccess) return e;
+        ready = true;
     }
-#undef SBQ_CASE
-#undef SBQ_ARGS
-    return cudaGetLastError();
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(Q4R_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = SBQ_CLUSTER;  // pairs share the prep
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    cudaError_t e = cudaLaunchKernelEx(
+        &cfg, sbq_kernel<Q5, NT, WIN>, (const uint8_t*)qs2, (const uint8_t*)qh,
+        (const uint8_t*)sc, (const float*)dsb, (const __nv_bfloat16*)mn,
+        (const __nv_bfloat16*)x, (__nv_bfloat16*)y, T, out_f, in_f, stages,
+        kwin);
+    return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-// x (T, in_f) bf16 -> xq (T, in_f) int8, sx (T, in_f/128) f32, xsum
-// (T, in_f/32) bf16; a segment never straddles two tokens (in_f % 256 == 0)
-KCPP_API int k14_sbq_prep(const void* x, void* xq, void* sx, void* xsum,
-                          int T, int in_f, void* stream) {
-    const int n_seg = T * (in_f / SBQ_SEG);
-    sbq_prep_kernel<<<(n_seg + 7) / 8, 256, 0, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)x, (int8_t*)xq, (float*)sx,
-        (__nv_bfloat16*)xsum, n_seg);
-    return (int)cudaGetLastError();
-}
-
-// qh is the q5_k bit plane, or null for q4_k
-KCPP_API int k14_sbq_matvec(const void* qs2, const void* qh, const void* sc,
-                            const void* dsb, const void* mn, const void* xq,
-                            const void* sx, const void* xsum, void* y, int T,
-                            int out_f, int in_f, void* stream) {
+// One K14 matvec; qh is the q5_k bit plane, or null for q4_k. grid,
+// stages, kwin and smem come from `sbq_plan`; a plan whose shared memory
+// differs from this source's layout is refused.
+KCPP_API int k14_sbq(const void* qs2, const void* qh, const void* sc,
+                     const void* dsb, const void* mn, const void* x, void* y,
+                     int T, int out_f, int in_f, int grid, int stages,
+                     int kwin, int smem, void* stream) {
+    const int ksteps = (in_f / 256 + Q4R_KS - 1) / Q4R_KS;
+    if (T < 2 || T > SBQ_MAX_T || in_f <= 0 || in_f % 256 || out_f <= 0
+        || out_f % (SBQ_CLUSTER * Q4R_RT) || grid < SBQ_CLUSTER
+        || grid > out_f / Q4R_RT || grid % SBQ_CLUSTER || stages < 3
+        || stages > 4 || kwin < 1 || kwin > ksteps)
+        return (int)cudaErrorInvalidValue;
+    // the prep's float reciprocal is exact below 2^13 (token, group) tasks
+    const int wcols = min(in_f, kwin * Q4R_KS * 256);
+    if (T * (wcols / 32) >= 8192 || smem > SBQ_SMEM_MAX
+        || smem != sbq_layout(qh != nullptr, T, wcols, stages).total)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    if (in_f % 256) return (int)cudaErrorInvalidValue;
-    return (int)(qh ? launch_sbq<true>(T, qs2, qh, sc, dsb, mn, xq, sx, xsum,
-                                       y, out_f, in_f, st)
-                    : launch_sbq<false>(T, qs2, qh, sc, dsb, mn, xq, sx,
-                                        xsum, y, out_f, in_f, st));
+#define SBQ_ARGS qs2, qh, sc, dsb, mn, x, y, T, out_f, in_f, grid, stages, kwin, smem, st
+    cudaError_t err;
+    const bool two = T > SBQ_TOKENS, win = kwin < ksteps;
+    if (qh)
+        err = two ? (win ? launch_sbq<true, 2, true>(SBQ_ARGS)
+                         : launch_sbq<true, 2, false>(SBQ_ARGS))
+                  : (win ? launch_sbq<true, 1, true>(SBQ_ARGS)
+                         : launch_sbq<true, 1, false>(SBQ_ARGS));
+    else
+        err = two ? (win ? launch_sbq<false, 2, true>(SBQ_ARGS)
+                         : launch_sbq<false, 2, false>(SBQ_ARGS))
+                  : (win ? launch_sbq<false, 1, true>(SBQ_ARGS)
+                         : launch_sbq<false, 1, false>(SBQ_ARGS));
+#undef SBQ_ARGS
+    return (int)err;
 }

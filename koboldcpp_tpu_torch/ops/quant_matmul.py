@@ -16,7 +16,9 @@ CUDA tensor it launches the kernel or raises.
   K14 q4k_matvec_sbq 2<=T<=16 q4_k/   (csrc/q4k_sbq.cu; JAX
                      q5_k, KCPP_SBQ=1  `_packed_matvec_q4k_sbq`: int8
                                        activations per 128 columns, the
-                                       integer sub-scales in int32 dots)
+                                       integer sub-scales in int32 dots;
+                                       K7's design, one launch, tiled by
+                                       `sbq_plan`)
   K2  q6k_matvec    T=1 q6_k          (csrc/q6k_matvec.cu; JAX
       q8_0_matvec   T=1 q8_0           `_packed_matvec`; csrc/q8_0_matvec.cu:
                                        int8 activations, or bf16 ones under
@@ -397,36 +399,124 @@ def q4k_matvec_sbq_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     return t.to(torch.bfloat16)
 
 
+class SbqPlan(NamedTuple):
+    """How the K14 body tiles one call (csrc/q4k_sbq.cu): 16-row tiles
+    (`tiles` of them) walked by a persistent grid of `grid` blocks of 8
+    warps, in clusters of two that share the activation prep and take the
+    two tiles of each pair of tiles their cluster walks; each K step is a
+    stage of 8 superblocks, one per warp, `stages` of them in a cp.async
+    ring; `ntiles_n` mma N tiles of 8 tokens sharing each A fragment; x
+    held in windows of `kwin` K steps (`kwin == ksteps`: x whole, quantized
+    once; less where T tokens' codes of every column do not fit a block:
+    each window quantized anew at its first K step of every tile); `smem`
+    bytes of dynamic shared memory (the ring, a window's x codes of T
+    tokens, their scales per segment and sums per group, the tile's
+    partial sums)."""
+    rows: int
+    tiles: int
+    ksteps: int
+    stages: int
+    ntiles_n: int
+    kwin: int
+    smem: int
+    grid: int
+
+
+SBQ_MAX_T = 16
+SBQ_TOKENS = 8  # tokens per mma N tile
+# a stage row of K14's factors: sc (8 B per superblock), d (4 B), min
+# (16 B), then 16 B of padding
+_SBQ_SIDE_PITCH = Q4K_KS * 28 + 16
+# the ring depths and blocks per SM K14's and K15a's plans try, in order
+RING_FITS = ((4, 2), (3, 2), (4, 1), (3, 1))
+
+
+def sbq_layout(q5: bool, T: int, cols: int, stages: int) -> dict[str, int]:
+    """K14's shared memory, byte offsets (`sbq_layout` in the source):
+    `stages` stages of 16 rows x 8 superblocks (per row the codes in 1024
+    B, the factors in 240, q5_k's bit plane in 272), then the x codes of T
+    tokens over a window of `cols` columns in rows of cols + 64 bytes, a
+    float2 of scales sx per 128-column segment and token pair, the bf16
+    group sums xs (T x cols/32), and the partial sums (per token of 8, or
+    at T > 8 of 16, the 8 warps' values of 16 rows and 16 bytes of
+    padding)."""
+    stage = Q4K_ROWS * (Q4K_KS * 128 + _SBQ_SIDE_PITCH
+                        + (Q4K_KS * 32 + 16 if q5 else 0))
+    x = stages * stage
+    prep = x + T * (cols + 64)
+    sums = prep + (cols // SBQ_SEG) * ((T + 1) // 2) * 8
+    part = sums + T * (cols // 32) * 2
+    tokens = 2 * SBQ_TOKENS if T > SBQ_TOKENS else SBQ_TOKENS
+    return {"stage": stage, "x": x, "prep": prep, "sums": sums, "part": part,
+            "total": part + tokens * (Q4K_KS * Q4K_ROWS + 4) * 4}
+
+
+@functools.lru_cache(maxsize=4096)
+def sbq_plan(T: int, out_f: int, in_f: int, q5: bool = False) -> SbqPlan:
+    """The tiling of K14 for x (T, in_f) and an (out_f, in_f) q4_k (q5:
+    q5_k) weight. Raises ValueError for a shape the kernel does not take
+    (T outside 2..16, in_f not a multiple of 256, out_f not a multiple of
+    64); every other width fits, through x's windows.
+
+    The grid is persistent, as K7's (`q4k_plan`): x whole where it fits,
+    at the first of 4 stages and two blocks an SM, 3 stages and two, 4 or
+    3 stages and one (q5_k's two-tile body: one block, its registers);
+    else the same order with the widest window of x that fits. Never more
+    blocks than tiles, an even number. The window's float-reciprocal
+    prep needs T * cols / 32 < 8192, which a block's shared memory
+    implies. The tile, the K step and the warp that takes each superblock
+    depend on in_f alone, never on T (nor do the windows change the
+    order): a (row, token) is summed in the same order at every T."""
+    if not 2 <= T <= SBQ_MAX_T or in_f <= 0 or in_f % KQ_K_STEP \
+            or out_f <= 0 or out_f % 64:
+        raise ValueError(f"K14 takes 2 <= T <= {SBQ_MAX_T}, in_f % 256 == "
+                         f"0 and out_f % 64 == 0, not T={T} ({out_f}, {in_f})")
+    tiles = out_f // Q4K_ROWS
+    ksteps = -(-(in_f // KQ_K_STEP) // Q4K_KS)
+    fits = [(stages, per_sm) for stages, per_sm in RING_FITS
+            if not (q5 and T > SBQ_TOKENS and per_sm > 1)]
+    for kwins in ((ksteps,), range(ksteps - 1, 0, -1)):
+        for stages, per_sm in fits:
+            for kwin in kwins:
+                cols = min(in_f, kwin * Q4K_KS * KQ_K_STEP)
+                smem = sbq_layout(q5, T, cols, stages)["total"]
+                if per_sm * (smem + 1024) <= _SMEM_PER_SM \
+                        and smem <= SMEM_MAX and T * (cols // 32) < 8192:
+                    return SbqPlan(Q4K_ROWS, tiles, ksteps, stages,
+                                   2 if T > SBQ_TOKENS else 1, kwin, smem,
+                                   min(tiles, per_sm * _SMS))
+    raise ValueError(f"K14: T={T} x in_f={in_f} does not fit a block "
+                     f"({smem} bytes of shared memory, {SMEM_MAX} at most)")
+
+
+_SIG_SBQ = [_build.P] * 7 + [_build.I] * 7 + [_build.P]
+
+
 def q4k_matvec_sbq(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """K14 wrapper (q4_k or q5_k with sc / d). x (T, in_f) bf16 contiguous,
-    2 <= T <= 16 -> (T, out_f) bf16; each row depends on its token alone."""
+    2 <= T <= 16 -> (T, out_f) bf16; each row depends on its token alone.
+    One launch (`sbq_plan`), y its one allocation."""
     if not x.is_cuda:
         return q4k_matvec_sbq_plain(x, qt)
-    T, in_f = x.shape
-    out_f = qt.shape[0]
-    if x.dim() != 2 or not 2 <= T <= 16 or qt.kind not in ("q4_k", "q5_k") \
+    if x.dim() != 2 or not 2 <= x.shape[0] <= SBQ_MAX_T \
+            or qt.kind not in ("q4_k", "q5_k") \
             or "sc" not in qt.data or "d" not in qt.data:
         raise ValueError("K14 takes x (T, in_f) with 2 <= T <= 16 and a "
                          "q4_k / q5_k weight with sc and d")
+    T, in_f = x.shape
+    out_f = qt.shape[0]
     _check_operands(x, qt, "K14")
-    lib = _build.load("q4k_sbq", {
-        "k14_sbq_prep": [_build.P] * 4 + [_build.I] * 2 + [_build.P],
-        "k14_sbq_matvec": [_build.P] * 9 + [_build.I] * 3 + [_build.P]})
-    dev = x.device
-    xq = torch.empty(T * in_f, dtype=torch.int8, device=dev)
-    sx = torch.empty(T * in_f // SBQ_SEG, dtype=torch.float32, device=dev)
-    xsum = torch.empty(T * in_f // 32, dtype=torch.bfloat16, device=dev)
-    y = torch.empty((T, out_f), dtype=torch.bfloat16, device=dev)
-    st = _build.stream_ptr()
-    _build.check(lib, lib.k14_sbq_prep(x.data_ptr(), xq.data_ptr(),
-                                       sx.data_ptr(), xsum.data_ptr(), T,
-                                       in_f, st), "K14 prep")
     d = qt.data
-    _build.check(lib, lib.k14_sbq_matvec(
+    if any(t.data_ptr() % 16 for t in (x, *d.values())):
+        raise ValueError("K14 takes 16-byte aligned x and fields")
+    plan = sbq_plan(T, out_f, in_f, qt.kind == "q5_k")
+    y = torch.empty((T, out_f), dtype=torch.bfloat16, device=x.device)
+    lib, fn = _build.entry("q4k_sbq", "k14_sbq", _SIG_SBQ)
+    _build.check(lib, fn(
         d["qs2"].data_ptr(), _ptr(d.get("qh")), d["sc"].data_ptr(),
-        d["d"].data_ptr(), d["min"].data_ptr(), xq.data_ptr(),
-        sx.data_ptr(), xsum.data_ptr(), y.data_ptr(), T, out_f, in_f, st),
-        "K14")
+        d["d"].data_ptr(), d["min"].data_ptr(), x.data_ptr(), y.data_ptr(),
+        T, out_f, in_f, plan.grid, plan.stages, plan.kwin, plan.smem,
+        _build.stream_ptr()), "K14")
     _count("K14", qt)
     return y
 

@@ -1,8 +1,10 @@
-"""Device-alone times of the q4_k / q5_k matvecs K1, K7 and K17a and of
-the q6_k / q2_k / q3_k matvecs K2, K12.q2_k and K12.q3_k (int8 and bf16
-activations) at the TinyLlama-1.1B's shapes, beside one PyTorch call
-computing the same function (cuBLAS over the dequantized bf16 weight) and
-the bytes bound.
+"""Device-alone times of the q4_k / q5_k matvecs K1, K7 and K17a, of the
+q6_k / q2_k / q3_k matvecs K2, K12.q2_k and K12.q3_k (int8 and bf16
+activations), of the KCPP_SBQ=1 matvecs K14 and K14.q5_k and of the
+KCPP_FFN_FUSED=1 FFN K15a at the TinyLlama-1.1B's shapes, beside one
+PyTorch call computing the same function (cuBLAS over the dequantized
+bf16 weight; for K15a cuBLAS gate/up, silu * up, cuBLAS down) and the
+bytes bound.
 
     python3 koboldcpp_tpu_torch/tools/bench_q4k.py [--root DIR]
         [--label NAME] [--check] [--kernels K2,K12.q2_k,...]
@@ -11,11 +13,14 @@ the bytes bound.
 one this file lies in), so that two commits can be compared on one card:
 run the script once per tree, alternating (parent, change, change,
 parent), in one run on the card. --check: also hold every case to its
-plain version (2^-7 of max |ref|), K7's rows to K1 on each row alone and
-K17a to K1 on the layer, bit for bit, and fail on a mismatch. --kernels:
-time only these (default: all; K1, K1.q5_k, K7, K7.q5_k, K17a, K2,
-K12.q2_k, K12.q3_k); each kernel's weights come from a seed of its own,
-so a subset times the same weights as a full run.
+plain version (2^-7 of max |ref|), K7's rows to K1 on each row alone,
+K17a to K1 on the layer, K14's rows at T = 2 and 8 to its rows of the same
+tokens at T = 16 and K15a's at T = 2 to those at T = 8, bit for bit, and
+fail on a mismatch. --kernels: time only these (default: all; K1,
+K1.q5_k, K7, K7.q5_k, K17a, K2, K12.q2_k, K12.q3_k, K14, K14.q5_k, K15a);
+each kernel's weights come from a seed of its own, so a subset times the
+same weights as a full run (K7 at T = 8 and K14 time the same weights at
+one seed).
 
 A case's time is that of CUDA-graph replays of the call over enough
 copies of its weight (96 MB or more, at least two) that each call finds
@@ -23,8 +28,9 @@ its weight out of the 50 MB L2, as the decode step does (it streams
 every weight from HBM once), divided by the calls: neither the host's
 launch time nor a flush's L2 write-backs are counted. Prints a JSON line
 per case, then the sums per kernel and class (K1 / K7 / K17a: T = 1;
-2-8; 8; K2 / K12: T = 1 int8, T = 1 bf16 x), each beside the library's
-and the bound's; the card's name and power limit first.
+2-8; 8; K2 / K12: T = 1 int8, T = 1 bf16 x; K14: T = 2, 8, 16; K15a: T =
+2, 8), each beside the library's and the bound's; the card's name and
+power limit first.
 """
 from __future__ import annotations
 
@@ -44,6 +50,9 @@ STACKED_L = 4
 Q4K_KERNELS = ("K1", "K1.q5_k", "K7", "K7.q5_k", "K17a")
 # the q6_k / q2_k / q3_k T=1 matvecs and their kinds
 ROWMV_KERNELS = (("K2", "q6_k"), ("K12.q2_k", "q2_k"), ("K12.q3_k", "q3_k"))
+SBQ_KERNELS = ("K14", "K14.q5_k")
+SBQ_T = (2, 8, 16)
+FFN_T = (2, 8)
 
 
 def _card() -> str:
@@ -62,7 +71,8 @@ def main() -> int:
     ap.add_argument("--label", default=None)
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--kernels", default=",".join(
-        Q4K_KERNELS + tuple(k for k, _ in ROWMV_KERNELS)))
+        Q4K_KERNELS + tuple(k for k, _ in ROWMV_KERNELS) + SBQ_KERNELS
+        + ("K15a",)))
     args = ap.parse_args()
     want = set(args.kernels.split(","))
     root = os.path.abspath(args.root)
@@ -74,6 +84,7 @@ def main() -> int:
         sys.exit("bench_q4k: no CUDA device available")
     from koboldcpp_tpu_torch.models.synthetic import (
         rand_q2k, rand_q3k, rand_q4k, rand_q5k, rand_q6k)
+    from koboldcpp_tpu_torch.ops import ffn_fused as ff
     from koboldcpp_tpu_torch.ops import quant_matmul as qm
     from koboldcpp_tpu_torch.ops.linear import QTensor, dequant
 
@@ -226,6 +237,124 @@ def main() -> int:
                     s[i] += v
             del w, ws, qt, qts
             torch.cuda.empty_cache()
+    def add(key, k_ms, lib_ms, bound):
+        s = sums.setdefault(key, [0.0, 0.0, 0.0, 0])
+        for i, v in enumerate((k_ms, lib_ms, bound, 1)):
+            s[i] += v
+
+    # K14 / K14.q5_k at T = 2, 8, 16 on the prefixes of one x, and K7 at
+    # T = 8 on the same q4_k weights and x (the sbq fields are K14's only)
+    for n, kid in enumerate(SBQ_KERNELS):
+        if kid not in want and not (kid == "K14" and "K7" in want):
+            continue
+        rng = np.random.default_rng(10 + n)
+        maker = rand_q4k if kid == "K14" else rand_q5k
+        for name, (out_f, in_f) in SHAPES:
+            qt = maker(rng, out_f, in_f, dev)
+            w = dequant(qt)
+            wb = nbytes(*(t for n_, t in qt.data.items() if n_ != "scale"))
+            qts = [qt] + [QTensor(kind=qt.kind, shape=qt.shape, data={
+                n_: a.clone() for n_, a in qt.data.items()})
+                for _ in range(copies(wb) - 1)]
+            ws = [w] + [w.clone() for _ in range(copies(nbytes(w)) - 1)]
+            xmax = torch.from_numpy(rng.standard_normal(
+                (max(SBQ_T), in_f)).astype(np.float32)).to(dev).bfloat16()
+            ys = {}
+            for T in SBQ_T:
+                x = xmax[:T].contiguous()
+                lib_ms = rot_ms([lambda x=x, w=w_: torch.matmul(x, w.t())
+                                 for w_ in ws])
+                if kid in want:
+                    calls = [lambda x=x, q=q: qm.q4k_matvec_sbq(x, q)
+                             for q in qts]
+                    if args.check:
+                        y = ys[T] = calls[0]()
+                        ref = qm.q4k_matvec_sbq_plain(x, qt)
+                        torch.cuda.synchronize()
+                        err = (y.float() - ref.float()).abs().max().item()
+                        tol = 2 ** -7 * ref.float().abs().max().item()
+                        check(err <= tol, f"{kid} {name} T={T}: error {err} "
+                              f"> {tol}")
+                        if T == max(SBQ_T):
+                            for t0, y0 in ys.items():
+                                check(torch.equal(y0, y[:t0]),
+                                      f"{kid} {name}: rows at T={t0} differ "
+                                      f"from those at T={T}")
+                    bound = (wb + nbytes(x) + T * out_f * 2) \
+                        / HBM_BYTES_PER_S * 1e3
+                    k_ms = rot_ms(calls)
+                    print(json.dumps({"tree": label, "kernel": kid,
+                                      "case": f"{name} {out_f}x{in_f}",
+                                      "T": T, "dev_ms": k_ms,
+                                      "library_dev_ms": lib_ms,
+                                      "bound_ms": bound}), flush=True)
+                    add((kid, f"T={T}"), k_ms, lib_ms, bound)
+                    add((kid, "T=2+8+16"), k_ms, lib_ms, bound)
+                if kid == "K14" and T == 8 and "K7" in want:
+                    # K7's fields: the codes, scales and mins of the same
+                    # weights
+                    k7b = nbytes(*(t for n_, t in qt.data.items()
+                                   if n_ not in ("sc", "d")))
+                    k_ms = rot_ms([lambda x=x, q=q: qm.q4k_matvec_t(x, q, True)
+                                   for q in qts])
+                    bound = (k7b + nbytes(x) + T * out_f * 2) \
+                        / HBM_BYTES_PER_S * 1e3
+                    print(json.dumps({"tree": label, "kernel": "K7",
+                                      "case": f"{name} {out_f}x{in_f} "
+                                      "(K14's weights)", "T": T,
+                                      "dev_ms": k_ms, "library_dev_ms": lib_ms,
+                                      "bound_ms": bound}), flush=True)
+                    add(("K7", "T=8 on K14's weights"), k_ms, lib_ms, bound)
+            del w, ws, qt, qts
+            torch.cuda.empty_cache()
+    if "K15a" in want:
+        # the 1.1B's FFN: w_gateup (2F, C), w_down (C, F)
+        rng = np.random.default_rng(20)
+        C, F = 2048, 5632
+        gu, dn = rand_q4k(rng, 2 * F, C, dev), rand_q4k(rng, C, F, dev)
+        fb = [n_ for n_ in gu.data if n_ not in ("sc", "d")]
+        wb = nbytes(*(gu.data[n_] for n_ in fb), *(dn.data[n_] for n_ in fb))
+        pairs = [(gu, dn)] + [tuple(QTensor(kind=q.kind, shape=q.shape, data={
+            n_: a.clone() for n_, a in q.data.items()}) for q in (gu, dn))
+            for _ in range(copies(wb) - 1)]
+        wg, wd = dequant(gu), dequant(dn)
+        wpairs = [(wg, wd)] + [(wg.clone(), wd.clone()) for _ in range(
+            copies(nbytes(wg, wd)) - 1)]
+
+        def library(x, wg, wd):
+            h = torch.matmul(x, wg.t())
+            return torch.matmul(torch.nn.functional.silu(h[:, :F])
+                                * h[:, F:], wd.t())
+
+        xmax = torch.from_numpy(rng.standard_normal(
+            (max(FFN_T), C)).astype(np.float32)).to(dev).bfloat16()
+        ys = {}
+        for T in FFN_T:
+            x = xmax[:T].contiguous()
+            calls = [lambda x=x, p=p: ff.ffn_fused_call(x, *p) for p in pairs]
+            if args.check:
+                y = ys[T] = calls[0]()
+                ref = ff.ffn_fused_plain(x, gu, dn)
+                torch.cuda.synchronize()
+                err = (y.float() - ref.float()).abs().max().item()
+                tol = 2 ** -7 * ref.float().abs().max().item()
+                check(err <= tol, f"K15a T={T}: error {err} > {tol}")
+                for t0, y0 in ys.items():
+                    check(torch.equal(y0, y[:t0]),
+                          f"K15a: rows at T={t0} differ from those at T={T}")
+            k_ms = rot_ms(calls)
+            lib_ms = rot_ms([lambda x=x, p=p: library(x, *p)
+                             for p in wpairs])
+            bound = (wb + nbytes(x) + T * C * 2) / HBM_BYTES_PER_S * 1e3
+            print(json.dumps({"tree": label, "kernel": "K15a",
+                              "case": f"w_gateup {2 * F}x{C} + w_down "
+                              f"{C}x{F}", "T": T, "dev_ms": k_ms,
+                              "library_dev_ms": lib_ms, "bound_ms": bound}),
+                  flush=True)
+            add(("K15a", f"T={T}"), k_ms, lib_ms, bound)
+            add(("K15a", "T=2+8"), k_ms, lib_ms, bound)
+        del pairs, wpairs, wg, wd
+        torch.cuda.empty_cache()
     for (kid, cls), (k, lib, bound, n) in sums.items():
         print(f"{label} {kid} {cls} ({n} cases), device alone: kernel "
               f"{k:.4f} ms, library {lib:.4f} ms = {k / lib:.2f}x, bound "

@@ -1,8 +1,9 @@
-"""Timeline of one int8 K1 / K7 launch (csrc/q4k_matvec.cu), or of one K2
-/ K12 launch (csrc/rowmv.cuh), block by block.
+"""Timeline of one int8 K1 / K7 launch (csrc/q4k_matvec.cu), of one K2 /
+K12 launch (csrc/rowmv.cuh), of one K14 launch (csrc/q4k_sbq.cu) or of one
+K15a launch (csrc/ffn_fused.cu), block by block.
 
     python3 koboldcpp_tpu_torch/tools/trace_q4k.py [--kernel K1|K2|K12.q2_k|
-        K12.q3_k] [--bf16]
+        K12.q3_k|K14|K15a] [--bf16]
 
 Builds a copy of the kernel source with `%globaltimer` stamps that thread 0
 of every block writes at the kernel's phase boundaries (start; the weight
@@ -15,7 +16,10 @@ largest time of each phase over the blocks. The stamps cost a store each;
 the times are those of the instrumented copy, not of the kernel itself.
 K1 (default): the 1.1B's five shapes at T = 1 and the head at T = 8; K2
 (q6_k) / K12.q2_k / K12.q3_k: the five at T = 1, int8 x, or bf16 x with
---bf16. Needs the card and nvcc.
+--bf16; K14 (q4_k): the five at T = 2, 8 and 16; K15a: the 1.1B's FFN at T
+= 2 and 8, with the two grid barriers' waits and phase 2 (stage waits then
+count the phase-1 tiles' and the phase-3 tiles' alike). Needs the card and
+nvcc.
 """
 from __future__ import annotations
 
@@ -32,6 +36,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CASES = (("wqkv", 2560, 2048, 1), ("w_gateup", 11264, 2048, 1),
          ("wo", 2048, 2048, 1), ("w_down", 2048, 5632, 1),
          ("output", 32000, 2048, 1), ("output", 32000, 2048, 8))
+SBQ_CASES = tuple((name, o, i, T) for name, o, i, _ in CASES[:5]
+                  for T in (2, 8, 16))
+# K15a: (name, C, F, T), the 1.1B's FFN
+FFN_CASES = (("ffn", 2048, 5632, 2), ("ffn", 2048, 5632, 8))
 SLOTS = 64  # stamps per block: 0 start, 1 SM, 2 ring issued, 3 prep done,
 # 4 + 2i stage i ready, 5 + 2i stage i's products done, 62 end
 
@@ -66,6 +74,28 @@ _ROWMV_STAMPS = (
        ("        cp_async_wait_n(stages - 2);\n        __syncthreads();\n",
         True, "        TRACE(4 + 2 * it);\n"))
     + _STAMPS[4:])
+# K14 (csrc/q4k_sbq.cu): K2's anchors but the body's
+_SBQ_STAMPS = (
+    _ROWMV_STAMPS[:2]
+    + (("    // body: this thread's C rows gid", False, "    TRACE(3);\n"),)
+    + _ROWMV_STAMPS[3:])
+# K15a (csrc/ffn_fused.cu): 2 ring issued, 3 x's sums done, 58-61 phase 2
+# (before / after the first barrier, its work done, after the second)
+_FFN_STAMPS = (
+    _STAMPS[0],
+    ("    for (int base = 0; base < nxt; base += 8 * FFN_THREADS) {\n", False,
+     "    TRACE(2);\n"),
+    ("    // phase 2 between the barriers", False, "    TRACE(3);\n"),
+    ("    auto phase2 = [&]() {\n", True, "        TRACE(58);\n"),
+    ("        const int ngf = F / 32;\n", False, "        TRACE(59);\n"),
+    ("            if (lane == 0) dxs[i] = f2bf(s);\n        }\n", True,
+     "        TRACE(60);\n"),
+    ("    };\n\n    // this thread's C rows", False, "        TRACE(61);\n"),
+    _ROWMV_STAMPS[3],
+    ("        if (ks == (p3 ? ks3 : ks1) - 1) {", False,
+     "        TRACE(5 + 2 * it);\n"),
+    _STAMPS[5],
+)
 # the K2 / K12 kernels: (kind, source, entry point)
 _ROWMV = {"K2": ("q6_k", "q6k_matvec", "k2_q6k_matvec"),
           "K12.q2_k": ("q2_k", "q23k_matvec", "k12_q23k_matvec"),
@@ -86,7 +116,8 @@ def instrumented(src: str, stamps=_STAMPS) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", default="K1", choices=("K1", *_ROWMV))
+    ap.add_argument("--kernel", default="K1",
+                    choices=("K1", *_ROWMV, "K14", "K15a"))
     ap.add_argument("--bf16", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
@@ -97,18 +128,25 @@ def main() -> int:
         sys.exit("trace_q4k: no CUDA device available")
     from koboldcpp_tpu_torch.models.synthetic import _MAKERS
     from koboldcpp_tpu_torch.ops import _build
+    from koboldcpp_tpu_torch.ops import ffn_fused as ff
     from koboldcpp_tpu_torch.ops import quant_matmul as qm
 
     out = os.path.join(_build.BUILD_ROOT, "trace")
     os.makedirs(out, exist_ok=True)
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     stack = [None, 0, 0, 0, 0, 0]
-    if args.kernel == "K1":
-        kind, entry, cases = "q4_k", "k1_q4k_i8", CASES
-        with open(os.path.join(_build.CSRC, "q4k_matvec.cu")) as f:
-            src = instrumented(f.read())
-        cu = os.path.join(out, "q4k_trace.cu")
-        argtypes = [P] * 6 + [I] * 5 + [P] + [LL] * 5 + [P]
+    if args.kernel in ("K1", "K14", "K15a"):
+        source, stamps, entry, cases, argtypes = {
+            "K1": ("q4k_matvec", _STAMPS, "k1_q4k_i8", CASES,
+                   [P] * 6 + [I] * 5 + [P] + [LL] * 5 + [P]),
+            "K14": ("q4k_sbq", _SBQ_STAMPS, "k14_sbq", SBQ_CASES,
+                    qm._SIG_SBQ),
+            "K15a": ("ffn_fused", _FFN_STAMPS, "k15a_ffn", FFN_CASES,
+                     ff._SIG_K15A)}[args.kernel]
+        kind = "q4_k"
+        with open(os.path.join(_build.CSRC, f"{source}.cu")) as f:
+            src = instrumented(f.read(), stamps)
+        cu = os.path.join(out, f"{source}_trace.cu")
     else:
         kind, source, entry = _ROWMV[args.kernel]
         cases = CASES[:5]
@@ -139,18 +177,46 @@ def main() -> int:
     print(_build_card(), f"{args.kernel}", "bf16 x" if args.bf16 else "",
           flush=True)
     for name, out_f, in_f, T in cases:
-        qt = _MAKERS[kind](rng, out_f, in_f, dev)
+        if args.kernel == "K15a":  # out_f, in_f: C, F
+            C, F = out_f, in_f
+            gu = _MAKERS[kind](rng, 2 * F, C, dev)
+            dn = _MAKERS[kind](rng, C, F, dev)
+            in_f = C
+        else:
+            qt = _MAKERS[kind](rng, out_f, in_f, dev)
         x = torch.from_numpy(rng.standard_normal((T, in_f)).astype(
             np.float32)).to(dev).bfloat16()
         y = torch.empty((T, out_f), dtype=torch.bfloat16, device=dev)
-        d = qt.data
         st = torch.cuda.current_stream().cuda_stream
         if args.kernel == "K1":
+            d = qt.data
             plan = qm.q4k_plan(T, out_f, in_f, False)
             call = [d["qs2"].data_ptr(), None, d["scale"].data_ptr(),
                     d["min"].data_ptr(), x.data_ptr(), y.data_ptr(), T,
                     out_f, in_f, plan.grid, plan.smem, *stack, st]
+        elif args.kernel == "K14":
+            d = qt.data
+            plan = qm.sbq_plan(T, out_f, in_f, False)
+            call = [d["qs2"].data_ptr(), None, d["sc"].data_ptr(),
+                    d["d"].data_ptr(), d["min"].data_ptr(), x.data_ptr(),
+                    y.data_ptr(), T, out_f, in_f, plan.grid, plan.stages,
+                    plan.kwin, plan.smem, st]
+        elif args.kernel == "K15a":
+            plan = ff.ffn_plan(T, C, F, torch.cuda.get_device_properties(
+                dev).multi_processor_count)
+            scratch = (torch.empty(T * 2 * F, dtype=torch.float32, device=dev),
+                       torch.empty(T * F, dtype=torch.bfloat16, device=dev),
+                       torch.empty(T * F // 32, dtype=torch.bfloat16,
+                                   device=dev))
+            g, dd = gu.data, dn.data
+            call = [g["qs2"].data_ptr(), g["scale"].data_ptr(),
+                    g["min"].data_ptr(), dd["qs2"].data_ptr(),
+                    dd["scale"].data_ptr(), dd["min"].data_ptr(),
+                    x.data_ptr(), *(t.data_ptr() for t in scratch),
+                    y.data_ptr(), T, C, F, plan.grid, plan.stages, plan.smem,
+                    st]
         else:
+            d = qt.data
             plan = qm.rowmv_plan(kind, out_f, in_f, not args.bf16)
             rest = [x.data_ptr(), y.data_ptr(), out_f, in_f,
                     int(not args.bf16), plan.grid, plan.stages, plan.smem,
@@ -175,7 +241,7 @@ def main() -> int:
         ring, prep = b[:, 2] - b[:, 0], b[:, 3] - b[:, 2]
         waits, prods = [], []
         prev = b[:, 3]
-        for i in range(28):
+        for i in range(27 if args.kernel == "K15a" else 28):
             ready, done = b[:, 4 + 2 * i], b[:, 5 + 2 * i]
             ok = ready > 0
             if not ok.any():
@@ -185,8 +251,23 @@ def main() -> int:
             prev = np.where(ok, done, prev)
         tail = b[:, 62] - prev
         w, p = np.concatenate(waits), np.concatenate(prods)
+        if args.kernel == "K15a":
+            tiles = (f"{plan.tiles1} + {plan.tiles3} tiles, {plan.ksteps1} "
+                     f"+ {plan.ksteps3} K steps")
+            print(f"  phase 2 per block (mean / max us): first barrier "
+                  f"{(b[:, 59] - b[:, 58]).mean() / 1e3:.2f} / "
+                  f"{(b[:, 59] - b[:, 58]).max() / 1e3:.2f}, SwiGLU "
+                  f"{(b[:, 60] - b[:, 59]).mean() / 1e3:.2f} / "
+                  f"{(b[:, 60] - b[:, 59]).max() / 1e3:.2f}, second barrier "
+                  f"{(b[:, 61] - b[:, 60]).mean() / 1e3:.2f} / "
+                  f"{(b[:, 61] - b[:, 60]).max() / 1e3:.2f}; phase 1 span "
+                  f"{(b[:, 58].max() - t0) / 1e3:.2f}, phase 3 span "
+                  f"{(b[:, 62].max() - b[:, 61].min()) / 1e3:.2f}",
+                  flush=True)
+        else:
+            tiles = f"{plan.tiles} tiles, {plan.ksteps} K steps"
         print(f"{name} {out_f}x{in_f} T={T}: grid {plan.grid}, "
-              f"{plan.tiles} tiles, {plan.ksteps} K steps; span "
+              f"{tiles}; span "
               f"{(b[:, 62].max() - t0) / 1e3:.2f} us; per block (mean / "
               f"max us): ring issued {ring.mean() / 1e3:.2f} / "
               f"{ring.max() / 1e3:.2f}, prep {prep.mean() / 1e3:.2f} / "
