@@ -15,8 +15,9 @@
    K12.q6_k_i8f, K12.q3_k_n4, K12.q2_k_n4 (KCPP_KQ_LAYOUT=expanded),
    K13.q4_k_i8 at T = 1, 8, 512 (KCPP_Q4K_LAYOUT=i8) and K2.q8_0_bf16, with
    the bf16 bodies of K2 / K12.q2_k / K12.q3_k at the 1.1B widths
-   (KCPP_MM_I8=0); K9 / K10 also at page size
-   128) against its plain PyTorch version on the card at the
+   (KCPP_MM_I8=0); K9 / K10 also at page size 128; K2.q8_0, K2.q8_0_bf16,
+   K12.iq2p at G = 32 and K12.iq1p at G = 8 also at a 70B-class w_down,
+   8192 x 28672) against its plain PyTorch version on the card at the
    TinyLlama-1.1B shapes (and
    the fixtures' widths; K4 also at head_dim 128 and 256; K5, K6, K8, K9
    and K10 also at head_dim 80, 96 and 256 and at 128 query heads over 8
@@ -34,8 +35,8 @@
    cuBLAS and the bound, `print_q4k_classes`, and every K2 / K12.q2_k /
    K12.q3_k / K17b q6_k, q2_k, q3_k case, summed per class: the 1.1B's
    shapes with int8 and with bf16 x, the fixtures'; every K14, K15, K2.q8_0,
-   K12.iq, K12 expanded and K17b q8_0 / IQ case, summed per kernel,
-   `print_dev_sums`); K7's rows equal
+   K12.iq, K12 expanded and K17b q8_0 / IQ case, summed per kernel, also
+   without the 70B-class cases, `print_dev_sums`); K7's rows equal
    K1 on each row alone (K7.q5_k K1.q5_k), K14's rows at T = 2 and 8 the
    same tokens' rows at T = 16 and K15a's at T = 2 those at T = 8, bit for
    bit, K2.q8_0 and K2.q8_0_bf16 equal
@@ -425,7 +426,9 @@ def phase_matvec(rng) -> None:
               "w_down": (C, F), "output": (V, C),
               # the served fixtures' shapes (bf16 variant below 512)
               "fixture wqkv": (512, 256), "fixture wo": (256, 256),
-              "fixture ffn_down": (256, 512), "fixture output": (512, 256)}
+              "fixture ffn_down": (256, 512), "fixture output": (512, 256),
+              # a 70B-class w_down: x's codes alone 28 KB (bf16 x 56 KB)
+              "70B w_down": (8192, 28672)}
     big = ("wqkv", "w_gateup", "w_down", "output")
     five = ("wqkv", "w_gateup", "wo", "w_down", "output")
     bf16 = " bf16 x"  # the KCPP_MM_I8=0 variant of an int8-default body
@@ -441,7 +444,7 @@ def phase_matvec(rng) -> None:
              lambda x, qt: qm.q4k_matvec_plain(x, qt, _i8(x)),
              big + ("fixture wqkv", "fixture ffn_down"), ""),
             ("K2.q8_0", rand_q8_0, qm.q8_0_matvec, qm.q8_0_matvec_plain,
-             big + ("fixture wqkv", "fixture ffn_down"), ""),
+             big + ("fixture wqkv", "fixture ffn_down", "70B w_down"), ""),
             ("K12.q2_k", rand_q2k, lambda x, qt: qm.q23k_matvec(x, qt, _i8(x)),
              lambda x, qt: qm.q23k_matvec_plain(x, qt, _i8(x)),
              big + ("wo", "fixture wqkv", "fixture wo", "fixture ffn_down"),
@@ -458,7 +461,8 @@ def phase_matvec(rng) -> None:
              lambda x, qt: qm.q23k_matvec_plain(x, qt, False), five, bf16),
             ("K2.q8_0_bf16", rand_q8_0,
              lambda x, qt: qm.q8_0_matvec(x, qt, False),
-             lambda x, qt: qm.q8_0_matvec_plain(x, qt, False), five, ""),
+             lambda x, qt: qm.q8_0_matvec_plain(x, qt, False),
+             five + ("70B w_down",), ""),
             *((f"K12.{kind}", _MAKERS[kind], qm.kq_expanded_matvec,
                qm.kq_expanded_matvec_plain, five, "")
               for kind in ("q6_k_i8f", "q3_k_n4", "q2_k_n4"))):
@@ -771,9 +775,10 @@ def _rowmv_class(kid: str, name: str, i8: bool) -> None:
                           else "1.1B int8" if i8 else "1.1B bf16 x"])
 
 
-# K14 / K15 and the kernels not yet redesigned on the K1 / K2 design,
-# summed per kernel over their cases on the device alone, so that the next
-# redesign is ranked by device time
+# K14 / K15, K2.q8_0 / K12.iq and their K17b entries (rowmv_g.cuh) and the
+# kernels not yet redesigned on the K1 / K2 design, summed per kernel over
+# their cases on the device alone, so that the next redesign is ranked by
+# device time
 DEV_SUM_KIDS = ("K14", "K14.q5_k", "K15a", "K15b", "K2.q8_0",
                 "K2.q8_0_bf16", "K12.iq2p", "K12.iq3px", "K12.iq3ps",
                 "K12.iq1p", "K12.q6_k_i8f", "K12.q3_k_n4", "K12.q2_k_n4",
@@ -783,15 +788,21 @@ DEV_SUM_KIDS = ("K14", "K14.q5_k", "K15a", "K15b", "K2.q8_0",
 
 def print_dev_sums() -> None:
     """Per kernel of DEV_SUM_KIDS: kernel / library summed over its cases,
-    host included and on the device alone, and device alone / bound."""
+    host included and on the device alone, and device alone / bound; where
+    a kernel has 70B-class cases, the same without them too (the case set
+    of the earlier runs)."""
     for kid in DEV_SUM_KIDS:
-        cases = CASES[kid]
-        k, lib, dk, dl, b = (sum(c[n] for c in cases) for n in (
-            "ms", "library_ms", "dev_ms", "dev_library_ms", "bound_ms"))
-        print(f"{kid} ({len(cases)} cases): kernel / library {k:.4f} / "
-              f"{lib:.4f} ms = {k / lib:.2f}x; device alone {dk:.4f} / "
-              f"{dl:.4f} ms = {dk / dl:.2f}x; bound {b:.4f} ms, device alone "
-              f"/ bound {dk / b:.2f}x", flush=True)
+        sets = [("", CASES[kid])]
+        small = [c for c in CASES[kid] if "70B" not in c["case"]]
+        if len(small) < len(CASES[kid]):
+            sets.append((" without 70B", small))
+        for tag, cases in sets:
+            k, lib, dk, dl, b = (sum(c[n] for c in cases) for n in (
+                "ms", "library_ms", "dev_ms", "dev_library_ms", "bound_ms"))
+            print(f"{kid}{tag} ({len(cases)} cases): kernel / library "
+                  f"{k:.4f} / {lib:.4f} ms = {k / lib:.2f}x; device alone "
+                  f"{dk:.4f} / {dl:.4f} ms = {dk / dl:.2f}x; bound {b:.4f} "
+                  f"ms, device alone / bound {dk / b:.2f}x", flush=True)
 
 
 def print_q4k_classes() -> None:
@@ -842,14 +853,17 @@ _IQ_K12 = (("wo", (2048, 2048)), ("wk", (256, 2048)),
            ("output", (32000, 2048)))
 _IQ_K13 = tuple((name, shape, (8, 16, 128, 300, 512)) for name, shape in (
     ("w_gateup", (11264, 2048)), ("w_down", (2048, 5632))))
+_IQ_70B = (("70B w_down", (8192, 28672)),)
 IQ_CASES = (
-    ("iq2p", 32, _IQ_K12, _IQ_K13 + (("fixture wo", (256, 256), (1,)),)),
+    ("iq2p", 32, _IQ_K12 + _IQ_70B,
+     _IQ_K13 + (("fixture wo", (256, 256), (1,)),)),
     ("iq3px", 32, _IQ_K12, _IQ_K13 + (("fixture w_gateup", (1024, 256), (1,)),)),
     ("iq3ps", 32, _IQ_K12, _IQ_K13),
     ("iq1p", 32, _IQ_K12, _IQ_K13),
     ("iq2p", 16, _IQ_K12[2:4] + (("fixture ffn_down", (256, 512)),),
      (("w_gateup", (11264, 2048), (8, 16, 128, 300, 512)),)),
-    ("iq1p", 8, _IQ_K12[2:4] + (("fixture w_gateup", (1024, 256)),),
+    ("iq1p", 8, _IQ_K12[2:4] + (("fixture w_gateup", (1024, 256)),)
+     + _IQ_70B,
      (("w_gateup", (11264, 2048), (8, 16, 128, 300, 512)),)))
 
 

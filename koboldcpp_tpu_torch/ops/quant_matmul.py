@@ -22,15 +22,16 @@ CUDA tensor it launches the kernel or raises.
   K2  q6k_matvec    T=1 q6_k          (csrc/q6k_matvec.cu; JAX
       q8_0_matvec   T=1 q8_0           `_packed_matvec`; csrc/q8_0_matvec.cu:
                                        int8 activations, or bf16 ones under
-                                       KCPP_MM_I8=0; q6_k: one launch that
-                                       preps x itself, tiled by
-                                       `rowmv_plan`, body csrc/rowmv.cuh)
+                                       KCPP_MM_I8=0; one launch that preps
+                                       x itself, tiled by `rowmv_plan`,
+                                       body csrc/rowmv.cuh, q8_0's
+                                       csrc/rowmv_g.cuh)
   K12 q23k_matvec   T=1 q2_k/q3_k     (csrc/q23k_matvec.cu; the same JAX
                                        function, `_q2k/_q3k_row_kernel(_i8)`;
                                        K2's body and plan)
       iq_matvec     T=1 IQ kinds      (csrc/iq_matvec.cu; the same JAX
                                        function, `_iq2p/_iq3p/_iq1p_row_
-                                       kernel_i8`)
+                                       kernel_i8`; K2.q8_0's body and plan)
       kq_expanded_matvec T=1 q6_k_i8f / (csrc/kq_expanded_matvec.cu; the
                      q3_k_n4 / q2_k_n4 same JAX function, `_q6k_i8f_row_
                                        kernel`, `_q3k/_q2k_n4_row_kernel`)
@@ -122,7 +123,7 @@ def _count(kid: str, qt: QTensor) -> None:
 def _stack_args(qt: QTensor, names, li: torch.Tensor | None) -> list:
     """The stacked entry points' layer arguments: li's device pointer and
     the per-layer element count of each weight field in `names` (0 where
-    absent), or a null pointer and zeros for one layer's fields."""
+    absent or None), or a null pointer and zeros for one layer's fields."""
     if li is None:
         return [None] + [0] * 5
     counts = [qt.data[n][0].numel() if n in qt.data else 0 for n in names]
@@ -538,77 +539,142 @@ def _sbq(qt: QTensor, T: int) -> bool:
 # ---------------------------------------------------------------------------
 
 class RowmvPlan(NamedTuple):
-    """How the K2 / K12 / K17b body (csrc/rowmv.cuh) tiles one call:
-    16-row tiles (`tiles` of them) walked by a persistent grid of `grid`
-    blocks of 8 warps; each K step is a stage of 8 superblocks, one per
-    warp, `stages` of them in a cp.async ring; `smem` bytes of dynamic
-    shared memory (the ring, x prepped, the tile's partial sums)."""
+    """How the K2 / K12 / K17b bodies (csrc/rowmv.cuh, csrc/rowmv_g.cuh)
+    tile one call: 16-row tiles (`tiles` of them) walked by a persistent
+    grid of `grid` blocks of 8 warps; each K step is a stage of 8 spans
+    (superblocks; q8_0: 128 columns), one per warp, `stages` of them in a
+    cp.async ring; `smem` bytes of dynamic shared memory (the ring, x
+    prepped, the tile's partial sums); xf32: q8_0's bf16 body keeps x as
+    f32 in shared memory."""
     rows: int
     tiles: int
     ksteps: int
     stages: int
     smem: int
     grid: int
+    xf32: bool = False
 
 
-ROWMV_KINDS = ("q6_k", "q2_k", "q3_k")  # RK_Q6, RK_Q2, RK_Q3 in the source
-ROWMV_KS = 8             # superblocks per K step: one per warp
+ROWMV_KINDS = ("q6_k", "q2_k", "q3_k")  # RK_Q6, RK_Q2, RK_Q3 in rowmv.cuh
+ROWMVG_KINDS = ("q8_0",) + IQ_KINDS      # GK_Q8, GK_IQ2, ... in rowmv_g.cuh
+ROWMV_KS = 8             # spans per K step: one per warp
 ROWMV_STAGES = (4, 3)    # the ring's depths, the deepest that fits first
+ROWMVG_STAGES = (4, 3, 2)  # rowmv_g.cuh's (2: the widest x in_f)
 # bytes per superblock row of the codes (ql / qs), the second code field
 # (qh / hmask), the scales and q2_k's mins
 _ROWMV_FIELDS = {"q6_k": (128, 64, 32, 0), "q2_k": (64, 0, 32, 32),
                  "q3_k": (64, 32, 32, 0)}
 
 
-def rowmv_layout(kind: str, in_f: int, i8: bool,
-                 stages: int) -> dict[str, int]:
-    """The body's shared memory, byte offsets (`rm_layout` in the source):
-    `stages` stages of 16 rows x 8 superblocks of each field, every
-    field's row pitch 16 bytes past its 8 superblocks; then x prepped
-    (int8 codes: in_f bytes; bf16 x: 2 in_f), the f32 scales sx per
-    16-column group (int8 only), the bf16 group sums xs, and the tile's
-    partial sums ([3][8 warps][16 rows] f32)."""
+def rowmv_span(kind: str) -> int:
+    """Columns of a warp's span: a superblock, or 128 for q8_0 (its 16-row
+    stage of 8 superblocks would take 35 KB)."""
+    return 128 if kind == "q8_0" else 256
+
+
+def _rowmv_fields(kind: str, group: int) -> tuple[int, ...]:
+    """Bytes per span row of each field a stage holds, in the source's
+    order: rowmv.cuh's codes, second code field, scales, mins; rowmv_g.cuh's
+    codes (q8_0 q, IQ qs), hmask, sg, scales, mins (0: no such field)."""
+    if kind in _ROWMV_FIELDS:
+        return _ROWMV_FIELDS[kind]
+    sc = rowmv_span(kind) // group * 2
+    return {"q8_0": (128, 0, 0, sc, 0), "iq2p": (64, 0, 32, sc, 0),
+            "iq3px": (64, 32, 32, sc, 0), "iq3ps": (64, 32, 32, sc, 0),
+            "iq1p": (64, 0, 0, sc, sc)}[kind]
+
+
+def _rowmv_group(kind: str, group: int) -> int:
+    """The scale group of a call: q6_k / q2_k / q3_k 16, q8_0 32, an IQ
+    kind's G (8, 16 or 32)."""
+    if kind in ROWMV_KINDS:
+        return 16
+    if kind == "q8_0":
+        return 32
+    if group not in (8, 16, 32):
+        raise ValueError(f"K12.iq takes G = 8, 16 or 32, not {group}")
+    return group
+
+
+def rowmv_layout(kind: str, in_f: int, i8: bool, stages: int,
+                 group: int = 0, xf32: bool = False) -> dict[str, int]:
+    """The body's shared memory, byte offsets (`rm_layout` / `rg_layout` in
+    the sources): `stages` stages of 16 rows x 8 spans of each field, every
+    field's row pitch 16 bytes past its 8 spans; then x prepped (int8
+    codes: in_f bytes; bf16 x: 2 in_f; rowmv_g.cuh's bf16 x, or bf16 x as
+    f32: each 32-column group at a pitch 16 bytes past its 64 or 128), the
+    f32 scales sx per group (int8
+    only), the bf16 group sums xs (rowmv.cuh: every kind; rowmv_g.cuh:
+    iq1p's, with its int32 code sums xc), and the tile's partial sums
+    (rowmv.cuh [3][8 warps][16 rows] f32, rowmv_g.cuh [2][8][16])."""
+    G = _rowmv_group(kind, group)
+    ng = in_f // G
     stage = Q4K_ROWS * sum(ROWMV_KS * b + 16
-                           for b in _ROWMV_FIELDS[kind] if b)
+                           for b in _rowmv_fields(kind, G) if b)
     x = stages * stage
-    sx = x + (in_f if i8 else 2 * in_f)
-    xs = sx + (in_f // 16 * 4 if i8 else 0)
-    part = xs + in_f // 16 * 2
-    return {"stage": stage, "x": x, "sx": sx, "xs": xs, "part": part,
-            "total": part + 3 * ROWMV_KS * Q4K_ROWS * 4}
+    if kind in ROWMV_KINDS:
+        sx = x + (in_f if i8 else 2 * in_f)
+        xs = sx + (ng * 4 if i8 else 0)
+        part = xs + ng * 2
+        return {"stage": stage, "x": x, "sx": sx, "xs": xs, "part": part,
+                "total": part + 3 * ROWMV_KS * Q4K_ROWS * 4}
+    sx = x + (in_f if i8 else in_f // 32 * (32 * (4 if xf32 else 2) + 16))
+    xs = sx + (ng * 4 if i8 else 0)
+    xc = xs + (ng * 2 if kind == "iq1p" else 0)
+    part = xc + (ng * 4 if kind == "iq1p" else 0)
+    return {"stage": stage, "x": x, "sx": sx, "xs": xs, "xc": xc,
+            "part": part, "total": part + 2 * ROWMV_KS * Q4K_ROWS * 4}
 
 
 @functools.lru_cache(maxsize=4096)
-def rowmv_plan(kind: str, out_f: int, in_f: int, i8: bool) -> RowmvPlan:
-    """The tiling of the K2 / K12 / K17b body for x (in_f,) and an (out_f,
-    in_f) weight of `kind` (q6_k, q2_k or q3_k), with int8 (i8) or bf16
-    activations. Raises ValueError for a shape the kernel does not take
-    (in_f not a multiple of 256, out_f not a multiple of 64, or more
-    shared memory than a block has at the shallowest ring).
+def rowmv_plan(kind: str, out_f: int, in_f: int, i8: bool,
+               group: int = 0) -> RowmvPlan:
+    """The tiling of the K2 / K12 / K17b bodies for x (in_f,) and an (out_f,
+    in_f) weight of `kind` (q6_k, q2_k, q3_k: rowmv.cuh; q8_0 and the IQ
+    kinds at scale group `group`: rowmv_g.cuh), with int8 (i8) or bf16
+    activations (the IQ kinds: int8 only). Raises ValueError for a shape
+    the kernel does not take (in_f not a multiple of 256, out_f not a
+    multiple of 64, or more shared memory than a block has at the
+    shallowest ring: x whole, beyond ~80K columns of bf16 x or ~130K of
+    int8 x).
 
     Every block preps all of x, so the grid is persistent: as many blocks
     as fit two to an SM (one where the shared memory allows one only),
-    never more than the tiles. The ring takes the most stages (4, else 3)
-    that keep that count. The tile, the K step and the warp that takes
-    each superblock depend on in_f alone, so a row is summed in the same
-    order whatever the ring's depth and the grid."""
-    if kind not in ROWMV_KINDS:
-        raise ValueError(f"K2 / K12 serve {ROWMV_KINDS}, not {kind}")
+    never more than the tiles. The ring takes the most stages (4, else 3;
+    rowmv_g.cuh also 2) that keep that count. q8_0's bf16 body keeps x as
+    f32 (xf32) where that fits the same count and depth. The tile, the K
+    step and the warp that takes each span depend on in_f alone, so a row
+    is summed in the same order whatever the ring's depth, the grid and
+    x's format."""
+    if kind not in ROWMV_KINDS + ROWMVG_KINDS:
+        raise ValueError(f"K2 / K12 serve {ROWMV_KINDS + ROWMVG_KINDS}, "
+                         f"not {kind}")
     if in_f <= 0 or in_f % 256 or out_f <= 0 or out_f % 64:
         raise ValueError(f"K2 / K12 take in_f % 256 == 0 and out_f % 64 == "
                          f"0, not ({out_f}, {in_f})")
-    fits = {s: rowmv_layout(kind, in_f, i8, s)["total"]
-            for s in ROWMV_STAGES}
+    if kind in IQ_KINDS and not i8:
+        raise ValueError("K12.iq takes int8 activations only")
+    depths = ROWMV_STAGES if kind in ROWMV_KINDS else ROWMVG_STAGES
+    fits = {s: rowmv_layout(kind, in_f, i8, s, group)["total"]
+            for s in depths}
     for per_sm in (2, 1):
-        for stages in ROWMV_STAGES:
+        for stages in depths:
             smem = fits[stages]
             if smem <= SMEM_MAX and per_sm * (smem + 1024) <= _SMEM_PER_SM:
+                xf32 = kind == "q8_0" and not i8
+                if xf32:
+                    wide = rowmv_layout(kind, in_f, i8, stages, group,
+                                        True)["total"]
+                    xf32 = (wide <= SMEM_MAX
+                            and per_sm * (wide + 1024) <= _SMEM_PER_SM)
+                    smem = wide if xf32 else smem
                 tiles = out_f // Q4K_ROWS
-                return RowmvPlan(Q4K_ROWS, tiles,
-                                 -(-(in_f // 256) // ROWMV_KS), stages, smem,
-                                 min(tiles, per_sm * _SMS))
-    raise ValueError(f"K2 / K12: in_f={in_f} needs {fits[3]} bytes of "
-                     f"shared memory, more than {SMEM_MAX}")
+                nsp = in_f // rowmv_span(kind)
+                return RowmvPlan(Q4K_ROWS, tiles, -(-nsp // ROWMV_KS),
+                                 stages, smem, min(tiles, per_sm * _SMS),
+                                 xf32)
+    raise ValueError(f"K2 / K12: in_f={in_f} needs {fits[depths[-1]]} bytes "
+                     f"of shared memory, more than {SMEM_MAX}")
 
 
 def _rowmv_checked(x: torch.Tensor, qt: QTensor, i8: bool,
@@ -616,7 +682,8 @@ def _rowmv_checked(x: torch.Tensor, qt: QTensor, i8: bool,
     """The plan of a K2 / K12 / K17b launch, its operands checked."""
     out_f, in_f = qt.shape
     _check_operands(x[None], qt, what)
-    plan = rowmv_plan(qt.kind, out_f, in_f, i8)
+    plan = rowmv_plan(qt.kind, out_f, in_f, i8,
+                      iq_group(qt) if qt.kind in IQ_KINDS else 0)
     if any(t.data_ptr() % 16 for t in (x, *qt.data.values())):
         raise ValueError(f"{what} takes 16-byte aligned x and fields")
     return plan
@@ -678,29 +745,35 @@ def _q6k_launch(x: torch.Tensor, qt: QTensor, i8: bool, what: str,
 # K2.q8_0: q8_0 T=1 matvec
 # ---------------------------------------------------------------------------
 
-def _lane_order_sum(v: torch.Tensor) -> torch.Tensor:
-    """(R, G) f32 -> (R,) f32 summed in K2.q8_0's order: lane l adds groups
-    l, l+32, ... in turn from 0, then the 32 lane sums pairwise over
-    offsets 16, 8, 4, 2, 1 (csrc/q8_0_matvec.cu)."""
-    R, G = v.shape
-    v = torch.nn.functional.pad(v, (0, -G % 32)).reshape(R, -1, 32)
-    acc = torch.zeros((R, 32), dtype=v.dtype, device=v.device)
-    for i in range(v.shape[1]):
-        acc = acc + v[:, i]
-    while acc.shape[1] > 1:
-        h = acc.shape[1] // 2
-        acc = acc[:, :h] + acc[:, h:]
-    return acc[:, 0]
+def _q8_0_order_sum(v: torch.Tensor) -> torch.Tensor:
+    """(R, ng) f32 group terms -> (R,) f32 summed in K2.q8_0's order
+    (csrc/rowmv_g.cuh): per row and group i of the 4 in each span, warp w
+    adds the terms of groups 4sp + i of its spans sp = 8k + w in turn from
+    0, K step by K step; each warp then adds (i 0 + i 1) + (i 2 + i 3), and
+    the 8 warps' sums meet in warp order. Groups past ng add nothing."""
+    R, ng = v.shape
+    per_step = ROWMV_KS * 4  # groups of one K step: 8 spans of 4
+    v = torch.nn.functional.pad(v, (0, -ng % per_step)).reshape(
+        R, -1, ROWMV_KS, 4)  # (row, K step, warp, i)
+    acc = torch.zeros((R, ROWMV_KS, 4), dtype=v.dtype, device=v.device)
+    for k in range(v.shape[1]):
+        acc = acc + v[:, k]
+    warp = (acc[:, :, 0] + acc[:, :, 1]) + (acc[:, :, 2] + acc[:, :, 3])
+    t = warp[:, 0]
+    for w in range(1, ROWMV_KS):
+        t = t + warp[:, w]
+    return t
 
 
 def q8_0_matvec_plain(x: torch.Tensor, qt: QTensor,
                       i8: bool = True) -> torch.Tensor:
     """x (in_f,) bf16 -> (1, out_f) bf16 per 32-col group g with scale s_g,
-    y = sum_g P_g * s_g in the kernel's fixed order, so K2.q8_0 matches
-    this bit for bit. i8 (`_q8_0_row_kernel_i8`): int8 activations, P_g =
-    (exact int32 dot) * sx_g. bf16 (`_q8_0_row_kernel`, KCPP_MM_I8=0): P_g
-    = the f32 sum of the exact products x_c * q_c, added in column order
-    from 0, as the kernel adds them."""
+    y = sum_g P_g * s_g in the kernel's fixed order (`_q8_0_order_sum`), so
+    K2.q8_0 matches this bit for bit. i8 (`_q8_0_row_kernel_i8`): int8
+    activations, each term (exact int32 dot * sx_g) * s_g. bf16
+    (`_q8_0_row_kernel`, KCPP_MM_I8=0): P_g = the f32 sum of the exact
+    products x_c * q_c, added in column order from 0, as the kernel adds
+    them; each term P_g * s_g."""
     out_f, in_f = qt.shape
     ng = in_f // 32
     q = qt.data["q"].reshape(out_f, ng, 32)
@@ -714,7 +787,7 @@ def q8_0_matvec_plain(x: torch.Tensor, qt: QTensor,
         for c in range(32):
             p = p + qf[:, :, c] * xf[:, c]  # each product exact in f32
         v = p * qt.data["scale"].float()
-    return _lane_order_sum(v).to(torch.bfloat16).reshape(1, out_f)
+    return _q8_0_order_sum(v).to(torch.bfloat16).reshape(1, out_f)
 
 
 def q8_0_matvec(x: torch.Tensor, qt: QTensor, i8: bool = True) -> torch.Tensor:
@@ -730,29 +803,24 @@ def q8_0_matvec(x: torch.Tensor, qt: QTensor, i8: bool = True) -> torch.Tensor:
     return y
 
 
+_SIG_K2Q8 = [_build.P] * 4 + [_build.I] * 6 + _SIG_STACK + [_build.P]
+
+
 def _q8_0_launch(x: torch.Tensor, qt: QTensor, i8: bool, what: str,
                  li: torch.Tensor | None = None) -> torch.Tensor:
+    """One launch for x (in_f,) on the card, the body prepping its own
+    activations (`rowmv_plan`). li: layer li of stacked fields (K17b)."""
     out_f, in_f = qt.shape
-    _check_operands(x[None], qt, what)
-    lib = _build.load("q8_0_matvec", {
-        "k2_q8_0_prep": [_build.P] * 4 + [_build.I, _build.P],
-        "k2_q8_0_matvec": [_build.P] * 6 + [_build.I] * 3 + _SIG_STACK
-        + [_build.P]})
-    dev = x.device
-    y = torch.empty((1, out_f), dtype=torch.bfloat16, device=dev)
-    st = _build.stream_ptr()
-    xq = sx = None
-    if i8:
-        xq = torch.empty(in_f, dtype=torch.int8, device=dev)
-        sx = torch.empty(in_f // 32, dtype=torch.float32, device=dev)
-        xsum = torch.empty(in_f // 32, dtype=torch.bfloat16, device=dev)
-        _build.check(lib, lib.k2_q8_0_prep(x.data_ptr(), xq.data_ptr(),
-                                           sx.data_ptr(), xsum.data_ptr(),
-                                           in_f, st), f"{what} prep")
-    _build.check(lib, lib.k2_q8_0_matvec(
-        qt.data["q"].data_ptr(), qt.data["scale"].data_ptr(), x.data_ptr(),
-        _ptr(xq), _ptr(sx), y.data_ptr(), out_f, in_f, int(i8),
-        *_stack_args(qt, ("q", "scale"), li), st), what)
+    plan = _rowmv_checked(x, qt, i8, what)
+    y = torch.empty((1, out_f), dtype=torch.bfloat16, device=x.device)
+    d = qt.data
+    lib, fn = _build.entry("q8_0_matvec", "k2_q8_0_matvec", _SIG_K2Q8)
+    _build.check(lib, fn(
+        d["q"].data_ptr(), d["scale"].data_ptr(), x.data_ptr(), y.data_ptr(),
+        out_f, in_f, 1 if i8 else 2 if plan.xf32 else 0, plan.grid,
+        plan.stages, plan.smem,
+        *_stack_args(qt, ("q", None, None, "scale"), li),
+        _build.stream_ptr()), what)
     return y
 
 
@@ -859,31 +927,26 @@ def iq_matvec(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     return y
 
 
+_SIG_K12IQ = [_build.I] + [_build.P] * 7 + [_build.I] * 6 + _SIG_STACK \
+    + [_build.P]
+
+
 def _iq_launch(x: torch.Tensor, qt: QTensor, what: str,
                li: torch.Tensor | None = None) -> torch.Tensor:
+    """As _q8_0_launch, for an IQ kind (qs, hmask, sg, scale, min as the
+    kind has them) at its scale group G."""
     out_f, in_f = qt.shape
-    G = iq_group(qt)
-    _check_operands(x[None], qt, what)
-    lib = _build.load("iq_matvec", {
-        "k12_iq_prep": [_build.P] * 4 + [_build.I] * 2 + [_build.P],
-        "k12_iq_matvec": [_build.I] + [_build.P] * 9 + [_build.I] * 3
-        + _SIG_STACK + [_build.P]})
-    dev = x.device
-    xq = torch.empty(in_f, dtype=torch.int8, device=dev)
-    sx = torch.empty(in_f // G, dtype=torch.float32, device=dev)
-    xsum = torch.empty(in_f // G, dtype=torch.bfloat16, device=dev)
-    y = torch.empty((1, out_f), dtype=torch.bfloat16, device=dev)
-    st = _build.stream_ptr()
-    _build.check(lib, lib.k12_iq_prep(x.data_ptr(), xq.data_ptr(),
-                                      sx.data_ptr(), xsum.data_ptr(), in_f, G,
-                                      st), f"{what} prep")
+    plan = _rowmv_checked(x, qt, True, what)
+    y = torch.empty((1, out_f), dtype=torch.bfloat16, device=x.device)
     d = qt.data
-    _build.check(lib, lib.k12_iq_matvec(
+    lib, fn = _build.entry("iq_matvec", "k12_iq_matvec", _SIG_K12IQ)
+    _build.check(lib, fn(
         IQ_KINDS.index(qt.kind), d["qs"].data_ptr(), _ptr(d.get("hmask")),
         _ptr(d.get("sg")), d["scale"].data_ptr(), _ptr(d.get("min")),
-        xq.data_ptr(), sx.data_ptr(), xsum.data_ptr(), y.data_ptr(), out_f,
-        in_f, G, *_stack_args(qt, ("qs", "hmask", "sg", "scale", "min"), li),
-        st), what)
+        x.data_ptr(), y.data_ptr(), out_f, in_f, iq_group(qt), plan.grid,
+        plan.stages, plan.smem,
+        *_stack_args(qt, ("qs", "hmask", "sg", "scale", "min"), li),
+        _build.stream_ptr()), what)
     return y
 
 

@@ -1,6 +1,8 @@
 """Device-alone times of the q4_k / q5_k matvecs K1, K7 and K17a, of the
 q6_k / q2_k / q3_k matvecs K2, K12.q2_k and K12.q3_k (int8 and bf16
-activations), of the KCPP_SBQ=1 matvecs K14 and K14.q5_k and of the
+activations), of the q8_0 matvecs K2.q8_0 and K2.q8_0_bf16 and the IQ
+matvecs K12.iq2p / iq3px / iq3ps / iq1p (G = 32; iq2p also G = 16, iq1p
+G = 8), of the KCPP_SBQ=1 matvecs K14 and K14.q5_k and of the
 KCPP_FFN_FUSED=1 FFN K15a at the TinyLlama-1.1B's shapes, beside one
 PyTorch call computing the same function (cuBLAS over the dequantized
 bf16 weight; for K15a cuBLAS gate/up, silu * up, cuBLAS down) and the
@@ -13,11 +15,14 @@ bytes bound.
 one this file lies in), so that two commits can be compared on one card:
 run the script once per tree, alternating (parent, change, change,
 parent), in one run on the card. --check: also hold every case to its
-plain version (2^-7 of max |ref|), K7's rows to K1 on each row alone,
+plain version (2^-7 of max |ref|; K2.q8_0 and K2.q8_0_bf16 bit for
+bit), K7's rows to K1 on each row alone,
 K17a to K1 on the layer, K14's rows at T = 2 and 8 to its rows of the same
 tokens at T = 16 and K15a's at T = 2 to those at T = 8, bit for bit, and
 fail on a mismatch. --kernels: time only these (default: all; K1,
-K1.q5_k, K7, K7.q5_k, K17a, K2, K12.q2_k, K12.q3_k, K14, K14.q5_k, K15a);
+K1.q5_k, K7, K7.q5_k, K17a, K2, K12.q2_k, K12.q3_k, K2.q8_0,
+K2.q8_0_bf16, K12.iq2p, K12.iq3px, K12.iq3ps, K12.iq1p, K14, K14.q5_k,
+K15a);
 each kernel's weights come from a seed of its own, so a subset times the
 same weights as a full run (K7 at T = 8 and K14 time the same weights at
 one seed).
@@ -28,8 +33,9 @@ its weight out of the 50 MB L2, as the decode step does (it streams
 every weight from HBM once), divided by the calls: neither the host's
 launch time nor a flush's L2 write-backs are counted. Prints a JSON line
 per case, then the sums per kernel and class (K1 / K7 / K17a: T = 1;
-2-8; 8; K2 / K12: T = 1 int8, T = 1 bf16 x; K14: T = 2, 8, 16; K15a: T =
-2, 8), each beside the library's and the bound's; the card's name and
+2-8; 8; K2 / K12: T = 1 int8, T = 1 bf16 x; K2.q8_0 / K12.iq: T = 1 per
+G; K14: T = 2, 8, 16; K15a: T = 2, 8), each beside the library's and the
+bound's; the card's name and
 power limit first.
 """
 from __future__ import annotations
@@ -50,6 +56,14 @@ STACKED_L = 4
 Q4K_KERNELS = ("K1", "K1.q5_k", "K7", "K7.q5_k", "K17a")
 # the q6_k / q2_k / q3_k T=1 matvecs and their kinds
 ROWMV_KERNELS = (("K2", "q6_k"), ("K12.q2_k", "q2_k"), ("K12.q3_k", "q3_k"))
+# the q8_0 / IQ T=1 matvecs (csrc/rowmv_g.cuh): (kernel, kind, scale groups,
+# int8 activations)
+GRP_KERNELS = (("K2.q8_0", "q8_0", (32,), True),
+               ("K2.q8_0_bf16", "q8_0", (32,), False),
+               ("K12.iq2p", "iq2p", (32, 16), True),
+               ("K12.iq3px", "iq3px", (32,), True),
+               ("K12.iq3ps", "iq3ps", (32,), True),
+               ("K12.iq1p", "iq1p", (32, 8), True))
 SBQ_KERNELS = ("K14", "K14.q5_k")
 SBQ_T = (2, 8, 16)
 FFN_T = (2, 8)
@@ -71,8 +85,8 @@ def main() -> int:
     ap.add_argument("--label", default=None)
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--kernels", default=",".join(
-        Q4K_KERNELS + tuple(k for k, _ in ROWMV_KERNELS) + SBQ_KERNELS
-        + ("K15a",)))
+        Q4K_KERNELS + tuple(k for k, _ in ROWMV_KERNELS)
+        + tuple(k for k, *_ in GRP_KERNELS) + SBQ_KERNELS + ("K15a",)))
     args = ap.parse_args()
     want = set(args.kernels.split(","))
     root = os.path.abspath(args.root)
@@ -83,7 +97,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("bench_q4k: no CUDA device available")
     from koboldcpp_tpu_torch.models.synthetic import (
-        rand_q2k, rand_q3k, rand_q4k, rand_q5k, rand_q6k)
+        rand_iq, rand_q2k, rand_q3k, rand_q4k, rand_q5k, rand_q6k, rand_q8_0)
     from koboldcpp_tpu_torch.ops import ffn_fused as ff
     from koboldcpp_tpu_torch.ops import quant_matmul as qm
     from koboldcpp_tpu_torch.ops.linear import QTensor, dequant
@@ -241,6 +255,54 @@ def main() -> int:
         s = sums.setdefault(key, [0.0, 0.0, 0.0, 0])
         for i, v in enumerate((k_ms, lib_ms, bound, 1)):
             s[i] += v
+
+    # K2.q8_0 / K2.q8_0_bf16 and K12.iq at each scale group; one seed per
+    # (kind, G), so both q8_0 bodies time the same weights
+    for kid, kind, groups, i8 in GRP_KERNELS:
+        if kid not in want:
+            continue
+        for G in groups:
+            rng = np.random.default_rng(
+                30 + 3 * (("q8_0",) + qm.IQ_KINDS).index(kind) + G // 16)
+            for name, (out_f, in_f) in SHAPES:
+                qt = (rand_q8_0(rng, out_f, in_f, dev) if kind == "q8_0"
+                      else rand_iq(rng, out_f, in_f, dev, kind, G))
+                w = dequant(qt)
+                wb = nbytes(*qt.data.values())
+                qts = [qt] + [QTensor(kind=qt.kind, shape=qt.shape, data={
+                    n_: a.clone() for n_, a in qt.data.items()})
+                    for _ in range(copies(wb) - 1)]
+                ws = [w] + [w.clone() for _ in range(copies(nbytes(w)) - 1)]
+                x = torch.from_numpy(rng.standard_normal((1, in_f)).astype(
+                    np.float32)).to(dev).bfloat16()
+                if kind == "q8_0":
+                    calls = [lambda q=q: qm.q8_0_matvec(x[0], q, i8)
+                             for q in qts]
+                    plain = lambda: qm.q8_0_matvec_plain(x[0], qt, i8)
+                else:
+                    calls = [lambda q=q: qm.iq_matvec(x[0], q) for q in qts]
+                    plain = lambda: qm.iq_matvec_plain(x[0], qt)
+                if args.check:
+                    y = calls[0]()
+                    ref = plain()
+                    torch.cuda.synchronize()
+                    err = (y.float() - ref.float()).abs().max().item()
+                    tol = (0.0 if kind == "q8_0"
+                           else 2 ** -7 * ref.float().abs().max().item())
+                    check(err <= tol, f"{kid} G={G} {name}: error {err} > "
+                          f"{tol}")
+                lib_ms = rot_ms([lambda w=w_: torch.matmul(x, w.t())
+                                 for w_ in ws])
+                bound = (wb + nbytes(x) + out_f * 2) / HBM_BYTES_PER_S * 1e3
+                k_ms = rot_ms(calls)
+                print(json.dumps({"tree": label, "kernel": kid,
+                                  "case": f"G={G} {name} {out_f}x{in_f}",
+                                  "T": 1, "dev_ms": k_ms,
+                                  "library_dev_ms": lib_ms,
+                                  "bound_ms": bound}), flush=True)
+                add((kid, f"T=1 G={G}"), k_ms, lib_ms, bound)
+                del w, ws, qt, qts
+                torch.cuda.empty_cache()
 
     # K14 / K14.q5_k at T = 2, 8, 16 on the prefixes of one x, and K7 at
     # T = 8 on the same q4_k weights and x (the sbq fields are K14's only)

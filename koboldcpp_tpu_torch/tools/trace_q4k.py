@@ -1,9 +1,11 @@
 """Timeline of one int8 K1 / K7 launch (csrc/q4k_matvec.cu), of one K2 /
-K12 launch (csrc/rowmv.cuh), of one K14 launch (csrc/q4k_sbq.cu) or of one
-K15a launch (csrc/ffn_fused.cu), block by block.
+K12 launch (csrc/rowmv.cuh), of one K2.q8_0 / K12.iq launch
+(csrc/rowmv_g.cuh), of one K14 launch (csrc/q4k_sbq.cu) or of one K15a
+launch (csrc/ffn_fused.cu), block by block.
 
     python3 koboldcpp_tpu_torch/tools/trace_q4k.py [--kernel K1|K2|K12.q2_k|
-        K12.q3_k|K14|K15a] [--bf16]
+        K12.q3_k|K2.q8_0|K12.iq2p|K12.iq3px|K12.iq3ps|K12.iq1p|K14|K15a]
+        [--bf16] [--group G]
 
 Builds a copy of the kernel source with `%globaltimer` stamps that thread 0
 of every block writes at the kernel's phase boundaries (start; the weight
@@ -15,8 +17,9 @@ out of the L2). Prints per case the span of the launch and the mean and
 largest time of each phase over the blocks. The stamps cost a store each;
 the times are those of the instrumented copy, not of the kernel itself.
 K1 (default): the 1.1B's five shapes at T = 1 and the head at T = 8; K2
-(q6_k) / K12.q2_k / K12.q3_k: the five at T = 1, int8 x, or bf16 x with
---bf16; K14 (q4_k): the five at T = 2, 8 and 16; K15a: the 1.1B's FFN at T
+(q6_k) / K12.q2_k / K12.q3_k / K2.q8_0: the five at T = 1, int8 x, or
+bf16 x with --bf16; K12.iq2p / iq3px / iq3ps / iq1p: the five at T = 1,
+scale group --group (default 32); K14 (q4_k): the five at T = 2, 8 and 16; K15a: the 1.1B's FFN at T
 = 2 and 8, with the two grid barriers' waits and phase 2 (stage waits then
 count the phase-1 tiles' and the phase-3 tiles' alike). Needs the card and
 nvcc.
@@ -96,10 +99,14 @@ _FFN_STAMPS = (
      "        TRACE(5 + 2 * it);\n"),
     _STAMPS[5],
 )
-# the K2 / K12 kernels: (kind, source, entry point)
+# the K2 / K12 kernels: (kind, source, entry point); rowmv.cuh's body, and
+# rowmv_g.cuh's with the same anchors
 _ROWMV = {"K2": ("q6_k", "q6k_matvec", "k2_q6k_matvec"),
           "K12.q2_k": ("q2_k", "q23k_matvec", "k12_q23k_matvec"),
-          "K12.q3_k": ("q3_k", "q23k_matvec", "k12_q23k_matvec")}
+          "K12.q3_k": ("q3_k", "q23k_matvec", "k12_q23k_matvec"),
+          "K2.q8_0": ("q8_0", "q8_0_matvec", "k2_q8_0_matvec"),
+          **{f"K12.{k}": (k, "iq_matvec", "k12_iq_matvec")
+             for k in ("iq2p", "iq3px", "iq3ps", "iq1p")}}
 
 
 def instrumented(src: str, stamps=_STAMPS) -> str:
@@ -119,6 +126,7 @@ def main() -> int:
     ap.add_argument("--kernel", default="K1",
                     choices=("K1", *_ROWMV, "K14", "K15a"))
     ap.add_argument("--bf16", action="store_true")
+    ap.add_argument("--group", type=int, default=32, choices=(8, 16, 32))
     args = ap.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
     import numpy as np
@@ -126,7 +134,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         sys.exit("trace_q4k: no CUDA device available")
-    from koboldcpp_tpu_torch.models.synthetic import _MAKERS
+    from koboldcpp_tpu_torch.models.synthetic import _MAKERS, rand_iq
     from koboldcpp_tpu_torch.ops import _build
     from koboldcpp_tpu_torch.ops import ffn_fused as ff
     from koboldcpp_tpu_torch.ops import quant_matmul as qm
@@ -151,17 +159,22 @@ def main() -> int:
         kind, source, entry = _ROWMV[args.kernel]
         cases = CASES[:5]
         # the instrumented body beside a copy of the source that includes
-        # it, which the compiler finds before csrc/'s
-        with open(os.path.join(_build.CSRC, "rowmv.cuh")) as f:
+        # it, which the compiler finds before csrc/'s (a directory per body:
+        # rowmv_g.cuh includes rowmv.cuh, which must be csrc/'s)
+        header = ("rowmv.cuh" if kind in ("q6_k", "q2_k", "q3_k")
+                  else "rowmv_g.cuh")
+        out = os.path.join(out, header.split(".")[0])
+        os.makedirs(out, exist_ok=True)
+        with open(os.path.join(_build.CSRC, header)) as f:
             body = instrumented(f.read(), _ROWMV_STAMPS)
-        with open(os.path.join(out, "rowmv.cuh"), "w") as f:
+        with open(os.path.join(out, header), "w") as f:
             f.write(body)
         with open(os.path.join(_build.CSRC, f"{source}.cu")) as f:
             src = f.read()
         cu = os.path.join(out, f"{source}_trace.cu")
-        argtypes = ([I] if kind != "q6_k" else []) + [P] * (
-            3 if kind == "q6_k" else 4) + [P] * 2 + [I] * 6 + [P] + [LL] * 5 \
-            + [P]
+        argtypes = {"q6_k": qm._SIG_K2, "q2_k": qm._SIG_K12,
+                    "q3_k": qm._SIG_K12, "q8_0": qm._SIG_K2Q8}.get(
+                        kind, qm._SIG_K12IQ)
     with open(cu, "w") as f:
         f.write(src)
     so = cu[:-3] + ".so"
@@ -175,6 +188,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     clean = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     print(_build_card(), f"{args.kernel}", "bf16 x" if args.bf16 else "",
+          f"G={args.group}" if args.kernel.startswith("K12.iq") else "",
           flush=True)
     for name, out_f, in_f, T in cases:
         if args.kernel == "K15a":  # out_f, in_f: C, F
@@ -183,7 +197,9 @@ def main() -> int:
             dn = _MAKERS[kind](rng, C, F, dev)
             in_f = C
         else:
-            qt = _MAKERS[kind](rng, out_f, in_f, dev)
+            qt = (_MAKERS[kind](rng, out_f, in_f, dev)
+                  if kind not in qm.IQ_KINDS
+                  else rand_iq(rng, out_f, in_f, dev, kind, args.group))
         x = torch.from_numpy(rng.standard_normal((T, in_f)).astype(
             np.float32)).to(dev).bfloat16()
         y = torch.empty((T, out_f), dtype=torch.bfloat16, device=dev)
@@ -215,14 +231,25 @@ def main() -> int:
                     x.data_ptr(), *(t.data_ptr() for t in scratch),
                     y.data_ptr(), T, C, F, plan.grid, plan.stages, plan.smem,
                     st]
+        elif kind in qm.IQ_KINDS:
+            d = qt.data
+            plan = qm.rowmv_plan(kind, out_f, in_f, True, args.group)
+            call = [qm.IQ_KINDS.index(kind), d["qs"].data_ptr(),
+                    qm._ptr(d.get("hmask")), qm._ptr(d.get("sg")),
+                    d["scale"].data_ptr(), qm._ptr(d.get("min")),
+                    x.data_ptr(), y.data_ptr(), out_f, in_f, args.group,
+                    plan.grid, plan.stages, plan.smem, *stack, st]
         else:
             d = qt.data
             plan = qm.rowmv_plan(kind, out_f, in_f, not args.bf16)
-            rest = [x.data_ptr(), y.data_ptr(), out_f, in_f,
-                    int(not args.bf16), plan.grid, plan.stages, plan.smem,
-                    *stack, st]
+            # K2.q8_0's x mode: 1 int8, 0 bf16, 2 bf16 kept as f32
+            xmode = 1 if not args.bf16 else 2 if plan.xf32 else 0
+            rest = [x.data_ptr(), y.data_ptr(), out_f, in_f, xmode,
+                    plan.grid, plan.stages, plan.smem, *stack, st]
             call = ([d["ql"].data_ptr(), d["qh"].data_ptr(),
                      d["scale"].data_ptr()] if kind == "q6_k" else
+                    [d["q"].data_ptr(), d["scale"].data_ptr()]
+                    if kind == "q8_0" else
                     [int(kind == "q3_k"), d["qs"].data_ptr(),
                      qm._ptr(d.get("hmask")), d["scale"].data_ptr(),
                      qm._ptr(d.get("min"))]) + rest

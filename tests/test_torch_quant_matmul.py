@@ -189,13 +189,32 @@ def test_new_kinds_dispatch():
 
 
 def test_q8_0_lane_order_sum():
-    """The fixed summation order of K2.q8_0 (lane l adds groups l, l+32, ...,
-    then a butterfly over the 32 lanes) adds every group term once: it
-    equals an f64 sum to f32 rounding, also for a group count that is not
-    a multiple of 32."""
+    """The fixed summation order of K2.q8_0 (csrc/rowmv_g.cuh: per row and
+    group i of the 4 in each 128-column span, warp w adds the terms of
+    groups 4sp + i of its spans sp = 8k + w from 0, then (i 0 + i 1) + (i 2
+    + i 3), then the 8 warps in order) equals a scalar f32 walk of that
+    order bit for bit, and adds every group term once: it equals an f64 sum
+    to f32 rounding, also for group counts that do not fill the last K step
+    (8, 64 and 176 groups: in_f 256, 2048, 5632)."""
     rng = np.random.default_rng(6)
     for ng in (8, 64, 176):
         v = torch.from_numpy(rng.standard_normal((5, ng)).astype(np.float32))
-        got = tqm._lane_order_sum(v).double()
+        got = tqm._q8_0_order_sum(v)
+        vn = v.numpy()
+        for r in range(5):
+            warps = []
+            for w in range(8):
+                acc = [np.float32(0.0)] * 4
+                for k in range(-(-ng // 32)):
+                    for i in range(4):
+                        g = 4 * (8 * k + w) + i
+                        if g < ng:
+                            acc[i] = np.float32(acc[i] + vn[r, g])
+                warps.append(np.float32(np.float32(acc[0] + acc[1])
+                                        + np.float32(acc[2] + acc[3])))
+            t = warps[0]
+            for w in range(1, 8):
+                t = np.float32(t + warps[w])
+            assert got[r].item() == t
         want = v.double().sum(dim=1)
-        assert torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+        assert torch.allclose(got.double(), want, rtol=1e-5, atol=1e-5)
