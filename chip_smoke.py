@@ -20,8 +20,13 @@
    8192 x 28672) against its plain PyTorch version on the card at the
    TinyLlama-1.1B shapes (and
    the fixtures' widths; K4 also at head_dim 128 and 256; K5, K6, K8, K9
-   and K10 also at head_dim 80, 96 and 256 and at 128 query heads over 8
-   kv heads, `HEAD_SHAPES`), with the max error
+   and K10 also at head_dim 80, 96 and 256, at 128 query heads over 8
+   kv heads and at the padded head_dims 72 and 512, `HEAD_SHAPES`, K5's
+   f32 cache kind at 72 and 512 too; K1, K2 (int8 and bf16 x), K12.q2_k,
+   K2.q8_0 and K12.iq1p (G = 8) with x in windows: bit-equal to x whole at
+   (8192, 16384), and at in_f 131072 (K2.q8_0: 262144), `phase_windows`;
+   K15b / K15a with x in windows bit-equal to x whole, and K15a at a C
+   of 26880 whose x goes in windows), with the max error
    against its stated tolerance and the times of the kernel, the plain
    version, one PyTorch library call computing the same function (where
    there is one), and the least time the card could take; every K3 / K13
@@ -622,6 +627,134 @@ def phase_ffn_fused(rng) -> None:
     _check(torch.equal(ys[2], ys[8][:2]),
            "K15a: rows at T=2 differ from the same tokens' rows at T=8")
     del wg, wd
+    _ffn_windows(rng, library)
+
+
+def _ffn_windows(rng, library) -> None:
+    """K15 with x in windows (`ffn_plan`'s kwin): at T = 1 and 2 over a
+    (C, F) = (4096, 8192) FFN, x forced into windows of one of its two K
+    steps (four phase-1 tiles a block, so each tile preps every window
+    anew) is the same bits as x whole; K15a at T = 3 over C = 26880 (F =
+    1024), a width `_tiles` takes whose x a block cannot hold whole,
+    against the plain version."""
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    C, F = 4096, 8192
+    gu, dn = rand_q4k(rng, 2 * F, C, DEV), rand_q4k(rng, C, F, DEV)
+    for T in (1, 2):
+        x = torch.from_numpy(rng.standard_normal((T, C)).astype(
+            np.float32)).to(DEV).bfloat16()
+        whole = ffn_fused._ffn_launch(x, gu, dn, sms)
+        win = ffn_fused._ffn_launch(x, gu, dn, sms, kwin=1)
+        torch.cuda.synchronize()
+        _check(ffn_fused.ffn_plan(T, C, F, sms).kwin == 2,
+               f"K15 C={C} T={T}: x should fit whole")
+        _check(torch.equal(whole, win), f"K15 C={C} F={F} T={T}: x in "
+               "windows of 1 K step differs from x whole")
+        print(f"K15 C={C} F={F} T={T}: x in windows of 1 of 2 K steps equal "
+              "to x whole bit for bit", flush=True)
+    del gu, dn
+    torch.cuda.empty_cache()
+    T, C, F = 3, 26880, 1024
+    plan = ffn_fused.ffn_plan(T, C, F, sms)
+    _check(plan.kwin < plan.ksteps1, f"K15a C={C}: x should go in windows")
+    gu, dn = rand_q4k(rng, 2 * F, C, DEV), rand_q4k(rng, C, F, DEV)
+    wg, wd = dequant(gu), dequant(dn)
+    x = torch.from_numpy(rng.standard_normal((T, C)).astype(
+        np.float32)).to(DEV).bfloat16()
+    y = ffn_fused.ffn_fused_call(x, gu, dn)
+    ref = ffn_fused.ffn_fused_plain(x, gu, dn)
+    torch.cuda.synchronize()
+    err = (y.float() - ref.float()).abs().max().item()
+    tol = 2 ** -7 * ref.float().abs().max().item()
+
+    def lib(x=x):
+        h = torch.matmul(x, wg.t())
+        return torch.matmul(torch.nn.functional.silu(h[:, :F]) * h[:, F:],
+                            wd.t())
+
+    _record("K15a", f"w_gateup {2 * F}x{C} + w_down {C}x{F} T={T} [x in "
+            f"windows of {plan.kwin} of {plan.ksteps1} K steps]", err, tol,
+            lambda: ffn_fused.ffn_fused_call(x, gu, dn),
+            lambda: ffn_fused.ffn_fused_plain(x, gu, dn), lib,
+            _wbytes(gu) + _wbytes(dn) + _nbytes(x) + T * C * 2,
+            2 * T * 3 * C * F)
+    del gu, dn, wg, wd
+    torch.cuda.empty_cache()
+
+
+# the T=1 bodies with x in windows (`q4k_plan` / `rowmv_plan`): (kernel,
+# maker, launch(x, qt, kwin), plain(x, qt), the wide in_f); int8 x unless
+# the kernel's name says otherwise
+def _win_launches():
+    def q6k(i8):
+        return (lambda x, qt, kw: qm._q6k_launch(x, qt, i8, "K2", None, kw),
+                lambda x, qt: qm.q6k_matvec_plain(x, qt, i8))
+    return (
+        ("K1", rand_q4k,
+         lambda x, qt, kw: qm._q4k_launch(x[None], qt, True, "K1", None, kw),
+         lambda x, qt: qm.q4k_matvec_plain(x, qt, True), 131072),
+        ("K2", rand_q6k, *q6k(True), 131072),
+        ("K2 bf16 x", rand_q6k, *q6k(False), 131072),
+        ("K12.q2_k", rand_q2k,
+         lambda x, qt, kw: qm._q23k_launch(x, qt, True, "K12", None, kw),
+         lambda x, qt: qm.q23k_matvec_plain(x, qt, True), 131072),
+        ("K2.q8_0", rand_q8_0,
+         lambda x, qt, kw: qm._q8_0_launch(x, qt, True, "K2.q8_0", None, kw),
+         lambda x, qt: qm.q8_0_matvec_plain(x, qt, True), 262144),
+        ("K12.iq1p", lambda rng, o, i, dev: rand_iq(rng, o, i, dev, "iq1p",
+                                                     8),
+         lambda x, qt, kw: qm._iq_launch(x, qt, "K12", None, kw),
+         qm.iq_matvec_plain, 131072))
+
+
+def phase_windows(rng) -> None:
+    """The T=1 matvecs where x does not fit a block whole: K1 (q4_k), K2
+    (q6_k, int8 and bf16 x), K12.q2_k, K2.q8_0 and K12.iq1p (G = 8). At
+    (8192, 16384), which every body takes whole, x forced into windows of 3
+    K steps (a short last one; about two tiles a block, so each tile preps
+    every window anew) is the same bits as x whole; at out_f 256 and in_f
+    131072 (K2.q8_0: 262144), where the plan windows x itself, the kernel
+    against its plain version (K2.q8_0 bit for bit, the rest within 2^-7 of
+    max |y|)."""
+    for kid, maker, launch, plain, wide in _win_launches():
+        rec = kid.split()[0]
+        out_f, in_f = 8192, 16384
+        qt = maker(rng, out_f, in_f, DEV)
+        x = torch.from_numpy(rng.standard_normal(in_f).astype(
+            np.float32)).to(DEV).bfloat16()
+        whole, win = launch(x, qt, 0), launch(x, qt, 3)
+        torch.cuda.synchronize()
+        _check(torch.equal(whole, win), f"{kid} ({out_f}, {in_f}): x in "
+               "windows of 3 K steps differs from x whole")
+        print(f"{kid} ({out_f}, {in_f}): x in windows of 3 K steps equal to "
+              "x whole bit for bit", flush=True)
+        del qt
+        out_f, in_f = 256, wide
+        qt = maker(rng, out_f, in_f, DEV)
+        x = torch.from_numpy(rng.standard_normal(in_f).astype(
+            np.float32)).to(DEV).bfloat16()
+        i8 = "bf16" not in kid
+        kind = qt.kind
+        plan = (qm.q4k_plan(1, out_f, in_f) if kind == "q4_k" else
+                qm.rowmv_plan(kind, out_f, in_f, i8,
+                              qm.iq_group(qt) if kind in qm.IQ_KINDS else 0))
+        _check(plan.kwin < plan.ksteps, f"{kid} in_f {in_f}: x should go "
+               "in windows")
+        y = launch(x, qt, 0)
+        ref = plain(x, qt)
+        torch.cuda.synchronize()
+        err = (y.float() - ref.float()).abs().max().item()
+        tol = 0.0 if rec == "K2.q8_0" else \
+            2 ** -7 * ref.float().abs().max().item()
+        w = dequant(qt)
+        xr = x.view(1, in_f)
+        _record(rec, f"{out_f}x{in_f} T=1{kid[len(rec):]} [x in windows of "
+                f"{plan.kwin} of {plan.ksteps} K steps]", err, tol,
+                lambda: launch(x, qt, 0), lambda: plain(x, qt),
+                lambda: torch.matmul(xr, w.t()),
+                _wbytes(qt) + _nbytes(x) + out_f * 2)
+        del qt, w
+        torch.cuda.empty_cache()
 
 
 def _dev_ms(fn, reps: int = 10) -> float:
@@ -776,9 +909,9 @@ def _rowmv_class(kid: str, name: str, i8: bool) -> None:
 
 
 # K14 / K15, K2.q8_0 / K12.iq and their K17b entries (rowmv_g.cuh) and the
-# kernels not yet redesigned on the K1 / K2 design, summed per kernel over
-# their cases on the device alone, so that the next redesign is ranked by
-# device time
+# expanded layouts' K12 (rowmv.cuh), summed per kernel over their cases on
+# the device alone against the library op and the bound, so that the next
+# piece of work is ranked by device time
 DEV_SUM_KIDS = ("K14", "K14.q5_k", "K15a", "K15b", "K2.q8_0",
                 "K2.q8_0_bf16", "K12.iq2p", "K12.iq3px", "K12.iq3ps",
                 "K12.iq1p", "K12.q6_k_i8f", "K12.q3_k_n4", "K12.q2_k_n4",
@@ -790,11 +923,13 @@ def print_dev_sums() -> None:
     """Per kernel of DEV_SUM_KIDS: kernel / library summed over its cases,
     host included and on the device alone, and device alone / bound; where
     a kernel has 70B-class cases, the same without them too (the case set
-    of the earlier runs)."""
+    of the earlier runs). Cases timed on the device alone only (not the
+    windowed ones of `phase_windows` / `_ffn_windows`)."""
     for kid in DEV_SUM_KIDS:
-        sets = [("", CASES[kid])]
-        small = [c for c in CASES[kid] if "70B" not in c["case"]]
-        if len(small) < len(CASES[kid]):
+        timed = [c for c in CASES[kid] if "dev_ms" in c]
+        sets = [("", timed)]
+        small = [c for c in timed if "70B" not in c["case"]]
+        if len(small) < len(timed):
             sets.append((" without 70B", small))
         for tag, cases in sets:
             k, lib, dk, dl, b = (sum(c[n] for c in cases) for n in (
@@ -898,9 +1033,11 @@ def phase_iq_kernels(rng) -> None:
 
 
 # head shapes the port serves beyond the 1.1B's 32/4/64 (H, Hkv, head_dim):
-# D = 80 (32/8), Phi-3-mini's 32/32/96, gemma-2-9b's 16/8/256, and
-# Llama-3.1-405B's 128/8/128 (G = 16, G * D = 2048)
-HEAD_SHAPES = ((32, 8, 80), (32, 32, 96), (16, 8, 256), (128, 8, 128))
+# D = 80 (32/8), Phi-3-mini's 32/32/96, gemma-2-9b's 16/8/256,
+# Llama-3.1-405B's 128/8/128 (G = 16, G * D = 2048), and two that the
+# tiles pad: D = 72 (32/16, padded to 80) and D = 512 (8/1)
+HEAD_SHAPES = ((32, 8, 80), (32, 32, 96), (16, 8, 256), (128, 8, 128),
+               (32, 16, 72), (8, 1, 512))
 # positions of the 8-sequence cases: pos 0, page boundaries, the last row,
 # a dead slot
 BATCH_POSITIONS = (0, 1, 63, 64, 700, 2047, -1, 256)
@@ -911,7 +1048,8 @@ def phase_flash_decode(rng) -> None:
     # scores (see _peak) at two of them, and B=2 at head_dim 128 (an 8B-class
     # GQA shape) with one live and one dead (pos < 0) sequence; then each of
     # HEAD_SHAPES, one sequence peaked at pos 700 and eight at mixed
-    # positions
+    # positions; last, the f32 cache kind at the padded head_dims (at D =
+    # 512 its tiles take 32 rows)
     for B, S, H, Hkv, D, positions, peaked in (
             [(1, 2048, 32, 4, 64, (p,), False) for p in (0, 1, 700, 2047)]
             + [(1, 2048, 32, 4, 64, (p,), True) for p in (700, 2047)]
@@ -920,6 +1058,9 @@ def phase_flash_decode(rng) -> None:
                for c in ((1, 2048, H, Hkv, D, (700,), True),
                          (8, 2048, H, Hkv, D, BATCH_POSITIONS, True))]):
         _flash_decode_case(rng, B, S, H, Hkv, D, positions, peaked)
+    for H, Hkv, D in ((32, 16, 72), (8, 1, 512)):
+        _flash_decode_case(rng, 8, 2048, H, Hkv, D, BATCH_POSITIONS, True,
+                           torch.float32)
 
 
 def _peak(rng, q, kc, positions, G: int) -> None:
@@ -1801,11 +1942,12 @@ def phase_profiled(card: str) -> None:
     # K1's rows (89 a token: 88 layer projections and the head) and any
     # separate activation-prep launch left on the path
     mv = {k: t for k, t in rows.items() if "q4k_" in k and "sbq" not in k}
-    prep = {k: t for k, t in rows.items() if "act_prep" in k}
+    prep = {k: t for k, t in rows.items()
+            if "act_prep" in k or "group_sums" in k}
     print(f"q4_k matvec rows of the 64 profiled tokens: "
           f"{sum(mv.values()) / 1e3:.2f} ms, "
           f"{sum(mv.values()) / 64 / 1e3:.4f} ms per token "
-          f"({', '.join(k[:48] for k in mv)}); act_prep_kernel rows: "
+          f"({', '.join(k[:48] for k in mv)}); activation-prep rows: "
           f"{', '.join(f'{k[:48]} {t / 1e3:.2f} ms' for k, t in prep.items()) or 'none'}",
           flush=True)
     _check(bool(mv), "the profile saw no q4_k matvec row")
@@ -3060,8 +3202,8 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     rng = np.random.default_rng(0)
-    for phase in (phase_matvec, phase_batched_matvec, phase_sbq,
-                  phase_ffn_fused, phase_kq_matmul,
+    for phase in (phase_matvec, phase_windows, phase_batched_matvec,
+                  phase_sbq, phase_ffn_fused, phase_kq_matmul,
                   phase_iq_kernels, phase_flash_prefill, phase_flash_decode,
                   phase_paged_flash_decode, phase_quant_decode,
                   phase_stacked):

@@ -52,38 +52,23 @@ __device__ __forceinline__ float bf_at(const uint4& v, int e) {
     return __uint_as_float(e & 1 ? (w & 0xFFFF0000u) : (w << 16));
 }
 
-// Activation prep for the T=1 matvecs (the port of `_i8_prep` and
-// `_group_sums`): per group of G consecutive columns of x, the bf16-rounded
-// f32 sum, and (quant != 0) the int8 codes rint(x * (127 / amax)) with
-// amax clamped at 1e-20 and the f32 scale amax / 127. One thread per
-// element; in_f is a multiple of 32, so every group lies within a warp.
+// The bf16-rounded f32 sums of x per group of G consecutive columns (the
+// port of `_group_sums`), for the bf16-x bodies of K1 / K7. One thread per
+// element; n is a multiple of 32, so every group lies within a warp.
 template <int G>
-__global__ void act_prep_kernel(const __nv_bfloat16* __restrict__ x,
-                                int8_t* __restrict__ xq,
-                                float* __restrict__ sx,
-                                __nv_bfloat16* __restrict__ xsum,
-                                int in_f, int quant) {
+__global__ void group_sums_kernel(const __nv_bfloat16* __restrict__ x,
+                                  __nv_bfloat16* __restrict__ xsum, int n) {
     int i = blockIdx.x * blockDim.x + threadIdx.x;
-    float v = i < in_f ? bf2f(x[i]) : 0.f;
+    float v = i < n ? bf2f(x[i]) : 0.f;
     float s = group_sum(v, G);             // shuffles before any lane exits
-    float a = fmaxf(group_max(fabsf(v), G), 1e-20f);
-    if (i >= in_f) return;
-    int lane_in_group = threadIdx.x & (G - 1);
-    if (lane_in_group == 0) xsum[i / G] = f2bf(s);
-    if (quant) {
-        float inv = 127.0f / a;
-        xq[i] = (int8_t)(int)rintf(v * inv);
-        if (lane_in_group == 0) sx[i / G] = a / 127.0f;
-    }
+    if (i < n && (threadIdx.x & (G - 1)) == 0) xsum[i / G] = f2bf(s);
 }
 
 template <int G>
-static cudaError_t launch_act_prep(const void* x, void* xq, void* sx,
-                                   void* xsum, int in_f, int quant,
-                                   cudaStream_t stream) {
-    act_prep_kernel<G><<<(in_f + 255) / 256, 256, 0, stream>>>(
-        (const __nv_bfloat16*)x, (int8_t*)xq, (float*)sx,
-        (__nv_bfloat16*)xsum, in_f, quant);
+static cudaError_t launch_group_sums(const void* x, void* xsum, int n,
+                                     cudaStream_t stream) {
+    group_sums_kernel<G><<<(n + 255) / 256, 256, 0, stream>>>(
+        (const __nv_bfloat16*)x, (__nv_bfloat16*)xsum, n);
     return cudaGetLastError();
 }
 

@@ -38,7 +38,14 @@
 // kv/paged.py `_quantize_q4` do (amax/127 or amax/7 per head, round half to
 // even, scale rounded to bf16), uses its dequantized bf16 values for the
 // self term, and writes the codes and the scale. Head shapes: any head_dim
-// D with D % 16 == 0 up to 256 and any G = H / Hkv query heads per kv head.
+// D with D % 8 == 0 up to 512 and any G = H / Hkv query heads per kv head.
+// The tiles hold D padded to Dp, the next multiple of 16 (the mma k): the
+// padding columns of Q, K and V are zero-filled as they are copied, the
+// output, the new row's write and a quantized row's amax cover the D real
+// columns only. DMAX (64, 128, 256, 512) bounds Dp; at D = 512 a block's
+// accumulators spill to local memory, and where a tile of 64 rows of an
+// f32 cache does not fit next to the merge's tables (D > ~440) a tile
+// takes 32 rows, two warps' worth.
 //
 // Bound on the H100: bytes (the live history rows' K and V values plus
 // their scales, and the row write): a 1.1B step at pos 700 reads 0.7 MB, a
@@ -64,7 +71,7 @@
 //   the position is read (the tile's rows past the history are cleared
 //   once it is known), so the position's load and the copies overlap.
 // - 64-row tiles of K and V move into shared memory with cp.async (16-byte
-//   pieces, 8 for a nibble row whose D / 2 bytes are not a multiple of 16;
+//   pieces; 8 or 4 for a row whose bytes are not a multiple of 16 or 8;
 //   neighbouring threads on neighbouring pieces of a head's row; rows past
 //   the history zero-filled), two stages when they fit in 96 KB, so the
 //   next tile's copy runs under this one's math; the paged kinds compute
@@ -114,22 +121,28 @@ __host__ __device__ constexpr int head_bytes(int kind, int D) {
 
 __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 
-// Shared memory of one block at head_dim D: the Q tile (16 rows of D bf16,
-// pitch qp) and this step's k and v rows (D bf16 each), then `nst` stages
-// of (K tile, V tile: TR rows of a head at pitch hp; k and v scales: TR f32
-// each); after the tile loop the same bytes hold the warps' states
-// (combine), a lone split's partial and the merge's tables.
+// Shared memory of one block at head_dim D: the Q tile (16 rows of Dp
+// bf16, pitch qp) and this step's k and v rows (D bf16 each), then `nst`
+// stages of (K tile, V tile: tr rows of a head's Dp columns at pitch hp; k
+// and v scales: tr f32 each); after the tile loop the same bytes hold the
+// warps' states (combine), a lone split's partial and the merge's tables.
+// Dp: D padded to 16; tr: rows per tile (TR, or 32 where a stage of TR
+// rows does not fit a block's 227 KB).
 struct Plan {
-    int hp, qp, stage, nst, q_bytes, comb, total;
+    int Dp, hp, qp, tr, stage, nst, q_bytes, comb, total;
     __host__ __device__ Plan(int kind, int D) {
-        hp = head_bytes(kind, D) + 16;  // 8 ldmatrix rows on distinct banks
-        qp = 2 * D + 16;
-        stage = 2 * TR * hp + 2 * TR * 4;
-        nst = 2 * stage <= 96 * 1024 ? 2 : 1;
+        Dp = (D + 15) & ~15;
+        hp = head_bytes(kind, Dp) + 16;  // 8 ldmatrix rows on distinct banks
+        qp = 2 * Dp + 16;
         q_bytes = GB * qp + 4 * D;
         comb = NW * GB * D * 4 + NW * GB * 2 * 4 + GB * D * 4 + GB * 2 * 4;
         const int merge = 2 * MAXNS * GB * 4 + GB * 2 * 4 + 2 * D * 8 + GB * 4 + 16;
-        total = q_bytes + imax(nst * stage, comb + merge);
+        for (tr = TR;; tr /= 2) {
+            stage = 2 * tr * hp + 2 * tr * 4;
+            nst = 2 * stage <= 96 * 1024 ? 2 : 1;
+            total = q_bytes + imax(nst * stage, comb + merge);
+            if (total <= 232448 || tr == 32) break;
+        }
     }
 };
 
@@ -222,22 +235,22 @@ flash_decode_kernel(const Args a) {
     uint8_t* const nrow = smem + GB * L.qp;  // this step's k, v rows (bf16)
     uint8_t* const body = smem + L.q_bytes;
 
-    // the head group's query rows (zero rows past G) and this step's k / v
-    // rows, in flight while the position is read
+    // the head group's query rows (zero rows past G, zero columns past D)
+    // and this step's k / v rows, in flight while the position is read
     {
         const __nv_bfloat16* qh = a.q + (((size_t)b * a.Hkv + kvh) * a.G + g0) * D;
-        const int ch = D / 8;
-        for (int i = tid; i < (GB + 2) * ch; i += blockDim.x) {
-            const int g = i / ch, c = i - g * ch;
+        const int ch = D / 8, chp = L.Dp / 8;
+        for (int i = tid; i < (GB + 2) * chp; i += blockDim.x) {
+            const int g = i / chp, c = i - g * chp;
             if (g >= GB) {  // the new rows
-                if (self) {
+                if (self && c < ch) {
                     const __nv_bfloat16* src = (g == GB ? a.knew : a.vnew)
                                                + ((size_t)b * a.Hkv + kvh) * D + 8 * c;
                     cp_async16(nrow + (g - GB) * 2 * D + 16 * c, src);
                 }
                 continue;
             }
-            const bool ok = g < Gb;
+            const bool ok = g < Gb && c < ch;
             cp_async16_zfill(qs + g * L.qp + 16 * c,
                              ok ? (const void*)(qh + (size_t)g * D + 8 * c) : (const void*)a.q,
                              ok ? 16 : 0);
@@ -249,30 +262,35 @@ flash_decode_kernel(const Args a) {
     const size_t row_bytes = (size_t)a.Hkv * HB;
     const uint8_t* kbase = a.kc + (size_t)kvh * HB;
     const uint8_t* vbase = a.vc + (size_t)kvh * HB;
-    const int CW = HB % 16 == 0 ? 16 : 8;  // bytes per copy
-    const int CH = HB / CW;
+    // bytes per copy: a head's row is a multiple of 4 (Q4 at D % 16 == 8)
+    const int CW = HB % 16 == 0 ? 16 : HB % 8 == 0 ? 8 : 4;
+    const int CH = HB / CW;                        // copies of D columns
+    const int CHP = head_bytes(KIND, L.Dp) / CW;   // ... of Dp: zero-filled
+    const int TRt = L.tr;                          // rows per tile
     auto stage_of = [&](int t) { return body + (t % L.nst) * L.stage; };
-    // tile t's K and V rows into its stage, rows from `lim` on zero-filled
+    // tile t's K and V rows into its stage, rows from `lim` on and columns
+    // past D zero-filled
     auto issue = [&](int t, int lim) {
         uint8_t* st = stage_of(t);
-        const int r0 = r_begin + t * TR;
-        for (int i = tid; i < 2 * TR * CH; i += blockDim.x) {
-            const int w = i / (TR * CH), rem = i - w * TR * CH;
-            const int rr = rem / CH, c = rem - rr * CH;
+        const int r0 = r_begin + t * TRt;
+        for (int i = tid; i < 2 * TRt * CHP; i += blockDim.x) {
+            const int w = i / (TRt * CHP), rem = i - w * TRt * CHP;
+            const int rr = rem / CHP, c = rem - rr * CHP;
             const int row = r0 + rr;
-            const bool ok = row < lim;
+            const bool ok = row < lim && c < CH;
             const uint8_t* src = a.kc;
             if (ok) src = (w ? vbase : kbase) + cache_row(a, b, cb, row) * row_bytes + c * CW;
-            uint8_t* dst = st + (w * TR + rr) * L.hp + c * CW;
+            uint8_t* dst = st + (w * TRt + rr) * L.hp + c * CW;
             if (CW == 16) cp_async16_zfill(dst, src, ok ? 16 : 0);
-            else cp_async8_zfill(dst, src, ok ? 8 : 0);
+            else if (CW == 8) cp_async8_zfill(dst, src, ok ? 8 : 0);
+            else cp_async4_zfill(dst, src, ok ? 4 : 0);
         }
     };
-    // tile t's scales: thread tid < TR loads its row's, parks them later
+    // tile t's scales: thread tid < TRt loads its row's, parks them later
     auto scales_load = [&](int t, int lim, float& rk, float& rv) {
         rk = rv = 0.f;
-        const int row = r_begin + t * TR + tid;
-        if (SCALED && tid < TR && row < lim) {
+        const int row = r_begin + t * TRt + tid;
+        if (SCALED && tid < TRt && row < lim) {
             const size_t cr = cache_row(a, b, cb, row) * a.Hkv + kvh;
             rk = bf2f(a.ksc[cr]);
             rv = bf2f(a.vsc[cr]);
@@ -294,13 +312,13 @@ flash_decode_kernel(const Args a) {
         return;
     }
     const int r_end = min(r_begin + a.rps, n_hist);
-    const int ntiles = r_end > r_begin ? (r_end - r_begin + TR - 1) / TR : 0;
+    const int ntiles = r_end > r_begin ? (r_end - r_begin + TRt - 1) / TRt : 0;
     auto scales_store = [&](int t, float rk, float rv) {
-        const int row = r_begin + t * TR + tid;
-        if (SCALED && tid < TR) {
-            float* sc = reinterpret_cast<float*>(stage_of(t) + 2 * TR * L.hp);
+        const int row = r_begin + t * TRt + tid;
+        if (SCALED && tid < TRt) {
+            float* sc = reinterpret_cast<float*>(stage_of(t) + 2 * TRt * L.hp);
             sc[tid] = row < r_end ? rk : 0.f;
-            sc[TR + tid] = row < r_end ? rv : 0.f;
+            sc[TRt + tid] = row < r_end ? rv : 0.f;
         }
     };
 
@@ -314,11 +332,12 @@ flash_decode_kernel(const Args a) {
         for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
     const int wr = warp * 16;  // this warp's rows of a tile
 
+    const int Dp = L.Dp;
     auto compute = [&](int t) {
         const uint8_t* kt = stage_of(t);
-        const uint8_t* vt = kt + TR * L.hp;
-        const float* ksm = reinterpret_cast<const float*>(kt + 2 * TR * L.hp);
-        const float* vsm = ksm + TR;
+        const uint8_t* vt = kt + TRt * L.hp;
+        const float* ksm = reinterpret_cast<const float*>(kt + 2 * TRt * L.hp);
+        const float* vsm = ksm + TRt;
         // S (16 heads x 16 rows) = Q . K^T
         float s[2][4];
 #pragma unroll
@@ -327,7 +346,7 @@ flash_decode_kernel(const Args a) {
             for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
         for (int ks = 0; ks < DMAX / 16; ++ks) {
-            if (ks >= D / 16) break;
+            if (ks >= Dp / 16) break;
             uint32_t qa[4];
             ldmatrix_x4(qa, qs + (((lane >> 3) & 1) * 8 + (lane & 7)) * L.qp
                                 + ks * 32 + (lane >> 4) * 16);
@@ -363,7 +382,7 @@ flash_decode_kernel(const Args a) {
         }
         // online softmax on the fragment: s[j][e] is head lane/4 + 8 (e / 2),
         // row wr + 8 j + 2 (lane % 4) + e % 2
-        const int r0 = r_begin + t * TR;
+        const int r0 = r_begin + t * TRt;
         float x[2][4];
         bool ok[2][4];
 #pragma unroll
@@ -424,7 +443,7 @@ flash_decode_kernel(const Args a) {
         // O (16 heads x D) += P . V
 #pragma unroll
         for (int np = 0; np < DMAX / 16; ++np) {
-            if (np >= D / 16) break;
+            if (np >= Dp / 16) break;
             if (KIND == BF16_ROWS) {
                 uint32_t vb[4];
                 ldmatrix_x4_trans(vb, vt + (wr + ((lane >> 3) & 1) * 8 + (lane & 7)) * L.hp
@@ -474,14 +493,14 @@ flash_decode_kernel(const Args a) {
             cp_async_wait<0>();
         }
         __syncthreads();
-        if (t == 0 && r_begin + TR > r_end) {  // V rows past the history: 0
-            uint8_t* vt = stage_of(0) + TR * L.hp;
+        if (t == 0 && r_begin + TRt > r_end) {  // V rows past the history: 0
+            uint8_t* vt = stage_of(0) + TRt * L.hp;
             const int n8 = L.hp / 8;  // hp is a multiple of 8
-            for (int i = (r_end - r_begin) * n8 + tid; i < TR * n8; i += blockDim.x)
+            for (int i = (r_end - r_begin) * n8 + tid; i < TRt * n8; i += blockDim.x)
                 *reinterpret_cast<uint2*>(vt + 8 * i) = make_uint2(0, 0);
             __syncthreads();
         }
-        compute(t);
+        if (wr < TRt) compute(t);  // a 32-row tile: warps 0 and 1
         if (ahead) scales_store(t + 1, rk, rv);
         __syncthreads();
         if (L.nst == 1 && t + 1 < ntiles) {
@@ -715,9 +734,11 @@ static cudaError_t launch_dmax(const Args& a, int nsplit, cudaStream_t st) {
 
 template <int KIND>
 static cudaError_t launch_kind(const Args& a, int nsplit, cudaStream_t st) {
-    if (a.D <= 64) return launch_dmax<KIND, 64>(a, nsplit, st);
-    if (a.D <= 128) return launch_dmax<KIND, 128>(a, nsplit, st);
-    return launch_dmax<KIND, 256>(a, nsplit, st);
+    const int Dp = (a.D + 15) & ~15;  // the padded head_dim bounds DMAX
+    if (Dp <= 64) return launch_dmax<KIND, 64>(a, nsplit, st);
+    if (Dp <= 128) return launch_dmax<KIND, 128>(a, nsplit, st);
+    if (Dp <= 256) return launch_dmax<KIND, 256>(a, nsplit, st);
+    return launch_dmax<KIND, 512>(a, nsplit, st);
 }
 
 static cudaError_t launch_flash_decode(
@@ -727,7 +748,7 @@ static cudaError_t launch_flash_decode(
         void* part_ml, void* tickets, int B, int S, int H, int Hkv, int D,
         int nsplit, int rows_per_split, float scale, float softcap,
         cudaStream_t st) {
-    if (Hkv <= 0 || H % Hkv || D % 16 || D < 16 || D > 256 || nsplit < 1
+    if (Hkv <= 0 || H % Hkv || D % 8 || D < 8 || D > 512 || nsplit < 1
         || nsplit > MAXNS || rows_per_split % TR
         || (long long)nsplit * rows_per_split < S)
         return cudaErrorInvalidValue;

@@ -48,6 +48,12 @@ __device__ __forceinline__ void cp_async8_zfill(void* dst, const void* src,
                  :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
 }
 
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src,
+                                                int src_bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
 // four 8x8 b16 matrices; lanes 8m..8m+7 give the row addresses of matrix
 // m, and thread t receives row t/4, columns 2(t%4), 2(t%4)+1 of each
 // (.trans: rows 2(t%4), 2(t%4)+1 of column t/4)

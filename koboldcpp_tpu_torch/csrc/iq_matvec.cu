@@ -20,16 +20,17 @@
 // kind 0 = iq2p (qs, sg), 1 = iq3px and 2 = iq3ps (qs, hmask, sg), 3 = iq1p
 // (qs, min); unused pointers may be null. group G in {8, 16, 32}. li set
 // (K17b.<kind>): layer li[0] of stacked fields, n0..n4 the per-layer
-// element counts of qs, hmask, sg, scale and min. A plan whose shared
-// memory differs from this source's layout is refused.
+// element counts of qs, hmask, sg, scale and min. kwin: x's window in K
+// steps (the K steps: x whole). A plan whose shared memory differs from
+// this source's layout is refused.
 KCPP_API int k12_iq_matvec(int kind, const void* qs, const void* hmask,
                            const void* sg, const void* scale, const void* mn,
                            const void* x, void* y, int out_f, int in_f,
                            int group, int grid, int stages, int smem,
-                           STACKED_PARAMS, void* stream) {
+                           STACKED_PARAMS, int kwin, void* stream) {
     if (kind < 0 || kind > 3 || (group != 8 && group != 16 && group != 32)
         || !rg_plan_ok(kind + 1, group, true, false, out_f, in_f, grid,
-                       stages, smem)
+                       stages, smem, kwin)
         || (kind == 0 && sg == nullptr)
         || ((kind == 1 || kind == 2) && (hmask == nullptr || sg == nullptr))
         || (kind == 3 && mn == nullptr))
@@ -37,7 +38,7 @@ KCPP_API int k12_iq_matvec(int kind, const void* qs, const void* hmask,
     const Stacked stk = STACKED_ARG;
     cudaStream_t st = (cudaStream_t)stream;
 #define K12_CALL(K, G) rowmvg_launch<K, true, G>(qs, hmask, sg, scale, mn, \
-        x, y, out_f, in_f, grid, stages, smem, stk, st)
+        x, y, out_f, in_f, grid, stages, smem, stk, kwin, st)
 #define K12_KIND(K) (group == 8 ? K12_CALL(K, 8) \
                      : group == 16 ? K12_CALL(K, 16) : K12_CALL(K, 32))
     cudaError_t err;

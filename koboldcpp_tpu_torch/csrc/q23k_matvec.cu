@@ -19,21 +19,22 @@
 // q3 = 0: q2_k (qs, scale, min; hmask null); q3 = 1: q3_k (qs, hmask,
 // scale; min null). i8: int8 activations, else bf16. li set (K17b.q2_k /
 // .q3_k): layer li[0] of stacked fields, n0..n3 the per-layer element
-// counts of qs, hmask, scale and min. A plan whose shared memory differs
-// from this source's layout is refused.
+// counts of qs, hmask, scale and min. kwin: x's window in K steps (the K
+// steps: x whole). A plan whose shared memory differs from this source's
+// layout is refused.
 KCPP_API int k12_q23k_matvec(int q3, const void* qs, const void* hmask,
                              const void* scale, const void* mn,
                              const void* x, void* y, int out_f, int in_f,
                              int i8, int grid, int stages, int smem,
-                             STACKED_PARAMS, void* stream) {
+                             STACKED_PARAMS, int kwin, void* stream) {
     const int kind = q3 ? RK_Q3 : RK_Q2;
-    if (!rm_plan_ok(kind, i8 != 0, out_f, in_f, grid, stages, smem)
+    if (!rm_plan_ok(kind, i8 != 0, out_f, in_f, grid, stages, smem, kwin)
         || (q3 ? hmask == nullptr : mn == nullptr))
         return (int)cudaErrorInvalidValue;
     const Stacked stk = STACKED_ARG;
     cudaStream_t st = (cudaStream_t)stream;
 #define K12_ARGS qs, hmask, scale, mn, x, y, out_f, in_f, grid, stages, smem, \
-        stk, st
+        stk, kwin, st
     cudaError_t err;
     if (q3)
         err = i8 ? rowmv_launch<RK_Q3, true>(K12_ARGS)

@@ -57,7 +57,14 @@
 //     memory and are added in warp order;
 //   * at T = 1 fills every B column with token 0, so each lane's fragment
 //     holds useful P and a lane combines one row: a quarter of the general
-//     body's f32 work per group.
+//     body's f32 work per group;
+//   * at T = 1, where x's codes do not fit a block next to the ring (in_f
+//     beyond ~107K for q4_k, ~94K for q5_k), holds x in windows of `kwin`
+//     K steps (`q4k_plan`): at a window's first K step of every tile the
+//     block preps that window anew (a template flag: the body for x whole
+//     has no window code). A group's codes, scale and sum are the same
+//     values in a window and whole, and the partial sums stay in
+//     registers across windows, so the result is the same bits.
 // Every product and sum is an explicit __fmaf_rn / __fmul_rn / __fadd_rn
 // or an mma, in an order fixed by the superblock and group alone: a (row,
 // token) goes through the same operations whatever T is and whichever mma
@@ -65,9 +72,9 @@
 // request served in a batch gets the tokens it gets alone.
 //
 // The bf16-activation bodies (in_f < 512, the fixtures; KCPP_Q4K_I8=0 at
-// T <= 4) keep the first design: a group-sum prep launch (act_prep_kernel,
-// no codes), then one warp per output row with the exact f32 dots of bf16
-// x and the codes.
+// T <= 4) keep the first design: a group-sum prep launch
+// (group_sums_kernel), then one warp per output row with the exact f32
+// dots of bf16 x and the codes.
 // Launch counters: ops/_build.launches["K1"] and ["K7"] (q4_k),
 // ["K1.q5_k"] and ["K7.q5_k"] (q5_k), ["K17a"] and ["K17a.q5_k"]
 // (stacked), one per matvec.
@@ -95,7 +102,7 @@ constexpr int I8_PART_T = I8_KS * I8_RT + 4;
 // superblocks of codes, 16-byte chunks swizzled by row; then per row the
 // 8 x 8 bf16 scales, the 8 x 8 mins and 16 B of padding; q5_k: per row the
 // 8 x 32 B bit plane and 16 B of padding), the x codes (per token in_f +
-// 64 bytes), the scales sx (per group and token pair a float2), the group
+// 64 bytes; in_f: x's columns, or those of its window), the scales sx (per group and token pair a float2), the group
 // sums xs ([T][in_f/32] bf16), and the tile's partial sums ([2][8 tokens]
 // [8 warps][16 rows] f32, tokens 132 floats apart).
 struct I8Layout {
@@ -121,8 +128,9 @@ __host__ __device__ inline I8Layout i8_layout(bool q5, int T, int in_f) {
 // T1: the T = 1 body. Its B columns all hold token 0, so every lane's C
 // holds P of rows gid and gid + 8; lane tig then takes row gid + 8 (tig
 // & 1), and its chain of products is the one the general body runs for
-// (that row, token 0): the same operations in the same order.
-template <bool Q5, bool T1>
+// (that row, token 0): the same operations in the same order. WIN (T1
+// only): x in windows of kwin K steps.
+template <bool Q5, bool T1, bool WIN>
 __global__ void __launch_bounds__(I8_THREADS, 2)
 q4k_i8_kernel(const uint8_t* __restrict__ qs2,
               const uint8_t* __restrict__ qh,          // q5_k (out, in/8)
@@ -130,13 +138,16 @@ q4k_i8_kernel(const uint8_t* __restrict__ qs2,
               const __nv_bfloat16* __restrict__ mn,
               const __nv_bfloat16* __restrict__ x,     // (T, in_f)
               __nv_bfloat16* __restrict__ y,           // (T, out_f)
-              int T, int out_f, int in_f, Stacked stk) {
+              int T, int out_f, int in_f, Stacked stk, int kwin) {
+    static_assert(T1 || !WIN, "x in windows at T = 1 only");
     extern __shared__ __align__(16) uint8_t smem[];
     qs2 = stk.at(qs2, 0);
     qh = stk.at(qh, 1);
     scale = stk.at(scale, 2);
     mn = stk.at(mn, 3);
-    const I8Layout L = i8_layout(Q5, T, in_f);
+    // x's window: its columns (all of x without WIN)
+    const int wcols = WIN ? min(in_f, kwin * I8_KS * 256) : in_f;
+    const I8Layout L = i8_layout(Q5, T, wcols);
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int gid = lane >> 2, tig = lane & 3;
     const int nsb = in_f / 256, ng = in_f / 32, np = (T + 1) / 2;
@@ -155,6 +166,7 @@ q4k_i8_kernel(const uint8_t* __restrict__ qs2,
     // queue behind it.
     constexpr int CL = T1 ? 1 : I8_CLUSTER;
     Q4kPrep<32, CL> px(x, T, in_f, T1 ? 0u : cluster_rank());
+    if (WIN) px.window(x, wcols);
     px.load(0, tid);
     if (!T1) cluster_arrive_relaxed();  // the peer writes here once started
 
@@ -210,13 +222,25 @@ q4k_i8_kernel(const uint8_t* __restrict__ qs2,
         acc[2] = __fmaf_rn(__fmul_rn((float)p[2], q.x), sr8, acc[2]);
         acc[3] = __fmaf_rn(__fmul_rn((float)p[3], q.y), sr8, acc[3]);
     };
+    int wsb0 = 0;  // the window's first superblock
     for (int it = 0; it < total; ++it) {
+        const int ks = it % ksteps;
+        if (WIN && it > 0 && ks % kwin == 0) {
+            // the next window (at a new tile the first again): once every
+            // warp is done with the last one, prep it as above
+            wsb0 = ks * I8_KS;
+            __syncthreads();
+            Q4kPrep<32, CL> pw(x, T, in_f, 0u);
+            pw.window(x + wsb0 * 256, min(wcols, in_f - wsb0 * 256));
+            pw.load(0, tid);
+            pw.run(xi, L.xs_pitch, prep, xsum, tid);
+        }
         cp_async_wait<I8_STAGES - 2>();
         __syncthreads();
         if (it + I8_STAGES - 1 < total) issue(it + I8_STAGES - 1);
         cp_async_commit();
-        const int ks = it % ksteps;
         const int sb = ks * I8_KS + warp;
+        const int sw = sb - wsb0;  // in x's window
         if (sb < nsb) {
             const uint8_t* st = smem + (it % I8_STAGES) * L.stage;
             const uint8_t* scb = st + I8_RT * L.qs_pitch;
@@ -241,14 +265,14 @@ q4k_i8_kernel(const uint8_t* __restrict__ qs2,
                 uint32_t xs2 = 0u;
                 if (T1 || gid < T)
                     xs2 = *reinterpret_cast<const uint32_t*>(
-                        xsum + (T1 ? 0 : gid) * ng + sb * 8 + 2 * tig);
+                        xsum + (T1 ? 0 : gid) * ng + sw * 8 + 2 * tig);
                 mma1688(accm, m0, m1, xs2);
             }
             uint4 h[4];  // q5_k: rows gid, gid+8, words 0-3 / 4-7
             if (Q5) q4k_load_qh(h, scb + I8_RT * L.sc_pitch + warp * 32, gid);
             const uint8_t* arow = st + lrow * L.qs_pitch + warp * 128;
             // T1: every B column is token 0
-            const uint8_t* xrow = xi + (T1 ? 0 : gid) * L.xs_pitch + sb * 256
+            const uint8_t* xrow = xi + (T1 ? 0 : gid) * L.xs_pitch + sw * 256
                                   + tig * 16;
 #pragma unroll
             for (int k = 0; k < 4; ++k) {
@@ -264,9 +288,9 @@ q4k_i8_kernel(const uint8_t* __restrict__ qs2,
                 if (T1 || tig < np) {
                     const int pair = T1 ? 0 : tig;
                     pl = *reinterpret_cast<const float2*>(
-                        prep + ((size_t)(sb * 8 + k) * np + pair) * 2);
+                        prep + ((size_t)(sw * 8 + k) * np + pair) * 2);
                     ph = *reinterpret_cast<const float2*>(
-                        prep + ((size_t)(sb * 8 + k + 4) * np + pair) * 2);
+                        prep + ((size_t)(sw * 8 + k + 4) * np + pair) * 2);
                 }
                 // group k, then group k + 4
                 combine(plo, pl, k);
@@ -314,16 +338,16 @@ q4k_i8_kernel(const uint8_t* __restrict__ qs2,
     cp_async_wait<0>();
 }
 
-template <bool Q5, bool T1>
+template <bool Q5, bool T1, bool WIN = false>
 static cudaError_t launch_i8(const void* qs2, const void* qh,
                              const void* scale, const void* mn, const void* x,
                              void* y, int T, int out_f, int in_f, int grid,
-                             int smem, Stacked stk, cudaStream_t st) {
+                             int smem, Stacked stk, int kwin, cudaStream_t st) {
     static bool ready = false;  // the opt-in above 48 KB, once per body
     if (!ready) {
         cudaError_t e = cudaFuncSetAttribute(
-            q4k_i8_kernel<Q5, T1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            I8_SMEM_MAX);
+            q4k_i8_kernel<Q5, T1, WIN>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, I8_SMEM_MAX);
         if (e != cudaSuccess) return e;
         ready = true;
     }
@@ -340,35 +364,45 @@ static cudaError_t launch_i8(const void* qs2, const void* qh,
     cfg.attrs = attr;
     cfg.numAttrs = T1 ? 0 : 1;
     cudaError_t e = cudaLaunchKernelEx(
-        &cfg, q4k_i8_kernel<Q5, T1>, (const uint8_t*)qs2, (const uint8_t*)qh,
-        (const __nv_bfloat16*)scale, (const __nv_bfloat16*)mn,
-        (const __nv_bfloat16*)x, (__nv_bfloat16*)y, T, out_f, in_f, stk);
+        &cfg, q4k_i8_kernel<Q5, T1, WIN>, (const uint8_t*)qs2,
+        (const uint8_t*)qh, (const __nv_bfloat16*)scale,
+        (const __nv_bfloat16*)mn, (const __nv_bfloat16*)x, (__nv_bfloat16*)y,
+        T, out_f, in_f, stk, kwin);
     return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 // K1 (T == 1), K7 (2 <= T <= 8) and K17a (T == 1, li set: layer li[0] of
 // stacked fields, n0..n3 the per-layer element counts of qs2, qh, scale
 // and min), int8 activations; qh is the q5_k bit plane, or null for q4_k.
-// grid and smem come from `q4k_plan`; a plan whose shared memory differs
-// from this source's layout is refused.
+// grid, smem and kwin (x's window in K steps, T == 1 only below the K
+// steps) come from `q4k_plan`; a plan whose shared memory differs from
+// this source's layout is refused.
 KCPP_API int k1_q4k_i8(const void* qs2, const void* qh, const void* scale,
                        const void* mn, const void* x, void* y, int T,
                        int out_f, int in_f, int grid, int smem,
-                       STACKED_PARAMS, void* stream) {
-    if (T < 1 || T > I8_TOKENS || in_f % 256 || out_f % I8_RT || grid < 1
-        || grid > out_f / I8_RT || grid % I8_CLUSTER || smem > I8_SMEM_MAX
-        || smem != i8_layout(qh != nullptr, T, in_f).total)
+                       STACKED_PARAMS, int kwin, void* stream) {
+    const int ksteps = (in_f / 256 + I8_KS - 1) / I8_KS;
+    if (T < 1 || T > I8_TOKENS || in_f <= 0 || in_f % 256 || out_f % I8_RT
+        || grid < 1 || grid > out_f / I8_RT || grid % I8_CLUSTER
+        || smem > I8_SMEM_MAX || kwin < 1 || kwin > ksteps
+        || (T > 1 && kwin < ksteps)
+        || smem != i8_layout(qh != nullptr, T,
+                             min(in_f, kwin * I8_KS * 256)).total)
         return (int)cudaErrorInvalidValue;
     const Stacked stk = STACKED_ARG;
     cudaStream_t st = (cudaStream_t)stream;
-#define I8_ARGS qs2, qh, scale, mn, x, y, T, out_f, in_f, grid, smem, stk, st
+    const bool win = kwin < ksteps;
+#define I8_ARGS qs2, qh, scale, mn, x, y, T, out_f, in_f, grid, smem, stk, \
+        kwin, st
     cudaError_t err;
     if (qh)
-        err = T == 1 ? launch_i8<true, true>(I8_ARGS)
-                     : launch_i8<true, false>(I8_ARGS);
+        err = T > 1 ? launch_i8<true, false>(I8_ARGS)
+              : win ? launch_i8<true, true, true>(I8_ARGS)
+                    : launch_i8<true, true>(I8_ARGS);
     else
-        err = T == 1 ? launch_i8<false, true>(I8_ARGS)
-                     : launch_i8<false, false>(I8_ARGS);
+        err = T > 1 ? launch_i8<false, false>(I8_ARGS)
+              : win ? launch_i8<false, true, true>(I8_ARGS)
+                    : launch_i8<false, true>(I8_ARGS);
 #undef I8_ARGS
     return (int)err;
 }
@@ -495,8 +529,7 @@ static cudaError_t launch_bf16(int T, const void* qs2, const void* qh,
 // each 32-column group (the groups never straddle two tokens: in_f is a
 // multiple of 256)
 KCPP_API int k1_q4k_sums(const void* x, void* xsum, int n, void* stream) {
-    return (int)launch_act_prep<32>(x, nullptr, nullptr, xsum, n, 0,
-                                    (cudaStream_t)stream);
+    return (int)launch_group_sums<32>(x, xsum, n, (cudaStream_t)stream);
 }
 
 // K1 / K7 / K17a with bf16 activations (xsum from k1_q4k_sums)

@@ -17,20 +17,21 @@
 
 // K2, and K17b (li set: layer li[0] of stacked fields, n0..n2 the
 // per-layer element counts of ql, qh and scale). i8: int8 activations,
-// else bf16. A plan whose shared memory differs from this source's layout
-// is refused.
+// else bf16; kwin: x's window in K steps (the K steps: x whole). A plan
+// whose shared memory differs from this source's layout is refused.
 KCPP_API int k2_q6k_matvec(const void* ql, const void* qh, const void* scale,
                            const void* x, void* y, int out_f, int in_f,
                            int i8, int grid, int stages, int smem,
-                           STACKED_PARAMS, void* stream) {
-    if (!rm_plan_ok(RK_Q6, i8 != 0, out_f, in_f, grid, stages, smem))
+                           STACKED_PARAMS, int kwin, void* stream) {
+    if (!rm_plan_ok(RK_Q6, i8 != 0, out_f, in_f, grid, stages, smem, kwin))
         return (int)cudaErrorInvalidValue;
     const Stacked stk = STACKED_ARG;
     cudaStream_t st = (cudaStream_t)stream;
     return (int)(i8 ? rowmv_launch<RK_Q6, true>(ql, qh, scale, nullptr, x, y,
                                                 out_f, in_f, grid, stages,
-                                                smem, stk, st)
+                                                smem, stk, kwin, st)
                     : rowmv_launch<RK_Q6, false>(ql, qh, scale, nullptr, x,
                                                  y, out_f, in_f, grid,
-                                                 stages, smem, stk, st));
+                                                 stages, smem, stk, kwin,
+                                                 st));
 }

@@ -22,20 +22,20 @@
 // xmode 1: int8 activations; 0: bf16 x, 2: bf16 x kept as f32 in shared
 // memory (`rowmv_plan`'s xf32). li set (K17b.q8_0): layer li[0] of
 // stacked fields, n0 / n3 the per-layer element counts of q and scale (n1,
-// n2, n4 unused). A plan whose shared memory differs from this source's
-// layout is refused.
+// n2, n4 unused). kwin: x's window in K steps (the K steps: x whole). A
+// plan whose shared memory differs from this source's layout is refused.
 KCPP_API int k2_q8_0_matvec(const void* q, const void* scale, const void* x,
                             void* y, int out_f, int in_f, int xmode, int grid,
-                            int stages, int smem, STACKED_PARAMS,
+                            int stages, int smem, STACKED_PARAMS, int kwin,
                             void* stream) {
     if (xmode < 0 || xmode > 2
         || !rg_plan_ok(GK_Q8, 32, xmode == 1, xmode == 2, out_f, in_f, grid,
-                       stages, smem))
+                       stages, smem, kwin))
         return (int)cudaErrorInvalidValue;
     const Stacked stk = STACKED_ARG;
     cudaStream_t st = (cudaStream_t)stream;
 #define K2_ARGS q, nullptr, nullptr, scale, nullptr, x, y, out_f, in_f, \
-        grid, stages, smem, stk, st
+        grid, stages, smem, stk, kwin, st
     const cudaError_t err =
         xmode == 1 ? rowmvg_launch<GK_Q8, true, 32>(K2_ARGS)
         : xmode == 2 ? rowmvg_launch<GK_Q8, false, 32, true>(K2_ARGS)

@@ -1,10 +1,16 @@
-// The T=1 row matvec body of K2 (q6_k, csrc/q6k_matvec.cu) and K12 (q2_k /
-// q3_k, csrc/q23k_matvec.cu), and of K17b's entries for these kinds:
-// y (1, out_f) bf16 = x (1, in_f) . W^T, with 16-column groups g of scale
-// s_g (and q2_k's min m_g):
+// The T=1 row matvec body of K2 (q6_k, csrc/q6k_matvec.cu), K12 (q2_k /
+// q3_k, csrc/q23k_matvec.cu; the expanded layouts q6_k_i8f / q3_k_n4 /
+// q2_k_n4, csrc/kq_expanded_matvec.cu), and of K17b's entries for q6_k,
+// q2_k and q3_k: y (1, out_f) bf16 = x (1, in_f) . W^T, with 16-column
+// groups g of scale s_g (and q2_k's min m_g):
 //   q6_k: w = (q6 - 32) * s, q6 0..63 (ql nibble | 2 high bits from qh);
 //   q3_k: w = (q3 - 4) * s,  q3 0..7  (2 bits from qs | 1 bit from hmask);
-//   q2_k: w = q2 * s - m,    q2 0..3.
+//   q2_k: w = q2 * s - m,    q2 0..3;
+//   q6_k_i8f: w = v * s, v = q6 - 32 one int8 a weight in column order;
+//   q3_k_n4 / q2_k_n4: q3_k's / q2_k's w over a nibble a code: n4 byte
+//         16b + k holds column 32b + k in its low nibble and 32b + 16 + k
+//         in its high one, so a 16-byte chunk of a row holds two groups'
+//         codes, each in column order.
 // The port's layout (ops/linear.py), GGUF's bit orders: element 256s +
 // 128h + 32j + l of a row (superblock s, half h, plane j, l 0..31) is
 //   q6_k: the low (j < 2) or high (j >= 2) nibble of ql byte 128s + 64h +
@@ -21,8 +27,11 @@
 // 1e-20; sx = amax / 127), the group dot P_g with the codes is an exact
 // int32, and with the bf16 group sums xs (the f32 sum, rounded):
 //   q6_k  y = sum_g P_g sx_g s_g - 32 sum_g xs_g s_g,
-//   q3_k  y = sum_g P_g sx_g s_g -  4 sum_g xs_g s_g,
-//   q2_k  y = sum_g P_g sx_g s_g -    sum_g xs_g m_g.
+//   q3_k  y = sum_g P_g sx_g s_g -  4 sum_g xs_g s_g   (q3_k_n4 alike),
+//   q2_k  y = sum_g P_g sx_g s_g -    sum_g xs_g m_g   (q2_k_n4 alike),
+//   q6_k_i8f y = sum_g P_g sx_g s_g (P of the signed values).
+// The expanded kinds are int8 only (JAX `_q6k_i8f_row_kernel`,
+// `_q3k_n4_row_kernel`, `_q2k_n4_row_kernel`).
 // The bf16-activation bodies (in_f < 512, and every width under
 // KCPP_MM_I8=0): P_g is the f32 dot of bf16 x with the code plus the JAX
 // kernels' offset (q6 + 0, q2 + 4, q3 + 8; exact in bf16), so the
@@ -33,7 +42,8 @@
 //
 // Bound on the H100: bytes, each read once: q6_k 0.75 B/weight of ql + qh
 // and 2 B of bf16 scale per 16 (0.875 B/weight: the 1.1B's head, 57.3 MB,
-// takes 17.1 us at 3.35 TB/s), q3_k 0.5, q2_k 0.5. The first design (a
+// takes 17.1 us at 3.35 TB/s), q3_k 0.5, q2_k 0.5; q6_k_i8f 1.125, q3_k_n4
+// 0.625, q2_k_n4 0.75. The first design (a
 // warp per row, a separate activation-prep launch, scalar global loads of
 // every scale, sx and xs, bf16 x read one element at a time) ran 2-19x
 // its bound. This one, K1's design adapted to 16-column groups:
@@ -58,9 +68,19 @@
 //     offset off, exactly), B = x; the k order inside a group is permuted
 //     alike in A and B (lane t's k 2t, 2t+1 and 8+2t, 9+2t are columns 4t
 //     .. 4t+3), so that one 4-byte code word makes a lane's fragment;
+//     The expanded kinds' A fragments need no decode: q6_k_i8f's int8
+//     values are A as ldmatrix gives them, an n4 word masked (low nibbles)
+//     or shifted and masked (high ones) is A of one of its two groups;
 //   * takes the group-sum terms on bf16 mma.sync m16n8k16 once per
 //     superblock: A = the 16 groups' s (or m) of 16 rows, B = xs, products
-//     exact, f32 sums; scaled by the constant at the end.
+//     exact, f32 sums; scaled by the constant at the end;
+//   * where x does not fit a block next to the ring (in_f beyond ~67K-130K
+//     by kind and body), holds x in windows of `kwin` K steps
+//     (`rowmv_plan`): at a window's first K step of every tile the block
+//     preps that window anew (a template flag: the body for x whole has no
+//     window code). A group's codes, sx and xs are the same values in a
+//     window and whole, and the partial sums stay in registers across
+//     windows, so the result is the same bits.
 // Warp w of a block takes superblock w of each stage (8 superblocks), so
 // the 8 warps split K; every lane combines one row (lanes 4r, 4r+1 rows r,
 // r+8; every B column holds token 0, so each C fragment holds useful P);
@@ -75,7 +95,9 @@
 #include "common.cuh"
 #include "hopper.cuh"
 
-enum RowKind { RK_Q6 = 0, RK_Q2 = 1, RK_Q3 = 2 };
+// the dense kinds, then the expanded layouts (ROWMV_KINDS, ROWMV_X_KINDS)
+enum RowKind { RK_Q6 = 0, RK_Q2 = 1, RK_Q3 = 2, RK_X6 = 3, RK_X3 = 4,
+               RK_X2 = 5 };
 
 constexpr int RM_THREADS = 256;  // 8 warps
 constexpr int RM_KS = 8;         // superblocks per stage: one per warp
@@ -86,20 +108,25 @@ constexpr int RM_SMEM_MAX = 232448;
 // bytes per superblock row of the codes (ql / qs), the second code field
 // (qh / hmask; 0: none), the scales and the mins (q2_k)
 __host__ __device__ constexpr int rm_b0(int kind) {
-    return kind == RK_Q6 ? 128 : 64;
+    return kind == RK_X6 ? 256 : kind == RK_Q6 || kind >= RK_X3 ? 128 : 64;
 }
 __host__ __device__ constexpr int rm_b1(int kind) {
     return kind == RK_Q6 ? 64 : kind == RK_Q3 ? 32 : 0;
 }
 __host__ __device__ constexpr int rm_bm(int kind) {
-    return kind == RK_Q2 ? 32 : 0;
+    return kind == RK_Q2 || kind == RK_X2 ? 32 : 0;
+}
+// the window's columns: kwin K steps of 8 superblocks, at most in_f
+__host__ __device__ inline int rm_wcols(int in_f, int kwin) {
+    return in_f < kwin * RM_KS * 256 ? in_f : kwin * RM_KS * 256;
 }
 
 // Byte offsets of the dynamic shared memory, as `rowmv_layout` computes them
 // (ops/quant_matmul.py): the ring (per stage, each field's 16 rows of 8
 // superblocks at a pitch of 8 superblocks + 16 bytes: codes, second code
-// field, scales, mins), the x image (int8 codes: per 128 columns, lane t's
-// 4 codes of each of the 8 groups in 32 bytes; bf16 x: the same in 64),
+// field, scales, mins), the x image of in_f columns (x's, or its window's;
+// int8 codes: per 128 columns, lane t's 4 codes of each of the 8 groups in
+// 32 bytes; bf16 x: the same in 64),
 // the scales sx (f32, int8 only) and sums xs (bf16) per group, and the
 // tile's partial sums ([3][8 warps][16 rows] f32).
 struct RmLayout {
@@ -149,28 +176,31 @@ __device__ __forceinline__ void rm_copy(uint8_t* dst, int pitch,
     }
 }
 
-template <int KIND, bool I8>
+template <int KIND, bool I8, bool WIN>
 __global__ void __launch_bounds__(RM_THREADS, 2)
-rowmv_kernel(const uint8_t* __restrict__ f0,          // ql / qs
+rowmv_kernel(const uint8_t* __restrict__ f0,          // ql / qs / q / n4
              const uint8_t* __restrict__ f1,          // qh / hmask / null
              const __nv_bfloat16* __restrict__ scale,
-             const __nv_bfloat16* __restrict__ mn,    // q2_k min / null
+             const __nv_bfloat16* __restrict__ mn,    // q2_k(_n4) min / null
              const __nv_bfloat16* __restrict__ x,     // (in_f)
              __nv_bfloat16* __restrict__ y,           // (out_f)
-             int out_f, int in_f, int stages, Stacked stk) {
+             int out_f, int in_f, int stages, Stacked stk, int kwin) {
     extern __shared__ __align__(16) uint8_t smem[];
+    constexpr bool XK = KIND >= RK_X6;  // an expanded layout (int8 x)
+    static_assert(I8 || !XK, "the expanded kinds take int8 x");
     constexpr int B0 = rm_b0(KIND), B1 = rm_b1(KIND), BM = rm_bm(KIND);
     // the constant of the sum_g xs_g s_g term (0: no such term)
     constexpr float CX = KIND == RK_Q6 ? 32.f
-                         : KIND == RK_Q3 ? (I8 ? 4.f : 12.f)
-                                         : (I8 ? 0.f : 4.f);
+                         : KIND == RK_Q3 || KIND == RK_X3 ? (I8 ? 4.f : 12.f)
+                         : KIND == RK_Q2 ? (I8 ? 0.f : 4.f) : 0.f;
     // the bf16 bodies' offset: A holds bf16(code + OFF)
     constexpr float OFF = KIND == RK_Q6 ? 0.f : KIND == RK_Q3 ? 8.f : 4.f;
     f0 = stk.at(f0, 0);
     f1 = stk.at(f1, 1);
     scale = stk.at(scale, 2);
     mn = stk.at(mn, 3);
-    const RmLayout L = rm_layout(KIND, I8, in_f, stages);
+    const int wcols = WIN ? rm_wcols(in_f, kwin) : in_f;  // x's window
+    const RmLayout L = rm_layout(KIND, I8, wcols, stages);
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int gid = lane >> 2, tig = lane & 3;
     const int nsb = in_f / 256, ng = in_f / 16;
@@ -182,18 +212,19 @@ rowmv_kernel(const uint8_t* __restrict__ f0,          // ql / qs
                  rs = (size_t)ng * 2;
 
     // activation prep, part 1: two lanes per group, 8 columns (one 16-byte
-    // load) each; the first RM_XR rounds go out before the weight stream
-    const int ntask = in_f / 8;
+    // load) each, over x or a window of it (xw: its first column, ntask:
+    // its columns / 8); the first RM_XR rounds go out before the weight
+    // stream
     uint4 raw[RM_XR];
-    auto load_x = [&](int base) {
+    auto load_x = [&](const __nv_bfloat16* xw, int ntask, int base) {
 #pragma unroll
         for (int u = 0; u < RM_XR; ++u) {
             const int li = base + u * RM_THREADS + tid;
-            raw[u] = li < ntask ? *reinterpret_cast<const uint4*>(x + li * 8)
+            raw[u] = li < ntask ? *reinterpret_cast<const uint4*>(xw + li * 8)
                                 : make_uint4(0u, 0u, 0u, 0u);
         }
     };
-    load_x(0);
+    load_x(x, wcols / 8, 0);
 
     // one stage: rows [tile*16, +16) x superblocks [kstep*8, +8) of every
     // field
@@ -224,8 +255,9 @@ rowmv_kernel(const uint8_t* __restrict__ f0,          // ql / qs
     uint8_t* xi = smem + L.x_off;
     float* sxs = reinterpret_cast<float*>(smem + L.sx_off);
     __nv_bfloat16* xss = reinterpret_cast<__nv_bfloat16*>(smem + L.xs_off);
+    auto prep_x = [&](const __nv_bfloat16* xw, int ntask) {
     for (int base = 0; base < ntask; base += RM_XR * RM_THREADS) {
-        if (base) load_x(base);
+        if (base) load_x(xw, ntask, base);
 #pragma unroll
         for (int u = 0; u < RM_XR; ++u) {
             if (base + u * RM_THREADS >= ntask) break;  // the same for all
@@ -270,6 +302,8 @@ rowmv_kernel(const uint8_t* __restrict__ f0,          // ql / qs
             if (v == 0) xss[g] = f2bf(sm);
         }
     }
+    };
+    prep_x(x, wcols / 8);
 
     // lane (gid, tig) combines row myrow of the tile; its ldmatrix row and
     // chunk pick (lanes 8m..8m+7 address matrix m: rows 0-7 / 8-15 of the
@@ -281,15 +315,25 @@ rowmv_kernel(const uint8_t* __restrict__ f0,          // ql / qs
     const uint32_t unbias = pack_bf16(OFF - 128.f, OFF - 128.f);
     float acc = 0.f;
     float accx[4] = {0.f, 0.f, 0.f, 0.f}, accm[4] = {0.f, 0.f, 0.f, 0.f};
-    int slot = 0;
+    int slot = 0, wsb0 = 0;  // wsb0: the window's first superblock
     for (int it = 0; it < total; ++it) {
+        const int ks = it % ksteps;
+        if (WIN && it > 0 && ks % kwin == 0) {
+            // the next window (at a new tile the first again): once every
+            // warp is done with the last one, prep it as above
+            wsb0 = ks * RM_KS;
+            __syncthreads();
+            const int nt = min(wcols, in_f - wsb0 * 256) / 8;
+            load_x(x + wsb0 * 256, nt, 0);
+            prep_x(x + wsb0 * 256, nt);
+        }
         cp_async_wait_n(stages - 2);
         __syncthreads();
         if (it + stages - 1 < total)
             issue(it + stages - 1, slot == 0 ? stages - 1 : slot - 1);
         cp_async_commit();
-        const int ks = it % ksteps;
         const int sb = ks * RM_KS + warp;
+        const int sw = sb - wsb0;  // in x's window
         if (sb < nsb) {
             const uint8_t* st = smem + slot * L.stage;
             const uint8_t* scb = st + L.os + warp * 32;  // this superblock
@@ -298,7 +342,7 @@ rowmv_kernel(const uint8_t* __restrict__ f0,          // ql / qs
                 // cores: A = 16 rows x 16 groups of s, B = xs in every
                 // column; products exact, f32 sums
                 const uint32_t* xw =
-                    reinterpret_cast<const uint32_t*>(xss + sb * 16);
+                    reinterpret_cast<const uint32_t*>(xss + sw * 16);
                 const uint32_t b0 = xw[tig], b1 = xw[4 + tig];
                 if (CX != 0.f) {
                     const uint8_t* sr = scb + 4 * tig;
@@ -318,6 +362,57 @@ rowmv_kernel(const uint8_t* __restrict__ f0,          // ql / qs
                 }
             }
             const uint8_t* arow = st + lrow * L.p0 + warp * B0;
+            if constexpr (XK) {
+                // the expanded layouts: per half h, groups 8h..8h+7 of the
+                // superblock. ldmatrix.x4 of chunks c, c + 1 gives q[2u + r]
+                // = chunk c + u of row gid + 8r; q6_k_i8f's chunk c is group
+                // c (its int8 values: A as they are), an n4 chunk c holds
+                // group 2c (low nibbles) and 2c + 1 (high ones)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    uint32_t cw[8][2];  // [group 8h + gl][row gid + 8r]
+#pragma unroll
+                    for (int i = 0; i < (KIND == RK_X6 ? 4 : 2); ++i) {
+                        uint32_t q[4];
+                        ldmatrix_x4(q, arow + (((KIND == RK_X6 ? 8 : 4) * h
+                                                + 2 * i + lsel) << 4));
+#pragma unroll
+                        for (int u = 0; u < 2; ++u)
+#pragma unroll
+                            for (int r = 0; r < 2; ++r) {
+                                if (KIND == RK_X6) {
+                                    cw[2 * i + u][r] = q[2 * u + r];
+                                } else {
+                                    cw[4 * i + 2 * u][r] = q[2 * u + r] & 0x0F0F0F0Fu;
+                                    cw[4 * i + 2 * u + 1][r] =
+                                        (q[2 * u + r] >> 4) & 0x0F0F0F0Fu;
+                                }
+                            }
+                    }
+                    // this lane's row's 8 scales, the 8 groups' sx and the
+                    // lane's B words of half 2 sb + h
+                    const uint4 sv = *reinterpret_cast<const uint4*>(
+                        st + L.os + myrow * L.ps + warp * 32 + h * 16);
+                    const float4 sxa = *reinterpret_cast<const float4*>(
+                        sxs + sw * 16 + 8 * h);
+                    const float4 sxb = *reinterpret_cast<const float4*>(
+                        sxs + sw * 16 + 8 * h + 4);
+                    const float sxv[8] = {sxa.x, sxa.y, sxa.z, sxa.w,
+                                          sxb.x, sxb.y, sxb.z, sxb.w};
+                    const uint8_t* xb = xi + (2 * sw + h) * 128 + tig * 32;
+                    const uint4 xv[2] = {*reinterpret_cast<const uint4*>(xb),
+                                         *reinterpret_cast<const uint4*>(xb + 16)};
+#pragma unroll
+                    for (int gl = 0; gl < 8; ++gl) {
+                        int d[4];
+                        mma16816_s8(d, cw[gl][0], cw[gl][1],
+                                    u4_at(xv[gl >> 2], gl & 3));
+                        const float p = (float)(tig & 1 ? d[2] : d[0]);
+                        acc = __fmaf_rn(__fmul_rn(p, sxv[gl]), bf_at(sv, gl),
+                                        acc);
+                    }
+                }
+            } else {
             uint32_t hm[4];  // q3_k: hmask chunks u = 0, 1 (rows gid, gid+8)
             if (KIND == RK_Q3)
                 ldmatrix_x4(hm, st + L.o1 + lrow * L.p1 + warp * 32
@@ -343,14 +438,14 @@ rowmv_kernel(const uint8_t* __restrict__ f0,          // ql / qs
                     st + L.os + myrow * L.ps + warp * 32 + h * 16);
                 float4 sxa = make_float4(0.f, 0.f, 0.f, 0.f), sxb = sxa;
                 if (I8) {
-                    sxa = *reinterpret_cast<const float4*>(sxs + sb * 16 + 8 * h);
-                    sxb = *reinterpret_cast<const float4*>(sxs + sb * 16 + 8 * h + 4);
+                    sxa = *reinterpret_cast<const float4*>(sxs + sw * 16 + 8 * h);
+                    sxb = *reinterpret_cast<const float4*>(sxs + sw * 16 + 8 * h + 4);
                 }
                 const float sxv[8] = {sxa.x, sxa.y, sxa.z, sxa.w,
                                       sxb.x, sxb.y, sxb.z, sxb.w};
                 // this lane's B words of the 8 groups of half 2 sb + h
                 uint4 xv[4];
-                const uint8_t* xb = xi + (2 * sb + h) * (I8 ? 128 : 256)
+                const uint8_t* xb = xi + (2 * sw + h) * (I8 ? 128 : 256)
                                     + tig * (I8 ? 32 : 64);
 #pragma unroll
                 for (int i = 0; i < (I8 ? 2 : 4); ++i)
@@ -402,6 +497,7 @@ rowmv_kernel(const uint8_t* __restrict__ f0,          // ql / qs
                     }
                 }
             }
+            }
         }
         if (ks == ksteps - 1) {
             // the tile's 8 K parts meet in shared memory; one thread per row
@@ -437,33 +533,52 @@ rowmv_kernel(const uint8_t* __restrict__ f0,          // ql / qs
     cp_async_wait<0>();
 }
 
+template <int KIND, bool I8, bool WIN>
+static cudaError_t rowmv_launch1(const void* f0, const void* f1,
+                                 const void* scale, const void* mn,
+                                 const void* x, void* y, int out_f, int in_f,
+                                 int grid, int stages, int smem, Stacked stk,
+                                 int kwin, cudaStream_t st) {
+    static bool ready = false;  // the opt-in above 48 KB, once per body
+    if (!ready) {
+        cudaError_t e = cudaFuncSetAttribute(
+            rowmv_kernel<KIND, I8, WIN>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, RM_SMEM_MAX);
+        if (e != cudaSuccess) return e;
+        ready = true;
+    }
+    rowmv_kernel<KIND, I8, WIN><<<grid, RM_THREADS, smem, st>>>(
+        (const uint8_t*)f0, (const uint8_t*)f1, (const __nv_bfloat16*)scale,
+        (const __nv_bfloat16*)mn, (const __nv_bfloat16*)x,
+        (__nv_bfloat16*)y, out_f, in_f, stages, stk, kwin);
+    return cudaGetLastError();
+}
+
+// the body for x whole, or (kwin below the K steps) in windows
 template <int KIND, bool I8>
 static cudaError_t rowmv_launch(const void* f0, const void* f1,
                                 const void* scale, const void* mn,
                                 const void* x, void* y, int out_f, int in_f,
                                 int grid, int stages, int smem, Stacked stk,
-                                cudaStream_t st) {
-    static bool ready = false;  // the opt-in above 48 KB, once per body
-    if (!ready) {
-        cudaError_t e = cudaFuncSetAttribute(
-            rowmv_kernel<KIND, I8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            RM_SMEM_MAX);
-        if (e != cudaSuccess) return e;
-        ready = true;
-    }
-    rowmv_kernel<KIND, I8><<<grid, RM_THREADS, smem, st>>>(
-        (const uint8_t*)f0, (const uint8_t*)f1, (const __nv_bfloat16*)scale,
-        (const __nv_bfloat16*)mn, (const __nv_bfloat16*)x,
-        (__nv_bfloat16*)y, out_f, in_f, stages, stk);
-    return cudaGetLastError();
+                                int kwin, cudaStream_t st) {
+    const int ksteps = (in_f / 256 + RM_KS - 1) / RM_KS;
+    if (kwin < ksteps)
+        return rowmv_launch1<KIND, I8, true>(f0, f1, scale, mn, x, y, out_f,
+                                             in_f, grid, stages, smem, stk,
+                                             kwin, st);
+    return rowmv_launch1<KIND, I8, false>(f0, f1, scale, mn, x, y, out_f,
+                                          in_f, grid, stages, smem, stk,
+                                          kwin, st);
 }
 
 // the launch arguments `rowmv_plan` gives, checked against this source's
 // layout: a plan that differs is refused
 inline bool rm_plan_ok(int kind, bool i8, int out_f, int in_f, int grid,
-                       int stages, int smem) {
+                       int stages, int smem, int kwin) {
+    const int ksteps = (in_f / 256 + RM_KS - 1) / RM_KS;
     return in_f > 0 && in_f % 256 == 0 && out_f > 0 && out_f % RM_RT == 0
            && grid >= 1 && grid <= out_f / RM_RT && stages >= 3
-           && stages <= 4 && smem <= RM_SMEM_MAX
-           && smem == rm_layout(kind, i8, in_f, stages).total;
+           && stages <= 4 && smem <= RM_SMEM_MAX && kwin >= 1
+           && kwin <= ksteps
+           && smem == rm_layout(kind, i8, rm_wcols(in_f, kwin), stages).total;
 }

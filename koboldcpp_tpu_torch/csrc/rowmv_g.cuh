@@ -72,7 +72,12 @@
 //     gid + 8 of the span, so each x it reads serves two rows, a code to
 //     f32 by one byte permute and one exact subtraction; x is kept as f32
 //     (XF) wherever that costs no block an SM and no ring stage
-//     (`rowmv_plan`), which saves the bf16 -> f32 shift of every x.
+//     (`rowmv_plan`), which saves the bf16 -> f32 shift of every x;
+//   * where x does not fit a block next to the ring (in_f beyond ~78K-
+//     174K by kind and body), holds x in windows of `kwin` K steps
+//     (`rowmv_plan`), rowmv.cuh's way: each window prepped anew at its
+//     first K step of every tile, the same values as x whole (a template
+//     flag: the body for x whole has no window code).
 // Every sum runs in an order fixed by (in_f, span, group): K17b (the same
 // body with the weight pointers moved to layer li, Stacked, common.cuh)
 // gives K2.q8_0's / K12.iq's result on that layer bit for bit.
@@ -108,7 +113,7 @@ __host__ __device__ constexpr int rg_bm(int kind, int g) {
 // Byte offsets of the dynamic shared memory, as `rowmv_layout` computes them
 // (ops/quant_matmul.py): the ring (per stage, each field's 16 rows of 8
 // spans at a pitch of 8 spans + 16 bytes: codes, hmask, sg, scales, mins),
-// the x image (int8 codes, in_f bytes; bf16 x or bf16 x as f32, rg_xpitch
+// the x image of in_f columns (x's, or its window's; int8 codes, in_f bytes; bf16 x or bf16 x as f32, rg_xpitch
 // bytes per 32 columns), sx (f32 per
 // group, int8 only), iq1p's xs (bf16) and code sums (int32) per group, and
 // the tile's partial sums ([2][8 warps][16 rows] f32).
@@ -221,7 +226,13 @@ __device__ __forceinline__ uint32_t iq_values4(uint32_t q, uint32_t hm,
     }
 }
 
-template <int KIND, bool I8, int G, bool XF>
+// the window's columns: kwin K steps of 8 spans, at most in_f
+__host__ __device__ inline int rg_wcols(int kind, int in_f, int kwin) {
+    const int w = kwin * RM_KS * rg_span(kind);
+    return in_f < w ? in_f : w;
+}
+
+template <int KIND, bool I8, int G, bool XF, bool WIN>
 __global__ void __launch_bounds__(RM_THREADS, 2)
 rowmvg_kernel(const uint8_t* __restrict__ f0,          // q8_0 q / IQ qs
               const uint8_t* __restrict__ fh,          // hmask / null
@@ -230,7 +241,7 @@ rowmvg_kernel(const uint8_t* __restrict__ f0,          // q8_0 q / IQ qs
               const __nv_bfloat16* __restrict__ mn,    // iq1p min / null
               const __nv_bfloat16* __restrict__ x,     // (in_f)
               __nv_bfloat16* __restrict__ y,           // (out_f)
-              int out_f, int in_f, int stages, Stacked stk) {
+              int out_f, int in_f, int stages, Stacked stk, int kwin) {
     extern __shared__ __align__(16) uint8_t smem[];
     constexpr int SPAN = rg_span(KIND), B0 = rg_b0(KIND), BH = rg_bh(KIND),
                   BG = rg_bg(KIND), BS = rg_bs(KIND, G), BM = rg_bm(KIND, G);
@@ -242,7 +253,9 @@ rowmvg_kernel(const uint8_t* __restrict__ f0,          // q8_0 q / IQ qs
     fg = stk.at(fg, 2);
     scale = stk.at(scale, 3);
     mn = stk.at(mn, 4);
-    const RgLayout L = rg_layout(KIND, G, I8, XF, in_f, stages);
+    // x's window: its columns (all of x without WIN)
+    const int wcols = WIN ? rg_wcols(KIND, in_f, kwin) : in_f;
+    const RgLayout L = rg_layout(KIND, G, I8, XF, wcols, stages);
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int gid = lane >> 2, tig = lane & 3;
     const int nsp = in_f / SPAN, ng = in_f / G;
@@ -253,19 +266,19 @@ rowmvg_kernel(const uint8_t* __restrict__ f0,          // q8_0 q / IQ qs
     const size_t r0 = (size_t)nsp * B0, r1 = (size_t)in_f / 8,
                  rs = (size_t)ng * 2;
 
-    // activation prep, part 1: 8 columns (one 16-byte load) a task; the
+    // activation prep, part 1: 8 columns (one 16-byte load) a task, over x
+    // or a window of it (xw: its first column, ntask: its columns / 8); the
     // first RM_XR rounds go out before the weight stream
-    const int ntask = in_f / 8;
     uint4 raw[RM_XR];
-    auto load_x = [&](int base) {
+    auto load_x = [&](const __nv_bfloat16* xw, int ntask, int base) {
 #pragma unroll
         for (int u = 0; u < RM_XR; ++u) {
             const int li = base + u * RM_THREADS + tid;
-            raw[u] = li < ntask ? *reinterpret_cast<const uint4*>(x + li * 8)
+            raw[u] = li < ntask ? *reinterpret_cast<const uint4*>(xw + li * 8)
                                 : make_uint4(0u, 0u, 0u, 0u);
         }
     };
-    load_x(0);
+    load_x(x, wcols / 8, 0);
 
     // one stage: rows [tile*16, +16) x spans [kstep*8, +8) of every field
     auto issue = [&](int it, int slot) {
@@ -300,8 +313,9 @@ rowmvg_kernel(const uint8_t* __restrict__ f0,          // q8_0 q / IQ qs
     float* sxs = reinterpret_cast<float*>(smem + L.sx_off);
     __nv_bfloat16* xss = reinterpret_cast<__nv_bfloat16*>(smem + L.xs_off);
     int* xcs = reinterpret_cast<int*>(smem + L.xc_off);
+    auto prep_x = [&](const __nv_bfloat16* xw, int ntask) {
     for (int base = 0; base < ntask; base += RM_XR * RM_THREADS) {
-        if (base) load_x(base);
+        if (base) load_x(xw, ntask, base);
 #pragma unroll
         for (int u = 0; u < RM_XR; ++u) {
             if (base + u * RM_THREADS >= ntask) break;  // the same for all
@@ -375,6 +389,8 @@ rowmvg_kernel(const uint8_t* __restrict__ f0,          // q8_0 q / IQ qs
             }
         }
     }
+    };
+    prep_x(x, wcols / 8);
 
     // lane (gid, tig) combines row myrow of the tile (q8_0: group tig of
     // each span in rows gid and gid + 8); its ldmatrix row and chunk pick
@@ -388,22 +404,32 @@ rowmvg_kernel(const uint8_t* __restrict__ f0,          // q8_0 q / IQ qs
     const bool keep = (gid & 1) == (tig >> 1);
     float acc = 0.f, acc8 = 0.f;  // q8_0: rows gid and gid + 8
     float accm[4] = {0.f, 0.f, 0.f, 0.f};
-    int slot = 0;
+    int slot = 0, wsp0 = 0;  // wsp0: the window's first span
     for (int it = 0; it < total; ++it) {
+        const int ks = it % ksteps;
+        if (WIN && it > 0 && ks % kwin == 0) {
+            // the next window (at a new tile the first again): once every
+            // warp is done with the last one, prep it as above
+            wsp0 = ks * RM_KS;
+            __syncthreads();
+            const int nt = min(wcols, in_f - wsp0 * SPAN) / 8;
+            load_x(x + wsp0 * SPAN, nt, 0);
+            prep_x(x + wsp0 * SPAN, nt);
+        }
         cp_async_wait_n(stages - 2);
         __syncthreads();
         if (it + stages - 1 < total)
             issue(it + stages - 1, slot == 0 ? stages - 1 : slot - 1);
         cp_async_commit();
-        const int ks = it % ksteps;
         const int sp = ks * RM_KS + warp;
+        const int sw = sp - wsp0;  // in x's window
         if (sp < nsp) {
             const uint8_t* st = smem + slot * L.stage;
             if constexpr (KIND == GK_Q8 && I8) {
                 // 4 groups of 32: ldmatrix.x4 gives the A fragment of 16
                 // rows x 32 codes; B = the lane's words of chunks 2i, 2i+1.
                 // The lane takes group tig of rows gid and gid + 8.
-                const uint8_t* xb = xi + sp * 128 + tig * 32;
+                const uint8_t* xb = xi + sw * 128 + tig * 32;
                 const uint4 xa = *reinterpret_cast<const uint4*>(xb);
                 const uint4 xc = *reinterpret_cast<const uint4*>(xb + 16);
                 const uint8_t* arow = st + lrow * L.p0 + warp * 128
@@ -424,7 +450,7 @@ rowmvg_kernel(const uint8_t* __restrict__ f0,          // q8_0 q / IQ qs
                     p0 = tig == i ? d[i][0] : p0;
                     p8 = tig == i ? d[i][2] : p8;
                 }
-                const float sxv = sxs[sp * 4 + tig];
+                const float sxv = sxs[sw * 4 + tig];
                 const uint8_t* sr = st + L.os + warp * 8 + tig * 2;
                 acc = __fadd_rn(acc, __fmul_rn(__fmul_rn((float)p0, sxv),
                                                lds_bf(sr + gid * L.ps)));
@@ -437,7 +463,7 @@ rowmvg_kernel(const uint8_t* __restrict__ f0,          // q8_0 q / IQ qs
                 // of 32 + 16 bytes a group, `rg_xpitch`) read once for both
                 constexpr int XB = XF ? 4 : 2;  // bytes of one x in the image
                 const uint8_t* cr = st + gid * L.p0 + warp * 128 + tig * 32;
-                const uint8_t* xr = xi + (sp * 4 + tig) * rg_xpitch(XF);
+                const uint8_t* xr = xi + (sw * 4 + tig) * rg_xpitch(XF);
                 float p[2] = {0.f, 0.f};  // rows gid, gid + 8
 #pragma unroll
                 for (int q16 = 0; q16 < 2; ++q16) {
@@ -489,7 +515,7 @@ rowmvg_kernel(const uint8_t* __restrict__ f0,          // q8_0 q / IQ qs
                     // in every column; products exact, f32 sums
                     const uint8_t* mr = st + L.om + warp * BM + 4 * tig;
                     const uint32_t* xw = reinterpret_cast<const uint32_t*>(
-                        xss + sp * (256 / G));
+                        xss + sw * (256 / G));
                     if constexpr (G == 32) {
                         mma1688(accm, lds32(mr + gid * L.pm),
                                 lds32(mr + (gid + 8) * L.pm), xw[tig]);
@@ -523,7 +549,7 @@ rowmvg_kernel(const uint8_t* __restrict__ f0,          // q8_0 q / IQ qs
                     ldmatrix_x4(q, arow + ((2 * h + lsel) << 4));
                     // 128-column block hb: its GH groups' sx (and code
                     // sums), this lane's row's scales, its B words
-                    const int hb = 2 * sp + h;
+                    const int hb = 2 * sw + h;
                     float sxv[GH];
                     int xcv[GH];
                     uint32_t sw[GH / 2];
@@ -657,34 +683,56 @@ rowmvg_kernel(const uint8_t* __restrict__ f0,          // q8_0 q / IQ qs
     cp_async_wait<0>();
 }
 
+template <int KIND, bool I8, int G, bool XF, bool WIN>
+static cudaError_t rowmvg_launch1(const void* f0, const void* fh,
+                                  const void* fg, const void* scale,
+                                  const void* mn, const void* x, void* y,
+                                  int out_f, int in_f, int grid, int stages,
+                                  int smem, Stacked stk, int kwin,
+                                  cudaStream_t st) {
+    static bool ready = false;  // the opt-in above 48 KB, once per body
+    if (!ready) {
+        cudaError_t e = cudaFuncSetAttribute(
+            rowmvg_kernel<KIND, I8, G, XF, WIN>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, RM_SMEM_MAX);
+        if (e != cudaSuccess) return e;
+        ready = true;
+    }
+    rowmvg_kernel<KIND, I8, G, XF, WIN><<<grid, RM_THREADS, smem, st>>>(
+        (const uint8_t*)f0, (const uint8_t*)fh, (const uint8_t*)fg,
+        (const __nv_bfloat16*)scale, (const __nv_bfloat16*)mn,
+        (const __nv_bfloat16*)x, (__nv_bfloat16*)y, out_f, in_f, stages,
+        stk, kwin);
+    return cudaGetLastError();
+}
+
+// the body for x whole, or (kwin below the K steps) in windows
 template <int KIND, bool I8, int G, bool XF = false>
 static cudaError_t rowmvg_launch(const void* f0, const void* fh,
                                  const void* fg, const void* scale,
                                  const void* mn, const void* x, void* y,
                                  int out_f, int in_f, int grid, int stages,
-                                 int smem, Stacked stk, cudaStream_t st) {
-    static bool ready = false;  // the opt-in above 48 KB, once per body
-    if (!ready) {
-        cudaError_t e = cudaFuncSetAttribute(
-            rowmvg_kernel<KIND, I8, G, XF>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, RM_SMEM_MAX);
-        if (e != cudaSuccess) return e;
-        ready = true;
-    }
-    rowmvg_kernel<KIND, I8, G, XF><<<grid, RM_THREADS, smem, st>>>(
-        (const uint8_t*)f0, (const uint8_t*)fh, (const uint8_t*)fg,
-        (const __nv_bfloat16*)scale, (const __nv_bfloat16*)mn,
-        (const __nv_bfloat16*)x, (__nv_bfloat16*)y, out_f, in_f, stages,
-        stk);
-    return cudaGetLastError();
+                                 int smem, Stacked stk, int kwin,
+                                 cudaStream_t st) {
+    const int nsp = in_f / rg_span(KIND);
+    if (kwin < (nsp + RM_KS - 1) / RM_KS)
+        return rowmvg_launch1<KIND, I8, G, XF, true>(
+            f0, fh, fg, scale, mn, x, y, out_f, in_f, grid, stages, smem,
+            stk, kwin, st);
+    return rowmvg_launch1<KIND, I8, G, XF, false>(
+        f0, fh, fg, scale, mn, x, y, out_f, in_f, grid, stages, smem, stk,
+        kwin, st);
 }
 
 // the launch arguments `rowmv_plan` gives, checked against this source's
 // layout: a plan that differs is refused
 inline bool rg_plan_ok(int kind, int g, bool i8, bool xf, int out_f,
-                       int in_f, int grid, int stages, int smem) {
+                       int in_f, int grid, int stages, int smem, int kwin) {
+    const int nsp = in_f / rg_span(kind);
     return in_f > 0 && in_f % 256 == 0 && out_f > 0 && out_f % RM_RT == 0
            && grid >= 1 && grid <= out_f / RM_RT && stages >= 2
-           && stages <= 4 && smem <= RM_SMEM_MAX
-           && smem == rg_layout(kind, g, i8, xf, in_f, stages).total;
+           && stages <= 4 && smem <= RM_SMEM_MAX && kwin >= 1
+           && kwin <= (nsp + RM_KS - 1) / RM_KS
+           && smem == rg_layout(kind, g, i8, xf, rg_wcols(kind, in_f, kwin),
+                                stages).total;
 }

@@ -7,10 +7,10 @@ other than q4_k, more than FUSED_MAX_T tokens, shapes that do not pair up
 or are not multiples of 256, no row tile within the JAX kernel's VMEM
 budget: the same shape arithmetic, `_tiles`), and otherwise runs K15b
 (T = 1, the JAX `_ffn_fused_call`: magic-number row math) or K15a (2 <= T
-<= FUSED_MAX_T, `_ffn_fused_call_2d`: the 2-D math, on the tensor cores,
-tiled by `ffn_plan`) through `ffn_fused_call`, csrc/ffn_fused.cu on a CUDA
-tensor and the plain PyTorch version beside it on a CPU tensor. Counters:
-"K15b" and "K15a" (ops/_build.launches).
+<= FUSED_MAX_T, `_ffn_fused_call_2d`: the 2-D math), both on the tensor
+cores and tiled by `ffn_plan`, through `ffn_fused_call`, csrc/ffn_fused.cu
+on a CUDA tensor and the plain PyTorch version beside it on a CPU tensor.
+Counters: "K15b" and "K15a" (ops/_build.launches).
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ from . import _build
 from .linear import QTensor, q4k_values
 from .quant_matmul import (_FIELD_DTYPES, _SMEM_PER_SM, _SMS, Q4K_KS,
                            Q4K_ROWS, RING_FITS, SMEM_MAX, _group_sums,
-                           kq_dequant_bf16)
+                           _window_order, kq_dequant_bf16)
 
 _VMEM_BUDGET = 12 * 1024 * 1024  # the JAX kernel's VMEM budget (shape rule)
 # the JAX default of KCPP_FFN_FUSED_MAX_T, which the port does not read:
@@ -147,12 +147,16 @@ def ffn_fused_plain(x: torch.Tensor, w_gateup: QTensor,
 # ---------------------------------------------------------------------------
 
 class FfnPlan(NamedTuple):
-    """How K15a tiles one call (csrc/ffn_fused.cu): one cooperative grid of
-    `grid` blocks of 8 warps, all resident, walks the gate/up weight's
-    `tiles1` 16-row tiles of `ksteps1` K steps (8 superblocks, one per
-    warp), then the down weight's `tiles3` of `ksteps3`, through one
-    cp.async ring of `stages` stages; `smem` bytes of dynamic shared memory
-    (the ring, x and its group sums, a tile's partial sums)."""
+    """How K15 tiles one call (csrc/ffn_fused.cu; K15b at T = 1, K15a
+    above): one cooperative grid of `grid` blocks of 8 warps, all resident,
+    walks the gate/up weight's `tiles1` 16-row tiles of `ksteps1` K steps
+    (8 superblocks, one per warp), then the down weight's `tiles3` of
+    `ksteps3`, through one cp.async ring of `stages` stages; `smem` bytes
+    of dynamic shared memory (the ring, x and its group sums, a tile's
+    partial sums); x held in windows of `kwin` K steps of phase 1
+    (`kwin == ksteps1`: x whole, prepped once; less where T tokens of x do
+    not fit a block: each window prepped anew at its first K step of every
+    phase-1 tile)."""
     tiles1: int
     ksteps1: int
     tiles3: int
@@ -160,62 +164,78 @@ class FfnPlan(NamedTuple):
     stages: int
     smem: int
     grid: int
+    kwin: int
 
 
-
-
-def ffn_layout(T: int, C: int, stages: int) -> dict[str, int]:
-    """K15a's shared memory, byte offsets (`ffn_layout` in the source):
+def ffn_layout(T: int, C: int, stages: int, F: int = 0) -> dict[str, int]:
+    """K15's shared memory, byte offsets (`ffn_layout` in the source):
     `stages` stages of 16 rows x 8 superblocks (per row the codes in 1024
     B, the scales and mins in 272), x in B-fragment order (per token 2C
-    bytes and 16 of padding), x's bf16 group sums (T x C/32), the partial
-    sums (per token of 8 the 8 warps' values of 16 rows and 16 bytes of
-    padding, twice: the products and the min term)."""
+    bytes and 16 of padding; C: x's columns, or those of its window), x's
+    bf16 group sums (T x C/32), the partial sums (per token of 8 the 8
+    warps' values of 16 rows and 16 bytes of padding, twice: the products
+    and the min term). At T = 1 (K15b) the x image and its sums then hold
+    phase 3's bf16(a) of F columns and its sums: each region the larger."""
     stage = Q4K_ROWS * (Q4K_KS * 128 + 2 * Q4K_KS * 16 + 16)
     xi = stages * stage
-    xs = xi + T * (2 * C + 16)
-    part = xs + T * (C // 32) * 2
+    cols = max(C, F) if T == 1 else C
+    xs = xi + T * (2 * cols + 16)
+    part = xs + T * (cols // 32) * 2
     return {"stage": stage, "xi": xi, "xs": xs, "part": part,
             "total": part + 2 * FUSED_MAX_T * (Q4K_KS * Q4K_ROWS + 4) * 4}
 
 
-@functools.lru_cache(maxsize=1024)
-def ffn_plan(T: int, C: int, F: int, sms: int = _SMS) -> FfnPlan:
-    """K15a's tiling for x (T, C), a (2F, C) gate/up and a (C, F) down
-    weight on a card of `sms` SMs. Raises ValueError for a shape the kernel
-    does not take (T outside 2..FUSED_MAX_T, C or F not a multiple of 256,
-    x too wide for a block's shared memory).
+@functools.lru_cache(maxsize=16384)
+def ffn_plan(T: int, C: int, F: int, sms: int = _SMS,
+             kwin: int = 0) -> FfnPlan:
+    """K15's tiling for x (T, C), a (2F, C) gate/up and a (C, F) down
+    weight on a card of `sms` SMs (K15b at T = 1, K15a above). Raises
+    ValueError for a shape the kernel does not take (T outside
+    1..FUSED_MAX_T, C or F not a multiple of 256).
 
     A persistent grid, never more blocks than the larger phase has tiles:
     the first of 4 stages and two blocks an SM (the kernel's registers
     allow two), 3 stages and two, 4 or 3 stages and one whose shared
-    memory fits. The tile, the K step and the warp that takes each
-    superblock depend on (C, F) alone, never on T."""
-    if not 2 <= T <= FUSED_MAX_T or C <= 0 or F <= 0 or C % 256 or F % 256:
-        raise ValueError(f"K15a takes 2 <= T <= {FUSED_MAX_T} and C, F "
+    memory fits. x is whole wherever it fits; a wider x (C beyond ~19K at
+    T = 8, ~50K at T = 3) goes in windows of `kwin` K steps of phase 1,
+    the widest that fits in the same order of ring depths and blocks an
+    SM, so every shape `_tiles` takes has a plan. kwin forces a window
+    (kwin = ksteps1 is x whole). The tile, the K step and the warp that
+    takes each superblock depend on (C, F) alone, never on T, and x's
+    groups are prepped alike in a window and whole."""
+    if not 1 <= T <= FUSED_MAX_T or C <= 0 or F <= 0 or C % 256 or F % 256:
+        raise ValueError(f"K15 takes 1 <= T <= {FUSED_MAX_T} and C, F "
                          f"multiples of 256, not T={T}, C={C}, F={F}")
-    for stages, per_sm in RING_FITS:
-        smem = ffn_layout(T, C, stages)["total"]
-        if per_sm * (smem + 1024) <= _SMEM_PER_SM and smem <= SMEM_MAX:
-            break
-    else:
-        raise ValueError(f"K15a: C={C} at T={T} needs {smem} bytes of "
-                         f"shared memory, more than {SMEM_MAX}")
+    ksteps1 = -(-(C // 256) // Q4K_KS)
+    if kwin < 0 or kwin > ksteps1:
+        raise ValueError(f"K15: a window of {kwin} of {ksteps1} K steps")
     tiles1, tiles3 = 2 * F // Q4K_ROWS, C // Q4K_ROWS
-    return FfnPlan(tiles1, -(-(C // 256) // Q4K_KS), tiles3,
-                   -(-(F // 256) // Q4K_KS), stages, smem,
-                   min(max(tiles1, tiles3), per_sm * sms))
+
+    def smem(kw, stages):
+        return ffn_layout(T, min(C, kw * Q4K_KS * 256), stages, F)["total"]
+
+    def fits(kw, config):
+        stages, per_sm = config
+        need = smem(kw, stages)
+        return per_sm * (need + 1024) <= _SMEM_PER_SM and need <= SMEM_MAX
+
+    got = _window_order(fits, RING_FITS, ksteps1, kwin, True)
+    if got is None:
+        raise ValueError(f"K15: C={C} at T={T} does not fit a block")
+    kw, (stages, per_sm) = got
+    return FfnPlan(tiles1, ksteps1, tiles3, -(-(F // 256) // Q4K_KS), stages,
+                   smem(kw, stages), min(max(tiles1, tiles3), per_sm * sms),
+                   kw)
 
 
-_SIG_K15B = [_build.P] * 12 + [_build.I] * 2 + [_build.P]
-_SIG_K15A = [_build.P] * 11 + [_build.I] * 6 + [_build.P]
+_SIG_K15 = [_build.P] * 11 + [_build.I] * 7 + [_build.P]
 
 
 def ffn_fused_call(x: torch.Tensor, w_gateup: QTensor,
                    w_down: QTensor) -> torch.Tensor:
     """K15 wrapper. x (T, C) bf16 contiguous, 1 <= T <= FUSED_MAX_T, q4_k
     w_gateup (2F, C) and w_down (C, F) -> (T, C) bf16. One cooperative
-    launch: K15b at T = 1, K15a (`ffn_plan`) above."""
+    launch (`ffn_plan`): K15b at T = 1, K15a above."""
     if not x.is_cuda:
         return ffn_fused_plain(x, w_gateup, w_down)
     y = _ffn_launch(x, w_gateup, w_down, torch.cuda.get_device_properties(
@@ -225,9 +245,10 @@ def ffn_fused_call(x: torch.Tensor, w_gateup: QTensor,
 
 
 def _ffn_launch(x: torch.Tensor, w_gateup: QTensor, w_down: QTensor,
-                sms: int) -> torch.Tensor:
-    """One K15 launch on x's device, K15a's grid for a card of `sms` SMs;
-    y and the scratch its allocations."""
+                sms: int, kwin: int = 0) -> torch.Tensor:
+    """One K15 launch on x's device, the grid for a card of `sms` SMs
+    (kwin: a window `ffn_plan` is forced to); y and the scratch its
+    allocations."""
     T, C = x.shape
     F = w_down.shape[1]
     if not 1 <= T <= FUSED_MAX_T or x.dtype != torch.bfloat16 \
@@ -248,29 +269,17 @@ def _ffn_launch(x: torch.Tensor, w_gateup: QTensor, w_down: QTensor,
                                  f"tensor on {x.device}")
     dev = x.device
     g, dn = w_gateup.data, w_down.data
+    plan = ffn_plan(T, C, F, sms, kwin)
     y = torch.empty((T, C), dtype=torch.bfloat16, device=dev)
-    abf = torch.empty(T * F, dtype=torch.bfloat16, device=dev)
-    st = _build.stream_ptr()
-    if T == 1:
-        f32 = torch.empty(2 * F + 2 * (F // 32), dtype=torch.float32,
-                          device=dev)
-        gu, dxs, dfs = f32.split([2 * F, F // 32, F // 32])
-        lib, fn = _build.entry("ffn_fused", "k15_ffn_fused", _SIG_K15B)
-        _build.check(lib, fn(
-            g["qs2"].data_ptr(), g["scale"].data_ptr(), g["min"].data_ptr(),
-            dn["qs2"].data_ptr(), dn["scale"].data_ptr(),
-            dn["min"].data_ptr(), x.data_ptr(), gu.data_ptr(),
-            abf.data_ptr(), dxs.data_ptr(), dfs.data_ptr(), y.data_ptr(), C,
-            F, st), "K15b")
-        return y
-    plan = ffn_plan(T, C, F, sms)
     gu = torch.empty(T * 2 * F, dtype=torch.float32, device=dev)
+    abf = torch.empty(T * F, dtype=torch.bfloat16, device=dev)
     dxs = torch.empty(T * (F // 32), dtype=torch.bfloat16, device=dev)
-    lib, fn = _build.entry("ffn_fused", "k15a_ffn", _SIG_K15A)
+    what = "K15b" if T == 1 else "K15a"
+    lib, fn = _build.entry("ffn_fused", "k15_ffn", _SIG_K15)
     _build.check(lib, fn(
         g["qs2"].data_ptr(), g["scale"].data_ptr(), g["min"].data_ptr(),
         dn["qs2"].data_ptr(), dn["scale"].data_ptr(), dn["min"].data_ptr(),
         x.data_ptr(), gu.data_ptr(), abf.data_ptr(), dxs.data_ptr(),
-        y.data_ptr(), T, C, F, plan.grid, plan.stages, plan.smem, st),
-        "K15a")
+        y.data_ptr(), T, C, F, plan.grid, plan.stages, plan.smem, plan.kwin,
+        _build.stream_ptr()), what)
     return y

@@ -20,8 +20,9 @@ apply the scales on the score side. Over an f32 cache q and p are rounded
 to bf16 and the scores and p . V read the f32 rows, as the JAX kernel's
 bf16-by-f32 dots do.
 
-The kernel takes any head_dim that is a multiple of 16 up to 256 and any
-number of query heads per kv head (`check_kernel_shape`). Its grid is cut
+The kernel takes any head_dim that is a multiple of 8 up to 512 (padded
+to a multiple of 16 in its tiles) and any number of query heads per kv
+head (`check_kernel_shape`). Its grid is cut
 by `decode_plan` from (B, Hkv, S) alone, so no launch reads a position on
 the host; its partials and merge tickets live in a scratch kept across
 calls of one shape (`_scratch`).
@@ -602,12 +603,12 @@ def check_kernel_shape(n_heads: int, n_kv_heads: int, head_dim: int,
                        kernel: str = "K5") -> None:
     """Raise NotImplementedError for the head shapes csrc/flash_decode.cu
     (K5, K6, K8, K9, K10, K16, K17c) is not built for: it takes any
-    head_dim that is a multiple of 16 up to 256 and any number of query
+    head_dim that is a multiple of 8 up to 512 and any number of query
     heads per kv head (n_heads a multiple of n_kv_heads)."""
-    if (head_dim % 16 or not 16 <= head_dim <= 256
+    if (head_dim % 8 or not 8 <= head_dim <= 512
             or n_kv_heads <= 0 or n_heads % n_kv_heads):
         raise NotImplementedError(
             f"{kernel} (flash decode) is not built for head_dim {head_dim} "
             f"with {n_heads} query heads over {n_kv_heads} kv heads "
-            "(head_dim a multiple of 16 up to 256, n_heads a multiple of "
+            "(head_dim a multiple of 8 up to 512, n_heads a multiple of "
             "n_kv_heads)")

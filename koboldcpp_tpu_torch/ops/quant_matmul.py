@@ -85,7 +85,6 @@ VMEM_BUDGET = 13 * 1024 * 1024  # the JAX 2-D kernel's tile budget (see below)
 # the layer index and the five per-layer element counts of the stacked
 # entry points (STACKED_PARAMS, csrc/common.cuh)
 _SIG_STACK = [_build.P] + [_build.LL] * 5
-_SIG_PREP = [_build.P] * 4 + [_build.I] * 2 + [_build.P]
 _FIELD_DTYPES = {"qs2": torch.uint8, "ql": torch.uint8, "qh": torch.uint8,
                  "qs": torch.uint8, "hmask": torch.uint8, "sg": torch.uint8,
                  "n4": torch.uint8,
@@ -225,13 +224,17 @@ class Q4kPlan(NamedTuple):
     persistent grid of `grid` blocks of 8 warps; each K step is a stage of
     8 superblocks, one per warp, `stages` of them in a cp.async ring;
     `smem` bytes of dynamic shared memory (the ring, the x codes of T
-    tokens, their (sx, xs) pairs, the tile's partial sums)."""
+    tokens, their (sx, xs) pairs, the tile's partial sums); x held in
+    windows of `kwin` K steps (`kwin == ksteps`: x whole, prepped once;
+    less, at T = 1 only, where x does not fit a block: each window prepped
+    anew at its first K step of every tile)."""
     rows: int
     tiles: int
     ksteps: int
     stages: int
     smem: int
     grid: int
+    kwin: int
 
 
 Q4K_ROWS = 16        # rows per tile (the mma M)
@@ -246,10 +249,11 @@ def q4k_layout(q5: bool, T: int, in_f: int) -> dict[str, int]:
     """The int8 body's shared memory, byte offsets (`i8_layout` in the
     source): 4 stages of 16 rows x 8 superblocks (per row the codes in
     1024 B, the scales and mins in 272, q5_k's bit plane in 272), then the
-    x codes of T tokens in rows of in_f + 64 bytes, a float2 of scales sx
-    per 32-column group and token pair, the bf16 group sums xs (T x
-    in_f/32), and the partial sums (per token the 8 warps' values of 16
-    rows and 16 bytes of padding: 8.25 KB)."""
+    x codes of T tokens in rows of in_f + 64 bytes (in_f: x's columns, or
+    those of its window), a float2 of scales sx per 32-column group and
+    token pair, the bf16 group sums xs (T x in_f/32), and the partial sums
+    (per token the 8 warps' values of 16 rows and 16 bytes of padding:
+    8.25 KB)."""
     stage = Q4K_ROWS * (Q4K_KS * 128 + 2 * Q4K_KS * 16 + 16
                         + (Q4K_KS * 32 + 16 if q5 else 0))
     x = Q4K_STAGES * stage
@@ -260,46 +264,91 @@ def q4k_layout(q5: bool, T: int, in_f: int) -> dict[str, int]:
             "total": part + 2 * Q4K_MAX_T * (Q4K_KS * Q4K_ROWS + 4) * 4}
 
 
+def widest(fits, hi: int) -> int:
+    """The largest k in 1..hi with fits(k), where fits holds up to some k
+    and fails above it (a window's shared memory grows with its width), or
+    0 where none fits."""
+    lo = 0
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
+    return lo
+
+
+def _window_order(fits, configs, ksteps: int, kwin: int, windows: bool):
+    """(kwin, config) of a plan: the forced window in the first config it
+    fits; else x whole in the first config it fits; else (windows) the
+    widest window in the first config any fits. None: nothing fits."""
+    if kwin:
+        return next(((kwin, c) for c in configs if fits(kwin, c)), None)
+    for c in configs:
+        if fits(ksteps, c):
+            return ksteps, c
+    for c in configs if windows else ():
+        kw = widest(lambda k: fits(k, c), ksteps - 1)
+        if kw:
+            return kw, c
+    return None
+
+
 @functools.lru_cache(maxsize=4096)
-def q4k_plan(T: int, out_f: int, in_f: int, q5: bool = False) -> Q4kPlan:
+def q4k_plan(T: int, out_f: int, in_f: int, q5: bool = False,
+             kwin: int = 0) -> Q4kPlan:
     """The tiling of the int8-activation K1 / K7 / K17a body for x (T,
     in_f) and an (out_f, in_f) q4_k (q5: q5_k) weight. Raises ValueError
     for a shape the kernel does not take (T outside 1..8, in_f not a
-    multiple of 256, out_f not a multiple of 64, or more shared memory than
-    a block has).
+    multiple of 256, out_f not a multiple of 64, or at T >= 2 more shared
+    memory than a block has: the dispatch's `_q45_i8` sends no such T).
 
     Every block needs all T tokens of x prepped (at T >= 2 the two blocks
     of a cluster share the work), so the grid is persistent: as many
     blocks as fit two to an SM (one where the shared memory allows one
     only), never more than the tiles, an even number (out_f / 16 tiles are
-    a multiple of 4). The tile, the K step and the warp that takes each
-    superblock depend on in_f alone, never on T, so a (row, token) is
-    summed in the same order at every T."""
+    a multiple of 4). x is whole wherever it fits; at T = 1 a wider x goes
+    in windows of `kwin` K steps, the widest that fits two blocks an SM,
+    else one (any in_f: a window of one K step is 2048 columns). kwin
+    forces a window (T = 1; kwin = ksteps is x whole). The tile, the K step
+    and the warp that takes each superblock depend on in_f alone, never on
+    T, and x's groups are prepped alike in a window and whole, so a (row,
+    token) is summed in the same order, of the same values, at every T and
+    window."""
     if not 1 <= T <= Q4K_MAX_T or in_f <= 0 or in_f % KQ_K_STEP \
             or out_f <= 0 or out_f % 64:
         raise ValueError(f"K1 / K7 take 1 <= T <= {Q4K_MAX_T}, in_f % 256 "
                          f"== 0 and out_f % 64 == 0, not T={T} "
                          f"({out_f}, {in_f})")
-    smem = q4k_layout(q5, T, in_f)["total"]
-    if smem > SMEM_MAX:
-        raise ValueError(f"K1 / K7: T={T} x in_f={in_f} needs {smem} bytes "
-                         f"of shared memory, more than {SMEM_MAX}")
-    per_sm = 2 if 2 * (smem + 1024) <= _SMEM_PER_SM else 1
     tiles = out_f // Q4K_ROWS
     ksteps = -(-(in_f // KQ_K_STEP) // Q4K_KS)
-    return Q4kPlan(Q4K_ROWS, tiles, ksteps, Q4K_STAGES, smem,
-                   min(tiles, per_sm * _SMS))
+    if kwin < 0 or kwin > ksteps or (T > 1 and 0 < kwin < ksteps):
+        raise ValueError(f"K1 / K7: a window of {kwin} of {ksteps} K steps "
+                         f"at T={T} (windows: T = 1 only)")
+    def smem(kw):
+        return q4k_layout(q5, T, min(in_f, kw * Q4K_KS * KQ_K_STEP))["total"]
+
+    def fits(kw, per_sm):
+        return smem(kw) <= SMEM_MAX \
+            and per_sm * (smem(kw) + 1024) <= _SMEM_PER_SM
+
+    got = _window_order(fits, (2, 1), ksteps, kwin, T == 1)
+    if got:
+        kw, per_sm = got
+        return Q4kPlan(Q4K_ROWS, tiles, ksteps, Q4K_STAGES, smem(kw),
+                       min(tiles, per_sm * _SMS), kw)
+    raise ValueError(f"K1 / K7: T={T} x in_f={in_f} needs more shared memory "
+                     f"than a block has ({SMEM_MAX} bytes)")
 
 
-_SIG_Q4K_I8 = [_build.P] * 6 + [_build.I] * 5 + _SIG_STACK + [_build.P]
+_SIG_Q4K_I8 = [_build.P] * 6 + [_build.I] * 5 + _SIG_STACK + [_build.I,
+                                                                _build.P]
 _SIG_Q4K_BF16 = [_build.P] * 7 + [_build.I] * 3 + _SIG_STACK + [_build.P]
 
 
 def _q4k_launch(x2: torch.Tensor, qt: QTensor, i8: bool, what: str,
-                li: torch.Tensor | None = None):
+                li: torch.Tensor | None = None, kwin: int = 0):
     """One launch for x2 (T, in_f) on the card, the int8 body prepping its
-    own activations (`q4k_plan`); the bf16 body takes a group-sum launch
-    first. li: layer li of stacked fields (K17a)."""
+    own activations (`q4k_plan`; kwin: a window of x the plan is forced
+    to); the bf16 body takes a group-sum launch first. li: layer li of
+    stacked fields (K17a)."""
     T, in_f = x2.shape
     out_f = qt.shape[0]
     _check_operands(x2, qt, what)
@@ -308,15 +357,15 @@ def _q4k_launch(x2: torch.Tensor, qt: QTensor, i8: bool, what: str,
     st = _build.stream_ptr()
     stack = _stack_args(qt, ("qs2", "qh", "scale", "min"), li)
     if i8:
-        plan = q4k_plan(T, out_f, in_f, qt.kind == "q5_k")
+        plan = q4k_plan(T, out_f, in_f, qt.kind == "q5_k", kwin)
         if any(t.data_ptr() % 16 for t in (x2, *d.values())):
             raise ValueError(f"{what} takes 16-byte aligned x and fields")
         lib, fn = _build.entry("q4k_matvec", "k1_q4k_i8", _SIG_Q4K_I8)
         _build.check(lib, fn(
             d["qs2"].data_ptr(), _ptr(d.get("qh")),  # qh: the q5_k bit plane
             d["scale"].data_ptr(), d["min"].data_ptr(), x2.data_ptr(),
-            y.data_ptr(), T, out_f, in_f, plan.grid, plan.smem, *stack, st),
-            what)
+            y.data_ptr(), T, out_f, in_f, plan.grid, plan.smem, *stack,
+            plan.kwin, st), what)
         return y
     lib = _build.load("q4k_matvec", {
         "k1_q4k_sums": [_build.P, _build.P, _build.I, _build.P],
@@ -545,7 +594,9 @@ class RowmvPlan(NamedTuple):
     (superblocks; q8_0: 128 columns), one per warp, `stages` of them in a
     cp.async ring; `smem` bytes of dynamic shared memory (the ring, x
     prepped, the tile's partial sums); xf32: q8_0's bf16 body keeps x as
-    f32 in shared memory."""
+    f32 in shared memory; x held in windows of `kwin` K steps (`kwin ==
+    ksteps`: x whole, prepped once; less where x does not fit a block:
+    each window prepped anew at its first K step of every tile)."""
     rows: int
     tiles: int
     ksteps: int
@@ -553,9 +604,13 @@ class RowmvPlan(NamedTuple):
     smem: int
     grid: int
     xf32: bool = False
+    kwin: int = 0
 
 
 ROWMV_KINDS = ("q6_k", "q2_k", "q3_k")  # RK_Q6, RK_Q2, RK_Q3 in rowmv.cuh
+# the expanded layouts' kinds (KCPP_KQ_LAYOUT=expanded): RK_X6, RK_X3, RK_X2
+# in rowmv.cuh, int8 x only
+ROWMV_X_KINDS = ("q6_k_i8f", "q3_k_n4", "q2_k_n4")
 ROWMVG_KINDS = ("q8_0",) + IQ_KINDS      # GK_Q8, GK_IQ2, ... in rowmv_g.cuh
 ROWMV_KS = 8             # spans per K step: one per warp
 ROWMV_STAGES = (4, 3)    # the ring's depths, the deepest that fits first
@@ -563,7 +618,8 @@ ROWMVG_STAGES = (4, 3, 2)  # rowmv_g.cuh's (2: the widest x in_f)
 # bytes per superblock row of the codes (ql / qs), the second code field
 # (qh / hmask), the scales and q2_k's mins
 _ROWMV_FIELDS = {"q6_k": (128, 64, 32, 0), "q2_k": (64, 0, 32, 32),
-                 "q3_k": (64, 32, 32, 0)}
+                 "q3_k": (64, 32, 32, 0), "q6_k_i8f": (256, 0, 32, 0),
+                 "q3_k_n4": (128, 0, 32, 0), "q2_k_n4": (128, 0, 32, 32)}
 
 
 def rowmv_span(kind: str) -> int:
@@ -585,9 +641,9 @@ def _rowmv_fields(kind: str, group: int) -> tuple[int, ...]:
 
 
 def _rowmv_group(kind: str, group: int) -> int:
-    """The scale group of a call: q6_k / q2_k / q3_k 16, q8_0 32, an IQ
-    kind's G (8, 16 or 32)."""
-    if kind in ROWMV_KINDS:
+    """The scale group of a call: q6_k / q2_k / q3_k and the expanded
+    kinds 16, q8_0 32, an IQ kind's G (8, 16 or 32)."""
+    if kind in ROWMV_KINDS + ROWMV_X_KINDS:
         return 16
     if kind == "q8_0":
         return 32
@@ -600,7 +656,8 @@ def rowmv_layout(kind: str, in_f: int, i8: bool, stages: int,
                  group: int = 0, xf32: bool = False) -> dict[str, int]:
     """The body's shared memory, byte offsets (`rm_layout` / `rg_layout` in
     the sources): `stages` stages of 16 rows x 8 spans of each field, every
-    field's row pitch 16 bytes past its 8 spans; then x prepped (int8
+    field's row pitch 16 bytes past its 8 spans; then x prepped (in_f: x's
+    columns, or those of its window; int8
     codes: in_f bytes; bf16 x: 2 in_f; rowmv_g.cuh's bf16 x, or bf16 x as
     f32: each 32-column group at a pitch 16 bytes past its 64 or 128), the
     f32 scales sx per group (int8
@@ -612,7 +669,7 @@ def rowmv_layout(kind: str, in_f: int, i8: bool, stages: int,
     stage = Q4K_ROWS * sum(ROWMV_KS * b + 16
                            for b in _rowmv_fields(kind, G) if b)
     x = stages * stage
-    if kind in ROWMV_KINDS:
+    if kind in ROWMV_KINDS + ROWMV_X_KINDS:
         sx = x + (in_f if i8 else 2 * in_f)
         xs = sx + (ng * 4 if i8 else 0)
         part = xs + ng * 2
@@ -628,62 +685,75 @@ def rowmv_layout(kind: str, in_f: int, i8: bool, stages: int,
 
 @functools.lru_cache(maxsize=4096)
 def rowmv_plan(kind: str, out_f: int, in_f: int, i8: bool,
-               group: int = 0) -> RowmvPlan:
+               group: int = 0, kwin: int = 0) -> RowmvPlan:
     """The tiling of the K2 / K12 / K17b bodies for x (in_f,) and an (out_f,
-    in_f) weight of `kind` (q6_k, q2_k, q3_k: rowmv.cuh; q8_0 and the IQ
-    kinds at scale group `group`: rowmv_g.cuh), with int8 (i8) or bf16
-    activations (the IQ kinds: int8 only). Raises ValueError for a shape
-    the kernel does not take (in_f not a multiple of 256, out_f not a
-    multiple of 64, or more shared memory than a block has at the
-    shallowest ring: x whole, beyond ~80K columns of bf16 x or ~130K of
-    int8 x).
+    in_f) weight of `kind` (q6_k, q2_k, q3_k and the expanded kinds:
+    rowmv.cuh; q8_0 and the IQ kinds at scale group `group`: rowmv_g.cuh),
+    with int8 (i8) or bf16 activations (the IQ and expanded kinds: int8
+    only). Raises ValueError for a shape the kernel does not take (in_f not
+    a multiple of 256, out_f not a multiple of 64).
 
-    Every block preps all of x, so the grid is persistent: as many blocks
-    as fit two to an SM (one where the shared memory allows one only),
-    never more than the tiles. The ring takes the most stages (4, else 3;
-    rowmv_g.cuh also 2) that keep that count. q8_0's bf16 body keeps x as
-    f32 (xf32) where that fits the same count and depth. The tile, the K
-    step and the warp that takes each span depend on in_f alone, so a row
-    is summed in the same order whatever the ring's depth, the grid and
-    x's format."""
-    if kind not in ROWMV_KINDS + ROWMVG_KINDS:
-        raise ValueError(f"K2 / K12 serve {ROWMV_KINDS + ROWMVG_KINDS}, "
+    Every block preps x, so the grid is persistent: as many blocks as fit
+    two to an SM (one where the shared memory allows one only), never more
+    than the tiles. The ring takes the most stages (4, else 3; rowmv_g.cuh
+    also 2) that keep that count. x is whole wherever it fits (in_f up to
+    ~67K-174K by kind and body); a wider x goes in windows of `kwin` K
+    steps, the widest that fits in the same order of blocks an SM and ring
+    depths (the expanded kinds keep x whole: `_expanded_fits` bounds their
+    in_f near 10K). kwin forces a window (kwin = ksteps is x whole).
+    q8_0's bf16 body keeps x as f32 (xf32) where that fits the same count
+    and depth. The tile, the K step and the warp that takes each span
+    depend on in_f alone, and x's groups are prepped alike in a window and
+    whole, so a row is summed in the same order, of the same values,
+    whatever the ring's depth, the grid, x's format and its window."""
+    if kind not in ROWMV_KINDS + ROWMV_X_KINDS + ROWMVG_KINDS:
+        raise ValueError(f"K2 / K12 serve "
+                         f"{ROWMV_KINDS + ROWMV_X_KINDS + ROWMVG_KINDS}, "
                          f"not {kind}")
     if in_f <= 0 or in_f % 256 or out_f <= 0 or out_f % 64:
         raise ValueError(f"K2 / K12 take in_f % 256 == 0 and out_f % 64 == "
                          f"0, not ({out_f}, {in_f})")
-    if kind in IQ_KINDS and not i8:
-        raise ValueError("K12.iq takes int8 activations only")
-    depths = ROWMV_STAGES if kind in ROWMV_KINDS else ROWMVG_STAGES
-    fits = {s: rowmv_layout(kind, in_f, i8, s, group)["total"]
-            for s in depths}
-    for per_sm in (2, 1):
-        for stages in depths:
-            smem = fits[stages]
-            if smem <= SMEM_MAX and per_sm * (smem + 1024) <= _SMEM_PER_SM:
-                xf32 = kind == "q8_0" and not i8
-                if xf32:
-                    wide = rowmv_layout(kind, in_f, i8, stages, group,
-                                        True)["total"]
-                    xf32 = (wide <= SMEM_MAX
-                            and per_sm * (wide + 1024) <= _SMEM_PER_SM)
-                    smem = wide if xf32 else smem
-                tiles = out_f // Q4K_ROWS
-                nsp = in_f // rowmv_span(kind)
-                return RowmvPlan(Q4K_ROWS, tiles, -(-nsp // ROWMV_KS),
-                                 stages, smem, min(tiles, per_sm * _SMS),
-                                 xf32)
-    raise ValueError(f"K2 / K12: in_f={in_f} needs {fits[depths[-1]]} bytes "
-                     f"of shared memory, more than {SMEM_MAX}")
+    if kind in IQ_KINDS + ROWMV_X_KINDS and not i8:
+        raise ValueError(f"K12 takes int8 activations only for {kind}")
+    rowmv = kind in ROWMV_KINDS + ROWMV_X_KINDS
+    depths = ROWMV_STAGES if rowmv else ROWMVG_STAGES
+    span = rowmv_span(kind)
+    tiles = out_f // Q4K_ROWS
+    ksteps = -(-(in_f // span) // ROWMV_KS)
+    if kwin < 0 or kwin > ksteps \
+            or (kind in ROWMV_X_KINDS and 0 < kwin < ksteps):
+        raise ValueError(f"K2 / K12: a window of {kwin} of {ksteps} K "
+                         f"steps for {kind}")
+    def smem(kw, stages, xf32=False):
+        return rowmv_layout(kind, min(in_f, kw * ROWMV_KS * span), i8,
+                            stages, group, xf32)["total"]
+
+    def fits(kw, config, xf32=False):
+        per_sm, stages = config
+        need = smem(kw, stages, xf32)
+        return need <= SMEM_MAX and per_sm * (need + 1024) <= _SMEM_PER_SM
+
+    configs = [(per_sm, stages) for per_sm in (2, 1) for stages in depths]
+    got = _window_order(fits, configs, ksteps, kwin,
+                        kind not in ROWMV_X_KINDS)
+    if got is None:
+        raise ValueError(f"K2 / K12: in_f={in_f} needs "
+                         f"{smem(ksteps, depths[-1])} bytes of shared "
+                         f"memory, more than {SMEM_MAX}")
+    kw, (per_sm, stages) = got
+    xf32 = kind == "q8_0" and not i8 and fits(kw, (per_sm, stages), True)
+    return RowmvPlan(Q4K_ROWS, tiles, ksteps, stages, smem(kw, stages, xf32),
+                     min(tiles, per_sm * _SMS), xf32, kw)
 
 
-def _rowmv_checked(x: torch.Tensor, qt: QTensor, i8: bool,
-                   what: str) -> RowmvPlan:
-    """The plan of a K2 / K12 / K17b launch, its operands checked."""
+def _rowmv_checked(x: torch.Tensor, qt: QTensor, i8: bool, what: str,
+                   kwin: int = 0) -> RowmvPlan:
+    """The plan of a K2 / K12 / K17b launch (kwin: a window of x it is
+    forced to), its operands checked."""
     out_f, in_f = qt.shape
     _check_operands(x[None], qt, what)
     plan = rowmv_plan(qt.kind, out_f, in_f, i8,
-                      iq_group(qt) if qt.kind in IQ_KINDS else 0)
+                      iq_group(qt) if qt.kind in IQ_KINDS else 0, kwin)
     if any(t.data_ptr() % 16 for t in (x, *qt.data.values())):
         raise ValueError(f"{what} takes 16-byte aligned x and fields")
     return plan
@@ -721,15 +791,17 @@ def q6k_matvec(x: torch.Tensor, qt: QTensor, i8: bool) -> torch.Tensor:
     return y
 
 
-_SIG_K2 = [_build.P] * 5 + [_build.I] * 6 + _SIG_STACK + [_build.P]
+_SIG_K2 = [_build.P] * 5 + [_build.I] * 6 + _SIG_STACK + [_build.I,
+                                                            _build.P]
 
 
 def _q6k_launch(x: torch.Tensor, qt: QTensor, i8: bool, what: str,
-                li: torch.Tensor | None = None) -> torch.Tensor:
+                li: torch.Tensor | None = None,
+                kwin: int = 0) -> torch.Tensor:
     """One launch for x (in_f,) on the card, the body prepping its own
     activations (`rowmv_plan`). li: layer li of stacked fields (K17b)."""
     out_f, in_f = qt.shape
-    plan = _rowmv_checked(x, qt, i8, what)
+    plan = _rowmv_checked(x, qt, i8, what, kwin)
     y = torch.empty((1, out_f), dtype=torch.bfloat16, device=x.device)
     d = qt.data
     lib, fn = _build.entry("q6k_matvec", "k2_q6k_matvec", _SIG_K2)
@@ -737,7 +809,7 @@ def _q6k_launch(x: torch.Tensor, qt: QTensor, i8: bool, what: str,
         d["ql"].data_ptr(), d["qh"].data_ptr(), d["scale"].data_ptr(),
         x.data_ptr(), y.data_ptr(), out_f, in_f, int(i8), plan.grid,
         plan.stages, plan.smem, *_stack_args(qt, ("ql", "qh", "scale"), li),
-        _build.stream_ptr()), what)
+        plan.kwin, _build.stream_ptr()), what)
     return y
 
 
@@ -803,15 +875,17 @@ def q8_0_matvec(x: torch.Tensor, qt: QTensor, i8: bool = True) -> torch.Tensor:
     return y
 
 
-_SIG_K2Q8 = [_build.P] * 4 + [_build.I] * 6 + _SIG_STACK + [_build.P]
+_SIG_K2Q8 = [_build.P] * 4 + [_build.I] * 6 + _SIG_STACK + [_build.I,
+                                                              _build.P]
 
 
 def _q8_0_launch(x: torch.Tensor, qt: QTensor, i8: bool, what: str,
-                 li: torch.Tensor | None = None) -> torch.Tensor:
+                 li: torch.Tensor | None = None,
+                 kwin: int = 0) -> torch.Tensor:
     """One launch for x (in_f,) on the card, the body prepping its own
     activations (`rowmv_plan`). li: layer li of stacked fields (K17b)."""
     out_f, in_f = qt.shape
-    plan = _rowmv_checked(x, qt, i8, what)
+    plan = _rowmv_checked(x, qt, i8, what, kwin)
     y = torch.empty((1, out_f), dtype=torch.bfloat16, device=x.device)
     d = qt.data
     lib, fn = _build.entry("q8_0_matvec", "k2_q8_0_matvec", _SIG_K2Q8)
@@ -819,7 +893,7 @@ def _q8_0_launch(x: torch.Tensor, qt: QTensor, i8: bool, what: str,
         d["q"].data_ptr(), d["scale"].data_ptr(), x.data_ptr(), y.data_ptr(),
         out_f, in_f, 1 if i8 else 2 if plan.xf32 else 0, plan.grid,
         plan.stages, plan.smem,
-        *_stack_args(qt, ("q", None, None, "scale"), li),
+        *_stack_args(qt, ("q", None, None, "scale"), li), plan.kwin,
         _build.stream_ptr()), what)
     return y
 
@@ -873,15 +947,16 @@ def q23k_matvec(x: torch.Tensor, qt: QTensor, i8: bool) -> torch.Tensor:
 
 
 _SIG_K12 = [_build.I] + [_build.P] * 6 + [_build.I] * 6 + _SIG_STACK \
-    + [_build.P]
+    + [_build.I, _build.P]
 
 
 def _q23k_launch(x: torch.Tensor, qt: QTensor, i8: bool, what: str,
-                 li: torch.Tensor | None = None) -> torch.Tensor:
+                 li: torch.Tensor | None = None,
+                 kwin: int = 0) -> torch.Tensor:
     """As _q6k_launch, for q2_k (qs, scale, min) and q3_k (qs, hmask,
     scale)."""
     out_f, in_f = qt.shape
-    plan = _rowmv_checked(x, qt, i8, what)
+    plan = _rowmv_checked(x, qt, i8, what, kwin)
     y = torch.empty((1, out_f), dtype=torch.bfloat16, device=x.device)
     d = qt.data
     lib, fn = _build.entry("q23k_matvec", "k12_q23k_matvec", _SIG_K12)
@@ -890,7 +965,7 @@ def _q23k_launch(x: torch.Tensor, qt: QTensor, i8: bool, what: str,
         d["scale"].data_ptr(), _ptr(d.get("min")), x.data_ptr(),
         y.data_ptr(), out_f, in_f, int(i8), plan.grid, plan.stages,
         plan.smem, *_stack_args(qt, ("qs", "hmask", "scale", "min"), li),
-        _build.stream_ptr()), what)
+        plan.kwin, _build.stream_ptr()), what)
     return y
 
 
@@ -928,15 +1003,16 @@ def iq_matvec(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
 
 
 _SIG_K12IQ = [_build.I] + [_build.P] * 7 + [_build.I] * 6 + _SIG_STACK \
-    + [_build.P]
+    + [_build.I, _build.P]
 
 
 def _iq_launch(x: torch.Tensor, qt: QTensor, what: str,
-               li: torch.Tensor | None = None) -> torch.Tensor:
+               li: torch.Tensor | None = None,
+               kwin: int = 0) -> torch.Tensor:
     """As _q8_0_launch, for an IQ kind (qs, hmask, sg, scale, min as the
     kind has them) at its scale group G."""
     out_f, in_f = qt.shape
-    plan = _rowmv_checked(x, qt, True, what)
+    plan = _rowmv_checked(x, qt, True, what, kwin)
     y = torch.empty((1, out_f), dtype=torch.bfloat16, device=x.device)
     d = qt.data
     lib, fn = _build.entry("iq_matvec", "k12_iq_matvec", _SIG_K12IQ)
@@ -946,7 +1022,7 @@ def _iq_launch(x: torch.Tensor, qt: QTensor, what: str,
         x.data_ptr(), y.data_ptr(), out_f, in_f, iq_group(qt), plan.grid,
         plan.stages, plan.smem,
         *_stack_args(qt, ("qs", "hmask", "sg", "scale", "min"), li),
-        _build.stream_ptr()), what)
+        plan.kwin, _build.stream_ptr()), what)
     return y
 
 
@@ -986,37 +1062,31 @@ def kq_expanded_matvec_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
 
 
 def kq_expanded_matvec(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """K12 expanded wrapper. x (in_f,) bf16 contiguous -> (1, out_f)
-    bf16."""
+    """K12 expanded wrapper. x (in_f,) bf16 contiguous -> (1, out_f) bf16.
+    One launch of rowmv.cuh's body (`rowmv_plan`), which preps its own x;
+    y its one allocation."""
     if not x.is_cuda:
         return kq_expanded_matvec_plain(x, qt)
     out_f, in_f = qt.shape
-    if qt.kind not in EXPANDED:
-        raise ValueError(f"K12 expanded serves {tuple(EXPANDED)}, not "
+    if qt.kind not in ROWMV_X_KINDS:
+        raise ValueError(f"K12 expanded serves {ROWMV_X_KINDS}, not "
                          f"{qt.kind}")
-    _check_operands(x[None], qt, "K12")
-    lib = _build.load("kq_expanded_matvec", {
-        "k12_expanded_prep": _SIG_PREP,
-        "k12_expanded_matvec": [_build.I] + [_build.P] * 7 + [_build.I] * 2
-        + [_build.P]})
-    dev = x.device
-    xq = torch.empty(in_f, dtype=torch.int8, device=dev)
-    sx = torch.empty(in_f // 16, dtype=torch.float32, device=dev)
-    xsum = torch.empty(in_f // 16, dtype=torch.bfloat16, device=dev)
-    y = torch.empty((1, out_f), dtype=torch.bfloat16, device=dev)
-    st = _build.stream_ptr()
-    _build.check(lib, lib.k12_expanded_prep(x.data_ptr(), xq.data_ptr(),
-                                            sx.data_ptr(), xsum.data_ptr(),
-                                            in_f, 1, st), "K12 prep")
+    plan = _rowmv_checked(x, qt, True, "K12")
+    y = torch.empty((1, out_f), dtype=torch.bfloat16, device=x.device)
     d = qt.data
-    _build.check(lib, lib.k12_expanded_matvec(
-        tuple(EXPANDED).index(qt.kind),
+    lib, fn = _build.entry("kq_expanded_matvec", "k12_expanded_matvec",
+                           _SIG_K12X)
+    _build.check(lib, fn(
+        ROWMV_X_KINDS.index(qt.kind),
         (d["q"] if qt.kind == "q6_k_i8f" else d["n4"]).data_ptr(),
-        d["scale"].data_ptr(), _ptr(d.get("min")), xq.data_ptr(),
-        sx.data_ptr(), xsum.data_ptr(), y.data_ptr(), out_f, in_f, st),
-        "K12")
+        d["scale"].data_ptr(), _ptr(d.get("min")), x.data_ptr(),
+        y.data_ptr(), out_f, in_f, plan.grid, plan.stages, plan.smem,
+        _build.stream_ptr()), "K12")
     _count("K12", qt)
     return y
+
+
+_SIG_K12X = [_build.I] + [_build.P] * 5 + [_build.I] * 5 + [_build.P]
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,13 @@
 """Device-alone times of the q4_k / q5_k matvecs K1, K7 and K17a, of the
 q6_k / q2_k / q3_k matvecs K2, K12.q2_k and K12.q3_k (int8 and bf16
-activations), of the q8_0 matvecs K2.q8_0 and K2.q8_0_bf16 and the IQ
-matvecs K12.iq2p / iq3px / iq3ps / iq1p (G = 32; iq2p also G = 16, iq1p
-G = 8), of the KCPP_SBQ=1 matvecs K14 and K14.q5_k and of the
-KCPP_FFN_FUSED=1 FFN K15a at the TinyLlama-1.1B's shapes, beside one
-PyTorch call computing the same function (cuBLAS over the dequantized
-bf16 weight; for K15a cuBLAS gate/up, silu * up, cuBLAS down) and the
-bytes bound.
+activations), of the KCPP_KQ_LAYOUT=expanded matvecs K12.q6_k_i8f /
+q3_k_n4 / q2_k_n4 (int8), of the q8_0 matvecs K2.q8_0 and K2.q8_0_bf16
+and the IQ matvecs K12.iq2p / iq3px / iq3ps / iq1p (G = 32; iq2p also
+G = 16, iq1p G = 8), of the KCPP_SBQ=1 matvecs K14 and K14.q5_k and of
+the KCPP_FFN_FUSED=1 FFN K15b (T = 1) and K15a at the TinyLlama-1.1B's
+shapes, beside one PyTorch call computing the same function (cuBLAS over
+the dequantized bf16 weight; for K15 cuBLAS gate/up, silu * up, cuBLAS
+down) and the bytes bound.
 
     python3 koboldcpp_tpu_torch/tools/bench_q4k.py [--root DIR]
         [--label NAME] [--check] [--kernels K2,K12.q2_k,...]
@@ -20,9 +21,9 @@ bit), K7's rows to K1 on each row alone,
 K17a to K1 on the layer, K14's rows at T = 2 and 8 to its rows of the same
 tokens at T = 16 and K15a's at T = 2 to those at T = 8, bit for bit, and
 fail on a mismatch. --kernels: time only these (default: all; K1,
-K1.q5_k, K7, K7.q5_k, K17a, K2, K12.q2_k, K12.q3_k, K2.q8_0,
-K2.q8_0_bf16, K12.iq2p, K12.iq3px, K12.iq3ps, K12.iq1p, K14, K14.q5_k,
-K15a);
+K1.q5_k, K7, K7.q5_k, K17a, K2, K12.q2_k, K12.q3_k, K12.q6_k_i8f,
+K12.q3_k_n4, K12.q2_k_n4, K2.q8_0, K2.q8_0_bf16, K12.iq2p, K12.iq3px,
+K12.iq3ps, K12.iq1p, K14, K14.q5_k, K15b, K15a);
 each kernel's weights come from a seed of its own, so a subset times the
 same weights as a full run (K7 at T = 8 and K14 time the same weights at
 one seed).
@@ -34,7 +35,8 @@ every weight from HBM once), divided by the calls: neither the host's
 launch time nor a flush's L2 write-backs are counted. Prints a JSON line
 per case, then the sums per kernel and class (K1 / K7 / K17a: T = 1;
 2-8; 8; K2 / K12: T = 1 int8, T = 1 bf16 x; K2.q8_0 / K12.iq: T = 1 per
-G; K14: T = 2, 8, 16; K15a: T = 2, 8), each beside the library's and the
+G; K14: T = 2, 8, 16; K15b: T = 1; K15a: T = 2, 8), each beside the
+library's and the
 bound's; the card's name and
 power limit first.
 """
@@ -54,8 +56,11 @@ SHAPES = (("wqkv", (2560, 2048)), ("w_gateup", (11264, 2048)),
           ("output", (32000, 2048)))
 STACKED_L = 4
 Q4K_KERNELS = ("K1", "K1.q5_k", "K7", "K7.q5_k", "K17a")
-# the q6_k / q2_k / q3_k T=1 matvecs and their kinds
-ROWMV_KERNELS = (("K2", "q6_k"), ("K12.q2_k", "q2_k"), ("K12.q3_k", "q3_k"))
+# the q6_k / q2_k / q3_k T=1 matvecs and their kinds, then the expanded
+# layouts' (int8 only)
+ROWMV_KERNELS = (("K2", "q6_k"), ("K12.q2_k", "q2_k"), ("K12.q3_k", "q3_k"),
+                 ("K12.q6_k_i8f", "q6_k_i8f"), ("K12.q3_k_n4", "q3_k_n4"),
+                 ("K12.q2_k_n4", "q2_k_n4"))
 # the q8_0 / IQ T=1 matvecs (csrc/rowmv_g.cuh): (kernel, kind, scale groups,
 # int8 activations)
 GRP_KERNELS = (("K2.q8_0", "q8_0", (32,), True),
@@ -66,7 +71,7 @@ GRP_KERNELS = (("K2.q8_0", "q8_0", (32,), True),
                ("K12.iq1p", "iq1p", (32, 8), True))
 SBQ_KERNELS = ("K14", "K14.q5_k")
 SBQ_T = (2, 8, 16)
-FFN_T = (2, 8)
+FFN_T = (1, 2, 8)  # K15b at T = 1, K15a above
 
 
 def _card() -> str:
@@ -86,7 +91,8 @@ def main() -> int:
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--kernels", default=",".join(
         Q4K_KERNELS + tuple(k for k, _ in ROWMV_KERNELS)
-        + tuple(k for k, *_ in GRP_KERNELS) + SBQ_KERNELS + ("K15a",)))
+        + tuple(k for k, *_ in GRP_KERNELS) + SBQ_KERNELS
+        + ("K15b", "K15a")))
     args = ap.parse_args()
     want = set(args.kernels.split(","))
     root = os.path.abspath(args.root)
@@ -97,7 +103,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("bench_q4k: no CUDA device available")
     from koboldcpp_tpu_torch.models.synthetic import (
-        rand_iq, rand_q2k, rand_q3k, rand_q4k, rand_q5k, rand_q6k, rand_q8_0)
+        _MAKERS, rand_iq, rand_q2k, rand_q3k, rand_q4k, rand_q5k, rand_q6k,
+        rand_q8_0)
     from koboldcpp_tpu_torch.ops import ffn_fused as ff
     from koboldcpp_tpu_torch.ops import quant_matmul as qm
     from koboldcpp_tpu_torch.ops.linear import QTensor, dequant
@@ -213,12 +220,21 @@ def main() -> int:
         if kid not in want:
             continue
         rng = np.random.default_rng(1 + n)
+        expanded = kind not in makers
         fn, plain = ((qm.q6k_matvec, qm.q6k_matvec_plain) if kind == "q6_k"
+                     else (lambda x, q, i8: qm.kq_expanded_matvec(x, q),
+                           lambda x, q, i8: qm.kq_expanded_matvec_plain(x, q))
+                     if expanded
                      else (qm.q23k_matvec, qm.q23k_matvec_plain))
         for name, (out_f, in_f) in SHAPES:
-            qt = makers[kind](rng, out_f, in_f, dev)
+            qt = (_MAKERS if expanded else makers)[kind](rng, out_f, in_f,
+                                                         dev)
             w = dequant(qt)
-            wb = nbytes(*qt.data.values())
+            # the fields the kernel reads (an expanded QTensor also carries
+            # its dense kind's, for T > 1)
+            wb = nbytes(*(a for n_, a in qt.data.items()
+                          if not expanded or n_ in ("q", "n4", "scale",
+                                                    "min")))
             qts = [qt] + [QTensor(kind=qt.kind, shape=qt.shape, data={
                 n_: a.clone() for n_, a in qt.data.items()})
                 for _ in range(copies(wb) - 1)]
@@ -228,7 +244,7 @@ def main() -> int:
             lib_ms = rot_ms([lambda w=w_: torch.matmul(x, w.t())
                              for w_ in ws])
             bound = (wb + nbytes(x) + out_f * 2) / HBM_BYTES_PER_S * 1e3
-            for i8 in (True, False):
+            for i8 in ((True,) if expanded else (True, False)):
                 variant = "int8" if i8 else "bf16 x"
                 calls = [lambda q=q, i8=i8: fn(x[0], q, i8) for q in qts]
                 if args.check:
@@ -369,7 +385,7 @@ def main() -> int:
                     add(("K7", "T=8 on K14's weights"), k_ms, lib_ms, bound)
             del w, ws, qt, qts
             torch.cuda.empty_cache()
-    if "K15a" in want:
+    if "K15a" in want or "K15b" in want:
         # the 1.1B's FFN: w_gateup (2F, C), w_down (C, F)
         rng = np.random.default_rng(20)
         C, F = 2048, 5632
@@ -392,29 +408,35 @@ def main() -> int:
             (max(FFN_T), C)).astype(np.float32)).to(dev).bfloat16()
         ys = {}
         for T in FFN_T:
+            kid = "K15b" if T == 1 else "K15a"
+            if kid not in want:
+                continue
             x = xmax[:T].contiguous()
             calls = [lambda x=x, p=p: ff.ffn_fused_call(x, *p) for p in pairs]
             if args.check:
-                y = ys[T] = calls[0]()
+                y = calls[0]()
                 ref = ff.ffn_fused_plain(x, gu, dn)
                 torch.cuda.synchronize()
                 err = (y.float() - ref.float()).abs().max().item()
                 tol = 2 ** -7 * ref.float().abs().max().item()
-                check(err <= tol, f"K15a T={T}: error {err} > {tol}")
-                for t0, y0 in ys.items():
-                    check(torch.equal(y0, y[:t0]),
-                          f"K15a: rows at T={t0} differ from those at T={T}")
+                check(err <= tol, f"{kid} T={T}: error {err} > {tol}")
+                if T > 1:
+                    ys[T] = y
+                    for t0, y0 in ys.items():
+                        check(torch.equal(y0, y[:t0]), f"K15a: rows at "
+                              f"T={t0} differ from those at T={T}")
             k_ms = rot_ms(calls)
             lib_ms = rot_ms([lambda x=x, p=p: library(x, *p)
                              for p in wpairs])
             bound = (wb + nbytes(x) + T * C * 2) / HBM_BYTES_PER_S * 1e3
-            print(json.dumps({"tree": label, "kernel": "K15a",
+            print(json.dumps({"tree": label, "kernel": kid,
                               "case": f"w_gateup {2 * F}x{C} + w_down "
                               f"{C}x{F}", "T": T, "dev_ms": k_ms,
                               "library_dev_ms": lib_ms, "bound_ms": bound}),
                   flush=True)
-            add(("K15a", f"T={T}"), k_ms, lib_ms, bound)
-            add(("K15a", "T=2+8"), k_ms, lib_ms, bound)
+            add((kid, f"T={T}"), k_ms, lib_ms, bound)
+            if T > 1:
+                add(("K15a", "T=2+8"), k_ms, lib_ms, bound)
         del pairs, wpairs, wg, wd
         torch.cuda.empty_cache()
     for (kid, cls), (k, lib, bound, n) in sums.items():

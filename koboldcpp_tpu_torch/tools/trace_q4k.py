@@ -1,10 +1,11 @@
 """Timeline of one int8 K1 / K7 launch (csrc/q4k_matvec.cu), of one K2 /
 K12 launch (csrc/rowmv.cuh), of one K2.q8_0 / K12.iq launch
 (csrc/rowmv_g.cuh), of one K14 launch (csrc/q4k_sbq.cu) or of one K15a
-launch (csrc/ffn_fused.cu), block by block.
+launch (csrc/ffn_fused.cu; K15b at T = 1 too), block by block.
 
     python3 koboldcpp_tpu_torch/tools/trace_q4k.py [--kernel K1|K2|K12.q2_k|
-        K12.q3_k|K2.q8_0|K12.iq2p|K12.iq3px|K12.iq3ps|K12.iq1p|K14|K15a]
+        K12.q3_k|K2.q8_0|K12.iq2p|K12.iq3px|K12.iq3ps|K12.iq1p|K14|K15a|
+        K15b]
         [--bf16] [--group G]
 
 Builds a copy of the kernel source with `%globaltimer` stamps that thread 0
@@ -21,8 +22,8 @@ K1 (default): the 1.1B's five shapes at T = 1 and the head at T = 8; K2
 bf16 x with --bf16; K12.iq2p / iq3px / iq3ps / iq1p: the five at T = 1,
 scale group --group (default 32); K14 (q4_k): the five at T = 2, 8 and 16; K15a: the 1.1B's FFN at T
 = 2 and 8, with the two grid barriers' waits and phase 2 (stage waits then
-count the phase-1 tiles' and the phase-3 tiles' alike). Needs the card and
-nvcc.
+count the phase-1 tiles' and the phase-3 tiles' alike); K15b: the same at
+T = 1. Needs the card and nvcc.
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ SBQ_CASES = tuple((name, o, i, T) for name, o, i, _ in CASES[:5]
                   for T in (2, 8, 16))
 # K15a: (name, C, F, T), the 1.1B's FFN
 FFN_CASES = (("ffn", 2048, 5632, 2), ("ffn", 2048, 5632, 8))
+FFN_T1_CASES = (("ffn", 2048, 5632, 1),)
 SLOTS = 64  # stamps per block: 0 start, 1 SM, 2 ring issued, 3 prep done,
 # 4 + 2i stage i ready, 5 + 2i stage i's products done, 62 end
 
@@ -124,7 +126,7 @@ def instrumented(src: str, stamps=_STAMPS) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", default="K1",
-                    choices=("K1", *_ROWMV, "K14", "K15a"))
+                    choices=("K1", *_ROWMV, "K14", "K15a", "K15b"))
     ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--group", type=int, default=32, choices=(8, 16, 32))
     args = ap.parse_args()
@@ -143,14 +145,16 @@ def main() -> int:
     os.makedirs(out, exist_ok=True)
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     stack = [None, 0, 0, 0, 0, 0]
-    if args.kernel in ("K1", "K14", "K15a"):
+    if args.kernel in ("K1", "K14", "K15a", "K15b"):
         source, stamps, entry, cases, argtypes = {
             "K1": ("q4k_matvec", _STAMPS, "k1_q4k_i8", CASES,
-                   [P] * 6 + [I] * 5 + [P] + [LL] * 5 + [P]),
+                   [P] * 6 + [I] * 5 + [P] + [LL] * 5 + [I, P]),
             "K14": ("q4k_sbq", _SBQ_STAMPS, "k14_sbq", SBQ_CASES,
                     qm._SIG_SBQ),
-            "K15a": ("ffn_fused", _FFN_STAMPS, "k15a_ffn", FFN_CASES,
-                     ff._SIG_K15A)}[args.kernel]
+            "K15a": ("ffn_fused", _FFN_STAMPS, "k15_ffn", FFN_CASES,
+                     ff._SIG_K15),
+            "K15b": ("ffn_fused", _FFN_STAMPS, "k15_ffn",
+                     FFN_T1_CASES, ff._SIG_K15)}[args.kernel]
         kind = "q4_k"
         with open(os.path.join(_build.CSRC, f"{source}.cu")) as f:
             src = instrumented(f.read(), stamps)
@@ -191,7 +195,7 @@ def main() -> int:
           f"G={args.group}" if args.kernel.startswith("K12.iq") else "",
           flush=True)
     for name, out_f, in_f, T in cases:
-        if args.kernel == "K15a":  # out_f, in_f: C, F
+        if args.kernel in ("K15a", "K15b"):  # out_f, in_f: C, F
             C, F = out_f, in_f
             gu = _MAKERS[kind](rng, 2 * F, C, dev)
             dn = _MAKERS[kind](rng, C, F, dev)
@@ -209,7 +213,8 @@ def main() -> int:
             plan = qm.q4k_plan(T, out_f, in_f, False)
             call = [d["qs2"].data_ptr(), None, d["scale"].data_ptr(),
                     d["min"].data_ptr(), x.data_ptr(), y.data_ptr(), T,
-                    out_f, in_f, plan.grid, plan.smem, *stack, st]
+                    out_f, in_f, plan.grid, plan.smem, *stack, plan.kwin,
+                    st]
         elif args.kernel == "K14":
             d = qt.data
             plan = qm.sbq_plan(T, out_f, in_f, False)
@@ -217,7 +222,7 @@ def main() -> int:
                     d["d"].data_ptr(), d["min"].data_ptr(), x.data_ptr(),
                     y.data_ptr(), T, out_f, in_f, plan.grid, plan.stages,
                     plan.kwin, plan.smem, st]
-        elif args.kernel == "K15a":
+        elif args.kernel in ("K15a", "K15b"):
             plan = ff.ffn_plan(T, C, F, torch.cuda.get_device_properties(
                 dev).multi_processor_count)
             scratch = (torch.empty(T * 2 * F, dtype=torch.float32, device=dev),
@@ -230,7 +235,7 @@ def main() -> int:
                     dd["scale"].data_ptr(), dd["min"].data_ptr(),
                     x.data_ptr(), *(t.data_ptr() for t in scratch),
                     y.data_ptr(), T, C, F, plan.grid, plan.stages, plan.smem,
-                    st]
+                    plan.kwin, st]
         elif kind in qm.IQ_KINDS:
             d = qt.data
             plan = qm.rowmv_plan(kind, out_f, in_f, True, args.group)
@@ -238,14 +243,14 @@ def main() -> int:
                     qm._ptr(d.get("hmask")), qm._ptr(d.get("sg")),
                     d["scale"].data_ptr(), qm._ptr(d.get("min")),
                     x.data_ptr(), y.data_ptr(), out_f, in_f, args.group,
-                    plan.grid, plan.stages, plan.smem, *stack, st]
+                    plan.grid, plan.stages, plan.smem, *stack, plan.kwin, st]
         else:
             d = qt.data
             plan = qm.rowmv_plan(kind, out_f, in_f, not args.bf16)
             # K2.q8_0's x mode: 1 int8, 0 bf16, 2 bf16 kept as f32
             xmode = 1 if not args.bf16 else 2 if plan.xf32 else 0
             rest = [x.data_ptr(), y.data_ptr(), out_f, in_f, xmode,
-                    plan.grid, plan.stages, plan.smem, *stack, st]
+                    plan.grid, plan.stages, plan.smem, *stack, plan.kwin, st]
             call = ([d["ql"].data_ptr(), d["qh"].data_ptr(),
                      d["scale"].data_ptr()] if kind == "q6_k" else
                     [d["q"].data_ptr(), d["scale"].data_ptr()]
@@ -268,7 +273,7 @@ def main() -> int:
         ring, prep = b[:, 2] - b[:, 0], b[:, 3] - b[:, 2]
         waits, prods = [], []
         prev = b[:, 3]
-        for i in range(27 if args.kernel == "K15a" else 28):
+        for i in range(27 if args.kernel in ("K15a", "K15b") else 28):
             ready, done = b[:, 4 + 2 * i], b[:, 5 + 2 * i]
             ok = ready > 0
             if not ok.any():
@@ -278,7 +283,7 @@ def main() -> int:
             prev = np.where(ok, done, prev)
         tail = b[:, 62] - prev
         w, p = np.concatenate(waits), np.concatenate(prods)
-        if args.kernel == "K15a":
+        if args.kernel in ("K15a", "K15b"):
             tiles = (f"{plan.tiles1} + {plan.tiles3} tiles, {plan.ksteps1} "
                      f"+ {plan.ksteps3} K steps")
             print(f"  phase 2 per block (mean / max us): first barrier "

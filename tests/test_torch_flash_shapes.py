@@ -29,6 +29,9 @@ torch.set_num_threads(1)
 # (H, Hkv, D): head_dim 80, 96, 256; G = 32 at head_dim 128
 SHAPES = [(16, 8, 80), (8, 4, 96), (4, 2, 256), (32, 1, 128)]
 IDS = ["d80", "d96", "d256", "g32"]
+# K5 and K8 also at two head_dims the card's tiles pad: 72 (to 80) and 512
+PADDED = [(16, 16, 72), (8, 1, 512)]
+PADDED_IDS = ["d72", "d512"]
 B, S = 2, 64
 P, NP, MP = 8, 40, 8  # pool pages of P rows, MP pages per sequence
 
@@ -51,7 +54,7 @@ def _exact_rows(rng, shape, bits):
     return x[0] * unit, x[1] * unit
 
 
-@pytest.mark.parametrize("H, HKV, D", SHAPES, ids=IDS)
+@pytest.mark.parametrize("H, HKV, D", SHAPES + PADDED, ids=IDS + PADDED_IDS)
 def test_k5_plain_matches_jax(H, HKV, D):
     """The K5 tolerance (2e-3 absolute on outputs of size ~0.5: JAX
     rescales per block against a running max); the cache rows exact. Pos
@@ -77,7 +80,7 @@ def test_k5_plain_matches_jax(H, HKV, D):
                                       np.asarray(v_j.astype(jnp.float32)))
 
 
-@pytest.mark.parametrize("H, HKV, D", SHAPES, ids=IDS)
+@pytest.mark.parametrize("H, HKV, D", SHAPES + PADDED, ids=IDS + PADDED_IDS)
 def test_k8_plain_matches_jax(H, HKV, D):
     """K8 over shuffled pages (the K5 tolerance); position 70 is past MP *
     P = 64 (every page read, nothing written); the pool update exact."""
@@ -183,22 +186,26 @@ def _cfg(H, Hkv, D):
 @pytest.mark.parametrize("H, HKV, D", [
     (32, 32, 96),    # Phi-3-mini
     (128, 8, 128),   # Llama-3.1-405B: G = 16, G * D = 2048
-    (32, 8, 80), (16, 8, 256), (32, 1, 128), (32, 4, 64), (64, 8, 112)])
+    (32, 8, 80), (16, 8, 256), (32, 1, 128), (32, 4, 64), (64, 8, 112),
+    # head_dims the tiles pad to a multiple of 16, and 512
+    (32, 16, 72), (8, 1, 512), (16, 16, 40)])
 def test_check_supported_admits_on_the_card(H, HKV, D):
     """On a CUDA device (only its type is read: no card needed) the head
-    shapes JAX's flash decode takes pass; the card serves them."""
+    shapes JAX's flash decode takes pass; the card serves them: every
+    head_dim that is a multiple of 8 up to 512."""
     tllama.check_supported({"layers": [{}]}, _cfg(H, HKV, D), "cuda")
     tfd.check_kernel_shape(H, HKV, D)
 
 
-@pytest.mark.parametrize("H, HKV, D", [(32, 16, 72), (8, 1, 512),
-                                        (16, 16, 40)])
+@pytest.mark.parametrize("H, HKV, D", [(32, 32, 20), (8, 1, 640),
+                                        (64, 32, 36)])
 def test_check_supported_raises_only_where_jax_serves_what_the_card_cannot(
         H, HKV, D):
-    """The one limit left: head_dim a multiple of 16 up to 256. Shapes that
+    """The one limit left: head_dim a multiple of 8 up to 512. Shapes that
     JAX's `supported_batched` refuses (Hkv * D % 128 != 0) take the plain
     attention in both packages, so check_supported admits them; shapes it
-    takes outside that limit raise on the card and pass on the CPU."""
+    takes outside that limit (here 20, 640 and 36, each with Hkv * D % 128
+    == 0) raise on the card and pass on the CPU."""
     cfg = _cfg(H, HKV, D)
     if jfd.supported_batched(1, HKV, D):
         with pytest.raises(NotImplementedError, match="head_dim"):

@@ -247,14 +247,15 @@ def test_shift_rows_matches_jax(rope_type):
         torch.from_numpy(k[:, :5]).bfloat16().float().numpy())
 
 
-@pytest.mark.parametrize("head_dim,n_heads,n_kv_heads", [(72, 32, 16),
-                                                          (512, 8, 4)])
+@pytest.mark.parametrize("head_dim,n_heads,n_kv_heads", [(36, 64, 32),
+                                                          (640, 8, 4)])
 def test_k5_head_shape_refused_at_load_on_cuda(head_dim, n_heads, n_kv_heads):
     """A head shape K5 is not built for (a head_dim that is not a multiple
-    of 16, or above 256, where Hkv * head_dim % 128 == 0 sends it to the
-    kernel) fails when the model is checked on a CUDA device, naming K5,
-    not at the first decoded token; the CPU, which runs K5's plain version,
-    takes it."""
+    of 8, or above 512, where Hkv * head_dim % 128 == 0 sends it to the
+    kernel; 72 and 512 are taken since the kernel pads its tiles) fails
+    when the model is checked on a CUDA device, naming K5, not at the
+    first decoded token; the CPU, which runs K5's plain version, takes
+    it."""
     cfg = dataclasses.replace(SMALL, n_heads=n_heads, n_kv_heads=n_kv_heads,
                               head_dim=head_dim, rope_dim=head_dim)
     params = {"layers": [{}]}

@@ -98,10 +98,29 @@ def test_layout_holds_the_x_codes(T, q5):
 
 @pytest.mark.parametrize("T,out_f,in_f", (
     (0, 2048, 2048), (9, 2048, 2048), (1, 2048, 384), (1, 2000, 2048),
-    (1, 2048, 0), (8, 2048, 24576), (1, 2048, 131072)))
+    (1, 2048, 0), (8, 2048, 24576), (2, 2048, 131072)))
 def test_plan_refuses_other_shapes(T, out_f, in_f):
+    """A T or width the kernel does not take; at T >= 2 an x too wide for
+    a block (the dispatch's `_q45_i8` sends none: x goes in windows at T = 1
+    only, tests/test_torch_windows.py)."""
     with pytest.raises(ValueError):
         qm.q4k_plan(T, out_f, in_f)
+
+
+@pytest.mark.parametrize("q5", (False, True))
+@pytest.mark.parametrize("in_f", (131072, 262144))
+def test_plan_takes_t1_widths_in_windows(in_f, q5):
+    """T = 1 at a width whose x does not fit a block: x in windows of kwin
+    K steps, the widest that lets two blocks share an SM; each window's
+    codes fit (rows of its columns + 64 bytes)."""
+    plan = qm.q4k_plan(1, 2048, in_f, q5)
+    assert 1 <= plan.kwin < plan.ksteps == in_f // 2048
+    cols = plan.kwin * 2048
+    assert plan.smem == qm.q4k_layout(q5, 1, cols)["total"] <= qm.SMEM_MAX
+    assert 2 * (plan.smem + 1024) <= 233472 and plan.grid == 128
+    # one K step more would not have fit two blocks an SM
+    wider = qm.q4k_layout(q5, 1, cols + 2048)["total"]
+    assert 2 * (wider + 1024) > 233472
 
 
 class _FakeLib:

@@ -98,8 +98,10 @@ def test_layout_holds_x_and_the_sums(kind, i8):
 
 @pytest.mark.parametrize("kind,out_f,in_f", (
     ("q4_k", 2048, 2048), ("q6_k", 2048, 384), ("q2_k", 2000, 2048),
-    ("q3_k", 2048, 0), ("q6_k", 0, 2048), ("q6_k", 2048, 131072)))
+    ("q3_k", 2048, 0), ("q6_k", 0, 2048), ("q6_k", 2048, 131072 + 128)))
 def test_plan_refuses_other_shapes(kind, out_f, in_f):
+    """A kind of another body, in_f or out_f off the grid (every in_f that
+    is a multiple of 256 has a plan: tests/test_torch_windows.py)."""
     with pytest.raises(ValueError):
         qm.rowmv_plan(kind, out_f, in_f, True)
 

@@ -191,7 +191,7 @@ def test_ffn_plan_covers_both_phases(C, F):
     assert ff.ffn_plan(8, C, F, sms=114).grid <= 2 * 114
 
 
-@pytest.mark.parametrize("T,C,F", ((1, 2048, 5632), (9, 2048, 5632),
+@pytest.mark.parametrize("T,C,F", ((0, 2048, 5632), (9, 2048, 5632),
                                    (2, 2000, 5632), (2, 2048, 5600),
                                    (2, 0, 512)))
 def test_ffn_plan_refuses_other_shapes(T, C, F):
@@ -259,8 +259,8 @@ def test_sbq_wrapper_launches_once_with_the_plan(monkeypatch, maker, T,
 
 @pytest.mark.parametrize("T", (1, 2, 8))
 def test_ffn_wrapper_launches_once(monkeypatch, T):
-    """K15b at T = 1, K15a above with `ffn_plan`'s grid, stages and shared
-    memory: one launch each."""
+    """K15b at T = 1, K15a above, each with `ffn_plan`'s grid, stages,
+    shared memory and window: one launch each."""
     lib = _fake_build(monkeypatch)
     C, F = 256, 512
     rng = np.random.default_rng(1)
@@ -270,12 +270,10 @@ def test_ffn_wrapper_launches_once(monkeypatch, T):
     assert y.shape == (T, C) and y.dtype == torch.bfloat16
     assert len(lib.calls) == 1
     name, args = lib.calls[0]
-    if T == 1:
-        assert name == "k15_ffn_fused" and args[12:14] == (C, F)
-    else:
-        plan = ff.ffn_plan(T, C, F, 100)
-        assert name == "k15a_ffn"
-        assert args[11:17] == (T, C, F, plan.grid, plan.stages, plan.smem)
+    plan = ff.ffn_plan(T, C, F, 100)
+    assert name == "k15_ffn" and args[12:14] == (C, F)
+    assert args[11:18] == (T, C, F, plan.grid, plan.stages, plan.smem,
+                           plan.kwin)
 
 
 @pytest.mark.parametrize("source,stamps", (("q4k_sbq.cu", "_SBQ_STAMPS"),
