@@ -70,6 +70,16 @@
    synthetic q4_k model at Phi-3-mini's widths (head_dim 96, 32 kv heads,
    8 layers): a ~300-token prompt and 16 greedy tokens, every decode step
    through K5, the same tokens with K5's plain version in its place;
+   then Gemma-2-9B's widths (8 of 42 layers, from the GGUF keys through
+   config_from_metadata: 4 sliding-window layers, 4 global, softcaps, tied
+   dense head of 256000 x 3584): a 4400-token prompt, so that decode runs
+   past the 4096 window, and 16 greedy tokens, every step 4 K5 (the
+   global layers) and no K4, the same tokens with K5's plain version; the
+   same over the Q8 cache (4 K6 a step); one paged wave of 4 requests
+   (4 K8 a step), each getting its single-stream tokens; then Phi-2's
+   widths at full depth (32 layers, 32/32 heads of 80, partial rotary,
+   parallel residual, non-gated gelu, biases): a 300-token prompt and 16
+   greedy tokens, 32 K5 a step, the same tokens with K5's plain version;
 4. serves the same model through BatchedEngine (8 slots, context 2048),
    on the slot cache and on the paged pool (P=64): 8 concurrent greedy
    requests of 100-300 prompt tokens and 64 new tokens each, which must
@@ -134,7 +144,11 @@
    the five portgguf fixtures' against the JAX package's committed
    logits, and those of tests/fixtures/portgguf/optin.json (five fixtures
    under their variables, a prefill of 11 tokens and one decode step)
-   against the JAX package's under the same variables;
+   against the JAX package's under the same variables; then serves the
+   gemma2, phi2 and mpt Q4_K_M fixtures (tests/fixtures/portgguf/
+   archs.json) over HTTP, two identical replies each (K1 / K3; K5 on
+   gemma2's global layer and phi2, none on mpt's ALiBi), and holds their
+   logits to the JAX package's committed ones;
 8. last, since a profiler session slows every later decode of the
    process: the device idle share under torch.profiler of the synthetic
    1.1B q4_k, 64 fast-forwarded single-stream tokens (with that request's
@@ -172,6 +186,7 @@ from koboldcpp_tpu_torch.device import card_info  # noqa: E402
 from koboldcpp_tpu_torch.engine import Engine, GenParams  # noqa: E402
 from koboldcpp_tpu_torch.engine import batch_engine  # noqa: E402
 from koboldcpp_tpu_torch.models import llama  # noqa: E402
+from koboldcpp_tpu_torch.models.config import config_from_metadata  # noqa: E402
 from koboldcpp_tpu_torch.models.loader import Model, load_model  # noqa: E402
 from koboldcpp_tpu_torch.models.synthetic import (  # noqa: E402
     _MAKERS, TINYLLAMA_1_1B, rand_iq, rand_q2k, rand_q3k, rand_q4k,
@@ -1034,10 +1049,12 @@ def phase_iq_kernels(rng) -> None:
 
 # head shapes the port serves beyond the 1.1B's 32/4/64 (H, Hkv, head_dim):
 # D = 80 (32/8), Phi-3-mini's 32/32/96, gemma-2-9b's 16/8/256,
-# Llama-3.1-405B's 128/8/128 (G = 16, G * D = 2048), and two that the
-# tiles pad: D = 72 (32/16, padded to 80) and D = 512 (8/1)
+# Llama-3.1-405B's 128/8/128 (G = 16, G * D = 2048), two that the tiles
+# pad: D = 72 (32/16, padded to 80) and D = 512 (8/1), and Phi-2's 32/32/80
 HEAD_SHAPES = ((32, 8, 80), (32, 32, 96), (16, 8, 256), (128, 8, 128),
-               (32, 16, 72), (8, 1, 512))
+               (32, 16, 72), (8, 1, 512), (32, 32, 80))
+# Gemma-2's attention softcap, which K5 / K6 / K8 take on its global layers
+GEMMA2_SOFTCAP = 50.0
 # positions of the 8-sequence cases: pos 0, page boundaries, the last row,
 # a dead slot
 BATCH_POSITIONS = (0, 1, 63, 64, 700, 2047, -1, 256)
@@ -1061,6 +1078,10 @@ def phase_flash_decode(rng) -> None:
     for H, Hkv, D in ((32, 16, 72), (8, 1, 512)):
         _flash_decode_case(rng, 8, 2048, H, Hkv, D, BATCH_POSITIONS, True,
                            torch.float32)
+    # Gemma-2's global layers: 16/8/256 under the softcap, past its window
+    for B, positions in ((1, (4500,)), (4, (4500, 4096, 100, -1))):
+        _flash_decode_case(rng, B, 8192, 16, 8, 256, positions, True,
+                           softcap=GEMMA2_SOFTCAP)
 
 
 def _peak(rng, q, kc, positions, G: int) -> None:
@@ -1098,9 +1119,12 @@ def _peak(rng, q, kc, positions, G: int) -> None:
 
 
 def _flash_decode_case(rng, B, S, H, Hkv, D, positions, peaked,
-                       cache_dtype=torch.bfloat16) -> None:
+                       cache_dtype=torch.bfloat16,
+                       softcap: float = 0.0) -> None:
     """K5 on one case; cache_dtype float32: the f32 cache kind (values
-    drawn in f32, this step's row widened from bf16)."""
+    drawn in f32, this step's row widened from bf16). With a softcap the
+    case is checked and timed, and has no library call (SDPA takes no
+    softcap): it is printed, not added to K5's row."""
     KD = Hkv * D
     scale = D ** -0.5
 
@@ -1116,17 +1140,18 @@ def _flash_decode_case(rng, B, S, H, Hkv, D, positions, peaked,
     pos = torch.tensor(positions, dtype=torch.int32, device=DEV)
     kc, vc = kc0.clone(), vc0.clone()
     out, _, _ = flash_decode.decode_attention_batched(
-        q, kn, vn, kc, vc, pos, H, Hkv, scale)
+        q, kn, vn, kc, vc, pos, H, Hkv, scale, softcap)
     kr, vr = kc0.clone(), vc0.clone()
     ref = flash_decode.decode_attention_batched_plain(q, kn, vn, kr, vr, pos,
-                                                      H, Hkv, scale)
+                                                      H, Hkv, scale, softcap)
     # W = sum_s p_s |v_s| / l per output element: the same softmax over |V|
     w = flash_decode.decode_attention_batched_plain(
-        q, kn, vn.abs(), kc0.clone(), vc0.abs(), pos, H, Hkv, scale)
+        q, kn, vn.abs(), kc0.clone(), vc0.abs(), pos, H, Hkv, scale, softcap)
     torch.cuda.synchronize()
     what = (f"B={B} S={S} H={H} Hkv={Hkv} D={D} pos={positions}"
             + (" peaked" if peaked else "")
-            + (" f32 cache" if cache_dtype == torch.float32 else ""))
+            + (" f32 cache" if cache_dtype == torch.float32 else "")
+            + (f" softcap {softcap:g}" if softcap else ""))
     # the cache row at pos is this step's K/V, every other row unchanged
     want_k, want_v = kc0.clone(), vc0.clone()
     for b, p in enumerate(positions):
@@ -1149,6 +1174,12 @@ def _flash_decode_case(rng, B, S, H, Hkv, D, positions, peaked,
     tol = tol_el.flatten()[diff.argmax()].item()
     print(f"K5 {what}: worst |err| / (2^-7 * 1.05 * W) {worst:.3g}",
           flush=True)
+    if softcap:
+        ms = _time_ms(lambda: flash_decode.decode_attention_batched(
+            q, kn, vn, kc, vc, pos, H, Hkv, scale, softcap))
+        print(f"K5 {what}: kernel {ms:.4f} ms (no library call takes the "
+              f"softcap)", flush=True)
+        return
     # library: SDPA over the rows each query attends: the live prefix of the
     # updated cache (history + this row), or for a dead sequence (pos < 0)
     # every cache row plus this step's row
@@ -1812,6 +1843,19 @@ def phase_quant_single(card: str, bf16_tps: float) -> dict:
     return counts
 
 
+# the plain versions of K5 / K6 with the kernels' signatures, patched in to
+# hold a served path's tokens to them
+def _k5_plain(q, kn, vn, kc, vc, pos, H, Hkv, scale, softcap=0.0):
+    return flash_decode.decode_attention_batched_plain(
+        q, kn, vn, kc, vc, pos, H, Hkv, scale, softcap), kc, vc
+
+
+def _k6_plain(q, kn, vn, kc, vc, ks, vs, pos, H, Hkv, scale, softcap=0.0):
+    return flash_decode.decode_attention_batched_q8_plain(
+        q, kn, vn, kc, vc, ks, vs, pos, H, Hkv, scale, softcap), \
+        kc, vc, ks, vs
+
+
 # Phi-3-mini's published widths (microsoft/Phi-3-mini-4k-instruct,
 # config.json: hidden 3072, 32 attention heads of 96 over 32 kv heads, ffn
 # 8192, vocab 32064), depth cut from 32 layers to PHI3_LAYERS to keep the
@@ -1854,12 +1898,9 @@ def phase_phi3_decode(card: str) -> dict:
            and steps >= PHI3_DEPTH - 1 and counts.get("K4", 0) == 0,
            f"Phi-3-mini shape: K5 did not serve every decode step: {counts}")
 
-    def plain(q, kn, vn, kc, vc, pos, H, Hkv, scale, softcap=0.0):
-        return flash_decode.decode_attention_batched_plain(
-            q, kn, vn, kc, vc, pos, H, Hkv, scale, softcap), kc, vc
-
     eng.reset_context()
-    with mock.patch.object(flash_decode, "decode_attention_batched", plain):
+    with mock.patch.object(flash_decode, "decode_attention_batched",
+                           _k5_plain):
         r2 = eng.generate(prompt, gp)
     _same_or_near_tie(eng, prompt, r1.tokens, r2.tokens,
                       "Phi-3-mini shape, K5 against its plain version")
@@ -1871,6 +1912,176 @@ def phase_phi3_decode(card: str) -> dict:
           f"{t1.gen_tps:.1f} tok/s; {steps} decode steps (the engine's "
           f"greedy chunks) through K5, {c.n_layers} a step; the same tokens "
           f"with K5's plain version; launches {counts}", flush=True)
+    del eng, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+# Gemma-2-9B's published widths (google/gemma-2-9b config.json: vocab
+# 256000, hidden 3584, ffn 14336, 16 heads of 256 over 8 kv heads, a
+# sliding window of 4096 on every other layer, softcaps 50 / 30, tanh gelu,
+# context 8192, tied embeddings), as the GGUF keys a converted file
+# carries, read by the port's config_from_metadata; depth cut from 42
+# layers to GEMMA2_LAYERS (4 local, 4 global) to keep the script within
+# its time; synthetic q4_k weights from a seed
+GEMMA2_9B_MD = {
+    "general.architecture": "gemma2", "gemma2.vocab_size": 256000,
+    "gemma2.embedding_length": 3584, "gemma2.block_count": 42,
+    "gemma2.feed_forward_length": 14336, "gemma2.context_length": 8192,
+    "gemma2.attention.head_count": 16, "gemma2.attention.head_count_kv": 8,
+    "gemma2.attention.key_length": 256, "gemma2.attention.value_length": 256,
+    "gemma2.attention.layer_norm_rms_epsilon": 1e-6,
+    "gemma2.attention.sliding_window": 4096,
+    "gemma2.attn_logit_softcapping": 50.0,
+    "gemma2.final_logit_softcapping": 30.0, "gemma2.rope.freq_base": 10000.0}
+GEMMA2_LAYERS = 8
+GEMMA2_PROMPT = 4400  # so that every decode position passes the window
+# Phi-2's published widths (microsoft/phi-2 config.json: vocab 51200,
+# hidden 2560, ffn 10240 non-gated gelu, 32 heads of 80 over 32 kv heads,
+# rotary on 32 of 80 dims, layer norms with biases, every projection and
+# the head biased, parallel residual, 32 layers), full depth
+PHI2_MD = {
+    "general.architecture": "phi2", "phi2.vocab_size": 51200,
+    "phi2.embedding_length": 2560, "phi2.block_count": 32,
+    "phi2.feed_forward_length": 10240, "phi2.context_length": 2048,
+    "phi2.attention.head_count": 32, "phi2.attention.head_count_kv": 32,
+    "phi2.attention.layer_norm_epsilon": 1e-5,
+    "phi2.rope.dimension_count": 32, "phi2.rope.freq_base": 10000.0}
+ARCH_DEPTH = 16  # greedy tokens of the two architecture phases
+
+
+def _arch_decode(model, what: str, prompt: list[int], max_context: int,
+                 quantkv: int = 0):
+    """One model single-stream on the card: the prompt, then ARCH_DEPTH
+    greedy tokens; every decode step launches the T=1 attention kernel
+    (K5, K6 under quantkv=1) once per global layer and K4 never (a softcap
+    or a head_dim K4 is not built for); then the same prompt again
+    (fast-forward: the last prompt token re-evaluated) with the kernel's
+    plain version in its place gives the same tokens (near-ties apart).
+    Returns (engine, reply, timings, launch counts, decode steps)."""
+    cfg = model.cfg
+    kid, name, plain = (("K6", "decode_attention_batched_q8", _k6_plain)
+                        if quantkv else
+                        ("K5", "decode_attention_batched", _k5_plain))
+    eng = Engine(model, max_context=max_context, device=DEV, quantkv=quantkv)
+    gp = GenParams(max_length=ARCH_DEPTH, bypass_eos=True,
+                   sampler=SamplerParams(temperature=0.0, rep_pen=1.0))
+    eng.generate(prompt[:40], GenParams(max_length=4, bypass_eos=True,
+                                        sampler=gp.sampler))
+    eng.reset_context()
+    _build.launches.clear()
+    with _StepLaunches() as rec:
+        r1 = eng.generate(prompt, gp)
+    t1 = eng.last_timings
+    counts = dict(_build.launches)
+    n_global = sum(not llama._is_local(cfg, li) for li in range(cfg.n_layers))
+    steps = _check_steps(rec, 1, {kid: n_global, "K4": 0}, what)
+    _check(len(r1.tokens) == ARCH_DEPTH
+           and all(0 <= t < cfg.vocab_size for t in r1.tokens)
+           and counts.get("K4", 0) == 0, f"{what}: {r1.tokens} {counts}")
+    with mock.patch.object(flash_decode, name, plain):
+        r2 = eng.generate(prompt, gp)
+    _check(eng.last_timings.prompt_tokens == 1, f"{what}: no fast-forward")
+    _same_or_near_tie(eng, prompt, r1.tokens, r2.tokens,
+                      f"{what}, {kid} against its plain version")
+    return eng, r1, t1, counts, steps
+
+
+def phase_gemma2_decode(card: str) -> dict:
+    """Gemma-2-9B's widths (8 of 42 layers) on the card: a GEMMA2_PROMPT-
+    token prompt, so that every decode position lies past the 4096 window
+    of the local layers, then ARCH_DEPTH greedy tokens: K5 on the 4 global
+    layers of every step only (the local layers write the cache and run
+    the plain attention under the window, as in JAX), K4 off (the
+    softcap), the same tokens with K5's plain version; the same over the
+    Q8 cache (K6); then one paged wave of 4 requests of 100-300 prompt
+    tokens (K8 on the global layers, with the softcap), each getting its
+    single-stream tokens."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(config_from_metadata(GEMMA2_9B_MD),
+                              n_layers=GEMMA2_LAYERS)
+    model = synthetic_model(cfg, "q4_k", seed=0, device=DEV)
+    _check(model.params["output"] is model.params["tok_embd"],
+           "Gemma-2: the head is not the tied embedding")
+    made = time.perf_counter() - t0
+    rng = np.random.default_rng(5)
+    prompt = [2] + rng.integers(3, cfg.vocab_size,
+                                size=GEMMA2_PROMPT - 1).tolist()
+    eng, r1, t1, counts, steps = _arch_decode(model, "Gemma-2", prompt, 8192)
+    qeng, q1, qt1, qcounts, qsteps = _arch_decode(model, "Gemma-2 Q8",
+                                                  prompt, 8192, quantkv=1)
+    del qeng
+    torch.cuda.empty_cache()
+    for k, v in qcounts.items():
+        counts[k] = counts.get(k, 0) + v
+
+    # one paged wave: 4 requests at once, each against its single-stream
+    # tokens from the bf16 engine
+    gp = GenParams(max_length=ARCH_DEPTH, bypass_eos=True,
+                   sampler=SamplerParams(temperature=0.0, rep_pen=1.0))
+    prompts = [[2] + rng.integers(3, cfg.vocab_size, size=n - 1).tolist()
+               for n in (100, 170, 240, 300)]
+    alone = []
+    for p in prompts:
+        eng.reset_context()
+        alone.append(eng.generate(p, gp).tokens)
+    beng = batch_engine.BatchedEngine(model, max_context=1024, n_slots=4,
+                                      paged=True, device=DEV)
+    try:
+        _build.launches.clear()
+        with _StepLaunches() as rec:
+            res, secs = _serve_together(beng, prompts, [gp] * 4)
+        wave = dict(_build.launches)
+    finally:
+        beng.shutdown()
+    wsteps = _check_steps(rec, 4, {"K8": cfg.n_layers // 2, "K5": 0},
+                          "Gemma-2 paged wave")
+    for p, r, want in zip(prompts, res, alone):
+        _same_or_near_tie(eng, p, r.tokens, want,
+                          "Gemma-2 paged wave against single-stream")
+    for k, v in wave.items():
+        counts[k] = counts.get(k, 0) + v
+    print(f"Gemma-2-9B widths ({cfg.n_layers} of 42 layers: 4 local with "
+          f"window {cfg.sliding_window}, 4 global; {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim}, "
+          f"softcaps {cfg.attn_logit_softcap:g} / "
+          f"{cfg.final_logit_softcap:g}, q4_k, tied dense head, {card}): "
+          f"synthetic weights {made:.1f} s; prefill {t1.prompt_tokens} "
+          f"tokens {t1.prompt_time * 1e3:.1f} ms (plain attention: the "
+          f"softcap), decode {t1.gen_tokens} tokens {t1.gen_tps:.1f} tok/s, "
+          f"{steps} steps of 4 K5; Q8 cache: prefill "
+          f"{qt1.prompt_time * 1e3:.1f} ms, decode {qt1.gen_tps:.1f} tok/s, "
+          f"{qsteps} steps of 4 K6; both the same tokens with the kernel's "
+          f"plain version; paged wave of 4 ({secs:.2f} s, {wsteps} steps of "
+          f"4 K8) equal to single-stream; launches {counts}", flush=True)
+    del eng, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_phi2_decode(card: str) -> dict:
+    """Phi-2's widths at full depth (32 layers) on the card: a 300-token
+    prompt (plain prefill attention: K4 is not built for head_dim 80),
+    then ARCH_DEPTH greedy tokens, every step 32 K5, the same tokens with
+    K5's plain version."""
+    t0 = time.perf_counter()
+    cfg = config_from_metadata(PHI2_MD)
+    model = synthetic_model(cfg, "q4_k", seed=0, device=DEV)
+    _check("output_bias" in model.params and "bq" in model.params["layers"][0]
+           and "w_gateup" not in model.params["layers"][0],
+           "Phi-2: synthetic params lack its biases or gateless FFN")
+    made = time.perf_counter() - t0
+    prompt = [1] + np.random.default_rng(6).integers(
+        3, cfg.vocab_size, size=299).tolist()
+    eng, r1, t1, counts, steps = _arch_decode(model, "Phi-2", prompt, 2048)
+    print(f"Phi-2 widths ({cfg.n_layers} layers, hidden {cfg.hidden_size}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, rotary "
+          f"{cfg.rope_dim}, parallel residual, non-gated gelu, biases, q4_k, "
+          f"{card}): synthetic weights {made:.1f} s; prefill "
+          f"{t1.prompt_tokens} tokens {t1.prompt_time * 1e3:.1f} ms, decode "
+          f"{t1.gen_tokens} tokens {t1.gen_tps:.1f} tok/s, {steps} steps of "
+          f"{cfg.n_layers} K5; the same tokens with K5's plain version; "
+          f"launches {counts}", flush=True)
     del eng, model
     torch.cuda.empty_cache()
     return counts
@@ -3044,6 +3255,55 @@ def phase_served_kinds() -> dict:
     return counts
 
 
+def phase_served_archs() -> dict:
+    """The gemma2, phi2 and mpt Q4_K_M fixtures (tests/fixtures/portgguf/
+    archs.json) served over HTTP single-stream at temperature 0: two
+    identical replies each, q4_k through K1 / K3, the decode attention
+    through K5 on gemma2's global layer and phi2's layers and on no layer
+    of mpt (ALiBi); then each fixture's logits on the card against the
+    JAX package's committed logits, |err| <= 2e-2 + 2e-2 |want| (the
+    tolerance of tests/test_torch_archs.py; the worst against the llama
+    fixtures' 1e-2 + 1e-2 |want| is printed beside it)."""
+    from koboldcpp_tpu_torch.server.app import ServerSettings
+
+    man = json.load(open(os.path.join(PORT_FIX, "archs.json")))
+    body = {"prompt": "The gradient of a function, e.g. f(x), points",
+            "max_length": 24, "temperature": 0, "rep_pen": 1.0}
+    counts: dict = {}
+    for arch, name in man["files"].items():
+        path = os.path.join(PORT_FIX, name)
+        model = load_model(path, device=DEV)
+        srv = _Server(Engine(model, max_context=512, device=DEV),
+                      ServerSettings(model_name=name))
+        try:
+            _build.launches.clear()
+            a, b = (srv.post("/api/v1/generate", body)["results"][0]["text"]
+                    for _ in range(2))
+            c = dict(_build.launches)
+        finally:
+            srv.close()
+        _check(a == b and a != "",
+               f"{name}: temperature-0 replies differ: {a!r} {b!r}")
+        _check(c.get("K1", 0) > 0 and c.get("K3", 0) > 0
+               and (c.get("K5", 0) == 0) == (arch == "mpt"),
+               f"{name}: launches {c}")
+        logits = _fixture_logits(path, man["tokens"])
+        want = np.load(os.path.join(PORT_FIX, f"logits-jax-{arch}.npy"))
+        diff = np.abs(logits - want)
+        worst = float((diff / (2e-2 + 2e-2 * np.abs(want))).max())
+        worst1 = float((diff / (1e-2 + 1e-2 * np.abs(want))).max())
+        _check(worst <= 1.0, f"{name} logits off the JAX logits: |err| / "
+               f"(2e-2 + 2e-2 |want|) {worst}")
+        print(f"served {name}: /api/v1/generate x2 identical ({a!r}); "
+              f"logits vs the JAX package's: max abs err "
+              f"{float(diff.max()):.4g}, worst |err| / (2e-2 + 2e-2 |want|) "
+              f"{worst:.3g} (/ (1e-2 + 1e-2 |want|) {worst1:.3g}); launches "
+              f"{c}", flush=True)
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    return counts
+
+
 def _fixture_logits(path: str, tokens: list[int]) -> np.ndarray:
     """A fixture's logits on the card, loaded packed in f32 (as
     tests/test_torch_forward.py does on the CPU), tokens at positions 0.."""
@@ -3221,6 +3481,8 @@ def main() -> int:
     single, bf16_tps = _timed(phase_end_to_end, card)
     runs = [single, _timed(phase_quant_single, card, bf16_tps),
             _timed(phase_phi3_decode, card),
+            _timed(phase_gemma2_decode, card),
+            _timed(phase_phi2_decode, card),
             _timed(phase_batched_serving, card)]
     model = synthetic_model(TINYLLAMA_1_1B, "q4_k", seed=0, device=DEV)
     runs += [_timed(phase_fused_single, card, model, bf16_tps),
@@ -3230,7 +3492,8 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     runs += [_timed(phase_served_fixture), _timed(phase_new_kinds, card),
-             _timed(phase_served_kinds), _timed(phase_served_opt_in)]
+             _timed(phase_served_kinds), _timed(phase_served_opt_in),
+             _timed(phase_served_archs)]
     _timed(check_fixture_goldens)
     _timed(check_opt_in_logits)
     # the profiled windows last: a profiler session slows later decodes

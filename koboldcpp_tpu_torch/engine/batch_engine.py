@@ -458,7 +458,7 @@ class BatchedEngine:
             k, v = _shift_rows(kl[idx].view(S, heads, KD // heads),
                                vl[idx].view(S, heads, KD // heads), start,
                                end, freqs, self.cfg.rope_type,
-                               self.cfg.rope_dim)
+                               self.cfg.rope_dim, self.cfg.use_rope)
             kl[idx].copy_(k.reshape(S, KD))
             vl[idx].copy_(v.reshape(S, KD))
 

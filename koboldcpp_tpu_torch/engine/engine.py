@@ -126,10 +126,10 @@ class Engine:
         # (batch_engine.py:146-149)
         self.use_contextshift = not quantkv
         # flash prefill (K4) on the card, as the JAX engine enables it off
-        # the CPU (engine.py:311-313; ALiBi, which it also excludes, is
-        # refused by check_supported)
+        # the CPU (engine.py:311-313): K4's head shapes, no ALiBi
         self.use_flash_prefill = (self.device.type == "cuda"
-                                  and flash_prefill.supported(cfg.head_dim))
+                                  and flash_prefill.supported(cfg.head_dim)
+                                  and not cfg.use_alibi)
         self.cache = init_cache(cfg.n_layers, 1, max_context, cfg.n_kv_heads,
                                 cfg.head_dim, device=self.device,
                                 quantized=_kv_quant(quantkv))
@@ -247,7 +247,7 @@ class Engine:
                 k, v = _shift_rows(kl.view(B, S, heads, KD // heads),
                                    vl.view(B, S, heads, KD // heads),
                                    start, end, freqs, self.cfg.rope_type,
-                                   self.cfg.rope_dim)
+                                   self.cfg.rope_dim, self.cfg.use_rope)
                 kl.copy_(k.reshape(B, S, KD))
                 vl.copy_(v.reshape(B, S, KD))
 
@@ -549,9 +549,13 @@ def _longest_common_run(a: list[int], b: list[int]) -> tuple[int, int, int]:
 
 
 def _shift_rows(kl: torch.Tensor, vl: torch.Tensor, start: int, end: int,
-                freqs: torch.Tensor, rope_type: str, rot_dim: int):
+                freqs: torch.Tensor, rope_type: str, rot_dim: int,
+                rotate_k: bool = True):
     """Context-shift math on one layer's (..., S, H, D) k/v pair: slide slots
     [end, ...) down to start and RoPE-re-rotate the moved K rows by -delta.
+    A rope-less model's K (ALiBi, learned positions; rotate_k False) was
+    never rotated, so its rows only move, as upstream's K-shift skips a
+    model without rope; the JAX `_shift_rows` rotates them all the same.
     Returns new tensors (the caller copies them into the cache)."""
     delta = end - start
     S = kl.shape[-3]
@@ -559,6 +563,8 @@ def _shift_rows(kl: torch.Tensor, vl: torch.Tensor, start: int, end: int,
     src = torch.clamp(torch.where(idx >= start, idx + delta, idx), max=S - 1)
     k = torch.index_select(kl, kl.dim() - 3, src)
     v = torch.index_select(vl, vl.dim() - 3, src)
+    if not rotate_k:
+        return k, v
     angle = -delta * freqs  # (rot/2,)
     k_rot = rotate(k.float(), torch.cos(angle), torch.sin(angle), rope_type,
                    rot_dim or kl.shape[-1])

@@ -1,35 +1,53 @@
-"""Llama-family forward pass in PyTorch (llama / mistral / qwen2-style
-decoder-only transformers: GQA, optional q/k/v and output biases, fused
-wqkv / w_gateup projections, silu-gated FFN, attention and final-logit
-softcaps). Under KCPP_FFN_FUSED=1 a q4_k FFN of at most 8 tokens runs as
-one launch (K15, ops/ffn_fused.py), as in the JAX `_ffn`.
+"""Llama-family forward pass in PyTorch: the dense decoder-only
+transformers of the JAX `forward` (llama / mistral / qwen2 / gemma /
+gemma2 / phi2 / gpt2 / gpt-neox / gpt-j / falcon / starcoder(2) / mpt /
+bloom / olmo / nemotron / command-r / chameleon and their twins): GQA and
+MQA, RMS or layer norms with biases, q/k/v, output and FFN biases, fused
+wqkv / w_gateup projections, gated (silu, gelu) and non-gated (gelu,
+exact gelu, relu²) FFNs, parallel residual, learned positions and the
+embedding layer norm, rope-less attention, ALiBi, clamp_kqv, QK-norm
+(flat RMS, or chameleon's per-head layer norm), gemma2's sandwich norms
+and sliding window with its layer pattern, attention and final-logit
+softcaps. Under KCPP_FFN_FUSED=1 a q4_k silu FFN of at most 8 tokens runs
+as one launch (K15, ops/ffn_fused.py), as in the JAX `_ffn`.
 
 Port of koboldcpp_tpu/models/llama.py `forward`, `forward_paged` and the
-layer-stacked scan decode path (`stack_layers`, `forward_stacked`) for the
-branches a llama / mistral / qwen2 Q4_K_M model takes. Single-token decode
-runs attention through a flash-decode kernel that also writes the new K/V
-row: K5 over the bf16 slot cache, K6 over the Q8 one, K8 / K9 / K10 over
-the bf16 / Q8 / Q4 paged pool. A prefill chunk from position 0 with
-`flash_prefill` set writes the cache and runs K4 over the chunk's own rows.
-Other chunks write the cache and run the plain `attention` below over the
-whole (dequantized, or gathered) cache, which is what the JAX engine runs on
-the CPU, past position 0, and over the Q4 slot cache, which has no kernel.
+layer-stacked scan decode path (`stack_layers`, `forward_stacked`). The
+attention kernels take a layer where the JAX forward sends it to one:
+single-token decode of a global (not sliding-window) layer without ALiBi
+runs a flash-decode kernel that also writes the new K/V row (K5 over the
+bf16 slot cache, K6 over the Q8 one, K8 / K9 / K10 over the bf16 / Q8 / Q4
+paged pool); a prefill chunk from position 0 with `flash_prefill` set
+writes the cache and runs K4 over the chunk's own rows on such a layer
+when there is no attention softcap. Every other layer writes the cache
+and runs the plain `attention` below over the whole (dequantized, or
+gathered) cache under that layer's mask and ALiBi bias: the JAX package
+has no kernel there either, and its engine runs the same on the CPU, past
+position 0 and over the Q4 slot cache. `forward_paged` shares the layer
+body, so it computes the JAX `forward` for every admitted architecture
+(the JAX `forward_paged` drops some of its branches).
 `forward_stacked` runs the same layers over `stack_layers` params (each
 weight field with a leading layer axis). A single-token step over a pooled
-cache (kv/cache.py `init_pool_cache`) takes each layer's packed weights as
-`LayerRef`s through the stacked matvecs K17a (q4_k / q5_k) and K17b (q6_k,
-q8_0, q2_k, q3_k, IQ) and its attention through K17c, the pooled-row flash
-decode; every other step takes each layer's weights as views through the
-regular kernels and the plain `attention`. K16 (`flash_decode.decode_
+cache (kv/cache.py `init_pool_cache`) without a sliding window takes each
+layer's packed weights as `LayerRef`s through the stacked matvecs K17a
+(q4_k / q5_k) and K17b (q6_k, q8_0, q2_k, q3_k, IQ) and its attention
+through K17c, the pooled-row flash decode; every other step takes each
+layer's weights as views through the regular kernels and the plain
+`attention`. It raises NotImplementedError wherever the JAX scan body
+computes another function than `forward`. K16 (`flash_decode.decode_
 attention`, the read-only single-sequence decode) lies on no path of the
-JAX package, and of the port neither. Every other branch of the JAX forward
-raises NotImplementedError when the config or params ask for it.
+JAX package, and of the port neither. The branches of the JAX forward
+that the port does not serve (swin norm, openelm, plamo, bitnet, jais,
+MoE) raise NotImplementedError in `check_supported`.
 """
 from __future__ import annotations
 
+import math
+from functools import partial
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from ..kv import paged
 from ..kv.cache import (QuantKVCache, is_pooled, read as kv_read,
@@ -69,21 +87,20 @@ def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return x
 
 
-# layer keys of JAX-forward branches this slice does not serve
-_UNSUPPORTED_LAYER_KEYS = {
-    "attn_q_norm": "QK-norm", "ffn_gate_inp": "MoE",
-    "ffn_norm_exps": "arctic residual MoE", "attn_sub_norm": "bitnet",
-    "ffn_sub_norm": "bitnet", "wq_scale": "bitnet", "wo_scale": "bitnet",
-    "ffn_down_scale": "bitnet", "b_gate": "jais gated-FFN biases",
-}
+# layer keys of JAX-forward branches the port does not serve
+_UNSUPPORTED_LAYER_KEYS = {"ffn_gate_inp": "MoE",
+                           "ffn_norm_exps": "arctic's residual MoE"}
 
 
 def check_supported(params: Params, cfg: ModelConfig, device=None) -> None:
-    """Raise NotImplementedError for configs/params that need a branch of the
-    JAX forward this slice has not ported, or (on a CUDA `device`) a head
-    shape that the T=1 attention kernels (K5, K6, K8-K10) are not built
-    for. K4 is built for head_dim 64, 128 and 256, the shapes the JAX engine
-    turns flash prefill on for; the engine leaves it off for any other."""
+    """Raise NotImplementedError, naming the branch, for configs / params
+    that need a branch of the JAX forward the port does not serve (swin
+    norm, openelm's per-layer heads and per-head QK RMS norm, plamo's
+    shared-norm parallel branch, bitnet, jais, MoE), or (on a CUDA
+    `device`) a head shape that the T=1 attention kernels (K5, K6, K8-K10)
+    are not built for. K4 is built for head_dim 64, 128 and 256, the
+    shapes the JAX engine turns flash prefill on for; the engine leaves it
+    off for any other."""
     if (torch.device(device or "cpu").type == "cuda"
             and flash_decode.supported_batched(1, cfg.n_kv_heads,
                                                cfg.head_dim)):
@@ -91,24 +108,19 @@ def check_supported(params: Params, cfg: ModelConfig, device=None) -> None:
                                         cfg.head_dim)
     ex = cfg.extras or {}
     why = None
-    if cfg.use_alibi:
-        why = "ALiBi"
-    elif cfg.sliding_window:
-        why = "sliding-window attention"
-    elif cfg.parallel_residual or ex.get("plamo_parallel"):
-        why = "parallel residual"
-    elif ex.get("swin_norm"):
-        why = "swin norm"
-    elif ex.get("head_counts") or ex.get("kv_head_counts"):
-        why = "per-layer head counts (openelm)"
-    elif cfg.learned_pos or "tok_norm" in params:
-        why = "learned positions / embedding norm"
-    elif cfg.clamp_kqv > 0:
-        why = "clamp_kqv"
-    elif not cfg.ffn_gated or cfg.act != "silu":
-        why = f"FFN activation {cfg.act!r} (gated={cfg.ffn_gated})"
-    elif not cfg.use_rope:
-        why = "rope-less attention"
+    if ex.get("swin_norm"):
+        why = "swin norm (chameleon's norm after the branch)"
+    elif (ex.get("head_counts") or ex.get("kv_head_counts")
+          or ex.get("qk_head_rms")):
+        why = "openelm's per-layer head counts and per-head QK RMS norm"
+    elif ex.get("plamo_parallel"):
+        why = "plamo's shared-norm parallel branch"
+    elif ex.get("bitnet"):
+        why = "bitnet"
+    elif cfg.arch == "jais":
+        why = "jais"
+    elif cfg.n_experts:
+        why = "MoE"
     else:
         for layer in params.get("layers") or [params["layers_stacked"]]:
             hit = next((v for k, v in _UNSUPPORTED_LAYER_KEYS.items()
@@ -121,24 +133,45 @@ def check_supported(params: Params, cfg: ModelConfig, device=None) -> None:
                                   "forward yet")
 
 
-# layer keys under which the JAX `_ffn` keeps the composed FFN (the silu
-# activation is the only one this forward serves)
-_FFN_UNFUSED_KEYS = ("b_gate", "b_up", "b_down", "ffn_sub_norm",
-                     "ffn_down_scale")
+# layer keys under which the JAX `_ffn` keeps the composed FFN (its
+# bitnet keys never reach this forward)
+_FFN_UNFUSED_KEYS = ("b_gate", "b_up", "b_down")
+
+# the JAX `_ffn` activation table: any other name is tanh-gelu
+_ACTS = {"silu": F.silu, "gelu_exact": F.gelu,
+         "relu2": lambda v: torch.square(torch.relu(v))}
+_GELU_TANH = partial(F.gelu, approximate="tanh")
+
+
+def alibi_slopes(n_heads: int, bias_max: float = 8.0,
+                 device="cpu") -> torch.Tensor:
+    """Per-head ALiBi slopes (f32), the JAX `alibi_slopes`: 2^-(i * max /
+    n2) for i = 1..n2, n2 the power of two at or above n_heads; with other
+    head counts the odd then even entries, cut to n_heads."""
+    n2 = 2 ** math.ceil(math.log2(n_heads))
+    base = torch.arange(1, n2 + 1, dtype=torch.float32) * (bias_max / n2)
+    slopes = 1.0 / torch.exp2(base)
+    if n2 != n_heads:
+        slopes = torch.cat([slopes[1::2], slopes[::2]])[:n_heads]
+    return slopes.to(device)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              mask: torch.Tensor, scale: float,
-              softcap: float = 0.0) -> torch.Tensor:
-    """q: (B, T, H, D); k/v: (B, S, Hkv, D); mask: (B, T, S) bool. GQA via
-    head-group reshape; f32 scores and softmax, p cast to v's dtype before
-    p . V. Returns (B, T, H, D) in q's dtype."""
+              mask: torch.Tensor, scale: float, softcap: float = 0.0,
+              bias: torch.Tensor | None = None) -> torch.Tensor:
+    """q: (B, T, H, D); k/v: (B, S, Hkv, D); mask: (B, T, S) bool; bias: an
+    optional additive (B, H, T, S) f32 scores bias (ALiBi), added after the
+    softcap as in the JAX `attention`. GQA via head-group reshape; f32
+    scores and softmax, p cast to v's dtype before p . V. Returns
+    (B, T, H, D) in q's dtype."""
     B, T, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
     qg = q.reshape(B, T, Hkv, G, D).float()
     scores = torch.einsum("bthgd,bshd->bhgts", qg, k.float()) * scale
     scores = _softcap(scores, softcap)
+    if bias is not None:
+        scores = scores + bias.reshape(B, Hkv, G, T, S)
     neg = torch.finfo(torch.float32).min
     scores = torch.where(mask[:, None, None, :, :], scores,
                          torch.full_like(scores, neg))
@@ -147,26 +180,87 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, T, H, D).to(q.dtype)
 
 
-def _ffn(x: torch.Tensor, layer: Params) -> torch.Tensor:
+def _causal_mask(positions: torch.Tensor, S: int,
+                 window: int = 0) -> torch.Tensor:
+    """(B, T, S) bool: slot s is visible to the query at position p iff s
+    <= p, and with a sliding window also s > p - window."""
+    slot_ids = torch.arange(S, device=positions.device)[None, None, :]
+    mask = slot_ids <= positions[:, :, None]
+    if window:
+        mask = mask & (slot_ids > positions[:, :, None] - window)
+    return mask
+
+
+class _PlainAttention:
+    """The plain `attention` of one forward over S cache slots: the causal
+    and the sliding-window masks and the ALiBi bias, each built on first
+    use and shared by the layers."""
+
+    def __init__(self, cfg: ModelConfig, positions: torch.Tensor, S: int):
+        self.cfg, self.positions, self.S = cfg, positions, S
+        self._masks: dict = {}
+        self._bias = None
+
+    def __call__(self, q, ck, cv, scale: float, local: bool):
+        cfg = self.cfg
+        mask = self._masks.get(local)
+        if mask is None:
+            mask = self._masks[local] = _causal_mask(
+                self.positions, self.S, cfg.sliding_window if local else 0)
+        if cfg.use_alibi and self._bias is None:
+            # slope * (k_pos - q_pos), (B, H, T, S)
+            pos = self.positions
+            dist = (torch.arange(self.S, device=pos.device)[None, None, :]
+                    - pos[:, :, None]).float()
+            self._bias = (alibi_slopes(cfg.n_heads, cfg.alibi_bias_max,
+                                       pos.device)[None, :, None, None]
+                          * dist[:, None, :, :])
+        return attention(q, ck, cv, mask, scale, cfg.attn_logit_softcap,
+                         self._bias)
+
+
+def _ffn(x: torch.Tensor, layer: Params, act: str = "silu",
+         gated: bool = True) -> torch.Tensor:
+    """The JAX `_ffn`: up -> act -> down with `b_up` / `b_down` where not
+    gated; else act(gate) * up -> down with `b_gate` / `b_up` / `b_down`.
+    The activation runs in f32 on the gate (or up) and is cast back to x's
+    dtype. K15 takes only a silu FFN with none of the biases."""
+    actf = _ACTS.get(act, _GELU_TANH)
+    if not gated:  # gpt2 / neox style
+        up = linear.matmul(x, layer["w_up"])
+        if "b_up" in layer:
+            up = up + layer["b_up"].to(up.dtype)
+        down = linear.matmul(actf(up.float()).to(x.dtype), layer["w_down"])
+        if "b_down" in layer:
+            down = down + layer["b_down"].to(down.dtype)
+        return down
     if "w_gateup" in layer:  # fused gate+up (one kernel launch)
-        if not any(k in layer for k in _FFN_UNFUSED_KEYS):
+        if act == "silu" and not any(k in layer for k in _FFN_UNFUSED_KEYS):
             # KCPP_FFN_FUSED=1, T <= 8: the whole FFN as one launch (K15)
             y = ffn_fused(x, layer["w_gateup"], layer["w_down"])
             if y is not None:
                 return y
         gu = linear.matmul(x, layer["w_gateup"])
-        F = gu.shape[-1] // 2
-        gate, up = gu[..., :F], gu[..., F:]
+        F_ = gu.shape[-1] // 2
+        gate, up = gu[..., :F_], gu[..., F_:]
     else:
         gate = linear.matmul(x, layer["w_gate"])
         up = linear.matmul(x, layer["w_up"])
+    if "b_gate" in layer:
+        gate = gate + layer["b_gate"].to(gate.dtype)
     if "b_up" in layer:
         up = up + layer["b_up"].to(up.dtype)
-    act = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
-    down = linear.matmul(act, layer["w_down"])
+    a = actf(gate.float()).to(x.dtype) * up
+    down = linear.matmul(a, layer["w_down"])
     if "b_down" in layer:
         down = down + layer["b_down"].to(down.dtype)
     return down
+
+
+def _is_local(cfg: ModelConfig, li: int) -> bool:
+    """A sliding-window layer (gemma2: the even ones, pattern 2)."""
+    pattern = cfg.sliding_window_pattern
+    return bool(cfg.sliding_window) and (pattern == 0 or li % pattern == 0)
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -179,23 +273,29 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """tokens, positions: (B, T) int; cache: a KVCache or QuantKVCache
     (kv/cache.py). Returns (logits f32, cache); the cache is updated in
     place. Slot s is visible to the query at position p iff s <= p (the slot
-    == position invariant). flash_prefill: the chunk is the whole context
-    so far (prefill from position 0, padding rows at the end with position
-    -1), so attention runs over its own rows through K4."""
+    == position invariant), and on a sliding-window layer iff also s > p -
+    window. flash_prefill: the chunk is the whole context so far (prefill
+    from position 0, padding rows at the end with position -1), so a
+    global layer without ALiBi or softcap runs K4 over its own rows."""
     if input_embeds is not None or embed_mask is not None:
         raise NotImplementedError("the multimodal embedding splice is not "
                                   "ported yet")
     T = tokens.shape[1]
     quant = isinstance(cache, QuantKVCache)
     softcap = cfg.attn_logit_softcap
-    if flash_prefill and not softcap:
-        def attend(li, q, k, v, scale):
+    plain = _PlainAttention(cfg, positions, cache.max_seq)
+    # the JAX forward's conditions, less the per-layer `local`
+    prefill = flash_prefill and not softcap and not cfg.use_alibi
+    decode = (T == 1 and not cfg.use_alibi and not (quant and cache.bits == 4)
+              and flash_decode.supported_batched(1, cfg.n_kv_heads,
+                                                 cfg.head_dim))
+
+    def attend(li, q, k, v, scale, local):
+        if prefill and not local:
             # prefill from position 0: the chunk is the entire context
             kv_write(cache, li, positions, k, v)
             return flash_prefill_attention(q, k, v, positions, scale)
-    elif (T == 1 and not (quant and cache.bits == 4)
-          and flash_decode.supported_batched(1, cfg.n_kv_heads, cfg.head_dim)):
-        def attend(li, q, k, v, scale):
+        if decode and not local:
             # single-token decode: K5 (K6 over the Q8 cache) reads the
             # history rows below each position and writes this step's K/V
             # row into the cache
@@ -210,13 +310,9 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                     positions[:, 0], cfg.n_heads, cfg.n_kv_heads, scale,
                     softcap)[0]
             return out[:, None]
-    else:
-        mask = _causal_mask(positions, cache.max_seq)
-
-        def attend(li, q, k, v, scale):
-            kv_write(cache, li, positions, k, v)
-            ck, cv = kv_read(cache, li)
-            return attention(q, ck, cv, mask, scale, softcap)
+        kv_write(cache, li, positions, k, v)
+        ck, cv = kv_read(cache, li)
+        return plain(q, ck, cv, scale, local)
     return _run(params, cfg, tokens, positions, attend, last_only,
                 last_index), cache
 
@@ -228,15 +324,19 @@ def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """forward() over a paged pool (kv/paged.py: bf16, Q8 or Q4), updated
     in place: virtual slot index == absolute position, row r of sequence b
     at pool row page_table[b, r // P] * P + r % P. tokens/positions: (B, T);
-    page_table: (B, MP) int. T=1 goes through K8 (K9 over a Q8 pool, K10
-    over a Q4 one); longer chunks write through the table, gather the pages
-    and run `attention`."""
+    page_table: (B, MP) int. T=1 on a global layer without ALiBi goes
+    through K8 (K9 over a Q8 pool, K10 over a Q4 one); every other layer
+    writes through the table, gathers the pages and runs `attention`."""
     T = tokens.shape[1]
     P = pcache.page_size
     softcap = cfg.attn_logit_softcap
-    if T == 1 and flash_decode.supported_batched(1, cfg.n_kv_heads,
-                                                 cfg.head_dim):
-        def attend(li, q, k, v, scale):
+    plain = _PlainAttention(cfg, positions, page_table.shape[1] * P)
+    decode = (T == 1 and not cfg.use_alibi
+              and flash_decode.supported_batched(1, cfg.n_kv_heads,
+                                                 cfg.head_dim))
+
+    def attend(li, q, k, v, scale, local):
+        if decode and not local:
             args = (cfg.n_heads, cfg.n_kv_heads, P, scale, softcap)
             if not pcache.quantized:
                 out = flash_decode.decode_attention_paged(
@@ -251,42 +351,43 @@ def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                            pcache.v_scale[li], page_table, positions[:, 0],
                            *args)[0]
             return out[:, None]
-    else:
-        mask = _causal_mask(positions, page_table.shape[1] * P)
-
-        def attend(li, q, k, v, scale):
-            paged.write(pcache, li, page_table, positions, k, v)
-            ck, cv = paged.gather(pcache, li, page_table)
-            return attention(q, ck, cv, mask, scale, softcap)
+        paged.write(pcache, li, page_table, positions, k, v)
+        ck, cv = paged.gather(pcache, li, page_table)
+        return plain(q, ck, cv, scale, local)
     return _run(params, cfg, tokens, positions, attend, last_only), pcache
-
-
-def _causal_mask(positions: torch.Tensor, S: int) -> torch.Tensor:
-    slot_ids = torch.arange(S, device=positions.device)
-    return slot_ids[None, None, :] <= positions[:, :, None]  # (B, T, S)
 
 
 def _run(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
          positions: torch.Tensor, attend, last_only: bool = False,
          last_index: torch.Tensor | None = None,
          layers=None) -> torch.Tensor:
-    """The layer stack around `attend(li, q, k, v, scale)`, which writes
-    this chunk's K/V and returns the attention output (B, T, H, D).
-    layers: the per-layer params (default params["layers"])."""
+    """The layer stack around `attend(li, q, k, v, scale, local)`, which
+    writes this chunk's K/V and returns the attention output (B, T, H, D);
+    `local` marks a sliding-window layer. The branches and their order are
+    the JAX `forward`'s. layers: the per-layer params (default
+    params["layers"])."""
     B, T = tokens.shape
     dev = tokens.device
-    freqs = _freqs(cfg, dev)
+    freqs = _freqs(cfg, dev) if cfg.use_rope else None
     scale = (cfg.attn_scale if cfg.attn_scale > 0
              else cfg.head_dim ** -0.5) * yarn_attn_scale(cfg)
+    eps = cfg.rms_norm_eps
 
     emb_w = params["tok_embd"]
     x = (emb_w.data["w"] if isinstance(emb_w, linear.QTensor) else emb_w)[tokens]
     if cfg.embedding_scale:
         x = x * torch.tensor(cfg.embedding_scale, dtype=x.dtype, device=dev)
+    if cfg.learned_pos and "pos_embd" in params:
+        # past the table the JAX gather clamps the index; so does this
+        pe = params["pos_embd"]
+        x = x + pe[positions.clamp(0, pe.shape[0] - 1)].to(x.dtype)
+    if "tok_norm" in params:  # bloom's embedding layer norm
+        x = layer_norm(x, params["tok_norm"], params.get("tok_norm_bias"), eps)
 
     qdim = cfg.n_heads * cfg.head_dim
     kvdim = cfg.n_kv_heads * cfg.head_dim
     res_s = cfg.residual_scale or 1.0
+    per_head_qk = bool((cfg.extras or {}).get("qk_norm_per_head"))
     for li, layer in enumerate(params["layers"] if layers is None
                                else layers):
         h = _norm(x, layer, "attn_norm", cfg)
@@ -305,24 +406,42 @@ def _run(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             q = q + layer["bq"].to(q.dtype)
             k = k + layer["bk"].to(k.dtype)
             v = v + layer["bv"].to(v.dtype)
+        if cfg.clamp_kqv > 0:  # mpt clip_qkv
+            c = cfg.clamp_kqv
+            q, k, v = (t.clamp(-c, c) for t in (q, k, v))
+        if "attn_q_norm" in layer and not per_head_qk:
+            # QK RMS norm over the flat projection
+            q = rms_norm(q, layer["attn_q_norm"], eps)
+            k = rms_norm(k, layer["attn_k_norm"], eps)
         q = q.reshape(B, T, cfg.n_heads, cfg.head_dim)
         k = k.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
         v = v.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
-        q = apply_rope(q, positions, freqs, cfg.rope_type, cfg.rope_dim)
-        k = apply_rope(k, positions, freqs, cfg.rope_type, cfg.rope_dim)
+        if "attn_q_norm" in layer and per_head_qk:
+            # chameleon: per-head layer norm with (H, D) affine
+            q = layer_norm(q, layer["attn_q_norm"],
+                           layer.get("attn_q_norm_bias"), eps)
+            k = layer_norm(k, layer["attn_k_norm"],
+                           layer.get("attn_k_norm_bias"), eps)
+        if cfg.use_rope:
+            q = apply_rope(q, positions, freqs, cfg.rope_type, cfg.rope_dim)
+            k = apply_rope(k, positions, freqs, cfg.rope_type, cfg.rope_dim)
 
-        attn_out = attend(li, q, k, v, scale).to(x.dtype).reshape(B, T, qdim)
-        attn_out = linear.matmul(attn_out, layer["wo"])
+        attn_out = attend(li, q, k, v, scale, _is_local(cfg, li))
+        attn_out = linear.matmul(attn_out.to(x.dtype).reshape(B, T, qdim),
+                                 layer["wo"])
         if "bo" in layer:
             attn_out = attn_out + layer["bo"].to(attn_out.dtype)
-        if "attn_post_norm" in layer:
-            attn_out = rms_norm(attn_out, layer["attn_post_norm"],
-                                cfg.rms_norm_eps)
-        x = x + res_s * attn_out
-        ffn_out = _ffn(_norm(x, layer, "ffn_norm", cfg), layer)
+        if "attn_post_norm" in layer:  # gemma2 sandwich norm
+            attn_out = rms_norm(attn_out, layer["attn_post_norm"], eps)
+        if cfg.parallel_residual:  # neox / gptj: both branches read x
+            ffn_in = _norm(x, layer, "ffn_norm", cfg)
+            x = x + res_s * attn_out
+        else:
+            x = x + res_s * attn_out
+            ffn_in = _norm(x, layer, "ffn_norm", cfg)
+        ffn_out = _ffn(ffn_in, layer, cfg.act, cfg.ffn_gated)
         if "ffn_post_norm" in layer:
-            ffn_out = rms_norm(ffn_out, layer["ffn_post_norm"],
-                               cfg.rms_norm_eps)
+            ffn_out = rms_norm(ffn_out, layer["ffn_post_norm"], eps)
         x = x + res_s * ffn_out
 
     if last_index is not None:
@@ -423,10 +542,14 @@ def _layer_ids(n_layers: int, device) -> torch.Tensor:
 
 def check_stacked_supported(params: Params, cfg: ModelConfig, cache,
                             device=None) -> None:
-    """`check_supported`, and NotImplementedError where the JAX
-    `forward_stacked` would compute another function than `forward`: it
-    has no fused-qkv or output bias, no residual scale and RMS norms only,
-    and its pooled path takes a bf16 KVCache, not a quantized one."""
+    """`check_supported`, and NotImplementedError, naming the branch,
+    wherever the JAX `forward_stacked` would compute another function than
+    `forward`: its scan body has no fused-qkv or output bias, no residual
+    scale, RMS norms only, a gated FFN only, no parallel residual, ALiBi,
+    learned positions or embedding norm, clamp_kqv or QK-norm, and rotates
+    every K; its pooled path takes a bf16 KVCache, not a quantized one. It
+    does take the sliding window with its layer pattern, the sandwich
+    norms and the FFN's activation."""
     check_supported(params, cfg, device)
     stacked = params["layers_stacked"]
     why = None
@@ -438,6 +561,20 @@ def check_stacked_supported(params: Params, cfg: ModelConfig, cache,
         why = "residual_scale"
     elif cfg.norm_type == "layer":
         why = "layer norm"
+    elif not cfg.ffn_gated:
+        why = "a non-gated FFN"
+    elif cfg.parallel_residual:
+        why = "parallel residual"
+    elif cfg.use_alibi:
+        why = "ALiBi"
+    elif (cfg.learned_pos and "pos_embd" in params) or "tok_norm" in params:
+        why = "learned positions / the embedding norm"
+    elif cfg.clamp_kqv > 0:
+        why = "clamp_kqv"
+    elif "attn_q_norm" in stacked:
+        why = "QK-norm"
+    elif not cfg.use_rope:
+        why = "rope-less attention (it rotates every K)"
     if why:
         raise NotImplementedError(f"forward_stacked does not take {why} "
                                   "(the JAX forward_stacked drops it)")
@@ -451,13 +588,15 @@ def forward_stacked(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     one (`init_pool_cache`), updated in place and returned.
 
     A pooled cache at T == 1 (no sliding window, no ALiBi, a fused KV width
-    the flash decode takes) runs each layer on `_layer_view` weights: the
-    packed projections through K17a / K17b, attention through K17c at row
-    base li*B, which also writes the step's K/V row. Every other call runs
-    each layer on `_take_layer` views through the regular kernels (K3 / K13
-    at T > 1, K1 / K2 / K12 at T == 1), writes the cache (a pooled one
-    through `unpool_cache` views) and attends with the plain `attention`
-    over it, never K4 or K5, as the JAX scan body does. KCPP_SCAN_UNROLL,
+    the flash decode takes: the JAX `use_rows_kernel`) runs each layer on
+    `_layer_view` weights: the packed projections through K17a / K17b,
+    attention through K17c at row base li*B, which also writes the step's
+    K/V row. Every other call runs each layer on `_take_layer` views
+    through the regular kernels (K3 / K13 at T > 1, K1 / K2 / K12 at T ==
+    1), writes the cache (a pooled one through `unpool_cache` views) and
+    attends with the plain `attention` over it under the layer's mask
+    (the sliding window on its local layers), never K4 or K5, as the JAX
+    scan body does. KCPP_SCAN_UNROLL,
     the JAX scan's unroll factor, schedules XLA and does not change the
     function; the port loops over the layers and does not read it."""
     check_stacked_supported(params, cfg, cache, tokens.device)
@@ -471,7 +610,7 @@ def forward_stacked(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                                cfg.head_dim)):
         ids = _layer_ids(L, tokens.device)
 
-        def attend(li, q, k, v, scale):
+        def attend(li, q, k, v, scale, local):
             out = flash_decode.decode_attention_rows(
                 q[:, 0], k[:, 0], v[:, 0], cache.k, cache.v, positions[:, 0],
                 ids[li:li + 1], cfg.n_heads, cfg.n_kv_heads, scale,
@@ -481,12 +620,12 @@ def forward_stacked(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         layers = (_layer_view(stacked, li, ids[li:li + 1]) for li in range(L))
     else:
         per_layer = unpool_cache(cache, L) if is_pooled(cache) else cache
-        mask = _causal_mask(positions, cache.max_seq)
+        plain = _PlainAttention(cfg, positions, cache.max_seq)
 
-        def attend(li, q, k, v, scale):
+        def attend(li, q, k, v, scale, local):
             kv_write(per_layer, li, positions, k, v)
             ck, cv = kv_read(per_layer, li)
-            return attention(q, ck, cv, mask, scale, softcap)
+            return plain(q, ck, cv, scale, local)
 
         layers = (_take_layer(stacked, li) for li in range(L))
     return _run(params, cfg, tokens, positions, attend, last_only,

@@ -1,7 +1,9 @@
 """GGUF -> device params loader.
 
-Port of koboldcpp_tpu/models/loader.py for llama-family GGUF files: maps
-llama.cpp tensor names into the params dict consumed by models/llama.py,
+Port of koboldcpp_tpu/models/loader.py for the dense decoder GGUF files
+models/llama.py serves: maps llama.cpp tensor names (learned positions,
+the embedding norm, norm / projection / FFN / output biases, QK-norms and
+their biases, gemma2's sandwich norms too) into its params dict,
 keeping 2-D weights packed (QTensor: q4_k, q5_k, q6_k or q8_0, the kinds
 `ops/linear.from_gguf` maps the GGUF types onto) for the kernels and
 row-fusing same-type q/k/v and gate/up projections into `wqkv` / `w_gateup`
@@ -50,6 +52,12 @@ def load_params(reader: GGUFReader, cfg: ModelConfig, packed: bool = True,
     }
     if "output_norm.bias" in names:
         params["output_norm_bias"] = dense("output_norm.bias")
+    if "position_embd.weight" in names:  # gpt2 learned positions
+        params["pos_embd"] = dense("position_embd.weight")
+    if "token_embd_norm.weight" in names:  # bloom embedding layer norm
+        params["tok_norm"] = dense("token_embd_norm.weight")
+        if "token_embd_norm.bias" in names:
+            params["tok_norm_bias"] = dense("token_embd_norm.bias")
     if "output.weight" in names:
         params["output"] = qt("output.weight")
         if "output.bias" in names:
@@ -89,17 +97,14 @@ def load_params(reader: GGUFReader, cfg: ModelConfig, packed: bool = True,
                 layer["wq"] = qt(p + "attn_q.weight")
                 layer["wk"] = qt(p + "attn_k.weight")
                 layer["wv"] = qt(p + "attn_v.weight")
-        # norms, biases and the tensors of unported branches (the forward's
-        # check_supported rejects the latter by key)
+        # norms, biases and arctic's MoE norm (the forward's
+        # check_supported rejects that branch by key; bitnet by its config)
         for key, tname in (("attn_post_norm", "attn_post_norm.weight"),
                            ("ffn_post_norm", "ffn_post_norm.weight"),
                            ("attn_q_norm", "attn_q_norm.weight"),
                            ("attn_k_norm", "attn_k_norm.weight"),
-                           ("attn_sub_norm", "attn_sub_norm.weight"),
-                           ("ffn_sub_norm", "ffn_sub_norm.weight"),
-                           ("wq_scale", "attn_q.scale"),
-                           ("wo_scale", "attn_output.scale"),
-                           ("ffn_down_scale", "ffn_down.scale"),
+                           ("attn_q_norm_bias", "attn_q_norm.bias"),
+                           ("attn_k_norm_bias", "attn_k_norm.bias"),
                            ("ffn_norm_exps", "ffn_norm_exps.weight"),
                            ("bq", "attn_q.bias"), ("bk", "attn_k.bias"),
                            ("bv", "attn_v.bias"), ("bqkv", "attn_qkv.bias"),

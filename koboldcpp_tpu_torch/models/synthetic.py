@@ -211,36 +211,74 @@ _MAKERS = {"q2_k": rand_q2k, "q3_k": rand_q3k, "q4_k": rand_q4k,
            "q2_k_n4": lambda *a: to_expanded(rand_q2k(*a))}
 
 
+# archs whose converted files carry q/k/v, output and FFN biases (the q/k/v
+# ones as one fused `bqkv` where the file's projection is pre-fused), those
+# with layer-norm biases, and those with an output (lm_head) bias too
+_BIASED_ARCHS = {"phi2", "gpt2", "starcoder", "gptneox", "starcoder2",
+                 "codeshell", "bloom"}
+_FUSED_BIAS_ARCHS = {"gpt2", "starcoder", "gptneox", "codeshell", "bloom"}
+_NORM_BIAS_ARCHS = _BIASED_ARCHS | {"gptj", "falcon", "stablelm", "orion"}
+_OUTPUT_BIAS_ARCHS = {"phi2"}
+# archs whose files have no output.weight: the head is the embedding
+_TIED_ARCHS = {"gemma", "gemma2", "mpt", "command-r"}
+
+
 def synthetic_params(cfg: ModelConfig, kind: str = "q4_k", seed: int = 0,
                      device=None) -> dict:
-    """A full llama params dict with synthetic weights on `device` (default
-    cuda). kind: "dense" | "q2_k" | "q3_k" | "q4_k" | "q5_k" | "q6_k" |
-    "q8_0" | "iq2p" | "iq3px" | "iq3ps" | "iq1p" (G = 32) | "q4_k_i8" |
-    "q6_k_i8f" | "q3_k_n4" | "q2_k_n4" for the big
-    matmul weights (embeddings and norms stay dense, as the GGUF loader
+    """A full params dict with synthetic weights on `device` (default
+    cuda), with the tensors the GGUF loader gives for `cfg`: RMS or layer
+    norms (with biases, `_NORM_BIAS_ARCHS`), gemma2's post-norms, q/k/v (or
+    fused qkv), output and FFN biases and phi2's output bias
+    (`_BIASED_ARCHS`, `_FUSED_BIAS_ARCHS`, `_OUTPUT_BIAS_ARCHS`), a
+    gateless `w_up` for a non-gated FFN, learned positions, bloom's
+    embedding norm, and the embedding as the head (a dense matmul) where a
+    converted file has no output.weight (`_TIED_ARCHS`, or
+    cfg.tie_word_embeddings). kind: "dense" | "q2_k" | "q3_k" | "q4_k" |
+    "q5_k" | "q6_k" | "q8_0" | "iq2p" | "iq3px" | "iq3ps" | "iq1p" (G = 32)
+    | "q4_k_i8" | "q6_k_i8f" | "q3_k_n4" | "q2_k_n4" for the big matmul
+    weights (embeddings, norms and biases stay dense, as the GGUF loader
     keeps them)."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     C, F = cfg.hidden_size, cfg.intermediate_size
     qdim = cfg.n_heads * cfg.head_dim
     kvdim = cfg.n_kv_heads * cfg.head_dim
+    norm_bias = cfg.norm_type == "layer" and cfg.arch in _NORM_BIAS_ARCHS
+    biased = cfg.arch in _BIASED_ARCHS
 
     def big(out_f, in_f):
         if kind == "dense" or in_f % QK_K or out_f % 8:
             return _rand_dense(rng, (out_f, in_f), dev)
         return _MAKERS[kind](rng, out_f, in_f, dev)
 
-    def norm():
+    def vec(n, around=0.0, s=0.01):
         return torch.from_numpy(
-            np.ones(C, np.float32)
-            + rng.standard_normal(C).astype(np.float32) * 0.01).to(dev)
+            around + rng.standard_normal(n).astype(np.float32) * s).to(dev)
 
+    def norm():
+        return vec(C, 1.0)
+
+    # a llama config draws exactly what it drew before the other branches
+    # came: tok_embd, output_norm, output, then per layer attn_norm, wo,
+    # ffn_norm, w_down and the projections; every other tensor is drawn
+    # after those of its scope
+    tied = cfg.tie_word_embeddings or cfg.arch in _TIED_ARCHS
     params: dict = {
         "tok_embd": _rand_dense(rng, (cfg.vocab_size, C), dev),
         "output_norm": norm(),
-        "output": big(cfg.vocab_size, C),
         "layers": [],
     }
+    params["output"] = (params["tok_embd"] if tied
+                        else big(cfg.vocab_size, C))
+    if norm_bias:
+        params["output_norm_bias"] = vec(C)
+    if cfg.arch in _OUTPUT_BIAS_ARCHS and not tied:
+        params["output_bias"] = vec(cfg.vocab_size)
+    if cfg.learned_pos:
+        params["pos_embd"] = vec((cfg.max_position_embeddings, C), s=0.02)
+    if cfg.arch == "bloom":
+        params["tok_norm"] = norm()
+        params["tok_norm_bias"] = vec(C)
     fused = kind != "dense"  # match the loader's fused-projection layout
     for _ in range(cfg.n_layers):
         layer = {
@@ -251,10 +289,24 @@ def synthetic_params(cfg: ModelConfig, kind: str = "q4_k", seed: int = 0,
         }
         if fused:
             layer["wqkv"] = big(qdim + 2 * kvdim, C)
+        else:
+            layer.update(wq=big(qdim, C), wk=big(kvdim, C), wv=big(kvdim, C))
+        if not cfg.ffn_gated:
+            layer["w_up"] = big(F, C)
+        elif fused:
             layer["w_gateup"] = big(2 * F, C)
         else:
-            layer.update(wq=big(qdim, C), wk=big(kvdim, C), wv=big(kvdim, C),
-                         w_gate=big(F, C), w_up=big(F, C))
+            layer.update(w_gate=big(F, C), w_up=big(F, C))
+        if norm_bias:
+            layer.update(attn_norm_bias=vec(C), ffn_norm_bias=vec(C))
+        if cfg.post_norms:
+            layer.update(attn_post_norm=norm(), ffn_post_norm=norm())
+        if biased and cfg.arch in _FUSED_BIAS_ARCHS:
+            layer["bqkv"] = vec(qdim + 2 * kvdim)
+        elif biased:
+            layer.update(bq=vec(qdim), bk=vec(kvdim), bv=vec(kvdim))
+        if biased:
+            layer.update(bo=vec(C), b_up=vec(F), b_down=vec(C))
         params["layers"].append(layer)
     return params
 

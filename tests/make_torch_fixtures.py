@@ -14,13 +14,24 @@ recipes do: tiny-iq2_xs holds IQ2_XS and Q2_K tensors, tiny-iq3_xxs
 IQ3_XXS, IQ3_S (token_embd too), IQ2_S and Q3_K, tiny-iq1_m IQ1_M, IQ2_XXS
 and Q2_K; every output is Q5_K.
 
+The architecture fixtures (archs.json: tiny-gemma2-q4_k_m,
+tiny-phi2-q4_k_m, tiny-mpt-q4_k_m) are tiny transformers models (2 layers,
+hidden 256, head_dim 64, vocab 512, random weights from a seed, no
+download) converted by tools/convert_hf.py with the toy byte-fallback
+tokenizer of tests/test_model_forward.py and quantized by the same tool to
+Q4_K_M: Gemma-2 with a sliding window of 4 (so the 12 tokens pass it) and
+softcaps 50 / 30, Phi-2 (layer norms with biases, every projection and
+the head biased, partial rotary, parallel residual, non-gated gelu), MPT
+(ALiBi, clamp_kqv 0.5, exact gelu, tied head).
+
 The logits are the JAX package's `forward` (packed weights, f32 cache and
 activations, on the CPU) over the refgguf manifest's 12 tokens. They are
 the JAX package's own numbers, not reference-runtime goldens.
 
-Run from the repository root when the fixtures need regenerating:
+Run from the repository root when the fixtures need regenerating (--archs:
+the architecture fixtures only):
 
-    JAX_PLATFORMS=cpu python tests/make_torch_fixtures.py
+    JAX_PLATFORMS=cpu python tests/make_torch_fixtures.py [--archs]
 """
 from __future__ import annotations
 
@@ -28,6 +39,7 @@ import json
 import os
 import subprocess
 import sys
+from functools import partial
 
 import numpy as np
 
@@ -37,6 +49,10 @@ OUT = os.path.join(ROOT, "tests", "fixtures", "portgguf")
 FILES = {"q2_k": "tiny-q2_k.gguf", "q3_k_m": "tiny-q3_k_m.gguf",
          "iq2_xs": "tiny-iq2_xs.gguf", "iq3_xxs": "tiny-iq3_xxs.gguf",
          "iq1_m": "tiny-iq1_m.gguf"}
+ARCH_FILES = {"gemma2": "tiny-gemma2-q4_k_m.gguf",
+              "phi2": "tiny-phi2-q4_k_m.gguf",
+              "mpt": "tiny-mpt-q4_k_m.gguf"}
+ARCH_SEED = {"gemma2": 41, "phi2": 42, "mpt": 43}
 
 
 def jax_logits(path: str, tokens: list[int]) -> np.ndarray:
@@ -59,9 +75,83 @@ def jax_logits(path: str, tokens: list[int]) -> np.ndarray:
     return np.asarray(logits, np.float32)[0]
 
 
+def arch_f32(arch: str, path: str) -> None:
+    """The tiny transformers model of `arch`, converted to an f32 GGUF."""
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import torch
+    import transformers as tf
+    from convert_hf import (convert_arch_state_dict, convert_mpt_state_dict,
+                            convert_phi2_state_dict)
+
+    from tests.test_model_forward import tiny_tokenizer_md
+
+    torch.manual_seed(ARCH_SEED[arch])
+    md = tiny_tokenizer_md(512)
+    if arch == "gemma2":
+        cfg = tf.Gemma2Config(vocab_size=512, hidden_size=256,
+                              intermediate_size=512, num_hidden_layers=2,
+                              num_attention_heads=4, num_key_value_heads=2,
+                              head_dim=64, max_position_embeddings=128,
+                              query_pre_attn_scalar=64, sliding_window=4,
+                              attn_logit_softcapping=50.0,
+                              final_logit_softcapping=30.0)
+        model, convert = tf.Gemma2ForCausalLM(cfg), partial(
+            convert_arch_state_dict, "gemma2")
+    elif arch == "phi2":
+        cfg = tf.PhiConfig(vocab_size=512, hidden_size=256,
+                           intermediate_size=1024, num_hidden_layers=2,
+                           num_attention_heads=4, num_key_value_heads=4,
+                           max_position_embeddings=128,
+                           partial_rotary_factor=0.5)
+        model, convert = tf.PhiForCausalLM(cfg), convert_phi2_state_dict
+    else:
+        cfg = tf.MptConfig(vocab_size=512, d_model=256, n_heads=4,
+                           n_layers=2, max_seq_len=128, expansion_ratio=4,
+                           attn_config={"clip_qkv": 0.5})
+        model, convert = tf.MptForCausalLM(cfg), convert_mpt_state_dict
+    state = {k: v.numpy() for k, v in model.eval().float().state_dict().items()}
+    convert(state, cfg, path, tokenizer_md=md)
+
+
+def make_arch_fixtures(tokens: list[int]) -> None:
+    for arch, name in ARCH_FILES.items():
+        src = os.path.join(OUT, f"_{arch}-f32.gguf")
+        arch_f32(arch, src)
+        path = os.path.join(OUT, name)
+        subprocess.run([sys.executable, os.path.join(ROOT, "tools",
+                                                     "quantize.py"),
+                        src, path, "q4_k_m"], check=True)
+        os.remove(src)
+        np.save(os.path.join(OUT, f"logits-jax-{arch}.npy"),
+                jax_logits(path, tokens))
+    manifest = {
+        "tokens": tokens,
+        "files": ARCH_FILES,
+        "made_by": {arch: f"tests/make_torch_fixtures.py --archs: the tiny "
+                          f"transformers {arch} model (seed "
+                          f"{ARCH_SEED[arch]}), tools/convert_hf.py, then "
+                          f"python tools/quantize.py <f32 file> "
+                          f"tests/fixtures/portgguf/{name} q4_k_m"
+                    for arch, name in ARCH_FILES.items()},
+        "logits": "logits-jax-<arch>.npy: the JAX package's forward "
+                  "(koboldcpp_tpu.models.llama.forward, packed weights, f32 "
+                  "cache, CPU) on `tokens` at positions 0..11, shape (12, "
+                  "vocab) f32; the JAX package's numbers, not "
+                  "reference-runtime goldens",
+        "generator": "tests/make_torch_fixtures.py",
+    }
+    with open(os.path.join(OUT, "archs.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+        f.write("\n")
+
+
 def main() -> int:
     os.makedirs(OUT, exist_ok=True)
     tokens = json.load(open(os.path.join(REF, "manifest.json")))["tokens"]
+    make_arch_fixtures(tokens)
+    if "--archs" in sys.argv[1:]:
+        return 0
     src = os.path.join(REF, "tiny-f16.gguf")
     for fmt, name in FILES.items():
         path = os.path.join(OUT, name)
