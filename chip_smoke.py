@@ -149,16 +149,33 @@
    archs.json) over HTTP, two identical replies each (K1 / K3; K5 on
    gemma2's global layer and phi2, none on mpt's ALiBi), and holds their
    logits to the JAX package's committed ones;
-8. last, since a profiler session slows every later decode of the
+8. the single-stream path's served features on the synthetic 1.1B (q4_k
+   layers, a q6_k head), `phase_served_features`: 256 stochastic tokens
+   (temperature 0.8, top-p 0.9, min-p 0.05, rep-pen 1.1, a seed) twice,
+   the same tokens, with K1 / K2 / K5 launched inside the device chunks;
+   top-k 1 gives the greedy chunks' tokens (near-ties allowed); the
+   chunk's candidate distribution on the card equals the plain chain's;
+   decode tok/s of the greedy chunk, the stochastic chunk and the
+   host-sampled loop (KCPP_FAST_DECODE=0) in interleaved pairs;
+   save_state after a 300-token prompt, an unrelated prompt, load_state:
+   the next 32 greedy tokens and the first logits bit-equal; a smart-context
+   session at context 2048 evaluating the prompt tokens the JAX rule
+   predicts; at the 1.1B's widths and 2 layers, a rank-8 LoRA merged at
+   load within 2^-6 of max |logit| of a hand-merged model (K1 still on the
+   packed weights) and a GGJT v3 Q4_0 file's logits bit-equal to the same
+   blocks as GGUF; `cli.main([..., "--benchmark"])`; over HTTP the Lite
+   page at /, /api/tags, and the profiler routes around one generate
+   (a trace naming the port's kernels);
+9. last, since a profiler session slows every later decode of the
    process: the device idle share under torch.profiler of the synthetic
-   1.1B q4_k, 64 fast-forwarded single-stream tokens (with that request's
+   1.1B q4_k, 32 fast-forwarded single-stream tokens (with that request's
    tok/s before and after the session, the q4_k matvec rows per token and
    no separate activation-prep launch; then under KCPP_FFN_FUSED=1), the
    300-token prefill as one chunk, and
    32 batched steps of 8 requests (and of 16 under KCPP_SBQ=1), and
-   tools/profile_scan.py's scan mode (64 tokens: idle share, top five ops
+   tools/profile_scan.py's scan mode (32 tokens: idle share, top five ops
    per step);
-9. prints one {"kernels": [...]} line, then the {"ok": true, ...} line.
+10. prints one {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 Any failed check raises, so the script exits nonzero. It exits nonzero,
 printing no result, when no GPU is present.
@@ -2087,13 +2104,19 @@ def phase_phi2_decode(card: str) -> dict:
     return counts
 
 
+# tokens (and batched steps) of each profiled window: the profiler's own
+# processing of a window's events, not the decode, takes most of the
+# phase's time
+PROFILE_DEPTH = 32
+
+
 def _decode_idle_share(eng: Engine, prompt: list[int], sampler,
                        rows: dict | None = None) -> str:
     """Device busy time against the wall time of a fast-forwarded request
-    that decodes 64 greedy tokens."""
+    that decodes PROFILE_DEPTH greedy tokens."""
     eng.generate(prompt, GenParams(max_length=8, sampler=sampler))
     return _idle_share(lambda: eng.generate(prompt, GenParams(
-        max_length=64, bypass_eos=True, sampler=sampler)), rows)
+        max_length=PROFILE_DEPTH, bypass_eos=True, sampler=sampler)), rows)
 
 
 def _idle_share(run, rows_out: dict | None = None) -> str:
@@ -2126,7 +2149,8 @@ def _idle_share(run, rows_out: dict | None = None) -> str:
 
 def phase_profiled(card: str) -> None:
     """The device idle share, under torch.profiler, of the synthetic 1.1B
-    q4_k: a fast-forwarded single-stream request decoding 64 greedy tokens,
+    q4_k: a fast-forwarded single-stream request decoding PROFILE_DEPTH
+    (32) greedy tokens,
     the same under KCPP_FFN_FUSED=1, the 300-token prefill as one chunk,
     then 32 batched steps of 8
     fast-forwarded greedy requests (8 slots) and of 16 (16 slots under
@@ -2147,7 +2171,8 @@ def phase_profiled(card: str) -> None:
     idle = _decode_idle_share(eng, prompt, sampler, rows)
     eng.generate(prompt, gp)
     after_tps = eng.last_timings.gen_tps
-    print(f"greedy decode, 64 tokens under torch.profiler ({card}): {idle}; "
+    print(f"greedy decode, {PROFILE_DEPTH} tokens under torch.profiler "
+          f"({card}): {idle}; "
           f"the fast-forwarded request after it: decode {after_tps:.1f} "
           f"tok/s (before it: {before_tps:.1f})", flush=True)
     # K1's rows (89 a token: 88 layer projections and the head) and any
@@ -2155,9 +2180,9 @@ def phase_profiled(card: str) -> None:
     mv = {k: t for k, t in rows.items() if "q4k_" in k and "sbq" not in k}
     prep = {k: t for k, t in rows.items()
             if "act_prep" in k or "group_sums" in k}
-    print(f"q4_k matvec rows of the 64 profiled tokens: "
+    print(f"q4_k matvec rows of the {PROFILE_DEPTH} profiled tokens: "
           f"{sum(mv.values()) / 1e3:.2f} ms, "
-          f"{sum(mv.values()) / 64 / 1e3:.4f} ms per token "
+          f"{sum(mv.values()) / PROFILE_DEPTH / 1e3:.4f} ms per token "
           f"({', '.join(k[:48] for k in mv)}); activation-prep rows: "
           f"{', '.join(f'{k[:48]} {t / 1e3:.2f} ms' for k, t in prep.items()) or 'none'}",
           flush=True)
@@ -2167,7 +2192,8 @@ def phase_profiled(card: str) -> None:
     with _env(KCPP_FFN_FUSED="1", KCPP_SBQ="0"):
         eng.generate(prompt, gp)
         idle = _decode_idle_share(eng, prompt, sampler)
-    print(f"greedy decode under KCPP_FFN_FUSED=1, 64 tokens under "
+    print(f"greedy decode under KCPP_FFN_FUSED=1, {PROFILE_DEPTH} tokens "
+          f"under "
           f"torch.profiler ({card}): {idle}", flush=True)
 
     def prefill():  # the 300-token prompt as one chunk from position 0
@@ -2199,16 +2225,17 @@ def phase_profiled(card: str) -> None:
         print(f"batched 1.1B (slot cache{', KCPP_SBQ=1' if env else ''}), "
               f"32 batched steps of {n_slots} greedy requests under "
               f"torch.profiler: {idle}", flush=True)
-    # the scan decode path's entry point: 64 greedy tokens from position
-    # 64 over a pooled cache, as `python -m koboldcpp_tpu_torch.tools.
+    # the scan decode path's entry point: PROFILE_DEPTH greedy tokens from
+    # position 64 over a pooled cache, as `python -m koboldcpp_tpu_torch.tools.
     # profile_scan scan` runs them
-    res = profile_scan.profile("scan", TINYLLAMA_1_1B, 64, DEV,
+    res = profile_scan.profile("scan", TINYLLAMA_1_1B, PROFILE_DEPTH, DEV,
                                params=model.params)
     _check(res["idle_share"] is not None,
            "profile_scan: the profiler saw no device kernels")
     top = ", ".join(f"{k[:40]} {us:.1f} us x{n:.2f}"
                     for k, us, n in res["ops"][:5])
-    print(f"tools/profile_scan.py scan, 64 tokens under torch.profiler "
+    print(f"tools/profile_scan.py scan, {PROFILE_DEPTH} tokens under "
+          f"torch.profiler "
           f"({card}): wall {res['wall_ms']:.1f} ms, device busy "
           f"{res['busy_ms']:.1f} ms, idle share {res['idle_share']:.3f}; "
           f"top five ops per step: {top}", flush=True)
@@ -3443,6 +3470,421 @@ def check_opt_in_logits() -> None:
               f"{worst:.3g}; launches {c}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# 8. the served features of the single-stream path (stochastic chunks,
+#    state, smart context, LoRA, legacy containers, routes, launcher)
+# ---------------------------------------------------------------------------
+
+FEATURE_DEPTH = 256  # stochastic tokens of the repeatability check
+PAIR_DEPTH = 32      # tokens of each timed run in the interleaved pairs
+# the smart-context script at --contextsize 2048: a 1700-token prompt, a
+# diverging 1700-token prompt (the halving: 849 tokens kept), then that
+# prompt with its reply and 300 new tokens (the kept half reused); the
+# prompt tokens the JAX rule evaluates on each turn, as
+# tests/test_torch_engine_features.py::test_smart_context_chip_script
+# holds them
+SMART_TURNS = (1700, 849, 300)
+
+
+def _get(port: int, path: str) -> tuple[int, str, bytes]:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=120) as r:
+        return r.status, r.headers.get_content_type(), r.read()
+
+
+def _rand_q4_0(rng, rows: int, cols: int) -> np.ndarray:
+    """Random Q4_0 blocks (f16 d, 16 bytes of nibbles), (rows, cols/32*18)
+    bytes: weights d*(q-8) of std ~0.02."""
+    nb = cols // 32
+    blocks = rng.integers(0, 256, size=(rows, nb, 18), dtype=np.uint8)
+    d = np.abs(rng.normal(0.004, 0.001, size=(rows, nb))).astype(np.float16)
+    blocks[:, :, :2] = d[..., None].view(np.uint8)
+    return blocks.reshape(rows, nb * 18)
+
+
+def _write_ggjt3(path: str, vocab: int, C: int, n_head: int, n_layer: int,
+                 n_mult: int, tensors: dict) -> None:
+    """A GGJT v3 llama container (llama_v3.cpp:521-560): magic and
+    version, 7 u32 hparams, the vocabulary with scores, then each tensor's
+    header, its name, padding to 32 bytes and its data. tensors:
+    {legacy name: (shape, ggml type, raw bytes)}."""
+    import struct
+
+    with open(path, "wb") as f:
+        f.write(struct.pack("<II", 0x67676A74, 3))
+        f.write(struct.pack("<7I", vocab, C, n_mult, n_head, n_layer,
+                            C // n_head, 2))
+        for i in range(vocab):
+            tok = f"tok{i}".encode()
+            f.write(struct.pack("<I", len(tok)) + tok
+                    + struct.pack("<f", -float(i)))
+        for name, (shape, ttype, raw) in tensors.items():
+            nm = name.encode()
+            f.write(struct.pack("<3I", len(shape), len(nm), ttype))
+            f.write(struct.pack(f"<{len(shape)}I", *reversed(shape)))
+            f.write(nm)
+            f.write(b"\0" * ((-f.tell()) % 32))
+            f.write(np.ascontiguousarray(raw).tobytes())
+
+
+def _legacy_files(d: str) -> tuple[str, str, dict]:
+    """The 1.1B's widths at 2 layers (32 kv heads: a GGJT v3 llama file
+    has no kv-head count), random Q4_0 weights: written as GGJT v3 and, the
+    same blocks with the reader's metadata, as GGUF. Returns (ggjt path,
+    gguf path, {gguf name: raw})."""
+    from koboldcpp_tpu_torch.gguf.constants import GGMLType
+    from koboldcpp_tpu_torch.gguf.legacy import LegacyLlamaReader
+    from koboldcpp_tpu_torch.gguf.writer import GGUFWriter
+
+    cfg = TINYLLAMA_1_1B
+    C, F, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    rng = np.random.default_rng(18)
+    legacy = {"token_embd.weight": "tok_embeddings.weight",
+              "output_norm.weight": "norm.weight",
+              "output.weight": "output.weight"}
+    per_layer = {"attn_q": ("attention.wq", C), "attn_k": ("attention.wk", C),
+                 "attn_v": ("attention.wv", C),
+                 "attn_output": ("attention.wo", C),
+                 "ffn_gate": ("feed_forward.w1", F),
+                 "ffn_down": ("feed_forward.w2", C),
+                 "ffn_up": ("feed_forward.w3", F)}
+    tensors, raws = {}, {}
+    for g in ("token_embd.weight", "output.weight"):
+        raws[g] = _rand_q4_0(rng, V, C)
+        tensors[legacy[g]] = ((V, C), 2, raws[g])
+    norm = (1.0 + rng.normal(0, 0.01, C)).astype(np.float32)
+    tensors["norm.weight"] = ((C,), 0, norm)
+    raws["output_norm.weight"] = norm
+    for i in range(2):
+        for g, (lname, rows) in per_layer.items():
+            cols = F if g == "ffn_down" else C
+            raw = _rand_q4_0(rng, rows, cols)
+            raws[f"blk.{i}.{g}.weight"] = raw
+            tensors[f"layers.{i}.{lname}.weight"] = ((rows, cols), 2, raw)
+        for g, lname in (("attn_norm", "attention_norm"),
+                         ("ffn_norm", "ffn_norm")):
+            w = (1.0 + rng.normal(0, 0.01, C)).astype(np.float32)
+            raws[f"blk.{i}.{g}.weight"] = w
+            tensors[f"layers.{i}.{lname}.weight"] = ((C,), 0, w)
+    ggjt = os.path.join(d, "legacy-q4_0.bin")
+    _write_ggjt3(ggjt, V, C, cfg.n_heads, 2, 256, tensors)
+    with LegacyLlamaReader(ggjt) as r:
+        md = dict(r.metadata)
+    gguf = os.path.join(d, "same-q4_0.gguf")
+    w = GGUFWriter(gguf)
+    for k, v in md.items():
+        w.add(k, v)
+    for name, raw in raws.items():
+        if raw.dtype == np.uint8:
+            w.add_tensor_raw(name, (raw.shape[0], raw.shape[1] // 18 * 32),
+                             GGMLType.Q4_0, raw)
+        else:
+            w.add_tensor(name, raw)
+    w.write()
+    return ggjt, gguf, raws
+
+
+def _lora_file(path: str, rng, C: int) -> dict:
+    """A rank-8 LoRA on attn_q / attn_v of both layers, written with the
+    port's GGUF writer; returns {tensor name: f32 delta}."""
+    from koboldcpp_tpu_torch.gguf.writer import GGUFWriter
+
+    alpha, rank = 16.0, 8
+    w = GGUFWriter(path, architecture="llama")
+    w.add("general.type", "adapter")
+    w.add("adapter.type", "lora")
+    w.add("adapter.lora.alpha", np.float32(alpha))
+    deltas = {}
+    for i in range(2):
+        for g in ("attn_q", "attn_v"):
+            a = (rng.standard_normal((rank, C)) * 0.02).astype(np.float32)
+            b = (rng.standard_normal((C, rank)) * 0.02).astype(np.float32)
+            name = f"blk.{i}.{g}.weight"
+            w.add_tensor(name + ".lora_a", a)
+            w.add_tensor(name + ".lora_b", b)
+            deltas[name] = (alpha / rank) * (b @ a)
+    w.write()
+    return deltas
+
+
+def _first_logits(model, tokens: list[int]) -> torch.Tensor:
+    eng = Engine(model, max_context=256, device=DEV)
+    with torch.inference_mode():
+        out = eng._eval_chunk(tokens, 0).float()
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_served_features(card: str) -> dict:
+    """The single-stream path's served features on the synthetic 1.1B
+    (full widths and depth; q4_k layers, a q6_k head: K1, K2, K5 every
+    token): stochastic chunks (repeatable under a seed, top-k 1 = the
+    greedy chunks, the chunk's candidate distribution = the plain one, K1
+    / K2 / K5 inside the chunks; greedy chunk, stochastic chunk and the
+    host-sampled loop timed in interleaved pairs), save / load state, smart
+    context; then at the 1.1B's widths and 2 layers a LoRA merged at load
+    against a hand-merged model and a GGJT v3 Q4_0 file against the same
+    blocks as GGUF; then the Lite page, /api/tags, `--benchmark`, and last
+    (a profiler session slows later decodes) the profiler routes around
+    one generate. Returns the launches of the stochastic run."""
+    import contextlib
+    import io
+    import tempfile
+
+    from koboldcpp_tpu_torch import cli
+    from koboldcpp_tpu_torch.engine import device_sampler as tds
+    from koboldcpp_tpu_torch.engine import engine as engine_mod
+    from koboldcpp_tpu_torch.gguf import quants as gq
+    from koboldcpp_tpu_torch.gguf.constants import GGMLType
+    from koboldcpp_tpu_torch.ops import linear
+    from koboldcpp_tpu_torch.server.app import ServerSettings
+
+    V, C = TINYLLAMA_1_1B.vocab_size, TINYLLAMA_1_1B.hidden_size
+    model = synthetic_model(TINYLLAMA_1_1B, "q4_k", seed=0, device=DEV)
+    rng = np.random.default_rng(3)
+    model.params["output"] = rand_q6k(rng, V, C, DEV)  # Q4_K_M's head
+    eng = Engine(model, max_context=2048, device=DEV)
+    prompt = [1] + rng.integers(3, V, size=299).tolist()
+    greedy_sp = SamplerParams(temperature=0.0, rep_pen=1.0)
+    stoch_sp = SamplerParams(temperature=0.8, top_p=0.9, min_p=0.05,
+                             rep_pen=1.1, seed=1234)
+    gp_stoch = GenParams(max_length=FEATURE_DEPTH, bypass_eos=True,
+                         sampler=stoch_sp)
+    _check(eng._fast_stoch_ok(gp_stoch, None), "the preset left the chunks")
+    for sp in (greedy_sp, stoch_sp):  # warm-up
+        eng.generate(prompt[:40], GenParams(max_length=40, bypass_eos=True,
+                                            sampler=sp))
+    eng.reset_context()
+
+    # -- stochastic chunks: launches inside them, repeatability ------------
+    inside: dict = {}
+    real_chunk = eng._get_stoch_chunk
+
+    def counted(order):
+        fn = real_chunk(order)
+
+        def run(*a):
+            before = dict(_build.launches)
+            out = fn(*a)
+            for k, n in _build.launches.items():
+                inside[k] = inside.get(k, 0) + n - before.get(k, 0)
+            return out
+        return run
+
+    eng._get_stoch_chunk = counted
+    _build.launches.clear()
+    r1 = eng.generate(prompt, gp_stoch)
+    t1 = eng.last_timings
+    counts = dict(_build.launches)
+    r2 = eng.generate(prompt, gp_stoch)
+    del eng._get_stoch_chunk
+    _check(len(r1.tokens) == FEATURE_DEPTH and r2.tokens == r1.tokens,
+           "seeded stochastic decode is not repeatable")
+    _check(eng.last_timings.prompt_tokens == 1, "stochastic: no fast-forward")
+    K = engine_mod.FAST_DECODE_K
+    n_chunked = 2 * -(-FEATURE_DEPTH // K) * K
+    for k in ("K1", "K2", "K5"):
+        _check(inside.get(k, 0) > 0, f"{k} did not run inside the chunks")
+    L = TINYLLAMA_1_1B.n_layers  # 4 q4_k projections and K5 a layer
+    _check(inside["K1"] == 4 * L * n_chunked and inside["K2"] == n_chunked
+           and inside["K5"] == L * n_chunked,
+           f"chunk launches {inside} for {n_chunked} tokens")
+    print(f"stochastic chunks (synthetic TinyLlama-1.1B q4_k + q6_k head, "
+          f"{card}): {FEATURE_DEPTH} tokens at temperature 0.8, top-p 0.9, "
+          f"min-p 0.05, rep-pen 1.1, seed 1234, twice: the same tokens; "
+          f"decode {t1.gen_tps:.1f} tok/s; inside the chunks {inside} "
+          f"({n_chunked} tokens computed); launches {counts}", flush=True)
+
+    # top-k 1: the greedy chunks' tokens
+    gp_k1 = GenParams(max_length=FEATURE_DEPTH, bypass_eos=True,
+                      sampler=SamplerParams(temperature=0.8, top_k=1,
+                                            rep_pen=1.0, seed=5))
+    eng.reset_context()
+    greedy = eng.generate(prompt, GenParams(
+        max_length=FEATURE_DEPTH, bypass_eos=True, sampler=greedy_sp)).tokens
+    eng.reset_context()
+    k1 = eng.generate(prompt, gp_k1).tokens
+    _same_or_near_tie(eng, prompt, k1, greedy, "top-k 1 stochastic chunks")
+
+    # the chain as the chunk runs it on the card against the plain one
+    eng.reset_context()
+    with torch.inference_mode():
+        logits = eng.eval_tokens(prompt, 0).float()
+    dyn = tds.make_dyn(stoch_sp, 2048, DEV)
+    rec = torch.zeros(2048, dtype=torch.int64)
+    rec[-len(prompt):] = torch.tensor(prompt)
+    bias = torch.zeros(V)
+    p_dev = tds.candidate_distribution(
+        logits, bias.to(DEV), rec.to(DEV),
+        torch.tensor([len(prompt)], device=DEV), dyn, stoch_sp.sampler_order)
+    p_plain = tds.candidate_distribution(
+        logits.cpu(), bias, rec, len(prompt), tds.make_dyn(stoch_sp, 2048),
+        stoch_sp.sampler_order)
+    err = float((p_dev.cpu() - p_plain).abs().max())
+    _check(err <= 1e-5 and bool(((p_dev.cpu() > 0) == (p_plain > 0)).all()),
+           f"device candidate distribution off by {err}")
+    print(f"candidate distribution at one step, on the card vs the plain "
+          f"chain on the CPU: max abs err {err:.3g} (tol 1e-5), "
+          f"{int((p_plain > 0).sum())} candidates", flush=True)
+
+    # tok/s in interleaved pairs: greedy chunk, stochastic chunk, host loop
+    paths = {"greedy chunk": ({}, greedy_sp),
+             "stochastic chunk": ({}, stoch_sp),
+             "host loop (KCPP_FAST_DECODE=0)": ({"KCPP_FAST_DECODE": "0"},
+                                                stoch_sp)}
+    tps: dict = {k: [] for k in paths}
+    for _ in range(2):
+        for name, (env, sp) in paths.items():
+            with _env(**env):
+                eng.generate(prompt, GenParams(max_length=PAIR_DEPTH,
+                                               bypass_eos=True, sampler=sp))
+            tps[name].append(eng.last_timings.gen_tps)
+    print(f"decode tok/s, {PAIR_DEPTH} tokens, in turns ({card}): "
+          + "; ".join(f"{k} {[round(v, 1) for v in vs]}"
+                      for k, vs in tps.items()), flush=True)
+
+    # -- save / load state --------------------------------------------------
+    tmp = tempfile.mkdtemp(prefix="kcpp_smoke_")
+    firsts: list = []
+    real_eval = eng._eval_chunk
+
+    def rec_eval(tokens, start):
+        out = real_eval(tokens, start)
+        firsts.append(out.clone())
+        return out
+
+    eng.reset_context()
+    eng.generate(prompt, GenParams(max_length=1, bypass_eos=True,
+                                   sampler=greedy_sp))
+    ctx = list(eng.context_tokens)
+    state = os.path.join(tmp, "state.npz")
+    eng.save_state(state)
+    g32 = GenParams(max_length=32, bypass_eos=True, sampler=greedy_sp)
+    eng._eval_chunk = rec_eval
+    before = eng.generate(ctx, g32).tokens
+    first_before = firsts[0]
+    eng.reset_context()
+    eng.generate([1] + rng.integers(3, V, size=199).tolist(),
+                 GenParams(max_length=16, sampler=greedy_sp))
+    eng.load_state(state)
+    _check(eng.context_tokens == ctx, "load_state: other context tokens")
+    firsts.clear()
+    after = eng.generate(ctx, g32).tokens
+    del eng._eval_chunk
+    _check(after == before and torch.equal(firsts[0], first_before),
+           "state: the restored cache gives other tokens or logits")
+    print(f"state: save after the {len(ctx)}-token context, an unrelated "
+          f"prompt, load: the next 32 greedy tokens and the first logits "
+          f"bit-equal ({os.path.getsize(state) / 2**20:.1f} MiB npz)",
+          flush=True)
+
+    # -- smart context --------------------------------------------------------
+    sc = Engine(model, max_context=2048, device=DEV, use_smartcontext=True)
+    a = [1] + rng.integers(3, V, size=1699).tolist()
+    b = a[:2] + rng.integers(3, V, size=1698).tolist()
+    g4 = GenParams(max_length=4, bypass_eos=True, sampler=greedy_sp)
+    seen = []
+    sc.generate(a, g4)
+    seen.append(sc.last_timings.prompt_tokens)
+    rb = sc.generate(b, g4)
+    seen.append(sc.last_timings.prompt_tokens)
+    sc.generate(b + rb.tokens + rng.integers(3, V, size=300).tolist(), g4)
+    seen.append(sc.last_timings.prompt_tokens)
+    _check(tuple(seen) == SMART_TURNS and sc.smartcontext,
+           f"smart context evaluated {seen}, the JAX rule {SMART_TURNS}")
+    print(f"smart context (--contextsize 2048): prompt tokens per turn "
+          f"{seen}, as the JAX rule predicts", flush=True)
+    del sc
+    torch.cuda.empty_cache()
+
+    # -- legacy GGJT v3 and LoRA, the 1.1B's widths at 2 layers -------------
+    t0 = time.perf_counter()
+    ggjt, gguf, raws = _legacy_files(tmp)
+    toks = [1] + rng.integers(3, V, size=15).tolist()
+    base = load_model(gguf, device=DEV)
+    want = _first_logits(base, toks)
+    got = _first_logits(load_model(ggjt, device=DEV), toks)
+    _check(torch.equal(got, want), "GGJT v3 logits differ from the GGUF's")
+    print(f"legacy GGJT v3 Q4_0 (1.1B widths, 2 layers, 32 kv heads; "
+          f"files written in {time.perf_counter() - t0:.1f} s): logits "
+          f"bit-equal to the same blocks as GGUF", flush=True)
+    deltas = _lora_file(os.path.join(tmp, "lora.gguf"), rng, C)
+    merged = load_model(gguf, device=DEV,
+                        loras=[(os.path.join(tmp, "lora.gguf"), 1.0)])
+    for i, layer in enumerate(base.params["layers"]):  # the hand merge
+        w = np.concatenate([
+            gq.dequantize(raws[f"blk.{i}.{g}.weight"], GGMLType.Q4_0)
+            .reshape(-1, C) + deltas.get(f"blk.{i}.{g}.weight", 0.0)
+            for g in ("attn_q", "attn_k", "attn_v")], axis=0)
+        layer["wqkv"] = linear.dense(w, device=DEV)
+    want = _first_logits(base, toks)
+    _check(all(lay["wqkv"].kind == "dense" and lay["wo"].kind == "q4_k"
+               for lay in merged.params["layers"]),
+           "LoRA: wqkv not dense, or the other weights not packed")
+    _build.launches.clear()
+    got = _first_logits(merged, toks)
+    Engine(merged, max_context=256, device=DEV).generate(
+        toks, GenParams(max_length=4, bypass_eos=True, sampler=greedy_sp))
+    lora_counts = dict(_build.launches)
+    err = float((got - want).abs().max())
+    tol = 2 ** -6 * float(want.abs().max())
+    _check(err <= tol, f"LoRA logits off the hand-merged model's by {err}")
+    _check(lora_counts.get("K1", 0) > 0, f"LoRA: K1 did not run {lora_counts}")
+    print(f"LoRA rank 8 on attn_q / attn_v of both layers, merged at load: "
+          f"logits within {err:.4g} of the hand-merged model's (tol "
+          f"{tol:.4g}); launches {lora_counts}", flush=True)
+    del base, merged
+    torch.cuda.empty_cache()
+
+    # -- the launcher's --benchmark on the card ------------------------------
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        _check(cli.main([gguf, "--benchmark"]) == 0, "--benchmark failed")
+    line = [ln for ln in out.getvalue().splitlines()
+            if "ProcessingSpeed" in ln]
+    _check(bool(line) and "on cuda" in out.getvalue(),
+           f"--benchmark printed {out.getvalue()[-500:]}")
+    print(f"cli --benchmark (the 2-layer Q4_0 GGUF, {card}): {line[0]}",
+          flush=True)
+
+    # -- routes: the Lite page, /api/tags, then the profiler around one
+    #    generate (last: a profiler session slows later decodes) ----------
+    srv = _Server(eng, ServerSettings(model_name="synthetic-1.1b"))
+    try:
+        st, ctype, page = _get(srv.port, "/")
+        _check(st == 200 and ctype == "text/html"
+               and b"KoboldAI" in page and len(page) > 20000,
+               f"/ did not serve the Lite page ({st}, {ctype})")
+        st, ctype, tags = _get(srv.port, "/api/tags")
+        _check(st == 200 and json.loads(tags)["models"][0]["name"]
+               == "synthetic-1.1b", f"/api/tags: {st} {tags[:200]}")
+        body = {"prompt": "tok5 tok9 tok77", "max_length": 16,
+                "temperature": 0, "rep_pen": 1.0}
+        srv.post("/api/v1/generate", body)
+        trace_dir = os.path.join(tmp, "trace")
+        started = srv.post("/api/extra/profiler/start", {"dir": trace_dir})
+        srv.post("/api/v1/generate", body)
+        stopped = srv.post("/api/extra/profiler/stop", {})
+    finally:
+        srv.close()
+    _check(started.get("success") and stopped.get("files") == ["trace.json"],
+           f"profiler routes: {started} {stopped}")
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    ours = sorted(n[:40] for n in names if any(
+        s in n for s in ("q4k_i8_kernel", "flash_decode_kernel",
+                         "kq_wgmma", "kq_swap", "flash_prefill_kernel")))
+    _check(bool(ours), f"the trace names none of the port's kernels: "
+           f"{sorted(names)[:10]}")
+    print(f"served routes: / (the Lite page, {len(page)} bytes), /api/tags; "
+          f"profiler start / stop around one generate: trace.json with "
+          f"{len(names)} kernel names, of the port's {ours[:4]}", flush=True)
+    del eng, model
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _timed(phase, *args):
     t0 = time.perf_counter()
     out = phase(*args)
@@ -3496,6 +3938,7 @@ def main() -> int:
              _timed(phase_served_archs)]
     _timed(check_fixture_goldens)
     _timed(check_opt_in_logits)
+    runs.append(_timed(phase_served_features, card))
     # the profiled windows last: a profiler session slows later decodes
     _timed(phase_profiled, card)
 

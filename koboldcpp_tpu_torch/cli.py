@@ -1,20 +1,33 @@
 """CLI launcher: `python -m koboldcpp_tpu_torch model.gguf`.
 
-Port of koboldcpp_tpu/cli.py for the flags the port serves: the model
-(positional or --model), --port, --host, --contextsize, --password,
---prompt / --promptlimit (one-shot mode), --multiuser [N] (continuous
-batching over N KV slots; bare = 5), --paged / --pagesize (the paged KV
-pool for it), --quantkv 0|1|2 (bf16 / Q8 / Q4 KV cache, routed as the JAX
-launcher routes it), --flashattention (accepted, a no-op) and --device. Any
-other flag, such as the JAX launcher's --mesh, exits with argparse's error
-naming it. Runs on the GPU unless --device cpu is given.
+Port of koboldcpp_tpu/cli.py: the reference's flag names (koboldcpp.py:
+4391-4488) with the JAX parser's types and defaults, `.kcpps` JSON config
+load / save, URL model download, `--benchmark`, `--nomodel`, LoRA
+adapters, the RoPE override and the automatic NTK-aware base, the chat
+adapter (`auto` guesses it), smart context or context shift, then the HTTP
+server (HTTPS with `--ssl`). The port's own flags: --paged / --pagesize
+(the paged KV pool of `--multiuser N`) and --device. The GPU-backend flags
+of the reference are accepted and ignored, but `--usecpu` runs on the CPU.
+Flags of paths the port has not got (image, audio and vision models, the
+horde worker and tunnel, device meshes, pipeline and sequence parallelism,
+multi-host serving) exit with argparse's error naming them. Runs on the
+GPU unless --device cpu or --usecpu is given.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
+import urllib.request
+
+# accepted for compatibility and ignored (the reference's backend
+# selection); --usecpu selects the CPU
+COMPAT_FLAGS = ("--usecublas", "--usevulkan", "--useclblast", "--usecpu",
+                "--gpulayers", "--tensor_split", "--blasbatchsize",
+                "--blasthreads", "--threads", "--highpriority", "--usemmap",
+                "--usemlock", "--noavx2", "--failsafe", "--nommap")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -22,41 +35,260 @@ def build_parser() -> argparse.ArgumentParser:
         prog="koboldcpp-tpu-torch",
         description="KoboldCpp-compatible LLM server on PyTorch/CUDA")
     p.add_argument("model_param", nargs="?", default="",
-                   help="GGUF model file (positional)")
+                   help="GGUF model file or URL (positional)")
     p.add_argument("port_param", nargs="?", default="",
                    help="port (positional compat)")
-    p.add_argument("--model", default="", help="GGUF model file")
+    p.add_argument("--model", default="", help="GGUF model file or URL")
+    p.add_argument("--lora", nargs="+", default=None, metavar="FILE",
+                   help="GGUF LoRA adapter(s) to merge into the model at load")
+    p.add_argument("--loramult", type=float, default=1.0,
+                   help="LoRA strength multiplier")
     p.add_argument("--port", type=int, default=5001)
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--password", default="", help="API key (Bearer auth)")
     p.add_argument("--multiuser", type=int, nargs="?", const=5, default=1,
                    help="max concurrent requests; > 1 serves them by "
                         "continuous batching over that many KV slots")
-    p.add_argument("--paged", action="store_true",
-                   help="paged KV pool for the continuous-batching engine")
-    p.add_argument("--pagesize", type=int, default=64)
     p.add_argument("--contextsize", type=int, default=2048)
+    p.add_argument("--maxrequestsize", type=int, default=32,
+                   help="accepted for compatibility")
+    p.add_argument("--quiet", action="store_true")
+    p.add_argument("--debugmode", type=int, default=0,
+                   help="accepted for compatibility; the profiler is at "
+                        "/api/extra/profiler/start|stop")
+    p.add_argument("--config", default="", help=".kcpps JSON config file")
+    p.add_argument("--chatcompletionsadapter", default="",
+                   help="chat template adapter name or JSON file, or auto")
+    p.add_argument("--preloadstory", default="", help="story JSON to preload")
+    p.add_argument("--benchmark", nargs="?", const="stdout", default=None,
+                   help="run benchmark then exit; optional CSV filename")
     p.add_argument("--prompt", default="", help="one-shot prompt mode")
     p.add_argument("--promptlimit", type=int, default=100)
+    p.add_argument("--defaultgenamt", type=int, default=512,
+                   help="accepted for compatibility")
     p.add_argument("--quantkv", type=int, default=0, choices=(0, 1, 2),
                    help="KV cache quantization: 0=bf16 1=q8 2=q4")
     p.add_argument("--flashattention", action="store_true",
                    help="accepted for compatibility; prefill from position "
                         "0 always runs flash attention on the GPU")
+    p.add_argument("--nocontextshift", action="store_true")
+    p.add_argument("--noshift", action="store_true")
+    p.add_argument("--smartcontext", action="store_true",
+                   help="legacy smart-context (halve-and-buffer) instead of "
+                        "context shift")
+    p.add_argument("--nofastforward", action="store_true",
+                   help="accepted for compatibility")
+    p.add_argument("--ropeconfig", nargs=2, type=float, default=None,
+                   metavar=("SCALE", "BASE"))
+    for flag in COMPAT_FLAGS:
+        p.add_argument(flag, nargs="?", const=True, default=None,
+                       help=argparse.SUPPRESS)
+    p.add_argument("--paged", action="store_true",
+                   help="paged KV pool for the continuous-batching engine")
+    p.add_argument("--pagesize", type=int, default=64)
+    p.add_argument("--ssl", nargs=2, metavar=("CERT", "KEY"), default=None,
+                   help="serve HTTPS with this certificate/key PEM pair")
+    p.add_argument("--nocertify", action="store_true",
+                   help="disable SSL certificate verification for outbound "
+                        "requests (model downloads)")
+    p.add_argument("--onready", default="", metavar="CMD",
+                   help="shell command to run once the server is ready")
+    p.add_argument("--launch", action="store_true",
+                   help="open the web UI in a browser once the server starts")
+    p.add_argument("--nomodel", action="store_true",
+                   help="start the server with no text model loaded "
+                        "(UI + API shell)")
+    p.add_argument("--ignoremissing", action="store_true",
+                   help="skip missing LoRA files instead of failing")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch versions of the kernels)")
     return p
 
 
+def load_kcpps(path: str, args: argparse.Namespace):
+    """Apply a .kcpps JSON config over the args namespace (koboldcpp.py:3757)."""
+    with open(path) as f:
+        cfg = json.load(f)
+    for k, v in cfg.items():
+        if hasattr(args, k):
+            setattr(args, k, v)
+    return args
+
+
+def save_kcpps(path: str, args: argparse.Namespace):
+    skip = {"model_param", "port_param", "config"}
+    data = {k: v for k, v in vars(args).items() if k not in skip}
+    with open(path, "w") as f:
+        json.dump(data, f, indent=1)
+
+
+def download_model_from_url(url: str, dest_dir: str = ".") -> str:
+    """URL model fetch (koboldcpp.py:3808)."""
+    name = url.split("?")[0].rstrip("/").split("/")[-1] or "model.gguf"
+    dest = os.path.join(dest_dir, name)
+    if not os.path.exists(dest):
+        print(f"Downloading {url} -> {dest}")
+        urllib.request.urlretrieve(url, dest)
+    return dest
+
+
+def apply_rope_config(cfg, ropeconfig, contextsize: int) -> str | None:
+    """The launcher's RoPE decision (gpttype_adapter.cpp:1926; the JAX
+    launcher's, cli.py:336-357) on a loaded config, in place: an explicit
+    --ropeconfig SCALE BASE sets rope_theta to BASE and, for a scale other
+    than 1, linear scaling by 1/SCALE; else, when the context exceeds the
+    trained one and the model ships no scaling of its own, the NTK-aware
+    base (solar models by their name rule). Returns the line to print, or
+    None."""
+    from .ops.rope import gradientai_rope_base
+
+    if ropeconfig:
+        scale, base = ropeconfig
+        cfg.rope_theta = float(base)
+        if scale and scale > 0 and scale != 1.0:
+            cfg.rope_scaling_type = "linear"
+            cfg.rope_scaling_factor = 1.0 / float(scale)
+        return f"RoPE override: base={base} scale={scale}"
+    if (contextsize > cfg.max_position_embeddings
+            and cfg.rope_scaling_type in ("none", "")):
+        new_base = gradientai_rope_base(
+            cfg.rope_theta, cfg.head_dim, contextsize,
+            cfg.max_position_embeddings,
+            solar="solar" in (cfg.name or "").lower())
+        if new_base != cfg.rope_theta:
+            line = (f"Auto RoPE (NTK-aware): base {cfg.rope_theta:.0f} -> "
+                    f"{new_base:.0f} for context {contextsize}")
+            cfg.rope_theta = new_base
+            return line
+    return None
+
+
+def run_benchmark(engine, csv_path: str | None):
+    """--benchmark mode (koboldcpp.py:4274-4353): one pp+tg pass, T/s report."""
+    from .engine import GenParams
+    from .sampling import SamplerParams
+
+    n_prompt = min(engine.max_context - 256, 2048)
+    prompt_tokens = [engine.tokenizer.vocab.bos_id] + [8] * (n_prompt - 1)
+    genamt = 100
+    t0 = time.time()
+    result = engine.generate(prompt_tokens, GenParams(
+        max_length=genamt,
+        sampler=SamplerParams(temperature=0.1, top_k=1, rep_pen=1.0),
+        bypass_eos=True))
+    total = time.time() - t0
+    t = result.timings
+    line = (f"ProcessingTime: {t.prompt_time:.2f}s ProcessingSpeed: {t.prompt_tps:.2f}T/s "
+            f"GenerationTime: {t.gen_time:.2f}s GenerationSpeed: {t.gen_tps:.2f}T/s "
+            f"TotalTime: {total:.2f}s")
+    print(line)
+    if csv_path and csv_path != "stdout":
+        import csv as _csv
+        new = not os.path.exists(csv_path)
+        with open(csv_path, "a", newline="") as f:
+            w = _csv.writer(f)
+            if new:
+                w.writerow(["Timestamp", "Backend", "Layers", "Model", "MaxCtx",
+                            "GenAmount", "ProcessingTime", "ProcessingSpeed",
+                            "GenerationTime", "GenerationSpeed", "TotalTime",
+                            "Output", "Flags"])
+            w.writerow([int(time.time()), "cuda", "all", "model",
+                        engine.max_context, genamt,
+                        f"{t.prompt_time:.2f}", f"{t.prompt_tps:.2f}",
+                        f"{t.gen_time:.2f}", f"{t.gen_tps:.2f}",
+                        f"{total:.2f}", result.text[:20], ""])
+    return result
+
+
+class NullEngine:
+    """--nomodel: the API shell with no text model (upstream's --nomodel
+    serves the UI and docs with generation inactive)."""
+
+    def __init__(self, max_context: int = 2048):
+        from .engine.engine import GenerationResult, Timings
+
+        self.max_context = max_context
+        self.tokenizer = None
+        self.last_timings = Timings()
+        self.total_gens = 0
+        self.generation_finished = True
+        self.stream_tokens = []
+        self._res = GenerationResult
+
+    def generate(self, prompt, params, on_token=None, genkey=""):
+        return self._res(text="", stop_reason="error: no model loaded")
+
+    def abort(self, genkey: str = ""):
+        pass
+
+    def token_count(self, text: str) -> list:
+        return []
+
+    def reset_context(self):
+        pass
+
+    def shutdown(self):
+        pass
+
+
+def _chat_adapter(args, model):
+    """--chatcompletionsadapter: a JSON file, a built-in name, or `auto`
+    (guessed from the vocabulary's control tokens, then the model name)."""
+    chat_adapter = args.chatcompletionsadapter or None
+    if chat_adapter and os.path.exists(chat_adapter):
+        with open(chat_adapter) as f:
+            return json.load(f)
+    if chat_adapter and chat_adapter.lower() in ("auto", "autoguess"):
+        from .server.adapters import guess_adapter
+
+        vocab_tokens = set(getattr(model.tokenizer.vocab, "tokens", None)
+                           or [])
+        guessed = guess_adapter(
+            getattr(model.cfg, "name", "")
+            or os.path.basename(args.model or ""), vocab_tokens)
+        print(f"Chat adapter autodetect: {guessed or 'no match (raw prompts)'}")
+        return guessed
+    return chat_adapter
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.config:
+        load_kcpps(args.config, args)
+    if args.nocertify:
+        # outbound TLS without verification (model downloads behind a
+        # proxy that re-signs)
+        import ssl as _ssl
+
+        _ssl._create_default_https_context = _ssl._create_unverified_context
+        print("SSL certificate verification DISABLED for outbound requests")
     model_path = args.model or args.model_param
+    if args.model_param and args.model_param.endswith((".kcpps", ".kcppt")):
+        load_kcpps(args.model_param, args)
+        model_path = args.model
+    from .server.app import ServerSettings, run_server
+
+    if args.nomodel:
+        print("--nomodel: starting API shell without a text model")
+        settings = ServerSettings(password=args.password,
+                                  model_name="inactive", quiet=args.quiet)
+        print(f"Starting server on {args.host}:{args.port}")
+        run_server(NullEngine(args.contextsize), host=args.host,
+                   port=args.port, settings=settings, ssl_pair=args.ssl,
+                   onready=args.onready, launch=args.launch)
+        return 0
     if not model_path:
         print("error: no model specified (pass a GGUF path or --model)")
         return 2
+    if model_path.startswith(("http://", "https://")):
+        model_path = download_model_from_url(model_path)
     if args.port_param:
-        args.port = int(args.port_param)
+        try:
+            args.port = int(args.port_param)
+        except ValueError:
+            pass
+    device = args.device or ("cpu" if args.usecpu else None)
 
     from .engine import Engine, GenParams
     from .engine.batch_engine import BatchedEngine, batch_capable
@@ -64,17 +296,35 @@ def main(argv=None):
 
     print(f"Loading model: {model_path}")
     t0 = time.time()
-    model = load_model(model_path, device=args.device)
+    loras = [(lp, args.loramult) for lp in (args.lora or [])]
+    if args.ignoremissing:
+        for lp, _ in loras:
+            if not os.path.exists(lp):
+                print(f"--ignoremissing: skipping missing lora {lp}")
+        loras = [(lp, m) for lp, m in loras if os.path.exists(lp)]
+    if loras:
+        print(f"Applying {len(loras)} LoRA adapter(s), multiplier "
+              f"{args.loramult}")
+    model = load_model(model_path, device=device, loras=loras or None)
     print(f"Load took {time.time() - t0:.1f}s ({model.cfg.arch}, "
           f"{model.cfg.n_layers} layers, vocab {model.cfg.vocab_size}) "
           f"on {model.device}")
-    batched = args.multiuser > 1 and batch_capable(model.cfg)
+    line = apply_rope_config(model.cfg, args.ropeconfig, args.contextsize)
+    if line:
+        print(line)
+
+    # smart context is a single-sequence path: --multiuser > 1 routes it
+    # to the single engine, as the JAX launcher does
+    batched = (args.multiuser > 1 and batch_capable(model.cfg)
+               and not args.smartcontext)
     if args.multiuser > 1 and not batched:
         print(f"Note: --multiuser continuous batching is unavailable for "
-              f"this configuration (arch {model.cfg.arch}); serving with "
-              f"the single-sequence engine + FIFO queue")
+              f"this configuration (arch {model.cfg.arch}"
+              + (", smartcontext" if args.smartcontext else "")
+              + "); serving with the single-sequence engine + FIFO queue")
     if args.paged and args.quantkv == 2:
         print("Paged KV pool: Q4 (plane-split nibbles, half the Q8 memory)")
+    shift = not (args.noshift or args.nocontextshift)
     if batched:
         # --quantkv 1 takes the paged Q8 pool (the JAX launcher's routing,
         # cli.py:432-446)
@@ -82,31 +332,42 @@ def main(argv=None):
         engine = BatchedEngine(model, max_context=args.contextsize,
                                n_slots=args.multiuser, paged=paged,
                                page_size=args.pagesize, device=model.device,
-                               quantkv=args.quantkv)
+                               quantkv=args.quantkv, use_contextshift=shift)
         print(f"Continuous batching enabled: {args.multiuser} KV slots"
               + (" (paged)" if paged else ""))
     else:
         engine = Engine(model, max_context=args.contextsize,
-                        device=model.device, quantkv=args.quantkv)
+                        device=model.device, quantkv=args.quantkv,
+                        use_smartcontext=args.smartcontext,
+                        use_contextshift=shift)
         if args.quantkv == 1:
             print("Q8-quantized KV cache enabled")
         elif args.quantkv == 2:
             print("Q4_0-quantized KV cache enabled (plain attention path)")
 
-    if args.prompt:
-        r = engine.generate(args.prompt, GenParams(max_length=args.promptlimit))
-        print(r.text)
+    if args.benchmark is not None or args.prompt:
+        if args.benchmark is not None:
+            run_benchmark(engine, args.benchmark)
+        else:
+            r = engine.generate(args.prompt,
+                                GenParams(max_length=args.promptlimit))
+            print(r.text)
         if isinstance(engine, BatchedEngine):
             engine.shutdown()
         return 0
 
-    from .server.app import ServerSettings, run_server
-
+    story = None
+    if args.preloadstory and os.path.exists(args.preloadstory):
+        with open(args.preloadstory) as f:
+            story = json.load(f)
     settings = ServerSettings(password=args.password,
                               model_name=os.path.basename(model_path),
-                              multiuser=args.multiuser)
+                              multiuser=args.multiuser,
+                              chat_adapter=_chat_adapter(args, model),
+                              preloaded_story=story, quiet=args.quiet)
     print(f"Starting server on {args.host}:{args.port}")
-    run_server(engine, host=args.host, port=args.port, settings=settings)
+    run_server(engine, host=args.host, port=args.port, settings=settings,
+               ssl_pair=args.ssl, onready=args.onready, launch=args.launch)
     return 0
 
 

@@ -68,10 +68,10 @@ PREFILL_BUCKETS = (16, 32, 64, 128)
 PREFILL_CHUNK = 128  # interleave granularity: decode ticks between chunks
 # steady-state burst length: K decode steps queued on the card per pull,
 # bounded so admits and aborts are picked up within K ticks
-BURST_TICKS = 16
+BURST_TICKS = int(os.environ.get("KCPP_BURST_TICKS", "16"))
 # bursts in flight: the host pulls the OLDEST while the card computes the
 # newer ones
-BURST_DEPTH = 4
+BURST_DEPTH = int(os.environ.get("KCPP_BURST_DEPTH", "4"))
 
 
 def _bucket(n: int) -> int:
@@ -169,11 +169,16 @@ class BatchedEngine:
     """Drop-in Engine replacement with cross-request continuous batching on
     one device (default cuda; raises without a GPU unless device="cpu").
     The model's params must already live on that device. quantkv: 0 bf16
-    KV, 1 Q8, 2 Q4 (slot cache, or pool when paged)."""
+    KV, 1 Q8, 2 Q4 (slot cache, or pool when paged). pool_fraction: the
+    paged pool's pages as a share of n_slots full contexts.
+    use_contextshift: context shift on the slot cache (always off when
+    paged or quantized). KCPP_BATCH_DEV_SAMPLE=0 samples every slot on the
+    host."""
 
     def __init__(self, model: Model, max_context: int = 2048, n_slots: int = 4,
                  paged: bool = False, page_size: int = 64, device=None,
-                 quantkv: int = 0):
+                 quantkv: int = 0, pool_fraction: float = 1.0,
+                 use_contextshift: bool = True):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model params live on {model.device}, the "
@@ -194,12 +199,12 @@ class BatchedEngine:
         # context shift needs in-place row surgery on the slot cache; the
         # paged pool reuses a prefix only (fast-forward), and a quantized
         # cache has none, as upstream (koboldcpp.py:840) and in JAX
-        self.use_contextshift = not paged and not quantkv
+        self.use_contextshift = use_contextshift and not paged and not quantkv
         if paged:
             max_pages = -(-max_context // page_size)
+            n_pages = max(1, int(n_slots * max_pages * pool_fraction))
             self.page_size = page_size
-            self.allocator = PageAllocator(n_slots * max_pages, page_size,
-                                           max_pages)
+            self.allocator = PageAllocator(n_pages, page_size, max_pages)
         self.cache = self._new_cache()
         self.slots = [_Slot(idx=i) for i in range(n_slots)]
         self.queue: "queue.Queue[_Request]" = queue.Queue()
@@ -847,7 +852,10 @@ class BatchedEngine:
     def _slot_stoch_ok(self, slot: _Slot, order_key: tuple) -> bool:
         """The device sampler covers this slot: common stochastic preset
         (temp/top-k/top-p/min-p/rep-pen/bias/ban), rep-pen leading the
-        order, and the same effective stage order as this tick's chain."""
+        order, and the same effective stage order as this tick's chain.
+        Off for every slot under KCPP_BATCH_DEV_SAMPLE=0."""
+        if os.environ.get("KCPP_BATCH_DEV_SAMPLE", "1") != "1":
+            return False
         sp = slot.sampler_params
         if not (slot.grammar is None
                 and not slot.request.params.banned_phrases

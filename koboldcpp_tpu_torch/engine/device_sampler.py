@@ -1,9 +1,11 @@
-"""Device-side stochastic sampling for the batched engine's decode step.
+"""Device-side stochastic sampling: the single-stream engine's K-token
+decode chunk and the batched engine's decode step.
 
 Port of koboldcpp_tpu/engine/device_sampler.py. The reference samples on the
 host every token (SampleLogits, gpttype_adapter.cpp:1338); this module runs
-the common sampler preset on the device, per slot, so a batched decode step
-(or a burst of them) needs no host round trip for those slots.
+the common sampler preset on the device, so a single-stream chunk of
+FAST_DECODE_K tokens (`make_stoch_chunk`) or a batched decode step (or a
+burst of them, per slot) needs no host round trip.
 
 After the rep-pen/bias/ban stage, which modifies logit VALUES, every
 remaining supported stage (top-k 5000 prefilter, top-k, top-p, min-p,
@@ -152,17 +154,21 @@ def _chain(logits, bias, recent, count, dyn, order):
     return final, sorted_ids
 
 
+def _draw(final, sorted_ids, generator):
+    """Gumbel-max over each row's masked prefix with noise from
+    `generator`: (B,) int64 token ids."""
+    u = torch.rand(final.shape, generator=generator, device=final.device)
+    gumbel = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
+    return torch.gather(sorted_ids, 1,
+                        torch.argmax(final + gumbel, dim=1, keepdim=True))[:, 0]
+
+
 def sample_step_batched(logits, bias, recent, count, generator, dyn, order,
                         greedy):
     """Per-slot device sampling: the chain over B rows with per-slot knob
-    vectors, then Gumbel-max over each row's masked prefix with noise from
-    `generator`. `greedy` rows take argmax(logits + bias), the host
-    semantics of temperature == 0. Returns (B,) int64 token ids."""
-    final, sorted_ids = _chain(logits, bias, recent, count, dyn, order)
-    u = torch.rand(final.shape, generator=generator, device=final.device)
-    gumbel = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
-    pick = torch.gather(sorted_ids, 1,
-                        torch.argmax(final + gumbel, dim=1, keepdim=True))[:, 0]
+    vectors, then the draw. `greedy` rows take argmax(logits + bias), the
+    host semantics of temperature == 0. Returns (B,) int64 token ids."""
+    pick = _draw(*_chain(logits, bias, recent, count, dyn, order), generator)
     gpick = torch.argmax(logits.float() + bias, dim=1)
     return torch.where(greedy, gpick, pick)
 
@@ -179,3 +185,44 @@ def candidate_distribution(logits, bias_mask, recent, count, dyn, order):
         tuple(order))
     p = torch.softmax(final, dim=1)[0]
     return torch.zeros_like(p).scatter_(0, sorted_ids[0], p)
+
+
+def sample_step(logits, bias_mask, recent, count, generator, dyn, order):
+    """One full sampler-chain step for one row on the device: the chain,
+    then Gumbel-max over the masked prefix with noise from `generator`.
+    logits / bias_mask (V,), recent (W,), count a one-element int64 tensor,
+    dyn from make_dyn. Returns a one-element int64 tensor; nothing here
+    waits for the device."""
+    return _draw(*_chain(logits[None], bias_mask[None], recent[None],
+                         count.reshape(1), dyn, order), generator)
+
+
+def make_stoch_chunk(forward_fn, k_tokens: int, order):
+    """The K-token decode+sample chunk (the JAX `make_stoch_chunk`).
+    forward_fn(tokens (1, 1), positions (1, 1)) -> last-token logits (V,)
+    runs the T=1 llama-family step over the engine's cache, which it
+    updates in place. Returns fn(logits0, start_pos, bias_mask, recent,
+    count, generator, dyn) -> (toks (K,), logits, recent, count): each step
+    samples, writes toks[i], rolls `recent` and bumps `count` (at most W),
+    and runs the forward on the sampled token. Nothing in it waits for the
+    host: the tokens stay on the device until the caller pulls them."""
+    order = tuple(order)
+
+    def chunk(logits0, start_pos: int, bias_mask, recent, count, generator,
+              dyn):
+        dev = logits0.device
+        W = recent.shape[0]
+        toks = torch.empty(k_tokens, dtype=torch.int64, device=dev)
+        logits = logits0
+        for i in range(k_tokens):
+            tok = sample_step(logits, bias_mask, recent, count, generator,
+                              dyn, order)
+            toks[i:i + 1] = tok
+            recent = torch.cat([recent[1:], tok.to(recent.dtype)])
+            count = torch.clamp(count + 1, max=W)
+            pos = torch.full((1, 1), start_pos + i, dtype=torch.int64,
+                             device=dev)
+            logits = forward_fn(tok.view(1, 1), pos)
+        return toks, logits, recent, count
+
+    return chunk

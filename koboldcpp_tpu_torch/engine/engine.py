@@ -7,17 +7,25 @@ from position 0 is padded at its end and runs flash prefill, K4) -> sample
   - context fast-forward (longest common prefix with the cached context)
   - context shift (drop a scrolled-out gap from the cache and re-rotate the
     keys that slide down; off under a quantized KV cache, as upstream)
+  - or legacy smart context (`use_smartcontext`: halve a diverging prompt
+    and reuse the kept half later; turns context shift off)
   - anti-slop rewind (banned phrases)
-The KV cache is bf16, or Q8 / Q4 with `quantkv=1|2` (`--quantkv`).
+The KV cache is bf16, or Q8 / Q4 with `quantkv=1|2` (`--quantkv`);
+`save_state` / `load_state` write and read the bf16 cache in the JAX
+engine's npz layout.
 
-Greedy requests without host-side logit modifiers decode FAST_DECODE_K
-tokens per device chunk: argmax feeds the next step on the device and the
-host pulls each chunk's tokens with one sync. Everything else samples on
-the host through the `sampling` module. The KV cache is updated in place.
+Greedy requests without host-side logit modifiers, and stochastic requests
+of the common preset (temperature, top-k, top-p, min-p, rep-pen, biases,
+bans: `device_sampler`), decode FAST_DECODE_K tokens per device chunk:
+argmax or the device sampler feeds the next step on the device and the
+host pulls each chunk's tokens with one sync (KCPP_FAST_DECODE=0 turns both
+off). Everything else samples on the host through the `sampling` module.
+The KV cache is updated in place.
 """
 from __future__ import annotations
 
 import codecs
+import os
 import threading
 import time
 from collections import deque
@@ -29,7 +37,7 @@ import torch
 
 from ..device import resolve_device
 from ..grammar.gbnf import TokenFilter
-from ..kv.cache import init_cache
+from ..kv.cache import QuantKVCache, init_cache, stack_cache
 from ..models import llama as model_llama
 from ..models.loader import Model
 from ..ops import flash_prefill
@@ -38,9 +46,9 @@ from ..sampling import (SamplerParams, build_dry_sequences, make_state,
                         sample_logits)
 
 PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512)
-# Tokens per device chunk on the greedy fast path: one host sync per chunk.
-# Overshoot past a stop condition is computed and discarded.
-FAST_DECODE_K = 32
+# Tokens per device chunk on the greedy and stochastic fast paths: one host
+# sync per chunk. Overshoot past a stop condition is computed and discarded.
+FAST_DECODE_K = int(os.environ.get("KCPP_FAST_DECODE_K", "32"))
 PIPELINE_DEPTH = 2  # chunks in flight: the pull of one overlaps the next
 
 
@@ -102,10 +110,13 @@ def _kv_quant(quantkv: int) -> int:
 class Engine:
     """Single-sequence serving engine on one device (default cuda; raises
     without a GPU unless device="cpu"). The model's params must already
-    live on that device. quantkv: 0 bf16 KV cache, 1 Q8, 2 Q4."""
+    live on that device. quantkv: 0 bf16 KV cache, 1 Q8, 2 Q4.
+    use_smartcontext: legacy smart context (turns context shift off);
+    use_contextshift: context shift (always off under a quantized cache)."""
 
     def __init__(self, model: Model, max_context: int = 2048, device=None,
-                 quantkv: int = 0):
+                 quantkv: int = 0, use_smartcontext: bool = False,
+                 use_contextshift: bool = True):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model params live on {model.device}, the "
@@ -121,10 +132,13 @@ class Engine:
         self.tokenizer = model.tokenizer
         self.max_context = max_context
         self.quantkv = quantkv
+        self.use_smartcontext = use_smartcontext
+        self.smartcontext: list[int] = []  # the kept half of a trimmed prompt
         # a quantized cache has no context shift: upstream turns it off
         # (koboldcpp.py:840), as the JAX BatchedEngine does
-        # (batch_engine.py:146-149)
-        self.use_contextshift = not quantkv
+        # (batch_engine.py:146-149); smart context replaces it (engine.py:111)
+        self.use_contextshift = (use_contextshift and not use_smartcontext
+                                 and not quantkv)
         # flash prefill (K4) on the card, as the JAX engine enables it off
         # the CPU (engine.py:311-313): K4's head shapes, no ALiBi
         self.use_flash_prefill = (self.device.type == "cuda"
@@ -134,6 +148,7 @@ class Engine:
                                 cfg.head_dim, device=self.device,
                                 quantized=_kv_quant(quantkv))
         self.context_tokens: list[int] = []  # tokens currently in the cache
+        self._stoch_chunks: dict[tuple, Callable] = {}
         self.abort_event = threading.Event()
         self.lock = threading.Lock()  # one generation at a time
         self._grammar_cache: tuple[str, TokenFilter] | None = None
@@ -236,6 +251,45 @@ class Engine:
         self.context_tokens = ctx[:p0] + ctx[p0 + ci:]
         return prompt
 
+    def _smart_context(self, prompt: list[int]) -> list[int]:
+        """Legacy smart context (ContextFastForward, model_adapter.cpp:
+        424-558; the JAX `_smart_context`). When the cache is nearly full
+        and the prompt diverges far from it, cut the prompt's un-reusable
+        half and remember the kept tail (`smartcontext`); a later prompt
+        that still holds that tail is trimmed to it, so only new text is
+        evaluated. Positions are deliberately discontinuous, as upstream.
+        Returns the (possibly trimmed) prompt for the fast-forward."""
+        nctx = self.max_context
+        ctx_thresh = int(nctx * 0.8)     # SCCtxLenThreshold
+        inp_thresh = int(nctx * 0.6)     # SCInpLenThreshold
+        past_thresh = int(nctx * 0.5)    # SCPastLenThreshold
+        tok_thresh = 32 + int(nctx * 0.05)  # SCTokThreshold
+
+        n_past = self._fast_forward(prompt)
+        rem = prompt[n_past:]
+        reused = False
+        if self.smartcontext and len(rem) >= inp_thresh:
+            # reuse: the remembered buffer must reappear (prefix-anchored)
+            blen, ci, pi = _longest_common_run(self.smartcontext, rem)
+            if blen > tok_thresh and ci == 0:
+                rem = rem[pi:]
+                reused = True
+            else:
+                self.smartcontext = []
+        else:
+            self.smartcontext = []
+        if (not reused and not self.smartcontext
+                and len(self.context_tokens) >= ctx_thresh
+                and len(rem) >= inp_thresh
+                and len(self.context_tokens) - n_past > past_thresh):
+            # trigger: keep the tail half, remember it as the anchor
+            shift = int(len(rem) * 0.5)  # SCTruncationRatio
+            self.smartcontext = rem[shift:]
+            rem = self.smartcontext
+        # the reused prefix + the trimmed rest; the fast-forward then also
+        # reuses what of rest was evaluated last time (model_adapter.cpp:508)
+        return prompt[:n_past] + rem
+
     def _kv_remove_shift(self, start: int, end: int):
         """Delete cache slots [start, end) and slide later slots down,
         re-rotating K by the position delta, in place."""
@@ -254,13 +308,54 @@ class Engine:
     def _fast_greedy_ok(self, params: GenParams, grammar) -> bool:
         """Device-side greedy chunks match the host loop only when no
         logit-modifying host sampler is active; token bans ride an
-        on-device additive mask."""
+        on-device additive mask. Off under KCPP_FAST_DECODE=0."""
+        if os.environ.get("KCPP_FAST_DECODE", "1") != "1":
+            return False
         sp = params.sampler
         return (grammar is None and not params.banned_phrases
                 and sp.temperature == 0.0 and sp.rep_pen == 1.0
                 and sp.presence_penalty == 0.0 and sp.dry_multiplier == 0.0
                 and not sp.logit_biases and sp.xtc_probability == 0.0
                 and sp.mirostat == 0)
+
+    def _fast_stoch_ok(self, params: GenParams, grammar) -> bool:
+        """Device-side stochastic chunks cover the common preset:
+        temperature / top-k / top-p / min-p / rep-pen / biases / bans with
+        rep-pen leading the order; the same distribution as the host chain
+        (another draw). DRY, XTC, mirostat, dynatemp, smoothing, top-a,
+        TFS, typical, grammar and anti-slop stay on the host loop. Off
+        under KCPP_FAST_DECODE=0."""
+        from .device_sampler import supported_order
+
+        if os.environ.get("KCPP_FAST_DECODE", "1") != "1":
+            return False
+        sp = params.sampler
+        if not (grammar is None and not params.banned_phrases
+                and sp.temperature > 0.0 and sp.mirostat == 0
+                and sp.dry_multiplier == 0.0 and sp.xtc_probability == 0.0
+                and sp.top_a == 0.0 and sp.tfs >= 1.0 and sp.typical_p >= 1.0
+                and sp.dynatemp_range == 0.0 and sp.smoothing_factor == 0.0):
+            return False
+        rep_active = sp.rep_pen != 1.0 or sp.presence_penalty != 0.0
+        return supported_order(sp.sampler_order, rep_active)
+
+    def _get_stoch_chunk(self, order) -> Callable:
+        """The stochastic chunk, kept per effective stage order (only the
+        relative order of top-k / top-p / temperature changes the chain)."""
+        from ..sampling.samplers import (KCPP_SAMPLER_TEMP, KCPP_SAMPLER_TOP_K,
+                                         KCPP_SAMPLER_TOP_P)
+        from .device_sampler import make_stoch_chunk
+
+        key = tuple(s for s in order if s in (
+            KCPP_SAMPLER_TOP_K, KCPP_SAMPLER_TOP_P, KCPP_SAMPLER_TEMP))
+        fn = self._stoch_chunks.get(key)
+        if fn is None:
+            def fwd(tok, pos):
+                return self._forward(tok, pos, last_only=True)[0, -1]
+
+            fn = make_stoch_chunk(fwd, FAST_DECODE_K, key)
+            self._stoch_chunks[key] = fn
+        return fn
 
     # -- grammar -----------------------------------------------------------
     def _get_grammar(self, params: GenParams) -> TokenFilter | None:
@@ -305,7 +400,11 @@ class Engine:
             prompt_tokens = (prompt_tokens[:keep_first]
                              + prompt_tokens[keep_first + overflow:])
 
-        if self.use_contextshift:
+        # context reuse: smart context (legacy) or context shift, then the
+        # fast-forward (engine.py:730-736)
+        if self.use_smartcontext:
+            prompt_tokens = self._smart_context(prompt_tokens)
+        elif self.use_contextshift:
             self._context_shift(prompt_tokens)
         n_past = self._fast_forward(prompt_tokens)
         self.context_tokens = self.context_tokens[:n_past]
@@ -354,14 +453,41 @@ class Engine:
                 (len(tk.encode(p)) for p in params.banned_phrases), default=0)
         stream_q: list[tuple[int, int, str]] = []  # (token_index, tok, piece)
 
+        fast_kind = None
         if self._fast_greedy_ok(params, grammar):
-            # ---- device-side greedy chunks, PIPELINE_DEPTH in flight ----
+            fast_kind = "greedy"
+        elif self._fast_stoch_ok(params, grammar):
+            fast_kind = "stoch"
+        if fast_kind is not None:
+            # ---- device-side chunks, PIPELINE_DEPTH in flight ----
             bias = np.zeros(self.cfg.vocab_size, np.float32)
+            for tid, bv in sampler.logit_biases.items():
+                if 0 <= tid < self.cfg.vocab_size:
+                    bias[tid] += np.float32(bv)
             for b in sampler_banned:
                 if 0 <= b < self.cfg.vocab_size:
                     bias[b] = np.float32(-1e30)
-            ban_mask = torch.from_numpy(bias).to(self.device)
+            bias_mask = torch.from_numpy(bias).to(self.device)
             logits_dev = logits.float()
+            if fast_kind == "stoch":
+                from .device_sampler import make_dyn
+
+                # the rep-pen window: the last max_context context tokens,
+                # right-aligned, and how many of them are real
+                W = self.max_context
+                rec = np.zeros(W, np.int64)
+                tail = self.context_tokens[-W:]
+                if tail:
+                    rec[-len(tail):] = tail
+                recent = torch.from_numpy(rec).to(self.device)
+                count = torch.tensor([min(len(self.context_tokens), W)],
+                                     dtype=torch.int64, device=self.device)
+                seed = sampler.seed if sampler.seed >= 0 else int(
+                    np.random.default_rng().integers(2 ** 31))
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(seed)
+                dyn = make_dyn(sampler, self.max_context, self.device)
+                stoch_chunk = self._get_stoch_chunk(sampler.sampler_order)
             pending: deque = deque()
             dispatch_pos = len(self.context_tokens)
             dispatched = 0
@@ -371,8 +497,13 @@ class Engine:
                     stop_reason = "abort"
                     break
                 while len(pending) < PIPELINE_DEPTH and dispatched < max_len:
-                    toks, logits_dev = self._greedy_chunk(
-                        logits_dev, dispatch_pos, ban_mask)
+                    if fast_kind == "greedy":
+                        toks, logits_dev = self._greedy_chunk(
+                            logits_dev, dispatch_pos, bias_mask)
+                    else:
+                        toks, logits_dev, recent, count = stoch_chunk(
+                            logits_dev, dispatch_pos, bias_mask, recent,
+                            count, gen, dyn)
                     pending.append(toks)
                     dispatch_pos += FAST_DECODE_K
                     dispatched += FAST_DECODE_K
@@ -514,6 +645,58 @@ class Engine:
 
     def reset_context(self):
         self.context_tokens = []
+
+    # -- state save / restore (llama_state_*, src/llama.cpp:20833; the JAX
+    #    engine's npz layout, engine.py:1025-1066) -------------------------
+    def _refuse_quantized(self, what: str):
+        if isinstance(self.cache, QuantKVCache):
+            raise ValueError(
+                f"{what}: a quantized KV cache (--quantkv) cannot be saved or "
+                "restored: the JAX engine's state file keeps only the cache's "
+                "codes and drops its scales (stack_cache), and loads them back "
+                "as bf16 values")
+
+    def save_state(self, path: str):
+        """The bf16 cache as k / v stacked (L, B, S, H, D), the context
+        tokens (int64) and max_context, in one compressed npz. bf16 goes
+        as 2-byte void ('<V2'), the bytes numpy writes for the JAX
+        package's bfloat16, so no bf16 numpy dtype is needed to read it."""
+        self._refuse_quantized("save_state")
+        st = stack_cache(self.cache)
+
+        def raw(t: torch.Tensor) -> np.ndarray:
+            return t.contiguous().view(torch.int16).cpu().numpy().view("V2")
+
+        np.savez_compressed(
+            path, k=raw(st.k), v=raw(st.v),
+            context_tokens=np.asarray(self.context_tokens, dtype=np.int64),
+            max_context=self.max_context)
+
+    def load_state(self, path: str):
+        """Restore a state written by `save_state` or by the JAX engine
+        (a bf16 cache as '<V2' bytes, or a float cache, cast to bf16 as
+        the JAX `load_state` casts it to its cache dtype)."""
+        self._refuse_quantized("load_state")
+        data = np.load(path)
+        if int(data["max_context"]) != self.max_context:
+            raise ValueError("state was saved with a different context size")
+
+        def tensor(a: np.ndarray) -> torch.Tensor:
+            if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+                return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+            return torch.from_numpy(np.asarray(a, np.float32))
+
+        k, v = tensor(data["k"]), tensor(data["v"])
+        L = len(self.cache.k)
+        if k.dim() != 5 or k.shape[0] != L or v.shape != k.shape:
+            raise ValueError(f"state k / v of shape {tuple(k.shape)} do not "
+                             f"fit this cache ({L} layers)")
+        with torch.inference_mode():
+            for i in range(L):
+                dst_k, dst_v = self.cache.k[i], self.cache.v[i]
+                dst_k.copy_(k[i].reshape(dst_k.shape))
+                dst_v.copy_(v[i].reshape(dst_v.shape))
+        self.context_tokens = [int(t) for t in data["context_tokens"]]
 
 
 def antislop_check(tk, text: str, phrases: list[str],

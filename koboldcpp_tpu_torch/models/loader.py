@@ -7,8 +7,10 @@ their biases, gemma2's sandwich norms too) into its params dict,
 keeping 2-D weights packed (QTensor: q4_k, q5_k, q6_k or q8_0, the kinds
 `ops/linear.from_gguf` maps the GGUF types onto) for the kernels and
 row-fusing same-type q/k/v and gate/up projections into `wqkv` / `w_gateup`
-(one kernel launch per group). LoRA merging and legacy GGML containers come
-in a later slice.
+(one kernel launch per group). GGUF LoRA adapters merge at load into dense
+bf16 weights (`LoraAdapter`); legacy GGML / GGMF / GGJT containers and the
+pre-GGUF gpt-j / gpt-neox / mpt / gpt-2 files load through
+`gguf/legacy.py`'s readers.
 """
 from __future__ import annotations
 
@@ -26,11 +28,77 @@ from .config import ModelConfig, config_from_metadata
 Params = dict[str, Any]
 
 
+class LoraAdapter:
+    """GGUF LoRA adapter (llama_lora_adapter_init_internal,
+    src/llama.cpp:18740-18882): general.type == "adapter", adapter.type ==
+    "lora", tensor pairs `<base>.lora_a` (r, in) / `<base>.lora_b` (out,
+    r), merged as W + mult * (alpha/r) * B @ A. The reference applies A / B
+    at eval time; the port merges at load, as the JAX package does, so an
+    adapted tensor becomes one dense weight."""
+
+    def __init__(self, path: str, multiplier: float = 1.0):
+        self.multiplier = multiplier
+        self.pairs: dict[str, dict[str, np.ndarray]] = {}
+        with GGUFReader(path) as r:
+            md = r.metadata
+            gtype = str(md.get("general.type", ""))
+            if gtype != "adapter":
+                raise ValueError(f"expected general.type 'adapter', got {gtype!r}")
+            atype = str(md.get("adapter.type", ""))
+            if atype != "lora":
+                raise ValueError(f"expected adapter.type 'lora', got {atype!r}")
+            a = md.get("adapter.lora.alpha", 0.0)
+            self.alpha = float(a.item() if hasattr(a, "item") else a or 0.0)
+            for name in r.tensors:
+                if name.endswith(".lora_a"):
+                    self.pairs.setdefault(name[:-7], {})["a"] = np.asarray(
+                        r.tensor_data(name), np.float32)
+                elif name.endswith(".lora_b"):
+                    self.pairs.setdefault(name[:-7], {})["b"] = np.asarray(
+                        r.tensor_data(name), np.float32)
+                else:
+                    raise ValueError(f"LoRA tensor {name!r} has unexpected suffix")
+        for base, p in self.pairs.items():
+            if "a" not in p or "b" not in p:
+                raise ValueError(f"LoRA pair for {base!r} missing a component")
+
+    def delta(self, name: str) -> np.ndarray | None:
+        p = self.pairs.get(name)
+        if p is None:
+            return None
+        a, b = p["a"], p["b"]  # (r, in), (out, r)
+        rank = a.shape[0]
+        scale = self.multiplier * (self.alpha / rank if self.alpha else 1.0)
+        return scale * (b @ a)
+
+
 def load_params(reader: GGUFReader, cfg: ModelConfig, packed: bool = True,
-                dtype=torch.bfloat16, device="cpu") -> Params:
+                dtype=torch.bfloat16, device="cpu",
+                loras: list[LoraAdapter] | None = None) -> Params:
     names = set(reader.tensors)
+    lora_names = set()
+    for ad in loras or ():
+        lora_names |= set(ad.pairs)
+
+    def merged(tensor_name: str) -> np.ndarray:
+        """The dequantized base weight plus every adapter's delta, f32."""
+        info = reader.tensors[tensor_name]
+        w = linear.from_gguf(reader.tensor_raw(tensor_name), info.ggml_type,
+                             info.shape, packed=False, dtype=torch.float32
+                             ).data["w"].numpy()
+        for ad in loras or ():
+            d = ad.delta(tensor_name)
+            if d is not None:
+                if d.shape != w.shape:
+                    raise ValueError(f"LoRA delta shape {d.shape} != "
+                                     f"{w.shape} for {tensor_name}")
+                w = w + d
+        return w
 
     def qt(tensor_name: str, pack: bool = packed):
+        if tensor_name in lora_names:
+            return linear.dense(merged(tensor_name), dtype=dtype,
+                                device=device)
         info = reader.tensors[tensor_name]
         return linear.from_gguf(reader.tensor_raw(tensor_name),
                                 info.ggml_type, info.shape, packed=pack,
@@ -72,6 +140,11 @@ def load_params(reader: GGUFReader, cfg: ModelConfig, packed: bool = True,
             return None
         if len({i.shape[1] for i in infos}) != 1:
             return None
+        if any(n in lora_names for n in names_in):
+            # one dense row-concatenation of every member's merged weight
+            return linear.dense(np.concatenate([merged(n) for n in names_in],
+                                               axis=0),
+                                dtype=dtype, device=device)
         raw = np.concatenate([reader.tensor_raw(n) for n in names_in], axis=0)
         out_rows = sum(i.shape[0] for i in infos)
         return linear.from_gguf(raw, infos[0].ggml_type,
@@ -150,27 +223,41 @@ class Model:
 
 
 def load_model(path: str, packed: bool = True, dtype=torch.bfloat16,
-               device: str | torch.device | None = None) -> Model:
-    """Load a llama-family GGUF onto `device` (default cuda; raises without
-    a GPU unless device="cpu")."""
-    from ..gguf.reader import open_gguf
+               device: str | torch.device | None = None,
+               loras: list[tuple[str, float]] | None = None) -> Model:
+    """Load a llama-family GGUF, or a legacy pre-GGUF container, onto
+    `device` (default cuda; raises without a GPU unless device="cpu").
+    loras: [(adapter_gguf_path, multiplier), ...] merged into the base
+    weights at load (lora_filename / lora_multiplier, expose.h:132-133)."""
     from ..gguf.sniff import FileFormat, check_file_format, describe_or_raise
     from .llama import check_supported
 
     dev = resolve_device(device)
+    describe_or_raise(path)  # a precise error for an unsupported container
+    adapters = [LoraAdapter(lp, mult) for lp, mult in (loras or [])]
     fmt = check_file_format(path)
-    if fmt is FileFormat.BADFORMAT:
-        describe_or_raise(path)
     if fmt is not FileFormat.GGUF:
-        raise NotImplementedError(
-            f"{path}: {fmt.value} containers are not ported yet (GGUF only)")
-    with open_gguf(path) as r:
+        # legacy pre-GGUF containers (the JAX loader's routing, :264-275)
+        from ..gguf import legacy
+
+        if fmt in legacy.LEGACY_OTHERARCH_FORMATS:
+            reader_cls = legacy.LegacyOtherArchReader
+        elif fmt in legacy.LEGACY_RWKV_FORMATS:
+            reader_cls = legacy.LegacyRwkvReader  # refused below: recurrent
+        else:
+            reader_cls = legacy.LegacyLlamaReader
+    else:
+        from ..gguf.reader import open_gguf
+
+        reader_cls = open_gguf  # merges gguf-split shard sets
+    with reader_cls(path) as r:
         cfg = config_from_metadata(r.metadata)
         tokenizer = Tokenizer.from_metadata(r.metadata)
         if cfg.is_recurrent or cfg.is_embedding or cfg.is_encoder_decoder \
                 or cfg.arch in ("deepseek2", "minicpm3"):
             raise NotImplementedError(
                 f"architecture {cfg.arch!r} is not ported yet")
-        params = load_params(r, cfg, packed=packed, dtype=dtype, device=dev)
+        params = load_params(r, cfg, packed=packed, dtype=dtype, device=dev,
+                             loras=adapters or None)
     check_supported(params, cfg, dev)
     return Model(cfg, params, tokenizer, dev)

@@ -449,8 +449,19 @@ _PACKERS = {GGMLType.Q8_0: pack_q8_0, GGMLType.Q2_K: _kq_packer(pack_q2_k),
             GGMLType.Q5_0: pack_q5_0, GGMLType.Q5_1: pack_q5_1}
 for _t in (GGMLType.IQ4_NL, GGMLType.IQ4_XS, GGMLType.TQ1_0, GGMLType.TQ2_0):
     _PACKERS[_t] = partial(pack_q8_expand, ggml_type=_t)
+
+
+def _iq_packer(raw, shape, device="cpu", ggml_type=GGMLType.IQ2_XXS):
+    """IQ1 / IQ2 / IQ3: the native kinds (default), or the int8
+    re-expansion to q8_0 under KCPP_IQ_NATIVE=0 (the JAX `_iq_packer`),
+    served by K2.q8_0 / K3.q8_0; read at load."""
+    if os.environ.get("KCPP_IQ_NATIVE", "1") == "1":
+        return pack_iq(raw, shape, device, ggml_type)
+    return pack_q8_expand(raw, shape, device, ggml_type)
+
+
 for _t in _IQ_NATIVE_KINDS:
-    _PACKERS[_t] = partial(pack_iq, ggml_type=_t)
+    _PACKERS[_t] = partial(_iq_packer, ggml_type=_t)
 _32COL_TYPES = (GGMLType.Q8_0, GGMLType.IQ4_NL, GGMLType.IQ4_XS,
                 GGMLType.IQ3_XXS, GGMLType.IQ3_S, GGMLType.IQ2_XXS,
                 GGMLType.IQ2_XS, GGMLType.IQ2_S, GGMLType.IQ1_S,
@@ -463,7 +474,7 @@ def from_gguf(raw: np.ndarray, ggml_type: GGMLType, shape: tuple[int, ...],
               device="cpu") -> QTensor:
     """Build a QTensor from GGUF raw bytes, as the JAX `from_gguf` does: 2-D
     weights of a packed type keep a packed layout (the IQ1-3 types natively
-    at widths that are a multiple of 256, and they and the block-32 types
+    at widths that are a multiple of 256 unless KCPP_IQ_NATIVE=0, and they and the block-32 types
     at other widths through `pack_q8_expand`; Q4_K as q4_k_i8 under
     KCPP_Q4K_LAYOUT=i8, Q6_K / Q3_K / Q2_K as their expanded kinds under
     KCPP_KQ_LAYOUT=expanded); f32 / f16 / bf16, 1-D tensors and

@@ -2,9 +2,12 @@
 
 Port of koboldcpp_tpu/server/app.py for text generation: KoboldAI
 `/api/v1/*` + `/api/extra/*`, OpenAI `/v1/completions` and
-`/v1/chat/completions`, SSE token streaming in both dialects, Bearer auth,
-CORS, genkey-based polling/abort. The image, audio and
-embeddings endpoints are not ported yet.
+`/v1/chat/completions`, ollama `/api/tags`, the embedded KoboldAI Lite page
+at `/` and a no-script form at `/noscript`, API docs at `/api`, `/v1` and
+`/docs`, the torch.profiler session at `/api/extra/profiler/{start,stop}`,
+SSE token streaming in both dialects, Bearer auth, CORS, genkey-based
+polling/abort, HTTPS (`ssl_pair`). The image, audio and embeddings
+endpoints are not ported yet.
 
 asyncio (aiohttp) frontend. With the continuous-batching engine
 (`BatchedEngine`, `--multiuser N`), requests are submitted to it and
@@ -16,10 +19,12 @@ from __future__ import annotations
 
 import asyncio
 import json
+import os
 import queue
 import time
 import uuid
 from dataclasses import dataclass, field
+from typing import Any
 
 from aiohttp import web
 
@@ -35,6 +40,9 @@ class ServerSettings:
     password: str = ""
     model_name: str = "koboldcpp-tpu-torch/model"
     multiuser: int = 1  # max requests served or queued (1 = single user)
+    chat_adapter: str | dict | None = None  # instruct template (dialects)
+    preloaded_story: Any = None  # --preloadstory JSON
+    quiet: bool = False
 
 
 @dataclass
@@ -321,6 +329,53 @@ def make_app(engine: Engine, settings: ServerSettings | None = None) -> web.Appl
             {"id": settings.model_name, "object": "model", "created": 1,
              "owned_by": "koboldcpp", "permission": [], "root": settings.model_name}]})
 
+    async def get_ollama_tags(request):
+        return _json({"models": [{"name": settings.model_name,
+                                  "model": settings.model_name,
+                                  "size": 0, "digest": "0"}]})
+
+    async def get_softprompts(request):
+        return _json({"values": []})
+
+    async def get_softprompt(request):
+        return _json({"value": ""})
+
+    async def get_preloadstory(request):
+        return _json(settings.preloaded_story or {})
+
+    def _html(text: str):
+        return _cors(web.Response(text=text, content_type="text/html"))
+
+    async def get_root(request):
+        # the embedded chat / story page (upstream serves KoboldAI Lite at /)
+        path = os.path.join(os.path.dirname(__file__), "static", "lite.html")
+        try:
+            with open(path, encoding="utf-8") as f:
+                return _html(f.read())
+        except OSError:
+            return _html(
+                "<html><head><title>koboldcpp-tpu</title></head><body>"
+                f"<h1>koboldcpp-tpu {KCPP_VERSION}</h1>"
+                f"<p>Model: {settings.model_name}</p>"
+                "<p>API docs at <a href='/api'>/api</a>. "
+                "Use /noscript for a minimal chat UI.</p></body></html>")
+
+    async def get_noscript(request):
+        return _html("<html><body><h2>koboldcpp-tpu</h2>"
+                     "<form method='post' action='/noscript'>"
+                     "<textarea name='prompt' rows='8' cols='60'></textarea>"
+                     "<br><input type='submit' value='Generate'></form>"
+                     "</body></html>")
+
+    async def get_api_docs(request):
+        return _html(
+            "<html><head><title>koboldcpp-tpu API</title></head><body>"
+            "<h1>koboldcpp-tpu API</h1>"
+            "<p>OpenAPI spec: <a href='/openapi.json'>/openapi.json</a></p>"
+            "<p>KoboldAI: POST /api/v1/generate, /api/extra/generate/stream; "
+            "OpenAI: /v1/completions, /v1/chat/completions; "
+            "A1111: /sdapi/v1/txt2img.</p></body></html>")
+
     async def get_openapi(request):
         from .openapi import build_openapi_spec
 
@@ -338,7 +393,7 @@ def make_app(engine: Engine, settings: ServerSettings | None = None) -> web.Appl
     def gen_handler(api_format: int):
         async def handler(request):
             genparams = await _read_json(request)
-            transform_genparams(genparams, api_format)
+            transform_genparams(genparams, api_format, settings.chat_adapter)
             if genparams.get("stream", False):
                 return await _sse_stream(state, request, genparams, api_format)
             result = await _run_generation(state, genparams, api_format)
@@ -347,7 +402,7 @@ def make_app(engine: Engine, settings: ServerSettings | None = None) -> web.Appl
 
     async def kai_stream(request):
         genparams = await _read_json(request)
-        transform_genparams(genparams, 2)
+        transform_genparams(genparams, 2, settings.chat_adapter)
         return await _sse_stream(state, request, genparams, 2)
 
     async def tokencount(request):
@@ -380,6 +435,35 @@ def make_app(engine: Engine, settings: ServerSettings | None = None) -> web.Appl
                 return _json({"results": [{"text": g.text_so_far}]})
         return _json({"results": [{"text": ""}]})
 
+    async def profiler_start(request):
+        """A torch.profiler session (utils/profiling.py)."""
+        from ..utils import profiling
+
+        body = await _read_json(request)
+        try:
+            d = profiling.start(body.get("dir"))
+        except RuntimeError as e:
+            return _json({"success": False, "error": str(e)}, status=409)
+        return _json({"success": True, "dir": d})
+
+    async def profiler_stop(request):
+        from ..utils import profiling
+
+        try:
+            info = profiling.stop()
+        except RuntimeError as e:
+            return _json({"success": False, "error": str(e)}, status=409)
+        return _json({"success": True, **info})
+
+    async def noscript_post(request):
+        data = await request.post()
+        prompt = str(data.get("prompt", ""))
+        genparams = {"prompt": prompt, "max_length": 100}
+        result = await _run_generation(state, genparams, 2)
+        return _html(f"<html><body><h2>koboldcpp-tpu</h2><pre>{prompt}"
+                     f"<b>{result.get('text', '')}</b></pre>"
+                     "<a href='/noscript'>back</a></body></html>")
+
     async def options_handler(request):
         return _cors(web.Response(status=200))
 
@@ -388,12 +472,22 @@ def make_app(engine: Engine, settings: ServerSettings | None = None) -> web.Appl
         r.add_get(path, get_model)
     for path in ("/api/v1/info/version", "/api/latest/info/version"):
         r.add_get(path, get_version)
+    r.add_get("/", get_root)
+    r.add_get("/noscript", get_noscript)
+    r.add_post("/noscript", noscript_post)
     r.add_get("/api/v1/config/max_length", get_max_length)
     r.add_get("/api/v1/config/max_context_length", get_max_context)
+    r.add_get("/api/v1/config/soft_prompt", get_softprompt)
+    r.add_get("/api/v1/config/soft_prompts_list", get_softprompts)
     r.add_get("/api/extra/version", get_extra_version)
     r.add_get("/api/extra/true_max_context_length", get_max_context)
     r.add_get("/api/extra/perf", get_perf)
+    r.add_get("/api/extra/preloadstory", get_preloadstory)
     r.add_get("/v1/models", get_models_oai)
+    r.add_get("/v1", get_api_docs)
+    r.add_get("/api", get_api_docs)
+    r.add_get("/docs", get_api_docs)
+    r.add_get("/api/tags", get_ollama_tags)
     r.add_get("/openapi.json", get_openapi)
     r.add_get("/api/extra/json/schema", get_openapi)
 
@@ -404,6 +498,8 @@ def make_app(engine: Engine, settings: ServerSettings | None = None) -> web.Appl
     r.add_post("/v1/completions", gen_handler(3))
     r.add_post("/v1/chat/completions", gen_handler(4))
     r.add_post("/api/extra/tokencount", tokencount)
+    r.add_post("/api/extra/profiler/start", profiler_start)
+    r.add_post("/api/extra/profiler/stop", profiler_stop)
     r.add_post("/api/extra/detokenize", detokenize)
     r.add_post("/api/extra/abort", abort)
     r.add_post("/api/extra/generate/check", check)
@@ -415,5 +511,42 @@ def make_app(engine: Engine, settings: ServerSettings | None = None) -> web.Appl
 
 
 def run_server(engine: Engine, host: str = "0.0.0.0", port: int = 5001,
-               settings: ServerSettings | None = None):
-    web.run_app(make_app(engine, settings), host=host, port=port, print=None)
+               settings: ServerSettings | None = None,
+               ssl_pair: tuple[str, str] | None = None,
+               onready: str = "", launch: bool = False):
+    """ssl_pair: (cert, key) PEM paths -> HTTPS (--ssl, koboldcpp.py:
+    2121-2199); onready: a shell command run once the server listens
+    (--onready); launch: open the web page in a browser (--launch)."""
+    app = make_app(engine, settings)
+    ssl_context = None
+    scheme = "http"
+    if ssl_pair:
+        import ssl
+
+        ssl_context = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        ssl_context.load_cert_chain(ssl_pair[0], ssl_pair[1])
+        scheme = "https"
+    if onready or launch:
+        url_host = "localhost" if host in ("0.0.0.0", "::", "") else host
+
+        async def _on_ready(app):
+            import threading
+
+            if onready:
+                import subprocess
+
+                print(f"--onready: running: {onready}")
+                threading.Thread(
+                    target=lambda: subprocess.call(onready, shell=True),
+                    daemon=True).start()
+            if launch:
+                import webbrowser
+
+                threading.Thread(
+                    target=lambda: webbrowser.open(
+                        f"{scheme}://{url_host}:{port}"),
+                    daemon=True).start()
+
+        app.on_startup.append(_on_ready)
+    web.run_app(app, host=host, port=port, print=None,
+                ssl_context=ssl_context)

@@ -448,5 +448,5 @@ def test_cli_multiuser(capsys, monkeypatch):
     assert len(built) == n_built
     assert "continuous batching is unavailable" in capsys.readouterr().out
     with pytest.raises(SystemExit) as e:
-        cli.main([FIX, "--multiuser", "4", "--smartcontext"])
-    assert e.value.code == 2 and "--smartcontext" in capsys.readouterr().err
+        cli.main([FIX, "--multiuser", "4", "--sdmodel", "x"])
+    assert e.value.code == 2 and "--sdmodel" in capsys.readouterr().err

@@ -124,8 +124,8 @@ def test_abort_mid_generation(engine):
 def test_cli_one_shot_and_unserved_flag(capsys):
     from koboldcpp_tpu_torch import cli
 
-    # flags of paths the port has not got (TP mesh, legacy smart context)
-    for flag in ("--mesh", "--smartcontext"):
+    # flags of paths the port has not got (TP mesh, stable diffusion)
+    for flag in ("--mesh", "--sdmodel"):
         with pytest.raises(SystemExit) as e:
             cli.main([FIX, flag, "1"])
         assert e.value.code == 2 and flag in capsys.readouterr().err
