@@ -80,6 +80,21 @@
    widths at full depth (32 layers, 32/32 heads of 80, partial rotary,
    parallel residual, non-gated gelu, biases): a 300-token prompt and 16
    greedy tokens, 32 K5 a step, the same tokens with K5's plain version;
+   then Mixtral-8x7B's widths (8 of 32 layers, 8 experts of 14336 with
+   top-2, dense bf16 expert stacks, q4_k q / k / o, q6_k v and head, from
+   the GGUF keys through config_from_metadata), `phase_moe_decode`: a
+   300-token prompt (K3, 8 K4 for the chunk from position 0) and 32
+   greedy tokens in the device chunk (24 K1, 9 K2, 8 K5 a step), the same
+   tokens with K5's plain version and with flash prefill off, then the Q8
+   cache (8 K6 a step, against K6's plain version), seeded stochastic
+   chunks twice, a paged wave of 4 requests (24 K7, 9 K3, 8 K8 a step),
+   each against its single-stream tokens, every comparison run under the
+   experts of the run it is held to (router weights within 2^-5 of that
+   run's, a token departure's two logits within 2^-3 on that run), the
+   dense-EP and sorted-EP forms' last-token logits within 2^-3 of the
+   gather form's in the same way, and the MoE block's device time alone, its products' f32
+   output against a bf16 one (this phase runs last of the timed ones, and
+   its model stays for a profiled window);
 4. serves the same model through BatchedEngine (8 slots, context 2048),
    on the slot cache and on the paged pool (P=64): 8 concurrent greedy
    requests of 100-300 prompt tokens and 64 new tokens each, which must
@@ -146,8 +161,9 @@
    under their variables, a prefill of 11 tokens and one decode step)
    against the JAX package's under the same variables; then serves the
    gemma2, phi2 and mpt Q4_K_M fixtures (tests/fixtures/portgguf/
-   archs.json) over HTTP, two identical replies each (K1 / K3; K5 on
-   gemma2's global layer and phi2, none on mpt's ALiBi), and holds their
+   archs.json) and the mixtral, qwen2moe and grok ones (moe.json) over
+   HTTP, two identical replies each (K1 / K3; K5 on gemma2's global layer,
+   phi2 and the MoE fixtures, none on mpt's ALiBi), and holds their
    logits to the JAX package's committed ones;
 8. the single-stream path's served features on the synthetic 1.1B (q4_k
    layers, a q6_k head), `phase_served_features`: 256 stochastic tokens
@@ -174,7 +190,8 @@
    300-token prefill as one chunk, and
    32 batched steps of 8 requests (and of 16 under KCPP_SBQ=1), and
    tools/profile_scan.py's scan mode (32 tokens: idle share, top five ops
-   per step);
+   per step), and the Mixtral-widths model's greedy decode (32 tokens:
+   idle share, device busy time a token);
 10. prints one {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 Any failed check raises, so the script exits nonzero. It exits nonzero,
@@ -183,8 +200,10 @@ printing no result, when no GPU is present.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import json
+import math
 import os
 import socket
 import sys
@@ -213,6 +232,7 @@ from koboldcpp_tpu_torch.kv.cache import (  # noqa: E402
     _dequant, _q8, init_cache, init_pool_cache)
 from koboldcpp_tpu_torch.ops import _build, flash_decode  # noqa: E402
 from koboldcpp_tpu_torch.ops import ffn_fused, flash_prefill  # noqa: E402
+from koboldcpp_tpu_torch.ops import moe as moe_ops  # noqa: E402
 from koboldcpp_tpu_torch.ops import quant_matmul as qm  # noqa: E402
 from koboldcpp_tpu_torch.ops.linear import (  # noqa: E402
     EXPANDED, QTensor, dequant, to_expanded, to_q4_k_i8)
@@ -814,6 +834,22 @@ def _dev_ms(fn, reps: int = 10) -> float:
         ms.append(a.elapsed_time(b) / reps)
     del graphs
     return ms[1] - ms[0]
+
+
+def _event_ms(fn, reps: int = 5) -> float:
+    """Time of one call between CUDA events, for a call that reads the
+    device on the host (which a CUDA graph cannot capture): the L2 is not
+    flushed and host gaps inside the call count."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 # the attention kernels whose cases carry device-alone times
@@ -2104,6 +2140,497 @@ def phase_phi2_decode(card: str) -> dict:
     return counts
 
 
+# Mixtral-8x7B's published widths (mistralai/Mixtral-8x7B-v0.1 config.json:
+# vocab 32000, hidden 4096, ffn 14336, 32 heads of 128 over 8 kv heads, 8
+# experts with top-2, rope theta 1e6, 32 layers), as the GGUF keys a
+# converted file carries (arch "llama" with an expert count), read by the
+# port's config_from_metadata; depth cut from 32 layers to MOE_LAYERS (8
+# layers: 22.5 GB of dense bf16 experts; 32 layers would need 90 GB, more
+# than the card holds); synthetic weights from a seed: q4_k q / k / output
+# projections, q6_k v projections and head, an f32 router and dense bf16
+# expert stacks made on the card
+MIXTRAL_8X7B_MD = {
+    "general.architecture": "llama", "llama.vocab_size": 32000,
+    "llama.embedding_length": 4096, "llama.block_count": 32,
+    "llama.feed_forward_length": 14336, "llama.context_length": 32768,
+    "llama.attention.head_count": 32, "llama.attention.head_count_kv": 8,
+    "llama.attention.layer_norm_rms_epsilon": 1e-5,
+    "llama.rope.freq_base": 1000000.0, "llama.rope.dimension_count": 128,
+    "llama.expert_count": 8, "llama.expert_used_count": 2}
+MOE_LAYERS = 8
+# greedy tokens of each MoE single-stream run: one device chunk
+# (FAST_DECODE_K steps, which a shorter request computes all the same)
+MOE_DEPTH = 32
+# one MoE block through the dense-EP and sorted-EP forms against the
+# gather form, on the same rows and routes: |err| <= MOE_FORM_TOL (1 +
+# |want|) (their products' other shapes round otherwise; the fixtures'
+# tolerance)
+MOE_FORM_TOL = 2e-2
+# two paths of the MoE model run under one path's experts
+# (`_Routes(force=...)`), and what is left between them is rounding, which
+# grows from ~0.5% of the hidden state after the first layer to ~1.6% after
+# the eighth: every router weight within ROUTER_TOL of the first path's,
+# and logits within MOE_LOGIT_TOL (the forms' last-token logits; a token
+# departure's two logits on the first path). Set from the sound runs'
+# readings (PERF.md, the MoE findings): router weights up to 0.0250
+# apart, logits up to 0.0938, departures at gaps up to 0.0625
+ROUTER_TOL = 2 ** -5
+MOE_LOGIT_TOL = 2 ** -3
+
+
+def moe_model(seed: int = 0) -> Model:
+    """Mixtral-8x7B's widths at MOE_LAYERS layers, synthetic "q4_k_m"
+    weights: zero-mean q4_k (`rand_q4k_centered`) q / k / o, q6_k v and
+    head, f32 router, bf16 experts made on the card."""
+    cfg = dataclasses.replace(config_from_metadata(MIXTRAL_8X7B_MD),
+                              n_layers=MOE_LAYERS)
+    return synthetic_model(cfg, "q4_k_m", seed=seed, device=DEV)
+
+
+class _Routes:
+    """Every router decision of a run: wraps models.llama.forward /
+    forward_paged (each call's token and position rows) and
+    models.llama._top_k (each layer's softmax weights), keeping device
+    tensors only (no sync inside a device chunk). `decisions(seqs)` maps
+    each row at position p with token t to the one sequence of `seqs`
+    holding t at p, and returns, per sequence, {(p, layer): (the k chosen
+    experts as a set, the k-th less the (k+1)-th weight, the E weights, the
+    k chosen in order)}; a re-evaluated position keeps its last decision.
+
+    With `force=(seqs, decisions)` from an earlier run, every row that
+    token and position place in one of those sequences (in exactly one, or
+    at position 0, where they all hold BOS) takes that run's experts at
+    its layer in place of its own top-k, weighted by its own softmax. Two
+    paths then run the same experts, and what is left between them is
+    their rounding; the recorded weights stay the row's own, so
+    `decisions` gives the experts that the row would have chosen."""
+
+    def __init__(self, force=None):
+        self.force = None if force is None else _route_table(*force)
+
+    def __enter__(self):
+        self.calls: list = []
+        self.orig = (llama.forward, llama.forward_paged, llama._top_k)
+        real_top_k = self.orig[2]
+
+        def wrap(fn):
+            def forward(params, cfg, tokens, positions, *a, **k):
+                # copies: an engine may refill its token buffers in place
+                self.calls.append((tokens.clone(), positions.clone(), []))
+                return fn(params, cfg, tokens, positions, *a, **k)
+            return forward
+
+        def top_k(w, k):
+            vals, idx = real_top_k(w, k)
+            if not self.calls:
+                return vals, idx
+            tokens, positions, ws = self.calls[-1]
+            li = len(ws)
+            ws.append(w.detach().clone())
+            if self.force is None:
+                return vals, idx
+            tt, ti, th = self.force  # (S, n), (S, L, n, k), (S, L, n)
+            tok, pos = tokens.reshape(-1), positions.reshape(-1)
+            pc = pos.clamp(0, tt.shape[1] - 1)
+            match = ((tt[:, pc] == tok[None]) & (pos >= 0)[None]
+                     & (pos < tt.shape[1])[None])  # (S, N)
+            hits = match.sum(0)
+            s = match.int().argmax(0)
+            use = (((hits == 1) | ((pos == 0) & (hits > 0)))
+                   & th[s, li, pc])
+            idx = torch.where(use[:, None], ti[s, li, pc], idx)
+            return w.gather(-1, idx), idx
+
+        llama.forward, llama.forward_paged = map(wrap, self.orig[:2])
+        llama._top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        llama.forward, llama.forward_paged, llama._top_k = self.orig
+
+    def decisions(self, seqs: list[list[int]], k: int) -> list[dict]:
+        out: list[dict] = [{} for _ in seqs]
+        for tokens, positions, ws in self.calls:
+            toks = tokens.reshape(-1).tolist()
+            pos = positions.reshape(-1).tolist()
+            for li, w in enumerate(ws):
+                s = torch.sort(w.float(), dim=-1, descending=True,
+                               stable=True)
+                idx = s.indices[:, :k].tolist()
+                margin = (s.values[:, k - 1] - s.values[:, k]).tolist()
+                rows = w.float().tolist()
+                for row, (t, p) in enumerate(zip(toks, pos)):
+                    hits = [r for r, sq in enumerate(seqs)
+                            if 0 <= p < len(sq) and sq[p] == t]
+                    if len(hits) == 1:
+                        out[hits[0]][(p, li)] = (frozenset(idx[row]),
+                                                 margin[row], rows[row],
+                                                 idx[row])
+        return out
+
+
+def _route_table(seqs: list[list[int]], decisions: list[dict]):
+    """`_Routes`'s force tables on the card: each sequence's tokens (S, n)
+    (-1 past its end), its decisions' experts in order (S, L, n, k) and
+    where it has one (S, L, n)."""
+    n = max(len(sq) for sq in seqs)
+    L = 1 + max(li for d in decisions for _, li in d)
+    k = len(next(iter(decisions[0].values()))[3])
+    tt = np.full((len(seqs), n), -1, np.int64)
+    ti = np.zeros((len(seqs), L, n, k), np.int64)
+    th = np.zeros((len(seqs), L, n), bool)
+    for s, (sq, dec) in enumerate(zip(seqs, decisions)):
+        tt[s, :len(sq)] = sq
+        for (p, li), d in dec.items():
+            ti[s, li, p] = d[3]
+            th[s, li, p] = True
+    return tuple(torch.from_numpy(a).to(DEV) for a in (tt, ti, th))
+
+
+def _route_drift(a: dict, b: dict, upto: int):
+    """Two runs of one sequence, the second under the first's experts
+    (`_Routes(force=...)`), over the decisions at positions below `upto`:
+    (the largest difference of one router weight, its (position, layer),
+    and the decisions where the second run's own weights would choose
+    other experts as [(position, layer, gap)], gap the largest weight of
+    an expert it was not given less the smallest of one it was given: at
+    most twice the first)."""
+    drift, at, ties = 0.0, None, []
+    for key in sorted(a.keys() & b.keys()):
+        if key[0] >= upto:
+            continue
+        wa, wb, given = a[key][2], b[key][2], a[key][0]
+        d = max(abs(x - y) for x, y in zip(wa, wb))
+        if d > drift:
+            drift, at = d, key
+        if b[key][0] != given:
+            ties.append((*key, max(w for e, w in enumerate(wb)
+                                   if e not in given)
+                         - min(wb[e] for e in given)))
+    return drift, at, ties
+
+
+def _check_routes(a: dict, b: dict, upto: int, what: str) -> str:
+    """`_route_drift` held to ROUTER_TOL: every router weight of the
+    forced run within it of the first run's (so every decision it would
+    have taken otherwise a near-tie of its own weights, within twice
+    that). Returns what it read."""
+    _check(len(a.keys() & b.keys()) >= upto,
+           f"{what}: the router decisions were not recorded")
+    drift, at, ties = _route_drift(a, b, upto)
+    worst = max(ties, key=lambda t: t[2], default=None)
+    note = (f"router weights within {drift:.4g} (at position and layer "
+            f"{at}); {len(ties)} decision(s) the forced run would have "
+            f"taken otherwise"
+            + (f", gaps up to {worst[2]:.3g} (position {worst[0]} layer "
+               f"{worst[1]})" if worst else ""))
+    print(f"router: {what}: {note}", flush=True)
+    _check(drift <= ROUTER_TOL, f"{what}: router weights {drift} apart at "
+           f"position and layer {at} under the same experts (bound "
+           f"{ROUTER_TOL})")
+    return note
+
+
+def _moe_same(single: Engine, prompt, got, want, route_got: dict,
+              route_want: dict, what: str) -> None:
+    """`_same_or_near_tie` for a run (got) made under the experts of the
+    run it is held to (want, route_want: `_Routes(force=...)`): the router
+    within ROUTER_TOL over the positions the two share (`_check_routes`),
+    and a token departure at step i a near-tie of the single-stream logits
+    of prompt + got[:i], read under want's experts too: the two tokens'
+    logits within MOE_LOGIT_TOL."""
+    i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    n = len(prompt) + (len(want) if i is None else i)
+    _check_routes(route_want, route_got, n, what)
+    if got == want:
+        return
+    _check(i is not None, f"{what}: one reply stopped early: {got} {want}")
+    single.reset_context()
+    seq = list(prompt) + want
+    with _Routes(force=([seq], [route_want])):
+        lg = single.eval_tokens(list(prompt) + got[:i], 0).float()
+    a, b = lg[got[i]].item(), lg[want[i]].item()
+    _check(abs(a - b) <= MOE_LOGIT_TOL,
+           f"{what}: tokens part at step {i} ({got[i]} vs {want[i]}), "
+           f"single-stream logits {a} vs {b} (bound {MOE_LOGIT_TOL})")
+    print(f"near-tie: {what}, step {i}: tokens {got[i]} / {want[i]}, "
+          f"single-stream logits {a:.6f} / {b:.6f}", flush=True)
+
+
+def _moe_run(eng: Engine, prompt, gp, routes: bool = True, force=None):
+    """One request from an empty context: (tokens, timings, launches, per-
+    step launches, the request's router decisions or None); `force`, a
+    run's (tokens, decisions), gives this run that run's experts."""
+    eng.reset_context()
+    _build.launches.clear()
+    with _StepLaunches() as rec:
+        if routes:
+            with _Routes(force=force and ([list(prompt) + force[0]],
+                                          [force[1]])) as ro:
+                r = eng.generate(prompt, gp)
+        else:
+            r = eng.generate(prompt, gp)
+    dec = (ro.decisions([list(prompt) + r.tokens],
+                        eng.cfg.n_experts_used)[0] if routes else None)
+    return r.tokens, eng.last_timings, dict(_build.launches), rec, dec
+
+
+def _moe_forms(model, prompt) -> str:
+    """The three MoE forms, gather (default), dense-EP and sorted-EP: the
+    first layer's MoE block on the same 300 rows (normal, the RMS-normed
+    input's spread), each form's output within MOE_FORM_TOL (1 + |want|)
+    of the gather form's (the same routes: the router is shared); then
+    the 300-token prompt as one chunk from position 0 through each form,
+    the dense-EP and sorted-EP ones under the gather form's experts, whose
+    last-token logits are held to the gather form's within MOE_LOGIT_TOL
+    and whose routers to `_check_routes`."""
+    cfg = model.cfg
+    layer = model.params["layers"][0]
+    x = torch.randn(1, len(prompt), cfg.hidden_size, device=DEV,
+                    generator=torch.Generator(device=DEV).manual_seed(3)
+                    ).to(torch.bfloat16)
+    blocks = {}
+    notes = []
+    for form in ("gather", "dense_ep", "sorted_ep"):
+        c = dataclasses.replace(cfg, moe_dense_ep=form == "dense_ep",
+                                moe_sorted_ep=form == "sorted_ep")
+        with torch.inference_mode():
+            blocks[form] = llama._moe_ffn(x, layer, c).float()
+    want = blocks["gather"]
+    for form in ("dense_ep", "sorted_ep"):
+        err = (blocks[form] - want).abs()
+        worst = float((err / (MOE_FORM_TOL * (1 + want.abs()))).max())
+        _check(worst <= 1.0, f"MoE {form}: the block off the gather "
+               f"form's, max abs err {float(err.max())}")
+        notes.append(f"{form} block max abs err {float(err.max()):.4g} "
+                     f"(worst / tol {worst:.3g})")
+    out = {}
+    moe_in: dict = {}  # each form's MoE block inputs, layer by layer
+    real_moe_ffn = llama._moe_ffn
+
+    def moe_ffn(x, layer, c):
+        moe_in.setdefault(form, []).append(x[0].float())
+        return real_moe_ffn(x, layer, c)
+
+    for form in ("gather", "dense_ep", "sorted_ep"):
+        c = dataclasses.replace(cfg, moe_dense_ep=form == "dense_ep",
+                                moe_sorted_ep=form == "sorted_ep")
+        cache = init_cache(cfg.n_layers, 1, len(prompt), cfg.n_kv_heads,
+                           cfg.head_dim, device=DEV)
+        force = None if form == "gather" else ([prompt], [out["gather"][1]])
+        with _Routes(force=force) as ro, torch.inference_mode(), \
+                mock.patch.object(llama, "_moe_ffn", moe_ffn):
+            lg, _ = llama.forward(model.params, c,
+                                  torch.tensor([prompt], device=DEV),
+                                  torch.arange(len(prompt),
+                                               device=DEV)[None],
+                                  cache, last_only=True)
+        out[form] = (lg[0, -1].float().cpu().numpy(),
+                     ro.decisions([prompt], cfg.n_experts_used)[0])
+    # how far rounding carries the hidden state, layer by layer: the
+    # dense-EP form's MoE inputs against the gather form's under its
+    # experts, |a - b| / |a| per row
+    rel = [((b - a).norm(dim=-1) / a.norm(dim=-1)).cpu()
+           for a, b in zip(moe_in["gather"], moe_in["dense_ep"])]
+    notes.append("dense_ep MoE inputs against the gather form's, relative "
+                 "difference per layer (median / max): " + ", ".join(
+                     f"{float(r.median()):.4f} / {float(r.max()):.4f}"
+                     for r in rel))
+    del moe_in
+    want, route = out["gather"]
+    _check(np.isfinite(want).all() and want.shape == (cfg.vocab_size,),
+           "MoE gather form: logits not finite")
+    for form in ("dense_ep", "sorted_ep"):
+        got, r = out[form]
+        _check(len(r.keys() & route.keys()) == len(prompt) * cfg.n_layers,
+               f"MoE {form}: the router decisions were not recorded")
+        routes = _check_routes(route, r, len(prompt), f"MoE {form}")
+        err = float(np.abs(got - want).max())
+        _check(err <= MOE_LOGIT_TOL,
+               f"MoE {form}: last logits off the gather form's, max abs "
+               f"err {err} (bound {MOE_LOGIT_TOL})")
+        notes.append(f"{form} last logits max abs err {err:.4g} ({routes})")
+    return "; ".join(notes)
+
+
+def phase_moe_decode(card: str) -> tuple[dict, Model]:
+    """Mixtral-8x7B's widths (MOE_LAYERS of 32 layers, 8 experts, top-2)
+    on the card: a 300-token prompt (K3, one chunk from position 0 through
+    K4) and MOE_DEPTH greedy tokens in the device chunk on the bf16 cache
+    (every step 24 K1, 9 K2, 8 K5), then on the Q8 cache (8 K6 a step),
+    each against the same run with the attention kernel's plain version,
+    and the bf16 run against one with flash prefill off; MOE_DEPTH seeded
+    stochastic tokens twice (the same tokens); a paged wave of 4 requests
+    through BatchedEngine (every step 24 K7, 9 K3, 8 K8), each against its
+    single-stream tokens; each comparison's second run under the first
+    run's experts, held by `_moe_same` (router weights within ROUTER_TOL,
+    a token departure a near-tie of MOE_LOGIT_TOL); the dense-EP and
+    sorted-EP forms against the gather form (`_moe_forms`); the MoE
+    block's device time alone (`_dev_ms`) for one sequence's step and for
+    four, and the bytes the step reads (every expert) against the k
+    experts' own, then the 300-row prompt chunk, each with the products'
+    f32 output and with a bf16 one. Returns (launches, the model), which
+    phase_profiled profiles."""
+    t0 = time.perf_counter()
+    model = moe_model()
+    cfg = model.cfg
+    made = time.perf_counter() - t0
+    layer = model.params["layers"][0]
+    _check(layer["wv"].kind == "q6_k" and layer["wq"].kind == "q4_k"
+           and model.params["output"].kind == "q6_k"
+           and layer["ffn_gate_exps"].shape == (8, 14336, 4096),
+           "Mixtral widths: unexpected synthetic params")
+    rng = np.random.default_rng(7)
+    prompt = [1] + rng.integers(3, cfg.vocab_size, size=299).tolist()
+    sampler = SamplerParams(temperature=0.0, rep_pen=1.0)
+    gp = GenParams(max_length=MOE_DEPTH, bypass_eos=True, sampler=sampler)
+    eng = Engine(model, max_context=2048, device=DEV)
+    _check(eng.use_flash_prefill, "flash prefill (K4) is off on the card")
+    # warm-up: the prompt's prefill bucket and the grouped expert shapes
+    eng.generate(prompt, GenParams(max_length=4, bypass_eos=True,
+                                   sampler=sampler))
+    counts: dict = {}
+
+    def add(c):
+        for kk, v in c.items():
+            counts[kk] = counts.get(kk, 0) + v
+
+    # the timed run (no router recording), then the recorded comparisons
+    L = cfg.n_layers
+    # a step: q / k / o through K1, v and the head through K2
+    step = {"K1": 3 * L, "K2": L + 1, "K5": L}
+    toks, t1, c1, rec, _ = _moe_run(eng, prompt, gp, routes=False)
+    add(c1)
+    steps = _check_steps(rec, 1, {**step, "K4": 0}, "MoE bf16")
+    _check(c1.get("K4", 0) == L and c1.get("K3", 0) > 0,
+           f"MoE prefill: launches {c1}")
+    _check(len(toks) == MOE_DEPTH
+           and all(0 <= t < cfg.vocab_size for t in toks),
+           f"MoE: tokens {toks}")
+    base, _, _, _, route = _moe_run(eng, prompt, gp)
+    _check(base == toks, f"MoE greedy decode not repeatable: {base} {toks}")
+    with mock.patch.object(flash_decode, "decode_attention_batched",
+                           _k5_plain):
+        plain, *_, route_p = _moe_run(eng, prompt, gp, force=(toks, route))
+    _moe_same(eng, prompt, plain, toks, route_p, route,
+              "MoE bf16, K5 against its plain version")
+    eng.use_flash_prefill = False
+    noflash, tnf, *_, route_nf = _moe_run(eng, prompt, gp,
+                                          force=(toks, route))
+    eng.use_flash_prefill = True
+    _moe_same(eng, prompt, noflash, toks, route_nf, route,
+              "MoE bf16, flash prefill off")
+
+    # seeded stochastic chunks: the same tokens twice, K1 / K2 / K5 inside
+    sgp = GenParams(max_length=MOE_DEPTH, bypass_eos=True,
+                    sampler=SamplerParams(temperature=0.8, top_p=0.9,
+                                          min_p=0.05, rep_pen=1.1, seed=11))
+    s1, _, cs, srec, _ = _moe_run(eng, prompt, sgp, routes=False)
+    s2, ts, *_ = _moe_run(eng, prompt, sgp, routes=False)
+    _check(s1 == s2 and len(s1) == MOE_DEPTH,
+           f"MoE stochastic chunk not repeatable: {s1} {s2}")
+    _check_steps(srec, 1, step, "MoE stochastic")
+    add(cs)
+
+    # the Q8 cache: K6, against K6's plain version
+    qeng = Engine(model, max_context=2048, device=DEV, quantkv=1)
+    qtoks, tq, cq, qrec, qroute = _moe_run(qeng, prompt, gp)
+    add(cq)
+    qsteps = _check_steps(qrec, 1, {"K6": L, "K5": 0}, "MoE Q8")
+    with mock.patch.object(flash_decode, "decode_attention_batched_q8",
+                           _k6_plain):
+        qplain, *_, qroute_p = _moe_run(qeng, prompt, gp,
+                                        force=(qtoks, qroute))
+    _moe_same(qeng, prompt, qplain, qtoks, qroute_p, qroute,
+              "MoE Q8, K6 against its plain version")
+    del qeng
+    torch.cuda.empty_cache()
+
+    # one paged wave of 4 requests, each against its single-stream tokens
+    prompts = [[1] + rng.integers(3, cfg.vocab_size, size=n - 1).tolist()
+               for n in (100, 170, 240, 300)]
+    alone, routes_alone = [], []
+    for p in prompts:
+        t_, *_, r_ = _moe_run(eng, p, gp)
+        alone.append(t_)
+        routes_alone.append(r_)
+    beng = batch_engine.BatchedEngine(model, max_context=1024, n_slots=4,
+                                      paged=True, device=DEV)
+    try:
+        _build.launches.clear()
+        with _StepLaunches() as wrec, _Routes(force=(
+                [p + t for p, t in zip(prompts, alone)], routes_alone)) as ro:
+            res, secs = _serve_together(beng, prompts, [gp] * 4)
+        wave = dict(_build.launches)
+    finally:
+        beng.shutdown()
+    add(wave)
+    wsteps = _check_steps(wrec, 4, {"K7": 3 * L, "K3": L + 1, "K8": L,
+                                    "K5": 0}, "MoE paged wave")
+    got = [r.tokens for r in res]
+    wroutes = ro.decisions([p + g for p, g in zip(prompts, got)],
+                           cfg.n_experts_used)
+    for p, g, w, ra, rw in zip(prompts, got, alone, routes_alone, wroutes):
+        _moe_same(eng, p, g, w, rw, ra, "MoE paged wave against "
+                  "single-stream")
+    forms = _moe_forms(model, prompt)
+
+    # the MoE block alone on the device: one sequence's step and four
+    # sequences' (every expert each), and the 300-row prompt chunk (grouped
+    # by expert: a host read inside, so CUDA events around the call), each
+    # with the products' f32 output (the port's) and with a bf16 one
+    x1 = torch.randn(1, 1, cfg.hidden_size, device=DEV, dtype=torch.bfloat16)
+    x4 = torch.randn(4, 1, cfg.hidden_size, device=DEV, dtype=torch.bfloat16)
+    xp = torch.randn(1, len(prompt), cfg.hidden_size, device=DEV,
+                     dtype=torch.bfloat16)
+    bf16_out = mock.patch.object(
+        moe_ops, "_product",
+        lambda a, w: torch.matmul(a, w.transpose(-1, -2)).float())
+    ms = {}
+    with torch.inference_mode():
+        for out_dtype in ("f32", "bf16", "f32", "bf16"):
+            with bf16_out if out_dtype == "bf16" else contextlib.nullcontext():
+                ms.setdefault(out_dtype, []).append((
+                    _dev_ms(lambda: llama._moe_ffn(x1, layer, cfg)),
+                    _dev_ms(lambda: llama._moe_ffn(x4, layer, cfg)),
+                    _event_ms(lambda: llama._moe_ffn(xp, layer, cfg))))
+    ms1, ms4, msp = (min(r[j] for r in ms["f32"]) for j in range(3))
+    b1, b4, bp = (min(r[j] for r in ms["bf16"]) for j in range(3))
+    k, E = cfg.n_experts_used, cfg.n_experts
+    expert_b = 3 * cfg.hidden_size * cfg.intermediate_size * 2
+    own = k * expert_b  # the k experts' own bytes, one layer
+    print(f"Mixtral-8x7B widths ({cfg.n_layers} of 32 layers, {E} experts "
+          f"of {cfg.intermediate_size}, top-{k}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim}; q4_k q/k/o, q6_k v "
+          f"and head, bf16 experts; {card}): synthetic weights {made:.1f} "
+          f"s; prefill {t1.prompt_tokens} tokens {t1.prompt_time * 1e3:.1f}"
+          f" ms (flash prefill off: {tnf.prompt_time * 1e3:.1f} ms), decode "
+          f"{t1.gen_tokens} tokens {t1.gen_tps:.2f} tok/s, {steps} steps of "
+          f"{step}; Q8 cache: decode {tq.gen_tps:.2f} tok/s, {qsteps} "
+          f"steps of {L} K6; stochastic chunk {ts.gen_tps:.2f} tok/s;"
+          f" the same tokens with K5's / K6's plain version and with flash "
+          f"prefill off (near-ties apart); paged wave of 4 ({secs:.2f} s, "
+          f"{wsteps} steps of {3 * L} K7 + {L + 1} K3 + {L} K8) equal to "
+          f"single-stream; "
+          f"forms against the gather form: {forms}", flush=True)
+    print(f"MoE block on the device alone (one layer, every expert read "
+          f"once: {E * expert_b / 1e9:.3f} GB): one sequence's step "
+          f"{ms1:.4f} ms against the bound of its {k} experts' own "
+          f"{own / 1e9:.3f} GB, {own / HBM_BYTES_PER_S * 1e3:.4f} ms (all "
+          f"{E}: {E * expert_b / HBM_BYTES_PER_S * 1e3:.4f} ms), "
+          f"{ms1 * cfg.n_layers:.3f} ms a token over {cfg.n_layers} layers; "
+          f"four sequences' step {ms4:.4f} ms (their experts: at most "
+          f"{min(4 * k, E) * expert_b / 1e9:.3f} GB); the 300-row prompt "
+          f"chunk {msp:.4f} ms (events, a host read inside); the same with "
+          f"the products' output rounded to bf16: {b1:.4f} / {b4:.4f} / "
+          f"{bp:.4f} ms (f32 output against it: {ms1 / b1:.3f}x / "
+          f"{ms4 / b4:.3f}x / {msp / bp:.3f}x); launches {counts}",
+          flush=True)
+    del eng, layer
+    torch.cuda.empty_cache()
+    return counts, model
+
+
 # tokens (and batched steps) of each profiled window: the profiler's own
 # processing of a window's events, not the decode, takes most of the
 # phase's time
@@ -2147,14 +2674,15 @@ def _idle_share(run, rows_out: dict | None = None) -> str:
             f"ms, idle share {1 - busy_us / wall_us:.3f}; top: {top}")
 
 
-def phase_profiled(card: str) -> None:
+def phase_profiled(card: str, moe: Model) -> None:
     """The device idle share, under torch.profiler, of the synthetic 1.1B
     q4_k: a fast-forwarded single-stream request decoding PROFILE_DEPTH
     (32) greedy tokens,
     the same under KCPP_FFN_FUSED=1, the 300-token prefill as one chunk,
     then 32 batched steps of 8
     fast-forwarded greedy requests (8 slots) and of 16 (16 slots under
-    KCPP_SBQ=1). A
+    KCPP_SBQ=1), the scan path, then a fast-forwarded request of the
+    Mixtral-widths model `moe` (phase_moe_decode's). A
     profiler session slows every later decode of the process, so this runs
     after every timed phase; the fast-forwarded single-stream request is
     timed just before its session and once more after it."""
@@ -2240,6 +2768,17 @@ def phase_profiled(card: str) -> None:
           f"{res['busy_ms']:.1f} ms, idle share {res['idle_share']:.3f}; "
           f"top five ops per step: {top}", flush=True)
     del model
+    torch.cuda.empty_cache()
+    # the Mixtral-widths MoE model that phase_moe_decode built: a
+    # fast-forwarded request of PROFILE_DEPTH greedy tokens
+    eng = Engine(moe, max_context=2048, device=DEV)
+    rows = {}
+    idle = _decode_idle_share(eng, prompt, sampler, rows)
+    print(f"Mixtral widths ({moe.cfg.n_layers} layers) greedy decode, "
+          f"{PROFILE_DEPTH} tokens under torch.profiler ({card}): {idle}; "
+          f"device busy {sum(rows.values()) / PROFILE_DEPTH / 1e3:.3f} ms a "
+          f"token", flush=True)
+    del eng
     torch.cuda.empty_cache()
 
 
@@ -3284,20 +3823,26 @@ def phase_served_kinds() -> dict:
 
 def phase_served_archs() -> dict:
     """The gemma2, phi2 and mpt Q4_K_M fixtures (tests/fixtures/portgguf/
-    archs.json) served over HTTP single-stream at temperature 0: two
-    identical replies each, q4_k through K1 / K3, the decode attention
-    through K5 on gemma2's global layer and phi2's layers and on no layer
-    of mpt (ALiBi); then each fixture's logits on the card against the
-    JAX package's committed logits, |err| <= 2e-2 + 2e-2 |want| (the
-    tolerance of tests/test_torch_archs.py; the worst against the llama
-    fixtures' 1e-2 + 1e-2 |want| is printed beside it)."""
+    archs.json) and the mixtral, qwen2moe and grok ones (moe.json: 8
+    experts, their stacks dense) served over HTTP single-stream at
+    temperature 0: two identical replies each, q4_k through K1 / K3, the
+    decode attention through K5 on gemma2's global layer, phi2's layers
+    and the MoE fixtures' and on no layer of mpt (ALiBi); then each
+    fixture's logits on the card against the JAX package's committed
+    logits, |err| <= 2e-2 + 2e-2 |want| (the tolerance of
+    tests/test_torch_archs.py and test_torch_moe.py; the worst against the
+    llama fixtures' 1e-2 + 1e-2 |want| is printed beside it)."""
     from koboldcpp_tpu_torch.server.app import ServerSettings
 
-    man = json.load(open(os.path.join(PORT_FIX, "archs.json")))
+    mans = [json.load(open(os.path.join(PORT_FIX, m)))
+            for m in ("archs.json", "moe.json")]
+    _check(mans[0]["tokens"] == mans[1]["tokens"], "manifests' tokens")
+    tokens = mans[0]["tokens"]
+    files = {**mans[0]["files"], **mans[1]["files"]}
     body = {"prompt": "The gradient of a function, e.g. f(x), points",
             "max_length": 24, "temperature": 0, "rep_pen": 1.0}
     counts: dict = {}
-    for arch, name in man["files"].items():
+    for arch, name in files.items():
         path = os.path.join(PORT_FIX, name)
         model = load_model(path, device=DEV)
         srv = _Server(Engine(model, max_context=512, device=DEV),
@@ -3314,7 +3859,7 @@ def phase_served_archs() -> dict:
         _check(c.get("K1", 0) > 0 and c.get("K3", 0) > 0
                and (c.get("K5", 0) == 0) == (arch == "mpt"),
                f"{name}: launches {c}")
-        logits = _fixture_logits(path, man["tokens"])
+        logits = _fixture_logits(path, tokens)
         want = np.load(os.path.join(PORT_FIX, f"logits-jax-{arch}.npy"))
         diff = np.abs(logits - want)
         worst = float((diff / (2e-2 + 2e-2 * np.abs(want))).max())
@@ -3939,8 +4484,13 @@ def main() -> int:
     _timed(check_fixture_goldens)
     _timed(check_opt_in_logits)
     runs.append(_timed(phase_served_features, card))
+    # the MoE model (22.5 GB) last of the timed phases, kept for its
+    # profiled window
+    moe_counts, moe = _timed(phase_moe_decode, card)
+    runs.append(moe_counts)
     # the profiled windows last: a profiler session slows later decodes
-    _timed(phase_profiled, card)
+    _timed(phase_profiled, card, moe)
+    del moe
 
     kernels = []
     for kid, (name, source, replaces) in KERNELS.items():

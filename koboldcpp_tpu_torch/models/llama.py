@@ -37,8 +37,16 @@ layer's weights as views through the regular kernels and the plain
 computes another function than `forward`. K16 (`flash_decode.decode_
 attention`, the read-only single-sequence decode) lies on no path of the
 JAX package, and of the port neither. The branches of the JAX forward
-that the port does not serve (swin norm, openelm, plamo, bitnet, jais,
-MoE) raise NotImplementedError in `check_supported`.
+that the port does not serve (swin norm, openelm, plamo, bitnet, jais)
+raise NotImplementedError in `check_supported`.
+
+Sparse MoE layers (mixtral, qwen2moe with its shared expert, olmoe,
+granitemoe, dbrx, grok, and arctic's residual MoE branch) run `_moe_ffn`
+over the dense expert stacks: a softmax router, a stable top-k and the
+gather form by default, the dense-EP form under `cfg.moe_dense_ep` and the
+sorted-EP form (ops/moe.py) under `cfg.moe_sorted_ep`, as in the JAX
+`_moe_ffn`; the expert products are torch.matmul, as the JAX ones are
+einsums outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -52,7 +60,7 @@ import torch.nn.functional as F
 from ..kv import paged
 from ..kv.cache import (QuantKVCache, is_pooled, read as kv_read,
                         unpool_cache, write as kv_write)
-from ..ops import flash_decode, linear
+from ..ops import flash_decode, linear, moe
 from ..ops.ffn_fused import ffn_fused
 from ..ops.flash_prefill import flash_prefill_attention
 from ..ops.norms import layer_norm, rms_norm
@@ -87,16 +95,11 @@ def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return x
 
 
-# layer keys of JAX-forward branches the port does not serve
-_UNSUPPORTED_LAYER_KEYS = {"ffn_gate_inp": "MoE",
-                           "ffn_norm_exps": "arctic's residual MoE"}
-
-
 def check_supported(params: Params, cfg: ModelConfig, device=None) -> None:
     """Raise NotImplementedError, naming the branch, for configs / params
     that need a branch of the JAX forward the port does not serve (swin
     norm, openelm's per-layer heads and per-head QK RMS norm, plamo's
-    shared-norm parallel branch, bitnet, jais, MoE), or (on a CUDA
+    shared-norm parallel branch, bitnet, jais), or (on a CUDA
     `device`) a head shape that the T=1 attention kernels (K5, K6, K8-K10)
     are not built for. K4 is built for head_dim 64, 128 and 256, the
     shapes the JAX engine turns flash prefill on for; the engine leaves it
@@ -119,15 +122,6 @@ def check_supported(params: Params, cfg: ModelConfig, device=None) -> None:
         why = "bitnet"
     elif cfg.arch == "jais":
         why = "jais"
-    elif cfg.n_experts:
-        why = "MoE"
-    else:
-        for layer in params.get("layers") or [params["layers_stacked"]]:
-            hit = next((v for k, v in _UNSUPPORTED_LAYER_KEYS.items()
-                        if k in layer), None)
-            if hit:
-                why = hit
-                break
     if why:
         raise NotImplementedError(f"{why} is not ported to the PyTorch "
                                   "forward yet")
@@ -255,6 +249,87 @@ def _ffn(x: torch.Tensor, layer: Params, act: str = "silu",
     if "b_down" in layer:
         down = down + layer["b_down"].to(down.dtype)
     return down
+
+
+def _top_k(w: torch.Tensor, k: int):
+    """The k largest of the last axis, largest first, a tie going to the
+    lower index (jax.lax.top_k's order; torch.topk promises none on CUDA):
+    a stable descending sort keeps equal values in index order."""
+    vals, idx = torch.sort(w, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _moe_gather(xt, topi, topw, wg, wu, wd, act,
+                every_expert: bool) -> torch.Tensor:
+    """The JAX gather form (each row through its own k experts, the outputs
+    summed over k by topw) without its per-row copy of the expert weights
+    (`wg[topi]`, ~120 GB a projection for a 512-row chunk at Mixtral's
+    widths). With `every_expert` (the dense-EP form, and the gather form's
+    single-token step, which must stay free of host syncs) every expert
+    runs over every row, combined by a dense (N, E) weight matrix that is
+    zero for the unselected pairs: each expert read once, E / k times the
+    chosen experts' bytes (copying the chosen experts out with
+    `index_select` took 1.6 ms a Mixtral layer on the H100 against this
+    form's 1.0). Otherwise the assignments are grouped by expert
+    (`moe.expert_order`, the sort the sorted-EP form's dispatch uses, its
+    bounds read on the host) and each expert runs one product over its
+    rows."""
+    N, C = xt.shape
+    k = topi.shape[1]
+    E = wg.shape[0]
+    if every_expert:
+        dense_w = torch.zeros(N, E, device=xt.device).scatter_(1, topi, topw)
+        d = moe.expert_products(xt[None].expand(E, N, C), wg, wu, wd, act)
+        return torch.einsum("enc,ne->nc", d, dense_w)
+    order, starts = moe.expert_order(topi.reshape(-1), E)
+    xs = xt[order // k]
+    ys = torch.empty(N * k, C, device=xt.device)
+    starts = starts.tolist()
+    for e in range(E):
+        a, b = starts[e], starts[e + 1]
+        if b > a:
+            ys[a:b] = moe.expert_products(xs[a:b], wg[e], wu[e], wd[e], act)
+    d = torch.empty_like(ys)
+    d[order] = ys
+    return (d.reshape(N, k, C) * topw[..., None]).sum(dim=1)
+
+
+def _moe_ffn(x: torch.Tensor, layer: Params, cfg: ModelConfig) -> torch.Tensor:
+    """The JAX `_moe_ffn`: a router product cast to f32, softmax, top-k
+    (renormalized under `cfg.moe_norm_topk`: mixtral, granitemoe, dbrx,
+    grok, arctic; not qwen2moe or olmoe), a gated FFN per selected expert
+    with silu (tanh-gelu for grok), and qwen2moe's shared expert scaled by
+    a sigmoid gate. Forms: gather (default) and dense-EP
+    (`cfg.moe_dense_ep`: every expert over every token), both
+    `_moe_gather`, and sorted-EP (`cfg.moe_sorted_ep`: ops/moe.py
+    `moe_ffn_ep`)."""
+    B, T, C = x.shape
+    act = (_GELU_TANH if (cfg.extras or {}).get("moe_act", "silu") == "gelu"
+           else F.silu)
+    xt = x.reshape(-1, C)
+    router = linear.matmul(xt, layer["ffn_gate_inp"]).float()  # (N, E)
+    topw, topi = _top_k(torch.softmax(router, dim=-1), cfg.n_experts_used)
+    if cfg.moe_norm_topk:
+        topw = topw / topw.sum(dim=-1, keepdim=True)
+    wg = layer["ffn_gate_exps"].data["w"]  # (E, F, C)
+    wu = layer["ffn_up_exps"].data["w"]
+    wd = layer["ffn_down_exps"].data["w"]  # (E, C, F)
+    if cfg.moe_sorted_ep:
+        out = moe.moe_ffn_ep(xt, topi, topw, wg, wu, wd, act,
+                             capacity_factor=cfg.moe_capacity_factor)
+    else:
+        # dense-EP, and the gather form's single-token step, run every
+        # expert over every token
+        out = _moe_gather(xt, topi, topw, wg, wu, wd, act,
+                          every_expert=cfg.moe_dense_ep or T == 1)
+    if "ffn_up_shexp" in layer:  # qwen2moe's shared expert, sigmoid-gated
+        sg = F.silu(linear.matmul(xt, layer["ffn_gate_shexp"]).float())
+        su = linear.matmul(xt, layer["ffn_up_shexp"]).float()
+        sd = linear.matmul((sg * su).to(xt.dtype), layer["ffn_down_shexp"])
+        gate = torch.sigmoid(
+            linear.matmul(xt, layer["ffn_gate_inp_shexp"]).float())
+        out = out + sd.float() * gate
+    return out.reshape(B, T, C).to(x.dtype)
 
 
 def _is_local(cfg: ModelConfig, li: int) -> bool:
@@ -390,6 +465,7 @@ def _run(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     per_head_qk = bool((cfg.extras or {}).get("qk_norm_per_head"))
     for li, layer in enumerate(params["layers"] if layers is None
                                else layers):
+        x0 = x  # the layer input (arctic's residual MoE branch reads it)
         h = _norm(x, layer, "attn_norm", cfg)
         if "wqkv" in layer:  # fused projection (one kernel launch)
             qkv = linear.matmul(h, layer["wqkv"])
@@ -431,7 +507,7 @@ def _run(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                  layer["wo"])
         if "bo" in layer:
             attn_out = attn_out + layer["bo"].to(attn_out.dtype)
-        if "attn_post_norm" in layer:  # gemma2 sandwich norm
+        if "attn_post_norm" in layer:  # gemma2 sandwich norm, grok
             attn_out = rms_norm(attn_out, layer["attn_post_norm"], eps)
         if cfg.parallel_residual:  # neox / gptj: both branches read x
             ffn_in = _norm(x, layer, "ffn_norm", cfg)
@@ -439,10 +515,18 @@ def _run(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         else:
             x = x + res_s * attn_out
             ffn_in = _norm(x, layer, "ffn_norm", cfg)
-        ffn_out = _ffn(ffn_in, layer, cfg.act, cfg.ffn_gated)
-        if "ffn_post_norm" in layer:
+        if "ffn_gate_inp" in layer and "ffn_norm_exps" not in layer:
+            ffn_out = _moe_ffn(ffn_in, layer, cfg)
+        else:
+            ffn_out = _ffn(ffn_in, layer, cfg.act, cfg.ffn_gated)
+        if "ffn_post_norm" in layer:  # gemma2 sandwich norm, grok
             ffn_out = rms_norm(ffn_out, layer["ffn_post_norm"], eps)
         x = x + res_s * ffn_out
+        if "ffn_norm_exps" in layer:
+            # arctic: a residual MoE branch on the layer input, added after
+            # the dense FFN's residual
+            x = x + _moe_ffn(rms_norm(x0, layer["ffn_norm_exps"], eps),
+                             layer, cfg)
 
     if last_index is not None:
         x = x[torch.arange(B, device=dev), last_index][:, None, :]
@@ -546,8 +630,8 @@ def check_stacked_supported(params: Params, cfg: ModelConfig, cache,
     wherever the JAX `forward_stacked` would compute another function than
     `forward`: its scan body has no fused-qkv or output bias, no residual
     scale, RMS norms only, a gated FFN only, no parallel residual, ALiBi,
-    learned positions or embedding norm, clamp_kqv or QK-norm, and rotates
-    every K; its pooled path takes a bf16 KVCache, not a quantized one. It
+    learned positions or embedding norm, clamp_kqv or QK-norm, no MoE
+    layer, and rotates every K; its pooled path takes a bf16 KVCache, not a quantized one. It
     does take the sliding window with its layer pattern, the sandwich
     norms and the FFN's activation."""
     check_supported(params, cfg, device)
@@ -575,6 +659,8 @@ def check_stacked_supported(params: Params, cfg: ModelConfig, cache,
         why = "QK-norm"
     elif not cfg.use_rope:
         why = "rope-less attention (it rotates every K)"
+    elif "ffn_gate_inp" in stacked:
+        why = "MoE (its scan body runs the dense FFN only)"
     if why:
         raise NotImplementedError(f"forward_stacked does not take {why} "
                                   "(the JAX forward_stacked drops it)")

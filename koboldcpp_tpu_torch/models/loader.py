@@ -1,10 +1,11 @@
 """GGUF -> device params loader.
 
-Port of koboldcpp_tpu/models/loader.py for the dense decoder GGUF files
+Port of koboldcpp_tpu/models/loader.py for the decoder GGUF files
 models/llama.py serves: maps llama.cpp tensor names (learned positions,
 the embedding norm, norm / projection / FFN / output biases, QK-norms and
-their biases, gemma2's sandwich norms too) into its params dict,
-keeping 2-D weights packed (QTensor: q4_k, q5_k, q6_k or q8_0, the kinds
+their biases, gemma2's sandwich norms, grok's post-norms, the MoE router,
+qwen2moe's shared expert and the 3-D expert stacks, which load dense) into
+its params dict, keeping 2-D weights packed (QTensor: q4_k, q5_k, q6_k or q8_0, the kinds
 `ops/linear.from_gguf` maps the GGUF types onto) for the kernels and
 row-fusing same-type q/k/v and gate/up projections into `wqkv` / `w_gateup`
 (one kernel launch per group). GGUF LoRA adapters merge at load into dense
@@ -170,10 +171,13 @@ def load_params(reader: GGUFReader, cfg: ModelConfig, packed: bool = True,
                 layer["wq"] = qt(p + "attn_q.weight")
                 layer["wk"] = qt(p + "attn_k.weight")
                 layer["wv"] = qt(p + "attn_v.weight")
-        # norms, biases and arctic's MoE norm (the forward's
-        # check_supported rejects that branch by key; bitnet by its config)
+        # norms, biases and arctic's MoE norm (bitnet's config is refused
+        # by the forward's check_supported)
         for key, tname in (("attn_post_norm", "attn_post_norm.weight"),
                            ("ffn_post_norm", "ffn_post_norm.weight"),
+                           # grok's RMS post-norms on both branch outputs
+                           ("attn_post_norm", "attn_output_norm.weight"),
+                           ("ffn_post_norm", "layer_output_norm.weight"),
                            ("attn_q_norm", "attn_q_norm.weight"),
                            ("attn_k_norm", "attn_k_norm.weight"),
                            ("attn_q_norm_bias", "attn_q_norm.bias"),
@@ -187,8 +191,21 @@ def load_params(reader: GGUFReader, cfg: ModelConfig, packed: bool = True,
                            ("attn_norm_bias", "attn_norm.bias"),
                            ("ffn_norm_bias", "ffn_norm.bias")):
             opt(layer, key, p + tname)
-        if p + "ffn_gate_inp.weight" in names:
-            layer["ffn_gate_inp"] = None  # MoE: rejected by the forward
+        if p + "ffn_gate_inp.weight" in names:  # MoE block
+            layer["ffn_gate_inp"] = qt(p + "ffn_gate_inp.weight")
+            # qwen2moe's shared expert (always on, sigmoid-gated)
+            for key in ("ffn_gate_shexp", "ffn_up_shexp", "ffn_down_shexp",
+                        "ffn_gate_inp_shexp"):
+                if p + key + ".weight" in names:
+                    layer[key] = qt(p + key + ".weight")
+            for key in ("ffn_gate_exps", "ffn_up_exps", "ffn_down_exps"):
+                # the 3-D expert stacks (E, F, C) / (E, C, F) load dense in
+                # the load dtype, as in JAX
+                info = reader.tensors[p + key + ".weight"]
+                layer[key] = linear.from_gguf(
+                    reader.tensor_raw(p + key + ".weight"), info.ggml_type,
+                    info.shape, packed=False, dtype=dtype, device=device)
+        # the dense FFN (arctic's too, beside its residual MoE)
         if p + "ffn_up.weight" in names:
             up_info = reader.tensors[p + "ffn_up.weight"]
             if (p + "ffn_gate.weight" not in names

@@ -63,6 +63,22 @@ def rand_q4k(rng, out_f: int, in_f: int, device="cpu") -> QTensor:
     })
 
 
+def rand_q4k_centered(rng, out_f: int, in_f: int,
+                      device="cpu") -> QTensor:
+    """rand_q4k with each sub-block's min term at its grid's midpoint (7.5
+    scale steps, on the 6-bit grid of a dmin of 8 d): zero-mean weights, as
+    a Q4_K quantizer writes them for a zero-mean tensor. rand_q4k's
+    independent min leaves every weight a mean as large as its spread; a
+    model of them attends by each key's hidden-state mean, so sharply that
+    near-ties between keys turn rounding into other hidden states."""
+    qt = rand_q4k(rng, out_f, in_f, device)
+    d = qt.data["d"]
+    sc = qt.data["sc"].float().reshape(*d.shape, 8)
+    mn = d[:, :, None] * 8 * torch.round(sc * 15 / 16)
+    qt.data["min"] = mn.reshape(out_f, -1).to(torch.bfloat16)
+    return qt
+
+
 def rand_q6k(rng, out_f: int, in_f: int, device="cpu") -> QTensor:
     nsb = in_f // QK_K
     ql = rng.integers(0, 256, size=(out_f, nsb * 128), dtype=np.uint8)
@@ -233,11 +249,14 @@ def synthetic_params(cfg: ModelConfig, kind: str = "q4_k", seed: int = 0,
     gateless `w_up` for a non-gated FFN, learned positions, bloom's
     embedding norm, and the embedding as the head (a dense matmul) where a
     converted file has no output.weight (`_TIED_ARCHS`, or
-    cfg.tie_word_embeddings). kind: "dense" | "q2_k" | "q3_k" | "q4_k" |
-    "q5_k" | "q6_k" | "q8_0" | "iq2p" | "iq3px" | "iq3ps" | "iq1p" (G = 32)
-    | "q4_k_i8" | "q6_k_i8f" | "q3_k_n4" | "q2_k_n4" for the big matmul
-    weights (embeddings, norms and biases stay dense, as the GGUF loader
-    keeps them)."""
+    cfg.tie_word_embeddings), and for a MoE config (cfg.n_experts) the
+    router and the dense expert stacks in place of the FFN (`_moe_layer`).
+    kind: "dense" | "q2_k" | "q3_k" | "q4_k" | "q5_k" | "q6_k" | "q8_0" |
+    "iq2p" | "iq3px" | "iq3ps" | "iq1p" (G = 32) | "q4_k_i8" | "q6_k_i8f" |
+    "q3_k_n4" | "q2_k_n4" for the big matmul weights, or "q4_k_m": q4_k
+    (zero-mean: `rand_q4k_centered`) with q6_k v projections and head,
+    unfused, as a Q4_K_M file's attention loads (embeddings, norms and
+    biases stay dense, as the GGUF loader keeps them)."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     C, F = cfg.hidden_size, cfg.intermediate_size
@@ -246,9 +265,12 @@ def synthetic_params(cfg: ModelConfig, kind: str = "q4_k", seed: int = 0,
     norm_bias = cfg.norm_type == "layer" and cfg.arch in _NORM_BIAS_ARCHS
     biased = cfg.arch in _BIASED_ARCHS
 
-    def big(out_f, in_f):
+    def big(out_f, in_f, q4_k_m_kind="q4_k"):
         if kind == "dense" or in_f % QK_K or out_f % 8:
             return _rand_dense(rng, (out_f, in_f), dev)
+        if kind == "q4_k_m":
+            return (rand_q4k_centered if q4_k_m_kind == "q4_k"
+                    else _MAKERS[q4_k_m_kind])(rng, out_f, in_f, dev)
         return _MAKERS[kind](rng, out_f, in_f, dev)
 
     def vec(n, around=0.0, s=0.01):
@@ -269,7 +291,7 @@ def synthetic_params(cfg: ModelConfig, kind: str = "q4_k", seed: int = 0,
         "layers": [],
     }
     params["output"] = (params["tok_embd"] if tied
-                        else big(cfg.vocab_size, C))
+                        else big(cfg.vocab_size, C, "q6_k"))
     if norm_bias:
         params["output_norm_bias"] = vec(C)
     if cfg.arch in _OUTPUT_BIAS_ARCHS and not tied:
@@ -279,19 +301,26 @@ def synthetic_params(cfg: ModelConfig, kind: str = "q4_k", seed: int = 0,
     if cfg.arch == "bloom":
         params["tok_norm"] = norm()
         params["tok_norm_bias"] = vec(C)
-    fused = kind != "dense"  # match the loader's fused-projection layout
-    for _ in range(cfg.n_layers):
+    # match the loader's fused-projection layout (a Q4_K_M file's q4_k
+    # q / k and q6_k v do not fuse)
+    fused = kind not in ("dense", "q4_k_m")
+    moe = cfg.n_experts > 0
+    for li in range(cfg.n_layers):
         layer = {
             "attn_norm": norm(),
             "wo": big(C, qdim),
             "ffn_norm": norm(),
-            "w_down": big(C, F),
         }
+        if not moe:
+            layer["w_down"] = big(C, F)
         if fused:
             layer["wqkv"] = big(qdim + 2 * kvdim, C)
         else:
-            layer.update(wq=big(qdim, C), wk=big(kvdim, C), wv=big(kvdim, C))
-        if not cfg.ffn_gated:
+            layer.update(wq=big(qdim, C), wk=big(kvdim, C),
+                         wv=big(kvdim, C, "q6_k"))
+        if moe:
+            layer.update(_moe_layer(cfg, rng, seed, li, dev))
+        elif not cfg.ffn_gated:
             layer["w_up"] = big(F, C)
         elif fused:
             layer["w_gateup"] = big(2 * F, C)
@@ -309,6 +338,29 @@ def synthetic_params(cfg: ModelConfig, kind: str = "q4_k", seed: int = 0,
             layer.update(bo=vec(C), b_up=vec(F), b_down=vec(C))
         params["layers"].append(layer)
     return params
+
+
+def _moe_layer(cfg: ModelConfig, rng, seed: int, li: int, dev) -> dict:
+    """A MoE layer's tensors as the loader gives them for a Mixtral-style
+    file: the router `ffn_gate_inp` (E, C), dense f32 from `rng`, and the
+    expert stacks `ffn_gate_exps` / `ffn_up_exps` (E, F, C) and
+    `ffn_down_exps` (E, C, F), dense bf16 normals of std 0.012 (the q4_k
+    maker's spread) drawn on `dev` by a torch.Generator seeded from (seed,
+    li): a Mixtral-8x7B layer's 2.8 GB of experts is made on the card in
+    milliseconds, where numpy would take minutes."""
+    C, E = cfg.hidden_size, cfg.n_experts
+    Fe = cfg.expert_ffn_size or cfg.intermediate_size
+    gen = torch.Generator(device=dev).manual_seed(seed * 1000 + li)
+
+    def stack(*shape):
+        w = torch.randn(shape, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        return dense(w.mul_(0.012), device=dev)
+
+    return {"ffn_gate_inp": _rand_dense(rng, (E, C), dev,
+                                        dtype=torch.float32),
+            "ffn_gate_exps": stack(E, Fe, C), "ffn_up_exps": stack(E, Fe, C),
+            "ffn_down_exps": stack(E, C, Fe)}
 
 
 def synthetic_model(cfg: ModelConfig, kind: str = "q4_k", seed: int = 0,
