@@ -13,7 +13,8 @@
    the superblock batched matvec K14 / K14.q5_k at T = 2, 8, 16, the
    FFN megakernel K15b (T=1) / K15a (T = 2, 8), the opt-in bodies
    K12.q6_k_i8f, K12.q3_k_n4, K12.q2_k_n4 (KCPP_KQ_LAYOUT=expanded),
-   K13.q4_k_i8 at T = 1, 8, 512 (KCPP_Q4K_LAYOUT=i8) and K2.q8_0_bf16, with
+   K13.q4_k_i8 at T = 1, 8, 512 (KCPP_Q4K_LAYOUT=i8) and K2.q8_0_bf16, K1
+   / K2 / K3 also at DeepSeek-V2-Lite's shapes (`phase_mla_shapes`), with
    the bf16 bodies of K2 / K12.q2_k / K12.q3_k at the 1.1B widths
    (KCPP_MM_I8=0); K9 / K10 also at page size 128; K2.q8_0, K2.q8_0_bf16,
    K12.iq2p at G = 32 and K12.iq1p at G = 8 also at a 70B-class w_down,
@@ -93,8 +94,18 @@
    run's, a token departure's two logits within 2^-3 on that run), the
    dense-EP and sorted-EP forms' last-token logits within 2^-3 of the
    gather form's in the same way, and the MoE block's device time alone, its products' f32
-   output against a bf16 one (this phase runs last of the timed ones, and
-   its model stays for a profiled window);
+   output against a bf16 one; then DeepSeek-V2-Lite's widths at full
+   depth (27 layers, 16 heads of 128 + 64 roped dims over a 512-rank
+   latent, a dense lead layer, 64 experts of 1408 top-6 and 2 shared,
+   YaRN 40; ~30 GB, from DEEPSEEK_V2_LITE_MD), `phase_deepseek2_decode`:
+   a 300-token prompt (K3) and 32 greedy tokens in the host loop (159 K1
+   and the head's K2 a step), the same under the first run's experts with
+   K1 / K2 / K3's plain versions (`_moe_same`), quantkv=1 (the MLA cache
+   stays bf16: the same tokens), seeded stochastic tokens twice, a
+   fast-forward of one token, one MoE layer's step in the every-expert and
+   the grouped form and the bytes each reads, the MLA attention's and the
+   no-kernel projections' device times (these two phases run last of the
+   timed ones, and their models stay for profiled windows);
 4. serves the same model through BatchedEngine (8 slots, context 2048),
    on the slot cache and on the paged pool (P=64): 8 concurrent greedy
    requests of 100-300 prompt tokens and 64 new tokens each, which must
@@ -161,9 +172,11 @@
    under their variables, a prefill of 11 tokens and one decode step)
    against the JAX package's under the same variables; then serves the
    gemma2, phi2 and mpt Q4_K_M fixtures (tests/fixtures/portgguf/
-   archs.json) and the mixtral, qwen2moe and grok ones (moe.json) over
-   HTTP, two identical replies each (K1 / K3; K5 on gemma2's global layer,
-   phi2 and the MoE fixtures, none on mpt's ALiBi), and holds their
+   archs.json), the mixtral, qwen2moe and grok ones (moe.json) and the
+   deepseek2, minicpm3, chameleon (swin norm), openelm, bitnet, jais and
+   plamo ones (late.json) over HTTP, two identical replies each (K1 / K3;
+   K5 on gemma2's global layer, openelm's full-head layer and the others'
+   layers, none on mpt's and jais's ALiBi or MLA), and holds their
    logits to the JAX package's committed ones;
 8. the single-stream path's served features on the synthetic 1.1B (q4_k
    layers, a q6_k head), `phase_served_features`: 256 stochastic tokens
@@ -190,8 +203,10 @@
    300-token prefill as one chunk, and
    32 batched steps of 8 requests (and of 16 under KCPP_SBQ=1), and
    tools/profile_scan.py's scan mode (32 tokens: idle share, top five ops
-   per step), and the Mixtral-widths model's greedy decode (32 tokens:
-   idle share, device busy time a token);
+   per step), the Mixtral-widths model's greedy decode (32 tokens:
+   idle share, device busy time a token) and the DeepSeek-V2-Lite one's
+   (8 tokens: the same, and the MoE blocks' and the attention's share of
+   a token);
 10. prints one {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 Any failed check raises, so the script exits nonzero. It exits nonzero,
@@ -221,12 +236,14 @@ if not torch.cuda.is_available():
 from koboldcpp_tpu_torch.device import card_info  # noqa: E402
 from koboldcpp_tpu_torch.engine import Engine, GenParams  # noqa: E402
 from koboldcpp_tpu_torch.engine import batch_engine  # noqa: E402
+from koboldcpp_tpu_torch.models import deepseek2 as ds2  # noqa: E402
 from koboldcpp_tpu_torch.models import llama  # noqa: E402
 from koboldcpp_tpu_torch.models.config import config_from_metadata  # noqa: E402
 from koboldcpp_tpu_torch.models.loader import Model, load_model  # noqa: E402
 from koboldcpp_tpu_torch.models.synthetic import (  # noqa: E402
-    _MAKERS, TINYLLAMA_1_1B, rand_iq, rand_q2k, rand_q3k, rand_q4k,
-    rand_q5k, rand_q6k, rand_q8_0, synthetic_model)
+    _MAKERS, DEEPSEEK_V2_LITE_MD, TINYLLAMA_1_1B, rand_iq, rand_q2k,
+    rand_q3k, rand_q4k, rand_q4k_centered, rand_q5k, rand_q6k, rand_q8_0,
+    synthetic_deepseek2_model, synthetic_model)
 from koboldcpp_tpu_torch.kv import paged  # noqa: E402
 from koboldcpp_tpu_torch.kv.cache import (  # noqa: E402
     _dequant, _q8, init_cache, init_pool_cache)
@@ -1045,6 +1062,47 @@ def phase_kq_matmul(rng) -> None:
                              ("K3.q8_0", "q8_0", rand_q8_0)):
         _kq_cases(kid, f"{kind} fixture wo", maker(rng, 256, 256, DEV), (16,),
                   rng)
+
+
+# DeepSeek-V2-Lite's shapes that the MLA path sends to K1 / K2 / K3 beyond
+# the 1.1B's (wo is 2048 x 2048 there too): wq, wkv_b (in_f 512, the
+# kv_lora_rank), the shared experts' gate / up and down, and the q6_k head
+MLA_SHAPES = {"wq": (3072, 2048), "wkv_b": (4096, 512),
+              "shexp gate": (2816, 2048), "shexp down": (2048, 2816)}
+MLA_HEAD = (102400, 2048)
+
+
+def phase_mla_shapes(rng) -> None:
+    """K1 (zero-mean q4_k, as the MLA model's) at MLA_SHAPES T=1, K2 at the
+    q6_k head, and K3 at T = 512 (the 300-token prompt's bucket) at
+    MLA_SHAPES, each against its plain version with the tolerances of
+    phase_matvec / _kq_cases."""
+    cases = [("K1", f"MLA {n}", rand_q4k_centered, shape,
+              lambda x, qt: qm.q4k_matvec(x, qt, True),
+              lambda x, qt: qm.q4k_matvec_plain(x, qt, True))
+             for n, shape in MLA_SHAPES.items()]
+    cases.append(("K2", "MLA output", rand_q6k, MLA_HEAD,
+                  lambda x, qt: qm.q6k_matvec(x, qt, True),
+                  lambda x, qt: qm.q6k_matvec_plain(x, qt, True)))
+    for kid, name, maker, (out_f, in_f), wrapper, plain in cases:
+        qt = maker(rng, out_f, in_f, DEV)
+        x = torch.from_numpy(rng.standard_normal(in_f).astype(
+            np.float32)).to(DEV).bfloat16()
+        y, ref = wrapper(x, qt), plain(x, qt)
+        torch.cuda.synchronize()
+        err = (y.float() - ref.float()).abs().max().item()
+        w = dequant(qt)
+        xr = x.view(1, in_f)
+        _record(kid, f"{name} {out_f}x{in_f} T=1", err,
+                2 ** -7 * ref.float().abs().max().item(),
+                lambda: wrapper(x, qt), lambda: plain(x, qt),
+                lambda: torch.matmul(xr, w.t()),
+                _wbytes(qt) + _nbytes(x) + out_f * 2, dev=True)
+        del w
+    for name, shape in MLA_SHAPES.items():
+        if name != "shexp gate":
+            _kq_cases("K3", f"q4_k MLA {name}",
+                      rand_q4k_centered(rng, *shape, DEV), (512,), rng)
 
 
 # (kind, scale group G) -> the K12.iq cases (name, (out_f, in_f)) and the
@@ -2210,7 +2268,8 @@ class _Routes:
 
     def __enter__(self):
         self.calls: list = []
-        self.orig = (llama.forward, llama.forward_paged, llama._top_k)
+        self.orig = (llama.forward, llama.forward_paged, llama._top_k,
+                     ds2.forward)
         real_top_k = self.orig[2]
 
         def wrap(fn):
@@ -2242,11 +2301,13 @@ class _Routes:
             return w.gather(-1, idx), idx
 
         llama.forward, llama.forward_paged = map(wrap, self.orig[:2])
+        ds2.forward = wrap(self.orig[3])
         llama._top_k = top_k
         return self
 
     def __exit__(self, *exc):
-        llama.forward, llama.forward_paged, llama._top_k = self.orig
+        (llama.forward, llama.forward_paged, llama._top_k,
+         ds2.forward) = self.orig
 
     def decisions(self, seqs: list[list[int]], k: int) -> list[dict]:
         out: list[dict] = [{} for _ in seqs]
@@ -2631,6 +2692,238 @@ def phase_moe_decode(card: str) -> tuple[dict, Model]:
     return counts, model
 
 
+# DeepSeek-V2-Lite at full depth (27 layers, ~30 GB with its dense bf16
+# experts): greedy tokens of each MLA run (the host loop: one forward a
+# token) and seeded stochastic ones
+DS2_DEPTH = 32
+DS2_STOCH = 8
+
+
+def _plain_matmuls():
+    """K1, K2 and K3 replaced by their plain versions for a block (the MLA
+    path's only kernels; the plain versions count no launch)."""
+    return mock.patch.multiple(
+        qm, q4k_matvec=lambda x, qt, i8: qm.q4k_matvec_plain(x, qt, i8),
+        q6k_matvec=lambda x, qt, i8: qm.q6k_matvec_plain(x, qt, i8),
+        kq_matmul=qm.kq_matmul_plain)
+
+
+def phase_deepseek2_decode(card: str) -> tuple[dict, Model, dict]:
+    """DeepSeek-V2-Lite's widths at full depth (DEEPSEEK_V2_LITE_MD through
+    `synthetic_deepseek2_model`: 27 layers, 16 heads of 128 + 64 roped dims
+    over a 512-rank latent, v 128, a dense lead layer of 10944, then 64
+    experts of 1408 with top-6 and 2 shared experts, YaRN 40) through
+    Engine's MLA branch: a 300-token prompt (one 512-row chunk: every
+    q4_k projection through K3, 159 of them) and DS2_DEPTH greedy tokens in
+    the host loop (every step 159 K1 and the head's K2, no attention
+    kernel: the MLA attention is plain torch, as the JAX module's einsums),
+    repeated with the router recorded, then under those experts with K1 /
+    K2 / K3's plain versions (`_moe_same`: router weights within
+    ROUTER_TOL, a departure a near-tie of MOE_LOGIT_TOL); the same with
+    quantkv=1 (the cache stays bf16: the same tokens); DS2_STOCH seeded
+    stochastic tokens twice (the same tokens); a fast-forwarded request
+    evaluating one prompt token. Then device times alone: one MoE layer's
+    step in the every-expert form against the grouped form (this path's),
+    with the bytes each reads against the k experts' own; the MoE block's
+    step and 512-row chunk; one layer's MLA attention at T = 1; the
+    projections no kernel takes (wkv_a_mqa: 576 rows; the lead layer's
+    10944-row gate / up and its q8_0 w_down, in_f 10944: dequantized on
+    every call, as in JAX). Returns (launches, the model, the block times
+    that phase_profiled sets against a token's device time)."""
+    import torch.nn.functional as F
+
+    from koboldcpp_tpu_torch.kv.cache import QuantKVCache
+    from koboldcpp_tpu_torch.ops import linear as tlinear
+
+    t0 = time.perf_counter()
+    model = synthetic_deepseek2_model(DEEPSEEK_V2_LITE_MD, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    cfg = model.cfg
+    layers = model.params["layers"]
+    lead, mlayer = layers[0], layers[1]
+    L, E, k, C = cfg.n_layers, cfg.n_experts, cfg.n_experts_used, \
+        cfg.hidden_size
+    n_moe = sum("ffn_gate_inp" in ly for ly in layers)
+    _check(L == 27 and E == 64 and k == 6 and n_moe == 26 and C == 2048
+           and cfg.head_dim == 192 and cfg.extras["v_head_dim"] == 128
+           and mlayer["ffn_gate_exps"].shape == (64, 1408, 2048)
+           and mlayer["wq"].kind == "q4_k" and lead["w_down"].kind == "q8_0"
+           and mlayer["wkv_a_mqa"].shape == (576, 2048)
+           and model.params["output"].kind == "q6_k",
+           "DeepSeek-V2-Lite widths: unexpected synthetic params")
+    rng = np.random.default_rng(9)
+    prompt = [1] + rng.integers(3, cfg.vocab_size, size=299).tolist()
+    sampler = SamplerParams(temperature=0.0, rep_pen=1.0)
+    gp = GenParams(max_length=DS2_DEPTH, bypass_eos=True, sampler=sampler)
+    eng = Engine(model, max_context=2048, device=DEV)
+    _check(eng.mla and not eng.use_flash_prefill and not eng.use_contextshift,
+           "DeepSeek-V2-Lite: the engine did not take the MLA branch")
+    eng.generate(prompt, GenParams(max_length=2, bypass_eos=True,
+                                   sampler=sampler))  # warm-up
+    counts: dict = {}
+
+    def add(c):
+        for kk, v in c.items():
+            counts[kk] = counts.get(kk, 0) + v
+
+    # a step: wq, wkv_b and wo of every layer and the shared experts'
+    # three projections of every MoE layer through K1, the head through K2
+    n_k1 = 3 * L + 3 * n_moe
+    step = {"K1": n_k1, "K2": 1, "K3": 0, "K4": 0, "K5": 0}
+    toks, t1, c1, rec, _ = _moe_run(eng, prompt, gp, routes=False)
+    add(c1)
+    steps = _check_steps(rec, 1, step, "DeepSeek-V2-Lite bf16")
+    pre = rec.by_shape.get((1, 512), [])
+    _check(len(pre) == 1 and pre[0].get("K3", 0) == n_k1
+           and pre[0].get("K2", 0) == 1,
+           f"DeepSeek-V2-Lite prefill chunk launches {pre}")
+    _check(len(toks) == DS2_DEPTH
+           and all(0 <= t < cfg.vocab_size for t in toks),
+           f"DeepSeek-V2-Lite: tokens {toks}")
+    base, _, _, _, route = _moe_run(eng, prompt, gp)
+    _check(base == toks, f"DeepSeek-V2-Lite greedy decode not repeatable: "
+           f"{base} {toks}")
+    with _plain_matmuls():
+        plain, _, cp, _, route_p = _moe_run(eng, prompt, gp,
+                                            force=(toks, route))
+    _check(not any(cp.get(kk, 0) for kk in ("K1", "K2", "K3")),
+           f"DeepSeek-V2-Lite plain run launched {cp}")
+    _moe_same(eng, prompt, plain, toks, route_p, route,
+              "DeepSeek-V2-Lite, K1 / K2 / K3 against their plain versions")
+
+    # --quantkv 1: the MLA cache stays bf16, as the JAX engine builds it
+    qeng = Engine(model, max_context=2048, device=DEV, quantkv=1)
+    _check(qeng.cache.k.dtype == torch.bfloat16
+           and not isinstance(qeng.cache, QuantKVCache),
+           "DeepSeek-V2-Lite: --quantkv changed the MLA cache")
+    qtoks, tq, cq, _, _ = _moe_run(qeng, prompt, gp, routes=False)
+    add(cq)
+    _check(qtoks == toks, f"DeepSeek-V2-Lite quantkv=1: tokens {qtoks}, "
+           f"bf16 cache {toks}")
+    del qeng
+    torch.cuda.empty_cache()
+
+    sgp = GenParams(max_length=DS2_STOCH, bypass_eos=True,
+                    sampler=SamplerParams(temperature=0.8, top_p=0.9,
+                                          min_p=0.05, rep_pen=1.1, seed=11))
+    s1, _, cs, _, _ = _moe_run(eng, prompt, sgp, routes=False)
+    s2, ts, *_ = _moe_run(eng, prompt, sgp, routes=False)
+    add(cs)
+    _check(s1 == s2 and len(s1) == DS2_STOCH,
+           f"DeepSeek-V2-Lite stochastic tokens not repeatable: {s1} {s2}")
+    _build.launches.clear()
+    eng.generate(list(eng.context_tokens) + [7], GenParams(
+        max_length=4, bypass_eos=True, sampler=sampler))
+    add(dict(_build.launches))
+    _check(eng.last_timings.prompt_tokens == 1,
+           f"DeepSeek-V2-Lite fast-forward evaluated "
+           f"{eng.last_timings.prompt_tokens} prompt tokens")
+
+    # the two decode forms end to end, in turns: the grouped form (this
+    # path's: a host read a MoE layer) and every expert (no host read)
+    real_gather = llama._moe_gather
+
+    def every_at_t1(xt, *a, every_expert=False):
+        return real_gather(xt, *a, every_expert=every_expert
+                           or xt.shape[0] == 1)
+
+    form_tps: dict = {}
+    fgp = GenParams(max_length=16, bypass_eos=True, sampler=sampler)
+    for name in ("grouped", "every expert", "every expert", "grouped"):
+        with (mock.patch.object(llama, "_moe_gather", every_at_t1)
+              if name == "every expert" else contextlib.nullcontext()):
+            _, tf, *_ = _moe_run(eng, prompt, fgp, routes=False)
+        form_tps.setdefault(name, []).append(tf.gen_tps)
+
+    # device times alone: one MoE layer's step in the two forms, the
+    # block's step and chunk, one layer's attention, the no-kernel
+    # projections
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    x1 = torch.randn(1, 1, C, device=DEV, generator=gen).bfloat16()
+    xp = torch.randn(1, 512, C, device=DEV, generator=gen).bfloat16()
+    wg, wu, wd = (mlayer[n].data["w"] for n in
+                  ("ffn_gate_exps", "ffn_up_exps", "ffn_down_exps"))
+    expert_b = 3 * C * cfg.expert_ffn_size * 2
+    pos = torch.tensor([[len(eng.context_tokens)]], device=DEV)
+    rows, mask = ds2.cache_rows(pos, eng.cache.max_seq)
+    xd = torch.randn(1, cfg.intermediate_size, device=DEV,
+                     generator=gen).bfloat16()
+    ms: dict = {}
+    with torch.inference_mode():
+        xt = x1.view(1, C)
+        router = tlinear.matmul(xt, mlayer["ffn_gate_inp"]).float()
+        topw, topi = llama._top_k(torch.softmax(router, dim=-1), k)
+        chosen = topi[0].tolist()
+
+        def form(every):
+            return lambda: llama._moe_gather(xt, topi, topw, wg, wu, wd,
+                                             F.silu, every_expert=every)
+
+        def grouped_products():
+            for e in chosen:
+                moe_ops.expert_products(xt, wg[e], wu[e], wd[e], F.silu)
+
+        for name, fn, timer in (
+                ("every", form(True), _dev_ms),
+                ("grouped", form(False), _event_ms),
+                ("grouped products", grouped_products, _dev_ms)) * 2:
+            ms[name] = min(ms.get(name, 1e9), timer(fn))
+        ms["block step"] = _event_ms(lambda: ds2._moe(x1, mlayer, cfg))
+        ms["block chunk"] = _event_ms(lambda: ds2._moe(xp, mlayer, cfg))
+        ms["attention"] = _dev_ms(lambda: ds2._attention(
+            mlayer, cfg, x1, pos, eng.cache.k[1], eng.cache.v[1], rows,
+            mask))
+        ms["wkv_a_mqa"] = _dev_ms(lambda: tlinear.matmul(
+            x1, mlayer["wkv_a_mqa"]))
+        ms["lead gate+up"] = _dev_ms(lambda: (
+            tlinear.matmul(x1, lead["w_gate"]),
+            tlinear.matmul(x1, lead["w_up"])))
+        ms["lead w_down"] = _dev_ms(lambda: tlinear.matmul(xd,
+                                                           lead["w_down"]))
+        ms["lead w_down dequant"] = _dev_ms(lambda: dequant(lead["w_down"]))
+    faster = ("grouped" if ms["grouped products"] <= ms["every"]
+              else "every-expert")
+    no_kernel = (L * ms["wkv_a_mqa"] + ms["lead gate+up"]
+                 + ms["lead w_down"])
+    print(f"DeepSeek-V2-Lite widths ({L} layers, {E} experts of "
+          f"{cfg.expert_ffn_size}, top-{k}, 2 shared, {cfg.n_heads} heads "
+          f"of {cfg.head_dim} / v {cfg.extras['v_head_dim']}; zero-mean "
+          f"q4_k projections, q8_0 lead w_down, q6_k head, bf16 experts; "
+          f"{card}): synthetic weights {made:.1f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; prefill "
+          f"{t1.prompt_tokens} tokens {t1.prompt_time * 1e3:.1f} ms, decode "
+          f"{t1.gen_tokens} tokens {t1.gen_tps:.2f} tok/s ({steps} steps of "
+          f"{step}); quantkv=1 (bf16 MLA cache) {tq.gen_tps:.2f} tok/s, the "
+          f"same tokens; stochastic {ts.gen_tps:.2f} tok/s, repeatable; the "
+          f"same tokens with K1 / K2 / K3's plain versions (near-ties "
+          f"apart); decode of 16 tokens in turns, grouped / every expert "
+          f"at T = 1: {' ; '.join(f'{a:.2f}' for a in form_tps['grouped'])}"
+          f" / {' ; '.join(f'{a:.2f}' for a in form_tps['every expert'])} "
+          f"tok/s; launches {counts}", flush=True)
+    print(f"DeepSeek-V2-Lite MoE step, one layer on the device alone: every "
+          f"expert {ms['every']:.4f} ms reading {E * expert_b / 1e9:.3f} GB "
+          f"(bound {E * expert_b / HBM_BYTES_PER_S * 1e3:.4f} ms); grouped "
+          f"{ms['grouped']:.4f} ms with its host read of the group bounds "
+          f"(events), its products alone {ms['grouped products']:.4f} ms "
+          f"reading the {k} experts' own {k * expert_b / 1e9:.4f} GB (bound "
+          f"{k * expert_b / HBM_BYTES_PER_S * 1e3:.4f} ms): {faster} faster; "
+          f"the block (router, grouped experts, shared expert) "
+          f"{ms['block step']:.4f} ms a step, {ms['block chunk']:.4f} ms a "
+          f"512-row chunk (events); one layer's MLA attention at T = 1 over "
+          f"{int(pos)} + 1 rows {ms['attention']:.4f} ms; no kernel (as in "
+          f"JAX): wkv_a_mqa (576 x 2048) {ms['wkv_a_mqa']:.4f} ms a layer, "
+          f"the lead layer's gate + up (10944 rows) {ms['lead gate+up']:.4f}"
+          f" ms, its q8_0 w_down (in_f 10944) {ms['lead w_down']:.4f} ms "
+          f"(dequant alone {ms['lead w_down dequant']:.4f} ms): "
+          f"{no_kernel:.3f} ms a token", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return counts, model, {"moe": ms["block step"], "attention":
+                           ms["attention"], "no kernel": no_kernel,
+                           "n_moe": n_moe}
+
+
 # tokens (and batched steps) of each profiled window: the profiler's own
 # processing of a window's events, not the decode, takes most of the
 # phase's time
@@ -2674,7 +2967,8 @@ def _idle_share(run, rows_out: dict | None = None) -> str:
             f"ms, idle share {1 - busy_us / wall_us:.3f}; top: {top}")
 
 
-def phase_profiled(card: str, moe: Model) -> None:
+def phase_profiled(card: str, moe: Model, mla: Model,
+                   mla_ms: dict) -> None:
     """The device idle share, under torch.profiler, of the synthetic 1.1B
     q4_k: a fast-forwarded single-stream request decoding PROFILE_DEPTH
     (32) greedy tokens,
@@ -2682,7 +2976,10 @@ def phase_profiled(card: str, moe: Model) -> None:
     then 32 batched steps of 8
     fast-forwarded greedy requests (8 slots) and of 16 (16 slots under
     KCPP_SBQ=1), the scan path, then a fast-forwarded request of the
-    Mixtral-widths model `moe` (phase_moe_decode's). A
+    Mixtral-widths model `moe` (phase_moe_decode's) and of the
+    DeepSeek-V2-Lite model `mla` (phase_deepseek2_decode's, with the MoE
+    block's and the attention's share of a token from its device times
+    alone, `mla_ms`). A
     profiler session slows every later decode of the process, so this runs
     after every timed phase; the fast-forwarded single-stream request is
     timed just before its session and once more after it."""
@@ -2779,6 +3076,58 @@ def phase_profiled(card: str, moe: Model) -> None:
           f"device busy {sum(rows.values()) / PROFILE_DEPTH / 1e3:.3f} ms a "
           f"token", flush=True)
     del eng
+    torch.cuda.empty_cache()
+    _mla_window(card, mla, mla_ms, prompt, sampler)
+
+
+# decode tokens of the DeepSeek-V2-Lite profiled window (the profiler's
+# processing of a host-loop token's events takes seconds), and MoE block
+# calls profiled for its device time alone
+MLA_PROFILE_DEPTH = 8
+MLA_MOE_CALLS = 10
+
+
+def _mla_window(card: str, mla: Model, mla_ms: dict, prompt, sampler) -> None:
+    """phase_profiled's window of the DeepSeek-V2-Lite model (the host
+    loop, one forward a token): a fast-forwarded request (one prompt token,
+    then MLA_PROFILE_DEPTH decode steps) under torch.profiler, its idle
+    share and device busy time a token; a MoE block's device time alone
+    (kernel time of MLA_MOE_CALLS T=1 calls of `deepseek2._moe` under the
+    profiler: the block's host read of the group bounds leaves the device
+    idle, which CUDA events would count) and the shares of a token that it
+    (26 MoE layers), the MLA attention (`mla_ms`, device alone) and the
+    no-kernel projections account for."""
+    eng = Engine(mla, max_context=2048, device=DEV)
+    eng.generate(prompt, GenParams(max_length=4, sampler=sampler))
+    rows: dict = {}
+    idle = _idle_share(lambda: eng.generate(prompt, GenParams(
+        max_length=MLA_PROFILE_DEPTH, bypass_eos=True, sampler=sampler)),
+        rows)
+    busy = sum(rows.values()) / MLA_PROFILE_DEPTH / 1e3  # ms a token
+    del eng
+    layer = mla.params["layers"][1]
+    x1 = torch.randn(1, 1, mla.cfg.hidden_size, device=DEV,
+                     generator=torch.Generator(device=DEV).manual_seed(5)
+                     ).bfloat16()
+    moe_rows: dict = {}
+    with torch.inference_mode():
+        ds2._moe(x1, layer, mla.cfg)
+        _idle_share(lambda: [ds2._moe(x1, layer, mla.cfg)
+                             for _ in range(MLA_MOE_CALLS)], moe_rows)
+    moe = sum(moe_rows.values()) / MLA_MOE_CALLS / 1e3
+    _check(busy > 0 and moe > 0,
+           "DeepSeek-V2-Lite: the profiler saw no device kernels")
+    n_moe, L = mla_ms["n_moe"], mla.cfg.n_layers
+    print(f"DeepSeek-V2-Lite widths ({L} layers) greedy decode, "
+          f"{MLA_PROFILE_DEPTH} tokens under torch.profiler ({card}): "
+          f"{idle}; device busy {busy:.3f} ms a token; a MoE block's step "
+          f"{moe:.4f} ms of device time alone (profiled; "
+          f"{mla_ms['moe']:.4f} ms between CUDA events, host read "
+          f"included): the MoE blocks ~{n_moe * moe / busy:.3f} of a "
+          f"token's device time, the MLA attention ~"
+          f"{L * mla_ms['attention'] / busy:.3f} ({L} x "
+          f"{mla_ms['attention']:.4f} ms), the projections no kernel takes "
+          f"~{mla_ms['no kernel'] / busy:.3f}", flush=True)
     torch.cuda.empty_cache()
 
 
@@ -2934,15 +3283,15 @@ def _env(**kv):
 
 class _StepLaunches:
     """The launches of each forward of a run, by the forward's token shape
-    (B, T): wraps models.llama.forward / forward_paged / forward_stacked,
-    which the engines and the scan phase call through the module, and
-    takes the launch counters' difference over each call (the wrappers
-    count on the calling thread)."""
+    (B, T): wraps models.llama.forward / forward_paged / forward_stacked
+    and models.deepseek2.forward, which the engines and the scan phase
+    call through the module, and takes the launch counters' difference
+    over each call (the wrappers count on the calling thread)."""
 
     def __enter__(self):
         self.by_shape: dict = {}
         self.orig = (llama.forward, llama.forward_paged,
-                     llama.forward_stacked)
+                     llama.forward_stacked, ds2.forward)
 
         def wrap(fn):
             def forward(params, cfg, tokens, *a, **k):
@@ -2956,12 +3305,13 @@ class _StepLaunches:
                 return out
             return forward
 
-        (llama.forward, llama.forward_paged,
-         llama.forward_stacked) = map(wrap, self.orig)
+        (llama.forward, llama.forward_paged, llama.forward_stacked,
+         ds2.forward) = map(wrap, self.orig)
         return self
 
     def __exit__(self, *exc):
-        llama.forward, llama.forward_paged, llama.forward_stacked = self.orig
+        (llama.forward, llama.forward_paged, llama.forward_stacked,
+         ds2.forward) = self.orig
 
     def steps(self, B: int) -> list[dict]:
         """The launches of each decode step of B sequences."""
@@ -3821,13 +4171,20 @@ def phase_served_kinds() -> dict:
     return counts
 
 
+# the served fixtures with no layer on the T=1 attention kernels: ALiBi
+# (mpt, jais), and MLA's plain attention (deepseek2, minicpm3)
+NO_DECODE_KERNEL = ("mpt", "jais", "deepseek2", "minicpm3")
+
+
 def phase_served_archs() -> dict:
     """The gemma2, phi2 and mpt Q4_K_M fixtures (tests/fixtures/portgguf/
-    archs.json) and the mixtral, qwen2moe and grok ones (moe.json: 8
-    experts, their stacks dense) served over HTTP single-stream at
-    temperature 0: two identical replies each, q4_k through K1 / K3, the
-    decode attention through K5 on gemma2's global layer, phi2's layers
-    and the MoE fixtures' and on no layer of mpt (ALiBi); then each
+    archs.json), the mixtral, qwen2moe and grok ones (moe.json: 8
+    experts, their stacks dense) and the deepseek2, minicpm3,
+    chameleon (swin norm), openelm, bitnet, jais and plamo ones
+    (late.json) served over HTTP single-stream at temperature 0: two
+    identical replies each, q4_k through K1 / K3, the decode attention
+    through K5 on gemma2's global layer, openelm's full-head layer, the
+    other fixtures' layers and on none of NO_DECODE_KERNEL; then each
     fixture's logits on the card against the JAX package's committed
     logits, |err| <= 2e-2 + 2e-2 |want| (the tolerance of
     tests/test_torch_archs.py and test_torch_moe.py; the worst against the
@@ -3835,10 +4192,11 @@ def phase_served_archs() -> dict:
     from koboldcpp_tpu_torch.server.app import ServerSettings
 
     mans = [json.load(open(os.path.join(PORT_FIX, m)))
-            for m in ("archs.json", "moe.json")]
-    _check(mans[0]["tokens"] == mans[1]["tokens"], "manifests' tokens")
+            for m in ("archs.json", "moe.json", "late.json")]
+    _check(all(m["tokens"] == mans[0]["tokens"] for m in mans),
+           "manifests' tokens")
     tokens = mans[0]["tokens"]
-    files = {**mans[0]["files"], **mans[1]["files"]}
+    files = {arch: name for m in mans for arch, name in m["files"].items()}
     body = {"prompt": "The gradient of a function, e.g. f(x), points",
             "max_length": 24, "temperature": 0, "rep_pen": 1.0}
     counts: dict = {}
@@ -3857,7 +4215,7 @@ def phase_served_archs() -> dict:
         _check(a == b and a != "",
                f"{name}: temperature-0 replies differ: {a!r} {b!r}")
         _check(c.get("K1", 0) > 0 and c.get("K3", 0) > 0
-               and (c.get("K5", 0) == 0) == (arch == "mpt"),
+               and (c.get("K5", 0) == 0) == (arch in NO_DECODE_KERNEL),
                f"{name}: launches {c}")
         logits = _fixture_logits(path, tokens)
         want = np.load(os.path.join(PORT_FIX, f"logits-jax-{arch}.npy"))
@@ -3878,15 +4236,21 @@ def phase_served_archs() -> dict:
 
 def _fixture_logits(path: str, tokens: list[int]) -> np.ndarray:
     """A fixture's logits on the card, loaded packed in f32 (as
-    tests/test_torch_forward.py does on the CPU), tokens at positions 0.."""
+    tests/test_torch_forward.py does on the CPU), tokens at positions 0..
+    (models/deepseek2.py's forward for deepseek2 / minicpm3)."""
     m32 = load_model(path, dtype=torch.float32, device=DEV)
-    cache = init_cache(m32.cfg.n_layers, 1, 64, m32.cfg.n_kv_heads,
-                       m32.cfg.head_dim, dtype=torch.float32, device=DEV)
+    if m32.cfg.arch in ("deepseek2", "minicpm3"):
+        fwd = ds2.forward
+        cache = ds2.init_cache(m32.cfg, 1, 64, dtype=torch.float32,
+                               device=DEV)
+    else:
+        fwd = llama.forward
+        cache = init_cache(m32.cfg.n_layers, 1, 64, m32.cfg.n_kv_heads,
+                           m32.cfg.head_dim, dtype=torch.float32, device=DEV)
     toks = torch.tensor([tokens], device=DEV)
     with torch.inference_mode():
-        logits, _ = llama.forward(
-            m32.params, m32.cfg, toks,
-            torch.arange(toks.shape[1], device=DEV)[None], cache)
+        logits, _ = fwd(m32.params, m32.cfg, toks,
+                        torch.arange(toks.shape[1], device=DEV)[None], cache)
     return logits[0].float().cpu().numpy()
 
 
@@ -4451,9 +4815,9 @@ def main() -> int:
     rng = np.random.default_rng(0)
     for phase in (phase_matvec, phase_windows, phase_batched_matvec,
                   phase_sbq, phase_ffn_fused, phase_kq_matmul,
-                  phase_iq_kernels, phase_flash_prefill, phase_flash_decode,
-                  phase_paged_flash_decode, phase_quant_decode,
-                  phase_stacked):
+                  phase_mla_shapes, phase_iq_kernels, phase_flash_prefill,
+                  phase_flash_decode, phase_paged_flash_decode,
+                  phase_quant_decode, phase_stacked):
         _timed(phase, rng)
     print_kq_classes()
     print_q4k_classes()
@@ -4484,13 +4848,16 @@ def main() -> int:
     _timed(check_fixture_goldens)
     _timed(check_opt_in_logits)
     runs.append(_timed(phase_served_features, card))
-    # the MoE model (22.5 GB) last of the timed phases, kept for its
-    # profiled window
+    # the MoE models (Mixtral widths 22.5 GB, DeepSeek-V2-Lite ~30 GB:
+    # both fit the card) last of the timed phases, kept for their profiled
+    # windows
     moe_counts, moe = _timed(phase_moe_decode, card)
     runs.append(moe_counts)
+    mla_counts, mla, mla_ms = _timed(phase_deepseek2_decode, card)
+    runs.append(mla_counts)
     # the profiled windows last: a profiler session slows later decodes
-    _timed(phase_profiled, card, moe)
-    del moe
+    _timed(phase_profiled, card, moe, mla, mla_ms)
+    del moe, mla
 
     kernels = []
     for kid, (name, source, replaces) in KERNELS.items():

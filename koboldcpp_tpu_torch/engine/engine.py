@@ -14,6 +14,19 @@ The KV cache is bf16, or Q8 / Q4 with `quantkv=1|2` (`--quantkv`);
 `save_state` / `load_state` write and read the bf16 cache in the JAX
 engine's npz layout.
 
+DeepSeek-V2 / MiniCPM3 (MLA, models/deepseek2.py) take the JAX engine's
+branch for them: the stacked MLA cache (`deepseek2.init_cache`, bf16
+whatever `quantkv` says, as the JAX engine builds it in its cache dtype),
+no context shift, smart context or flash prefill, fast-forward kept, and
+every token of a reply through the host loop (the JAX engine's `_std_path`
+is False there, so no device chunk). The host loop's decode step
+evaluates its token as one row (T = 1) where the JAX engine pads it to a
+16-row chunk: the function is the same (a pad row writes nothing and no
+row reads another's output), and the pad rows would take their own
+experts through every MoE layer. Prompt chunks stay padded, so a
+fast-forwarded request re-evaluates its last prompt token in the rows it
+had.
+
 Greedy requests without host-side logit modifiers, and stochastic requests
 of the common preset (temperature, top-k, top-p, min-p, rep-pen, biases,
 bans: `device_sampler`), decode FAST_DECODE_K tokens per device chunk:
@@ -38,6 +51,7 @@ import torch
 from ..device import resolve_device
 from ..grammar.gbnf import TokenFilter
 from ..kv.cache import QuantKVCache, init_cache, stack_cache
+from ..models import deepseek2 as model_deepseek2
 from ..models import llama as model_llama
 from ..models.loader import Model
 from ..ops import flash_prefill
@@ -112,7 +126,10 @@ class Engine:
     without a GPU unless device="cpu"). The model's params must already
     live on that device. quantkv: 0 bf16 KV cache, 1 Q8, 2 Q4.
     use_smartcontext: legacy smart context (turns context shift off);
-    use_contextshift: context shift (always off under a quantized cache)."""
+    use_contextshift: context shift (always off under a quantized cache).
+    A deepseek2 / minicpm3 model takes the MLA branch (module docstring):
+    its cache stays bf16 under any quantkv, with no context shift or smart
+    context."""
 
     def __init__(self, model: Model, max_context: int = 2048, device=None,
                  quantkv: int = 0, use_smartcontext: bool = False,
@@ -122,11 +139,15 @@ class Engine:
             raise ValueError(f"model params live on {model.device}, the "
                              f"engine runs on {self.device}")
         cfg = model.cfg
-        if cfg.is_recurrent or cfg.is_embedding or cfg.is_encoder_decoder \
-                or cfg.arch in ("deepseek2", "minicpm3"):
+        if cfg.is_recurrent or cfg.is_embedding or cfg.is_encoder_decoder:
             raise NotImplementedError(
                 f"architecture {cfg.arch!r} is not ported yet")
-        model_llama.check_supported(model.params, cfg, self.device)
+        # MLA (the JAX engine's branch, engine.py:145-154, 194-198)
+        self.mla = cfg.arch in ("deepseek2", "minicpm3")
+        if self.mla:
+            use_smartcontext = use_contextshift = False
+        else:
+            model_llama.check_supported(model.params, cfg, self.device)
         self.model = model
         self.cfg = cfg
         self.tokenizer = model.tokenizer
@@ -141,12 +162,17 @@ class Engine:
                                  and not quantkv)
         # flash prefill (K4) on the card, as the JAX engine enables it off
         # the CPU (engine.py:311-313): K4's head shapes, no ALiBi
-        self.use_flash_prefill = (self.device.type == "cuda"
+        self.use_flash_prefill = (self.device.type == "cuda" and not self.mla
                                   and flash_prefill.supported(cfg.head_dim)
                                   and not cfg.use_alibi)
-        self.cache = init_cache(cfg.n_layers, 1, max_context, cfg.n_kv_heads,
-                                cfg.head_dim, device=self.device,
-                                quantized=_kv_quant(quantkv))
+        if self.mla:
+            self.cache = model_deepseek2.init_cache(cfg, 1, max_context,
+                                                    device=self.device)
+        else:
+            self.cache = init_cache(cfg.n_layers, 1, max_context,
+                                    cfg.n_kv_heads, cfg.head_dim,
+                                    device=self.device,
+                                    quantized=_kv_quant(quantkv))
         self.context_tokens: list[int] = []  # tokens currently in the cache
         self._stoch_chunks: dict[tuple, Callable] = {}
         self.abort_event = threading.Event()
@@ -160,9 +186,10 @@ class Engine:
     # -- low-level steps ---------------------------------------------------
     def _forward(self, tok: torch.Tensor, pos: torch.Tensor,
                  **kw) -> torch.Tensor:
+        forward = (model_deepseek2 if self.mla else model_llama).forward
         with torch.inference_mode():
-            logits, _ = model_llama.forward(self.model.params, self.cfg, tok,
-                                            pos, self.cache, **kw)
+            logits, _ = forward(self.model.params, self.cfg, tok, pos,
+                                self.cache, **kw)
         return logits
 
     def _eval_chunk(self, tokens: list[int], start_pos: int) -> torch.Tensor:
@@ -191,6 +218,17 @@ class Engine:
         pos = torch.tensor([[-1] * pad + list(range(start_pos, start_pos + n))],
                            dtype=torch.int64, device=self.device)
         return self._forward(tok, pos, last_only=True)[0, -1]
+
+    def _step(self, tok: int, pos: int) -> torch.Tensor:
+        """One decode token of the host loop at position pos: a 16-row
+        padded chunk (`_eval_chunk`), or on the MLA path one unpadded row
+        (module docstring). Returns its logits (1-D f32 on the device)."""
+        if not self.mla:
+            return self._eval_chunk([tok], pos)
+        return self._forward(
+            torch.tensor([[tok]], dtype=torch.int64, device=self.device),
+            torch.tensor([[pos]], dtype=torch.int64, device=self.device),
+            last_only=True)[0, -1]
 
     def eval_tokens(self, tokens: list[int], start_pos: int) -> torch.Tensor:
         """Chunked prefill (n_batch equivalent); returns logits of the last
@@ -308,8 +346,9 @@ class Engine:
     def _fast_greedy_ok(self, params: GenParams, grammar) -> bool:
         """Device-side greedy chunks match the host loop only when no
         logit-modifying host sampler is active; token bans ride an
-        on-device additive mask. Off under KCPP_FAST_DECODE=0."""
-        if os.environ.get("KCPP_FAST_DECODE", "1") != "1":
+        on-device additive mask. Off under KCPP_FAST_DECODE=0 and on the
+        MLA path (the JAX engine's `_std_path`)."""
+        if os.environ.get("KCPP_FAST_DECODE", "1") != "1" or self.mla:
             return False
         sp = params.sampler
         return (grammar is None and not params.banned_phrases
@@ -324,10 +363,10 @@ class Engine:
         rep-pen leading the order; the same distribution as the host chain
         (another draw). DRY, XTC, mirostat, dynatemp, smoothing, top-a,
         TFS, typical, grammar and anti-slop stay on the host loop. Off
-        under KCPP_FAST_DECODE=0."""
+        under KCPP_FAST_DECODE=0 and on the MLA path."""
         from .device_sampler import supported_order
 
-        if os.environ.get("KCPP_FAST_DECODE", "1") != "1":
+        if os.environ.get("KCPP_FAST_DECODE", "1") != "1" or self.mla:
             return False
         sp = params.sampler
         if not (grammar is None and not params.banned_phrases
@@ -610,8 +649,8 @@ class Engine:
                 if on_token:
                     on_token(qt, qp)
 
-            logits = self._eval_chunk([tok], len(self.context_tokens)
-                                      ).float().cpu().numpy()
+            logits = self._step(tok, len(self.context_tokens)
+                                ).float().cpu().numpy()
             self.context_tokens.append(tok)
 
         for _, qt, qp in stream_q:  # flush held-back pieces
@@ -636,8 +675,8 @@ class Engine:
     def _replay_logits(self) -> np.ndarray:
         """Recompute logits at the current context tail (after a rewind)."""
         last = self.context_tokens[-1]
-        return self._eval_chunk([last], len(self.context_tokens) - 1
-                                ).float().cpu().numpy()
+        return self._step(last, len(self.context_tokens) - 1
+                          ).float().cpu().numpy()
 
     # -- utility API -------------------------------------------------------
     def token_count(self, text: str) -> list[int]:
@@ -657,10 +696,11 @@ class Engine:
                 "as bf16 values")
 
     def save_state(self, path: str):
-        """The bf16 cache as k / v stacked (L, B, S, H, D), the context
-        tokens (int64) and max_context, in one compressed npz. bf16 goes
-        as 2-byte void ('<V2'), the bytes numpy writes for the JAX
-        package's bfloat16, so no bf16 numpy dtype is needed to read it."""
+        """The bf16 cache as k / v stacked (L, B, S, H, D; the MLA cache's
+        K and V rows of their own widths), the context tokens (int64) and
+        max_context, in one compressed npz. bf16 goes as 2-byte void
+        ('<V2'), the bytes numpy writes for the JAX package's bfloat16, so
+        no bf16 numpy dtype is needed to read it."""
         self._refuse_quantized("save_state")
         st = stack_cache(self.cache)
 
@@ -688,7 +728,7 @@ class Engine:
 
         k, v = tensor(data["k"]), tensor(data["v"])
         L = len(self.cache.k)
-        if k.dim() != 5 or k.shape[0] != L or v.shape != k.shape:
+        if k.dim() != 5 or k.shape[0] != L or v.shape[:4] != k.shape[:4]:
             raise ValueError(f"state k / v of shape {tuple(k.shape)} do not "
                              f"fit this cache ({L} layers)")
         with torch.inference_mode():

@@ -1,15 +1,20 @@
 """Llama-family forward pass in PyTorch: the dense decoder-only
 transformers of the JAX `forward` (llama / mistral / qwen2 / gemma /
 gemma2 / phi2 / gpt2 / gpt-neox / gpt-j / falcon / starcoder(2) / mpt /
-bloom / olmo / nemotron / command-r / chameleon and their twins): GQA and
-MQA, RMS or layer norms with biases, q/k/v, output and FFN biases, fused
-wqkv / w_gateup projections, gated (silu, gelu) and non-gated (gelu,
-exact gelu, relu²) FFNs, parallel residual, learned positions and the
-embedding layer norm, rope-less attention, ALiBi, clamp_kqv, QK-norm
-(flat RMS, or chameleon's per-head layer norm), gemma2's sandwich norms
-and sliding window with its layer pattern, attention and final-logit
-softcaps. Under KCPP_FFN_FUSED=1 a q4_k silu FFN of at most 8 tokens runs
-as one launch (K15, ops/ffn_fused.py), as in the JAX `_ffn`.
+bloom / olmo / nemotron / command-r / chameleon / openelm / plamo /
+bitnet / jais and their twins): GQA and MQA, RMS or layer norms with
+biases, q/k/v, output and FFN biases, fused wqkv / w_gateup projections,
+gated (silu, gelu) and non-gated (gelu, exact gelu, relu²) FFNs, parallel
+residual, learned positions and the embedding layer norm, rope-less
+attention, ALiBi, clamp_kqv, QK-norm (flat RMS, chameleon's per-head layer
+norm, openelm's per-head RMS norm), gemma2's sandwich norms and sliding
+window with its layer pattern, attention and final-logit softcaps,
+chameleon's swin norm (the norm after each branch), openelm's per-layer
+head counts (the narrower layers' K / V padded up to the cache's heads),
+plamo's one norm feeding both branches, bitnet's sub-norms and
+per-projection scale scalars. Under KCPP_FFN_FUSED=1 a q4_k silu FFN of at
+most 8 tokens runs as one launch (K15, ops/ffn_fused.py), as in the JAX
+`_ffn`.
 
 Port of koboldcpp_tpu/models/llama.py `forward`, `forward_paged` and the
 layer-stacked scan decode path (`stack_layers`, `forward_stacked`). The
@@ -36,9 +41,7 @@ layer's weights as views through the regular kernels and the plain
 `attention`. It raises NotImplementedError wherever the JAX scan body
 computes another function than `forward`. K16 (`flash_decode.decode_
 attention`, the read-only single-sequence decode) lies on no path of the
-JAX package, and of the port neither. The branches of the JAX forward
-that the port does not serve (swin norm, openelm, plamo, bitnet, jais)
-raise NotImplementedError in `check_supported`.
+JAX package, and of the port neither.
 
 Sparse MoE layers (mixtral, qwen2moe with its shared expert, olmoe,
 granitemoe, dbrx, grok, and arctic's residual MoE branch) run `_moe_ffn`
@@ -95,41 +98,35 @@ def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return x
 
 
+def _head_counts(cfg: ModelConfig, li: int) -> tuple[int, int]:
+    """Layer li's (query heads, kv heads): openelm's per-layer counts, or
+    the config's."""
+    ex = cfg.extras or {}
+    hc, kvc = ex.get("head_counts"), ex.get("kv_head_counts")
+    return (hc[li] if hc else cfg.n_heads,
+            kvc[li] if kvc else cfg.n_kv_heads)
+
+
 def check_supported(params: Params, cfg: ModelConfig, device=None) -> None:
-    """Raise NotImplementedError, naming the branch, for configs / params
-    that need a branch of the JAX forward the port does not serve (swin
-    norm, openelm's per-layer heads and per-head QK RMS norm, plamo's
-    shared-norm parallel branch, bitnet, jais), or (on a CUDA
-    `device`) a head shape that the T=1 attention kernels (K5, K6, K8-K10)
-    are not built for. K4 is built for head_dim 64, 128 and 256, the
-    shapes the JAX engine turns flash prefill on for; the engine leaves it
-    off for any other."""
+    """Raise NotImplementedError, on a CUDA `device`, for a head shape that
+    the T=1 attention kernels (K5, K6, K8-K10) are not built for: each
+    layer's query heads over the cache's kv heads, on the layers that reach
+    them (openelm's narrower layers, with fewer kv heads, do not). K4 is
+    built for head_dim 64, 128 and 256, the shapes the JAX engine turns
+    flash prefill on for; the engine leaves it off for any other."""
     if (torch.device(device or "cpu").type == "cuda"
             and flash_decode.supported_batched(1, cfg.n_kv_heads,
                                                cfg.head_dim)):
-        flash_decode.check_kernel_shape(cfg.n_heads, cfg.n_kv_heads,
-                                        cfg.head_dim)
-    ex = cfg.extras or {}
-    why = None
-    if ex.get("swin_norm"):
-        why = "swin norm (chameleon's norm after the branch)"
-    elif (ex.get("head_counts") or ex.get("kv_head_counts")
-          or ex.get("qk_head_rms")):
-        why = "openelm's per-layer head counts and per-head QK RMS norm"
-    elif ex.get("plamo_parallel"):
-        why = "plamo's shared-norm parallel branch"
-    elif ex.get("bitnet"):
-        why = "bitnet"
-    elif cfg.arch == "jais":
-        why = "jais"
-    if why:
-        raise NotImplementedError(f"{why} is not ported to the PyTorch "
-                                  "forward yet")
+        heads = {nh for nh, nkv in (_head_counts(cfg, li)
+                                    for li in range(cfg.n_layers))
+                 if nkv == cfg.n_kv_heads}
+        for nh in sorted(heads):
+            flash_decode.check_kernel_shape(nh, cfg.n_kv_heads, cfg.head_dim)
 
 
-# layer keys under which the JAX `_ffn` keeps the composed FFN (its
-# bitnet keys never reach this forward)
-_FFN_UNFUSED_KEYS = ("b_gate", "b_up", "b_down")
+# layer keys under which the JAX `_ffn` keeps the composed FFN
+_FFN_UNFUSED_KEYS = ("b_gate", "b_up", "b_down", "ffn_sub_norm",
+                     "ffn_down_scale")
 
 # the JAX `_ffn` activation table: any other name is tanh-gelu
 _ACTS = {"silu": F.silu, "gelu_exact": F.gelu,
@@ -187,13 +184,14 @@ def _causal_mask(positions: torch.Tensor, S: int,
 
 class _PlainAttention:
     """The plain `attention` of one forward over S cache slots: the causal
-    and the sliding-window masks and the ALiBi bias, each built on first
-    use and shared by the layers."""
+    and the sliding-window masks and the ALiBi bias (per query-head count:
+    openelm's layers differ), each built on first use and shared by the
+    layers."""
 
     def __init__(self, cfg: ModelConfig, positions: torch.Tensor, S: int):
         self.cfg, self.positions, self.S = cfg, positions, S
         self._masks: dict = {}
-        self._bias = None
+        self._bias: dict = {}
 
     def __call__(self, q, ck, cv, scale: float, local: bool):
         cfg = self.cfg
@@ -201,24 +199,49 @@ class _PlainAttention:
         if mask is None:
             mask = self._masks[local] = _causal_mask(
                 self.positions, self.S, cfg.sliding_window if local else 0)
-        if cfg.use_alibi and self._bias is None:
-            # slope * (k_pos - q_pos), (B, H, T, S)
-            pos = self.positions
-            dist = (torch.arange(self.S, device=pos.device)[None, None, :]
-                    - pos[:, :, None]).float()
-            self._bias = (alibi_slopes(cfg.n_heads, cfg.alibi_bias_max,
-                                       pos.device)[None, :, None, None]
-                          * dist[:, None, :, :])
+        bias = None
+        if cfg.use_alibi:
+            nh = q.shape[2]
+            bias = self._bias.get(nh)
+            if bias is None:
+                # slope * (k_pos - q_pos), (B, H, T, S)
+                pos = self.positions
+                dist = (torch.arange(self.S, device=pos.device)[None, None, :]
+                        - pos[:, :, None]).float()
+                bias = self._bias[nh] = (
+                    alibi_slopes(nh, cfg.alibi_bias_max,
+                                 pos.device)[None, :, None, None]
+                    * dist[:, None, :, :])
         return attention(q, ck, cv, mask, scale, cfg.attn_logit_softcap,
-                         self._bias)
+                         bias)
+
+
+def _pad_kv(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor):
+    """openelm's narrower layers: K / V padded with zero heads up to the
+    cache's n_kv_heads (the JAX forward's write; the pad heads are never
+    read). Other layers: k, v as they are."""
+    pad = cfg.n_kv_heads - k.shape[2]
+    if not pad:
+        return k, v
+    z = k.new_zeros(*k.shape[:2], pad, k.shape[3])
+    return torch.cat([k, z], dim=2), torch.cat([v, z.to(v.dtype)], dim=2)
+
+
+def _scaled(y: torch.Tensor, layer: Params, key: str) -> torch.Tensor:
+    """bitnet's per-projection scalar weight scale, where the layer has
+    one (the JAX `_scaled`)."""
+    s = layer.get(key)
+    return y if s is None else y * s.to(y.dtype)
 
 
 def _ffn(x: torch.Tensor, layer: Params, act: str = "silu",
-         gated: bool = True) -> torch.Tensor:
+         gated: bool = True, eps: float = 1e-5) -> torch.Tensor:
     """The JAX `_ffn`: up -> act -> down with `b_up` / `b_down` where not
-    gated; else act(gate) * up -> down with `b_gate` / `b_up` / `b_down`.
-    The activation runs in f32 on the gate (or up) and is cast back to x's
-    dtype. K15 takes only a silu FFN with none of the biases."""
+    gated; else act(gate) * up -> down with `b_gate` / `b_up` / `b_down`,
+    bitnet's scales on the unfused projections and its `ffn_sub_norm`
+    (RMS, eps) before down. The activation runs in f32 on the gate (or up)
+    and is cast back to x's dtype. K15 takes only a silu FFN with none of
+    the biases, sub-norm or scales."""
     actf = _ACTS.get(act, _GELU_TANH)
     if not gated:  # gpt2 / neox style
         up = linear.matmul(x, layer["w_up"])
@@ -238,14 +261,17 @@ def _ffn(x: torch.Tensor, layer: Params, act: str = "silu",
         F_ = gu.shape[-1] // 2
         gate, up = gu[..., :F_], gu[..., F_:]
     else:
-        gate = linear.matmul(x, layer["w_gate"])
-        up = linear.matmul(x, layer["w_up"])
+        gate = _scaled(linear.matmul(x, layer["w_gate"]), layer,
+                       "ffn_gate_scale")
+        up = _scaled(linear.matmul(x, layer["w_up"]), layer, "ffn_up_scale")
     if "b_gate" in layer:
         gate = gate + layer["b_gate"].to(gate.dtype)
     if "b_up" in layer:
         up = up + layer["b_up"].to(up.dtype)
     a = actf(gate.float()).to(x.dtype) * up
-    down = linear.matmul(a, layer["w_down"])
+    if "ffn_sub_norm" in layer:  # bitnet: RMS between activation and down
+        a = rms_norm(a, layer["ffn_sub_norm"], eps)
+    down = _scaled(linear.matmul(a, layer["w_down"]), layer, "ffn_down_scale")
     if "b_down" in layer:
         down = down + layer["b_down"].to(down.dtype)
     return down
@@ -366,11 +392,12 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                                  cfg.head_dim))
 
     def attend(li, q, k, v, scale, local):
+        nh, nkv = q.shape[2], k.shape[2]
         if prefill and not local:
             # prefill from position 0: the chunk is the entire context
-            kv_write(cache, li, positions, k, v)
+            kv_write(cache, li, positions, *_pad_kv(cfg, k, v))
             return flash_prefill_attention(q, k, v, positions, scale)
-        if decode and not local:
+        if decode and not local and nkv == cfg.n_kv_heads:
             # single-token decode: K5 (K6 over the Q8 cache) reads the
             # history rows below each position and writes this step's K/V
             # row into the cache
@@ -378,16 +405,15 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 out = flash_decode.decode_attention_batched_q8(
                     q[:, 0], k[:, 0], v[:, 0], cache.k[li], cache.v[li],
                     cache.k_scale[li], cache.v_scale[li], positions[:, 0],
-                    cfg.n_heads, cfg.n_kv_heads, scale, softcap)[0]
+                    nh, nkv, scale, softcap)[0]
             else:
                 out = flash_decode.decode_attention_batched(
                     q[:, 0], k[:, 0], v[:, 0], cache.k[li], cache.v[li],
-                    positions[:, 0], cfg.n_heads, cfg.n_kv_heads, scale,
-                    softcap)[0]
+                    positions[:, 0], nh, nkv, scale, softcap)[0]
             return out[:, None]
-        kv_write(cache, li, positions, k, v)
+        kv_write(cache, li, positions, *_pad_kv(cfg, k, v))
         ck, cv = kv_read(cache, li)
-        return plain(q, ck, cv, scale, local)
+        return plain(q, ck[:, :, :nkv], cv[:, :, :nkv], scale, local)
     return _run(params, cfg, tokens, positions, attend, last_only,
                 last_index), cache
 
@@ -411,8 +437,9 @@ def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                                  cfg.head_dim))
 
     def attend(li, q, k, v, scale, local):
-        if decode and not local:
-            args = (cfg.n_heads, cfg.n_kv_heads, P, scale, softcap)
+        nh, nkv = q.shape[2], k.shape[2]
+        if decode and not local and nkv == cfg.n_kv_heads:
+            args = (nh, nkv, P, scale, softcap)
             if not pcache.quantized:
                 out = flash_decode.decode_attention_paged(
                     q[:, 0], k[:, 0], v[:, 0], pcache.k[li], pcache.v[li],
@@ -426,9 +453,9 @@ def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                            pcache.v_scale[li], page_table, positions[:, 0],
                            *args)[0]
             return out[:, None]
-        paged.write(pcache, li, page_table, positions, k, v)
+        paged.write(pcache, li, page_table, positions, *_pad_kv(cfg, k, v))
         ck, cv = paged.gather(pcache, li, page_table)
-        return plain(q, ck, cv, scale, local)
+        return plain(q, ck[:, :, :nkv], cv[:, :, :nkv], scale, local)
     return _run(params, cfg, tokens, positions, attend, last_only), pcache
 
 
@@ -438,9 +465,10 @@ def _run(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
          layers=None) -> torch.Tensor:
     """The layer stack around `attend(li, q, k, v, scale, local)`, which
     writes this chunk's K/V and returns the attention output (B, T, H, D);
-    `local` marks a sliding-window layer. The branches and their order are
-    the JAX `forward`'s. layers: the per-layer params (default
-    params["layers"])."""
+    `local` marks a sliding-window layer; q carries the layer's query heads
+    and k / v its kv heads (openelm's differ by layer). The branches and
+    their order are the JAX `forward`'s. layers: the per-layer params
+    (default params["layers"])."""
     B, T = tokens.shape
     dev = tokens.device
     freqs = _freqs(cfg, dev) if cfg.use_rope else None
@@ -459,15 +487,20 @@ def _run(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     if "tok_norm" in params:  # bloom's embedding layer norm
         x = layer_norm(x, params["tok_norm"], params.get("tok_norm_bias"), eps)
 
-    qdim = cfg.n_heads * cfg.head_dim
-    kvdim = cfg.n_kv_heads * cfg.head_dim
+    D = cfg.head_dim
     res_s = cfg.residual_scale or 1.0
-    per_head_qk = bool((cfg.extras or {}).get("qk_norm_per_head"))
+    ex = cfg.extras or {}
+    per_head_qk = bool(ex.get("qk_norm_per_head"))
+    head_rms = bool(ex.get("qk_head_rms"))  # openelm: (D,) RMS per head
+    swin = bool(ex.get("swin_norm"))  # chameleon: the norm after a branch
     for li, layer in enumerate(params["layers"] if layers is None
                                else layers):
         x0 = x  # the layer input (arctic's residual MoE branch reads it)
-        h = _norm(x, layer, "attn_norm", cfg)
-        if "wqkv" in layer:  # fused projection (one kernel launch)
+        nh, nkv = _head_counts(cfg, li)
+        qdim, kvdim = nh * D, nkv * D
+        h = x if swin else _norm(x, layer, "attn_norm", cfg)
+        if "wqkv" in layer:  # fused projection (one kernel launch; openelm:
+            # head-major [q heads | k heads | v heads], the same slices)
             qkv = linear.matmul(h, layer["wqkv"])
             if "bqkv" in layer:
                 qkv = qkv + layer["bqkv"].to(qkv.dtype)
@@ -475,9 +508,9 @@ def _run(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             k = qkv[..., qdim:qdim + kvdim]
             v = qkv[..., qdim + kvdim:]
         else:
-            q = linear.matmul(h, layer["wq"])
-            k = linear.matmul(h, layer["wk"])
-            v = linear.matmul(h, layer["wv"])
+            q = _scaled(linear.matmul(h, layer["wq"]), layer, "wq_scale")
+            k = _scaled(linear.matmul(h, layer["wk"]), layer, "wk_scale")
+            v = _scaled(linear.matmul(h, layer["wv"]), layer, "wv_scale")
         if "bq" in layer:
             q = q + layer["bq"].to(q.dtype)
             k = k + layer["bk"].to(k.dtype)
@@ -485,13 +518,16 @@ def _run(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         if cfg.clamp_kqv > 0:  # mpt clip_qkv
             c = cfg.clamp_kqv
             q, k, v = (t.clamp(-c, c) for t in (q, k, v))
-        if "attn_q_norm" in layer and not per_head_qk:
+        if "attn_q_norm" in layer and not (per_head_qk or head_rms):
             # QK RMS norm over the flat projection
             q = rms_norm(q, layer["attn_q_norm"], eps)
             k = rms_norm(k, layer["attn_k_norm"], eps)
-        q = q.reshape(B, T, cfg.n_heads, cfg.head_dim)
-        k = k.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
-        v = v.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+        q = q.reshape(B, T, nh, D)
+        k = k.reshape(B, T, nkv, D)
+        v = v.reshape(B, T, nkv, D)
+        if "attn_q_norm" in layer and head_rms:
+            q = rms_norm(q, layer["attn_q_norm"], eps)
+            k = rms_norm(k, layer["attn_k_norm"], eps)
         if "attn_q_norm" in layer and per_head_qk:
             # chameleon: per-head layer norm with (H, D) affine
             q = layer_norm(q, layer["attn_q_norm"],
@@ -503,24 +539,34 @@ def _run(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             k = apply_rope(k, positions, freqs, cfg.rope_type, cfg.rope_dim)
 
         attn_out = attend(li, q, k, v, scale, _is_local(cfg, li))
-        attn_out = linear.matmul(attn_out.to(x.dtype).reshape(B, T, qdim),
-                                 layer["wo"])
+        attn_out = attn_out.to(x.dtype).reshape(B, T, qdim)
+        if "attn_sub_norm" in layer:  # bitnet: RMS between attention and wo
+            attn_out = rms_norm(attn_out, layer["attn_sub_norm"], eps)
+        attn_out = _scaled(linear.matmul(attn_out, layer["wo"]), layer,
+                           "wo_scale")
         if "bo" in layer:
             attn_out = attn_out + layer["bo"].to(attn_out.dtype)
         if "attn_post_norm" in layer:  # gemma2 sandwich norm, grok
             attn_out = rms_norm(attn_out, layer["attn_post_norm"], eps)
-        if cfg.parallel_residual:  # neox / gptj: both branches read x
+        if swin:
+            attn_out = _norm(attn_out, layer, "attn_norm", cfg)
+        if ex.get("plamo_parallel"):  # plamo: the FFN reads attn_norm's h
+            ffn_in = h
+            x = x + res_s * attn_out
+        elif cfg.parallel_residual:  # neox / gptj: both branches read x
             ffn_in = _norm(x, layer, "ffn_norm", cfg)
             x = x + res_s * attn_out
         else:
             x = x + res_s * attn_out
-            ffn_in = _norm(x, layer, "ffn_norm", cfg)
+            ffn_in = x if swin else _norm(x, layer, "ffn_norm", cfg)
         if "ffn_gate_inp" in layer and "ffn_norm_exps" not in layer:
             ffn_out = _moe_ffn(ffn_in, layer, cfg)
         else:
-            ffn_out = _ffn(ffn_in, layer, cfg.act, cfg.ffn_gated)
+            ffn_out = _ffn(ffn_in, layer, cfg.act, cfg.ffn_gated, eps)
         if "ffn_post_norm" in layer:  # gemma2 sandwich norm, grok
             ffn_out = rms_norm(ffn_out, layer["ffn_post_norm"], eps)
+        if swin:
+            ffn_out = _norm(ffn_out, layer, "ffn_norm", cfg)
         x = x + res_s * ffn_out
         if "ffn_norm_exps" in layer:
             # arctic: a residual MoE branch on the layer input, added after
@@ -633,11 +679,24 @@ def check_stacked_supported(params: Params, cfg: ModelConfig, cache,
     learned positions or embedding norm, clamp_kqv or QK-norm, no MoE
     layer, and rotates every K; its pooled path takes a bf16 KVCache, not a quantized one. It
     does take the sliding window with its layer pattern, the sandwich
-    norms and the FFN's activation."""
+    norms and the FFN's activation. Of the later branches it drops
+    chameleon's swin norm (it norms before each branch), openelm's
+    per-layer heads (such layers do not stack), plamo's shared norm (it
+    reads an `ffn_norm` plamo lacks) and bitnet's attention sub-norm and
+    q / k / v / o scales; jais is refused by its layer norm and biases."""
     check_supported(params, cfg, device)
-    stacked = params["layers_stacked"]
+    ex = cfg.extras or {}
+    stacked = params.get("layers_stacked", {})
     why = None
-    if isinstance(cache, QuantKVCache):
+    if ex.get("swin_norm"):
+        why = "swin norm"
+    elif ex.get("head_counts"):
+        why = "openelm's per-layer head counts"
+    elif ex.get("plamo_parallel"):
+        why = "plamo's shared-norm parallel branch"
+    elif ex.get("bitnet"):
+        why = "bitnet's sub-norms and projection scales"
+    elif isinstance(cache, QuantKVCache):
         why = "a quantized KV cache"
     elif "bqkv" in stacked or "bo" in stacked:
         why = "a qkv / output projection bias (bqkv / bo)"

@@ -11,7 +11,10 @@ row-fusing same-type q/k/v and gate/up projections into `wqkv` / `w_gateup`
 (one kernel launch per group). GGUF LoRA adapters merge at load into dense
 bf16 weights (`LoraAdapter`); legacy GGML / GGMF / GGJT containers and the
 pre-GGUF gpt-j / gpt-neox / mpt / gpt-2 files load through
-`gguf/legacy.py`'s readers.
+`gguf/legacy.py`'s readers. bitnet's sub-norms and per-projection scale
+scalars load too, and its scaled projections stay unfused (the JAX
+loader's `has_scales` rule); deepseek2 / minicpm3 files load through
+models/deepseek2.py's `load_params`, as in the JAX loader.
 """
 from __future__ import annotations
 
@@ -160,19 +163,23 @@ def load_params(reader: GGUFReader, cfg: ModelConfig, packed: bool = True,
         }
         if p + "ffn_norm.weight" in names:
             layer["ffn_norm"] = dense(p + "ffn_norm.weight")
+        # bitnet's per-projection scalar scales: fusing would merge
+        # differently scaled projections, so they stay split
+        has_scales = (p + "attn_q.scale" in names
+                      or p + "ffn_up.scale" in names)
         if p + "attn_qkv.weight" in names:  # pre-fused projection
             layer["wqkv"] = qt(p + "attn_qkv.weight")
         else:
-            qkv = fused([p + "attn_q.weight", p + "attn_k.weight",
-                         p + "attn_v.weight"])
+            qkv = None if has_scales else fused(
+                [p + "attn_q.weight", p + "attn_k.weight",
+                 p + "attn_v.weight"])
             if qkv is not None:
                 layer["wqkv"] = qkv
             else:
                 layer["wq"] = qt(p + "attn_q.weight")
                 layer["wk"] = qt(p + "attn_k.weight")
                 layer["wv"] = qt(p + "attn_v.weight")
-        # norms, biases and arctic's MoE norm (bitnet's config is refused
-        # by the forward's check_supported)
+        # norms, biases, bitnet's sub-norms and scales, arctic's MoE norm
         for key, tname in (("attn_post_norm", "attn_post_norm.weight"),
                            ("ffn_post_norm", "ffn_post_norm.weight"),
                            # grok's RMS post-norms on both branch outputs
@@ -183,6 +190,15 @@ def load_params(reader: GGUFReader, cfg: ModelConfig, packed: bool = True,
                            ("attn_q_norm_bias", "attn_q_norm.bias"),
                            ("attn_k_norm_bias", "attn_k_norm.bias"),
                            ("ffn_norm_exps", "ffn_norm_exps.weight"),
+                           ("attn_sub_norm", "attn_sub_norm.weight"),
+                           ("ffn_sub_norm", "ffn_sub_norm.weight"),
+                           ("wq_scale", "attn_q.scale"),
+                           ("wk_scale", "attn_k.scale"),
+                           ("wv_scale", "attn_v.scale"),
+                           ("wo_scale", "attn_output.scale"),
+                           ("ffn_gate_scale", "ffn_gate.scale"),
+                           ("ffn_up_scale", "ffn_up.scale"),
+                           ("ffn_down_scale", "ffn_down.scale"),
                            ("bq", "attn_q.bias"), ("bk", "attn_k.bias"),
                            ("bv", "attn_v.bias"), ("bqkv", "attn_qkv.bias"),
                            ("bo", "attn_output.bias"),
@@ -214,7 +230,7 @@ def load_params(reader: GGUFReader, cfg: ModelConfig, packed: bool = True,
                 layer["w_gateup"] = qt(p + "ffn_up.weight")  # pre-fused
             elif p + "ffn_gate.weight" in names:
                 gu = None
-                if p + "ffn_gate.bias" not in names:
+                if not has_scales and p + "ffn_gate.bias" not in names:
                     gu = fused([p + "ffn_gate.weight", p + "ffn_up.weight"])
                 if gu is not None:
                     layer["w_gateup"] = gu
@@ -270,10 +286,15 @@ def load_model(path: str, packed: bool = True, dtype=torch.bfloat16,
     with reader_cls(path) as r:
         cfg = config_from_metadata(r.metadata)
         tokenizer = Tokenizer.from_metadata(r.metadata)
-        if cfg.is_recurrent or cfg.is_embedding or cfg.is_encoder_decoder \
-                or cfg.arch in ("deepseek2", "minicpm3"):
+        if cfg.is_recurrent or cfg.is_embedding or cfg.is_encoder_decoder:
             raise NotImplementedError(
                 f"architecture {cfg.arch!r} is not ported yet")
+        if cfg.arch in ("deepseek2", "minicpm3"):  # MLA (JAX :294-297)
+            from . import deepseek2
+
+            params = deepseek2.load_params(r, cfg, packed=packed,
+                                           dtype=dtype, device=dev)
+            return Model(cfg, params, tokenizer, dev)
         params = load_params(r, cfg, packed=packed, dtype=dtype, device=dev,
                              loras=adapters or None)
     check_supported(params, cfg, dev)

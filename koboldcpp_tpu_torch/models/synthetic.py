@@ -363,20 +363,122 @@ def _moe_layer(cfg: ModelConfig, rng, seed: int, li: int, dev) -> dict:
             "ffn_down_exps": stack(E, C, Fe)}
 
 
+def _placeholder_tokenizer(vocab_size: int):
+    """A vocabulary of `tok{i}` pieces (the JAX bench's served-model
+    tokenizer)."""
+    from ..tokenizers import Tokenizer
+    from ..tokenizers.vocab import vocab_from_metadata
+
+    md = {"tokenizer.ggml.model": "gpt2",
+          "tokenizer.ggml.tokens": [f"tok{i}" for i in range(vocab_size)],
+          "tokenizer.ggml.token_type": np.full(vocab_size, 1, np.int32),
+          "tokenizer.ggml.bos_token_id": np.uint32(1),
+          "tokenizer.ggml.eos_token_id": np.uint32(2),
+          "tokenizer.ggml.add_bos_token": False}
+    return Tokenizer(vocab_from_metadata(md))
+
+
 def synthetic_model(cfg: ModelConfig, kind: str = "q4_k", seed: int = 0,
                     device=None):
     """A servable Model: synthetic_params plus a placeholder vocabulary of
     `tok{i}` pieces (the JAX bench's served-model tokenizer)."""
-    from ..tokenizers import Tokenizer
-    from ..tokenizers.vocab import vocab_from_metadata
     from .loader import Model
 
     dev = resolve_device(device)
-    md = {"tokenizer.ggml.model": "gpt2",
-          "tokenizer.ggml.tokens": [f"tok{i}" for i in range(cfg.vocab_size)],
-          "tokenizer.ggml.token_type": np.full(cfg.vocab_size, 1, np.int32),
-          "tokenizer.ggml.bos_token_id": np.uint32(1),
-          "tokenizer.ggml.eos_token_id": np.uint32(2),
-          "tokenizer.ggml.add_bos_token": False}
     return Model(cfg, synthetic_params(cfg, kind, seed, dev),
-                 Tokenizer(vocab_from_metadata(md)), dev)
+                 _placeholder_tokenizer(cfg.vocab_size), dev)
+
+
+# DeepSeek-V2-Lite's GGUF keys (deepseek-ai/DeepSeek-V2-Lite config.json:
+# hidden 2048, 27 layers, 16 heads, no q-LoRA, kv_lora_rank 512, qk_nope
+# 128 + qk_rope 64, v_head 128, first_k_dense_replace 1 at intermediate
+# 10944, 64 routed experts of 1408 with top-6 not renormalized and
+# routed_scaling_factor 1.0, 2 shared experts, YaRN factor 40 over 4096
+# with mscale_all_dim 0.707, rope theta 10000, vocab 102400)
+DEEPSEEK_V2_LITE_MD = {
+    "general.architecture": "deepseek2", "deepseek2.vocab_size": 102400,
+    "deepseek2.context_length": 163840, "deepseek2.embedding_length": 2048,
+    "deepseek2.block_count": 27, "deepseek2.feed_forward_length": 10944,
+    "deepseek2.expert_feed_forward_length": 1408,
+    "deepseek2.attention.head_count": 16,
+    "deepseek2.attention.head_count_kv": 16,
+    "deepseek2.attention.key_length": 192,
+    "deepseek2.attention.value_length": 128,
+    "deepseek2.attention.kv_lora_rank": 512,
+    "deepseek2.attention.layer_norm_rms_epsilon": 1e-6,
+    "deepseek2.rope.freq_base": 10000.0,
+    "deepseek2.rope.dimension_count": 64,
+    "deepseek2.rope.scaling.type": "yarn",
+    "deepseek2.rope.scaling.factor": 40.0,
+    "deepseek2.rope.scaling.original_context_length": 4096,
+    "deepseek2.rope.scaling.yarn_log_multiplier": 0.0707,
+    "deepseek2.leading_dense_block_count": 1,
+    "deepseek2.expert_count": 64, "deepseek2.expert_used_count": 6,
+    "deepseek2.expert_shared_count": 2,
+    "deepseek2.expert_weights_scale": 1.0,
+}
+
+
+def synthetic_deepseek2_model(md: dict, seed: int = 0, device=None):
+    """A servable DeepSeek-V2 Model from GGUF keys (`config_from_metadata`;
+    kv_lora_rank and the shared-expert count from their keys, which the
+    config does not keep), with the tensors models/deepseek2.py's
+    `load_params` gives: zero-mean q4_k (`rand_q4k_centered`) wq (or wq_a /
+    wq_b with an attention.q_lora_rank key), wkv_a_mqa, wkv_b, wo, the dense
+    lead layers' w_gate / w_up and the shared experts; the lead layers'
+    w_down as q8_0 where its in_f is not a multiple of 256 (the type
+    tools/quantize.py's Q4_K_M recipe writes for such a row, which
+    `from_gguf` packs as q8_0), q4_k otherwise; a q6_k head, a bf16
+    embedding, f32 norms and router, and the routed experts' dense bf16
+    stacks made on the device (`_moe_layer`)."""
+    from .config import config_from_metadata
+    from .loader import Model
+
+    dev = resolve_device(device)
+    arch = md["general.architecture"]
+    cfg = config_from_metadata(md)
+    rank = int(md[f"{arch}.attention.kv_lora_rank"])
+    q_rank = int(md.get(f"{arch}.attention.q_lora_rank", 0) or 0)
+    n_shared = int(md.get(f"{arch}.expert_shared_count", 0) or 0)
+    rng = np.random.default_rng(seed)
+    C, H, dk = cfg.hidden_size, cfg.n_heads, cfg.head_dim
+    dv = cfg.extras["v_head_dim"]
+    d_nope = dk - cfg.rope_dim
+    lead = cfg.extras.get("dense_lead", 0)
+
+    def q4(out_f, in_f):
+        return rand_q4k_centered(rng, out_f, in_f, dev)
+
+    def norm(n):
+        return torch.from_numpy(
+            1.0 + rng.standard_normal(n).astype(np.float32) * 0.01).to(dev)
+
+    params: dict = {
+        "tok_embd": _rand_dense(rng, (cfg.vocab_size, C), dev),
+        "output_norm": norm(C),
+        "output": rand_q6k(rng, cfg.vocab_size, C, dev),
+        "layers": [],
+    }
+    for li in range(cfg.n_layers):
+        layer = {"attn_norm": norm(C), "ffn_norm": norm(C),
+                 "wkv_a_mqa": q4(rank + cfg.rope_dim, C),
+                 "kv_a_norm": norm(rank),
+                 "wkv_b": q4(H * (d_nope + dv), rank),
+                 "wo": q4(C, H * dv)}
+        if q_rank:
+            layer.update(wq_a=q4(q_rank, C), q_a_norm=norm(q_rank),
+                         wq_b=q4(H * dk, q_rank))
+        else:
+            layer["wq"] = q4(H * dk, C)
+        if li < lead:
+            F_ = cfg.intermediate_size
+            down = rand_q8_0 if F_ % QK_K else rand_q4k_centered
+            layer.update(w_gate=q4(F_, C), w_up=q4(F_, C),
+                         w_down=down(rng, C, F_, dev))
+        else:
+            Fs = cfg.expert_ffn_size * n_shared
+            layer.update(_moe_layer(cfg, rng, seed, li, dev))
+            layer.update(ffn_gate_shexp=q4(Fs, C), ffn_up_shexp=q4(Fs, C),
+                         ffn_down_shexp=q4(C, Fs))
+        params["layers"].append(layer)
+    return Model(cfg, params, _placeholder_tokenizer(cfg.vocab_size), dev)

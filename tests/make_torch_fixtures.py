@@ -34,14 +34,28 @@ embedding and logit scales of its config). The quantizer keeps the
 expert stacks 3-D (q4_k, the down stack q6_k on layer 1) and quantizes the
 router to q4_k.
 
+The late fixtures (late.json: tiny-{deepseek2,minicpm3,chameleon_swin,
+openelm,bitnet,jais,plamo}-q4_k_m) are made the same way at hidden 256:
+a transformers DeepSeek-V2 "lite" model (no q-LoRA; kv_lora_rank 256, 4
+heads of 64 + 32 roped dims, v_head_dim 64, a dense lead layer, then 8
+experts of 256 with top-2 scaled by 1.5 and one shared expert), MiniCPM3
+(the same converter with q_lora_rank 256 and every layer dense, written
+under the minicpm3 architecture as tests/test_deepseek2.py writes it),
+Chameleon with swin norm, and hand-written f32 files of openelm (heads 4
+and 2 over kv heads 2 and 1 by layer, FFN widths 512 and 256), bitnet
+(sub-norms and scale scalars), jais (ALiBi, biases) and plamo, each with
+the tensors of tests/test_archs_r2.py's case at these widths.
+
 The logits are the JAX package's `forward` (packed weights, f32 cache and
-activations, on the CPU) over the refgguf manifest's 12 tokens. They are
-the JAX package's own numbers, not reference-runtime goldens.
+activations, on the CPU; models/deepseek2.py's for deepseek2 / minicpm3)
+over the refgguf manifest's 12 tokens. They are the JAX package's own
+numbers, not reference-runtime goldens.
 
 Run from the repository root when the fixtures need regenerating (--archs:
-the architecture fixtures only; --moe: the MoE fixtures only):
+the architecture fixtures only; --moe: the MoE fixtures only; --late: the
+late fixtures only):
 
-    JAX_PLATFORMS=cpu python tests/make_torch_fixtures.py [--archs | --moe]
+    JAX_PLATFORMS=cpu python tests/make_torch_fixtures.py [--archs | --moe | --late]
 """
 from __future__ import annotations
 
@@ -67,26 +81,268 @@ MOE_FILES = {"mixtral": "tiny-mixtral-q4_k_m.gguf",
              "qwen2moe": "tiny-qwen2moe-q4_k_m.gguf",
              "grok": "tiny-grok-q4_k_m.gguf"}
 MOE_SEED = {"mixtral": 44, "qwen2moe": 45, "grok": 46}
+LATE_SEED = {"deepseek2": 47, "minicpm3": 48, "chameleon_swin": 49,
+             "openelm": 50, "bitnet": 51, "jais": 52, "plamo": 53}
+LATE_FILES = {a: f"tiny-{a}-q4_k_m.gguf" for a in LATE_SEED}
 
 
 def jax_logits(path: str, tokens: list[int]) -> np.ndarray:
-    """The JAX forward's f32 logits (T, vocab) for tokens at positions 0.."""
+    """The JAX forward's f32 logits (T, vocab) for tokens at positions 0..
+    (models/deepseek2.py's for a deepseek2 / minicpm3 file)."""
     sys.path.insert(0, ROOT)
     import jax
     import jax.numpy as jnp
 
     from koboldcpp_tpu.kv.cache import init_cache
-    from koboldcpp_tpu.models import llama
+    from koboldcpp_tpu.models import deepseek2, llama
     from koboldcpp_tpu.models.loader import load_model
 
     m = load_model(path, packed=True, dtype=jnp.float32)
-    cache = init_cache(m.cfg.n_layers, 1, 64, m.cfg.n_kv_heads,
-                       m.cfg.head_dim, dtype=jnp.float32)
+    if m.cfg.arch in ("deepseek2", "minicpm3"):
+        mod = deepseek2
+        cache = deepseek2.init_cache(m.cfg, 1, 64, dtype=jnp.float32)
+    else:
+        mod = llama
+        cache = init_cache(m.cfg.n_layers, 1, 64, m.cfg.n_kv_heads,
+                           m.cfg.head_dim, dtype=jnp.float32)
     toks = jnp.asarray([tokens], jnp.int32)
     pos = jnp.arange(len(tokens), dtype=jnp.int32)[None]
-    fwd = jax.jit(lambda p, t, s, c: llama.forward(p, m.cfg, t, s, c))
+    fwd = jax.jit(lambda p, t, s, c: mod.forward(p, m.cfg, t, s, c))
     logits, _ = fwd(m.params, toks, pos, cache)
     return np.asarray(logits, np.float32)[0]
+
+
+def late_f32(arch: str, path: str) -> None:
+    """The late fixture model of `arch` (hidden 256, 2 layers), as an f32
+    GGUF."""
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import torch
+    import transformers as tf
+    from convert_hf import (convert_chameleon_state_dict,
+                            convert_deepseek2_state_dict)
+
+    from tests.test_model_forward import tiny_tokenizer_md
+
+    md = tiny_tokenizer_md(512)
+    torch.manual_seed(LATE_SEED[arch])
+    if arch in ("deepseek2", "minicpm3"):
+        cfg = tf.DeepseekV2Config(
+            vocab_size=512, hidden_size=256, intermediate_size=512,
+            moe_intermediate_size=256, num_hidden_layers=2,
+            num_attention_heads=4, num_key_value_heads=4,
+            qk_nope_head_dim=64, qk_rope_head_dim=32, v_head_dim=64,
+            q_lora_rank=256 if arch == "minicpm3" else None,
+            kv_lora_rank=256, n_routed_experts=8, num_experts_per_tok=2,
+            n_shared_experts=1, routed_scaling_factor=1.5,
+            first_k_dense_replace=2 if arch == "minicpm3" else 1,
+            topk_method="greedy", n_group=1, topk_group=1,
+            norm_topk_prob=False, max_position_embeddings=128,
+            tie_word_embeddings=False, head_dim=32)
+        model = tf.DeepseekV2ForCausalLM(cfg).eval().float()
+        state = {k: v.numpy() for k, v in model.state_dict().items()}
+        if arch == "deepseek2":
+            convert_deepseek2_state_dict(state, cfg, path, tokenizer_md=md)
+        else:
+            ds2 = path + ".ds2"
+            convert_deepseek2_state_dict(state, cfg, ds2, tokenizer_md=md)
+            _rename_arch(ds2, path, "deepseek2", "minicpm3")
+            os.remove(ds2)
+        return
+    if arch == "chameleon_swin":
+        vq = dict(embed_dim=32, num_embeddings=16, latent_channels=32,
+                  base_channels=32, channel_multiplier=[1], num_res_blocks=1,
+                  resolution=16, attn_resolutions=[])
+        cfg = tf.ChameleonConfig(
+            vocab_size=512, hidden_size=256, intermediate_size=512,
+            num_hidden_layers=2, num_attention_heads=4,
+            num_key_value_heads=2, max_position_embeddings=128,
+            swin_norm=True, vq_config=vq, vocabulary_map={"<image>": 1},
+            tie_word_embeddings=False)
+        model = tf.ChameleonForConditionalGeneration(cfg).eval().float()
+        state = {k: v.numpy() for k, v in model.state_dict().items()
+                 if not k.startswith("model.vqmodel")}
+        convert_chameleon_state_dict(state, cfg, path, tokenizer_md=md)
+        return
+    _late_hand_written(arch, path, md)
+
+
+def _rename_arch(src: str, dst: str, old: str, new: str) -> None:
+    """The file `src` under architecture `new` (its `old.*` keys renamed),
+    every tensor copied as f32."""
+    from koboldcpp_tpu.gguf import GGMLType, GGUFReader, GGUFWriter
+
+    with GGUFReader(src) as r:
+        w = GGUFWriter(dst, architecture=new)
+        for k, v in r.metadata.items():
+            if k.startswith(old + "."):
+                w.add(new + "." + k.split(".", 1)[1], v)
+            elif k != "general.architecture":
+                w.add(k, v)
+        for name in r.tensors:
+            w.add_tensor(name, r.tensor_data(name), GGMLType.F32)
+        w.write()
+
+
+def _late_hand_written(arch: str, path: str, md: dict) -> None:
+    """openelm, bitnet, jais or plamo: test_archs_r2.py's tensors of the
+    case at hidden 256 (4 heads of 64 over 2 kv heads, FFN 512; openelm per
+    layer), drawn from numpy seed LATE_SEED[arch]."""
+    from koboldcpp_tpu.gguf import GGMLType, GGUFWriter
+
+    V, C, H, KV, D, F, L = 512, 256, 4, 2, 64, 512, 2
+    rng = np.random.default_rng(LATE_SEED[arch])
+
+    def w2(out, inp, s=0.05):
+        return (rng.standard_normal((out, inp)) * s).astype(np.float32)
+
+    def w1(n, around_one=False):
+        v = (rng.standard_normal(n) * 0.1).astype(np.float32)
+        return v + 1.0 if around_one else v
+
+    def scale():
+        return np.array([1.0 + 0.2 * rng.standard_normal()], np.float32)
+
+    t = {"token_embd.weight": w2(V, C, 0.02),
+         "output_norm.weight": w1(C, True)}
+    if arch == "jais":
+        t["output_norm.bias"] = w1(C)
+    if arch in ("jais", "plamo"):
+        t["output.weight"] = w2(V, C, 0.02)
+    heads, kv_heads, ffs = [4, 2], [2, 1], [512, 256]
+    for i in range(L):
+        p = f"blk.{i}."
+        t[p + "attn_norm.weight"] = w1(C, True)
+        if arch == "openelm":
+            nh, nkv, ff = heads[i], kv_heads[i], ffs[i]
+            t[p + "attn_qkv.weight"] = w2((nh + 2 * nkv) * D, C)
+            t[p + "attn_q_norm.weight"] = w1(D, True)
+            t[p + "attn_k_norm.weight"] = w1(D, True)
+            t[p + "attn_output.weight"] = w2(C, nh * D)
+            t[p + "ffn_norm.weight"] = w1(C, True)
+            t[p + "ffn_gate.weight"] = w2(ff, C)
+            t[p + "ffn_up.weight"] = w2(ff, C)
+            t[p + "ffn_down.weight"] = w2(C, ff)
+            continue
+        if arch == "jais":
+            t[p + "attn_norm.bias"] = w1(C)
+            t[p + "attn_qkv.weight"] = w2((H + 2 * KV) * D, C)
+            t[p + "attn_qkv.bias"] = w1((H + 2 * KV) * D)
+            t[p + "attn_output.weight"] = w2(C, H * D)
+            t[p + "attn_output.bias"] = w1(C)
+            t[p + "ffn_norm.weight"] = w1(C, True)
+            t[p + "ffn_norm.bias"] = w1(C)
+            for nm in ("ffn_gate", "ffn_up"):
+                t[p + nm + ".weight"] = w2(F, C)
+                t[p + nm + ".bias"] = w1(F)
+            t[p + "ffn_down.weight"] = w2(C, F)
+            t[p + "ffn_down.bias"] = w1(C)
+            continue
+        if arch == "bitnet":
+            t[p + "attn_sub_norm.weight"] = w1(H * D, True)
+        t[p + "attn_q.weight"] = w2(H * D, C)
+        t[p + "attn_k.weight"] = w2(KV * D, C)
+        t[p + "attn_v.weight"] = w2(KV * D, C)
+        t[p + "attn_output.weight"] = w2(C, H * D)
+        if arch == "bitnet":
+            for nm in ("attn_q", "attn_k", "attn_v", "attn_output"):
+                t[p + nm + ".scale"] = scale()
+            t[p + "ffn_norm.weight"] = w1(C, True)
+            t[p + "ffn_sub_norm.weight"] = w1(F, True)
+        t[p + "ffn_gate.weight"] = w2(F, C)
+        t[p + "ffn_up.weight"] = w2(F, C)
+        t[p + "ffn_down.weight"] = w2(C, F)
+        if arch == "bitnet":
+            for nm in ("ffn_gate", "ffn_up", "ffn_down"):
+                t[p + nm + ".scale"] = scale()
+    keys = {"context_length": np.uint32(128), "embedding_length": np.uint32(C),
+            "block_count": np.uint32(L), "feed_forward_length": np.uint32(F),
+            "attention.head_count": np.uint32(H),
+            "attention.head_count_kv": np.uint32(KV),
+            "attention.key_length": np.uint32(D),
+            "attention.value_length": np.uint32(D),
+            "rope.freq_base": np.float32(10000.0),
+            "rope.dimension_count": np.uint32(D),
+            "vocab_size": np.uint32(V)}
+    eps = ("attention.layer_norm_epsilon" if arch == "jais"
+           else "attention.layer_norm_rms_epsilon")
+    keys[eps] = np.float32(1e-5)
+    if arch == "jais":
+        keys["attention.max_alibi_bias"] = np.float32(8.0)
+    if arch == "openelm":
+        keys["attention.head_count"] = np.array(heads, np.uint32)
+        keys["attention.head_count_kv"] = np.array(kv_heads, np.uint32)
+        keys["feed_forward_length"] = np.array(ffs, np.uint32)
+    w = GGUFWriter(path, architecture=arch)
+    for k, v in {**{f"{arch}.{k}": v for k, v in keys.items()},
+                 **md}.items():
+        w.add(k, v)
+    for name, arr in t.items():
+        w.add_tensor(name, arr, GGMLType.F32)
+    w.write()
+
+
+def _quantize_per_layer_heads(src: str, dst: str) -> None:
+    """tools/quantize.py's q4_k_m over a file whose head counts are per-layer
+    arrays (openelm), which its type picker reads as one number: the picker
+    gets the largest count, as config_from_metadata takes it; the types and
+    blocks are otherwise the tool's."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from quantize import TYPE_MAP, TypePicker
+
+    from koboldcpp_tpu.gguf import GGUFReader, GGUFWriter, quants
+
+    target = TYPE_MAP["q4_k_m"]
+    with GGUFReader(src) as r:
+        md = {k: (int(np.max(v)) if k.endswith(("head_count",
+                                                "head_count_kv"))
+                  else v) for k, v in r.metadata.items()}
+        picker = TypePicker(target, md)
+        w = GGUFWriter(dst)
+        for k, v in r.metadata.items():
+            if k != "general.file_type":
+                w.add(k, v)
+        w.add("general.file_type", np.uint32(int(target)))
+        for name, info in r.tensors.items():
+            t = picker.pick(name, info.shape)
+            w.add_tensor(name, quants.quantize(np.ascontiguousarray(
+                r.tensor_data(name), np.float32), t), t)
+        w.write()
+
+
+def make_late_fixtures(tokens: list[int]) -> None:
+    for arch, name in LATE_FILES.items():
+        src = os.path.join(OUT, f"_{arch}-f32.gguf")
+        late_f32(arch, src)
+        path = os.path.join(OUT, name)
+        if arch == "openelm":
+            _quantize_per_layer_heads(src, path)
+        else:
+            subprocess.run([sys.executable, os.path.join(ROOT, "tools",
+                                                         "quantize.py"),
+                            src, path, "q4_k_m"], check=True)
+        os.remove(src)
+        np.save(os.path.join(OUT, f"logits-jax-{arch}.npy"),
+                jax_logits(path, tokens))
+    manifest = {
+        "tokens": tokens,
+        "files": LATE_FILES,
+        "made_by": {arch: f"tests/make_torch_fixtures.py --late: the tiny "
+                          f"{arch} model (seed {LATE_SEED[arch]}), then "
+                          f"tools/quantize.py's q4_k_m into "
+                          f"tests/fixtures/portgguf/{name}"
+                    for arch, name in LATE_FILES.items()},
+        "logits": "logits-jax-<arch>.npy: the JAX package's forward "
+                  "(koboldcpp_tpu.models.llama.forward, or "
+                  "models.deepseek2.forward for deepseek2 / minicpm3; "
+                  "packed weights, f32 cache, CPU) on `tokens` at positions "
+                  "0..11, shape (12, vocab) f32; the JAX package's numbers, "
+                  "not reference-runtime goldens",
+        "generator": "tests/make_torch_fixtures.py",
+    }
+    with open(os.path.join(OUT, "late.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+        f.write("\n")
 
 
 def arch_f32(arch: str, path: str) -> None:
@@ -285,11 +541,13 @@ def make_arch_fixtures(tokens: list[int]) -> None:
 def main() -> int:
     os.makedirs(OUT, exist_ok=True)
     tokens = json.load(open(os.path.join(REF, "manifest.json")))["tokens"]
-    if "--moe" not in sys.argv[1:]:
-        make_arch_fixtures(tokens)
-    if "--archs" not in sys.argv[1:]:
-        make_moe_fixtures(tokens)
-    if {"--archs", "--moe"} & set(sys.argv[1:]):
+    only = {"--archs", "--moe", "--late"} & set(sys.argv[1:])
+    for flag, make in (("--archs", make_arch_fixtures),
+                       ("--moe", make_moe_fixtures),
+                       ("--late", make_late_fixtures)):
+        if not only or flag in only:
+            make(tokens)
+    if only:
         return 0
     src = os.path.join(REF, "tiny-f16.gguf")
     for fmt, name in FILES.items():

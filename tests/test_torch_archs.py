@@ -22,7 +22,10 @@ keys, the three served arch fixtures against their committed JAX logits,
 and three faults of the reference: the JAX `forward_paged` and
 `forward_stacked` depart from its own `forward` (no post-norms or window;
 no layer norm or parallel residual), and its context shift rotates a
-rope-less model's K.
+rope-less model's K. The last five dense branches (LATE: chameleon's swin
+norm, and test_archs_r2.py's plamo, jais, bitnet and openelm GGUFs) run
+the same cases, the JAX scan body's departures on them, and their Q4_K_M
+fixtures (late.json) against the committed JAX logits.
 """
 from __future__ import annotations
 
@@ -198,12 +201,13 @@ def _hf(path, name):
         ch.convert_nemotron_state_dict(
             _state(tf.NemotronForCausalLM, cfg, 33), cfg, path,
             tokenizer_md=md)
-    elif name == "chameleon":
+    elif name.startswith("chameleon"):
         vq = dict(embed_dim=32, num_embeddings=16, latent_channels=32,
                   base_channels=32, channel_multiplier=[1], num_res_blocks=1,
                   resolution=16, attn_resolutions=[])
         cfg = tf.ChameleonConfig(**small, num_key_value_heads=2,
-                                 max_position_embeddings=128, swin_norm=False,
+                                 max_position_embeddings=128,
+                                 swin_norm=name == "chameleon-swin",
                                  vq_config=vq, vocabulary_map={"<image>": 1},
                                  tie_word_embeddings=False)
         st = {k: v for k, v in _state(tf.ChameleonForConditionalGeneration,
@@ -307,6 +311,75 @@ def _r2(path, name):
     r2.write_gguf(path, name, r2.base_md(name, rms=name != "codeshell"), t)
 
 
+def _r2_late(path, name):
+    """test_archs_r2.py's hand-written GGUFs of plamo, jais, bitnet and
+    openelm (the same tensors, drawn in the same order from the same
+    seeds)."""
+    V, C, H, KV, D, F, L = r2.V, r2.C, r2.H, r2.KV, r2.D, r2.F, r2.L
+    w1, w2 = r2.w1, r2.w2
+    rng = r2.rng_weights({"plamo": 103, "jais": 106, "bitnet": 107,
+                          "openelm": 110}[name])
+    t = {"token_embd.weight": w2(rng, V, C, 0.02),
+         "output_norm.weight": w1(rng, C, True)}
+    if name == "jais":
+        t["output_norm.bias"] = w1(rng, C)
+    if name in ("plamo", "jais"):
+        t["output.weight"] = w2(rng, V, C, 0.02)
+    md = r2.base_md(name, rms=name != "jais")
+    heads, kv_heads, ffs = [4, 2], [2, 1], [96, 64]  # openelm's per layer
+    for i in range(L):
+        p = f"blk.{i}."
+        if name == "openelm":
+            nh, nkv, ff = heads[i], kv_heads[i], ffs[i]
+            t[p + "attn_norm.weight"] = w1(rng, C, True)
+            t[p + "attn_qkv.weight"] = w2(rng, (nh + 2 * nkv) * D, C)
+            t[p + "attn_q_norm.weight"] = w1(rng, D, True)
+            t[p + "attn_k_norm.weight"] = w1(rng, D, True)
+            t[p + "attn_output.weight"] = w2(rng, C, nh * D)
+            t[p + "ffn_norm.weight"] = w1(rng, C, True)
+            t[p + "ffn_gate.weight"] = w2(rng, ff, C)
+            t[p + "ffn_up.weight"] = w2(rng, ff, C)
+            t[p + "ffn_down.weight"] = w2(rng, C, ff)
+        elif name == "plamo":
+            t[p + "attn_norm.weight"] = w1(rng, C, True)
+            r2._std_attn_tensors(rng, t, i)
+            r2._gated_ffn_tensors(rng, t, i)
+        elif name == "jais":
+            t[p + "attn_norm.weight"] = w1(rng, C, True)
+            t[p + "attn_norm.bias"] = w1(rng, C)
+            t[p + "attn_qkv.weight"] = w2(rng, (H + 2 * KV) * D, C)
+            t[p + "attn_qkv.bias"] = w1(rng, (H + 2 * KV) * D)
+            t[p + "attn_output.weight"] = w2(rng, C, H * D)
+            t[p + "attn_output.bias"] = w1(rng, C)
+            t[p + "ffn_norm.weight"] = w1(rng, C, True)
+            t[p + "ffn_norm.bias"] = w1(rng, C)
+            for nm in ("ffn_gate", "ffn_up"):
+                t[p + nm + ".weight"] = w2(rng, F, C)
+                t[p + nm + ".bias"] = w1(rng, F)
+            t[p + "ffn_down.weight"] = w2(rng, C, F)
+            t[p + "ffn_down.bias"] = w1(rng, C)
+        else:  # bitnet
+            t[p + "attn_norm.weight"] = w1(rng, C, True)
+            t[p + "attn_sub_norm.weight"] = w1(rng, H * D, True)
+            r2._std_attn_tensors(rng, t, i)
+            for nm in ("attn_q", "attn_k", "attn_v", "attn_output"):
+                t[p + nm + ".scale"] = np.array(
+                    [1.0 + 0.2 * rng.standard_normal()], np.float32)
+            t[p + "ffn_norm.weight"] = w1(rng, C, True)
+            t[p + "ffn_sub_norm.weight"] = w1(rng, F, True)
+            r2._gated_ffn_tensors(rng, t, i)
+            for nm in ("ffn_gate", "ffn_up", "ffn_down"):
+                t[p + nm + ".scale"] = np.array(
+                    [1.0 + 0.2 * rng.standard_normal()], np.float32)
+    if name == "jais":
+        md["jais.attention.max_alibi_bias"] = np.float32(8.0)
+    if name == "openelm":
+        md["openelm.attention.head_count"] = np.array(heads, np.uint32)
+        md["openelm.attention.head_count_kv"] = np.array(kv_heads, np.uint32)
+        md["openelm.feed_forward_length"] = np.array(ffs, np.uint32)
+    r2.write_gguf(path, name, md, t)
+
+
 # the models the dense branches admit, then the ones admitted before
 # them (plain llama-like graphs)
 NEW = ["gemma", "gemma2", "gpt2", "starcoder", "gptneox-par", "gptneox-seq",
@@ -314,6 +387,8 @@ NEW = ["gemma", "gemma2", "gpt2", "starcoder", "gptneox-par", "gptneox-seq",
        "olmo", "starcoder2", "chameleon", "refact", "codeshell"]
 OLD = ["qwen2", "phi3", "granite", "stablelm", "baichuan", "xverse",
        "minicpm", "qwen", "orion", "internlm2", "exaone"]
+# the last dense branches of the JAX forward
+LATE = ["chameleon-swin", "plamo", "jais", "bitnet", "openelm"]
 
 
 @pytest.fixture(scope="module")
@@ -327,6 +402,8 @@ def gguf(tmp_path_factory):
             path = str(d / f"{name}.gguf")
             if name in ("exaone", "refact", "codeshell"):
                 _r2(path, name)
+            elif name in ("plamo", "jais", "bitnet", "openelm"):
+                _r2_late(path, name)
             else:
                 _hf(path, name)
             made[name] = path
@@ -358,7 +435,7 @@ def _port(m, tokens=TOKENS, S=32):
     return logits[0].numpy()
 
 
-@pytest.mark.parametrize("name", NEW + OLD)
+@pytest.mark.parametrize("name", NEW + OLD + LATE)
 def test_forward_matches_jax(gguf, name):
     """check_supported admits the model, and the port's forward over the 12
     tokens equals the JAX forward's within 1e-4."""
@@ -428,7 +505,8 @@ def test_the_new_cases_cover_every_branch(gguf):
 # the engines and the other forwards
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["gemma2", "mpt", "phi2"])
+@pytest.mark.parametrize("name", ["gemma2", "mpt", "phi2", "openelm",
+                                  "bitnet"])
 def test_engine_prefill_then_decode(gguf, name):
     """The port's Engine on the CPU: a prefill in two chunks (4 tokens, then
     3 at position 4) and 5 greedy T = 1 steps through `_forward` over an
@@ -463,11 +541,12 @@ def _f32_pool(cfg, n_pages, P):
                                page_size=P, heads=cfg.n_kv_heads)
 
 
-@pytest.mark.parametrize("name", ["gemma2", "mpt"])
+@pytest.mark.parametrize("name", ["gemma2", "mpt"] + LATE)
 def test_forward_paged_matches_jax_forward(gguf, name):
     """forward_paged over an f32 pool of 4-row pages (a shuffled table): a
     7-token chunk, then five T = 1 steps, each step's logits within 1e-4 of
-    the JAX `forward`'s over the whole sequence."""
+    the JAX `forward`'s over the whole sequence (openelm's narrower layer
+    writes its K / V padded to the pool's kv heads and reads its own)."""
     path = gguf(name)
     tm = _port_model(path)
     pool = _f32_pool(tm.cfg, 6, 4)
@@ -570,6 +649,44 @@ def test_jax_forward_stacked_departs_on_layer_norm(gguf, name):
                                torch.arange(12)[None], cache)
 
 
+@pytest.mark.parametrize("name", LATE)
+def test_forward_stacked_refuses_the_late_branches(gguf, name):
+    """The JAX scan body computes another function than its forward on
+    each of the five (a fault of the reference): chameleon's swin norm, the
+    per-head QK-norm and bitnet's attention sub-norm and scales are dropped
+    and jais's layer norm, biases and ALiBi taken as RMS / none, so the
+    logits depart; plamo's missing `ffn_norm` raises KeyError, and
+    openelm's layers do not stack (KeyError 'layers_stacked'). The port
+    refuses each, naming the branch."""
+    path = gguf(name)
+    jm, want = _jax(path)
+    jst = jllama.stack_layers(jm.params)
+    jcache = j_init_cache(2, 1, 32, jm.cfg.n_kv_heads, jm.cfg.head_dim,
+                          dtype=jnp.float32)
+    if name in ("plamo", "openelm"):
+        with pytest.raises(KeyError):
+            jllama.forward_stacked(jst, jm.cfg, jnp.asarray([TOKENS],
+                                                            jnp.int32),
+                                   jnp.arange(12, dtype=jnp.int32)[None],
+                                   jcache)
+    else:
+        jl, _ = jllama.forward_stacked(jst, jm.cfg,
+                                       jnp.asarray([TOKENS], jnp.int32),
+                                       jnp.arange(12, dtype=jnp.int32)[None],
+                                       jcache)
+        err = float(np.abs(np.asarray(jl)[0] - want).max())
+        assert err > 0.1 * float(np.abs(want).max()), err
+    tm = _port_model(path)
+    cache = init_cache(2, 1, 32, tm.cfg.n_kv_heads, tm.cfg.head_dim)
+    match = {"chameleon-swin": "swin norm", "plamo": "plamo",
+             "jais": "bias", "bitnet": "bitnet",
+             "openelm": "openelm"}[name]
+    with pytest.raises(NotImplementedError, match=match):
+        tllama.forward_stacked(tllama.stack_layers(tm.params), tm.cfg,
+                               torch.tensor([TOKENS]),
+                               torch.arange(12)[None], cache)
+
+
 STACKED_REFUSALS = {
     "a non-gated FFN": dict(ffn_gated=False),
     "parallel residual": dict(parallel_residual=True),
@@ -621,23 +738,36 @@ REFUSED = {
 }
 
 
-# cases refused until the MoE branches were ported: now admitted (held to
-# the JAX forward in tests/test_torch_moe.py)
-ADMITTED = ("MoE", "arctic's residual MoE")
+# every case was refused by name until its branch was ported; each is now
+# admitted: the MoE ones held to the JAX forward in tests/test_torch_moe.py,
+# the five others in test_forward_matches_jax (LATE)
+ADMITTED = tuple(REFUSED)
+# what config_from_metadata gives each of the five, which the forward reads
+LATE_FLAGS = {"swin norm": lambda c: c.extras["swin_norm"],
+              "openelm": lambda c: (c.extras["head_counts"] == [4, 4]
+                                    and c.extras["qk_head_rms"]
+                                    and c.n_kv_heads == 2),
+              "plamo": lambda c: c.extras["plamo_parallel"],
+              "bitnet": lambda c: c.extras["bitnet"],
+              "jais": lambda c: (c.use_alibi and c.norm_type == "layer"
+                                 and c.attn_scale == 1 / 16)}
 
 
 @pytest.mark.parametrize("why", list(REFUSED))
 def test_check_supported_refuses_by_name(why):
-    """The branches left: each raises NotImplementedError naming it; a MoE
-    config and arctic's residual MoE layer are admitted."""
+    """The branches once refused by name are admitted: a MoE config,
+    arctic's residual MoE layer, and (since the last dense branches were
+    ported) swin norm, openelm, plamo, bitnet and jais, each with the
+    config flags its branch of the forward reads."""
     md, layer = REFUSED[why]
     cfg = config_from_metadata(md)
-    if why in ADMITTED:
+    assert why in ADMITTED
+    if why in LATE_FLAGS:
+        assert LATE_FLAGS[why](cfg)
+    else:
         assert cfg.n_experts == 4 or "ffn_norm_exps" in layer
-        tllama.check_supported({"layers": [layer]}, cfg)
-        return
-    with pytest.raises(NotImplementedError, match=why):
-        tllama.check_supported({"layers": [layer]}, cfg)
+    tllama.check_supported({"layers": [layer]}, cfg)
+    tllama.check_supported({"layers": [layer]}, cfg, "cuda")
 
 
 def _kernel_cfg(arch, **extra):
@@ -820,3 +950,113 @@ def test_served_arch_fixtures_match_jax_logits():
                       .max())
         assert worst <= 1.0, (arch, worst)
         assert (got.argmax(-1) == want.argmax(-1)).all(), arch
+
+
+LATE_FIXTURES = ["chameleon_swin", "openelm", "bitnet", "jais", "plamo"]
+
+
+@pytest.mark.parametrize("arch", LATE_FIXTURES)
+def test_late_fixtures_match_jax_logits(arch):
+    """The chameleon (swin norm), openelm, bitnet, jais and plamo Q4_K_M
+    fixtures (tests/make_torch_fixtures.py --late, late.json) loaded packed
+    in f32: the port's forward over the manifest's tokens against the
+    committed JAX logits within test_served_arch_fixtures_match_jax_logits's
+    tolerance, and the same argmax."""
+    man = json.load(open(os.path.join(PORT_FIX, "late.json")))
+    tm = load_model(os.path.join(PORT_FIX, man["files"][arch]),
+                    dtype=torch.float32, device="cpu")
+    assert tm.cfg.arch == arch.split("_")[0]
+    got = _port(tm, man["tokens"], 64)
+    want = np.load(os.path.join(PORT_FIX, f"logits-jax-{arch}.npy"))
+    worst = float((np.abs(got - want) / (2e-2 + 2e-2 * np.abs(want))).max())
+    assert worst <= 1.0, worst
+    assert (got.argmax(-1) == want.argmax(-1)).all()
+
+
+def test_openelm_decode_kernel_takes_the_layers_heads(monkeypatch):
+    """openelm's Q4_K_M fixture (4 query heads over 2 kv heads of 64 on
+    layer 0, 2 over 1 on layer 1; the cache holds 2): a T = 1 step sends
+    layer 0 to the decode kernel with that layer's 4 query heads and layer
+    1 (fewer kv heads than the cache) to the plain attention; layer 1's
+    K / V are written padded to 2 heads, and the pad head stays zero.
+    `check_supported` on the card checks the shape of layer 0, the one
+    that reaches the kernel."""
+    tm = load_model(os.path.join(PORT_FIX, "tiny-openelm-q4_k_m.gguf"),
+                    device="cpu")
+    cfg = tm.cfg
+    assert cfg.extras["head_counts"] == [4, 2] and cfg.n_kv_heads == 2
+    seen = []
+    real = tllama.flash_decode.decode_attention_batched
+
+    def k5(q, k_new, v_new, kc, vc, pos, n_heads, n_kv_heads, *a):
+        seen.append((tuple(q.shape), n_heads, n_kv_heads))
+        return real(q, k_new, v_new, kc, vc, pos, n_heads, n_kv_heads, *a)
+
+    monkeypatch.setattr(tllama.flash_decode, "decode_attention_batched", k5)
+    cache = init_cache(2, 1, 32, 2, 64, dtype=torch.float32)
+    with torch.inference_mode():
+        tllama.forward(tm.params, cfg, torch.tensor([TOKENS[:6]]),
+                       torch.arange(6)[None], cache)
+        assert not seen
+        tllama.forward(tm.params, cfg, torch.tensor([[5]]),
+                       torch.tensor([[6]]), cache)
+    assert seen == [((1, 4, 64), 4, 2)]
+    k1 = cache.k[1].view(1, 32, 2, 64)
+    assert k1[0, :7, 0].abs().amax(-1).min() > 0
+    assert k1[0, :, 1].abs().max() == 0 and cache.v[1].view(
+        1, 32, 2, 64)[0, :, 1].abs().max() == 0
+    tllama.check_supported(tm.params, cfg, "cuda")
+    bad = dataclasses.replace(cfg, extras={**cfg.extras,
+                                           "head_counts": [3, 2]})
+    with pytest.raises(NotImplementedError, match="3 query heads"):
+        tllama.check_supported(tm.params, bad, "cuda")
+
+
+def test_bitnet_loader_keeps_scaled_projections_apart(gguf):
+    """bitnet: the loader keeps q / k / v and gate / up unfused where scale
+    scalars apply (the JAX loader's has_scales rule), loads the sub-norms
+    and the seven scales equal to the JAX loader's, and params_from_jax
+    carries them; the converted tree gives the JAX logits."""
+    path = gguf("bitnet")
+    tm = _port_model(path)
+    jm, want = _jax(path)
+    layer, jlayer = tm.params["layers"][0], jm.params["layers"][0]
+    assert "wqkv" not in layer and "w_gateup" not in layer
+    keys = ("attn_sub_norm", "ffn_sub_norm", "wq_scale", "wk_scale",
+            "wv_scale", "wo_scale", "ffn_gate_scale", "ffn_up_scale",
+            "ffn_down_scale")
+    for key in keys:
+        np.testing.assert_array_equal(layer[key].numpy(),
+                                      np.asarray(jlayer[key]))
+    assert layer["wq_scale"].shape == (1,)
+    conv = params_from_jax(_numpy_tree(jm.params))
+    assert set(conv["layers"][0]) == set(layer)
+    np.testing.assert_allclose(_port(_with(tm, conv)), want, **TOL)
+
+
+@pytest.mark.parametrize("arch", ["openelm", "jais"])
+def test_batched_engine_serves_late_fixtures(arch):
+    """BatchedEngine (paged pool of 16-row pages, 2 slots) over the openelm
+    (narrower layers padded in the pool) and jais (ALiBi, biases) Q4_K_M
+    fixtures: two greedy requests served together get the tokens each
+    gets alone through the same engine."""
+    from koboldcpp_tpu_torch.engine.batch_engine import BatchedEngine
+    from koboldcpp_tpu_torch.engine.engine import GenParams
+    from koboldcpp_tpu_torch.sampling import SamplerParams
+
+    man = json.load(open(os.path.join(PORT_FIX, "late.json")))
+    tm = load_model(os.path.join(PORT_FIX, man["files"][arch]), device="cpu")
+    gp = GenParams(max_length=6, bypass_eos=True,
+                   sampler=SamplerParams(temperature=0.0, rep_pen=1.0))
+    prompts = [man["tokens"][:7], man["tokens"][3:12]]
+    eng = BatchedEngine(tm, max_context=64, n_slots=2, paged=True,
+                        page_size=16, device="cpu")
+    try:
+        alone = [eng.generate(p, gp).tokens for p in prompts]
+        reqs = [eng.submit(p, gp) for p in prompts]
+        for r in reqs:
+            assert r.done.wait(120)
+        together = [r.result.tokens for r in reqs]
+    finally:
+        eng.shutdown()
+    assert together == alone and all(len(t) == 6 for t in alone)
