@@ -63,7 +63,7 @@
    pos 0, 37, S-1, and a softcap case) against its plain version;
 3. serves a synthetic TinyLlama-1.1B q4_k model through Engine: a ~300
    token prompt (prefill through K3 and K4, 22 K4 launches for the one
-   chunk from position 0), 64 greedy tokens (K1 and K5), the same prompt
+   chunk from position 0), 32 greedy tokens (K1 and K5), the same prompt
    again (fast-forward) and a prompt that forces a context shift, checks
    that K1, K3, K4 and K5 ran, and that the same engine with flash prefill
    off gives the same tokens (near-ties allowed) and its prefill time; then
@@ -98,7 +98,7 @@
    depth (27 layers, 16 heads of 128 + 64 roped dims over a 512-rank
    latent, a dense lead layer, 64 experts of 1408 top-6 and 2 shared,
    YaRN 40; ~30 GB, from DEEPSEEK_V2_LITE_MD), `phase_deepseek2_decode`:
-   a 300-token prompt (K3) and 32 greedy tokens in the host loop (159 K1
+   a 300-token prompt (K3) and 16 greedy tokens in the host loop (159 K1
    and the head's K2 a step), the same under the first run's experts with
    K1 / K2 / K3's plain versions (`_moe_same`), quantkv=1 (the MLA cache
    stays bf16: the same tokens), seeded stochastic tokens twice, a
@@ -108,14 +108,14 @@
    timed ones, and their models stay for profiled windows);
 4. serves the same model through BatchedEngine (8 slots, context 2048),
    on the slot cache and on the paged pool (P=64): 8 concurrent greedy
-   requests of 100-300 prompt tokens and 64 new tokens each, which must
+   requests of 100-300 prompt tokens and 32 new tokens each, which must
    get the single-stream Engine's tokens (a step where the two parts must
    be a near-tie of the single-stream logits, and is printed) and the same
    tokens paged as on the slot cache; then 7 greedy + 1 stochastic
    request; prints the aggregate tokens/s, and checks that K7, K8, K5 and
    K3 ran; then over the Q8
    pool (`quantkv=1`, K9) and the Q4 pool (`quantkv=2`, K10): 8 concurrent
-   greedy requests of 64 new tokens, each getting the tokens it gets alone
+   greedy requests of 32 new tokens, each getting the tokens it gets alone
    through the same engine;
    then, under KCPP_FFN_FUSED=1, single-stream (300-token prompt, 32
    greedy tokens: every decode step 22 K15b and 45 K1, against the default
@@ -123,7 +123,7 @@
    within 2e-2 of max |logit| of the unfused forward's) and 8 slots (every
    decode step 22 K15a and 45 K7), and 16 slots under KCPP_SBQ=1 (every
    decode step 89 K14, no K7 or K3): 8 / 16 concurrent greedy requests of
-   16 new tokens, each getting the tokens it gets alone through the same
+   8 new tokens, each getting the tokens it gets alone through the same
    engine; per-step launches read by wrapping models.llama.forward;
 5. serves tests/fixtures/refgguf/tiny-q4_k_m.gguf over HTTP in-process,
    single-stream (checks that K2 ran) and with multiuser=4 (4 concurrent
@@ -131,12 +131,12 @@
    `--quantkv 1` (K6 single-stream, K9 multiuser);
 6. serves the synthetic 1.1B with q6_k, q5_k, q8_0, q2_k, q3_k, iq2p,
    iq3px, iq3ps and then iq1p weights (the IQ kinds at G = 32):
-   single-stream (300-token prompt, 32 greedy tokens, q6_k 16,
+   single-stream (300-token prompt, 32 greedy tokens (q6_k 16),
    fast-forward to the same tokens, near-ties apart; K2 and K3, every
    q6_k decode step 89 K2; q6_k, q2_k and q3_k then 8 tokens under
    KCPP_MM_I8=0, every decode step 89 of the bf16-x body; K1.q5_k and
    K3.q5_k, K2.q8_0 and K3.q8_0, K12 and K13) and batched (8
-   slots, 8 concurrent requests of 16 new tokens: K3, K7.q5_k, K3.q8_0,
+   slots, 8 concurrent requests of 8 new tokens: K3, K7.q5_k, K3.q8_0,
    K13), each batched request getting its single-stream
    tokens (q5_k) or the tokens it gets alone through the batched engine
    (the other kinds); q5_k also under KCPP_SBQ=1 (8 new tokens, every
@@ -154,7 +154,7 @@
    each getting its reply alone); then the scan decode path: the q4_k
    model stacked at full depth (22 layers) over a pooled cache, the
    300-token prompt as one prefill chunk through forward_stacked (K3, no
-   K4) and 64 greedy tokens, equal to the unrolled forward's over the slot
+   K4) and 32 greedy tokens, equal to the unrolled forward's over the slot
    cache (near-ties apart), every decode step 88 K17a + 22 K17c + the
    head's K1 and no K5; the same for a synthetic 1.1B q8_0 at 16 tokens
    (88 K17b.q8_0 a step); the decode tok/s of both paths in turns;
@@ -179,7 +179,7 @@
    layers, none on mpt's and jais's ALiBi or MLA), and holds their
    logits to the JAX package's committed ones;
 8. the single-stream path's served features on the synthetic 1.1B (q4_k
-   layers, a q6_k head), `phase_served_features`: 256 stochastic tokens
+   layers, a q6_k head), `phase_served_features`: 64 stochastic tokens
    (temperature 0.8, top-p 0.9, min-p 0.05, rep-pen 1.1, a seed) twice,
    the same tokens, with K1 / K2 / K5 launched inside the device chunks;
    top-k 1 gives the greedy chunks' tokens (near-ties allowed); the
@@ -195,6 +195,23 @@
    blocks as GGUF; `cli.main([..., "--benchmark"])`; over HTTP the Lite
    page at /, /api/tags, and the profiler routes around one generate
    (a trace naming the port's kernels);
+8b. the recurrent, embedding and encoder-decoder models
+   (`phase_served_text`, `phase_text_decode`, `phase_embed`, after the MLA
+   phase): the tiny text fixtures of tests/fixtures/portgguf/text.json
+   over HTTP (Mamba, RWKV6 and T5 at Q4_K_M, RWKV-4 as a q8_0 legacy .bin:
+   two identical /api/v1/generate replies; nomic-bert: /v1/embeddings and
+   a 400 on generate), their logits / hidden states against the JAX
+   package's committed ones (2e-2 + 2e-2 |want|); then Mamba-1.4B, RWKV6
+   Finch 1.6B, RWKV-4-Pile-1B5 and flan-t5-base at their published
+   widths and depth (`TEXT_MODELS`, models/synthetic.py
+   `synthetic_text_model`): a 300-token prompt (one 512-row chunk through
+   K3 / K3.q8_0; T5's encoder) and 8 greedy one-row decode steps (K1 /
+   K2 / K2.q8_0), repeatable, the first 4 of them under the kernels'
+   plain versions (near-ties apart), a recurrent state continued by one prompt
+   token, the recurrence's and the declined projections' device time
+   alone; nomic-embed-text-v1.5: `Engine.embed` and an encode of 300
+   tokens through K3 against K3's plain version; their idle shares last
+   (`phase_text_profiled`);
 9. last, since a profiler session slows every later decode of the
    process: the device idle share under torch.profiler of the synthetic
    1.1B q4_k, 32 fast-forwarded single-stream tokens (with that request's
@@ -241,9 +258,11 @@ from koboldcpp_tpu_torch.models import llama  # noqa: E402
 from koboldcpp_tpu_torch.models.config import config_from_metadata  # noqa: E402
 from koboldcpp_tpu_torch.models.loader import Model, load_model  # noqa: E402
 from koboldcpp_tpu_torch.models.synthetic import (  # noqa: E402
-    _MAKERS, DEEPSEEK_V2_LITE_MD, TINYLLAMA_1_1B, rand_iq, rand_q2k,
-    rand_q3k, rand_q4k, rand_q4k_centered, rand_q5k, rand_q6k, rand_q8_0,
-    synthetic_deepseek2_model, synthetic_model)
+    _MAKERS, DEEPSEEK_V2_LITE_MD, FLAN_T5_BASE_MD, MAMBA_1_4B_MD,
+    NOMIC_EMBED_V1_5_MD, RWKV4_PILE_1B5_MD, RWKV6_FINCH_1B6_MD,
+    TINYLLAMA_1_1B, rand_iq, rand_q2k, rand_q3k, rand_q4k,
+    rand_q4k_centered, rand_q5k, rand_q6k, rand_q8_0,
+    synthetic_deepseek2_model, synthetic_model, synthetic_text_model)
 from koboldcpp_tpu_torch.kv import paged  # noqa: E402
 from koboldcpp_tpu_torch.kv.cache import (  # noqa: E402
     _dequant, _q8, init_cache, init_pool_cache)
@@ -388,9 +407,9 @@ KERNELS = {
             "koboldcpp_tpu/ops/flash_decode.py:86"),
 }
 NEAR_TIE = 2 ** -6  # logits this close may pick either token (bf16 steps)
-# greedy tokens per request in phases 3-4 (the q4_k main path); 64, not
+# greedy tokens per request in phases 3-4 (the q4_k main path); 32, not
 # 128, to keep the whole script within its time budget
-DEPTH = 64
+DEPTH = 32
 CASES: dict[str, list[dict]] = {k: [] for k in KERNELS}
 
 _flush = None
@@ -2695,16 +2714,18 @@ def phase_moe_decode(card: str) -> tuple[dict, Model]:
 # DeepSeek-V2-Lite at full depth (27 layers, ~30 GB with its dense bf16
 # experts): greedy tokens of each MLA run (the host loop: one forward a
 # token) and seeded stochastic ones
-DS2_DEPTH = 32
+DS2_DEPTH = 16
 DS2_STOCH = 8
 
 
 def _plain_matmuls():
-    """K1, K2 and K3 replaced by their plain versions for a block (the MLA
-    path's only kernels; the plain versions count no launch)."""
+    """K1, K2, K2.q8_0 and K3 replaced by their plain versions for a block
+    (the MLA and text models' only kernels; the plain versions count no
+    launch)."""
     return mock.patch.multiple(
         qm, q4k_matvec=lambda x, qt, i8: qm.q4k_matvec_plain(x, qt, i8),
         q6k_matvec=lambda x, qt, i8: qm.q6k_matvec_plain(x, qt, i8),
+        q8_0_matvec=lambda x, qt, i8=True: qm.q8_0_matvec_plain(x, qt, i8),
         kq_matmul=qm.kq_matmul_plain)
 
 
@@ -2924,9 +2945,8 @@ def phase_deepseek2_decode(card: str) -> tuple[dict, Model, dict]:
                            "n_moe": n_moe}
 
 
-# tokens (and batched steps) of each profiled window: the profiler's own
-# processing of a window's events, not the decode, takes most of the
-# phase's time
+# tokens (and batched steps) of each profiled window: one device chunk
+# (engine.FAST_DECODE_K), which a shorter request computes all the same
 PROFILE_DEPTH = 32
 
 
@@ -2943,7 +2963,6 @@ def _idle_share(run, rows_out: dict | None = None) -> str:
     """Device busy time (sum of kernel times, one stream) against the wall
     time of run(), under torch.profiler; rows_out, if given, receives each
     device row's time in microseconds by kernel name."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -2953,8 +2972,7 @@ def _idle_share(run, rows_out: dict | None = None) -> str:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side rows only: an op's row repeats its kernels' time
-    rows = [(e.self_device_time_total, e.key) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    rows = [(us, k) for k, (us, _) in profile_scan.device_rows(prof).items()]
     busy_us = sum(t for t, _ in rows)
     if rows_out is not None:
         for t, k in rows:
@@ -2973,7 +2991,7 @@ def phase_profiled(card: str, moe: Model, mla: Model,
     q4_k: a fast-forwarded single-stream request decoding PROFILE_DEPTH
     (32) greedy tokens,
     the same under KCPP_FFN_FUSED=1, the 300-token prefill as one chunk,
-    then 32 batched steps of 8
+    then PROFILE_DEPTH batched steps of 8
     fast-forwarded greedy requests (8 slots) and of 16 (16 slots under
     KCPP_SBQ=1), the scan path, then a fast-forwarded request of the
     Mixtral-widths model `moe` (phase_moe_decode's) and of the
@@ -3035,21 +3053,23 @@ def phase_profiled(card: str, moe: Model, mla: Model,
     rng = np.random.default_rng(2)
     prompts = [[1] + rng.integers(3, 32000, size=int(n) - 1).tolist()
                for n in rng.integers(100, 301, size=16)]
-    g32 = [GenParams(max_length=32, bypass_eos=True, sampler=sampler)] * 16
+    gp_win = [GenParams(max_length=PROFILE_DEPTH, bypass_eos=True,
+                     sampler=sampler)] * 16
     for n_slots, env in ((8, {}), (16, {"KCPP_SBQ": "1"})):
         beng = batch_engine.BatchedEngine(model, max_context=2048,
                                           n_slots=n_slots, device=DEV)
         try:
             with _env(**env):
-                ps, gs = prompts[:n_slots], g32[:n_slots]
+                ps, gs = prompts[:n_slots], gp_win[:n_slots]
                 _serve_together(beng, ps, gs)
-                # fast-forwarded prompts: one 16-row wave, then 32 steps
+                # fast-forwarded prompts: one 16-row wave, then
+                # PROFILE_DEPTH steps
                 idle = _idle_share(lambda: _serve_together(beng, ps, gs))
         finally:
             beng.shutdown()
         print(f"batched 1.1B (slot cache{', KCPP_SBQ=1' if env else ''}), "
-              f"32 batched steps of {n_slots} greedy requests under "
-              f"torch.profiler: {idle}", flush=True)
+              f"{PROFILE_DEPTH} batched steps of {n_slots} greedy requests "
+              f"under torch.profiler: {idle}", flush=True)
     # the scan decode path's entry point: PROFILE_DEPTH greedy tokens from
     # position 64 over a pooled cache, as `python -m koboldcpp_tpu_torch.tools.
     # profile_scan scan` runs them
@@ -3232,7 +3252,7 @@ def phase_batched_serving(card: str) -> dict:
     del single
     # the quantized pools (--multiuser 8 --quantkv 1, --quantkv 2 --paged):
     # 8 concurrent requests, each getting the tokens it gets alone
-    short = GenParams(max_length=64, bypass_eos=True, sampler=greedy.sampler)
+    short = GenParams(max_length=DEPTH, bypass_eos=True, sampler=greedy.sampler)
     for quantkv, kid in ((1, "K9"), (2, "K10")):
         kind = f"paged P=64, quantkv={quantkv}"
         eng = batch_engine.BatchedEngine(model, max_context=2048, n_slots=8,
@@ -3253,7 +3273,7 @@ def phase_batched_serving(card: str) -> dict:
             eng.shutdown()
         ref = Engine(model, max_context=2048, device=DEV, quantkv=quantkv)
         for i, (p, r) in enumerate(zip(prompts, res)):
-            _check(len(r.tokens) == 64, f"{kind} request {i}: {r}")
+            _check(len(r.tokens) == DEPTH, f"{kind} request {i}: {r}")
             _same_or_near_tie(ref, p, r.tokens, alone[i],
                               f"{kind} request {i} (together vs alone)")
         del ref
@@ -3330,7 +3350,7 @@ def _check_steps(rec: _StepLaunches, B: int, want: dict, what: str) -> int:
 
 
 FUSED_DEPTH = 32  # greedy tokens of the fused single-stream phase
-OPT_IN_DEPTH = 16  # greedy tokens per request of the opt-in batched phases
+OPT_IN_DEPTH = 8  # greedy tokens per request of the opt-in batched phases
 
 
 def phase_fused_single(card: str, model, bf16_tps: float) -> dict:
@@ -3499,19 +3519,20 @@ def phase_opt_in_batched(card: str, model) -> dict:
 # share their arithmetic) or to the tokens it gets alone through the
 # batched engine (q6_k, q8_0, q2_k, q3_k: int8 activations at T=1 against
 # the tiled bf16 product at T>=2, as the JAX dispatch is built)). Every kind
-# runs at 32 greedy tokens single-stream (q6_k, added last: 16) and 16 per
-# batched request (half the depth of the q4_k phases), to keep the script
-# within its time budget.
+# runs at 32 greedy tokens single-stream (q6_k, added last: 16; one device
+# chunk computes 32 either way) and 8 per batched request (the batched
+# engine's host loop: a step a token), to keep the script within its time
+# budget.
 NEW_KINDS = (
-    ("q6_k", 16, 16, ("K2", "K3"), ("K3",), False),
-    ("q5_k", 32, 16, ("K1.q5_k", "K3.q5_k"), ("K7.q5_k",), True),
-    ("q8_0", 32, 16, ("K2.q8_0", "K3.q8_0"), ("K3.q8_0",), False),
-    ("q2_k", 32, 16, ("K12.q2_k", "K13.q2_k"), ("K13.q2_k",), False),
-    ("q3_k", 32, 16, ("K12.q3_k", "K13.q3_k"), ("K13.q3_k",), False),
-    ("iq2p", 32, 16, ("K12.iq2p", "K13.iq2p"), ("K13.iq2p",), False),
-    ("iq3px", 32, 16, ("K12.iq3px", "K13.iq3px"), ("K13.iq3px",), False),
-    ("iq3ps", 32, 16, ("K12.iq3ps", "K13.iq3ps"), ("K13.iq3ps",), False),
-    ("iq1p", 32, 16, ("K12.iq1p", "K13.iq1p"), ("K13.iq1p",), False))
+    ("q6_k", 16, 8, ("K2", "K3"), ("K3",), False),
+    ("q5_k", 32, 8, ("K1.q5_k", "K3.q5_k"), ("K7.q5_k",), True),
+    ("q8_0", 32, 8, ("K2.q8_0", "K3.q8_0"), ("K3.q8_0",), False),
+    ("q2_k", 32, 8, ("K12.q2_k", "K13.q2_k"), ("K13.q2_k",), False),
+    ("q3_k", 32, 8, ("K12.q3_k", "K13.q3_k"), ("K13.q3_k",), False),
+    ("iq2p", 32, 8, ("K12.iq2p", "K13.iq2p"), ("K13.iq2p",), False),
+    ("iq3px", 32, 8, ("K12.iq3px", "K13.iq3px"), ("K13.iq3px",), False),
+    ("iq3ps", 32, 8, ("K12.iq3ps", "K13.iq3ps"), ("K13.iq3ps",), False),
+    ("iq1p", 32, 8, ("K12.iq1p", "K13.iq1p"), ("K13.iq1p",), False))
 
 
 def phase_new_kinds(card: str) -> dict:
@@ -3533,12 +3554,13 @@ def phase_new_kinds(card: str) -> dict:
                for n in rng.integers(100, 301, size=8)]
     sampler = SamplerParams(temperature=0.0, rep_pen=1.0)
     counts: dict = {}
+    cfg = TINYLLAMA_1_1B
     for kind, n1, n8, need_single, need_batched, vs_single in NEW_KINDS:
         g1 = GenParams(max_length=n1, bypass_eos=True, sampler=sampler)
         g8 = GenParams(max_length=n8, bypass_eos=True, sampler=sampler)
         g0 = GenParams(max_length=8, bypass_eos=True, sampler=sampler)
         t0 = time.perf_counter()
-        model = synthetic_model(TINYLLAMA_1_1B, kind, seed=0, device=DEV)
+        model = synthetic_model(cfg, kind, seed=0, device=DEV)
         build_s = time.perf_counter() - t0
         single = Engine(model, max_context=2048, device=DEV)
         single.generate(prompt[:40], GenParams(max_length=40, bypass_eos=True,
@@ -3555,7 +3577,7 @@ def phase_new_kinds(card: str) -> dict:
         t1_kid = need_single[0]
         per_step = sorted({d.get(t1_kid, 0) for d in rec.steps(1)})
         if kind == "q6_k":
-            _check_steps(rec, 1, {"K2": 4 * TINYLLAMA_1_1B.n_layers + 1},
+            _check_steps(rec, 1, {"K2": 4 * cfg.n_layers + 1},
                          "q6_k single-stream")
         _check(len(r1.tokens) == n1 and all(0 <= t < 32000 for t in r1.tokens),
                f"{kind}: bad reply {r1.tokens}")
@@ -3589,13 +3611,13 @@ def phase_new_kinds(card: str) -> dict:
                 r0 = single.generate(prompt, g0)
             c0 = {k: v - before.get(k, 0) for k, v in _build.launches.items()
                   if v != before.get(k, 0)}
-            n0 = _check_steps(rec0, 1, {t1_kid: 4 * TINYLLAMA_1_1B.n_layers
-                                        + 1}, f"{kind} KCPP_MM_I8=0")
+            n0 = _check_steps(rec0, 1, {t1_kid: 4 * cfg.n_layers + 1},
+                              f"{kind} KCPP_MM_I8=0")
             _check(len(r0.tokens) == g0.max_length
                    and all(0 <= t < 32000 for t in r0.tokens),
                    f"{kind} KCPP_MM_I8=0: bad reply {r0.tokens}")
             print(f"{kind} single-stream under KCPP_MM_I8=0 ({card}): {n0} "
-                  f"decode steps of {4 * TINYLLAMA_1_1B.n_layers + 1} "
+                  f"decode steps of {4 * cfg.n_layers + 1} "
                   f"{t1_kid} (the bf16-x body); launches {c0}", flush=True)
 
         eng = batch_engine.BatchedEngine(model, max_context=2048, n_slots=8,
@@ -3643,7 +3665,7 @@ def phase_new_kinds(card: str) -> dict:
                 c3 = _serve_alone_and_together(
                     model, 8, prompts,
                     GenParams(max_length=8, bypass_eos=True, sampler=sampler),
-                    {"K14.q5_k": 4 * TINYLLAMA_1_1B.n_layers + 1,
+                    {"K14.q5_k": 4 * cfg.n_layers + 1,
                      "K7.q5_k": 0, "K3.q5_k": 0},
                     "q5_k 8 slots, KCPP_SBQ=1", card)
             for k, v in c3.items():
@@ -3847,7 +3869,7 @@ def phase_opt_in_layouts(card: str, q4k_model) -> dict:
 # the scan decode path: layer-stacked weights over a pooled cache
 # ---------------------------------------------------------------------------
 
-SCAN_DEPTH = 64  # greedy tokens of the q4_k scan phase
+SCAN_DEPTH = 32  # greedy tokens of the q4_k scan phase
 SCAN_Q8_DEPTH = 16  # ... and of the q8_0 one
 
 
@@ -4384,7 +4406,7 @@ def check_opt_in_logits() -> None:
 #    state, smart context, LoRA, legacy containers, routes, launcher)
 # ---------------------------------------------------------------------------
 
-FEATURE_DEPTH = 256  # stochastic tokens of the repeatability check
+FEATURE_DEPTH = 64  # stochastic tokens of the repeatability check
 PAIR_DEPTH = 32      # tokens of each timed run in the interleaved pairs
 # the smart-context script at --contextsize 2048: a 1700-token prompt, a
 # diverging 1700-token prompt (the halving: 849 tokens kept), then that
@@ -4794,6 +4816,410 @@ def phase_served_features(card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the recurrent, embedding and encoder-decoder models
+# ---------------------------------------------------------------------------
+
+TEXT_DEPTH = 8    # greedy tokens of each full-width generator phase
+TEXT_PLAIN_DEPTH = 4  # of them, under the kernels' plain versions
+TEXT_PROMPT = 300  # prompt tokens (T5: the encoder's input)
+# greedy tokens of each profiled window (the host loop: a forward a token)
+TEXT_PROFILE_DEPTH = 4
+# the full-width models (models/synthetic.py, every one at its published
+# depth) and the kernels each one's main path must launch: q4_k
+# projections K1 at T = 1 and K3 in the prefill / encoder chunks, a q6_k
+# head K2 (rwkv6's); RWKV-4's q8_0 .bin K2.q8_0 / K3.q8_0; Mamba's tied
+# head, the declined small projections and flan-T5's 32128-row head take
+# the dequant path, as in JAX
+TEXT_MODELS = (
+    ("Mamba-1.4B", MAMBA_1_4B_MD, ("K1", "K3")),
+    ("RWKV6 Finch 1.6B", RWKV6_FINCH_1B6_MD, ("K1", "K2", "K3")),
+    ("RWKV-4-Pile-1B5", RWKV4_PILE_1B5_MD, ("K2.q8_0", "K3.q8_0")),
+    ("nomic-embed-text-v1.5", NOMIC_EMBED_V1_5_MD, ("K3",)),
+    ("flan-t5-base", FLAN_T5_BASE_MD, ("K1", "K3")),
+)
+TEXT_FIXTURE_KERNELS = {"mamba": ("K1", "K3"), "rwkv6": ("K1", "K3"),
+                        "rwkv4": ("K2.q8_0", "K3.q8_0"),
+                        "nomic-bert": ("K3",), "t5": ("K1", "K3")}
+
+
+def _text_run(eng: Engine, prompt, gp):
+    """One request: (tokens, timings, launches)."""
+    _build.launches.clear()
+    r = eng.generate(prompt, gp)
+    return r.tokens, r.timings, dict(_build.launches)
+
+
+def _text_same(eng: Engine, prompt, got, want, what) -> None:
+    """got == want, or equal up to a step where the two picks' logits lie
+    within NEAR_TIE (T5: the decoder's logits after a fresh encoder
+    pass)."""
+    if not eng.encdec:
+        return _same_or_near_tie(eng, prompt, got, want, what)
+    if got == want:
+        return
+    i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    _check(i is not None, f"{what}: one reply stopped early: {got} {want}")
+    eng._run_encoder(list(prompt))
+    dec = [eng.cfg.extras.get("decoder_start", 0)] + got[:i]
+    lg = eng._forward(torch.tensor([dec], device=DEV),
+                      torch.arange(len(dec), device=DEV)[None],
+                      last_only=True)[0, -1].float()
+    a, b = lg[got[i]].item(), lg[want[i]].item()
+    _check(abs(a - b) <= NEAR_TIE,
+           f"{what}: tokens part at step {i} ({got[i]} vs {want[i]}), "
+           f"logits {a} vs {b}")
+    print(f"near-tie: {what}, step {i}: tokens {got[i]} / {want[i]}, "
+          f"logits {a:.6f} / {b:.6f}", flush=True)
+
+
+def _no_kernel_ms(model) -> tuple[float, str]:
+    """The device time alone at T = 1 of the projections the dispatch
+    declines (the dequant path, as in JAX; dense bf16 weights too), summed
+    over the model, and which they are."""
+    from koboldcpp_tpu_torch.ops import linear as tlinear
+
+    layers = (model.params.get("layers") or model.params.get("dec_layers")
+              or [])
+
+    def declined(v):  # the dispatch's shape rule (ops/quant_matmul.py)
+        return v.kind == "dense" or v.shape[0] % 256 or v.shape[1] % 256
+
+    keys = sorted({k for ly in layers for k, v in ly.items()
+                   if isinstance(v, QTensor) and declined(v)})
+    total, names = 0.0, []
+    # inference mode: an earlier phase may have made _dev_ms's flush
+    # buffer inside it, and such a tensor is written only there
+    with torch.inference_mode():
+        for k in keys:
+            v = layers[0][k]
+            x = torch.randn(1, v.shape[1], device=DEV).bfloat16()
+            ms = _dev_ms(lambda: tlinear.matmul(x, v))
+            total += len(layers) * ms
+            names.append(f"{k} {tuple(v.shape)} {ms:.4f} ms x {len(layers)}")
+        head = model.params.get("output")
+        if head is not None and declined(head):
+            x = torch.randn(1, head.shape[1], device=DEV).bfloat16()
+            ms = _dev_ms(lambda: tlinear.matmul(x, head,
+                                                out_dtype=torch.float32))
+            total += ms
+            names.append(f"head {tuple(head.shape)} {head.kind} {ms:.4f} ms")
+    return total, "; ".join(names) or "none"
+
+
+def _scan_ms(model) -> str:
+    """The recurrence's device time alone for one layer at T = 1 (a decode
+    step) and over a 300-row prefill chunk (bucket 512), on state-shaped
+    random inputs, times the depth."""
+    from koboldcpp_tpu_torch.models import mamba as tmamba
+    from koboldcpp_tpu_torch.models import rwkv4 as trwkv4
+    from koboldcpp_tpu_torch.models import rwkv6 as trwkv6
+
+    cfg, L = model.cfg, model.cfg.n_layers
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    out = []
+    for T, n in ((1, 1), (512, TEXT_PROMPT)):
+        valid = torch.arange(T, device=DEV)[None] < n
+        scan = (n, False)
+
+        def u(*shape, lo=0.0, hi=1.0):
+            return lo + (hi - lo) * torch.rand(shape, device=DEV,
+                                               generator=gen)
+
+        if cfg.arch == "mamba":
+            d, N = cfg.ssm_d_inner, cfg.ssm_d_state
+            h = torch.zeros(1, d, N, device=DEV)
+            args = (u(1, T, d, N, lo=0.5), u(1, T, d, N, hi=0.01),
+                    u(1, T, N), h)
+            fn = lambda: tmamba.selective_scan(*args, valid, scan)  # noqa
+        elif cfg.arch == "rwkv6":
+            H, D = cfg.n_heads, cfg.head_dim
+            S = torch.zeros(1, H, D, D, device=DEV)
+            r, k, v = (u(1, T, H, D, lo=-1) for _ in range(3))
+            w = u(1, T, H, D, lo=0.5)
+            first = u(H, D)
+            fn = lambda: trwkv6.wkv_scan(r, k, v, w, first, S, valid,  # noqa
+                                         scan)
+        else:
+            C = cfg.hidden_size
+            k, v = u(1, T, C, lo=-1), u(1, T, C, lo=-1)
+            first, decay = u(C), -u(C, lo=0.1)
+            acc = [torch.zeros(1, C, device=DEV) for _ in range(2)]
+            pp = torch.full((1, C), -1e30, device=DEV)
+            fn = lambda: trwkv4.wkv4_scan(k, v, first, decay, *acc,  # noqa
+                                          pp, valid, scan)
+        with torch.inference_mode():  # as in _no_kernel_ms
+            ms = _dev_ms(fn)
+        out.append(f"T = {T} ({n} rows) {ms:.4f} ms a layer, "
+                   f"{L * ms:.3f} ms the {L} layers")
+    return "; ".join(out)
+
+
+def phase_text_decode(card: str, name: str, md: dict,
+                      kernels: tuple) -> tuple[dict, Model]:
+    """A full-width recurrent or encoder-decoder model (`name`'s published
+    widths, `synthetic_text_model`) through Engine: a TEXT_PROMPT-token
+    prompt (one 512-row chunk through K3; T5: the encoder's chunk) and
+    TEXT_DEPTH greedy tokens in the host loop, each a one-row step (K1 /
+    K2), twice with the same tokens (a recurrent state resets for a prompt
+    that does not extend its context, T5 decodes fresh), the first
+    TEXT_PLAIN_DEPTH of them under the plain versions of K1 / K2 / K3
+    (near-ties apart); a recurrent
+    model then continues its cached state by one prompt token. Prints
+    decode tok/s, prefill ms, the launches, the recurrence's device time
+    alone (a layer at T = 1 and over the prompt) and the dequant-path
+    projections'. Returns (launches, the model)."""
+    t0 = time.perf_counter()
+    model = synthetic_text_model(md, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    cfg = model.cfg
+    eng = Engine(model, max_context=2048, device=DEV)
+    _check((eng.recurrent or eng.encdec) and not eng.use_flash_prefill,
+           f"{name}: the engine did not take its branch")
+    rng = np.random.default_rng(9)
+    prompt = [1] + rng.integers(3, cfg.vocab_size,
+                                size=TEXT_PROMPT - 1).tolist()
+    sampler = SamplerParams(temperature=0.0, rep_pen=1.0)
+    gp = GenParams(max_length=TEXT_DEPTH, bypass_eos=True, sampler=sampler)
+    eng.generate(prompt, GenParams(max_length=2, bypass_eos=True,
+                                   sampler=sampler))  # warm-up
+    toks, t1, counts = _text_run(eng, prompt, gp)
+    _check(len(toks) == TEXT_DEPTH
+           and all(0 <= t < cfg.vocab_size for t in toks),
+           f"{name}: tokens {toks}")
+    again, t2, c2 = _text_run(eng, prompt, gp)
+    _check(again == toks, f"{name}: greedy decode not repeatable: "
+           f"{again} {toks}")
+    with _plain_matmuls():
+        plain, _, cp = _text_run(eng, prompt, GenParams(
+            max_length=TEXT_PLAIN_DEPTH, bypass_eos=True, sampler=sampler))
+    _check(not any(cp.get(k, 0) for k in kernels),
+           f"{name}: the plain run launched {cp}")
+    _text_same(eng, prompt, plain, toks[:TEXT_PLAIN_DEPTH],
+               f"{name}, {' / '.join(kernels)} against their plain versions")
+    for k, v in c2.items():
+        counts[k] = counts.get(k, 0) + v
+    ff = ""
+    if eng.recurrent:
+        _build.launches.clear()
+        eng.generate(list(eng.context_tokens) + [7], GenParams(
+            max_length=4, bypass_eos=True, sampler=sampler))
+        for k, v in _build.launches.items():
+            counts[k] = counts.get(k, 0) + v
+        _check(eng.last_timings.prompt_tokens == 1,
+               f"{name}: a continuation evaluated "
+               f"{eng.last_timings.prompt_tokens} prompt tokens")
+        ff = "; a continuation of the cached state evaluated 1 prompt token"
+    _check(all(counts.get(k, 0) > 0 for k in kernels),
+           f"{name}: launches {counts}, wanted {kernels}")
+    no_kernel, which = _no_kernel_ms(model)
+    scan = _scan_ms(model) if eng.recurrent else "none (no recurrence)"
+    layers = len(model.params.get("layers") or model.params["dec_layers"])
+    print(f"{name} ({cfg.arch}, hidden {cfg.hidden_size}, {layers} layers"
+          + (f" + {layers} encoder layers" if eng.encdec else "")
+          + f", vocab {cfg.vocab_size}; {card}): synthetic weights "
+          f"{made:.1f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; prefill "
+          f"{t1.prompt_tokens} tokens {t1.prompt_time * 1e3:.1f} ms"
+          + (f" (the encoder's {TEXT_PROMPT} rows and the decoder's start "
+             f"token)" if eng.encdec else "")
+          + f", again {t2.prompt_time * 1e3:.1f} ms; decode "
+          f"{t1.gen_tokens} tokens {t1.gen_tps:.2f} tok/s, again "
+          f"{t2.gen_tps:.2f}; repeatable, the same tokens with the plain "
+          f"versions (near-ties apart){ff}; launches {counts}", flush=True)
+    print(f"{name} device time alone: the recurrence {scan}; the "
+          f"dequant-path projections {no_kernel:.4f} ms a token ({which})",
+          flush=True)
+    del eng
+    return counts, model
+
+
+def phase_embed(card: str, name: str, md: dict,
+                kernels: tuple) -> tuple[dict, Model]:
+    """A full-width embedding model through Engine.embed: one text through
+    the entry point, then the encoder over TEXT_PROMPT token ids (one
+    512-row chunk: every projection through K3) pooled as `embed` pools,
+    timed, and the same embeddings with K3's plain version (|err| <= 2e-2
+    + 2e-2 |want|). Returns (launches, the model)."""
+    from koboldcpp_tpu_torch.models import bert as tbert
+
+    t0 = time.perf_counter()
+    model = synthetic_text_model(md, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    cfg = model.cfg
+    eng = Engine(model, max_context=2048, device=DEV)
+    _check(eng.embedding and eng.cache is None,
+           f"{name}: the engine did not take the embedding branch")
+    _build.launches.clear()
+    v = eng.embed(["the entry point's text"])
+    counts = dict(_build.launches)
+    _check(v.shape == (1, cfg.hidden_size) and np.isfinite(v).all(),
+           f"{name}: embed gave {v.shape}")
+    rng = np.random.default_rng(9)
+    ids = [1] + rng.integers(3, cfg.vocab_size,
+                             size=TEXT_PROMPT - 1).tolist()
+    tok, pos = eng._end_padded(ids)
+
+    def encode():
+        with torch.inference_mode():
+            h = tbert.forward_embed(model.params, cfg, tok, pos)
+            return tbert.pool(h, pos, "mean")
+
+    _build.launches.clear()
+    got = encode()
+    for k, n in _build.launches.items():
+        counts[k] = counts.get(k, 0) + n
+    with _plain_matmuls():
+        want = encode()
+    diff = (got - want).abs()
+    worst = float((diff / (2e-2 + 2e-2 * want.abs())).max())
+    _check(worst <= 1.0 and bool(torch.isfinite(got).all()),
+           f"{name}: embeddings off the plain versions' by {worst}")
+    ms = _event_ms(encode)
+    _check(all(counts.get(k, 0) > 0 for k in kernels),
+           f"{name}: launches {counts}, wanted {kernels}")
+    no_kernel, which = _no_kernel_ms(model)
+    print(f"{name} ({cfg.arch}, hidden {cfg.hidden_size}, {cfg.n_layers} "
+          f"layers, vocab {cfg.vocab_size}; {card}): synthetic weights "
+          f"{made:.1f} s; an encode of {TEXT_PROMPT} tokens (bucket "
+          f"{tok.shape[1]}) {ms:.2f} ms (events), {TEXT_PROMPT / ms * 1e3:.0f}"
+          f" tokens/s; pooled embeddings against K3's plain version: max "
+          f"abs err {float(diff.max()):.4g}, worst |err| / (2e-2 + 2e-2 "
+          f"|want|) {worst:.3g}; launches {counts}; dequant-path "
+          f"projections {no_kernel:.4f} ms ({which})", flush=True)
+    del eng
+    return counts, model
+
+
+def phase_text_profiled(card: str, models: dict) -> None:
+    """Last: the device idle share under torch.profiler of each full-width
+    text model's host loop: a recurrent model continuing its cached state
+    (one prompt token, then TEXT_PROFILE_DEPTH greedy tokens), T5 a
+    request (the encoder's TEXT_PROMPT rows, then TEXT_PROFILE_DEPTH
+    tokens), the embedding model an encode of TEXT_PROMPT tokens."""
+    from koboldcpp_tpu_torch.models import bert as tbert
+
+    sampler = SamplerParams(temperature=0.0, rep_pen=1.0)
+    rng = np.random.default_rng(9)
+    for name, model in models.items():
+        eng = Engine(model, max_context=2048, device=DEV)
+        prompt = [1] + rng.integers(3, model.cfg.vocab_size,
+                                    size=TEXT_PROMPT - 1).tolist()
+        gp = GenParams(max_length=TEXT_PROFILE_DEPTH, bypass_eos=True,
+                       sampler=sampler)
+        if eng.embedding:
+            tok, pos = eng._end_padded(prompt)
+
+            def run():
+                with torch.inference_mode():
+                    tbert.forward_embed(model.params, model.cfg, tok, pos)
+        elif eng.recurrent:
+            eng.generate(prompt, GenParams(max_length=8, bypass_eos=True,
+                                           sampler=sampler))
+
+            def run():
+                eng.generate(list(eng.context_tokens) + [7], gp)
+        else:
+            eng.generate(prompt, GenParams(max_length=8, bypass_eos=True,
+                                           sampler=sampler))
+
+            def run():
+                eng.generate(prompt, gp)
+        print(f"profiled {name} ({card}): {_idle_share(run)}"
+              + ("" if eng.embedding else
+                 f"; decode {eng.last_timings.gen_tps:.2f} tok/s under the "
+                 f"profiler"), flush=True)
+        del eng
+
+
+def phase_served_text() -> dict:
+    """The tiny text fixtures (tests/fixtures/portgguf/text.json: Mamba and
+    RWKV6 at Q4_K_M, RWKV-4 as a q8_0 legacy .bin beside its vocab, the
+    nomic-bert and T5 Q4_K_M files) served over HTTP at temperature 0: two
+    identical /api/v1/generate replies from each generator, one
+    /v1/embeddings call (and a 400 on generate) for nomic-bert, each
+    fixture's kernels launched; then their numbers on the card (the
+    generators' logits, nomic-bert's hidden states; T5's decoder logits
+    after its encoder) against the JAX package's committed ones, |err| <=
+    2e-2 + 2e-2 |want|."""
+    from urllib.error import HTTPError
+
+    from koboldcpp_tpu_torch.models import bert as tbert
+    from koboldcpp_tpu_torch.models import t5 as tt5
+    from koboldcpp_tpu_torch.models.loader import arch_module
+    from koboldcpp_tpu_torch.server.app import ServerSettings
+
+    man = json.load(open(os.path.join(PORT_FIX, "text.json")))
+    tokens = man["tokens"]
+    body = {"prompt": "The gradient of a function, e.g. f(x), points",
+            "max_length": 24, "temperature": 0, "rep_pen": 1.0}
+    counts: dict = {}
+    for arch, name in man["files"].items():
+        path = os.path.join(PORT_FIX, name)
+        model = load_model(path, device=DEV)
+        eng = Engine(model, max_context=512, device=DEV)
+        srv = _Server(eng, ServerSettings(model_name=name))
+        try:
+            _build.launches.clear()
+            if eng.embedding:
+                d = srv.post("/v1/embeddings", {"input": ["Once upon",
+                                                          "a time"]})
+                vec = np.array([e["embedding"] for e in d["data"]])
+                _check(vec.shape == (2, model.cfg.hidden_size)
+                       and np.isfinite(vec).all(),
+                       f"{name}: /v1/embeddings gave {vec.shape}")
+                try:
+                    srv.post("/api/v1/generate", body)
+                    status = 200
+                except HTTPError as e:
+                    status = e.code
+                _check(status == 400, f"{name}: generate answered {status}")
+                reply = f"/v1/embeddings {vec.shape}, generate 400"
+            else:
+                a, b = (srv.post("/api/v1/generate", body)["results"][0][
+                    "text"] for _ in range(2))
+                _check(a == b and a != "",
+                       f"{name}: temperature-0 replies differ: {a!r} {b!r}")
+                reply = f"/api/v1/generate x2 identical ({a!r})"
+            c = dict(_build.launches)
+        finally:
+            srv.close()
+        _check(all(c.get(k, 0) > 0 for k in TEXT_FIXTURE_KERNELS[arch]),
+               f"{name}: launches {c}")
+        m32 = load_model(path, dtype=torch.float32, device=DEV)
+        toks = torch.tensor([tokens], device=DEV)
+        pos = torch.arange(len(tokens), device=DEV)[None]
+        with torch.inference_mode():
+            if arch == "nomic-bert":
+                got = tbert.forward_embed(m32.params, m32.cfg, toks, pos)
+            elif arch == "t5":
+                e = tt5.encode(m32.params, m32.cfg, toks, pos)
+                cache = tt5.prepare_cross(
+                    m32.params, m32.cfg, e, pos >= 0,
+                    tt5.init_cache(m32.cfg, 1, 64, len(tokens), device=DEV))
+                dec = torch.tensor([[m32.cfg.extras["decoder_start"]]
+                                    + tokens[:-1]], device=DEV)
+                got, _ = tt5.forward(m32.params, m32.cfg, dec, pos, cache)
+            else:
+                mod = arch_module(arch)
+                got, _ = mod.forward(m32.params, m32.cfg, toks, pos,
+                                     mod.init_state(m32.cfg, 1, device=DEV))
+        got = got[0].float().cpu().numpy()
+        want = np.load(os.path.join(PORT_FIX, man["numbers"][arch]))
+        diff = np.abs(got - want)
+        worst = float((diff / (2e-2 + 2e-2 * np.abs(want))).max())
+        _check(worst <= 1.0, f"{name} off the JAX numbers: |err| / (2e-2 + "
+               f"2e-2 |want|) {worst}")
+        print(f"served {name}: {reply}; numbers vs the JAX package's: max "
+              f"abs err {float(diff.max()):.4g}, worst |err| / (2e-2 + 2e-2 "
+              f"|want|) {worst:.3g}; launches {c}", flush=True)
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    return counts
+
+
 def _timed(phase, *args):
     t0 = time.perf_counter()
     out = phase(*args)
@@ -4855,9 +5281,19 @@ def main() -> int:
     runs.append(moe_counts)
     mla_counts, mla, mla_ms = _timed(phase_deepseek2_decode, card)
     runs.append(mla_counts)
+    # the recurrent, embedding and encoder-decoder models at full width
+    runs.append(_timed(phase_served_text))
+    text_models = {}
+    for name, md, kernels in TEXT_MODELS:
+        phase = (phase_embed if md["general.architecture"] == "nomic-bert"
+                 else phase_text_decode)
+        c, text_models[name] = _timed(phase, card, name, md, kernels)
+        runs.append(c)
     # the profiled windows last: a profiler session slows later decodes
     _timed(phase_profiled, card, moe, mla, mla_ms)
     del moe, mla
+    _timed(phase_text_profiled, card, text_models)
+    del text_models
 
     kernels = []
     for kid, (name, source, replaces) in KERNELS.items():

@@ -27,6 +27,23 @@ experts through every MoE layer. Prompt chunks stay padded, so a
 fast-forwarded request re-evaluates its last prompt token in the rows it
 had.
 
+The other architectures take the JAX engine's branches too, each token
+of a reply through the host loop and the decode step one row:
+  - recurrent (mamba, rwkv6, rwkv4: kv/recurrent.py's f32 states in place
+    of a KV cache): prompt chunks right-padded to a bucket (padding rows
+    keep the state; the recurrences stop after the last valid row), no
+    context shift or smart context, a cached state reused only when the
+    prompt extends the whole cached context (the reference's rule for
+    recurrent models; anything else resets it), a rewind re-evaluating
+    the context from a reset state, and `save_state` / `load_state` with
+    the JAX file's `recurrent` flag and `leaf{i}` arrays;
+  - embedding models (bert, nomic-bert, jina-bert-v2, t5encoder): no
+    generation; `embed` pools the encoder's states (mean, or CLS under
+    pooling type 2);
+  - encoder-decoder (t5): the prompt through the encoder on every
+    request, a fresh decoder cache decoding from `decoder_start`, no
+    fast-forward.
+
 Greedy requests without host-side logit modifiers, and stochastic requests
 of the common preset (temperature, top-k, top-p, min-p, rep-pen, biases,
 bans: `device_sampler`), decode FAST_DECODE_K tokens per device chunk:
@@ -51,9 +68,10 @@ import torch
 from ..device import resolve_device
 from ..grammar.gbnf import TokenFilter
 from ..kv.cache import QuantKVCache, init_cache, stack_cache
+from ..kv.recurrent import state_leaves
 from ..models import deepseek2 as model_deepseek2
 from ..models import llama as model_llama
-from ..models.loader import Model
+from ..models.loader import Model, arch_module
 from ..ops import flash_prefill
 from ..ops.rope import rope_frequencies, rotate
 from ..sampling import (SamplerParams, build_dry_sequences, make_state,
@@ -129,7 +147,9 @@ class Engine:
     use_contextshift: context shift (always off under a quantized cache).
     A deepseek2 / minicpm3 model takes the MLA branch (module docstring):
     its cache stays bf16 under any quantkv, with no context shift or smart
-    context."""
+    context; the recurrent, embedding and encoder-decoder architectures
+    take theirs, none with a KV cache of the llama kind (quantkv is not
+    read)."""
 
     def __init__(self, model: Model, max_context: int = 2048, device=None,
                  quantkv: int = 0, use_smartcontext: bool = False,
@@ -139,12 +159,16 @@ class Engine:
             raise ValueError(f"model params live on {model.device}, the "
                              f"engine runs on {self.device}")
         cfg = model.cfg
-        if cfg.is_recurrent or cfg.is_embedding or cfg.is_encoder_decoder:
-            raise NotImplementedError(
-                f"architecture {cfg.arch!r} is not ported yet")
-        # MLA (the JAX engine's branch, engine.py:145-154, 194-198)
+        # MLA (the JAX engine's branch, engine.py:145-154, 194-198) and the
+        # recurrent, embedding and encoder-decoder ones (:120-143)
         self.mla = cfg.arch in ("deepseek2", "minicpm3")
-        if self.mla:
+        self.recurrent = cfg.is_recurrent
+        self.embedding = cfg.is_embedding
+        self.encdec = cfg.is_encoder_decoder
+        self._mod = arch_module(cfg.arch) or model_llama
+        # the llama-family path: device chunks, flash prefill, the KV cache
+        self._std_path = self._mod is model_llama
+        if not self._std_path:
             use_smartcontext = use_contextshift = False
         else:
             model_llama.check_supported(model.params, cfg, self.device)
@@ -162,12 +186,17 @@ class Engine:
                                  and not quantkv)
         # flash prefill (K4) on the card, as the JAX engine enables it off
         # the CPU (engine.py:311-313): K4's head shapes, no ALiBi
-        self.use_flash_prefill = (self.device.type == "cuda" and not self.mla
+        self.use_flash_prefill = (self.device.type == "cuda"
+                                  and self._std_path
                                   and flash_prefill.supported(cfg.head_dim)
                                   and not cfg.use_alibi)
         if self.mla:
             self.cache = model_deepseek2.init_cache(cfg, 1, max_context,
                                                     device=self.device)
+        elif self.recurrent:
+            self.cache = self._mod.init_state(cfg, 1, device=self.device)
+        elif self.embedding or self.encdec:
+            self.cache = None  # the decoder's is built per request
         else:
             self.cache = init_cache(cfg.n_layers, 1, max_context,
                                     cfg.n_kv_heads, cfg.head_dim,
@@ -183,13 +212,63 @@ class Engine:
         self.stream_tokens: list[str] = []  # streaming state (polling API)
         self.generation_finished = True
 
+    # -- embeddings and the encoder --------------------------------------
+    def embed(self, texts: list[str]) -> np.ndarray:
+        """Pooled embeddings (n, C) f32 of each text under an embedding
+        model (the JAX `embed`): the tokens (at most max_context) padded
+        at the end to a bucket, the encoder's states (bert's
+        `forward_embed`, t5encoder's `encode`), pooled by
+        {arch}.pooling_type: CLS for 2, else the mean."""
+        if not self.embedding:
+            raise ValueError("loaded model is not an embedding model")
+        from ..models.bert import pool
+
+        fn = (self._mod.encode if self.cfg.arch == "t5encoder"
+              else self._mod.forward_embed)
+        mode = {2: "cls"}.get((self.cfg.extras or {}).get("pooling", 1),
+                              "mean")
+        out = []
+        with self.lock, torch.inference_mode():
+            for text in texts:
+                ids = self.tokenizer.encode(text) or [0]
+                tok, pos = self._end_padded(ids[:self.max_context])
+                hidden = fn(self.model.params, self.cfg, tok, pos)
+                out.append(pool(hidden.float(), pos, mode)[0].cpu().numpy())
+        return np.stack(out)
+
+    def _end_padded(self, ids: list[int], start_pos: int = 0):
+        """(tokens, positions) (1, bucket) on the device: ids at positions
+        start_pos.., padded at the end with position -1 (no padding past
+        the largest bucket, as in JAX)."""
+        n = len(ids)
+        pad = max(0, _bucket(n) - n)
+        tok = torch.tensor([list(ids) + [0] * pad], dtype=torch.int64,
+                           device=self.device)
+        pos = torch.tensor([list(range(start_pos, start_pos + n))
+                            + [-1] * pad], dtype=torch.int64,
+                           device=self.device)
+        return tok, pos
+
+    def _run_encoder(self, prompt_tokens: list[int]):
+        """The prompt through the encoder, and a fresh decoder cache with
+        the projected cross K / V (t5.prepare_cross)."""
+        tok, pos = self._end_padded(prompt_tokens)
+        with torch.inference_mode():
+            enc_out = self._mod.encode(self.model.params, self.cfg, tok, pos)
+            cache = self._mod.init_cache(self.cfg, 1, self.max_context,
+                                         tok.shape[1], device=self.device)
+            self.cache = self._mod.prepare_cross(self.model.params, self.cfg,
+                                                 enc_out, pos >= 0, cache)
+
+    def _reset_recurrent_state(self):
+        self.cache = self._mod.init_state(self.cfg, 1, device=self.device)
+
     # -- low-level steps ---------------------------------------------------
     def _forward(self, tok: torch.Tensor, pos: torch.Tensor,
                  **kw) -> torch.Tensor:
-        forward = (model_deepseek2 if self.mla else model_llama).forward
         with torch.inference_mode():
-            logits, _ = forward(self.model.params, self.cfg, tok, pos,
-                                self.cache, **kw)
+            logits, _ = self._mod.forward(self.model.params, self.cfg, tok,
+                                          pos, self.cache, **kw)
         return logits
 
     def _eval_chunk(self, tokens: list[int], start_pos: int) -> torch.Tensor:
@@ -201,10 +280,25 @@ class Engine:
         re-evaluates its last prompt token bit-identically. A chunk of >= 128
         rows from position 0 takes flash prefill when it is on: padded at
         its END so that row index == position, logits gathered at the last
-        real row (engine.py:419-428)."""
+        real row (engine.py:419-428). A recurrent chunk is padded at its end
+        (engine.py:408-418: padding rows keep the state), its logits
+        gathered at the last real row; an encoder-decoder chunk (the
+        decoder's start token, or a rewind's last token) is its rows
+        unpadded."""
         n = len(tokens)
         b = _bucket(n)
         pad = b - n
+        if self.recurrent:
+            tok, pos = self._end_padded(tokens, start_pos)
+            last = torch.tensor([n - 1], dtype=torch.int64, device=self.device)
+            return self._forward(tok, pos, last_index=last)[0, -1]
+        if self.encdec:
+            return self._forward(
+                torch.tensor([list(tokens)], dtype=torch.int64,
+                             device=self.device),
+                torch.arange(start_pos, start_pos + n,
+                             device=self.device)[None],
+                last_only=True)[0, -1]
         if self.use_flash_prefill and start_pos == 0 and b >= 128:
             tok = torch.tensor([list(tokens) + [0] * pad], dtype=torch.int64,
                                device=self.device)
@@ -221,9 +315,10 @@ class Engine:
 
     def _step(self, tok: int, pos: int) -> torch.Tensor:
         """One decode token of the host loop at position pos: a 16-row
-        padded chunk (`_eval_chunk`), or on the MLA path one unpadded row
-        (module docstring). Returns its logits (1-D f32 on the device)."""
-        if not self.mla:
+        padded chunk (`_eval_chunk`), or off the llama-family path one
+        unpadded row (module docstring). Returns its logits (1-D f32 on the
+        device)."""
+        if self._std_path:
             return self._eval_chunk([tok], pos)
         return self._forward(
             torch.tensor([[tok]], dtype=torch.int64, device=self.device),
@@ -259,7 +354,16 @@ class Engine:
     # -- context reuse -----------------------------------------------------
     def _fast_forward(self, prompt: list[int]) -> int:
         """Longest common prefix with the cached context. Returns n_past.
-        Always re-evaluates >= 1 token."""
+        Always re-evaluates >= 1 token. A recurrent state continues only
+        from its exact point: the whole cached context must be a strict
+        prefix of the prompt, else the state resets and everything is
+        evaluated (engine.py:497-503)."""
+        if self.recurrent:
+            ctx = self.context_tokens
+            if ctx and len(ctx) <= len(prompt) - 1 and prompt[:len(ctx)] == ctx:
+                return len(ctx)
+            self._reset_recurrent_state()
+            return 0
         n = 0
         limit = min(len(self.context_tokens), len(prompt) - 1)
         while n < limit and self.context_tokens[n] == prompt[n]:
@@ -346,9 +450,10 @@ class Engine:
     def _fast_greedy_ok(self, params: GenParams, grammar) -> bool:
         """Device-side greedy chunks match the host loop only when no
         logit-modifying host sampler is active; token bans ride an
-        on-device additive mask. Off under KCPP_FAST_DECODE=0 and on the
-        MLA path (the JAX engine's `_std_path`)."""
-        if os.environ.get("KCPP_FAST_DECODE", "1") != "1" or self.mla:
+        on-device additive mask. Off under KCPP_FAST_DECODE=0 and off the
+        llama-family path (the JAX engine's `_std_path`)."""
+        if (os.environ.get("KCPP_FAST_DECODE", "1") != "1"
+                or not self._std_path):
             return False
         sp = params.sampler
         return (grammar is None and not params.banned_phrases
@@ -363,10 +468,11 @@ class Engine:
         rep-pen leading the order; the same distribution as the host chain
         (another draw). DRY, XTC, mirostat, dynatemp, smoothing, top-a,
         TFS, typical, grammar and anti-slop stay on the host loop. Off
-        under KCPP_FAST_DECODE=0 and on the MLA path."""
+        under KCPP_FAST_DECODE=0 and off the llama-family path."""
         from .device_sampler import supported_order
 
-        if os.environ.get("KCPP_FAST_DECODE", "1") != "1" or self.mla:
+        if (os.environ.get("KCPP_FAST_DECODE", "1") != "1"
+                or not self._std_path):
             return False
         sp = params.sampler
         if not (grammar is None and not params.banned_phrases
@@ -418,6 +524,10 @@ class Engine:
             return self._generate_locked(prompt, params, on_token)
 
     def _generate_locked(self, prompt, params, on_token) -> GenerationResult:
+        if self.embedding:
+            raise ValueError(
+                "embedding-only model (bert/t5encoder) cannot generate text; "
+                "use the embeddings endpoints")
         if params.images:
             raise NotImplementedError("LLaVA image input is not ported yet")
         self.abort_event.clear()
@@ -439,15 +549,23 @@ class Engine:
             prompt_tokens = (prompt_tokens[:keep_first]
                              + prompt_tokens[keep_first + overflow:])
 
-        # context reuse: smart context (legacy) or context shift, then the
-        # fast-forward (engine.py:730-736)
-        if self.use_smartcontext:
-            prompt_tokens = self._smart_context(prompt_tokens)
-        elif self.use_contextshift:
-            self._context_shift(prompt_tokens)
-        n_past = self._fast_forward(prompt_tokens)
-        self.context_tokens = self.context_tokens[:n_past]
-        todo = prompt_tokens[n_past:]
+        if self.encdec:
+            # T5: the prompt through the encoder, the decoder fresh from
+            # its start token on every request (engine.py:722-729)
+            self._run_encoder(prompt_tokens)
+            self.context_tokens = []
+            n_past = 0
+            todo = [self.cfg.extras.get("decoder_start", 0)]
+        else:
+            # context reuse: smart context (legacy) or context shift, then
+            # the fast-forward (engine.py:730-736)
+            if self.use_smartcontext:
+                prompt_tokens = self._smart_context(prompt_tokens)
+            elif self.use_contextshift:
+                self._context_shift(prompt_tokens)
+            n_past = self._fast_forward(prompt_tokens)
+            self.context_tokens = self.context_tokens[:n_past]
+            todo = prompt_tokens[n_past:]
 
         grammar = self._get_grammar(params)
         if grammar is not None and not params.grammar_retain_state:
@@ -673,7 +791,13 @@ class Engine:
         return result
 
     def _replay_logits(self) -> np.ndarray:
-        """Recompute logits at the current context tail (after a rewind)."""
+        """Recompute logits at the current context tail (after a rewind).
+        A recurrent state cannot rewind: it resets and the whole context is
+        evaluated again (engine.py:1004-1006)."""
+        if self.recurrent:
+            self._reset_recurrent_state()
+            return self.eval_tokens(self.context_tokens, 0
+                                    ).float().cpu().numpy()
         last = self.context_tokens[-1]
         return self._step(last, len(self.context_tokens) - 1
                           ).float().cpu().numpy()
@@ -683,11 +807,19 @@ class Engine:
         return self.tokenizer.encode(text)
 
     def reset_context(self):
+        """Forget the cached context (a recurrent state resets with it)."""
         self.context_tokens = []
+        if self.recurrent:
+            self._reset_recurrent_state()
 
     # -- state save / restore (llama_state_*, src/llama.cpp:20833; the JAX
     #    engine's npz layout, engine.py:1025-1066) -------------------------
-    def _refuse_quantized(self, what: str):
+    def _check_state_kind(self, what: str):
+        """Refuse state calls on a model that keeps no state, or on a
+        quantized KV cache."""
+        if self.embedding or self.encdec:
+            raise ValueError(f"{what}: an embedding or encoder-decoder model "
+                             "keeps no state between requests")
         if isinstance(self.cache, QuantKVCache):
             raise ValueError(
                 f"{what}: a quantized KV cache (--quantkv) cannot be saved or "
@@ -700,8 +832,18 @@ class Engine:
         K and V rows of their own widths), the context tokens (int64) and
         max_context, in one compressed npz. bf16 goes as 2-byte void
         ('<V2'), the bytes numpy writes for the JAX package's bfloat16, so
-        no bf16 numpy dtype is needed to read it."""
-        self._refuse_quantized("save_state")
+        no bf16 numpy dtype is needed to read it. A recurrent model's
+        state goes as the JAX engine writes it: `recurrent` = 1 and its f32
+        tensors as leaf0, leaf1, ... in kv/recurrent.py's field order."""
+        self._check_state_kind("save_state")
+        if self.recurrent:
+            np.savez_compressed(
+                path, recurrent=np.array(1),
+                context_tokens=np.asarray(self.context_tokens, dtype=np.int64),
+                max_context=self.max_context,
+                **{f"leaf{i}": t.cpu().numpy()
+                   for i, t in enumerate(state_leaves(self.cache))})
+            return
         st = stack_cache(self.cache)
 
         def raw(t: torch.Tensor) -> np.ndarray:
@@ -715,8 +857,11 @@ class Engine:
     def load_state(self, path: str):
         """Restore a state written by `save_state` or by the JAX engine
         (a bf16 cache as '<V2' bytes, or a float cache, cast to bf16 as
-        the JAX `load_state` casts it to its cache dtype)."""
-        self._refuse_quantized("load_state")
+        the JAX `load_state` casts it to its cache dtype). A recurrent
+        state file (the `recurrent` flag) fills the state's tensors leaf by
+        leaf (a bf16 leaf, as the JAX Mamba's conv state under bf16
+        weights, as '<V2' bytes, cast to f32)."""
+        self._check_state_kind("load_state")
         data = np.load(path)
         if int(data["max_context"]) != self.max_context:
             raise ValueError("state was saved with a different context size")
@@ -725,6 +870,23 @@ class Engine:
             if a.dtype.kind == "V" and a.dtype.itemsize == 2:
                 return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
             return torch.from_numpy(np.asarray(a, np.float32))
+
+        if self.recurrent != ("recurrent" in data):
+            raise ValueError("state file is not a recurrent-model state"
+                             if self.recurrent else
+                             "state file holds a recurrent-model state")
+        if self.recurrent:
+            leaves = state_leaves(self.cache)
+            arrays = [tensor(data[f"leaf{i}"]) for i in range(len(leaves))]
+            for dst, a in zip(leaves, arrays):
+                if tuple(a.shape) != tuple(dst.shape):
+                    raise ValueError(f"state leaf of shape {tuple(a.shape)} "
+                                     f"does not fit {tuple(dst.shape)}")
+            with torch.inference_mode():
+                for dst, a in zip(leaves, arrays):
+                    dst.copy_(a)
+            self.context_tokens = [int(t) for t in data["context_tokens"]]
+            return
 
         k, v = tensor(data["k"]), tensor(data["v"])
         L = len(self.cache.k)

@@ -25,7 +25,12 @@ q3_k's / q2_k's fields converted as above where the JAX pack carries them
 (`qs2`). Every TPU sidecar field is dropped. A JAX `stack_layers` tree's
 "layers_stacked" (each field with a leading layer axis) converts layer by
 layer under the same rules and stacks back field by field, so it equals
-the port's `stack_layers` of the converted per-layer tree.
+the port's `stack_layers` of the converted per-layer tree. The other
+architectures' trees convert by the same walk: the recurrent models'
+"layers" (f32 lerp / decay / conv / A vectors, RWKV6's (5, C, E) w2), the
+BERT family's and T5's "layers" / "enc_layers" / "dec_layers" (relative
+bias tables, norms and biases as plain arrays), every packed weight as
+above (tests/test_torch_recurrent.py, test_torch_encoders.py).
 """
 from __future__ import annotations
 

@@ -13,11 +13,15 @@ bf16 weights (`LoraAdapter`); legacy GGML / GGMF / GGJT containers and the
 pre-GGUF gpt-j / gpt-neox / mpt / gpt-2 files load through
 `gguf/legacy.py`'s readers. bitnet's sub-norms and per-projection scale
 scalars load too, and its scaled projections stay unfused (the JAX
-loader's `has_scales` rule); deepseek2 / minicpm3 files load through
-models/deepseek2.py's `load_params`, as in the JAX loader.
+loader's `has_scales` rule). The other architectures load through
+their modules' `load_params`, as in the JAX loader (`arch_module`):
+deepseek2 / minicpm3 (models/deepseek2.py), mamba, rwkv6 and rwkv4 (the
+legacy RWKV .bin files too, with their vocab sidecar), bert / nomic-bert /
+jina-bert-v2 (models/bert.py), t5 and t5encoder (models/t5.py).
 """
 from __future__ import annotations
 
+import importlib
 from typing import Any
 
 import numpy as np
@@ -244,6 +248,25 @@ def load_params(reader: GGUFReader, cfg: ModelConfig, packed: bool = True,
     return params
 
 
+def tensor_readers(reader, packed: bool = True, dtype=torch.bfloat16,
+                   device="cpu"):
+    """(qt, dense) over a reader, as the other architectures' loaders read
+    a file: qt(name, pack=packed) a 2-D weight through `linear.from_gguf`
+    (packed where its type packs), dense(name, flat=False) a tensor as f32
+    (flattened with flat)."""
+    def qt(name: str, pack: bool = packed):
+        info = reader.tensors[name]
+        return linear.from_gguf(reader.tensor_raw(name), info.ggml_type,
+                                info.shape, packed=pack, dtype=dtype,
+                                device=device)
+
+    def dense(name: str, flat: bool = False) -> torch.Tensor:
+        a = np.array(reader.tensor_data(name), np.float32)
+        return torch.from_numpy(a.reshape(-1) if flat else a).to(device)
+
+    return qt, dense
+
+
 class Model:
     """Loaded model bundle: config + params + tokenizer, on one device."""
 
@@ -258,8 +281,8 @@ class Model:
 def load_model(path: str, packed: bool = True, dtype=torch.bfloat16,
                device: str | torch.device | None = None,
                loras: list[tuple[str, float]] | None = None) -> Model:
-    """Load a llama-family GGUF, or a legacy pre-GGUF container, onto
-    `device` (default cuda; raises without a GPU unless device="cpu").
+    """Load a GGUF, or a legacy pre-GGUF container, onto `device` (default
+    cuda; raises without a GPU unless device="cpu").
     loras: [(adapter_gguf_path, multiplier), ...] merged into the base
     weights at load (lora_filename / lora_multiplier, expose.h:132-133)."""
     from ..gguf.sniff import FileFormat, check_file_format, describe_or_raise
@@ -276,7 +299,7 @@ def load_model(path: str, packed: bool = True, dtype=torch.bfloat16,
         if fmt in legacy.LEGACY_OTHERARCH_FORMATS:
             reader_cls = legacy.LegacyOtherArchReader
         elif fmt in legacy.LEGACY_RWKV_FORMATS:
-            reader_cls = legacy.LegacyRwkvReader  # refused below: recurrent
+            reader_cls = legacy.LegacyRwkvReader  # RWKV v4 .bin
         else:
             reader_cls = legacy.LegacyLlamaReader
     else:
@@ -286,16 +309,30 @@ def load_model(path: str, packed: bool = True, dtype=torch.bfloat16,
     with reader_cls(path) as r:
         cfg = config_from_metadata(r.metadata)
         tokenizer = Tokenizer.from_metadata(r.metadata)
-        if cfg.is_recurrent or cfg.is_embedding or cfg.is_encoder_decoder:
-            raise NotImplementedError(
-                f"architecture {cfg.arch!r} is not ported yet")
-        if cfg.arch in ("deepseek2", "minicpm3"):  # MLA (JAX :294-297)
-            from . import deepseek2
-
-            params = deepseek2.load_params(r, cfg, packed=packed,
-                                           dtype=dtype, device=dev)
+        module = arch_module(cfg.arch)
+        if module is not None:
+            # the other architectures' loaders (JAX :282-309); LoRA
+            # adapters apply to the llama-family loader only, as in JAX
+            params = module.load_params(r, cfg, packed=packed, dtype=dtype,
+                                        device=dev)
             return Model(cfg, params, tokenizer, dev)
         params = load_params(r, cfg, packed=packed, dtype=dtype, device=dev,
                              loras=adapters or None)
     check_supported(params, cfg, dev)
     return Model(cfg, params, tokenizer, dev)
+
+
+# the architectures with a module of their own (`load_params`, `forward`
+# or `forward_embed` / `encode`); every other one is a models/llama.py
+# decoder
+_ARCH_MODULES = {"bert": "bert", "nomic-bert": "bert",
+                 "jina-bert-v2": "bert", "t5": "t5", "t5encoder": "t5",
+                 "deepseek2": "deepseek2", "minicpm3": "deepseek2",
+                 "mamba": "mamba", "rwkv6": "rwkv6", "rwkv4": "rwkv4"}
+
+
+def arch_module(arch: str):
+    """The module serving `arch`, or None for the llama-family decoders."""
+    name = _ARCH_MODULES.get(arch)
+    return None if name is None else importlib.import_module(
+        f".{name}", __package__)

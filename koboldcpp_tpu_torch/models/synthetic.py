@@ -482,3 +482,237 @@ def synthetic_deepseek2_model(md: dict, seed: int = 0, device=None):
                          ffn_down_shexp=q4(C, Fs))
         params["layers"].append(layer)
     return Model(cfg, params, _placeholder_tokenizer(cfg.vocab_size), dev)
+
+
+# The published widths of the recurrent, embedding and encoder-decoder
+# models, as their GGUF keys (`synthetic_text_model` builds each at full
+# width and depth):
+# state-spaces/mamba-1.4b config.json: d_model 2048, n_layer 48, vocab
+# 50280 (padded to a multiple of 8: 50280), d_inner 2 x 2048, d_state 16,
+# d_conv 4, dt_rank ceil(2048 / 16) = 128, tied embeddings
+MAMBA_1_4B_MD = {
+    "general.architecture": "mamba", "mamba.vocab_size": 50280,
+    "mamba.context_length": 1048576, "mamba.embedding_length": 2048,
+    "mamba.block_count": 48, "mamba.feed_forward_length": 0,
+    "mamba.attention.head_count": 0,
+    "mamba.attention.layer_norm_rms_epsilon": 1e-5,
+    "mamba.ssm.conv_kernel": 4, "mamba.ssm.inner_size": 4096,
+    "mamba.ssm.state_size": 16, "mamba.ssm.time_step_rank": 128,
+}
+# RWKV/v6-Finch-1B6-HF config.json: hidden_size 2048, num_hidden_layers 24,
+# head_size 64, intermediate_size 7168 (int(2048 * 3.5) // 32 * 32),
+# vocab_size 65536, rescale_every 6, time-mix lerp rank 32 and decay
+# rank 64 (RWKV-LM's TIME_MIX_EXTRA_DIM / TIME_DECAY_EXTRA_DIM at this width)
+RWKV6_FINCH_1B6_MD = {
+    "general.architecture": "rwkv6", "rwkv6.vocab_size": 65536,
+    "rwkv6.context_length": 1048576, "rwkv6.embedding_length": 2048,
+    "rwkv6.block_count": 24, "rwkv6.feed_forward_length": 7168,
+    "rwkv6.wkv.head_size": 64, "rwkv6.rescale_every_n_layers": 6,
+    "rwkv6.attention.layer_norm_epsilon": 1e-5,
+    "rwkv6.time_mix_extra_dim": 32, "rwkv6.time_decay_extra_dim": 64,
+}
+# BlinkDL/rwkv-4-pile-1b5 (RWKV-4-Pile-1B5-20220903-8040.pth): n_embd 2048,
+# n_layer 24, ffn 4 x 2048, vocab 50277; the keys gguf/legacy.py's
+# LegacyRwkvReader gives such a .bin
+RWKV4_PILE_1B5_MD = {
+    "general.architecture": "rwkv4", "rwkv4.vocab_size": 50277,
+    "rwkv4.context_length": 16384, "rwkv4.embedding_length": 2048,
+    "rwkv4.block_count": 24, "rwkv4.feed_forward_length": 8192,
+    "rwkv4.attention.head_count": 1, "rwkv4.attention.head_count_kv": 1,
+    "rwkv4.attention.layer_norm_epsilon": 1e-5,
+}
+# nomic-ai/nomic-embed-text-v1.5 config.json: n_embd 768, n_layer 12,
+# n_head 12, n_inner 3072 (SwiGLU), rotary_emb_base 1000 (NEOX rope),
+# vocab 30528, layer_norm_epsilon 1e-12, mean pooling, n_positions 2048
+NOMIC_EMBED_V1_5_MD = {
+    "general.architecture": "nomic-bert", "nomic-bert.vocab_size": 30528,
+    "nomic-bert.context_length": 2048, "nomic-bert.embedding_length": 768,
+    "nomic-bert.block_count": 12, "nomic-bert.feed_forward_length": 3072,
+    "nomic-bert.attention.head_count": 12,
+    "nomic-bert.attention.head_count_kv": 12,
+    "nomic-bert.attention.layer_norm_epsilon": 1e-12,
+    "nomic-bert.rope.freq_base": 1000.0, "nomic-bert.pooling_type": 1,
+}
+# google/flan-t5-base config.json: d_model 768, num_layers 12 (and 12
+# decoder layers), num_heads 12, d_kv 64, d_ff 2048 with
+# feed_forward_proj "gated-gelu", relative_attention_num_buckets 32,
+# vocab 32128, layer_norm_epsilon 1e-6, decoder_start_token_id 0, an
+# untied lm_head
+FLAN_T5_BASE_MD = {
+    "general.architecture": "t5", "t5.vocab_size": 32128,
+    "t5.context_length": 512, "t5.embedding_length": 768,
+    "t5.block_count": 12, "t5.feed_forward_length": 2048,
+    "t5.attention.head_count": 12, "t5.attention.head_count_kv": 12,
+    "t5.attention.key_length": 64, "t5.attention.value_length": 64,
+    "t5.attention.layer_norm_rms_epsilon": 1e-6,
+    "t5.attention.relative_buckets_count": 32,
+    "t5.decoder_start_token_id": 0,
+}
+
+
+def _ratios(li: int, n_layers: int) -> tuple[float, float]:
+    """RWKV-LM's per-layer init ratios: (ratio_0_to_1, ratio_1_to_almost0)."""
+    r0 = li / max(n_layers - 1, 1)
+    return r0, 1.0 - li / n_layers
+
+
+def _f32(a: np.ndarray, dev) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+
+def synthetic_text_model(md: dict, seed: int = 0, device=None):
+    """A servable Model of a recurrent, embedding or encoder-decoder
+    architecture from GGUF keys (`config_from_metadata`), with the tensors
+    its module's `load_params` gives a Q4_K_M file: zero-mean q4_k
+    projections (`rand_q4k_centered`; q8_0 where in_f is not a multiple of
+    256, and every projection of RWKV-4, the type of its q8_0 .bin; dense
+    bf16 where in_f is not a multiple of 32), a q6_k
+    head where the model has its own, a bf16 embedding, and the
+    per-channel parameters of the published initialisations, so that the
+    states neither overflow nor vanish:
+    - mamba: A = -(1..d_state) per channel (A_log = log(1..N)), the dt
+      bias the inverse softplus of dt drawn log-uniform in [1e-3, 1e-1],
+      D = 1, a conv of std 1 / sqrt(d_conv); tied head;
+    - rwkv6: RWKV-LM's lerp ratios, the decay ramp -6 + 5 (i / (C-1))^(0.7
+      + 1.3 r0), `time_faaaa`, ln_x ((1 + l) / L)^0.7, small w1 / w2 /
+      decay_w1 / decay_w2;
+    - rwkv4: time_decay -exp(-5 + 8 (i / (C-1))^(0.7 + 1.3 r0)) (the file
+      keeps -exp(w)), time_first log 0.3 + a zigzag, the mix ratios;
+    - nomic-bert: layer norms near 1, token types, fused wqkv, SwiGLU;
+    - t5: RMS norms near 1, layer 0's relative-bias table (N(0, 0.1)) in
+      both stacks, gated-gelu FFNs, an untied q6_k head."""
+    from .config import config_from_metadata
+    from .loader import Model
+
+    dev = resolve_device(device)
+    arch = md["general.architecture"]
+    cfg = config_from_metadata(md)
+    rng = np.random.default_rng(seed)
+    C, L, V = cfg.hidden_size, cfg.n_layers, cfg.vocab_size
+
+    def proj(out_f, in_f):
+        if in_f % 32:  # no block type fits: F16 in a quantized file
+            return _rand_dense(rng, (out_f, in_f), dev)
+        if arch == "rwkv4" or in_f % QK_K:
+            return rand_q8_0(rng, out_f, in_f, dev)
+        return rand_q4k_centered(rng, out_f, in_f, dev)
+
+    def near_one(n, s=0.01):
+        return _f32(1.0 + rng.standard_normal(n) * s, dev)
+
+    def small(*shape, s=0.01):
+        return _f32(rng.standard_normal(shape) * s, dev)
+
+    tok_embd = _rand_dense(rng, (V, C), dev)
+    i = np.arange(C, dtype=np.float64)
+    if arch == "mamba":
+        d_in, N, K = cfg.ssm_d_inner, cfg.ssm_d_state, cfg.ssm_d_conv
+        R = cfg.ssm_dt_rank
+        params = {"tok_embd": tok_embd, "output_norm": near_one(C),
+                  "output": tok_embd, "layers": []}
+        for _ in range(L):
+            dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), d_in))
+            params["layers"].append({
+                "attn_norm": near_one(C), "ssm_in": proj(2 * d_in, C),
+                "ssm_conv1d": small(d_in, K, s=K ** -0.5),
+                "ssm_conv1d_b": small(d_in),
+                "ssm_x": proj(R + 2 * N, d_in), "ssm_dt": proj(d_in, R),
+                "ssm_dt_b": _f32(dt + np.log(-np.expm1(-dt)), dev),
+                "ssm_a": _f32(-np.tile(np.arange(1, N + 1), (d_in, 1)), dev),
+                "ssm_d": _f32(np.ones(d_in), dev),
+                "ssm_out": proj(C, d_in)})
+    elif arch in ("rwkv6", "rwkv4"):
+        F_ = cfg.intermediate_size
+        params = {"tok_embd": tok_embd, "tok_norm": near_one(C),
+                  "tok_norm_b": small(C), "output_norm": near_one(C),
+                  "output_norm_b": small(C),
+                  "output": (proj(V, C) if arch == "rwkv4"
+                             else rand_q6k(rng, V, C, dev)),
+                  "layers": []}
+        for li in range(L):
+            r0, r1 = _ratios(li, L)
+            ddd = i / C
+            zig = (i + 1) % 3 - 1
+            if arch == "rwkv6":
+                E = int(md["rwkv6.time_mix_extra_dim"])
+                E2 = int(md["rwkv6.time_decay_extra_dim"])
+                H, D = cfg.n_heads, cfg.head_dim
+                layer = {"attn_norm": near_one(C), "attn_norm_b": small(C),
+                         "attn_norm_2": near_one(C),
+                         "attn_norm_2_b": small(C)}
+                for g, pw in zip("xwkvrg", (1.0, 1.0, 1.0, 1.0, 0.5, 0.5)):
+                    layer[f"lerp_{g}"] = _f32(1.0 - ddd ** (pw * r1), dev)
+                decay = -6 + 5 * (i / (C - 1)) ** (0.7 + 1.3 * r0)
+                first = r0 * (1 - i / (C - 1)) + zig * 0.1
+                layer.update({
+                    "w1": proj(5 * E, C),
+                    "w2": _f32(rng.uniform(-1e-2, 1e-2, (5, C, E)), dev),
+                    "first": _f32(first.reshape(H, D), dev),
+                    "decay": _f32(decay, dev),
+                    "decay_w1": proj(E2, C), "decay_w2": proj(C, E2),
+                    "wk": proj(C, C), "wv": proj(C, C), "wr": proj(C, C),
+                    "wg": proj(C, C), "wo": proj(C, C),
+                    "ln_x": _f32(np.full(C, ((1 + li) / L) ** 0.7), dev),
+                    "ln_x_b": small(C),
+                    "c_lerp_k": _f32(1.0 - ddd ** r1, dev),
+                    "c_lerp_r": _f32(1.0 - ddd ** r1, dev),
+                    "ck": proj(F_, C), "cr": proj(C, C), "cv": proj(C, F_)})
+            else:
+                decay = -5 + 8 * (i / (C - 1)) ** (0.7 + 1.3 * r0)
+                layer = {"ln1": near_one(C), "ln1_b": small(C),
+                         "ln2": near_one(C), "ln2_b": small(C),
+                         "tm_k": _f32(ddd ** r1, dev),
+                         "tm_v": _f32(ddd ** r1 + 0.3 * r0, dev),
+                         "tm_r": _f32(ddd ** (0.5 * r1), dev),
+                         "first": _f32(np.log(0.3) + zig * 0.5, dev),
+                         "decay": _f32(-np.exp(decay), dev),
+                         "wk": proj(C, C), "wv": proj(C, C),
+                         "wr": proj(C, C), "wo": proj(C, C),
+                         "cm_k": _f32(ddd ** r1, dev),
+                         "cm_r": _f32(ddd ** r1, dev),
+                         "ck": proj(F_, C), "cr": proj(C, C),
+                         "cv": proj(C, F_)}
+            params["layers"].append(layer)
+    elif arch == "nomic-bert":
+        F_ = cfg.intermediate_size
+        params = {"tok_embd": tok_embd, "token_types": small(2, C),
+                  "tok_norm": near_one(C), "tok_norm_bias": small(C),
+                  "layers": []}
+        for _ in range(L):
+            params["layers"].append({
+                "wqkv": proj(3 * C, C), "wo": proj(C, C),
+                "attn_out_norm": near_one(C), "attn_out_norm_bias": small(C),
+                "w_gate": proj(F_, C), "w_up": proj(F_, C),
+                "w_down": proj(C, F_), "layer_out_norm": near_one(C),
+                "layer_out_norm_bias": small(C)})
+    elif arch == "t5":
+        F_, HD = cfg.intermediate_size, cfg.n_heads * cfg.head_dim
+        nb = cfg.extras["rel_buckets"]
+        params = {"tok_embd": tok_embd, "enc_output_norm": near_one(C),
+                  "output_norm": near_one(C),
+                  "output": rand_q6k(rng, V, C, dev),
+                  "enc_layers": [], "dec_layers": []}
+
+        def block(cross: bool, first: bool) -> dict:
+            layer = {"attn_norm": near_one(C), "attn_q": proj(HD, C),
+                     "attn_k": proj(HD, C), "attn_v": proj(HD, C),
+                     "attn_o": proj(C, HD), "ffn_norm": near_one(C),
+                     "ffn_gate": proj(F_, C), "ffn_up": proj(F_, C),
+                     "ffn_down": proj(C, F_)}
+            if cross:
+                layer.update(cross_attn_norm=near_one(C),
+                             cross_attn_q=proj(HD, C),
+                             cross_attn_k=proj(HD, C),
+                             cross_attn_v=proj(HD, C),
+                             cross_attn_o=proj(C, HD))
+            if first:
+                layer["attn_rel_b"] = small(nb, cfg.n_heads, s=0.1)
+            return layer
+
+        for li in range(L):
+            params["enc_layers"].append(block(False, li == 0))
+        for li in range(L):
+            params["dec_layers"].append(block(True, li == 0))
+    else:
+        raise ValueError(f"no synthetic model of {arch!r}")
+    return Model(cfg, params, _placeholder_tokenizer(V), dev)

@@ -6,8 +6,10 @@ Port of koboldcpp_tpu/server/app.py for text generation: KoboldAI
 at `/` and a no-script form at `/noscript`, API docs at `/api`, `/v1` and
 `/docs`, the torch.profiler session at `/api/extra/profiler/{start,stop}`,
 SSE token streaming in both dialects, Bearer auth, CORS, genkey-based
-polling/abort, HTTPS (`ssl_pair`). The image, audio and embeddings
-endpoints are not ported yet.
+polling/abort, HTTPS (`ssl_pair`), and the OpenAI `/v1/embeddings` and
+`/api/extra/embeddings` over an embedding model (bert, nomic-bert,
+jina-bert-v2, t5encoder; `Engine.embed`), whose generate routes answer
+400. The image and audio endpoints are not ported yet.
 
 asyncio (aiohttp) frontend. With the continuous-batching engine
 (`BatchedEngine`, `--multiuser N`), requests are submitted to it and
@@ -111,7 +113,15 @@ async def _run_generation(state: ServerState, genparams: dict,
                           api_format: int) -> dict:
     """Run one generation. With the continuous-batching engine, requests
     multiplex across KV slots; with the single engine they serialize behind
-    the busy lock (+ FIFO queue for --multiuser, 503 on overflow)."""
+    the busy lock (+ FIFO queue for --multiuser, 503 on overflow). An
+    embedding model generates nothing: 400."""
+    if getattr(state.engine, "embedding", False):
+        raise web.HTTPBadRequest(
+            text=json.dumps({"detail": {
+                "msg": "loaded model is an embedding model (bert/t5encoder); "
+                       "use /v1/embeddings",
+                "type": "bad_request"}}),
+            content_type="application/json")
     batched = _batched(state)
     if not batched:
         if state.busy.locked():
@@ -410,6 +420,28 @@ def make_app(engine: Engine, settings: ServerSettings | None = None) -> web.Appl
         ids = state.engine.token_count(str(body.get("prompt", "")))
         return _json({"value": len(ids), "ids": ids})
 
+    async def embeddings(request):
+        """OpenAI /v1/embeddings and /api/extra/embeddings over an
+        embedding model (the llama.cpp server's /embeddings role)."""
+        body = await _read_json(request)
+        if not getattr(state.engine, "embedding", False):
+            return _json({"error": {"message":
+                          "loaded model does not produce embeddings",
+                          "type": "invalid_request_error"}}, status=400)
+        inp = body.get("input", body.get("prompt", ""))
+        texts = [str(t) for t in inp] if isinstance(inp, list) else [str(inp)]
+        loop = asyncio.get_event_loop()
+        vecs = await loop.run_in_executor(None, state.engine.embed, texts)
+        return _json({
+            "object": "list",
+            "model": state.settings.model_name,
+            "data": [{"object": "embedding", "index": i,
+                      "embedding": [float(x) for x in v]}
+                     for i, v in enumerate(vecs)],
+            "usage": {"prompt_tokens": sum(len(t) for t in texts),
+                      "total_tokens": sum(len(t) for t in texts)},
+        })
+
     async def detokenize(request):
         body = await _read_json(request)
         ids = [int(i) for i in body.get("ids", [])]
@@ -500,6 +532,8 @@ def make_app(engine: Engine, settings: ServerSettings | None = None) -> web.Appl
     r.add_post("/api/extra/tokencount", tokencount)
     r.add_post("/api/extra/profiler/start", profiler_start)
     r.add_post("/api/extra/profiler/stop", profiler_stop)
+    r.add_post("/v1/embeddings", embeddings)
+    r.add_post("/api/extra/embeddings", embeddings)
     r.add_post("/api/extra/detokenize", detokenize)
     r.add_post("/api/extra/abort", abort)
     r.add_post("/api/extra/generate/check", check)

@@ -46,6 +46,29 @@ and 2 over kv heads 2 and 1 by layer, FFN widths 512 and 256), bitnet
 (sub-norms and scale scalars), jais (ALiBi, biases) and plamo, each with
 the tensors of tests/test_archs_r2.py's case at these widths.
 
+The text fixtures (text.json: tiny-mamba-q4_k_m, tiny-rwkv6-q4_k_m,
+tiny-rwkv4-q8_0.bin with the vocab sidecar rwkv_vocab.embd,
+tiny-nomic-bert-q4_k_m, tiny-t5-q4_k_m) are the recurrent, embedding and
+encoder-decoder models at hidden 256, 2 layers, vocab 512: a transformers
+Mamba (d_inner 512, d_state 16, dt_rank 16, tied head; initializer_range
+0.02, most transformers models' default: at Mamba's own 0.1 the tied
+head's logits spread 4x wider, and one bf16 rounding step of a projection
+moved a logit by 0.036, past the fixture tolerance), an RWKV6 state
+dict with RWKV-LM's initialisations (4 heads of 64, FFN 512, lerp rank
+32, decay rank 64; `rwkv6_state`) through tools/convert_hf.py, a
+transformers RWKV-4 written as a q8_0 legacy .bin by tools/convert_rwkv.py
+beside a byte-level vocab sidecar, a hand-written f32 nomic-bert (4 heads
+of 64, NEOX rope, SwiGLU 512, mean pooling; `bert_family_tensors`) and a
+transformers flan-style T5 (4 heads of 64, gated-gelu FFN 512, 32
+buckets; initializer_factor 0.2: at 1.0 its logits have a std of 16 and
+its hidden states reach 4, where one bf16 step of a projection's output
+is 0.03 and moved a logit by 0.75, past the fixture tolerance); the GGUFs
+quantized by tools/quantize.py to Q4_K_M. Their JAX
+numbers: the generators' logits over the 12 tokens, nomic-bert's final
+hidden states (`bert.forward_embed`, embed-jax-nomic-bert.npy) and T5's
+decoder logits over [decoder start] + the first 11 tokens with the 12
+tokens through the encoder.
+
 The logits are the JAX package's `forward` (packed weights, f32 cache and
 activations, on the CPU; models/deepseek2.py's for deepseek2 / minicpm3)
 over the refgguf manifest's 12 tokens. They are the JAX package's own
@@ -53,9 +76,9 @@ numbers, not reference-runtime goldens.
 
 Run from the repository root when the fixtures need regenerating (--archs:
 the architecture fixtures only; --moe: the MoE fixtures only; --late: the
-late fixtures only):
+late fixtures only; --text: the text fixtures only):
 
-    JAX_PLATFORMS=cpu python tests/make_torch_fixtures.py [--archs | --moe | --late]
+    JAX_PLATFORMS=cpu python tests/make_torch_fixtures.py [--archs | --moe | --late | --text]
 """
 from __future__ import annotations
 
@@ -84,6 +107,10 @@ MOE_SEED = {"mixtral": 44, "qwen2moe": 45, "grok": 46}
 LATE_SEED = {"deepseek2": 47, "minicpm3": 48, "chameleon_swin": 49,
              "openelm": 50, "bitnet": 51, "jais": 52, "plamo": 53}
 LATE_FILES = {a: f"tiny-{a}-q4_k_m.gguf" for a in LATE_SEED}
+TEXT_SEED = {"mamba": 54, "rwkv6": 55, "rwkv4": 56, "nomic-bert": 57,
+             "t5": 58}
+TEXT_FILES = {a: f"tiny-{a}-q4_k_m.gguf" for a in TEXT_SEED}
+TEXT_FILES["rwkv4"] = "tiny-rwkv4-q8_0.bin"
 
 
 def jax_logits(path: str, tokens: list[int]) -> np.ndarray:
@@ -538,13 +565,299 @@ def make_arch_fixtures(tokens: list[int]) -> None:
         f.write("\n")
 
 
+def rwkv6_state(seed: int, C: int, H: int, F: int, V: int, L: int,
+                E: int = 32, E2: int = 64, head_scale: float = 0.25) -> dict:
+    """An RWKV6 state dict (RWKV-LM names) with RWKV-LM's initialisations:
+    lerp ratios 1 - (i / C)^r, the decay ramp -6 + 5 (i / (C-1))^(0.7 +
+    1.3 r) and the `time_faaaa` bonus, w1 / w2 / decay_w1 / decay_w2 small
+    uniform, the projections normal of std 1 / sqrt(in), the head that
+    times head_scale (logits of std ~0.25: at std 1 a bf16 step of a
+    projection, carried by the recurrence, moved logits near 0.1 by 0.02,
+    0.88 of the fixture tolerance on the CPU)."""
+    rng = np.random.default_rng(seed)
+
+    def mat(out, inp):
+        return (rng.standard_normal((out, inp)) / np.sqrt(inp)).astype(
+            np.float32)
+
+    def vec(n, around_one=False):
+        v = (rng.standard_normal(n) * 0.05).astype(np.float32)
+        return v + 1.0 if around_one else v
+
+    i = np.arange(C, dtype=np.float32)
+    st = {"emb.weight": (rng.standard_normal((V, C)) * 0.1).astype(np.float32),
+          "blocks.0.ln0.weight": vec(C, True), "blocks.0.ln0.bias": vec(C),
+          "ln_out.weight": vec(C, True), "ln_out.bias": vec(C),
+          "head.weight": mat(V, C) * head_scale}
+    for li in range(L):
+        p = f"blocks.{li}."
+        r1 = 1.0 - li / max(L - 1, 1)   # ratio_1_to_almost0
+        r0 = li / max(L - 1, 1)         # ratio_0_to_1
+        ddd = i / C
+        st |= {p + "ln1.weight": vec(C, True), p + "ln1.bias": vec(C),
+               p + "ln2.weight": vec(C, True), p + "ln2.bias": vec(C)}
+        for g, pw in zip("xwkvrg", (1.0, 1.0, 1.0, 1.0, 0.5, 0.5)):
+            st[p + f"att.time_maa_{g}"] = (1.0 - ddd ** (pw * r1)).astype(
+                np.float32)
+        decay = -6 + 5 * (i / (C - 1)) ** (0.7 + 1.3 * r0)
+        first = r1 * (1 - i / (C - 1)) + ((i + 1) % 3 - 1) * 0.1
+        st |= {p + "att.time_maa_w1": rng.uniform(
+                   -1e-4, 1e-4, (C, 5 * E)).astype(np.float32),
+               p + "att.time_maa_w2": rng.uniform(
+                   -1e-2, 1e-2, (5, E, C)).astype(np.float32),
+               p + "att.time_decay": decay.astype(np.float32),
+               p + "att.time_decay_w1": rng.uniform(
+                   -1e-4, 1e-4, (C, E2)).astype(np.float32),
+               p + "att.time_decay_w2": rng.uniform(
+                   -1e-2, 1e-2, (E2, C)).astype(np.float32),
+               p + "att.time_faaaa": first.reshape(H, C // H).astype(
+                   np.float32),
+               p + "att.key.weight": mat(C, C),
+               p + "att.value.weight": mat(C, C),
+               p + "att.receptance.weight": mat(C, C),
+               p + "att.gate.weight": mat(C, C),
+               p + "att.output.weight": mat(C, C),
+               p + "att.ln_x.weight": vec(C, True),
+               p + "att.ln_x.bias": vec(C),
+               p + "ffn.time_maa_k": (1.0 - ddd ** r1).astype(np.float32),
+               p + "ffn.time_maa_r": (1.0 - ddd ** r1).astype(np.float32),
+               p + "ffn.key.weight": mat(F, C),
+               p + "ffn.receptance.weight": mat(C, C),
+               p + "ffn.value.weight": mat(C, F)}
+    return st
+
+
+def bert_family_tensors(arch: str, seed: int, C: int, H: int, D: int,
+                        F: int, L: int, V: int) -> dict:
+    """The f32 tensors of a nomic-bert (fused unbiased qkv, gated FFN) or
+    jina-bert-v2 (biased q / k / v, a QK LayerNorm on layer 0, attn_norm_2
+    on layer 1, gated FFN with a down bias) model, as
+    tests/test_archs_r2.py writes its cases, at any width."""
+    rng = np.random.default_rng(seed)
+
+    def w2(out, inp, s=0.05):
+        return (rng.standard_normal((out, inp)) * s).astype(np.float32)
+
+    def w1(n, around_one=False):
+        v = (rng.standard_normal(n) * 0.1).astype(np.float32)
+        return v + 1.0 if around_one else v
+
+    t = {"token_embd.weight": w2(V, C, 0.02),
+         "token_types.weight": w2(2, C, 0.02),
+         "token_embd_norm.weight": w1(C, True),
+         "token_embd_norm.bias": w1(C)}
+    for i in range(L):
+        p = f"blk.{i}."
+        if arch == "nomic-bert":
+            t[p + "attn_qkv.weight"] = w2(3 * H * D, C)
+        else:
+            for nm in ("attn_q", "attn_k", "attn_v"):
+                t[p + nm + ".weight"] = w2(H * D, C)
+                t[p + nm + ".bias"] = w1(H * D)
+            t[p + "attn_output.bias"] = w1(C)
+            t[p + "ffn_down.bias"] = w1(C)
+        t[p + "attn_output.weight"] = w2(C, H * D)
+        t[p + "attn_output_norm.weight"] = w1(C, True)
+        t[p + "attn_output_norm.bias"] = w1(C)
+        t[p + "ffn_gate.weight"] = w2(F, C)
+        t[p + "ffn_up.weight"] = w2(F, C)
+        t[p + "ffn_down.weight"] = w2(C, F)
+        t[p + "layer_output_norm.weight"] = w1(C, True)
+        t[p + "layer_output_norm.bias"] = w1(C)
+    if arch == "jina-bert-v2":
+        for nm in ("attn_q_norm", "attn_k_norm"):
+            t[f"blk.0.{nm}.weight"] = w1(H * D, True)
+            t[f"blk.0.{nm}.bias"] = w1(H * D)
+        t[f"blk.{L - 1}.attn_norm_2.weight"] = w1(C, True)
+        t[f"blk.{L - 1}.attn_norm_2.bias"] = w1(C)
+    return t
+
+
+def write_bert_family(path: str, arch: str, tensors: dict, C: int, H: int,
+                      D: int, F: int, L: int, V: int,
+                      pooling: int = 1) -> None:
+    """An f32 GGUF of `bert_family_tensors` with its keys (layer norms,
+    NEOX rope at base 1000 for nomic-bert) and the toy tokenizer."""
+    sys.path.insert(0, ROOT)
+    from koboldcpp_tpu.gguf import GGMLType, GGUFWriter
+    from tests.test_model_forward import tiny_tokenizer_md
+
+    w = GGUFWriter(path, architecture=arch)
+    for k, v in {"context_length": np.uint32(128),
+                 "embedding_length": np.uint32(C),
+                 "block_count": np.uint32(L),
+                 "feed_forward_length": np.uint32(F),
+                 "attention.head_count": np.uint32(H),
+                 "attention.head_count_kv": np.uint32(H),
+                 "attention.key_length": np.uint32(D),
+                 "attention.value_length": np.uint32(D),
+                 "attention.layer_norm_epsilon": np.float32(1e-5),
+                 "rope.freq_base": np.float32(1000.0),
+                 "rope.dimension_count": np.uint32(D),
+                 "vocab_size": np.uint32(V),
+                 "pooling_type": np.uint32(pooling)}.items():
+        w.add(f"{arch}.{k}", v)
+    for k, v in tiny_tokenizer_md(V).items():
+        w.add(k, v)
+    for name, arr in tensors.items():
+        w.add_tensor(name, np.asarray(arr, np.float32), GGMLType.F32)
+    w.write()
+
+
+def write_byte_vocab(path: str, n: int) -> None:
+    """A legacy RWKV vocab sidecar (rwkv_vocab.embd: one GPT-2-unicode
+    line a token): <|endoftext|>, the 256 bytes, then tok{i} filler."""
+    sys.path.insert(0, ROOT)
+    from koboldcpp_tpu.gguf.legacy import _gpt2_byte_encoder
+
+    enc = _gpt2_byte_encoder()
+    words = [b"<|endoftext|>"] + [bytes([b]) for b in range(256)]
+    words += [f"tok{i}".encode() for i in range(len(words), n)]
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join("".join(enc[b] for b in w) for w in words[:n]))
+
+
+def text_f32(arch: str, path: str) -> None:
+    """The text fixture model of `arch` (hidden 256, 2 layers, vocab 512)
+    as an f32 GGUF (for rwkv4: the q8_0 legacy .bin itself)."""
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import torch
+    import transformers as tf
+    from convert_hf import (convert_mamba_state_dict,
+                            convert_rwkv6_state_dict, convert_t5_state_dict)
+    from convert_rwkv import convert_state_dict
+
+    from tests.test_model_forward import tiny_tokenizer_md
+
+    md = tiny_tokenizer_md(512)
+    seed = TEXT_SEED[arch]
+    torch.manual_seed(seed)
+    if arch == "mamba":
+        cfg = tf.MambaConfig(vocab_size=512, hidden_size=256, state_size=16,
+                             num_hidden_layers=2, conv_kernel=4,
+                             intermediate_size=512, time_step_rank=16,
+                             use_cache=False, initializer_range=0.02)
+        model = tf.MambaForCausalLM(cfg).eval().float()
+        convert_mamba_state_dict(
+            {k: v.numpy() for k, v in model.state_dict().items()}, cfg,
+            path, tokenizer_md=md)
+    elif arch == "rwkv6":
+        cfg = dict(num_hidden_layers=2, hidden_size=256, head_size=64,
+                   intermediate_size=512, vocab_size=512, rescale_every=6,
+                   layer_norm_epsilon=1e-5)
+        convert_rwkv6_state_dict(rwkv6_state(seed, 256, 4, 512, 512, 2),
+                                 cfg, path, tokenizer_md=md)
+    elif arch == "rwkv4":
+        cfg = tf.RwkvConfig(vocab_size=512, hidden_size=256,
+                            num_hidden_layers=2, attention_hidden_size=256,
+                            intermediate_size=512, context_length=256,
+                            use_cache=False)
+        convert_state_dict(tf.RwkvForCausalLM(cfg).eval().float()
+                           .state_dict(), path, dtype="f16", quant="q8_0")
+        write_byte_vocab(os.path.join(os.path.dirname(path),
+                                      "rwkv_vocab.embd"), 512)
+    elif arch == "nomic-bert":
+        write_bert_family(path, arch, bert_family_tensors(
+            arch, seed, 256, 4, 64, 512, 2, 512), 256, 4, 64, 512, 2, 512)
+    else:
+        cfg = tf.T5Config(vocab_size=512, d_model=256, d_kv=64, d_ff=512,
+                          num_layers=2, num_heads=4,
+                          relative_attention_num_buckets=32,
+                          relative_attention_max_distance=128,
+                          feed_forward_proj="gated-gelu",
+                          tie_word_embeddings=False,
+                          decoder_start_token_id=0, pad_token_id=0,
+                          eos_token_id=1, initializer_factor=0.2)
+        model = tf.T5ForConditionalGeneration(cfg).eval().float()
+        convert_t5_state_dict(
+            {k: v.numpy() for k, v in model.state_dict().items()}, cfg,
+            path, tokenizer_md=md)
+
+
+def text_jax_numbers(arch: str, path: str, tokens: list[int]) -> np.ndarray:
+    """The JAX package's numbers on a text fixture (packed weights, f32, on
+    the CPU): logits (12, vocab) of mamba / rwkv6 / rwkv4 over `tokens`,
+    nomic-bert's final hidden states (12, C), T5's decoder logits over
+    [decoder start] + tokens[:11] with `tokens` through the encoder."""
+    sys.path.insert(0, ROOT)
+    import jax.numpy as jnp
+
+    from koboldcpp_tpu.models import bert, mamba, rwkv4, rwkv6, t5
+    from koboldcpp_tpu.models.loader import load_model
+
+    m = load_model(path, packed=True, dtype=jnp.float32)
+    toks = jnp.asarray([tokens], jnp.int32)
+    pos = jnp.arange(len(tokens), dtype=jnp.int32)[None]
+    if arch == "nomic-bert":
+        out = bert.forward_embed(m.params, m.cfg, toks, pos)
+    elif arch == "t5":
+        enc = t5.encode(m.params, m.cfg, toks, pos)
+        cache = t5.prepare_cross(m.params, m.cfg, enc, pos >= 0,
+                                 t5.init_cache(m.cfg, 1, 64, len(tokens)))
+        dec = jnp.asarray([[m.cfg.extras["decoder_start"]] + tokens[:-1]],
+                          jnp.int32)
+        out, _ = t5.forward(m.params, m.cfg, dec, pos, cache)
+    else:
+        mod = {"mamba": mamba, "rwkv6": rwkv6, "rwkv4": rwkv4}[arch]
+        out, _ = mod.forward(m.params, m.cfg, toks, pos,
+                             mod.init_state(m.cfg, 1))
+    return np.asarray(out, np.float32)[0]
+
+
+def text_numbers_name(arch: str) -> str:
+    return (f"embed-jax-{arch}.npy" if arch == "nomic-bert"
+            else f"logits-jax-{arch}.npy")
+
+
+def make_text_fixtures(tokens: list[int]) -> None:
+    for arch, name in TEXT_FILES.items():
+        path = os.path.join(OUT, name)
+        if arch == "rwkv4":
+            text_f32(arch, path)
+        else:
+            src = os.path.join(OUT, f"_{arch}-f32.gguf")
+            text_f32(arch, src)
+            subprocess.run([sys.executable, os.path.join(ROOT, "tools",
+                                                         "quantize.py"),
+                            src, path, "q4_k_m"], check=True)
+            os.remove(src)
+        np.save(os.path.join(OUT, text_numbers_name(arch)),
+                text_jax_numbers(arch, path, tokens))
+    manifest = {
+        "tokens": tokens,
+        "files": TEXT_FILES,
+        "made_by": {arch: f"tests/make_torch_fixtures.py --text: the tiny "
+                          f"{arch} model (seed {TEXT_SEED[arch]}), then "
+                          + ("tools/convert_rwkv.py --quant q8_0 with the "
+                             "vocab sidecar rwkv_vocab.embd beside it"
+                             if arch == "rwkv4" else
+                             "tools/quantize.py's q4_k_m")
+                          + f" into tests/fixtures/portgguf/{name}"
+                    for arch, name in TEXT_FILES.items()},
+        "numbers": {a: text_numbers_name(a) for a in TEXT_FILES},
+        "logits": "the JAX package's numbers on the CPU (packed weights, "
+                  "f32): logits-jax-<arch>.npy the forward's logits over "
+                  "`tokens` at positions 0..11 (T5: the decoder over "
+                  "[decoder start] + tokens[:11], the encoder over "
+                  "`tokens`), shape (12, vocab); embed-jax-nomic-bert.npy "
+                  "bert.forward_embed's final hidden states, shape (12, "
+                  "256); not reference-runtime goldens",
+        "generator": "tests/make_torch_fixtures.py",
+    }
+    with open(os.path.join(OUT, "text.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+        f.write("\n")
+
+
 def main() -> int:
     os.makedirs(OUT, exist_ok=True)
     tokens = json.load(open(os.path.join(REF, "manifest.json")))["tokens"]
-    only = {"--archs", "--moe", "--late"} & set(sys.argv[1:])
+    only = {"--archs", "--moe", "--late", "--text"} & set(sys.argv[1:])
     for flag, make in (("--archs", make_arch_fixtures),
                        ("--moe", make_moe_fixtures),
-                       ("--late", make_late_fixtures)):
+                       ("--late", make_late_fixtures),
+                       ("--text", make_text_fixtures)):
         if not only or flag in only:
             make(tokens)
     if only:

@@ -348,8 +348,9 @@ def test_legacy_otherarch_matches_jax(arch, tmp_path, monkeypatch):
 
 
 def test_legacy_rwkv_is_refused_by_name(monkeypatch, tmp_path):
-    """A legacy RWKV file goes to its reader and is refused as the
-    recurrent architecture it is (rwkv comes with the recurrent models)."""
+    """A legacy RWKV file goes to its reader and, by its architecture's
+    name, to models/rwkv4.py's loader (refused by name until the recurrent
+    models were ported; tests/test_torch_recurrent.py serves such files)."""
     path = str(tmp_path / "rwkv.bin")
     with open(path, "wb") as f:
         f.write(b"\0" * 64)
@@ -374,8 +375,13 @@ def test_legacy_rwkv_is_refused_by_name(monkeypatch, tmp_path):
             pass
 
     monkeypatch.setattr(tlegacy, "LegacyRwkvReader", Reader)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        load_model(path, device="cpu")
+    from koboldcpp_tpu_torch.models import rwkv4
+
+    seen = []
+    monkeypatch.setattr(rwkv4, "load_params",
+                        lambda r, cfg, **kw: seen.append(type(r)) or {})
+    m = load_model(path, device="cpu")
+    assert seen == [Reader] and m.cfg.arch == "rwkv4" and m.params == {}
 
 
 # ---------------------------------------------------------------------------

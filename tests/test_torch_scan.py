@@ -5,6 +5,7 @@ package's on the same weights (JAX synthetic params carried across by
 port's own unrolled `forward`, and its entry point
 (koboldcpp_tpu_torch/tools/profile_scan.py), on the CPU."""
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -281,3 +282,31 @@ def test_profile_scan_tool_scan_equals_unroll():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             profile_scan.main(["scan", "--steps", "1"])
+
+
+def test_device_rows_reads_the_raw_device_events():
+    """`profile_scan.device_rows` (the kernel rows the smoke script and
+    the tool sum) on a real CPU session (no device event: no row) and on
+    a stand-in session: device events only, hidden and user-annotation
+    events left out, time and launches summed by kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        torch.ones(64).add_(1)
+    assert profile_scan.device_rows(prof) == {}
+
+    def ev(name, dev, ns, hidden=False, note=False):
+        return SimpleNamespace(
+            name=lambda: name, device_type=lambda: dev,
+            duration_ns=lambda: ns, is_hidden_event=lambda: hidden,
+            is_user_annotation=lambda: note)
+
+    cuda, cpu = DeviceType.CUDA, DeviceType.CPU
+    events = [ev("k1", cuda, 1500), ev("k1", cuda, 500), ev("k2", cuda, 250),
+              ev("aten::mm", cpu, 9e6), ev("k3", cuda, 7e3, hidden=True),
+              ev("note", cuda, 8e3, note=True)]
+    stand_in = SimpleNamespace(profiler=SimpleNamespace(
+        kineto_results=SimpleNamespace(events=lambda: events)))
+    assert profile_scan.device_rows(stand_in) == {"k1": (2.0, 2),
+                                                  "k2": (0.25, 1)}
