@@ -195,6 +195,21 @@
    blocks as GGUF; `cli.main([..., "--benchmark"])`; over HTTP the Lite
    page at /, /api/tags, and the profiler routes around one generate
    (a trace naming the port's kernels);
+8a. the vision and speech inputs (`phase_llava`, `phase_whisper`, before
+   the MoE phases): LLaVA-1.5-7B's widths at full depth (CLIP
+   ViT-L/14-336 with the mlp2x_gelu projector, f32, and a LLaMA-2-7B-width
+   q4_k_m LM, both drawn on the card): a 640 x 480 PNG's 576 embeddings
+   against the same module on the CPU (1e-3 (1 + |want|)), one image
+   request (597 prefill rows through K3, 32 greedy tokens through K1 / K2
+   / K5) against the plain matmuls (near-ties apart), two image requests
+   and a text one together through BatchedEngine on the slot cache and the
+   paged pool, equal to single-stream; whisper-small's widths: the encoder
+   output and the first decoder logits against the CPU, a 30 s
+   `transcribe`, a 75 s `transcribe_verbose` (three windows, the full
+   temperature ladder) and one /api/extra/transcribe request; the K5 /
+   K6 / K8 / K9 / K10 cases above also take the head_dims 20, 36 and 640
+   (`REPAIRED_SHAPES`: pieces narrower than 16 bytes, output columns in
+   chunks of 256);
 8b. the recurrent, embedding and encoder-decoder models
    (`phase_served_text`, `phase_text_decode`, `phase_embed`, after the MLA
    phase): the tiny text fixtures of tests/fixtures/portgguf/text.json
@@ -253,6 +268,7 @@ if not torch.cuda.is_available():
 from koboldcpp_tpu_torch.device import card_info  # noqa: E402
 from koboldcpp_tpu_torch.engine import Engine, GenParams  # noqa: E402
 from koboldcpp_tpu_torch.engine import batch_engine  # noqa: E402
+from koboldcpp_tpu_torch.engine.engine import splice_images  # noqa: E402
 from koboldcpp_tpu_torch.models import deepseek2 as ds2  # noqa: E402
 from koboldcpp_tpu_torch.models import llama  # noqa: E402
 from koboldcpp_tpu_torch.models.config import config_from_metadata  # noqa: E402
@@ -260,9 +276,10 @@ from koboldcpp_tpu_torch.models.loader import Model, load_model  # noqa: E402
 from koboldcpp_tpu_torch.models.synthetic import (  # noqa: E402
     _MAKERS, DEEPSEEK_V2_LITE_MD, FLAN_T5_BASE_MD, MAMBA_1_4B_MD,
     NOMIC_EMBED_V1_5_MD, RWKV4_PILE_1B5_MD, RWKV6_FINCH_1B6_MD,
-    TINYLLAMA_1_1B, rand_iq, rand_q2k, rand_q3k, rand_q4k,
-    rand_q4k_centered, rand_q5k, rand_q6k, rand_q8_0,
-    synthetic_deepseek2_model, synthetic_model, synthetic_text_model)
+    LLAMA2_7B, TINYLLAMA_1_1B, rand_iq, rand_q2k, rand_q3k, rand_q4k,
+    rand_q4k_centered, rand_q5k, rand_q6k, rand_q8_0, synthetic_clip,
+    synthetic_deepseek2_model, synthetic_model, synthetic_q4_k_m_on_device,
+    synthetic_text_model, synthetic_whisper)
 from koboldcpp_tpu_torch.kv import paged  # noqa: E402
 from koboldcpp_tpu_torch.kv.cache import (  # noqa: E402
     _dequant, _q8, init_cache, init_pool_cache)
@@ -1183,6 +1200,11 @@ def phase_iq_kernels(rng) -> None:
 # pad: D = 72 (32/16, padded to 80) and D = 512 (8/1), and Phi-2's 32/32/80
 HEAD_SHAPES = ((32, 8, 80), (32, 32, 96), (16, 8, 256), (128, 8, 128),
                (32, 16, 72), (8, 1, 512), (32, 32, 80))
+# head_dims that the JAX package sends to its kernels (Hkv * D % 128 == 0)
+# beyond a multiple of 8 up to 512: 20 and 36 (a head's bytes not a
+# multiple of 16: narrower pieces, Q and the new rows by plain loads) and
+# 640 (output columns in chunks of 256)
+REPAIRED_SHAPES = ((32, 32, 20), (32, 32, 36), (1, 1, 640))
 # Gemma-2's attention softcap, which K5 / K6 / K8 take on its global layers
 GEMMA2_SOFTCAP = 50.0
 # positions of the 8-sequence cases: pos 0, page boundaries, the last row,
@@ -1201,11 +1223,11 @@ def phase_flash_decode(rng) -> None:
             [(1, 2048, 32, 4, 64, (p,), False) for p in (0, 1, 700, 2047)]
             + [(1, 2048, 32, 4, 64, (p,), True) for p in (700, 2047)]
             + [(2, 4096, 32, 8, 128, (3000, -1), True)]
-            + [c for H, Hkv, D in HEAD_SHAPES
+            + [c for H, Hkv, D in HEAD_SHAPES + REPAIRED_SHAPES
                for c in ((1, 2048, H, Hkv, D, (700,), True),
                          (8, 2048, H, Hkv, D, BATCH_POSITIONS, True))]):
         _flash_decode_case(rng, B, S, H, Hkv, D, positions, peaked)
-    for H, Hkv, D in ((32, 16, 72), (8, 1, 512)):
+    for H, Hkv, D in ((32, 16, 72), (8, 1, 512), (1, 1, 640)):
         _flash_decode_case(rng, 8, 2048, H, Hkv, D, BATCH_POSITIONS, True,
                            torch.float32)
     # Gemma-2's global layers: 16/8/256 under the softcap, past its window
@@ -1348,7 +1370,7 @@ def phase_paged_flash_decode(rng) -> None:
     at each of HEAD_SHAPES."""
     for peaked in (False, True):
         _paged_case(rng, 8, 32, 4, 64, 64, 32, BATCH_POSITIONS, peaked)
-    for H, Hkv, D in HEAD_SHAPES:
+    for H, Hkv, D in HEAD_SHAPES + REPAIRED_SHAPES[:1]:
         _paged_case(rng, 8, H, Hkv, D, 64, 32, BATCH_POSITIONS, True)
 
 
@@ -1521,6 +1543,12 @@ def phase_quant_decode(rng) -> None:
         for H, Hkv, D in HEAD_SHAPES:
             _quant_case(rng, kid, 8, H, Hkv, D, 64, 32, QUANT_POSITIONS, True)
             torch.cuda.empty_cache()
+    # the repaired head_dims: K6 at each, K9 / K10 at D = 20 (K10's 10
+    # bytes a head: two-byte pieces by plain loads)
+    for kid, shapes in (("K6", REPAIRED_SHAPES), ("K9", REPAIRED_SHAPES[:1]),
+                        ("K10", REPAIRED_SHAPES[:1])):
+        for H, Hkv, D in shapes:
+            _quant_case(rng, kid, 8, H, Hkv, D, 64, 32, QUANT_POSITIONS, True)
 
 
 def _quant_case(rng, kid, B, H, Hkv, D, P, MP, positions, peaked) -> None:
@@ -4817,6 +4845,305 @@ def phase_served_features(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the vision and speech inputs
+# ---------------------------------------------------------------------------
+
+# LLaVA-1.5-7B at full depth: the CLIP ViT-L/14-336 tower (23 of its 24
+# layers run: select_layer -2) with the mlp2x_gelu projector, and the
+# LLaMA-2-7B-width LM (synthetic "q4_k_m" weights drawn on the card)
+LLAVA_PROMPT = 20   # text tokens after BOS
+LLAVA_DEPTH = 32    # greedy tokens: one device chunk
+LLAVA_PLAIN_DEPTH = 8  # of them under the plain matmuls (host loop)
+LLAVA_BATCH_DEPTH = 16  # greedy tokens of each batched request
+# the image embeddings and whisper's outputs on the card against the same
+# f32 module on the CPU: |err| <= EMBED_TOL (1 + |want|)
+EMBED_TOL = 1e-3
+
+
+def _png_b64(rng, w: int, h: int) -> str:
+    import base64
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(rng.integers(0, 255, (h, w, 3), dtype=np.uint8)).save(
+        buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def _cpu_copy(params: dict) -> dict:
+    return {k: v.detach().cpu() for k, v in params.items()}
+
+
+def _close(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """Hold got (card) to want (CPU f32) at EMBED_TOL; returns the worst
+    |err| / (EMBED_TOL (1 + |want|))."""
+    g, w = got.float().cpu(), want.float()
+    _check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+           f"{what}: shape {tuple(g.shape)} vs {tuple(w.shape)} or not finite")
+    worst = float(((g - w).abs() / (EMBED_TOL * (1 + w.abs()))).max())
+    _check(worst <= 1.0, f"{what}: |err| / ({EMBED_TOL} (1 + |want|)) "
+           f"{worst}")
+    print(f"{what}: card against the CPU in f32, max abs err "
+          f"{float((g - w).abs().max()):.3g}, worst |err| / ({EMBED_TOL} "
+          f"(1 + |want|)) {worst:.3g}", flush=True)
+    return worst
+
+
+def _llava_same(eng: Engine, prompt, images, got, want, what) -> None:
+    """got == want (or the shorter a prefix of the longer), else equal up to
+    a step where the single-stream logits of the two picks, after the
+    spliced image, lie within NEAR_TIE (printed)."""
+    n = min(len(got), len(want))
+    if got[:n] == want[:n]:
+        return
+    i = next(j for j in range(n) if got[j] != want[j])
+    if not images:
+        return _same_or_near_tie(eng, prompt, got, want, what)
+    eng.reset_context()
+    with torch.inference_mode():
+        ctx, emb = splice_images(eng.clip, eng.tokenizer.vocab.add_bos,
+                                 list(prompt), images)
+        lg = eng.eval_tokens(ctx + got[:i], 0, emb).float()
+    a, b = lg[got[i]].item(), lg[want[i]].item()
+    _check(abs(a - b) <= NEAR_TIE,
+           f"{what}: tokens part at step {i} ({got[i]} vs {want[i]}), "
+           f"single-stream logits {a} vs {b}")
+    print(f"near-tie: {what}, step {i}: tokens {got[i]} / {want[i]}, "
+          f"single-stream logits {a:.6f} / {b:.6f}", flush=True)
+
+
+def phase_llava(card: str) -> dict:
+    """LLaVA-1.5-7B's widths at full depth: `synthetic_clip` (CLIP
+    ViT-L/14-336, f32) and `synthetic_q4_k_m_on_device(LLAMA2_7B)`. A
+    seeded 640 x 480 PNG's 576 patch embeddings on the card against the same
+    module on the CPU (f32); one request through Engine.generate (BOS, the
+    image's 576 rows, LLAVA_PROMPT text tokens: two prefill chunks of 512
+    and 85 rows, each through `forward` with the rows spliced in, every
+    q4_k / q6_k projection through K3; then LLAVA_DEPTH greedy tokens, one
+    device chunk: K1 / K2 / K5 a step), its first LLAVA_PLAIN_DEPTH
+    tokens against the same request under the plain matmuls (near-ties
+    apart); then two image requests and a text request together through
+    BatchedEngine (4 slots) on the slot cache and on the paged pool (P =
+    64), each request's tokens equal to its single-stream run. Prints the
+    image encode ms, prefill ms, decode tok/s and the peak memory. Returns
+    the launches of the single and batched runs."""
+    t0 = time.perf_counter()
+    clip = synthetic_clip(llm_hidden=LLAMA2_7B.hidden_size, seed=0,
+                          device=DEV)
+    model = synthetic_q4_k_m_on_device(LLAMA2_7B, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(22)
+    images = [_png_b64(rng, 640, 480) for _ in range(3)]
+    prompts = [[1] + rng.integers(3, LLAMA2_7B.vocab_size,
+                                  size=LLAVA_PROMPT).tolist()
+               for _ in range(3)]
+
+    # the embeddings: card against the CPU in f32
+    from koboldcpp_tpu_torch.models.clip import (ClipModel,
+                                                 decode_image_base64)
+
+    px = decode_image_base64(images[0], clip.cfg.image_size)
+    emb = clip.image_embed(px)
+    cpu = ClipModel(clip.cfg, _cpu_copy(clip.params), torch.device("cpu"))
+    _close(emb, cpu.image_embed(px), "CLIP ViT-L/14-336 + projector "
+           "embeddings (576 x 4096)")
+    del cpu
+    enc_ms = _event_ms(lambda: clip.image_embed(px))
+
+    gp = GenParams(max_length=LLAVA_DEPTH, bypass_eos=True,
+                   images=images[:1],
+                   sampler=SamplerParams(temperature=0.0, rep_pen=1.0))
+    eng = Engine(model, max_context=2048, device=DEV, clip_model=clip)
+    eng.generate(prompts[0][:4], dataclasses.replace(gp, max_length=4))
+    _build.launches.clear()
+    r1 = eng.generate(prompts[0], gp)
+    counts = dict(_build.launches)
+    t1 = r1.timings
+    n_img = clip.cfg.n_patches
+    _check(len(r1.tokens) == LLAVA_DEPTH
+           and eng.context_tokens.count(eng.IMG_SENTINEL) == n_img
+           and t1.prompt_tokens == 1 + n_img + LLAVA_PROMPT,
+           f"LLaVA: tokens {r1.tokens}, {t1.prompt_tokens} prompt rows")
+    _check(all(counts.get(k, 0) > 0 for k in ("K1", "K2", "K3", "K5"))
+           and counts.get("K4", 0) == 0,
+           f"LLaVA: the request missed a kernel (or took K4): {counts}")
+    eng.reset_context()
+    with _plain_matmuls(), _env(KCPP_FAST_DECODE="0"):
+        r2 = eng.generate(prompts[0], dataclasses.replace(
+            gp, max_length=LLAVA_PLAIN_DEPTH))
+    _llava_same(eng, prompts[0], images[:1], r1.tokens, r2.tokens,
+                "LLaVA single-stream, K1 / K2 / K3 against their plain "
+                "versions")
+
+    # four slots: two image requests and a text request, alone and together
+    reqs = [(prompts[0], images[:1]), (prompts[1], images[1:2]),
+            (prompts[2], [])]
+    bgp = [dataclasses.replace(gp, max_length=LLAVA_BATCH_DEPTH,
+                               images=list(imgs)) for _, imgs in reqs]
+    alone = []
+    for (p, _), g in zip(reqs, bgp):
+        eng.reset_context()
+        alone.append(eng.generate(p, g).tokens)
+    del eng
+    torch.cuda.empty_cache()
+    lines = []
+    for paged in (False, True):
+        beng = batch_engine.BatchedEngine(model, max_context=2048, n_slots=4,
+                                          paged=paged, page_size=64,
+                                          device=DEV, clip_model=clip)
+        try:
+            _build.launches.clear()
+            res, secs = _serve_together(beng, [p for p, _ in reqs], bgp)
+            bc = dict(_build.launches)
+        finally:
+            beng.shutdown()
+        single = Engine(model, max_context=2048, device=DEV, clip_model=clip)
+        for (p, imgs), r, want in zip(reqs, res, alone):
+            _llava_same(single, p, imgs, r.tokens, want,
+                        f"LLaVA batched ({'paged' if paged else 'slot'}) "
+                        f"{'image' if imgs else 'text'} request against "
+                        "single-stream")
+        del single
+        torch.cuda.empty_cache()
+        _check(bc.get("K8" if paged else "K5", 0) > 0 and bc.get("K3", 0) > 0,
+               f"LLaVA batched paged={paged}: launches {bc}")
+        for k, v in bc.items():
+            counts[k] = counts.get(k, 0) + v
+        lines.append(f"{'paged (P = 64)' if paged else 'slot cache'} "
+                     f"{secs:.2f} s, launches {bc}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"LLaVA-1.5-7B widths (CLIP ViT-L/14-336 f32, 23 of 24 layers; "
+          f"LLaMA-2-7B q4_k_m, 32 layers; {card}): made on the card in "
+          f"{made:.1f} s; image encode {enc_ms:.2f} ms (events, "
+          f"{n_img} patches); prefill {t1.prompt_tokens} rows "
+          f"{t1.prompt_time * 1e3:.1f} ms (the PNG's decode and the encode "
+          f"inside); decode {t1.gen_tokens} tokens {t1.gen_tps:.1f} tok/s; "
+          f"the first {LLAVA_PLAIN_DEPTH} tokens with the plain matmuls; "
+          f"batched 2 image + 1 text requests x {LLAVA_BATCH_DEPTH} tokens "
+          f"equal to single-stream: {'; '.join(lines)}; peak memory "
+          f"{peak:.2f} GiB; launches of the single and batched runs "
+          f"{counts}", flush=True)
+    del model, clip
+    torch.cuda.empty_cache()
+    return counts
+
+
+# whisper-small at full depth (synthetic weights on the card)
+WHISPER_TOKENS = 32       # greedy tokens of the 30 s transcription
+WHISPER_WINDOW_TOKENS = 16  # tokens a window of the 75 s one
+
+
+def _speech(rng, seconds: float) -> np.ndarray:
+    """A seeded signal: two gliding tones under an envelope, and noise."""
+    t = np.arange(int(seconds * 16000)) / 16000
+    f = 200 + 150 * np.sin(2 * np.pi * 0.1 * t)
+    return (0.3 * np.sin(2 * np.pi * np.cumsum(f) / 16000)
+            * (0.6 + 0.4 * np.sin(2 * np.pi * 0.7 * t))
+            + 0.1 * np.sin(2 * np.pi * 1200 * t)
+            + 0.02 * rng.standard_normal(t.shape)).astype(np.float32)
+
+
+def phase_whisper(card: str) -> None:
+    """whisper-small's widths at full depth (`synthetic_whisper`: 80 mels,
+    d_model 768, 12 + 12 layers of 12 heads, ffn 3072, vocab 51865), f32 on
+    the card: 30 s of seeded audio's encoder output and first decoder step's
+    logits against the same module on the CPU (f32); `transcribe` of the
+    30 s clip (greedy, WHISPER_TOKENS at most); `transcribe_verbose` of a
+    75 s clip without timestamps (three windows, WHISPER_WINDOW_TOKENS a
+    window, the full temperature ladder); one /api/extra/transcribe
+    request through the port's app, equal to `transcribe`. Prints the
+    encode ms, the ms of a decoder step and the window loop's seconds. No
+    kernel of the TPU package is on this path (its products are einsums)."""
+    import base64
+    import io
+    import wave
+
+    from koboldcpp_tpu_torch.cli import NullEngine
+    from koboldcpp_tpu_torch.models import whisper as tw
+    from koboldcpp_tpu_torch.server.app import ServerSettings
+
+    t0 = time.perf_counter()
+    wm = synthetic_whisper(seed=0, device=DEV)
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    cfg = wm.cfg
+    rng = np.random.default_rng(23)
+    clip30 = _speech(rng, 30.0)
+    mel = tw.pad_or_trim_mel(tw.log_mel_spectrogram(clip30, cfg.n_mels))
+    prompt = [cfg.sot_id, cfg.lang_en_id, cfg.transcribe_id,
+              cfg.no_timestamps_id]
+    cpu = tw.WhisperModel(cfg, _cpu_copy(wm.params), None,
+                          torch.device("cpu"))
+    enc = wm._encode(mel)
+    enc_cpu = cpu._encode(mel)
+    _close(enc, enc_cpu, "whisper-small encoder output (1500 x 768)")
+    _close(torch.from_numpy(wm._last_logits(enc, prompt)),
+           torch.from_numpy(cpu._last_logits(enc_cpu, prompt)),
+           "whisper-small first decoder step's logits (51865)")
+    del cpu, enc_cpu
+    enc_ms = _event_ms(lambda: wm._encode(mel))
+    step_ms = _event_ms(lambda: wm._last_logits(enc, prompt + [220] * 12))
+
+    ts = time.perf_counter()
+    text30 = wm.transcribe(clip30, max_tokens=WHISPER_TOKENS)
+    t30 = time.perf_counter() - ts
+    n30 = len(text30.split())
+    _check(n30 <= WHISPER_TOKENS, f"whisper 30 s: {n30} tokens")
+    windows = []
+    orig = wm._decode_window
+
+    def counted(enc_, prompt_, temp, *a):
+        out = orig(enc_, prompt_, temp, *a)
+        windows.append((temp, len(out[0])))
+        return out
+
+    wm._decode_window = counted
+    clip75 = _speech(rng, 75.0)
+    ts = time.perf_counter()
+    try:
+        r75 = wm.transcribe_verbose(clip75, max_tokens=WHISPER_WINDOW_TOKENS,
+                                    with_timestamps=False)
+    finally:
+        del wm._decode_window
+    t75 = time.perf_counter() - ts
+    _check(len(r75["segments"]) == 3
+           and r75["segments"][-1]["end"] == 75.0
+           and all(n <= WHISPER_WINDOW_TOKENS for _, n in windows),
+           f"whisper 75 s: segments {r75['segments']}, passes {windows}")
+
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((clip30[:16000 * 8] * 32767).astype(np.int16)
+                      .tobytes())
+    b64 = base64.b64encode(buf.getvalue()).decode()
+    want = wm.transcribe(tw.decode_wav_base64(b64))
+    srv = _Server(NullEngine(), ServerSettings(whisper_model=wm))
+    try:
+        got = srv.post("/api/extra/transcribe", {"audio_data": b64})
+    finally:
+        srv.close()
+    _check(got == {"text": want}, f"whisper route: {got} vs {want!r}")
+    print(f"whisper-small widths (f32, 12 + 12 layers, {card}): made on the "
+          f"card in {made:.1f} s; encode {enc_ms:.2f} ms (events, 30 s "
+          f"window); one decoder step at 16 tokens {step_ms:.2f} ms (events, "
+          f"the full pass, last row projected); transcribe 30 s, {n30} "
+          f"tokens: {t30:.2f} s; transcribe_verbose 75 s, 3 windows, "
+          f"{len(windows)} passes (temperatures "
+          f"{[t for t, _ in windows]}), {sum(n for _, n in windows)} tokens: "
+          f"{t75:.2f} s; /api/extra/transcribe on an 8 s WAV equal to "
+          f"transcribe", flush=True)
+    del wm
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # the recurrent, embedding and encoder-decoder models
 # ---------------------------------------------------------------------------
 
@@ -5274,6 +5601,9 @@ def main() -> int:
     _timed(check_fixture_goldens)
     _timed(check_opt_in_logits)
     runs.append(_timed(phase_served_features, card))
+    # the vision and speech inputs (LLaVA-1.5-7B, whisper-small widths)
+    runs.append(_timed(phase_llava, card))
+    _timed(phase_whisper, card)
     # the MoE models (Mixtral widths 22.5 GB, DeepSeek-V2-Lite ~30 GB:
     # both fit the card) last of the timed phases, kept for their profiled
     # windows

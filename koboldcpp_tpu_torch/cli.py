@@ -8,10 +8,14 @@ adapter (`auto` guesses it), smart context or context shift, then the HTTP
 server (HTTPS with `--ssl`). The port's own flags: --paged / --pagesize
 (the paged KV pool of `--multiuser N`) and --device. The GPU-backend flags
 of the reference are accepted and ignored, but `--usecpu` runs on the CPU.
-Flags of paths the port has not got (image, audio and vision models, the
-horde worker and tunnel, device meshes, pipeline and sequence parallelism,
-multi-host serving) exit with argparse's error naming them. Runs on the
-GPU unless --device cpu or --usecpu is given.
+`--mmproj` loads a LLaVA vision projector (models/clip.py) into whichever
+engine serves, `--whispermodel` a Whisper model (models/whisper.py) for
+the transcribe routes; `--ignoremissing` skips either when its file is
+missing, as it does a LoRA. Flags of paths the port has not got (Stable
+Diffusion: --sdmodel and its sub-flags; the horde worker and tunnel,
+device meshes, pipeline and sequence parallelism, multi-host serving)
+exit with argparse's error naming them. Runs on the GPU unless --device
+cpu or --usecpu is given.
 """
 from __future__ import annotations
 
@@ -98,8 +102,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--nomodel", action="store_true",
                    help="start the server with no text model loaded "
                         "(UI + API shell)")
+    p.add_argument("--mmproj", default="", help="LLaVA mmproj GGUF (vision)")
+    p.add_argument("--whispermodel", default="", help="whisper GGUF model")
     p.add_argument("--ignoremissing", action="store_true",
-                   help="skip missing LoRA files instead of failing")
+                   help="skip missing non-essential files (lora, mmproj, "
+                        "whisper) instead of failing")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch versions of the kernels)")
@@ -302,6 +309,11 @@ def main(argv=None):
             if not os.path.exists(lp):
                 print(f"--ignoremissing: skipping missing lora {lp}")
         loras = [(lp, m) for lp, m in loras if os.path.exists(lp)]
+        for attr in ("mmproj", "whispermodel"):
+            v = getattr(args, attr, "")
+            if v and not os.path.exists(v):
+                print(f"--ignoremissing: skipping missing {attr} {v}")
+                setattr(args, attr, "")
     if loras:
         print(f"Applying {len(loras)} LoRA adapter(s), multiplier "
               f"{args.loramult}")
@@ -312,6 +324,12 @@ def main(argv=None):
     line = apply_rope_config(model.cfg, args.ropeconfig, args.contextsize)
     if line:
         print(line)
+    clip_model = None
+    if args.mmproj:
+        from .models.clip import load_clip
+
+        print(f"Loading mmproj: {args.mmproj}")
+        clip_model = load_clip(args.mmproj, device=model.device)
 
     # smart context is a single-sequence path: --multiuser > 1 routes it
     # to the single engine, as the JAX launcher does
@@ -332,14 +350,15 @@ def main(argv=None):
         engine = BatchedEngine(model, max_context=args.contextsize,
                                n_slots=args.multiuser, paged=paged,
                                page_size=args.pagesize, device=model.device,
-                               quantkv=args.quantkv, use_contextshift=shift)
+                               quantkv=args.quantkv, use_contextshift=shift,
+                               clip_model=clip_model)
         print(f"Continuous batching enabled: {args.multiuser} KV slots"
               + (" (paged)" if paged else ""))
     else:
         engine = Engine(model, max_context=args.contextsize,
                         device=model.device, quantkv=args.quantkv,
                         use_smartcontext=args.smartcontext,
-                        use_contextshift=shift)
+                        use_contextshift=shift, clip_model=clip_model)
         if args.quantkv == 1:
             print("Q8-quantized KV cache enabled")
         elif args.quantkv == 2:
@@ -360,11 +379,18 @@ def main(argv=None):
     if args.preloadstory and os.path.exists(args.preloadstory):
         with open(args.preloadstory) as f:
             story = json.load(f)
+    whisper_model = None
+    if args.whispermodel:
+        from .models.whisper import load_whisper
+
+        print(f"Loading whisper model: {args.whispermodel}")
+        whisper_model = load_whisper(args.whispermodel, device=model.device)
     settings = ServerSettings(password=args.password,
                               model_name=os.path.basename(model_path),
                               multiuser=args.multiuser,
                               chat_adapter=_chat_adapter(args, model),
-                              preloaded_story=story, quiet=args.quiet)
+                              preloaded_story=story, quiet=args.quiet,
+                              whisper_model=whisper_model)
     print(f"Starting server on {args.host}:{args.port}")
     run_server(engine, host=args.host, port=args.port, settings=settings,
                ssl_pair=args.ssl, onready=args.onready, launch=args.launch)

@@ -38,14 +38,23 @@
 // kv/paged.py `_quantize_q4` do (amax/127 or amax/7 per head, round half to
 // even, scale rounded to bf16), uses its dequantized bf16 values for the
 // self term, and writes the codes and the scale. Head shapes: any head_dim
-// D with D % 8 == 0 up to 512 and any G = H / Hkv query heads per kv head.
-// The tiles hold D padded to Dp, the next multiple of 16 (the mma k): the
-// padding columns of Q, K and V are zero-filled as they are copied, the
-// output, the new row's write and a quantized row's amax cover the D real
-// columns only. DMAX (64, 128, 256, 512) bounds Dp; at D = 512 a block's
-// accumulators spill to local memory, and where a tile of 64 rows of an
-// f32 cache does not fit next to the merge's tables (D > ~440) a tile
-// takes 32 rows, two warps' worth.
+// D up to MAXD = 1024 (even for K10's nibble planes) and any G = H / Hkv
+// query heads per kv head. The tiles hold D padded to Dp, the next multiple
+// of 16 (the mma k): the padding columns of Q, K and V are zero-filled as
+// they are copied, the output, the new row's write and a quantized row's
+// amax cover the D real columns only. A head's bytes in a row need not be
+// a multiple of 16: the K / V pieces are the widest of 16, 8 or 4 bytes
+// that divide them (cp.async), else 2 or 1 bytes copied by plain loads
+// (K10 at D = 20 or 36: 10 or 18 bytes a head); Q and this step's rows go
+// by plain loads where D % 8 != 0. DMAX (64, 128, 256, 512) bounds the
+// output columns a block accumulates; at D = 512 a block's accumulators
+// spill to local memory. Past 512 the output columns go in chunks of DCH =
+// 256 to NC = ceil(D / 256) blocks per head group (a grid of B * Hkv * NG
+// * NC units): each block takes the scores over the whole head_dim (the
+// same scores in every chunk, so the same softmax) and P . V for its
+// columns, and merges its own chunk's partials; the cache row is written by
+// chunk 0. Where a tile of 64 rows does not fit next to the merge's tables
+// a tile takes 32 rows (two warps' worth), or 16 (an f32 cache at D > ~820).
 //
 // Bound on the H100: bytes (the live history rows' K and V values plus
 // their scales, and the row write): a 1.1B step at pos 700 reads 0.7 MB, a
@@ -98,13 +107,24 @@
 // table also names (only the dead output, which no caller reads, sees it).
 // Launch counters: ops/_build.launches["K5"], ["K6"], ["K8"], ["K9"],
 // ["K10"], ["K16"], ["K17c"] (one per call).
+//
+// Built as two libraries that nvcc compiles in parallel: this file takes
+// the head_dims up to 256, csrc/flash_decode_wide.cu (this file with
+// FD_WIDE set) those past 256 (its two instances cost as much compile time
+// as the rest); ops/flash_decode.py picks the library by head_dim.
 #include "common.cuh"
 #include "hopper.cuh"
+
+#ifndef FD_WIDE
+#define FD_WIDE 0
+#endif
 
 constexpr int NW = 4;        // warps per block
 constexpr int TR = 16 * NW;  // history rows per tile: 16 per warp
 constexpr int GB = 16;       // query heads per block: one m16 tile
 constexpr int MAXNS = 256;   // splits per sequence (decode_plan's cap)
+constexpr int MAXD = 1024;   // the widest head_dim
+constexpr int DCH = 256;     // output columns a block takes past D = 512
 
 // cache kinds: the element type of the rows and where the scales apply
 enum Kind { BF16_ROWS = 0, Q8_VALUE = 1, Q8_SCORE = 2, Q4_SCORE = 3,
@@ -121,27 +141,34 @@ __host__ __device__ constexpr int head_bytes(int kind, int D) {
 
 __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 
+// output columns a block takes: all D up to 512, DCH-column chunks past it
+__host__ __device__ constexpr int chunk_cols(int D) { return D > 512 ? DCH : D; }
+
 // Shared memory of one block at head_dim D: the Q tile (16 rows of Dp
-// bf16, pitch qp) and this step's k and v rows (D bf16 each), then `nst`
-// stages of (K tile, V tile: tr rows of a head's Dp columns at pitch hp; k
-// and v scales: tr f32 each); after the tile loop the same bytes hold the
-// warps' states (combine), a lone split's partial and the merge's tables.
-// Dp: D padded to 16; tr: rows per tile (TR, or 32 where a stage of TR
-// rows does not fit a block's 227 KB).
+// bf16, pitch qp) and this step's k and v rows (D bf16 each, the pair
+// padded to 16 bytes), then `nst` stages of (K tile, V tile: tr rows of a
+// head's Dp columns at pitch hp; k and v scales: tr f32 each); after the
+// tile loop the same bytes hold the computing warps' states (combine), a
+// lone split's partial and the merge's tables. Dp: D padded to 16; DC: the
+// output columns of one block (chunk_cols); tr: rows per tile (TR, or 32
+// or 16 where a stage of TR rows does not fit a block's 227 KB); nwa: the
+// warps that take a tile's rows (16 each).
 struct Plan {
-    int Dp, hp, qp, tr, stage, nst, q_bytes, comb, total;
+    int Dp, DC, hp, qp, tr, nwa, stage, nst, q_bytes, comb, total;
     __host__ __device__ Plan(int kind, int D) {
         Dp = (D + 15) & ~15;
+        DC = chunk_cols(D);
         hp = head_bytes(kind, Dp) + 16;  // 8 ldmatrix rows on distinct banks
         qp = 2 * Dp + 16;
-        q_bytes = GB * qp + 4 * D;
-        comb = NW * GB * D * 4 + NW * GB * 2 * 4 + GB * D * 4 + GB * 2 * 4;
+        q_bytes = GB * qp + ((4 * D + 15) & ~15);
         const int merge = 2 * MAXNS * GB * 4 + GB * 2 * 4 + 2 * D * 8 + GB * 4 + 16;
         for (tr = TR;; tr /= 2) {
+            nwa = tr / 16;
             stage = 2 * tr * hp + 2 * tr * 4;
             nst = 2 * stage <= 96 * 1024 ? 2 : 1;
+            comb = nwa * GB * DC * 4 + nwa * GB * 2 * 4 + GB * DC * 4 + GB * 2 * 4;
             total = q_bytes + imax(nst * stage, comb + merge);
-            if (total <= 232448 || tr == 32) break;
+            if (total <= 232448 || tr == 16) break;
         }
     }
 };
@@ -157,11 +184,11 @@ struct Args {
     const int* positions;
     const int* tab;  // (B, MP) page table, or null
     const int* li;   // K17c's layer, or null
-    float* part_acc;  // (units, nsplit, 16, D)
+    float* part_acc;  // (units, nsplit, 16, DC)
     float* part_ml;   // (units, nsplit, 16, 2)
     int* tickets;     // (units,), zero between calls
     float* out;       // (B, H, D)
-    int MP, P, NP, B, S, Hkv, G, D, NG, rps, inclusive;
+    int MP, P, NP, B, S, Hkv, G, D, NG, NC, rps, inclusive;
     float scale, softcap;
 };
 
@@ -181,7 +208,14 @@ template <int KIND>
 __device__ __forceinline__ uint32_t k_pair(const uint8_t* row, int k, int D,
                                            float s) {
     int v0, v1;
-    if (KIND == Q4_SCORE) {  // low nibbles below D/2, high ones above
+    if (KIND == Q4_SCORE && (D / 2) % 2) {  // a pair may straddle the planes
+        auto nib = [&](int e) {
+            const int hi = e >= D / 2;
+            return (int)((row[e - hi * (D / 2)] >> (4 * hi)) & 0xFu) - 8;
+        };
+        v0 = nib(k);
+        v1 = nib(k + 1);
+    } else if (KIND == Q4_SCORE) {  // low nibbles below D/2, high ones above
         const int hi = k >= D / 2;
         const uint32_t w = *reinterpret_cast<const uint16_t*>(row + k - hi * (D / 2));
         const int sh = hi ? 4 : 0;
@@ -217,7 +251,9 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
                    x1 - __uint_as_float(hi & 0xFFFF0000u));
 }
 
-template <int KIND, int DMAX>
+// DMAX bounds the output columns of a block (Plan.DC), DK the padded
+// head_dim Dp that the scores run over
+template <int KIND, int DMAX, int DK>
 __global__ void __launch_bounds__(NW * 32)
 flash_decode_kernel(const Args a) {
     extern __shared__ __align__(16) uint8_t smem[];
@@ -227,9 +263,11 @@ flash_decode_kernel(const Args a) {
     const Plan L(KIND, D);
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int unit = blockIdx.x, split = blockIdx.y;
-    const int hg = unit % a.NG, bk = unit / a.NG;
+    const int cc = unit % a.NC, hgu = unit / a.NC;  // column chunk, head group
+    const int hg = hgu % a.NG, bk = hgu / a.NG;
     const int b = bk / a.Hkv, kvh = bk % a.Hkv;
     const int g0 = hg * GB, Gb = min(GB, a.G - g0);
+    const int DC = L.DC, c0 = cc * DC, cw = min(DC, D - c0);  // this chunk
     const bool self = a.knew != nullptr;
     uint8_t* const qs = smem;
     uint8_t* const nrow = smem + GB * L.qp;  // this step's k, v rows (bf16)
@@ -237,8 +275,21 @@ flash_decode_kernel(const Args a) {
 
     // the head group's query rows (zero rows past G, zero columns past D)
     // and this step's k / v rows, in flight while the position is read
-    {
-        const __nv_bfloat16* qh = a.q + (((size_t)b * a.Hkv + kvh) * a.G + g0) * D;
+    const __nv_bfloat16* qh = a.q + (((size_t)b * a.Hkv + kvh) * a.G + g0) * D;
+    if (D % 8) {  // rows not in 16-byte pieces: plain loads
+        uint16_t* q16 = reinterpret_cast<uint16_t*>(qs);
+        const uint16_t* qg = reinterpret_cast<const uint16_t*>(qh);
+        for (int i = tid; i < GB * L.Dp; i += blockDim.x) {
+            const int g = i / L.Dp, d = i - g * L.Dp;
+            q16[g * (L.qp / 2) + d] = g < Gb && d < D ? qg[(size_t)g * D + d] : 0;
+        }
+        if (self) {
+            uint16_t* n16 = reinterpret_cast<uint16_t*>(nrow);
+            const size_t off = ((size_t)b * a.Hkv + kvh) * D;
+            for (int i = tid; i < 2 * D; i += blockDim.x)
+                n16[i] = reinterpret_cast<const uint16_t*>(i < D ? a.knew : a.vnew)[off + i % D];
+        }
+    } else {
         const int ch = D / 8, chp = L.Dp / 8;
         for (int i = tid; i < (GB + 2) * chp; i += blockDim.x) {
             const int g = i / chp, c = i - g * chp;
@@ -262,8 +313,10 @@ flash_decode_kernel(const Args a) {
     const size_t row_bytes = (size_t)a.Hkv * HB;
     const uint8_t* kbase = a.kc + (size_t)kvh * HB;
     const uint8_t* vbase = a.vc + (size_t)kvh * HB;
-    // bytes per copy: a head's row is a multiple of 4 (Q4 at D % 16 == 8)
-    const int CW = HB % 16 == 0 ? 16 : HB % 8 == 0 ? 8 : 4;
+    // bytes per copy: the widest piece that divides a head's bytes (and so
+    // its offset in a row); below 4, plain loads
+    const int CW = HB % 16 == 0 ? 16 : HB % 8 == 0 ? 8 : HB % 4 == 0 ? 4
+                 : HB % 2 == 0 ? 2 : 1;
     const int CH = HB / CW;                        // copies of D columns
     const int CHP = head_bytes(KIND, L.Dp) / CW;   // ... of Dp: zero-filled
     const int TRt = L.tr;                          // rows per tile
@@ -283,7 +336,10 @@ flash_decode_kernel(const Args a) {
             uint8_t* dst = st + (w * TRt + rr) * L.hp + c * CW;
             if (CW == 16) cp_async16_zfill(dst, src, ok ? 16 : 0);
             else if (CW == 8) cp_async8_zfill(dst, src, ok ? 8 : 0);
-            else cp_async4_zfill(dst, src, ok ? 4 : 0);
+            else if (CW == 4) cp_async4_zfill(dst, src, ok ? 4 : 0);
+            else if (CW == 2)
+                *reinterpret_cast<uint16_t*>(dst) = ok ? *reinterpret_cast<const uint16_t*>(src) : 0;
+            else *dst = ok ? *src : 0;
         }
     };
     // tile t's scales: thread tid < TRt loads its row's, parks them later
@@ -344,8 +400,10 @@ flash_decode_kernel(const Args a) {
         for (int j = 0; j < 2; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-        for (int ks = 0; ks < DMAX / 16; ++ks) {
+        // unrolled up to D = 512; the wide instance's 64 steps stay a loop
+        // (unrolled, they tripled the source's build time)
+#pragma unroll (DK <= 512 ? DK / 16 : 1)
+        for (int ks = 0; ks < DK / 16; ++ks) {
             if (ks >= Dp / 16) break;
             uint32_t qa[4];
             ldmatrix_x4(qa, qs + (((lane >> 3) & 1) * 8 + (lane & 7)) * L.qp
@@ -440,21 +498,22 @@ flash_decode_kernel(const Args a) {
                 }
                 pa[2 * j + h] = pack_bf16(p0, p1);
             }
-        // O (16 heads x D) += P . V
+        // O (16 heads x this chunk's columns) += P . V
 #pragma unroll
         for (int np = 0; np < DMAX / 16; ++np) {
-            if (np >= Dp / 16) break;
+            if (np * 16 >= cw) break;
+            const int cn = c0 + np * 16;  // the column in the head
             if (KIND == BF16_ROWS) {
                 uint32_t vb[4];
                 ldmatrix_x4_trans(vb, vt + (wr + ((lane >> 3) & 1) * 8 + (lane & 7)) * L.hp
-                                          + (np * 16 + (lane >> 4) * 8) * 2);
+                                          + (cn + (lane >> 4) * 8) * 2);
                 const uint32_t b0[2] = {vb[0], vb[1]}, b1[2] = {vb[2], vb[3]};
                 mma16816(acc[2 * np], pa, b0);
                 mma16816(acc[2 * np + 1], pa, b1);
             } else {
 #pragma unroll
                 for (int h2 = 0; h2 < 2; ++h2) {
-                    const int nt = 2 * np + h2, d = nt * 8 + (lane >> 2);
+                    const int nt = 2 * np + h2, d = cn + h2 * 8 + (lane >> 2);
                     const int rr = wr + (lane & 3) * 2;
                     float e4[4];
 #pragma unroll
@@ -513,14 +572,16 @@ flash_decode_kernel(const Args a) {
     cp_async_wait<0>();
     __syncthreads();
 
-    // this split's partial: the warps' (max, sum, acc) combined in warp
-    // order, into the scratch, or kept here when it is the only split
-    float* ow = reinterpret_cast<float*>(body);  // (NW, 16, D)
-    float* wml = ow + NW * GB * D;               // (NW, 16, 2)
-    float* lacc = wml + NW * GB * 2;             // (16, D): a lone split's
-    float* lml = lacc + GB * D;                  // (16, 2)
+    // this split's partial: the computing warps' (max, sum, acc) combined
+    // in warp order, into the scratch, or kept here when it is the only
+    // split (the other warps took no rows: they add nothing)
+    const int NWA = L.nwa;
+    float* ow = reinterpret_cast<float*>(body);  // (NWA, 16, DC)
+    float* wml = ow + NWA * GB * DC;             // (NWA, 16, 2)
+    float* lacc = wml + NWA * GB * 2;            // (16, DC): a lone split's
+    float* lml = lacc + GB * DC;                 // (16, 2)
     const bool lone = n_live == 1;
-    {
+    if (warp < NWA) {
         const int g = lane >> 2;
         if ((lane & 3) == 0) {
             wml[(warp * GB + g) * 2] = m[0];
@@ -530,30 +591,32 @@ flash_decode_kernel(const Args a) {
         }
 #pragma unroll
         for (int nt = 0; nt < DMAX / 8; ++nt) {
-            if (nt >= D / 8) break;
+            if (nt * 8 >= cw) break;
             const int d = nt * 8 + (lane & 3) * 2;
-            ow[(warp * GB + g) * D + d] = acc[nt][0];
-            ow[(warp * GB + g) * D + d + 1] = acc[nt][1];
-            ow[(warp * GB + g + 8) * D + d] = acc[nt][2];
-            ow[(warp * GB + g + 8) * D + d + 1] = acc[nt][3];
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+                if (d + e < cw) {
+                    ow[(warp * GB + g) * DC + d + e] = acc[nt][e];
+                    ow[(warp * GB + g + 8) * DC + d + e] = acc[nt][2 + e];
+                }
         }
     }
     __syncthreads();
     const size_t pbase = (size_t)unit * gridDim.y;
-    float* const pacc = lone ? lacc : a.part_acc + pbase * GB * D;
+    float* const pacc = lone ? lacc : a.part_acc + pbase * GB * DC;
     float* const pml = lone ? lml : a.part_ml + pbase * GB * 2;
-    for (int i = tid; i < Gb * D; i += blockDim.x) {
-        const int g = i / D, d = i - g * D;
+    for (int i = tid; i < Gb * cw; i += blockDim.x) {
+        const int g = i / cw, d = i - g * cw;
         float mm = -1e30f;
-        for (int w = 0; w < NW; ++w) mm = fmaxf(mm, wml[(w * GB + g) * 2]);
+        for (int w = 0; w < NWA; ++w) mm = fmaxf(mm, wml[(w * GB + g) * 2]);
         float sacc = 0.f;
-        for (int w = 0; w < NW; ++w)
-            sacc += ow[(w * GB + g) * D + d] * expf(wml[(w * GB + g) * 2] - mm);
+        for (int w = 0; w < NWA; ++w)
+            sacc += ow[(w * GB + g) * DC + d] * expf(wml[(w * GB + g) * 2] - mm);
         const size_t part = (size_t)split * GB + g;
-        pacc[part * D + d] = sacc;
+        pacc[part * DC + d] = sacc;
         if (d == 0) {
             float ll = 0.f;
-            for (int w = 0; w < NW; ++w)
+            for (int w = 0; w < NWA; ++w)
                 ll += wml[(w * GB + g) * 2 + 1] * expf(wml[(w * GB + g) * 2] - mm);
             pml[part * 2] = mm;
             pml[part * 2 + 1] = ll;
@@ -644,41 +707,51 @@ flash_decode_kernel(const Args a) {
         }
     }
     __syncthreads();
-    // four output columns a thread: the partials' float4 loads of all
-    // splits in flight together, summed in split order
-    const int D4 = D / 4;
-    for (int i = tid; i < Gb * D4; i += blockDim.x) {
-        const int g = i / D4, d = 4 * (i - g * D4);
-        float sacc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-        for (int sp = 0; sp < n_live; ++sp) {
-            const float4* p = reinterpret_cast<const float4*>(&pacc[((size_t)sp * GB + g) * D + d]);
-            const float4 v = lone ? *p : __ldcg(p);
-            const float f = fct[sp * GB + g];
-            sacc[0] += v.x * f;
-            sacc[1] += v.y * f;
-            sacc[2] += v.z * f;
-            sacc[3] += v.w * f;
-        }
+    // the output of column d of head g from its summed partials
+    auto finish = [&](int g, int d, float sacc) {
         const float mm = mml[g * 2], ll = mml[g * 2 + 1];
-        float o[4];
-        if (self) {
-            const float ss = sself[g];
-            const float m_new = fmaxf(mm, ss);
-            const float alpha = expf(mm - m_new);
-            const float p_self = expf(ss - m_new);
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-                o[c] = (sacc[c] * alpha + p_self * newv[D + d + c]) / (ll * alpha + p_self);
-        } else {
-#pragma unroll
-            for (int c = 0; c < 4; ++c) o[c] = sacc[c] / ll;
+        if (!self) return sacc / ll;
+        const float ss = sself[g];
+        const float m_new = fmaxf(mm, ss);
+        const float alpha = expf(mm - m_new);
+        const float p_self = expf(ss - m_new);
+        return (sacc * alpha + p_self * newv[D + c0 + d]) / (ll * alpha + p_self);
+    };
+    float* const outg = a.out + (((size_t)b * a.Hkv + kvh) * a.G + g0) * D + c0;
+    if (D % 4 == 0) {
+        // four output columns a thread: the partials' float4 loads of all
+        // splits in flight together, summed in split order
+        const int C4 = cw / 4;
+        for (int i = tid; i < Gb * C4; i += blockDim.x) {
+            const int g = i / C4, d = 4 * (i - g * C4);
+            float sacc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+            for (int sp = 0; sp < n_live; ++sp) {
+                const float4* p = reinterpret_cast<const float4*>(&pacc[((size_t)sp * GB + g) * DC + d]);
+                const float4 v = lone ? *p : __ldcg(p);
+                const float f = fct[sp * GB + g];
+                sacc[0] += v.x * f;
+                sacc[1] += v.y * f;
+                sacc[2] += v.z * f;
+                sacc[3] += v.w * f;
+            }
+            *reinterpret_cast<float4*>(&outg[(size_t)g * D + d]) =
+                make_float4(finish(g, d, sacc[0]), finish(g, d + 1, sacc[1]),
+                            finish(g, d + 2, sacc[2]), finish(g, d + 3, sacc[3]));
         }
-        *reinterpret_cast<float4*>(&a.out[(((size_t)b * a.Hkv + kvh) * a.G + g0 + g) * D + d]) =
-            make_float4(o[0], o[1], o[2], o[3]);
+    } else {  // one column a thread, in the same split order
+        for (int i = tid; i < Gb * cw; i += blockDim.x) {
+            const int g = i / cw, d = i - g * cw;
+            float sacc = 0.f;
+            for (int sp = 0; sp < n_live; ++sp) {
+                const float* p = &pacc[((size_t)sp * GB + g) * DC + d];
+                sacc += (lone ? *p : __ldcg(p)) * fct[sp * GB + g];
+            }
+            outg[(size_t)g * D + d] = finish(g, d, sacc);
+        }
     }
-    // the cache row, once per kv head (head group 0)
-    if (!self || hg != 0 || pos < 0 || pos >= a.S) return;
+    // the cache row, once per kv head (head group 0, chunk 0)
+    if (!self || hg != 0 || cc != 0 || pos < 0 || pos >= a.S) return;
     const size_t r = cache_row(a, b, cb, pos);
     if (KIND == F32_ROWS) {  // the bf16 row, widened
         float* kr = reinterpret_cast<float*>(a.kc) + r * a.Hkv * D + (size_t)kvh * D;
@@ -716,29 +789,35 @@ flash_decode_kernel(const Args a) {
     if (tid < 2) (tid == 0 ? a.ksc : a.vsc)[r * a.Hkv + kvh] = f2bf(amax[tid] / QMAX);
 }
 
-template <int KIND, int DMAX>
+template <int KIND, int DMAX, int DK>
 static cudaError_t launch_dmax(const Args& a, int nsplit, cudaStream_t st) {
     static int allowed = 48 * 1024;  // dynamic shared memory allowed so far
     const int bytes = Plan(KIND, a.D).total;
     if (bytes > allowed) {
         const cudaError_t e = cudaFuncSetAttribute(
-            flash_decode_kernel<KIND, DMAX>,
+            flash_decode_kernel<KIND, DMAX, DK>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
         if (e != cudaSuccess) return e;
         allowed = bytes;
     }
-    dim3 grid(a.B * a.Hkv * a.NG, nsplit);
-    flash_decode_kernel<KIND, DMAX><<<grid, NW * 32, bytes, st>>>(a);
+    dim3 grid(a.B * a.Hkv * a.NG * a.NC, nsplit);
+    flash_decode_kernel<KIND, DMAX, DK><<<grid, NW * 32, bytes, st>>>(a);
     return cudaGetLastError();
 }
 
 template <int KIND>
 static cudaError_t launch_kind(const Args& a, int nsplit, cudaStream_t st) {
     const int Dp = (a.D + 15) & ~15;  // the padded head_dim bounds DMAX
-    if (Dp <= 64) return launch_dmax<KIND, 64>(a, nsplit, st);
-    if (Dp <= 128) return launch_dmax<KIND, 128>(a, nsplit, st);
-    if (Dp <= 256) return launch_dmax<KIND, 256>(a, nsplit, st);
-    return launch_dmax<KIND, 512>(a, nsplit, st);
+#if FD_WIDE
+    if (Dp <= 256) return cudaErrorInvalidValue;  // the other library's
+    if (Dp <= 512) return launch_dmax<KIND, 512, 512>(a, nsplit, st);
+    return launch_dmax<KIND, DCH, MAXD>(a, nsplit, st);
+#else
+    if (Dp <= 64) return launch_dmax<KIND, 64, 64>(a, nsplit, st);
+    if (Dp <= 128) return launch_dmax<KIND, 128, 128>(a, nsplit, st);
+    if (Dp <= 256) return launch_dmax<KIND, 256, 256>(a, nsplit, st);
+    return cudaErrorInvalidValue;  // the wide library's
+#endif
 }
 
 static cudaError_t launch_flash_decode(
@@ -748,7 +827,8 @@ static cudaError_t launch_flash_decode(
         void* part_ml, void* tickets, int B, int S, int H, int Hkv, int D,
         int nsplit, int rows_per_split, float scale, float softcap,
         cudaStream_t st) {
-    if (Hkv <= 0 || H % Hkv || D % 8 || D < 8 || D > 512 || nsplit < 1
+    if (Hkv <= 0 || H % Hkv || D < 1 || D > MAXD || (kind == Q4_SCORE && D % 2)
+        || nsplit < 1
         || nsplit > MAXNS || rows_per_split % TR
         || (long long)nsplit * rows_per_split < S)
         return cudaErrorInvalidValue;
@@ -776,6 +856,7 @@ static cudaError_t launch_flash_decode(
     a.G = H / Hkv;
     a.D = D;
     a.NG = (a.G + GB - 1) / GB;
+    a.NC = (D + chunk_cols(D) - 1) / chunk_cols(D);
     a.rps = rows_per_split;
     a.inclusive = knew == nullptr;  // K16 attends row pos itself
     a.scale = scale;
@@ -791,8 +872,9 @@ static cudaError_t launch_flash_decode(
 }
 
 // Scratch of every entry point, for B sequences of Hkv kv heads with NG =
-// ceil(H / Hkv / 16) head groups (units = B * Hkv * NG): part_acc (units,
-// nsplit, 16, D) and part_ml (units, nsplit, 16, 2) f32, tickets (units,)
+// ceil(H / Hkv / 16) head groups and NC = ceil(D / DC) column chunks of DC
+// = chunk_cols(D) columns (units = B * Hkv * NG * NC): part_acc (units,
+// nsplit, 16, DC) and part_ml (units, nsplit, 16, 2) f32, tickets (units,)
 // int32, zero before the first call (each call leaves them at zero).
 
 // K5 (li null) and K17c. q (B, H, D), knew/vnew (B, Hkv, D) bf16; kc/vc

@@ -13,6 +13,11 @@ per tick.
     gpttype_adapter.cpp:1504) with RoPE re-rotation of that slot's rows;
   - anti-slop rewind (gpttype_adapter.cpp:3292) with per-position bans and
     stream hold-back, per slot;
+  - LLaVA (`clip_model=`): a request's images are spliced after BOS as
+    IMG_SENTINEL rows of that slot (its context re-evaluated in full); an
+    image slot stays out of the admission wave and prefills one row at a
+    time with the embedding rows spliced in, on the slot cache and on the
+    paged pool alike (the JAX paged engine drops them: ROADMAP §3);
   - greedy slots decode by a device argmax, common stochastic presets by the
     device sampler (engine/device_sampler.py); slots that need the host
     chain (grammar, DRY, XTC, mirostat, anti-slop, ...) pull their logits;
@@ -60,9 +65,9 @@ from ..sampling import (SamplerParams, build_dry_sequences, make_state,
 from ..sampling.samplers import (KCPP_SAMPLER_TEMP, KCPP_SAMPLER_TOP_K,
                                  KCPP_SAMPLER_TOP_P)
 from . import device_sampler
-from .engine import (GenParams, GenerationResult, Timings, _find_stop,
-                     _kv_quant, _longest_common_run, _shift_rows,
-                     antislop_check)
+from .engine import (IMG_SENTINEL, GenParams, GenerationResult, Timings,
+                     _find_stop, _kv_quant, _longest_common_run, _shift_rows,
+                     antislop_check, splice_chunk, splice_images)
 
 PREFILL_BUCKETS = (16, 32, 64, 128)
 PREFILL_CHUNK = 128  # interleave granularity: decode ticks between chunks
@@ -109,6 +114,8 @@ class _Slot:
     t_prefill_done: float = 0.0
     prompt_len: int = 0
     pending_prefill: list[int] = field(default_factory=list)
+    # LLaVA: absolute position -> image embedding row (on the device)
+    emb_by_pos: dict | None = None
     # final-chunk logits row left on the device by the prefill; pulled for
     # all ready slots in one transfer at the next decode tick
     pending_first: torch.Tensor | None = None
@@ -178,7 +185,7 @@ class BatchedEngine:
     def __init__(self, model: Model, max_context: int = 2048, n_slots: int = 4,
                  paged: bool = False, page_size: int = 64, device=None,
                  quantkv: int = 0, pool_fraction: float = 1.0,
-                 use_contextshift: bool = True):
+                 use_contextshift: bool = True, clip_model=None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model params live on {model.device}, the "
@@ -190,6 +197,7 @@ class BatchedEngine:
                 "ported (the JAX launcher serves it single-sequence)")
         model_llama.check_supported(model.params, cfg, self.device)
         self.model = model
+        self.clip = clip_model  # models.clip.ClipModel for LLaVA requests
         self.cfg = cfg
         self.tokenizer = model.tokenizer
         self.max_context = max_context
@@ -254,9 +262,6 @@ class BatchedEngine:
     def submit(self, prompt, params: GenParams,
                on_token: Callable[[int, str], None] | None = None,
                genkey: str = "") -> _Request:
-        if params.images:
-            raise NotImplementedError(
-                "LLaVA image input in a batched slot is not ported yet")
         tk = self.tokenizer
         toks = tk.encode(prompt) if isinstance(prompt, str) else list(prompt)
         if not toks:
@@ -351,9 +356,15 @@ class BatchedEngine:
         # one prefill chunk (one slot, or an admission wave of all of them),
         # then one decode step for every decoding slot: live slots advance
         # between a newcomer's chunks instead of stalling for its prompt
+        # image slots stay out of the wave: one of them advances a chunk
+        # beside it (batch_engine.py:379-387)
         prefilling = [s for s in active if s.pending_prefill]
-        if len(prefilling) >= 2:
-            self._prefill_wave(prefilling)
+        wave = [s for s in prefilling if not s.emb_by_pos]
+        if len(wave) >= 2:
+            self._prefill_wave(wave)
+            rest = [s for s in prefilling if s.emb_by_pos]
+            if rest:
+                self._prefill_chunk(rest[0])
         elif prefilling:
             self._prefill_chunk(prefilling[0])
         if (any(s.decoding for s in self.slots)
@@ -389,11 +400,18 @@ class BatchedEngine:
         slot.antislop_bans = {}
         slot.stream_q = []
         slot.stream_delay = 0
+        slot.emb_by_pos = None
         if params.banned_phrases:
             slot.stream_delay = 3 + max(
                 (len(tk.encode(p)) for p in params.banned_phrases), default=0)
 
         prompt = list(req.prompt_tokens)
+        # LLaVA: the image-patch embeddings spliced after BOS; the slot
+        # re-evaluates its whole prompt
+        if params.images and self.clip is not None:
+            prompt, slot.emb_by_pos = splice_images(
+                self.clip, tk.vocab.add_bos, prompt, params.images)
+            slot.context = []
         # per-slot context shift, then fast-forward
         if self.use_contextshift:
             self._context_shift(slot, prompt)
@@ -480,28 +498,32 @@ class BatchedEngine:
         return self._to_dev(np.stack([self.allocator.table(i) for i in idx]))
 
     def _forward(self, tok: torch.Tensor, pos: torch.Tensor,
-                 table: torch.Tensor | None = None, cache=None) -> torch.Tensor:
+                 table: torch.Tensor | None = None, cache=None,
+                 **splice) -> torch.Tensor:
         """Last-token logits (B, V) f32 of one batched forward. The output
         projection runs over the forward's B rows, as in the JAX
         `BatchedEngine`: one for a lone prefill chunk, n_slots for an
         admission wave or a decode step (so on a kind whose T=1 and T>1
         kernels round otherwise, a request's first token may depend on
-        whether it prefilled alone, as there)."""
+        whether it prefilled alone, as there). splice: the forwards'
+        input_embeds / embed_mask (an image chunk)."""
         cache = self.cache if cache is None else cache
         if self.paged:
             lg, _ = model_llama.forward_paged(
                 self.model.params, self.cfg, tok, pos, cache, table,
-                last_only=True)
+                last_only=True, **splice)
         else:
             lg, _ = model_llama.forward(self.model.params, self.cfg, tok,
-                                        pos, cache, last_only=True)
+                                        pos, cache, last_only=True, **splice)
         return lg[:, -1]
 
     # -- prefill -------------------------------------------------------------
     def _prefill_chunk(self, slot: _Slot):
         """Evaluate the next <=PREFILL_CHUNK prompt tokens of `slot` as a
-        single-row forward. On the last chunk the logits row stays on the
-        device for the next decode tick."""
+        single-row forward, an image chunk's sentinel rows taking their
+        embeddings (batch_engine.py:571-584; on the paged pool too). On the
+        last chunk the logits row stays on the device for the next decode
+        tick."""
         req = slot.request
         if req.aborted:
             slot.pending_prefill = []
@@ -513,17 +535,22 @@ class BatchedEngine:
         pad = b - len(chunk)
         tok = np.zeros((1, b), dtype=np.int64)
         ppos = np.full((1, b), -1, dtype=np.int64)
-        tok[0, pad:] = chunk
+        tok[0, pad:] = [t if t >= 0 else 0 for t in chunk]
         ppos[0, pad:] = np.arange(pos0, pos0 + len(chunk))
+        splice = {}
+        if slot.emb_by_pos and IMG_SENTINEL in chunk:
+            emb, mask = splice_chunk(chunk, slot.emb_by_pos, pos0, b,
+                                     self.device)
+            splice = dict(input_embeds=emb, embed_mask=mask)
         if self.paged:
             self.allocator.ensure(slot.idx, pos0 + len(chunk))
             lg = self._forward(self._to_dev(tok), self._to_dev(ppos),
-                               self._table([slot.idx]))
+                               self._table([slot.idx]), **splice)
         else:
             # the slot's rows as a one-sequence cache: views, written in place
             sub = cache_rows(self.cache, slot.idx)
             lg = self._forward(self._to_dev(tok), self._to_dev(ppos),
-                               cache=sub)
+                               cache=sub, **splice)
         slot.context.extend(chunk)
         slot.pending_prefill = slot.pending_prefill[len(chunk):]
         self._recent_dirty.add(slot.idx)
@@ -899,7 +926,8 @@ class BatchedEngine:
         for idx in sorted(self._recent_dirty):
             ctx = self.slots[idx].context
             row = np.zeros(W, np.int64)
-            tail = ctx[-W:]
+            # an image row's sentinel -> the sampler's spare column V
+            tail = [t if t >= 0 else self.cfg.vocab_size for t in ctx[-W:]]
             if tail:
                 row[-len(tail):] = tail
             self._recent[idx] = self._to_dev(row)

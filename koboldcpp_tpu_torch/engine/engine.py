@@ -44,6 +44,14 @@ of a reply through the host loop and the decode step one row:
     request, a fresh decoder cache decoding from `decoder_start`, no
     fast-forward.
 
+LLaVA (`clip_model=`, a models/clip.py ClipModel): a request's images (up
+to four) are encoded on the device, their embedding rows concatenated and
+spliced after BOS as IMG_SENTINEL tokens; the request re-evaluates its
+whole prompt, and a prompt chunk that holds a sentinel goes left-padded
+through `forward` with the rows spliced in and without flash prefill
+(the JAX engine's `_eval_chunk_embeds`). Decoding after it is the usual
+path. The other architectures' branches refuse images (ValueError).
+
 Greedy requests without host-side logit modifiers, and stochastic requests
 of the common preset (temperature, top-k, top-p, min-p, rep-pen, biases,
 bans: `device_sampler`), decode FAST_DECODE_K tokens per device chunk:
@@ -98,7 +106,7 @@ class GenParams:
     dry_sequence_breakers: list[str] = field(default_factory=list)
     trim_stop: bool = True
     bypass_eos: bool = False
-    images: list[str] = field(default_factory=list)  # LLaVA (not ported)
+    images: list[str] = field(default_factory=list)  # LLaVA, base64
 
 
 @dataclass
@@ -132,6 +140,38 @@ def _bucket(n: int) -> int:
     return PREFILL_BUCKETS[-1]
 
 
+IMG_SENTINEL = -999  # context placeholder of an image-patch row
+
+
+def splice_images(clip, add_bos: bool, prompt: list[int],
+                  images: list[str]) -> tuple[list[int], dict]:
+    """LLaVA's splice (the reference's sentinel segments,
+    gpttype_adapter.cpp:3406-3475): up to four base64 images encoded by
+    `clip` (models/clip.py ClipModel), their patch rows after BOS (where the
+    vocabulary adds one) as IMG_SENTINEL tokens. Returns (the prompt, the
+    embedding rows by absolute position, on the clip model's device)."""
+    all_emb = torch.cat([clip.embed_base64(b) for b in images[:4]])
+    bos = prompt[:1] if add_bos else []
+    rows = {len(bos) + i: all_emb[i] for i in range(len(all_emb))}
+    return bos + [IMG_SENTINEL] * len(all_emb) + prompt[len(bos):], rows
+
+
+def splice_chunk(tokens: list[int], emb_by_pos: dict, start_pos: int,
+                 width: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """`forward`'s input_embeds (1, width, C) f32 and embed_mask (1, width)
+    for a chunk of tokens at positions start_pos.., left-padded to width:
+    the rows whose token is IMG_SENTINEL take their embedding rows."""
+    pad = width - len(tokens)
+    mask = torch.tensor([[False] * pad + [t == IMG_SENTINEL for t in tokens]],
+                        device=device)
+    rows = torch.stack([emb_by_pos[start_pos + j]
+                        for j, t in enumerate(tokens) if t == IMG_SENTINEL])
+    emb = torch.zeros((1, width, rows.shape[-1]), dtype=torch.float32,
+                      device=device)
+    emb[mask] = rows.float().to(device)
+    return emb, mask
+
+
 def _kv_quant(quantkv: int) -> int:
     """--quantkv level (0 bf16, 1 Q8, 2 Q4_0-equivalent nibbles: the
     reference's F16/Q8_0/Q4_0 ladder, gpttype_adapter.cpp:1958-1959) ->
@@ -151,9 +191,11 @@ class Engine:
     take theirs, none with a KV cache of the llama kind (quantkv is not
     read)."""
 
+    IMG_SENTINEL = IMG_SENTINEL
+
     def __init__(self, model: Model, max_context: int = 2048, device=None,
                  quantkv: int = 0, use_smartcontext: bool = False,
-                 use_contextshift: bool = True):
+                 use_contextshift: bool = True, clip_model=None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model params live on {model.device}, the "
@@ -173,6 +215,7 @@ class Engine:
         else:
             model_llama.check_supported(model.params, cfg, self.device)
         self.model = model
+        self.clip = clip_model  # models.clip.ClipModel for LLaVA requests
         self.cfg = cfg
         self.tokenizer = model.tokenizer
         self.max_context = max_context
@@ -325,14 +368,37 @@ class Engine:
             torch.tensor([[pos]], dtype=torch.int64, device=self.device),
             last_only=True)[0, -1]
 
-    def eval_tokens(self, tokens: list[int], start_pos: int) -> torch.Tensor:
+    def _eval_chunk_embeds(self, tokens: list[int], emb_by_pos: dict,
+                           start_pos: int) -> torch.Tensor:
+        """Evaluate a mixed chunk (engine.py:439-461): the rows whose token
+        is IMG_SENTINEL take their embedding rows (`splice_chunk`); left-
+        padded to a bucket, through `forward` without flash prefill.
+        Returns the last row's logits."""
+        n = len(tokens)
+        pad = _bucket(n) - n
+        dev = self.device
+        tok = torch.tensor([[0] * pad + [t if t >= 0 else 0 for t in tokens]],
+                           dtype=torch.int64, device=dev)
+        pos = torch.tensor([[-1] * pad + list(range(start_pos, start_pos + n))],
+                           dtype=torch.int64, device=dev)
+        emb, mask = splice_chunk(tokens, emb_by_pos, start_pos, pad + n, dev)
+        return self._forward(tok, pos, last_only=True, input_embeds=emb,
+                             embed_mask=mask)[0, -1]
+
+    def eval_tokens(self, tokens: list[int], start_pos: int,
+                    emb_by_pos: dict[int, torch.Tensor] | None = None
+                    ) -> torch.Tensor:
         """Chunked prefill (n_batch equivalent); returns logits of the last
-        token."""
+        token. emb_by_pos maps the absolute positions of IMG_SENTINEL tokens
+        to their image-patch embedding rows."""
         logits = None
         pos = start_pos
         for i in range(0, len(tokens), PREFILL_BUCKETS[-1]):
             chunk = tokens[i:i + PREFILL_BUCKETS[-1]]
-            logits = self._eval_chunk(chunk, pos)
+            if emb_by_pos and IMG_SENTINEL in chunk:
+                logits = self._eval_chunk_embeds(chunk, emb_by_pos, pos)
+            else:
+                logits = self._eval_chunk(chunk, pos)
             pos += len(chunk)
         return logits
 
@@ -528,8 +594,15 @@ class Engine:
             raise ValueError(
                 "embedding-only model (bert/t5encoder) cannot generate text; "
                 "use the embeddings endpoints")
-        if params.images:
-            raise NotImplementedError("LLaVA image input is not ported yet")
+        if params.images and self.clip is not None and not self._std_path:
+            # the JAX engine would run such a request through
+            # models/llama.forward over this branch's own cache
+            branch = ("MLA" if self.mla else "recurrent" if self.recurrent
+                      else "encoder-decoder" if self.encdec
+                      else self.cfg.arch)
+            raise ValueError(f"image input needs a llama-family language "
+                             f"model; the {branch} branch ({self.cfg.arch}) "
+                             "takes none")
         self.abort_event.clear()
         self.generation_finished = False
         self.stream_tokens = []
@@ -548,6 +621,13 @@ class Engine:
             overflow = len(prompt_tokens) - budget
             prompt_tokens = (prompt_tokens[:keep_first]
                              + prompt_tokens[keep_first + overflow:])
+
+        # LLaVA: the image-patch embeddings spliced after BOS
+        emb_by_pos: dict[int, torch.Tensor] | None = None
+        if params.images and self.clip is not None:
+            prompt_tokens, emb_by_pos = splice_images(
+                self.clip, tk.vocab.add_bos, prompt_tokens, params.images)
+            self.context_tokens = []  # image requests re-evaluate fully
 
         if self.encdec:
             # T5: the prompt through the encoder, the decoder fresh from
@@ -585,7 +665,7 @@ class Engine:
         sampler_banned = tuple(banned)
 
         # prefill (ends in a device sync, so prompt_time is device time)
-        logits = self.eval_tokens(todo, n_past)
+        logits = self.eval_tokens(todo, n_past, emb_by_pos)
         if logits.is_cuda:
             torch.cuda.synchronize(self.device)
         self.context_tokens.extend(todo)
@@ -630,10 +710,14 @@ class Engine:
                 from .device_sampler import make_dyn
 
                 # the rep-pen window: the last max_context context tokens,
-                # right-aligned, and how many of them are real
+                # right-aligned, and how many of them are real; an image
+                # row's sentinel goes to the sampler's spare column V, which
+                # penalizes no token (the host sampler's window matches no
+                # token with it either)
                 W = self.max_context
                 rec = np.zeros(W, np.int64)
-                tail = self.context_tokens[-W:]
+                tail = [t if t >= 0 else self.cfg.vocab_size
+                        for t in self.context_tokens[-W:]]
                 if tail:
                     rec[-len(tail):] = tail
                 recent = torch.from_numpy(rec).to(self.device)

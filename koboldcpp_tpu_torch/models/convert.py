@@ -30,7 +30,10 @@ architectures' trees convert by the same walk: the recurrent models'
 "layers" (f32 lerp / decay / conv / A vectors, RWKV6's (5, C, E) w2), the
 BERT family's and T5's "layers" / "enc_layers" / "dec_layers" (relative
 bias tables, norms and biases as plain arrays), every packed weight as
-above (tests/test_torch_recurrent.py, test_torch_encoders.py).
+above (tests/test_torch_recurrent.py, test_torch_encoders.py). The flat
+CLIP / LLaVA-projector and Whisper trees (tensor name -> f32 array, the
+JAX `load_clip` / `load_whisper` params) come across as the loaders' f32
+tensors (tests/test_torch_vision.py, test_torch_whisper.py).
 """
 from __future__ import annotations
 

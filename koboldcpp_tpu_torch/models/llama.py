@@ -377,10 +377,11 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     == position invariant), and on a sliding-window layer iff also s > p -
     window. flash_prefill: the chunk is the whole context so far (prefill
     from position 0, padding rows at the end with position -1), so a
-    global layer without ALiBi or softcap runs K4 over its own rows."""
-    if input_embeds is not None or embed_mask is not None:
-        raise NotImplementedError("the multimodal embedding splice is not "
-                                  "ported yet")
+    global layer without ALiBi or softcap runs K4 over its own rows.
+    input_embeds (B, T, C), embed_mask (B, T) bool: the rows where the mask
+    holds take input_embeds (cast to the activations' dtype) in place of
+    the token embeddings (the LLaVA image splice, after the embedding
+    scale, the learned positions and tok_norm, as in JAX)."""
     T = tokens.shape[1]
     quant = isinstance(cache, QuantKVCache)
     softcap = cfg.attn_logit_softcap
@@ -415,19 +416,24 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         ck, cv = kv_read(cache, li)
         return plain(q, ck[:, :, :nkv], cv[:, :, :nkv], scale, local)
     return _run(params, cfg, tokens, positions, attend, last_only,
-                last_index), cache
+                last_index, splice=(input_embeds, embed_mask)), cache
 
 
 def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   positions: torch.Tensor, pcache: paged.PagedKVCache,
-                  page_table: torch.Tensor, last_only: bool = False
+                  page_table: torch.Tensor, last_only: bool = False,
+                  input_embeds: torch.Tensor | None = None,
+                  embed_mask: torch.Tensor | None = None
                   ) -> tuple[torch.Tensor, paged.PagedKVCache]:
     """forward() over a paged pool (kv/paged.py: bf16, Q8 or Q4), updated
     in place: virtual slot index == absolute position, row r of sequence b
     at pool row page_table[b, r // P] * P + r % P. tokens/positions: (B, T);
     page_table: (B, MP) int. T=1 on a global layer without ALiBi goes
     through K8 (K9 over a Q8 pool, K10 over a Q4 one); every other layer
-    writes through the table, gathers the pages and runs `attention`."""
+    writes through the table, gathers the pages and runs `attention`.
+    input_embeds / embed_mask: forward's image splice (the JAX
+    `forward_paged` has none, so its paged batched engine drops a
+    request's image: ROADMAP §3)."""
     T = tokens.shape[1]
     P = pcache.page_size
     softcap = cfg.attn_logit_softcap
@@ -456,19 +462,21 @@ def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         paged.write(pcache, li, page_table, positions, *_pad_kv(cfg, k, v))
         ck, cv = paged.gather(pcache, li, page_table)
         return plain(q, ck[:, :, :nkv], cv[:, :, :nkv], scale, local)
-    return _run(params, cfg, tokens, positions, attend, last_only), pcache
+    return _run(params, cfg, tokens, positions, attend, last_only,
+                splice=(input_embeds, embed_mask)), pcache
 
 
 def _run(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
          positions: torch.Tensor, attend, last_only: bool = False,
          last_index: torch.Tensor | None = None,
-         layers=None) -> torch.Tensor:
+         layers=None, splice=(None, None)) -> torch.Tensor:
     """The layer stack around `attend(li, q, k, v, scale, local)`, which
     writes this chunk's K/V and returns the attention output (B, T, H, D);
     `local` marks a sliding-window layer; q carries the layer's query heads
     and k / v its kv heads (openelm's differ by layer). The branches and
     their order are the JAX `forward`'s. layers: the per-layer params
-    (default params["layers"])."""
+    (default params["layers"]). splice: (input_embeds, embed_mask), the
+    rows that take precomputed embeddings, or (None, None)."""
     B, T = tokens.shape
     dev = tokens.device
     freqs = _freqs(cfg, dev) if cfg.use_rope else None
@@ -486,6 +494,12 @@ def _run(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         x = x + pe[positions.clamp(0, pe.shape[0] - 1)].to(x.dtype)
     if "tok_norm" in params:  # bloom's embedding layer norm
         x = layer_norm(x, params["tok_norm"], params.get("tok_norm_bias"), eps)
+    input_embeds, embed_mask = splice
+    if input_embeds is not None:
+        # the multimodal splice: rows with embed_mask take the precomputed
+        # embeddings (LLaVA image patches; the reference splices them by
+        # sentinel segments, gpttype_adapter.cpp:3406-3475)
+        x = torch.where(embed_mask[:, :, None], input_embeds.to(x.dtype), x)
 
     D = cfg.head_dim
     res_s = cfg.residual_scale or 1.0

@@ -716,3 +716,201 @@ def synthetic_text_model(md: dict, seed: int = 0, device=None):
     else:
         raise ValueError(f"no synthetic model of {arch!r}")
     return Model(cfg, params, _placeholder_tokenizer(V), dev)
+
+
+# ---------------------------------------------------------------------------
+# the vision and speech inputs' published widths, drawn on the device
+# ---------------------------------------------------------------------------
+
+# LLaVA-1.5-7B's language model: LLaMA-2-7B's widths (meta-llama/Llama-2-7b
+# config.json; lmsys/vicuna-7b-v1.5, which LLaVA-1.5-7B tunes, has the same:
+# vocab 32000, hidden 4096, 32 layers, 32 heads of 128 over 32 kv heads,
+# ffn 11008, context 4096); the JAX package's `LLAMA2_7B`
+LLAMA2_7B = ModelConfig(
+    arch="llama", name="llama2-7b-synthetic",
+    vocab_size=32000, hidden_size=4096, n_layers=32, n_heads=32, n_kv_heads=32,
+    head_dim=128, intermediate_size=11008, max_position_embeddings=4096,
+    rope_dim=128,
+)
+
+
+def _q4k_centered_on(gen, out_f: int, in_f: int, dev) -> QTensor:
+    """rand_q4k_centered's fields (the same distributions) drawn on `dev`
+    by the torch.Generator `gen`."""
+    nsb = in_f // QK_K
+
+    def ints(hi, *shape, dtype=torch.uint8):
+        return torch.randint(0, hi, shape, generator=gen, device=dev,
+                             dtype=dtype)
+
+    qs2 = ints(256, out_f, in_f // 2)
+    d = torch.rand((out_f, nsb), generator=gen, device=dev) * 6.3e-5
+    sc = ints(64, out_f, nsb, 8)
+    scf = sc.float()
+    return QTensor(kind="q4_k", shape=(out_f, in_f), data={
+        "qs2": qs2,
+        "scale": (d[:, :, None] * scf).reshape(out_f, -1).to(torch.bfloat16),
+        "min": (d[:, :, None] * 8 * torch.round(scf * 15 / 16)).reshape(
+            out_f, -1).to(torch.bfloat16),
+        "sc": sc.reshape(out_f, -1),
+        "d": d,
+    })
+
+
+def _q6k_on(gen, out_f: int, in_f: int, dev) -> QTensor:
+    """rand_q6k's fields drawn on `dev` by `gen`."""
+    nsb = in_f // QK_K
+
+    def ints(*shape):
+        return torch.randint(0, 256, shape, generator=gen, device=dev,
+                             dtype=torch.uint8)
+
+    return QTensor(kind="q6_k", shape=(out_f, in_f), data={
+        "ql": ints(out_f, nsb * 128), "qh": ints(out_f, nsb * 64),
+        "scale": (torch.rand((out_f, nsb * 16), generator=gen, device=dev)
+                  * 0.002).to(torch.bfloat16)})
+
+
+def synthetic_q4_k_m_on_device(cfg: ModelConfig, seed: int = 0,
+                               device=None):
+    """A servable llama-architecture Model with synthetic_params' "q4_k_m"
+    tensors (zero-mean q4_k q / k / o and FFN, q6_k v and head, a bf16
+    embedding of std 0.02, norms near 1), every tensor drawn on the device
+    by a torch.Generator seeded from `seed`: a 7B's 3.9 GB in under a
+    second, where the numpy makers take tens of seconds."""
+    from .loader import Model
+
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    C, F = cfg.hidden_size, cfg.intermediate_size
+    qdim = cfg.n_heads * cfg.head_dim
+    kvdim = cfg.n_kv_heads * cfg.head_dim
+
+    def norm():
+        return 1.0 + 0.01 * torch.randn(C, generator=gen, device=dev)
+
+    params = {"tok_embd": dense(0.02 * torch.randn(
+        (cfg.vocab_size, C), generator=gen, device=dev,
+        dtype=torch.bfloat16), device=dev),
+        "output_norm": norm(), "output": _q6k_on(gen, cfg.vocab_size, C, dev),
+        "layers": []}
+    for _ in range(cfg.n_layers):
+        params["layers"].append({
+            "attn_norm": norm(), "wo": _q4k_centered_on(gen, C, qdim, dev),
+            "ffn_norm": norm(), "w_down": _q4k_centered_on(gen, C, F, dev),
+            "wq": _q4k_centered_on(gen, qdim, C, dev),
+            "wk": _q4k_centered_on(gen, kvdim, C, dev),
+            "wv": _q6k_on(gen, kvdim, C, dev),
+            "w_gate": _q4k_centered_on(gen, F, C, dev),
+            "w_up": _q4k_centered_on(gen, F, C, dev)})
+    return Model(cfg, params, _placeholder_tokenizer(cfg.vocab_size), dev)
+
+
+def _normal_on(gen, dev, *shape, s=0.02, mean=0.0) -> torch.Tensor:
+    return mean + s * torch.randn(shape, generator=gen, device=dev)
+
+
+def synthetic_clip(cfg=None, llm_hidden: int = 4096, seed: int = 0,
+                   device=None):
+    """A ClipModel (models/clip.py) with mmproj-named f32 tensors drawn on
+    the device: default CLIP ViT-L/14-336 (openai/clip-vit-large-patch14-336:
+    image 336, patch 14, hidden 1024, 24 layers, 16 heads, ffn 4096) with
+    LLaVA-1.5's mlp2x_gelu projector to `llm_hidden` (liuhaotian/llava-v1.5-7b:
+    mm.0 1024 -> 4096, mm.2 4096 -> 4096). Weights N(0, 0.02), layer norms
+    near (1, 0), biases N(0, 0.01)."""
+    from .clip import ClipModel, ClipVisionConfig
+
+    cfg = cfg or ClipVisionConfig(projection_dim=llm_hidden)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    C, F_, P = cfg.hidden_size, cfg.intermediate_size, cfg.patch_size
+
+    def w(*shape):
+        return _normal_on(gen, dev, *shape)
+
+    def b(n):
+        return _normal_on(gen, dev, n, s=0.01)
+
+    p = {"v.patch_embd.weight": w(C, 3, P, P), "v.class_embd": w(C),
+         "v.position_embd.weight": w(cfg.n_patches + 1, C),
+         "v.pre_ln.weight": _normal_on(gen, dev, C, s=0.01, mean=1.0),
+         "v.pre_ln.bias": b(C)}
+    for i in range(cfg.n_layers):
+        pre = f"v.blk.{i}."
+        for ln in ("ln1", "ln2"):
+            p[pre + ln + ".weight"] = _normal_on(gen, dev, C, s=0.01, mean=1.0)
+            p[pre + ln + ".bias"] = b(C)
+        for name, o, i_ in (("attn_q", C, C), ("attn_k", C, C),
+                            ("attn_v", C, C), ("attn_out", C, C),
+                            ("ffn_up", F_, C), ("ffn_down", C, F_)):
+            p[pre + name + ".weight"] = w(o, i_)
+            p[pre + name + ".bias"] = b(o)
+    p.update({"mm.0.weight": w(llm_hidden, C), "mm.0.bias": b(llm_hidden),
+              "mm.2.weight": w(llm_hidden, llm_hidden),
+              "mm.2.bias": b(llm_hidden)})
+    return ClipModel(cfg, p, dev)
+
+
+def _sinusoids(length: int, channels: int) -> np.ndarray:
+    """Whisper's encoder position table (openai/whisper model.py
+    `sinusoids`, max_timescale 10000)."""
+    inc = np.log(10000) / (channels // 2 - 1)
+    inv = np.exp(-inc * np.arange(channels // 2))
+    t = np.arange(length)[:, None] * inv[None, :]
+    return np.concatenate([np.sin(t), np.cos(t)], axis=1).astype(np.float32)
+
+
+def synthetic_whisper(cfg=None, ffn: int = 3072, seed: int = 0,
+                      device=None):
+    """A WhisperModel (models/whisper.py) with the GGUF container's f32
+    tensors drawn on the device: default whisper-small (openai/whisper-small:
+    80 mels, d_model 768, 12 + 12 layers of 12 heads, ffn 3072, audio
+    context 1500, text context 448, vocab 51865 with the multilingual
+    special ids). Weights N(0, 0.02) (the convolutions too), layer norms
+    near (1, 0), biases N(0, 0.01), the encoder's positions sinusoids, no
+    tokenizer (text is the token ids)."""
+    from .whisper import WhisperConfig, WhisperModel
+
+    cfg = cfg or WhisperConfig(d_model=768, enc_layers=12, enc_heads=12,
+                               dec_layers=12, dec_heads=12)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    D = cfg.d_model
+
+    def w(*shape):
+        return _normal_on(gen, dev, *shape)
+
+    def b(n):
+        return _normal_on(gen, dev, n, s=0.01)
+
+    def ln(name):
+        return {name + ".weight": _normal_on(gen, dev, D, s=0.01, mean=1.0),
+                name + ".bias": b(D)}
+
+    def attn(pre):
+        out = ln(pre + "_ln")
+        for n in ("q", "k", "v", "out"):
+            out[f"{pre}.{n}.weight"] = w(D, D)
+            if n != "k":  # whisper's key projection has no bias
+                out[f"{pre}.{n}.bias"] = b(D)
+        return out
+
+    def ffn_block(pre):
+        return {**ln(pre + "_ln"), pre + ".fc1.weight": w(ffn, D),
+                pre + ".fc1.bias": b(ffn), pre + ".fc2.weight": w(D, ffn),
+                pre + ".fc2.bias": b(D)}
+
+    p = {"enc.conv1.weight": w(D, cfg.n_mels, 3), "enc.conv1.bias": b(D),
+         "enc.conv2.weight": w(D, D, 3), "enc.conv2.bias": b(D),
+         "enc.pos": torch.from_numpy(_sinusoids(cfg.n_audio_ctx, D)).to(dev),
+         **ln("enc.ln"), "dec.tok_embd": w(cfg.vocab_size, D),
+         "dec.pos": _normal_on(gen, dev, cfg.n_text_ctx, D, s=0.01),
+         **ln("dec.ln")}
+    for i in range(cfg.enc_layers):
+        p.update(attn(f"enc.{i}.attn"))
+        p.update(ffn_block(f"enc.{i}.ffn"))
+    for i in range(cfg.dec_layers):
+        p.update(attn(f"dec.{i}.attn"))
+        p.update(attn(f"dec.{i}.cross"))
+        p.update(ffn_block(f"dec.{i}.ffn"))
+    return WhisperModel(cfg, p, None, dev)

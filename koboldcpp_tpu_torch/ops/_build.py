@@ -37,7 +37,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 SOURCES = ("q4k_matvec", "q6k_matvec", "q8_0_matvec", "q23k_matvec",
-           "iq_matvec", "kq_matmul", "flash_decode", "flash_prefill",
+           "iq_matvec", "kq_matmul", "flash_decode", "flash_decode_wide",
+           "flash_prefill",
            "q4k_sbq", "ffn_fused", "kq_expanded_matvec")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -138,16 +139,18 @@ def load(source: str, signatures: dict[str, list]) -> ctypes.CDLL:
     return lib
 
 
-_entries: dict[str, tuple] = {}
+_entries: dict[tuple[str, str], tuple] = {}
 
 
 def entry(source: str, name: str, argtypes: list) -> tuple:
     """(library, entry point) of csrc/<source>.cu with its argtypes set,
-    cached: a wrapper on a hot path pays one dict lookup per call."""
-    found = _entries.get(name)
+    cached by (source, name): two libraries may export one name (the
+    flash-decode ones do); a wrapper on a hot path pays one dict lookup per
+    call."""
+    found = _entries.get((source, name))
     if found is None:
         lib = load(source, {name: argtypes})
-        found = _entries[name] = (lib, getattr(lib, name))
+        found = _entries[source, name] = (lib, getattr(lib, name))
     return found
 
 

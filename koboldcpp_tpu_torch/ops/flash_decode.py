@@ -20,12 +20,14 @@ apply the scales on the score side. Over an f32 cache q and p are rounded
 to bf16 and the scores and p . V read the f32 rows, as the JAX kernel's
 bf16-by-f32 dots do.
 
-The kernel takes any head_dim that is a multiple of 8 up to 512 (padded
-to a multiple of 16 in its tiles) and any number of query heads per kv
-head (`check_kernel_shape`). Its grid is cut
+The kernel takes any head_dim up to 1024 (even for K10's nibble planes;
+padded to a multiple of 16 in its tiles; past 512 a head group's output
+columns go in chunks of 256 to blocks of their own) and any number of
+query heads per kv head (`check_kernel_shape`). Its grid is cut
 by `decode_plan` from (B, Hkv, S) alone, so no launch reads a position on
 the host; its partials and merge tickets live in a scratch kept across
-calls of one shape (`_scratch`).
+calls of one shape (`_scratch`). Its head_dims past 256 live in a second
+library, csrc/flash_decode_wide.cu, built beside the first (`_source`).
 """
 from __future__ import annotations
 
@@ -39,6 +41,22 @@ TILE_ROWS = 64  # history rows per tile of csrc/flash_decode.cu (16 a warp)
 MAX_SPLITS = 256  # splits of one sequence that the kernel's merge holds
 TARGET_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
 HEAD_GROUP = 16  # query heads per block (one m16 tile)
+MAX_HEAD_DIM = 1024  # the widest head_dim the kernel takes
+COL_CHUNK = 256  # output columns a block takes past head_dim 512
+
+
+def _source(D: int) -> str:
+    """The library that holds the kernel instances for head_dim D: the
+    instances past 256 are built apart (csrc/flash_decode_wide.cu)."""
+    return "flash_decode_wide" if D > 256 else "flash_decode"
+
+
+def col_chunks(D: int) -> tuple[int, int]:
+    """(chunks, columns a chunk) of a head's D output columns: one block
+    takes all D up to 512, COL_CHUNK-column chunks past it (the last may
+    be narrower), each a unit of csrc/flash_decode.cu's grid."""
+    dc = D if D <= 512 else COL_CHUNK
+    return -(-D // dc), dc
 
 
 def decode_plan(B: int, n_kv_heads: int, S: int) -> tuple[int, int]:
@@ -168,7 +186,7 @@ def _launch_rows(kid, q, k_new, v_new, k_cache, v_cache, positions, li,
                            or li.numel() != 1):
         raise ValueError(f"{kid} takes pools of whole layers of B = {B} "
                          "rows and a one-element int32 layer index")
-    lib, fn = _build.entry("flash_decode", "k5_flash_decode", _K5_ARGS)
+    lib, fn = _build.entry(_source(D), "k5_flash_decode", _K5_ARGS)
     rps, nsplit, out, scratch = _scratch(B, n_heads, n_kv_heads, D, S,
                                          q.device)
     qb, kn, vn = _bf16(q), _bf16(k_new), _bf16(v_new)
@@ -249,7 +267,7 @@ def decode_attention(q, k_layer, v_layer, pos, n_heads: int, scale: float,
     _checked("K16", q, (k_layer, v_layer), (torch.bfloat16,) * 2, (pos,))
     if pos.dtype != torch.int32 or pos.numel() != 1:
         raise ValueError("K16 takes pos as a one-element int32 tensor")
-    lib, fn = _build.entry("flash_decode", "k16_flash_decode", _K16_ARGS)
+    lib, fn = _build.entry(_source(D), "k16_flash_decode", _K16_ARGS)
     rps, nsplit, out, scratch = _scratch(1, n_heads, Hkv, D, S, q.device)
     qb = _bf16(q)
     _build.check(lib, fn(
@@ -328,14 +346,15 @@ def _scratch(B: int, n_heads: int, n_kv_heads: int, D: int, S: int, dev):
     """(rows_per_split, nsplit, out (B, H, D) f32, the kernel's scratch
     pointers): the splits' (acc, max/sum) partials and the merge tickets
     (zero between calls; every call leaves them so) of the B * Hkv * head
-    groups units. Calls on one stream may share them."""
+    groups * column chunks units. Calls on one stream may share them."""
     rps, nsplit = decode_plan(B, n_kv_heads, S)
-    units = B * n_kv_heads * -(-(n_heads // n_kv_heads) // HEAD_GROUP)
-    key = (dev, units, nsplit, D)
+    nc, dc = col_chunks(D)
+    units = B * n_kv_heads * -(-(n_heads // n_kv_heads) // HEAD_GROUP) * nc
+    key = (dev, units, nsplit, dc)
     scratch = _SCRATCH.get(key)
     if scratch is None:
         f32 = dict(dtype=torch.float32, device=dev)
-        tensors = (torch.empty((units, nsplit, HEAD_GROUP, D), **f32),
+        tensors = (torch.empty((units, nsplit, HEAD_GROUP, dc), **f32),
                    torch.empty((units, nsplit, HEAD_GROUP, 2), **f32),
                    torch.zeros(units, dtype=torch.int32, device=dev))
         scratch = _SCRATCH[key] = (tensors,
@@ -362,7 +381,7 @@ def _launch_paged(kid, q, k_new, v_new, k_pool, v_pool, ks_pool, vs_pool,
     check_kernel_shape(n_heads, n_kv_heads, D, kid)
     if NPP % page_size:
         raise ValueError(f"{kid} takes pools of whole pages")
-    lib, fn = _build.entry("flash_decode", "k8_flash_decode_paged",
+    lib, fn = _build.entry(_source(D), "k8_flash_decode_paged",
                            _K8_ARGS)
     rps, nsplit, out, scratch = _scratch(B, n_heads, n_kv_heads, D,
                                          MP * page_size, q.device)
@@ -479,7 +498,7 @@ def _launch_q8(q, k_new, v_new, res, positions, n_heads, n_kv_heads, scale,
     check_kernel_shape(n_heads, n_kv_heads, D, "K6")
     _checked("K6", q, res, (torch.int8,) * 2 + (torch.bfloat16,) * 2,
              (k_new, v_new, positions))
-    lib, fn = _build.entry("flash_decode", "k6_flash_decode_q8", _K6_ARGS)
+    lib, fn = _build.entry(_source(D), "k6_flash_decode_q8", _K6_ARGS)
     rps, nsplit, out, scratch = _scratch(B, n_heads, n_kv_heads, D, S,
                                          q.device)
     qb, kn, vn = _bf16(q), _bf16(k_new), _bf16(v_new)
@@ -603,12 +622,14 @@ def check_kernel_shape(n_heads: int, n_kv_heads: int, head_dim: int,
                        kernel: str = "K5") -> None:
     """Raise NotImplementedError for the head shapes csrc/flash_decode.cu
     (K5, K6, K8, K9, K10, K16, K17c) is not built for: it takes any
-    head_dim that is a multiple of 8 up to 512 and any number of query
-    heads per kv head (n_heads a multiple of n_kv_heads)."""
-    if (head_dim % 8 or not 8 <= head_dim <= 512
+    head_dim up to MAX_HEAD_DIM (K10 an even one: its rows are two nibble
+    planes) and any number of query heads per kv head (n_heads a multiple
+    of n_kv_heads)."""
+    if (not 1 <= head_dim <= MAX_HEAD_DIM
+            or (kernel == "K10" and head_dim % 2)
             or n_kv_heads <= 0 or n_heads % n_kv_heads):
         raise NotImplementedError(
             f"{kernel} (flash decode) is not built for head_dim {head_dim} "
             f"with {n_heads} query heads over {n_kv_heads} kv heads "
-            "(head_dim a multiple of 8 up to 512, n_heads a multiple of "
-            "n_kv_heads)")
+            f"(head_dim up to {MAX_HEAD_DIM}, even for K10; n_heads a "
+            "multiple of n_kv_heads)")

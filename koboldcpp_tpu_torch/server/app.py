@@ -1,6 +1,7 @@
-"""HTTP API server: the text endpoints.
+"""HTTP API server: the text, vision and speech endpoints.
 
-Port of koboldcpp_tpu/server/app.py for text generation: KoboldAI
+Port of koboldcpp_tpu/server/app.py, less its Stable Diffusion routes:
+KoboldAI
 `/api/v1/*` + `/api/extra/*`, OpenAI `/v1/completions` and
 `/v1/chat/completions`, ollama `/api/tags`, the embedded KoboldAI Lite page
 at `/` and a no-script form at `/noscript`, API docs at `/api`, `/v1` and
@@ -9,7 +10,14 @@ SSE token streaming in both dialects, Bearer auth, CORS, genkey-based
 polling/abort, HTTPS (`ssl_pair`), and the OpenAI `/v1/embeddings` and
 `/api/extra/embeddings` over an embedding model (bert, nomic-bert,
 jina-bert-v2, t5encoder; `Engine.embed`), whose generate routes answer
-400. The image and audio endpoints are not ported yet.
+400. With an mmproj loaded (the engine's `clip`), a request's `images`
+(KoboldAI `images`, OpenAI `image_url` data parts) are spliced into its
+prompt, and `/sdapi/v1/interrogate` captions an image (LLaVA). With a
+Whisper model (`ServerSettings.whisper_model`), `/api/extra/transcribe`
+and `/v1/audio/transcriptions` transcribe a WAV (JSON `audio_data` /
+`file` in base64, or a multipart `file`) off the event loop; 503 without
+one. The Stable Diffusion routes (`/sdapi/v1/txt2img`, `img2img`) are not
+ported yet.
 
 asyncio (aiohttp) frontend. With the continuous-batching engine
 (`BatchedEngine`, `--multiuser N`), requests are submitted to it and
@@ -45,6 +53,7 @@ class ServerSettings:
     chat_adapter: str | dict | None = None  # instruct template (dialects)
     preloaded_story: Any = None  # --preloadstory JSON
     quiet: bool = False
+    whisper_model: Any = None  # models.whisper.WhisperModel
 
 
 @dataclass
@@ -203,6 +212,8 @@ def _wrap_response(result: dict, api_format: int, model_name: str) -> dict:
                 "model": model_name, "choices": [
                     {"index": 0, "text": text, "finish_reason": finish,
                      "logprobs": None}]}
+    if api_format == 5:
+        return {"caption": text.strip()}
     if api_format == 4:
         return {"id": "chatcmpl-1", "object": "chat.completion", "created": now,
                 "model": model_name,
@@ -312,8 +323,10 @@ def make_app(engine: Engine, settings: ServerSettings | None = None) -> web.Appl
     async def get_extra_version(request):
         return _json({"result": "KoboldCpp", "version": KCPP_VERSION,
                       "protected": bool(settings.password),
-                      "txt2img": False, "vision": False,
-                      "transcribe": False, "multiplayer": False})
+                      "txt2img": False,
+                      "vision": getattr(state.engine, "clip", None) is not None,
+                      "transcribe": settings.whisper_model is not None,
+                      "multiplayer": False})
 
     async def get_max_length(request):
         return _json({"value": 512})
@@ -467,6 +480,50 @@ def make_app(engine: Engine, settings: ServerSettings | None = None) -> web.Appl
                 return _json({"results": [{"text": g.text_so_far}]})
         return _json({"results": [{"text": ""}]})
 
+    async def interrogate(request):
+        """LLaVA caption (api_format 5; reference koboldcpp.py:1971)."""
+        if getattr(state.engine, "clip", None) is None:
+            return _json({"detail": {"msg": "No vision model loaded",
+                                     "type": "service_unavailable"}},
+                         status=503)
+        body = await _read_json(request)
+        genparams = transform_genparams({"images": [body.get("image", "")]},
+                                        5, settings.chat_adapter)
+        result = await _run_generation(state, genparams, 5)
+        return _json(_wrap_response(result, 5, settings.model_name))
+
+    async def transcribe(request):
+        """Whisper (/api/extra/transcribe, /v1/audio/transcriptions; the
+        reference's whisper_generate path): a base64 WAV in JSON
+        `audio_data` or `file`, or a multipart `file` upload (OpenAI)."""
+        if settings.whisper_model is None:
+            return _json({"detail": {"msg": "No whisper model loaded",
+                                     "type": "service_unavailable"}},
+                         status=503)
+        from ..models.whisper import decode_wav_base64
+
+        audio_b64 = None
+        if request.headers.get("Content-Type", "").startswith("multipart/"):
+            import base64
+
+            async for part in await request.multipart():
+                if part.name == "file":
+                    audio_b64 = base64.b64encode(await part.read()).decode()
+        else:
+            body = await _read_json(request)
+            audio_b64 = body.get("audio_data") or body.get("file")
+        if not audio_b64:
+            return _json({"detail": {"msg": "missing audio_data",
+                                     "type": "bad_request"}}, status=400)
+        try:
+            audio = decode_wav_base64(audio_b64)
+        except Exception as e:  # not a WAV: the client's fault
+            return _json({"detail": {"msg": f"bad audio: {e}",
+                                     "type": "bad_request"}}, status=400)
+        text = await asyncio.get_running_loop().run_in_executor(
+            None, lambda: settings.whisper_model.transcribe(audio))
+        return _json({"text": text})
+
     async def profiler_start(request):
         """A torch.profiler session (utils/profiling.py)."""
         from ..utils import profiling
@@ -538,6 +595,9 @@ def make_app(engine: Engine, settings: ServerSettings | None = None) -> web.Appl
     r.add_post("/api/extra/abort", abort)
     r.add_post("/api/extra/generate/check", check)
     r.add_get("/api/extra/generate/check", check)
+    r.add_post("/sdapi/v1/interrogate", interrogate)
+    r.add_post("/api/extra/transcribe", transcribe)
+    r.add_post("/v1/audio/transcriptions", transcribe)
 
     # CORS preflight for everything
     r.add_route("OPTIONS", "/{tail:.*}", options_handler)

@@ -370,12 +370,6 @@ def test_unported_inputs_raise(model):
                 model.params, model.tokenizer, model.device)
     with pytest.raises(NotImplementedError, match="deepseek2"):
         BatchedEngine(mla, device="cpu")
-    eng = BatchedEngine(model, max_context=64, n_slots=2, device="cpu")
-    try:
-        with pytest.raises(NotImplementedError, match="LLaVA"):
-            eng.submit("hi", GenParams(images=["x"]))
-    finally:
-        eng.shutdown()
 
 
 async def test_multiuser_server_multiplexes(slot_engine, aiohttp_client):

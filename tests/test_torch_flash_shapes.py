@@ -32,6 +32,11 @@ IDS = ["d80", "d96", "d256", "g32"]
 # K5 and K8 also at two head_dims the card's tiles pad: 72 (to 80) and 512
 PADDED = [(16, 16, 72), (8, 1, 512)]
 PADDED_IDS = ["d72", "d512"]
+# head_dims JAX sends to its kernels (Hkv * D % 128 == 0) that are not a
+# multiple of 8, or above 512: the card's pieces narrower than 16 bytes,
+# and output columns in chunks of 256
+REPAIRED = [(32, 32, 20), (32, 32, 36), (1, 1, 640)]
+REPAIRED_IDS = ["d20", "d36", "d640"]
 B, S = 2, 64
 P, NP, MP = 8, 40, 8  # pool pages of P rows, MP pages per sequence
 
@@ -54,7 +59,8 @@ def _exact_rows(rng, shape, bits):
     return x[0] * unit, x[1] * unit
 
 
-@pytest.mark.parametrize("H, HKV, D", SHAPES + PADDED, ids=IDS + PADDED_IDS)
+@pytest.mark.parametrize("H, HKV, D", SHAPES + PADDED + REPAIRED,
+                         ids=IDS + PADDED_IDS + REPAIRED_IDS)
 def test_k5_plain_matches_jax(H, HKV, D):
     """The K5 tolerance (2e-3 absolute on outputs of size ~0.5: JAX
     rescales per block against a running max); the cache rows exact. Pos
@@ -80,7 +86,8 @@ def test_k5_plain_matches_jax(H, HKV, D):
                                       np.asarray(v_j.astype(jnp.float32)))
 
 
-@pytest.mark.parametrize("H, HKV, D", SHAPES + PADDED, ids=IDS + PADDED_IDS)
+@pytest.mark.parametrize("H, HKV, D", SHAPES + PADDED + REPAIRED,
+                         ids=IDS + PADDED_IDS + REPAIRED_IDS)
 def test_k8_plain_matches_jax(H, HKV, D):
     """K8 over shuffled pages (the K5 tolerance); position 70 is past MP *
     P = 64 (every page read, nothing written); the pool update exact."""
@@ -106,7 +113,8 @@ def test_k8_plain_matches_jax(H, HKV, D):
                                   np.asarray(v_j.astype(jnp.float32)))
 
 
-@pytest.mark.parametrize("H, HKV, D", SHAPES, ids=IDS)
+@pytest.mark.parametrize("H, HKV, D", SHAPES + REPAIRED[:1],
+                         ids=IDS + REPAIRED_IDS[:1])
 def test_k6_plain_matches_jax(H, HKV, D):
     """K6 over the Q8 slot cache: within one bf16 step (2^-8) of the
     largest |V| (p rounded against another running max on each side); the
@@ -137,7 +145,8 @@ def test_k6_plain_matches_jax(H, HKV, D):
 
 
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("H, HKV, D", SHAPES, ids=IDS)
+@pytest.mark.parametrize("H, HKV, D", SHAPES + REPAIRED[:1],
+                         ids=IDS + REPAIRED_IDS[:1])
 def test_k9_k10_plain_match_jax(H, HKV, D, bits):
     """K9 (bits 8) and K10 (bits 4): history written by both pools' `write`,
     then one step on each side, within one bf16 step of the largest |V|;
@@ -192,27 +201,35 @@ def _cfg(H, Hkv, D):
 def test_check_supported_admits_on_the_card(H, HKV, D):
     """On a CUDA device (only its type is read: no card needed) the head
     shapes JAX's flash decode takes pass; the card serves them: every
-    head_dim that is a multiple of 8 up to 512."""
+    head_dim up to 1024."""
     tllama.check_supported({"layers": [{}]}, _cfg(H, HKV, D), "cuda")
     tfd.check_kernel_shape(H, HKV, D)
 
 
 @pytest.mark.parametrize("H, HKV, D", [(32, 32, 20), (8, 1, 640),
-                                        (64, 32, 36)])
+                                        (64, 32, 36), (1, 1, 1152)])
 def test_check_supported_raises_only_where_jax_serves_what_the_card_cannot(
         H, HKV, D):
-    """The one limit left: head_dim a multiple of 8 up to 512. Shapes that
-    JAX's `supported_batched` refuses (Hkv * D % 128 != 0) take the plain
-    attention in both packages, so check_supported admits them; shapes it
-    takes outside that limit (here 20, 640 and 36, each with Hkv * D % 128
-    == 0) raise on the card and pass on the CPU."""
+    """The one limit left: head_dim up to 1024. The head_dims that are
+    not a multiple of 8 (20, 36) and those between 512 and 1024 (640), each
+    with Hkv * D % 128 == 0 so that JAX's `supported_batched` sends them to
+    its kernels, are admitted on the card now; a head_dim past 1024 (1152,
+    which JAX's kernel also takes) still raises there, naming the kernel.
+    Shapes that JAX's `supported_batched` refuses (Hkv * D % 128 != 0) take
+    the plain attention in both packages, so check_supported admits them.
+    Every shape passes on the CPU."""
     cfg = _cfg(H, HKV, D)
-    if jfd.supported_batched(1, HKV, D):
-        with pytest.raises(NotImplementedError, match="head_dim"):
-            tllama.check_supported({"layers": [{}]}, cfg, "cuda")
-    else:
+    assert jfd.supported_batched(1, HKV, D)
+    if D <= tfd.MAX_HEAD_DIM:
         tllama.check_supported({"layers": [{}]}, cfg, "cuda")
+        for kid in ("K5", "K6", "K8", "K9", "K10", "K16", "K17c"):
+            tfd.check_kernel_shape(H, HKV, D, kid)
+    else:
+        with pytest.raises(NotImplementedError, match="K5.*head_dim"):
+            tllama.check_supported({"layers": [{}]}, cfg, "cuda")
     tllama.check_supported({"layers": [{}]}, cfg, "cpu")
+    with pytest.raises(NotImplementedError, match="K10"):
+        tfd.check_kernel_shape(128, 128, 9, "K10")  # no nibble planes
 
 
 def test_supported_batched_equals_jax():
@@ -304,3 +321,80 @@ def test_wrappers_cut_every_kind_at_the_same_rows(monkeypatch):
     assert {g[1:] for g in got} == {(want[1], want[0])}, got
     assert {g[0] for g in got} == {"k5_flash_decode", "k6_flash_decode_q8",
                                    "k8_flash_decode_paged"}
+
+
+@pytest.mark.parametrize("H, HKV, D", REPAIRED, ids=REPAIRED_IDS)
+def test_decode_plan_and_scratch_at_the_repaired_head_dims(monkeypatch, H,
+                                                            HKV, D):
+    """At head_dim 20, 36 and 640 every kind is launched (a recording
+    library in place of the CUDA one) from the library that holds its
+    instances (past 256: csrc/flash_decode_wide.cu's) with decode_plan's
+    split, which does not read D, and a scratch of (units, nsplit, 16,
+    columns a chunk): D itself below 512, chunks of 256 past it (640:
+    three, the last of 128 columns), so the units count the chunks."""
+    from koboldcpp_tpu_torch.ops import _build
+
+    lib = _FakeLib()
+    sources = set()
+
+    def entry(source, name, argtypes):
+        sources.add(source)
+        return lib, getattr(lib, name)
+
+    monkeypatch.setattr(_build, "entry", entry)
+    monkeypatch.setattr(_build, "stream_ptr", lambda: 0)
+    monkeypatch.setattr(_build, "launches", type(_build.launches)())
+    monkeypatch.setattr(tfd, "_SCRATCH", {})
+    Bq, Sq, Pq = 2, 2048, 64
+    KD = HKV * D
+    q = torch.zeros((Bq, H, D), dtype=torch.bfloat16)
+    kn = torch.zeros((Bq, HKV, D), dtype=torch.bfloat16)
+    cache = torch.zeros((Bq, Sq, KD), dtype=torch.bfloat16)
+    pool = torch.zeros((Bq * Sq, KD), dtype=torch.bfloat16)
+    sc = torch.zeros((Bq * Sq, HKV), dtype=torch.bfloat16)
+    table = torch.arange(Bq * Sq // Pq, dtype=torch.int32).view(Bq, -1)
+    pos = torch.tensor([5, 700], dtype=torch.int32)
+    tfd._launch_rows("K5", q, kn, kn, cache, cache, pos, None, H, HKV, 0.1,
+                     0.0)
+    c8 = cache.to(torch.int8)
+    tfd._launch_q8(q, kn, kn, (c8, c8, sc.view(Bq, Sq, HKV),
+                               sc.view(Bq, Sq, HKV)), pos, H, HKV, 0.1, 0.0)
+    for kid, kp in (("K8", pool), ("K9", pool.to(torch.int8)),
+                    ("K10", pool[:, :KD // 2].to(torch.uint8).contiguous())):
+        tfd._launch_paged(kid, q, kn, kn, kp, kp, None if kid == "K8" else sc,
+                          None if kid == "K8" else sc, table, pos, H, HKV, Pq,
+                          0.1, 0.0, D)
+    rps, nsplit = tfd.decode_plan(Bq, HKV, Sq)
+    assert {(args[-6], args[-5], args[-4]) for _, args in lib.calls} == {
+        (D, nsplit, rps)}
+    assert sources == {"flash_decode_wide" if D > 256 else "flash_decode"}
+    assert "flash_decode_wide" in _build.SOURCES
+    nc, dc = tfd.col_chunks(D)
+    assert (nc, dc) == ((3, 256) if D == 640 else (1, D))
+    assert (nc - 1) * dc < D <= nc * dc
+    (acc, ml, tickets), _ = next(iter(tfd._SCRATCH.values()))
+    units = Bq * HKV * -(-(H // HKV) // tfd.HEAD_GROUP) * nc
+    assert acc.shape == (units, nsplit, tfd.HEAD_GROUP, dc)
+    assert ml.shape == (units, nsplit, tfd.HEAD_GROUP, 2)
+    assert tickets.shape == (units,) and not tickets.any()
+
+
+def test_entry_points_are_cached_per_library(monkeypatch):
+    """The narrow and wide flash-decode libraries export the same entry
+    point names: `_build.entry` keeps one per (library, name), so a launch
+    at head_dim 512 after one at 64 reaches the wide library's."""
+    from types import SimpleNamespace
+
+    from koboldcpp_tpu_torch.ops import _build
+
+    libs = {s: SimpleNamespace(k5_flash_decode=object())
+            for s in ("flash_decode", "flash_decode_wide")}
+    monkeypatch.setattr(_build, "_entries", {})
+    monkeypatch.setattr(_build, "load", lambda source, sigs: libs[source])
+    got = [_build.entry(tfd._source(D), "k5_flash_decode", [])
+           for D in (64, 512, 64, 640)]
+    assert [g[0] for g in got] == [libs["flash_decode"],
+                                   libs["flash_decode_wide"],
+                                   libs["flash_decode"],
+                                   libs["flash_decode_wide"]]
+    assert got[1][1] is libs["flash_decode_wide"].k5_flash_decode

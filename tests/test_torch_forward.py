@@ -248,18 +248,23 @@ def test_shift_rows_matches_jax(rope_type):
 
 
 @pytest.mark.parametrize("head_dim,n_heads,n_kv_heads", [(36, 64, 32),
-                                                          (640, 8, 4)])
+                                                          (640, 8, 4),
+                                                          (1152, 8, 4)])
 def test_k5_head_shape_refused_at_load_on_cuda(head_dim, n_heads, n_kv_heads):
-    """A head shape K5 is not built for (a head_dim that is not a multiple
-    of 8, or above 512, where Hkv * head_dim % 128 == 0 sends it to the
-    kernel; 72 and 512 are taken since the kernel pads its tiles) fails
-    when the model is checked on a CUDA device, naming K5, not at the
-    first decoded token; the CPU, which runs K5's plain version, takes
-    it."""
+    """A head shape K5 is not built for (a head_dim past 1024, where Hkv *
+    head_dim % 128 == 0 sends it to the kernel) fails when the model is
+    checked on a CUDA device, naming K5, not at the first decoded token;
+    the head_dims it was not built for before it took every one up to 1024
+    (36, not a multiple of 8; 640, above 512) now pass there. The CPU,
+    which runs K5's plain version, takes all of them."""
     cfg = dataclasses.replace(SMALL, n_heads=n_heads, n_kv_heads=n_kv_heads,
                               head_dim=head_dim, rope_dim=head_dim)
     params = {"layers": [{}]}
-    with pytest.raises(NotImplementedError, match=f"K5.*head_dim {head_dim}"):
+    if head_dim > 1024:
+        with pytest.raises(NotImplementedError,
+                           match=f"K5.*head_dim {head_dim}"):
+            tllama.check_supported(params, cfg, torch.device("cuda"))
+    else:
         tllama.check_supported(params, cfg, torch.device("cuda"))
     tllama.check_supported(params, cfg, "cpu")
     tllama.check_supported(params, SMALL, torch.device("cuda"))

@@ -34,8 +34,8 @@ SERVED = ["--model", "--lora", "--loramult", "--port", "--host",
           "--nocontextshift", "--noshift", "--smartcontext",
           "--nofastforward", "--ropeconfig", "--paged", "--pagesize",
           "--ssl", "--nocertify", "--onready", "--launch", "--nomodel",
-          "--ignoremissing", *cli.COMPAT_FLAGS]
-UNSERVED = {"--sdmodel": ["x"], "--whispermodel": ["x"], "--mmproj": ["x"],
+          "--ignoremissing", "--mmproj", "--whispermodel", *cli.COMPAT_FLAGS]
+UNSERVED = {"--sdmodel": ["x"], "--sdtaesd": ["x"], "--sdvaeauto": [],
             "--hordekey": ["k"], "--remotetunnel": [], "--mesh": ["1,8"],
             "--pipeline": ["2"], "--seqparallel": ["2"],
             "--coordinator": ["h:1"], "--numprocesses": ["2"],
