@@ -209,7 +209,9 @@
    temperature ladder) and one /api/extra/transcribe request; the K5 /
    K6 / K8 / K9 / K10 cases above also take the head_dims 20, 36 and 640
    (`REPAIRED_SHAPES`: pieces narrower than 16 bytes, output columns in
-   chunks of 256);
+   chunks), and K5 / K6 also 1152 and 2048, K8 / K9 / K10 / K16 / K17c
+   1152 (`STREAMED_SHAPE`: the streamed instance past head_dim 512, K and V
+   rows in pieces of 128 columns);
 8b. the recurrent, embedding and encoder-decoder models
    (`phase_served_text`, `phase_text_decode`, `phase_embed`, after the MLA
    phase): the tiny text fixtures of tests/fixtures/portgguf/text.json
@@ -1203,8 +1205,14 @@ HEAD_SHAPES = ((32, 8, 80), (32, 32, 96), (16, 8, 256), (128, 8, 128),
 # head_dims that the JAX package sends to its kernels (Hkv * D % 128 == 0)
 # beyond a multiple of 8 up to 512: 20 and 36 (a head's bytes not a
 # multiple of 16: narrower pieces, Q and the new rows by plain loads) and
-# 640 (output columns in chunks of 256)
-REPAIRED_SHAPES = ((32, 32, 20), (32, 32, 36), (1, 1, 640))
+# 640, 1152 and 2048 (the streamed instance: output columns in chunks of
+# 128, K and V rows through shared memory in pieces of 128 columns)
+REPAIRED_SHAPES = ((32, 32, 20), (32, 32, 36), (1, 1, 640), (1, 1, 1152),
+                   (1, 1, 2048))
+# the streamed instance's shape for the members the list above does not
+# cover (K8, K9, K10 with its nibbles unpacked as they are copied, K16,
+# K17c)
+STREAMED_SHAPE = (1, 1, 1152)
 # Gemma-2's attention softcap, which K5 / K6 / K8 take on its global layers
 GEMMA2_SOFTCAP = 50.0
 # positions of the 8-sequence cases: pos 0, page boundaries, the last row,
@@ -1227,7 +1235,8 @@ def phase_flash_decode(rng) -> None:
                for c in ((1, 2048, H, Hkv, D, (700,), True),
                          (8, 2048, H, Hkv, D, BATCH_POSITIONS, True))]):
         _flash_decode_case(rng, B, S, H, Hkv, D, positions, peaked)
-    for H, Hkv, D in ((32, 16, 72), (8, 1, 512), (1, 1, 640)):
+    for H, Hkv, D in ((32, 16, 72), (8, 1, 512), (1, 1, 640), (1, 1, 1152),
+                      (1, 1, 2048)):
         _flash_decode_case(rng, 8, 2048, H, Hkv, D, BATCH_POSITIONS, True,
                            torch.float32)
     # Gemma-2's global layers: 16/8/256 under the softcap, past its window
@@ -1370,7 +1379,7 @@ def phase_paged_flash_decode(rng) -> None:
     at each of HEAD_SHAPES."""
     for peaked in (False, True):
         _paged_case(rng, 8, 32, 4, 64, 64, 32, BATCH_POSITIONS, peaked)
-    for H, Hkv, D in HEAD_SHAPES + REPAIRED_SHAPES[:1]:
+    for H, Hkv, D in HEAD_SHAPES + REPAIRED_SHAPES[:1] + (STREAMED_SHAPE,):
         _paged_case(rng, 8, H, Hkv, D, 64, 32, BATCH_POSITIONS, True)
 
 
@@ -1544,9 +1553,10 @@ def phase_quant_decode(rng) -> None:
             _quant_case(rng, kid, 8, H, Hkv, D, 64, 32, QUANT_POSITIONS, True)
             torch.cuda.empty_cache()
     # the repaired head_dims: K6 at each, K9 / K10 at D = 20 (K10's 10
-    # bytes a head: two-byte pieces by plain loads)
-    for kid, shapes in (("K6", REPAIRED_SHAPES), ("K9", REPAIRED_SHAPES[:1]),
-                        ("K10", REPAIRED_SHAPES[:1])):
+    # bytes a head: two-byte pieces by plain loads) and 1152 (streamed)
+    for kid, shapes in (("K6", REPAIRED_SHAPES),
+                        ("K9", REPAIRED_SHAPES[:1] + (STREAMED_SHAPE,)),
+                        ("K10", REPAIRED_SHAPES[:1] + (STREAMED_SHAPE,))):
         for H, Hkv, D in shapes:
             _quant_case(rng, kid, 8, H, Hkv, D, 64, 32, QUANT_POSITIONS, True)
 
@@ -1754,7 +1764,8 @@ def phase_stacked(rng) -> None:
             (8, 32, 4, 64, (0, 1, 63, 256, 700, 1500, 2047, -1),
              torch.float32),
             (8, 32, 8, 128, (5, 300, 1024, 2047, -1, 64, 900, 1999),
-             torch.bfloat16)):
+             torch.bfloat16),
+            (2, *STREAMED_SHAPE, (700, 2047), torch.bfloat16)):
         _rows_case(rng, B, H, Hkv, D, positions, dt)
         torch.cuda.empty_cache()
     # K5 over the f32 cache kind (the repair that K17c shares)
@@ -1765,6 +1776,7 @@ def phase_stacked(rng) -> None:
                             (2048, 0, 0.0), (2048, 37, 0.0),
                             (2048, 2047, 0.0), (2048, 700, 30.0)):
         _k16_case(rng, S, 32, 4, 64, pos, softcap)
+    _k16_case(rng, 2048, *STREAMED_SHAPE, 700, 0.0)
 
 
 POOL_LAYERS = 22  # the 1.1B's depth: K17c's pool holds every layer
@@ -2742,7 +2754,7 @@ def phase_moe_decode(card: str) -> tuple[dict, Model]:
 # DeepSeek-V2-Lite at full depth (27 layers, ~30 GB with its dense bf16
 # experts): greedy tokens of each MLA run (the host loop: one forward a
 # token) and seeded stochastic ones
-DS2_DEPTH = 16
+DS2_DEPTH = 8  # the MLA host loop pays its time per token
 DS2_STOCH = 8
 
 
@@ -3216,14 +3228,19 @@ def _same_or_near_tie(single: Engine, prompt, got, want, what) -> None:
           f"single-stream logits {a:.6f} / {b:.6f}", flush=True)
 
 
+# greedy tokens of each batched request of phase_batched_serving (a
+# batched step pays its host time per token)
+BATCH_DEPTH = 16
+
+
 def phase_batched_serving(card: str) -> dict:
     model = synthetic_model(TINYLLAMA_1_1B, "q4_k", seed=0, device=DEV)
     rng = np.random.default_rng(2)
     prompts = [[1] + rng.integers(3, 32000, size=int(n) - 1).tolist()
                for n in rng.integers(100, 301, size=8)]
-    greedy = GenParams(max_length=DEPTH, bypass_eos=True,
+    greedy = GenParams(max_length=BATCH_DEPTH, bypass_eos=True,
                        sampler=SamplerParams(temperature=0.0, rep_pen=1.0))
-    stoch = GenParams(max_length=DEPTH, bypass_eos=True, sampler=SamplerParams(
+    stoch = GenParams(max_length=BATCH_DEPTH, bypass_eos=True, sampler=SamplerParams(
         temperature=0.8, top_p=0.9, top_k=60, rep_pen=1.05))
     single = Engine(model, max_context=2048, device=DEV)
     want = []
@@ -3247,7 +3264,7 @@ def phase_batched_serving(card: str) -> dict:
                 counts[k] = counts.get(k, 0) + v
             got[paged] = [r.tokens for r in res]
             for i, (p, r) in enumerate(zip(prompts, res)):
-                _check(len(r.tokens) == DEPTH, f"{kind} request {i}: {r}")
+                _check(len(r.tokens) == BATCH_DEPTH, f"{kind} request {i}: {r}")
                 _same_or_near_tie(single, p, r.tokens, want[i],
                                   f"{kind} request {i}")
             n = sum(len(r.tokens) for r in res)
@@ -3263,7 +3280,7 @@ def phase_batched_serving(card: str) -> dict:
                 counts[k] = counts.get(k, 0) + v
             _check([r.tokens for r in res[:7]] == got[paged][:7],
                    f"{kind}: greedy slots changed beside a stochastic one")
-            _check(len(res[7].tokens) == DEPTH
+            _check(len(res[7].tokens) == BATCH_DEPTH
                    and all(0 <= t < 32000 for t in res[7].tokens),
                    f"{kind}: bad stochastic reply {res[7].tokens}")
             n = sum(len(r.tokens) for r in res)
@@ -3280,7 +3297,7 @@ def phase_batched_serving(card: str) -> dict:
     del single
     # the quantized pools (--multiuser 8 --quantkv 1, --quantkv 2 --paged):
     # 8 concurrent requests, each getting the tokens it gets alone
-    short = GenParams(max_length=DEPTH, bypass_eos=True, sampler=greedy.sampler)
+    short = GenParams(max_length=BATCH_DEPTH, bypass_eos=True, sampler=greedy.sampler)
     for quantkv, kid in ((1, "K9"), (2, "K10")):
         kind = f"paged P=64, quantkv={quantkv}"
         eng = batch_engine.BatchedEngine(model, max_context=2048, n_slots=8,
@@ -3301,7 +3318,7 @@ def phase_batched_serving(card: str) -> dict:
             eng.shutdown()
         ref = Engine(model, max_context=2048, device=DEV, quantkv=quantkv)
         for i, (p, r) in enumerate(zip(prompts, res)):
-            _check(len(r.tokens) == DEPTH, f"{kind} request {i}: {r}")
+            _check(len(r.tokens) == BATCH_DEPTH, f"{kind} request {i}: {r}")
             _same_or_near_tie(ref, p, r.tokens, alone[i],
                               f"{kind} request {i} (together vs alone)")
         del ref
@@ -3551,16 +3568,19 @@ def phase_opt_in_batched(card: str, model) -> dict:
 # chunk computes 32 either way) and 8 per batched request (the batched
 # engine's host loop: a step a token), to keep the script within its time
 # budget.
+# (kind, single-stream tokens, tokens of each of the 8 batched requests (a
+# batched step pays its host time per token), kernels single-stream,
+# kernels batched, batched held to single-stream)
 NEW_KINDS = (
-    ("q6_k", 16, 8, ("K2", "K3"), ("K3",), False),
-    ("q5_k", 32, 8, ("K1.q5_k", "K3.q5_k"), ("K7.q5_k",), True),
-    ("q8_0", 32, 8, ("K2.q8_0", "K3.q8_0"), ("K3.q8_0",), False),
-    ("q2_k", 32, 8, ("K12.q2_k", "K13.q2_k"), ("K13.q2_k",), False),
-    ("q3_k", 32, 8, ("K12.q3_k", "K13.q3_k"), ("K13.q3_k",), False),
-    ("iq2p", 32, 8, ("K12.iq2p", "K13.iq2p"), ("K13.iq2p",), False),
-    ("iq3px", 32, 8, ("K12.iq3px", "K13.iq3px"), ("K13.iq3px",), False),
-    ("iq3ps", 32, 8, ("K12.iq3ps", "K13.iq3ps"), ("K13.iq3ps",), False),
-    ("iq1p", 32, 8, ("K12.iq1p", "K13.iq1p"), ("K13.iq1p",), False))
+    ("q6_k", 16, 4, ("K2", "K3"), ("K3",), False),
+    ("q5_k", 32, 4, ("K1.q5_k", "K3.q5_k"), ("K7.q5_k",), True),
+    ("q8_0", 32, 4, ("K2.q8_0", "K3.q8_0"), ("K3.q8_0",), False),
+    ("q2_k", 32, 4, ("K12.q2_k", "K13.q2_k"), ("K13.q2_k",), False),
+    ("q3_k", 32, 4, ("K12.q3_k", "K13.q3_k"), ("K13.q3_k",), False),
+    ("iq2p", 32, 4, ("K12.iq2p", "K13.iq2p"), ("K13.iq2p",), False),
+    ("iq3px", 32, 4, ("K12.iq3px", "K13.iq3px"), ("K13.iq3px",), False),
+    ("iq3ps", 32, 4, ("K12.iq3ps", "K13.iq3ps"), ("K13.iq3ps",), False),
+    ("iq1p", 32, 4, ("K12.iq1p", "K13.iq1p"), ("K13.iq1p",), False))
 
 
 def phase_new_kinds(card: str) -> dict:
@@ -4434,8 +4454,9 @@ def check_opt_in_logits() -> None:
 #    state, smart context, LoRA, legacy containers, routes, launcher)
 # ---------------------------------------------------------------------------
 
-FEATURE_DEPTH = 64  # stochastic tokens of the repeatability check
-PAIR_DEPTH = 32      # tokens of each timed run in the interleaved pairs
+# (the host loop of the pairs pays its time per token)
+FEATURE_DEPTH = 32  # stochastic tokens of the repeatability check
+PAIR_DEPTH = 16      # tokens of each timed run in the interleaved pairs
 # the smart-context script at --contextsize 2048: a 1700-token prompt, a
 # diverging 1700-token prompt (the halving: 849 tokens kept), then that
 # prompt with its reply and 300 new tokens (the kept half reused); the
@@ -5144,6 +5165,316 @@ def phase_whisper(card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Stable Diffusion and the tools
+# ---------------------------------------------------------------------------
+
+# SD's outputs on the card against the same f32 module on the CPU:
+# max |err| <= SD_TOL * max |want| (the convolutions take other algorithms
+# on each side, true f32 on both)
+SD_TOL = 1e-3
+SD_PROMPT = "a lighthouse on a cliff at dusk, oil painting"
+
+
+def _close_scale(got: torch.Tensor, want: torch.Tensor, what: str,
+                 tol: float = SD_TOL) -> float:
+    """Hold got (card) to want (CPU f32) within tol of want's largest
+    magnitude; returns max |err| / (tol max |want|)."""
+    g, w = got.float().cpu(), want.float()
+    _check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+           f"{what}: shape {tuple(g.shape)} vs {tuple(w.shape)} or not finite")
+    err, scale = float((g - w).abs().max()), float(w.abs().max())
+    worst = err / (tol * scale)
+    _check(worst <= 1.0, f"{what}: max |err| {err} > {tol} * {scale}")
+    print(f"{what}: card against the CPU in f32, max abs err {err:.3g}, "
+          f"max |want| {scale:.3g}, err / ({tol} max |want|) {worst:.3g}",
+          flush=True)
+    return worst
+
+
+def _sd_cpu(m):
+    from koboldcpp_tpu_torch.models import sd as tsd
+
+    return tsd.SDModel(m.cfg, _cpu_copy(m.params), None, "cpu")
+
+
+def _unet_call(m, x, t, cond, tids=None):
+    from koboldcpp_tpu_torch.models import sd as tsd
+
+    with tsd.true_f32(), torch.inference_mode():
+        return m._unet(x, t, cond, tids)
+
+
+def phase_sd(card: str) -> None:
+    """SD 1.5's widths at full depth (`synthetic_sd`: `SDConfig`'s defaults,
+    UNet 320 x (1, 2, 4, 4), 2 res blocks, 8 heads, context 768; the CLIP
+    ViT-L/14 text tower 12 x 768; the VAE at 128 x (1, 2, 4, 4); 1.07 G
+    f32 parameters drawn on the card): (a) the text encoding, one UNet
+    evaluation at 32 x 32 latents, the VAE decode and encode of a 256 x
+    256 image, each against the same module on the CPU (SD_TOL of the
+    output's scale); (b) txt2img at 512 x 512, 20 steps, "Euler a", cfg 7
+    (the route's defaults: 40 UNet evaluations) twice with one seed, the
+    same bytes both times, timed; (c) img2img of that image at 512 x 512,
+    denoise 0.75; (d) one /sdapi/v1/txt2img request over HTTP (4 steps),
+    equal to txt2img with its arguments. Prints the seconds, ms per UNet
+    evaluation at 64 x 64 latents and of the VAE decode at 512 x 512
+    (events), peak memory. No kernel of the TPU package is on this path
+    (its convolutions and einsums are XLA's)."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    from koboldcpp_tpu_torch.cli import NullEngine
+    from koboldcpp_tpu_torch.models import sd as tsd
+    from koboldcpp_tpu_torch.models.synthetic import synthetic_sd
+    from koboldcpp_tpu_torch.server.app import ServerSettings
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = synthetic_sd(seed=0, device=DEV)
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in m.params.values())
+    cpu = _sd_cpu(m)
+    rng = np.random.default_rng(31)
+    cond = m.encode_prompt(SD_PROMPT)
+    _close_scale(cond, cpu.encode_prompt(SD_PROMPT),
+                 "SD 1.5 text encoding (77 x 768)")
+    x = torch.from_numpy(rng.standard_normal((1, 4, 32, 32)).astype(
+        np.float32))
+    t = torch.tensor([500])
+    _close_scale(_unet_call(m, x.to(DEV), t.to(DEV), cond),
+                 _unet_call(cpu, x, t, cond.cpu()),
+                 "SD 1.5 UNet, one evaluation at 32 x 32 latents")
+    with tsd.true_f32(), torch.inference_mode():
+        img = tsd.vae_decode(m.params, m.cfg, x.to(DEV))
+        _close_scale(img, tsd.vae_decode(cpu.params, cpu.cfg, x),
+                     "SD 1.5 VAE decode, 256 x 256")
+        pic = img.clamp(-1, 1)
+        _close_scale(tsd.vae_encode(m.params, m.cfg, pic),
+                     tsd.vae_encode(cpu.params, cpu.cfg, pic.cpu()),
+                     "SD 1.5 VAE encode, 256 x 256")
+    del cpu
+    kw = dict(width=512, height=512, steps=20, cfg_scale=7.0,
+              sampler="Euler a", seed=42)
+    a = m.txt2img(SD_PROMPT, **kw)
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    b = m.txt2img(SD_PROMPT, **kw)
+    torch.cuda.synchronize()
+    t2i = time.perf_counter() - ts
+    _check(a.shape == (512, 512, 3) and a.dtype == np.uint8
+           and np.array_equal(a, b) and a.std() > 0,
+           f"txt2img: {a.shape} {a.dtype}, repeat equal "
+           f"{np.array_equal(a, b)}, std {a.std()}")
+    ts = time.perf_counter()
+    c = m.img2img(a, SD_PROMPT, denoise=0.75, steps=20, cfg_scale=7.0,
+                  sampler="Euler a", seed=7)
+    torch.cuda.synchronize()
+    i2i = time.perf_counter() - ts
+    _check(c.shape == (512, 512, 3) and not np.array_equal(c, a),
+           f"img2img: {c.shape}")
+    x64 = torch.randn((1, 4, 64, 64), device=DEV)
+    unet_ms = _event_ms(lambda: _unet_call(m, x64, t.to(DEV), cond), reps=3)
+
+    def decode():
+        with tsd.true_f32(), torch.inference_mode():
+            tsd.vae_decode(m.params, m.cfg, x64)
+    vae_ms = _event_ms(decode, reps=3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    body = {"prompt": SD_PROMPT, "steps": 4, "seed": 5}
+    srv = _Server(NullEngine(), ServerSettings(sd_model=m))
+    try:
+        got = srv.post("/sdapi/v1/txt2img", body)["images"][0]
+    finally:
+        srv.close()
+    got = np.asarray(Image.open(io.BytesIO(base64.b64decode(got))))
+    want = m.txt2img(SD_PROMPT, steps=4, seed=5)
+    _check(np.array_equal(got, want),
+           f"/sdapi/v1/txt2img: {got.shape} differs from txt2img")
+    print(f"SD 1.5 widths (f32, {n_params / 1e9:.3f} G parameters, "
+          f"{card}): made on the card in {made:.1f} s; txt2img 512 x 512, 20 "
+          f"steps, Euler a, cfg 7 (40 UNet evaluations + the VAE decode): "
+          f"{t2i:.2f} s, the same bytes twice; one UNet evaluation at 64 x "
+          f"64 latents {unet_ms:.2f} ms, the VAE decode at 512 x 512 "
+          f"{vae_ms:.2f} ms (events); img2img 512 x 512, denoise 0.75: "
+          f"{i2i:.2f} s; peak {peak:.2f} GiB; /sdapi/v1/txt2img (4 steps) "
+          f"equal to txt2img", flush=True)
+    del m
+    torch.cuda.empty_cache()
+
+
+def _taesd_state(seed: int) -> dict:
+    """Random TAESD weights in the published taesd.py layout (encoder and
+    decoder, 64 channels), N(0, 0.05)."""
+    rng = np.random.default_rng(seed)
+    st = {}
+
+    def conv(key, o, i, bias=True):
+        st[key + ".weight"] = (rng.standard_normal((o, i, 3, 3)) * 0.05
+                               ).astype(np.float32)
+        if bias:
+            st[key + ".bias"] = np.zeros(o, np.float32)
+
+    def block(key):
+        for j in (0, 2, 4):
+            conv(f"{key}.conv.{j}", 64, 64)
+
+    conv("encoder.0", 64, 3)
+    for i in (1, 3, 4, 5, 7, 8, 9, 11, 12, 13):
+        block(f"encoder.{i}")
+    for i in (2, 6, 10):
+        conv(f"encoder.{i}", 64, 64, bias=False)
+    conv("encoder.14", 4, 64)
+    conv("decoder.1", 64, 4)
+    for i in (3, 4, 5, 8, 9, 10, 13, 14, 15, 18):
+        block(f"decoder.{i}")
+    for i in (7, 12, 17):
+        conv(f"decoder.{i}", 64, 64, bias=False)
+    conv("decoder.19", 3, 64)
+    return st
+
+
+def phase_sdxl(card: str) -> None:
+    """stable-diffusion-xl-base-1.0's widths at full depth (`SDXL_BASE`:
+    UNet 320 x (1, 2, 4), transformer depth (0, 2, 10) in heads of 64,
+    linear projections, add_embedding 2816; CLIP-L 12 x 768 beside bigG 32
+    x 1280 / 20 heads, pooled 1280, context 2048; 3.47 G f32 parameters
+    drawn on the card): both towers and one UNet evaluation at 16 x 16
+    latents against the same modules on the CPU; txt2img at 1024 x 1024,
+    4 steps, cfg 5 (8 UNet evaluations at 128 x 128 latents); then TAESD
+    (64 channels, random weights) decoding 32 x 32 latents against the
+    CPU, and a 512 x 512 txt2img through it. Prints ms per UNet evaluation
+    at 128 x 128 latents (events) and the seconds."""
+    from koboldcpp_tpu_torch.models import sd as tsd
+    from koboldcpp_tpu_torch.models import taesd as ttaesd
+    from koboldcpp_tpu_torch.models.synthetic import SDXL_BASE, synthetic_sd
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = synthetic_sd(tsd.SDConfig(**SDXL_BASE), seed=1, device=DEV)
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in m.params.values())
+    cpu = _sd_cpu(m)
+    ctx, pooled = m.encode_prompt(SD_PROMPT)
+    cctx, cpooled = cpu.encode_prompt(SD_PROMPT)
+    _close_scale(ctx, cctx, "SDXL both towers' penultimate states (77 x 2048)")
+    _close_scale(pooled, cpooled, "SDXL pooled bigG output (1280)")
+    rng = np.random.default_rng(37)
+    x = torch.from_numpy(rng.standard_normal((1, 4, 16, 16)).astype(
+        np.float32))
+    t = torch.tensor([700])
+    tids = torch.tensor([[128.0, 128.0, 0.0, 0.0, 128.0, 128.0]])
+    _close_scale(_unet_call(m, x.to(DEV), t.to(DEV), (ctx, pooled),
+                            tids.to(DEV)),
+                 _unet_call(cpu, x, t, (cctx, cpooled), tids),
+                 "SDXL UNet, one evaluation at 16 x 16 latents")
+    del cpu
+    ts = time.perf_counter()
+    img = m.txt2img(SD_PROMPT, width=1024, height=1024, steps=4,
+                    cfg_scale=5.0, sampler="Euler a", seed=3)
+    torch.cuda.synchronize()
+    t2i = time.perf_counter() - ts
+    _check(img.shape == (1024, 1024, 3) and img.std() > 0,
+           f"SDXL txt2img: {img.shape}")
+    x128 = torch.randn((1, 4, 128, 128), device=DEV)
+    tids128 = torch.tensor([[1024.0, 1024.0, 0.0, 0.0, 1024.0, 1024.0]],
+                           device=DEV)
+    unet_ms = _event_ms(lambda: _unet_call(m, x128, t.to(DEV),
+                                           (ctx, pooled), tids128), reps=2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    st = _taesd_state(5)
+    m.set_taesd(st)
+    cpu_taesd = ttaesd.load_taesd(st, device="cpu")
+    z = torch.from_numpy(rng.standard_normal((1, 4, 32, 32)).astype(
+        np.float32))
+    with tsd.true_f32(), torch.inference_mode():
+        _close_scale(ttaesd.decoder_apply(m.taesd, z.to(DEV)),
+                     ttaesd.decoder_apply(cpu_taesd, z),
+                     "TAESD decode of 32 x 32 latents (256 x 256)")
+    ts = time.perf_counter()
+    timg = m.txt2img(SD_PROMPT, width=512, height=512, steps=4,
+                     cfg_scale=5.0, seed=3)
+    torch.cuda.synchronize()
+    t_taesd = time.perf_counter() - ts
+    _check(timg.shape == (512, 512, 3), f"SDXL + TAESD: {timg.shape}")
+    print(f"SDXL base widths (f32, {n_params / 1e9:.3f} G parameters, "
+          f"{card}): made on the card in {made:.1f} s; txt2img 1024 x 1024, "
+          f"4 steps, Euler a, cfg 5 (8 UNet evaluations + the VAE decode): "
+          f"{t2i:.2f} s; one UNet evaluation at 128 x 128 latents "
+          f"{unet_ms:.2f} ms (events); peak {peak:.2f} GiB; txt2img 512 x "
+          f"512, 4 steps, TAESD decode: {t_taesd:.2f} s", flush=True)
+    del m
+    torch.cuda.empty_cache()
+
+
+# the tools' text (the tiny fixture's vocabulary) and windows
+TOOLS_TEXT = " ".join(f"word{i % 37} part{(i * 7) % 53} of the story"
+                      for i in range(120))
+TOOLS_CTX = 64
+PPL_WINDOWS = 4   # windows of PPL_CTX rows of the 1.1B run
+PPL_CTX = 512
+PPL_TOL = 1e-2    # relative, perplexity on the card against the CPU / plain
+
+
+def phase_tools(card: str) -> dict:
+    """The perplexity and imatrix tools (`koboldcpp_tpu_torch/tools/`): on
+    the tiny Q4_K_M fixture, perplexity over four 64-token windows and
+    imatrix's mean squares over two, card against CPU (PPL_TOL relative;
+    imatrix within 1e-3 of each tensor's largest value, f32 both sides);
+    then perplexity over PPL_WINDOWS windows of PPL_CTX on the synthetic
+    1.1B, each window one forward from position 0 through K3 (22 x 4
+    packed projections and the head a window) and K4 (22 a window), held
+    against the same windows with the kernels' plain versions on the card.
+    Returns the launch counts of the 1.1B run."""
+    from koboldcpp_tpu_torch.tools import imatrix as timatrix
+    from koboldcpp_tpu_torch.tools import perplexity as tppl
+
+    path = os.path.join(FIX, "tiny-q4_k_m.gguf")
+    got = tppl.perplexity(load_model(path, device=DEV), TOOLS_TEXT,
+                          n_ctx=TOOLS_CTX, verbose=False)
+    want = tppl.perplexity(load_model(path, device="cpu"), TOOLS_TEXT,
+                           n_ctx=TOOLS_CTX, verbose=False)
+    _check(abs(got - want) <= PPL_TOL * want,
+           f"perplexity on the fixture: card {got} against CPU {want}")
+    ig = timatrix.collect(path, TOOLS_TEXT, TOOLS_CTX, 2, device=DEV)
+    iw = timatrix.collect(path, TOOLS_TEXT, TOOLS_CTX, 2, device="cpu")
+    worst = max(float(np.abs(ig[k] - v).max() / (1e-3 * np.abs(v).max()))
+                for k, v in iw.items())
+    _check(set(ig) == set(iw) and worst <= 1.0,
+           f"imatrix on the fixture: card against CPU, worst {worst}")
+    model = synthetic_model(TINYLLAMA_1_1B, "q4_k", seed=0, device=DEV)
+    rng = np.random.default_rng(41)
+    toks = rng.integers(3, TINYLLAMA_1_1B.vocab_size,
+                        size=PPL_WINDOWS * PPL_CTX).tolist()
+    _build.launches.clear()
+    ts = time.perf_counter()
+    ppl = tppl.perplexity(model, toks, n_ctx=PPL_CTX, verbose=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - ts
+    counts = dict(_build.launches)
+    with _plain_matmuls(), mock.patch.object(
+            llama, "flash_prefill_attention", flash_prefill.flash_prefill_plain):
+        plain = tppl.perplexity(model, toks, n_ctx=PPL_CTX, verbose=False)
+    _check(abs(ppl - plain) <= PPL_TOL * plain and math.isfinite(ppl),
+           f"1.1B perplexity {ppl} against the plain versions' {plain}")
+    _check(counts.get("K3", 0) >= PPL_WINDOWS * 22 * 4
+           and counts.get("K4", 0) == PPL_WINDOWS * 22,
+           f"1.1B perplexity launches {counts}")
+    print(f"tools ({card}): perplexity of the tiny fixture, 4 windows of "
+          f"{TOOLS_CTX}: card {got:.6f}, CPU {want:.6f}; imatrix, 2 windows: "
+          f"{len(ig)} tensors, worst |err| / (1e-3 max) {worst:.3g}; the "
+          f"synthetic 1.1B, {PPL_WINDOWS} windows of {PPL_CTX}: perplexity "
+          f"{ppl:.4f} (the plain versions' {plain:.4f}) in {secs:.2f} s; "
+          f"launches {counts}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # the recurrent, embedding and encoder-decoder models
 # ---------------------------------------------------------------------------
 
@@ -5604,6 +5935,10 @@ def main() -> int:
     # the vision and speech inputs (LLaVA-1.5-7B, whisper-small widths)
     runs.append(_timed(phase_llava, card))
     _timed(phase_whisper, card)
+    # Stable Diffusion (SD 1.5 and SDXL widths) and the tools
+    _timed(phase_sd, card)
+    _timed(phase_sdxl, card)
+    runs.append(_timed(phase_tools, card))
     # the MoE models (Mixtral widths 22.5 GB, DeepSeek-V2-Lite ~30 GB:
     # both fit the card) last of the timed phases, kept for their profiled
     # windows

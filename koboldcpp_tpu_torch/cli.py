@@ -10,12 +10,18 @@ server (HTTPS with `--ssl`). The port's own flags: --paged / --pagesize
 of the reference are accepted and ignored, but `--usecpu` runs on the CPU.
 `--mmproj` loads a LLaVA vision projector (models/clip.py) into whichever
 engine serves, `--whispermodel` a Whisper model (models/whisper.py) for
-the transcribe routes; `--ignoremissing` skips either when its file is
-missing, as it does a LoRA. Flags of paths the port has not got (Stable
-Diffusion: --sdmodel and its sub-flags; the horde worker and tunnel,
-device meshes, pipeline and sequence parallelism, multi-host serving)
-exit with argparse's error naming them. Runs on the GPU unless --device
-cpu or --usecpu is given.
+the transcribe routes, `--sdmodel` a Stable Diffusion GGUF (models/sd.py)
+for the A1111 txt2img / img2img routes, with `--sdvae` (a standalone
+VAE), `--sdlora` / `--sdloramult` (a LoRA merged at load), `--sdtaesd`
+(TAESD weights decoding in place of the VAE; `--sdvaeauto` alone says it
+needs them) and `--sdclamped` (the shared-hosting clamps);
+`--ignoremissing` skips any of these when its file is missing, as it does
+a LoRA. Beyond the JAX launcher, `--sdmodel` without a text model (or with
+`--nomodel`) serves the image routes alone, as upstream's image-only
+mode does. Flags of paths the port has not got (the horde worker and
+tunnel, device meshes, pipeline and sequence parallelism, multi-host
+serving) exit with argparse's error naming them. Runs on the GPU unless
+--device cpu or --usecpu is given.
 """
 from __future__ import annotations
 
@@ -104,9 +110,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "(UI + API shell)")
     p.add_argument("--mmproj", default="", help="LLaVA mmproj GGUF (vision)")
     p.add_argument("--whispermodel", default="", help="whisper GGUF model")
+    p.add_argument("--sdmodel", default="", help="stable-diffusion GGUF model")
+    p.add_argument("--sdvaeauto", action="store_true",
+                   help="use TAESD instead of the VAE (needs --sdtaesd weights)")
+    p.add_argument("--sdtaesd", default="", help="TAESD weights (.safetensors/.pt)")
+    p.add_argument("--sdvae", default="",
+                   help="standalone SD VAE to load in place of the model's "
+                        "(.safetensors or converted .gguf)")
+    p.add_argument("--sdlora", default="", help="SD LoRA adapter GGUF to merge")
+    p.add_argument("--sdloramult", type=float, default=1.0,
+                   help="SD LoRA multiplier")
+    p.add_argument("--sdclamped", type=int, nargs="?", const=512, default=0,
+                   help="clamp SD resolution/steps for shared hosting")
     p.add_argument("--ignoremissing", action="store_true",
                    help="skip missing non-essential files (lora, mmproj, "
-                        "whisper) instead of failing")
+                        "whisper, sd) instead of failing")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch versions of the kernels)")
@@ -259,6 +277,35 @@ def _chat_adapter(args, model):
     return chat_adapter
 
 
+def _skip_missing(args) -> None:
+    """--ignoremissing: clear each optional model file that is missing."""
+    for attr in ("mmproj", "sdmodel", "whispermodel", "sdtaesd", "sdvae",
+                 "sdlora"):
+        v = getattr(args, attr, "")
+        if v and not os.path.exists(v):
+            print(f"--ignoremissing: skipping missing {attr} {v}")
+            setattr(args, attr, "")
+
+
+def _load_sd(args, device):
+    """--sdmodel and its sub-flags (the JAX launcher's order and
+    messages): the model with its VAE override and LoRA, then TAESD."""
+    if not args.sdmodel:
+        return None
+    from .models.sd import load_sd
+
+    print(f"Loading SD model: {args.sdmodel}")
+    sd_loras = [(args.sdlora, args.sdloramult)] if args.sdlora else None
+    sd_model = load_sd(args.sdmodel, loras=sd_loras,
+                       vae_path=args.sdvae or None, device=device)
+    if args.sdtaesd:
+        print(f"Loading TAESD: {args.sdtaesd}")
+        sd_model.set_taesd(args.sdtaesd)
+    elif args.sdvaeauto:
+        print("--sdvaeauto requires --sdtaesd <weights>; using full VAE")
+    return sd_model
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.config:
@@ -276,10 +323,17 @@ def main(argv=None):
         model_path = args.model
     from .server.app import ServerSettings, run_server
 
-    if args.nomodel:
-        print("--nomodel: starting API shell without a text model")
+    device = args.device or ("cpu" if args.usecpu else None)
+    if args.ignoremissing:
+        _skip_missing(args)
+    if args.nomodel or (not model_path and args.sdmodel):
+        print("--nomodel: starting API shell without a text model"
+              if args.nomodel else
+              "--sdmodel without a text model: serving the image routes")
         settings = ServerSettings(password=args.password,
-                                  model_name="inactive", quiet=args.quiet)
+                                  model_name="inactive", quiet=args.quiet,
+                                  sd_model=_load_sd(args, device),
+                                  sd_clamped=args.sdclamped)
         print(f"Starting server on {args.host}:{args.port}")
         run_server(NullEngine(args.contextsize), host=args.host,
                    port=args.port, settings=settings, ssl_pair=args.ssl,
@@ -295,7 +349,6 @@ def main(argv=None):
             args.port = int(args.port_param)
         except ValueError:
             pass
-    device = args.device or ("cpu" if args.usecpu else None)
 
     from .engine import Engine, GenParams
     from .engine.batch_engine import BatchedEngine, batch_capable
@@ -309,11 +362,6 @@ def main(argv=None):
             if not os.path.exists(lp):
                 print(f"--ignoremissing: skipping missing lora {lp}")
         loras = [(lp, m) for lp, m in loras if os.path.exists(lp)]
-        for attr in ("mmproj", "whispermodel"):
-            v = getattr(args, attr, "")
-            if v and not os.path.exists(v):
-                print(f"--ignoremissing: skipping missing {attr} {v}")
-                setattr(args, attr, "")
     if loras:
         print(f"Applying {len(loras)} LoRA adapter(s), multiplier "
               f"{args.loramult}")
@@ -379,6 +427,7 @@ def main(argv=None):
     if args.preloadstory and os.path.exists(args.preloadstory):
         with open(args.preloadstory) as f:
             story = json.load(f)
+    sd_model = _load_sd(args, model.device)
     whisper_model = None
     if args.whispermodel:
         from .models.whisper import load_whisper
@@ -390,7 +439,8 @@ def main(argv=None):
                               multiuser=args.multiuser,
                               chat_adapter=_chat_adapter(args, model),
                               preloaded_story=story, quiet=args.quiet,
-                              whisper_model=whisper_model)
+                              whisper_model=whisper_model, sd_model=sd_model,
+                              sd_clamped=args.sdclamped)
     print(f"Starting server on {args.host}:{args.port}")
     run_server(engine, host=args.host, port=args.port, settings=settings,
                ssl_pair=args.ssl, onready=args.onready, launch=args.launch)

@@ -38,7 +38,7 @@
 // kv/paged.py `_quantize_q4` do (amax/127 or amax/7 per head, round half to
 // even, scale rounded to bf16), uses its dequantized bf16 values for the
 // self term, and writes the codes and the scale. Head shapes: any head_dim
-// D up to MAXD = 1024 (even for K10's nibble planes) and any G = H / Hkv
+// D up to MAXD = 4800 (even for K10's nibble planes) and any G = H / Hkv
 // query heads per kv head. The tiles hold D padded to Dp, the next multiple
 // of 16 (the mma k): the padding columns of Q, K and V are zero-filled as
 // they are copied, the output, the new row's write and a quantized row's
@@ -48,13 +48,22 @@
 // (K10 at D = 20 or 36: 10 or 18 bytes a head); Q and this step's rows go
 // by plain loads where D % 8 != 0. DMAX (64, 128, 256, 512) bounds the
 // output columns a block accumulates; at D = 512 a block's accumulators
-// spill to local memory. Past 512 the output columns go in chunks of DCH =
-// 256 to NC = ceil(D / 256) blocks per head group (a grid of B * Hkv * NG
-// * NC units): each block takes the scores over the whole head_dim (the
-// same scores in every chunk, so the same softmax) and P . V for its
-// columns, and merges its own chunk's partials; the cache row is written by
-// chunk 0. Where a tile of 64 rows does not fit next to the merge's tables
-// a tile takes 32 rows (two warps' worth), or 16 (an f32 cache at D > ~820).
+// spill to local memory. Past 512 (the streamed instance, STREAM) the
+// output columns go in chunks of DCH = 128 to NC = ceil(D / 128) blocks per
+// head group (a grid of B * Hkv * NG * NC units): each block takes the
+// scores over the whole head_dim (the same scores in every chunk, so the
+// same softmax) and P . V for its columns, and merges its own chunk's
+// partials; the cache row is written by chunk 0. No stage of that instance
+// holds a whole row: a tile streams through the stages as ceil(Dp / 128) K
+// pieces of 128 columns, whose score products accumulate in registers, then
+// one V piece of the block's own columns (K10's nibbles unpacked to int8
+// codes as they are copied, by plain loads), and the merge keeps the new
+// row's codes as int8 and the row itself as this step's bf16 rows. So the
+// shared memory holds the Q tile, this step's rows and two pieces: MAXD is
+// the widest head_dim whose plan fits a block's 227 KB for every kind.
+// Where a tile of 64 rows does not fit next to the merge's tables a tile
+// takes 32 rows (two warps' worth), or 16 (an f32 cache at D > ~820 below
+// the streamed instance; in it 32 rows from D = 4145, 16 from 4577).
 //
 // Bound on the H100: bytes (the live history rows' K and V values plus
 // their scales, and the row write): a 1.1B step at pos 700 reads 0.7 MB, a
@@ -110,8 +119,8 @@
 //
 // Built as two libraries that nvcc compiles in parallel: this file takes
 // the head_dims up to 256, csrc/flash_decode_wide.cu (this file with
-// FD_WIDE set) those past 256 (its two instances cost as much compile time
-// as the rest); ops/flash_decode.py picks the library by head_dim.
+// FD_WIDE set) those past 256 (the instance up to 512 and the streamed
+// one); ops/flash_decode.py picks the library by head_dim.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -123,8 +132,10 @@ constexpr int NW = 4;        // warps per block
 constexpr int TR = 16 * NW;  // history rows per tile: 16 per warp
 constexpr int GB = 16;       // query heads per block: one m16 tile
 constexpr int MAXNS = 256;   // splits per sequence (decode_plan's cap)
-constexpr int MAXD = 1024;   // the widest head_dim
-constexpr int DCH = 256;     // output columns a block takes past D = 512
+constexpr int MAXD = 4800;   // the widest head_dim (every kind's plan fits)
+constexpr int DCH = 128;     // output columns a block takes past D = 512, and
+                             // the columns of the streamed instance's pieces
+constexpr int SMEM_MAX = 232448;  // a block's dynamic shared memory (227 KB)
 
 // cache kinds: the element type of the rows and where the scales apply
 enum Kind { BF16_ROWS = 0, Q8_VALUE = 1, Q8_SCORE = 2, Q4_SCORE = 3,
@@ -144,6 +155,11 @@ __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 // output columns a block takes: all D up to 512, DCH-column chunks past it
 __host__ __device__ constexpr int chunk_cols(int D) { return D > 512 ? DCH : D; }
 
+// the kind a streamed piece holds: K10's nibbles are unpacked to int8 codes
+__host__ __device__ constexpr int piece_kind(int kind) {
+    return kind == Q4_SCORE ? (int)Q8_SCORE : kind;
+}
+
 // Shared memory of one block at head_dim D: the Q tile (16 rows of Dp
 // bf16, pitch qp) and this step's k and v rows (D bf16 each, the pair
 // padded to 16 bytes), then `nst` stages of (K tile, V tile: tr rows of a
@@ -152,23 +168,28 @@ __host__ __device__ constexpr int chunk_cols(int D) { return D > 512 ? DCH : D; 
 // lone split's partial and the merge's tables. Dp: D padded to 16; DC: the
 // output columns of one block (chunk_cols); tr: rows per tile (TR, or 32
 // or 16 where a stage of TR rows does not fit a block's 227 KB); nwa: the
-// warps that take a tile's rows (16 each).
+// warps that take a tile's rows (16 each). Past D = 512 (stream) a stage
+// holds one piece (tr rows of DCH columns at pitch hp) and two tiles' k and
+// v scales follow the stages; the merge keeps the new row's codes as int8.
 struct Plan {
     int Dp, DC, hp, qp, tr, nwa, stage, nst, q_bytes, comb, total;
     __host__ __device__ Plan(int kind, int D) {
+        const bool stream = D > 512;
         Dp = (D + 15) & ~15;
         DC = chunk_cols(D);
-        hp = head_bytes(kind, Dp) + 16;  // 8 ldmatrix rows on distinct banks
+        // + 16: 8 ldmatrix rows on distinct banks
+        hp = (stream ? head_bytes(piece_kind(kind), DCH) : head_bytes(kind, Dp)) + 16;
         qp = 2 * Dp + 16;
         q_bytes = GB * qp + ((4 * D + 15) & ~15);
-        const int merge = 2 * MAXNS * GB * 4 + GB * 2 * 4 + 2 * D * 8 + GB * 4 + 16;
+        const int merge = 2 * MAXNS * GB * 4 + GB * 2 * 4
+                          + (stream ? (2 * D + 15) & ~15 : 2 * D * 8) + GB * 4 + 16;
         for (tr = TR;; tr /= 2) {
             nwa = tr / 16;
-            stage = 2 * tr * hp + 2 * tr * 4;
+            stage = stream ? tr * hp : 2 * tr * hp + 2 * tr * 4;
             nst = 2 * stage <= 96 * 1024 ? 2 : 1;
             comb = nwa * GB * DC * 4 + nwa * GB * 2 * 4 + GB * DC * 4 + GB * 2 * 4;
-            total = q_bytes + imax(nst * stage, comb + merge);
-            if (total <= 232448 || tr == 16) break;
+            total = q_bytes + imax(nst * stage + (stream ? 4 * tr * 4 : 0), comb + merge);
+            if (total <= SMEM_MAX || tr == 16) break;
         }
     }
 };
@@ -252,13 +273,17 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
 }
 
 // DMAX bounds the output columns of a block (Plan.DC), DK the padded
-// head_dim Dp that the scores run over
+// head_dim Dp that the scores run over; DK past 512 is the streamed
+// instance (pieces of DCH columns)
 template <int KIND, int DMAX, int DK>
 __global__ void __launch_bounds__(NW * 32)
 flash_decode_kernel(const Args a) {
     extern __shared__ __align__(16) uint8_t smem[];
     constexpr bool SCALED = QUANT_KIND(KIND);
     constexpr bool SCORE_SIDE = KIND == Q8_SCORE || KIND == Q4_SCORE;
+    constexpr bool STREAM = DK > 512;
+    // the element kind of the tile or piece rows the products read
+    constexpr int PK = STREAM ? piece_kind(KIND) : KIND;
     const int D = a.D;
     const Plan L(KIND, D);
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -342,6 +367,54 @@ flash_decode_kernel(const Args a) {
             else *dst = ok ? *src : 0;
         }
     };
+    // the streamed instance's piece u of NPC a tile (K pieces j < NKP of
+    // DCH columns, then this block's V columns) into its stage, rows from
+    // `lim` on and columns past D zero-filled; K10's nibbles as int8 codes
+    const int NKP = (L.Dp + DCH - 1) / DCH, NPC = NKP + 1;
+    auto issue_piece = [&](int u, int lim) {
+        const int t = u / NPC, j = u - t * NPC;
+        uint8_t* st = body + (u % L.nst) * L.stage;
+        const int r0 = r_begin + t * TRt;
+        const uint8_t* base = j < NKP ? kbase : vbase;
+        const int col0 = j < NKP ? j * DCH : c0;
+        const int w = min(DCH, D - col0);  // columns of the head in the piece
+        if (KIND == Q4_SCORE) {
+            const int D2 = D / 2;
+            for (int i = tid; i < TRt * DCH; i += blockDim.x) {
+                const int rr = i / DCH, c = i - rr * DCH, row = r0 + rr;
+                int v = 0;
+                if (row < lim && c < w) {
+                    const int e = col0 + c;
+                    const uint32_t byte = base[cache_row(a, b, cb, row) * row_bytes + e % D2];
+                    v = (int)(e < D2 ? byte & 0xFu : byte >> 4) - 8;
+                }
+                st[rr * L.hp + c] = (uint8_t)(int8_t)v;
+            }
+            return;
+        }
+        constexpr int ES = head_bytes(KIND, 1);  // bytes an element
+        const int CHw = w * ES / CW, CHd = DCH * ES / CW;
+        for (int i = tid; i < TRt * CHd; i += blockDim.x) {
+            const int rr = i / CHd, c = i - rr * CHd, row = r0 + rr;
+            const bool ok = row < lim && c < CHw;
+            const uint8_t* src = a.kc;
+            if (ok) src = base + cache_row(a, b, cb, row) * row_bytes + col0 * ES + c * CW;
+            uint8_t* dst = st + rr * L.hp + c * CW;
+            if (CW == 16) cp_async16_zfill(dst, src, ok ? 16 : 0);
+            else if (CW == 8) cp_async8_zfill(dst, src, ok ? 8 : 0);
+            else if (CW == 4) cp_async4_zfill(dst, src, ok ? 4 : 0);
+            else if (CW == 2)
+                *reinterpret_cast<uint16_t*>(dst) = ok ? *reinterpret_cast<const uint16_t*>(src) : 0;
+            else *dst = ok ? *src : 0;
+        }
+    };
+    // tile t's k scales (then its v scales): in its stage, or in the
+    // streamed instance's two slots after the stages
+    auto scale_at = [&](int t) {
+        return reinterpret_cast<float*>(
+            STREAM ? body + L.nst * L.stage + (t & 1) * 2 * TRt * 4
+                   : stage_of(t) + 2 * TRt * L.hp);
+    };
     // tile t's scales: thread tid < TRt loads its row's, parks them later
     auto scales_load = [&](int t, int lim, float& rk, float& rv) {
         rk = rv = 0.f;
@@ -355,7 +428,8 @@ flash_decode_kernel(const Args a) {
     // tile 0 while the position is read: every row of the split's first
     // tile inside the cache; rows past the history are cleared below
     const int lim0 = min(r_begin + a.rps, a.S);
-    issue(0, lim0);
+    if (STREAM) issue_piece(0, lim0);
+    else issue(0, lim0);
     cp_async_commit();
     float rk0, rv0;
     scales_load(0, lim0, rk0, rv0);
@@ -372,7 +446,7 @@ flash_decode_kernel(const Args a) {
     auto scales_store = [&](int t, float rk, float rv) {
         const int row = r_begin + t * TRt + tid;
         if (SCALED && tid < TRt) {
-            float* sc = reinterpret_cast<float*>(stage_of(t) + 2 * TRt * L.hp);
+            float* sc = scale_at(t);
             sc[tid] = row < r_end ? rk : 0.f;
             sc[TRt + tid] = row < r_end ? rv : 0.f;
         }
@@ -389,55 +463,47 @@ flash_decode_kernel(const Args a) {
     const int wr = warp * 16;  // this warp's rows of a tile
 
     const int Dp = L.Dp;
-    auto compute = [&](int t) {
-        const uint8_t* kt = stage_of(t);
-        const uint8_t* vt = kt + TRt * L.hp;
-        const float* ksm = reinterpret_cast<const float*>(kt + 2 * TRt * L.hp);
-        const float* vsm = ksm + TRt;
-        // S (16 heads x 16 rows) = Q . K^T
-        float s[2][4];
+    // S (16 heads x 16 rows) += Q . K^T over one k step: Q's columns kq..
+    // of the head, the rows' columns kk.. of the tile or piece kt
+    auto score_step = [&](const uint8_t* kt, const float* ksm, int kq, int kk,
+                          float (&s)[2][4]) {
+        uint32_t qa[4];
+        ldmatrix_x4(qa, qs + (((lane >> 3) & 1) * 8 + (lane & 7)) * L.qp
+                            + kq * 2 + (lane >> 4) * 16);
+        if (KIND == BF16_ROWS) {
+            uint32_t kb[4];
+            ldmatrix_x4(kb, kt + (wr + (lane >> 4) * 8 + (lane & 7)) * L.hp
+                                + kk * 2 + ((lane >> 3) & 1) * 16);
+            const uint32_t b0[2] = {kb[0], kb[1]}, b1[2] = {kb[2], kb[3]};
+            mma16816(s[0], qa, b0);
+            mma16816(s[1], qa, b1);
+        } else {
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-        // unrolled up to D = 512; the wide instance's 64 steps stay a loop
-        // (unrolled, they tripled the source's build time)
-#pragma unroll (DK <= 512 ? DK / 16 : 1)
-        for (int ks = 0; ks < DK / 16; ++ks) {
-            if (ks >= Dp / 16) break;
-            uint32_t qa[4];
-            ldmatrix_x4(qa, qs + (((lane >> 3) & 1) * 8 + (lane & 7)) * L.qp
-                                + ks * 32 + (lane >> 4) * 16);
-            if (KIND == BF16_ROWS) {
-                uint32_t kb[4];
-                ldmatrix_x4(kb, kt + (wr + (lane >> 4) * 8 + (lane & 7)) * L.hp
-                                    + ks * 32 + ((lane >> 3) & 1) * 16);
-                const uint32_t b0[2] = {kb[0], kb[1]}, b1[2] = {kb[2], kb[3]};
-                mma16816(s[0], qa, b0);
-                mma16816(s[1], qa, b1);
-            } else {
-#pragma unroll
-                for (int j = 0; j < 2; ++j) {
-                    const int rr = wr + 8 * j + (lane >> 2);
-                    const uint8_t* row = kt + rr * L.hp;
-                    const int k = ks * 16 + (lane & 3) * 2;
-                    if (KIND == F32_ROWS) {
-                        const float2 x0 = *reinterpret_cast<const float2*>(row + 4 * k);
-                        const float2 x1 = *reinterpret_cast<const float2*>(row + 4 * k + 32);
-                        uint32_t hi[2], lo[2];
-                        split_bf16(x0.x, x0.y, hi[0], lo[0]);
-                        split_bf16(x1.x, x1.y, hi[1], lo[1]);
-                        mma16816(s[j], qa, hi);
-                        mma16816(s[j], qa, lo);
-                    } else {
-                        const float sk = KIND == Q8_VALUE ? ksm[rr] : 1.f;
-                        const uint32_t kb[2] = {k_pair<KIND>(row, k, D, sk),
-                                                k_pair<KIND>(row, k + 8, D, sk)};
-                        mma16816(s[j], qa, kb);
-                    }
+            for (int j = 0; j < 2; ++j) {
+                const int rr = wr + 8 * j + (lane >> 2);
+                const uint8_t* row = kt + rr * L.hp;
+                const int k = kk + (lane & 3) * 2;
+                if (KIND == F32_ROWS) {
+                    const float2 x0 = *reinterpret_cast<const float2*>(row + 4 * k);
+                    const float2 x1 = *reinterpret_cast<const float2*>(row + 4 * k + 32);
+                    uint32_t hi[2], lo[2];
+                    split_bf16(x0.x, x0.y, hi[0], lo[0]);
+                    split_bf16(x1.x, x1.y, hi[1], lo[1]);
+                    mma16816(s[j], qa, hi);
+                    mma16816(s[j], qa, lo);
+                } else {
+                    const float sk = KIND == Q8_VALUE ? ksm[rr] : 1.f;
+                    const uint32_t kb[2] = {k_pair<PK>(row, k, D, sk),
+                                            k_pair<PK>(row, k + 8, D, sk)};
+                    mma16816(s[j], qa, kb);
                 }
             }
         }
+    };
+    // tile t's scores s: the online softmax, then O (16 heads x this
+    // chunk's columns) += P . V, V's column c0 + d at column cv + d of vt
+    auto softmax_pv = [&](int t, float (&s)[2][4], const uint8_t* vt,
+                          const float* ksm, const float* vsm, int cv) {
         // online softmax on the fragment: s[j][e] is head lane/4 + 8 (e / 2),
         // row wr + 8 j + 2 (lane % 4) + e % 2
         const int r0 = r_begin + t * TRt;
@@ -498,11 +564,10 @@ flash_decode_kernel(const Args a) {
                 }
                 pa[2 * j + h] = pack_bf16(p0, p1);
             }
-        // O (16 heads x this chunk's columns) += P . V
 #pragma unroll
         for (int np = 0; np < DMAX / 16; ++np) {
             if (np * 16 >= cw) break;
-            const int cn = c0 + np * 16;  // the column in the head
+            const int cn = cv + np * 16;  // the column in vt's rows
             if (KIND == BF16_ROWS) {
                 uint32_t vb[4];
                 ldmatrix_x4_trans(vb, vt + (wr + ((lane >> 3) & 1) * 8 + (lane & 7)) * L.hp
@@ -519,8 +584,8 @@ flash_decode_kernel(const Args a) {
 #pragma unroll
                     for (int i = 0; i < 4; ++i) {
                         const int r = rr + (i & 1) + 8 * (i >> 1);
-                        e4[i] = v_elem<KIND>(vt + r * L.hp, d, D,
-                                             KIND == Q8_VALUE ? vsm[r] : 1.f);
+                        e4[i] = v_elem<PK>(vt + r * L.hp, d, D,
+                                           KIND == Q8_VALUE ? vsm[r] : 1.f);
                     }
                     if (KIND == F32_ROWS) {
                         uint32_t hi[2], lo[2];
@@ -537,36 +602,103 @@ flash_decode_kernel(const Args a) {
             }
         }
     };
+    auto compute = [&](int t) {
+        const uint8_t* kt = stage_of(t);
+        const float* ksm = scale_at(t);
+        float s[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+        // unrolled up to D = 512
+#pragma unroll (DK <= 512 ? DK / 16 : 1)
+        for (int ks = 0; ks < DK / 16; ++ks) {
+            if (ks >= Dp / 16) break;
+            score_step(kt, ksm, ks * 16, ks * 16, s);
+        }
+        softmax_pv(t, s, kt + TRt * L.hp, ksm, ksm + TRt, c0);
+    };
 
-    // the tile loop: with two stages tile t + 1 is copied during tile t
+    // the tile loop: with two stages tile t + 1 is copied during tile t;
+    // the streamed instance's loop runs over the pieces, the scores of a
+    // tile accumulating in ss over its K pieces
     scales_store(0, rk0, rv0);
-    for (int t = 0; t < ntiles; ++t) {
-        const bool ahead = L.nst == 2 && t + 1 < ntiles;
-        float rk = 0.f, rv = 0.f;
-        if (ahead) {
-            issue(t + 1, r_end);
-            cp_async_commit();
-            scales_load(t + 1, r_end, rk, rv);
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();
-        if (t == 0 && r_begin + TRt > r_end) {  // V rows past the history: 0
-            uint8_t* vt = stage_of(0) + TRt * L.hp;
-            const int n8 = L.hp / 8;  // hp is a multiple of 8
-            for (int i = (r_end - r_begin) * n8 + tid; i < TRt * n8; i += blockDim.x)
-                *reinterpret_cast<uint2*>(vt + 8 * i) = make_uint2(0, 0);
+    if constexpr (STREAM) {
+        float ss[2][4];
+        const int NU = ntiles * NPC;
+        for (int u = 0; u < NU; ++u) {
+            const int t = u / NPC, j = u - t * NPC;
+            const bool ahead = L.nst == 2 && u + 1 < NU;
+            const bool next_tile = (u + 1) % NPC == 0;  // piece u + 1 opens t + 1
+            float rk = 0.f, rv = 0.f;
+            if (ahead) {
+                issue_piece(u + 1, r_end);
+                cp_async_commit();
+                if (next_tile) scales_load(t + 1, r_end, rk, rv);
+                cp_async_wait<1>();
+            } else {
+                cp_async_wait<0>();
+            }
             __syncthreads();
+            if (wr < TRt) {  // a 32- or 16-row tile: the first warps
+                const uint8_t* pt = body + (u % L.nst) * L.stage;
+                const float* ksm = scale_at(t);
+                if (j < NKP) {
+                    if (j == 0) {
+#pragma unroll
+                        for (int i = 0; i < 2; ++i)
+#pragma unroll
+                            for (int e = 0; e < 4; ++e) ss[i][e] = 0.f;
+                    }
+#pragma unroll
+                    for (int ks = 0; ks < DCH / 16; ++ks) {
+                        if (j * DCH + ks * 16 >= Dp) break;
+                        score_step(pt, ksm, j * DCH + ks * 16, ks * 16, ss);
+                    }
+                } else {
+                    softmax_pv(t, ss, pt, ksm, ksm + TRt, 0);
+                }
+            }
+            if (ahead && next_tile) scales_store(t + 1, rk, rv);
+            __syncthreads();
+            if (L.nst == 1 && u + 1 < NU) {
+                issue_piece(u + 1, r_end);
+                cp_async_commit();
+                if (next_tile) {
+                    scales_load(t + 1, r_end, rk, rv);
+                    scales_store(t + 1, rk, rv);
+                }
+            }
         }
-        if (wr < TRt) compute(t);  // a 32-row tile: warps 0 and 1
-        if (ahead) scales_store(t + 1, rk, rv);
-        __syncthreads();
-        if (L.nst == 1 && t + 1 < ntiles) {
-            issue(t + 1, r_end);
-            cp_async_commit();
-            scales_load(t + 1, r_end, rk, rv);
-            scales_store(t + 1, rk, rv);
+    } else {
+        for (int t = 0; t < ntiles; ++t) {
+            const bool ahead = L.nst == 2 && t + 1 < ntiles;
+            float rk = 0.f, rv = 0.f;
+            if (ahead) {
+                issue(t + 1, r_end);
+                cp_async_commit();
+                scales_load(t + 1, r_end, rk, rv);
+                cp_async_wait<1>();
+            } else {
+                cp_async_wait<0>();
+            }
+            __syncthreads();
+            if (t == 0 && r_begin + TRt > r_end) {  // V rows past the history: 0
+                uint8_t* vt = stage_of(0) + TRt * L.hp;
+                const int n8 = L.hp / 8;  // hp is a multiple of 8
+                for (int i = (r_end - r_begin) * n8 + tid; i < TRt * n8; i += blockDim.x)
+                    *reinterpret_cast<uint2*>(vt + 8 * i) = make_uint2(0, 0);
+                __syncthreads();
+            }
+            if (wr < TRt) compute(t);  // a 32-row tile: warps 0 and 1
+            if (ahead) scales_store(t + 1, rk, rv);
+            __syncthreads();
+            if (L.nst == 1 && t + 1 < ntiles) {
+                issue(t + 1, r_end);
+                cp_async_commit();
+                scales_load(t + 1, r_end, rk, rv);
+                scales_store(t + 1, rk, rv);
+            }
         }
     }
     cp_async_wait<0>();
@@ -642,7 +774,10 @@ flash_decode_kernel(const Args a) {
     float* mml = fsum + MAXNS * GB;                       // (16, 2)
     float* newv = mml + GB * 2;                           // (2, D)
     int* code = reinterpret_cast<int*>(newv + 2 * D);     // (2, D)
-    float* sself = reinterpret_cast<float*>(code + 2 * D);  // (16)
+    // the streamed instance keeps no newv and the codes as int8 (2, D)
+    int8_t* code8 = reinterpret_cast<int8_t*>(mml + GB * 2);
+    float* sself = STREAM ? reinterpret_cast<float*>(code8 + ((2 * D + 15) & ~15))
+                          : reinterpret_cast<float*>(code + 2 * D);  // (16)
     float* amax = sself + GB;                             // (2)
     // every split's (max, sum) in one round of loads, then its factor
     for (int i = tid; i < n_live * Gb; i += blockDim.x) {
@@ -672,16 +807,26 @@ flash_decode_kernel(const Args a) {
     const __nv_bfloat16* kn = reinterpret_cast<const __nv_bfloat16*>(nrow);
     const __nv_bfloat16* vn = kn + D;
     constexpr float QMAX = KIND == Q4_SCORE ? 7.f : 127.f;
+    // element i of the new (k, v) rows, 0 <= i < 2 D: as this step gives it
+    // (raw), and as the cache will hold it (nv)
+    auto raw = [&](int i) { return STREAM ? bf2f(kn[i]) : newv[i]; };
+    auto nv = [&](int i) {
+        if (!STREAM) return newv[i];
+        if (!SCALED) return bf2f(kn[i]);
+        return bf2f(f2bf(__fmul_rn((float)code8[i], bf2f(f2bf(amax[i / D] / QMAX)))));
+    };
     if (self) {  // the new row as the cache will hold it, and its self scores
-        for (int d = tid; d < D; d += blockDim.x) {
-            newv[d] = bf2f(kn[d]);
-            newv[D + d] = bf2f(vn[d]);
+        if (!STREAM) {
+            for (int d = tid; d < D; d += blockDim.x) {
+                newv[d] = bf2f(kn[d]);
+                newv[D + d] = bf2f(vn[d]);
+            }
+            __syncthreads();
         }
-        __syncthreads();
         if (SCALED) {
             if (warp < 2) {  // warp 0: k's amax, warp 1: v's
                 float am = 0.f;
-                for (int d = lane; d < D; d += 32) am = fmaxf(am, fabsf(newv[warp * D + d]));
+                for (int d = lane; d < D; d += 32) am = fmaxf(am, fabsf(raw(warp * D + d)));
                 am = warp_max(am);
                 if (lane == 0) amax[warp] = am;
             }
@@ -690,17 +835,21 @@ flash_decode_kernel(const Args a) {
                 const int w = i / D;
                 const float sc = amax[w] / QMAX;
                 const float inv = sc > 0.f ? 1.f / sc : 0.f;
-                float c = rintf(__fmul_rn(newv[i], inv));
+                float c = rintf(__fmul_rn(raw(i), inv));
                 if (KIND == Q4_SCORE) c = fminf(fmaxf(c, -8.f), 7.f);
-                code[i] = (int)c;
-                newv[i] = bf2f(f2bf(__fmul_rn(c, bf2f(f2bf(sc)))));
+                if (STREAM) {
+                    code8[i] = (int8_t)c;
+                } else {
+                    code[i] = (int)c;
+                    newv[i] = bf2f(f2bf(__fmul_rn(c, bf2f(f2bf(sc)))));
+                }
             }
             __syncthreads();
         }
         for (int g = warp; g < Gb; g += NW) {
             const __nv_bfloat16* qg = reinterpret_cast<const __nv_bfloat16*>(qs + g * L.qp);
             float sc = 0.f;
-            for (int d = lane; d < D; d += 32) sc += bf2f(qg[d]) * newv[d];
+            for (int d = lane; d < D; d += 32) sc += bf2f(qg[d]) * nv(d);
             sc = warp_sum(sc) * a.scale;
             if (a.softcap > 0.f) sc = a.softcap * tanhf(sc / a.softcap);
             if (lane == 0) sself[g] = sc;
@@ -715,7 +864,7 @@ flash_decode_kernel(const Args a) {
         const float m_new = fmaxf(mm, ss);
         const float alpha = expf(mm - m_new);
         const float p_self = expf(ss - m_new);
-        return (sacc * alpha + p_self * newv[D + c0 + d]) / (ll * alpha + p_self);
+        return (sacc * alpha + p_self * nv(D + c0 + d)) / (ll * alpha + p_self);
     };
     float* const outg = a.out + (((size_t)b * a.Hkv + kvh) * a.G + g0) * D + c0;
     if (D % 4 == 0) {
@@ -771,19 +920,20 @@ flash_decode_kernel(const Args a) {
         }
         return;
     }
+    auto cd = [&](int i) { return STREAM ? (int)code8[i] : code[i]; };
     if (KIND == Q4_SCORE) {  // plane-split: byte i = code i | code i+D/2 << 4
         const int D2 = D / 2;
         for (int i = tid; i < 2 * D2; i += blockDim.x) {
             const int w = i / D2, j = i % D2;
             uint8_t* dst = (w == 0 ? a.kc : a.vc) + r * a.Hkv * D2 + (size_t)kvh * D2;
-            dst[j] = (uint8_t)((code[w * D + j] + 8) | ((code[w * D + j + D2] + 8) << 4));
+            dst[j] = (uint8_t)((cd(w * D + j) + 8) | ((cd(w * D + j + D2) + 8) << 4));
         }
     } else {
         for (int i = tid; i < 2 * D; i += blockDim.x) {
             const int w = i / D, d = i % D;
             int8_t* dst = reinterpret_cast<int8_t*>(w == 0 ? a.kc : a.vc)
                           + r * a.Hkv * D + (size_t)kvh * D;
-            dst[d] = (int8_t)code[i];
+            dst[d] = (int8_t)cd(i);
         }
     }
     if (tid < 2) (tid == 0 ? a.ksc : a.vsc)[r * a.Hkv + kvh] = f2bf(amax[tid] / QMAX);
@@ -793,6 +943,7 @@ template <int KIND, int DMAX, int DK>
 static cudaError_t launch_dmax(const Args& a, int nsplit, cudaStream_t st) {
     static int allowed = 48 * 1024;  // dynamic shared memory allowed so far
     const int bytes = Plan(KIND, a.D).total;
+    if (bytes > SMEM_MAX) return cudaErrorInvalidValue;
     if (bytes > allowed) {
         const cudaError_t e = cudaFuncSetAttribute(
             flash_decode_kernel<KIND, DMAX, DK>,

@@ -31,9 +31,11 @@ architectures' trees convert by the same walk: the recurrent models'
 BERT family's and T5's "layers" / "enc_layers" / "dec_layers" (relative
 bias tables, norms and biases as plain arrays), every packed weight as
 above (tests/test_torch_recurrent.py, test_torch_encoders.py). The flat
-CLIP / LLaVA-projector and Whisper trees (tensor name -> f32 array, the
-JAX `load_clip` / `load_whisper` params) come across as the loaders' f32
-tensors (tests/test_torch_vision.py, test_torch_whisper.py).
+CLIP / LLaVA-projector, Whisper, Stable Diffusion and TAESD trees (tensor
+name -> f32 array, the JAX `load_clip` / `load_whisper` /
+`init_random_sd_params` / `load_sd` / `load_taesd` params) come across as
+the loaders' f32 tensors (tests/test_torch_vision.py,
+test_torch_whisper.py, test_torch_sd.py, test_torch_sdxl.py).
 """
 from __future__ import annotations
 

@@ -914,3 +914,35 @@ def synthetic_whisper(cfg=None, ffn: int = 3072, seed: int = 0,
         p.update(attn(f"dec.{i}.cross"))
         p.update(ffn_block(f"dec.{i}.ffn"))
     return WhisperModel(cfg, p, None, dev)
+
+
+# stable-diffusion-xl-base-1.0's widths (its diffusers unet / text_encoder /
+# text_encoder_2 / vae config.json): UNet 320 x (1, 2, 4) with transformer
+# depth (0, 2, 10) in heads of 64 and linear projections, the
+# add_embedding of the pooled bigG output plus six 256-wide time ids;
+# CLIP-L (12 x 768) beside OpenCLIP-bigG (32 x 1280, 20 heads, projection
+# 1280); the VAE as SD 1.5's
+SDXL_BASE = dict(
+    channel_mult=(1, 2, 4), attn_levels=(1, 2), transformer_depth=(0, 2, 10),
+    attn_head_dim=64, linear_proj=True, context_dim=2048,
+    add_embed_dim=1280 + 6 * 256, pooled_dim=1280, text2_dim=1280,
+    text2_layers=32, text2_heads=20)
+
+
+def synthetic_sd(cfg=None, seed: int = 0, device=None, scale: float = 0.02):
+    """An SDModel (models/sd.py) with f32 tensors drawn on the device by a
+    seeded torch.Generator in `init_random_sd_params`' layout (weights
+    N(0, scale), norms (1, 0), biases 0): default SD 1.5's widths
+    (`SDConfig`'s defaults: runwayml/stable-diffusion-v1-5's UNet 320 x (1,
+    2, 4, 4), 8 heads, context 768; CLIP ViT-L/14's text tower; the VAE at
+    128 x (1, 2, 4, 4); ~1.07 G parameters, 4.3 GB), or
+    `SDConfig(**SDXL_BASE)` (~3.5 G, 14 GB). No tokenizer: every prompt
+    encodes as the JAX pipeline's token-free one."""
+    from .sd import SDConfig, SDModel, _sd_layout
+
+    cfg = cfg or SDConfig()
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = _sd_layout(cfg, {}, lambda shape: _normal_on(gen, dev, *shape,
+                                                          s=scale), dev)
+    return SDModel(cfg, params, None, dev)

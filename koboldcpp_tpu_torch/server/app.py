@@ -1,7 +1,6 @@
 """HTTP API server: the text, vision and speech endpoints.
 
-Port of koboldcpp_tpu/server/app.py, less its Stable Diffusion routes:
-KoboldAI
+Port of koboldcpp_tpu/server/app.py: KoboldAI
 `/api/v1/*` + `/api/extra/*`, OpenAI `/v1/completions` and
 `/v1/chat/completions`, ollama `/api/tags`, the embedded KoboldAI Lite page
 at `/` and a no-script form at `/noscript`, API docs at `/api`, `/v1` and
@@ -16,8 +15,13 @@ prompt, and `/sdapi/v1/interrogate` captions an image (LLaVA). With a
 Whisper model (`ServerSettings.whisper_model`), `/api/extra/transcribe`
 and `/v1/audio/transcriptions` transcribe a WAV (JSON `audio_data` /
 `file` in base64, or a multipart `file`) off the event loop; 503 without
-one. The Stable Diffusion routes (`/sdapi/v1/txt2img`, `img2img`) are not
-ported yet.
+one. With a Stable Diffusion model (`ServerSettings.sd_model`,
+models/sd.py), the A1111 `/sdapi/v1/txt2img` and `/sdapi/v1/img2img`
+generate a PNG off the event loop (503 without one; resolution and steps
+clamped as upstream, tighter under `sd_clamped`), beside the A1111
+discovery routes (`sd-models`, `options`, `samplers`,
+`latent-upscale-modes`, `upscalers`) and the embedded image page at
+`/sdui`.
 
 asyncio (aiohttp) frontend. With the continuous-batching engine
 (`BatchedEngine`, `--multiuser N`), requests are submitted to it and
@@ -54,6 +58,8 @@ class ServerSettings:
     preloaded_story: Any = None  # --preloadstory JSON
     quiet: bool = False
     whisper_model: Any = None  # models.whisper.WhisperModel
+    sd_model: Any = None  # models.sd.SDModel
+    sd_clamped: int = 0  # clamp SD res/steps for shared hosting (--sdclamped)
 
 
 @dataclass
@@ -323,7 +329,7 @@ def make_app(engine: Engine, settings: ServerSettings | None = None) -> web.Appl
     async def get_extra_version(request):
         return _json({"result": "KoboldCpp", "version": KCPP_VERSION,
                       "protected": bool(settings.password),
-                      "txt2img": False,
+                      "txt2img": settings.sd_model is not None,
                       "vision": getattr(state.engine, "clip", None) is not None,
                       "transcribe": settings.whisper_model is not None,
                       "multiplayer": False})
@@ -369,19 +375,49 @@ def make_app(engine: Engine, settings: ServerSettings | None = None) -> web.Appl
     def _html(text: str):
         return _cors(web.Response(text=text, content_type="text/html"))
 
-    async def get_root(request):
-        # the embedded chat / story page (upstream serves KoboldAI Lite at /)
-        path = os.path.join(os.path.dirname(__file__), "static", "lite.html")
+    def _static_page(name: str) -> str | None:
+        path = os.path.join(os.path.dirname(__file__), "static", name)
         try:
             with open(path, encoding="utf-8") as f:
-                return _html(f.read())
+                return f.read()
         except OSError:
-            return _html(
-                "<html><head><title>koboldcpp-tpu</title></head><body>"
-                f"<h1>koboldcpp-tpu {KCPP_VERSION}</h1>"
-                f"<p>Model: {settings.model_name}</p>"
-                "<p>API docs at <a href='/api'>/api</a>. "
-                "Use /noscript for a minimal chat UI.</p></body></html>")
+            return None
+
+    async def get_sdui(request):
+        # the embedded image page (upstream serves StableUI at /sdui)
+        return _html(_static_page("sdui.html")
+                     or "<html><body>no UI</body></html>")
+
+    async def get_sd_models(request):
+        return _json([{"title": "stable_diffusion",
+                       "model_name": "stable_diffusion", "hash": "8888888888",
+                       "sha256": "", "filename": "", "config": None}])
+
+    async def get_sd_options(request):
+        return _json({"samples_format": "png",
+                      "sd_model_checkpoint": "stable_diffusion"})
+
+    async def get_sd_samplers(request):
+        return _json([{"name": n, "aliases": [n], "options": {}} for n in
+                      ["Euler a", "Euler", "Heun", "DPM2", "DPM++ 2S a",
+                       "DPM++ 2M", "iPNDM", "iPNDM_v", "LCM"]])
+
+    async def get_sd_upscale_modes(request):
+        return _json([{"name": "None"}])
+
+    async def get_sd_upscalers(request):
+        return _json([{"name": "None", "model_name": None, "model_path": None,
+                       "scale": 1}])
+
+    async def get_root(request):
+        # the embedded chat / story page (upstream serves KoboldAI Lite at /)
+        return _html(
+            _static_page("lite.html")
+            or "<html><head><title>koboldcpp-tpu</title></head><body>"
+            f"<h1>koboldcpp-tpu {KCPP_VERSION}</h1>"
+            f"<p>Model: {settings.model_name}</p>"
+            "<p>API docs at <a href='/api'>/api</a>. "
+            "Use /noscript for a minimal chat UI.</p></body></html>")
 
     async def get_noscript(request):
         return _html("<html><body><h2>koboldcpp-tpu</h2>"
@@ -595,6 +631,97 @@ def make_app(engine: Engine, settings: ServerSettings | None = None) -> web.Appl
     r.add_post("/api/extra/abort", abort)
     r.add_post("/api/extra/generate/check", check)
     r.add_get("/api/extra/generate/check", check)
+    def _png_b64(img) -> str:
+        import base64
+        import io
+
+        from PIL import Image
+
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="PNG")
+        return base64.b64encode(buf.getvalue()).decode()
+
+    def _clamp_sd(width: int, height: int, steps: int) -> tuple[int, int, int]:
+        """Resolution / step clamps (upstream koboldcpp.py:1120-1138;
+        --sdclamped shrinks proportionally to a multiple of 64 for shared
+        hosting)."""
+        steps = max(1, min(80, steps))
+        width, height = max(64, width), max(64, height)
+        reslimit = 1024
+        if settings.sd_clamped:
+            steps = min(40, steps)
+            reslimit = max(512, int(settings.sd_clamped))
+        biggest = max(width, height)
+        if biggest > reslimit:
+            scaler = biggest / reslimit
+            width = int(width / scaler) // 64 * 64
+            height = int(height / scaler) // 64 * 64
+        return width, height, steps
+
+    def _no_sd():
+        return _json({"detail": {"msg": "No SD model loaded",
+                                 "type": "service_unavailable"}}, status=503)
+
+    async def txt2img(request):
+        """A1111 txt2img (upstream sd_generate)."""
+        if settings.sd_model is None:
+            return _no_sd()
+        body = await _read_json(request)
+        width, height, steps = _clamp_sd(int(body.get("width", 512)),
+                                         int(body.get("height", 512)),
+                                         int(body.get("steps", 20)))
+        img = await asyncio.get_running_loop().run_in_executor(
+            None, lambda: settings.sd_model.txt2img(
+                str(body.get("prompt", "")),
+                negative_prompt=str(body.get("negative_prompt", "")),
+                width=width, height=height, steps=steps,
+                cfg_scale=float(body.get("cfg_scale", 7.0)),
+                sampler=str(body.get("sampler_name", "Euler a")),
+                seed=int(body.get("seed", -1))))
+        return _json({"images": [_png_b64(img)], "parameters": body,
+                      "info": ""})
+
+    async def img2img(request):
+        """A1111 img2img: the first of `init_images` (base64, a data: URL
+        prefix dropped) encoded by the VAE, then txt2img from part-way down
+        the sigma ladder (`denoising_strength`)."""
+        if settings.sd_model is None:
+            return _no_sd()
+        body = await _read_json(request)
+        init = (body.get("init_images") or [""])[0]
+        import base64
+        import io
+
+        import numpy as np
+        from PIL import Image
+
+        try:
+            raw = base64.b64decode(init.split(",")[-1])
+            im = np.asarray(Image.open(io.BytesIO(raw)).convert("RGB"),
+                            np.uint8)
+        except Exception as e:
+            return _json({"detail": {"msg": f"bad init image: {e}",
+                                     "type": "bad_request"}}, status=400)
+        img = await asyncio.get_running_loop().run_in_executor(
+            None, lambda: settings.sd_model.img2img(
+                im, str(body.get("prompt", "")),
+                denoise=float(body.get("denoising_strength", 0.75)),
+                negative_prompt=str(body.get("negative_prompt", "")),
+                steps=int(body.get("steps", 20)),
+                cfg_scale=float(body.get("cfg_scale", 7.0)),
+                sampler=str(body.get("sampler_name", "Euler a")),
+                seed=int(body.get("seed", -1))))
+        return _json({"images": [_png_b64(img)], "parameters": body,
+                      "info": ""})
+
+    r.add_get("/sdui", get_sdui)
+    r.add_get("/sdapi/v1/sd-models", get_sd_models)
+    r.add_get("/sdapi/v1/options", get_sd_options)
+    r.add_get("/sdapi/v1/samplers", get_sd_samplers)
+    r.add_get("/sdapi/v1/latent-upscale-modes", get_sd_upscale_modes)
+    r.add_get("/sdapi/v1/upscalers", get_sd_upscalers)
+    r.add_post("/sdapi/v1/txt2img", txt2img)
+    r.add_post("/sdapi/v1/img2img", img2img)
     r.add_post("/sdapi/v1/interrogate", interrogate)
     r.add_post("/api/extra/transcribe", transcribe)
     r.add_post("/v1/audio/transcriptions", transcribe)

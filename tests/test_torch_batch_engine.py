@@ -441,6 +441,10 @@ def test_cli_multiuser(capsys, monkeypatch):
                      "--promptlimit", "2"]) == 0
     assert len(built) == n_built
     assert "continuous batching is unavailable" in capsys.readouterr().out
-    with pytest.raises(SystemExit) as e:
-        cli.main([FIX, "--multiuser", "4", "--sdmodel", "x"])
-    assert e.value.code == 2 and "--sdmodel" in capsys.readouterr().err
+    # --sdmodel is served beside --multiuser: a missing SD file is skipped
+    # under --ignoremissing and the batched one-shot run goes on
+    assert cli.main([FIX, "--device", "cpu", "--contextsize", "128",
+                     "--multiuser", "4", "--sdmodel", "x", "--ignoremissing",
+                     "--prompt", PROMPTS[1], "--promptlimit", "2"]) == 0
+    assert "--ignoremissing: skipping missing sdmodel x" in \
+        capsys.readouterr().out

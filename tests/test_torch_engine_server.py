@@ -124,14 +124,16 @@ def test_abort_mid_generation(engine):
 def test_cli_one_shot_and_unserved_flag(capsys):
     from koboldcpp_tpu_torch import cli
 
-    # flags of paths the port has not got (TP mesh, stable diffusion)
-    for flag in ("--mesh", "--sdmodel"):
-        with pytest.raises(SystemExit) as e:
-            cli.main([FIX, flag, "1"])
-        assert e.value.code == 2 and flag in capsys.readouterr().err
+    # a flag of a path the port has not got (TP mesh) exits naming it
+    with pytest.raises(SystemExit) as e:
+        cli.main([FIX, "--mesh", "1"])
+    assert e.value.code == 2 and "--mesh" in capsys.readouterr().err
+    # --sdmodel is served: a missing file is skipped under --ignoremissing
     assert cli.main([FIX, "--device", "cpu", "--contextsize", "256",
-                     "--prompt", PROMPT, "--promptlimit", "4"]) == 0
-    assert "on cpu" in capsys.readouterr().out
+                     "--prompt", PROMPT, "--promptlimit", "4",
+                     "--sdmodel", "1", "--ignoremissing"]) == 0
+    out = capsys.readouterr().out
+    assert "on cpu" in out and "skipping missing sdmodel 1" in out
 
 
 async def test_generate_is_deterministic(client):

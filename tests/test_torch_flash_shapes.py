@@ -34,9 +34,11 @@ PADDED = [(16, 16, 72), (8, 1, 512)]
 PADDED_IDS = ["d72", "d512"]
 # head_dims JAX sends to its kernels (Hkv * D % 128 == 0) that are not a
 # multiple of 8, or above 512: the card's pieces narrower than 16 bytes,
-# and output columns in chunks of 256
-REPAIRED = [(32, 32, 20), (32, 32, 36), (1, 1, 640)]
-REPAIRED_IDS = ["d20", "d36", "d640"]
+# and the streamed instance (output columns in chunks of 128, K and V rows
+# in pieces of 128 columns) at 640 and past the old limit of 1024
+REPAIRED = [(32, 32, 20), (32, 32, 36), (1, 1, 640), (1, 1, 1152),
+            (1, 1, 2048)]
+REPAIRED_IDS = ["d20", "d36", "d640", "d1152", "d2048"]
 B, S = 2, 64
 P, NP, MP = 8, 40, 8  # pool pages of P rows, MP pages per sequence
 
@@ -201,20 +203,23 @@ def _cfg(H, Hkv, D):
 def test_check_supported_admits_on_the_card(H, HKV, D):
     """On a CUDA device (only its type is read: no card needed) the head
     shapes JAX's flash decode takes pass; the card serves them: every
-    head_dim up to 1024."""
+    head_dim up to MAX_HEAD_DIM (4800)."""
     tllama.check_supported({"layers": [{}]}, _cfg(H, HKV, D), "cuda")
     tfd.check_kernel_shape(H, HKV, D)
 
 
 @pytest.mark.parametrize("H, HKV, D", [(32, 32, 20), (8, 1, 640),
-                                        (64, 32, 36), (1, 1, 1152)])
+                                        (64, 32, 36), (1, 1, 1152),
+                                        (1, 1, 2048), (1, 1, 4864)])
 def test_check_supported_raises_only_where_jax_serves_what_the_card_cannot(
         H, HKV, D):
-    """The one limit left: head_dim up to 1024. The head_dims that are
-    not a multiple of 8 (20, 36) and those between 512 and 1024 (640), each
-    with Hkv * D % 128 == 0 so that JAX's `supported_batched` sends them to
-    its kernels, are admitted on the card now; a head_dim past 1024 (1152,
-    which JAX's kernel also takes) still raises there, naming the kernel.
+    """The one limit left: head_dim up to MAX_HEAD_DIM (4800), the widest
+    whose Q rows and streamed K / V pieces fit a block. The head_dims that
+    are not a multiple of 8 (20, 36) and those past 512 (640, and 1152 and
+    2048 past the old limit of 1024), each with Hkv * D % 128 == 0 so that
+    JAX's `supported_batched` sends them to its kernels, are admitted on the
+    card now; a head_dim past 4800 (4864, which JAX's kernel also takes)
+    still raises there, naming the kernel.
     Shapes that JAX's `supported_batched` refuses (Hkv * D % 128 != 0) take
     the plain attention in both packages, so check_supported admits them.
     Every shape passes on the CPU."""
@@ -326,12 +331,13 @@ def test_wrappers_cut_every_kind_at_the_same_rows(monkeypatch):
 @pytest.mark.parametrize("H, HKV, D", REPAIRED, ids=REPAIRED_IDS)
 def test_decode_plan_and_scratch_at_the_repaired_head_dims(monkeypatch, H,
                                                             HKV, D):
-    """At head_dim 20, 36 and 640 every kind is launched (a recording
-    library in place of the CUDA one) from the library that holds its
-    instances (past 256: csrc/flash_decode_wide.cu's) with decode_plan's
-    split, which does not read D, and a scratch of (units, nsplit, 16,
-    columns a chunk): D itself below 512, chunks of 256 past it (640:
-    three, the last of 128 columns), so the units count the chunks."""
+    """At head_dim 20, 36, 640, 1152 and 2048 every kind is launched (a
+    recording library in place of the CUDA one) from the library that
+    holds its instances (past 256: csrc/flash_decode_wide.cu's) with
+    decode_plan's split, which does not read D, and a scratch of (units,
+    nsplit, 16, columns a chunk): D itself below 512, chunks of 128 past it
+    (640: five; 1152: nine; 2048: sixteen), so the units count the
+    chunks."""
     from koboldcpp_tpu_torch.ops import _build
 
     lib = _FakeLib()
@@ -370,7 +376,7 @@ def test_decode_plan_and_scratch_at_the_repaired_head_dims(monkeypatch, H,
     assert sources == {"flash_decode_wide" if D > 256 else "flash_decode"}
     assert "flash_decode_wide" in _build.SOURCES
     nc, dc = tfd.col_chunks(D)
-    assert (nc, dc) == ((3, 256) if D == 640 else (1, D))
+    assert (nc, dc) == ((-(-D // 128), 128) if D > 512 else (1, D))
     assert (nc - 1) * dc < D <= nc * dc
     (acc, ml, tickets), _ = next(iter(tfd._SCRATCH.values()))
     units = Bq * HKV * -(-(H // HKV) // tfd.HEAD_GROUP) * nc
@@ -398,3 +404,54 @@ def test_entry_points_are_cached_per_library(monkeypatch):
                                    libs["flash_decode"],
                                    libs["flash_decode_wide"]]
     assert got[1][1] is libs["flash_decode_wide"].k5_flash_decode
+
+
+def _plan_bytes(kind: int, D: int) -> int:
+    """A block's shared memory in csrc/flash_decode.cu (`Plan`): the Q
+    tile and this step's rows, then the larger of the tile stages (past
+    512: two pieces of 128 columns, K10's as int8 codes, and two tiles'
+    scales) and the combine plus the merge's tables, at 64, 32 or 16 rows
+    a tile."""
+    def head(k, d):
+        return {0: 2 * d, 1: d, 2: d, 3: d // 2, 4: 4 * d}[k]
+    stream = D > 512
+    Dp = -(-D // 16) * 16
+    dc = 128 if stream else D
+    hp = (head(2 if kind == 3 else kind, 128) if stream
+          else head(kind, Dp)) + 16
+    q_bytes = 16 * (2 * Dp + 16) + -(-4 * D // 16) * 16
+    merge = (2 * 256 * 16 * 4 + 16 * 2 * 4 + 16 * 4 + 16
+             + (-(-2 * D // 16) * 16 if stream else 2 * D * 8))
+    for tr in (64, 32, 16):
+        stage = tr * hp if stream else 2 * tr * hp + 2 * tr * 4
+        nst = 2 if 2 * stage <= 96 * 1024 else 1
+        comb = (tr // 16) * 16 * dc * 4 + (tr // 16) * 16 * 8 + 16 * dc * 4 + 128
+        total = q_bytes + max(nst * stage + (16 * tr if stream else 0),
+                              comb + merge)
+        if total <= 232448:
+            break
+    return total
+
+
+def test_max_head_dim_is_the_widest_plan_that_fits():
+    """MAX_HEAD_DIM is csrc/flash_decode.cu's MAXD and the widest head_dim
+    at which a block's plan (a replica of `Plan`) fits its 227 KB for
+    every cache kind (K10 at even head_dims): 4800, with the Q tile held
+    whole and the K / V rows streamed in pieces of 128 columns. The old
+    limit, 1024, and the 1.1B's 64 fit at 64 rows a tile."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(tfd.__file__), "..", "csrc",
+                            "flash_decode.cu")).read()
+    assert int(re.search(r"constexpr int MAXD = (\d+);", src).group(1)) \
+        == tfd.MAX_HEAD_DIM
+    assert int(re.search(r"constexpr int DCH = (\d+);", src).group(1)) \
+        == tfd.COL_CHUNK
+
+    def fits(D):
+        return all(_plan_bytes(k, D) <= 232448 for k in range(5)
+                   if not (k == 3 and D % 2))
+    assert all(fits(D) for D in range(1, tfd.MAX_HEAD_DIM + 1))
+    assert not fits(tfd.MAX_HEAD_DIM + 1)
+    assert tfd.MAX_HEAD_DIM >= 4096

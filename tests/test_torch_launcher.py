@@ -34,12 +34,13 @@ SERVED = ["--model", "--lora", "--loramult", "--port", "--host",
           "--nocontextshift", "--noshift", "--smartcontext",
           "--nofastforward", "--ropeconfig", "--paged", "--pagesize",
           "--ssl", "--nocertify", "--onready", "--launch", "--nomodel",
-          "--ignoremissing", "--mmproj", "--whispermodel", *cli.COMPAT_FLAGS]
-UNSERVED = {"--sdmodel": ["x"], "--sdtaesd": ["x"], "--sdvaeauto": [],
-            "--hordekey": ["k"], "--remotetunnel": [], "--mesh": ["1,8"],
+          "--ignoremissing", "--mmproj", "--whispermodel", "--sdmodel",
+          "--sdtaesd", "--sdvaeauto", "--sdvae", "--sdlora", "--sdloramult",
+          "--sdclamped", *cli.COMPAT_FLAGS]
+UNSERVED = {"--hordekey": ["k"], "--remotetunnel": [], "--mesh": ["1,8"],
             "--pipeline": ["2"], "--seqparallel": ["2"],
             "--coordinator": ["h:1"], "--numprocesses": ["2"],
-            "--processid": ["1"], "--sdvae": ["x"], "--sdlora": ["x"]}
+            "--processid": ["1"]}
 
 
 def _actions(parser):

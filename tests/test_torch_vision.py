@@ -398,7 +398,8 @@ def test_recurrent_branch_refuses_images(port_pair):
 # ---------------------------------------------------------------------------
 
 async def test_vision_routes(port_pair, aiohttp_client):
-    """/api/extra/version says vision; /sdapi/v1/interrogate captions (the
+    """/api/extra/version says vision (and txt2img with an SD model only);
+    /sdapi/v1/interrogate captions (the
     LLaVA prompt with the image, 503 without a vision model); an OpenAI
     chat request's image_url data part reaches GenParams.images."""
     from koboldcpp_tpu_torch.engine import Engine
@@ -416,7 +417,17 @@ async def test_vision_routes(port_pair, aiohttp_client):
     client = await aiohttp_client(make_app(eng, ServerSettings()))
     v = await (await client.get("/api/extra/version")).json()
     assert v["vision"] is True and v["transcribe"] is False
-    assert v["txt2img"] is False
+    assert v["txt2img"] is False  # no SD model
+    from koboldcpp_tpu_torch.models import sd as tsd
+    from .test_sd import TINY
+    from .test_torch_sd import port_cfg
+
+    sd = tsd.SDModel(port_cfg(TINY), tsd.init_random_sd_params(
+        port_cfg(TINY)), device="cpu")
+    sd_client = await aiohttp_client(make_app(eng, ServerSettings(
+        sd_model=sd)))
+    v = await (await sd_client.get("/api/extra/version")).json()
+    assert v["txt2img"] is True and v["vision"] is True
     b64 = png_b64(seed=5)
     r = await client.post("/sdapi/v1/interrogate",
                           json={"image": b64, "max_length": 4})

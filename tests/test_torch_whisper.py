@@ -257,7 +257,7 @@ class _Served(Exception):
 def test_cli_loads_mmproj_and_whisper(wpath, tmp_path, monkeypatch, capsys):
     """--mmproj and --whispermodel load into the engine and the settings
     (single-stream and --multiuser); --ignoremissing skips a missing one;
-    --sdmodel still exits with argparse's error naming it."""
+    --sdmodel loads beside them into the server settings."""
     from koboldcpp_tpu_torch.engine.batch_engine import BatchedEngine
     from .test_torch_vision import _write_clip
 
@@ -288,9 +288,18 @@ def test_cli_loads_mmproj_and_whisper(wpath, tmp_path, monkeypatch, capsys):
     assert "skipping missing whispermodel" in out
     assert seen["engine"].clip is None
     assert seen["settings"].whisper_model is None
-    with pytest.raises(SystemExit) as e:
-        cli.main(base + ["--sdmodel", "x"])
-    assert e.value.code == 2 and "--sdmodel" in capsys.readouterr().err
+    from koboldcpp_tpu_torch.models import sd as tsd
+    from .test_sd import TINY
+    from .test_torch_sd import port_cfg, write_sd_gguf
+
+    sd = write_sd_gguf(str(tmp_path / "sd.gguf"), {
+        k: v.numpy() for k, v in tsd.init_random_sd_params(
+            port_cfg(TINY)).items()})
+    with pytest.raises(_Served):
+        cli.main(base + ["--whispermodel", wpath, "--sdmodel", sd])
+    assert seen["settings"].whisper_model is not None
+    assert seen["settings"].sd_model.cfg == port_cfg(TINY)
+    assert "Loading SD model" in capsys.readouterr().out
 
 
 def test_params_from_jax_and_the_synthetic_maker(pair, wpath):
