@@ -54,9 +54,9 @@
    versions, bit for bit; then the scan decode path's kernels: every body
    of the layer-stacked matvecs K17a (q4_k int8 and bf16, q5_k) and K17b
    (q6_k, q8_0, q2_k and q3_k each int8 and bf16, and the four IQ
-   kinds) on 4 stacked layers at the 1.1B's layer shapes (and the output
+   kinds) on 2 stacked layers at the 1.1B's layer shapes (and the output
    head's for q4_k and q8_0), bit for bit the per-layer K1 / K2 / K12 on
-   layers 0 and 3; the pooled-row flash decode K17c over a 22-layer pool
+   layers 0 and 1; the pooled-row flash decode K17c over a 22-layer pool
    (B = 1 and 8, head_dim 64 and 128, one dead slot, a bf16 and an f32
    pool), bit for bit K5 on the window's views at layers 0 and 21 with
    every other row unchanged; K5 over an f32 cache; K16 (S = 256 and 2048,
@@ -125,6 +125,14 @@
    decode step 89 K14, no K7 or K3): 8 / 16 concurrent greedy requests of
    8 new tokens, each getting the tokens it gets alone through the same
    engine; per-step launches read by wrapping models.llama.forward;
+4a. parallel serving (`phase_parallel`, after the scan decode phase): two
+   ranks on this one card over gloo (the second a child process), the
+   1.1B Q4_K_M drawn on the card, a 300-token prompt and 32 greedy tokens
+   under tp=2 (K1 / K2 / K3 / K4 / K5 on each rank's shard shapes, no
+   dequant call, wk and wv the only weights kept whole), then the same
+   under pp=2 and sp=2, each reply the unsharded engine's (near-ties
+   apart), both ranks' launches counted; a world-1
+   NCCL group's all_reduce / all_gather / broadcast;
 5. serves tests/fixtures/refgguf/tiny-q4_k_m.gguf over HTTP in-process,
    single-stream (checks that K2 ran) and with multiuser=4 (4 concurrent
    requests, each getting the reply it gets alone), each also with
@@ -209,9 +217,10 @@
    temperature ladder) and one /api/extra/transcribe request; the K5 /
    K6 / K8 / K9 / K10 cases above also take the head_dims 20, 36 and 640
    (`REPAIRED_SHAPES`: pieces narrower than 16 bytes, output columns in
-   chunks), and K5 / K6 also 1152 and 2048, K8 / K9 / K10 / K16 / K17c
-   1152 (`STREAMED_SHAPE`: the streamed instance past head_dim 512, K and V
-   rows in pieces of 128 columns);
+   chunks), and K5 / K6 also 1152, 2048, 4864 and 8192, K8 / K9 / K10 /
+   K16 / K17c 1152, 4864 and 8192 (`STREAMED_SHAPES`: the streamed
+   instance past head_dim 512, Q, K and V rows in pieces of 128 columns;
+   4864 and 8192, `WIDE_SHAPES`, past the old limit of 4800);
 8b. the recurrent, embedding and encoder-decoder models
    (`phase_served_text`, `phase_text_decode`, `phase_embed`, after the MLA
    phase): the tiny text fixtures of tests/fixtures/portgguf/text.json
@@ -1206,13 +1215,16 @@ HEAD_SHAPES = ((32, 8, 80), (32, 32, 96), (16, 8, 256), (128, 8, 128),
 # beyond a multiple of 8 up to 512: 20 and 36 (a head's bytes not a
 # multiple of 16: narrower pieces, Q and the new rows by plain loads) and
 # 640, 1152 and 2048 (the streamed instance: output columns in chunks of
-# 128, K and V rows through shared memory in pieces of 128 columns)
+# 128, Q, K and V rows through shared memory in pieces of 128 columns),
+# and 4864 and 8192, past the limit of 4800 that the Q tile set before Q
+# streamed too (WIDE_SHAPES)
+WIDE_SHAPES = ((1, 1, 4864), (1, 1, 8192))
 REPAIRED_SHAPES = ((32, 32, 20), (32, 32, 36), (1, 1, 640), (1, 1, 1152),
-                   (1, 1, 2048))
-# the streamed instance's shape for the members the list above does not
+                   (1, 1, 2048)) + WIDE_SHAPES
+# the streamed instance's shapes for the members the list above does not
 # cover (K8, K9, K10 with its nibbles unpacked as they are copied, K16,
 # K17c)
-STREAMED_SHAPE = (1, 1, 1152)
+STREAMED_SHAPES = ((1, 1, 1152),) + WIDE_SHAPES
 # Gemma-2's attention softcap, which K5 / K6 / K8 take on its global layers
 GEMMA2_SOFTCAP = 50.0
 # positions of the 8-sequence cases: pos 0, page boundaries, the last row,
@@ -1236,7 +1248,7 @@ def phase_flash_decode(rng) -> None:
                          (8, 2048, H, Hkv, D, BATCH_POSITIONS, True))]):
         _flash_decode_case(rng, B, S, H, Hkv, D, positions, peaked)
     for H, Hkv, D in ((32, 16, 72), (8, 1, 512), (1, 1, 640), (1, 1, 1152),
-                      (1, 1, 2048)):
+                      (1, 1, 2048)) + WIDE_SHAPES:
         _flash_decode_case(rng, 8, 2048, H, Hkv, D, BATCH_POSITIONS, True,
                            torch.float32)
     # Gemma-2's global layers: 16/8/256 under the softcap, past its window
@@ -1279,6 +1291,22 @@ def _peak(rng, q, kc, positions, G: int) -> None:
                 kv[b, r] = 11.0 * u[b]
 
 
+# tensors past this many elements are drawn on the card: numpy's draw of a
+# 22-layer pool at head_dim 8192 takes tens of seconds on the host
+HOST_DRAW_MAX = 1 << 24
+
+
+def _normal(rng, shape, s: float = 1.0, dtype=torch.bfloat16):
+    """N(0, s^2) values of `shape` on the card in `dtype`: numpy's draw
+    from rng, or past HOST_DRAW_MAX elements a torch.Generator's on the
+    card, seeded from rng."""
+    if math.prod(shape) <= HOST_DRAW_MAX:
+        return torch.from_numpy((rng.standard_normal(shape) * s).astype(
+            np.float32)).to(DEV).to(dtype)
+    g = torch.Generator(device=DEV).manual_seed(int(rng.integers(2 ** 31)))
+    return (torch.randn(shape, generator=g, device=DEV) * s).to(dtype)
+
+
 def _flash_decode_case(rng, B, S, H, Hkv, D, positions, peaked,
                        cache_dtype=torch.bfloat16,
                        softcap: float = 0.0) -> None:
@@ -1290,8 +1318,7 @@ def _flash_decode_case(rng, B, S, H, Hkv, D, positions, peaked,
     scale = D ** -0.5
 
     def t(shape, s=1.0, dtype=torch.bfloat16):
-        return torch.from_numpy((rng.standard_normal(shape) * s).astype(
-            np.float32)).to(DEV).to(dtype)
+        return _normal(rng, shape, s, dtype)
 
     kc0 = t((B, S, KD), 0.5, cache_dtype)
     vc0 = t((B, S, KD), 0.5, cache_dtype)
@@ -1379,7 +1406,7 @@ def phase_paged_flash_decode(rng) -> None:
     at each of HEAD_SHAPES."""
     for peaked in (False, True):
         _paged_case(rng, 8, 32, 4, 64, 64, 32, BATCH_POSITIONS, peaked)
-    for H, Hkv, D in HEAD_SHAPES + REPAIRED_SHAPES[:1] + (STREAMED_SHAPE,):
+    for H, Hkv, D in HEAD_SHAPES + REPAIRED_SHAPES[:1] + STREAMED_SHAPES:
         _paged_case(rng, 8, H, Hkv, D, 64, 32, BATCH_POSITIONS, True)
 
 
@@ -1388,8 +1415,7 @@ def _paged_case(rng, B, H, Hkv, D, P, MP, positions, peaked) -> None:
     scale = D ** -0.5
 
     def t(shape, s=1.0):
-        return torch.from_numpy((rng.standard_normal(shape) * s).astype(
-            np.float32)).to(DEV).bfloat16()
+        return _normal(rng, shape, s)
 
     # each sequence's history, contiguous (for K5), then scattered into the
     # pool through a shuffled page table (for K8)
@@ -1468,8 +1494,7 @@ def _paged_case(rng, B, H, Hkv, D, P, MP, positions, peaked) -> None:
 
 
 def _bf16(rng, shape, s=1.0):
-    return torch.from_numpy((rng.standard_normal(shape) * s).astype(
-        np.float32)).to(DEV).bfloat16()
+    return _normal(rng, shape, s)
 
 
 def phase_flash_prefill(rng) -> None:
@@ -1553,10 +1578,10 @@ def phase_quant_decode(rng) -> None:
             _quant_case(rng, kid, 8, H, Hkv, D, 64, 32, QUANT_POSITIONS, True)
             torch.cuda.empty_cache()
     # the repaired head_dims: K6 at each, K9 / K10 at D = 20 (K10's 10
-    # bytes a head: two-byte pieces by plain loads) and 1152 (streamed)
+    # bytes a head: two-byte pieces by plain loads) and the streamed ones
     for kid, shapes in (("K6", REPAIRED_SHAPES),
-                        ("K9", REPAIRED_SHAPES[:1] + (STREAMED_SHAPE,)),
-                        ("K10", REPAIRED_SHAPES[:1] + (STREAMED_SHAPE,))):
+                        ("K9", REPAIRED_SHAPES[:1] + STREAMED_SHAPES),
+                        ("K10", REPAIRED_SHAPES[:1] + STREAMED_SHAPES)):
         for H, Hkv, D in shapes:
             _quant_case(rng, kid, 8, H, Hkv, D, 64, 32, QUANT_POSITIONS, True)
 
@@ -1659,7 +1684,9 @@ def _quant_case(rng, kid, B, H, Hkv, D, P, MP, positions, peaked) -> None:
 # K17c (pooled-row flash decode), K16, and K5 over an f32 cache
 # ---------------------------------------------------------------------------
 
-STACKED_L = 4  # layers of the stacked matvec cases (li 0 and L-1 held)
+# layers of the stacked matvec cases (li 0 and L-1 held: two show a
+# stride or offset fault as four do, at half the host draw)
+STACKED_L = 2
 STACKED_SHAPES = (("wqkv", (2560, 2048)), ("wo", (2048, 2048)),
                   ("w_gateup", (11264, 2048)), ("w_down", (2048, 5632)))
 
@@ -1704,11 +1731,11 @@ STACKED_BODIES = (
 
 
 def phase_stacked(rng) -> None:
-    """K17a / K17b: every body on L=4 stacked layers at the 1.1B's four
-    layer shapes (and the output head's for the two kinds the scan path
-    serves, q4_k and q8_0): at li = 0 and li = 3, bit for bit the
+    """K17a / K17b: every body on L=STACKED_L stacked layers at the 1.1B's
+    four layer shapes (and the output head's for the two kinds the scan
+    path serves, q4_k and q8_0): at li = 0 and li = L - 1, bit for bit the
     per-layer kernel (K1, K2, K12) on that layer (the same body, so any
-    difference is a stride or offset fault), and at li = 3 within the
+    difference is a stride or offset fault), and at li = L - 1 within the
     per-layer kernel's tolerance of its plain version, timed beside cuBLAS
     over the layer's dequantized bf16 weight. Then K17c, K5 over an f32
     cache and K16 (see their cases)."""
@@ -1765,7 +1792,8 @@ def phase_stacked(rng) -> None:
              torch.float32),
             (8, 32, 8, 128, (5, 300, 1024, 2047, -1, 64, 900, 1999),
              torch.bfloat16),
-            (2, *STREAMED_SHAPE, (700, 2047), torch.bfloat16)):
+            *((2, *shape, (700, 2047), torch.bfloat16)
+              for shape in STREAMED_SHAPES)):
         _rows_case(rng, B, H, Hkv, D, positions, dt)
         torch.cuda.empty_cache()
     # K5 over the f32 cache kind (the repair that K17c shares)
@@ -1776,7 +1804,8 @@ def phase_stacked(rng) -> None:
                             (2048, 0, 0.0), (2048, 37, 0.0),
                             (2048, 2047, 0.0), (2048, 700, 30.0)):
         _k16_case(rng, S, 32, 4, 64, pos, softcap)
-    _k16_case(rng, 2048, *STREAMED_SHAPE, 700, 0.0)
+    for shape in STREAMED_SHAPES:
+        _k16_case(rng, 2048, *shape, 700, 0.0)
 
 
 POOL_LAYERS = 22  # the 1.1B's depth: K17c's pool holds every layer
@@ -1792,8 +1821,7 @@ def _rows_case(rng, B, H, Hkv, D, positions, dtype) -> None:
     scale = D ** -0.5
 
     def t(shape, s=1.0, dt=torch.bfloat16):
-        return torch.from_numpy((rng.standard_normal(shape) * s).astype(
-            np.float32)).to(DEV).to(dt)
+        return _normal(rng, shape, s, dt)
 
     kp0, vp0 = t((L * B, S, KD), 0.5, dtype), t((L * B, S, KD), 0.5, dtype)
     q, kn, vn = t((B, H, D)), t((B, Hkv, D)), t((B, Hkv, D))
@@ -1866,8 +1894,7 @@ def _k16_case(rng, S, H, Hkv, D, pos, softcap) -> None:
     scale = D ** -0.5
 
     def t(shape, s=1.0):
-        return torch.from_numpy((rng.standard_normal(shape) * s).astype(
-            np.float32)).to(DEV)
+        return _normal(rng, shape, s, torch.float32)
 
     q = t((H, D), 3.0 if softcap else 1.0)
     k, v = t((S, Hkv, D), 0.5).bfloat16(), t((S, Hkv, D), 0.5).bfloat16()
@@ -2528,9 +2555,9 @@ def _moe_forms(model, prompt) -> str:
     moe_in: dict = {}  # each form's MoE block inputs, layer by layer
     real_moe_ffn = llama._moe_ffn
 
-    def moe_ffn(x, layer, c):
+    def moe_ffn(x, layer, c, tp=None):
         moe_in.setdefault(form, []).append(x[0].float())
-        return real_moe_ffn(x, layer, c)
+        return real_moe_ffn(x, layer, c, tp)
 
     for form in ("gather", "dense_ep", "sorted_ep"):
         c = dataclasses.replace(cfg, moe_dense_ep=form == "dense_ep",
@@ -2885,9 +2912,9 @@ def phase_deepseek2_decode(card: str) -> tuple[dict, Model, dict]:
     # path's: a host read a MoE layer) and every expert (no host read)
     real_gather = llama._moe_gather
 
-    def every_at_t1(xt, *a, every_expert=False):
+    def every_at_t1(xt, *a, every_expert=False, **kw):
         return real_gather(xt, *a, every_expert=every_expert
-                           or xt.shape[0] == 1)
+                           or xt.shape[0] == 1, **kw)
 
     form_tps: dict = {}
     fgp = GenParams(max_length=16, bypass_eos=True, sampler=sampler)
@@ -5878,6 +5905,191 @@ def phase_served_text() -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# parallel serving: two ranks on this one card over gloo
+# ---------------------------------------------------------------------------
+
+# greedy tokens of each parallel form's reply
+PAR_TOKENS = 32
+PAR_FORMS = ("tp", "pp", "sp")
+PAR_KERNELS = ("K1", "K2", "K3", "K4", "K5")
+# the 1.1B's weights a tp=2 shard keeps whole on both ranks (their 128-row
+# shards would break the packed kernels' dispatch rule): wk and wv (4 kv
+# heads of 64), each layer; every other weight is a shard
+PAR_KEPT_WHOLE = {"wk": "Sliced", "wv": "Sliced"}
+
+
+def _parallel_forms(rank: int, init: str, prompt: list[int]) -> dict:
+    """Both ranks' side of phase_parallel: a gloo group of two processes
+    on cuda:0 (NCCL refuses two ranks on one device, so gloo is asked for
+    here), then for each form the TinyLlama-1.1B Q4_K_M model drawn on the
+    card from seed 0 (the same weights in both processes), sharded over
+    tp=2, staged over pp=2 or its context over sp=2, and one greedy
+    request that rank 0 drives through the step mirror and rank 1
+    follows. Returns this rank's {form: launch counts, dequant calls}
+    and rank 0's replies and times."""
+    import torch.distributed as dist
+
+    from koboldcpp_tpu_torch.ops import linear as linear_ops
+    from koboldcpp_tpu_torch.parallel import comm, launch
+    from koboldcpp_tpu_torch.parallel.sharding import (KeptWhole, Mesh,
+                                                       make_mesh, shard_model)
+
+    comm.init("gloo", init, 2, rank)
+    world = comm.world_group()
+    devs = [DEV, DEV]
+    out: dict = {"counts": {}, "dequant": {}, "tokens": {}, "ms": {}}
+    dq = {"n": 0}
+    real_dequant = linear_ops.dequant
+
+    def counted(*a, **kw):
+        dq["n"] += 1
+        return real_dequant(*a, **kw)
+
+    for form in PAR_FORMS:
+        model = synthetic_q4_k_m_on_device(TINYLLAMA_1_1B, seed=0, device=DEV)
+        kw = {}
+        if form == "tp":
+            mesh = make_mesh(dp=1, tp=2, devices=devs)
+            model = shard_model(model, mesh)
+            _check(not isinstance(model.params["output"], KeptWhole),
+                   "the tp=2 head is kept whole")
+            for li, layer in enumerate(model.params["layers"]):
+                kept = {k: type(w).__name__ for k, w in layer.items()
+                        if isinstance(w, KeptWhole)}
+                _check(kept == PAR_KEPT_WHOLE,
+                       f"layer {li}: kept whole {kept}, not {PAR_KEPT_WHOLE}")
+                for k, w in layer.items():
+                    if isinstance(w, QTensor) and w.kind != "dense":
+                        _check(w.shape[0] % 256 == 0 and w.shape[1] % 256 == 0,
+                               f"layer {li}: tp shard {k} {w.shape} breaks "
+                               "the dispatch rule")
+        else:
+            kw[f"{form}_mesh"] = Mesh({form: 2}, devs)
+        eng = Engine(model, max_context=2048, device=DEV, **kw)
+        torch.cuda.synchronize()
+        _build.launches.clear()
+        dq["n"] = 0
+        with mock.patch.object(linear_ops, "dequant", counted):
+            if rank == 0:
+                launch.mirror(eng, world, ("_forward", "_kv_remove_shift"))
+                r = eng.generate(prompt, GenParams(
+                    max_length=PAR_TOKENS, bypass_eos=True,
+                    sampler=SamplerParams(temperature=0.0, rep_pen=1.0)))
+                launch.stop(eng)
+                t = eng.last_timings
+                out["tokens"][form] = r.tokens
+                out["ms"][form] = (t.prompt_time * 1e3,
+                                   t.gen_time * 1e3 / max(t.gen_tokens, 1))
+            else:
+                launch.follow(eng, world)
+        torch.cuda.synchronize()
+        out["counts"][form] = dict(_build.launches)
+        out["dequant"][form] = dq["n"]
+        del eng, model
+        torch.cuda.empty_cache()
+    # a world-1 NCCL group: NCCL's collectives on CUDA tensors
+    g = dist.new_group([0], backend="nccl")
+    if rank == 0:
+        x = torch.arange(8, dtype=torch.float32, device=DEV)
+        dist.all_reduce(x, group=g)
+        parts = [torch.empty_like(x)]
+        dist.all_gather(parts, x, group=g)
+        dist.broadcast(x, 0, group=g)
+        torch.cuda.synchronize()
+        out["nccl"] = bool(torch.equal(parts[0], x)
+                           and torch.equal(x.cpu(), torch.arange(8.0)))
+    peer = comm.broadcast_bytes(
+        json.dumps({k: out[k] for k in ("counts", "dequant")}).encode()
+        if rank == 1 else b"", world, 1)
+    if rank == 0:
+        out["peer"] = json.loads(peer)
+    dist.destroy_process_group()
+    return out
+
+
+def _parallel_follower(argv: list[str]) -> int:
+    """`python chip_smoke.py --parallel-rank 1 --init tcp://...`: rank 1 of
+    phase_parallel (started by it)."""
+    init = argv[argv.index("--init") + 1]
+    prompt = json.loads(argv[argv.index("--prompt") + 1])
+    _build.build_all()  # rank 0 built them: loads the libraries
+    _parallel_forms(1, init, prompt)
+    return 0
+
+
+def phase_parallel(card: str) -> dict:
+    """Two ranks on this one card, over gloo with the CUDA tensors staged
+    through the host where gloo needs it (parallel/comm.py): the
+    TinyLlama-1.1B Q4_K_M model at full width and depth, a 300-token
+    prompt and 32 greedy tokens under tensor parallelism (tp=2: K1, K2,
+    K3, K4 and K5 on each rank's shard shapes, wk and wv kept whole on
+    both ranks and checked to be the only such weights), then pipeline
+    (pp=2) and sequence parallelism (sp=2), each reply checked against the
+    unsharded engine's on the card (near-ties apart); no shard of the tp
+    run takes the dequant path. Then one all_reduce / all_gather /
+    broadcast on CUDA tensors in a world-1 NCCL group. Returns both
+    ranks' launch counts (K1-K5) summed over the forms."""
+    import subprocess
+
+    from koboldcpp_tpu_torch.parallel import comm
+
+    rng = np.random.default_rng(1)
+    prompt = [1] + rng.integers(3, 32000, size=299).tolist()
+    init = f"tcp://127.0.0.1:{comm.free_port()}"
+    peer = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-rank", "1",
+         "--init", init, "--prompt", json.dumps(prompt)], cwd=ROOT)
+    try:
+        gp = GenParams(max_length=PAR_TOKENS, bypass_eos=True,
+                       sampler=SamplerParams(temperature=0.0, rep_pen=1.0))
+        single = Engine(synthetic_q4_k_m_on_device(TINYLLAMA_1_1B, seed=0,
+                                                   device=DEV),
+                        max_context=2048, device=DEV)
+        want = single.generate(prompt, gp).tokens
+        t = single.last_timings
+        single_ms = t.gen_time * 1e3 / max(t.gen_tokens, 1)
+        out = _parallel_forms(0, init, prompt)
+        _check(peer.wait(timeout=300) == 0, "parallel rank 1 failed")
+    finally:
+        if peer.poll() is None:
+            peer.kill()
+    counts: dict = {}
+    for side in (out, out["peer"]):
+        for form in PAR_FORMS:
+            for k, n in side["counts"][form].items():
+                counts[k] = counts.get(k, 0) + n
+    for rank, side in ((0, out), (1, out["peer"])):
+        for k in PAR_KERNELS:
+            _check(side["counts"]["tp"].get(k, 0) > 0,
+                   f"{k} did not run on rank {rank}'s tp=2 shard")
+        _check(side["dequant"]["tp"] == 0,
+               f"rank {rank}'s tp=2 run took the dequant path "
+               f"{side['dequant']['tp']} times")
+    for form in PAR_FORMS:
+        got = out["tokens"][form]
+        _check(len(got) == PAR_TOKENS, f"{form}: {len(got)} tokens")
+        _same_or_near_tie(single, prompt, got, want,
+                          f"{form}=2 reply")
+    _check(out["nccl"], "world-1 NCCL all_reduce / all_gather / broadcast")
+    del single
+    torch.cuda.empty_cache()
+    print(f"parallel (synthetic TinyLlama-1.1B Q4_K_M, 2 ranks on one {card}, "
+          "gloo with CUDA tensors staged through the host; not NCCL and not "
+          "multi-GPU figures): decode ms/token unsharded "
+          f"{single_ms:.3f}, " + ", ".join(
+              f"{f}=2 {out['ms'][f][1]:.3f} (prefill {out['ms'][f][0]:.1f} "
+              "ms)" for f in PAR_FORMS)
+          + f"; launches rank 0 tp {out['counts']['tp']}, rank 1 tp "
+          f"{out['peer']['counts']['tp']}; kept whole on both tp ranks, "
+          "every layer: " + ", ".join(f"{k} ({v})" for k, v in
+                                      PAR_KEPT_WHOLE.items()), flush=True)
+    print("NCCL: a world-1 group's all_reduce / all_gather / broadcast ran on "
+          "CUDA tensors; NCCL across cards stays unverified until a "
+          "multi-chip cell exists", flush=True)
+    return counts
+
+
 def _timed(phase, *args):
     t0 = time.perf_counter()
     out = phase(*args)
@@ -5926,6 +6138,8 @@ def main() -> int:
              _timed(phase_scan_decode, card, model)]
     del model
     torch.cuda.empty_cache()
+    # parallel serving (two ranks on this card: tp, pp, sp)
+    runs.append(_timed(phase_parallel, card))
     runs += [_timed(phase_served_fixture), _timed(phase_new_kinds, card),
              _timed(phase_served_kinds), _timed(phase_served_opt_in),
              _timed(phase_served_archs)]
@@ -5986,4 +6200,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--parallel-rank" in sys.argv:
+        sys.exit(_parallel_follower(sys.argv))
     sys.exit(main())

@@ -18,10 +18,21 @@ needs them) and `--sdclamped` (the shared-hosting clamps);
 `--ignoremissing` skips any of these when its file is missing, as it does
 a LoRA. Beyond the JAX launcher, `--sdmodel` without a text model (or with
 `--nomodel`) serves the image routes alone, as upstream's image-only
-mode does. Flags of paths the port has not got (the horde worker and
-tunnel, device meshes, pipeline and sequence parallelism, multi-host
-serving) exit with argparse's error naming them. Runs on the GPU unless
---device cpu or --usecpu is given.
+mode does. `--hordekey` with `--hordeworkername` runs the AI Horde worker
+(server/horde.py), `--remotetunnel` a cloudflared tunnel
+(server/tunnel.py), and with no model the tkinter launcher (gui.py)
+opens unless `--skiplauncher` is given.
+
+Parallel serving (parallel/): `--mesh dp,tp` shards the model over dp x
+tp ranks (tensor parallel heads and FFN columns, data parallel slots of
+`--multiuser`), `--pipeline N` runs N layer stages, `--seqparallel N`
+shards the context over N ranks; the launcher starts the other ranks
+itself, one process a GPU (cuda:<rank>, NCCL; the CPU ranks of --device
+cpu over gloo), and a mesh of more ranks than visible GPUs raises.
+`--coordinator host:port --numprocesses N --processid i` joins N
+processes started by hand (multi-host): host 0 serves HTTP and the others
+replay its engine calls in lockstep (parallel/multihost.py). Runs on the
+GPU unless --device cpu or --usecpu is given.
 """
 from __future__ import annotations
 
@@ -88,19 +99,44 @@ def build_parser() -> argparse.ArgumentParser:
                         "context shift")
     p.add_argument("--nofastforward", action="store_true",
                    help="accepted for compatibility")
+    p.add_argument("--remotetunnel", action="store_true",
+                   help="create a trycloudflare tunnel for remote access")
     p.add_argument("--ropeconfig", nargs=2, type=float, default=None,
                    metavar=("SCALE", "BASE"))
     for flag in COMPAT_FLAGS:
         p.add_argument(flag, nargs="?", const=True, default=None,
                        help=argparse.SUPPRESS)
+    p.add_argument("--hordekey", default="")
+    p.add_argument("--hordeworkername", default="")
+    p.add_argument("--hordemodelname", default="")
+    p.add_argument("--hordemaxctx", type=int, default=0)
+    p.add_argument("--hordegenlen", type=int, default=0)
+    p.add_argument("--mesh", default="", help="dp,tp mesh shape e.g. 1,2; "
+                   "shards weights/KV over that many GPU ranks (TP serving)")
+    p.add_argument("--pipeline", type=int, default=0, metavar="N",
+                   help="pipeline parallelism: shard layers into N stages "
+                   "over N GPU ranks (GPipe microbatch schedule)")
+    p.add_argument("--seqparallel", type=int, default=0, metavar="N",
+                   help="sequence parallelism: shard the KV cache's context "
+                   "axis over N GPU ranks (ring-attention prefill + "
+                   "distributed decode)")
+    # multi-host serving (torch.distributed): run the same command on
+    # every host, host 0 serves HTTP, the rest follow in lockstep
+    p.add_argument("--coordinator", default="",
+                   help="host0 address host:port for torch.distributed")
+    p.add_argument("--numprocesses", type=int, default=1,
+                   help="total process count for multi-host serving")
+    p.add_argument("--processid", type=int, default=0,
+                   help="this process's id (0 = HTTP server host)")
     p.add_argument("--paged", action="store_true",
                    help="paged KV pool for the continuous-batching engine")
     p.add_argument("--pagesize", type=int, default=64)
+    p.add_argument("--skiplauncher", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--ssl", nargs=2, metavar=("CERT", "KEY"), default=None,
                    help="serve HTTPS with this certificate/key PEM pair")
     p.add_argument("--nocertify", action="store_true",
                    help="disable SSL certificate verification for outbound "
-                        "requests (model downloads)")
+                        "requests (horde, model downloads)")
     p.add_argument("--onready", default="", metavar="CMD",
                    help="shell command to run once the server is ready")
     p.add_argument("--launch", action="store_true",
@@ -306,7 +342,149 @@ def _load_sd(args, device):
     return sd_model
 
 
-def main(argv=None):
+class _Parallel:
+    """The parallel forms of one run: the process group's meshes, this
+    process's rank and device, and the follower processes it started."""
+
+    def __init__(self):
+        self.mesh = self.pp_mesh = self.sp_mesh = self.topo = None
+        self.rank = 0
+        self.device = None
+        self.procs: list = []
+        self.launched = False  # the launcher's ranks (step mirror)
+
+    @property
+    def follower(self) -> bool:
+        return self.rank != 0
+
+
+def _start_ranks(par: _Parallel, world: int, device, rank, argv) -> None:
+    """Join (rank = (r, world, init) of a follower) or start (the
+    launcher: ranks 1.. of `world`, after building the kernels once) the
+    launcher's process group: cuda:<rank> over NCCL, or CPU ranks over
+    gloo."""
+    import torch
+
+    from .parallel import comm, launch
+
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if rank is None:
+        init = f"tcp://127.0.0.1:{comm.free_port()}"
+        if not cpu:
+            from .ops import _build
+
+            _build.build_all()  # once, before the other ranks look for it
+        par.procs = launch.spawn_ranks(
+            list(sys.argv[1:] if argv is None else argv), world, init)
+        r = 0
+    else:
+        r, world, init = rank
+    par.rank, par.launched = r, True
+    par.device = torch.device("cpu") if cpu else torch.device("cuda", r)
+    if cpu:  # the ranks share the host's cores
+        torch.set_num_threads(max(1, min(torch.get_num_threads(),
+                                         (os.cpu_count() or 1) // world)))
+    else:
+        torch.cuda.set_device(par.device)
+    comm.init("gloo" if cpu else "nccl", init, world, r)
+
+
+def _rank_devices(par: _Parallel, n: int) -> list:
+    """Each rank's device: the launcher's ranks cuda:<rank> (or the CPU);
+    under multi-host only this process's own device is known."""
+    if par.topo is not None or par.device.type == "cpu":
+        return [par.device] * n
+    return [("cuda", r) for r in range(n)]
+
+
+def _setup_parallel(args, device, rank, argv) -> _Parallel:
+    """The JAX launcher's parallel branches (cli.py:298-302, 358-431) over
+    torch.distributed: multi-host lockstep, `--mesh`, `--seqparallel` and
+    `--pipeline`, with its notes where a form is ignored."""
+    import torch
+
+    par = _Parallel()
+    par.device = None if device is None else torch.device(device)
+    cpu = par.device is not None and par.device.type == "cpu"
+    if args.coordinator and args.numprocesses > 1:
+        from .parallel import multihost
+
+        if not cpu:
+            n = max(torch.cuda.device_count(), 1)
+            par.device = torch.device("cuda", args.processid % n)
+        par.topo = multihost.initialize(
+            args.coordinator, args.numprocesses, args.processid,
+            "gloo" if cpu else "nccl", par.device)
+        par.rank = par.topo.host_id
+        print(f"torch.distributed: host {par.topo.host_id}/"
+              f"{par.topo.n_hosts}, {par.topo.n_devices_global} global "
+              "devices")
+    have = None if cpu else torch.cuda.device_count()
+    if par.topo is not None:
+        have = par.topo.n_devices_global
+    if args.mesh:
+        dp, tp = (int(x) for x in args.mesh.split(","))
+        if par.topo is None and dp * tp > 1:
+            if have is not None and dp * tp > have:
+                raise ValueError(f"--mesh {args.mesh} needs {dp * tp} GPUs "
+                                 f"(have {have})")
+            _start_ranks(par, dp * tp, device, rank, argv)
+    # sequence, then pipeline parallelism (the JAX launcher's order)
+    axis = n = None
+    if args.seqparallel > 1:
+        if have is not None and have < args.seqparallel:
+            print(f"Note: --seqparallel {args.seqparallel} needs that many "
+                  f"devices (have {have}); ignoring")
+        elif args.mesh or args.multiuser > 1 or args.pipeline:
+            print("Note: --seqparallel is exclusive with --mesh/--pipeline/"
+                  "--multiuser batching in this round; ignoring")
+        else:
+            axis, n = "sp", args.seqparallel
+    if args.pipeline > 1 and axis is None:
+        if have is not None and have < args.pipeline:
+            print(f"Note: --pipeline {args.pipeline} needs that many devices "
+                  f"(have {have}); ignoring")
+        elif args.mesh or args.multiuser > 1:
+            print("Note: --pipeline is exclusive with --mesh/--multiuser "
+                  "batching in this round; ignoring")
+        else:
+            axis, n = "pp", args.pipeline
+    if axis is not None and par.topo is not None and n != par.topo.n_hosts:
+        print(f"Note: --{'seqparallel' if axis == 'sp' else 'pipeline'} {n} "
+              f"must span the {par.topo.n_hosts} hosts; ignoring")
+        axis = None
+    if axis is not None:
+        from .parallel.sharding import Mesh
+
+        if par.topo is None:
+            _start_ranks(par, n, device, rank, argv)
+        mesh = Mesh({axis: n}, _rank_devices(par, n))
+        if axis == "sp":
+            par.sp_mesh = mesh
+            print(f"Sequence parallelism: {n}-way sharded KV")
+        else:
+            par.pp_mesh = mesh
+            print(f"Pipeline parallelism: {n} stages")
+    elif args.mesh and (par.launched or par.topo is not None) or (
+            par.topo is not None and par.topo.n_hosts > 1):
+        from .parallel import multihost
+        from .parallel.sharding import make_mesh
+
+        if args.mesh:
+            dp, tp = (int(x) for x in args.mesh.split(","))
+            par.mesh = make_mesh(dp=dp, tp=tp,
+                                 devices=_rank_devices(par, dp * tp))
+        else:
+            par.mesh = multihost.global_mesh(
+                par.topo, devices=_rank_devices(par, par.topo.n_hosts))
+        print(f"Device mesh: dp={par.mesh.shape['dp']} "
+              f"tp={par.mesh.shape['tp']} ({par.mesh.size} devices)")
+    return par
+
+
+def main(argv=None, rank=None):
+    """The launcher. rank: (rank, world, init address) when this process
+    is a follower rank that the launcher started (parallel/launch.py)."""
     args = build_parser().parse_args(argv)
     if args.config:
         load_kcpps(args.config, args)
@@ -340,6 +518,15 @@ def main(argv=None):
                    onready=args.onready, launch=args.launch)
         return 0
     if not model_path:
+        if not args.skiplauncher:
+            try:  # reference behaviour: no model -> the GUI launcher
+                from .gui import show_gui
+
+                argv2 = show_gui()
+                if argv2:
+                    return main(argv2)
+            except Exception:  # noqa: BLE001 (no display, no tkinter)
+                pass
         print("error: no model specified (pass a GGUF path or --model)")
         return 2
     if model_path.startswith(("http://", "https://")):
@@ -350,10 +537,28 @@ def main(argv=None):
         except ValueError:
             pass
 
+    par = _setup_parallel(args, device, rank, argv)
+    try:
+        out = _serve(args, model_path, par)
+    except BaseException:
+        for p in par.procs:  # the followers would wait for rank 0
+            p.terminate()
+        raise
+    for p in par.procs:
+        p.wait()
+    return out
+
+
+def _serve(args, model_path: str, par: _Parallel) -> int:
+    """Load, shard, build the engine, then serve (or follow rank 0)."""
     from .engine import Engine, GenParams
     from .engine.batch_engine import BatchedEngine, batch_capable
     from .models.loader import load_model
+    from .parallel import launch
+    from .server.app import ServerSettings, run_server
 
+    device = par.device
+    multi_host = par.topo is not None and par.topo.n_hosts > 1
     print(f"Loading model: {model_path}")
     t0 = time.time()
     loras = [(lp, args.loramult) for lp in (args.lora or [])]
@@ -372,6 +577,10 @@ def main(argv=None):
     line = apply_rope_config(model.cfg, args.ropeconfig, args.contextsize)
     if line:
         print(line)
+    if par.mesh is not None:
+        from .parallel import shard_model
+
+        model = shard_model(model, par.mesh)
     clip_model = None
     if args.mmproj:
         from .models.clip import load_clip
@@ -379,15 +588,23 @@ def main(argv=None):
         print(f"Loading mmproj: {args.mmproj}")
         clip_model = load_clip(args.mmproj, device=model.device)
 
-    # smart context is a single-sequence path: --multiuser > 1 routes it
-    # to the single engine, as the JAX launcher does
+    # smart context is a single-sequence path, and so is multi-host
+    # lockstep (one deterministic request stream): --multiuser > 1 routes
+    # them to the single engine, as the JAX launcher does
     batched = (args.multiuser > 1 and batch_capable(model.cfg)
-               and not args.smartcontext)
+               and not args.smartcontext and not multi_host)
     if args.multiuser > 1 and not batched:
         print(f"Note: --multiuser continuous batching is unavailable for "
               f"this configuration (arch {model.cfg.arch}"
               + (", smartcontext" if args.smartcontext else "")
               + "); serving with the single-sequence engine + FIFO queue")
+    # multi-host lockstep replays the one stream on every host: its dp
+    # indices (the hosts of the global mesh) each compute the whole batch
+    if (par.mesh is not None and par.mesh.shape["dp"] > 1 and not batched
+            and not multi_host):
+        raise ValueError(f"a batch of 1 does not divide over "
+                         f"dp={par.mesh.shape['dp']} (data parallelism "
+                         "shards the slots of --multiuser)")
     if args.paged and args.quantkv == 2:
         print("Paged KV pool: Q4 (plane-split nibbles, half the Q8 memory)")
     shift = not (args.noshift or args.nocontextshift)
@@ -399,19 +616,74 @@ def main(argv=None):
                                n_slots=args.multiuser, paged=paged,
                                page_size=args.pagesize, device=model.device,
                                quantkv=args.quantkv, use_contextshift=shift,
-                               clip_model=clip_model)
+                               clip_model=clip_model, mesh=par.mesh)
+        steps = ("_forward", "_kv_shift_slot", "_reset_cache")
         print(f"Continuous batching enabled: {args.multiuser} KV slots"
               + (" (paged)" if paged else ""))
     else:
         engine = Engine(model, max_context=args.contextsize,
                         device=model.device, quantkv=args.quantkv,
                         use_smartcontext=args.smartcontext,
-                        use_contextshift=shift, clip_model=clip_model)
+                        use_contextshift=shift, clip_model=clip_model,
+                        pp_mesh=par.pp_mesh, sp_mesh=par.sp_mesh)
+        steps = ("_forward", "_kv_remove_shift")
         if args.quantkv == 1:
             print("Q8-quantized KV cache enabled")
         elif args.quantkv == 2:
             print("Q4_0-quantized KV cache enabled (plain attention path)")
 
+    if par.launched:
+        import torch.distributed as dist
+
+        from .parallel import comm
+
+        world = comm.world_group()
+        if par.follower:
+            print(f"Rank {par.rank}: following rank 0's steps")
+            launch.follow(engine, world)
+            if isinstance(engine, BatchedEngine):
+                engine.shutdown()
+            dist.destroy_process_group()
+            return 0
+        launch.mirror(engine, world, steps)
+    lockstep = None
+    if multi_host:
+        from .parallel.multihost import (LockstepEngine, announce_shutdown,
+                                         follower_loop)
+
+        if par.topo.is_follower:
+            import torch.distributed as dist
+
+            print(f"Follower host {par.topo.host_id}: entering lockstep loop")
+            follower_loop(engine)
+            dist.barrier()
+            dist.destroy_process_group()
+            return 0
+        engine = lockstep = LockstepEngine(engine, par.topo)
+    try:
+        return _run_front(args, model_path, model, engine, ServerSettings,
+                          run_server, GenParams)
+    finally:
+        inner = getattr(engine, "_engine", engine)
+        if isinstance(inner, BatchedEngine):
+            inner.shutdown()
+        if par.launched:
+            import torch.distributed as dist
+
+            launch.stop(inner)
+            dist.destroy_process_group()
+        if lockstep is not None:
+            import torch.distributed as dist
+
+            announce_shutdown()
+            dist.barrier()
+            dist.destroy_process_group()
+
+
+def _run_front(args, model_path, model, engine, ServerSettings, run_server,
+               GenParams) -> int:
+    """The benchmark, the one-shot prompt or the HTTP server (with the
+    horde worker and the tunnel)."""
     if args.benchmark is not None or args.prompt:
         if args.benchmark is not None:
             run_benchmark(engine, args.benchmark)
@@ -419,8 +691,6 @@ def main(argv=None):
             r = engine.generate(args.prompt,
                                 GenParams(max_length=args.promptlimit))
             print(r.text)
-        if isinstance(engine, BatchedEngine):
-            engine.shutdown()
         return 0
 
     story = None
@@ -441,9 +711,24 @@ def main(argv=None):
                               preloaded_story=story, quiet=args.quiet,
                               whisper_model=whisper_model, sd_model=sd_model,
                               sd_clamped=args.sdclamped)
+    if args.hordekey and args.hordeworkername:
+        from .server.horde import start_horde_worker
+
+        start_horde_worker(args, settings)
     print(f"Starting server on {args.host}:{args.port}")
-    run_server(engine, host=args.host, port=args.port, settings=settings,
-               ssl_pair=args.ssl, onready=args.onready, launch=args.launch)
+    tunnel = None
+    if args.remotetunnel:
+        from .server.tunnel import Tunnel
+
+        tunnel = Tunnel(args.port)
+        tunnel.start()
+    try:
+        run_server(engine, host=args.host, port=args.port, settings=settings,
+                   ssl_pair=args.ssl, onready=args.onready,
+                   launch=args.launch)
+    finally:
+        if tunnel is not None:
+            tunnel.stop()
     return 0
 
 

@@ -38,7 +38,7 @@
 // kv/paged.py `_quantize_q4` do (amax/127 or amax/7 per head, round half to
 // even, scale rounded to bf16), uses its dequantized bf16 values for the
 // self term, and writes the codes and the scale. Head shapes: any head_dim
-// D up to MAXD = 4800 (even for K10's nibble planes) and any G = H / Hkv
+// D (an even one for K10's nibble planes) and any G = H / Hkv
 // query heads per kv head. The tiles hold D padded to Dp, the next multiple
 // of 16 (the mma k): the padding columns of Q, K and V are zero-filled as
 // they are copied, the output, the new row's write and a quantized row's
@@ -55,15 +55,16 @@
 // same softmax) and P . V for its columns, and merges its own chunk's
 // partials; the cache row is written by chunk 0. No stage of that instance
 // holds a whole row: a tile streams through the stages as ceil(Dp / 128) K
-// pieces of 128 columns, whose score products accumulate in registers, then
-// one V piece of the block's own columns (K10's nibbles unpacked to int8
-// codes as they are copied, by plain loads), and the merge keeps the new
-// row's codes as int8 and the row itself as this step's bf16 rows. So the
-// shared memory holds the Q tile, this step's rows and two pieces: MAXD is
-// the widest head_dim whose plan fits a block's 227 KB for every kind.
-// Where a tile of 64 rows does not fit next to the merge's tables a tile
-// takes 32 rows (two warps' worth), or 16 (an f32 cache at D > ~820 below
-// the streamed instance; in it 32 rows from D = 4145, 16 from 4577).
+// pieces of 128 columns, each beside the same 128 columns of the head
+// group's Q, whose score products accumulate in registers, then one V
+// piece of the block's own columns (K10's nibbles unpacked to int8 codes
+// as they are copied, by plain loads); the merge reads Q's rows and this
+// step's rows from global memory and recomputes a quantized row's codes
+// from them. So the shared memory of that instance holds two pieces and
+// the merge's tables whatever D is, and every head_dim fits. Where a tile
+// of 64 rows does not fit next to the merge's tables a tile takes 32 rows
+// (two warps' worth), or 16 (an f32 cache at D > ~820 below the streamed
+// instance).
 //
 // Bound on the H100: bytes (the live history rows' K and V values plus
 // their scales, and the row write): a 1.1B step at pos 700 reads 0.7 MB, a
@@ -132,7 +133,7 @@ constexpr int NW = 4;        // warps per block
 constexpr int TR = 16 * NW;  // history rows per tile: 16 per warp
 constexpr int GB = 16;       // query heads per block: one m16 tile
 constexpr int MAXNS = 256;   // splits per sequence (decode_plan's cap)
-constexpr int MAXD = 4800;   // the widest head_dim (every kind's plan fits)
+constexpr int DSTREAM = 1024;  // DK of the streamed instance: any D past 512
 constexpr int DCH = 128;     // output columns a block takes past D = 512, and
                              // the columns of the streamed instance's pieces
 constexpr int SMEM_MAX = 232448;  // a block's dynamic shared memory (227 KB)
@@ -170,7 +171,11 @@ __host__ __device__ constexpr int piece_kind(int kind) {
 // or 16 where a stage of TR rows does not fit a block's 227 KB); nwa: the
 // warps that take a tile's rows (16 each). Past D = 512 (stream) a stage
 // holds one piece (tr rows of DCH columns at pitch hp) and two tiles' k and
-// v scales follow the stages; the merge keeps the new row's codes as int8.
+// v scales follow the stages. It holds no Q tile and no new rows: a K
+// piece's stage carries the same 128 columns of the head group's Q (16
+// rows at pitch qp), the new rows and Q's whole rows are read from global
+// memory where the merge needs them, and a quantized row's codes are
+// recomputed from them, so its shared memory does not grow with D.
 struct Plan {
     int Dp, DC, hp, qp, tr, nwa, stage, nst, q_bytes, comb, total;
     __host__ __device__ Plan(int kind, int D) {
@@ -179,13 +184,13 @@ struct Plan {
         DC = chunk_cols(D);
         // + 16: 8 ldmatrix rows on distinct banks
         hp = (stream ? head_bytes(piece_kind(kind), DCH) : head_bytes(kind, Dp)) + 16;
-        qp = 2 * Dp + 16;
-        q_bytes = GB * qp + ((4 * D + 15) & ~15);
+        qp = 2 * (stream ? DCH : Dp) + 16;
+        q_bytes = stream ? 0 : GB * qp + ((4 * D + 15) & ~15);
         const int merge = 2 * MAXNS * GB * 4 + GB * 2 * 4
-                          + (stream ? (2 * D + 15) & ~15 : 2 * D * 8) + GB * 4 + 16;
+                          + (stream ? 0 : 2 * D * 8) + GB * 4 + 16;
         for (tr = TR;; tr /= 2) {
             nwa = tr / 16;
-            stage = stream ? tr * hp : 2 * tr * hp + 2 * tr * 4;
+            stage = stream ? tr * hp + GB * qp : 2 * tr * hp + 2 * tr * 4;
             nst = 2 * stage <= 96 * 1024 ? 2 : 1;
             comb = nwa * GB * DC * 4 + nwa * GB * 2 * 4 + GB * DC * 4 + GB * 2 * 4;
             total = q_bytes + imax(nst * stage + (stream ? 4 * tr * 4 : 0), comb + merge);
@@ -301,7 +306,8 @@ flash_decode_kernel(const Args a) {
     // the head group's query rows (zero rows past G, zero columns past D)
     // and this step's k / v rows, in flight while the position is read
     const __nv_bfloat16* qh = a.q + (((size_t)b * a.Hkv + kvh) * a.G + g0) * D;
-    if (D % 8) {  // rows not in 16-byte pieces: plain loads
+    if (STREAM) {  // Q comes with the K pieces, the new rows from global
+    } else if (D % 8) {  // rows not in 16-byte pieces: plain loads
         uint16_t* q16 = reinterpret_cast<uint16_t*>(qs);
         const uint16_t* qg = reinterpret_cast<const uint16_t*>(qh);
         for (int i = tid; i < GB * L.Dp; i += blockDim.x) {
@@ -378,6 +384,26 @@ flash_decode_kernel(const Args a) {
         const uint8_t* base = j < NKP ? kbase : vbase;
         const int col0 = j < NKP ? j * DCH : c0;
         const int w = min(DCH, D - col0);  // columns of the head in the piece
+        if (j < NKP) {  // the head group's Q columns col0.. beside the piece
+            uint8_t* qt = st + TRt * L.hp;
+            if (D % 8) {
+                uint16_t* q16 = reinterpret_cast<uint16_t*>(qt);
+                const uint16_t* qg = reinterpret_cast<const uint16_t*>(qh) + col0;
+                for (int i = tid; i < GB * DCH; i += blockDim.x) {
+                    const int g = i / DCH, c = i - g * DCH;
+                    q16[g * (L.qp / 2) + c] = g < Gb && c < w ? qg[(size_t)g * D + c] : 0;
+                }
+            } else {
+                for (int i = tid; i < GB * (DCH / 8); i += blockDim.x) {
+                    const int g = i / (DCH / 8), c = i - g * (DCH / 8);
+                    const bool ok = g < Gb && 8 * c < w;
+                    cp_async16_zfill(qt + g * L.qp + 16 * c,
+                                     ok ? (const void*)(qh + (size_t)g * D + col0 + 8 * c)
+                                        : (const void*)a.q,
+                                     ok ? 16 : 0);
+                }
+            }
+        }
         if (KIND == Q4_SCORE) {
             const int D2 = D / 2;
             for (int i = tid; i < TRt * DCH; i += blockDim.x) {
@@ -464,11 +490,12 @@ flash_decode_kernel(const Args a) {
 
     const int Dp = L.Dp;
     // S (16 heads x 16 rows) += Q . K^T over one k step: Q's columns kq..
-    // of the head, the rows' columns kk.. of the tile or piece kt
-    auto score_step = [&](const uint8_t* kt, const float* ksm, int kq, int kk,
-                          float (&s)[2][4]) {
+    // of the Q tile or piece qt, the rows' columns kk.. of the tile or
+    // piece kt
+    auto score_step = [&](const uint8_t* kt, const uint8_t* qt, const float* ksm,
+                          int kq, int kk, float (&s)[2][4]) {
         uint32_t qa[4];
-        ldmatrix_x4(qa, qs + (((lane >> 3) & 1) * 8 + (lane & 7)) * L.qp
+        ldmatrix_x4(qa, qt + (((lane >> 3) & 1) * 8 + (lane & 7)) * L.qp
                             + kq * 2 + (lane >> 4) * 16);
         if (KIND == BF16_ROWS) {
             uint32_t kb[4];
@@ -614,7 +641,7 @@ flash_decode_kernel(const Args a) {
 #pragma unroll (DK <= 512 ? DK / 16 : 1)
         for (int ks = 0; ks < DK / 16; ++ks) {
             if (ks >= Dp / 16) break;
-            score_step(kt, ksm, ks * 16, ks * 16, s);
+            score_step(kt, qs, ksm, ks * 16, ks * 16, s);
         }
         softmax_pv(t, s, kt + TRt * L.hp, ksm, ksm + TRt, c0);
     };
@@ -653,7 +680,7 @@ flash_decode_kernel(const Args a) {
 #pragma unroll
                     for (int ks = 0; ks < DCH / 16; ++ks) {
                         if (j * DCH + ks * 16 >= Dp) break;
-                        score_step(pt, ksm, j * DCH + ks * 16, ks * 16, ss);
+                        score_step(pt, pt + TRt * L.hp, ksm, ks * 16, ks * 16, ss);
                     }
                 } else {
                     softmax_pv(t, ss, pt, ksm, ksm + TRt, 0);
@@ -774,10 +801,8 @@ flash_decode_kernel(const Args a) {
     float* mml = fsum + MAXNS * GB;                       // (16, 2)
     float* newv = mml + GB * 2;                           // (2, D)
     int* code = reinterpret_cast<int*>(newv + 2 * D);     // (2, D)
-    // the streamed instance keeps no newv and the codes as int8 (2, D)
-    int8_t* code8 = reinterpret_cast<int8_t*>(mml + GB * 2);
-    float* sself = STREAM ? reinterpret_cast<float*>(code8 + ((2 * D + 15) & ~15))
-                          : reinterpret_cast<float*>(code + 2 * D);  // (16)
+    // the streamed instance keeps no newv and no codes: it recomputes them
+    float* sself = STREAM ? mml + GB * 2 : reinterpret_cast<float*>(code + 2 * D);  // (16)
     float* amax = sself + GB;                             // (2)
     // every split's (max, sum) in one round of loads, then its factor
     for (int i = tid; i < n_live * Gb; i += blockDim.x) {
@@ -804,16 +829,27 @@ flash_decode_kernel(const Args a) {
             mml[g * 2 + 1] = ll;
         }
     }
-    const __nv_bfloat16* kn = reinterpret_cast<const __nv_bfloat16*>(nrow);
-    const __nv_bfloat16* vn = kn + D;
+    // this step's k and v rows: in shared memory, or (streamed) in global
+    const size_t noff = ((size_t)b * a.Hkv + kvh) * D;
+    const __nv_bfloat16* kn = STREAM ? (self ? a.knew + noff : nullptr)
+                                     : reinterpret_cast<const __nv_bfloat16*>(nrow);
+    const __nv_bfloat16* vn = STREAM ? (self ? a.vnew + noff : nullptr) : kn + D;
     constexpr float QMAX = KIND == Q4_SCORE ? 7.f : 127.f;
     // element i of the new (k, v) rows, 0 <= i < 2 D: as this step gives it
-    // (raw), and as the cache will hold it (nv)
-    auto raw = [&](int i) { return STREAM ? bf2f(kn[i]) : newv[i]; };
+    // (raw), its code in a quantized row (code_of), and as the cache will
+    // hold it (nv)
+    auto raw = [&](int i) { return STREAM ? bf2f(i < D ? kn[i] : vn[i - D]) : newv[i]; };
+    auto code_of = [&](int i) {
+        const float sc = amax[i / D] / QMAX;
+        const float inv = sc > 0.f ? 1.f / sc : 0.f;
+        float c = rintf(__fmul_rn(raw(i), inv));
+        if (KIND == Q4_SCORE) c = fminf(fmaxf(c, -8.f), 7.f);
+        return c;
+    };
     auto nv = [&](int i) {
         if (!STREAM) return newv[i];
-        if (!SCALED) return bf2f(kn[i]);
-        return bf2f(f2bf(__fmul_rn((float)code8[i], bf2f(f2bf(amax[i / D] / QMAX)))));
+        if (!SCALED) return raw(i);
+        return bf2f(f2bf(__fmul_rn(code_of(i), bf2f(f2bf(amax[i / D] / QMAX)))));
     };
     if (self) {  // the new row as the cache will hold it, and its self scores
         if (!STREAM) {
@@ -831,23 +867,16 @@ flash_decode_kernel(const Args a) {
                 if (lane == 0) amax[warp] = am;
             }
             __syncthreads();
-            for (int i = tid; i < 2 * D; i += blockDim.x) {
-                const int w = i / D;
-                const float sc = amax[w] / QMAX;
-                const float inv = sc > 0.f ? 1.f / sc : 0.f;
-                float c = rintf(__fmul_rn(raw(i), inv));
-                if (KIND == Q4_SCORE) c = fminf(fmaxf(c, -8.f), 7.f);
-                if (STREAM) {
-                    code8[i] = (int8_t)c;
-                } else {
-                    code[i] = (int)c;
-                    newv[i] = bf2f(f2bf(__fmul_rn(c, bf2f(f2bf(sc)))));
-                }
+            for (int i = tid; i < 2 * D && !STREAM; i += blockDim.x) {
+                const float c = code_of(i);
+                code[i] = (int)c;
+                newv[i] = bf2f(f2bf(__fmul_rn(c, bf2f(f2bf(amax[i / D] / QMAX)))));
             }
             __syncthreads();
         }
         for (int g = warp; g < Gb; g += NW) {
-            const __nv_bfloat16* qg = reinterpret_cast<const __nv_bfloat16*>(qs + g * L.qp);
+            const __nv_bfloat16* qg = STREAM ? qh + (size_t)g * D
+                                             : reinterpret_cast<const __nv_bfloat16*>(qs + g * L.qp);
             float sc = 0.f;
             for (int d = lane; d < D; d += 32) sc += bf2f(qg[d]) * nv(d);
             sc = warp_sum(sc) * a.scale;
@@ -920,7 +949,7 @@ flash_decode_kernel(const Args a) {
         }
         return;
     }
-    auto cd = [&](int i) { return STREAM ? (int)code8[i] : code[i]; };
+    auto cd = [&](int i) { return STREAM ? (int)code_of(i) : code[i]; };
     if (KIND == Q4_SCORE) {  // plane-split: byte i = code i | code i+D/2 << 4
         const int D2 = D / 2;
         for (int i = tid; i < 2 * D2; i += blockDim.x) {
@@ -962,7 +991,7 @@ static cudaError_t launch_kind(const Args& a, int nsplit, cudaStream_t st) {
 #if FD_WIDE
     if (Dp <= 256) return cudaErrorInvalidValue;  // the other library's
     if (Dp <= 512) return launch_dmax<KIND, 512, 512>(a, nsplit, st);
-    return launch_dmax<KIND, DCH, MAXD>(a, nsplit, st);
+    return launch_dmax<KIND, DCH, DSTREAM>(a, nsplit, st);
 #else
     if (Dp <= 64) return launch_dmax<KIND, 64, 64>(a, nsplit, st);
     if (Dp <= 128) return launch_dmax<KIND, 128, 128>(a, nsplit, st);
@@ -978,7 +1007,7 @@ static cudaError_t launch_flash_decode(
         void* part_ml, void* tickets, int B, int S, int H, int Hkv, int D,
         int nsplit, int rows_per_split, float scale, float softcap,
         cudaStream_t st) {
-    if (Hkv <= 0 || H % Hkv || D < 1 || D > MAXD || (kind == Q4_SCORE && D % 2)
+    if (Hkv <= 0 || H % Hkv || D < 1 || (kind == Q4_SCORE && D % 2)
         || nsplit < 1
         || nsplit > MAXNS || rows_per_split % TR
         || (long long)nsplit * rows_per_split < S)

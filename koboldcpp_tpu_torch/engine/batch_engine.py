@@ -179,13 +179,19 @@ class BatchedEngine:
     KV, 1 Q8, 2 Q4 (slot cache, or pool when paged). pool_fraction: the
     paged pool's pages as a share of n_slots full contexts.
     use_contextshift: context shift on the slot cache (always off when
-    paged or quantized). KCPP_BATCH_DEV_SAMPLE=0 samples every slot on the
+    paged or quantized). mesh: the parallel/sharding.py Mesh the model's
+    params are sharded over (tensor / expert parallel: the forward runs
+    on the rank's shard; data parallel: the rank holds the slots of its
+    dp index, each forward runs its rows, and the logits of every slot
+    are gathered over dp; a paged pool is whole on each dp index, its
+    pages written only by their slot's). KCPP_BATCH_DEV_SAMPLE=0 samples
+    every slot on the
     host."""
 
     def __init__(self, model: Model, max_context: int = 2048, n_slots: int = 4,
                  paged: bool = False, page_size: int = 64, device=None,
                  quantkv: int = 0, pool_fraction: float = 1.0,
-                 use_contextshift: bool = True, clip_model=None):
+                 use_contextshift: bool = True, clip_model=None, mesh=None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model params live on {model.device}, the "
@@ -202,6 +208,15 @@ class BatchedEngine:
         self.tokenizer = model.tokenizer
         self.max_context = max_context
         self.n_slots = n_slots
+        self.mesh = mesh
+        # data parallel: this rank's slots [dp_lo, dp_lo + slots_local)
+        self._dp = mesh.shape["dp"] if mesh is not None else 1
+        if n_slots % self._dp:
+            raise ValueError(f"a batch of {n_slots} slots does not divide "
+                             f"over dp={self._dp}")
+        self.slots_local = n_slots // self._dp
+        self.dp_lo = (mesh.coords["dp"] * self.slots_local
+                      if mesh is not None else 0)
         self.paged = paged
         self.quantkv = quantkv
         # context shift needs in-place row surgery on the slot cache; the
@@ -247,9 +262,13 @@ class BatchedEngine:
                                     cfg.head_dim,
                                     quantized=_kv_quant(self.quantkv),
                                     device=self.device)
-        return init_cache(cfg.n_layers, self.n_slots, self.max_context,
+        return init_cache(cfg.n_layers, self.slots_local, self.max_context,
                           cfg.n_kv_heads, cfg.head_dim, device=self.device,
                           quantized=_kv_quant(self.quantkv))
+
+    def _reset_cache(self):
+        """A fresh cache (after a failed step; mirrored on every rank)."""
+        self.cache = self._new_cache()
 
     # -- public API --------------------------------------------------------
     def generate(self, prompt, params: GenParams,
@@ -335,7 +354,7 @@ class BatchedEngine:
                 self.allocator.free = list(
                     range(self.allocator.n_pages - 1, -1, -1))
                 self.allocator.slot_pages = {}
-            self.cache = self._new_cache()
+            self._reset_cache()
             self._bias_dev = None
             self._dyn_rows = None
             self._recent_dirty = set(range(self.n_slots))
@@ -473,7 +492,11 @@ class BatchedEngine:
 
     def _kv_shift_slot(self, idx: int, start: int, end: int):
         """Context-shift surgery on ONE slot's cache rows: slide and
-        re-rotate (`_shift_rows`), in place; other slots are untouched."""
+        re-rotate (`_shift_rows`), in place; other slots are untouched
+        (under data parallelism the slot's dp index does it)."""
+        idx -= self.dp_lo
+        if not 0 <= idx < self.slots_local:
+            return
         freqs = rope_frequencies(self.cfg, self.device)
         heads = self.cache.heads
         for kl, vl in zip(self.cache.k, self.cache.v):
@@ -498,7 +521,7 @@ class BatchedEngine:
         return self._to_dev(np.stack([self.allocator.table(i) for i in idx]))
 
     def _forward(self, tok: torch.Tensor, pos: torch.Tensor,
-                 table: torch.Tensor | None = None, cache=None,
+                 table: torch.Tensor | None = None, rows: int | None = None,
                  **splice) -> torch.Tensor:
         """Last-token logits (B, V) f32 of one batched forward. The output
         projection runs over the forward's B rows, as in the JAX
@@ -506,8 +529,20 @@ class BatchedEngine:
         admission wave or a decode step (so on a kind whose T=1 and T>1
         kernels round otherwise, a request's first token may depend on
         whether it prefilled alone, as there). splice: the forwards'
-        input_embeds / embed_mask (an image chunk)."""
-        cache = self.cache if cache is None else cache
+        input_embeds / embed_mask (an image chunk). rows: the one slot a
+        single-row chunk runs on (the slot cache's rows of it as a
+        one-sequence cache, written in place), or None for a forward over
+        every slot. Under data parallelism each dp index runs its slots'
+        rows (a single-row chunk on its slot's index, the others with
+        positions -1, which write nothing) and the logits are gathered."""
+        if self._dp > 1:
+            return self._forward_dp(tok, pos, table, rows, splice)
+        return self._forward_local(tok, pos, table, rows, splice)
+
+    def _forward_local(self, tok, pos, table, rows, splice) -> torch.Tensor:
+        cache = self.cache
+        if rows is not None and not self.paged:
+            cache = cache_rows(self.cache, rows)
         if self.paged:
             lg, _ = model_llama.forward_paged(
                 self.model.params, self.cfg, tok, pos, cache, table,
@@ -516,6 +551,22 @@ class BatchedEngine:
             lg, _ = model_llama.forward(self.model.params, self.cfg, tok,
                                         pos, cache, last_only=True, **splice)
         return lg[:, -1]
+
+    def _forward_dp(self, tok, pos, table, rows, splice) -> torch.Tensor:
+        from ..parallel import comm
+
+        lo, n = self.dp_lo, self.slots_local
+        if rows is None:
+            sl = slice(lo, lo + n)
+            lg = self._forward_local(
+                tok[sl], pos[sl], None if table is None else table[sl], None,
+                {k: v[sl] for k, v in splice.items()})
+            return comm.all_gather(lg, self.mesh.group("dp"), dim=0)
+        own = lo <= rows < lo + n
+        lg = self._forward_local(tok, pos if own else torch.full_like(pos, -1),
+                                 table, rows - lo if own else 0, splice)
+        lg = comm.all_gather(lg, self.mesh.group("dp"), dim=0)
+        return lg[rows // n:rows // n + 1]
 
     # -- prefill -------------------------------------------------------------
     def _prefill_chunk(self, slot: _Slot):
@@ -545,12 +596,12 @@ class BatchedEngine:
         if self.paged:
             self.allocator.ensure(slot.idx, pos0 + len(chunk))
             lg = self._forward(self._to_dev(tok), self._to_dev(ppos),
-                               self._table([slot.idx]), **splice)
+                               self._table([slot.idx]), rows=slot.idx,
+                               **splice)
         else:
             # the slot's rows as a one-sequence cache: views, written in place
-            sub = cache_rows(self.cache, slot.idx)
             lg = self._forward(self._to_dev(tok), self._to_dev(ppos),
-                               cache=sub, **splice)
+                               rows=slot.idx, **splice)
         slot.context.extend(chunk)
         slot.pending_prefill = slot.pending_prefill[len(chunk):]
         self._recent_dirty.add(slot.idx)

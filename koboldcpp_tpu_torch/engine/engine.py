@@ -189,13 +189,17 @@ class Engine:
     its cache stays bf16 under any quantkv, with no context shift or smart
     context; the recurrent, embedding and encoder-decoder architectures
     take theirs, none with a KV cache of the llama kind (quantkv is not
-    read)."""
+    read). pp_mesh / sp_mesh (parallel/sharding.py Meshes of one axis,
+    "pp" or "sp"): this rank's stage of a pipeline or its rows of a
+    sequence-sharded context (`_parallel_branch`); a tensor-parallel
+    shard needs nothing here (models/llama.py reads params["tp"])."""
 
     IMG_SENTINEL = IMG_SENTINEL
 
     def __init__(self, model: Model, max_context: int = 2048, device=None,
                  quantkv: int = 0, use_smartcontext: bool = False,
-                 use_contextshift: bool = True, clip_model=None):
+                 use_contextshift: bool = True, clip_model=None,
+                 pp_mesh=None, sp_mesh=None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model params live on {model.device}, the "
@@ -245,6 +249,9 @@ class Engine:
                                     cfg.n_kv_heads, cfg.head_dim,
                                     device=self.device,
                                     quantized=_kv_quant(quantkv))
+        self.pp_mesh, self.sp_mesh = pp_mesh, sp_mesh
+        if pp_mesh is not None or sp_mesh is not None:
+            self._parallel_branch(model, pp_mesh, sp_mesh)
         self.context_tokens: list[int] = []  # tokens currently in the cache
         self._stoch_chunks: dict[tuple, Callable] = {}
         self.abort_event = threading.Event()
@@ -254,6 +261,34 @@ class Engine:
         self.total_gens = 0
         self.stream_tokens: list[str] = []  # streaming state (polling API)
         self.generation_finished = True
+
+    def _parallel_branch(self, model: Model, pp_mesh, sp_mesh):
+        """The JAX engine's pipeline and sequence-parallel branches
+        (engine.py:199-275): the llama-family path over this rank's layer
+        stage (pp_mesh: `--pipeline N`) or its rows of the context
+        (sp_mesh: `--seqparallel N`), with no context shift, smart
+        context, flash prefill or device chunks (the JAX engine's
+        `_std_path` is False there); fast-forward still applies."""
+        if not self._std_path or self.quantkv:
+            raise ValueError("pipeline and sequence parallelism serve the "
+                             "llama-family path over a bf16 KV cache")
+        self.use_flash_prefill = False
+        self.use_contextshift = self.use_smartcontext = False
+        if sp_mesh is not None:
+            from ..parallel.sequence import check_sp_supported, shard_cache_sp
+
+            check_sp_supported(self.cfg)
+            self._n_sp = sp_mesh.shape["sp"]
+            self.cache = shard_cache_sp(self.cache, sp_mesh)
+            return
+        from ..parallel.pipeline import shard_stacked_for_pp
+
+        sparams = model_llama.stack_layers(model.params)
+        if "layers_stacked" not in sparams:
+            raise ValueError("pipeline serving needs homogeneous layers "
+                             "(stack_layers could not stack this model)")
+        model.params, self.cache = shard_stacked_for_pp(sparams, self.cache,
+                                                        pp_mesh)
 
     # -- embeddings and the encoder --------------------------------------
     def embed(self, texts: list[str]) -> np.ndarray:
@@ -310,9 +345,48 @@ class Engine:
     def _forward(self, tok: torch.Tensor, pos: torch.Tensor,
                  **kw) -> torch.Tensor:
         with torch.inference_mode():
-            logits, _ = self._mod.forward(self.model.params, self.cfg, tok,
-                                          pos, self.cache, **kw)
+            if self.pp_mesh is not None:
+                from ..parallel.pipeline import (microbatches_for,
+                                                 pipeline_forward)
+
+                M = microbatches_for(tok.shape[0], self.pp_mesh.shape["pp"])
+                logits, _ = pipeline_forward(
+                    self.model.params, self.cfg, tok, pos, self.cache,
+                    self.pp_mesh, microbatches=M, last_only=True)
+            elif self.sp_mesh is not None:
+                from ..parallel.sequence import sp_forward
+
+                logits, _ = sp_forward(self.model.params, self.cfg, tok, pos,
+                                       self.cache, self.sp_mesh,
+                                       last_index=kw.get("last_index"))
+            else:
+                logits, _ = self._mod.forward(self.model.params, self.cfg,
+                                              tok, pos, self.cache, **kw)
         return logits
+
+    def _sp_eval(self, tokens: list[int], start_pos: int) -> torch.Tensor:
+        """Sequence-parallel evaluation (the JAX `_sp_eval`): a fresh
+        prompt goes through the ring-attention prefill in ONE forward,
+        end-padded to a multiple of 16 n rows; a single token, or a
+        reused context's tail token by token, steps through the
+        distributed decode (each row lands on its owner rank)."""
+        dev = self.device
+        if len(tokens) == 1:
+            return self._forward(
+                torch.tensor([[tokens[0]]], dtype=torch.int64, device=dev),
+                torch.tensor([[start_pos]], dtype=torch.int64,
+                             device=dev))[0, -1]
+        if start_pos > 0:
+            out = None
+            for i, t in enumerate(tokens):
+                out = self._sp_eval([t], start_pos + i)
+            return out
+        n = self._n_sp
+        b = min(-(-len(tokens) // (16 * n)) * (16 * n), self.max_context)
+        tok = torch.tensor([list(tokens) + [0] * (b - len(tokens))],
+                           dtype=torch.int64, device=dev)
+        pos = torch.arange(b, dtype=torch.int64, device=dev)[None]
+        return self._forward(tok, pos, last_index=len(tokens) - 1)[0, -1]
 
     def _eval_chunk(self, tokens: list[int], start_pos: int) -> torch.Tensor:
         """Evaluate tokens at positions [start_pos, ...), left-padded to a
@@ -328,6 +402,8 @@ class Engine:
         gathered at the last real row; an encoder-decoder chunk (the
         decoder's start token, or a rewind's last token) is its rows
         unpadded."""
+        if self.sp_mesh is not None:
+            return self._sp_eval(tokens, start_pos)
         n = len(tokens)
         b = _bucket(n)
         pad = b - n
@@ -519,7 +595,8 @@ class Engine:
         on-device additive mask. Off under KCPP_FAST_DECODE=0 and off the
         llama-family path (the JAX engine's `_std_path`)."""
         if (os.environ.get("KCPP_FAST_DECODE", "1") != "1"
-                or not self._std_path):
+                or not self._std_path or self.pp_mesh is not None
+                or self.sp_mesh is not None):
             return False
         sp = params.sampler
         return (grammar is None and not params.banned_phrases
@@ -538,7 +615,8 @@ class Engine:
         from .device_sampler import supported_order
 
         if (os.environ.get("KCPP_FAST_DECODE", "1") != "1"
-                or not self._std_path):
+                or not self._std_path or self.pp_mesh is not None
+                or self.sp_mesh is not None):
             return False
         sp = params.sampler
         if not (grammar is None and not params.banned_phrases
@@ -904,6 +982,10 @@ class Engine:
         if self.embedding or self.encdec:
             raise ValueError(f"{what}: an embedding or encoder-decoder model "
                              "keeps no state between requests")
+        if (self.pp_mesh is not None or self.sp_mesh is not None
+                or "tp" in self.model.params):
+            raise ValueError(f"{what}: a sharded engine holds only this "
+                             "rank's part of the cache")
         if isinstance(self.cache, QuantKVCache):
             raise ValueError(
                 f"{what}: a quantized KV cache (--quantkv) cannot be saved or "

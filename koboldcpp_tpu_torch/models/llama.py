@@ -50,6 +50,15 @@ gather form by default, the dense-EP form under `cfg.moe_dense_ep` and the
 sorted-EP form (ops/moe.py) under `cfg.moe_sorted_ep`, as in the JAX
 `_moe_ffn`; the expert products are torch.matmul, as the JAX ones are
 einsums outside any Pallas kernel.
+
+Under tensor / expert parallelism the params are one rank's shard
+(parallel/sharding.py) and carry a TensorShard as params["tp"]: the rank
+computes its heads and FFN columns, sums the row-parallel `wo` / `w_down`
+products over tp, gathers the vocab-sharded head's logits, runs a weight
+the shard kept whole through its own product (`_matmul`), and picks the
+flash-decode kernel on the whole model's kv heads, as JAX does. The
+stages `embed`, `layers_body` and `head` are also the pipeline's and the
+sequence-parallel forward's (parallel/pipeline.py, sequence.py).
 """
 from __future__ import annotations
 
@@ -68,6 +77,7 @@ from ..ops.ffn_fused import ffn_fused
 from ..ops.flash_prefill import flash_prefill_attention
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.rope import apply_rope, rope_frequencies, yarn_attn_scale
+from ..parallel.sharding import KeptWhole
 from .config import ModelConfig
 
 Params = dict[str, Any]
@@ -107,16 +117,26 @@ def _head_counts(cfg: ModelConfig, li: int) -> tuple[int, int]:
             kvc[li] if kvc else cfg.n_kv_heads)
 
 
+def _decode_kv_heads(params: Params, cfg: ModelConfig) -> int:
+    """The kv heads the flash-decode dispatch is decided on: the whole
+    model's under tensor parallelism (JAX decides on the global shape;
+    the kernel then runs on the rank's heads), else the config's."""
+    tp = params.get("tp")
+    return tp.n_kv_heads if tp is not None else cfg.n_kv_heads
+
+
 def check_supported(params: Params, cfg: ModelConfig, device=None) -> None:
     """Raise NotImplementedError, on a CUDA `device`, for a head shape that
     the T=1 attention kernels (K5, K6, K8-K10) are not built for: each
     layer's query heads over the cache's kv heads, on the layers that reach
-    them (openelm's narrower layers, with fewer kv heads, do not). K4 is
-    built for head_dim 64, 128 and 256, the shapes the JAX engine turns
-    flash prefill on for; the engine leaves it off for any other."""
+    them (openelm's narrower layers, with fewer kv heads, do not); under
+    tensor parallelism the rank's heads, where the whole model's shape
+    sends it to the kernels. K4 is built for head_dim 64, 128 and 256, the
+    shapes the JAX engine turns flash prefill on for; the engine leaves it
+    off for any other."""
     if (torch.device(device or "cpu").type == "cuda"
-            and flash_decode.supported_batched(1, cfg.n_kv_heads,
-                                               cfg.head_dim)):
+            and flash_decode.supported_batched(
+                1, _decode_kv_heads(params, cfg), cfg.head_dim)):
         heads = {nh for nh, nkv in (_head_counts(cfg, li)
                                     for li in range(cfg.n_layers))
                  if nkv == cfg.n_kv_heads}
@@ -227,6 +247,14 @@ def _pad_kv(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor):
     return torch.cat([k, z], dim=2), torch.cat([v, z.to(v.dtype)], dim=2)
 
 
+def _matmul(x: torch.Tensor, w, out_dtype=None) -> torch.Tensor:
+    """x @ w.T through ops/linear.py, or the product of a weight that a
+    tensor-parallel shard keeps whole (parallel/sharding.py KeptWhole)."""
+    if isinstance(w, KeptWhole):
+        return w.matmul(x, out_dtype)
+    return linear.matmul(x, w, out_dtype)
+
+
 def _scaled(y: torch.Tensor, layer: Params, key: str) -> torch.Tensor:
     """bitnet's per-projection scalar weight scale, where the layer has
     one (the JAX `_scaled`)."""
@@ -244,10 +272,10 @@ def _ffn(x: torch.Tensor, layer: Params, act: str = "silu",
     the biases, sub-norm or scales."""
     actf = _ACTS.get(act, _GELU_TANH)
     if not gated:  # gpt2 / neox style
-        up = linear.matmul(x, layer["w_up"])
+        up = _matmul(x, layer["w_up"])
         if "b_up" in layer:
             up = up + layer["b_up"].to(up.dtype)
-        down = linear.matmul(actf(up.float()).to(x.dtype), layer["w_down"])
+        down = _matmul(actf(up.float()).to(x.dtype), layer["w_down"])
         if "b_down" in layer:
             down = down + layer["b_down"].to(down.dtype)
         return down
@@ -257,13 +285,13 @@ def _ffn(x: torch.Tensor, layer: Params, act: str = "silu",
             y = ffn_fused(x, layer["w_gateup"], layer["w_down"])
             if y is not None:
                 return y
-        gu = linear.matmul(x, layer["w_gateup"])
+        gu = _matmul(x, layer["w_gateup"])
         F_ = gu.shape[-1] // 2
         gate, up = gu[..., :F_], gu[..., F_:]
     else:
-        gate = _scaled(linear.matmul(x, layer["w_gate"]), layer,
+        gate = _scaled(_matmul(x, layer["w_gate"]), layer,
                        "ffn_gate_scale")
-        up = _scaled(linear.matmul(x, layer["w_up"]), layer, "ffn_up_scale")
+        up = _scaled(_matmul(x, layer["w_up"]), layer, "ffn_up_scale")
     if "b_gate" in layer:
         gate = gate + layer["b_gate"].to(gate.dtype)
     if "b_up" in layer:
@@ -271,7 +299,7 @@ def _ffn(x: torch.Tensor, layer: Params, act: str = "silu",
     a = actf(gate.float()).to(x.dtype) * up
     if "ffn_sub_norm" in layer:  # bitnet: RMS between activation and down
         a = rms_norm(a, layer["ffn_sub_norm"], eps)
-    down = _scaled(linear.matmul(a, layer["w_down"]), layer, "ffn_down_scale")
+    down = _scaled(_matmul(a, layer["w_down"]), layer, "ffn_down_scale")
     if "b_down" in layer:
         down = down + layer["b_down"].to(down.dtype)
     return down
@@ -286,7 +314,8 @@ def _top_k(w: torch.Tensor, k: int):
 
 
 def _moe_gather(xt, topi, topw, wg, wu, wd, act,
-                every_expert: bool) -> torch.Tensor:
+                every_expert: bool, e0: int = 0,
+                n_experts: int = 0) -> torch.Tensor:
     """The JAX gather form (each row through its own k experts, the outputs
     summed over k by topw) without its per-row copy of the expert weights
     (`wg[topi]`, ~120 GB a projection for a 512-row chunk at Mixtral's
@@ -299,28 +328,35 @@ def _moe_gather(xt, topi, topw, wg, wu, wd, act,
     form's 1.0). Otherwise the assignments are grouped by expert
     (`moe.expert_order`, the sort the sorted-EP form's dispatch uses, its
     bounds read on the host) and each expert runs one product over its
-    rows."""
+    rows. Under expert parallelism wg / wu / wd hold the n_experts' experts
+    from e0 on, the other experts' rows add nothing here and the caller
+    sums the ranks' shares."""
     N, C = xt.shape
     k = topi.shape[1]
-    E = wg.shape[0]
+    E_loc = wg.shape[0]
+    E = n_experts or E_loc
     if every_expert:
         dense_w = torch.zeros(N, E, device=xt.device).scatter_(1, topi, topw)
-        d = moe.expert_products(xt[None].expand(E, N, C), wg, wu, wd, act)
-        return torch.einsum("enc,ne->nc", d, dense_w)
+        d = moe.expert_products(xt[None].expand(E_loc, N, C), wg, wu, wd, act)
+        return torch.einsum("enc,ne->nc", d, dense_w[:, e0:e0 + E_loc])
     order, starts = moe.expert_order(topi.reshape(-1), E)
     xs = xt[order // k]
-    ys = torch.empty(N * k, C, device=xt.device)
+    # under expert parallelism the other experts' rows stay zero
+    ys = (torch.empty if E_loc == E else torch.zeros)(N * k, C,
+                                                      device=xt.device)
     starts = starts.tolist()
-    for e in range(E):
+    for e in range(e0, e0 + E_loc):
         a, b = starts[e], starts[e + 1]
         if b > a:
-            ys[a:b] = moe.expert_products(xs[a:b], wg[e], wu[e], wd[e], act)
+            ys[a:b] = moe.expert_products(xs[a:b], wg[e - e0], wu[e - e0],
+                                          wd[e - e0], act)
     d = torch.empty_like(ys)
     d[order] = ys
     return (d.reshape(N, k, C) * topw[..., None]).sum(dim=1)
 
 
-def _moe_ffn(x: torch.Tensor, layer: Params, cfg: ModelConfig) -> torch.Tensor:
+def _moe_ffn(x: torch.Tensor, layer: Params, cfg: ModelConfig,
+             tp=None) -> torch.Tensor:
     """The JAX `_moe_ffn`: a router product cast to f32, softmax, top-k
     (renormalized under `cfg.moe_norm_topk`: mixtral, granitemoe, dbrx,
     grok, arctic; not qwen2moe or olmoe), a gated FFN per selected expert
@@ -328,7 +364,9 @@ def _moe_ffn(x: torch.Tensor, layer: Params, cfg: ModelConfig) -> torch.Tensor:
     a sigmoid gate. Forms: gather (default) and dense-EP
     (`cfg.moe_dense_ep`: every expert over every token), both
     `_moe_gather`, and sorted-EP (`cfg.moe_sorted_ep`: ops/moe.py
-    `moe_ffn_ep`)."""
+    `moe_ffn_ep`). Under expert parallelism (`tp`, a TensorShard with an
+    expert range) each rank runs its experts and the shares are summed
+    over the expert axis before the shared expert adds in."""
     B, T, C = x.shape
     act = (_GELU_TANH if (cfg.extras or {}).get("moe_act", "silu") == "gelu"
            else F.silu)
@@ -340,14 +378,20 @@ def _moe_ffn(x: torch.Tensor, layer: Params, cfg: ModelConfig) -> torch.Tensor:
     wg = layer["ffn_gate_exps"].data["w"]  # (E, F, C)
     wu = layer["ffn_up_exps"].data["w"]
     wd = layer["ffn_down_exps"].data["w"]  # (E, C, F)
+    shard = tp is not None and tp.experts is not None
+    e0, n_exp = (tp.experts[0], tp.n_experts) if shard else (0, 0)
     if cfg.moe_sorted_ep:
         out = moe.moe_ffn_ep(xt, topi, topw, wg, wu, wd, act,
-                             capacity_factor=cfg.moe_capacity_factor)
+                             capacity_factor=cfg.moe_capacity_factor,
+                             experts=(e0, n_exp) if shard else None)
     else:
         # dense-EP, and the gather form's single-token step, run every
         # expert over every token
         out = _moe_gather(xt, topi, topw, wg, wu, wd, act,
-                          every_expert=cfg.moe_dense_ep or T == 1)
+                          every_expert=cfg.moe_dense_ep or T == 1, e0=e0,
+                          n_experts=n_exp)
+    if shard:  # the combine: every rank's experts
+        out = tp.reduce_experts(out)
     if "ffn_up_shexp" in layer:  # qwen2moe's shared expert, sigmoid-gated
         sg = F.silu(linear.matmul(xt, layer["ffn_gate_shexp"]).float())
         su = linear.matmul(xt, layer["ffn_up_shexp"]).float()
@@ -389,8 +433,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     # the JAX forward's conditions, less the per-layer `local`
     prefill = flash_prefill and not softcap and not cfg.use_alibi
     decode = (T == 1 and not cfg.use_alibi and not (quant and cache.bits == 4)
-              and flash_decode.supported_batched(1, cfg.n_kv_heads,
-                                                 cfg.head_dim))
+              and flash_decode.supported_batched(
+                  1, _decode_kv_heads(params, cfg), cfg.head_dim))
 
     def attend(li, q, k, v, scale, local):
         nh, nkv = q.shape[2], k.shape[2]
@@ -439,8 +483,8 @@ def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     softcap = cfg.attn_logit_softcap
     plain = _PlainAttention(cfg, positions, page_table.shape[1] * P)
     decode = (T == 1 and not cfg.use_alibi
-              and flash_decode.supported_batched(1, cfg.n_kv_heads,
-                                                 cfg.head_dim))
+              and flash_decode.supported_batched(
+                  1, _decode_kv_heads(params, cfg), cfg.head_dim))
 
     def attend(li, q, k, v, scale, local):
         nh, nkv = q.shape[2], k.shape[2]
@@ -476,14 +520,20 @@ def _run(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     and k / v its kv heads (openelm's differ by layer). The branches and
     their order are the JAX `forward`'s. layers: the per-layer params
     (default params["layers"]). splice: (input_embeds, embed_mask), the
-    rows that take precomputed embeddings, or (None, None)."""
-    B, T = tokens.shape
-    dev = tokens.device
-    freqs = _freqs(cfg, dev) if cfg.use_rope else None
-    scale = (cfg.attn_scale if cfg.attn_scale > 0
-             else cfg.head_dim ** -0.5) * yarn_attn_scale(cfg)
-    eps = cfg.rms_norm_eps
+    rows that take precomputed embeddings, or (None, None). The three
+    stages (`embed`, `layers_body`, `head`) are also the parallel forms'
+    pieces (parallel/pipeline.py, parallel/sequence.py)."""
+    x = embed(params, cfg, tokens, positions, splice)
+    x = layers_body(params, cfg, x, positions, attend, layers)
+    return head(params, cfg, x, last_only, last_index)
 
+
+def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+          positions: torch.Tensor, splice=(None, None)) -> torch.Tensor:
+    """The token embeddings (B, T, C) with the embedding scale, learned
+    positions, bloom's embedding norm and the image splice."""
+    dev = tokens.device
+    eps = cfg.rms_norm_eps
     emb_w = params["tok_embd"]
     x = (emb_w.data["w"] if isinstance(emb_w, linear.QTensor) else emb_w)[tokens]
     if cfg.embedding_scale:
@@ -500,7 +550,20 @@ def _run(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         # embeddings (LLaVA image patches; the reference splices them by
         # sentinel segments, gpttype_adapter.cpp:3406-3475)
         x = torch.where(embed_mask[:, :, None], input_embeds.to(x.dtype), x)
+    return x
 
+
+def layers_body(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor, attend, layers=None) -> torch.Tensor:
+    """The decoder layers over activations x (B, T, C) at `positions`
+    (`_run`'s `attend` and `layers`); under tensor parallelism
+    (params["tp"]) the row-parallel products are summed over tp."""
+    B, T = x.shape[:2]
+    freqs = _freqs(cfg, x.device) if cfg.use_rope else None
+    scale = (cfg.attn_scale if cfg.attn_scale > 0
+             else cfg.head_dim ** -0.5) * yarn_attn_scale(cfg)
+    eps = cfg.rms_norm_eps
+    tp = params.get("tp")  # parallel/sharding.py TensorShard, or None
     D = cfg.head_dim
     res_s = cfg.residual_scale or 1.0
     ex = cfg.extras or {}
@@ -515,16 +578,16 @@ def _run(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         h = x if swin else _norm(x, layer, "attn_norm", cfg)
         if "wqkv" in layer:  # fused projection (one kernel launch; openelm:
             # head-major [q heads | k heads | v heads], the same slices)
-            qkv = linear.matmul(h, layer["wqkv"])
+            qkv = _matmul(h, layer["wqkv"])
             if "bqkv" in layer:
                 qkv = qkv + layer["bqkv"].to(qkv.dtype)
             q = qkv[..., :qdim]
             k = qkv[..., qdim:qdim + kvdim]
             v = qkv[..., qdim + kvdim:]
         else:
-            q = _scaled(linear.matmul(h, layer["wq"]), layer, "wq_scale")
-            k = _scaled(linear.matmul(h, layer["wk"]), layer, "wk_scale")
-            v = _scaled(linear.matmul(h, layer["wv"]), layer, "wv_scale")
+            q = _scaled(_matmul(h, layer["wq"]), layer, "wq_scale")
+            k = _scaled(_matmul(h, layer["wk"]), layer, "wk_scale")
+            v = _scaled(_matmul(h, layer["wv"]), layer, "wv_scale")
         if "bq" in layer:
             q = q + layer["bq"].to(q.dtype)
             k = k + layer["bk"].to(k.dtype)
@@ -556,8 +619,10 @@ def _run(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         attn_out = attn_out.to(x.dtype).reshape(B, T, qdim)
         if "attn_sub_norm" in layer:  # bitnet: RMS between attention and wo
             attn_out = rms_norm(attn_out, layer["attn_sub_norm"], eps)
-        attn_out = _scaled(linear.matmul(attn_out, layer["wo"]), layer,
-                           "wo_scale")
+        attn_out = _matmul(attn_out, layer["wo"])
+        if tp is not None:  # row-parallel wo: the sum over tp
+            attn_out = tp.reduce(attn_out)
+        attn_out = _scaled(attn_out, layer, "wo_scale")
         if "bo" in layer:
             attn_out = attn_out + layer["bo"].to(attn_out.dtype)
         if "attn_post_norm" in layer:  # gemma2 sandwich norm, grok
@@ -574,9 +639,11 @@ def _run(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             x = x + res_s * attn_out
             ffn_in = x if swin else _norm(x, layer, "ffn_norm", cfg)
         if "ffn_gate_inp" in layer and "ffn_norm_exps" not in layer:
-            ffn_out = _moe_ffn(ffn_in, layer, cfg)
+            ffn_out = _moe_ffn(ffn_in, layer, cfg, tp)
         else:
             ffn_out = _ffn(ffn_in, layer, cfg.act, cfg.ffn_gated, eps)
+            if tp is not None:  # row-parallel w_down (b_down on rank 0)
+                ffn_out = tp.reduce(ffn_out)
         if "ffn_post_norm" in layer:  # gemma2 sandwich norm, grok
             ffn_out = rms_norm(ffn_out, layer["ffn_post_norm"], eps)
         if swin:
@@ -586,14 +653,27 @@ def _run(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             # arctic: a residual MoE branch on the layer input, added after
             # the dense FFN's residual
             x = x + _moe_ffn(rms_norm(x0, layer["ffn_norm_exps"], eps),
-                             layer, cfg)
+                             layer, cfg, tp)
+    return x
 
+
+def head(params: Params, cfg: ModelConfig, x: torch.Tensor,
+         last_only: bool = False,
+         last_index: torch.Tensor | None = None) -> torch.Tensor:
+    """Logits f32 of x (B, T, C): of the row `last_index` of each sequence,
+    the last row (last_only) or every row; the final norm, the head (its
+    vocab shards gathered under tensor parallelism), the output bias, the
+    logit scale and the final softcap."""
+    B = x.shape[0]
+    tp = params.get("tp")
     if last_index is not None:
-        x = x[torch.arange(B, device=dev), last_index][:, None, :]
+        x = x[torch.arange(B, device=x.device), last_index][:, None, :]
     elif last_only:
         x = x[:, -1:, :]
     x = _norm(x, params, "output_norm", cfg)
-    logits = linear.matmul(x, params["output"], out_dtype=torch.float32)
+    logits = _matmul(x, params["output"], out_dtype=torch.float32)
+    if tp is not None:  # the vocab-sharded head: every rank's rows
+        logits = tp.gather_vocab(logits)
     if "output_bias" in params:
         logits = logits + params["output_bias"]
     if cfg.logit_scale:
@@ -765,8 +845,8 @@ def forward_stacked(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     softcap = cfg.attn_logit_softcap
     if (is_pooled(cache) and T == 1 and not cfg.sliding_window
             and not cfg.use_alibi
-            and flash_decode.supported_batched(1, cfg.n_kv_heads,
-                                               cfg.head_dim)):
+            and flash_decode.supported_batched(
+                1, _decode_kv_heads(params, cfg), cfg.head_dim)):
         ids = _layer_ids(L, tokens.device)
 
         def attend(li, q, k, v, scale, local):

@@ -20,12 +20,12 @@ apply the scales on the score side. Over an f32 cache q and p are rounded
 to bf16 and the scores and p . V read the f32 rows, as the JAX kernel's
 bf16-by-f32 dots do.
 
-The kernel takes any head_dim up to 4800 (even for K10's nibble planes;
+The kernel takes any head_dim (an even one for K10's nibble planes;
 padded to a multiple of 16 in its tiles; past 512 a head group's output
-columns go in chunks of 128 to blocks of their own, and the K and V rows
-stream through shared memory in pieces of 128 columns, so that only Q's
-rows and two pieces live there) and any number of query heads per kv head
-(`check_kernel_shape`). Its grid is cut
+columns go in chunks of 128 to blocks of their own, and Q's, K's and V's
+rows stream through shared memory in pieces of 128 columns, so that only
+two pieces live there whatever the head_dim) and any number of query
+heads per kv head (`check_kernel_shape`). Its grid is cut
 by `decode_plan` from (B, Hkv, S) alone, so no launch reads a position on
 the host; its partials and merge tickets live in a scratch kept across
 calls of one shape (`_scratch`). Its head_dims past 256 live in a second
@@ -43,7 +43,6 @@ TILE_ROWS = 64  # history rows per tile of csrc/flash_decode.cu (16 a warp)
 MAX_SPLITS = 256  # splits of one sequence that the kernel's merge holds
 TARGET_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
 HEAD_GROUP = 16  # query heads per block (one m16 tile)
-MAX_HEAD_DIM = 4800  # the widest head_dim whose plan fits a block (MAXD)
 COL_CHUNK = 128  # output columns a block takes past head_dim 512 (DCH)
 
 
@@ -624,16 +623,14 @@ def check_kernel_shape(n_heads: int, n_kv_heads: int, head_dim: int,
                        kernel: str = "K5") -> None:
     """Raise NotImplementedError for the head shapes csrc/flash_decode.cu
     (K5, K6, K8, K9, K10, K16, K17c) is not built for: it takes any
-    head_dim up to MAX_HEAD_DIM (K10 an even one: its rows are two nibble
-    planes) and any number of query heads per kv head (n_heads a multiple
-    of n_kv_heads)."""
-    if (not 1 <= head_dim <= MAX_HEAD_DIM
+    head_dim (K10 an even one: its rows are two nibble planes, and the JAX
+    Q4 pool refuses an odd one too) and any number of query heads per kv
+    head (n_heads a multiple of n_kv_heads)."""
+    if (head_dim < 1
             or (kernel == "K10" and head_dim % 2)
             or n_kv_heads <= 0 or n_heads % n_kv_heads):
         raise NotImplementedError(
             f"{kernel} (flash decode) is not built for head_dim {head_dim} "
             f"with {n_heads} query heads over {n_kv_heads} kv heads "
-            f"(head_dim up to {MAX_HEAD_DIM}, the widest whose Q rows and "
-            "streamed K / V pieces fit a block's shared memory; even for "
-            "K10, whose rows are two nibble planes; n_heads a multiple of "
-            "n_kv_heads)")
+            "(head_dim even for K10, whose rows are two nibble planes; "
+            "n_heads a multiple of n_kv_heads)")

@@ -7,19 +7,24 @@ its bucket, and each assignment's output is gathered back to its token.
 The capacity defaults to N (dropless: a token's top-k experts are
 distinct, so no expert ever takes more than N assignments); a positive
 `capacity_factor` caps the buckets and drops the overflow (Switch
-semantics). The JAX module shards the expert axis over a mesh's `ep` axis;
-the port runs on one card, so `_maybe_constrain` is the identity until the
-parallelism of ROADMAP item 7 comes.
+semantics). The JAX module shards the expert axis over a mesh's `ep` axis
+with sharding constraints; under the port's expert parallelism
+(parallel/sharding.py) a rank holds the experts of its range only,
+`_maybe_constrain` keeps that range of an expert-major tensor, and the
+caller's combine sums the ranks' shares (models/llama.py `_moe_ffn`).
 """
 from __future__ import annotations
 
 import torch
 
 
-def _maybe_constrain(x: torch.Tensor, spec=None) -> torch.Tensor:
-    """The JAX sharding constraint on the expert axis: the identity on one
-    card (sharding comes with ROADMAP item 7)."""
-    return x
+def _maybe_constrain(x: torch.Tensor, experts=None) -> torch.Tensor:
+    """The JAX sharding constraint on the expert axis: the rank's experts
+    (e0, e0 + n) of an expert-major x, or x whole without a range."""
+    if experts is None:
+        return x
+    e0, n = experts
+    return x[e0:e0 + n]
 
 
 def expert_order(flat_e: torch.Tensor, n_experts: int):
@@ -77,15 +82,19 @@ def expert_products(bx: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
 def moe_ffn_ep(xt: torch.Tensor, topi: torch.Tensor, topw: torch.Tensor,
                wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
                act, capacity: int | None = None,
-               capacity_factor: float | None = None) -> torch.Tensor:
+               capacity_factor: float | None = None,
+               experts: tuple[int, int] | None = None) -> torch.Tensor:
     """Sorted-dispatch gated-FFN MoE (the JAX `moe_ffn_ep`).
 
     xt: (N, C) tokens; topi / topw: (N, k) routing; wg / wu: (E, F, C);
     wd: (E, C, F). Returns (N, C) f32: sum over k of topw * the expert's
-    output, zero for a dropped assignment."""
+    output, zero for a dropped assignment. experts: (e0, E) under expert
+    parallelism: wg / wu / wd hold E's experts from e0 on, and the others'
+    assignments give zero (the caller sums the ranks' shares)."""
     N, C = xt.shape
     k = topi.shape[1]
-    E = wg.shape[0]
+    E_loc = wg.shape[0]
+    E = experts[1] if experts else E_loc
     if capacity is None:
         if capacity_factor is None or capacity_factor <= 0:
             capacity = N  # dropless
@@ -102,8 +111,15 @@ def moe_ffn_ep(xt: torch.Tensor, topi: torch.Tensor, topw: torch.Tensor,
                           device=xt.device)
     buckets[safe] = src
     # the expert-major tensors, which the JAX module places on the ep axis
-    bx = _maybe_constrain(buckets[:E * capacity].reshape(E, capacity, C))
-    d = _maybe_constrain(expert_products(bx, wg, wu, wd, act))
+    span = (experts[0], E_loc) if experts else None
+    bx = _maybe_constrain(buckets[:E * capacity].reshape(E, capacity, C),
+                          span)
+    d_loc = expert_products(bx, wg, wu, wd, act)
+    if span is None:
+        d = d_loc
+    else:  # the rank's experts' rows; the others' assignments give zero
+        d = d_loc.new_zeros(E, capacity, C)
+        d[span[0]:span[0] + E_loc] = d_loc
     d = d.reshape(E * capacity, C)
 
     # combine: each assignment's expert output back to its token

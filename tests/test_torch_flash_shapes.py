@@ -203,35 +203,32 @@ def _cfg(H, Hkv, D):
 def test_check_supported_admits_on_the_card(H, HKV, D):
     """On a CUDA device (only its type is read: no card needed) the head
     shapes JAX's flash decode takes pass; the card serves them: every
-    head_dim up to MAX_HEAD_DIM (4800)."""
+    head_dim."""
     tllama.check_supported({"layers": [{}]}, _cfg(H, HKV, D), "cuda")
     tfd.check_kernel_shape(H, HKV, D)
 
 
 @pytest.mark.parametrize("H, HKV, D", [(32, 32, 20), (8, 1, 640),
                                         (64, 32, 36), (1, 1, 1152),
-                                        (1, 1, 2048), (1, 1, 4864)])
+                                        (1, 1, 2048), (1, 1, 4864),
+                                        (1, 1, 8192)])
 def test_check_supported_raises_only_where_jax_serves_what_the_card_cannot(
         H, HKV, D):
-    """The one limit left: head_dim up to MAX_HEAD_DIM (4800), the widest
-    whose Q rows and streamed K / V pieces fit a block. The head_dims that
-    are not a multiple of 8 (20, 36) and those past 512 (640, and 1152 and
-    2048 past the old limit of 1024), each with Hkv * D % 128 == 0 so that
-    JAX's `supported_batched` sends them to its kernels, are admitted on the
-    card now; a head_dim past 4800 (4864, which JAX's kernel also takes)
-    still raises there, naming the kernel.
+    """No head_dim limit is left: the streamed instance holds two pieces of
+    128 columns whatever the head_dim. The head_dims that are not a
+    multiple of 8 (20, 36), those past 512 (640, and 1152 and 2048 past
+    the old limit of 1024) and those past the later limit of 4800 (4864,
+    8192), each with Hkv * D % 128 == 0 so that JAX's `supported_batched`
+    sends them to its kernels, are admitted on the card. The one refusal
+    left, an odd head_dim for K10, is one the JAX Q4 pool makes too.
     Shapes that JAX's `supported_batched` refuses (Hkv * D % 128 != 0) take
     the plain attention in both packages, so check_supported admits them.
     Every shape passes on the CPU."""
     cfg = _cfg(H, HKV, D)
     assert jfd.supported_batched(1, HKV, D)
-    if D <= tfd.MAX_HEAD_DIM:
-        tllama.check_supported({"layers": [{}]}, cfg, "cuda")
-        for kid in ("K5", "K6", "K8", "K9", "K10", "K16", "K17c"):
-            tfd.check_kernel_shape(H, HKV, D, kid)
-    else:
-        with pytest.raises(NotImplementedError, match="K5.*head_dim"):
-            tllama.check_supported({"layers": [{}]}, cfg, "cuda")
+    tllama.check_supported({"layers": [{}]}, cfg, "cuda")
+    for kid in ("K5", "K6", "K8", "K9", "K10", "K16", "K17c"):
+        tfd.check_kernel_shape(H, HKV, D, kid)
     tllama.check_supported({"layers": [{}]}, cfg, "cpu")
     with pytest.raises(NotImplementedError, match="K10"):
         tfd.check_kernel_shape(128, 128, 9, "K10")  # no nibble planes
@@ -408,10 +405,10 @@ def test_entry_points_are_cached_per_library(monkeypatch):
 
 def _plan_bytes(kind: int, D: int) -> int:
     """A block's shared memory in csrc/flash_decode.cu (`Plan`): the Q
-    tile and this step's rows, then the larger of the tile stages (past
-    512: two pieces of 128 columns, K10's as int8 codes, and two tiles'
-    scales) and the combine plus the merge's tables, at 64, 32 or 16 rows
-    a tile."""
+    tile and this step's rows (none past 512), then the larger of the tile
+    stages (past 512: two pieces of 128 columns, K10's as int8 codes, each
+    beside 16 rows of Q's same 128 columns, and two tiles' scales) and the
+    combine plus the merge's tables, at 64, 32 or 16 rows a tile."""
     def head(k, d):
         return {0: 2 * d, 1: d, 2: d, 3: d // 2, 4: 4 * d}[k]
     stream = D > 512
@@ -419,11 +416,12 @@ def _plan_bytes(kind: int, D: int) -> int:
     dc = 128 if stream else D
     hp = (head(2 if kind == 3 else kind, 128) if stream
           else head(kind, Dp)) + 16
-    q_bytes = 16 * (2 * Dp + 16) + -(-4 * D // 16) * 16
+    qp = 2 * (128 if stream else Dp) + 16
+    q_bytes = 0 if stream else 16 * qp + -(-4 * D // 16) * 16
     merge = (2 * 256 * 16 * 4 + 16 * 2 * 4 + 16 * 4 + 16
-             + (-(-2 * D // 16) * 16 if stream else 2 * D * 8))
+             + (0 if stream else 2 * D * 8))
     for tr in (64, 32, 16):
-        stage = tr * hp if stream else 2 * tr * hp + 2 * tr * 4
+        stage = tr * hp + 16 * qp if stream else 2 * tr * hp + 2 * tr * 4
         nst = 2 if 2 * stage <= 96 * 1024 else 1
         comb = (tr // 16) * 16 * dc * 4 + (tr // 16) * 16 * 8 + 16 * dc * 4 + 128
         total = q_bytes + max(nst * stage + (16 * tr if stream else 0),
@@ -434,24 +432,26 @@ def _plan_bytes(kind: int, D: int) -> int:
 
 
 def test_max_head_dim_is_the_widest_plan_that_fits():
-    """MAX_HEAD_DIM is csrc/flash_decode.cu's MAXD and the widest head_dim
-    at which a block's plan (a replica of `Plan`) fits its 227 KB for
-    every cache kind (K10 at even head_dims): 4800, with the Q tile held
-    whole and the K / V rows streamed in pieces of 128 columns. The old
-    limit, 1024, and the 1.1B's 64 fit at 64 rows a tile."""
+    """No head_dim is too wide any more: a block's plan (a replica of
+    `Plan`) fits its 227 KB for every cache kind (K10 at even head_dims)
+    at every head_dim, since past 512 (the streamed instance) Q's rows
+    stream in the same pieces of 128 columns as K's and V's and the plan's
+    bytes no longer depend on the head_dim. The old limits (1024, 4800),
+    the 1.1B's 64 and 4864 past the last limit fit."""
     import os
     import re
 
     src = open(os.path.join(os.path.dirname(tfd.__file__), "..", "csrc",
                             "flash_decode.cu")).read()
-    assert int(re.search(r"constexpr int MAXD = (\d+);", src).group(1)) \
-        == tfd.MAX_HEAD_DIM
+    assert "MAXD" not in src and not hasattr(tfd, "MAX_HEAD_DIM")
     assert int(re.search(r"constexpr int DCH = (\d+);", src).group(1)) \
         == tfd.COL_CHUNK
 
     def fits(D):
         return all(_plan_bytes(k, D) <= 232448 for k in range(5)
                    if not (k == 3 and D % 2))
-    assert all(fits(D) for D in range(1, tfd.MAX_HEAD_DIM + 1))
-    assert not fits(tfd.MAX_HEAD_DIM + 1)
-    assert tfd.MAX_HEAD_DIM >= 4096
+    assert all(fits(D) for D in range(1, 4097))
+    assert all(fits(D) for D in (4800, 4864, 8192, 65536, 1 << 20))
+    # past 512 the plan is the same at every head_dim
+    for k in range(5):
+        assert len({_plan_bytes(k, D) for D in (514, 4864, 1 << 20)}) == 1

@@ -251,19 +251,21 @@ def test_shift_rows_matches_jax(rope_type):
                                                           (640, 8, 4),
                                                           (1152, 8, 4),
                                                           (2048, 8, 4),
-                                                          (4864, 8, 4)])
+                                                          (4864, 8, 4),
+                                                          (64, 6, 4)])
 def test_k5_head_shape_refused_at_load_on_cuda(head_dim, n_heads, n_kv_heads):
-    """A head shape K5 is not built for (a head_dim past 4800, where Hkv *
-    head_dim % 128 == 0 sends it to the kernel) fails when the model is
-    checked on a CUDA device, naming K5, not at the first decoded token;
-    the head_dims it was not built for before (36, not a multiple of 8;
-    640, above 512; 1152 and 2048, past the old limit of 1024, which the
-    streamed instance takes) now pass there. The CPU, which runs K5's
+    """A head shape K5 is not built for (query heads that are not a
+    multiple of the kv heads, where Hkv * head_dim % 128 == 0 sends it to
+    the kernel) fails when the model is checked on a CUDA device, naming
+    K5, not at the first decoded token; the head_dims it was not built for
+    before (36, not a multiple of 8; 640, above 512; 1152 and 2048, past
+    the limit of 1024; 4864, past the later limit of 4800), all of which
+    the streamed instance takes, pass there. The CPU, which runs K5's
     plain version, takes all of them."""
     cfg = dataclasses.replace(SMALL, n_heads=n_heads, n_kv_heads=n_kv_heads,
                               head_dim=head_dim, rope_dim=head_dim)
     params = {"layers": [{}]}
-    if head_dim > 4800:
+    if n_heads % n_kv_heads:
         with pytest.raises(NotImplementedError,
                            match=f"K5.*head_dim {head_dim}"):
             tllama.check_supported(params, cfg, torch.device("cuda"))

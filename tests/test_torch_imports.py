@@ -80,3 +80,25 @@ def test_entry_points_need_a_gpu_unless_told_cpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(m)
     Engine(m, max_context=32, device="cpu")
+
+
+def test_every_jax_module_has_its_port():
+    """Every module of the JAX package has its counterpart under the same
+    relative path, but utils/compile_cache.py (the port's kernel builds
+    are cached by ops/_build.py): the parallel forms, the GUI launcher,
+    the United backend and the horde / tunnel host modules included."""
+    jax_dir = os.path.join(ROOT, "koboldcpp_tpu")
+    missing = []
+    for d, subdirs, fs in os.walk(jax_dir):
+        subdirs[:] = [s for s in subdirs if s != "__pycache__"]
+        for f in fs:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(d, f), jax_dir)
+                if not os.path.exists(os.path.join(PKG_DIR, rel)):
+                    missing.append(rel)
+    assert missing == [os.path.join("utils", "compile_cache.py")], missing
+    for name in ("parallel.comm", "parallel.sharding", "parallel.pipeline",
+                 "parallel.sequence", "parallel.ring_attention",
+                 "parallel.multihost", "parallel.launch", "gui", "united",
+                 "server.horde", "server.tunnel"):
+        assert f"koboldcpp_tpu_torch.{name}" in _submodules()
