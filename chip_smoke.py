@@ -13,7 +13,8 @@
    the superblock batched matvec K14 / K14.q5_k at T = 2, 8, 16, the
    FFN megakernel K15b (T=1) / K15a (T = 2, 8), the opt-in bodies
    K12.q6_k_i8f, K12.q3_k_n4, K12.q2_k_n4 (KCPP_KQ_LAYOUT=expanded),
-   K13.q4_k_i8 at T = 1, 8, 512 (KCPP_Q4K_LAYOUT=i8) and K2.q8_0_bf16, K1
+   K13.q4_k_i8 at T = 1, 8, 512 (KCPP_Q4K_LAYOUT=i8), K2.q8_0_bf16 and
+   K3's magic-number q4_k body K3.q4_k_magic (KCPP_Q4K_2D=magic), K1
    / K2 / K3 also at DeepSeek-V2-Lite's shapes (`phase_mla_shapes`), with
    the bf16 bodies of K2 / K12.q2_k / K12.q3_k at the 1.1B widths
    (KCPP_MM_I8=0); K9 / K10 also at page size 128; K2.q8_0, K2.q8_0_bf16,
@@ -131,8 +132,24 @@
    under tp=2 (K1 / K2 / K3 / K4 / K5 on each rank's shard shapes, no
    dequant call, wk and wv the only weights kept whole), then the same
    under pp=2 and sp=2, each reply the unsharded engine's (near-ties
-   apart), both ranks' launches counted; a world-1
-   NCCL group's all_reduce / all_gather / broadcast;
+   apart), both ranks' launches counted; then tp=2 over the other model
+   modules (`_tp_archs`): DeepSeek-V2-Lite widths (the experts over tp;
+   TP_DS2_LAYERS of 27 layers), RWKV6 Finch 1.6B (TP_RWKV6_LAYERS of 24),
+   nomic-embed-text-v1.5 (full depth) and the tiny bitnet, openelm,
+   chameleon_swin, mpt, jais and plamo fixtures, each reply the
+   unsharded engine's on the card (near-ties apart; the embeddings within
+   4e-2 + 4e-2 |want|), no shard that meets the kernels' rule on the
+   dequant path; a world-1 NCCL group's all_reduce / all_gather /
+   broadcast;
+4b. the launcher's kernel-selection variables (`phase_kernel_vars`, after
+   the scan decode phase): the synthetic 1.1B q4_k single-stream under
+   KCPP_Q4K_DECODE=0, KCPP_PALLAS_MM=0 (every decode step 89 K3, no K1),
+   KCPP_Q4K_2D=magic (the prefill through K3.q4_k_magic, no K3),
+   KCPP_Q4K_RAW_X=0 with KCPP_Q4K_I8=0 (K1's bf16 body) and
+   KCPP_FLASH_DECODE=0 (K5 as before), and 12 slots under
+   KCPP_MATVEC_MAX_T=16 with KCPP_Q4K_I8=0 (K7's bf16 body at T = 12
+   where the JAX row-tile rule admits the shape, K3 elsewhere); the
+   logits of the prompt's last token against the default variables';
 5. serves tests/fixtures/refgguf/tiny-q4_k_m.gguf over HTTP in-process,
    single-stream (checks that K2 ran) and with multiuser=4 (4 concurrent
    requests, each getting the reply it gets alone), each also with
@@ -400,6 +417,10 @@ KERNELS = {
                     "koboldcpp_tpu/ops/quant_matmul.py:907"),
     "K13.q4_k_i8": ("kq_matmul q4_k_i8", "koboldcpp_tpu_torch/csrc/kq_matmul.cu",
                     "koboldcpp_tpu/ops/quant_matmul.py:1285"),
+    # K3's magic-number q4_k body (KCPP_Q4K_2D=magic)
+    "K3.q4_k_magic": ("kq_matmul q4_k magic",
+                      "koboldcpp_tpu_torch/csrc/kq_matmul.cu",
+                      "koboldcpp_tpu/ops/quant_matmul.py:616"),
     "K2.q8_0_bf16": ("q8_0_matvec bf16 x",
                      "koboldcpp_tpu_torch/csrc/q8_0_matvec.cu",
                      "koboldcpp_tpu/ops/quant_matmul.py:1094"),
@@ -623,21 +644,32 @@ def phase_matvec(rng) -> None:
 K7_SHAPES = (("wqkv", (2560, 2048)), ("w_gateup", (11264, 2048)),
              ("wo", (2048, 2048)), ("w_down", (2048, 5632)),
              ("output", (32000, 2048)))
-K7_CASES = [(name, shape, T) for name, shape in K7_SHAPES for T in (2, 4, 8)]
-K7_CASES += [(name, shape, T) for name, shape in (
+# (name, (out_f, in_f), T, int8 activations)
+K7_CASES = [(name, shape, T, True) for name, shape in K7_SHAPES
+            for T in (2, 4, 8)]
+K7_CASES += [(name, shape, T, False) for name, shape in (
     ("fixture wqkv", (512, 256)), ("fixture wo", (256, 256))) for T in (2, 4)]
+# a tp=2 row shard of the fixtures' w_down (256 x 512) takes its whole
+# weight's int8 variant at in_f 256
+K7_CASES += [("fixture w_down shard", (256, 256), T, True) for T in (2, 8)]
+# the bf16 body past 8 tokens (KCPP_MATVEC_MAX_T, KCPP_Q4K_I8=0) at the
+# 1.1B's in_f-2048 shapes, the 12-slot step of phase_kernel_vars included
+K7_CASES += [(name, shape, T, False) for name, shape in K7_SHAPES[:3]
+             for T in (12, 16, 21)]
 
 
 def phase_batched_matvec(rng) -> None:
-    """K7 and K7.q5_k at the 1.1B shapes at T = 2, 4, 8 (int8 variant) and
-    at the fixtures' in_f 256 at T = 2, 4 (bf16 variant); each row must
-    equal K1 (K1.q5_k) on that row alone, bit for bit."""
+    """K7 and K7.q5_k at the 1.1B shapes at T = 2, 4, 8 (int8 variant), at
+    the fixtures' in_f 256 at T = 2, 4 (bf16 variant), at a row shard of
+    the fixtures' w_down at T = 2, 8 (int8 variant at in_f 256) and at
+    the 1.1B's wqkv / w_gateup / wo at T = 12, 16, 21 (bf16 variant past
+    8 tokens: two and three grid rows, the last one partial); each row
+    must equal K1 (K1.q5_k) on that row alone, bit for bit."""
     for kid, maker in (("K7", rand_q4k), ("K7.q5_k", rand_q5k)):
-        for name, (out_f, in_f), T in K7_CASES:
+        for name, (out_f, in_f), T, i8 in K7_CASES:
             qt = maker(rng, out_f, in_f, DEV)
             x = torch.from_numpy(rng.standard_normal((T, in_f)).astype(
                 np.float32)).to(DEV).bfloat16()
-            i8 = in_f >= 512
             y = qm.q4k_matvec_t(x, qt, i8)
             ref = qm.q4k_matvec_t_plain(x, qt, i8)
             alone = [qm.q4k_matvec(x[t], qt, i8) for t in range(T)]
@@ -656,7 +688,7 @@ def phase_batched_matvec(rng) -> None:
                     lambda: qm.q4k_matvec_t_plain(x, qt, i8),
                     lambda: torch.matmul(x, w.t()),
                     _wbytes(qt) + _nbytes(x) + T * out_f * 2, dev=True)
-            _q4k_class(kid, name, T, i8)
+            _q4k_class(kid, name, T, i8, in_f)
             del w
 
 
@@ -940,10 +972,13 @@ def print_attention_sums() -> None:
 KQ_CLASSES: dict = {}
 
 
-def _kq_cases(kid: str, label: str, qt, Ts, rng, xmax=None) -> None:
+def _kq_cases(kid: str, label: str, qt, Ts, rng, xmax=None,
+              magic: bool = False) -> None:
     """kq_matmul of qt at each T of Ts against its plain version, on the
     prefixes of one x: twice with the same bits, and row for row equal to
-    the call at every other T of the same variant (`kq_plan`)."""
+    the call at every other T of the same variant (`kq_plan`). magic: the
+    magic-number q4_k body (K3.q4_k_magic)."""
+    plain_fn = qm.kq_matmul_magic_plain if magic else qm.kq_matmul_plain
     out_f, in_f = qt.shape
     G = qm.iq_group(qt) if qt.kind in qm.IQ_KINDS else 0
     if xmax is None:
@@ -954,9 +989,9 @@ def _kq_cases(kid: str, label: str, qt, Ts, rng, xmax=None) -> None:
     for T in Ts:
         x = xmax[:T].contiguous()
         plan = qm.kq_plan(qt.kind, T, out_f, in_f, G)
-        y = qm.kq_matmul(x, qt)
-        y2 = qm.kq_matmul(x, qt)
-        ref = qm.kq_matmul_plain(x, qt)
+        y = qm.kq_matmul(x, qt, magic)
+        y2 = qm.kq_matmul(x, qt, magic)
+        ref = plain_fn(x, qt)
         torch.cuda.synchronize()
         _check(torch.equal(y, y2), f"{kid} {label} T={T}: two calls differ")
         for t0, y0 in ys.items():
@@ -972,8 +1007,8 @@ def _kq_cases(kid: str, label: str, qt, Ts, rng, xmax=None) -> None:
         tol = 2 ** -7 * ref.float().abs().max().item()
         _record(kid, f"{label} {out_f}x{in_f} T={T} [{plan.variant} "
                 f"{plan.rows}x{plan.tokens} split {plan.split}]", err, tol,
-                lambda: qm.kq_matmul(x, qt),
-                lambda: qm.kq_matmul_plain(x, qt),
+                lambda: qm.kq_matmul(x, qt, magic),
+                lambda: plain_fn(x, qt),
                 lambda: torch.matmul(x, w.t()),
                 _wbytes(qt) + _nbytes(x) + T * out_f * 2,
                 2 * T * in_f * out_f, dev=True)
@@ -1005,10 +1040,15 @@ Q4K_CLASSES: dict = {}
 _K1_WIDE = ("wqkv", "w_gateup", "w_down", "output")
 
 
-def _q4k_class(kid: str, name: str, T: int, i8: bool) -> None:
-    """Add the last case of `kid` to its classes (Q4K_CLASSES)."""
+def _q4k_class(kid: str, name: str, T: int, i8: bool,
+               in_f: int = 0) -> None:
+    """Add the last case of `kid` to its classes (Q4K_CLASSES): the bf16
+    and the int8 cases at in_f 256 (the fixtures' and a shard's) apart
+    from the 1.1B's."""
     if not i8:
-        classes = ["bf16 x"]
+        classes = ["bf16 x" if in_f < 512 else "bf16 x T>8"]
+    elif in_f == 256:
+        classes = ["int8 x shard"]
     else:
         classes = ["T=1" if T == 1 else "T=2-8"] + (["T=8"] if T == 8 else [])
         if T == 1 and name in _K1_WIDE:
@@ -1089,9 +1129,17 @@ def phase_kq_matmul(rng) -> None:
     unpadded prefill chunk) and 512; K13.q4_k_i8 (KCPP_Q4K_LAYOUT=i8:
     decode, batched decode and prefill) at T = 1, 8, 512 at all five 1.1B
     shapes and T = 16, 128, 300 at the two; q4_k and q8_0 at the narrow
-    fixture `wo` 256x256, T = 16. Each against its plain version, twice
-    with the same bits, row for row equal across T within a variant."""
+    fixture `wo` 256x256, T = 16; K3.q4_k_magic (KCPP_Q4K_2D=magic) at
+    K3's q4_k shapes and T = 1, 8 (swap), 16, 128, 300, 512, and at the
+    1.1B's wqkv and wo at T = 300 (the rest of the magic prefill chunk). Each against
+    its plain version, twice with the same bits, row for row equal across
+    T within a variant."""
+    for name, shape in (("wqkv", (2560, 2048)), ("wo", (2048, 2048))):
+        _kq_cases("K3.q4_k_magic", f"q4_k {name}", rand_q4k(rng, *shape, DEV),
+                  (300,), rng, magic=True)
     for name, shape in (("w_gateup", (11264, 2048)), ("w_down", (2048, 5632))):
+        _kq_cases("K3.q4_k_magic", f"q4_k {name}", rand_q4k(rng, *shape, DEV),
+                  (1, 8, 16, 128, 300, 512), rng, magic=True)
         for kid, kind, maker, Ts in (
                 ("K3", "q4_k", rand_q4k, (16, 128, 300, 512)),
                 ("K3", "q6_k", rand_q6k, (16, 128, 300, 512)),
@@ -2793,7 +2841,8 @@ def _plain_matmuls():
         qm, q4k_matvec=lambda x, qt, i8: qm.q4k_matvec_plain(x, qt, i8),
         q6k_matvec=lambda x, qt, i8: qm.q6k_matvec_plain(x, qt, i8),
         q8_0_matvec=lambda x, qt, i8=True: qm.q8_0_matvec_plain(x, qt, i8),
-        kq_matmul=qm.kq_matmul_plain)
+        kq_matmul=lambda x, qt, magic=False: (
+            qm.kq_matmul_magic_plain if magic else qm.kq_matmul_plain)(x, qt))
 
 
 def phase_deepseek2_decode(card: str) -> tuple[dict, Model, dict]:
@@ -4029,6 +4078,144 @@ def _scan_vs_unrolled(card: str, params, kind: str, n: int, want: dict,
           f"{tps['scan']}, unrolled {tps['unroll']}", flush=True)
     del sparams
     torch.cuda.empty_cache()
+    return counts
+
+
+KV_DEPTH = 8    # greedy tokens of each kernel-variable request
+KV_SLOTS = 12   # the batched run's slots under KCPP_MATVEC_MAX_T: T past 8
+KV_CAP = 16     # its KCPP_MATVEC_MAX_T
+# the kernel-selection variables at their defaults
+KV_DEFAULTS = {"KCPP_Q4K_DECODE": "1", "KCPP_PALLAS_MM": "1",
+               "KCPP_Q4K_2D": "sexp", "KCPP_Q4K_RAW_X": "1",
+               "KCPP_Q4K_I8": "1", "KCPP_FLASH_DECODE": "1"}
+
+
+def _k7_or_k3(model, T: int) -> tuple[int, int]:
+    """(K7, K3) launches of a decode step of T sequences with bf16
+    activations under KCPP_MATVEC_MAX_T >= T: a q4_k / q5_k weight that
+    the JAX row-tile rule admits takes K7, every other packed one K3."""
+    n7 = n3 = 0
+    for w in [v for layer in model.params["layers"] for v in layer.values()
+              ] + [model.params["output"]]:
+        if not isinstance(w, QTensor) or w.kind == "dense":
+            continue
+        if w.kind in ("q4_k", "q5_k") and qm._q4k_matvec_rt(
+                w.kind, *w.shape, T, False, False) is not None:
+            n7 += 1
+        elif w.kind in ("q4_k", "q6_k"):
+            n3 += 1
+    return n7, n3
+
+
+def phase_kernel_vars(card: str, model) -> dict:
+    """The launcher's kernel-selection variables on the synthetic 1.1B q4_k
+    (full width, 22 layers), read where the JAX dispatch reads them. Each
+    variable serves one single-stream request (a 300-token prompt and
+    KV_DEPTH greedy tokens) with its route checked on every decode step:
+    KCPP_Q4K_DECODE=0 and KCPP_PALLAS_MM=0 89 K3 (the swap form at T = 1)
+    and no K1; KCPP_Q4K_2D=magic every prefill chunk through K3.q4_k_magic
+    and no K3; KCPP_Q4K_RAW_X=0 under KCPP_Q4K_I8=0 89 K1 (its bf16 body);
+    KCPP_FLASH_DECODE=0 22 K5 as without it. Then the logits of the
+    prompt's last token, from the prefill chunk and evaluated as a decode
+    step over the same cache, against the variables' defaults: within 2e-2
+    of max |logit|, 4e-2 where the model amplifies rounding (the default's
+    logits move by more than 1e-2 of it with 1% of the token's embedding
+    one bf16 step off; OPT_IN_LOGIT_TOL's rule). Last KCPP_MATVEC_MAX_T=16
+    with KCPP_Q4K_I8=0 over KV_SLOTS slots: every decode step K7's bf16
+    body on the weights the JAX row-tile rule admits at T = 12, K3 on the
+    rest (`_k7_or_k3`), two requests each getting its reply alone."""
+    L = TINYLLAMA_1_1B.n_layers
+    n_mv = 4 * L + 1
+    prompt = [1] + np.random.default_rng(3).integers(
+        3, 32000, size=299).tolist()
+    sampler = SamplerParams(temperature=0.0, rep_pen=1.0)
+    gp = GenParams(max_length=KV_DEPTH, bypass_eos=True, sampler=sampler)
+    tok = torch.tensor([[prompt[-1]]], dtype=torch.int64, device=DEV)
+    pos = torch.tensor([[299]], dtype=torch.int64, device=DEV)
+    cases = (  # label, env, the compared run's env, a decode step, prefill
+        ("KCPP_Q4K_DECODE=0", {"KCPP_Q4K_DECODE": "0"}, {},
+         {"K3": n_mv, "K1": 0}, None),
+        ("KCPP_PALLAS_MM=0", {"KCPP_PALLAS_MM": "0"}, {},
+         {"K3": n_mv, "K1": 0}, None),
+        ("KCPP_Q4K_2D=magic", {"KCPP_Q4K_2D": "magic"}, {}, {"K1": n_mv},
+         ("K3.q4_k_magic", "K3")),
+        ("KCPP_Q4K_RAW_X=0, KCPP_Q4K_I8=0",
+         {"KCPP_Q4K_RAW_X": "0", "KCPP_Q4K_I8": "0"},
+         {"KCPP_Q4K_I8": "0"}, {"K1": n_mv}, None),
+        ("KCPP_FLASH_DECODE=0", {"KCPP_FLASH_DECODE": "0"}, {},
+         {"K1": n_mv, "K5": L}, None))
+    counts: dict = {}
+    far = []
+    for label, env, base, step, prefill in cases:
+        base = dict({k: KV_DEFAULTS[k] for k in env}, **base)
+        with _env(**env):
+            eng = Engine(model, max_context=2048, device=DEV)
+            _build.launches.clear()
+            with _StepLaunches() as rec:
+                r = eng.generate(prompt, gp)
+            c = dict(_build.launches)
+            n = _check_steps(rec, 1, step, label)
+            if prefill:
+                chunks = [d for (B, T), ds in rec.by_shape.items() if T > 1
+                          for d in ds]
+                _check(chunks and all(d.get(prefill[0], 0) > 0
+                                      and not d.get(prefill[1])
+                                      for d in chunks),
+                       f"{label}: prefill chunks launched {chunks}")
+            _check(len(r.tokens) == KV_DEPTH
+                   and all(0 <= t < 32000 for t in r.tokens),
+                   f"{label}: bad reply {r.tokens}")
+            eng.reset_context()
+            with torch.inference_mode():
+                pre = eng.eval_tokens(prompt[:-1], 0).float()
+                got = eng._forward(tok, pos, last_only=True)[0, -1].float()
+                with _env(**base):
+                    want = llama.forward(model.params, TINYLLAMA_1_1B, tok,
+                                         pos, eng.cache, last_only=True)[0]
+                    moved = llama.forward(
+                        _embedding_nudged(model.params, prompt[-1]),
+                        TINYLLAMA_1_1B, tok, pos, eng.cache,
+                        last_only=True)[0]
+                    ref = Engine(model, max_context=2048, device=DEV)
+                    pre_want = ref.eval_tokens(prompt[:-1], 0).float()
+                    del ref
+            want, moved = want[0, -1].float(), moved[0, -1].float()
+        del eng
+        top = want.abs().max().item()
+        spread = (moved - want).abs().max().item() / top
+        tol = (AMPLIFIED_LOGIT_TOL if spread > 1e-2 else 2e-2) * top
+        errs = [(got - want).abs().max().item(),
+                (pre - pre_want).abs().max().item()]
+        for what, err in zip(("decode-step", "prefill"), errs):
+            if not (err <= tol and bool(torch.isfinite(got).all())):
+                far.append(f"{label} {what} logits {err} from the "
+                           f"defaults' > {tol}")
+        print(f"kernel variables, synthetic TinyLlama-1.1B q4_k under "
+              f"{label} ({card}): decode {r.timings.gen_tokens} tokens "
+              f"{r.timings.gen_tps:.1f} tok/s; {n} decode steps of {step}"
+              + (f", every prefill chunk {prefill[0]} and no {prefill[1]}"
+                 if prefill else "")
+              + f"; last-token logits vs {base}: decode step max abs err "
+              f"{errs[0]:.4g}, prefill {errs[1]:.4g} (tol {tol:.4g}, max "
+              f"|logit| {top:.4g}, the defaults moved by {spread:.4g} of it "
+              f"with 1% of the token's embedding one bf16 step off); "
+              f"launches {c}", flush=True)
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    _check(not far, "; ".join(far))
+    n7, n3 = _k7_or_k3(model, KV_SLOTS)
+    _check(n7 > 0 and n3 > 0, f"KCPP_MATVEC_MAX_T: K7 {n7}, K3 {n3} a step")
+    rng = np.random.default_rng(4)
+    prompts = [[1] + rng.integers(3, 32000, size=m - 1).tolist()
+               for m in (200, 300)]
+    with _env(KCPP_Q4K_I8="0"), mock.patch.object(qm, "MATVEC_MAX_T",
+                                                   KV_CAP):
+        c = _serve_alone_and_together(
+            model, KV_SLOTS, prompts, gp, {"K7": n7, "K3": n3},
+            f"KCPP_MATVEC_MAX_T={KV_CAP}, KCPP_Q4K_I8=0, {KV_SLOTS} slots",
+            card)
+    for k, v in c.items():
+        counts[k] = counts.get(k, 0) + v
     return counts
 
 
@@ -5919,6 +6106,123 @@ PAR_KERNELS = ("K1", "K2", "K3", "K4", "K5")
 PAR_KEPT_WHOLE = {"wk": "Sliced", "wv": "Sliced"}
 
 
+# phase_parallel's tp=2 cases of the other model modules: the depth of the
+# two large models cut (printed) to keep the script within its limit
+TP_DS2_LAYERS = 3     # DeepSeek-V2-Lite: the dense lead layer, 2 MoE layers
+TP_RWKV6_LAYERS = 6   # RWKV6 Finch 1.6B: 6 of its 24 layers
+TP_ARCH_TOKENS = 8    # greedy tokens of each reply
+TP_ARCH_PROMPT = 300  # prompt tokens
+TP_TEXTS = ["the entry point's text", "a second text of a few more words"]
+TP_EMBED_TOL = 4e-2   # tests/test_torch_parallel_archs.py's packed shards
+TP_FIXTURES = {a: f"tiny-{a}-q4_k_m.gguf" for a in (
+    "bitnet", "openelm", "chameleon_swin", "mpt", "jais", "plamo")}
+
+
+def _tp_models():
+    """(label, the model's maker, kernels its tp=2 run must launch on each
+    rank) of phase_parallel's cases beyond the 1.1B: the large models from
+    seed 0 on the card (each rank draws the same weights), the fixtures
+    from tests/fixtures/portgguf (hidden 256: K1 / K3 on the shards that
+    meet the rule, the rest kept whole)."""
+    yield ("DeepSeek-V2-Lite", lambda: synthetic_deepseek2_model(
+        dict(DEEPSEEK_V2_LITE_MD, **{"deepseek2.block_count": TP_DS2_LAYERS}),
+        seed=0, device=DEV), ("K1", "K2", "K3"))
+    yield ("RWKV6 Finch 1.6B", lambda: synthetic_text_model(
+        dict(RWKV6_FINCH_1B6_MD, **{"rwkv6.block_count": TP_RWKV6_LAYERS}),
+        seed=0, device=DEV), ("K1", "K2", "K3"))
+    yield ("nomic-embed-text-v1.5", lambda: synthetic_text_model(
+        NOMIC_EMBED_V1_5_MD, seed=0, device=DEV), ("K3",))
+    for arch, f in TP_FIXTURES.items():
+        yield (f"tiny {arch}", lambda f=f: load_model(
+            os.path.join(PORT_FIX, f), device=DEV), ("K1", "K3"))
+
+
+def _tp_archs(rank: int, world, devs) -> dict:
+    """Both ranks' side of phase_parallel's tp=2 cases of `_tp_models`:
+    rank 0 serves a request (a TP_ARCH_PROMPT-token prompt and
+    TP_ARCH_TOKENS greedy tokens; the embedding model TP_TEXTS) through
+    the unsharded engine, then both ranks build the tp=2 shard and rank 0
+    drives the same request through the step mirror. Returns per case
+    this rank's launches, the dequantized shapes that meet the kernels'
+    256 rule (none may), the weights kept whole, and rank 0's check."""
+    from koboldcpp_tpu_torch.ops import linear as linear_ops
+    from koboldcpp_tpu_torch.parallel import launch
+    from koboldcpp_tpu_torch.parallel.sharding import (KeptWhole, make_mesh,
+                                                       shard_model)
+
+    mesh = make_mesh(dp=1, tp=2, devices=devs)
+    real_dequant = linear_ops.dequant
+    res = {}
+    for label, build, kernels in _tp_models():
+        t0 = time.perf_counter()
+        model = build()
+        torch.cuda.synchronize()
+        r = {"build_s": time.perf_counter() - t0, "kernels": list(kernels)}
+        cfg = model.cfg
+        prompt = [1] + np.random.default_rng(5).integers(
+            3, cfg.vocab_size, size=TP_ARCH_PROMPT - 1).tolist()
+        gp = GenParams(max_length=TP_ARCH_TOKENS, bypass_eos=True,
+                       sampler=SamplerParams(temperature=0.0, rep_pen=1.0))
+
+        def serve(eng):
+            if cfg.is_embedding:
+                return torch.from_numpy(eng.embed(TP_TEXTS))
+            return eng.generate(prompt, gp).tokens
+        single = None
+        if rank == 0:
+            single = Engine(model, max_context=2048, device=DEV)
+            t1 = time.perf_counter()
+            want = serve(single)
+            r["single_ms"] = (time.perf_counter() - t1) * 1e3
+        shard = shard_model(model, mesh)
+        r["kept"] = sorted({k for layer in shard.params.get("layers", [])
+                            for k, w in layer.items()
+                            if isinstance(w, KeptWhole)})
+        eng = Engine(shard, max_context=2048, device=DEV)
+        rule = []
+
+        def counted(qt, *a, **kw):
+            if qt.shape[0] % 256 == 0 and qt.shape[1] % 256 == 0:
+                rule.append(list(qt.shape))
+            return real_dequant(qt, *a, **kw)
+        torch.cuda.synchronize()
+        _build.launches.clear()
+        with mock.patch.object(linear_ops, "dequant", counted):
+            if rank == 0:
+                launch.mirror(eng, world, eng.MIRRORED_STEPS)
+                t1 = time.perf_counter()
+                got = serve(eng)
+                r["tp_ms"] = (time.perf_counter() - t1) * 1e3
+                launch.stop(eng)
+            else:
+                launch.follow(eng, world)
+        torch.cuda.synchronize()
+        r["counts"] = dict(_build.launches)
+        r["rule_dequant"] = rule
+        if rank == 0:
+            if cfg.is_embedding:
+                err = (got - want).abs()
+                worst = float((err / (TP_EMBED_TOL + TP_EMBED_TOL
+                                      * want.abs())).max())
+                _check(worst <= 1.0 and bool(torch.isfinite(got).all()),
+                       f"{label} tp=2 embeddings: worst {worst} of "
+                       f"{TP_EMBED_TOL} + {TP_EMBED_TOL} |want|")
+                r["check"] = (f"embeddings max abs err "
+                              f"{float(err.max()):.4g}, worst {worst:.3g} "
+                              f"of the tolerance")
+            else:
+                _check(len(got) == TP_ARCH_TOKENS,
+                       f"{label} tp=2: {len(got)} tokens")
+                _same_or_near_tie(single, prompt, got, want,
+                                  f"{label} tp=2 reply")
+                r["check"] = ("the unsharded tokens" if got == want
+                              else "the unsharded tokens up to a near-tie")
+        del eng, shard, single, model
+        torch.cuda.empty_cache()
+        res[label] = r
+    return res
+
+
 def _parallel_forms(rank: int, init: str, prompt: list[int]) -> dict:
     """Both ranks' side of phase_parallel: a gloo group of two processes
     on cuda:0 (NCCL refuses two ranks on one device, so gloo is asked for
@@ -5927,7 +6231,8 @@ def _parallel_forms(rank: int, init: str, prompt: list[int]) -> dict:
     tp=2, staged over pp=2 or its context over sp=2, and one greedy
     request that rank 0 drives through the step mirror and rank 1
     follows. Returns this rank's {form: launch counts, dequant calls}
-    and rank 0's replies and times."""
+    and rank 0's replies and times, then the tp=2 cases of the other model
+    modules (`_tp_archs`)."""
     import torch.distributed as dist
 
     from koboldcpp_tpu_torch.ops import linear as linear_ops
@@ -5972,7 +6277,7 @@ def _parallel_forms(rank: int, init: str, prompt: list[int]) -> dict:
         dq["n"] = 0
         with mock.patch.object(linear_ops, "dequant", counted):
             if rank == 0:
-                launch.mirror(eng, world, ("_forward", "_kv_remove_shift"))
+                launch.mirror(eng, world, eng.MIRRORED_STEPS)
                 r = eng.generate(prompt, GenParams(
                     max_length=PAR_TOKENS, bypass_eos=True,
                     sampler=SamplerParams(temperature=0.0, rep_pen=1.0)))
@@ -5988,6 +6293,7 @@ def _parallel_forms(rank: int, init: str, prompt: list[int]) -> dict:
         out["dequant"][form] = dq["n"]
         del eng, model
         torch.cuda.empty_cache()
+    out["archs"] = _tp_archs(rank, world, devs)
     # a world-1 NCCL group: NCCL's collectives on CUDA tensors
     g = dist.new_group([0], backend="nccl")
     if rank == 0:
@@ -6000,7 +6306,8 @@ def _parallel_forms(rank: int, init: str, prompt: list[int]) -> dict:
         out["nccl"] = bool(torch.equal(parts[0], x)
                            and torch.equal(x.cpu(), torch.arange(8.0)))
     peer = comm.broadcast_bytes(
-        json.dumps({k: out[k] for k in ("counts", "dequant")}).encode()
+        json.dumps({k: out[k] for k in ("counts", "dequant", "archs")}
+                   ).encode()
         if rank == 1 else b"", world, 1)
     if rank == 0:
         out["peer"] = json.loads(peer)
@@ -6027,9 +6334,13 @@ def phase_parallel(card: str) -> dict:
     both ranks and checked to be the only such weights), then pipeline
     (pp=2) and sequence parallelism (sp=2), each reply checked against the
     unsharded engine's on the card (near-ties apart); no shard of the tp
-    run takes the dequant path. Then one all_reduce / all_gather /
-    broadcast on CUDA tensors in a world-1 NCCL group. Returns both
-    ranks' launch counts (K1-K5) summed over the forms."""
+    run takes the dequant path. Then tp=2 over the other model modules
+    (`_tp_archs`: DeepSeek-V2-Lite widths with the experts over tp,
+    RWKV6 Finch 1.6B, nomic-embed-text-v1.5 and six tiny llama-branch
+    fixtures), each against the unsharded engine on the card. Then one
+    all_reduce / all_gather / broadcast on CUDA tensors in a world-1 NCCL
+    group. Returns both ranks' launch counts summed over the forms and
+    models."""
     import subprocess
 
     from koboldcpp_tpu_torch.parallel import comm
@@ -6059,6 +6370,17 @@ def phase_parallel(card: str) -> dict:
         for form in PAR_FORMS:
             for k, n in side["counts"][form].items():
                 counts[k] = counts.get(k, 0) + n
+        for label, a in side["archs"].items():
+            for k, n in a["counts"].items():
+                counts[k] = counts.get(k, 0) + n
+    for rank, side in ((0, out), (1, out["peer"])):
+        for label, a in side["archs"].items():
+            for k in a["kernels"]:
+                _check(a["counts"].get(k, 0) > 0,
+                       f"{k} did not run on rank {rank}'s tp=2 {label}")
+            _check(not a["rule_dequant"],
+                   f"rank {rank}'s tp=2 {label} dequantized weights that "
+                   f"meet the kernels' rule: {a['rule_dequant']}")
     for rank, side in ((0, out), (1, out["peer"])):
         for k in PAR_KERNELS:
             _check(side["counts"]["tp"].get(k, 0) > 0,
@@ -6084,6 +6406,18 @@ def phase_parallel(card: str) -> dict:
           f"{out['peer']['counts']['tp']}; kept whole on both tp ranks, "
           "every layer: " + ", ".join(f"{k} ({v})" for k, v in
                                       PAR_KEPT_WHOLE.items()), flush=True)
+    for label, a in out["archs"].items():
+        peer_counts = out["peer"]["archs"][label]["counts"]
+        print(f"tp=2 {label} ({card}, 2 ranks on one card, gloo"
+              + (f"; {TP_DS2_LAYERS} of 27 layers"
+                 if label == "DeepSeek-V2-Lite" else
+                 f"; {TP_RWKV6_LAYERS} of 24 layers"
+                 if label.startswith("RWKV6") else "")
+              + f"): weights built in {a['build_s']:.1f} s; "
+              f"{a['check']}; request unsharded {a['single_ms']:.1f} ms, "
+              f"tp=2 {a['tp_ms']:.1f} ms; kept whole on both ranks "
+              f"{a['kept'] or 'none'}; launches rank 0 {a['counts']}, "
+              f"rank 1 {peer_counts}", flush=True)
     print("NCCL: a world-1 group's all_reduce / all_gather / broadcast ran on "
           "CUDA tensors; NCCL across cards stays unverified until a "
           "multi-chip cell exists", flush=True)
@@ -6135,7 +6469,8 @@ def main() -> int:
     runs += [_timed(phase_fused_single, card, model, bf16_tps),
              _timed(phase_opt_in_batched, card, model),
              _timed(phase_opt_in_layouts, card, model),
-             _timed(phase_scan_decode, card, model)]
+             _timed(phase_scan_decode, card, model),
+             _timed(phase_kernel_vars, card, model)]
     del model
     torch.cuda.empty_cache()
     # parallel serving (two ranks on this card: tp, pp, sp)

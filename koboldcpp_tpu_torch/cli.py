@@ -24,11 +24,14 @@ mode does. `--hordekey` with `--hordeworkername` runs the AI Horde worker
 opens unless `--skiplauncher` is given.
 
 Parallel serving (parallel/): `--mesh dp,tp` shards the model over dp x
-tp ranks (tensor parallel heads and FFN columns, data parallel slots of
+tp ranks (tensor parallel heads and FFN columns of every architecture the
+JAX package shards, expert stacks over tp; data parallel slots of
 `--multiuser`), `--pipeline N` runs N layer stages, `--seqparallel N`
-shards the context over N ranks; the launcher starts the other ranks
-itself, one process a GPU (cuda:<rank>, NCCL; the CPU ranks of --device
-cpu over gloo), and a mesh of more ranks than visible GPUs raises.
+shards the context over N ranks (the llama-family decoders; any other
+model takes its own branch unsharded, as in JAX); the launcher starts
+the other ranks itself, one process a GPU (cuda:<rank>, NCCL; the CPU
+ranks of --device cpu over gloo), and a mesh of more ranks than visible
+GPUs raises.
 `--coordinator host:port --numprocesses N --processid i` joins N
 processes started by hand (multi-host): host 0 serves HTTP and the others
 replay its engine calls in lockstep (parallel/multihost.py). Runs on the
@@ -397,11 +400,16 @@ def _rank_devices(par: _Parallel, n: int) -> list:
     return [("cuda", r) for r in range(n)]
 
 
-def _setup_parallel(args, device, rank, argv) -> _Parallel:
+def _setup_parallel(args, device, rank, argv, model_path) -> _Parallel:
     """The JAX launcher's parallel branches (cli.py:298-302, 358-431) over
     torch.distributed: multi-host lockstep, `--mesh`, `--seqparallel` and
-    `--pipeline`, with its notes where a form is ignored."""
+    `--pipeline`, with its notes where a form is ignored. A model off the
+    llama-family path (models/loader.py `arch_module`) is served by its
+    own branch, unsharded, under --seqparallel / --pipeline, as the JAX
+    engine serves it: no follower rank starts."""
     import torch
+
+    from .models.loader import arch_module, model_arch
 
     par = _Parallel()
     par.device = None if device is None else torch.device(device)
@@ -449,6 +457,12 @@ def _setup_parallel(args, device, rank, argv) -> _Parallel:
                   "batching in this round; ignoring")
         else:
             axis, n = "pp", args.pipeline
+    arch = model_arch(model_path) if axis is not None else None
+    if arch is not None and arch_module(arch) is not None:
+        print(f"Note: --{'seqparallel' if axis == 'sp' else 'pipeline'} {n} "
+              f"serves the llama-family decoders; {arch} runs its own "
+              "branch unsharded, as in the JAX engine")
+        axis = None
     if axis is not None and par.topo is not None and n != par.topo.n_hosts:
         print(f"Note: --{'seqparallel' if axis == 'sp' else 'pipeline'} {n} "
               f"must span the {par.topo.n_hosts} hosts; ignoring")
@@ -537,7 +551,7 @@ def main(argv=None, rank=None):
         except ValueError:
             pass
 
-    par = _setup_parallel(args, device, rank, argv)
+    par = _setup_parallel(args, device, rank, argv, model_path)
     try:
         out = _serve(args, model_path, par)
     except BaseException:
@@ -575,6 +589,11 @@ def _serve(args, model_path: str, par: _Parallel) -> int:
           f"{model.cfg.n_layers} layers, vocab {model.cfg.vocab_size}) "
           f"on {model.device}")
     line = apply_rope_config(model.cfg, args.ropeconfig, args.contextsize)
+    if line:
+        print(line)
+    from .models.llama import flash_decode_note
+
+    line = flash_decode_note()
     if line:
         print(line)
     if par.mesh is not None:
@@ -617,7 +636,6 @@ def _serve(args, model_path: str, par: _Parallel) -> int:
                                page_size=args.pagesize, device=model.device,
                                quantkv=args.quantkv, use_contextshift=shift,
                                clip_model=clip_model, mesh=par.mesh)
-        steps = ("_forward", "_kv_shift_slot", "_reset_cache")
         print(f"Continuous batching enabled: {args.multiuser} KV slots"
               + (" (paged)" if paged else ""))
     else:
@@ -626,7 +644,6 @@ def _serve(args, model_path: str, par: _Parallel) -> int:
                         use_smartcontext=args.smartcontext,
                         use_contextshift=shift, clip_model=clip_model,
                         pp_mesh=par.pp_mesh, sp_mesh=par.sp_mesh)
-        steps = ("_forward", "_kv_remove_shift")
         if args.quantkv == 1:
             print("Q8-quantized KV cache enabled")
         elif args.quantkv == 2:
@@ -645,7 +662,7 @@ def _serve(args, model_path: str, par: _Parallel) -> int:
                 engine.shutdown()
             dist.destroy_process_group()
             return 0
-        launch.mirror(engine, world, steps)
+        launch.mirror(engine, world, engine.MIRRORED_STEPS)
     lockstep = None
     if multi_host:
         from .parallel.multihost import (LockstepEngine, announce_shutdown,

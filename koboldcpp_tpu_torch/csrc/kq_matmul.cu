@@ -6,7 +6,9 @@
 // `_q4k_kernel` (the default KCPP_Q4K_2D=sexp), `_q5k_kernel`, `_q6k_kernel`
 // and `_q8_0_kernel` (K3), `_q2k_kernel`, `_q3k_kernel`, `_iq2p_kernel`,
 // `_iq3p_kernel` (iq3px and iq3ps), `_iq1p_kernel` and `_q4k_i8_kernel`
-// (K13; the last under KCPP_Q4K_LAYOUT=i8, at every T). As there, the
+// (K13; the last under KCPP_Q4K_LAYOUT=i8, at every T), and
+// `_q4k_magic_kernel` (KCPP_Q4K_2D=magic: K3.q4_k_magic, kind 11, below).
+// As there, the
 // weight fed to the product is bf16(q * scale) (q4_k: the nibble 0..15;
 // q5_k: the nibble with its 5th bit, 0..31; q6_k: the 6-bit value 0..63;
 // q8_0: the int8 code; q2_k: the 2-bit code 0..3; q3_k: the 2-bit code with
@@ -69,26 +71,35 @@
 //     4-stage cp.async ring of whole superblocks; mma.sync m16n8k16 with
 //     the tokens as N = 8; the four partial tiles are summed in a fixed
 //     order through shared memory.
+// K3.q4_k_magic (kind Q4KM, the q4_k fields): the weight fed to the
+// product is bf16(s * (128 + 8 n)), one bf16x2 multiply of the exact
+// magic value 0x4300 | n << 3 by the scale (a rounding of its own, where
+// the default body rounds s * n); the one affine k16 step takes A =
+// -128 s on k 0-7 and -8 min on k 8-15 against B = the superblock's 8
+// group sums on both halves (the prep writes them twice), and the
+// epilogue scales the f32 sum by 0.125 (exact): 0.125 x . w - 16 xsum .
+// s - xsum . min, the JAX body's terms.
 // Launch counters: ops/_build.launches["K3"] (q4_k, q6_k), ["K3.q5_k"],
 // ["K3.q8_0"], ["K13.q2_k"], ["K13.q3_k"], ["K13.iq2p"], ["K13.iq3px"],
-// ["K13.iq3ps"], ["K13.iq1p"] and ["K13.q4_k_i8"], one per matmul.
+// ["K13.iq3ps"], ["K13.iq1p"], ["K13.q4_k_i8"] and ["K3.q4_k_magic"], one
+// per matmul.
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 enum { Q4K = 0, Q6K = 1, Q5K = 2, Q80 = 3, Q2K = 4, Q3K = 5, IQ2P = 6,
-       IQ3PX = 7, IQ3PS = 8, IQ1P = 9, Q4KI8 = 10 };
+       IQ3PX = 7, IQ3PS = 8, IQ1P = 9, Q4KI8 = 10, Q4KM = 11 };
 
 template <int K>
 struct Kind {
     // 8-byte runs of the code fields per row and quarter superblock
-    static constexpr int NRUN = (K == Q4K || K == Q5K) ? 4
+    static constexpr int NRUN = (K == Q4K || K == Q5K || K == Q4KM) ? 4
                               : K == Q6K ? 6
                               : (K == Q80 || K == Q4KI8) ? 8 : 2;
     static constexpr int IMG = 32 * NRUN;  // code bytes per row, superblock
     static constexpr bool MIN = K == Q4K || K == Q5K || K == Q2K
-                                || K == IQ1P || K == Q4KI8;
+                                || K == IQ1P || K == Q4KI8 || K == Q4KM;
     // a 32-byte bit plane per superblock: q5_k qh, q3_k / iq3 hmask
     static constexpr bool HM = K == Q5K || K == Q3K || K == IQ3PX
                                || K == IQ3PS;
@@ -138,6 +149,10 @@ __device__ __forceinline__ const uint8_t* img_src(const Args& a, int r,
     return a.w0 + (size_t)r * (a.in_f / 256 * IMG0) + (size_t)sb * IMG0 + o;
 }
 
+// the factor of the f32 sums before the bf16 store (K3.q4_k_magic: 0.125)
+template <int K>
+constexpr float OUT_SCALE = K == Q4KM ? 0.125f : 1.f;
+
 // Per row and superblock the small fields sit together: scale (512 / grp
 // bytes), min (as many, MIN kinds), the 32-byte bit plane (HM), sg (SG).
 template <int K>
@@ -179,7 +194,7 @@ __device__ __forceinline__ RowQ load_row(const uint8_t* img,
     RowQ o;
     o.r1 = o.r2 = o.r3 = make_uint2(0u, 0u);
     o.hb = 0u;
-    if (K == Q4K || K == Q5K) {
+    if (K == Q4K || K == Q5K || K == Q4KM) {
         o.r0 = RUN(c);
     } else if (K == Q6K) {
         o.r0 = RUN(c & 1);
@@ -261,6 +276,10 @@ __device__ __forceinline__ void row_step(const RowQ& o, int s, int c,
         }
         lo = wpair(v0, 0u, o.s0, o.n0);
         hi = wpair(v1, 0u, o.s1, o.n1);
+    } else if (K == Q4KM) {  // bf16(s * (128 + 8 n)), rounded once
+        const uint32_t p = pick2(o.r0, s);
+        lo = bf16x2_mul(((p & 0x000F000Fu) << 3) | 0x43004300u, o.s0);
+        hi = bf16x2_mul((((p >> 4) & 0x000F000Fu) << 3) | 0x43004300u, o.s1);
     } else if (K == Q6K) {
         const int nsh = 4 * (c >> 1);
         const uint32_t v0 = ((pick2(o.r0, s) >> nsh) & 0x000F000Fu)
@@ -313,6 +332,13 @@ template <int K>
 __device__ __forceinline__ void aff_pair(const uint8_t* sm, int grp, int aa,
                                          int c, uint32_t& lo, uint32_t& hi) {
     const int gps = 256 / grp;
+    if (K == Q4KM) {  // k 0-7: -128 scale; k 8-15: -8 min (both exact)
+        const __nv_bfloat16* sc = reinterpret_cast<const __nv_bfloat16*>(sm);
+        const __nv_bfloat16* mn = sc + gps;
+        lo = pack_bf16(-128.f * bf2f(sc[2 * c]), -128.f * bf2f(sc[2 * c + 1]));
+        hi = pack_bf16(-8.f * bf2f(mn[2 * c]), -8.f * bf2f(mn[2 * c + 1]));
+        return;
+    }
     const __nv_bfloat16* f = reinterpret_cast<const __nv_bfloat16*>(
         sm + (Kind<K>::MIN ? 512 / grp : 0));
     const int k0 = 16 * aa + 2 * c, k1 = k0 + 8;
@@ -393,12 +419,13 @@ __device__ __forceinline__ void copy_superblock(const Args& a, uint8_t* img,
 // width ga (0: none) as bf16 of sequential f32 sums, stored for each
 // superblock, affine step aa and 8-token block as one 8 x 16 wgmma
 // operand block: two core matrices (groups 0-7, 8-15) of 8 tokens x 16 B.
-// Groups past the superblock's and tokens past T are zero.
+// Groups past the superblock's and tokens past T are zero; with dup
+// (K3.q4_k_magic) k 8-15 repeat the sums of groups 0-7.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(256)
 kq_prep_kernel(const __nv_bfloat16* __restrict__ x,
                __nv_bfloat16* __restrict__ xp, __nv_bfloat16* __restrict__ xs,
-               int T, int in_f, int ga, int na, int t8) {
+               int T, int in_f, int ga, int na, int t8, bool dup) {
     __shared__ __align__(16) __nv_bfloat16 xt[8][264];
     const int tid = threadIdx.x, sb = blockIdx.x, tb = blockIdx.y;
     const int t = tid >> 5, ch = tid & 31, tok = tb * 8 + t;
@@ -419,9 +446,10 @@ kq_prep_kernel(const __nv_bfloat16* __restrict__ x,
     }
     if (ga && tid < 128 * na) {
         const int gps = 256 / ga, n = tid & 7, k = tid >> 3;
+        const int kg = dup && k >= gps ? k - gps : k;
         float s = 0.f;
-        if (k < gps && tb * 8 + n < T)
-            for (int e = 0; e < ga; ++e) s += bf2f(xt[n][k * ga + e]);
+        if (kg < gps && tb * 8 + n < T)
+            for (int e = 0; e < ga; ++e) s += bf2f(xt[n][kg * ga + e]);
         const int aa = k >> 4, kk = k & 15;
         xs[((size_t)(sb * na + aa) * t8 + tb) * 128
            + ((kk >> 3) * 8 + n) * 8 + (kk & 7)] = f2bf(s);
@@ -593,10 +621,10 @@ kq_wgmma_kernel(const Args a, const int ks) {
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
             const int n = 8 * j + 2 * c;
-            ys[n * ld + r0] = f2bf(acc[4 * j + 0]);
-            ys[(n + 1) * ld + r0] = f2bf(acc[4 * j + 1]);
-            ys[n * ld + r0 + 8] = f2bf(acc[4 * j + 2]);
-            ys[(n + 1) * ld + r0 + 8] = f2bf(acc[4 * j + 3]);
+            ys[n * ld + r0] = f2bf(OUT_SCALE<K> * acc[4 * j + 0]);
+            ys[(n + 1) * ld + r0] = f2bf(OUT_SCALE<K> * acc[4 * j + 1]);
+            ys[n * ld + r0 + 8] = f2bf(OUT_SCALE<K> * acc[4 * j + 2]);
+            ys[(n + 1) * ld + r0 + 8] = f2bf(OUT_SCALE<K> * acc[4 * j + 3]);
         }
     }
     __syncthreads();
@@ -704,7 +732,7 @@ kq_swap_kernel(const Args a) {
         v += red[(16 + r) * 8 + t];
         v += red[(32 + r) * 8 + t];
         v += red[(48 + r) * 8 + t];
-        a.y[(size_t)t * a.out_f + m0 + r] = f2bf(v);
+        a.y[(size_t)t * a.out_f + m0 + r] = f2bf(OUT_SCALE<K> * v);
     }
 }
 
@@ -759,7 +787,8 @@ static cudaError_t launch(const Args& a, int variant, int rows, int tokens,
 // mn=min; q6_k: w0=ql, w1=qh; q5_k: w0=qs2, w1=qh (bit plane), mn=min;
 // q8_0: w0=q; q2_k: w0=qs, mn=min; q3_k: w0=qs, w1=hmask; iq2p: w0=qs,
 // w2=sg; iq3px / iq3ps: w0=qs, w1=hmask, w2=sg; iq1p: w0=qs, mn=min;
-// q4_k_i8: w0=q (int8 codes), mn=min. grp: the IQ kinds' scale group (8,
+// q4_k_i8: w0=q (int8 codes), mn=min; kind 11 (K3.q4_k_magic): q4_k's.
+// grp: the IQ kinds' scale group (8,
 // 16 or 32; ignored by the other kinds). The plan (ops/quant_matmul.py
 // `kq_plan`): variant 0 (swap: rows 16, tokens 8, split 4, T <= 8) or 1
 // (wgmma: rows 64 or 128, tokens 64 or 128, split 1), grid (gx, gy) =
@@ -772,7 +801,7 @@ KCPP_API int k3_kq_matmul(int kind, const void* x, void* xp, void* xs,
                           int tokens, int split, int gx, int gy,
                           void* stream) {
     const bool iq = kind >= IQ2P && kind <= IQ1P;
-    if (kind < 0 || kind > Q4KI8 || T < 1 || in_f <= 0 || in_f % 256
+    if (kind < 0 || kind > Q4KM || T < 1 || in_f <= 0 || in_f % 256
         || (iq && grp != 8 && grp != 16 && grp != 32))
         return (int)cudaErrorInvalidValue;
     if (variant == 0) {
@@ -788,7 +817,8 @@ KCPP_API int k3_kq_matmul(int kind, const void* x, void* xp, void* xs,
     if (out_f <= 0 || out_f % rows || gx != out_f / rows
         || gy != (T + tokens - 1) / tokens || gy > 65535)
         return (int)cudaErrorInvalidValue;
-    const int ga = (kind == Q4K || kind == Q5K || kind == Q4KI8) ? 32
+    const int ga = (kind == Q4K || kind == Q5K || kind == Q4KI8
+                    || kind == Q4KM) ? 32
                  : (kind == Q6K || kind == Q2K || kind == Q3K) ? 16
                  : kind == IQ1P ? grp : 0;
     Args a;
@@ -810,7 +840,7 @@ KCPP_API int k3_kq_matmul(int kind, const void* x, void* xp, void* xs,
     cudaStream_t st = (cudaStream_t)stream;
     kq_prep_kernel<<<dim3(in_f / 256, a.t8), 256, 0, st>>>(
         (const __nv_bfloat16*)x, (__nv_bfloat16*)xp, (__nv_bfloat16*)xs, T,
-        in_f, ga, a.na, a.t8);
+        in_f, ga, a.na, a.t8, kind == Q4KM);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     switch (kind) {
@@ -824,6 +854,7 @@ KCPP_API int k3_kq_matmul(int kind, const void* x, void* xp, void* xs,
         case IQ3PX: return (int)launch<IQ3PX>(a, variant, rows, tokens, split, gx, gy, st);
         case IQ3PS: return (int)launch<IQ3PS>(a, variant, rows, tokens, split, gx, gy, st);
         case IQ1P: return (int)launch<IQ1P>(a, variant, rows, tokens, split, gx, gy, st);
-        default: return (int)launch<Q4KI8>(a, variant, rows, tokens, split, gx, gy, st);
+        case Q4KI8: return (int)launch<Q4KI8>(a, variant, rows, tokens, split, gx, gy, st);
+        default: return (int)launch<Q4KM>(a, variant, rows, tokens, split, gx, gy, st);
     }
 }

@@ -72,9 +72,10 @@
 // request served in a batch gets the tokens it gets alone.
 //
 // The bf16-activation bodies (in_f < 512, the fixtures; KCPP_Q4K_I8=0 at
-// T <= 4) keep the first design: a group-sum prep launch
-// (group_sums_kernel), then one warp per output row with the exact f32
-// dots of bf16 x and the codes.
+// T <= KCPP_MATVEC_MAX_T, default 4) keep the first design: a group-sum
+// prep launch (group_sums_kernel), then one warp per output row with the
+// exact f32 dots of bf16 x and the codes; past 8 tokens (a cap above 8)
+// each block row of the grid takes 8 tokens, each token's sums as alone.
 // Launch counters: ops/_build.launches["K1"] and ["K7"] (q4_k),
 // ["K1.q5_k"] and ["K7.q5_k"] (q5_k), ["K17a"] and ["K17a.q5_k"]
 // (stacked), one per matvec.
@@ -422,7 +423,7 @@ q4k_bf16_kernel(const uint8_t* __restrict__ qs2,
                 const __nv_bfloat16* __restrict__ x,     // (T, in_f)
                 const __nv_bfloat16* __restrict__ xsum,  // (T, in_f/32)
                 __nv_bfloat16* __restrict__ y,           // (T, out_f)
-                int out_f, int in_f, Stacked stk) {
+                int out_f, int in_f, Stacked stk, int ntok) {
     qs2 = stk.at(qs2, 0);
     qh = stk.at(qh, 1);
     scale = stk.at(scale, 2);
@@ -431,6 +432,12 @@ q4k_bf16_kernel(const uint8_t* __restrict__ qs2,
     const int lane = threadIdx.x & 31;
     if (row >= out_f) return;  // whole warps exit together
     const int ng = in_f / 32;
+    // block y takes tokens [T y, T y + T) of ntok (past 8 tokens: blocks of
+    // 8, each token summed as alone)
+    const int t0 = blockIdx.y * T, nt = min(T, ntok - t0);
+    x += (size_t)t0 * in_f;
+    xsum += (size_t)t0 * ng;
+    y += (size_t)t0 * out_f;
     const int nchunk = in_f / 32;  // 16-byte chunks per row (in_f/2 bytes)
     const uint8_t* wrow = qs2 + (size_t)row * (in_f / 2);
     const __nv_bfloat16* srow = scale + (size_t)row * ng;
@@ -464,7 +471,7 @@ q4k_bf16_kernel(const uint8_t* __restrict__ qs2,
 #pragma unroll
         for (int t = 0; t < T; ++t) {
             float plo = 0.f, phi = 0.f;
-            if (valid) {
+            if (valid && t < nt) {
                 const __nv_bfloat16* xt = x + (size_t)t * in_f;
 #pragma unroll
                 for (int k = 0; k < 16; ++k) {
@@ -489,6 +496,7 @@ q4k_bf16_kernel(const uint8_t* __restrict__ qs2,
     }
 #pragma unroll
     for (int t = 0; t < T; ++t) {
+        if (t >= nt) break;  // nt is uniform over the block
         const __nv_bfloat16* xs = xsum + (size_t)t * ng;
         float accm = 0.f;  // min term: sum_g m_g * xsum_g
         for (int g = lane; g < ng; g += 32)
@@ -504,13 +512,14 @@ static cudaError_t launch_bf16(int T, const void* qs2, const void* qh,
                                const void* x, const void* xsum, void* y,
                                int out_f, int in_f, Stacked stk,
                                cudaStream_t st) {
-    dim3 grid((out_f + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK);
+    if (T < 1 || (T + 7) / 8 > 65535) return cudaErrorInvalidValue;
+    dim3 grid((out_f + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK, T > 8 ? (T + 7) / 8 : 1);
     dim3 block(ROWS_PER_BLOCK * 32);
 #define KQ_ARGS (const uint8_t*)qs2, (const uint8_t*)qh, \
         (const __nv_bfloat16*)scale, (const __nv_bfloat16*)mn, \
         (const __nv_bfloat16*)x, (const __nv_bfloat16*)xsum, \
-        (__nv_bfloat16*)y, out_f, in_f, stk
-    switch (T) {
+        (__nv_bfloat16*)y, out_f, in_f, stk, T
+    switch (T > 8 ? 8 : T) {
         case 1: q4k_bf16_kernel<1, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
         case 2: q4k_bf16_kernel<2, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;
         case 3: q4k_bf16_kernel<3, Q5><<<grid, block, 0, st>>>(KQ_ARGS); break;

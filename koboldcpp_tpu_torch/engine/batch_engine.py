@@ -188,6 +188,10 @@ class BatchedEngine:
     every slot on the
     host."""
 
+    # the device-side steps a tensor-parallel rank 0 mirrors to its
+    # followers (parallel/launch.py `mirror`)
+    MIRRORED_STEPS = ("_forward", "_kv_shift_slot", "_reset_cache")
+
     def __init__(self, model: Model, max_context: int = 2048, n_slots: int = 4,
                  paged: bool = False, page_size: int = 64, device=None,
                  quantkv: int = 0, pool_fraction: float = 1.0,

@@ -191,10 +191,18 @@ class Engine:
     take theirs, none with a KV cache of the llama kind (quantkv is not
     read). pp_mesh / sp_mesh (parallel/sharding.py Meshes of one axis,
     "pp" or "sp"): this rank's stage of a pipeline or its rows of a
-    sequence-sharded context (`_parallel_branch`); a tensor-parallel
-    shard needs nothing here (models/llama.py reads params["tp"])."""
+    sequence-sharded context (`_parallel_branch`; a model off the
+    llama-family path takes its own branch unsharded, as in JAX); a
+    tensor-parallel shard needs nothing here (the model's forward reads
+    params["tp"]), but its ranks make every call of `MIRRORED_STEPS`
+    together (parallel/launch.py)."""
 
     IMG_SENTINEL = IMG_SENTINEL
+    # the device-side steps a tensor-parallel rank 0 mirrors to its
+    # followers (parallel/launch.py `mirror`): every call that runs the
+    # sharded model or changes the rank's cache or state
+    MIRRORED_STEPS = ("_forward", "_kv_remove_shift", "_encode_rows",
+                      "_run_encoder", "_reset_recurrent_state")
 
     def __init__(self, model: Model, max_context: int = 2048, device=None,
                  quantkv: int = 0, use_smartcontext: bool = False,
@@ -249,6 +257,10 @@ class Engine:
                                     cfg.n_kv_heads, cfg.head_dim,
                                     device=self.device,
                                     quantized=_kv_quant(quantkv))
+        if not self._std_path:
+            # the JAX engine takes its model branches before the pipeline
+            # and sequence-parallel ones (engine.py:170-198)
+            pp_mesh = sp_mesh = None
         self.pp_mesh, self.sp_mesh = pp_mesh, sp_mesh
         if pp_mesh is not None or sp_mesh is not None:
             self._parallel_branch(model, pp_mesh, sp_mesh)
@@ -269,7 +281,7 @@ class Engine:
         (sp_mesh: `--seqparallel N`), with no context shift, smart
         context, flash prefill or device chunks (the JAX engine's
         `_std_path` is False there); fast-forward still applies."""
-        if not self._std_path or self.quantkv:
+        if self.quantkv:
             raise ValueError("pipeline and sequence parallelism serve the "
                              "llama-family path over a bf16 KV cache")
         self.use_flash_prefill = False
@@ -301,8 +313,6 @@ class Engine:
             raise ValueError("loaded model is not an embedding model")
         from ..models.bert import pool
 
-        fn = (self._mod.encode if self.cfg.arch == "t5encoder"
-              else self._mod.forward_embed)
         mode = {2: "cls"}.get((self.cfg.extras or {}).get("pooling", 1),
                               "mean")
         out = []
@@ -310,9 +320,18 @@ class Engine:
             for text in texts:
                 ids = self.tokenizer.encode(text) or [0]
                 tok, pos = self._end_padded(ids[:self.max_context])
-                hidden = fn(self.model.params, self.cfg, tok, pos)
+                hidden = self._encode_rows(tok, pos)
                 out.append(pool(hidden.float(), pos, mode)[0].cpu().numpy())
         return np.stack(out)
+
+    def _encode_rows(self, tok: torch.Tensor,
+                     pos: torch.Tensor) -> torch.Tensor:
+        """An embedding model's hidden states of one padded text (bert's
+        `forward_embed`, t5encoder's `encode`)."""
+        fn = (self._mod.encode if self.cfg.arch == "t5encoder"
+              else self._mod.forward_embed)
+        with torch.inference_mode():
+            return fn(self.model.params, self.cfg, tok, pos)
 
     def _end_padded(self, ids: list[int], start_pos: int = 0):
         """(tokens, positions) (1, bucket) on the device: ids at positions

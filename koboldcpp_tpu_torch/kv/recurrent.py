@@ -91,13 +91,17 @@ class RWKV4State:
 
 
 def init_rwkv4_state(n_layers: int, batch: int, n_embd: int,
-                     device="cpu") -> RWKV4State:
-    def z():
-        return torch.zeros((n_layers, batch, n_embd), dtype=torch.float32,
+                     device="cpu", wkv_width: int | None = None) -> RWKV4State:
+    """wkv_width: the channels of aa / bb / pp (a tensor-parallel rank's
+    share; default n_embd)."""
+    w = wkv_width or n_embd
+
+    def z(n=n_embd):
+        return torch.zeros((n_layers, batch, n), dtype=torch.float32,
                            device=device)
 
-    return RWKV4State(att_shift=z(), ffn_shift=z(), aa=z(), bb=z(),
-                      pp=torch.full((n_layers, batch, n_embd), -1e30,
+    return RWKV4State(att_shift=z(), ffn_shift=z(), aa=z(w), bb=z(w),
+                      pp=torch.full((n_layers, batch, w), -1e30,
                                     dtype=torch.float32, device=device))
 
 

@@ -13,7 +13,12 @@ Post-norm encoder: x = LN(x + attn(x)), then x = LN(x + ffn(x)). `pool`
 takes the mean over the valid rows or the first (CLS) row.
 
 The projections go through `linear.matmul` (K3 / K13 at the T >= 9 of a
-bucketed text, K7 / K1 for shorter ones where the kind has them). The
+bucketed text, K7 / K1 for shorter ones where the kind has them). Under
+tensor parallelism (params["tp"], parallel/sharding.py) a rank holds its
+heads and FFN columns: jina's QK layer norm takes its statistics over
+every rank's heads, ALiBi the rank's slopes, and the wo / w_down
+products (with bo / b_down on rank 0) are summed over tp before each
+post-norm, so every rank pools the same vector. The
 bidirectional attention is plain torch ops (f32 scores, the masked
 softmax, p cast to V's dtype before p . V), as the JAX module's einsums:
 no Pallas kernel there, no finished kernel here.
@@ -28,9 +33,10 @@ import torch.nn.functional as F
 from ..ops import linear
 from ..ops.norms import layer_norm
 from ..ops.rope import apply_rope, rope_frequencies
+from ..parallel.sharding import matmul, reduce
 from .config import ModelConfig
 from .loader import tensor_readers
-from .llama import _GELU_TANH, alibi_slopes
+from .llama import _GELU_TANH, local_alibi_slopes
 
 Params = dict[str, Any]
 
@@ -53,6 +59,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhts,bshd->bthd", p.to(v.dtype).float(), v.float())
 
 
+def _norm(tp, li: int, x: torch.Tensor, layer: Params, key: str,
+          eps: float, D: int) -> torch.Tensor:
+    """jina's QK layer norm over the flat projection: under tensor
+    parallelism over every rank's heads (layer li's `HeadShard`)."""
+    if tp is None:
+        return layer_norm(x, layer[key], layer.get(key + "_bias"), eps)
+    hs = tp.heads[li]
+    n = (hs.n_q if key == "attn_q_norm" else hs.n_kv) * D
+    return tp.layer_norm(x, layer[key], layer.get(key + "_bias"), eps, n)
+
+
 def forward_embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   positions: torch.Tensor) -> torch.Tensor:
     """tokens, positions (B, S); position < 0 marks padding. Returns the
@@ -71,37 +88,36 @@ def forward_embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
     mask = valid[:, None, :] & valid[:, :, None]  # (B, S, S)
     H, D = cfg.n_heads, cfg.head_dim
+    tp = params.get("tp")
     alibi = None
     if cfg.use_alibi:  # jina: -slope |i - j|
         dist = -torch.abs(positions[:, None, :] - positions[:, :, None]
                           ).float()
-        alibi = (alibi_slopes(H, cfg.alibi_bias_max, dev)[None, :, None, None]
+        alibi = (local_alibi_slopes(cfg, H, dev)[None, :, None, None]
                  * dist[:, None])
     freqs = rope_frequencies(cfg, dev) if cfg.use_rope else None
     pos = torch.clamp(positions, min=0)
-    for layer in params["layers"]:
+    for li, layer in enumerate(params["layers"]):
         if "wqkv" in layer:  # nomic's fused projection, no biases
-            qkv = linear.matmul(x, layer["wqkv"])
+            qkv = matmul(x, layer["wqkv"])
             q, k, v = qkv[..., :H * D], qkv[..., H * D:2 * H * D], \
                 qkv[..., 2 * H * D:]
         else:
-            q = linear.matmul(x, layer["wq"]) + layer["bq"].to(x.dtype)
-            k = linear.matmul(x, layer["wk"]) + layer["bk"].to(x.dtype)
-            v = linear.matmul(x, layer["wv"]) + layer["bv"].to(x.dtype)
+            q = matmul(x, layer["wq"]) + layer["bq"].to(x.dtype)
+            k = matmul(x, layer["wk"]) + layer["bk"].to(x.dtype)
+            v = matmul(x, layer["wv"]) + layer["bv"].to(x.dtype)
         if "attn_q_norm" in layer:  # jina's full-width QK LayerNorm
-            q = layer_norm(q, layer["attn_q_norm"],
-                           layer.get("attn_q_norm_bias"), eps)
-            k = layer_norm(k, layer["attn_k_norm"],
-                           layer.get("attn_k_norm_bias"), eps)
+            q = _norm(tp, li, q, layer, "attn_q_norm", eps, D)
+            k = _norm(tp, li, k, layer, "attn_k_norm", eps, D)
         q, k, v = (t.reshape(B, S, H, D) for t in (q, k, v))
         if freqs is not None:
             q = apply_rope(q, pos, freqs, cfg.rope_type, cfg.rope_dim)
             k = apply_rope(k, pos, freqs, cfg.rope_type, cfg.rope_dim)
         attn = attention(q, k, v, mask, D ** -0.5, alibi)
-        attn = linear.matmul(attn.reshape(B, S, H * D).to(x.dtype),
-                             layer["wo"])
+        attn = matmul(attn.reshape(B, S, H * D).to(x.dtype), layer["wo"])
         if "bo" in layer:
             attn = attn + layer["bo"].to(x.dtype)
+        attn = reduce(params, attn)
         h = layer_norm(x + attn, layer["attn_out_norm"],
                        layer.get("attn_out_norm_bias"), eps)
         if "attn_norm_2" in layer:  # jina's "mixed" layers re-add the input
@@ -110,16 +126,17 @@ def forward_embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         x = h
 
         if "w_gate" in layer:  # nomic (silu) / jina (tanh-gelu), gated
-            gate = linear.matmul(x, layer["w_gate"])
-            up = linear.matmul(x, layer["w_up"])
+            gate = matmul(x, layer["w_gate"])
+            up = matmul(x, layer["w_up"])
             actf = F.silu if cfg.act == "silu" else _GELU_TANH
             act = actf(gate.float()).to(x.dtype) * up
         else:
-            up = linear.matmul(x, layer["w_up"]) + layer["b_up"].to(x.dtype)
+            up = matmul(x, layer["w_up"]) + layer["b_up"].to(x.dtype)
             act = F.gelu(up.float()).to(x.dtype)
-        down = linear.matmul(act, layer["w_down"])
+        down = matmul(act, layer["w_down"])
         if "b_down" in layer:
             down = down + layer["b_down"].to(x.dtype)
+        down = reduce(params, down)
         x = layer_norm(x + down, layer["layer_out_norm"],
                        layer.get("layer_out_norm_bias"), eps)
     return x.float()

@@ -16,6 +16,13 @@ Port of koboldcpp_tpu/models/deepseek2.py:
   expert with no gate (`_moe`);
 - minicpm3's embedding, residual and logit scales from the config.
 
+Under tensor parallelism (params["tp"], parallel/sharding.py) a rank holds
+its heads (wq or wq_b, wkv_b, its part of the MLA cache) and FFN columns,
+and the routed experts of its range; wo, w_down and the shared expert's
+down projection are summed over tp and the routed experts' combine over
+the expert axis (one all_reduce where that axis is tp), the head's vocab
+rows gathered.
+
 The projections go through `linear.matmul`, so the packed weights reach the
 port's kernels (K1 / K2 at T = 1, K3 above), and the expert products are
 models/llama.py's `_moe_gather` (torch.mm, as the JAX einsums lie outside
@@ -40,6 +47,7 @@ from ..kv.cache import KVCache
 from ..ops import linear
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope
+from ..parallel.sharding import head_logits, matmul, reduce
 from . import llama
 from .config import ModelConfig
 
@@ -72,7 +80,8 @@ def _scales(cfg: ModelConfig) -> tuple[float, float]:
     return 1.0 / math.sqrt(dk), 1.0
 
 
-def _moe(x: torch.Tensor, layer: Params, cfg: ModelConfig) -> torch.Tensor:
+def _moe(x: torch.Tensor, layer: Params, cfg: ModelConfig,
+         tp=None) -> torch.Tensor:
     """The JAX `_moe`: a router product cast to f32, softmax, top-k (not
     renormalized; llama's `_top_k`, a tie to the lower index) scaled by
     `expert_weights_scale`, the silu experts, plus the shared expert with
@@ -80,21 +89,33 @@ def _moe(x: torch.Tensor, layer: Params, cfg: ModelConfig) -> torch.Tensor:
     `every_expert`: each chosen expert's weights read in place, one host
     read of the group bounds a layer) at every T: this architecture decodes
     in the host loop, and on the H100 a step of this form took less device
-    time than every expert's (PERF.md, PR 20)."""
+    time than every expert's (PERF.md §6). tp: the TensorShard of a
+    sharded layer (the rank's experts and shared-expert columns)."""
     B, T, C = x.shape
     xt = x.reshape(-1, C)
     router = linear.matmul(xt, layer["ffn_gate_inp"]).float()
     topw, topi = llama._top_k(torch.softmax(router, dim=-1),
                               cfg.n_experts_used)
     topw = topw * cfg.extras.get("expert_weights_scale", 1.0)
+    shard = tp is not None and tp.experts is not None
     out = llama._moe_gather(xt, topi, topw, layer["ffn_gate_exps"].data["w"],
                             layer["ffn_up_exps"].data["w"],
                             layer["ffn_down_exps"].data["w"], F.silu,
-                            every_expert=False)
-    sg = F.silu(linear.matmul(xt, layer["ffn_gate_shexp"]).float())
-    su = linear.matmul(xt, layer["ffn_up_shexp"]).float()
-    sd = linear.matmul((sg * su).to(xt.dtype), layer["ffn_down_shexp"])
-    return (out + sd.float()).reshape(B, T, C).to(x.dtype)
+                            every_expert=False,
+                            e0=tp.experts[0] if shard else 0,
+                            n_experts=tp.n_experts if shard else 0)
+    sg = F.silu(matmul(xt, layer["ffn_gate_shexp"]).float())
+    su = matmul(xt, layer["ffn_up_shexp"]).float()
+    sd = matmul((sg * su).to(xt.dtype), layer["ffn_down_shexp"]).float()
+    if shard and tp.expert_group is tp.group:  # dense-EP: one sum over tp
+        y = tp.reduce(out + sd)
+    else:
+        if shard:  # the combine over ep
+            out = tp.reduce_experts(out)
+        if tp is not None and tp.group.size > 1:  # the shared expert's
+            sd = tp.reduce(sd)
+        y = out + sd
+    return y.reshape(B, T, C).to(x.dtype)
 
 
 def _attention(layer: Params, cfg: ModelConfig, h: torch.Tensor,
@@ -116,9 +137,9 @@ def _attention(layer: Params, cfg: ModelConfig, h: torch.Tensor,
     eps = cfg.rms_norm_eps
     if "wq_a" in layer:
         q = linear.matmul(h, layer["wq_a"])
-        q = linear.matmul(rms_norm(q, layer["q_a_norm"], eps), layer["wq_b"])
+        q = matmul(rms_norm(q, layer["q_a_norm"], eps), layer["wq_b"])
     else:
-        q = linear.matmul(h, layer["wq"])
+        q = matmul(h, layer["wq"])
     q = q.reshape(B, T, H, dk)
     q_nope, q_pe = q[..., :d_nope], q[..., d_nope:]
 
@@ -126,7 +147,7 @@ def _attention(layer: Params, cfg: ModelConfig, h: torch.Tensor,
     rank = kv_pe.shape[-1] - d_rope
     kv_c = rms_norm(kv_pe[..., :rank], layer["kv_a_norm"], eps)
     k_pe = kv_pe[..., rank:].reshape(B, T, 1, d_rope)
-    kv = linear.matmul(kv_c, layer["wkv_b"]).reshape(B, T, H, d_nope + dv)
+    kv = matmul(kv_c, layer["wkv_b"]).reshape(B, T, H, d_nope + dv)
     k_nope, v = kv[..., :d_nope], kv[..., d_nope:]
 
     q_pe = apply_rope(q_pe, positions, freqs, cfg.rope_type, d_rope,
@@ -147,7 +168,7 @@ def _attention(layer: Params, cfg: ModelConfig, h: torch.Tensor,
     p = torch.softmax(scores, dim=-1)
     attn = torch.einsum("bhts,bshd->bthd", p.to(h.dtype).float(),
                         vl[:, :n].float())
-    return linear.matmul(attn.reshape(B, T, H * dv).to(h.dtype), layer["wo"])
+    return matmul(attn.reshape(B, T, H * dv).to(h.dtype), layer["wo"])
 
 
 def cache_rows(positions: torch.Tensor, S: int):
@@ -183,22 +204,22 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     rows, mask = cache_rows(positions, cache.max_seq)
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["attn_norm"], eps)
-        x = x + res_s * _attention(layer, cfg, h, positions, cache.k[li],
-                                   cache.v[li], rows, mask)
+        x = x + res_s * reduce(params, _attention(
+            layer, cfg, h, positions, cache.k[li], cache.v[li], rows, mask))
         h = rms_norm(x, layer["ffn_norm"], eps)
         if "ffn_gate_inp" in layer:
-            x = x + res_s * _moe(h, layer, cfg)
+            x = x + res_s * _moe(h, layer, cfg, params.get("tp"))
         else:
-            g = F.silu(linear.matmul(h, layer["w_gate"]).float()).to(h.dtype)
-            u = linear.matmul(h, layer["w_up"])
-            x = x + res_s * linear.matmul(g * u, layer["w_down"])
+            g = F.silu(matmul(h, layer["w_gate"]).float()).to(h.dtype)
+            u = matmul(h, layer["w_up"])
+            x = x + res_s * reduce(params, matmul(g * u, layer["w_down"]))
 
     if last_index is not None:
         x = x[torch.arange(B, device=dev), last_index][:, None, :]
     elif last_only:
         x = x[:, -1:, :]
     x = rms_norm(x, params["output_norm"], eps)
-    logits = linear.matmul(x, params["output"], out_dtype=torch.float32)
+    logits = head_logits(params, x)
     if cfg.logit_scale:  # minicpm3: 256 / n_embd
         logits = logits * cfg.logit_scale
     return logits, cache

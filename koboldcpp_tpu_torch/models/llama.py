@@ -63,6 +63,7 @@ sequence-parallel forward's (parallel/pipeline.py, sequence.py).
 from __future__ import annotations
 
 import math
+import os
 from functools import partial
 from typing import Any
 
@@ -77,7 +78,7 @@ from ..ops.ffn_fused import ffn_fused
 from ..ops.flash_prefill import flash_prefill_attention
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.rope import apply_rope, rope_frequencies, yarn_attn_scale
-from ..parallel.sharding import KeptWhole
+from ..parallel.sharding import matmul as _matmul
 from .config import ModelConfig
 
 Params = dict[str, Any]
@@ -125,6 +126,19 @@ def _decode_kv_heads(params: Params, cfg: ModelConfig) -> int:
     return tp.n_kv_heads if tp is not None else cfg.n_kv_heads
 
 
+def flash_decode_note() -> str | None:
+    """The launcher's startup line under KCPP_FLASH_DECODE other than "1",
+    else None. There the JAX forward attends a decode step over its cache
+    with XLA ops in place of its flash-decode kernel: the same function,
+    which the port's K5 family serves as before."""
+    v = os.environ.get("KCPP_FLASH_DECODE", "1")
+    if v == "1":
+        return None
+    return (f"KCPP_FLASH_DECODE={v}: the JAX package's XLA decode attention "
+            "is the flash-decode kernel's function; the port's K5 (flash "
+            "decode) serves it")
+
+
 def check_supported(params: Params, cfg: ModelConfig, device=None) -> None:
     """Raise NotImplementedError, on a CUDA `device`, for a head shape that
     the T=1 attention kernels (K5, K6, K8-K10) are not built for: each
@@ -165,6 +179,15 @@ def alibi_slopes(n_heads: int, bias_max: float = 8.0,
     if n2 != n_heads:
         slopes = torch.cat([slopes[1::2], slopes[::2]])[:n_heads]
     return slopes.to(device)
+
+
+def local_alibi_slopes(cfg: ModelConfig, nh: int, device) -> torch.Tensor:
+    """The slopes of nh query heads: all of the model's, or under tensor
+    parallelism the rank's (cfg.extras["alibi_heads"]: the model's head
+    count and the rank's first head, parallel/sharding.py
+    `local_config`)."""
+    n, h0 = (cfg.extras or {}).get("alibi_heads", (nh, 0))
+    return alibi_slopes(n, cfg.alibi_bias_max, device)[h0:h0 + nh]
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -229,8 +252,8 @@ class _PlainAttention:
                 dist = (torch.arange(self.S, device=pos.device)[None, None, :]
                         - pos[:, :, None]).float()
                 bias = self._bias[nh] = (
-                    alibi_slopes(nh, cfg.alibi_bias_max,
-                                 pos.device)[None, :, None, None]
+                    local_alibi_slopes(cfg, nh, pos.device)[None, :, None,
+                                                            None]
                     * dist[:, None, :, :])
         return attention(q, ck, cv, mask, scale, cfg.attn_logit_softcap,
                          bias)
@@ -247,14 +270,6 @@ def _pad_kv(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor):
     return torch.cat([k, z], dim=2), torch.cat([v, z.to(v.dtype)], dim=2)
 
 
-def _matmul(x: torch.Tensor, w, out_dtype=None) -> torch.Tensor:
-    """x @ w.T through ops/linear.py, or the product of a weight that a
-    tensor-parallel shard keeps whole (parallel/sharding.py KeptWhole)."""
-    if isinstance(w, KeptWhole):
-        return w.matmul(x, out_dtype)
-    return linear.matmul(x, w, out_dtype)
-
-
 def _scaled(y: torch.Tensor, layer: Params, key: str) -> torch.Tensor:
     """bitnet's per-projection scalar weight scale, where the layer has
     one (the JAX `_scaled`)."""
@@ -263,13 +278,15 @@ def _scaled(y: torch.Tensor, layer: Params, key: str) -> torch.Tensor:
 
 
 def _ffn(x: torch.Tensor, layer: Params, act: str = "silu",
-         gated: bool = True, eps: float = 1e-5) -> torch.Tensor:
+         gated: bool = True, eps: float = 1e-5, tp=None,
+         li: int = 0) -> torch.Tensor:
     """The JAX `_ffn`: up -> act -> down with `b_up` / `b_down` where not
     gated; else act(gate) * up -> down with `b_gate` / `b_up` / `b_down`,
     bitnet's scales on the unfused projections and its `ffn_sub_norm`
     (RMS, eps) before down. The activation runs in f32 on the gate (or up)
     and is cast back to x's dtype. K15 takes only a silu FFN with none of
-    the biases, sub-norm or scales."""
+    the biases, sub-norm or scales. tp: the TensorShard of a sharded
+    layer li (the sub-norm's statistics over the FFN's whole width)."""
     actf = _ACTS.get(act, _GELU_TANH)
     if not gated:  # gpt2 / neox style
         up = _matmul(x, layer["w_up"])
@@ -298,7 +315,8 @@ def _ffn(x: torch.Tensor, layer: Params, act: str = "silu",
         up = up + layer["b_up"].to(up.dtype)
     a = actf(gate.float()).to(x.dtype) * up
     if "ffn_sub_norm" in layer:  # bitnet: RMS between activation and down
-        a = rms_norm(a, layer["ffn_sub_norm"], eps)
+        a = (rms_norm(a, layer["ffn_sub_norm"], eps) if tp is None
+             else tp.rms_norm(a, layer["ffn_sub_norm"], eps, tp.ffn[li]))
     down = _scaled(_matmul(a, layer["w_down"]), layer, "ffn_down_scale")
     if "b_down" in layer:
         down = down + layer["b_down"].to(down.dtype)
@@ -596,9 +614,16 @@ def layers_body(params: Params, cfg: ModelConfig, x: torch.Tensor,
             c = cfg.clamp_kqv
             q, k, v = (t.clamp(-c, c) for t in (q, k, v))
         if "attn_q_norm" in layer and not (per_head_qk or head_rms):
-            # QK RMS norm over the flat projection
-            q = rms_norm(q, layer["attn_q_norm"], eps)
-            k = rms_norm(k, layer["attn_k_norm"], eps)
+            # QK RMS norm over the flat projection (under tensor
+            # parallelism over every rank's heads, each kv head once)
+            if tp is None:
+                q = rms_norm(q, layer["attn_q_norm"], eps)
+                k = rms_norm(k, layer["attn_k_norm"], eps)
+            else:
+                hs = tp.heads[li]
+                q = tp.rms_norm(q, layer["attn_q_norm"], eps, hs.n_q * D)
+                k = tp.rms_norm(k, layer["attn_k_norm"], eps, hs.n_kv * D,
+                                hs.copies)
         q = q.reshape(B, T, nh, D)
         k = k.reshape(B, T, nkv, D)
         v = v.reshape(B, T, nkv, D)
@@ -618,7 +643,10 @@ def layers_body(params: Params, cfg: ModelConfig, x: torch.Tensor,
         attn_out = attend(li, q, k, v, scale, _is_local(cfg, li))
         attn_out = attn_out.to(x.dtype).reshape(B, T, qdim)
         if "attn_sub_norm" in layer:  # bitnet: RMS between attention and wo
-            attn_out = rms_norm(attn_out, layer["attn_sub_norm"], eps)
+            attn_out = (rms_norm(attn_out, layer["attn_sub_norm"], eps)
+                        if tp is None else tp.rms_norm(
+                            attn_out, layer["attn_sub_norm"], eps,
+                            tp.heads[li].n_q * D))
         attn_out = _matmul(attn_out, layer["wo"])
         if tp is not None:  # row-parallel wo: the sum over tp
             attn_out = tp.reduce(attn_out)
@@ -641,7 +669,7 @@ def layers_body(params: Params, cfg: ModelConfig, x: torch.Tensor,
         if "ffn_gate_inp" in layer and "ffn_norm_exps" not in layer:
             ffn_out = _moe_ffn(ffn_in, layer, cfg, tp)
         else:
-            ffn_out = _ffn(ffn_in, layer, cfg.act, cfg.ffn_gated, eps)
+            ffn_out = _ffn(ffn_in, layer, cfg.act, cfg.ffn_gated, eps, tp, li)
             if tp is not None:  # row-parallel w_down (b_down on rank 0)
                 ffn_out = tp.reduce(ffn_out)
         if "ffn_post_norm" in layer:  # gemma2 sandwich norm, grok
@@ -711,7 +739,7 @@ def stack_layers(params: Params) -> Params:
                     return None
                 data[name] = torch.stack(arrs)
             return linear.QTensor(kind=vals[0].kind, shape=vals[0].shape,
-                                  data=data)
+                                  data=data, whole_in_f=vals[0].whole_in_f)
         if len({v.shape for v in vals}) != 1:
             return None
         return torch.stack(vals)
@@ -731,7 +759,8 @@ def stack_layers(params: Params) -> Params:
 def _take_layer(stacked: Params, li: int) -> Params:
     """Layer li of stacked params, as views (no copy)."""
     return {k: (linear.QTensor(kind=v.kind, shape=v.shape,
-                               data={n: a[li] for n, a in v.data.items()})
+                               data={n: a[li] for n, a in v.data.items()},
+                               whole_in_f=v.whole_in_f)
                 if isinstance(v, linear.QTensor) else v[li])
             for k, v in stacked.items()}
 

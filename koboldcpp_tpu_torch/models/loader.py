@@ -278,6 +278,32 @@ class Model:
         self.device = torch.device(device)
 
 
+def _reader(path: str):
+    """The reader of a GGUF (gguf-split shard sets merged) or a legacy
+    pre-GGUF container (the JAX loader's routing, :264-275)."""
+    from ..gguf.sniff import FileFormat, check_file_format, describe_or_raise
+
+    describe_or_raise(path)  # a precise error for an unsupported container
+    fmt = check_file_format(path)
+    if fmt is FileFormat.GGUF:
+        from ..gguf.reader import open_gguf
+
+        return open_gguf(path)
+    from ..gguf import legacy
+
+    if fmt in legacy.LEGACY_OTHERARCH_FORMATS:
+        return legacy.LegacyOtherArchReader(path)
+    if fmt in legacy.LEGACY_RWKV_FORMATS:
+        return legacy.LegacyRwkvReader(path)  # RWKV v4 .bin
+    return legacy.LegacyLlamaReader(path)
+
+
+def model_arch(path: str) -> str:
+    """The architecture a model file holds, from its metadata alone."""
+    with _reader(path) as r:
+        return config_from_metadata(r.metadata).arch
+
+
 def load_model(path: str, packed: bool = True, dtype=torch.bfloat16,
                device: str | torch.device | None = None,
                loras: list[tuple[str, float]] | None = None) -> Model:
@@ -285,28 +311,11 @@ def load_model(path: str, packed: bool = True, dtype=torch.bfloat16,
     cuda; raises without a GPU unless device="cpu").
     loras: [(adapter_gguf_path, multiplier), ...] merged into the base
     weights at load (lora_filename / lora_multiplier, expose.h:132-133)."""
-    from ..gguf.sniff import FileFormat, check_file_format, describe_or_raise
     from .llama import check_supported
 
     dev = resolve_device(device)
-    describe_or_raise(path)  # a precise error for an unsupported container
     adapters = [LoraAdapter(lp, mult) for lp, mult in (loras or [])]
-    fmt = check_file_format(path)
-    if fmt is not FileFormat.GGUF:
-        # legacy pre-GGUF containers (the JAX loader's routing, :264-275)
-        from ..gguf import legacy
-
-        if fmt in legacy.LEGACY_OTHERARCH_FORMATS:
-            reader_cls = legacy.LegacyOtherArchReader
-        elif fmt in legacy.LEGACY_RWKV_FORMATS:
-            reader_cls = legacy.LegacyRwkvReader  # RWKV v4 .bin
-        else:
-            reader_cls = legacy.LegacyLlamaReader
-    else:
-        from ..gguf.reader import open_gguf
-
-        reader_cls = open_gguf  # merges gguf-split shard sets
-    with reader_cls(path) as r:
+    with _reader(path) as r:
         cfg = config_from_metadata(r.metadata)
         tokenizer = Tokenizer.from_metadata(r.metadata)
         module = arch_module(cfg.arch)

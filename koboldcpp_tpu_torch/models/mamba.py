@@ -18,7 +18,9 @@ The projections go through `linear.matmul`, so q4_k / q5_k `ssm_in` /
 `ssm_x` (out 2 dt_rank + 2 d_state rows) and `ssm_dt` (in dt_rank) fail
 the dispatch's multiple-of-256 rule, as in JAX, and take the dequant
 path. No Pallas kernel exists here in JAX (the scan is `lax.scan`), and
-the port writes none: the recurrence is plain torch ops.
+the port writes none: the recurrence is plain torch ops. Under tensor
+parallelism only the head shards (its vocab rows, gathered), as the JAX
+`shard_params` shards only `output` here.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 from ..kv.recurrent import MambaState, init_mamba_state, scan_rows
 from ..ops import linear
 from ..ops.norms import rms_norm
+from ..parallel.sharding import head_logits
 from .config import ModelConfig
 from .loader import tensor_readers
 
@@ -146,7 +149,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     elif last_only:
         x = x[:, -1:, :]
     x = rms_norm(x, params["output_norm"], cfg.rms_norm_eps)
-    logits = linear.matmul(x, params["output"], out_dtype=torch.float32)
+    logits = head_logits(params, x)  # vocab rows gathered under tp
     return logits, cache
 
 

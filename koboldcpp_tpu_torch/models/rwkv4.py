@@ -12,10 +12,14 @@ is, as rwkv_att_wkv's `ww = pp + time_decay`.
 The accumulators step in f32 one row at a time (kept where the row is
 padding), only through the last valid row (`scan_rows`); each row's
 output (e1 aa + e2 v) / (e1 bb + e2), from the accumulators before its
-step, is batched over the chunk. The projections go through
-`linear.matmul` (a legacy file's q8_0 / q4_0 / q5_1 tensors through K2 /
-K1 at T = 1 and K3 above); the recurrence is `lax.scan` in JAX, with no
-Pallas kernel: plain torch ops here.
+step, is batched over the chunk. Under tensor parallelism (params["tp"],
+parallel/sharding.py) a rank holds the time mix of its channels (r, k,
+v, the decay, `first` and their aa / bb / pp: `cfg.extras[
+"wkv_channels"]`) and its columns of the channel mix; wo and cv are
+summed over tp, and the head's vocab rows gathered. The projections go
+through `linear.matmul` (a legacy file's q8_0 / q4_0 / q5_1 tensors
+through K2 / K1 at T = 1 and K3 above); the recurrence is `lax.scan` in
+JAX, with no Pallas kernel: plain torch ops here.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from ..kv.recurrent import (RWKV4State, init_rwkv4_state, last_valid_row,
                             scan_rows, shifted)
 from ..ops import linear
 from ..ops.norms import layer_norm
+from ..parallel.sharding import head_logits, matmul, reduce
 from .config import ModelConfig
 from .loader import tensor_readers
 
@@ -37,7 +42,8 @@ LN_EPS = 1e-5  # ggml_v3_norm's eps
 
 def init_state(cfg: ModelConfig, batch: int, device="cpu") -> RWKV4State:
     return init_rwkv4_state(cfg.n_layers, batch, cfg.hidden_size,
-                            device=device)
+                            device=device,
+                            wkv_width=(cfg.extras or {}).get("wkv_channels"))
 
 
 def _mix(xn: torch.Tensor, x_prev: torch.Tensor,
@@ -90,23 +96,24 @@ def _time_mix(xn, layer, shift, aa, bb, pp, valid, scan):
     xk = _mix(xn, x_prev, layer["tm_k"])
     xv = _mix(xn, x_prev, layer["tm_v"])
     xr = _mix(xn, x_prev, layer["tm_r"])
-    r = torch.sigmoid(linear.matmul(xr, layer["wr"]).float())
-    k = linear.matmul(xk, layer["wk"]).float()
-    v = linear.matmul(xv, layer["wv"]).float()
+    r = torch.sigmoid(matmul(xr, layer["wr"]).float())
+    k = matmul(xk, layer["wk"]).float()
+    v = matmul(xv, layer["wv"]).float()
     wkv = wkv4_scan(k, v, layer["first"].float(), layer["decay"].float(),
                     aa, bb, pp, valid, scan)
-    return linear.matmul((r * wkv).to(xn.dtype), layer["wo"])
+    return matmul((r * wkv).to(xn.dtype), layer["wo"])
 
 
-def _channel_mix(xn, layer, shift):
-    """rwkv_ffn: r = sigmoid(rw xr); k = relu(kw xk)^2; out = r (vw k)."""
+def _channel_mix(xn, layer, shift, params):
+    """rwkv_ffn: r = sigmoid(rw xr); k = relu(kw xk)^2; out = r (vw k)
+    (vw k summed over tensor-parallel ranks under params["tp"])."""
     x_prev = shifted(xn, shift)
     xk = _mix(xn, x_prev, layer["cm_k"])
     xr = _mix(xn, x_prev, layer["cm_r"])
     r = torch.sigmoid(linear.matmul(xr, layer["cr"]).float())
     k = torch.square(torch.relu(
-        linear.matmul(xk, layer["ck"]).float())).to(xn.dtype)
-    return (r * linear.matmul(k, layer["cv"]).float()).to(xn.dtype)
+        matmul(xk, layer["ck"]).float())).to(xn.dtype)
+    return (r * reduce(params, matmul(k, layer["cv"])).float()).to(xn.dtype)
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -126,12 +133,14 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = layer_norm(x, params["tok_norm"], params["tok_norm_b"], LN_EPS)
     for li, layer in enumerate(params["layers"]):
         xn = layer_norm(x, layer["ln1"], layer["ln1_b"], LN_EPS)
-        out = _time_mix(xn, layer, cache.att_shift[li], cache.aa[li],
-                        cache.bb[li], cache.pp[li], valid, scan)
+        out = reduce(params, _time_mix(xn, layer, cache.att_shift[li],
+                                       cache.aa[li], cache.bb[li],
+                                       cache.pp[li], valid, scan))
         x = x + out.to(x.dtype)
         cache.att_shift[li].copy_(last_valid_row(xn, n_valid))
         xn = layer_norm(x, layer["ln2"], layer["ln2_b"], LN_EPS)
-        x = x + _channel_mix(xn, layer, cache.ffn_shift[li]).to(x.dtype)
+        x = x + _channel_mix(xn, layer, cache.ffn_shift[li],
+                             params).to(x.dtype)
         cache.ffn_shift[li].copy_(last_valid_row(xn, n_valid))
 
     if last_index is not None:
@@ -139,7 +148,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     elif last_only:
         x = x[:, -1:, :]
     x = layer_norm(x, params["output_norm"], params["output_norm_b"], LN_EPS)
-    logits = linear.matmul(x, params["output"], out_dtype=torch.float32)
+    logits = head_logits(params, x)
     return logits, cache
 
 

@@ -15,6 +15,10 @@ S[i,j] = w[t,i] S[i,j] + k[t,i] v[t,j]):
 - token-shift carries from the last valid row; halving the residual
   every `rescale_every` layers (cfg.extras).
 
+Under tensor parallelism (params["tp"], parallel/sharding.py) a rank holds
+the time mix of its heads (r, k, v, g, the decay, `first`, ln_x and its
+heads' WKV state) and its columns of the channel mix; wo and cv are
+summed over tp, and the head's vocab rows gathered.
 The projections go through `linear.matmul` (K1 / K2 at T = 1, K7 / K3
 above); w1 (out 5 E), decay_w1 and decay_w2 fail the dispatch's
 multiple-of-256 rule, as in JAX, and take the dequant path. The
@@ -32,6 +36,7 @@ from ..kv.recurrent import (RWKVState, init_rwkv_state, last_valid_row,
                             scan_rows, shifted)
 from ..ops import linear
 from ..ops.norms import layer_norm
+from ..parallel.sharding import head_logits, matmul, reduce
 from .config import ModelConfig
 from .loader import tensor_readers
 
@@ -71,8 +76,9 @@ def _time_mix(xn: torch.Tensor, layer: Params, cfg: ModelConfig,
               shift: torch.Tensor, wkv: torch.Tensor, valid: torch.Tensor,
               scan: tuple[int, bool]) -> torch.Tensor:
     """xn (B, T, C) the normed input; shift (B, C) the previous row; wkv
-    (B, H, D, D) the state, updated in place. Returns the output
-    projection."""
+    (B, H, D, D) the state of the H heads this rank runs, updated in
+    place. Returns the output projection (this rank's part of it under
+    tensor parallelism)."""
     B, T, C = xn.shape
     H, D = cfg.n_heads, cfg.head_dim
     sx = shifted(xn, shift) - xn
@@ -88,12 +94,12 @@ def _time_mix(xn: torch.Tensor, layer: Params, cfg: ModelConfig,
     xr = xn + sx * (mr + layer["lerp_r"])
     xg = xn + sx * (mg + layer["lerp_g"])
 
-    r = linear.matmul(xr, layer["wr"]).float().reshape(B, T, H, D)
-    k = linear.matmul(xk, layer["wk"]).float().reshape(B, T, H, D)
-    v = linear.matmul(xv, layer["wv"]).float().reshape(B, T, H, D)
-    g = F.silu(linear.matmul(xg, layer["wg"]).float())
+    r = matmul(xr, layer["wr"]).float().reshape(B, T, H, D)
+    k = matmul(xk, layer["wk"]).float().reshape(B, T, H, D)
+    v = matmul(xv, layer["wv"]).float().reshape(B, T, H, D)
+    g = F.silu(matmul(xg, layer["wg"]).float())
     w = (layer["decay"].float()
-         + linear.matmul(torch.tanh(
+         + matmul(torch.tanh(
              linear.matmul(xw, layer["decay_w1"]).float()).to(xn.dtype),
              layer["decay_w2"]).float())
     w = torch.exp(-torch.exp(w)).reshape(B, T, H, D)
@@ -102,20 +108,22 @@ def _time_mix(xn: torch.Tensor, layer: Params, cfg: ModelConfig,
     # per-head norm over D, then the full-width affine ln_x
     mean = y.mean(dim=-1, keepdim=True)
     var = y.var(dim=-1, keepdim=True, correction=0)
-    y = ((y - mean) * torch.rsqrt(var + GROUP_NORM_EPS)).reshape(B, T, C)
+    y = ((y - mean) * torch.rsqrt(var + GROUP_NORM_EPS)).reshape(B, T, H * D)
     y = y * layer["ln_x"].float() + layer["ln_x_b"].float()
-    return linear.matmul((y * g).to(xn.dtype), layer["wo"])
+    return matmul((y * g).to(xn.dtype), layer["wo"])
 
 
-def _channel_mix(xn: torch.Tensor, layer: Params,
-                 shift: torch.Tensor) -> torch.Tensor:
+def _channel_mix(xn: torch.Tensor, layer: Params, shift: torch.Tensor,
+                 params: Params) -> torch.Tensor:
+    """The channel mix (cv's product summed over tensor-parallel ranks
+    under params["tp"])."""
     sx = shifted(xn, shift) - xn
     xk = xn + sx * layer["c_lerp_k"]
     xr = xn + sx * layer["c_lerp_r"]
     r = torch.sigmoid(linear.matmul(xr, layer["cr"]).float())
     k = torch.square(torch.relu(
-        linear.matmul(xk, layer["ck"]).float())).to(xn.dtype)
-    return (r * linear.matmul(k, layer["cv"]).float()).to(xn.dtype)
+        matmul(xk, layer["ck"]).float())).to(xn.dtype)
+    return (r * reduce(params, matmul(k, layer["cv"])).float()).to(xn.dtype)
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -137,12 +145,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = layer_norm(x, params["tok_norm"], params["tok_norm_b"], eps)
     for li, layer in enumerate(params["layers"]):
         xn = layer_norm(x, layer["attn_norm"], layer["attn_norm_b"], eps)
-        out = _time_mix(xn, layer, cfg, cache.att_shift[li], cache.wkv[li],
-                        valid, scan)
+        out = reduce(params, _time_mix(xn, layer, cfg, cache.att_shift[li],
+                                       cache.wkv[li], valid, scan))
         x = x + out.to(x.dtype)
         cache.att_shift[li].copy_(last_valid_row(xn, n_valid))
         xn = layer_norm(x, layer["attn_norm_2"], layer["attn_norm_2_b"], eps)
-        x = x + _channel_mix(xn, layer, cache.ffn_shift[li]).to(x.dtype)
+        x = x + _channel_mix(xn, layer, cache.ffn_shift[li],
+                             params).to(x.dtype)
         cache.ffn_shift[li].copy_(last_valid_row(xn, n_valid))
         if rescale and (li + 1) % rescale == 0:
             x = x * torch.tensor(0.5, dtype=x.dtype, device=x.device)
@@ -152,7 +161,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     elif last_only:
         x = x[:, -1:, :]
     x = layer_norm(x, params["output_norm"], params["output_norm_b"], eps)
-    logits = linear.matmul(x, params["output"], out_dtype=torch.float32)
+    logits = head_logits(params, x)
     return logits, cache
 
 

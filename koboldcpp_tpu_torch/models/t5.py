@@ -19,7 +19,8 @@ projections go through `linear.matmul` (the decoder's one-row step on K1
 / K2; the encoder's bucketed prompt, T >= 16, on K3 / K13); the attention
 is plain torch ops, as the JAX module's einsums. flan-T5's 32128-row head
 fails the dispatch's multiple-of-256 rule, as in JAX, and takes the
-dequant path.
+dequant path. Under tensor parallelism only the head shards (its vocab
+rows, gathered), as the JAX `shard_params` shards only `output` here.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ import torch.nn.functional as F
 
 from ..ops import linear
 from ..ops.norms import rms_norm
+from ..parallel.sharding import head_logits
 from .bert import attention
 from .config import ModelConfig
 from .deepseek2 import cache_rows
@@ -210,7 +212,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     elif last_only:
         x = x[:, -1:, :]
     x = rms_norm(x, params["output_norm"], cfg.rms_norm_eps)
-    logits = linear.matmul(x, params["output"], out_dtype=torch.float32)
+    logits = head_logits(params, x)  # vocab rows gathered under tp
     return logits, cache
 
 

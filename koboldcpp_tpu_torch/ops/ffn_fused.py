@@ -24,7 +24,7 @@ from . import _build
 from .linear import QTensor, q4k_values
 from .quant_matmul import (_FIELD_DTYPES, _SMEM_PER_SM, _SMS, Q4K_KS,
                            Q4K_ROWS, RING_FITS, SMEM_MAX, _group_sums,
-                           _window_order, kq_dequant_bf16)
+                           _window_order, kq_dequant_bf16, pallas_on)
 
 _VMEM_BUDGET = 12 * 1024 * 1024  # the JAX kernel's VMEM budget (shape rule)
 # the JAX default of KCPP_FFN_FUSED_MAX_T, which the port does not read:
@@ -65,7 +65,7 @@ def _tiles(T: int, C: int, F: int) -> tuple[int, int] | None:
 def ffn_fused(x: torch.Tensor, w_gateup: QTensor, w_down: QTensor):
     """SwiGLU FFN of x (..., C) at T <= FUSED_MAX_T tokens through K15 (T=1:
     K15b, T>1: K15a), or None where the JAX `ffn_fused` declines."""
-    if not _enabled():
+    if not (_enabled() and pallas_on()):
         return None
     if not (isinstance(w_gateup, QTensor) and isinstance(w_down, QTensor)):
         return None

@@ -80,6 +80,10 @@ class QTensor:
     kind: str  # "dense" | "q2_k" ... "q8_0" | the IQ kinds | the opt-in kinds
     shape: tuple[int, ...]  # logical (out, in)
     data: dict[str, Any] = field(default_factory=dict)
+    # a row-parallel shard's whole weight's in_f (0: the weight is whole):
+    # the dispatch picks the activation variant on it, so that the shard's
+    # group dots are the whole weight's
+    whole_in_f: int = 0
 
     @property
     def in_features(self) -> int:
@@ -680,7 +684,8 @@ class LayerRef:
         """This layer's QTensor, as views of the stacked fields (no
         copy)."""
         return QTensor(kind=self.qt.kind, shape=self.qt.shape,
-                       data={n: a[self.li] for n, a in self.qt.data.items()})
+                       data={n: a[self.li] for n, a in self.qt.data.items()},
+                       whole_in_f=self.qt.whole_in_f)
 
 
 def matmul(x: torch.Tensor, qt, out_dtype=None) -> torch.Tensor:

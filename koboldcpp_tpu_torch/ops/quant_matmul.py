@@ -40,7 +40,9 @@ CUDA tensor it launches the kernel or raises.
                                        q2_k/q3_k, IQ and q4_k_i8 bodies;
                                        q4_k_i8 takes it at every T; two
                                        variants, the tiling from
-                                       `kq_plan`)
+                                       `kq_plan`; K3.q4_k_magic its
+                                       magic-number q4_k body under
+                                       KCPP_Q4K_2D=magic)
   K17a q4k_matvec_stacked T=1 q4_k/    (csrc/q4k_matvec.cu with a layer
                      q5_k, layer li    index; JAX `_packed_matvec_q4k_
                      of stacked fields stacked`: K1's bodies)
@@ -55,15 +57,17 @@ kind's body has a counter of its own, "<id>.<kind>" ("K1.q5_k", "K7.q5_k",
 "K2.q8_0", "K3.q5_k", "K3.q8_0", "K12.q2_k", "K12.q3_k", "K13.q2_k",
 "K13.q3_k", and "K12.<kind>" / "K13.<kind>" for the four IQ kinds); K14
 counts q4_k as "K14" and q5_k as "K14.q5_k"; the opt-in bodies count as
-"K12.q6_k_i8f", "K12.q3_k_n4", "K12.q2_k_n4", "K13.q4_k_i8" and
-"K2.q8_0_bf16".
+"K12.q6_k_i8f", "K12.q3_k_n4", "K12.q2_k_n4", "K13.q4_k_i8",
+"K2.q8_0_bf16" and "K3.q4_k_magic".
 
 `matmul_packed(x, qt)` returns None when the JAX dispatch would decline the
 shape (out_f or in_f not a multiple of 256, an in_f too wide for any 2-D
 tile or for an expanded kind's T=1 scratch, or an expanded kind without its
 dense fields at T > 1); callers then take the dequant path in
-ops/linear.py. It reads KCPP_SBQ, KCPP_MM_I8 and KCPP_Q4K_I8 at every call,
-as the JAX dispatch reads them. `matmul_packed_stacked(x, qt, li)` is its
+ops/linear.py. It reads KCPP_SBQ, KCPP_MM_I8, KCPP_Q4K_I8, KCPP_Q4K_DECODE,
+KCPP_Q4K_2D and KCPP_PALLAS_MM at every call and KCPP_MATVEC_MAX_T at
+import, as the JAX dispatch reads them (`matmul_packed` says what each
+selects). `matmul_packed_stacked(x, qt, li)` is its
 counterpart for a layer-stacked QTensor (the scan decode path's
 `LayerRef`): K17a / K17b, or None where JAX's declines.
 """
@@ -81,6 +85,51 @@ from .linear import (EXPANDED, IQ_KINDS, QTensor, iq_group, iq_values,
                      q5k_values, q6k_values)
 
 VMEM_BUDGET = 13 * 1024 * 1024  # the JAX 2-D kernel's tile budget (see below)
+# the JAX row tiles of its q4_k / q5_k matvec (`_q4k_matvec_rt`, at their
+# defaults)
+ROW_TILE, DECODE_ROW_TILE = 256, 512
+# the T cap of the matvecs where the q4_k / q5_k activations stay bf16
+# (KCPP_MATVEC_MAX_T), read at import as the JAX module reads it
+MATVEC_MAX_T = int(os.environ.get("KCPP_MATVEC_MAX_T", "4"))
+
+
+def pallas_on() -> bool:
+    """KCPP_PALLAS_MM (read at every call): "0" sends every packed matmul
+    to K3 / K13, where the JAX package takes its XLA dequant path (bf16
+    weights, f32 accumulation: the same function), and turns K14 / K15
+    off."""
+    return os.environ.get("KCPP_PALLAS_MM", "1") != "0"
+
+
+def _decode_on() -> bool:
+    """KCPP_Q4K_DECODE (read at every call): anything but "1" turns every
+    matvec off (K1, K7, K2, K12, K14, K17a / b); their calls go to K3 /
+    K13, as the JAX dispatch sends them to its 2-D kernel."""
+    return os.environ.get("KCPP_Q4K_DECODE", "1") == "1"
+
+
+def _magic() -> bool:
+    """KCPP_Q4K_2D=magic (read at every call): K3's q4_k calls take the
+    magic-number body (K3.q4_k_magic), as JAX takes `_q4k_magic_kernel`."""
+    return os.environ.get("KCPP_Q4K_2D", "sexp") == "magic"
+
+
+def _q4k_matvec_rt(kind: str, out_f: int, in_f: int, T: int, i8: bool,
+                   raw: bool) -> int | None:
+    """The JAX `_q4k_matvec_rt`: its q4_k / q5_k matvec's row tile within
+    the VMEM budget, or None (the JAX dispatch then takes its 2-D
+    kernel). The port reads it where it extends K7's bf16 body past T = 8
+    (KCPP_MATVEC_MAX_T > 8)."""
+    GS, C2 = in_f // 64, in_f // 2
+    n_qfields = 2 if kind == "q5_k" else 1
+    scratch_b = (2 * T * GS * C2 if (i8 or raw) else 2 * 2 * T * GS * C2 * 2)
+    budget = VMEM_BUDGET - scratch_b
+    for cand in (DECODE_ROW_TILE, ROW_TILE, 128):
+        if (out_f % cand == 0 and 2 * cand * (n_qfields * C2 + 8 * GS)
+                + 6 * cand * C2 <= budget):
+            return cand
+    return None
+
 
 # the layer index and the five per-layer element counts of the stacked
 # entry points (STACKED_PARAMS, csrc/common.cuh)
@@ -104,6 +153,7 @@ _K3_KINDS = {"q4_k": (0, "qs2", None, None, 32),
              "iq3ps": (8, "qs", "hmask", "sg", 0),
              "iq1p": (9, "qs", None, None, None),
              "q4_k_i8": (10, "q", None, None, 32)}
+_KQ_MAGIC = 11  # kq_matmul.cu's magic-number q4_k body (K3.q4_k_magic)
 _LOWBIT = ("q2_k", "q3_k")  # the kinds of K12 / K13 besides the IQ kinds
 _K13_KINDS = _LOWBIT + IQ_KINDS + ("q4_k_i8",)
 
@@ -392,11 +442,13 @@ def q4k_matvec(x: torch.Tensor, qt: QTensor, i8: bool) -> torch.Tensor:
 
 def q4k_matvec_t(x: torch.Tensor, qt: QTensor, i8: bool) -> torch.Tensor:
     """K7 wrapper (q4_k or q5_k). x (T, in_f) bf16 contiguous, 2 <= T <= 8
-    -> (T, out_f) bf16; row t equals K1 on x[t] bit for bit."""
+    (any T >= 2 for the bf16 body: KCPP_MATVEC_MAX_T) -> (T, out_f) bf16;
+    row t equals K1 on x[t] bit for bit."""
     if not x.is_cuda:
         return q4k_matvec_t_plain(x, qt, i8)
-    if x.dim() != 2 or not 2 <= x.shape[0] <= 8:
-        raise ValueError("K7 takes x of shape (T, in_f) with 2 <= T <= 8")
+    if x.dim() != 2 or not 2 <= x.shape[0] <= (8 if i8 else 65535 * 8):
+        raise ValueError("K7 takes x of shape (T, in_f) with 2 <= T <= 8 "
+                         "(int8 activations) or 2 <= T (bf16)")
     y = _q4k_launch(x, qt, i8, "K7")
     _count("K7", qt)
     return y
@@ -1143,6 +1195,24 @@ def kq_matmul_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     return acc.to(torch.bfloat16)
 
 
+def kq_matmul_magic_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """K3.q4_k_magic's plain version, `_q4k_magic_kernel` (KCPP_Q4K_2D=
+    magic): x (T, in_f) bf16 -> (T, out_f) bf16 for a q4_k QTensor, w = s n
+    taken as 0.125 bf16(s (128 + 8 n)) - 16 s: the f32 product with the
+    bf16 weights bf16(s (128 + 8 n)) (one rounding of an exact product,
+    where `sexp` rounds s n), times 0.125, less 16 xsum . s and xsum . min
+    over the bf16 group sums of 32 columns."""
+    out_f, in_f = qt.shape
+    n = q4k_values(qt.data["qs2"]).float().reshape(out_f, -1, 32)
+    s = qt.data["scale"].float()
+    w = (s[..., None] * (128.0 + 8.0 * n)).reshape(out_f, in_f)
+    acc = torch.matmul(x.float(), w.to(torch.bfloat16).float().t()) * 0.125
+    xs = _group_sums(x, 32).float()
+    acc = acc - 16.0 * torch.matmul(xs, s.t())
+    acc = acc - torch.matmul(xs, qt.data["min"].float().t())
+    return acc.to(torch.bfloat16)
+
+
 def _affine_group(qt: QTensor) -> int:
     """The group width of kq_matmul's affine term (0: none)."""
     group = _K3_KINDS[qt.kind][4]
@@ -1236,13 +1306,17 @@ def kq_plan(kind: str, T: int, out_f: int, in_f: int, grp: int = 0) -> KqPlan:
     return KqPlan("wgmma", rows, tokens, split, (out_f // rows, n_tiles))
 
 
-def kq_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+def kq_matmul(x: torch.Tensor, qt: QTensor,
+              magic: bool = False) -> torch.Tensor:
     """K3 / K13 wrapper. x (T, in_f) bf16 contiguous -> (T, out_f) bf16.
     Two launches, counted once: the prep kernel (x with its columns
     permuted per superblock, the affine term's group sums) and the matmul
-    `kq_plan` picks."""
+    `kq_plan` picks. magic: a q4_k weight through the magic-number body
+    (K3.q4_k_magic, `kq_matmul_magic_plain`)."""
+    if magic and qt.kind != "q4_k":
+        raise ValueError(f"K3.q4_k_magic takes q4_k, not {qt.kind}")
     if not x.is_cuda:
-        return kq_matmul_plain(x, qt)
+        return (kq_matmul_magic_plain if magic else kq_matmul_plain)(x, qt)
     out_f, in_f = qt.shape
     T = x.shape[0]
     what = "K13" if qt.kind in _K13_KINDS else "K3"
@@ -1256,6 +1330,7 @@ def kq_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
         + [_build.P]})
     d = qt.data
     kind, w0, w1, w2, _ = _K3_KINDS[qt.kind]
+    kind = _KQ_MAGIC if magic else kind
     group = _affine_group(qt)
     xp = torch.empty_like(x)
     xs = None
@@ -1270,7 +1345,10 @@ def kq_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
         d["scale"].data_ptr(), _ptr(d.get("min")), y.data_ptr(), T, out_f,
         in_f, G, _KQ_VARIANTS.index(plan.variant), plan.rows, plan.tokens,
         plan.split, *plan.grid, _build.stream_ptr()), what)
-    _count(what, qt)
+    if magic:
+        _build.launches["K3.q4_k_magic"] += 1
+    else:
+        _count(what, qt)
     return y
 
 
@@ -1345,7 +1423,20 @@ def matmul_packed(x: torch.Tensor, qt: QTensor) -> torch.Tensor | None:
     `_iq3p_kernel`, `_iq1p_kernel`, `_q4k_i8_kernel`); q6_k, q8_0, q2_k,
     q3_k and the IQ kinds thus take K3 / K13 at every T > 1, the batched
     decode step included. The TPU-only VMEM row-tile checks that can also
-    send a T=1 call to the 2-D kernel are not mirrored."""
+    send a T=1 call to the 2-D kernel are not mirrored, but where
+    KCPP_MATVEC_MAX_T lifts the bf16 q4_k / q5_k cap past K7's 8 tokens,
+    K7's bf16 body serves what the JAX `_q4k_matvec_rt` admits and K3 the
+    rest.
+
+    The launcher's kernel-selection variables, read where the JAX dispatch
+    reads them: KCPP_MATVEC_MAX_T (at import) caps every matvec's T where
+    the activations are not int8 (the default 4; K7's int8 body keeps 8);
+    KCPP_Q4K_DECODE other than "1" turns every matvec off (K3 / K13 take
+    T = 1 too, in their swap form); KCPP_Q4K_2D=magic sends K3's q4_k
+    calls to its magic-number body; KCPP_PALLAS_MM=0 sends every call to
+    K3 / K13 (an expanded kind as its dense kind, where it carries its
+    fields). KCPP_Q4K_RAW_X picks between two JAX bodies of one function
+    (tests/test_torch_kernel_vars.py), both K1's bf16 body."""
     out_f, in_f = qt.shape
     if out_f % 256 or in_f % 256:
         return None
@@ -1355,8 +1446,9 @@ def matmul_packed(x: torch.Tensor, qt: QTensor) -> torch.Tensor | None:
     x2 = x.reshape(-1, in_f).to(torch.bfloat16).contiguous()
     T = x2.shape[0]
     q45 = qt.kind in ("q4_k", "q5_k")
+    pallas = pallas_on()
     if qt.kind in EXPANDED:
-        if T == 1:
+        if T == 1 and pallas:
             if not _expanded_fits(qt.kind, in_f):
                 return None
             return kq_expanded_matvec(x2[0], qt).reshape(*lead, out_f)
@@ -1364,30 +1456,37 @@ def matmul_packed(x: torch.Tensor, qt: QTensor) -> torch.Tensor | None:
         if any(n not in qt.data for n in _DENSE_FIELDS[dense_kind]):
             return None
         return matmul_packed(x, QTensor(kind=dense_kind, shape=qt.shape,
-                                        data=qt.data))
-    if _sbq(qt, T):
+                                        data=qt.data,
+                                        whole_in_f=qt.whole_in_f))
+    decode = pallas and _decode_on()
+    if decode and _sbq(qt, T):
         return q4k_matvec_sbq(x2, qt).reshape(*lead, out_f)
-    if T == 1 and qt.kind in IQ_KINDS:
+    # a row-parallel shard takes the activation variant of its whole weight
+    act_in = qt.whole_in_f or in_f
+    i8 = q45 and _q45_i8(act_in, T)
+    # the JAX `max_t`: 8 for int8 q4_k / q5_k activations, else the cap
+    matvec = decode and T <= (8 if i8 else MATVEC_MAX_T)
+    if matvec and T == 1 and qt.kind in IQ_KINDS:
         if in_f >= 32 * iq_group(qt):
             return iq_matvec(x2[0], qt).reshape(*lead, out_f)
-    elif T == 1 and qt.kind != "q4_k_i8":
+    elif matvec and T == 1 and qt.kind != "q4_k_i8":
         if qt.kind == "q8_0":
-            y = q8_0_matvec(x2[0], qt, i8=_mm_i8(qt.kind, in_f))
+            y = q8_0_matvec(x2[0], qt, i8=_mm_i8(qt.kind, act_in))
         elif q45:
-            y = q4k_matvec(x2[0], qt, i8=_q45_i8(in_f, 1))
+            y = q4k_matvec(x2[0], qt, i8=i8)
         else:
             fn = q23k_matvec if qt.kind in _LOWBIT else q6k_matvec
-            y = fn(x2[0], qt, i8=_mm_i8(qt.kind, in_f))
+            y = fn(x2[0], qt, i8=_mm_i8(qt.kind, act_in))
         return y.reshape(*lead, out_f)
-    if q45:
-        i8 = _q45_i8(in_f, T)
-        if T <= (8 if i8 else 4):
-            return q4k_matvec_t(x2, qt, i8).reshape(*lead, out_f)
+    elif matvec and q45 and (T <= 8 or _q4k_matvec_rt(
+            qt.kind, out_f, in_f, T, False, False) is not None):
+        return q4k_matvec_t(x2, qt, i8).reshape(*lead, out_f)
     # ultra-wide in_f: even the JAX package's smallest 2-D tile does not fit
     # its VMEM budget, and it takes the dequant path instead
     if 12 * 128 * (in_f // 2) + 4 * 64 * (in_f // 2) > VMEM_BUDGET + 1024 * 1024:
         return None
-    return kq_matmul(x2, qt).reshape(*lead, out_f)
+    return kq_matmul(x2, qt, magic=qt.kind == "q4_k" and _magic()
+                     ).reshape(*lead, out_f)
 
 
 # ---------------------------------------------------------------------------
@@ -1475,11 +1574,12 @@ def matmul_packed_stacked(x: torch.Tensor, qt: QTensor,
     declines it, as the JAX docstring promises). q4_k / q5_k take K17a
     (int8 activations unless KCPP_Q4K_I8=0, then q4_k's bf16 body); q6_k,
     q8_0, q2_k, q3_k and the IQ kinds take K17b with `_mm_i8`'s variant.
-    KCPP_Q4K_DECODE is not read here, as nowhere in the port; nor is the TPU
-    kernel's VMEM row-tile rule, which can decline an ultra-wide q4_k
-    in_f: K17a serves every width, with K1's result on the layer."""
+    It also declines under KCPP_Q4K_DECODE other than "1" or
+    KCPP_PALLAS_MM=0, as JAX's does. The TPU kernel's VMEM row-tile rule,
+    which can decline an ultra-wide q4_k in_f, is not read: K17a serves
+    every width, with K1's result on the layer."""
     out_f, in_f = qt.shape
-    if out_f % 256 or in_f % 256:
+    if out_f % 256 or in_f % 256 or not (pallas_on() and _decode_on()):
         return None
     lead = x.shape[:-1]
     x2 = x.reshape(-1, in_f)
@@ -1493,6 +1593,7 @@ def matmul_packed_stacked(x: torch.Tensor, qt: QTensor,
         return q4k_matvec_stacked(x1, qt, li, i8).reshape(*lead, out_f)
     if qt.kind in _K17B_KINDS and (qt.kind not in IQ_KINDS
                                    or in_f >= 32 * iq_group(qt)):
-        return matvec_stacked(x1, qt, li, _mm_i8(qt.kind, in_f)).reshape(
+        return matvec_stacked(x1, qt, li, _mm_i8(
+            qt.kind, qt.whole_in_f or in_f)).reshape(
             *lead, out_f)
     return None

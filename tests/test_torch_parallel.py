@@ -11,9 +11,13 @@ assert_allclose's atol + rtol |ref| form) are the ceiling; each test's
 docstring gives the max |diff| measured on this tree.
 """
 import dataclasses
+import json
 import os
+import signal
 import subprocess
 import sys
+import time
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
 import jax
@@ -33,12 +37,16 @@ from koboldcpp_tpu.parallel.pipeline import (pipeline_forward,
                                              shard_stacked_for_pp)
 from koboldcpp_tpu.parallel.ring_attention import ring_attention
 from koboldcpp_tpu.parallel.sequence import shard_cache_sp, sp_forward
+from koboldcpp_tpu_torch.cli import apply_rope_config
 from koboldcpp_tpu_torch.engine import Engine as TEngine, GenParams
 from koboldcpp_tpu_torch.engine.batch_engine import BatchedEngine
 from koboldcpp_tpu_torch.models.config import ModelConfig as TConfig
 from koboldcpp_tpu_torch.models.convert import params_from_jax
 from koboldcpp_tpu_torch.models.loader import Model as TModel
+from koboldcpp_tpu_torch.models.loader import load_model as t_load_model
+from koboldcpp_tpu_torch.ops import linear as tlinear
 from koboldcpp_tpu_torch.parallel import comm
+from koboldcpp_tpu_torch.parallel.sharding import KeptWhole, _cols
 from koboldcpp_tpu_torch.sampling import SamplerParams
 from koboldcpp_tpu_torch.tokenizers import Tokenizer
 from koboldcpp_tpu_torch.tokenizers.vocab import vocab_from_metadata
@@ -142,9 +150,16 @@ class _Run:
                 cwd=d, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 env=env)
         # the launcher's own ranks: `--mesh 1,2` on the CPU, one-shot; the
-        # same over a BERT model (refused); two hosts of one process each
+        # same serving a BERT model's embeddings; two hosts of one process
+        # each
         self.cli = cli(FIX, "--mesh", "1,2")
-        self.cli_bert = cli(BERT_FIX, "--mesh", "1,2")
+        self.bert_port = comm.free_port()
+        self.cli_bert = subprocess.Popen(
+            [sys.executable, "-m", "koboldcpp_tpu_torch", BERT_FIX,
+             "--device", "cpu", "--mesh", "1,2", "--contextsize", "256",
+             "--host", "127.0.0.1", "--port", str(self.bert_port)],
+            cwd=d, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            env=env)
         host_port = str(comm.free_port())
         self.cli_hosts = [cli(FIX, "--coordinator", f"127.0.0.1:{host_port}",
                               "--numprocesses", "2", "--processid", str(i))
@@ -527,14 +542,62 @@ def test_mesh_launch_on_the_cpu(run):
     assert "Rank 1: following rank 0's steps" in out
 
 
+class _Bf16Partials(KeptWhole):
+    """A row-parallel weight as tp=2 computes it: the products of its two
+    column halves (`_cols`, each taking the whole weight's activation
+    variant), each leaving the kernel in bf16, summed in the activations'
+    dtype as the ranks' all_reduce sums them."""
+
+    def __init__(self, qt):
+        h = qt.shape[1] // 2
+        self.halves = [(0, h, _cols(qt, 0, h)),
+                       (h, qt.shape[1], _cols(qt, h, qt.shape[1]))]
+        self.shape = qt.shape
+
+    def matmul(self, x, out_dtype=None):
+        y0, y1 = (tlinear.matmul(x[..., a:b].contiguous(), w, out_dtype)
+                  for a, b, w in self.halves)
+        return y0 + y1
+
+
 def test_mesh_refuses_a_model_llama_does_not_run(run):
-    """`--mesh 1,2` over a nomic-bert model: models/bert.py calls no
-    collective, so sharding it would serve another function than the
-    whole model's; both ranks refuse it at load and exit."""
-    out = run.cli_bert.communicate(timeout=240)[0].decode(errors="replace")
-    assert run.cli_bert.returncode != 0, out[-3000:]
-    assert ("tensor and expert parallelism serve the models/llama.py "
-            "decoders; nomic-bert runs bert.py") in out, out[-3000:]
+    """`--mesh 1,2 --device cpu` over the nomic-bert fixture (Q4_K_M,
+    bf16): both ranks load their shard (models/bert.py's heads and FFN
+    columns), rank 0 serves /v1/embeddings while rank 1 follows its
+    steps; SIGINT stops both ranks. The embeddings equal, bit for bit,
+    the unsharded port engine's with each w_down summed from its two
+    column halves' bf16 products (`_Bf16Partials`: what the ranks
+    compute), and the unsharded engine's own within the fixtures' 2e-2 +
+    2e-2 |want| (measured max |diff| 1.0e-2 at bf16 activations). Both
+    references take the launcher's NTK-aware RoPE base for context 256."""
+    texts = ["Once upon a time", "abc"]
+    url = f"http://127.0.0.1:{run.bert_port}"
+    deadline = time.time() + 240
+    while True:
+        try:
+            urllib.request.urlopen(url + "/api/extra/version", timeout=5)
+            break
+        except OSError:
+            assert run.cli_bert.poll() is None and time.time() < deadline, \
+                run.cli_bert.communicate()[0].decode(errors="replace")[-3000:]
+            time.sleep(0.5)
+    req = urllib.request.Request(
+        url + "/v1/embeddings", data=json.dumps({"input": texts}).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        got = np.array([d["embedding"] for d in json.load(r)["data"]])
+    run.cli_bert.send_signal(signal.SIGINT)
+    out = run.cli_bert.communicate(timeout=120)[0].decode(errors="replace")
+    assert "Device mesh: dp=1 tp=2 (2 devices)" in out, out[-3000:]
+    assert "Rank 1: following rank 0's steps" in out, out[-3000:]
+    m = t_load_model(BERT_FIX, device="cpu")
+    apply_rope_config(m.cfg, None, 256)  # the launcher's NTK-aware base
+    want = TEngine(m, max_context=256, device="cpu").embed(texts)
+    for layer in m.params["layers"]:
+        layer["w_down"] = _Bf16Partials(layer["w_down"])
+    split = TEngine(m, max_context=256, device="cpu").embed(texts)
+    np.testing.assert_array_equal(got, split)
+    np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)
 
 
 def test_multihost_launch_on_the_cpu(run):
